@@ -32,12 +32,35 @@ Phases, one printed line or more each; any failure exits non-zero:
 7. restir small: two ReSTIR frames at 64x64 on the card and on the CPU
    (plain versions, which tests/test_torch_pipeline.py holds against the
    JAX package) from the same start state must agree.
-Then a "kernels" JSON line (launches from phase 6), the card's name and
-power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
+8. mesh kernels: B5 (bound scan), B6 (shared-BLAS sweep), B7 (serial
+   instance walk) and B11 (the bounds pre-pass at K = 438) against their
+   plain versions, bit for bit, on the inputs that the primary rays and the
+   bounce-1 rays of the second mesh frame at 1920x1080 give them (every
+   round of the candidate loop; some B6 batch must hold neighbouring lanes
+   on different instances), and B7 once more on the primary rays before
+   any candidate round, where the serial walk carries every live lane (the
+   frame's own backstop batches are almost empty); kernel and plain times
+   from CUDA events.
+9. mesh: the instanced-mesh frame (the demo scene as 438 instances of one
+   512-face geosphere, 1920x1080, 1 spp, 8 bounces) through
+   bench.bench_mesh, counted from zero: frame time, Mray/s, rays per frame
+   and launches; per trace call B5 must launch 4 times, B6 3, B7 1 and B11
+   2; the image must be a finite (1080, 1920, 3) and stay near the sphere
+   frame of phase 4 (tone-mapped mean within 25%, primary hit mask equal
+   on > 85% of pixels: the two differ by the tessellation's chords).
+Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
+and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
+and the times of phases 2 and 5; B5, B6, B7 and B11 once more
+("intersect_brute@mesh", K = 438 instance bounds) with the launches of
+phase 9 and the times of phase 8. Every bound counts what this run's lanes
+need (a dead lane reads tmin and tmax only), and a kernel measured under
+its bound fails the run. Then the card's name and power limit, and, last,
+{"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -65,6 +88,10 @@ OPS_B2_RAY = 10           # od and oo of a live ray
 OPS_B3_PIXEL = 40         # BSDF parameters and view terms
 OPS_B3_CANDIDATE = 270    # cone sample, three-lobe BSDF, MIS, update
 OPS_B4_BILINEAR = 11      # per channel, the tent
+OPS_B5_PAIR = 27          # ray x bound-scan row
+OPS_MT_PAIR = 55          # ray x triangle row (B6, B7)
+OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6, B7)
+OPS_B7_SPHERE = 30        # B7's ray x bounding-sphere test
 # Tolerances of phase 5 (set just above what the card showed; see PERF.md).
 B3_PICK_SHARE = 1e-4      # share of pixels whose winner differs
 B3_REL = 1e-5             # elsewhere, of each output row's largest value
@@ -75,6 +102,12 @@ SMALL_PICK_SHARE = 0.01   # share of pixels whose reservoir pick differs
 SMALL_MEAN = 1e-6         # mean |image difference|
 SMALL_OFF = 1e-4          # a pixel is off beyond this |difference| ...
 SMALL_OFF_SHARE = 0.005   # ... on at most this share of pixels
+# Phase 8: B7's batch without candidate rounds must hold this many live lanes.
+B7_MIN_LIVE = 1000
+# Phase 9, mesh frame vs sphere frame (the bars of tests/test_trimesh.py's
+# test_as_mesh_scene_renders).
+MESH_MEAN_REL = 0.25      # tone-mapped mean, relative
+MESH_VALID_AGREE = 0.85   # share of pixels with the same primary hit bit
 
 
 def log(msg):
@@ -142,16 +175,26 @@ def live_rays(rays):
     return int((rays[7] >= rays[6]).sum())
 
 
+def lane_bytes(n, live, live_words, out_words, *tables, dead_words=2):
+    """Bytes a per-ray function must move: a live lane's `live_words`
+    inputs, a dead lane's two (tmin and tmax decide its result), every
+    lane's `out_words` outputs (4 bytes a word) and each table once."""
+    return (4 * (live * live_words + (n - live) * dead_words)
+            + int(4 * out_words * n)
+            + sum(t.numel() * t.element_size() for t in tables))
+
+
 def b1_bound(rays, table):
-    n, cols = rays.shape[1], table.shape[1]
-    return bound((8 + 2) * 4 * n + table.numel() * 4,
-                 live_rays(rays) * cols * OPS_B1_PAIR)
+    n, live = rays.shape[1], live_rays(rays)
+    return bound(lane_bytes(n, live, 8, 2, table),
+                 live * table.shape[1] * OPS_B1_PAIR)
 
 
-def b11_bound(rays, spheres):
-    n, k = rays.shape[1], spheres.shape[1]
-    return bound((8 + 2) * 4 * n + spheres.numel() * 4,
-                 live_rays(rays) * k * OPS_B11_PAIR)
+def b11_work(rays, spheres):
+    """(bytes, operations) of one brute-force sweep."""
+    n, live = rays.shape[1], live_rays(rays)
+    return (lane_bytes(n, live, 8, 2, spheres),
+            live * spheres.shape[1] * OPS_B11_PAIR)
 
 
 def occlusion_visited(rays9, table, block=32768):
@@ -179,6 +222,34 @@ def occlusion_visited(rays9, table, block=32768):
     return visited
 
 
+@contextlib.contextmanager
+def recorded(modules, names, clone=False, keep=None):
+    """Swap the wrappers `names` of `modules` for recorders. Yields a dict
+    name -> list of the positional arguments of each call, in order; with
+    `clone`, tensors are copied (for callers that update them in place);
+    `keep(seen)` false skips the record."""
+    seen = {name: [] for name in names}
+    saved = []
+    for mod in modules:
+        for name in names:
+            if hasattr(mod, name):
+                orig = getattr(mod, name)
+                saved.append((mod, name, orig))
+
+                def rec(*args, _orig=orig, _name=name, **kwargs):
+                    if keep is None or keep(seen):
+                        seen[_name].append(tuple(
+                            a.clone() if clone and torch.is_tensor(a) else a
+                            for a in args))
+                    return _orig(*args, **kwargs)
+                setattr(mod, name, rec)
+    try:
+        yield seen
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
 def capture_restir_inputs(bench, modules, width=1920, height=1080,
                            warm=2, device="cuda"):
     """`warm` ReSTIR frames (1920x1080 by default), then one that records
@@ -187,19 +258,6 @@ def capture_restir_inputs(bench, modules, width=1920, height=1080,
     pipe, state, pose = bench.make_frame_setup(width, height, device=device)
     for _ in range(warm):
         state, _ = pipe.render_frame(state, pose)
-    seen = {"occlusion_morton": [], "initial_light_candidates": [],
-            "reproject_packed": [], "intersect_brute": []}
-    saved = []
-    for mod in modules:
-        for name in seen:
-            if hasattr(mod, name):
-                orig = getattr(mod, name)
-                saved.append((mod, name, orig))
-
-                def rec(*args, _orig=orig, _name=name):
-                    seen[_name].append(args)
-                    return _orig(*args)
-                setattr(mod, name, rec)
     frame = {}
 
     def run(name, fn, *args):
@@ -209,12 +267,10 @@ def capture_restir_inputs(bench, modules, width=1920, height=1080,
         if name == "trace":
             frame["radiance"] = out.radiance
         return out
-    try:
+    with recorded(modules, ("occlusion_morton", "initial_light_candidates",
+                            "reproject_packed", "intersect_brute")) as seen:
         pipe.render_frame(state, pose, _run=run)
         torch.cuda.synchronize()
-    finally:
-        for mod, name, orig in saved:
-            setattr(mod, name, orig)
     return seen, frame
 
 
@@ -250,7 +306,7 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
                                  f"plain version on {mismatch} rays")
         ms += k_ms
         plain_ms += p_ms
-        bytes_moved += (9 * 4 + 1) * rays9.shape[1] + table.numel() * 4
+        bytes_moved += lane_bytes(rays9.shape[1], live, 9, 0.25, table)
         ops += visited * OPS_B2_PAIR + live * OPS_B2_RAY
     b_ms, b_by = bound(bytes_moved, ops)
     out["occlusion_morton"] = {"max_abs_err": 0.0, "ms": ms,
@@ -365,7 +421,7 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         "B11 brdf-candidate", lambda: ik.intersect_brute(rays, spheres),
         lambda: ik.intersect_brute_plain(rays, spheres, block),
         reps=20, plain_reps=2)
-    b_ms, b_by = b11_bound(rays, spheres)
+    b_ms, b_by = bound(*b11_work(rays, spheres))
     out["intersect_brute"].update(bound_ms=b_ms, bound_by=b_by,
                                   library_ms=None)
     return out
@@ -405,6 +461,202 @@ def check_small_frames(pipeline, bench, devices=("cuda", "cpu")):
                                  "the plain versions on the CPU")
 
 
+def capture_mesh_inputs(bench, pathtrace, modules, device="cuda"):
+    """One mesh frame at 1920x1080 to warm up, then one that records the
+    arguments of every B5, B6, B7 and B11 call of its first two trace calls
+    (the primary rays and the bounce-1 rays, both 2,073,600 wide). Tensors
+    are copied: the candidate loop tightens its rays in place."""
+    scene, cam, cfg = bench.make_mesh_setup(device=device)
+    pathtrace.trace_image(scene, cam, cfg, 0)
+    with recorded(modules, ("bound_scan", "shared_blas_sweep",
+                            "intersect_mesh_instances", "intersect_brute"),
+                  clone=True,
+                  keep=lambda seen: len(seen["intersect_mesh_instances"]) < 2
+                  ) as seen:
+        pathtrace.trace_image(scene, cam, cfg, 1)
+        torch.cuda.synchronize()
+    return seen
+
+
+def words_differ(kernel_out, plain_out):
+    """Number of 32-bit words that differ between two tuples of tensors."""
+    return sum(int((k.view(torch.int32) != p.view(torch.int32)).sum())
+               for k, p in zip(kernel_out, plain_out))
+
+
+def check_mesh_kernels(ik, tk, seen):
+    """Phase 8: B5, B6, B7 and B11 against their plain versions on the mesh
+    frame's own inputs. The kernels-line fields of B5, B6 and B11 (as
+    "intersect_brute@mesh") are sums over the launches of the primary trace
+    call (4, 3 and 2); B7's are those of the primary rays with no candidate
+    round before it, where it carries every live lane (the frame's own
+    backstop batches hold almost none, and are logged only)."""
+    calls = len(seen["intersect_mesh_instances"])
+    if (calls != 2 or len(seen["bound_scan"]) != 4 * calls
+            or len(seen["shared_blas_sweep"]) != 3 * calls
+            or len(seen["intersect_brute"]) != 2 * calls):
+        raise AssertionError(
+            "mesh kernels: recorded "
+            + json.dumps({k: len(v) for k, v in seen.items()})
+            + " calls, expected 8 B5, 6 B6, 2 B7, 4 B11")
+    out = {}
+    split_any = 0
+
+    def total(name, parts):
+        """Sum the timed launches of one kernel into its fields."""
+        b_ms, b_by = bound(sum(p["bytes"] for p in parts),
+                           sum(p["ops"] for p in parts))
+        out[name] = {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in parts),
+                     "plain_ms": sum(p["plain_ms"] for p in parts),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    for c, label in enumerate(("primary", "bounce-1")):
+        timed = c == 0     # the plain versions are timed on the primary call
+
+        # B5: the loop's rounds and the scan that marks the unresolved rays.
+        parts = []
+        for r, (rays, bscan, cursor, block) in enumerate(
+                seen["bound_scan"][4 * c:4 * c + 4]):
+            key_k = tk.bound_scan(rays, bscan, cursor, block)
+            key_p = tk.bound_scan_plain(rays, bscan, cursor, block)
+            torch.cuda.synchronize()
+            mismatch = words_differ((key_k,), (key_p,))
+            live = live_rays(rays)
+            n, m_pad = rays.shape[1], bscan.shape[0]
+            part = {"bytes": lane_bytes(n, live, 8 + 1, 1, bscan),
+                    "ops": live * m_pad * OPS_B5_PAIR,
+                    "ms": cuda_ms(lambda: tk.bound_scan(rays, bscan, cursor,
+                                                        block), 10),
+                    "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(
+                        rays, bscan, cursor, block), 1) if timed else 0.0}
+            parts.append(part)
+            log(f"mesh kernels: B5 {label} round {r + 1} rays={n} live={live} "
+                f"rows={m_pad} fresh_cursor={bool((cursor == -1).all())} "
+                f"found={int((key_k < ik.INF_BITS).sum())} "
+                f"mismatch={mismatch} kernel_ms={part['ms']!r} "
+                f"plain_ms={part['plain_ms']!r} "
+                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+            if mismatch:
+                raise AssertionError(f"B5 {label} round {r + 1}: kernel "
+                                     f"disagrees with its plain version on "
+                                     f"{mismatch} keys")
+        if timed:
+            total("bound_scan", parts)
+
+        # B6: each round's sweep of the rays' own candidates.
+        parts = []
+        for r, (rays, cand, best, binst, inst_tbl, tri_tbl, block
+                ) in enumerate(seen["shared_blas_sweep"][3 * c:3 * c + 3]):
+            args = (rays, cand, best, binst, inst_tbl, tri_tbl, block)
+            out_k = tk.shared_blas_sweep(*args)
+            out_p = tk.shared_blas_sweep_plain(*args)
+            torch.cuda.synchronize()
+            mismatch = words_differ(out_k, out_p)
+            n, f_pad = rays.shape[1], tri_tbl.shape[0]
+            m_tbl = inst_tbl.shape[1]
+            trunc = ~((1 << ik.pos_bits(f_pad)) - 1)
+            far = torch.minimum(rays[7], (best & trunc).view(torch.float32))
+            has_cand = (cand >= 0) & (cand < m_tbl)
+            live_mask = (far >= rays[6]) & has_cand
+            live = int(live_mask.sum())
+            # Neighbouring live lanes that sweep different instances.
+            split = int((live_mask[1:] & live_mask[:-1]
+                         & (cand[1:] != cand[:-1])).sum())
+            improved = int((out_k[0] != best).sum())
+            # A lane without a candidate passes its best and instance
+            # through (cand, best, binst in); one with a candidate also
+            # reads tmin and tmax; a live one the six other ray rows too.
+            part = {"bytes": lane_bytes(n, live, 8 + 3, 2, inst_tbl, tri_tbl,
+                                        dead_words=3)
+                    + 4 * 2 * (int(has_cand.sum()) - live),
+                    "ops": live * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
+                    "ms": cuda_ms(lambda: tk.shared_blas_sweep(*args), 10),
+                    "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(
+                        *args), 1) if timed else 0.0}
+            parts.append(part)
+            log(f"mesh kernels: B6 {label} round {r + 1} rays={n} live={live} "
+                f"faces={f_pad} instances={m_tbl} improved={improved} "
+                f"neighbours_on_other_instance={split} mismatch={mismatch} "
+                f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+            if mismatch:
+                raise AssertionError(f"B6 {label} round {r + 1}: kernel "
+                                     f"disagrees with its plain version on "
+                                     f"{mismatch} words")
+            split_any += split
+        if timed:
+            total("shared_blas_sweep", parts)
+
+        # B7: the frame's own backstop batch (few live lanes).
+        check_b7(tk, f"{label} backstop",
+                 seen["intersect_mesh_instances"][c], timed)
+
+        # B11: the pre-pass's two sweeps over the instance bounds.
+        parts = []
+        for which, (rays, spheres, block) in zip(
+                ("bounds", "inscribed balls"),
+                seen["intersect_brute"][2 * c:2 * c + 2]):
+            res = compare_closest(
+                f"B11 {label} {which} K={spheres.shape[1]}",
+                lambda: ik.intersect_brute(rays, spheres),
+                lambda: ik.intersect_brute_plain(rays, spheres, block),
+                reps=10, plain_reps=1)
+            res["bytes"], res["ops"] = b11_work(rays, spheres)
+            parts.append(res)
+            log(f"mesh kernels: B11 {label} {which} live={live_rays(rays)} "
+                f"bound_ms={bound(res['bytes'], res['ops'])[0]!r} "
+                f"kernel_ms={res['ms']!r}")
+        if timed:
+            total("intersect_brute@mesh", parts)
+
+    if split_any == 0:
+        raise AssertionError("B6: no batch holds live neighbours with "
+                             "different candidates")
+
+    # B7 where it carries every ray: the primary rays as the pre-pass left
+    # them, no candidate round before it (intersect_instances' rounds=0).
+    rays = seen["bound_scan"][0][0]
+    b7 = check_b7(tk, "primary, no candidate round",
+                  (rays, *seen["intersect_mesh_instances"][0][1:]), True)
+    if b7["live"] < B7_MIN_LIVE or b7["hits"] == 0:
+        raise AssertionError(f"B7: the batch without candidate rounds holds "
+                             f"{b7['live']} live lanes and {b7['hits']} hits")
+    total("intersect_mesh_instances", [b7])
+    return out
+
+
+def check_b7(tk, label, args, timed):
+    """B7 against its plain version on one recorded batch: t, face and
+    instance words equal. Returns its timed part, with `live` and `hits`."""
+    rays, inst_tbl, inst_bounds, tri_tbl, n_ic, block = args
+    work = {}
+    out_k = tk.intersect_mesh_instances(*args)
+    out_p = tk.intersect_mesh_instances_plain(*args, work=work)
+    torch.cuda.synchronize()
+    mismatch = words_differ(out_k, out_p)
+    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+    part = {
+        "bytes": lane_bytes(n, work["live"], 8, 3, inst_tbl, inst_bounds,
+                            tri_tbl),
+        "ops": (work["chunk_tests"] + work["inst_tests"]) * OPS_B7_SPHERE
+        + work["sweeps"] * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
+        "ms": cuda_ms(lambda: tk.intersect_mesh_instances(*args), 10),
+        "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_plain(*args),
+                            1) if timed else 0.0,
+        "live": work["live"], "hits": int(torch.isfinite(out_k[0]).sum())}
+    log(f"mesh kernels: B7 {label} rays={n} live={work['live']} "
+        f"hits={part['hits']} chunk_tests={work['chunk_tests']} "
+        f"instance_tests={work['inst_tests']} "
+        f"instance_sweeps={work['sweeps']} faces={f_pad} "
+        f"mismatch={mismatch} kernel_ms={part['ms']!r} "
+        f"plain_ms={part['plain_ms']!r} "
+        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+    if mismatch:
+        raise AssertionError(f"B7 {label}: kernel disagrees with its plain "
+                             f"version on {mismatch} words")
+    return part
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -418,6 +670,7 @@ def main():
     from drts_tpu_torch.ops import pathtrace, post
     from drts_tpu_torch.ops import reproject_kernels as rp
     from drts_tpu_torch.ops import restir_kernels as rk
+    from drts_tpu_torch.ops import trimesh_kernels as tk
     from drts_tpu_torch.utils import image, rng as rng_mod
 
     # 1. device ------------------------------------------------------------
@@ -511,10 +764,10 @@ def main():
         raise AssertionError("B11 was not launched by the golden render")
 
     # 4. the path-trace frame, counted from zero ----------------------------
-    iters = 2
+    iters = iters_trace = 2
     backend.reset_launches()
-    stats, out = bench.bench_trace(iters=iters, device=dev)
-    rad = out.radiance
+    stats, sphere_out = bench.bench_trace(iters=iters, device=dev)
+    rad = sphere_out.radiance
     finite = bool(torch.isfinite(rad).all())
     b1_launches = backend.LAUNCHES["intersect_morton"]
     log(f"main: {cfg.width}x{cfg.height} spp=1 bounces={cfg.bounces} "
@@ -568,6 +821,54 @@ def main():
     # 7. small frames: kernels on the card vs plain versions on the CPU -----
     check_small_frames(pipeline, bench)
 
+    # 8. B5, B6, B7 and B11 at the mesh frame's own inputs ------------------
+    seen = capture_mesh_inputs(bench, pathtrace, (ik, tk), device=dev)
+    fields.update(check_mesh_kernels(ik, tk, seen))
+    del seen
+
+    # 9. the mesh frame, counted from zero ----------------------------------
+    # As many timed frames as phase 4, so both last frames share a seed.
+    backend.reset_launches()
+    mstats, mesh_out = bench.bench_mesh(iters=iters_trace, device=dev)
+    mesh_launches = dict(backend.LAUNCHES)
+    mrad = mesh_out.radiance
+    m_finite = bool(torch.isfinite(mrad).all())
+    m_frames = iters_trace + 1
+    calls = mesh_launches["intersect_mesh_instances"]
+    mean_mesh = float(post.tonemap(mrad).mean())
+    mean_sphere = float(post.tonemap(sphere_out.radiance).mean())
+    agree = float((mesh_out.primary_valid
+                   == sphere_out.primary_valid).float().mean())
+    log(f"mesh: 1920x1080 spp=1 bounces=8 instances=438 faces=512 "
+        f"frames={m_frames} frame_ms={mstats['frame_ms']!r} "
+        f"mray_s={mstats['mray_s']!r} "
+        f"rays_per_frame={mstats['rays_per_frame']!r} "
+        f"wavefront_overflow_paths={mstats['overflow_paths']!r} "
+        f"trace_calls={calls} launches={json.dumps(mesh_launches)} "
+        f"finite={m_finite} tonemapped_mean={mean_mesh!r} "
+        f"sphere_frame_tonemapped_mean={mean_sphere!r} "
+        f"primary_valid_agreement={agree!r} | {smi}")
+    if tuple(mrad.shape) != (1080, 1920, 3) or not m_finite:
+        raise AssertionError("the mesh frame is not a finite image")
+    if calls < m_frames * (8 + 1):
+        raise AssertionError(f"{calls} mesh trace calls in {m_frames} frames "
+                             f"of 8 bounces")
+    per_call = {"bound_scan": 4, "shared_blas_sweep": 3,
+                "intersect_mesh_instances": 1, "intersect_brute": 2}
+    for name, count in per_call.items():
+        if mesh_launches[name] != count * calls:
+            raise AssertionError(f"{name} launched {mesh_launches[name]} "
+                                 f"times in {calls} trace calls, expected "
+                                 f"{count * calls}")
+    if (abs(mean_mesh - mean_sphere) > MESH_MEAN_REL * mean_sphere
+            or agree <= MESH_VALID_AGREE):
+        raise AssertionError("the mesh frame is off the sphere frame")
+    # Each path's own counts: B11 is on both, once per path.
+    for name in ("bound_scan", "shared_blas_sweep",
+                 "intersect_mesh_instances"):
+        launches[name] = mesh_launches[name]
+    launches["intersect_brute@mesh"] = mesh_launches["intersect_brute"]
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -579,6 +880,14 @@ def main():
                                      "drts_tpu/ops/restir_pallas.py:289"),
         "reproject_packed": ("drts_tpu_torch/csrc/reproject.cu",
                              "drts_tpu/ops/reproject_pallas.py:206"),
+        "bound_scan": ("drts_tpu_torch/csrc/trimesh.cu",
+                       "drts_tpu/ops/trimesh_pallas.py:646"),
+        "shared_blas_sweep": ("drts_tpu_torch/csrc/trimesh.cu",
+                              "drts_tpu/ops/trimesh_pallas.py:839"),
+        "intersect_mesh_instances": ("drts_tpu_torch/csrc/trimesh.cu",
+                                     "drts_tpu/ops/trimesh_pallas.py:315"),
+        "intersect_brute@mesh": ("drts_tpu_torch/csrc/intersect.cu",
+                                 "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
@@ -587,6 +896,10 @@ def main():
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]
+        if f["ms"] < f["bound_ms"]:
+            raise AssertionError(f"{name}: measured {f['ms']!r} ms lies "
+                                 f"under its bound of {f['bound_ms']!r} ms, "
+                                 f"so the bound counts too much")
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],

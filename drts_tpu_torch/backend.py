@@ -14,9 +14,9 @@ to its own object file, all at once, and one link makes the library.
 
 Launch counts: ``LAUNCHES`` holds one count per kernel wrapper
 (``ops/intersect_kernels.py``, ``ops/restir_kernels.py``,
-``ops/reproject_kernels.py``), keyed by the wrapper's name. A wrapper calls
-``launched(name)`` where it launches its kernel, and nowhere else;
-``reset_launches`` zeroes them all.
+``ops/reproject_kernels.py``, ``ops/trimesh_kernels.py``), keyed by the
+wrapper's name. A wrapper calls ``launched(name)`` where it launches its
+kernel, and nowhere else; ``reset_launches`` zeroes them all.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ import torch
 PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
-SOURCES = ("intersect.cu", "restir.cu", "reproject.cu")
+SOURCES = ("intersect.cu", "restir.cu", "reproject.cu", "trimesh.cu")
 # -fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions compute them; no --use_fast_math (IEEE sqrt, NaN kept).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 # C signatures of csrc/*.cu: every pointer and the stream as void*.
 _SIGNATURES = {
     "drts_morton_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _INT, _VOIDP,
@@ -55,12 +56,27 @@ _SIGNATURES = {
     # src, motion, h, w, c, bilinear, out, ok, stream
     "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP,
                        _VOIDP, _VOIDP),
+    # rays, n, cursor, table, m_pad, pos_bits, key_out, stream
+    "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP,
+                        _VOIDP),
+    # rays, n, cand, best_in, binst_in, inst_tbl, m_tbl, tri_tbl, f_pad,
+    # pos_bits, best_out, binst_out, stream
+    "drts_shared_blas_sweep": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                               _INT, _VOIDP, _INT, _INT, _VOIDP, _VOIDP,
+                               _VOIDP),
+    # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
+    # bound_scale, bound_pad, tri_tbl, f_pad, pos_bits, t_out, face_out,
+    # inst_out, stream
+    "drts_mesh_instances_closest": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                                    _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
+                                    _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP),
 }
 
 _lib = None
 LAUNCHES = dict.fromkeys(("intersect_morton", "intersect_brute",
                           "occlusion_morton", "initial_light_candidates",
-                          "reproject_packed"), 0)
+                          "reproject_packed", "bound_scan",
+                          "shared_blas_sweep", "intersect_mesh_instances"), 0)
 
 
 def launched(name: str) -> None:

@@ -10,8 +10,14 @@ same scene and camera with the reference's defaults except denoiser
 "None" and SHARC off, at native 1920x1080 (so no TAA): physics, ReSTIR
 DI, the path trace with the DI handoff, sharpen, bloom and tone mapping.
 
+The mesh frame (``--mesh``, the recipe of ``bench.py:bench_mesh`` at the
+reference's 8 bounces): the same scene as 438 instances of one
+tessellation-4 geosphere (512 faces), no accel and no G-buffer, through
+``pathtrace.trace_image`` at 1920x1080, 1 spp, 8 bounces.
+
     python -m drts_tpu_torch.bench [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
+    python -m drts_tpu_torch.bench --mesh [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -19,8 +25,10 @@ rays_per_frame, device); the ReSTIR frame with frame_ms (one warm frame,
 then N frames on a host clock ending in a synchronize), passes_ms (each
 stage of one more frame through render_frame's ``_run`` hook, timed with
 CUDA events and a synchronize per stage), rays_per_frame of the path
-trace and the frame's counters. Both need a CUDA device and do not fall
-back to the CPU.
+trace and the frame's counters; the mesh frame with
+mesh_trace_8b_mray_s, mesh_trace_8b_ms, rays_per_frame and the kernel
+launches of the run. All need a CUDA device and do not fall back to the
+CPU.
 """
 
 from __future__ import annotations
@@ -106,6 +114,49 @@ def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
     return stats, out
 
 
+def make_mesh_setup(width: int = 1920, height: int = 1080, tess: int = 4,
+                    bounces: int = 8, oscillator_grid: int = 10,
+                    device="cuda"):
+    """The mesh frame's (scene, camera, config): the demo scene as
+    instances of one geosphere of `tess`."""
+    host = myscene.as_mesh_scene(
+        myscene.build(oscillator_grid=oscillator_grid, device=device),
+        tessellation=tess)
+    cam = camera_mod.make_camera(host.camera_position, host.camera_forward,
+                                 horizontal_fov_deg=90.0,
+                                 aspect=width / height, device=device)
+    cfg = pathtrace.PathTraceConfig(
+        width=width, height=height, bounces=bounces, samples_per_pixel=1,
+        block_size=32768, compact_from=2)
+    return host.scene, cam, cfg
+
+
+def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
+               bounces: int = 8, iters: int = 4, oscillator_grid: int = 10,
+               device="cuda"):
+    """One warm mesh frame, then `iters` timed frames. Returns (stats, the
+    last frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame
+    and overflow_paths (of the last frame)."""
+    scene, cam, cfg = make_mesh_setup(width, height, tess, bounces,
+                                      oscillator_grid, device=device)
+    out = pathtrace.trace_image(scene, cam, cfg, 0)
+    _sync(device)
+    rays_per_frame = float(out.rays_traced)
+    start = time.perf_counter()
+    for i in range(iters):
+        out = pathtrace.trace_image(scene, cam, cfg, i + 1)
+    _sync(device)
+    elapsed = time.perf_counter() - start
+    stats = {
+        "mray_s": rays_per_frame * iters / elapsed / 1e6,
+        "frame_ms": elapsed / iters * 1e3,
+        "rays_per_frame": rays_per_frame,
+        "overflow_paths": float(
+            out.counters["wavefront_overflow_paths"]),
+    }
+    return stats, out
+
+
 def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
                      device="cuda"):
@@ -178,8 +229,26 @@ def main(argv=None):
     parser.add_argument("--iters", type=int, default=8)
     parser.add_argument("--frame", action="store_true",
                         help="the ReSTIR frame instead of the path trace")
+    parser.add_argument("--mesh", action="store_true",
+                        help="the instanced-mesh frame instead")
     args = parser.parse_args(argv)
     dev = backend.device("cuda")
+    if args.mesh:
+        backend.reset_launches()
+        stats, out = bench_mesh(iters=args.iters, device=dev)
+        if not bool(torch.isfinite(out.radiance).all()):
+            raise RuntimeError("non-finite radiance")
+        print(json.dumps({
+            "metric": "mesh_trace_1080p_1spp_8bounce",
+            "mesh_trace_8b_mray_s": stats["mray_s"],
+            "mesh_trace_8b_ms": stats["frame_ms"],
+            "rays_per_frame": int(stats["rays_per_frame"]),
+            "overflow_paths": stats["overflow_paths"],
+            "frames": args.iters + 1,
+            "launches": dict(backend.LAUNCHES),
+            "device": torch.cuda.get_device_name(dev),
+        }), flush=True)
+        return
     if args.frame:
         stats, image = bench_frame(iters=args.iters, device=dev)
         if not bool(torch.isfinite(image).all()):

@@ -3,7 +3,8 @@
 Each function reads the reference object's fields by name (any object with
 those attributes will do, e.g. the reference dataclass after mapping
 ``np.asarray`` over its leaves), so this module needs no JAX. Covered:
-``SphereScene`` with its ``Materials`` and environment light, ``Camera``,
+``SphereScene`` with its ``Materials``, environment light, ``TriMesh`` and
+``MeshInstances``, ``Camera``,
 ``ClusterPlan``, ``MortonAccel``, ``RigidBodies``, ``Lights``,
 ``ReGIRGrid``, ``Reservoirs`` and a whole ``FrameState``. ``device``
 defaults to the card, as every builder of the port.
@@ -18,7 +19,7 @@ import torch
 
 from . import backend
 from .models import clusters, material, pipeline, scene as scene_mod
-from .ops import camera as camera_mod, light, physics, restir, sky
+from .ops import camera as camera_mod, light, physics, restir, sky, trimesh
 
 
 def _tensor(x, device):
@@ -42,12 +43,35 @@ def environment(src, device="cuda") -> sky.EnvironmentLight:
                                 rotation=_tensor(src.rotation, device))
 
 
+def tri_mesh(src, device="cuda") -> trimesh.TriMesh:
+    """A TriMesh with the reference's arrays as they are (its face order,
+    its triangle table); index arrays become int64."""
+    fields = {}
+    for f in dataclasses.fields(trimesh.TriMesh):
+        value = getattr(src, f.name)
+        if f.name == "inscribed_radius":
+            fields[f.name] = float(value)
+        elif value is not None:
+            fields[f.name] = _tensor(value, device)
+    fields["faces"] = fields["faces"].long()
+    return trimesh.TriMesh(**fields)
+
+
+def mesh_instances(src, device="cuda") -> scene_mod.MeshInstances:
+    return scene_mod.MeshInstances(
+        **_fields(scene_mod.MeshInstances, src, device))
+
+
 def scene(src, device="cuda") -> scene_mod.SphereScene:
-    """SphereScene of spheres only; textures and meshes raise."""
-    if src.textures is not None or src.mesh is not None:
-        raise NotImplementedError("textured or mesh scenes are not ported "
-                                  "yet")
+    """SphereScene with or without mesh instances; textures raise."""
+    if src.textures is not None:
+        raise NotImplementedError("textured scenes are not ported yet")
+    mesh = mi = None
+    if src.mesh is not None:
+        mesh = tri_mesh(src.mesh, device)
+        mi = mesh_instances(src.mesh_instances, device)
     return scene_mod.SphereScene(
+        mesh=mesh, mesh_instances=mi,
         center=_tensor(src.center, device),
         rotation=_tensor(src.rotation, device),
         prev_center=_tensor(src.prev_center, device),

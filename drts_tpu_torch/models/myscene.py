@@ -3,6 +3,8 @@ a harmonic-oscillator field and a Moon/Earth/Star system, built host-side
 from the same numpy ``RandomState`` stream as the reference, so its arrays
 equal the reference build exactly. Textures are not loaded: the assets are
 absent, and the reference then falls back to material constants too.
+``as_mesh_scene`` turns the same scene into instances of one geosphere
+mesh. ``add_mesh_content`` (textured mesh instances) is not ported.
 """
 
 from __future__ import annotations
@@ -175,3 +177,42 @@ def build(seed: int = 0, oscillator_grid: int = 10,
         earth_index=int(np.nonzero(kinds_np == KIND_EARTH)[0][0]),
         star_index=int(np.nonzero(kinds_np == KIND_STAR)[0][0]))
     return MySceneHost(scene=the_scene, bodies=bodies, kinds=kinds_np)
+
+
+def as_mesh_scene(host: MySceneHost, tessellation: int = 4) -> MySceneHost:
+    """The demo scene as instanced triangle meshes, the way the reference
+    renders it (MyScene.ixx:56 builds one geosphere mesh; Scene.ixx:225-284
+    instances it): every sphere becomes an instance of one geosphere of
+    diameter 2 (scale = radius, same pose and material row), and the sphere
+    table becomes empty. Physics stays sphere-based; sync_mesh_pose pushes
+    a physics step's poses into the instances."""
+    from ..ops import trimesh
+    from . import geometry
+
+    scene = host.scene
+    dev = scene.center.device
+    mesh = trimesh.make_mesh(*geometry.create_geosphere(2.0, tessellation),
+                             device=dev)
+    mi = scene_mod.MeshInstances(
+        center=scene.center, rotation=scene.rotation,
+        prev_center=scene.prev_center, prev_rotation=scene.prev_rotation,
+        scale=scene.radius)
+    empty3 = torch.zeros((0, 3), dtype=torch.float32, device=dev)
+    empty4 = torch.zeros((0, 4), dtype=torch.float32, device=dev)
+    new_scene = dataclasses.replace(
+        scene, center=empty3, rotation=empty4, prev_center=empty3,
+        prev_rotation=empty4,
+        radius=torch.zeros((0,), dtype=torch.float32, device=dev),
+        mesh=mesh, mesh_instances=mi)
+    return dataclasses.replace(host, scene=new_scene)
+
+
+def sync_mesh_pose(scene: scene_mod.SphereScene, centers, rotations
+                   ) -> scene_mod.SphereScene:
+    """Push physics poses into the mesh instances, keeping the previous
+    pose (the per-frame TLAS refit of the all-mesh scene)."""
+    mi = scene.mesh_instances
+    new_mi = dataclasses.replace(
+        mi, prev_center=mi.center, prev_rotation=mi.rotation,
+        center=centers, rotation=rotations)
+    return dataclasses.replace(scene, mesh_instances=new_mi)

@@ -1,6 +1,7 @@
 """Scene representation (port of ``drts_tpu/models/scene.py``): sphere
-instances with current and previous poses, per-object materials, the
-environment light, and the packed per-object attribute table.
+instances and triangle-mesh instances with current and previous poses,
+per-object materials, the environment light, and the packed per-object
+attribute table.
 """
 
 from __future__ import annotations
@@ -15,21 +16,38 @@ from .material import Materials
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshInstances:
+    """Triangle-mesh instances (the reference's geosphere BLAS instancing,
+    Scene.ixx:225-284): rigid transforms with a uniform scale. Their
+    material rows sit at [K, K+M) of scene.materials, after the K sphere
+    materials, so the combined hit-index space is [0, K) spheres |
+    [K, K+M) mesh instances."""
+    center: torch.Tensor         # (M, 3)
+    rotation: torch.Tensor       # (M, 4) quaternion, object->world
+    prev_center: torch.Tensor    # (M, 3)
+    prev_rotation: torch.Tensor  # (M, 4)
+    scale: torch.Tensor          # (M,)
+
+
+@dataclasses.dataclass(frozen=True)
 class SphereScene:
     """All scene state a render pass reads (SURVEY.md §1 L2).
 
-    ``textures``, ``mesh`` and ``alpha_test_rounds`` mirror the reference's
-    fields; the port's passes raise where they are set, because textured
-    shading and the triangle-mesh path wait for later slices."""
+    ``textures`` mirrors the reference's field; the port's passes raise
+    where it is set, because textured shading waits for a later slice.
+    ``mesh`` (an ops.trimesh.TriMesh) with ``mesh_instances`` is traced by
+    the closest-hit path; visibility rays raise for it."""
     center: torch.Tensor         # (K, 3)
     rotation: torch.Tensor       # (K, 4) quaternion, object->world
     prev_center: torch.Tensor    # (K, 3)
     prev_rotation: torch.Tensor  # (K, 4)
     radius: torch.Tensor         # (K,)
-    materials: Materials
+    materials: Materials         # (K+M,) rows when mesh instances exist
     env: sky.EnvironmentLight
     textures: object = None
     mesh: object = None
+    mesh_instances: MeshInstances | None = None
+    # Alpha-test re-trace rounds (IsOpaque); 0 = all opaque.
     alpha_test_rounds: int = 0
 
 
@@ -63,13 +81,25 @@ class HitSurface:
 # 22 metallic | 23 roughness | 24 ior | 25 transmission |
 # 26 base_color_map | 27 normal_map | 28 metallic_map | 29 roughness_map |
 # 30 alpha_cutoff | 31 emissive_color_map | 32 transmission_map.
+# Rows [K, K+M) are mesh instances: radius 0, centre and rotation the
+# instance transform, so the G-buffer's rigid-motion reprojection works
+# unchanged and surface_attributes' Newton step leaves a mesh t alone.
 
 
 def object_table(scene: SphereScene) -> torch.Tensor:
     mat = scene.materials
+    center, radius, rotation = scene.center, scene.radius, scene.rotation
+    prev_center, prev_rotation = scene.prev_center, scene.prev_rotation
+    if scene.mesh_instances is not None:
+        mi = scene.mesh_instances
+        center = torch.cat([center, mi.center])
+        radius = torch.cat([radius, torch.zeros_like(mi.scale)])
+        rotation = torch.cat([rotation, mi.rotation])
+        prev_center = torch.cat([prev_center, mi.prev_center])
+        prev_rotation = torch.cat([prev_rotation, mi.prev_rotation])
     cols = [
-        scene.center, scene.radius[:, None], scene.rotation,
-        scene.prev_center, scene.prev_rotation,
+        center, radius[:, None], rotation,
+        prev_center, prev_rotation,
         mat.base_color[:, :3], mat.base_color[:, 3:4], mat.emission(),
         mat.metallic[:, None], mat.roughness[:, None], mat.ior[:, None],
         mat.transmission[:, None],

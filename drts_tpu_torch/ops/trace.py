@@ -1,32 +1,138 @@
-"""Scene-level closest hit and visibility (port of the sphere half of
-``drts_tpu/ops/trace.py``): intersect, then build the shading-ready
-HitSurface; and the any-hit visibility ray. The triangle-mesh merge and
-the alpha-test re-trace rounds come only with mesh content and wait for
-the mesh slice.
+"""Scene-level closest hit and visibility (port of
+``drts_tpu/ops/trace.py``): spheres and instanced triangle meshes merged
+by closest t into one shading-ready HitSurface, alpha-tested hits rejected
+by re-tracing past them for a bounded number of rounds; and the any-hit
+visibility ray over spheres.
+
+Hit-index space: [0, K) sphere instances, [K, K+M) mesh instances; both
+resolve through the same packed object table (models/scene.py).
+
+Not ported yet (they raise): textured alpha, deforming meshes'
+``prev_offset``, and mesh occluders in ``occluded_scene``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..models import scene as scene_mod
-from . import intersect
+from ..utils import math as m
+from . import intersect, trimesh
+
+
+def _where_nd(mask, a, b):
+    mask = mask.reshape(mask.shape + (1,) * (a.dim() - mask.dim()))
+    return torch.where(mask, a, b)
+
+
+def _closest_hit(scene, origin, direction, t_min, t_max, block_size, accel):
+    """Spheres and mesh instances, merged by closest t. Returns (SphereHit
+    with the combined index, TriHit or None)."""
+    lead = origin.shape[:-1]
+    dev = origin.device
+    if scene.center.shape[0] == 0:
+        # All-mesh scene (models/myscene.as_mesh_scene): no sphere sweep.
+        hit = intersect.SphereHit(
+            hit=torch.zeros(lead, dtype=torch.bool, device=dev),
+            t=torch.full(lead, float("inf"), device=dev),
+            index=torch.zeros(lead, dtype=torch.int64, device=dev),
+            position=origin)
+    else:
+        hit = intersect.intersect_spheres(origin, direction, t_min, t_max,
+                                          scene.center, scene.radius,
+                                          block_size, accel=accel)
+    if scene.mesh is None:
+        return hit, None
+    mi = scene.mesh_instances
+    k = scene.center.shape[0]
+    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    # Mesh hits only count when closer than the best sphere hit.
+    bound = torch.where(hit.hit, hit.t, torch.broadcast_to(t_max, lead))
+    tri = trimesh.intersect_instances(origin, direction, t_min, bound,
+                                      scene.mesh, mi.center, mi.rotation,
+                                      mi.scale, block_size=block_size)
+    t = torch.where(tri.hit, tri.t, hit.t)
+    idx = torch.where(tri.hit, k + tri.instance, hit.index)
+    t_safe = torch.where(torch.isfinite(t), t, 0.0)
+    merged = intersect.SphereHit(
+        hit=hit.hit | tri.hit, t=t, index=idx,
+        position=origin + direction * t_safe[..., None])
+    return merged, tri
+
+
+def _surface_of(scene, hit, tri, ray_direction, table):
+    """HitSurface of the merged hit; mesh lanes get interpolated vertex
+    attributes (HitInfo::Initialize for triangles)."""
+    surf = scene_mod.surface_attributes(scene, hit, ray_direction, table)
+    if tri is None:
+        return surf
+    if scene.mesh.vertex_motion is not None:
+        raise NotImplementedError("deforming meshes (vertex_motion) are not "
+                                  "ported yet")
+    mi = scene.mesh_instances
+    n_sh, uv_m, tan_m = trimesh.interpolate_attributes(scene.mesh, tri,
+                                                       mi.rotation)
+    # Geometric (face) normal for self-intersection avoidance.
+    e1 = scene.mesh.e1[tri.face]
+    e2 = scene.mesh.e2[tri.face]
+    gn = m.normalize(m.quat_rotate(mi.rotation[tri.instance],
+                                   m.cross(e1, e2)))
+    is_front = m.dot(gn, ray_direction) < 0.0
+    n_sh = torch.where(m.dot(n_sh, ray_direction)[..., None] < 0.0, n_sh,
+                       -n_sh)
+    mm = tri.hit
+    return dataclasses.replace(
+        surf,
+        geometric_normal=_where_nd(mm, gn, surf.geometric_normal),
+        shading_normal=_where_nd(mm, n_sh, surf.shading_normal),
+        tangent=_where_nd(mm, tan_m, surf.tangent),
+        uv=_where_nd(mm, uv_m, surf.uv),
+        is_front_face=torch.where(mm, is_front, surf.is_front_face))
+
+
+def _merge_surface(mask, a, b):
+    """Field by field, a where mask else b (the material included)."""
+    def merge(x, y):
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: merge(getattr(x, f.name),
+                                            getattr(y, f.name))
+                              for f in dataclasses.fields(x)})
+        return _where_nd(mask, x, y)
+    return merge(a, b)
 
 
 def trace_scene(scene, origin, direction, t_min, t_max,
                 block_size: int = 16384, accel=None, table=None,
                 alpha_rounds: int = 0) -> scene_mod.HitSurface:
-    """Closest hit against the scene's spheres -> HitSurface. Raises
-    NotImplementedError for meshes or alpha-test rounds."""
-    if scene.mesh is not None or alpha_rounds > 0:
-        raise NotImplementedError("mesh content and alpha-test rounds are "
-                                  "not ported yet")
+    """Closest hit against the whole scene -> HitSurface.
+
+    ``alpha_rounds`` > 0 enables alpha-tested transparency (IsOpaque,
+    ShadingHelpers.hlsli:105-159): hits whose material alpha falls below
+    the material's cutoff are discarded and the ray is re-traced from just
+    past them, up to that many rounds. Textured alpha raises with the
+    textured scene."""
     if table is None:
         table = scene_mod.object_table(scene)
-    hit = intersect.intersect_spheres(origin, direction, t_min, t_max,
-                                      scene.center, scene.radius,
-                                      block_size, accel=accel)
-    return scene_mod.surface_attributes(scene, hit, direction, table)
+    hit, tri = _closest_hit(scene, origin, direction, t_min, t_max,
+                            block_size, accel)
+    surf = _surface_of(scene, hit, tri, direction, table)
+
+    for _ in range(alpha_rounds):
+        alpha = surf.material.base_color[..., 3]
+        rejected = surf.valid & (alpha < surf.material.alpha_cutoff)
+        t_min2 = torch.where(rejected,
+                             surf.distance * (1.0 + 1e-4) + 1e-4, 0.0)
+        t_max2 = torch.where(
+            rejected, torch.broadcast_to(torch.as_tensor(
+                t_max, dtype=torch.float32, device=origin.device),
+                rejected.shape), -1.0)
+        hit2, tri2 = _closest_hit(scene, origin, direction, t_min2, t_max2,
+                                  block_size, accel)
+        surf2 = _surface_of(scene, hit2, tri2, direction, table)
+        surf = _merge_surface(rejected, surf2, surf)
+    return surf
 
 
 def occluded_scene(scene, origin, direction, max_dist, exclude_index,

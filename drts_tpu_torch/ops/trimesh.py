@@ -1,0 +1,287 @@
+"""Instanced triangle meshes: the general-geometry path (port of the
+closest-hit half of ``drts_tpu/ops/trimesh.py``).
+
+One shared mesh (the reference instances a single geosphere) with
+per-instance rigid transforms and a uniform scale. ``intersect_instances``
+tightens every ray's range against the instances' bounding spheres, hands
+the rays to the kernels of ``trimesh_kernels`` (the candidate loop, or the
+serial walk alone with ``rounds=0``) and refines the winners' t and
+barycentrics; ``interpolate_attributes`` fetches and interpolates the
+vertex attributes. The reference's 8x128 screen-tile ray order and its
+sort by candidate instance are TPU block-coherence aids with no effect on
+the result: rays keep pixel order.
+
+Not ported yet (they raise): ``intersect_mesh`` (the dense sweep over one
+mesh, used by triangle lights) and ``intersect_instances_any`` (the
+any-hit half).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import backend
+from ..models import geometry
+from ..utils import math as m
+from . import intersect
+from . import trimesh_kernels as tk
+
+
+@dataclasses.dataclass(frozen=True)
+class TriMesh:
+    """Shared triangle mesh, SoA. Faces are stored in Morton (centroid)
+    order (make_mesh permutes them), so a kernel's packed face row is the
+    face index."""
+    positions: torch.Tensor  # (V, 3)
+    normals: torch.Tensor    # (V, 3)
+    uvs: torch.Tensor        # (V, 2)
+    tangents: torch.Tensor   # (V, 3)
+    faces: torch.Tensor      # (F, 3) int64
+    # Per-face corners for the intersection sweep.
+    v0: torch.Tensor         # (F, 3)
+    e1: torch.Tensor         # (F, 3) v1 - v0
+    e2: torch.Tensor         # (F, 3) v2 - v0
+    bound_radius: torch.Tensor  # scalar: mesh-space bounding radius
+    # BLAS table (built once per mesh): padded Morton-ordered triangle
+    # rows. The reference's per-chunk bounds and cones (tri_bounds,
+    # n_chunks, convex, local_radius) feed only its triangle-chunk culls,
+    # which no kernel here has; they come with the first kernel that
+    # reads them.
+    tri_tbl: torch.Tensor = None     # (F_pad, 9) [v0 e1 e2]
+    # Radius of the largest origin-centred ball that lies inside the mesh
+    # (0 for an open mesh or an origin outside): it licenses the bounds
+    # pre-pass's tmax clamp.
+    inscribed_radius: float = 0.0
+    # Optional (V, 3) previous - current object-space position per vertex
+    # (deforming meshes); None = rigid. Kept as a field; its G-buffer use
+    # is not ported.
+    vertex_motion: torch.Tensor = None
+
+
+def _inscribed_radius(v0, e1, e2, faces) -> float:
+    """Largest r such that the origin-centred ball of radius r lies inside
+    the mesh: a ray segment through instance i's inscribed ball must hit
+    i's surface before it leaves i's bounding sphere. Returns 0 unless the
+    mesh is a closed oriented 2-manifold with the origin inside. Numpy,
+    O(F)."""
+    f = faces.shape[0]
+    if f == 0:
+        return 0.0
+    # Closed oriented manifold: every directed edge appears exactly once
+    # and pairs with its reverse.
+    de = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                         faces[:, [2, 0]]])
+    key = de[:, 0].astype(np.int64) * (de.max() + 1) + de[:, 1]
+    rkey = de[:, 1].astype(np.int64) * (de.max() + 1) + de[:, 0]
+    if len(np.unique(key)) != len(key):
+        return 0.0
+    if not np.isin(rkey, key).all():
+        return 0.0
+    # Origin inside: crossing parity along an arbitrary direction.
+    d = np.array([0.57735027, 0.577350029, 0.5773504], np.float64)
+    pv = np.cross(d, e2.astype(np.float64))
+    det = np.einsum("fi,fi->f", pv, e1.astype(np.float64))
+    ok = np.abs(det) > 1e-12
+    inv = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
+    tv = -v0.astype(np.float64)
+    u = np.einsum("fi,fi->f", tv, pv) * inv
+    qv = np.cross(tv, e1.astype(np.float64))
+    vbar = qv @ d * inv
+    t = np.einsum("fi,fi->f", qv, e2.astype(np.float64)) * inv
+    crossings = ok & (u >= 0) & (vbar >= 0) & (u + vbar <= 1) & (t > 0)
+    if int(crossings.sum()) % 2 == 0:
+        return 0.0
+    # Exact origin-to-triangle distance: the interior critical point (when
+    # inside the barycentric domain) and the three clamped edges.
+    v0d = v0.astype(np.float64)
+    e1d = e1.astype(np.float64)
+    e2d = e2.astype(np.float64)
+    a = np.einsum("fi,fi->f", e1d, e1d)
+    b = np.einsum("fi,fi->f", e1d, e2d)
+    c = np.einsum("fi,fi->f", e2d, e2d)
+    dd = np.einsum("fi,fi->f", e1d, v0d)
+    e = np.einsum("fi,fi->f", e2d, v0d)
+    det2 = a * c - b * b
+    good = det2 > 1e-18
+    s = np.where(good, (b * e - c * dd) / np.where(good, det2, 1.0), -1.0)
+    tt = np.where(good, (b * dd - a * e) / np.where(good, det2, 1.0), -1.0)
+    inside = good & (s >= 0) & (tt >= 0) & (s + tt <= 1)
+    p_in = v0d + s[:, None] * e1d + tt[:, None] * e2d
+    d2_in = np.where(inside, np.einsum("fi,fi->f", p_in, p_in), np.inf)
+
+    def edge_d2(av, dv):
+        dvdv = np.einsum("fi,fi->f", dv, dv)
+        tcl = np.clip(-np.einsum("fi,fi->f", av, dv)
+                      / np.maximum(dvdv, 1e-18), 0.0, 1.0)
+        p = av + tcl[:, None] * dv
+        return np.einsum("fi,fi->f", p, p)
+
+    d2 = np.minimum(d2_in, edge_d2(v0d, e1d))
+    d2 = np.minimum(d2, edge_d2(v0d, e2d))
+    d2 = np.minimum(d2, edge_d2(v0d + e1d, e2d - e1d))
+    return float(max(np.sqrt(d2.min()) * (1.0 - 1e-5), 0.0))
+
+
+def make_mesh(positions, normals, uvs, faces, tangents=None,
+              vertex_motion=None, device="cuda") -> TriMesh:
+    """Build a TriMesh from numpy arrays: per-face corners, the BLAS table
+    (trimesh_kernels.build_mesh_tables), the inscribed radius, all in
+    Morton face order."""
+    device = backend.device(device)
+    positions = np.asarray(positions, np.float32)
+    normals = np.asarray(normals, np.float32)
+    uvs = np.asarray(uvs, np.float32)
+    faces = np.asarray(faces, np.int32)
+    if tangents is None:
+        tangents = geometry.compute_tangent_frame(faces, positions, normals,
+                                                  uvs)
+    v0 = positions[faces[:, 0]]
+    e1 = positions[faces[:, 1]] - v0
+    e2 = positions[faces[:, 2]] - v0
+    order, tri_tbl = tk.build_mesh_tables(v0, e1, e2)
+    r_ins = _inscribed_radius(v0, e1, e2, faces)
+    lengths = np.sqrt((positions * positions).sum(-1))
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    return TriMesh(
+        positions=tensor(positions), normals=tensor(normals),
+        uvs=tensor(uvs), tangents=tensor(np.asarray(tangents, np.float32)),
+        faces=tensor(faces[order].astype(np.int64)),
+        v0=tensor(v0[order]), e1=tensor(e1[order]), e2=tensor(e2[order]),
+        bound_radius=torch.tensor(lengths.max(), device=device),
+        tri_tbl=tensor(tri_tbl), inscribed_radius=r_ins,
+        vertex_motion=(None if vertex_motion is None
+                       else tensor(np.asarray(vertex_motion, np.float32))))
+
+
+@dataclasses.dataclass(frozen=True)
+class TriHit:
+    hit: torch.Tensor           # (...,) bool
+    t: torch.Tensor             # (...,)
+    face: torch.Tensor          # (...,) int64
+    instance: torch.Tensor      # (...,) int64
+    barycentrics: torch.Tensor  # (..., 2) (u, v) of v1/v2
+
+
+def intersect_mesh(*args, **kwargs):
+    raise NotImplementedError("the dense sweep over one mesh (triangle "
+                              "lights) is not ported yet")
+
+
+def intersect_instances_any(*args, **kwargs):
+    raise NotImplementedError("the any-hit half of the mesh path is not "
+                              "ported yet")
+
+
+def _bounds_prepass(origin, direction, t_min, t_max, mesh: TriMesh,
+                    inst_position, inst_scale, block_size: int = 16384):
+    """Per-lane range tightening before the mesh kernels, by two
+    brute-force sphere sweeps over the M instance bounds:
+
+    1. kill: a lane whose segment misses every instance bounding sphere
+       cannot hit the mesh and gets a dead range (tmax < tmin);
+    2. clamp (inscribed_radius > 0): a lane through instance i's inscribed
+       ball is sure to hit a surface before it leaves i's bounding sphere,
+       so tmax clamps to t_entry + 2 r_bound.
+
+    t_min, t_max: lead-shaped. Returns the tightened t_max."""
+    r_bound = mesh.bound_radius * inst_scale
+    hit_b = intersect.intersect_spheres(origin, direction,
+                                        torch.clamp(t_min, min=0.0), t_max,
+                                        inst_position, r_bound, block_size)
+    t_max_new = torch.where(hit_b.hit, t_max,
+                            torch.clamp(t_min, max=0.0) - 1.0)
+    if mesh.inscribed_radius <= 0.0:
+        return t_max_new
+    r_ins = mesh.inscribed_radius * inst_scale
+    hit_i = intersect.intersect_spheres(origin, direction, t_min, t_max_new,
+                                        inst_position, r_ins, block_size)
+    clamp = hit_i.t + 2.0 * r_bound[hit_i.index] * 1.0001 + 1e-4
+    return torch.where(hit_i.hit, torch.minimum(t_max_new, clamp), t_max_new)
+
+
+def _pack_for_mesh_kernel(origin, direction, t_min, t_max, mesh,
+                          inst_position, inst_rotation, inst_scale):
+    """Planar rays in pixel order and the per-call TLAS tables, ordered
+    near to far from the centroid of the live rays' origins. Returns (rays
+    (8, N), inst_tbl, inst_bounds, order, n_ichunks)."""
+    n = t_min.numel()
+    o = origin.reshape(n, 3)
+    tmn, tmx = t_min.reshape(n), t_max.reshape(n)
+    rays = intersect.pack_rays(o, direction.reshape(n, 3), tmn, tmx)
+    live = (tmx >= tmn).to(torch.float32)
+    cnt = torch.clamp(live.sum(), min=1.0)
+    sort_origin = (o * live[:, None]).sum(dim=0) / cnt
+    return (rays, *tk.make_inst_tables(
+        inst_position, inst_rotation, inst_scale, mesh.bound_radius,
+        sort_origin=sort_origin))
+
+
+def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
+                        inst_position, inst_rotation, inst_scale,
+                        rounds: int = tk.CAND_ROUNDS,
+                        block_size: int = 16384) -> TriHit:
+    """Closest hit of rays against M instances of one mesh.
+
+    origin/direction: (..., 3), unit directions; t_min/t_max broadcastable
+    to (...,) with t_min >= 0. `rounds` candidate rounds run before the
+    serial walk takes what is left; 0 runs the serial walk alone."""
+    lead = origin.shape[:-1]
+
+    def full(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
+        return torch.broadcast_to(x, lead)
+
+    t_min = full(t_min)
+    t_max = _bounds_prepass(origin, direction, t_min, full(t_max), mesh,
+                            inst_position, inst_scale, block_size)
+    rays, inst_tbl, inst_bounds, order, n_ic = _pack_for_mesh_kernel(
+        origin, direction, t_min, t_max, mesh, inst_position, inst_rotation,
+        inst_scale)
+    if rounds > 0:
+        t_p, face_p, inst_p = tk.intersect_mesh_instances_cand(
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
+            rounds=rounds, block=block_size)
+    else:
+        t_p, face_p, inst_p = tk.intersect_mesh_instances(
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
+            block=block_size)
+    # The kernels' instance ids are table positions; map them back.
+    inst_p = torch.clamp(
+        order[torch.clamp(inst_p.long(), max=order.shape[0] - 1)], min=0)
+
+    t_p = t_p.reshape(lead)
+    face_p = torch.clamp(face_p.long(), max=mesh.v0.shape[0] - 1
+                         ).reshape(lead)
+    inst_p = torch.clamp(inst_p, max=inst_position.shape[0] - 1
+                         ).reshape(lead)
+    t_exact, u, v = tk.refine_hit(mesh, inst_position, inst_rotation,
+                                  inst_scale, origin, direction, t_p, face_p,
+                                  inst_p)
+    hit = torch.isfinite(t_p) & torch.isfinite(t_exact)
+    return TriHit(hit=hit, t=torch.where(hit, t_exact, float("inf")),
+                  face=face_p, instance=inst_p,
+                  barycentrics=torch.stack([u, v], dim=-1))
+
+
+def interpolate_attributes(mesh: TriMesh, hit: TriHit, inst_rotation):
+    """Vertex fetch and barycentric interpolation (Vertex::Interpolate /
+    HitInfo::Initialize), rotated to world. Returns (normal, uv,
+    tangent)."""
+    tri = mesh.faces[hit.face]                          # (..., 3)
+    w = 1.0 - hit.barycentrics[..., 0] - hit.barycentrics[..., 1]
+    bary = torch.stack([w, hit.barycentrics[..., 0],
+                        hit.barycentrics[..., 1]], dim=-1)[..., None]
+
+    def interp(attr):
+        return torch.sum(attr[tri] * bary, dim=-2)
+
+    rot = inst_rotation[hit.instance]
+    normal = m.normalize(m.quat_rotate(rot, interp(mesh.normals)))
+    tangent = m.normalize(m.quat_rotate(rot, interp(mesh.tangents)))
+    return normal, interp(mesh.uvs), tangent

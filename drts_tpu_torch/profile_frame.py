@@ -1,8 +1,10 @@
 """Where a frame's device time goes: a torch.profiler trace of the
 path-trace frame (``bench.trace_frame``) or, with ``--frame``, of the
-ReSTIR frame (``RenderPipeline.render_frame``), on one GPU.
+ReSTIR frame (``RenderPipeline.render_frame``) or, with ``--mesh``, of the
+instanced-mesh frame (``bench.make_mesh_setup``), on one GPU.
 
-    python -m drts_tpu_torch.profile_frame [--frame] [--frames N] [--out PATH]
+    python -m drts_tpu_torch.profile_frame [--frame | --mesh] [--frames N]
+                                           [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
@@ -23,10 +25,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import backend, bench
+from .ops import pathtrace
 
 # The hand-written kernels' function names in csrc/*.cu.
 HAND_KERNELS = ("morton_closest_hit", "brute_closest_hit", "morton_occlusion",
-                "initial_candidates", "reproject")
+                "initial_candidates", "reproject", "bound_scan",
+                "shared_blas_sweep", "mesh_instances_closest")
 
 
 def _device_us(evt) -> float:
@@ -43,9 +47,17 @@ def _frames_wall_us(step, frames: int) -> float:
     return (time.perf_counter() - start) * 1e6
 
 
-def _frame_step(restir_frame: bool, device):
+def _frame_step(recipe: str, device):
     """A function that renders the next frame of the chosen recipe."""
-    if restir_frame:
+    frame = [0]
+    if recipe == "mesh_frame":
+        scene, cam, cfg = bench.make_mesh_setup(device=device)
+
+        def step():
+            pathtrace.trace_image(scene, cam, cfg, frame[0])
+            frame[0] += 1
+        return step
+    if recipe == "restir_frame":
         pipe, state, pose = bench.make_frame_setup(device=device)
         box = [state]
 
@@ -53,7 +65,6 @@ def _frame_step(restir_frame: bool, device):
             box[0], _ = pipe.render_frame(box[0], pose)
         return step
     setup = bench.make_trace_setup(device=device)
-    frame = [0]
 
     def step():
         bench.trace_frame(setup, frame[0])
@@ -62,8 +73,8 @@ def _frame_step(restir_frame: bool, device):
 
 
 def profile_frames(frames: int = 2, device="cuda",
-                   restir_frame: bool = False) -> dict:
-    step = _frame_step(restir_frame, device)
+                   recipe: str = "trace_frame") -> dict:
+    step = _frame_step(recipe, device)
     step()                                           # warm
     plain_us = _frames_wall_us(step, frames)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -80,7 +91,7 @@ def profile_frames(frames: int = 2, device="cuda",
             "ms_per_frame": sum(_device_us(e) for e in found) / frames / 1e3}
     return {
         "device": torch.cuda.get_device_name(0),
-        "recipe": "restir_frame" if restir_frame else "trace_frame",
+        "recipe": recipe,
         "frames": frames,
         "frame_ms_unprofiled": plain_us / frames / 1e3,
         "frame_ms_profiled": wall_us / frames / 1e3,
@@ -99,10 +110,13 @@ def main(argv=None):
     parser.add_argument("--frames", type=int, default=4)
     parser.add_argument("--frame", action="store_true",
                         help="the ReSTIR frame instead of the path trace")
+    parser.add_argument("--mesh", action="store_true",
+                        help="the instanced-mesh frame instead")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
-    result = profile_frames(args.frames, backend.device("cuda"),
-                            restir_frame=args.frame)
+    recipe = ("mesh_frame" if args.mesh
+              else "restir_frame" if args.frame else "trace_frame")
+    result = profile_frames(args.frames, backend.device("cuda"), recipe)
     text = json.dumps(result, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -3,15 +3,18 @@
 Marked ``cuda``; each test skips where PyTorch sees no GPU. They cover what
 the main paths' shapes do not: tables wider than one shared-memory tile
 (512 columns), ray and pixel counts that are not a multiple of the block
-size, dead lanes, light tables of 1 and 128 rows, and reprojection of 1
-and 9 channels with motion off every edge. Run on a GPU machine, which has
-no JAX, without the suite's conftest:
+size, dead lanes, light tables of 1 and 128 rows, reprojection of 1 and 9
+channels with motion off every edge, and for the mesh kernels 1 and 600
+instances (a scan table beyond one 512-row tile), a 2,048-face mesh (a
+triangle table of 72 KB, beyond one shared-memory tile) and a batch of
+dead lanes only. Run on a GPU machine, which has no JAX, without the
+suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance 0 for B1, B11, B2 and B4: the kernels are built with -fmad=false
-and compute the same separately rounded operations in the same order as
-the plain versions (B4 nearest copies words). B3 calls the CUDA library's
+Tolerance 0 for B1, B11, B2, B4, B5, B6 and B7: the kernels are built with
+-fmad=false and compute the same separately rounded operations in the same
+order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
 sinf and cosf where the plain version calls PyTorch's: picks may differ on
 <= 0.1% of pixels and the outputs elsewhere by <= 1e-5 of each row's
 largest value.
@@ -22,8 +25,9 @@ import pytest
 import torch
 
 from drts_tpu_torch import backend
-from drts_tpu_torch.models import clusters
+from drts_tpu_torch.models import clusters, geometry
 from drts_tpu_torch.ops import intersect, intersect_kernels as ik
+from drts_tpu_torch.ops import trimesh, trimesh_kernels as tk
 from drts_tpu_torch.ops import reproject_kernels as rp
 from drts_tpu_torch.ops import restir_kernels as rk
 
@@ -184,3 +188,86 @@ def test_reproject_kernel_equals_plain(dev, c, mode):
     assert bool((m[..., 1] + torch.arange(h)[:, None] < 0).any())
     assert bool((m[..., 1] + torch.arange(h)[:, None] > h - 1).any())
     assert 0 < int(ok.sum()) < h * w
+
+
+def mesh_case(k, n, tess, seed, dev, dead=False):
+    """k rotated, scaled instances of a geosphere, n rays of which every
+    other one aims near an instance and a fifth are dead (all, with
+    `dead`), and the per-call tables."""
+    rng = np.random.RandomState(seed)
+    pos = np.asarray(rng.randn(k, 3) * 6, np.float32)
+    rot = rng.randn(k, 4)
+    rot = np.asarray(rot / np.linalg.norm(rot, axis=1, keepdims=True),
+                     np.float32)
+    scale = np.asarray(0.4 + rng.rand(k) * 1.4, np.float32)
+    o = np.asarray(rng.randn(n, 3) * 9, np.float32)
+    d = rng.randn(n, 3)
+    aim = pos[rng.randint(0, k, n)] + 0.3 * rng.randn(n, 3) - o
+    d[::2] = aim[::2]
+    d = np.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), np.float32)
+    tmax = np.where(rng.rand(n) < (1.0 if dead else 0.2), -1.0,
+                    1e9).astype(np.float32)
+    rays = intersect.pack_rays(torch.from_numpy(o), torch.from_numpy(d),
+                               torch.zeros(n), torch.from_numpy(tmax)).to(dev)
+    mesh = trimesh.make_mesh(*geometry.create_geosphere(2.0, tess),
+                             device=dev)
+    tables = tk.make_inst_tables(
+        torch.from_numpy(pos).to(dev), torch.from_numpy(rot).to(dev),
+        torch.from_numpy(scale).to(dev), mesh.bound_radius,
+        sort_origin=torch.from_numpy(o.mean(0)).to(dev))
+    return mesh, rays, tables
+
+
+@pytest.mark.parametrize("k,n,tess,dead", [
+    (24, 5001, 3, False), (1, 300, 2, False), (600, 3001, 3, False),
+    (24, 2049, 5, False), (24, 1024, 3, True)])
+def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
+    """B5, B6 and B7 round by round as the candidate loop calls them, each
+    against its plain version on the same inputs, then the whole loop on
+    the card against the whole loop on the CPU."""
+    mesh, rays, (inst_tbl, inst_bounds, _, n_ic) = mesh_case(
+        k, n, tess, seed=k + n, dev=dev, dead=dead)
+    tri_tbl = mesh.tri_tbl
+    assert tri_tbl.shape[0] == max(64, 8 * 4 ** (tess - 1))
+    bscan = tk.make_bscan_table(inst_tbl)
+    assert bscan.shape[0] == -(-inst_tbl.shape[1] // 128) * 128
+    m_tbl = inst_tbl.shape[1]
+    mask = (1 << ik.pos_bits(bscan.shape[0])) - 1
+    trunc_f = ~((1 << ik.pos_bits(tri_tbl.shape[0])) - 1)
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best = torch.full((n,), ik.INF_BITS, dtype=torch.int32, device=dev)
+    binst = torch.zeros(n, dtype=torch.int32, device=dev)
+    cur = rays.clone()
+    before = dict(backend.LAUNCHES)
+    for _ in range(2):
+        key = tk.bound_scan(cur, bscan, cursor)
+        assert torch.equal(key, tk.bound_scan_plain(cur, bscan, cursor))
+        cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
+            torch.int32)
+        out = tk.shared_blas_sweep(cur, cand, best, binst, inst_tbl, tri_tbl)
+        assert_equal(out, tk.shared_blas_sweep_plain(cur, cand, best, binst,
+                                                     inst_tbl, tri_tbl))
+        best, binst = out
+        cursor = key
+        cur[7] = torch.minimum(rays[7],
+                               (best & trunc_f).view(torch.float32))
+    # The loop's rays, tightened to the best so far, then the untouched.
+    for batch in (cur, rays):
+        out = tk.intersect_mesh_instances(batch, inst_tbl, inst_bounds,
+                                          tri_tbl, n_ic)
+        assert_equal(out, tk.intersect_mesh_instances_plain(
+            batch, inst_tbl, inst_bounds, tri_tbl, n_ic))
+    assert backend.LAUNCHES["bound_scan"] == before["bound_scan"] + 2
+    assert (backend.LAUNCHES["shared_blas_sweep"]
+            == before["shared_blas_sweep"] + 2)
+    assert (backend.LAUNCHES["intersect_mesh_instances"]
+            == before["intersect_mesh_instances"] + 2)
+    hits = int(torch.isfinite(out[0]).sum())
+    assert hits == 0 if dead else 0 < hits < n
+    assert dead or bool((best < ik.INF_BITS).any())
+
+    whole = tk.intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds,
+                                             tri_tbl, n_ic)
+    on_cpu = tk.intersect_mesh_instances_cand(
+        rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(), n_ic)
+    assert_equal(whole, on_cpu)

@@ -135,15 +135,27 @@ def test_golden_recipe_through_port():
 
 
 def test_port_renders_without_jax():
-    """A fresh interpreter renders a 16x16 frame through the port and
-    never imports jax or the reference package."""
+    """A fresh interpreter renders a 16x16 sphere frame and a 16x16
+    instanced-mesh frame through the port, with every module of the port
+    loaded, and never imports jax or the reference package."""
     code = (
-        "import sys\n"
+        "import sys, pkgutil, importlib\n"
+        "import drts_tpu_torch\n"
         "from drts_tpu_torch import bench\n"
+        "for m in pkgutil.walk_packages(drts_tpu_torch.__path__,"
+        " 'drts_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert 'drts_tpu_torch.ops.trimesh_kernels' in sys.modules\n"
+        "assert 'drts_tpu_torch.models.geometry' in sys.modules\n"
         "stats, out = bench.bench_trace(16, 16, bounces=3, iters=1,"
         " device='cpu')\n"
         "assert out.radiance.shape == (16, 16, 3)\n"
         "assert bool(out.radiance.isfinite().all())\n"
+        "stats, out = bench.bench_mesh(16, 16, tess=2, bounces=3, iters=1,"
+        " oscillator_grid=2, device='cpu')\n"
+        "assert out.radiance.shape == (16, 16, 3)\n"
+        "assert bool(out.radiance.isfinite().all())\n"
+        "assert bool(out.primary_valid.any())\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in"
         " ('jax', 'jaxlib', 'flax', 'drts_tpu')]\n"
         "assert not bad, bad\n")

@@ -70,6 +70,45 @@ def test_convert_round_trip_and_object_table(hosts):
     np.testing.assert_array_equal(tscene.object_table(th.scene).numpy(), jt)
 
 
+def test_object_table_with_mesh_instances(hosts):
+    """as_mesh_scene moves every sphere into the mesh instances: the object
+    table's rows [K, K+M) = [0, M) carry the instance transform and radius
+    0, and equal the reference's bit for bit, through convert.scene and
+    through the port's own as_mesh_scene. A mixed scene (K spheres kept, 3
+    instances appended) puts the instances after the spheres."""
+    jh, th = hosts
+    jm_host = jmyscene.as_mesh_scene(jh, tessellation=2)
+    expect = np.asarray(jscene.object_table(jm_host.scene))
+    k = jh.scene.center.shape[0]
+    assert expect.shape == (k, 33) and not expect[:, 3].any()
+    cs = convert.scene(to_np(jm_host.scene), "cpu")
+    assert cs.center.shape == (0, 3) and cs.mesh_instances.scale.shape == (k,)
+    np.testing.assert_array_equal(cs.mesh_instances.scale.numpy(),
+                                  np.asarray(jh.scene.radius))
+    np.testing.assert_array_equal(tscene.object_table(cs).numpy(), expect)
+    tm_host = tmyscene.as_mesh_scene(th, tessellation=2)
+    np.testing.assert_array_equal(tscene.object_table(tm_host.scene).numpy(),
+                                  expect)
+    np.testing.assert_array_equal(cs.mesh.tri_tbl.numpy(),
+                                  np.asarray(jm_host.scene.mesh.tri_tbl))
+
+    mi = jscene.MeshInstances(
+        center=jh.scene.center[:3] + 1.0, rotation=jh.scene.rotation[:3],
+        prev_center=jh.scene.center[:3], prev_rotation=jh.scene.rotation[:3],
+        scale=jnp.asarray([0.5, 1.0, 2.0]))
+    mats = jax.tree.map(lambda x: jnp.concatenate([x, x[:3]]),
+                        jh.scene.materials)
+    mixed = dataclasses.replace(jh.scene, materials=mats,
+                                mesh=jm_host.scene.mesh, mesh_instances=mi)
+    expect = np.asarray(jscene.object_table(mixed))
+    got = tscene.object_table(convert.scene(to_np(mixed), "cpu")).numpy()
+    np.testing.assert_array_equal(got, expect)
+    assert got.shape == (k + 3, 33)
+    assert not got[k:, 3].any() and (got[:k, 3] > 0).all()
+    np.testing.assert_array_equal(got[k:, 0:3], np.asarray(mi.center))
+    np.testing.assert_array_equal(got[k:, 8:11], np.asarray(mi.prev_center))
+
+
 def test_surface_attributes_match(hosts):
     """Same SphereHit in -> same refined HitSurface out. Tolerance rtol
     1e-5 / atol 1e-5: the Newton step and normalize are float32 formulas
