@@ -48,14 +48,40 @@ Phases, one printed line or more each; any failure exits non-zero:
    2; the image must be a finite (1080, 1920, 3) and stay near the sphere
    frame of phase 4 (tone-mapped mean within 25%, primary hit mask equal
    on > 85% of pixels: the two differ by the tessellation's chords).
+10. mesh any-hit kernels: B8 (shared-BLAS any hit), B9 (serial any-hit
+   walk) and the any-hit launches of B5 and B11 (the bounds pre-pass, hit
+   bit only) against their plain versions, bit for bit, on the inputs that
+   the three occluded_scene calls of the second all-mesh ReSTIR frame at
+   1920x1080 give them (the BRDF candidate's occluder test, the initial
+   visibility ray, final shading), with kernel and plain times from CUDA
+   events; and B9 once more on the fullest of the three shadow-ray batches
+   before any candidate round, where the serial walk carries every live
+   lane, held against its plain version and against the loop's result on
+   the same rays (B8 compares t in object units, B9 in world units: they
+   may differ on at most ANY_LOOP_SHARE of the live lanes).
+11. mesh restir: the all-mesh ReSTIR frame (render_frame on the scene of
+   phase 9, physics on, every face of an emissive instance a triangle
+   light) at 1920x1080 through bench.bench_frame(mesh=True), counted from
+   zero: frame time, per-stage times, counters (lights_dropped is large
+   here: 512 faces per emissive instance against a cap of 128) and every
+   kernel's launches; a finite (1080, 1920, 3) in [0, 1] whose mean lies
+   within 25% of phase 6's; no overflow; per frame 3 any-hit calls of 3 x
+   B5, 2 x B8, 1 x B9 and 1 x B11, and per closest-hit call the counts of
+   phase 9; B1, B2 and B3 do not run (no sphere table, triangle lights).
+   Then two all-mesh frames at 64x64 on the card and on the CPU, as
+   phase 7.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
 ("intersect_brute@mesh", K = 438 instance bounds) with the launches of
-phase 9 and the times of phase 8. Every bound counts what this run's lanes
-need (a dead lane reads tmin and tmax only), and a kernel measured under
-its bound fails the run. Then the card's name and power limit, and, last,
-{"ok": true, "device": {...}}. Without a GPU, or
+phase 9 and the times of phase 8; B8, B9 and, once more, B5 and B11
+("bound_scan@mesh_restir", "intersect_brute@mesh_restir": their any-hit
+launches alone) with the launches of phase 11 and the times of phase 10,
+summed over one frame's three calls (B9's are those of the full batch).
+Every bound counts what this run's lanes need (a dead lane reads tmin and
+tmax only; an any-hit sweep ends at its first blocking triangle), and a
+kernel measured under its bound fails the run. Then the card's name and
+power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
 """
@@ -104,6 +130,12 @@ SMALL_OFF = 1e-4          # a pixel is off beyond this |difference| ...
 SMALL_OFF_SHARE = 0.005   # ... on at most this share of pixels
 # Phase 8: B7's batch without candidate rounds must hold this many live lanes.
 B7_MIN_LIVE = 1000
+# Phase 10: B9's batch without candidate rounds must hold this many live
+# lanes, and the loop may differ from it on this share of them (the share
+# the reference's own tests allow between its any-hit forms; measured on an
+# H100: 44 of 504,764).
+B9_MIN_LIVE = 1000
+ANY_LOOP_SHARE = 1e-3
 # Phase 9, mesh frame vs sphere frame (the bars of tests/test_trimesh.py's
 # test_as_mesh_scene_renders).
 MESH_MEAN_REL = 0.25      # tone-mapped mean, relative
@@ -427,16 +459,18 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
     return out
 
 
-def check_small_frames(pipeline, bench, devices=("cuda", "cpu")):
-    """Phase 7: two 64x64 ReSTIR frames on the card and on the CPU from one
-    start state (oscillator grid 3: 45 spheres, 9 lights), close to the
-    oscillator field. Bounds just above what the card showed (see
-    SMALL_*)."""
+def check_small_frames(pipeline, bench, devices=("cuda", "cpu"), mesh=False):
+    """Phases 7 and 11: two 64x64 ReSTIR frames on the card and on the CPU
+    from one start state (oscillator grid 3: 45 spheres, 9 lights; with
+    `mesh`, as 45 instances of a 128-face geosphere, the brightest 128
+    faces the lights), close to the oscillator field. Bounds just above
+    what the card showed (see SMALL_*)."""
+    label = "mesh restir small" if mesh else "restir small"
     results = []
     for dev in devices:
         pipe, state, _ = bench.make_frame_setup(64, 64, bounces=2,
                                                 oscillator_grid=3,
-                                                device=dev)
+                                                device=dev, mesh=mesh, tess=3)
         eye = torch.tensor([0.0, 2.5, -4.0])
         fwd = torch.tensor([0.0, 0.5, 0.0]) - eye
         pose = pipeline.CameraPose(eye.to(dev), (fwd / fwd.norm()).to(dev),
@@ -451,14 +485,14 @@ def check_small_frames(pipeline, bench, devices=("cuda", "cpu")):
         d = (gimg - cimg).abs()
         mean = float(d.mean())
         off = float((d.amax(-1) > SMALL_OFF).float().mean())
-        log(f"restir small: frame {i} pick_mismatch_share={pick!r} "
+        log(f"{label}: frame {i} pick_mismatch_share={pick!r} "
             f"image_mean_abs_diff={mean!r} image_max_abs_diff="
             f"{float(d.max())!r} pixels_off_{SMALL_OFF}={off!r} "
             f"finite={bool(torch.isfinite(gimg).all())}")
         if (pick > SMALL_PICK_SHARE or mean > SMALL_MEAN
                 or off > SMALL_OFF_SHARE):
-            raise AssertionError("ReSTIR frame on the card disagrees with "
-                                 "the plain versions on the CPU")
+            raise AssertionError(f"{label}: the frame on the card disagrees "
+                                 f"with the plain versions on the CPU")
 
 
 def capture_mesh_inputs(bench, pathtrace, modules, device="cuda"):
@@ -657,6 +691,200 @@ def check_b7(tk, label, args, timed):
     return part
 
 
+def capture_anyhit_inputs(bench, trimesh, modules, device="cuda"):
+    """One all-mesh ReSTIR frame at 1920x1080 to warm up, then one that
+    records the arguments of every B5, B8, B9 and B11 call made inside
+    trimesh.intersect_instances_any: the frame's three occluded_scene
+    calls. The any-hit loop leaves its tensors as they are, so nothing is
+    copied."""
+    pipe, state, pose = bench.make_frame_setup(device=device, mesh=True)
+    state, _ = pipe.render_frame(state, pose)
+    inside = [False]
+    orig = trimesh.intersect_instances_any
+
+    def any_hit(*args, **kwargs):
+        inside[0] = True
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            inside[0] = False
+    trimesh.intersect_instances_any = any_hit
+    try:
+        with recorded(modules, ("bound_scan", "shared_blas_any",
+                                "intersect_mesh_instances_any",
+                                "intersect_brute"),
+                      keep=lambda seen: inside[0]) as seen:
+            pipe.render_frame(state, pose)
+            torch.cuda.synchronize()
+    finally:
+        trimesh.intersect_instances_any = orig
+    return seen
+
+
+def check_b9(tk, label, args, timed):
+    """B9 against its plain version on one batch: every bit equal. Returns
+    its timed part, with `live`, `blocked` and the kernel's result."""
+    rays, inst_tbl, inst_bounds, tri_tbl, n_ic, block = args
+    work = {}
+    occ_k = tk.intersect_mesh_instances_any(*args)
+    occ_p = tk.intersect_mesh_instances_any_plain(*args, work=work)
+    torch.cuda.synchronize()
+    mismatch = words_differ((occ_k,), (occ_p,))
+    n = rays.shape[1]
+    part = {
+        "bytes": lane_bytes(n, work["live"], 8, 1, inst_tbl, inst_bounds,
+                            tri_tbl),
+        "ops": (work["chunk_tests"] + work["inst_tests"]) * OPS_B7_SPHERE
+        + work["sweeps"] * OPS_TO_OBJECT + work["tri_tests"] * OPS_MT_PAIR,
+        "ms": cuda_ms(lambda: tk.intersect_mesh_instances_any(*args), 10),
+        "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_any_plain(
+            *args), 1) if timed else 0.0,
+        "live": work["live"], "blocked": int(occ_k.sum()), "occ": occ_k}
+    log(f"mesh any-hit kernels: B9 {label} rays={n} live={work['live']} "
+        f"blocked={part['blocked']} chunk_tests={work['chunk_tests']} "
+        f"instance_tests={work['inst_tests']} "
+        f"instance_sweeps={work['sweeps']} "
+        f"triangle_tests={work['tri_tests']} mismatch={mismatch} "
+        f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+    if mismatch:
+        raise AssertionError(f"B9 {label}: kernel disagrees with its plain "
+                             f"version on {mismatch} lanes")
+    return part
+
+
+def check_anyhit_kernels(ik, tk, seen):
+    """Phase 10: B8, B9 and the any-hit launches of B5 and B11 against
+    their plain versions on the all-mesh ReSTIR frame's own inputs. The
+    kernels-line fields of B8, "bound_scan@mesh_restir" and
+    "intersect_brute@mesh_restir" are sums over one frame's three
+    occluded_scene calls (6, 9 and 3 launches); B9's are those of the
+    fullest shadow-ray batch with no candidate round before it (the
+    frame's own backstop batches are logged only)."""
+    if (len(seen["intersect_mesh_instances_any"]) != 3
+            or len(seen["bound_scan"]) != 9
+            or len(seen["shared_blas_any"]) != 6
+            or len(seen["intersect_brute"]) != 3):
+        raise AssertionError(
+            "mesh any-hit kernels: recorded "
+            + json.dumps({k: len(v) for k, v in seen.items()})
+            + " calls, expected 9 B5, 6 B8, 3 B9, 3 B11")
+    out = {}
+
+    def total(name, parts):
+        b_ms, b_by = bound(sum(p["bytes"] for p in parts),
+                           sum(p["ops"] for p in parts))
+        out[name] = {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in parts),
+                     "plain_ms": sum(p["plain_ms"] for p in parts),
+                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    b5_parts, b8_parts, b11_parts = [], [], []
+    fullest = None
+    for c, label in enumerate(("brdf-candidate", "initial", "final")):
+        # B11: the any-hit pre-pass over the instance bounds (hit bit only).
+        rays, spheres, block = seen["intersect_brute"][c]
+        res = compare_closest(
+            f"B11 any-hit pre-pass {label} K={spheres.shape[1]}",
+            lambda: ik.intersect_brute(rays, spheres),
+            lambda: ik.intersect_brute_plain(rays, spheres, block),
+            reps=10, plain_reps=1)
+        res["bytes"], res["ops"] = b11_work(rays, spheres)
+        b11_parts.append(res)
+        log(f"mesh any-hit kernels: B11 {label} live={live_rays(rays)} "
+            f"bound_ms={bound(res['bytes'], res['ops'])[0]!r} "
+            f"kernel_ms={res['ms']!r}")
+
+        # B5: the two rounds and the scan that marks the unresolved rays.
+        for r, (rays, bscan, cursor, block) in enumerate(
+                seen["bound_scan"][3 * c:3 * c + 3]):
+            key_k = tk.bound_scan(rays, bscan, cursor, block)
+            key_p = tk.bound_scan_plain(rays, bscan, cursor, block)
+            torch.cuda.synchronize()
+            mismatch = words_differ((key_k,), (key_p,))
+            live = live_rays(rays)
+            n, m_pad = rays.shape[1], bscan.shape[0]
+            part = {"bytes": lane_bytes(n, live, 8 + 1, 1, bscan),
+                    "ops": live * m_pad * OPS_B5_PAIR,
+                    "ms": cuda_ms(lambda: tk.bound_scan(rays, bscan, cursor,
+                                                        block), 10),
+                    "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(
+                        rays, bscan, cursor, block), 1)}
+            b5_parts.append(part)
+            log(f"mesh any-hit kernels: B5 {label} round {r + 1} rays={n} "
+                f"live={live} rows={m_pad} "
+                f"found={int((key_k < ik.INF_BITS).sum())} "
+                f"mismatch={mismatch} kernel_ms={part['ms']!r} "
+                f"plain_ms={part['plain_ms']!r} "
+                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+            if mismatch:
+                raise AssertionError(f"B5 {label} round {r + 1}: kernel "
+                                     f"disagrees with its plain version on "
+                                     f"{mismatch} keys")
+            if r == 0 and (fullest is None or live > fullest[0]):
+                fullest = (live, label, rays, c)
+
+        # B8: each round's any-hit sweep of the rays' own candidates.
+        for r, (rays, cand, occ_in, inst_tbl, tri_tbl, block) in enumerate(
+                seen["shared_blas_any"][2 * c:2 * c + 2]):
+            args = (rays, cand, occ_in, inst_tbl, tri_tbl, block)
+            work = {}
+            occ_k = tk.shared_blas_any(*args)
+            occ_p = tk.shared_blas_any_plain(*args, work=work)
+            torch.cuda.synchronize()
+            mismatch = words_differ((occ_k,), (occ_p,))
+            n, live = rays.shape[1], work["live"]
+            # A live lane reads its ray, cand and occ_in; any other lane at
+            # least its occ_in, which it passes through.
+            part = {"bytes": lane_bytes(n, live, 8 + 2, 1, inst_tbl, tri_tbl,
+                                        dead_words=1),
+                    "ops": work["tri_tests"] * OPS_MT_PAIR
+                    + live * OPS_TO_OBJECT,
+                    "ms": cuda_ms(lambda: tk.shared_blas_any(*args), 10),
+                    "plain_ms": cuda_ms(lambda: tk.shared_blas_any_plain(
+                        *args), 1)}
+            b8_parts.append(part)
+            log(f"mesh any-hit kernels: B8 {label} round {r + 1} rays={n} "
+                f"live={live} faces={tri_tbl.shape[0]} "
+                f"instances={inst_tbl.shape[1]} "
+                f"bits_in={int((occ_in > 0).sum())} "
+                f"bits_out={int((occ_k > 0).sum())} "
+                f"triangle_tests={work['tri_tests']} mismatch={mismatch} "
+                f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
+            if mismatch:
+                raise AssertionError(f"B8 {label} round {r + 1}: kernel "
+                                     f"disagrees with its plain version on "
+                                     f"{mismatch} lanes")
+
+        # B9: the frame's own backstop batch.
+        check_b9(tk, f"{label} backstop",
+                 seen["intersect_mesh_instances_any"][c], False)
+    total("bound_scan@mesh_restir", b5_parts)
+    total("shared_blas_any", b8_parts)
+    total("intersect_brute@mesh_restir", b11_parts)
+
+    # B9 where it carries every ray: the fullest batch as the pre-pass left
+    # it, no candidate round before it (intersect_instances_any's rounds=0),
+    # and the loop's answer on the same rays.
+    _, label, rays, c = fullest
+    tables = seen["intersect_mesh_instances_any"][c][1:]
+    b9 = check_b9(tk, f"{label}, no candidate round", (rays, *tables), True)
+    loop = tk.intersect_mesh_instances_any_cand(rays, *tables[:4],
+                                                block=tables[4])
+    differ = int(((b9["occ"] > 0) != loop).sum())
+    log(f"mesh any-hit kernels: B9 {label} alone vs the candidate loop: "
+        f"{differ} of {b9['live']} live lanes differ "
+        f"(bound {ANY_LOOP_SHARE} of them)")
+    if b9["live"] < B9_MIN_LIVE or b9["blocked"] == 0:
+        raise AssertionError(f"B9: the batch without candidate rounds holds "
+                             f"{b9['live']} live lanes, {b9['blocked']} "
+                             f"blocked")
+    if differ > ANY_LOOP_SHARE * b9["live"]:
+        raise AssertionError("B9 alone disagrees with the candidate loop")
+    total("intersect_mesh_instances_any", [b9])
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -670,6 +898,7 @@ def main():
     from drts_tpu_torch.ops import pathtrace, post
     from drts_tpu_torch.ops import reproject_kernels as rp
     from drts_tpu_torch.ops import restir_kernels as rk
+    from drts_tpu_torch.ops import trimesh
     from drts_tpu_torch.ops import trimesh_kernels as tk
     from drts_tpu_torch.utils import image, rng as rng_mod
 
@@ -869,6 +1098,64 @@ def main():
         launches[name] = mesh_launches[name]
     launches["intersect_brute@mesh"] = mesh_launches["intersect_brute"]
 
+    # 10. B8, B9 and the any-hit B5 and B11 at the all-mesh frame's inputs --
+    seen = capture_anyhit_inputs(bench, trimesh, (ik, tk), device=dev)
+    fields.update(check_anyhit_kernels(ik, tk, seen))
+    del seen
+
+    # 11. the all-mesh ReSTIR frame, counted from zero ----------------------
+    iters = 2
+    frames = iters + 2   # bench_frame: 1 warm, iters timed, 1 stage-timed
+    backend.reset_launches()
+    xstats, ximg = bench.bench_frame(iters=iters, device=dev, mesh=True)
+    x_launches = dict(backend.LAUNCHES)
+    x_finite = bool(torch.isfinite(ximg).all())
+    calls = x_launches["intersect_mesh_instances"]
+    mean_x, mean_r = float(ximg.mean()), float(rimg.mean())
+    log(f"mesh restir: 1920x1080 bounces=8 instances=438 faces=512 "
+        f"frames={frames} frame_ms={xstats['frame_ms']!r} "
+        f"rays_per_frame={xstats['rays_per_frame']!r} "
+        f"counters={json.dumps(xstats['counters'])} "
+        f"closest_hit_calls={calls} launches={json.dumps(x_launches)} "
+        f"finite={x_finite} min={float(ximg.min())!r} "
+        f"max={float(ximg.max())!r} mean={mean_x!r} "
+        f"sphere_restir_frame_mean={mean_r!r} | {smi}")
+    log(f"mesh restir: passes_ms={json.dumps(xstats['passes_ms'])}")
+    if (tuple(ximg.shape) != (1080, 1920, 3) or not x_finite
+            or float(ximg.min()) < 0.0 or float(ximg.max()) > 1.0):
+        raise AssertionError("the all-mesh ReSTIR frame is not a finite "
+                             "image in [0, 1]")
+    if abs(mean_x - mean_r) > MESH_MEAN_REL * mean_r:
+        raise AssertionError("the all-mesh ReSTIR frame is off the sphere "
+                             "ReSTIR frame")
+    if xstats["counters"]["wavefront_overflow_paths"] != 0:
+        raise AssertionError("the all-mesh ReSTIR frame overflowed its "
+                             "wavefront")
+    if calls < frames * (8 + 1):
+        raise AssertionError(f"{calls} closest-hit calls in {frames} frames "
+                             f"of 8 bounces")
+    # Per frame: 3 any-hit calls (3 x B5, 2 x B8, 1 x B9, 1 x B11), the BRDF
+    # candidate's light sweep (B11) and the temporal history (B4); per
+    # closest-hit call the counts of phase 9.
+    expect = {"shared_blas_any": 6 * frames,
+              "intersect_mesh_instances_any": 3 * frames,
+              "bound_scan": 4 * calls + 9 * frames,
+              "shared_blas_sweep": 3 * calls,
+              "intersect_brute": 2 * calls + 4 * frames,
+              "reproject_packed": frames, "intersect_morton": 0,
+              "occlusion_morton": 0, "initial_light_candidates": 0}
+    for name, count in expect.items():
+        if x_launches[name] != count:
+            raise AssertionError(f"{name} launched {x_launches[name]} times "
+                                 f"in {frames} all-mesh frames, expected "
+                                 f"{count}")
+    launches["shared_blas_any"] = x_launches["shared_blas_any"]
+    launches["intersect_mesh_instances_any"] = \
+        x_launches["intersect_mesh_instances_any"]
+    launches["bound_scan@mesh_restir"] = 9 * frames
+    launches["intersect_brute@mesh_restir"] = 3 * frames
+    check_small_frames(pipeline, bench, mesh=True)
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -888,6 +1175,16 @@ def main():
                                      "drts_tpu/ops/trimesh_pallas.py:315"),
         "intersect_brute@mesh": ("drts_tpu_torch/csrc/intersect.cu",
                                  "drts_tpu/ops/intersect_pallas.py:762"),
+        "shared_blas_any": ("drts_tpu_torch/csrc/trimesh.cu",
+                            "drts_tpu/ops/trimesh_pallas.py:973"),
+        "intersect_mesh_instances_any": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:545"),
+        "bound_scan@mesh_restir": ("drts_tpu_torch/csrc/trimesh.cu",
+                                   "drts_tpu/ops/trimesh_pallas.py:646"),
+        "intersect_brute@mesh_restir": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),

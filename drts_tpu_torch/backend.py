@@ -70,13 +70,23 @@ _SIGNATURES = {
     "drts_mesh_instances_closest": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                     _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
                                     _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP),
+    # rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, occ_out, stream
+    "drts_shared_blas_any": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _INT,
+                             _VOIDP, _INT, _VOIDP, _VOIDP),
+    # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
+    # bound_scale, bound_pad, tri_tbl, f_pad, occ_out, stream
+    "drts_mesh_instances_any": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                                _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
+                                _VOIDP, _VOIDP),
 }
 
 _lib = None
 LAUNCHES = dict.fromkeys(("intersect_morton", "intersect_brute",
                           "occlusion_morton", "initial_light_candidates",
                           "reproject_packed", "bound_scan",
-                          "shared_blas_sweep", "intersect_mesh_instances"), 0)
+                          "shared_blas_sweep", "intersect_mesh_instances",
+                          "shared_blas_any",
+                          "intersect_mesh_instances_any"), 0)
 
 
 def launched(name: str) -> None:

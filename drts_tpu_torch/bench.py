@@ -15,9 +15,15 @@ reference's 8 bounces): the same scene as 438 instances of one
 tessellation-4 geosphere (512 faces), no accel and no G-buffer, through
 ``pathtrace.trace_image`` at 1920x1080, 1 spp, 8 bounces.
 
+The all-mesh ReSTIR frame (``--mesh-frame``): ``render_frame`` as in
+``--frame`` on the scene of ``--mesh`` (an empty sphere table, so no
+accel; every face of an emissive instance is a triangle light; the shadow
+rays go through the mesh any-hit kernels).
+
     python -m drts_tpu_torch.bench [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
     python -m drts_tpu_torch.bench --mesh [--iters N]
+    python -m drts_tpu_torch.bench --mesh-frame [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -25,7 +31,8 @@ rays_per_frame, device); the ReSTIR frame with frame_ms (one warm frame,
 then N frames on a host clock ending in a synchronize), passes_ms (each
 stage of one more frame through render_frame's ``_run`` hook, timed with
 CUDA events and a synchronize per stage), rays_per_frame of the path
-trace and the frame's counters; the mesh frame with
+trace, the frame's counters, and the frames and launches per kernel of
+the run (the all-mesh ReSTIR frame alike); the mesh frame with
 mesh_trace_8b_mray_s, mesh_trace_8b_ms, rays_per_frame and the kernel
 launches of the run. All need a CUDA device and do not fall back to the
 CPU.
@@ -159,11 +166,14 @@ def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
 
 def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
-                     device="cuda"):
-    """The ReSTIR frame's pipeline, start state and camera pose."""
+                     device="cuda", mesh: bool = False, tess: int = 4):
+    """The ReSTIR frame's pipeline, start state and camera pose; with
+    `mesh`, on the scene as instances of one geosphere of `tess`."""
     pipe = pipeline.RenderPipeline(
         pipeline.restir_frame_config(width, height, bounces), device)
     host = myscene.build(oscillator_grid=oscillator_grid, device=pipe.device)
+    if mesh:
+        host = myscene.as_mesh_scene(host, tessellation=tess)
     return pipe, pipe.init_state(host), pipe.default_camera_pose(host)
 
 
@@ -192,13 +202,14 @@ def stage_timer(passes: dict, device):
 
 
 def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
-                iters: int = 4, device="cuda"):
+                iters: int = 4, device="cuda", mesh: bool = False):
     """One warm ReSTIR frame, then `iters` timed frames, then one frame
-    timed stage by stage. Returns (stats, the last timed frame's image);
-    stats has frame_ms, passes_ms, rays_per_frame (path trace, warm frame)
-    and the counters of the last timed frame."""
+    timed stage by stage; with `mesh`, the all-mesh ReSTIR frame. Returns
+    (stats, the last timed frame's image); stats has frame_ms, passes_ms,
+    rays_per_frame (path trace, warm frame) and the counters of the last
+    timed frame."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
-                                         device=device)
+                                         device=device, mesh=mesh)
     traced = {}
 
     def capture(name, fn, *args):
@@ -231,6 +242,8 @@ def main(argv=None):
                         help="the ReSTIR frame instead of the path trace")
     parser.add_argument("--mesh", action="store_true",
                         help="the instanced-mesh frame instead")
+    parser.add_argument("--mesh-frame", action="store_true",
+                        help="the all-mesh ReSTIR frame instead")
     args = parser.parse_args(argv)
     dev = backend.device("cuda")
     if args.mesh:
@@ -249,13 +262,18 @@ def main(argv=None):
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)
         return
-    if args.frame:
-        stats, image = bench_frame(iters=args.iters, device=dev)
+    if args.frame or args.mesh_frame:
+        backend.reset_launches()
+        stats, image = bench_frame(iters=args.iters, device=dev,
+                                   mesh=args.mesh_frame)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({
-            "metric": "restir_frame_1080p_8bounce",
+            "metric": ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
+                       else "restir_frame_1080p_8bounce"),
             "value": stats["frame_ms"], "unit": "ms", **stats,
+            "frames": args.iters + 2,
+            "launches": dict(backend.LAUNCHES),
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)
         return

@@ -111,10 +111,12 @@ def rigid_bodies(src, device="cuda") -> physics.RigidBodies:
 
 
 def lights(src, device="cuda") -> light.Lights:
-    """Sphere-light Lights; triangle lights raise."""
-    if bool(getattr(src, "has_triangles", False)):
-        raise NotImplementedError("triangle lights are not ported yet")
+    """Lights of either kind (`tri_light_id` becomes int64)."""
+    has_tri = bool(getattr(src, "has_triangles", False))
     return light.Lights(
+        tri_light_id=(_tensor(src.tri_light_id, device).long() if has_tri
+                      else None),
+        has_triangles=has_tri,
         **{name: _tensor(getattr(src, name), device)
            for name in ("center", "radius", "emission", "power",
                         "total_power", "table", "compact", "cdf",

@@ -1,12 +1,15 @@
-// Instanced triangle-mesh closest-hit kernels for Hopper (sm_90a).
+// Instanced triangle-mesh closest-hit and any-hit kernels for Hopper
+// (sm_90a).
 //
 // drts_bound_scan replaces the TPU kernel
 // drts_tpu/ops/trimesh_pallas.py:bound_scan (B5), drts_shared_blas_sweep
-// replaces shared_blas_sweep (B6) and drts_mesh_instances_closest replaces
-// intersect_mesh_instances (B7). All are bound to PyTorch through a plain C
-// interface and ctypes (drts_tpu_torch/ops/trimesh_kernels.py holds the
-// wrappers, the table makers and the plain PyTorch versions the kernels
-// are checked against).
+// replaces shared_blas_sweep (B6), drts_mesh_instances_closest replaces
+// intersect_mesh_instances (B7), drts_shared_blas_any replaces
+// shared_blas_any (B8, the any-hit twin of B6) and drts_mesh_instances_any
+// replaces intersect_mesh_instances_any (B9, the any-hit twin of B7). All
+// are bound to PyTorch through a plain C interface and ctypes
+// (drts_tpu_torch/ops/trimesh_kernels.py holds the wrappers, the table
+// makers and the plain PyTorch versions the kernels are checked against).
 //
 // The TPU kernels work on blocks of 2,048 rays and decide per block: a
 // bundle's origin sphere and direction cone cull instance chunks, instances
@@ -18,7 +21,7 @@
 //
 // Bound: a ray-sphere pair costs ~25 separately rounded float32 operations
 // and one IEEE sqrt (B5), a ray-triangle pair ~50 and one IEEE division
-// (B6, B7), against 36-48 bytes read and 4-12 written per ray. All three
+// (B6-B9), against 36-48 bytes read and 4-12 written per ray. All five
 // are bound by the instruction rate, not by device memory. What the design
 // does about it: the tables (8-24 KB) are staged in shared memory as
 // float4, so the inner loop's loads are broadcasts of 16 bytes (B5, B6);
@@ -26,6 +29,10 @@
 // gathered once per thread through the read-only cache; B7's loop is
 // different for every thread, so it reads all its tables through the
 // read-only cache with no barrier, and threads that are done do not wait.
+// B8 is laid out as B6 and B9 as B7; an any-hit lane needs no best, so it
+// leaves its sweep at the first triangle that blocks its segment (B8), or
+// its whole walk (B9), and B9's sphere tests take the lane's own tmax as
+// the far limit.
 //
 // Culls kept: a dead lane (tmax < tmin, or no candidate in B6) does no
 // work, and a block with no live lane leaves before it stages a table
@@ -91,12 +98,13 @@ __device__ __forceinline__ Vec3 conj_rotate(float qx, float qy, float qz,
 }
 
 // Two-sided Moeller-Trumbore of one ray (o, d; t in units of |d|) against
-// one triangle row [v0 e1 e2]: the packed word (t bits & trunc | pos)
-// where the hit lies in [tmin, tmax], else the packed miss.
-__device__ __forceinline__ int mt_packed(
+// one triangle row [v0 e1 e2]: true where the hit lies in [tmin, tmax], with
+// its t in *t_out. There is no |det| guard: 1 / det is +-inf on a degenerate
+// row, and the compares on its NaN or inf u, v, t are false.
+__device__ __forceinline__ bool mt_hit(
     const Vec3 o, const Vec3 d, float tmin, float tmax, float v0x, float v0y,
     float v0z, float e1x, float e1y, float e1z, float e2x, float e2y,
-    float e2z, int trunc, int pos) {
+    float e2z, float* t_out) {
   const float pvx = d.y * e2z - d.z * e2y;
   const float pvy = d.z * e2x - d.x * e2z;
   const float pvz = d.x * e2y - d.y * e2x;
@@ -111,8 +119,19 @@ __device__ __forceinline__ int mt_packed(
   const float qvz = tvx * e1y - tvy * e1x;
   const float v = (d.x * qvx + d.y * qvy + d.z * qvz) * inv;
   const float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv;
-  const bool ok = u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin &&
-                  t <= tmax;
+  *t_out = t;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= tmax;
+}
+
+// The packed word (t bits & trunc | pos) of mt_hit's hit, else the packed
+// miss.
+__device__ __forceinline__ int mt_packed(
+    const Vec3 o, const Vec3 d, float tmin, float tmax, float v0x, float v0y,
+    float v0z, float e1x, float e1y, float e1z, float e2x, float e2y,
+    float e2z, int trunc, int pos) {
+  float t;
+  const bool ok = mt_hit(o, d, tmin, tmax, v0x, v0y, v0z, e1x, e1y, e1z, e2x,
+                         e2y, e2z, &t);
   return ok ? ((__float_as_int(t) & trunc) | pos) : kInfBits;
 }
 
@@ -337,6 +356,139 @@ mesh_instances_closest(const float* __restrict__ rays, int n,
   inst_out[i] = binst;
 }
 
+// B8. The any-hit twin of B6: does the lane's candidate instance block its
+// segment? A lane is live when tmax >= tmin, it has a candidate and
+// occ_in is 0; any other lane passes occ_in through. A live lane sweeps the
+// shared triangle table in its candidate's object frame, direction rotated
+// but not scaled, so tmin and tmax are scaled into object units, and stops
+// at the first triangle whose hit lies in that range.
+__global__ void __launch_bounds__(kThreads)
+shared_blas_any(const float* __restrict__ rays, int n,
+                const int* __restrict__ cand, const int* __restrict__ occ_in,
+                const float* __restrict__ inst_tbl, int m_tbl,
+                const float* __restrict__ tri_tbl, int f_pad,
+                int* __restrict__ occ_out) {
+  __shared__ float4 s_tri[kFaceTile * 3];  // rows laid out as in B6
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = i < n;
+  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  int k = -1, occ = 0;
+  if (in_range) {
+    r = load_ray(rays, n, i);
+    k = cand[i];
+    occ = occ_in[i];
+  }
+  const bool live =
+      in_range && r.tmax >= r.tmin && k >= 0 && k < m_tbl && occ == 0;
+  if (__syncthreads_or(live)) {
+    Vec3 ol = {0.f, 0.f, 0.f}, dl = {0.f, 0.f, 1.f};
+    float tmn_l = 0.f, tmx_l = -1.f;
+    if (live) {
+      const float px = __ldg(inst_tbl + 0 * m_tbl + k);
+      const float py = __ldg(inst_tbl + 1 * m_tbl + k);
+      const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
+      const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
+      const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
+      const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
+      const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
+      const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
+      ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
+      ol.x = ol.x * inv_s;
+      ol.y = ol.y * inv_s;
+      ol.z = ol.z * inv_s;
+      dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
+      tmn_l = r.tmin * inv_s;
+      tmx_l = r.tmax * inv_s;
+    }
+    bool walking = live;
+    for (int base = 0; base < f_pad; base += kFaceTile) {
+      const int m = min(kFaceTile, f_pad - base);
+      __syncthreads();
+      for (int f = threadIdx.x; f < m; f += blockDim.x) {
+        const float* row = tri_tbl + (size_t)(base + f) * 9;
+        s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], row[3]);
+        s_tri[3 * f + 1] = make_float4(row[4], row[5], row[6], row[7]);
+        s_tri[3 * f + 2] = make_float4(row[8], 0.f, 0.f, 0.f);
+      }
+      __syncthreads();
+      for (int f = 0; walking && f < m; ++f) {
+        const float4 a = s_tri[3 * f + 0];
+        const float4 b = s_tri[3 * f + 1];
+        const float4 c = s_tri[3 * f + 2];
+        float t;
+        if (mt_hit(ol, dl, tmn_l, tmx_l, a.x, a.y, a.z, a.w, b.x, b.y, b.z,
+                   b.w, c.x, &t)) {
+          occ = 1;
+          walking = false;
+        }
+      }
+    }
+  }
+  if (in_range) occ_out[i] = occ;
+}
+
+// B9. The any-hit twin of B7: is any triangle of any instance inside the
+// ray's [tmin, tmax]? The same (chunk, instance) walk in table order, the
+// direction scaled by 1/scale so t stays in world units and tmin, tmax are
+// used as given. There is no running best: both sphere tests take the
+// lane's own tmax as the far limit, and the lane leaves at its first
+// blocking triangle.
+__global__ void __launch_bounds__(kThreads)
+mesh_instances_any(const float* __restrict__ rays, int n,
+                   const float* __restrict__ inst_tbl, int m_tbl,
+                   const float* __restrict__ inst_bounds, int ic_cols,
+                   int n_ichunks, int inst_chunk, const Slack slack,
+                   const float* __restrict__ tri_tbl, int f_pad,
+                   int* __restrict__ occ_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(rays, n, i);
+  int occ = 0;
+  if (r.tmax >= r.tmin) {
+    for (int ic = 0; ic < n_ichunks && !occ; ++ic) {
+      if (!reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
+                   __ldg(inst_bounds + 1 * ic_cols + ic),
+                   __ldg(inst_bounds + 2 * ic_cols + ic),
+                   __ldg(inst_bounds + 3 * ic_cols + ic), r.tmax, slack)) {
+        continue;
+      }
+      for (int k = ic * inst_chunk; k < (ic + 1) * inst_chunk && !occ; ++k) {
+        const float px = __ldg(inst_tbl + 0 * m_tbl + k);
+        const float py = __ldg(inst_tbl + 1 * m_tbl + k);
+        const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
+        const float brw = __ldg(inst_tbl + 8 * m_tbl + k);
+        if (!reaches(r, px, py, pz, brw, r.tmax, slack)) continue;
+        const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
+        const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
+        const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
+        const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
+        const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
+        Vec3 ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
+        ol.x = ol.x * inv_s;
+        ol.y = ol.y * inv_s;
+        ol.z = ol.z * inv_s;
+        Vec3 dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
+        dl.x = dl.x * inv_s;
+        dl.y = dl.y * inv_s;
+        dl.z = dl.z * inv_s;
+        for (int f = 0; f < f_pad; ++f) {
+          const float* row = tri_tbl + (size_t)f * 9;
+          float t;
+          if (mt_hit(ol, dl, r.tmin, r.tmax, __ldg(row + 0), __ldg(row + 1),
+                     __ldg(row + 2), __ldg(row + 3), __ldg(row + 4),
+                     __ldg(row + 5), __ldg(row + 6), __ldg(row + 7),
+                     __ldg(row + 8), &t)) {
+            occ = 1;
+            break;
+          }
+        }
+      }
+    }
+  }
+  occ_out[i] = occ;
+}
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -378,6 +530,30 @@ extern "C" int drts_mesh_instances_closest(
         rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
         Slack{bound_scale, bound_pad}, tri_tbl, f_pad, pos_bits, t_out,
         face_out, inst_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int drts_shared_blas_any(const float* rays, int n, const int* cand,
+                                    const int* occ_in, const float* inst_tbl,
+                                    int m_tbl, const float* tri_tbl, int f_pad,
+                                    int* occ_out, cudaStream_t stream) {
+  if (n > 0) {
+    shared_blas_any<<<grid_for(n), kThreads, 0, stream>>>(
+        rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, occ_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int drts_mesh_instances_any(
+    const float* rays, int n, const float* inst_tbl, int m_tbl,
+    const float* inst_bounds, int ic_cols, int n_ichunks, int inst_chunk,
+    float bound_scale, float bound_pad, const float* tri_tbl, int f_pad,
+    int* occ_out, cudaStream_t stream) {
+  if (n > 0) {
+    mesh_instances_any<<<grid_for(n), kThreads, 0, stream>>>(
+        rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
+        Slack{bound_scale, bound_pad}, tri_tbl, f_pad, occ_out);
   }
   return (int)cudaGetLastError();
 }

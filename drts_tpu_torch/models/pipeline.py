@@ -14,7 +14,10 @@ The port takes the reference's frame graph with the denoiser set to
 options that wait for later slices: SHARC, a denoiser, TAA, debug views,
 a thin lens, a focus distance other than 1 and ``accel_mode="none"``.
 There is no counterpart of the reference's ``intersect.pallas_enabled()``
-gate: the accel is built every frame and every pass takes its kernel.
+gate: the accel is built every frame and every pass takes its kernel. An
+all-mesh scene (``myscene.as_mesh_scene``: an empty sphere table) has no
+cluster plan and no accel: its physics poses go to the mesh instances,
+whose per-call tables the mesh path builds itself.
 """
 
 from __future__ import annotations
@@ -179,14 +182,18 @@ class RenderPipeline:
         self.jitter_table = torch.from_numpy(
             rng_mod.halton_jitter(period)).to(self.device)
         self.cluster_plan = None  # built by build_plan / init_state
+        self._planned = False
 
     # -- state management ---------------------------------------------------
 
     def build_plan(self, host: myscene.MySceneHost) -> None:
         """Build the static cluster plan (the BLAS-build analogue)."""
         centers = host.scene.center.cpu().numpy()
+        self._planned = True
         if centers.shape[0] == 0:
-            raise NotImplementedError("all-mesh scenes are not ported yet")
+            # All-mesh scene: no sphere sweep, so no sphere accel.
+            self.cluster_plan = None
+            return
         self.cluster_plan = clusters.build_plan_morton(
             centers, host.scene.radius.cpu().numpy(), max_members=32,
             device=self.device)
@@ -276,12 +283,21 @@ class RenderPipeline:
                                   state.star_gravity)
         else:
             bodies = state.bodies
-        scene = scene_mod.advance_pose(state.scene, bodies.position,
-                                       bodies.rotation)
+        if (state.scene.center.shape[0] == 0
+                and state.scene.mesh_instances is not None):
+            # All-mesh scene: the physics poses refit the mesh instances,
+            # not the (empty) sphere table.
+            scene = myscene.sync_mesh_pose(state.scene, bodies.position,
+                                           bodies.rotation)
+        else:
+            scene = scene_mod.advance_pose(state.scene, bodies.position,
+                                           bodies.rotation)
         cam = self._camera(state, pose, prev_pose)
-        accel = clusters.make_morton_accel(self.cluster_plan, scene.center,
-                                           scene.radius,
-                                           sort_origin=cam.position)
+        accel = None
+        if self.cluster_plan is not None:
+            accel = clusters.make_morton_accel(
+                self.cluster_plan, scene.center, scene.radius,
+                sort_origin=cam.position)
         return bodies, scene, cam, accel
 
     def _stage_gbuffer(self, scene, cam, accel):
@@ -374,7 +390,7 @@ class RenderPipeline:
         PIX-scoped-event seam, App.cpp:598); ``bench.bench_frame`` times
         stages through it. Returns (new_state, image (OH, OW, 3) in
         [0, 1])."""
-        if self.cluster_plan is None:
+        if self.cluster_plan is None and not self._planned:
             raise RuntimeError("call init_state or build_plan first")
         c = self.cfg
         run = _run if _run is not None else (lambda name, fn, *a: fn(*a))

@@ -3,7 +3,8 @@
 ``intersect_spheres`` packs the rays planar and hands them to a kernel in
 ``intersect_kernels``: the Morton-table kernel (B1) when a MortonAccel is
 passed, the brute-force kernel (B11) when none is. ``intersect_spheres_any``
-is the shadow ray, the any-hit kernel (B2) over the Morton table. The
+is the shadow ray: the any-hit kernel (B2) over the Morton table, or, with
+no accel, the hit bit of the brute-force kernel (B11). The
 reference's 8x128 screen-tile ray order is a TPU block-culling aid;
 results do not depend on it, and these kernels have no block culls yet,
 so rays keep pixel order.
@@ -72,16 +73,26 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
 
 def intersect_spheres_any(origin, direction, t_min, t_max,
                           block_size: int = 16384, exclude_index=None,
-                          accel=None):
-    """Any hit (shadow / visibility ray) over the Morton table: True where
-    a sphere other than the ray's `exclude_index` object (the target light;
-    None excludes nothing) has its hit t in [t_min, t_max]. The reference's
-    Pallas any-hit semantics (``_anyhit_kernel``). Without a Morton accel
-    the reference falls back to closest hit then exclusion, a different
-    function; that path is not ported and raises."""
+                          accel=None, centers=None, radii=None):
+    """Any hit (shadow / visibility ray): True where a sphere other than
+    the ray's `exclude_index` object (the target light; None excludes
+    nothing) has its hit t in [t_min, t_max].
+
+    With a MortonAccel this is the any-hit kernel over its table (the
+    reference's ``_anyhit_kernel``). With no accel it is the reference's
+    other function: the closest hit over `centers`, `radii` (B11), and a
+    ray is blocked where that closest sphere is not the excluded one."""
+    if accel is None:
+        if centers is None or radii is None:
+            raise ValueError("the any-hit without an accel sweeps centers "
+                             "and radii, which were not given")
+        hit = intersect_spheres(origin, direction, t_min, t_max, centers,
+                                radii, block_size)
+        if exclude_index is not None:
+            return hit.hit & (hit.index != exclude_index)
+        return hit.hit
     if not isinstance(accel, clusters_mod.MortonAccel):
-        raise NotImplementedError("the any-hit without a Morton accel is "
-                                  "not ported")
+        raise TypeError(f"unsupported accel {type(accel).__name__}")
     lead = origin.shape[:-1]
     n = origin[..., 0].numel()
 

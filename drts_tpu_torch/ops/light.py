@@ -1,13 +1,14 @@
-"""Light preparation and sampling, sphere lights (port of the sphere half of
-``drts_tpu/ops/light.py``).
+"""Light preparation and sampling (port of ``drts_tpu/ops/light.py``).
 
-The scene's lights are emissive sphere instances. ``prepare`` builds the
-per-frame power table, the compact list of the ``MAX_LIGHTS`` brightest
-emitters (reservoirs carry compact ids) and its power CDF; sphere lights
-are sampled by solid-angle cone sampling. The reference's one-hot MXU row
-fetch (``light._onehot_fetch``) is a plain index gather here: the same rows
-exactly. Triangle lights (scenes with emissive mesh instances) wait for
-the mesh slice and raise.
+The scene's lights are emissive sphere instances and, where the scene has
+mesh instances, every face of an emissive instance (a triangle light).
+``prepare`` builds the per-frame power table, the compact list of the
+``MAX_LIGHTS`` brightest emitters of both kinds (reservoirs carry compact
+ids) and its power CDF; sphere lights are sampled by solid-angle cone
+sampling, triangle lights uniformly by area with the solid-angle pdf. The
+reference's one-hot MXU row fetch (``light._onehot_fetch``) is a plain
+index gather here: the same rows exactly. Textured emitters (the
+per-face emissive average) wait for the textured scene and raise.
 """
 
 from __future__ import annotations
@@ -28,16 +29,24 @@ MAX_LIGHTS = 128
 class Lights:
     """LightInfo SoA: object-indexed fields over all K sphere objects and
     the COMPACT light-indexed table over the L = MAX_LIGHTS brightest
-    emitters, cols 0:3 center | 3 radius | 4:7 radiance | 7 power | 8 object
-    id (-1 and zeros elsewhere for empty rows)."""
+    emitters (-1 in col 8 and zeros elsewhere for empty rows):
+      sphere rows:   cols 0:3 center | 3 radius | 4:7 radiance | 7 power |
+                     8 object id
+      triangle rows (only when the scene has mesh instances; the table
+      widens to 16): cols 0:3 centroid | 3 = 0 | 4:7 radiance | 7 power |
+                     8 object id (K + instance) | 9:12 edge1 | 12:15 edge2 |
+                     15 kind (1 = triangle)"""
     center: torch.Tensor       # (K, 3)
     radius: torch.Tensor       # (K,)
     emission: torch.Tensor     # (K, 3) radiance
     power: torch.Tensor        # (K,) luminance x area
     total_power: torch.Tensor  # scalar
     table: torch.Tensor        # (K, 9) object rows [c r e power light_id]
-    compact: torch.Tensor      # (L, 9) light rows (layout above)
+    compact: torch.Tensor      # (L, 9|16) light rows (layout above)
     cdf: torch.Tensor          # (L,) normalized inclusive power CDF
+    # Triangle extension (None for sphere-only scenes): compact light id of
+    # each (instance, face), flattened (M*F,) int64, -1 = not a light.
+    tri_light_id: torch.Tensor | None = None
     # Cap accounting: emitters beyond the MAX_LIGHTS cut, and their share of
     # the total power.
     dropped_lights: torch.Tensor | None = None      # scalar count
@@ -54,36 +63,71 @@ class LightRows:
     power: torch.Tensor     # (...,)
     aux: torch.Tensor       # (...,) int64: object id for compact rows,
                             # light id (-1 = none) for object rows
+    # Triangle columns (None when fetched from a sphere-only table).
+    e1: torch.Tensor | None = None    # (..., 3)
+    e2: torch.Tensor | None = None    # (..., 3)
+    kind: torch.Tensor | None = None  # (...,) bool: True = triangle
 
 
 def fetch_rows(lights: Lights, idx) -> LightRows:
     """COMPACT-indexed light fetch; `aux` is the source object id. Ids are
     clamped into the table, as the reference's gather clamps them."""
     row = lights.compact[torch.clamp(idx, 0, lights.compact.shape[0] - 1)]
+    tri = {}
+    if lights.has_triangles:
+        tri = dict(e1=row[..., 9:12], e2=row[..., 12:15],
+                   kind=row[..., 15] > 0.5)
     return LightRows(center=row[..., 0:3], radius=row[..., 3],
                      emission=row[..., 4:7], power=row[..., 7],
-                     aux=torch.round(row[..., 8]).long())
+                     aux=torch.round(row[..., 8]).long(), **tri)
 
 
 def prepare(scene: SphereScene) -> Lights:
     """CountLights/PrepareResources/Process analogue
     (LightPreparation.ixx:52-133): emission -> power -> compact light list
-    -> sampling CDF. Sphere power is luminance x area (4 pi r^2)."""
-    if scene.textures is not None or scene.mesh is not None:
-        raise NotImplementedError("textured emitters and triangle lights "
-                                  "are not ported yet")
+    -> sampling CDF. Sphere power is luminance x area (4 pi r^2). Every
+    face of an emissive mesh instance is a triangle light with world-space
+    edges and power = area x luminance (one common pi dropped on both
+    kinds, so a mixed scene samples them in proportion to emitted
+    power)."""
+    if scene.textures is not None:
+        raise NotImplementedError("textured emitters are not ported yet")
     k = scene.center.shape[0]
     dev = scene.center.device
-    emission = scene.materials.emission()
+    all_emission = scene.materials.emission()
+    emission = all_emission[:k]
     power = m.luminance(emission) * (4.0 * math.pi) \
         * scene.radius * scene.radius
-    total = torch.sum(power)
+
+    has_tri = scene.mesh is not None and scene.mesh_instances is not None
+    if has_tri:
+        mesh, mi = scene.mesh, scene.mesh_instances
+        mcount, f = mi.center.shape[0], mesh.v0.shape[0]
+        em_face = torch.broadcast_to(all_emission[k:k + mcount, None, :],
+                                     (mcount, f, 3))
+        rot = mi.rotation[:, None, :]                     # (M, 1, 4)
+        scl = mi.scale[:, None, None]
+        v0w = mi.center[:, None, :] + m.quat_rotate(rot, mesh.v0[None] * scl)
+        e1w = m.quat_rotate(rot, mesh.e1[None] * scl)     # (M, F, 3)
+        e2w = m.quat_rotate(rot, mesh.e2[None] * scl)
+        area = 0.5 * m.length(m.cross(e1w, e2w))          # (M, F)
+        tri_power = (m.luminance(em_face) * area).reshape(-1)
+        tri_em = em_face.reshape(-1, 3)
+        tri_centroid = (v0w + (e1w + e2w) / 3.0).reshape(-1, 3)
+        tri_e1 = e1w.reshape(-1, 3)
+        tri_e2 = e2w.reshape(-1, 3)
+        tri_obj = k + torch.arange(mcount * f, device=dev) // f
+        cand_power = torch.cat([power, tri_power])
+    else:
+        cand_power = power
+    total = torch.sum(cand_power)
 
     # Compact list: the top-MAX_LIGHTS by power, ties to the lower index
-    # (jax.lax.top_k order). Powers follow static materials and radii, so
-    # every compact id is frame-stable (temporal reuse stores them).
-    n_l = min(MAX_LIGHTS, k)
-    top_power, top_cand = torch.sort(power, descending=True, stable=True)
+    # (jax.lax.top_k order). Powers follow static materials, radii and
+    # mesh topology, so every compact id is frame-stable (temporal reuse
+    # stores them).
+    n_l = min(MAX_LIGHTS, cand_power.shape[0])
+    top_power, top_cand = torch.sort(cand_power, descending=True, stable=True)
     top_power, top_cand = top_power[:n_l], top_cand[:n_l]
     pad = MAX_LIGHTS - n_l
     if pad:
@@ -93,31 +137,67 @@ def prepare(scene: SphereScene) -> Lights:
     top_cand = torch.where(is_light, top_cand, -1)
     safe_cand = torch.clamp(top_cand, min=0)
 
-    compact = torch.cat([
-        scene.center[safe_cand], scene.radius[safe_cand, None],
-        emission[safe_cand], top_power[:, None],
-        top_cand[:, None].to(torch.float32)], dim=-1)
+    tri_light_id = None
+    if has_tri:
+        n_tri = tri_centroid.shape[0]
+        is_tri = safe_cand >= k
+        tri_i = torch.clamp(safe_cand - k, 0, n_tri - 1)
+        if k == 0:
+            # All-mesh scene (myscene.as_mesh_scene): every candidate is a
+            # triangle, and the empty sphere table cannot be gathered from.
+            c_center = tri_centroid[tri_i]
+            c_radius = torch.zeros(MAX_LIGHTS, dtype=torch.float32,
+                                   device=dev)
+            c_em = tri_em[tri_i]
+            c_obj = tri_obj[tri_i]
+        else:
+            sph_i = torch.clamp(safe_cand, 0, k - 1)
+            c_center = torch.where(is_tri[:, None], tri_centroid[tri_i],
+                                   scene.center[sph_i])
+            c_radius = torch.where(is_tri, 0.0, scene.radius[sph_i])
+            c_em = torch.where(is_tri[:, None], tri_em[tri_i],
+                               emission[sph_i])
+            c_obj = torch.where(is_tri, tri_obj[tri_i], sph_i)
+        compact = torch.cat([
+            c_center, c_radius[:, None], c_em, top_power[:, None],
+            c_obj[:, None].to(torch.float32),
+            torch.where(is_tri[:, None], tri_e1[tri_i], 0.0),
+            torch.where(is_tri[:, None], tri_e2[tri_i], 0.0),
+            is_tri[:, None].to(torch.float32)], dim=-1)
+        # Reverse map: flat (instance, face) -> compact light id; rows
+        # that are no triangle light go to the dropped slot n_tri.
+        tri_slot = torch.where(is_light & is_tri, tri_i, n_tri)
+        tri_light_id = torch.full((n_tri + 1,), -1, dtype=torch.int64,
+                                  device=dev)
+        tri_light_id[tri_slot] = torch.arange(MAX_LIGHTS, device=dev)
+        tri_light_id = tri_light_id[:n_tri]
+    else:
+        compact = torch.cat([
+            scene.center[safe_cand], scene.radius[safe_cand, None],
+            emission[safe_cand], top_power[:, None],
+            top_cand[:, None].to(torch.float32)], dim=-1)
     empty = torch.zeros_like(compact)
     empty[:, 8] = -1.0
     compact = torch.where(is_light[:, None], compact, empty)
     cdf = torch.cumsum(top_power, dim=0) / torch.clamp(total, min=1e-20)
 
-    # Object -> compact light id (-1 = not a light); non-light rows go to
-    # the dropped slot k.
-    slot = torch.where(is_light, safe_cand, k)
+    # Sphere object -> compact light id (-1 = not a light); rows that are
+    # no sphere light go to the dropped slot k.
+    slot = torch.where(is_light & (safe_cand < k), safe_cand, k)
     light_id = torch.full((k + 1,), -1, dtype=torch.int64, device=dev)
     light_id[slot] = torch.arange(MAX_LIGHTS, device=dev)
     light_id = light_id[:k]
     table = torch.cat([scene.center, scene.radius[:, None], emission,
                        power[:, None], light_id[:, None].to(torch.float32)],
                       dim=-1)
-    n_emitters = torch.sum(power > 0)
+    n_emitters = torch.sum(cand_power > 0)
     kept = torch.sum(top_power > 0)
     kept_power = torch.sum(top_power)
     return Lights(
         center=scene.center, radius=scene.radius, emission=emission,
         power=power, total_power=total, table=table, compact=compact,
-        cdf=cdf, dropped_lights=(n_emitters - kept).to(torch.float32),
+        cdf=cdf, tri_light_id=tri_light_id, has_triangles=has_tri,
+        dropped_lights=(n_emitters - kept).to(torch.float32),
         dropped_power_frac=torch.where(
             total > 0, 1.0 - kept_power / torch.clamp(total, min=1e-20), 0.0))
 
@@ -133,9 +213,73 @@ def sample_light_index(lights: Lights, u):
 
 
 def sample_light_rows(rows: LightRows, surface_pos, rand2):
-    """Light sampling from pre-gathered rows (sphere rows only here).
+    """Light sampling from pre-gathered rows, by kind: sphere rows by
+    solid-angle cone sampling, triangle rows uniformly by area with the
+    solid-angle pdf (Light.hlsli TriangleLight::CalculateSample). Both
+    forms are evaluated and selected per lane; rows of a sphere-only table
+    (`kind` None) skip the triangle form.
     Returns (direction, distance, solid_angle_pdf, emission)."""
-    return sample_sphere_light_rows(rows, surface_pos, rand2)
+    ds, dist_s, pdf_s, em = sample_sphere_light_rows(rows, surface_pos,
+                                                     rand2)
+    if rows.kind is None:
+        return ds, dist_s, pdf_s, em
+    dt, dist_t, pdf_t = _sample_triangle_rows(rows, surface_pos, rand2)
+    tri = rows.kind
+    return (torch.where(tri[..., None], dt, ds),
+            torch.where(tri, dist_t, dist_s),
+            torch.where(tri, pdf_t, pdf_s), em)
+
+
+def _tri_geometry(rows: LightRows):
+    """v0, unit normal and area of centroid-form triangle rows."""
+    v0 = rows.center - (rows.e1 + rows.e2) / 3.0
+    n_raw = m.cross(rows.e1, rows.e2)
+    n_len = m.length(n_raw)
+    area = torch.clamp(0.5 * n_len, min=1e-12)
+    n_unit = n_raw / torch.clamp(n_len, min=1e-12)[..., None]
+    return v0, n_unit, area
+
+
+def _sample_triangle_rows(rows: LightRows, surface_pos, rand2):
+    """Uniform-area triangle sample -> (direction, distance, solid-angle
+    pdf). Two-sided, as the reference's abs(dot(L, -Normal))
+    (Light.hlsli:63-68)."""
+    v0, n_unit, area = _tri_geometry(rows)
+    bary = m.sample_triangle(rand2)
+    p = v0 + bary[..., 0:1] * rows.e1 + bary[..., 1:2] * rows.e2
+    to_p = p - surface_pos
+    dist = torch.clamp(m.length(to_p), min=1e-6)
+    direction = to_p / dist[..., None]
+    cos_l = torch.abs(m.dot(direction, n_unit))
+    return direction, dist, m.to_solid_angle_pdf(1.0 / area, dist, cos_l)
+
+
+def triangle_uv_from_direction(rows: LightRows, surface_pos, direction):
+    """Invert uniform-area triangle sampling: the (u, v) uniforms whose
+    sample lies where `direction` from `surface_pos` pierces the triangle's
+    plane (the inverse of Math::SampleTriangle's sqrt warp). Returns (uv,
+    inside)."""
+    v0, n_unit, _ = _tri_geometry(rows)
+    dn = m.dot(direction, n_unit)
+    t = m.dot(v0 - surface_pos, n_unit) / torch.where(
+        torch.abs(dn) > 1e-9, dn, 1e-9)
+    p = surface_pos + direction * t[..., None]
+    # Solve p - v0 = b1 e1 + b2 e2 (the 2x2 Gram system).
+    d = p - v0
+    a11 = m.dot(rows.e1, rows.e1)
+    a12 = m.dot(rows.e1, rows.e2)
+    a22 = m.dot(rows.e2, rows.e2)
+    det = torch.clamp(a11 * a22 - a12 * a12, min=1e-18)
+    r1 = m.dot(d, rows.e1)
+    r2 = m.dot(d, rows.e2)
+    b1 = (a22 * r1 - a12 * r2) / det
+    b2 = (a11 * r2 - a12 * r1) / det
+    s = b1 + b2
+    inside = (t > 0) & (b1 >= 0) & (b2 >= 0) & (s <= 1.0)
+    # SampleTriangle: b1 = sqrt(u0) (1 - u1), b2 = sqrt(u0) u1.
+    u0 = torch.clamp(s * s, 0.0, 1.0)
+    u1 = torch.clamp(b2 / torch.clamp(s, min=1e-9), 0.0, 1.0)
+    return torch.stack([u0, u1], dim=-1), inside
 
 
 def sample_sphere_light_rows(rows: LightRows, surface_pos, rand2):

@@ -7,27 +7,31 @@ candidates through the fused candidate kernel (B3,
 (the light sweep is B11, the occluder test B2), temporal reuse in
 ``basic`` bias mode over the exact nearest reprojection (B4), spatial
 reuse in ``basic`` mode with ``per_pixel`` disc offsets, the boiling
-filter, and final shading with its visibility ray (B2). Reservoirs are
-SoA (H, W) tensors; light ids are compact ids (``light.Lights``), kept as
-int64.
+filter, and final shading with its visibility ray (B2). A scene with
+triangle lights (any scene with mesh instances), or ``initial_kernel=
+False``, takes the reference's sequential candidate loop instead of B3,
+finds its BRDF-ray triangle candidates by a dense sweep over the compact
+rows' triangles, and casts its visibility rays through the mesh any-hit
+kernels (``trace.occluded_scene``). Reservoirs are SoA (H, W) tensors;
+light ids are compact ids (``light.Lights``), kept as int64.
 
 Options this path does not take raise NotImplementedError (see
 ``check_config``): the pairwise and raytraced bias modes, the real
-previous surface, Power_RIS and Uniform candidates, ``candidate_batch``,
-the loop without the candidate kernel, shared spatial offsets and
-triangle lights.
+previous surface, Power_RIS and Uniform candidates, ``candidate_batch``
+and shared spatial offsets.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import torch
 
 from ..utils import math as m
 from ..utils import rng as rng_mod
-from . import bxdf, intersect, light as light_mod
+from . import bxdf, intersect, light as light_mod, trimesh
 from . import reproject_kernels as rp
 from . import restir_kernels as rk
 from . import trace as trace_mod
@@ -67,7 +71,6 @@ def check_config(cfg: ReSTIRConfig) -> None:
         "temporal_bias_correction": (cfg.temporal_bias_correction, "basic"),
         "spatial_offset_mode": (cfg.spatial_offset_mode, "per_pixel"),
         "candidate_batch": (cfg.candidate_batch, False),
-        "initial_kernel": (cfg.initial_kernel, True),
     }
     for name, (value, ported) in waits.items():
         if value != ported:
@@ -140,6 +143,21 @@ def make_surface(gbuf) -> Surface:
                    depth=gbuf.linear_depth, normal=mat.shading_normal)
 
 
+def _uv_from_direction(rows: light_mod.LightRows, surface_pos, direction):
+    """Invert the sampling map: the (u, v) uniforms that generate
+    `direction` toward the light of `rows`, and whether it reaches the
+    light. Sphere rows invert cone sampling, triangle rows the area warp
+    (light.triangle_uv_from_direction)."""
+    uv_s, in_s = _uv_from_direction_sphere(rows, surface_pos, direction)
+    if rows.kind is None:
+        return uv_s, in_s
+    uv_t, in_t = light_mod.triangle_uv_from_direction(rows, surface_pos,
+                                                      direction)
+    tri = rows.kind
+    return (torch.where(tri[..., None], uv_t, uv_s),
+            torch.where(tri, in_t, in_s))
+
+
 def _uv_from_direction_sphere(rows: light_mod.LightRows, surface_pos,
                               direction):
     """Invert cone sampling: the (u, v) uniforms that generate `direction`
@@ -178,6 +196,18 @@ def _target_pdf(surface: Surface, lights: light_mod.Lights, idx, uv):
     (rows.aux = the light's object id, excluded from its visibility ray)."""
     rows = light_mod.fetch_rows(lights, idx)
     return _target_pdf_rows(surface, rows, uv) + (rows,)
+
+
+def _target_pdf_with_bsdf(surface: Surface, lights: light_mod.Lights, idx,
+                          uv):
+    """p_hat of _target_pdf and the BSDF mixture pdf of the generated
+    direction in uv measure (the other technique's density in a light
+    candidate's MIS weight)."""
+    p_hat, direction, _, _, _, _, inv_cone, _ = _target_pdf(surface, lights,
+                                                            idx, uv)
+    p_w = bxdf.eval_pdf(surface.bsdf, surface.sv, direction, surface.view,
+                        surface.lobe_weights)
+    return p_hat, p_w * inv_cone
 
 
 # ----------------------------------------------------------------------------
@@ -279,15 +309,75 @@ def _pixel_grid(h: int, w: int, device):
                           torch.arange(w, device=device), indexing="ij")
 
 
+def _light_candidates_loop(surface: Surface, lights: light_mod.Lights,
+                           rows_all, cfg: ReSTIRConfig, rng):
+    """The sequential light-candidate loop (the reference's path without
+    its fused kernel): per round, a slot of the pixel's prefetched ReGIR
+    row gives the candidate and its RIS source weight, the balance
+    heuristic against the BRDF technique weighs it, and the reservoir
+    takes it by weighted reservoir sampling. rows_all: (H, W, s) packed
+    slots. Returns (res_idx, res_uv, res_phat, w_sum, m_count, rng)."""
+    h, w = surface.depth.shape
+    dev = surface.depth.device
+    s = cfg.regir_slots_per_cell
+    n_l, n_b = cfg.local_light_samples, cfg.brdf_samples
+    m_total = float(n_l + n_b)
+    res_idx = torch.zeros((h, w), dtype=torch.int64, device=dev)
+    res_uv = torch.zeros((h, w, 2), device=dev)
+    res_phat = torch.zeros((h, w), device=dev)
+    w_sum = torch.zeros((h, w), device=dev)
+    m_count = torch.zeros((h, w), device=dev)
+    for _ in range(n_l):
+        u2, rng = rng_mod.next_floats(rng, 2)
+        uv, rng = rng_mod.next_floats(rng, 2)
+        u_slot, u_keep = u2[..., 0], u2[..., 1]
+        slot = torch.clamp((u_slot * s).to(torch.int64), max=s - 1)
+        row = rows_all.gather(-1, slot[..., None])[..., 0]
+        cand_f, w_cand = m.unpack2f16(row)
+        cand = torch.round(cand_f).long()
+        if n_b > 0:
+            p_self = 1.0 / torch.clamp(w_cand, min=1e-20)
+            p_hat, p_other = _target_pdf_with_bsdf(surface, lights, cand, uv)
+            wi = m_total * p_hat / torch.clamp(
+                n_l * p_self + n_b * p_other, min=1e-20)
+            wi = torch.where(w_cand > 0, wi, 0.0)
+        else:
+            p_hat = _target_pdf(surface, lights, cand, uv)[0]
+            wi = p_hat * w_cand
+        w_sum = w_sum + wi
+        m_count = m_count + 1.0
+        take = (u_keep * w_sum) < wi
+        res_idx = torch.where(take, cand, res_idx)
+        res_uv = torch.where(take[..., None], uv, res_uv)
+        res_phat = torch.where(take, p_hat, res_phat)
+    return res_idx, res_uv, res_phat, w_sum, m_count, rng
+
+
+def _intersect_tri_lights(lights: light_mod.Lights, origin, direction, live):
+    """Closest hit against the compact table's triangle-light rows (the
+    BRDF candidate's counterpart of the sphere-light sweep): a dense
+    Moeller-Trumbore over the MAX_LIGHTS world-space triangles. Sphere rows
+    carry zero edges and never hit. Returns (t (inf = miss), compact id,
+    bary_u, bary_v)."""
+    comp = lights.compact
+    e1, e2 = comp[:, 9:12], comp[:, 12:15]
+    mesh = types.SimpleNamespace(v0=comp[:, 0:3] - (e1 + e2) / 3.0, e1=e1,
+                                 e2=e2)
+    t, face, u, v = trimesh.intersect_mesh(
+        origin, direction, torch.zeros_like(live, dtype=torch.float32),
+        torch.where(live, float("inf"), -1.0), mesh)
+    return t, face, u, v
+
+
 def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
                      grid: ReGIRGrid, cfg: ReSTIRConfig, frame_index,
                      block_size: int = 16384, accel=None) -> Reservoirs:
-    """n_l ReGIR light candidates (B3) and n_b BRDF-ray candidates (B11
-    light sweep, B2 occluder test) into one reservoir per pixel, then the
-    initial visibility ray (B2)."""
+    """n_l ReGIR light candidates (B3, or the sequential loop for a scene
+    with triangle lights or with initial_kernel off) and n_b BRDF-ray
+    candidates (B11 light sweep and, with triangle lights, the dense
+    triangle sweep; the occluder test) into one reservoir per pixel, then
+    the initial visibility ray."""
     check_config(cfg)
-    if lights.has_triangles:
-        raise NotImplementedError("triangle lights are not ported yet")
     h, w = surface.depth.shape
     dev = surface.depth.device
     py, px = _pixel_grid(h, w, dev)
@@ -305,28 +395,36 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
     n_l, n_b = cfg.local_light_samples, cfg.brdf_samples
     m_total = float(n_l + n_b)
 
-    # The uniforms in the sequential loop's draw order, as planar rows.
-    uni_rows = []
-    for _ in range(n_l):
-        u2, rng = rng_mod.next_floats(rng, 2)
-        uv, rng = rng_mod.next_floats(rng, 2)
-        uni_rows += [u2[..., 0], u2[..., 1], uv[..., 0], uv[..., 1]]
-    cand_all_f, w_all = m.unpack2f16(rows_all)
-    slot_rows = [cand_all_f[..., j] for j in range(s)] \
-        + [w_all[..., j] for j in range(s)]
-    out_f, out_i = rk.initial_light_candidates(
-        _pack_surface_planar(surface),
-        torch.stack([r.reshape(-1) for r in uni_rows]),
-        torch.stack([r.reshape(-1) for r in slot_rows]),
-        lights.compact.contiguous(), n_l, s, n_b)
-    out_f = out_f.reshape(8, h, w)
-    out_i = out_i.reshape(2, h, w).long()
-    res_uv = out_f[0:2].permute(1, 2, 0)
-    res_phat, w_sum = out_f[2], out_f[3]
-    win_dir = out_f[4:7].permute(1, 2, 0)
-    win_dist = out_f[7]
-    res_idx, win_aux = out_i[0], out_i[1]
-    m_count = torch.full((h, w), float(n_l), device=dev)
+    # The fused kernel serves sphere-only light tables (its rows are 9
+    # wide and it samples cones only).
+    use_kernel = cfg.initial_kernel and not lights.has_triangles
+    win_dir = win_dist = win_aux = None
+    if use_kernel:
+        # The uniforms in the sequential loop's draw order, as planar rows.
+        uni_rows = []
+        for _ in range(n_l):
+            u2, rng = rng_mod.next_floats(rng, 2)
+            uv, rng = rng_mod.next_floats(rng, 2)
+            uni_rows += [u2[..., 0], u2[..., 1], uv[..., 0], uv[..., 1]]
+        cand_all_f, w_all = m.unpack2f16(rows_all)
+        slot_rows = [cand_all_f[..., j] for j in range(s)] \
+            + [w_all[..., j] for j in range(s)]
+        out_f, out_i = rk.initial_light_candidates(
+            _pack_surface_planar(surface),
+            torch.stack([r.reshape(-1) for r in uni_rows]),
+            torch.stack([r.reshape(-1) for r in slot_rows]),
+            lights.compact.contiguous(), n_l, s, n_b)
+        out_f = out_f.reshape(8, h, w)
+        out_i = out_i.reshape(2, h, w).long()
+        res_uv = out_f[0:2].permute(1, 2, 0)
+        res_phat, w_sum = out_f[2], out_f[3]
+        win_dir = out_f[4:7].permute(1, 2, 0)
+        win_dist = out_f[7]
+        res_idx, win_aux = out_i[0], out_i[1]
+        m_count = torch.full((h, w), float(n_l), device=dev)
+    else:
+        res_idx, res_uv, res_phat, w_sum, m_count, rng = \
+            _light_candidates_loop(surface, lights, rows_all, cfg, rng)
 
     # BRDF-ray candidates: sample the BSDF, find the nearest light along
     # the ray (a sweep over the compact table), test for occluders, fold
@@ -345,12 +443,30 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
             lights.compact[:, 0:3], lights.compact[:, 3], block_size)
         light_t = torch.where(lhit.hit, lhit.t, float("inf"))
         cand_b = lhit.index
+        hit_light = lhit.hit
+        if lights.has_triangles:
+            # Triangle-light candidates; the hit's barycentrics invert the
+            # area warp directly.
+            tri_t, tri_id, tri_u, tri_v = _intersect_tri_lights(
+                lights, origin, l_dir, ray_live)
+            cand_b = torch.where(tri_t < light_t, tri_id, cand_b)
+            light_t = torch.minimum(light_t, tri_t)
+            hit_light = hit_light | torch.isfinite(tri_t)
+            tri_s = torch.clamp(tri_u + tri_v, 0.0, 1.0)
+            uv_tri_hit = torch.stack(
+                [tri_s * tri_s,
+                 torch.clamp(tri_v / torch.clamp(tri_s, min=1e-9), 0.0, 1.0)],
+                dim=-1)
         krows = light_mod.fetch_rows(lights, cand_b)
         occ_b = _occluded(origin, l_dir, light_t, scene, krows.aux,
-                          block_size, accel, live=ray_live & lhit.hit)
-        is_emissive = lhit.hit & (krows.power > 0) & ~occ_b
-        uv_b, inside_cone = _uv_from_direction_sphere(krows, surface.position,
-                                                      l_dir)
+                          block_size, accel, live=ray_live & hit_light)
+        is_emissive = hit_light & (krows.power > 0) & ~occ_b
+        uv_b, inside_cone = _uv_from_direction(krows, surface.position,
+                                               l_dir)
+        if lights.has_triangles:
+            took_tri = krows.kind & torch.isfinite(tri_t)
+            uv_b = torch.where(took_tri[..., None], uv_tri_hit, uv_b)
+            inside_cone = inside_cone | took_tri
         ok = is_emissive & inside_cone & ray_live
 
         p_w = bxdf.eval_pdf(surface.bsdf, surface.sv, l_dir, surface.view,
@@ -371,17 +487,22 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
         res_idx = torch.where(take, torch.clamp(cand_b, min=0), res_idx)
         res_uv = torch.where(take[..., None], uv_b, res_uv)
         res_phat = torch.where(take, p_hat_b, res_phat)
-        win_dir = torch.where(take[..., None], l_dir, win_dir)
-        win_dist = torch.where(take, torch.where(torch.isfinite(light_t),
-                                                 light_t, 0.0), win_dist)
-        win_aux = torch.where(take, krows.aux, win_aux)
+        if win_dir is not None:
+            win_dir = torch.where(take[..., None], l_dir, win_dir)
+            win_dist = torch.where(take, torch.where(
+                torch.isfinite(light_t), light_t, 0.0), win_dist)
+            win_aux = torch.where(take, krows.aux, win_aux)
 
     w_out = torch.where(res_phat > 0, w_sum / (
         torch.clamp(m_count, min=1.0) * torch.clamp(res_phat, min=1e-20)),
         0.0)
     # Initial visibility ray toward the winner (the kernel carried its
-    # direction, distance and object id); dead where the reservoir is
-    # already worthless.
+    # direction, distance and object id; the loop fetches them again);
+    # dead where the reservoir is already worthless.
+    if win_dir is None:
+        _, win_dir, win_dist, _, _, _, _, rows = _target_pdf(
+            surface, lights, res_idx, res_uv)
+        win_aux = rows.aux
     origin = intersect.safe_spawn_point(surface.position,
                                         surface.sv.front_geometric_normal,
                                         win_dir)
@@ -397,8 +518,9 @@ def _occluded(origin, direction, light_dist, scene, exclude_obj,
               block_size: int, accel=None, live=None):
     """Visibility ray toward the selected light (RAB_GetConservativeVisibility,
     RTXDIAppBridge.hlsli:418-459): blocked if a sphere other than the light
-    object lies closer than the light surface. Lanes whose answer is never
-    read (`live` False) get a dead t range and cost the kernel nothing."""
+    object, or a mesh instance, lies closer than the light surface. Lanes
+    whose answer is never read (`live` False) get a dead t range and cost
+    the kernel nothing."""
     max_dist = torch.clamp(light_dist - 1e-3, min=0.0)
     if live is not None:
         max_dist = torch.where(live, max_dist, -1.0)

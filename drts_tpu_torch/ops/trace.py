@@ -2,13 +2,13 @@
 ``drts_tpu/ops/trace.py``): spheres and instanced triangle meshes merged
 by closest t into one shading-ready HitSurface, alpha-tested hits rejected
 by re-tracing past them for a bounded number of rounds; and the any-hit
-visibility ray over spheres.
+visibility ray over spheres and mesh instances.
 
 Hit-index space: [0, K) sphere instances, [K, K+M) mesh instances; both
 resolve through the same packed object table (models/scene.py).
 
-Not ported yet (they raise): textured alpha, deforming meshes'
-``prev_offset``, and mesh occluders in ``occluded_scene``.
+Not ported yet (they raise): textured alpha and deforming meshes'
+``prev_offset``.
 """
 
 from __future__ import annotations
@@ -138,13 +138,22 @@ def trace_scene(scene, origin, direction, t_min, t_max,
 def occluded_scene(scene, origin, direction, max_dist, exclude_index,
                    block_size: int = 16384, accel=None):
     """Conservative any-hit visibility (RAB_GetConservativeVisibility):
-    blocked where a sphere other than `exclude_index` lies within
-    [0, max_dist]. Raises for mesh content."""
-    if scene.mesh is not None:
-        raise NotImplementedError("mesh occluders are not ported yet")
+    blocked where a sphere other than `exclude_index`, or any mesh
+    instance, lies within [0, max_dist]. The mesh half takes no exclude
+    index: a triangle light's own face is kept out by the caller's
+    max_dist."""
     if scene.center.shape[0] == 0:
-        return torch.zeros(max_dist.shape, dtype=torch.bool,
-                           device=max_dist.device)
-    return intersect.intersect_spheres_any(
-        origin, direction, torch.zeros_like(max_dist), max_dist, block_size,
-        exclude_index=exclude_index, accel=accel)
+        occ = torch.zeros(max_dist.shape, dtype=torch.bool,
+                          device=max_dist.device)
+    else:
+        occ = intersect.intersect_spheres_any(
+            origin, direction, torch.zeros_like(max_dist), max_dist,
+            block_size, exclude_index=exclude_index, accel=accel,
+            centers=scene.center, radii=scene.radius)
+    if scene.mesh is not None:
+        mi = scene.mesh_instances
+        occ = occ | trimesh.intersect_instances_any(
+            origin, direction, torch.zeros_like(max_dist), max_dist,
+            scene.mesh, mi.center, mi.rotation, mi.scale,
+            block_size=block_size)
+    return occ

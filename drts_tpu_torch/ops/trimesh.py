@@ -1,19 +1,19 @@
-"""Instanced triangle meshes: the general-geometry path (port of the
-closest-hit half of ``drts_tpu/ops/trimesh.py``).
+"""Instanced triangle meshes: the general-geometry path (port of
+``drts_tpu/ops/trimesh.py``).
 
 One shared mesh (the reference instances a single geosphere) with
 per-instance rigid transforms and a uniform scale. ``intersect_instances``
 tightens every ray's range against the instances' bounding spheres, hands
 the rays to the kernels of ``trimesh_kernels`` (the candidate loop, or the
 serial walk alone with ``rounds=0``) and refines the winners' t and
-barycentrics; ``interpolate_attributes`` fetches and interpolates the
-vertex attributes. The reference's 8x128 screen-tile ray order and its
-sort by candidate instance are TPU block-coherence aids with no effect on
-the result: rays keep pixel order.
-
-Not ported yet (they raise): ``intersect_mesh`` (the dense sweep over one
-mesh, used by triangle lights) and ``intersect_instances_any`` (the
-any-hit half).
+barycentrics; ``intersect_instances_any`` is the shadow ray, through the
+any-hit candidate loop (or the serial any-hit walk alone with
+``rounds=0``); ``intersect_mesh`` is the dense sweep over one small mesh
+in its own space, which the triangle lights use;
+``interpolate_attributes`` fetches and interpolates the vertex attributes.
+The reference's 8x128 screen-tile ray order and its sort by candidate
+instance are TPU block-coherence aids with no effect on the result: rays
+keep pixel order.
 """
 
 from __future__ import annotations
@@ -168,34 +168,96 @@ class TriHit:
     barycentrics: torch.Tensor  # (..., 2) (u, v) of v1/v2
 
 
-def intersect_mesh(*args, **kwargs):
-    raise NotImplementedError("the dense sweep over one mesh (triangle "
-                              "lights) is not ported yet")
+# Elements of one (rays, faces) plane of intersect_mesh's temporaries.
+_DENSE_PLANE = 1 << 22
 
 
-def intersect_instances_any(*args, **kwargs):
-    raise NotImplementedError("the any-hit half of the mesh path is not "
-                              "ported yet")
+def _moller_trumbore(o, d, v0, e1, e2, t_min, t_max, eps=1e-8):
+    """Two-sided Moeller-Trumbore of rays (B, 3) against triangles (F, 3):
+    (B, F) hit t (inf where none, or |det| <= eps) and barycentrics."""
+    ox, oy, oz = (o[:, i, None] for i in range(3))
+    dx, dy, dz = (d[:, i, None] for i in range(3))
+    v0x, v0y, v0z = (v0[None, :, i] for i in range(3))
+    e1x, e1y, e1z = (e1[None, :, i] for i in range(3))
+    e2x, e2y, e2z = (e2[None, :, i] for i in range(3))
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = pvx * e1x + pvy * e1y + pvz * e1z
+    sound = torch.abs(det) > eps
+    inv_det = torch.where(sound, 1.0 / det, 0.0)
+    tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (qvx * dx + qvy * dy + qvz * dz) * inv_det
+    t = (qvx * e2x + qvy * e2y + qvz * e2z) * inv_det
+    valid = (sound & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+             & (t >= t_min[:, None]) & (t <= t_max[:, None]))
+    return torch.where(valid, t, float("inf")), u, v
+
+
+def intersect_mesh(origin, direction, t_min, t_max, mesh):
+    """Closest hit against one mesh in its own space, a dense sweep of
+    every ray over every face (`mesh` needs v0, e1, e2 only). origin,
+    direction: (..., 3); t_min, t_max broadcastable to (...,). Returns
+    (t, face, u, v); ties go to the lowest face, a miss has t = inf and
+    face 0. Rays go in blocks, so the (rays, faces) temporaries stay at
+    _DENSE_PLANE elements each."""
+    lead = origin.shape[:-1]
+    n = origin[..., 0].numel()
+    dev = origin.device
+
+    def flat(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        return torch.broadcast_to(x, lead).reshape(n)
+
+    o, d = origin.reshape(n, 3), direction.reshape(n, 3)
+    tmin, tmax = flat(t_min), flat(t_max)
+    f = mesh.v0.shape[0]
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    face = torch.empty(n, dtype=torch.int64, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    step = max(_DENSE_PLANE // max(f, 1), 1)
+    for s in range(0, n, step):
+        e = slice(s, s + step)
+        tb, ub, vb = _moller_trumbore(o[e], d[e], mesh.v0, mesh.e1, mesh.e2,
+                                      tmin[e], tmax[e])
+        t[e], arg = tb.min(dim=1)
+        face[e] = arg
+        u[e] = ub.gather(1, arg[:, None])[:, 0]
+        v[e] = vb.gather(1, arg[:, None])[:, 0]
+    face = torch.clamp(face, max=f - 1)
+    return (t.reshape(lead), face.reshape(lead), u.reshape(lead),
+            v.reshape(lead))
 
 
 def _bounds_prepass(origin, direction, t_min, t_max, mesh: TriMesh,
-                    inst_position, inst_scale, block_size: int = 16384):
-    """Per-lane range tightening before the mesh kernels, by two
-    brute-force sphere sweeps over the M instance bounds:
+                    inst_position, inst_scale, block_size: int = 16384,
+                    any_hit: bool = False):
+    """Per-lane range tightening before the mesh kernels, by brute-force
+    sphere sweeps over the M instance bounds:
 
     1. kill: a lane whose segment misses every instance bounding sphere
        cannot hit the mesh and gets a dead range (tmax < tmin);
-    2. clamp (inscribed_radius > 0): a lane through instance i's inscribed
-       ball is sure to hit a surface before it leaves i's bounding sphere,
-       so tmax clamps to t_entry + 2 r_bound.
+    2. clamp (closest hit only, inscribed_radius > 0): a lane through
+       instance i's inscribed ball is sure to hit a surface before it
+       leaves i's bounding sphere, so tmax clamps to t_entry + 2 r_bound.
 
     t_min, t_max: lead-shaped. Returns the tightened t_max."""
     r_bound = mesh.bound_radius * inst_scale
+    dead = torch.clamp(t_min, max=0.0) - 1.0
+    if any_hit:
+        reach = intersect.intersect_spheres_any(
+            origin, direction, torch.clamp(t_min, min=0.0), t_max,
+            block_size, centers=inst_position, radii=r_bound)
+        return torch.where(reach, t_max, dead)
     hit_b = intersect.intersect_spheres(origin, direction,
                                         torch.clamp(t_min, min=0.0), t_max,
                                         inst_position, r_bound, block_size)
-    t_max_new = torch.where(hit_b.hit, t_max,
-                            torch.clamp(t_min, max=0.0) - 1.0)
+    t_max_new = torch.where(hit_b.hit, t_max, dead)
     if mesh.inscribed_radius <= 0.0:
         return t_max_new
     r_ins = mesh.inscribed_radius * inst_scale
@@ -267,6 +329,39 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
     return TriHit(hit=hit, t=torch.where(hit, t_exact, float("inf")),
                   face=face_p, instance=inst_p,
                   barycentrics=torch.stack([u, v], dim=-1))
+
+
+def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
+                            inst_position, inst_rotation, inst_scale,
+                            rounds: int = tk.ANY_ROUNDS,
+                            block_size: int = 16384):
+    """Any hit (shadow ray) of rays against M instances of one mesh: True
+    where some triangle lies in [t_min, t_max]. Shapes as
+    intersect_instances. `rounds` any-hit candidate rounds run before the
+    serial any-hit walk takes what is left; 0 runs the serial walk
+    alone."""
+    lead = origin.shape[:-1]
+
+    def full(x):
+        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
+        return torch.broadcast_to(x, lead)
+
+    t_min = full(t_min)
+    t_max = _bounds_prepass(origin, direction, t_min, full(t_max), mesh,
+                            inst_position, inst_scale, block_size,
+                            any_hit=True)
+    rays, inst_tbl, inst_bounds, _, n_ic = _pack_for_mesh_kernel(
+        origin, direction, t_min, t_max, mesh, inst_position, inst_rotation,
+        inst_scale)
+    if rounds > 0:
+        occ = tk.intersect_mesh_instances_any_cand(
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic, rounds=rounds,
+            block=block_size)
+    else:
+        occ = tk.intersect_mesh_instances_any(
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
+            block=block_size) > 0
+    return occ.reshape(lead)
 
 
 def interpolate_attributes(mesh: TriMesh, hit: TriHit, inst_rotation):

@@ -4,7 +4,7 @@ wrappers, plain versions, counters and the candidate loop.
 Counterpart of ``drts_tpu/ops/trimesh_pallas.py``. One shared object-space
 mesh (the BLAS: a Morton-ordered triangle table) is instanced by rigid
 transforms with a uniform scale (the TLAS: a per-call instance table).
-The closest-hit half is ported; each TPU kernel on it becomes a CUDA C++
+Each TPU kernel of the closest-hit and the any-hit half becomes a CUDA C++
 kernel for Hopper in ``csrc/trimesh.cu``:
 
 - ``bound_scan`` replaces ``trimesh_pallas.bound_scan`` (B5): per ray, the
@@ -15,6 +15,12 @@ kernel for Hopper in ``csrc/trimesh.cu``:
 - ``intersect_mesh_instances`` replaces
   ``trimesh_pallas.intersect_mesh_instances`` (B7): the serial walk over
   every instance, the exact backstop of the candidate loop.
+- ``shared_blas_any`` replaces ``trimesh_pallas.shared_blas_any`` (B8): the
+  any-hit twin of B6, one blocked bit per ray, the sweep left at the first
+  blocking triangle.
+- ``intersect_mesh_instances_any`` replaces
+  ``trimesh_pallas.intersect_mesh_instances_any`` (B9): the any-hit twin of
+  B7, the exact backstop of the any-hit candidate loop.
 
 What the TPU kernels were: blocks of 2,048 rays that decide per block (a
 bundle's origin sphere and direction cone cull instance chunks, instances
@@ -23,17 +29,18 @@ distinct candidates). Those culls are conservative and change no result.
 On the H100 each kernel takes one thread per ray, which reads its own
 candidate row and keeps its best in a register; a pair costs ~25 (B5) or
 ~50 (B6, B7) separately rounded float32 operations against 32-48 bytes per
-ray, so all three are bound by the instruction rate, not by memory. Culls
+ray, so all of them are bound by the instruction rate, not by memory. Culls
 kept: a dead lane (tmax < tmin) does no work and a block of dead lanes
-leaves before it reads a table (B5, B6); B7 tests each ray against the
-instance chunks' covering spheres and the instances' bounding spheres,
-with the ray's running best as the far limit, and sweeps only what
-passes. The reference's triangle-chunk culls (chunk bounding spheres,
-normal cones, the convex back-face cull) are left out together with their
-tables: every sweep visits all faces.
+leaves before it reads a table (B5, B6, B8); B7 and B9 test each ray
+against the instance chunks' covering spheres and the instances' bounding
+spheres, with the ray's running best (B7) or its own tmax (B9) as the far
+limit, and sweep only what passes. The reference's triangle-chunk culls
+(chunk bounding spheres, normal cones, the convex back-face cull) are left
+out together with their tables: every sweep visits all faces.
 
 Ray directions are unit vectors on this path (B5, the bounds pre-pass and
-B7's sphere tests take the quadratic's leading coefficient as 1).
+the sphere tests of B7 and B9 take the quadratic's leading coefficient as
+1).
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel, or the wrapper raises. There
@@ -56,6 +63,7 @@ TRI_PAD = 64          # the triangle table is padded to a multiple of this
 INST_CHUNK = 16       # instances per TLAS chunk
 BSCAN_CHUNK = 128     # the bound-scan table is padded to a multiple of this
 CAND_ROUNDS = 3       # candidate rounds before the serial backstop
+ANY_ROUNDS = 2        # any-hit candidate rounds before the serial backstop
 # Slack of B7's per-ray sphere tests: radius * BOUND_SCALE + BOUND_PAD
 # (the kernel takes both, and INST_CHUNK, as arguments).
 BOUND_SCALE = 1.0001
@@ -516,6 +524,162 @@ def intersect_mesh_instances(rays, inst_tbl, inst_bounds, tri_tbl,
 
 
 # ----------------------------------------------------------------------------
+# B8: does each ray's candidate instance block it?
+
+
+def shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
+                          block: int = 16384, work: dict = None):
+    """Plain PyTorch B8. rays (8, N); cand (N,) int32 table position of the
+    ray's candidate instance (outside [0, M) = none); occ_in (N,) int32
+    blocked bit so far; inst_tbl (9, M); tri_tbl (F_pad, 9).
+
+    A lane is live when tmax >= tmin, it has a candidate and occ_in is 0;
+    every other lane returns occ_in. A live lane sweeps the triangle table
+    in the candidate's object frame with the direction rotated but not
+    scaled, so tmin and tmax are scaled into object units; it returns 1
+    where some triangle's hit lies in that range. Returns occ (N,) int32.
+    `work`, when given, receives the counts of this call: live lanes and
+    tri_tests, the (ray, triangle) pairs up to each lane's first blocking
+    row (all rows where none blocks)."""
+    f_pad, m_tbl = tri_tbl.shape[0], inst_tbl.shape[1]
+    tmin, tmax = rays[6], rays[7]
+    live = (tmax >= tmin) & (cand >= 0) & (cand < m_tbl) & (occ_in == 0)
+    occ = occ_in.clone()
+    idx = torch.nonzero(live)[:, 0]
+    counts = {"live": idx.numel(), "tri_tests": 0}
+    if idx.numel():
+        row = inst_tbl[:, cand[idx].long()]
+        ol, dl, inv_s = _to_object(rays[:, idx], row)
+        # trunc = 0 packs the row alone: the least word is the first row
+        # that blocks.
+        first = _sweep_packed(ol, dl, tmin[idx] * inv_s, tmax[idx] * inv_s,
+                              tri_tbl, 0, block)
+        hit = first < INF_BITS
+        occ[idx] = hit.to(torch.int32)
+        counts["tri_tests"] = int(torch.where(hit, first + 1, f_pad).sum())
+    if work is not None:
+        work.update(counts)
+    return occ
+
+
+def shared_blas_any(rays, cand, occ_in, inst_tbl, tri_tbl,
+                    block: int = 16384):
+    """B8; see shared_blas_any_plain for the contract. A CUDA tensor
+    launches drts_shared_blas_any (csrc/trimesh.cu)."""
+    _check_rays(rays)
+    n = rays.shape[1]
+    _check_words("cand", cand, n, rays.device)
+    _check_words("occ_in", occ_in, n, rays.device)
+    _check_table("inst_tbl", inst_tbl, 9, rays.device)
+    _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    if rays.device.type == "cpu":
+        return shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
+                                     block)
+    lib = backend.kernels()
+    occ = torch.empty_like(occ_in)
+    rc = lib.drts_shared_blas_any(
+        rays.data_ptr(), n, cand.data_ptr(), occ_in.data_ptr(),
+        inst_tbl.data_ptr(), inst_tbl.shape[1], tri_tbl.data_ptr(),
+        tri_tbl.shape[0], occ.data_ptr(), backend.stream_handle(rays))
+    backend.check_launch(rc, "drts_shared_blas_any")
+    backend.launched("shared_blas_any")
+    return occ
+
+
+# ----------------------------------------------------------------------------
+# B9: the serial any-hit walk over every instance
+
+
+def intersect_mesh_instances_any_plain(rays, inst_tbl, inst_bounds, tri_tbl,
+                                       n_ichunks: int, block: int = 16384,
+                                       work: dict = None):
+    """Plain PyTorch B9. Inputs as intersect_mesh_instances_plain (unit
+    directions). Per ray, 1 where some triangle of some instance has its
+    hit in [tmin, tmax], the direction scaled by 1/scale so t stays in
+    world units and tmin, tmax are used as given. Returns occ (N,) int32.
+
+    The live lanes are compacted and walk the instances in table order; a
+    chunk, then an instance, is entered by the lanes not yet blocked whose
+    segment [tmin, tmax] meets its sphere (_reaches), and a blocked lane
+    leaves the walk. `work`, when given, receives the counts of this call:
+    live lanes, chunk_tests, inst_tests (sphere tests made), sweeps ((ray,
+    instance) pairs entered) and tri_tests ((ray, triangle) pairs up to
+    each sweep's first blocking row)."""
+    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+    if inst_tbl.shape[1] != n_ichunks * INST_CHUNK:
+        raise ValueError(f"inst_tbl has {inst_tbl.shape[1]} columns, "
+                         f"expected {n_ichunks} x {INST_CHUNK}")
+    occ = torch.zeros(n, dtype=torch.int32, device=rays.device)
+    live = torch.nonzero(rays[7] >= rays[6])[:, 0]
+    counts = {"live": live.numel(), "chunk_tests": 0, "inst_tests": 0,
+              "sweeps": 0, "tri_tests": 0}
+    if live.numel():
+        r = rays[:, live]
+        blocked = torch.zeros(live.numel(), dtype=torch.bool,
+                              device=rays.device)
+        for ic in range(n_ichunks):
+            walking = torch.nonzero(~blocked)[:, 0]
+            if walking.numel() == 0:
+                break
+            rw = r[:, walking]
+            in_chunk = walking[_reaches(rw, inst_bounds[:, ic], rw[7])]
+            counts["chunk_tests"] += walking.numel()
+            for k in range(ic * INST_CHUNK, (ic + 1) * INST_CHUNK):
+                in_chunk = in_chunk[~blocked[in_chunk]]
+                if in_chunk.numel() == 0:
+                    break
+                counts["inst_tests"] += in_chunk.numel()
+                row = inst_tbl[:, k]
+                rc = r[:, in_chunk]
+                sel = in_chunk[_reaches(rc, (row[0], row[1], row[2], row[8]),
+                                        rc[7])]
+                if sel.numel() == 0:
+                    continue
+                counts["sweeps"] += sel.numel()
+                rk = r[:, sel]
+                ol, dl, inv_s = _to_object(rk, row)
+                dl = tuple(x * inv_s for x in dl)
+                first = _sweep_packed(ol, dl, rk[6], rk[7], tri_tbl, 0, block)
+                hit = first < INF_BITS
+                blocked[sel] = hit
+                counts["tri_tests"] += int(
+                    torch.where(hit, first + 1, f_pad).sum())
+        occ[live] = blocked.to(torch.int32)
+    if work is not None:
+        work.update(counts)
+    return occ
+
+
+def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
+                                 n_ichunks: int, block: int = 16384):
+    """B9; see intersect_mesh_instances_any_plain for the contract. A CUDA
+    tensor launches drts_mesh_instances_any (csrc/trimesh.cu)."""
+    _check_rays(rays)
+    _check_table("inst_tbl", inst_tbl, 9, rays.device)
+    _check_table("inst_bounds", inst_bounds, 4, rays.device)
+    _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    if rays.device.type == "cpu":
+        return intersect_mesh_instances_any_plain(
+            rays, inst_tbl, inst_bounds, tri_tbl, n_ichunks, block)
+    if (inst_tbl.shape[1] != n_ichunks * INST_CHUNK
+            or inst_bounds.shape[1] < n_ichunks):
+        raise ValueError(f"inst_tbl {tuple(inst_tbl.shape)} and inst_bounds "
+                         f"{tuple(inst_bounds.shape)} do not hold "
+                         f"{n_ichunks} chunks of {INST_CHUNK}")
+    lib = backend.kernels()
+    n = rays.shape[1]
+    occ = torch.empty(n, dtype=torch.int32, device=rays.device)
+    rc = lib.drts_mesh_instances_any(
+        rays.data_ptr(), n, inst_tbl.data_ptr(), inst_tbl.shape[1],
+        inst_bounds.data_ptr(), inst_bounds.shape[1], n_ichunks, INST_CHUNK,
+        BOUND_SCALE, BOUND_PAD, tri_tbl.data_ptr(), tri_tbl.shape[0],
+        occ.data_ptr(), backend.stream_handle(rays))
+    backend.check_launch(rc, "drts_mesh_instances_any")
+    backend.launched("intersect_mesh_instances_any")
+    return occ
+
+
+# ----------------------------------------------------------------------------
 # The candidate loop and the hit refinement
 
 
@@ -562,6 +726,47 @@ def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
     face = torch.where(fb_better, face_fb, best & ~trunc_f)
     inst = torch.where(fb_better, inst_fb, torch.clamp(binst, max=m_tbl - 1))
     return t_w, face, inst
+
+
+def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
+                                      n_ichunks: int,
+                                      rounds: int = ANY_ROUNDS,
+                                      block: int = 16384):
+    """Candidate-iteration any hit: `rounds` times, B5 hands every ray its
+    next bounding sphere front to back and B8 tests that one instance; a
+    blocked lane leaves the enumeration with a dead range. Then B5 marks
+    the lanes that are not blocked and still have a sphere ahead, and B9
+    walks those exactly. Returns blocked (N,) bool. `rays` is not
+    modified."""
+    n, m_tbl = rays.shape[1], inst_tbl.shape[1]
+    dev = rays.device
+    bscan = make_bscan_table(inst_tbl)
+    pos_mask = (1 << pos_bits(bscan.shape[0])) - 1
+
+    def without(gone):
+        """The caller's rays, the lanes of `gone` given a dead range."""
+        cur = rays.clone()
+        cur[7] = torch.where(gone, rays[6] - 1.0, rays[7])
+        return cur
+
+    cur = rays
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    occ = torch.zeros(n, dtype=torch.int32, device=dev)
+    for _ in range(rounds):
+        key = bound_scan(cur, bscan, cursor, block)
+        # m_tbl marks "no candidate": keys name real columns only.
+        cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
+            torch.int32)
+        occ = shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl, block)
+        cursor = key
+        cur = without(occ > 0)
+
+    key = bound_scan(cur, bscan, cursor, block)
+    unresolved = (key < INF_BITS) & (occ == 0)
+    occ_fb = intersect_mesh_instances_any(
+        without(~unresolved), inst_tbl, inst_bounds, tri_tbl, n_ichunks,
+        block)
+    return (occ > 0) | (occ_fb > 0)
 
 
 def refine_hit(mesh, center, rotation, scale, origin, direction, t_trunc,

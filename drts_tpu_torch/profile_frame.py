@@ -1,10 +1,11 @@
 """Where a frame's device time goes: a torch.profiler trace of the
 path-trace frame (``bench.trace_frame``) or, with ``--frame``, of the
 ReSTIR frame (``RenderPipeline.render_frame``) or, with ``--mesh``, of the
-instanced-mesh frame (``bench.make_mesh_setup``), on one GPU.
+instanced-mesh frame (``bench.make_mesh_setup``) or, with ``--mesh-frame``,
+of the all-mesh ReSTIR frame, on one GPU.
 
-    python -m drts_tpu_torch.profile_frame [--frame | --mesh] [--frames N]
-                                           [--out PATH]
+    python -m drts_tpu_torch.profile_frame
+        [--frame | --mesh | --mesh-frame] [--frames N] [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
@@ -30,7 +31,8 @@ from .ops import pathtrace
 # The hand-written kernels' function names in csrc/*.cu.
 HAND_KERNELS = ("morton_closest_hit", "brute_closest_hit", "morton_occlusion",
                 "initial_candidates", "reproject", "bound_scan",
-                "shared_blas_sweep", "mesh_instances_closest")
+                "shared_blas_sweep", "mesh_instances_closest",
+                "shared_blas_any", "mesh_instances_any")
 
 
 def _device_us(evt) -> float:
@@ -57,8 +59,9 @@ def _frame_step(recipe: str, device):
             pathtrace.trace_image(scene, cam, cfg, frame[0])
             frame[0] += 1
         return step
-    if recipe == "restir_frame":
-        pipe, state, pose = bench.make_frame_setup(device=device)
+    if recipe in ("restir_frame", "mesh_restir_frame"):
+        pipe, state, pose = bench.make_frame_setup(
+            device=device, mesh=recipe == "mesh_restir_frame")
         box = [state]
 
         def step():
@@ -112,9 +115,12 @@ def main(argv=None):
                         help="the ReSTIR frame instead of the path trace")
     parser.add_argument("--mesh", action="store_true",
                         help="the instanced-mesh frame instead")
+    parser.add_argument("--mesh-frame", action="store_true",
+                        help="the all-mesh ReSTIR frame instead")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
-    recipe = ("mesh_frame" if args.mesh
+    recipe = ("mesh_restir_frame" if args.mesh_frame
+              else "mesh_frame" if args.mesh
               else "restir_frame" if args.frame else "trace_frame")
     result = profile_frames(args.frames, backend.device("cuda"), recipe)
     text = json.dumps(result, indent=1)

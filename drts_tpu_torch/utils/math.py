@@ -159,6 +159,22 @@ def calculate_ndc(uv):
 
 
 # ----------------------------------------------------------------------------
+# sampling (Math.hlsli:36-51)
+
+
+def sample_triangle(random2):
+    """Uniform barycentrics from 2 uniforms (Math::SampleTriangle)."""
+    value = torch.sqrt(random2[..., 0])
+    return torch.stack([value * (1.0 - random2[..., 1]),
+                        value * random2[..., 1]], dim=-1)
+
+
+def to_solid_angle_pdf(area_pdf, dist, cos_theta, eps: float = 1e-8):
+    """Area-measure pdf -> solid-angle pdf (Math::ToSolidAnglePDF)."""
+    return area_pdf * dist * dist / torch.clamp(cos_theta, min=eps)
+
+
+# ----------------------------------------------------------------------------
 # color (MathLib Color::*)
 
 _LUMA = (0.2126, 0.7152, 0.0722)

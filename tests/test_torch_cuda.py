@@ -7,12 +7,13 @@ size, dead lanes, light tables of 1 and 128 rows, reprojection of 1 and 9
 channels with motion off every edge, and for the mesh kernels 1 and 600
 instances (a scan table beyond one 512-row tile), a 2,048-face mesh (a
 triangle table of 72 KB, beyond one shared-memory tile) and a batch of
-dead lanes only. Run on a GPU machine, which has no JAX, without the
-suite's conftest:
+dead lanes only; the any-hit mesh kernels also with short ranges and with
+blocked bits already set. Run on a GPU machine, which has no JAX, without
+the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance 0 for B1, B11, B2, B4, B5, B6 and B7: the kernels are built with
+Tolerance 0 for B1, B11, B2, B4 and B5 to B9: the kernels are built with
 -fmad=false and compute the same separately rounded operations in the same
 order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
 sinf and cosf where the plain version calls PyTorch's: picks may differ on
@@ -271,3 +272,66 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
     on_cpu = tk.intersect_mesh_instances_cand(
         rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(), n_ic)
     assert_equal(whole, on_cpu)
+
+
+@pytest.mark.parametrize("k,n,tess,dead", [
+    (24, 5001, 3, False), (1, 300, 2, False), (600, 3001, 3, False),
+    (24, 2049, 5, False), (24, 1024, 3, True)])
+def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
+    """B5 and B8 round by round as the any-hit candidate loop calls them
+    (the second round with blocked bits already set), B8 with every bit
+    set, B9 on the loop's rays and on the untouched ones, each against its
+    plain version, then the whole loop on the card against the whole loop
+    and the serial walk alone on the CPU. Half of the live rays end
+    short of 12 units."""
+    mesh, rays, (inst_tbl, inst_bounds, _, n_ic) = mesh_case(
+        k, n, tess, seed=k + n + 1, dev=dev, dead=dead)
+    rng = np.random.RandomState(n)
+    short = torch.from_numpy(np.asarray(12.0 * rng.rand(n), np.float32)
+                             ).to(dev)
+    rays[7] = torch.where((rays[7] > 0) & (torch.arange(n, device=dev) % 2
+                                           == 0), short, rays[7])
+    tri_tbl = mesh.tri_tbl
+    bscan = tk.make_bscan_table(inst_tbl)
+    m_tbl = inst_tbl.shape[1]
+    mask = (1 << ik.pos_bits(bscan.shape[0])) - 1
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    occ = torch.zeros(n, dtype=torch.int32, device=dev)
+    cur = rays
+    before = dict(backend.LAUNCHES)
+    for _ in range(2):
+        key = tk.bound_scan(cur, bscan, cursor)
+        cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
+            torch.int32)
+        out = tk.shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl)
+        assert torch.equal(out, tk.shared_blas_any_plain(cur, cand, occ,
+                                                         inst_tbl, tri_tbl))
+        assert bool((out >= occ).all())
+        occ, cursor = out, key
+        cur = rays.clone()
+        cur[7] = torch.where(occ > 0, rays[6] - 1.0, rays[7])
+    ones = torch.ones_like(occ)
+    assert torch.equal(tk.shared_blas_any(rays, cand, ones, inst_tbl, tri_tbl),
+                       ones)
+    for batch in (cur, rays):
+        out = tk.intersect_mesh_instances_any(batch, inst_tbl, inst_bounds,
+                                              tri_tbl, n_ic)
+        assert torch.equal(out, tk.intersect_mesh_instances_any_plain(
+            batch, inst_tbl, inst_bounds, tri_tbl, n_ic))
+    assert backend.LAUNCHES["shared_blas_any"] == before["shared_blas_any"] + 3
+    assert (backend.LAUNCHES["intersect_mesh_instances_any"]
+            == before["intersect_mesh_instances_any"] + 2)
+    blocked = int(out.sum())
+    assert blocked == 0 if dead else 0 < blocked < n
+    assert dead or bool((occ > 0).any())
+
+    whole = tk.intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds,
+                                                 tri_tbl, n_ic)
+    cpu = (rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(), n_ic)
+    assert torch.equal(whole.cpu(),
+                       tk.intersect_mesh_instances_any_cand(*cpu))
+    # The loop and the serial walk answer the same question; B8 compares in
+    # object units and B9 in world units, so a hit within rounding of a
+    # range end may fall on either side.
+    serial = tk.intersect_mesh_instances_any(*cpu) > 0
+    assert float((whole.cpu() != serial).float().mean()) <= 1e-3
