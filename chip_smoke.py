@@ -70,6 +70,31 @@ Phases, one printed line or more each; any failure exits non-zero:
    phase 9; B1, B2 and B3 do not run (no sphere table, triangle lights).
    Then two all-mesh frames at 64x64 on the card and on the CPU, as
    phase 7.
+12. B10 kernel: the fused candidate closest hit (trimesh.MESH_CAND = 2)
+   against its plain version, bit for bit on best, binst and key, and the
+   plain version against the multi-launch loop (cand_loop: B5 and B6 round
+   by round) on the same rays, on the inputs the primary and bounce-1
+   trace calls of the second fused mesh frame at 1920x1080 give it;
+   kernel, plain and loop times from CUDA events.
+13. fused mesh: the mesh frame of phase 9 with MESH_CAND = 2 through
+   bench.bench_mesh, counted from zero: frame time, Mray/s and launches;
+   per trace call B10 once, B7 once, B11 twice and no B5 or B6; the image
+   finite and equal to phase 9's (the same last frame index; B10 walks the
+   loop's candidates, so the largest difference is expected to be 0).
+14. default frame: RenderPipeline(PipelineConfig()) (physics, ReSTIR DI,
+   SHARC updated every second frame, ReBLUR, TAA at native size, post) at
+   1920x1080: first B4 against its plain version on every reprojection of
+   a warm frame (the ReSTIR history, the denoiser's two packed mirrors,
+   nearest, and the TAA history, bilinear), with kernel, plain and
+   grid_sample times; then 7 frames through bench.bench_frame, counted
+   from zero: frame time, per-stage times, counters and launches (B4 by
+   mode; the stages timed over one SHARC cadence of two frames); the image
+   a finite (1080, 1920, 3) in [0, 1], SHARC hits on the last timed frame,
+   each kernel launched as the stages need; then the upscaled
+   frame (render 960x540, output 1920x1080) likewise.
+15. default frame small: three default frames at 64x64 (3 bounces, a
+   4,096-slot cache) on the card and on the CPU from one start state, and
+   one ReLAX and one DLSS-RR frame each, must agree within DEFAULT_*.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -77,7 +102,13 @@ and the times of phases 2 and 5; B5, B6, B7 and B11 once more
 phase 9 and the times of phase 8; B8, B9 and, once more, B5 and B11
 ("bound_scan@mesh_restir", "intersect_brute@mesh_restir": their any-hit
 launches alone) with the launches of phase 11 and the times of phase 10,
-summed over one frame's three calls (B9's are those of the full batch).
+summed over one frame's three calls (B9's are those of the full batch);
+B10 ("cand_fused@mesh_fused") with the launches of phase 13 and the times
+of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
+("...@default") with the launches of phase 14, B4 with the times of phase
+14 (one frame's four reprojections), the others with those of phases 2
+and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
+frame's).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle), and a
 kernel measured under its bound fails the run. Then the card's name and
@@ -87,6 +118,7 @@ result.
 """
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -118,6 +150,8 @@ OPS_B5_PAIR = 27          # ray x bound-scan row
 OPS_MT_PAIR = 55          # ray x triangle row (B6, B7)
 OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6, B7)
 OPS_B7_SPHERE = 30        # B7's ray x bounding-sphere test
+OPS_B10_SCAN_ROW = OPS_B5_PAIR   # B10's scan: a lane x bound-scan row
+OPS_B10_SWEEP_ROW = OPS_MT_PAIR  # B10's sweep: a lane x triangle row
 # Tolerances of phase 5 (set just above what the card showed; see PERF.md).
 B3_PICK_SHARE = 1e-4      # share of pixels whose winner differs
 B3_REL = 1e-5             # elsewhere, of each output row's largest value
@@ -140,6 +174,16 @@ ANY_LOOP_SHARE = 1e-3
 # test_as_mesh_scene_renders).
 MESH_MEAN_REL = 0.25      # tone-mapped mean, relative
 MESH_VALID_AGREE = 0.85   # share of pixels with the same primary hit bit
+# Phase 15, default frames card vs CPU: the card's SHARC splat adds in
+# another order (atomics) and B3's sinf / cosf pick another sample on a few
+# pixels; the denoiser and TAA spread a differing pixel over its
+# neighbours. Bounds on the tone-mapped image.
+# Set just above what an H100 showed: image mean 5.1e-5 to 8.9e-5, pixels
+# off 0 to 0.049%, fingerprints equal on every filled slot (PERF.md).
+DEFAULT_MEAN = 2e-4       # mean |image difference|
+DEFAULT_OFF = 0.05        # a pixel is off beyond this |difference| ...
+DEFAULT_OFF_SHARE = 2e-3  # ... on at most this share of pixels
+DEFAULT_FP_SHARE = 0.99   # SHARC slots with the same fingerprint
 
 
 def log(msg):
@@ -885,6 +929,252 @@ def check_anyhit_kernels(ik, tk, seen):
     return out
 
 
+def capture_fused_inputs(bench, pathtrace, trimesh, modules, device="cuda"):
+    """One fused mesh frame (MESH_CAND = 2) at 1920x1080 to warm up, then
+    one that records the arguments of the B10 calls of its first two trace
+    calls (the primary and the bounce-1 rays)."""
+    scene, cam, cfg = bench.make_mesh_setup(device=device)
+    pathtrace.trace_image(scene, cam, cfg, 0)
+    with recorded(modules, ("cand_fused",), clone=True,
+                  keep=lambda seen: len(seen["cand_fused"]) < 2) as seen:
+        pathtrace.trace_image(scene, cam, cfg, 1)
+        torch.cuda.synchronize()
+    return seen
+
+
+def check_fused_kernel(tk, seen):
+    """Phase 12: B10 against its plain version and the plain version
+    against the multi-launch loop, bit for bit, on each recorded call; the
+    kernels-line fields are the primary call's."""
+    calls = seen["cand_fused"]
+    if len(calls) != 2:
+        raise AssertionError(f"B10: recorded {len(calls)} calls, expected 2")
+    fields = None
+    for label, args in zip(("primary", "bounce-1"), calls):
+        rays, bscan, inst_tbl, tri_tbl, rounds, block = args
+        work = {}
+        out_k = tk.cand_fused(*args)
+        out_p = tk.cand_fused_plain(*args, work=work)
+        out_l = tk.cand_loop(*args)
+        torch.cuda.synchronize()
+        mismatch = words_differ(out_k, out_p)
+        loop_mismatch = words_differ(out_p, out_l)
+        n, m_pad, f_pad = rays.shape[1], bscan.shape[0], tri_tbl.shape[0]
+        # A live lane reads its ray and writes three words; a dead one
+        # reads tmin and tmax; each table once.
+        b_bytes = lane_bytes(n, work["live"], 8, 3, bscan, inst_tbl,
+                             tri_tbl)
+        b_ops = (work["scans"] * m_pad * OPS_B10_SCAN_ROW
+                 + work["sweeps"] * (f_pad * OPS_B10_SWEEP_ROW
+                                     + OPS_TO_OBJECT))
+        b_ms, b_by = bound(b_bytes, b_ops)
+        k_ms = cuda_ms(lambda: tk.cand_fused(*args), 10)
+        p_ms = cuda_ms(lambda: tk.cand_fused_plain(*args), 1)
+        l_ms = cuda_ms(lambda: tk.cand_loop(*args), 10)
+        found = int((out_k[0] < tk.INF_BITS).sum())
+        log(f"fused kernel: B10 {label} rays={n} live={work['live']} "
+            f"rounds={rounds} rows={m_pad} faces={f_pad} "
+            f"lane_scans={work['scans']} lane_sweeps={work['sweeps']} "
+            f"hits={found} unresolved={int((out_k[2] < tk.INF_BITS).sum())} "
+            f"mismatch={mismatch} plain_vs_loop_mismatch={loop_mismatch} "
+            f"kernel_ms={k_ms!r} plain_ms={p_ms!r} "
+            f"loop_ms(B5+B6)={l_ms!r} bound_ms={b_ms!r} ({b_by})")
+        if mismatch or loop_mismatch:
+            raise AssertionError(f"B10 {label}: kernel, plain version and "
+                                 f"loop disagree ({mismatch}, "
+                                 f"{loop_mismatch} words)")
+        if found == 0:
+            raise AssertionError(f"B10 {label}: no hit")
+        if fields is None:
+            fields = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return fields
+
+
+def capture_default_reprojections(bench, rp, device="cuda"):
+    """One default frame at 1920x1080 to warm the histories, then one that
+    records every B4 call: the ReSTIR history, the denoiser's packed
+    mirrors (nearest) and the TAA history (bilinear)."""
+    pipe, state, pose = bench.make_frame_setup(
+        cfg=bench.default_frame_config(), device=device)
+    state, _ = pipe.render_frame(state, pose)
+    with recorded((rp,), ("reproject_packed",), clone=True) as seen:
+        pipe.render_frame(state, pose)
+        torch.cuda.synchronize()
+    return seen["reproject_packed"]
+
+
+def check_default_reprojections(rp, calls):
+    """Phase 14 (first part): B4 against its plain version on each of a
+    default frame's reprojections; returns the summed kernels-line fields
+    and the calls' modes."""
+    modes = [mode for _, _, mode in calls]
+    if sorted(modes) != ["bilinear", "nearest", "nearest", "nearest"]:
+        raise AssertionError(f"B4 in the default frame: modes {modes}, "
+                             f"expected 3 nearest and 1 bilinear")
+    ms = plain_ms = lib_ms = bytes_moved = ops = err = 0.0
+    for src, motion, mode in calls:
+        h, w, c = src.shape
+        o_k, ok_k = rp.reproject_packed(src, motion, mode)
+        o_p, ok_p = rp.reproject_packed_plain(src, motion, mode)
+        torch.cuda.synchronize()
+        ok_mismatch = int((ok_k != ok_p).sum())
+        if mode == "nearest":
+            bad = int((o_k.view(torch.int32) != o_p.view(torch.int32)).sum())
+            distinct = int(torch.unique(src.view(torch.int32)).numel())
+            if distinct <= min(1000, src.numel() // 8):
+                raise AssertionError(f"B4 nearest {h}x{w}x{c}: the history "
+                                     f"is not a warm frame's ({distinct} "
+                                     f"distinct words)")
+        else:
+            e = float((o_k - o_p).abs().max())
+            err = max(err, e)
+            bad = int(e > B4_BILINEAR_REL * float(src.abs().max()))
+            ops += h * w * c * OPS_B4_BILINEAR
+        grid = torch.stack([
+            (torch.arange(w, device=motion.device)[None, :] + motion[..., 0])
+            / (w - 1) * 2 - 1,
+            (torch.arange(h, device=motion.device)[:, None] + motion[..., 1])
+            / (h - 1) * 2 - 1], dim=-1)[None]
+        chw = src.permute(2, 0, 1)[None].contiguous()
+        k = cuda_ms(lambda: rp.reproject_packed(src, motion, mode), 50)
+        p = cuda_ms(lambda: rp.reproject_packed_plain(src, motion, mode), 10)
+        lib = cuda_ms(lambda: torch.nn.functional.grid_sample(
+            chw, grid, mode=mode, padding_mode="border", align_corners=True),
+            50)
+        log(f"default kernels: B4 {mode} {h}x{w}x{c} mismatch={bad} "
+            f"ok_mismatch={ok_mismatch} kernel_ms={k!r} plain_ms={p!r} "
+            f"grid_sample_ms={lib!r}")
+        if bad or ok_mismatch:
+            raise AssertionError(f"B4 {mode} {h}x{w}x{c}: kernel disagrees "
+                                 f"with its plain version")
+        ms, plain_ms, lib_ms = ms + k, plain_ms + p, lib_ms + lib
+        bytes_moved += (2 * c * 4 + 8 + 1) * h * w
+    b_ms, b_by = bound(bytes_moved, ops)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+@contextlib.contextmanager
+def mode_tally(rp):
+    """Count the main path's B4 calls by mode (the wrapper's own counter
+    counts the launches)."""
+    tally = {"nearest": 0, "bilinear": 0}
+    orig = rp.reproject_packed
+
+    def tallied(src, motion, mode="bilinear"):
+        tally[mode] += 1
+        return orig(src, motion, mode)
+    rp.reproject_packed = tallied
+    try:
+        yield tally
+    finally:
+        rp.reproject_packed = orig
+
+
+def run_default_frame(bench, backend, rp, smi, label, upscaled, iters, dev):
+    """Phase 14: the default (or upscaled) frame through bench.bench_frame,
+    counted from zero; checks the image, the SHARC hits and each kernel's
+    launches. Returns the launches."""
+    cfg = bench.default_frame_config(upscaled=upscaled)
+    backend.reset_launches()
+    with mode_tally(rp) as tally:
+        stats, img = bench.bench_frame(iters=iters, device=dev, cfg=cfg)
+    # 1 warm, iters timed, one SHARC cadence stage-timed
+    frames = stats["frames"]
+    launches = dict(backend.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    counters = stats["counters"]
+    hits = sum(v for k, v in counters.items() if k.startswith("sharc_hits"))
+    log(f"{label}: render {cfg.render_width}x{cfg.render_height} output "
+        f"{cfg.output_width}x{cfg.output_height} bounces={cfg.bounces} "
+        f"frames={frames} frame_ms={stats['frame_ms']!r} "
+        f"rays_per_frame={stats['rays_per_frame']!r} "
+        f"sharc_hits={hits!r} sharc_splat_dropped_rows="
+        f"{counters['sharc_splat_dropped_rows']!r} "
+        f"launches={json.dumps(launches)} B4_by_mode={json.dumps(tally)} "
+        f"finite={finite} min={float(img.min())!r} "
+        f"max={float(img.max())!r} mean={float(img.mean())!r} | {smi}")
+    log(f"{label}: counters={json.dumps(counters)}")
+    log(f"{label}: passes_ms={json.dumps(stats['passes_ms'])}")
+    if (tuple(img.shape) != (cfg.output_height, cfg.output_width, 3)
+            or not finite or float(img.min()) < 0.0
+            or float(img.max()) > 1.0):
+        raise AssertionError(f"the {label} is not a finite image in [0, 1]")
+    if hits <= 0:
+        raise AssertionError(f"the {label}'s last frame took nothing from "
+                             f"the SHARC cache")
+    if not {"sharc_update", "denoise", "taa"} <= set(stats["passes_ms"]):
+        raise AssertionError(f"the {label} ran without its SHARC, denoise "
+                             f"or TAA stage")
+    # Per frame: the ReSTIR passes (3 x B2, B3, B11, one reprojection), the
+    # denoiser's two reprojections (nearest) and TAA's one (bilinear);
+    # B1 at least once per bounce and frame (the G-buffer, bounces 1-8) and
+    # as often again per SHARC update (every second frame from frame 0).
+    expect = {"occlusion_morton": 3 * frames,
+              "initial_light_candidates": frames,
+              "intersect_brute": frames, "reproject_packed": 4 * frames,
+              "cand_fused": 0, "bound_scan": 0}
+    for name, count in expect.items():
+        if launches[name] != count:
+            raise AssertionError(f"{label}: {name} launched "
+                                 f"{launches[name]} times in {frames} "
+                                 f"frames, expected {count}")
+    if tally != {"nearest": 3 * frames, "bilinear": frames}:
+        raise AssertionError(f"{label}: B4 modes {tally}")
+    updates = -(-frames // cfg.sharc_update_period)
+    if launches["intersect_morton"] < (cfg.bounces + 1) * (frames + updates):
+        raise AssertionError(f"{label}: B1 launched "
+                             f"{launches['intersect_morton']} times")
+    return launches
+
+
+def check_default_small(pipeline, bench, sharc_mod,
+                        devices=("cuda", "cpu")):
+    """Phase 15: three default frames at 64x64 (3 bounces, oscillator grid
+    3, a 4,096-slot cache) on the card and on the CPU from one start
+    state, then one ReLAX and one DLSS-RR frame from that start; bounds
+    DEFAULT_*."""
+    base = bench.default_frame_config(
+        output_width=64, output_height=64, render_width=64,
+        render_height=64, bounces=3, block_size=4096,
+        sharc=sharc_mod.SHARCConfig(capacity_log2=12))
+    runs = (("default", base, 3),
+            ("ReLAX", dataclasses.replace(base, denoiser="NRDReLAX"), 1),
+            ("DLSS-RR", dataclasses.replace(
+                base, denoiser="DLSSRayReconstruction"), 1))
+    for label, cfg, n_frames in runs:
+        results = []
+        for dev in devices:
+            pipe, state, _ = bench.make_frame_setup(
+                oscillator_grid=3, device=dev, cfg=cfg)
+            eye = torch.tensor([0.0, 2.5, -4.0])
+            fwd = torch.tensor([0.0, 0.5, 0.0]) - eye
+            pose = pipeline.CameraPose(eye.to(dev), (fwd / fwd.norm()).to(dev),
+                                       torch.tensor([0.0, 1.0, 0.0]).to(dev))
+            frames = []
+            for _ in range(n_frames):
+                state, img = pipe.render_frame(state, pose)
+                frames.append((img.cpu(), state.sharc.fingerprint.cpu()))
+            results.append(frames)
+        for i, ((gimg, gfp), (cimg, cfp)) in enumerate(zip(*results)):
+            d = (gimg - cimg).abs()
+            off = float((d.amax(-1) > DEFAULT_OFF).float().mean())
+            filled = (gfp > 0) | (cfp > 0)
+            fp_same = float((gfp == cfp)[filled].float().mean())
+            log(f"default small: {label} frame {i} image_mean_abs_diff="
+                f"{float(d.mean())!r} image_max_abs_diff="
+                f"{float(d.max())!r} pixels_off_{DEFAULT_OFF}={off!r} "
+                f"sharc_fingerprints_equal={fp_same!r} "
+                f"of {int(filled.sum())} filled slots "
+                f"finite={bool(torch.isfinite(gimg).all())}")
+            if (float(d.mean()) > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE
+                    or fp_same < DEFAULT_FP_SHARE
+                    or not bool(torch.isfinite(gimg).all())):
+                raise AssertionError(f"default small: the {label} frame on "
+                                     f"the card disagrees with the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -898,7 +1188,7 @@ def main():
     from drts_tpu_torch.ops import pathtrace, post
     from drts_tpu_torch.ops import reproject_kernels as rp
     from drts_tpu_torch.ops import restir_kernels as rk
-    from drts_tpu_torch.ops import trimesh
+    from drts_tpu_torch.ops import sharc as sharc_mod, trimesh
     from drts_tpu_torch.ops import trimesh_kernels as tk
     from drts_tpu_torch.utils import image, rng as rng_mod
 
@@ -1156,6 +1446,61 @@ def main():
     launches["intersect_brute@mesh_restir"] = 3 * frames
     check_small_frames(pipeline, bench, mesh=True)
 
+    # 12. B10 at the fused mesh frame's own inputs ---------------------------
+    trimesh.MESH_CAND = 2
+    seen = capture_fused_inputs(bench, pathtrace, trimesh, (tk,), device=dev)
+    fields["cand_fused@mesh_fused"] = check_fused_kernel(tk, seen)
+    del seen
+
+    # 13. the fused mesh frame, counted from zero ----------------------------
+    backend.reset_launches()
+    fstats, fused_out = bench.bench_mesh(iters=iters_trace, device=dev)
+    f_launches = dict(backend.LAUNCHES)
+    trimesh.MESH_CAND = 1
+    frad = fused_out.radiance
+    f_finite = bool(torch.isfinite(frad).all())
+    calls = f_launches["intersect_mesh_instances"]
+    f_diff = float((frad - mrad).abs().max())
+    log(f"fused mesh: 1920x1080 spp=1 bounces=8 MESH_CAND=2 "
+        f"frames={m_frames} frame_ms={fstats['frame_ms']!r} "
+        f"mray_s={fstats['mray_s']!r} "
+        f"rays_per_frame={fstats['rays_per_frame']!r} trace_calls={calls} "
+        f"launches={json.dumps(f_launches)} finite={f_finite} "
+        f"max_abs_diff_to_MESH_CAND_1_frame={f_diff!r} | {smi}")
+    if tuple(frad.shape) != (1080, 1920, 3) or not f_finite:
+        raise AssertionError("the fused mesh frame is not a finite image")
+    if calls < m_frames * (8 + 1):
+        raise AssertionError(f"{calls} fused mesh trace calls in {m_frames} "
+                             f"frames of 8 bounces")
+    per_call = {"cand_fused": 1, "intersect_mesh_instances": 1,
+                "intersect_brute": 2, "bound_scan": 0, "shared_blas_sweep": 0}
+    for name, count in per_call.items():
+        if f_launches[name] != count * calls:
+            raise AssertionError(f"{name} launched {f_launches[name]} times "
+                                 f"in {calls} fused trace calls, expected "
+                                 f"{count * calls}")
+    if f_diff != 0.0:
+        raise AssertionError("the fused mesh frame differs from the "
+                             "MESH_CAND=1 frame")
+    launches["cand_fused@mesh_fused"] = f_launches["cand_fused"]
+
+    # 14. the default frame: B4 at its own inputs, then counted from zero ----
+    calls = capture_default_reprojections(bench, rp, device=dev)
+    fields["reproject_packed@default"] = check_default_reprojections(rp,
+                                                                     calls)
+    del calls
+    d_launches = run_default_frame(bench, backend, rp, smi, "default frame",
+                                   False, 4, dev)
+    run_default_frame(bench, backend, rp, smi, "upscaled frame", True, 2,
+                      dev)
+    for name in ("intersect_morton", "occlusion_morton",
+                 "initial_light_candidates", "reproject_packed",
+                 "intersect_brute"):
+        launches[f"{name}@default"] = d_launches[name]
+
+    # 15. small default frames: kernels on the card vs the CPU --------------
+    check_default_small(pipeline, bench, sharc_mod)
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -1185,11 +1530,29 @@ def main():
         "intersect_brute@mesh_restir": (
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
+        "cand_fused@mesh_fused": ("drts_tpu_torch/csrc/trimesh.cu",
+                                  "drts_tpu/ops/trimesh_pallas.py:1345"),
+        "intersect_morton@default": ("drts_tpu_torch/csrc/intersect.cu",
+                                     "drts_tpu/ops/intersect_pallas.py:311"),
+        "occlusion_morton@default": ("drts_tpu_torch/csrc/intersect.cu",
+                                     "drts_tpu/ops/intersect_pallas.py:509"),
+        "initial_light_candidates@default": (
+            "drts_tpu_torch/csrc/restir.cu",
+            "drts_tpu/ops/restir_pallas.py:289"),
+        "reproject_packed@default": ("drts_tpu_torch/csrc/reproject.cu",
+                                     "drts_tpu/ops/reproject_pallas.py:206"),
+        "intersect_brute@default": ("drts_tpu_torch/csrc/intersect.cu",
+                                    "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
         "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"], "bound_ms": b1_ms,
         "bound_by": b1_by, "library_ms": None}
+    # The default frame's ReSTIR passes and primary rays are the ReSTIR
+    # frame's: B1, B2, B3 and B11 keep the times of phases 2 and 5.
+    for name in ("intersect_morton", "occlusion_morton",
+                 "initial_light_candidates", "intersect_brute"):
+        fields[f"{name}@default"] = fields[name]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

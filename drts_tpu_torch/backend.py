@@ -78,6 +78,11 @@ _SIGNATURES = {
     "drts_mesh_instances_any": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                 _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
                                 _VOIDP, _VOIDP),
+    # rays, n, bscan, m_pad, bs_pos_bits, inst_tbl, m_tbl, tri_tbl, f_pad,
+    # pos_bits, rounds, best_out, binst_out, key_out, stream
+    "drts_cand_fused": (_VOIDP, _INT, _VOIDP, _INT, _INT, _VOIDP, _INT,
+                        _VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP,
+                        _VOIDP),
 }
 
 _lib = None
@@ -86,7 +91,7 @@ LAUNCHES = dict.fromkeys(("intersect_morton", "intersect_brute",
                           "reproject_packed", "bound_scan",
                           "shared_blas_sweep", "intersect_mesh_instances",
                           "shared_blas_any",
-                          "intersect_mesh_instances_any"), 0)
+                          "intersect_mesh_instances_any", "cand_fused"), 0)
 
 
 def launched(name: str) -> None:

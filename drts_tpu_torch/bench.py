@@ -20,19 +20,34 @@ The all-mesh ReSTIR frame (``--mesh-frame``): ``render_frame`` as in
 accel; every face of an emissive instance is a triangle light; the shadow
 rays go through the mesh any-hit kernels).
 
+The default frame (``--default-frame``): ``render_frame`` with the
+reference's ``PipelineConfig()`` at 1920x1080 native: physics, ReSTIR DI,
+SHARC (update every second frame, queries from bounce 2), the NRD ReBLUR
+denoiser, TAA, sharpen, bloom, ACES. The upscaled frame (``--upscaled``,
+the reference's ``bench.py:bench_upscaled``): the same graph rendered at
+960x540 and upscaled by TAA to 1920x1080, block 32,768.
+
+``--mesh-cand {0,1,2}`` sets ``ops.trimesh.MESH_CAND`` before the mesh
+frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
+loop, B10).
+
     python -m drts_tpu_torch.bench [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
-    python -m drts_tpu_torch.bench --mesh [--iters N]
-    python -m drts_tpu_torch.bench --mesh-frame [--iters N]
+    python -m drts_tpu_torch.bench --mesh [--mesh-cand M] [--iters N]
+    python -m drts_tpu_torch.bench --mesh-frame [--mesh-cand M] [--iters N]
+    python -m drts_tpu_torch.bench --default-frame [--iters N]
+    python -m drts_tpu_torch.bench --upscaled [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
 rays_per_frame, device); the ReSTIR frame with frame_ms (one warm frame,
 then N frames on a host clock ending in a synchronize), passes_ms (each
-stage of one more frame through render_frame's ``_run`` hook, timed with
-CUDA events and a synchronize per stage), rays_per_frame of the path
+stage of one more frame, or with SHARC of the two frames of its update
+cadence, averaged, through render_frame's ``_run`` hook, timed with CUDA
+events and a synchronize per stage), rays_per_frame of the path
 trace, the frame's counters, and the frames and launches per kernel of
-the run (the all-mesh ReSTIR frame alike); the mesh frame with
+the run (the all-mesh ReSTIR, default and upscaled frames alike); the
+mesh frame with
 mesh_trace_8b_mray_s, mesh_trace_8b_ms, rays_per_frame and the kernel
 launches of the run. All need a CUDA device and do not fall back to the
 CPU.
@@ -50,7 +65,7 @@ import torch
 
 from . import backend
 from .models import clusters, myscene, pipeline, scene as scene_mod
-from .ops import camera as camera_mod, gbuffer, pathtrace
+from .ops import camera as camera_mod, gbuffer, pathtrace, trimesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,13 +179,26 @@ def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
     return stats, out
 
 
+def default_frame_config(upscaled: bool = False, **overrides):
+    """The reference's default frame, ``PipelineConfig()`` (1920x1080
+    native); with `upscaled`, its ``bench_upscaled`` recipe: render
+    960x540, output 1920x1080, block 32,768."""
+    if upscaled:
+        overrides = dict(dict(render_width=960, render_height=540,
+                              block_size=32768), **overrides)
+    return pipeline.PipelineConfig(**overrides)
+
+
 def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
-                     device="cuda", mesh: bool = False, tess: int = 4):
-    """The ReSTIR frame's pipeline, start state and camera pose; with
-    `mesh`, on the scene as instances of one geosphere of `tess`."""
-    pipe = pipeline.RenderPipeline(
-        pipeline.restir_frame_config(width, height, bounces), device)
+                     device="cuda", mesh: bool = False, tess: int = 4,
+                     cfg: pipeline.PipelineConfig | None = None):
+    """The ReSTIR frame's pipeline, start state and camera pose (or, with
+    `cfg`, that configuration's); with `mesh`, on the scene as instances
+    of one geosphere of `tess`."""
+    if cfg is None:
+        cfg = pipeline.restir_frame_config(width, height, bounces)
+    pipe = pipeline.RenderPipeline(cfg, device)
     host = myscene.build(oscillator_grid=oscillator_grid, device=pipe.device)
     if mesh:
         host = myscene.as_mesh_scene(host, tessellation=tess)
@@ -202,14 +230,19 @@ def stage_timer(passes: dict, device):
 
 
 def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
-                iters: int = 4, device="cuda", mesh: bool = False):
-    """One warm ReSTIR frame, then `iters` timed frames, then one frame
-    timed stage by stage; with `mesh`, the all-mesh ReSTIR frame. Returns
-    (stats, the last timed frame's image); stats has frame_ms, passes_ms,
-    rays_per_frame (path trace, warm frame) and the counters of the last
-    timed frame."""
+                iters: int = 4, device="cuda", mesh: bool = False,
+                cfg: pipeline.PipelineConfig | None = None):
+    """One warm ReSTIR frame, then `iters` timed frames, then frames timed
+    stage by stage (one, or with SHARC one cadence of
+    `sharc_update_period` frames, so that the update's cost is in); with
+    `mesh`, the all-mesh ReSTIR frame; with `cfg`, that configuration's
+    frame (width, height and bounces are then the config's). Returns
+    (stats, the last timed frame's image); stats has frame_ms, passes_ms
+    (each stage's mean over the stage-timed frames), rays_per_frame (path
+    trace, warm frame), the counters of the last timed frame and the
+    number of frames rendered."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
-                                         device=device, mesh=mesh)
+                                         device=device, mesh=mesh, cfg=cfg)
     traced = {}
 
     def capture(name, fn, *args):
@@ -224,13 +257,22 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
         state, image = pipe.render_frame(state, pose)
     _sync(device)
     elapsed = time.perf_counter() - start
+    counters = {k: float(v) for k, v in state.counters.items()}
+    staged = (max(pipe.cfg.sharc_update_period, 1)
+              if pipe.cfg.sharc_enabled else 1)
     passes = {}
-    pipe.render_frame(state, pose, _run=stage_timer(passes, device))
+    for _ in range(staged):
+        frame = {}
+        state, _ = pipe.render_frame(state, pose,
+                                     _run=stage_timer(frame, device))
+        for name, ms in frame.items():
+            passes[name] = passes.get(name, 0.0) + ms / staged
     stats = {
         "frame_ms": elapsed / iters * 1e3,
+        "frames": 1 + iters + staged,
         "passes_ms": passes,
         "rays_per_frame": float(traced["rays"]),
-        "counters": {k: float(v) for k, v in state.counters.items()},
+        "counters": counters,
     }
     return stats, image
 
@@ -244,8 +286,17 @@ def main(argv=None):
                         help="the instanced-mesh frame instead")
     parser.add_argument("--mesh-frame", action="store_true",
                         help="the all-mesh ReSTIR frame instead")
+    parser.add_argument("--default-frame", action="store_true",
+                        help="the reference's default frame instead")
+    parser.add_argument("--upscaled", action="store_true",
+                        help="the default frame upscaled from 960x540")
+    parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
+                        choices=trimesh.MESH_CAND_MODES,
+                        help="the mesh closest-hit form (ops.trimesh."
+                             "MESH_CAND)")
     args = parser.parse_args(argv)
     dev = backend.device("cuda")
+    trimesh.MESH_CAND = args.mesh_cand
     if args.mesh:
         backend.reset_launches()
         stats, out = bench_mesh(iters=args.iters, device=dev)
@@ -257,22 +308,27 @@ def main(argv=None):
             "mesh_trace_8b_ms": stats["frame_ms"],
             "rays_per_frame": int(stats["rays_per_frame"]),
             "overflow_paths": stats["overflow_paths"],
-            "frames": args.iters + 1,
+            "frames": args.iters + 1, "mesh_cand": args.mesh_cand,
             "launches": dict(backend.LAUNCHES),
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)
         return
-    if args.frame or args.mesh_frame:
+    if args.frame or args.mesh_frame or args.default_frame or args.upscaled:
+        cfg = None
+        metric = ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
+                  else "restir_frame_1080p_8bounce")
+        if args.default_frame or args.upscaled:
+            cfg = default_frame_config(upscaled=args.upscaled)
+            metric = ("upscaled_frame_540p_to_1080p_8bounce" if args.upscaled
+                      else "default_frame_1080p_8bounce")
         backend.reset_launches()
         stats, image = bench_frame(iters=args.iters, device=dev,
-                                   mesh=args.mesh_frame)
+                                   mesh=args.mesh_frame, cfg=cfg)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({
-            "metric": ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
-                       else "restir_frame_1080p_8bounce"),
-            "value": stats["frame_ms"], "unit": "ms", **stats,
-            "frames": args.iters + 2,
+            "metric": metric, "value": stats["frame_ms"], "unit": "ms",
+            **stats, "mesh_cand": args.mesh_cand,
             "launches": dict(backend.LAUNCHES),
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)

@@ -6,8 +6,9 @@ those attributes will do, e.g. the reference dataclass after mapping
 ``SphereScene`` with its ``Materials``, environment light, ``TriMesh`` and
 ``MeshInstances``, ``Camera``,
 ``ClusterPlan``, ``MortonAccel``, ``RigidBodies``, ``Lights``,
-``ReGIRGrid``, ``Reservoirs`` and a whole ``FrameState``. ``device``
-defaults to the card, as every builder of the port.
+``ReGIRGrid``, ``Reservoirs``, ``SHARCState``, ``DenoiserState``,
+``TAAState`` and a whole ``FrameState``. ``device`` defaults to the card,
+as every builder of the port.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import torch
 
 from . import backend
 from .models import clusters, material, pipeline, scene as scene_mod
-from .ops import camera as camera_mod, light, physics, restir, sky, trimesh
+from .ops import (camera as camera_mod, denoise, light, physics, restir,
+                  sharc, sky, taa, trimesh)
 
 
 def _tensor(x, device):
@@ -138,17 +140,37 @@ def reservoirs(src, device="cuda") -> restir.Reservoirs:
     return restir.Reservoirs(**fields)
 
 
+def sharc_state(src, device="cuda") -> sharc.SHARCState:
+    """The uint32 fingerprints become int64 (values in [0, 2^32))."""
+    fields = _fields(sharc.SHARCState, src, device)
+    fields["fingerprint"] = _tensor(
+        np.asarray(src.fingerprint).astype(np.int64), device)
+    return sharc.SHARCState(**fields)
+
+
+def denoiser_state(src, device="cuda") -> denoise.DenoiserState:
+    return denoise.DenoiserState(**_fields(denoise.DenoiserState, src,
+                                           device))
+
+
+def taa_state(src, device="cuda") -> taa.TAAState:
+    return taa.TAAState(**_fields(taa.TAAState, src, device))
+
+
 def frame_state(src, device="cuda") -> pipeline.FrameState:
-    """A whole FrameState of the ReSTIR frame (denoiser, TAA and SHARC
-    history stay None: those passes are not ported)."""
+    """A whole FrameState, its host frame count from frame_index."""
     return pipeline.FrameState(
         frame_index=_tensor(src.frame_index, device).long(),
         bodies=rigid_bodies(src.bodies, device),
         scene=scene(src.scene, device),
+        denoiser=denoiser_state(src.denoiser, device),
+        taa=taa_state(src.taa, device),
         reservoirs=reservoirs(src.reservoirs, device),
         prev_depth=_tensor(src.prev_depth, device),
         prev_normal=_tensor(src.prev_normal, device),
         prev_surface_rows=_tensor(src.prev_surface_rows, device),
+        sharc=sharc_state(src.sharc, device),
         earth_gravity=_tensor(src.earth_gravity, device),
         star_gravity=_tensor(src.star_gravity, device),
-        counters={k: _tensor(v, device) for k, v in src.counters.items()})
+        counters={k: _tensor(v, device) for k, v in src.counters.items()},
+        frame_count=int(np.asarray(src.frame_index)))

@@ -5,9 +5,12 @@
 // drts_tpu/ops/trimesh_pallas.py:bound_scan (B5), drts_shared_blas_sweep
 // replaces shared_blas_sweep (B6), drts_mesh_instances_closest replaces
 // intersect_mesh_instances (B7), drts_shared_blas_any replaces
-// shared_blas_any (B8, the any-hit twin of B6) and drts_mesh_instances_any
-// replaces intersect_mesh_instances_any (B9, the any-hit twin of B7). All
-// are bound to PyTorch through a plain C interface and ctypes
+// shared_blas_any (B8, the any-hit twin of B6), drts_mesh_instances_any
+// replaces intersect_mesh_instances_any (B9, the any-hit twin of B7) and
+// drts_cand_fused replaces cand_fused (B10, the candidate rounds of B5 and
+// B6 in one launch; without the reference's bundle, chunk and back-face
+// culls and its front-to-back chunk order, none of which changes a
+// result). All are bound to PyTorch through a plain C interface and ctypes
 // (drts_tpu_torch/ops/trimesh_kernels.py holds the wrappers, the table
 // makers and the plain PyTorch versions the kernels are checked against).
 //
@@ -489,6 +492,138 @@ mesh_instances_any(const float* __restrict__ rays, int n,
   occ_out[i] = occ;
 }
 
+// B10. The candidate loop in one launch: rounds + 1 bound scans (B5's
+// contract, with tmax_eff = min(tmax, best t) and a closed cursor never
+// rescanning), and after each of the first `rounds` scans the sweep of the
+// candidate found (B6's contract). Both tables sit in shared memory for the
+// whole launch when they fit one tile each (512 scan rows, 8 KB; 512 face
+// rows, 24 KB); a wider table is staged tile by tile on every pass, and the
+// barriers that staging needs are taken by the whole block, so a pass runs
+// when any lane of the block needs it. Per lane the walk is the loop's:
+// the same candidates in the same order, the same operations, so best,
+// binst and the last key equal the multi-launch loop's words.
+__global__ void __launch_bounds__(kThreads)
+cand_fused(const float* __restrict__ rays, int n,
+           const float4* __restrict__ bscan, int m_pad, int bs_pos_bits,
+           const float* __restrict__ inst_tbl, int m_tbl,
+           const float* __restrict__ tri_tbl, int f_pad, int pos_bits,
+           int rounds, int* __restrict__ best_out, int* __restrict__ binst_out,
+           int* __restrict__ key_out) {
+  __shared__ float4 s_bs[kSphereTile];
+  __shared__ float4 s_tri[kFaceTile * 3];  // rows laid out as in B6
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = i < n;
+  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  if (in_range) r = load_ray(rays, n, i);
+  const bool live0 = in_range && r.tmax >= r.tmin;
+  const int trunc = ~((1 << pos_bits) - 1);
+  const int bs_trunc = ~((1 << bs_pos_bits) - 1);
+  const int bs_mask = (1 << bs_pos_bits) - 1;
+  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  int best = kInfBits, binst = 0, cursor = -1, key = kInfBits;
+  int bs_staged = -1, tri_staged = -1;  // the tile in shared memory
+  for (int it = 0; it <= rounds; ++it) {
+    // The scan: the least key beyond the cursor on [tmin, tmax_eff].
+    const float tmx = fminf(r.tmax, __int_as_float(best & trunc));
+    const bool scanning = live0 && cursor < kInfBits && tmx >= r.tmin;
+    key = kInfBits;
+    if (__syncthreads_or(scanning)) {
+      for (int base = 0; base < m_pad; base += kSphereTile) {
+        const int m = min(kSphereTile, m_pad - base);
+        if (bs_staged != base) {
+          __syncthreads();
+          for (int c = threadIdx.x; c < m; c += blockDim.x) {
+            s_bs[c] = bscan[base + c];
+          }
+          __syncthreads();
+          bs_staged = base;
+        }
+        if (!scanning) continue;
+        for (int c = 0; c < m; ++c) {
+          const float4 s = s_bs[c];
+          const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
+          const float c0 =
+              oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s.w;
+          const float sq = sqrtf(b * b - c0);  // NaN when the ray misses
+          const float entry = -b - sq;
+          const float exit_t = sq - b;
+          const float ce = entry > 0.0f ? entry : 0.0f;
+          const int k = (__float_as_int(ce) & bs_trunc) | (base + c);
+          if (exit_t >= r.tmin && entry <= tmx && k > cursor) {
+            key = min(key, k);
+          }
+        }
+      }
+    }
+    cursor = key;
+    if (it == rounds) break;
+
+    // The sweep of the candidate found, in its object frame.
+    const int cand = key < kInfBits ? (key & bs_mask) : m_tbl;
+    const bool sweeping = cand < m_tbl;
+    if (!__syncthreads_or(sweeping)) continue;
+    Vec3 ol = {0.f, 0.f, 0.f}, dl = {0.f, 0.f, 1.f};
+    float tmn_l = 0.f, tmx_l = -1.f, s_w = 1.f;
+    if (sweeping) {
+      const float px = __ldg(inst_tbl + 0 * m_tbl + cand);
+      const float py = __ldg(inst_tbl + 1 * m_tbl + cand);
+      const float pz = __ldg(inst_tbl + 2 * m_tbl + cand);
+      const float qx = __ldg(inst_tbl + 3 * m_tbl + cand);
+      const float qy = __ldg(inst_tbl + 4 * m_tbl + cand);
+      const float qz = __ldg(inst_tbl + 5 * m_tbl + cand);
+      const float qw = __ldg(inst_tbl + 6 * m_tbl + cand);
+      const float inv_s = __ldg(inst_tbl + 7 * m_tbl + cand);
+      ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
+      ol.x = ol.x * inv_s;
+      ol.y = ol.y * inv_s;
+      ol.z = ol.z * inv_s;
+      dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
+      tmn_l = r.tmin * inv_s;
+      tmx_l = tmx * inv_s;
+      s_w = 1.0f / inv_s;
+    }
+    int best_obj = kInfBits;
+    for (int base = 0; base < f_pad; base += kFaceTile) {
+      const int m = min(kFaceTile, f_pad - base);
+      if (tri_staged != base) {
+        __syncthreads();
+        for (int f = threadIdx.x; f < m; f += blockDim.x) {
+          const float* row = tri_tbl + (size_t)(base + f) * 9;
+          s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], row[3]);
+          s_tri[3 * f + 1] = make_float4(row[4], row[5], row[6], row[7]);
+          s_tri[3 * f + 2] = make_float4(row[8], 0.f, 0.f, 0.f);
+        }
+        __syncthreads();
+        tri_staged = base;
+      }
+      if (!sweeping) continue;
+      for (int f = 0; f < m; ++f) {
+        const float4 a = s_tri[3 * f + 0];
+        const float4 b = s_tri[3 * f + 1];
+        const float4 c = s_tri[3 * f + 2];
+        best_obj = min(best_obj,
+                       mt_packed(ol, dl, tmn_l, tmx_l, a.x, a.y, a.z, a.w,
+                                 b.x, b.y, b.z, b.w, c.x, trunc, base + f));
+      }
+    }
+    if (sweeping && best_obj < kInfBits) {
+      const float t_w = __int_as_float(best_obj & trunc) * s_w;
+      const int packed_w = (__float_as_int(t_w) & trunc) | (best_obj & ~trunc);
+      if (packed_w < best) {
+        best = packed_w;
+        binst = cand;
+      }
+    }
+  }
+  if (in_range) {
+    best_out[i] = best;
+    binst_out[i] = binst;
+    key_out[i] = key;
+  }
+}
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
@@ -554,6 +689,21 @@ extern "C" int drts_mesh_instances_any(
     mesh_instances_any<<<grid_for(n), kThreads, 0, stream>>>(
         rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
         Slack{bound_scale, bound_pad}, tri_tbl, f_pad, occ_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int drts_cand_fused(const float* rays, int n, const float* bscan,
+                               int m_pad, int bs_pos_bits,
+                               const float* inst_tbl, int m_tbl,
+                               const float* tri_tbl, int f_pad, int pos_bits,
+                               int rounds, int* best_out, int* binst_out,
+                               int* key_out, cudaStream_t stream) {
+  if (n > 0) {
+    cand_fused<<<grid_for(n), kThreads, 0, stream>>>(
+        rays, n, reinterpret_cast<const float4*>(bscan), m_pad, bs_pos_bits,
+        inst_tbl, m_tbl, tri_tbl, f_pad, pos_bits, rounds, best_out,
+        binst_out, key_out);
   }
   return (int)cudaGetLastError();
 }

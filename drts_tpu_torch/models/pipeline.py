@@ -4,20 +4,26 @@
 ``state', image = pipeline.render_frame(state, pose)`` runs one App::Tick
 (App.cpp:144-643): physics step -> scene pose refresh -> per-frame Morton
 accel -> G-buffer -> ReSTIR DI (light preparation, ReGIR grid, initial,
-temporal, spatial, final shading) -> path trace with the DI handoff ->
-sharpen -> bloom -> tone map. History (reservoirs, previous depth and
-normal) is threaded through ``FrameState``.
+temporal, spatial, final shading) -> SHARC update (every
+``sharc_update_period`` frames) -> path trace with the DI handoff and the
+SHARC query -> denoise (ReBLUR, ReLAX or DLSS-RR's core) -> TAA upscale ->
+sharpen -> bloom -> tone map -> debug view. History (reservoirs, previous
+depth and normal, denoiser, TAA and SHARC state) is threaded through
+``FrameState``; ``PipelineConfig()`` is the reference's default frame.
 
-The port takes the reference's frame graph with the denoiser set to
-"None" and SHARC (RTXGI) off, at native resolution, where ``taa_mode=
-"auto"`` runs no TAA. The constructor raises NotImplementedError for the
-options that wait for later slices: SHARC, a denoiser, TAA, debug views,
-a thin lens, a focus distance other than 1 and ``accel_mode="none"``.
-There is no counterpart of the reference's ``intersect.pallas_enabled()``
-gate: the accel is built every frame and every pass takes its kernel. An
-all-mesh scene (``myscene.as_mesh_scene``: an empty sphere table) has no
-cluster plan and no accel: its physics poses go to the mesh instances,
-whose per-call tables the mesh path builds itself.
+The constructor raises NotImplementedError for what waits for later
+slices: a thin lens, a focus distance other than 1, ``accel_mode="none"``
+and the ReSTIR options of ``restir.check_config``; ``compact_from=1``
+raises in the path trace. There is no counterpart of the reference's
+``intersect.pallas_enabled()`` gate: the accel is built every frame and
+every pass takes its kernel. An all-mesh scene (``myscene.as_mesh_scene``:
+an empty sphere table) has no cluster plan and no accel: its physics poses
+go to the mesh instances, whose per-call tables the mesh path builds
+itself.
+
+The SHARC cadence is decided on the host: ``FrameState.frame_count`` is a
+Python int beside the device's ``frame_index``, so the skip frames read
+nothing back from the card.
 """
 
 from __future__ import annotations
@@ -27,17 +33,18 @@ import dataclasses
 import torch
 
 from .. import backend
-from ..ops import (camera as camera_mod, gbuffer, light as light_mod,
-                   pathtrace, physics, post, restir)
+from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
+                   light as light_mod, pathtrace, physics, post, restir,
+                   sharc as sharc_mod, taa)
 from ..utils import rng as rng_mod
 from . import clusters, myscene, scene as scene_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
-    """Static pipeline topology, with the reference's names and defaults
-    (the defaults include options the port does not run yet: a
-    RenderPipeline built from them raises)."""
+    """Static pipeline topology, with the reference's names and defaults:
+    ``PipelineConfig()`` is the reference's default frame (SHARC, ReBLUR,
+    TAA at native resolution)."""
     output_width: int = 1920
     output_height: int = 1080
     render_width: int = 1920
@@ -82,9 +89,8 @@ class PipelineConfig:
     accel_mode: str = "morton"
     debug_view: str = "None"
     sharc_enabled: bool = True
-    # The reference's SHARCConfig; the cache is not ported yet, so any
-    # value other than None comes with sharc_enabled and raises.
-    sharc: object = None
+    sharc: sharc_mod.SHARCConfig = dataclasses.field(
+        default_factory=sharc_mod.SHARCConfig)
     sharc_downscale: int = 4
     sharc_update_period: int = 2
     texture_bounces: int = 2
@@ -104,22 +110,22 @@ def restir_frame_config(width: int = 1920, height: int = 1080,
 
 @dataclasses.dataclass(frozen=True)
 class FrameState:
-    """All cross-frame state. ``denoiser``, ``taa`` and ``sharc`` are the
-    reference's history fields; they stay None until those passes are
-    ported."""
+    """All cross-frame state, the reference's fields; ``frame_count`` is
+    the host's copy of ``frame_index`` (the SHARC cadence reads it)."""
     frame_index: torch.Tensor        # scalar int64
     bodies: physics.RigidBodies
     scene: scene_mod.SphereScene
+    denoiser: denoise.DenoiserState
+    taa: taa.TAAState
     reservoirs: restir.Reservoirs
     prev_depth: torch.Tensor         # (RH, RW) previous linear depth
     prev_normal: torch.Tensor        # (RH, RW, 3) previous shading normal
     prev_surface_rows: torch.Tensor  # (1, 1, 7) placeholder (basic mode)
+    sharc: sharc_mod.SHARCState
     earth_gravity: torch.Tensor      # scalar bool toggles
     star_gravity: torch.Tensor
     counters: dict = dataclasses.field(default_factory=dict)
-    denoiser: object = None
-    taa: object = None
-    sharc: object = None
+    frame_count: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,15 +153,21 @@ class CameraPose:
     up: torch.Tensor        # (3,)
 
 
+DENOISERS = ("None", "NRDReBLUR", "NRDReLAX", "DLSSRayReconstruction")
+TAA_MODES = ("auto", "on", "off")
+
+
 def _check_supported(c: PipelineConfig) -> None:
-    use_taa = {"auto": c.upscaling or c.denoiser != "None",
-               "on": True, "off": False}[c.taa_mode]
+    for name, value, allowed in (
+            ("denoiser", c.denoiser, DENOISERS),
+            ("taa_mode", c.taa_mode, TAA_MODES),
+            ("taa_history_filter", c.taa_history_filter,
+             taa.HISTORY_FILTERS),
+            ("debug_view", c.debug_view, debugviz.MODES)):
+        if value not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got "
+                             f"{value!r}")
     waits = [
-        (c.sharc_enabled, "SHARC (sharc_enabled)"),
-        (c.sharc is not None, "a SHARC config"),
-        (c.denoiser != "None", f"the {c.denoiser} denoiser"),
-        (use_taa, "the TAA upscale"),
-        (c.debug_view != "None", f"the {c.debug_view} debug view"),
         (c.aperture_radius > 0.0, "the thin-lens camera"),
         (c.focus_distance != 1.0, "a focus distance other than 1"),
         (c.accel_mode != "morton", f"accel_mode={c.accel_mode!r}"),
@@ -205,6 +217,11 @@ class RenderPipeline:
             keys += ["lights_dropped", "lights_dropped_power_frac"]
             if c.restir.local_light_mode == "ReGIR_RIS":
                 keys += ["regir_occupancy"]
+        if c.sharc_enabled:
+            keys.append("sharc_splat_dropped_rows")
+            for b in range(1, c.bounces + 1):
+                keys += [f"sharc_hits_b{b}", f"sharc_queries_b{b}",
+                         f"sharc_gate_b{b}", f"sharc_entry_b{b}"]
         return keys
 
     def init_state(self, host: myscene.MySceneHost | None = None,
@@ -216,6 +233,9 @@ class RenderPipeline:
         return FrameState(
             frame_index=torch.zeros((), dtype=torch.int64, device=dev),
             bodies=host.bodies, scene=host.scene,
+            denoiser=denoise.init_state(c.render_height, c.render_width,
+                                        dev),
+            taa=taa.init_state(c.output_height, c.output_width, dev),
             reservoirs=restir.init_reservoirs(c.render_height,
                                               c.render_width, dev),
             prev_depth=torch.full((c.render_height, c.render_width), 1e8,
@@ -223,6 +243,7 @@ class RenderPipeline:
             prev_normal=torch.zeros((c.render_height, c.render_width, 3),
                                     device=dev),
             prev_surface_rows=torch.zeros((1, 1, 7), device=dev),
+            sharc=sharc_mod.init_state(c.sharc, dev),
             earth_gravity=torch.tensor(False, device=dev),
             star_gravity=torch.tensor(False, device=dev),
             counters={k: torch.zeros((), device=dev)
@@ -239,13 +260,18 @@ class RenderPipeline:
                           up=f32((0.0, 1.0, 0.0)))
 
     def reset_history(self, state: FrameState) -> FrameState:
-        """m_resetHistory (App.cpp:667-679): clears the reservoirs."""
-        c = self.cfg
+        """m_resetHistory (App.cpp:667-679): clears the denoiser and TAA
+        history, the reservoirs and the SHARC cache."""
+        c, dev = self.cfg, self.device
         return dataclasses.replace(
             state,
+            denoiser=denoise.init_state(c.render_height, c.render_width,
+                                        dev),
+            taa=taa.init_state(c.output_height, c.output_width, dev),
             reservoirs=restir.init_reservoirs(c.render_height,
-                                              c.render_width, self.device),
-            prev_surface_rows=torch.zeros_like(state.prev_surface_rows))
+                                              c.render_width, dev),
+            prev_surface_rows=torch.zeros_like(state.prev_surface_rows),
+            sharc=sharc_mod.init_state(c.sharc, dev))
 
     # -- per-frame ----------------------------------------------------------
 
@@ -346,22 +372,115 @@ class RenderPipeline:
             samples_per_pixel=c.samples_per_pixel,
             russian_roulette=c.russian_roulette,
             throughput_threshold=c.throughput_threshold,
-            block_size=c.block_size, compact_from=c.compact_from)
+            block_size=c.block_size, compact_from=c.compact_from,
+            sharc_query_from=c.sharc_query_from)
 
-    def _stage_trace(self, scene, cam, gbuf, di_total, frame_index, accel):
+    def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index):
+        """SHARC update trace + resolve at the downscaled size
+        (Raytracing.ixx:114-148), every sharc_update_period frames by the
+        host's frame count; a skip frame keeps the cache and counts zero
+        dropped rows."""
+        c = self.cfg
+        if state.frame_count % max(c.sharc_update_period, 1) != 0:
+            return state.sharc, {"sharc_splat_dropped_rows": torch.zeros(
+                (), dtype=torch.float32, device=self.device)}
+        su_cfg = dataclasses.replace(
+            self._pt_cfg(),
+            width=max(1, c.render_width // c.sharc_downscale),
+            height=max(1, c.render_height // c.sharc_downscale))
+        return pathtrace.sharc_update_trace(
+            scene, cam, state.sharc, c.sharc, su_cfg, frame_index,
+            di_radiance=di_total, accel=accel)
+
+    def _stage_trace(self, scene, cam, gbuf, sharc_state, di_total,
+                     frame_index, accel):
+        c = self.cfg
         return pathtrace.trace_image(
             scene, cam, self._pt_cfg(), frame_index, gbuf=gbuf,
-            di_radiance=di_total, di_in_radiance=True, accel=accel)
+            sharc_state=sharc_state if c.sharc_enabled else None,
+            sharc_cfg=c.sharc if c.sharc_enabled else None,
+            di_radiance=di_total, di_in_radiance=c.denoiser == "None",
+            accel=accel)
 
-    def _stage_taa(self, color):
-        """No TAA on the ported path (the constructor refuses it); a render
-        size other than the output size is resized bilinearly."""
+    def _stage_denoise(self, state, out, gbuf, cam, di_diffuse, di_specular,
+                       reset):
+        """Demodulated denoise + compose (Raytracing.hlsl:400-413 +
+        NRDComposition). Returns (denoiser state, colour, the TAA
+        confidence of DLSS-RR or None)."""
+        # Indirect radiance split into demodulated diffuse and specular
+        # channels, plus the direct light per channel.
+        indirect = torch.clamp(out.radiance - out.primary_radiance, min=0.0)
+        hd = torch.where(torch.isfinite(out.hit_distance), out.hit_distance,
+                         0.0)
+        diffuse_chan = torch.where(out.is_diffuse[..., None], indirect, 0.0)
+        specular_chan = torch.where(out.is_diffuse[..., None], 0.0, indirect)
+        if di_diffuse is not None:
+            diffuse_chan = diffuse_chan + di_diffuse
+            specular_chan = specular_chan + di_specular
+        d_diff, d_spec = denoise.demodulate(diffuse_chan, specular_chan,
+                                            out.primary_albedo,
+                                            out.primary_f_env)
+        diff4 = torch.cat([d_diff, hd[..., None]], dim=-1)
+        spec4 = torch.cat([d_spec, hd[..., None]], dim=-1)
         c = self.cfg
-        if (c.output_height, c.output_width) != (c.render_height,
-                                                 c.render_width):
+        tuned = dict(max_accumulated_frames=c.denoiser_max_history,
+                     clamp_gamma=c.denoiser_clamp_gamma,
+                     specular_virtual=c.denoiser_specular_virtual)
+        if c.denoiser == "NRDReLAX":
+            den_fn, den_cfg = denoise.denoise_relax, denoise.DenoiseConfig(
+                **tuned)
+        elif c.denoiser == "DLSSRayReconstruction":
+            # Joint mode: a lighter spatial core; TAA gets the denoiser's
+            # history confidence.
+            den_fn, den_cfg = denoise.denoise_relax, denoise.DenoiseConfig(
+                relax_atrous_iterations=3, **tuned)
+        else:
+            den_fn, den_cfg = denoise.denoise, denoise.DenoiseConfig(**tuned)
+        rw, rh = c.render_width, c.render_height
+
+        def prev_px_of(xv):
+            prev_ndc, _ = camera_mod.project_to_ndc(cam, xv, previous=True)
+            cur_ndc, _ = camera_mod.project_to_ndc(cam, xv, previous=False)
+            return (camera_mod.ndc_to_pixel(prev_ndc, rw, rh),
+                    camera_mod.ndc_to_pixel(cur_ndc, rw, rh))
+
+        motion_spec = denoise.virtual_specular_motion(
+            gbuf.motion, out.primary_position, gbuf.ray_direction,
+            out.hit_distance, prev_px_of)
+        den_state, f_diff, f_spec = den_fn(
+            state.denoiser, diff4, spec4, gbuf.motion, out.primary_normal,
+            gbuf.linear_depth, out.primary_valid, gbuf.mat.roughness, reset,
+            den_cfg, motion_specular=motion_spec)
+        color = denoise.compose(out.primary_radiance, f_diff, f_spec,
+                                out.primary_albedo, out.primary_f_env,
+                                out.primary_valid)
+        confidence = (den_state.history_length / 30.0
+                      if c.denoiser == "DLSSRayReconstruction" else None)
+        return den_state, color, confidence
+
+    def _stage_taa(self, state, color, gbuf, cam, reset, confidence=None):
+        """TAA upscale (the DLSS-SR / XeSS slot, App.cpp:1644-1708); with
+        no TAA, a render size other than the output size is resized
+        bilinearly."""
+        c = self.cfg
+        taa_state = state.taa
+        use_taa = {"auto": c.upscaling or c.denoiser != "None",
+                   "on": True, "off": False}[c.taa_mode]
+        if use_taa:
+            taa_state, color = taa.upscale(
+                state.taa, color, gbuf.motion, cam.jitter, c.output_height,
+                c.output_width, reset,
+                cfg=taa.TAAConfig(history_filter=c.taa_history_filter,
+                                  clip_gamma=c.taa_clip_gamma,
+                                  clip_gamma_motion=c.taa_clip_gamma_motion,
+                                  clip_motion_px=c.taa_clip_motion_px,
+                                  blend_alpha=c.taa_blend_alpha),
+                confidence=confidence)
+        elif (c.output_height, c.output_width) != (c.render_height,
+                                                   c.render_width):
             color = post.resize_bilinear(color, c.output_height,
                                          c.output_width)
-        return color
+        return taa_state, color
 
     def _stage_postfx(self, color, dyn: DynamicSettings | None = None):
         """Sharpen + bloom + tone map (App.cpp:1498-1514), then the
@@ -379,6 +498,36 @@ class RenderPipeline:
                              color_rotation=c.hdr_color_rotation)
         return post.chromatic_aberration(color,
                                          c.chromatic_aberration_strength)
+
+    def _stage_post(self, state, color, gbuf, cam, reset, confidence=None,
+                    dyn: DynamicSettings | None = None):
+        """TAA upscale + sharpen, bloom and tone map in one call
+        (PostProcessGraphics, App.cpp:1460-1525); render_frame runs the
+        two halves as the stages "taa" and "post"."""
+        taa_state, color = self._stage_taa(state, color, gbuf, cam, reset,
+                                           confidence)
+        return taa_state, self._stage_postfx(color, dyn)
+
+    def _stage_debug(self, image, gbuf, cam, grid, den_state):
+        """The diagnostic views (DIFinalShading.hlsl:69-75,
+        Raytracing.hlsl:279-284, App.cpp:1522-1524)."""
+        c = self.cfg
+        surf = gbuf.surf
+        if (c.debug_view == "ReGIRCells" and c.restir_enabled
+                and grid is not None):
+            dbg = debugviz.regir_cells(grid, surf.position, surf.valid,
+                                       c.restir.regir_cells_per_axis)
+            return post.resize_bilinear(dbg, c.output_height, c.output_width)
+        if c.debug_view == "SHARC" and c.sharc_enabled:
+            front = torch.where(surf.is_front_face[..., None],
+                                surf.geometric_normal, -surf.geometric_normal)
+            dbg = debugviz.sharc_voxels(surf.position, front, cam.position,
+                                        surf.valid, c.sharc)
+            return post.resize_bilinear(dbg, c.output_height, c.output_width)
+        if c.debug_view == "NRDValidation" and c.denoiser != "None":
+            return debugviz.validation_overlay(image,
+                                               den_state.history_length)
+        return image
 
     def render_frame(self, state: FrameState, pose: CameraPose,
                      dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
@@ -401,7 +550,7 @@ class RenderPipeline:
             state, pose)
         gbuf = run("gbuffer", self._stage_gbuffer, scene, cam, accel)
 
-        di_total = None
+        di_total = di_diffuse = di_specular = grid = None
         reservoirs = state.reservoirs
         frame_counters = {}
         if c.restir_enabled:
@@ -438,12 +587,38 @@ class RenderPipeline:
             frame_counters["regir_occupancy"] = torch.mean(
                 (grid.weight[:n_cells] > 0).to(torch.float32))
 
+        # SHARC: the update pass at the downscaled size, then the main
+        # trace queries the fresh cache (Raytracing.ixx:114-148).
+        sharc_state = state.sharc
+        if c.sharc_enabled:
+            sharc_state, sharc_counters = run(
+                "sharc_update",
+                lambda st, s, cm, di, a: self._stage_sharc(st, s, cm, di, a,
+                                                           fi),
+                state, scene, cam, di_total, accel)
+            frame_counters.update(sharc_counters)
+
         out = run("trace",
-                  lambda s, cm, g, di, a: self._stage_trace(s, cm, g, di, fi,
-                                                            a),
-                  scene, cam, gbuf, di_total, accel)
-        color = run("taa", self._stage_taa, out.radiance)
+                  lambda s, cm, g, sh, di, a: self._stage_trace(
+                      s, cm, g, sh, di, fi, a),
+                  scene, cam, gbuf, sharc_state, di_total, accel)
+
+        den_state, confidence = state.denoiser, None
+        if c.denoiser != "None":
+            den_state, color, confidence = run(
+                "denoise",
+                lambda st, o, g, cm, dd, ds: self._stage_denoise(
+                    st, o, g, cm, dd, ds, reset),
+                state, out, gbuf, cam, di_diffuse, di_specular)
+        else:
+            color = out.radiance
+        taa_state, color = run(
+            "taa", lambda st, cl, g, cm, cf: self._stage_taa(
+                st, cl, g, cm, reset, cf),
+            state, color, gbuf, cam, confidence)
         image = run("post", self._stage_postfx, color, dyn)
+        if c.debug_view != "None":
+            image = self._stage_debug(image, gbuf, cam, grid, den_state)
 
         frame_counters.update(out.counters)
         counters = {k: torch.as_tensor(frame_counters.get(k, 0.0),
@@ -452,12 +627,12 @@ class RenderPipeline:
                     for k in self._counter_keys()}
         new_state = FrameState(
             frame_index=state.frame_index + 1, bodies=bodies, scene=scene,
-            reservoirs=reservoirs,
+            denoiser=den_state, taa=taa_state, reservoirs=reservoirs,
             prev_depth=torch.where(torch.isfinite(gbuf.linear_depth),
                                    gbuf.linear_depth, 1e8),
             prev_normal=out.primary_normal,
-            prev_surface_rows=state.prev_surface_rows,
+            prev_surface_rows=state.prev_surface_rows, sharc=sharc_state,
             earth_gravity=state.earth_gravity,
-            star_gravity=state.star_gravity, counters=counters)
+            star_gravity=state.star_gravity, counters=counters,
+            frame_count=state.frame_count + 1)
         return new_state, image
-

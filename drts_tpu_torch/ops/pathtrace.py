@@ -11,11 +11,13 @@ cutoff and the NaN guard (Raytracing.hlsl:103-415).
 
 Ported: the dense bounces, the ``compact_from >= 2`` deep segment (the
 reference's ``compact_impl="scatter"`` / ``compact_gsel="direct"`` form
-with the key sort), the overflow spill, and the ReSTIR DI handoff
+with the key sort), the overflow spill, the ReSTIR DI handoff
 (``di_radiance``: added at the primary vertex, bounce-1 emission
-suppressed there). Not ported yet (``trace_image`` raises): the SHARC
-hooks, ``compact_from=1`` and the partition-mode sort the reference uses
-at capacities of 500,000 slots or more.
+suppressed there), the SHARC query in the dense bounces and the deep
+segment (from ``sharc_query_from``), and ``sharc_update_trace``, the
+cache's downscaled update pass. Not ported yet (``trace_image`` and
+``sharc_update_trace`` raise): ``compact_from=1`` and the partition-mode
+sort the reference uses at capacities of 500,000 slots or more.
 """
 
 from __future__ import annotations
@@ -27,8 +29,8 @@ import torch
 from ..models import scene as scene_mod
 from ..utils import math as m
 from ..utils import rng as rng_mod
-from . import bxdf, camera as camera_mod, intersect, shading, sky
-from . import trace as trace_mod
+from . import bxdf, camera as camera_mod, intersect, post, shading, sharc
+from . import sky, trace as trace_mod
 
 
 # Screen-tile edge of the deep segment's (octant, tile) sort key.
@@ -52,6 +54,9 @@ class PathTraceConfig:
     compact_from: int = 2
     compact_fraction: int = 24
     compact_capacity: int = 0
+    # First bounce that queries the SHARC cache (the reference's op
+    # default 1; its pipeline sets 2).
+    sharc_query_from: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,15 +72,24 @@ class TraceOutput:
     primary_f_env: torch.Tensor     # (H, W, 3)
     primary_radiance: torch.Tensor  # (H, W, 3) emission/env at bounce 0
     rays_traced: torch.Tensor       # scalar: total rays cast
-    counters: dict                  # {"wavefront_overflow_paths": scalar}
+    # {"wavefront_overflow_paths": scalar} and, with SHARC, per bounce b
+    # "sharc_{hits,queries,gate,entry}_b{b}".
+    counters: dict
 
 
-def _shade_and_scatter(surf, ray_d, rng, mat=None):
+def _shade_and_scatter(surf, ray_d, rng, mat=None,
+                       min_roughness: float = 0.0):
     """One bounce's material eval + BSDF sample. Returns (emission,
-    new_dir, eval/pdf weight, valid, lobe, bsdf, rng)."""
+    new_dir, eval/pdf weight, valid, lobe, bsdf, rng). `min_roughness`
+    floors the roughness: the SHARC update trace's RoughnessThreshold
+    (Raytracing.hlsl:309), so cached paths diffuse out instead of
+    following mirror chains."""
     if mat is None:
         mat = shading.evaluate_material(surf.material, surf.uv,
                                         surf.shading_normal, surf.tangent)
+    if min_roughness > 0.0:
+        mat = dataclasses.replace(
+            mat, roughness=torch.clamp(mat.roughness, min=min_roughness))
     sv = bxdf.make_surface_vectors(surf.is_front_face, surf.geometric_normal,
                                    mat.shading_normal)
     bs = bxdf.make_bsdf(mat.base_color, mat.metallic, mat.roughness, mat.ior,
@@ -103,6 +117,35 @@ def _roulette_and_cutoff(cfg, bounce, thr, active, rng):
         thr = thr / torch.clamp(prob, min=1e-20)[..., None]
     active = active & (m.luminance(thr) > cfg.throughput_threshold)
     return thr, active, rng
+
+
+def _front_normal(surf):
+    return torch.where(surf.is_front_face[..., None], surf.geometric_normal,
+                       -surf.geometric_normal)
+
+
+def _sharc_lookup(sharc_state, sharc_cfg, cam_pos, surf, active, rough,
+                  bounce: int, counters: dict):
+    """The SHARC query at one bounce's hits (Raytracing.hlsl:261-291):
+    where the footprint gate passes and the cache holds the voxel, the
+    path ends into the cached radiance. Adds the bounce's hits, queries,
+    gate and entry counts to `counters`; returns (use_cache, cached)."""
+    fp_ok = sharc.footprint_valid(surf.distance, rough, surf.position,
+                                  cam_pos, sharc_cfg)
+    cached, cache_hit = sharc.query(sharc_state, surf.position,
+                                    _front_normal(surf), cam_pos, sharc_cfg)
+    use_cache = active & fp_ok & cache_hit
+    for name, mask in (("hits", use_cache), ("queries", active),
+                       ("gate", active & fp_ok),
+                       ("entry", active & cache_hit)):
+        key = f"sharc_{name}_b{bounce}"
+        counters[key] = counters.get(key, 0.0) + mask.sum().to(torch.float32)
+    return use_cache, cached
+
+
+def _rough_step(rough, lobe, bs):
+    """The path's accumulated roughness, the footprint gate's input."""
+    return rough + torch.where(lobe == bxdf.LOBE_DIFFUSE, 1.0, bs.roughness)
 
 
 def _compact_capacity(n_pixels: int, fraction: int) -> int:
@@ -172,10 +215,12 @@ def _slots_to_space(slot_vals, fill, mapper):
 
 def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                         rng, active, start_bounce: int, accel, cap: int,
-                        wave: int = 0):
+                        wave: int = 0, sharc_args=None, rough=None):
     """Bounces [start_bounce, cfg.bounces] on the compacted survivor
-    buffer. Inputs are (H, W, ...) pixel-space state. Returns a dict with
-    the (H, W, 3) radiance, the rays cast and the overflow count."""
+    buffer. Inputs are (H, W, ...) pixel-space state; `sharc_args` is
+    (state, config, camera position) where the cache is queried, `rough`
+    the paths' accumulated roughness. Returns a dict with the (H, W, 3)
+    radiance, the rays cast, the overflow count and the SHARC counters."""
     h, w = active.shape
     ns = h * w
     cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3), cap, h, w,
@@ -185,12 +230,14 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
     c_dir = gsel(l_dir.reshape(ns, 3), [[0.0, 0.0, 1.0]])
     c_thr = gsel(throughput.reshape(ns, 3), [[0.0, 0.0, 0.0]])
     c_rng = gsel(rng.reshape(ns), [0])
+    c_rough = gsel(rough.reshape(ns), [0.0]) if sharc_args else None
     slot_live = cs["slot_live"]
     c_active = slot_live
     c_radiance = torch.zeros((cap, 3), dtype=torch.float32,
                              device=active.device)
     zeros_c = torch.zeros(cap, dtype=torch.float32, device=active.device)
     rays = torch.zeros((), dtype=torch.float32, device=active.device)
+    counters = {}
 
     for bounce in range(start_bounce, cfg.bounces + 1):
         rays = rays + c_active.sum()
@@ -204,6 +251,13 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                                               c_thr * env_color, 0.0)
         c_active = c_active & surf.valid
 
+        if sharc_args and bounce >= cfg.sharc_query_from:
+            use_cache, cached = _sharc_lookup(*sharc_args, surf, c_active,
+                                              c_rough, bounce, counters)
+            c_radiance = c_radiance + torch.where(use_cache[..., None],
+                                                  c_thr * cached, 0.0)
+            c_active = c_active & ~use_cache
+
         if bounce == cfg.bounces:
             mat = shading.evaluate_material(surf.material, surf.uv,
                                             surf.shading_normal,
@@ -212,12 +266,14 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                                                   c_thr * mat.emission, 0.0)
             break
 
-        emission, new_dir, weight, valid, _, _, c_rng = _shade_and_scatter(
-            surf, c_dir, c_rng)
+        emission, new_dir, weight, valid, lobe, bs, c_rng = \
+            _shade_and_scatter(surf, c_dir, c_rng)
         c_radiance = c_radiance + torch.where(c_active[..., None],
                                               c_thr * emission, 0.0)
         c_thr = c_thr * weight
         c_active = c_active & valid
+        if c_rough is not None:
+            c_rough = _rough_step(c_rough, lobe, bs)
         c_thr, c_active, c_rng = _roulette_and_cutoff(cfg, bounce, c_thr,
                                                       c_active, c_rng)
         c_origin = intersect.safe_spawn_point(surf.position,
@@ -226,29 +282,32 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
 
     contrib = torch.where(slot_live[..., None], c_radiance, 0.0)
     radiance = _slots_to_space(contrib, 0.0, cs["mapper"]).reshape(h, w, 3)
-    return {"radiance": radiance, "rays": rays, "overflow": cs["overflow"]}
+    return {"radiance": radiance, "rays": rays, "overflow": cs["overflow"],
+            "counters": counters}
 
 
 def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
-                     active, start_bounce, accel, cap):
+                     active, start_bounce, accel, cap, sharc_args=None,
+                     rough=None):
     """Deep segment plus, when it overflowed, a second wave over the
     dropped lanes (the reference's default overflow_spill). The decision is
     one host read of the overflow count per frame; only paths beyond 2x
     capacity then drop."""
     args = (scene, table, cfg, origin, l_dir, throughput, rng, active,
             start_bounce, accel, cap)
-    seg = _trace_deep_compact(*args)
+    kw = {"sharc_args": sharc_args, "rough": rough}
+    seg = _trace_deep_compact(*args, **kw)
     if seg["overflow"].item() > 0:
-        s2 = _trace_deep_compact(*args, wave=1)
+        s2 = _trace_deep_compact(*args, wave=1, **kw)
         seg = {"radiance": seg["radiance"] + s2["radiance"],
                "rays": seg["rays"] + s2["rays"],
-               "overflow": s2["overflow"]}
+               "overflow": s2["overflow"],
+               "counters": {k: v + s2["counters"][k]
+                            for k, v in seg["counters"].items()}}
     return seg
 
 
-def _check_supported(cfg, sharc_state):
-    if sharc_state is not None:
-        raise NotImplementedError("the SHARC hooks are not ported yet")
+def _check_supported(cfg):
     use_compact = 1 <= cfg.compact_from <= cfg.bounces
     if not use_compact:
         return
@@ -262,7 +321,7 @@ def _check_supported(cfg, sharc_state):
 
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 cfg: PathTraceConfig, frame_index, gbuf=None,
-                sharc_state=None, di_radiance=None,
+                sharc_state=None, sharc_cfg=None, di_radiance=None,
                 di_in_radiance: bool = True, accel=None) -> TraceOutput:
     """Render one frame's path-traced radiance (plus AOVs).
 
@@ -271,8 +330,13 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     direct light at the primary vertex (Raytracing.hlsl:150-163): where it
     is positive on a primary hit, bounce-1 emission is suppressed, and with
     ``di_in_radiance`` (the denoiser-off routing, Raytracing.hlsl:379-385)
-    it is added to the radiance."""
-    _check_supported(cfg, sharc_state)
+    it is added to the radiance. With ``sharc_state`` (and its
+    ``sharc_cfg``), hits from bounce ``cfg.sharc_query_from`` on end into
+    the cache where it holds their voxel."""
+    _check_supported(cfg)
+    sharc_args = None
+    if sharc_state is not None:
+        sharc_args = (sharc_state, sharc_cfg, cam.position)
     h, w = cfg.height, cfg.width
     dev = scene.center.device
     ndc = camera_mod.pixel_ndc(w, h, cam.jitter)
@@ -310,7 +374,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     is_diffuse = torch.ones((h, w), dtype=torch.bool, device=dev)
     hit_distance = torch.full((h, w), float("inf"), device=dev)
     rays_traced = torch.tensor(float(h * w), device=dev)
-    overflow = torch.zeros((), dtype=torch.float32, device=dev)
+    counters = {"wavefront_overflow_paths":
+                torch.zeros((), dtype=torch.float32, device=dev)}
 
     use_compact = 1 <= cfg.compact_from <= cfg.bounces
     dense_last = cfg.compact_from - 1 if use_compact else cfg.bounces
@@ -332,6 +397,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 di_valid[..., None], di_radiance, 0.0)
         throughput = torch.ones((h, w, 3), dtype=torch.float32, device=dev)
         active = torch.ones((h, w), dtype=torch.bool, device=dev)
+        rough = torch.zeros((h, w), dtype=torch.float32, device=dev)
         ray_d = ray_d0
         surf = primary_surf
         hit_ok = primary_hit
@@ -362,6 +428,13 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 miss[..., None], throughput * env_color, 0.0)
             active = active & hit_ok
 
+            if sharc_args and bounce >= max(cfg.sharc_query_from, 1):
+                use_cache, cached = _sharc_lookup(*sharc_args, surf, active,
+                                                  rough, bounce, counters)
+                sample_radiance = sample_radiance + torch.where(
+                    use_cache[..., None], throughput * cached, 0.0)
+                active = active & ~use_cache
+
             if bounce == cfg.bounces:
                 # Last iteration only adds emission (no scatter needed).
                 mat = p_mat if bounce == 0 else shading.evaluate_material(
@@ -375,7 +448,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                     active[..., None], throughput * emission, 0.0)
                 break
 
-            emission, l_dir, weight, valid, lobe, _, rng = \
+            emission, l_dir, weight, valid, lobe, bs, rng = \
                 _shade_and_scatter(surf, ray_d, rng,
                                    mat=p_mat if bounce == 0 else None)
             if bounce == 1:
@@ -386,6 +459,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 active[..., None], throughput * emission, 0.0)
             throughput = throughput * weight
             active = active & valid
+            if sharc_args:
+                rough = _rough_step(rough, lobe, bs)
             throughput, active, rng = _roulette_and_cutoff(
                 cfg, bounce, throughput, active, rng)
 
@@ -394,10 +469,13 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 surf.position, surf.geometric_normal, l_dir)
             seg = _deep_with_spill(scene, table, cfg, origin, l_dir,
                                    throughput, rng, active, cfg.compact_from,
-                                   accel, cap)
+                                   accel, cap, sharc_args, rough)
             sample_radiance = sample_radiance + seg["radiance"]
             rays_traced = rays_traced + seg["rays"]
-            overflow = overflow + seg["overflow"]
+            counters["wavefront_overflow_paths"] = (
+                counters["wavefront_overflow_paths"] + seg["overflow"])
+            for k, v in seg["counters"].items():
+                counters[k] = counters.get(k, 0.0) + v
 
         # NaN guard (Raytracing.hlsl:377).
         finite = torch.all(torch.isfinite(sample_radiance), dim=-1,
@@ -416,5 +494,108 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         primary_valid=primary_hit, primary_position=primary_surf.position,
         primary_normal=p_mat.shading_normal, primary_albedo=p_albedo,
         primary_f_env=p_f_env, primary_radiance=primary_radiance,
-        rays_traced=rays_traced,
-        counters={"wavefront_overflow_paths": overflow})
+        rays_traced=rays_traced, counters=counters)
+
+
+def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
+                       sharc_state, sharc_cfg, cfg: PathTraceConfig,
+                       frame_index, di_radiance=None, accel=None):
+    """The SHARC_UPDATE pass: a trace at the downscaled size (cfg.width and
+    cfg.height are already downscaled) whose path radiance is splatted into
+    the cache, then resolved (Raytracing.hlsl's SHARC_UPDATE permutation,
+    Raytracing.ixx:114-148).
+
+    The shader's in-flight accumulation becomes a record per bounce of
+    (slot, fingerprint, emitted radiance, segment throughput), closed by a
+    backward scan L_v = E_v + T_v * L_{v+1} and one splat of every level.
+    Rays take a random sub-pixel jitter (Raytracing.hlsl:111-112) and the
+    BSDF roughness is floored at the config's roughness threshold. Returns
+    (new SHARCState, {"sharc_splat_dropped_rows": scalar})."""
+    if cfg.compact_from == 1:
+        raise NotImplementedError("the compacted SHARC update trace "
+                                  "(compact_from=1) is not ported yet")
+    h, w = cfg.height, cfg.width
+    dev = scene.center.device
+    py, px = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    rng = rng_mod.init(px + 131, py + 173, frame_index)
+    jit2, rng = rng_mod.next_floats(rng, 2)
+    ndc = camera_mod.pixel_ndc(w, h, torch.zeros(2, device=dev))
+    jitter_ndc = ((jit2 - 0.5) * torch.tensor([2.0, -2.0], device=dev)
+                  / torch.tensor([w, h], dtype=torch.float32, device=dev))
+    ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(
+        cam, ndc + jitter_ndc)
+    t_min = torch.broadcast_to(t_min, (h, w))
+    t_max = torch.broadcast_to(t_max, (h, w))
+    table = scene_mod.object_table(scene)
+    di_small = (post.resize_bilinear(di_radiance, h, w)
+                if di_radiance is not None else None)
+
+    # Per bounce: emissions[b] is the radiance emitted at level b (the hit's
+    # emission, or once, at the miss level, the environment);
+    # seg_weights[b] is zero where the path does not go on.
+    slots, fps, emissions, seg_weights, actives = [], [], [], [], []
+    active = torch.ones((h, w), dtype=torch.bool, device=dev)
+    l_dir = ray_d
+    surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,
+                                 cfg.block_size, accel=accel, table=table,
+                                 alpha_rounds=scene.alpha_test_rounds)
+    for bounce in range(cfg.bounces + 1):
+        if bounce > 0:
+            origin = intersect.safe_spawn_point(surf.position,
+                                                surf.geometric_normal, l_dir)
+            surf = trace_mod.trace_scene(
+                scene, origin, l_dir, torch.zeros((h, w), device=dev),
+                torch.where(active, float("inf"), -1.0), cfg.block_size,
+                accel=accel, table=table,
+                alpha_rounds=scene.alpha_test_rounds)
+        miss = active & ~surf.valid
+        env_color = sky.environment_color(scene.env, l_dir)
+        live = active & surf.valid
+        slot, fp = sharc.cache_key(surf.position, _front_normal(surf),
+                                   cam.position, sharc_cfg)
+        if bounce == cfg.bounces:
+            mat = shading.evaluate_material(surf.material, surf.uv,
+                                            surf.shading_normal,
+                                            surf.tangent)
+            emission = mat.emission
+            l_dir_new = l_dir
+            weight = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+            valid = torch.zeros((h, w), dtype=torch.bool, device=dev)
+        else:
+            emission, l_dir_new, weight, valid, _, _, rng = \
+                _shade_and_scatter(surf, l_dir, rng,
+                                   min_roughness=sharc_cfg.roughness_threshold)
+        if di_small is not None and bounce == 0:
+            emission = emission + di_small
+        emissions.append(torch.where(
+            live[..., None], emission,
+            torch.where(miss[..., None], env_color, 0.0)))
+        slots.append(slot)
+        fps.append(fp)
+        seg_weights.append(torch.where((live & valid)[..., None], weight,
+                                       0.0))
+        actives.append(live)
+        active = live & valid
+        l_dir = l_dir_new
+
+    # Backward scan: L_v = E_v + T_v * L_{v+1}, then one splat of all
+    # levels.
+    radiance_next = torch.zeros_like(emissions[-1])
+    level_radiance = [None] * len(slots)
+    for b in range(len(slots) - 1, -1, -1):
+        l_here = emissions[b] + seg_weights[b] * radiance_next
+        l_here = torch.where(torch.isfinite(l_here), l_here, 0.0)
+        level_radiance[b] = l_here
+        radiance_next = l_here
+
+    capacity = sharc_state.fingerprint.shape[0]
+    acc = (torch.zeros((capacity, 3), dtype=torch.float32, device=dev),
+           torch.zeros(capacity, dtype=torch.float32, device=dev),
+           torch.zeros(capacity, dtype=torch.int64, device=dev))
+    frame_sum, frame_count, frame_fp, dropped = sharc.splat_levels(
+        acc, slots, fps, level_radiance, actives)
+    new_state = sharc.resolve(sharc_state, frame_sum, frame_count, frame_fp,
+                              sharc_cfg)
+    return new_state, {"sharc_splat_dropped_rows":
+                       dropped.to(torch.float32)}

@@ -14,6 +14,13 @@ in its own space, which the triangle lights use;
 The reference's 8x128 screen-tile ray order and its sort by candidate
 instance are TPU block-coherence aids with no effect on the result: rays
 keep pixel order.
+
+``MESH_CAND`` picks the closest-hit form as the reference's DRTS_MESH_CAND
+does: 0 the serial walk (B7), 1 the multi-launch candidate loop (B5, B6,
+then B7 on what is left), 2 the fused loop (B10, then B7). The port reads
+no environment variable: the module constant is read at call time, so a
+caller or a test sets it (``trimesh_kernels.CAND_ROUNDS`` is the
+reference's MESH_CAND_ITERS).
 """
 
 from __future__ import annotations
@@ -28,6 +35,17 @@ from ..models import geometry
 from ..utils import math as m
 from . import intersect
 from . import trimesh_kernels as tk
+
+MESH_CAND = 1   # 0 serial walk, 1 candidate loop, 2 fused candidate loop
+MESH_CAND_MODES = (0, 1, 2)
+
+
+def _mesh_cand() -> int:
+    """MESH_CAND as it is now, checked."""
+    if MESH_CAND not in MESH_CAND_MODES:
+        raise ValueError(f"MESH_CAND must be one of {MESH_CAND_MODES}, got "
+                         f"{MESH_CAND!r}")
+    return MESH_CAND
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,13 +304,18 @@ def _pack_for_mesh_kernel(origin, direction, t_min, t_max, mesh,
 
 def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
                         inst_position, inst_rotation, inst_scale,
-                        rounds: int = tk.CAND_ROUNDS,
+                        rounds: int | None = None,
                         block_size: int = 16384) -> TriHit:
     """Closest hit of rays against M instances of one mesh.
 
     origin/direction: (..., 3), unit directions; t_min/t_max broadcastable
-    to (...,) with t_min >= 0. `rounds` candidate rounds run before the
-    serial walk takes what is left; 0 runs the serial walk alone."""
+    to (...,) with t_min >= 0. The form is MESH_CAND's, read now; `rounds`
+    (default trimesh_kernels.CAND_ROUNDS, read now) candidate rounds run
+    before the serial walk takes what is left, and 0 runs the serial walk
+    alone."""
+    mode = _mesh_cand()
+    if rounds is None:
+        rounds = tk.CAND_ROUNDS
     lead = origin.shape[:-1]
 
     def full(x):
@@ -305,10 +328,11 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
     rays, inst_tbl, inst_bounds, order, n_ic = _pack_for_mesh_kernel(
         origin, direction, t_min, t_max, mesh, inst_position, inst_rotation,
         inst_scale)
-    if rounds > 0:
-        t_p, face_p, inst_p = tk.intersect_mesh_instances_cand(
-            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
-            rounds=rounds, block=block_size)
+    if mode and rounds > 0:
+        cand = (tk.intersect_mesh_instances_cand_fused if mode == 2
+                else tk.intersect_mesh_instances_cand)
+        t_p, face_p, inst_p = cand(rays, inst_tbl, inst_bounds, mesh.tri_tbl,
+                                   n_ic, rounds=rounds, block=block_size)
     else:
         t_p, face_p, inst_p = tk.intersect_mesh_instances(
             rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
@@ -333,13 +357,18 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
 
 def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
                             inst_position, inst_rotation, inst_scale,
-                            rounds: int = tk.ANY_ROUNDS,
+                            rounds: int | None = None,
                             block_size: int = 16384):
     """Any hit (shadow ray) of rays against M instances of one mesh: True
     where some triangle lies in [t_min, t_max]. Shapes as
-    intersect_instances. `rounds` any-hit candidate rounds run before the
-    serial any-hit walk takes what is left; 0 runs the serial walk
-    alone."""
+    intersect_instances. As the reference, MESH_CAND 1 and 2 both run the
+    any-hit candidate loop (there is no fused any-hit kernel) and 0 the
+    serial any-hit walk alone; `rounds` (default
+    trimesh_kernels.ANY_ROUNDS, read now) any-hit candidate rounds run
+    before the serial walk takes what is left, and 0 runs it alone."""
+    mode = _mesh_cand()
+    if rounds is None:
+        rounds = tk.ANY_ROUNDS
     lead = origin.shape[:-1]
 
     def full(x):
@@ -353,7 +382,7 @@ def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
     rays, inst_tbl, inst_bounds, _, n_ic = _pack_for_mesh_kernel(
         origin, direction, t_min, t_max, mesh, inst_position, inst_rotation,
         inst_scale)
-    if rounds > 0:
+    if mode and rounds > 0:
         occ = tk.intersect_mesh_instances_any_cand(
             rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic, rounds=rounds,
             block=block_size)

@@ -21,6 +21,10 @@ kernel for Hopper in ``csrc/trimesh.cu``:
 - ``intersect_mesh_instances_any`` replaces
   ``trimesh_pallas.intersect_mesh_instances_any`` (B9): the any-hit twin of
   B7, the exact backstop of the any-hit candidate loop.
+- ``cand_fused`` replaces ``trimesh_pallas.cand_fused`` (B10): every round
+  of the candidate loop (B5, then B6 on the candidate found) and the last
+  scan in one launch, each lane walking its own candidates in the loop's
+  order, so it returns the loop's words.
 
 What the TPU kernels were: blocks of 2,048 rays that decide per block (a
 bundle's origin sphere and direction cone cull instance chunks, instances
@@ -36,7 +40,10 @@ against the instance chunks' covering spheres and the instances' bounding
 spheres, with the ray's running best (B7) or its own tmax (B9) as the far
 limit, and sweep only what passes. The reference's triangle-chunk culls
 (chunk bounding spheres, normal cones, the convex back-face cull) are left
-out together with their tables: every sweep visits all faces.
+out together with their tables: every sweep visits all faces. B10 also
+leaves out the reference's front-to-back chunk order (MESH_F2B), which
+changes no result either: a packed min does not depend on the order of
+the visits.
 
 Ray directions are unit vectors on this path (B5, the bounds pre-pass and
 the sphere tests of B7 and B9 take the quadratic's leading coefficient as
@@ -683,49 +690,158 @@ def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
 # The candidate loop and the hit refinement
 
 
-def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
-                                  n_ichunks: int, rounds: int = CAND_ROUNDS,
-                                  block: int = 16384):
-    """Candidate-iteration closest hit: `rounds` times, B5 hands every ray
-    its next bounding sphere front to back, B6 sweeps that instance, and
-    tmax tightens to the best hit; then B5 marks the rays that still have
-    a sphere ahead, and B7 walks those exactly on their tightened range.
-    Same contract as intersect_mesh_instances. `rays` is not modified; the
-    loop tightens tmax in place on its own copy."""
+def cand_loop(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
+              block: int = 16384):
+    """The candidate rounds of the multi-launch loop: `rounds` times, B5
+    hands every ray its next bounding sphere front to back, B6 sweeps that
+    instance and tmax tightens to the best hit; then one more B5 scan.
+    Returns (best, binst, key): the packed world best, its instance
+    position and the last scan's key (< INF_BITS where a sphere is left
+    ahead). `rays` is not modified."""
     n, m_tbl = rays.shape[1], inst_tbl.shape[1]
     dev = rays.device
-    bscan = make_bscan_table(inst_tbl)
-    pos_mask = (1 << pos_bits(bscan.shape[0])) - 1
+    pos_mask = (1 << pos_bits(bscan_tbl.shape[0])) - 1
     trunc_f = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
-
     cur = rays.clone()
-    tmax0 = rays[7]
     cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
     best = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
     binst = torch.zeros(n, dtype=torch.int32, device=dev)
     for _ in range(rounds):
-        key = bound_scan(cur, bscan, cursor, block)
+        key = bound_scan(cur, bscan_tbl, cursor, block)
         # m_tbl marks "no candidate": keys name real columns only.
         cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
             torch.int32)
         best, binst = shared_blas_sweep(cur, cand, best, binst, inst_tbl,
                                         tri_tbl, block)
         cursor = key
-        cur[7] = torch.minimum(tmax0, (best & trunc_f).view(torch.float32))
+        cur[7] = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
+    return best, binst, bound_scan(cur, bscan_tbl, cursor, block)
 
-    key = bound_scan(cur, bscan, cursor, block)
+
+def _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
+              n_ichunks: int, block: int):
+    """B7 on the lanes the candidate rounds left unresolved (key <
+    INF_BITS), on their range tightened to the best so far, merged with
+    the rounds' best. Returns intersect_mesh_instances' (t, face, inst)."""
+    m_tbl = inst_tbl.shape[1]
+    trunc_f = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
+    t_w = (best & trunc_f).view(torch.float32)
     unresolved = key < INF_BITS
-    cur[7] = torch.where(unresolved, cur[7], cur[6] - 1.0)
+    cur = rays.clone()
+    cur[7] = torch.where(unresolved, torch.minimum(rays[7], t_w),
+                         rays[6] - 1.0)
     t_fb, face_fb, inst_fb = intersect_mesh_instances(
         cur, inst_tbl, inst_bounds, tri_tbl, n_ichunks, block)
-
-    t_w = (best & trunc_f).view(torch.float32)
     fb_better = unresolved & (t_fb < t_w)
     t_w = torch.where(fb_better, t_fb,
                       torch.where(best < INF_BITS, t_w, float("inf")))
     face = torch.where(fb_better, face_fb, best & ~trunc_f)
     inst = torch.where(fb_better, inst_fb, torch.clamp(binst, max=m_tbl - 1))
     return t_w, face, inst
+
+
+def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
+                                  n_ichunks: int, rounds: int = CAND_ROUNDS,
+                                  block: int = 16384):
+    """Candidate-iteration closest hit (the reference's DRTS_MESH_CAND=1):
+    the rounds of cand_loop, then B7 walks the rays that still have a
+    sphere ahead exactly, on their tightened range. Same contract as
+    intersect_mesh_instances."""
+    best, binst, key = cand_loop(rays, make_bscan_table(inst_tbl), inst_tbl,
+                                 tri_tbl, rounds, block)
+    return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
+                     n_ichunks, block)
+
+
+# ----------------------------------------------------------------------------
+# B10: the candidate rounds fused into one launch
+
+
+def cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
+                     block: int = 16384, work: dict = None):
+    """Plain PyTorch B10. rays (8, N), tmin >= 0, unit directions;
+    bscan_tbl (M_pad, 4) from make_bscan_table; inst_tbl (9, M); tri_tbl
+    (F_pad, 9). Per lane: best, binst and the cursor start at INF_BITS, 0
+    and -1; `rounds` + 1 times the lane scans the bound-scan table for the
+    least key greater than its cursor with tmax_eff = min(tmax, best t)
+    (B5's contract: none on a lane whose tmax_eff < tmin, or whose cursor
+    is INF_BITS, a closed lane); after each of the first `rounds` scans a
+    lane that found a key sweeps that instance's whole triangle table in
+    its object frame and folds the world packed (t | face) into best and
+    binst (B6's contract). Returns (best, binst, key), key from the last
+    scan: the multi-launch loop's cand_loop, computed lane by lane as the
+    kernel does (the dead lanes, tmax < tmin, sweep nothing). `work`, when
+    given, receives the counts of this call: live lanes, scans (lane
+    scans made) and sweeps (lanes that swept an instance)."""
+    m_tbl = inst_tbl.shape[1]
+    pos_mask = (1 << pos_bits(bscan_tbl.shape[0])) - 1
+    trunc_f = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
+    live0 = rays[7] >= rays[6]
+    cur = rays.clone()
+    cursor = torch.full((rays.shape[1],), -1, dtype=torch.int32,
+                        device=rays.device)
+    best = torch.full_like(cursor, INF_BITS)
+    binst = torch.zeros_like(cursor)
+    counts = {"live": int(live0.sum()), "scans": 0, "sweeps": 0}
+    for it in range(rounds + 1):
+        cur[7] = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
+        counts["scans"] += int((live0 & (cursor < INF_BITS)
+                                & (cur[7] >= cur[6])).sum())
+        key = bound_scan_plain(cur, bscan_tbl, cursor, block)
+        cursor = key
+        if it == rounds:
+            break
+        cand = torch.where((key < INF_BITS) & live0, key & pos_mask,
+                           m_tbl).to(torch.int32)
+        counts["sweeps"] += int((cand < m_tbl).sum())
+        best, binst = shared_blas_sweep_plain(cur, cand, best, binst,
+                                              inst_tbl, tri_tbl, block)
+    if work is not None:
+        work.update(counts)
+    return best, binst, key
+
+
+def cand_fused(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
+               block: int = 16384):
+    """B10; see cand_fused_plain for the contract. A CUDA tensor launches
+    drts_cand_fused (csrc/trimesh.cu)."""
+    _check_rays(rays)
+    _check_table("bscan_tbl", bscan_tbl, 4, rays.device, rows_first=False)
+    _check_table("inst_tbl", inst_tbl, 9, rays.device)
+    _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    if rays.device.type == "cpu":
+        return cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds,
+                                block)
+    lib = backend.kernels()
+    n, m_pad, f_pad = rays.shape[1], bscan_tbl.shape[0], tri_tbl.shape[0]
+    best = torch.empty(n, dtype=torch.int32, device=rays.device)
+    binst = torch.empty_like(best)
+    key = torch.empty_like(best)
+    rc = lib.drts_cand_fused(
+        rays.data_ptr(), n, bscan_tbl.data_ptr(), m_pad, pos_bits(m_pad),
+        inst_tbl.data_ptr(), inst_tbl.shape[1], tri_tbl.data_ptr(), f_pad,
+        pos_bits(f_pad), rounds, best.data_ptr(), binst.data_ptr(),
+        key.data_ptr(), backend.stream_handle(rays))
+    backend.check_launch(rc, "drts_cand_fused")
+    backend.launched("cand_fused")
+    return best, binst, key
+
+
+def intersect_mesh_instances_cand_fused(rays, inst_tbl, inst_bounds, tri_tbl,
+                                        n_ichunks: int,
+                                        rounds: int = CAND_ROUNDS,
+                                        block: int = 16384):
+    """Fused candidate-iteration closest hit (the reference's
+    DRTS_MESH_CAND=2): B10 runs every round in one launch, then B7 walks
+    the unresolved rays as in intersect_mesh_instances_cand. B10 visits
+    the candidates of the multi-launch loop in the same order, so both
+    return the same words."""
+    best, binst, key = cand_fused(rays, make_bscan_table(inst_tbl), inst_tbl,
+                                  tri_tbl, rounds, block)
+    return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
+                     n_ichunks, block)
 
 
 def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,

@@ -2,10 +2,14 @@
 path-trace frame (``bench.trace_frame``) or, with ``--frame``, of the
 ReSTIR frame (``RenderPipeline.render_frame``) or, with ``--mesh``, of the
 instanced-mesh frame (``bench.make_mesh_setup``) or, with ``--mesh-frame``,
-of the all-mesh ReSTIR frame, on one GPU.
+of the all-mesh ReSTIR frame, or, with ``--default-frame`` and
+``--upscaled``, of the reference's default frame (``bench.
+default_frame_config``), on one GPU. ``--mesh-cand`` sets
+``ops.trimesh.MESH_CAND`` first.
 
     python -m drts_tpu_torch.profile_frame
-        [--frame | --mesh | --mesh-frame] [--frames N] [--out PATH]
+        [--frame | --mesh | --mesh-frame | --default-frame | --upscaled]
+        [--mesh-cand M] [--frames N] [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
@@ -26,13 +30,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import backend, bench
-from .ops import pathtrace
+from .ops import pathtrace, trimesh
 
 # The hand-written kernels' function names in csrc/*.cu.
 HAND_KERNELS = ("morton_closest_hit", "brute_closest_hit", "morton_occlusion",
                 "initial_candidates", "reproject", "bound_scan",
                 "shared_blas_sweep", "mesh_instances_closest",
-                "shared_blas_any", "mesh_instances_any")
+                "shared_blas_any", "mesh_instances_any", "cand_fused")
 
 
 def _device_us(evt) -> float:
@@ -59,9 +63,14 @@ def _frame_step(recipe: str, device):
             pathtrace.trace_image(scene, cam, cfg, frame[0])
             frame[0] += 1
         return step
-    if recipe in ("restir_frame", "mesh_restir_frame"):
+    if recipe in ("restir_frame", "mesh_restir_frame", "default_frame",
+                  "upscaled_frame"):
+        cfg = None
+        if recipe in ("default_frame", "upscaled_frame"):
+            cfg = bench.default_frame_config(
+                upscaled=recipe == "upscaled_frame")
         pipe, state, pose = bench.make_frame_setup(
-            device=device, mesh=recipe == "mesh_restir_frame")
+            device=device, mesh=recipe == "mesh_restir_frame", cfg=cfg)
         box = [state]
 
         def step():
@@ -94,7 +103,7 @@ def profile_frames(frames: int = 2, device="cuda",
             "ms_per_frame": sum(_device_us(e) for e in found) / frames / 1e3}
     return {
         "device": torch.cuda.get_device_name(0),
-        "recipe": recipe,
+        "recipe": recipe, "mesh_cand": trimesh.MESH_CAND,
         "frames": frames,
         "frame_ms_unprofiled": plain_us / frames / 1e3,
         "frame_ms_profiled": wall_us / frames / 1e3,
@@ -117,10 +126,19 @@ def main(argv=None):
                         help="the instanced-mesh frame instead")
     parser.add_argument("--mesh-frame", action="store_true",
                         help="the all-mesh ReSTIR frame instead")
+    parser.add_argument("--default-frame", action="store_true",
+                        help="the reference's default frame instead")
+    parser.add_argument("--upscaled", action="store_true",
+                        help="the default frame upscaled from 960x540")
+    parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
+                        choices=trimesh.MESH_CAND_MODES)
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
+    trimesh.MESH_CAND = args.mesh_cand
     recipe = ("mesh_restir_frame" if args.mesh_frame
               else "mesh_frame" if args.mesh
+              else "default_frame" if args.default_frame
+              else "upscaled_frame" if args.upscaled
               else "restir_frame" if args.frame else "trace_frame")
     result = profile_frames(args.frames, backend.device("cuda"), recipe)
     text = json.dumps(result, indent=1)

@@ -232,7 +232,7 @@ def _half_from_bits(b):
     return b.to(torch.int16).view(torch.float16).to(torch.float32)
 
 
-def _word_as_f32(u):
+def word_as_f32(u):
     """[0, 2^32) int64 words -> the float32 with those bits."""
     u = torch.where(u >= 1 << 31, u - (1 << 32), u)
     return u.to(torch.int32).view(torch.float32)
@@ -244,13 +244,25 @@ def pack2f16(a, b):
     lim = 60000.0
     au = _half_bits(torch.clamp(a, -lim, lim)).to(torch.int64)
     bu = _half_bits(torch.clamp(b, -lim, lim)).to(torch.int64)
-    return _word_as_f32(au | (bu << 16))
+    return word_as_f32(au | (bu << 16))
 
 
 def unpack2f16(x):
     """Inverse of pack2f16: one bit-packed f32 -> (a, b) f32."""
     u = x.view(torch.int32)
     return _half_from_bits(u & 0xFFFF), _half_from_bits((u >> 16) & 0xFFFF)
+
+
+def pack_oct16(n):
+    """Unit vector -> one f32 (octahedral xy as an f16 pair)."""
+    e = oct_encode(n)
+    return pack2f16(e[..., 0], e[..., 1])
+
+
+def unpack_oct16(x):
+    """Inverse of pack_oct16."""
+    a, b = unpack2f16(x)
+    return oct_decode(torch.stack([a, b], dim=-1))
 
 
 def pack_depth_oct8(depth, n):
@@ -260,7 +272,7 @@ def pack_depth_oct8(depth, n):
     du = _half_bits(torch.clamp(depth, -3e4, 3e4)).to(torch.int64)
     q = torch.round((oct_encode(n) * 0.5 + 0.5) * 255.0)
     q = torch.clamp(torch.nan_to_num(q, nan=0.0), min=0.0).to(torch.int64)
-    return _word_as_f32((du << 16) | (q[..., 0] << 8) | q[..., 1])
+    return word_as_f32((du << 16) | (q[..., 0] << 8) | q[..., 1])
 
 
 def unpack_depth_oct8(x):

@@ -8,12 +8,12 @@ channels with motion off every edge, and for the mesh kernels 1 and 600
 instances (a scan table beyond one 512-row tile), a 2,048-face mesh (a
 triangle table of 72 KB, beyond one shared-memory tile) and a batch of
 dead lanes only; the any-hit mesh kernels also with short ranges and with
-blocked bits already set. Run on a GPU machine, which has no JAX, without
-the suite's conftest:
+blocked bits already set, and B10 with 1 to 5 rounds. Run on a GPU
+machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance 0 for B1, B11, B2, B4 and B5 to B9: the kernels are built with
+Tolerance 0 for B1, B11, B2, B4 and B5 to B10: the kernels are built with
 -fmad=false and compute the same separately rounded operations in the same
 order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
 sinf and cosf where the plain version calls PyTorch's: picks may differ on
@@ -335,3 +335,32 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
     # range end may fall on either side.
     serial = tk.intersect_mesh_instances_any(*cpu) > 0
     assert float((whole.cpu() != serial).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("k,n,tess,dead,rounds", [
+    (24, 5001, 3, False, 1), (24, 5001, 3, False, 3), (1, 300, 2, False, 2),
+    (600, 3001, 3, False, 4), (24, 2049, 5, False, 5),
+    (24, 1024, 3, True, 3)])
+def test_cand_fused_kernel_equals_plain(dev, k, n, tess, dead, rounds):
+    """B10 against its plain version and against the multi-launch loop on
+    the card (best, binst, key bit for bit), at a ragged ray count, with
+    every lane dead, with 1 to 5 rounds, a 600-instance scan table (two
+    512-row tiles) and a 2,048-face triangle table (four tiles); then the
+    fused closest hit against the loop's."""
+    mesh, rays, (inst_tbl, inst_bounds, _, n_ic) = mesh_case(
+        k, n, tess, seed=k + n + rounds, dev=dev, dead=dead)
+    tri_tbl = mesh.tri_tbl
+    bscan = tk.make_bscan_table(inst_tbl)
+    before = backend.LAUNCHES["cand_fused"]
+    out = tk.cand_fused(rays, bscan, inst_tbl, tri_tbl, rounds)
+    assert backend.LAUNCHES["cand_fused"] == before + 1
+    assert_equal(out, tk.cand_fused_plain(rays, bscan, inst_tbl, tri_tbl,
+                                          rounds))
+    assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, tri_tbl, rounds))
+    found = int((out[0] < ik.INF_BITS).sum())
+    assert found == 0 if dead else found > 0
+    fused = tk.intersect_mesh_instances_cand_fused(
+        rays, inst_tbl, inst_bounds, tri_tbl, n_ic, rounds=rounds)
+    loop = tk.intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds,
+                                            tri_tbl, n_ic, rounds=rounds)
+    assert_equal(fused, loop)
