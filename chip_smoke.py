@@ -22,7 +22,11 @@ Phases, one printed line or more each; any failure exits non-zero:
    BRDF-candidate light sweep) against their plain versions, on the inputs
    the third ReSTIR frame at 1920x1080 gives them (so the temporal history
    holds two frames' reservoirs, depths and normals), with kernel and plain
-   times from CUDA events; B4 bilinear also beside grid_sample.
+   times from CUDA events; B4 bilinear also beside grid_sample. B2's bound
+   counts the work its culled sweep needs (intersect_kernels.
+   occlusion_morton_work: chunk tests, chunks met, pairs swept), printed
+   beside the unculled sweep's pairs and the chunks a warp meets; B4
+   prints its vector width.
 6. restir: the ReSTIR frame (RenderPipeline.render_frame with physics,
    ReSTIR DI and post, denoiser "None", SHARC off) at 1920x1080 through
    bench.bench_frame, counted from zero: frame time, per-stage times,
@@ -85,13 +89,15 @@ Phases, one printed line or more each; any failure exits non-zero:
    SHARC updated every second frame, ReBLUR, TAA at native size, post) at
    1920x1080: first B4 against its plain version on every reprojection of
    a warm frame (the ReSTIR history, the denoiser's two packed mirrors,
-   nearest, and the TAA history, bilinear), with kernel, plain and
-   grid_sample times; then 7 frames through bench.bench_frame, counted
-   from zero: frame time, per-stage times, counters and launches (B4 by
-   mode; the stages timed over one SHARC cadence of two frames); the image
-   a finite (1080, 1920, 3) in [0, 1], SHARC hits on the last timed frame,
-   each kernel launched as the stages need; then the upscaled
-   frame (render 960x540, output 1920x1080) likewise.
+   nearest, and the TAA history, bilinear), with its vector width and
+   kernel, plain and grid_sample times, and B1's bound summed over a SHARC
+   cadence's launches on their own rays; then 7 frames through
+   bench.bench_frame, counted from zero: frame time, per-stage times,
+   counters and launches (B4 by mode; the stages timed over one SHARC
+   cadence of two frames); the image a finite (1080, 1920, 3) in [0, 1],
+   SHARC hits on the last timed frame, each kernel launched as the stages
+   need; then the upscaled frame (render 960x540, output 1920x1080)
+   likewise.
 15. default frame small: three default frames at 64x64 (3 bounces, a
    4,096-slot cache) on the card and on the CPU from one start state, and
    one ReLAX and one DLSS-RR frame each, must agree within DEFAULT_*.
@@ -141,8 +147,10 @@ FP32_OPS_PER_S = 33.5e12
 # sine or cosine counts as one; compares and the integer min as one each).
 OPS_B1_PAIR = 25          # ray x table column
 OPS_B11_PAIR = 26         # ray x sphere
-OPS_B2_PAIR = 22          # ray x table column visited before the exit
-OPS_B2_RAY = 10           # od and oo of a live ray
+OPS_B2_PAIR = 22          # ray x filled slot swept before the exit
+OPS_B2_CHUNK = 25         # ray x chunk bound tested (the cull)
+OPS_B2_RAY = 34           # a live ray's od, oo and cull margin
+OPS_B2_RAY_UNCULLED = 10  # od and oo: the unculled sweep's per-ray count
 OPS_B3_PIXEL = 40         # BSDF parameters and view terms
 OPS_B3_CANDIDATE = 270    # cone sample, three-lobe BSDF, MIS, update
 OPS_B4_BILINEAR = 11      # per channel, the tent
@@ -273,29 +281,35 @@ def b11_work(rays, spheres):
             live * spheres.shape[1] * OPS_B11_PAIR)
 
 
-def occlusion_visited(rays9, table, block=32768):
-    """Table columns B2 visits for these rays: up to and including the
-    first blocker of a live ray, all of them where none blocks, none for a
-    dead lane (the formulas of occlusion_morton_plain)."""
-    n, cols = rays9.shape[1], table.shape[1]
-    cx, cy, cz, _, obj, m2x, m2y, m2z, ccrr = (c[None, :] for c in table)
-    visited = 0
-    for s in range(0, n, block):
-        ox, oy, oz, dx, dy, dz, tmin, tmax, excl = (
-            r[:, None] for r in rays9[:, s:s + block])
-        od = ox * dx + oy * dy + oz * dz
-        oo = ox * ox + oy * oy + oz * oz
-        b2 = od - (cx * dx + cy * dy + cz * dz)
-        c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
-        sq = torch.sqrt(b2 * b2 - c2)
-        t_near = -b2 - sq
-        t = torch.where(t_near >= tmin, t_near, sq - b2)
-        blocked = (t >= tmin) & (t <= tmax) & (obj != excl)
+def occlusion_visited(ik, rays9, table, block=32768):
+    """Table columns an unculled B2 visits for these rays: up to and
+    including the first blocker of a live ray, all of them where none
+    blocks, none for a dead lane. Printed beside the culled kernel's work
+    to show what the culls save."""
+    cols, visited = table.shape[1], 0
+    for s in range(0, rays9.shape[1], block):
+        r = rays9[:, s:s + block]
+        blocked = ik.occlusion_pair_blocked(r, table)
         first = torch.where(blocked.any(1),
                             blocked.to(torch.uint8).argmax(1) + 1, cols)
-        live = (tmax >= tmin)[:, 0]
-        visited += int(torch.where(live, first, 0).sum())
+        visited += int(torch.where(r[7] >= r[6], first, 0).sum())
     return visited
+
+
+def warp_chunks_met(ik, rays9, bounds, block=262144):
+    """Mean number of chunks that some lane of a warp (32 consecutive
+    rays) meets, over warps with a live lane: a warp runs a chunk's
+    sweep when any of its lanes needs it."""
+    total = warps = 0
+    for s in range(0, rays9.shape[1], block):
+        met = ik.occlusion_chunk_met(rays9[:, s:s + block], bounds)
+        pad = -met.shape[0] % 32
+        met = torch.nn.functional.pad(met, (0, 0, 0, pad))
+        per_warp = met.reshape(-1, 32, met.shape[1]).any(1)
+        live = per_warp.any(1)
+        total += int(per_warp[live].sum())
+        warps += int(live.sum())
+    return total / max(warps, 1)
 
 
 @contextlib.contextmanager
@@ -361,20 +375,30 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
     if len(calls) != 3:
         raise AssertionError(f"B2 ran {len(calls)} times in the warm frame, "
                              f"expected 3")
-    ms = plain_ms = bytes_moved = ops = 0.0
-    for label, (rays9, table, block) in zip(
+    ms = plain_ms = bytes_moved = ops = unculled_ops = 0.0
+    for label, (rays9, table, bounds, block) in zip(
             ("brdf-candidate", "initial", "final"), calls):
-        occ_k = ik.occlusion_morton(rays9, table, block)
-        occ_p = ik.occlusion_morton_plain(rays9, table, block)
+        occ_k = ik.occlusion_morton(rays9, table, bounds, block)
+        occ_p = ik.occlusion_morton_plain(rays9, table, bounds, block)
         torch.cuda.synchronize()
         mismatch = int((occ_k != occ_p).sum())
-        visited = occlusion_visited(rays9, table)
+        unculled = occlusion_visited(ik, rays9, table)
+        tests, met, pairs = (int(x.sum()) for x in
+                             ik.occlusion_morton_work(rays9, table, bounds))
+        warp_met = warp_chunks_met(ik, rays9, bounds)
         live = live_rays(rays9)
-        k_ms = cuda_ms(lambda: ik.occlusion_morton(rays9, table, block), 10)
+        k_ms = cuda_ms(lambda: ik.occlusion_morton(rays9, table, bounds,
+                                                   block), 10)
         p_ms = cuda_ms(lambda: ik.occlusion_morton_plain(rays9, table,
-                                                         block), 2)
+                                                         bounds, block), 2)
         log(f"kernels: B2 {label} rays={rays9.shape[1]} live={live} "
-            f"cols={table.shape[1]} visited_pairs={visited} "
+            f"cols={table.shape[1]} chunks={bounds.shape[1]} "
+            f"chunk_tests={tests} chunks_met={met} visited_pairs={pairs} "
+            f"visited_pairs_unculled={unculled} "
+            f"chunks_met_per_live_ray={met / max(live, 1)!r} "
+            f"pairs_per_live_ray={pairs / max(live, 1)!r} "
+            f"unculled_pairs_per_live_ray={unculled / max(live, 1)!r} "
+            f"chunks_met_per_live_warp={warp_met!r} "
             f"occluded={int(occ_k.sum())} mismatch={mismatch} "
             f"kernel_ms={k_ms!r} plain_ms={p_ms!r}")
         if mismatch:
@@ -382,9 +406,16 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
                                  f"plain version on {mismatch} rays")
         ms += k_ms
         plain_ms += p_ms
-        bytes_moved += lane_bytes(rays9.shape[1], live, 9, 0.25, table)
-        ops += visited * OPS_B2_PAIR + live * OPS_B2_RAY
+        bytes_moved += lane_bytes(rays9.shape[1], live, 9, 0.25, table,
+                                  bounds)
+        ops += (tests * OPS_B2_CHUNK + pairs * OPS_B2_PAIR
+                + live * OPS_B2_RAY)
+        unculled_ops += (unculled * OPS_B2_PAIR
+                         + live * OPS_B2_RAY_UNCULLED)
     b_ms, b_by = bound(bytes_moved, ops)
+    unculled_ms = bound(bytes_moved, unculled_ops)[0]
+    log(f"kernels: B2 three batches kernel_ms={ms!r} bound_ms={b_ms!r} "
+        f"({b_by}) unculled_bound_ms={unculled_ms!r}")
     out["occlusion_morton"] = {"max_abs_err": 0.0, "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "library_ms": None}
@@ -451,7 +482,9 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         return torch.nn.functional.grid_sample(
             src, grid, mode=mode_, padding_mode="border", align_corners=True)
     lib_ms = cuda_ms(lambda: library("nearest"), 50)
-    log(f"kernels: B4 nearest {h}x{w}x{c} mode={mode} word_mismatch={bits} "
+    log(f"kernels: B4 nearest {h}x{w}x{c} mode={mode} "
+        f"vector_width={rp.vector_width(c, packed, o_k)} "
+        f"word_mismatch={bits} "
         f"ok_mismatch={ok_mismatch} in_frame={int(ok_k.sum())} "
         f"distinct_words={distinct} taps_off_pixel={moved} "
         f"kernel_ms={k_ms!r} plain_ms={p_ms!r} grid_sample_ms={lib_ms!r}")
@@ -991,17 +1024,32 @@ def check_fused_kernel(tk, seen):
     return fields
 
 
-def capture_default_reprojections(bench, rp, device="cuda"):
+def capture_default_reprojections(bench, ik, rp, device="cuda"):
     """One default frame at 1920x1080 to warm the histories, then one that
     records every B4 call: the ReSTIR history, the denoiser's packed
-    mirrors (nearest) and the TAA history (bilinear)."""
+    mirrors (nearest) and the TAA history (bilinear). Over that frame and
+    the next (one SHARC cadence, the update in one of them) it also sums
+    B1's bound per launch on each launch's own rays; returns (the B4
+    calls, B1's bound_ms per frame, B1's launches per frame)."""
     pipe, state, pose = bench.make_frame_setup(
         cfg=bench.default_frame_config(), device=device)
     state, _ = pipe.render_frame(state, pose)
-    with recorded((rp,), ("reproject_packed",), clone=True) as seen:
+    b1 = []
+    orig = ik.intersect_morton
+
+    def bounded(rays, table, *args, **kwargs):
+        b1.append(b1_bound(rays, table)[0])
+        return orig(rays, table, *args, **kwargs)
+    ik.intersect_morton = bounded
+    try:
+        with recorded((rp,), ("reproject_packed",), clone=True) as seen:
+            state, _ = pipe.render_frame(state, pose)
+            torch.cuda.synchronize()
         pipe.render_frame(state, pose)
         torch.cuda.synchronize()
-    return seen["reproject_packed"]
+    finally:
+        ik.intersect_morton = orig
+    return seen["reproject_packed"], sum(b1) / 2, len(b1) / 2
 
 
 def check_default_reprojections(rp, calls):
@@ -1042,9 +1090,11 @@ def check_default_reprojections(rp, calls):
         lib = cuda_ms(lambda: torch.nn.functional.grid_sample(
             chw, grid, mode=mode, padding_mode="border", align_corners=True),
             50)
-        log(f"default kernels: B4 {mode} {h}x{w}x{c} mismatch={bad} "
-            f"ok_mismatch={ok_mismatch} kernel_ms={k!r} plain_ms={p!r} "
-            f"grid_sample_ms={lib!r}")
+        vec = 1 if mode == "bilinear" else rp.vector_width(c, src, o_k)
+        log(f"default kernels: B4 {mode} {h}x{w}x{c} vector_width={vec} "
+            f"mismatch={bad} ok_mismatch={ok_mismatch} "
+            f"kernel_ms={k!r} plain_ms={p!r} grid_sample_ms={lib!r} "
+            f"bound_ms={bound((2 * c * 4 + 8 + 1) * h * w, 0)[0]!r}")
         if bad or ok_mismatch:
             raise AssertionError(f"B4 {mode} {h}x{w}x{c}: kernel disagrees "
                                  f"with its plain version")
@@ -1485,7 +1535,11 @@ def main():
     launches["cand_fused@mesh_fused"] = f_launches["cand_fused"]
 
     # 14. the default frame: B4 at its own inputs, then counted from zero ----
-    calls = capture_default_reprojections(bench, rp, device=dev)
+    calls, b1_frame_ms, b1_frame_launches = capture_default_reprojections(
+        bench, ik, rp, device=dev)
+    log(f"default kernels: B1 per frame bound_ms={b1_frame_ms!r} "
+        f"(sum over {b1_frame_launches!r} launches per frame, one SHARC "
+        f"cadence of two frames, each launch's own rays)")
     fields["reproject_packed@default"] = check_default_reprojections(rp,
                                                                      calls)
     del calls

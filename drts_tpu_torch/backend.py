@@ -48,14 +48,16 @@ _SIGNATURES = {
                                 _VOIDP, _VOIDP),
     "drts_brute_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _VOIDP,
                                _VOIDP),
-    "drts_morton_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _VOIDP),
+    # rays, n, table, cols, bounds, n_chunks, cull_scale, occ_out, stream
+    "drts_morton_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                              _FLOAT, _VOIDP, _VOIDP),
     # surf, uni, slots, n, table, n_lights, n_l, s, n_b, out_f, out_i, stream
     "drts_initial_light_candidates": (_VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
                                       _INT, _INT, _INT, _INT, _VOIDP,
                                       _VOIDP, _VOIDP),
-    # src, motion, h, w, c, bilinear, out, ok, stream
-    "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP,
-                       _VOIDP, _VOIDP),
+    # src, motion, h, w, c, bilinear, vec, out, ok, stream
+    "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT,
+                       _VOIDP, _VOIDP, _VOIDP),
     # rays, n, cursor, table, m_pad, pos_bits, key_out, stream
     "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP,
                         _VOIDP),

@@ -95,11 +95,21 @@ def cluster_plan(src, device="cuda") -> clusters.ClusterPlan:
 
 
 def morton_accel(src, device="cuda") -> clusters.MortonAccel:
-    """The table only: the reference's chunk bounds feed culls the port's
-    kernel does not do yet."""
-    return clusters.MortonAccel(
-        table=_tensor(src.table, device), n_chunks=int(src.n_chunks),
-        chunk=int(src.chunk))
+    """The reference's table and chunk bounds (``bounds_tbl`` without its
+    padding columns), with the port's count row: per chunk, one past its
+    last slot of positive radius. That is the plan's filled-slot count
+    (members fill a chunk's first slots and have radii), read off the
+    table because the reference's accel holds no plan in its sorted chunk
+    order; a slot past it has |c|^2 - r^2 = 1e30 and cannot block."""
+    n_chunks, chunk = int(src.n_chunks), int(src.chunk)
+    table = _tensor(src.table, device)
+    filled = table[3].reshape(n_chunks, chunk) > 0.0
+    slot = torch.arange(1, chunk + 1, device=table.device)
+    count = torch.where(filled, slot, 0).amax(dim=1).to(torch.float32)
+    bounds = torch.cat([_tensor(src.bounds_tbl, device)[:, :n_chunks],
+                        count[None]]).contiguous()
+    return clusters.MortonAccel(table=table, bounds=bounds,
+                                n_chunks=n_chunks, chunk=chunk)
 
 
 def rigid_bodies(src, device="cuda") -> physics.RigidBodies:

@@ -9,14 +9,16 @@
 // PyTorch versions they are checked against).
 //
 // Design: one thread per ray. Rays arrive planar, (8, N) float32
-// [ox oy oz dx dy dz tmin tmax], so each row load is coalesced. The sphere
-// table is staged through shared memory in tiles of kTile columns as
-// float4 pairs; every thread of a warp reads the same column at once, a
+// [ox oy oz dx dy dz tmin tmax], so each row load is coalesced. B1 and B11
+// stage the sphere table through shared memory in tiles of kTile columns
+// as float4 pairs; every thread of a warp reads the same column at once, a
 // shared-memory broadcast. The per-pair work is ~25 float operations and
 // one IEEE sqrt, against 32 bytes read from the ray and 4 or 8 written, so
 // the sweep is bound by instruction issue (FP32 and the sqrt sequence),
-// not by device-memory bandwidth. This first version keeps every pair:
-// it has no chunk culls, no dead-warp skip and no early exit.
+// not by device-memory bandwidth. B1 and B11 keep every pair: they have
+// no chunk culls, no dead-warp skip and no early exit. B2 stages its
+// table in tiles of whole chunks and culls chunks per lane by the chunk
+// bounds of the Morton accel (see its own note below).
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply and add rounds on its own, in the order the plain PyTorch
@@ -158,47 +160,150 @@ brute_closest_hit(const float* __restrict__ rays, int n,
 }
 
 // B2. rays: (9, n) planar [ox oy oz dx dy dz tmin tmax exclude_obj];
-// table as B1. A ray is blocked when any column has t in [tmin, tmax] and
-// an object id other than the ray's excluded one (-1 excludes nothing).
-// Shadow rays end at the first blocker, so each thread leaves its loop
-// there; a dead lane (tmax < tmin) returns before reading the table. The
-// table is read through the read-only cache: every thread of a warp reads
-// the same column, a broadcast, and no barrier ties live threads to dead
-// or finished ones. Bound by instruction issue, as B1, but the work per
-// ray depends on where its first blocker sits in the table.
+// table as B1; bounds: (5, n_chunks) planar [cx cy cz r count], one
+// bounding sphere per chunk of `chunk` consecutive columns and the number
+// of its filled slots, which come first. A ray is blocked when any column
+// has t in [tmin, tmax] and an object id other than the ray's excluded
+// one (-1 excludes nothing).
+//
+// Design: one thread per shadow ray. Each block stages the table into
+// dynamic shared memory in tiles of whole chunks, at most kTileBytes each,
+// per column two float4s [cx cy cz obj] [-2c |c|^2-r^2] and per chunk its
+// bound and count; the block-wide barriers around each tile are joined by
+// every thread, finished or dead ones too. The demo scene's 480 columns
+// (~15 KB) are one tile. Every lane of a warp reads the same column at
+// once, a broadcast. Per lane and in table order, a chunk is skipped when
+// the ray's segment passes farther than the chunk's bound (the per-lane
+// form of the TPU kernel's per-block cone and range culls), only its
+// filled slots are swept, kGroup at a time, and the lane leaves after the
+// group that holds its first blocker; a warp runs a chunk's sweep while
+// any of its lanes needs it. Bound by instruction issue: ~22 float
+// operations and one sqrt per pair swept, 25 per chunk tested. (Measured
+// on an H100: a grid of one block per 256 rays beat a grid of resident
+// blocks walking the rays with a stride, whose last warps ran alone, and
+// groups of four slots beat one at a time; PERF.md.)
+//
+// The cull never skips a chunk that holds a blocker, so the result equals
+// the unculled sweep bit for bit. With v = C - o and the segment's nearest
+// point s = clamp(v.d / d.d, tmin, tmax), the chunk is skipped when
+// |v - s d|^2 > lim^2, lim = R + scale (|C|_1 + R + |o|_1 + T)
+// + T sqrt(|d.d - 1|), T = max(|tmin|, |tmax|). Two margins:
+// - R holds refit's 0.25 slack, which covers motion between refits;
+// - scale covers rounding: the caller passes
+//   ops/intersect_kernels.py:CULL_SCALE, which states its derivation.
+//   The quadratic takes d as a unit vector; T sqrt(|d.d-1|) covers the
+//   distance a non-unit d adds to a root's point, and outside d.d in
+//   [0.5, 2] no chunk is skipped.
+// Non-finite inputs make lim infinite or the compare false: no skip. An
+// empty slot has |c|^2-r^2 = 1e30, and b2^2 - c2 < 0 for every ray while
+// |o| + |c| < 1e14, so sweeping only the filled slots is exact there.
+constexpr size_t kTileBytes = 48 * 1024;  // no opt-in above the default
+constexpr int kGroup = 4;  // slots tested together before the exit check
+
+__device__ __forceinline__ void stage_occlusion(
+    const float* __restrict__ table, int cols,
+    const float* __restrict__ bounds, int n_chunks, int chunk, int k0,
+    int m, float scale, float4* s_lin, float4* s_quad, float4* s_bnd,
+    int* s_cnt) {
+  const int c0 = k0 * chunk;
+  for (int c = threadIdx.x; c < m * chunk; c += blockDim.x) {
+    const int col = c0 + c;
+    s_lin[c] = make_float4(table[0 * cols + col], table[1 * cols + col],
+                           table[2 * cols + col], table[4 * cols + col]);
+    s_quad[c] = make_float4(table[5 * cols + col], table[6 * cols + col],
+                            table[7 * cols + col], table[8 * cols + col]);
+  }
+  for (int k = threadIdx.x; k < m; k += blockDim.x) {
+    const int kk = k0 + k;
+    const float bx = bounds[0 * n_chunks + kk];
+    const float by = bounds[1 * n_chunks + kk];
+    const float bz = bounds[2 * n_chunks + kk];
+    const float br = bounds[3 * n_chunks + kk];
+    s_bnd[k] = make_float4(
+        bx, by, bz, br + scale * (fabsf(bx) + fabsf(by) + fabsf(bz) + br));
+    s_cnt[k] = min(max((int)bounds[4 * n_chunks + kk], 0), chunk);
+  }
+}
+
+// One ray x table column of B2: t in [tmin, tmax] and another object.
+__device__ __forceinline__ bool pair_blocks(const float4 a, const float4 q,
+                                            const Ray& r, float od, float oo,
+                                            float exclude) {
+  const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
+  const float c2 = oo + (q.x * r.ox + q.y * r.oy + q.z * r.oz) + q.w;
+  const float sq = sqrtf(b2 * b2 - c2);  // NaN when the ray misses
+  const float t_near = -b2 - sq;
+  const float t = t_near >= r.tmin ? t_near : sq - b2;
+  return t >= r.tmin && t <= r.tmax && a.w != exclude;
+}
+
 __global__ void __launch_bounds__(kThreads)
 morton_occlusion(const float* __restrict__ rays, int n,
                  const float* __restrict__ table, int cols,
+                 const float* __restrict__ bounds, int n_chunks, int chunk,
+                 int tile_chunks, float scale,
                  unsigned char* __restrict__ occ_out) {
+  extern __shared__ float4 s_mem[];
+  float4* s_lin = s_mem;
+  float4* s_quad = s_lin + tile_chunks * chunk;
+  float4* s_bnd = s_quad + tile_chunks * chunk;
+  int* s_cnt = reinterpret_cast<int*>(s_bnd + tile_chunks);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rays, n, i);
-  unsigned char blocked = 0;
-  if (r.tmax >= r.tmin) {
-    const float exclude = rays[8 * (size_t)n + i];
-    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    for (int c = 0; c < cols; ++c) {
-      const float cx = __ldg(table + 0 * cols + c);
-      const float cy = __ldg(table + 1 * cols + c);
-      const float cz = __ldg(table + 2 * cols + c);
-      const float m2x = __ldg(table + 5 * cols + c);
-      const float m2y = __ldg(table + 6 * cols + c);
-      const float m2z = __ldg(table + 7 * cols + c);
-      const float ccrr = __ldg(table + 8 * cols + c);
-      const float b2 = od - (cx * r.dx + cy * r.dy + cz * r.dz);
-      const float c2 = oo + (m2x * r.ox + m2y * r.oy + m2z * r.oz) + ccrr;
-      const float sq = sqrtf(b2 * b2 - c2);  // NaN when the ray misses
-      const float t_near = -b2 - sq;
-      const float t = t_near >= r.tmin ? t_near : sq - b2;
-      if (t >= r.tmin && t <= r.tmax &&
-          __ldg(table + 4 * cols + c) != exclude) {
-        blocked = 1;
-        break;
+  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  if (i < n) r = load_ray(rays, n, i);
+  bool open = i < n && r.tmax >= r.tmin;  // live and not yet blocked
+  float exclude = 0.f, od = 0.f, oo = 0.f, inv_dd = 0.f, m_r = 0.f;
+  if (open) {
+    exclude = rays[8 * (size_t)n + i];
+    od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
+    const float big_t = fmaxf(fabsf(r.tmin), fabsf(r.tmax));
+    m_r = dd >= 0.5f && dd <= 2.0f
+              ? big_t * sqrtf(fabsf(dd - 1.0f)) + scale * (o1 + big_t)
+              : __int_as_float(kInfBits);
+    inv_dd = 1.0f / dd;
+  }
+  bool blocked = false;
+  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+    const int m = min(tile_chunks, n_chunks - k0);
+    __syncthreads();
+    stage_occlusion(table, cols, bounds, n_chunks, chunk, k0, m, scale,
+                    s_lin, s_quad, s_bnd, s_cnt);
+    __syncthreads();
+    for (int k = 0; open && k < m; ++k) {
+      const float4 b = s_bnd[k];
+      const float vx = b.x - r.ox, vy = b.y - r.oy, vz = b.z - r.oz;
+      const float vd = vx * r.dx + vy * r.dy + vz * r.dz;
+      const float s = fminf(fmaxf(vd * inv_dd, r.tmin), r.tmax);
+      const float wx = vx - s * r.dx, wy = vy - s * r.dy, wz = vz - s * r.dz;
+      const float lim = b.w + m_r;
+      if (wx * wx + wy * wy + wz * wz > lim * lim) continue;
+      int c = k * chunk;
+      const int end = c + s_cnt[k];
+      for (; c + kGroup <= end; c += kGroup) {
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < kGroup; ++u) {
+          hit |= pair_blocks(s_lin[c + u], s_quad[c + u], r, od, oo,
+                             exclude);
+        }
+        if (hit) {
+          blocked = true;
+          open = false;
+          break;
+        }
+      }
+      for (; open && c < end; ++c) {
+        if (pair_blocks(s_lin[c], s_quad[c], r, od, oo, exclude)) {
+          blocked = true;
+          open = false;
+        }
       }
     }
   }
-  occ_out[i] = blocked;
+  if (i < n) occ_out[i] = blocked;
 }
 
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -227,13 +332,20 @@ extern "C" int drts_brute_closest_hit(const float* rays, int n,
   return (int)cudaGetLastError();
 }
 
+// scale: the cull's rounding margin, relative to |o|_1 + |C|_1 + R + T.
 extern "C" int drts_morton_occlusion(const float* rays, int n,
                                      const float* table, int cols,
-                                     unsigned char* occ_out,
+                                     const float* bounds, int n_chunks,
+                                     float scale, unsigned char* occ_out,
                                      cudaStream_t stream) {
-  if (n > 0) {
-    morton_occlusion<<<grid_for(n), kThreads, 0, stream>>>(rays, n, table,
-                                                          cols, occ_out);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  if (n_chunks <= 0 || cols % n_chunks != 0) return cudaErrorInvalidValue;
+  const int chunk = cols / n_chunks;
+  const size_t per_chunk = 2 * sizeof(float4) * chunk + sizeof(float4) +
+                           sizeof(int);
+  const int tile = min(n_chunks, (int)(kTileBytes / per_chunk));
+  if (tile < 1) return cudaErrorInvalidValue;
+  morton_occlusion<<<grid_for(n), kThreads, per_chunk * tile, stream>>>(
+      rays, n, table, cols, bounds, n_chunks, chunk, tile, scale, occ_out);
   return (int)cudaGetLastError();
 }

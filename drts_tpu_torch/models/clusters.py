@@ -1,7 +1,8 @@
 """Morton sphere accel (port of the Morton half of
 ``drts_tpu/models/clusters.py``): a host-side static plan that sorts small
 spheres along a Morton curve and chunks them, and a per-frame refit that
-packs the Morton-ordered sphere table the closest-hit kernel sweeps.
+packs the Morton-ordered sphere table the closest-hit and any-hit kernels
+sweep, with the chunk bounds the any-hit kernel culls by.
 """
 
 from __future__ import annotations
@@ -18,11 +19,15 @@ MAX_MEMBERS = 32
 
 @dataclasses.dataclass(frozen=True)
 class MortonAccel:
-    """Per-frame table of the Morton closest-hit kernel: the planar
-    Morton-ordered sphere table ``[cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2]``.
-    The reference's per-chunk bounds table feeds only its kernel's culls,
-    which the CUDA kernel does not do yet; ``refit`` gives the bounds."""
+    """Per-frame tables of the Morton kernels: the planar Morton-ordered
+    sphere table ``[cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2]`` and, in the
+    same chunk order, one bounding sphere per chunk of ``chunk`` slots
+    ``[cx cy cz r count]``. Rows 0-3 of ``bounds`` are the reference's
+    ``bounds_tbl`` (``refit``: centroid, covering radius plus the motion
+    slack); row 4 is the chunk's filled-slot count (its filled slots come
+    first). The any-hit kernel (B2) culls chunks with them."""
     table: torch.Tensor       # (9, C*M)
+    bounds: torch.Tensor      # (5, C)
     n_chunks: int
     chunk: int
 
@@ -102,17 +107,18 @@ def refit(plan: ClusterPlan, centers, radii, slack: float = 0.25
 
 def make_morton_accel(plan: ClusterPlan, centers, radii,
                       sort_origin=None) -> MortonAccel:
-    """Per-frame tables for the Morton closest-hit kernel: refit chunk
-    bounds and pack the planar Morton-ordered sphere table with an
-    object-index row. `sort_origin` (usually the camera position) orders
-    chunks near-to-far from that point; the order does not change the
-    closest hit (a min over chunks; object ids ride the table rows)."""
+    """Per-frame tables for the Morton kernels: refit chunk bounds and
+    pack the planar Morton-ordered sphere table with an object-index row.
+    `sort_origin` (usually the camera position) orders chunks near-to-far
+    from that point; the order does not change the closest hit (a min over
+    chunks; object ids ride the table rows) or the any hit."""
     member = plan.member_object
+    bounds = refit(plan, centers, radii)
+    center, radius = bounds.center, bounds.radius
     if sort_origin is not None:
-        bounds = refit(plan, centers, radii)
-        key = torch.sqrt(((bounds.center - sort_origin) ** 2).sum(dim=-1)) \
-            - bounds.radius
-        member = member[torch.argsort(key, stable=True)]
+        key = torch.sqrt(((center - sort_origin) ** 2).sum(dim=-1)) - radius
+        order = torch.argsort(key, stable=True)
+        member, center, radius = member[order], center[order], radius[order]
     c, mm = member.shape
     valid = member >= 0
     safe = torch.clamp(member, min=0)
@@ -130,4 +136,7 @@ def make_morton_accel(plan: ClusterPlan, centers, radii,
     obj = torch.where(valid, member, 0).reshape(flat).float()
     table = torch.stack([cx, cy, cz, r, obj,
                          -2.0 * cx, -2.0 * cy, -2.0 * cz, ccrr])
-    return MortonAccel(table=table.contiguous(), n_chunks=c, chunk=mm)
+    count = valid.sum(dim=1).to(torch.float32)
+    bounds_tbl = torch.cat([center.T, radius[None], count[None]])
+    return MortonAccel(table=table.contiguous(),
+                       bounds=bounds_tbl.contiguous(), n_chunks=c, chunk=mm)

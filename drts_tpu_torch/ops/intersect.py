@@ -3,11 +3,12 @@
 ``intersect_spheres`` packs the rays planar and hands them to a kernel in
 ``intersect_kernels``: the Morton-table kernel (B1) when a MortonAccel is
 passed, the brute-force kernel (B11) when none is. ``intersect_spheres_any``
-is the shadow ray: the any-hit kernel (B2) over the Morton table, or, with
-no accel, the hit bit of the brute-force kernel (B11). The
-reference's 8x128 screen-tile ray order is a TPU block-culling aid;
-results do not depend on it, and these kernels have no block culls yet,
-so rays keep pixel order.
+is the shadow ray: the any-hit kernel (B2) over the Morton table and its
+chunk bounds, or, with no accel, the hit bit of the brute-force kernel
+(B11). The reference's 8x128 screen-tile ray order is a TPU block-culling
+aid; results do not depend on it, and these kernels cull per ray or not
+at all, so rays keep pixel order (neighbouring lanes of a warp still
+share most of their work).
 """
 
 from __future__ import annotations
@@ -104,7 +105,8 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
                      flat(t_min), flat(t_max))
     exclude = flat(-1.0 if exclude_index is None else exclude_index)
     rays9 = torch.cat([rays, exclude[None]]).contiguous()
-    return ik.occlusion_morton(rays9, accel.table, block_size).reshape(lead)
+    return ik.occlusion_morton(rays9, accel.table, accel.bounds,
+                               block_size).reshape(lead)
 
 
 def _make_hit(origin, direction, t_best, idx) -> SphereHit:

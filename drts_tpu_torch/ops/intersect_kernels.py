@@ -20,8 +20,14 @@ operations and one IEEE sqrt against 32 bytes of ray read once per ray, so
 the sweep is bound by instruction issue, not by memory bandwidth. The
 design keeps one thread per ray, stages the table in shared memory (a
 broadcast read per pair) and keeps the running best in registers, with no
-atomics. The TPU kernel's conservative chunk culls (cone, behind,
-distance) do not change the result and are left for a later version.
+atomics. B1 and B11 sweep every pair. B2 culls per lane: it skips a chunk
+of the Morton table whose bound (``MortonAccel.bounds``) the ray's segment
+passes farther than a margin that covers rounding, sweeps only a chunk's
+filled slots (four at a time), and leaves at the first blocker; the culls
+never change a bit of the result (``csrc/intersect.cu`` states the
+margins).
+``occlusion_morton_work`` counts the chunk tests and pairs that this needs,
+with the kernel's own cull, for the bound of ``chip_smoke.py``.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel, or the wrapper raises. There is
@@ -178,43 +184,133 @@ def intersect_brute(rays, spheres, block: int = 16384):
 # B2: Morton-table any-hit occlusion
 
 
-def occlusion_morton_plain(rays9, table, block: int = 16384):
+def occlusion_morton_plain(rays9, table, bounds=None, block: int = 16384):
     """Plain PyTorch B2: rays9 (9, N) [ox oy oz dx dy dz tmin tmax
     exclude_obj] (exclude -1 = none); table (9, cols) as B1. Returns
     occluded (N,) bool: some column has t in [tmin, tmax] and an object id
     other than the ray's excluded one. Dead lanes (tmax < tmin) are never
-    occluded."""
+    occluded. ``bounds`` is ignored: the kernel's culls do not change the
+    result, which this computes from the table alone."""
     n, cols = rays9.shape[1], table.shape[1]
-    cx, cy, cz, _, obj, m2x, m2y, m2z, ccrr = (c[None, :] for c in table)
     occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
     starts, step = _blocks(n, cols, block)
     for s in starts:
-        ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(
-            rays9[:8, s:s + step])
-        exclude = rays9[8, s:s + step, None]
-        b2 = od - (cx * dx + cy * dy + cz * dz)
-        c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
-        sq = torch.sqrt(b2 * b2 - c2)          # NaN when the ray misses
-        t_near = -b2 - sq
-        t = torch.where(t_near >= tmin, t_near, sq - b2)
-        blocked = (t >= tmin) & (t <= tmax) & (obj != exclude)
-        occ[s:s + step] = blocked.any(dim=1)
+        occ[s:s + step] = occlusion_pair_blocked(rays9[:, s:s + step],
+                                                 table).any(1)
     return occ
 
 
-def occlusion_morton(rays9, table, block: int = 16384):
-    """B2 any-hit; see occlusion_morton_plain for the contract. A CUDA
-    tensor launches drts_morton_occlusion (csrc/intersect.cu)."""
+def occlusion_pair_blocked(rays9, table):
+    """(N, cols) bool: the table column blocks the ray (B2's pair test, in
+    the kernel's operations and order; dead lanes block nothing)."""
+    cx, cy, cz, _, obj, m2x, m2y, m2z, ccrr = (c[None, :] for c in table)
+    ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays9[:8])
+    exclude = rays9[8, :, None]
+    b2 = od - (cx * dx + cy * dy + cz * dz)
+    c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
+    sq = torch.sqrt(b2 * b2 - c2)              # NaN when the ray misses
+    t_near = -b2 - sq
+    t = torch.where(t_near >= tmin, t_near, sq - b2)
+    return (t >= tmin) & (t <= tmax) & (obj != exclude)
+
+
+# Rounding margin of B2's chunk cull, relative to S = |o|_1 + |C|_1 + R + T
+# (csrc/intersect.cu states the cull). The wrapper passes it to the kernel,
+# and occlusion_chunk_met reads it, so both cull with this one value. A
+# computed root t of the quadratic lies at most sqrt(E) from its sphere's
+# surface, E <= 32 u S^2 with u = 2^-24 (the rounding of od, oo, the
+# table's -2c.o and |c|^2-r^2, b2^2 - c2, the sqrt and t), so
+# sqrt(E) <= 2^-9.5 S; 2^-8 S also covers the refit's own rounding and the
+# cull test's.
+CULL_SCALE = 2.0 ** -8
+
+
+def _check_bounds(table, bounds):
+    _check("bounds", bounds, 5)
+    n_chunks = bounds.shape[1]
+    if bounds.device != table.device:
+        raise ValueError(f"bounds on {bounds.device}, table on "
+                         f"{table.device}")
+    if n_chunks < 1 or table.shape[1] % n_chunks:
+        raise ValueError(f"{n_chunks} chunk bounds do not divide "
+                         f"{table.shape[1]} table columns")
+    return table.shape[1] // n_chunks
+
+
+def occlusion_chunk_met(rays9, bounds):
+    """(N, n_chunks) bool: B2's chunk cull lets the chunk through for the
+    ray (its segment passes within the chunk's bound plus the margins),
+    in the kernel's operations and order. Dead lanes meet nothing."""
+    ox, oy, oz, dx, dy, dz, tmin, tmax = (r[:, None] for r in rays9[:8])
+    bx, by, bz, br = (b[None, :] for b in bounds[:4])
+    m_k = br + CULL_SCALE * (bx.abs() + by.abs() + bz.abs() + br)
+    dd = dx * dx + dy * dy + dz * dz
+    o1 = ox.abs() + oy.abs() + oz.abs()
+    big_t = torch.fmax(tmin.abs(), tmax.abs())
+    m_r = torch.where((dd >= 0.5) & (dd <= 2.0),
+                      big_t * torch.sqrt((dd - 1.0).abs())
+                      + CULL_SCALE * (o1 + big_t), float("inf"))
+    inv_dd = 1.0 / dd
+    vx, vy, vz = bx - ox, by - oy, bz - oz
+    vd = vx * dx + vy * dy + vz * dz
+    s = torch.fmin(torch.fmax(vd * inv_dd, tmin), tmax)
+    wx, wy, wz = vx - s * dx, vy - s * dy, vz - s * dz
+    lim = m_k + m_r
+    met = ~(wx * wx + wy * wy + wz * wz > lim * lim)
+    return met & (tmax >= tmin)
+
+
+def occlusion_morton_work(rays9, table, bounds, block: int = 16384):
+    """The work B2's kernel needs on these rays, in its visit order: per
+    ray, (chunk tests, chunks met, pairs swept), each int64 (N,). A live
+    ray tests chunks in table order up to and including the one that holds
+    its first blocker (all of them where none blocks) and sweeps the
+    filled slots of each chunk it meets, up to and including the blocker
+    (the kernel tests slots four at a time, so it may test up to three
+    more). Dead lanes do nothing."""
+    n = rays9.shape[1]
+    chunk = _check_bounds(table, bounds)
+    n_chunks = bounds.shape[1]
+    count = torch.clamp(bounds[4].to(torch.int64), 0, chunk)
+    filled = (torch.arange(chunk, device=table.device)[None, :]
+              < count[:, None]).reshape(-1)
+    out = [torch.zeros(n, dtype=torch.int64, device=rays9.device)
+           for _ in range(3)]
+    starts, step = _blocks(n, table.shape[1], block)
+    for s in starts:
+        r = rays9[:, s:s + step]
+        met = occlusion_chunk_met(r, bounds)
+        hit = (occlusion_pair_blocked(r, table) & filled
+               & met.repeat_interleave(chunk, dim=1))
+        blocked = hit.any(1)
+        first = torch.where(blocked, hit.to(torch.uint8).argmax(1),
+                            hit.shape[1] - 1)
+        last = (first // chunk)[:, None]   # the last chunk tested
+        k = torch.arange(n_chunks, device=r.device)[None, :]
+        pairs = (met & (k < last)).mul(count).sum(1) + torch.where(
+            blocked, first % chunk + 1, met[:, -1] * count[-1])
+        live = r[7] >= r[6]
+        out[0][s:s + step] = torch.where(live, last[:, 0] + 1, 0)
+        out[1][s:s + step] = (met & (k <= last)).sum(1)
+        out[2][s:s + step] = torch.where(live, pairs, 0)
+    return tuple(out)
+
+
+def occlusion_morton(rays9, table, bounds, block: int = 16384):
+    """B2 any-hit; see occlusion_morton_plain for the contract. bounds
+    (5, n_chunks) is ``MortonAccel.bounds`` for ``table``. A CUDA tensor
+    launches drts_morton_occlusion (csrc/intersect.cu)."""
     _check_pair(rays9, table, 9, ray_rows=9)
+    _check_bounds(table, bounds)
     if rays9.device.type == "cpu":
-        return occlusion_morton_plain(rays9, table, block)
+        return occlusion_morton_plain(rays9, table, bounds, block)
     lib = backend.kernels()
     n, cols = rays9.shape[1], table.shape[1]
     occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
     rc = lib.drts_morton_occlusion(rays9.data_ptr(), n, table.data_ptr(),
-                                   cols, occ.data_ptr(),
+                                   cols, bounds.data_ptr(), bounds.shape[1],
+                                   CULL_SCALE, occ.data_ptr(),
                                    backend.stream_handle(rays9))
     backend.check_launch(rc, "drts_morton_occlusion")
     backend.launched("occlusion_morton")
     return occ
-

@@ -11,7 +11,13 @@ in-frame test. The TPU kernel's extra ``ok=False`` for residuals outside
 both of its windows has no counterpart: the gather is exact for any motion.
 
 What bounds it on the H100: memory. One row of C words per tap in, C words
-out and the motion per pixel. The kernel is one thread per pixel.
+out and the motion per pixel. The kernel is one thread per (pixel, vector
+of V words): ``vector_width`` picks V = 4, 2 or 1 from C and the
+pointers' alignment, so a warp moves contiguous 4V-byte vectors; in
+bilinear mode one thread takes a pixel's C channels. A block covers a 2-D
+patch of the output (about 32 vector slots by 8 rows, set in the
+``.cu``), so its taps fall into a few source rows where the motion is
+smooth.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version;
 a CUDA tensor launches the kernel, or the wrapper raises.
@@ -24,6 +30,16 @@ import torch
 from .. import backend
 
 MODES = ("nearest", "bilinear")
+
+
+def vector_width(c: int, *tensors) -> int:
+    """Words per thread of the nearest-mode kernel: 4 where C % 4 == 0 and
+    every tensor's data is 16-byte aligned, 2 where C % 2 == 0 and it is
+    8-byte aligned, else 1."""
+    for v in (4, 2):
+        if c % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors):
+            return v
+    return 1
 
 
 def _coords(motion):
@@ -88,10 +104,14 @@ def reproject_packed(src, motion, mode: str = "bilinear"):
         raise ValueError(f"unsupported device {src.device}")
     src = src.contiguous()
     motion = motion.contiguous()
+    if motion.data_ptr() % 8:
+        motion = motion.clone()   # the kernel loads (x, y) as one float2
     out = torch.empty_like(src)
     ok = torch.empty((h, w), dtype=torch.bool, device=src.device)
+    bilinear = mode == "bilinear"
+    vec = 1 if bilinear else vector_width(c, src, out)
     rc = backend.kernels().drts_reproject(
-        src.data_ptr(), motion.data_ptr(), h, w, c, int(mode == "bilinear"),
+        src.data_ptr(), motion.data_ptr(), h, w, c, int(bilinear), vec,
         out.data_ptr(), ok.data_ptr(), backend.stream_handle(src))
     backend.check_launch(rc, "drts_reproject")
     backend.launched("reproject_packed")

@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import time
 
 import torch
@@ -97,7 +98,8 @@ def profile_frames(frames: int = 2, device="cuda",
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     hand = {}
     for name in HAND_KERNELS:
-        found = [e for e in kernels if f"{name}(" in e.key]
+        found = [e for e in kernels
+                 if re.search(rf"\b{name}[(<]", e.key)]
         hand[name] = {
             "calls_per_frame": sum(e.count for e in found) / frames,
             "ms_per_frame": sum(_device_us(e) for e in found) / frames / 1e3}

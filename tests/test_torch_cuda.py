@@ -3,8 +3,12 @@
 Marked ``cuda``; each test skips where PyTorch sees no GPU. They cover what
 the main paths' shapes do not: tables wider than one shared-memory tile
 (512 columns), ray and pixel counts that are not a multiple of the block
-size, dead lanes, light tables of 1 and 128 rows, reprojection of 1 and 9
-channels with motion off every edge, and for the mesh kernels 1 and 600
+size, dead lanes, light tables of 1 and 128 rows, reprojection of 1 to
+4,100 channels (each vector width, and pixels wider than one block) with
+motion off every edge and on views that are not 16-byte aligned, B2 with
+a table wider than one shared-memory tile, a dead batch, singleton chunks,
+rays tangent to its chunk bounds and the cull's rounding margin taken
+from the wrapper, and for the mesh kernels 1 and 600
 instances (a scan table beyond one 512-row tile), a 2,048-face mesh (a
 triangle table of 72 KB, beyond one shared-memory tile) and a batch of
 dead lanes only; the any-hit mesh kernels also with short ranges and with
@@ -92,29 +96,119 @@ def test_brute_kernel_equals_plain(dev, k, n):
     assert bool(torch.isfinite(out[0]).any())
 
 
-@pytest.mark.parametrize("k,n,excluded", [(1500, 5001, True),
-                                          (40, 300, False)])
-def test_occlusion_kernel_equals_plain(dev, k, n, excluded):
-    """B2 with a ragged ray count, dead lanes (tmax = -1), finite tmax and
-    an excluded object per ray (or none)."""
+def tangent_case(k, seed, per_chunk=6):
+    """k spheres, their Morton accel, bounds refit with no slack (the
+    outermost sphere of each chunk touches its bound) and shadow rays
+    tangent to each chunk's bound where that sphere touches it, their
+    distance to the bound's centre moved by -1, 0 and +1 ulp; nothing is
+    excluded, so the touching sphere blocks wherever the quadratic rounds
+    to a hit. Returns (accel, tight bounds, rays9), all on the CPU."""
+    rng = np.random.RandomState(seed)
+    centers = np.asarray(rng.randn(k, 3) * 8, np.float32)
+    radii = np.asarray(0.05 + 0.5 * rng.rand(k), np.float32)
+    plan = clusters.build_plan_morton(centers, radii, device="cpu")
+    c_t, r_t = torch.from_numpy(centers), torch.from_numpy(radii)
+    accel = clusters.make_morton_accel(plan, c_t, r_t)
+    tight = clusters.refit(plan, c_t, r_t, slack=0.0)
+    bounds = torch.cat([tight.center.T, tight.radius[None],
+                        accel.bounds[4:]]).contiguous()
+    rows = []
+    for ch, members in enumerate(plan.member_object.numpy()):
+        members = members[members >= 0]
+        bc = tight.center[ch].double().numpy()
+        br = float(tight.radius[ch])
+        e = centers[members].astype(np.float64) - bc
+        far = np.linalg.norm(e, axis=1) + radii[members]
+        e = e[np.argmax(far)]
+        e = e / max(np.linalg.norm(e), 1e-12)
+        for j in range(per_chunk):
+            u = np.cross(e, rng.randn(3))
+            u /= np.linalg.norm(u)
+            length = 2.0 + 10.0 * rng.rand()
+            for step in (-1, 0, 1):
+                dist = br + step * float(np.spacing(np.float32(br)))
+                o = bc + e * dist - u * length
+                rows.append([*o, *u, 0.0, 2.0 * length, -1.0])
+    rays9 = torch.from_numpy(np.asarray(rows, np.float32).T.copy())
+    return accel, bounds, rays9
+
+
+def occlusion_case(kind, dev):
+    """(accel, bounds, rays9) on `dev` for test_occlusion_kernel_equals_plain:
+    `kind` is (spheres, rays, excluded, variant)."""
+    k, n, excluded, variant = kind
+    if variant == "tangent":
+        accel, bounds, rays9 = tangent_case(k, seed=k)
+        return (clusters.MortonAccel(accel.table.to(dev), bounds.to(dev),
+                                     accel.n_chunks, accel.chunk),
+                bounds.to(dev), rays9.to(dev))
     centers, radii, rays = random_case(k, n, seed=k + 1)
+    if variant == "singletons":
+        radii[::7] = 2.5 + radii[::7]   # beyond big_radius: one per chunk
     plan = clusters.build_plan_morton(centers, radii, max_members=32,
                                       device=dev)
     accel = clusters.make_morton_accel(plan, torch.from_numpy(centers).to(dev),
-                                       torch.from_numpy(radii).to(dev))
+                                       torch.from_numpy(radii).to(dev),
+                                       sort_origin=rays[:3].mean(1).to(dev))
     rng = np.random.RandomState(n)
     rays[7] = torch.where(rays[7] > 0, torch.from_numpy(
         np.asarray(30.0 * rng.rand(n), np.float32)), rays[7])
+    if variant == "dead":
+        rays[7] = -1.0
     exclude = (rng.randint(0, k, n) if excluded else np.full(n, -1))
     rays9 = torch.cat([rays, torch.from_numpy(
         exclude.astype(np.float32))[None]]).to(dev).contiguous()
+    return accel, accel.bounds, rays9
+
+
+@pytest.mark.parametrize("k,n,excluded,variant", [
+    (1500, 5001, True, None), (40, 300, False, None),
+    (7000, 3001, True, None), (300, 1000, True, "dead"),
+    (300, 2001, True, "singletons"), (400, 0, False, "tangent")])
+def test_occlusion_kernel_equals_plain(dev, k, n, excluded, variant):
+    """B2 with a ragged ray count, dead lanes (tmax = -1), finite tmax and
+    an excluded object per ray (or none); a table of 7,008 columns, five
+    shared-memory tiles; a batch of dead lanes only; big
+    spheres in singleton chunks; and rays tangent to chunk bounds refit
+    with no slack."""
+    accel, bounds, rays9 = occlusion_case((k, n, excluded, variant), dev)
+    n = rays9.shape[1]
     before = backend.LAUNCHES["occlusion_morton"]
-    occ = ik.occlusion_morton(rays9, accel.table)
+    occ = ik.occlusion_morton(rays9, accel.table, bounds)
     assert backend.LAUNCHES["occlusion_morton"] == before + 1
-    assert torch.equal(occ.cpu(), ik.occlusion_morton_plain(rays9,
-                                                            accel.table).cpu())
-    assert 0 < int(occ.sum()) < n
+    assert torch.equal(occ.cpu(), ik.occlusion_morton_plain(
+        rays9, accel.table, bounds).cpu())
     assert not bool(occ[rays9[7] < rays9[6]].any())
+    if variant == "dead":
+        assert not bool(occ.any())
+    else:
+        assert 0 < int(occ.sum()) < n
+    if variant == "singletons":
+        assert bool((bounds[4] == 1).any())
+    if k == 7000:   # more chunks than one 48 KB tile holds
+        assert bounds.shape[1] * (2 * 16 * 32 + 20) > 4 * 48 * 1024
+
+
+@pytest.mark.parametrize("scale", [ik.CULL_SCALE, 0.0])
+def test_occlusion_kernel_culls_with_the_wrappers_scale(dev, scale,
+                                                        monkeypatch):
+    """B2 on rays tangent to chunk bounds refit with no slack culls with
+    the rounding margin the wrapper passes: with CULL_SCALE it equals the
+    unculled plain version, and with the margin set to 0 it equals the
+    culled sweep of the same scale, which drops blockers there."""
+    monkeypatch.setattr(ik, "CULL_SCALE", scale)
+    accel, bounds, rays9 = tangent_case(400, seed=400)
+    chunk = accel.chunk
+    filled = (torch.arange(chunk)[None, :]
+              < bounds[4].long()[:, None]).reshape(-1)
+    met = ik.occlusion_chunk_met(rays9, bounds).repeat_interleave(chunk, 1)
+    culled = (ik.occlusion_pair_blocked(rays9, accel.table) & filled
+              & met).any(1)
+    plain = ik.occlusion_morton_plain(rays9, accel.table)
+    occ = ik.occlusion_morton(rays9.to(dev), accel.table.to(dev),
+                              bounds.to(dev)).cpu()
+    assert torch.equal(occ, culled)
+    assert torch.equal(occ, plain) == (scale > 0)
 
 
 def candidate_inputs(n, n_lights, seed, n_l=8, s=8):
@@ -166,11 +260,13 @@ def test_candidate_kernel_equals_plain(dev, n, n_lights, n_b):
     assert float(f_k[3].max()) > 0.0   # some candidate carries weight
 
 
-@pytest.mark.parametrize("c", [1, 9])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 8, 9, 129, 258, 1025, 4100])
 @pytest.mark.parametrize("mode", ["nearest", "bilinear"])
 def test_reproject_kernel_equals_plain(dev, c, mode):
-    """B4 with 1 and 9 channels, a frame that is not a multiple of the
-    block size, and motion that leaves the frame on every side."""
+    """B4 with 1 to 4,100 channels (vector widths 1, 2 and 4; 129 and 258
+    fit fewer rows in a block, 1025 and 4100 hold more vector slots than a
+    block has threads), a frame that is not a multiple of the block size,
+    and motion that leaves the frame on every side."""
     h, w = 37, 53
     rng = np.random.RandomState(c)
     src = torch.from_numpy(np.asarray(rng.randn(h, w, c), np.float32)).to(dev)
@@ -183,12 +279,38 @@ def test_reproject_kernel_equals_plain(dev, c, mode):
     assert torch.equal(out.cpu().view(torch.int32),
                        out_p.cpu().view(torch.int32))
     assert torch.equal(ok.cpu(), ok_p.cpu())
+    assert rp.vector_width(c, src, out) == {
+        1: 1, 2: 2, 3: 1, 4: 4, 8: 4, 9: 1, 129: 1, 258: 2, 1025: 1,
+        4100: 4}[c]
     m = motion.cpu()
     assert bool((m[..., 0] + torch.arange(w) < 0).any())
     assert bool((m[..., 0] + torch.arange(w) > w - 1).any())
     assert bool((m[..., 1] + torch.arange(h)[:, None] < 0).any())
     assert bool((m[..., 1] + torch.arange(h)[:, None] > h - 1).any())
     assert 0 < int(ok.sum()) < h * w
+
+
+@pytest.mark.parametrize("c,offset,vec", [(4, 1, 1), (4, 2, 2), (8, 2, 2),
+                                          (8, 1, 1)])
+def test_reproject_kernel_misaligned_src(dev, c, offset, vec):
+    """B4 nearest on src and motion views that start `offset` words into
+    their storage: the wrapper takes a narrower vector (or copies the
+    motion), and the words are still those of the plain version."""
+    h, w = 29, 41
+    rng = np.random.RandomState(c + offset)
+    store = torch.from_numpy(np.asarray(rng.randn(h * w * c + offset),
+                                        np.float32)).to(dev)
+    src = store[offset:].view(h, w, c)
+    mstore = torch.from_numpy(np.asarray(rng.randn(h * w * 2 + 1) * 20,
+                                         np.float32)).to(dev)
+    motion = mstore[1:].view(h, w, 2)
+    assert src.data_ptr() % 16 == 4 * offset and motion.data_ptr() % 8 == 4
+    assert rp.vector_width(c, src) == vec
+    out, ok = rp.reproject_packed(src, motion, "nearest")
+    out_p, ok_p = rp.reproject_packed_plain(src, motion, "nearest")
+    assert torch.equal(out.cpu().view(torch.int32),
+                       out_p.cpu().view(torch.int32))
+    assert torch.equal(ok.cpu(), ok_p.cpu())
 
 
 def mesh_case(k, n, tess, seed, dev, dead=False):

@@ -1,7 +1,9 @@
 """The port's any-hit kernel (B2) plain version against the reference's
-Pallas ``occlusion_morton_planar`` in interpret mode, and the port's
+Pallas ``occlusion_morton_planar`` in interpret mode, the port's
 visibility ray (``intersect.intersect_spheres_any``, ``trace.occluded_scene``)
-around it.
+around it, and the chunk bounds and culls of the kernel (``MortonAccel.bounds``
+against the reference's ``bounds_tbl``, ``occlusion_chunk_met``,
+``occlusion_morton_work``).
 
 Tolerance: the occluded bits are equal. A bit could flip only where a hit
 t lands within rounding of a ray's tmin or tmax (XLA:CPU contracts the
@@ -48,6 +50,19 @@ def case():
     return centers, radii, n, rays, acc, plan, exclude
 
 
+def port_accel(case):
+    centers, radii, _, _, _, plan, _ = case
+    return tclusters.make_morton_accel(
+        convert.cluster_plan(plan, "cpu"), torch.from_numpy(centers),
+        torch.from_numpy(radii), sort_origin=torch.tensor([1.0, 2.0, 3.0]))
+
+
+def case_rays9(case):
+    _, _, n, rays, _, _, exclude = case
+    return torch.from_numpy(np.concatenate(
+        [np.asarray(rays)[:, :n], exclude[None]]).astype(np.float32))
+
+
 def reference(rays, acc, exclude_row):
     rays9 = jnp.concatenate([rays, jnp.asarray(exclude_row)[None, :]])
     occ = ip.occlusion_morton_planar(rays9, acc.bounds_tbl, acc.table,
@@ -65,12 +80,9 @@ def test_plain_matches_pallas(case, with_exclude):
     ref = reference(rays, acc, row)[:n]
     rays9 = torch.from_numpy(np.concatenate([np.asarray(rays), row[None]])
                              [:, :n].copy())
-    for table in (convert.morton_accel(acc, "cpu").table,
-                  tclusters.make_morton_accel(
-                      convert.cluster_plan(plan, "cpu"),
-                      torch.from_numpy(centers), torch.from_numpy(radii),
-                      sort_origin=torch.tensor([1.0, 2.0, 3.0])).table):
-        occ = ik.occlusion_morton(rays9, table, block=1000)
+    for accel in (convert.morton_accel(acc, "cpu"), port_accel(case)):
+        occ = ik.occlusion_morton(rays9, accel.table, accel.bounds,
+                                  block=1000)
         assert occ.dtype == torch.bool
         np.testing.assert_array_equal(occ.numpy(), ref)
     live = np.asarray(rays)[7, :n] >= 0
@@ -102,7 +114,8 @@ def test_visibility_ray_entry_points(case):
     got = tintersect.intersect_spheres_any(o, d, 0.0, tmax, 4096,
                                            exclude_index=ex, accel=accel)
     rays9 = torch.from_numpy(np.concatenate([r, exclude[None]]))
-    want = ik.occlusion_morton_plain(rays9, accel.table).reshape(64, 64)
+    want = ik.occlusion_morton_plain(rays9, accel.table,
+                                     accel.bounds).reshape(64, 64)
     assert torch.equal(got, want)
     sc = tscene.SphereScene(
         center=torch.from_numpy(centers), rotation=None, prev_center=None,
@@ -138,12 +151,106 @@ def test_visibility_ray_entry_points(case):
 def test_cpu_tensor_takes_plain_version_without_launch(case):
     _, _, n, rays, acc, _, exclude = case
     rays9 = torch.zeros((9, 8))
+    accel = convert.morton_accel(acc, "cpu")
     before = dict(backend.LAUNCHES)
-    ik.occlusion_morton(rays9, convert.morton_accel(acc, "cpu").table)
+    ik.occlusion_morton(rays9, accel.table, accel.bounds)
     assert backend.LAUNCHES == before
     with pytest.raises(ValueError, match=r"\(9, N\)"):
-        ik.occlusion_morton(torch.zeros((8, 8)),
-                            convert.morton_accel(acc, "cpu").table)
+        ik.occlusion_morton(torch.zeros((8, 8)), accel.table, accel.bounds)
     with pytest.raises(ValueError, match="unsupported device"):
         ik.occlusion_morton(rays9.to("meta"),
-                            torch.zeros((9, 8), device="meta"))
+                            torch.zeros((9, 8), device="meta"),
+                            torch.zeros((5, 1), device="meta"))
+    with pytest.raises(ValueError, match=r"\(5, N\)"):
+        ik.occlusion_morton(rays9, accel.table, accel.bounds[:4])
+    with pytest.raises(ValueError, match="divide"):
+        ik.occlusion_morton(rays9, accel.table,
+                            accel.bounds[:, :-1].contiguous())
+
+
+def test_bounds_match_reference(case):
+    """MortonAccel.bounds rows 0-3 are the reference's bounds_tbl without
+    its padding columns, both as converted and as the port's own refit
+    builds them (the refit's sums round in another order: 1e-6 relative,
+    2e-6 absolute); row 4 is each chunk's filled-slot count, in the
+    table's sorted chunk order."""
+    _, _, _, _, acc, plan, _ = case
+    ref = np.asarray(acc.bounds_tbl)[:, :acc.n_chunks]
+    mine = port_accel(case)
+    conv = convert.morton_accel(acc, "cpu")
+    assert conv.bounds.shape == mine.bounds.shape == (5, acc.n_chunks)
+    np.testing.assert_array_equal(conv.bounds[:4].numpy(), ref)
+    np.testing.assert_allclose(mine.bounds[:4].numpy(), ref, rtol=1e-6,
+                               atol=2e-6)
+    np.testing.assert_array_equal(mine.bounds[4].numpy(),
+                                  conv.bounds[4].numpy())
+    filled = np.asarray(acc.table)[3].reshape(acc.n_chunks, acc.chunk) > 0
+    np.testing.assert_array_equal(conv.bounds[4].numpy(), filled.sum(1))
+    assert sorted(conv.bounds[4].tolist()) == sorted(
+        (np.asarray(plan.member_object) >= 0).sum(1).tolist())
+
+
+@pytest.mark.parametrize("kind", ["random", "tangent", "tangent-no-margin"])
+def test_cull_never_skips_a_blocker(case, kind, monkeypatch):
+    """No chunk that holds a blocking slot fails B2's cull: on the file's
+    case, and on rays tangent to chunk bounds refit with no slack (their
+    distance to the bound's centre within 1 ulp of its radius), where the
+    rounding margin alone keeps the touching sphere's chunk. Without that
+    margin the tangent case does skip blockers: it tests the margin."""
+    if kind == "random":
+        accel, rays9 = port_accel(case), case_rays9(case)
+        bounds = accel.bounds
+    else:
+        from test_torch_cuda import tangent_case
+        accel, bounds, rays9 = tangent_case(400, seed=400)
+    if kind == "tangent-no-margin":
+        monkeypatch.setattr(ik, "CULL_SCALE", 0.0)
+    n, chunk = rays9.shape[1], accel.chunk
+    holds = ik.occlusion_pair_blocked(rays9, accel.table)
+    holds = holds.reshape(n, -1, chunk)
+    holds = holds.any(-1) & (rays9[7] >= rays9[6])[:, None]
+    met = ik.occlusion_chunk_met(rays9, bounds)
+    skipped = int((holds & ~met).sum())
+    assert int(holds.sum()) > 50
+    if kind == "tangent-no-margin":
+        assert skipped > 0
+    else:
+        assert skipped == 0
+        assert float(met.float().mean()) < 0.7   # the cull does cull
+
+
+def test_work_counts_the_kernels_walk(case):
+    """occlusion_morton_work equals a lane-by-lane walk of the kernel's
+    loops (chunks in table order, the cull, filled slots, the exit at the
+    first blocker) on 400 of the file's rays, and a walk stops no later
+    than the unculled sweep would (and, on average, well before)."""
+    accel, rays9 = port_accel(case), case_rays9(case)[:, :400].contiguous()
+    tests, met_n, pairs = ik.occlusion_morton_work(rays9, accel.table,
+                                                   accel.bounds, block=128)
+    met = ik.occlusion_chunk_met(rays9, accel.bounds)
+    blocked = ik.occlusion_pair_blocked(rays9, accel.table)
+    count = accel.bounds[4].long().tolist()
+    want = []
+    for i in range(rays9.shape[1]):
+        walk = [0, 0, 0]
+        if rays9[7, i] >= rays9[6, i]:
+            for k in range(accel.n_chunks):
+                walk[0] += 1
+                if not met[i, k]:
+                    continue
+                walk[1] += 1
+                hit = blocked[i, k * accel.chunk:k * accel.chunk + count[k]]
+                if bool(hit.any()):
+                    walk[2] += int(hit.to(torch.uint8).argmax()) + 1
+                    break
+                walk[2] += count[k]
+        want.append(walk)
+    got = torch.stack([tests, met_n, pairs], 1)
+    assert torch.equal(got, torch.tensor(want))
+    live = rays9[7] >= rays9[6]
+    first = torch.where(blocked.any(1),
+                        blocked.to(torch.uint8).argmax(1) + 1,
+                        accel.table.shape[1])
+    assert bool((pairs[live] <= first[live]).all())
+    assert float(pairs[live].float().mean()) < 0.7 * float(
+        first[live].float().mean())

@@ -149,3 +149,21 @@ def test_wrapper_checks_and_cpu_dispatch(case):
         rk.reproject_packed(src, mot[:, :-1], "nearest")
     with pytest.raises(ValueError, match="unsupported device"):
         rk.reproject_packed(src.to("meta"), mot.to("meta"), "nearest")
+
+
+@pytest.mark.parametrize("c,vec", [(1, 1), (2, 2), (3, 1), (4, 4), (8, 4),
+                                   (9, 1), (129, 1), (258, 2), (1025, 1),
+                                   (4100, 4)])
+def test_vector_width(c, vec):
+    """The words per thread that the wrapper hands the kernel: 4 where C
+    divides by 4, 2 where by 2, else 1, on 16-byte-aligned tensors; a view
+    4 bytes into its storage takes 1, and 8 bytes in takes 2 at most."""
+    src = torch.zeros(H, W, c)
+    out = torch.empty_like(src)
+    assert src.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    assert rk.vector_width(c, src, out) == vec
+    store = torch.zeros(H * W * c + 2)
+    assert rk.vector_width(c, store[1:1 + H * W * c].view(H, W, c),
+                           out) == 1
+    assert rk.vector_width(c, store[2:].view(H, W, c), out) == min(
+        vec, 2)
