@@ -10,13 +10,22 @@ Phases, one printed line or more each; any failure exits non-zero:
    drts_tpu_torch/csrc with nvcc (sm_90a).
 2. kernels: B1 (Morton closest hit) and B11 (brute-force closest hit)
    against their plain PyTorch versions on the card at the path trace's
-   shapes (exact t and index equality), both times from CUDA events.
+   shapes (exact t and index equality), both times from CUDA events. B1
+   runs on the primary and bounce-1 rays of the bench frame; its bound
+   counts the work of its culled walk (intersect_kernels.
+   intersect_morton_work: chunk tests, chunks met, pairs swept, roots
+   taken), printed beside the unculled sweep's bound, chunks met per live
+   ray and per warp, and pairs and roots per live ray.
 3. golden: tests/test_golden.py's recipe rendered by the port on the card
    (no accel, so B11), held to SSIM > 0.97 and |mean diff| < 0.01 against
    tests/golden/demo_64.png.
 4. main: the path-trace bench recipe (1920x1080, 1 spp, 8 bounces, the
    438-sphere demo scene with its per-frame Morton accel): frame time,
-   Mray/s and the launch counts of this run alone.
+   Mray/s and the launch counts of this run alone; then one more frame
+   whose B1 launches are recorded and each timed (CUDA events) and counted
+   on its own rays: B1's kernel time per frame beside its culled and
+   unculled bounds, chunks met per live ray and per warp, and pairs and
+   roots per live ray.
 5. restir kernels: B2 (any-hit occlusion, its three batches), B3 (initial
    light candidates), B4 (reprojection, nearest and bilinear) and B11 (the
    BRDF-candidate light sweep) against their plain versions, on the inputs
@@ -25,8 +34,11 @@ Phases, one printed line or more each; any failure exits non-zero:
    times from CUDA events; B4 bilinear also beside grid_sample. B2's bound
    counts the work its culled sweep needs (intersect_kernels.
    occlusion_morton_work: chunk tests, chunks met, pairs swept), printed
-   beside the unculled sweep's pairs and the chunks a warp meets; B4
-   prints its vector width.
+   beside the unculled sweep's pairs and the chunks a warp meets; B3
+   prints its time against its bound and its registers, spills, shared
+   memory and resident blocks as the card reports them
+   (restir_kernels.initial_light_candidates_info); B4 prints its vector
+   width.
 6. restir: the ReSTIR frame (RenderPipeline.render_frame with physics,
    ReSTIR DI and post, denoiser "None", SHARC off) at 1920x1080 through
    bench.bench_frame, counted from zero: frame time, per-stage times,
@@ -90,8 +102,9 @@ Phases, one printed line or more each; any failure exits non-zero:
    1920x1080: first B4 against its plain version on every reprojection of
    a warm frame (the ReSTIR history, the denoiser's two packed mirrors,
    nearest, and the TAA history, bilinear), with its vector width and
-   kernel, plain and grid_sample times, and B1's bound summed over a SHARC
-   cadence's launches on their own rays; then 7 frames through
+   kernel, plain and grid_sample times, and B1 per frame over a SHARC
+   cadence's launches, each timed and counted on its own rays as in phase
+   4; then 7 frames through
    bench.bench_frame, counted from zero: frame time, per-stage times,
    counters and launches (B4 by mode; the stages timed over one SHARC
    cadence of two frames); the image a finite (1080, 1920, 3) in [0, 1],
@@ -116,8 +129,10 @@ of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
 frame's).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
-tmax only; an any-hit sweep ends at its first blocking triangle), and a
-kernel measured under its bound fails the run. Then the card's name and
+tmax only; an any-hit sweep ends at its first blocking triangle; B1 and
+B2 count their culled walks, and their entries also carry
+"unculled_bound_ms"), and a kernel measured under its bound fails the
+run. Then the card's name and
 power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
@@ -145,7 +160,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
 # Operations per unit of work, counted from csrc/*.cu (a sqrt, division,
 # sine or cosine counts as one; compares and the integer min as one each).
-OPS_B1_PAIR = 25          # ray x table column
+OPS_B1_PAIR = 25          # ray x table column of the unculled sweep
+OPS_B1_SWEPT = 16         # ray x filled slot swept: the discriminant
+OPS_B1_ROOT = 11          # ... not negative: root, range test, packed min
+OPS_B1_CHUNK = 29         # ray x chunk bound tested (the cull)
+OPS_B1_MET = 5            # a met chunk's segment end from the packed best
+OPS_B1_RAY = 30           # a live ray's od, oo, cull margin and unpacking
 OPS_B11_PAIR = 26         # ray x sphere
 OPS_B2_PAIR = 22          # ray x filled slot swept before the exit
 OPS_B2_CHUNK = 25         # ray x chunk bound tested (the cull)
@@ -268,10 +288,62 @@ def lane_bytes(n, live, live_words, out_words, *tables, dead_words=2):
             + sum(t.numel() * t.element_size() for t in tables))
 
 
-def b1_bound(rays, table):
+def b1_unculled_bound(rays, table):
+    """The unculled sweep's bound: every live ray x every table column."""
     n, live = rays.shape[1], live_rays(rays)
     return bound(lane_bytes(n, live, 8, 2, table),
                  live * table.shape[1] * OPS_B1_PAIR)
+
+
+def b1_work(ik, rays, table, bounds, block=262144):
+    """B1's culled work on these rays, from intersect_kernels.
+    intersect_morton_work (chunk tests, chunks met, pairs swept, roots
+    taken, summed over the rays) and warp_chunks_met over its walk, with
+    the live rays and the bound of this work and of the unculled sweep."""
+    w = dict(zip(("tests", "met", "pairs", "roots"), (
+        int(x.sum()) for x in ik.intersect_morton_work(rays, table, bounds,
+                                                       block))))
+    w["warp_met"], w["warps"] = warp_chunks_met(
+        lambda r: ik.closest_chunk_walk(r, table, bounds)[0], rays, block)
+    w["live"] = live = live_rays(rays)
+    w["bound_ms"], w["bound_by"] = bound(
+        lane_bytes(rays.shape[1], live, 8, 2, table, bounds),
+        w["tests"] * OPS_B1_CHUNK + w["met"] * OPS_B1_MET
+        + w["pairs"] * OPS_B1_SWEPT + w["roots"] * OPS_B1_ROOT
+        + live * OPS_B1_RAY)
+    w["unculled_bound_ms"] = b1_unculled_bound(rays, table)[0]
+    return w
+
+
+def b1_sums(works, frames=1):
+    """B1's work summed over launches and divided by `frames`, with its
+    per-lane and per-warp means, as printed by phases 2, 4 and 14.
+    Returns (the line, the sums)."""
+    tot = {k: sum(w[k] for w in works) / frames for k in
+           ("live", "tests", "met", "pairs", "roots", "warp_met", "warps",
+            "bound_ms", "unculled_bound_ms")}
+    tot["bound_by"] = "+".join(sorted({w["bound_by"] for w in works}))
+    live = max(tot["live"], 1)
+    return (f"live={tot['live']} chunk_tests={tot['tests']} "
+            f"chunks_met={tot['met']} pairs={tot['pairs']} "
+            f"chunks_met_per_live_ray={tot['met'] / live!r} "
+            f"chunks_met_per_live_warp="
+            f"{tot['warp_met'] / max(tot['warps'], 1)!r} "
+            f"pairs_per_live_ray={tot['pairs'] / live!r} "
+            f"roots_per_live_ray={tot['roots'] / live!r} "
+            f"bound_ms={tot['bound_ms']!r} ({tot['bound_by']}) "
+            f"unculled_bound_ms={tot['unculled_bound_ms']!r}"), tot
+
+
+def b1_frame(ik, calls, frames, reps=5):
+    """B1 per frame over the launches `recorded` gives: each launch's
+    kernel time (CUDA events, L2 flushed) and work on its own rays, summed
+    and divided by `frames`. Returns (kernel ms per frame, launches per
+    frame, b1_sums' line per frame)."""
+    ms = sum(cuda_ms(lambda c=c: ik.intersect_morton(*c[:3]), reps)
+             for c in calls)
+    line, _ = b1_sums([b1_work(ik, *c[:3]) for c in calls], frames)
+    return ms / frames, len(calls) / frames, line
 
 
 def b11_work(rays, spheres):
@@ -296,20 +368,21 @@ def occlusion_visited(ik, rays9, table, block=32768):
     return visited
 
 
-def warp_chunks_met(ik, rays9, bounds, block=262144):
-    """Mean number of chunks that some lane of a warp (32 consecutive
-    rays) meets, over warps with a live lane: a warp runs a chunk's
-    sweep when any of its lanes needs it."""
+def warp_chunks_met(chunk_met, rays, block=262144):
+    """Chunks that some lane of a warp (32 consecutive rays) meets, summed
+    over the warps that meet one, and those warps: a warp runs a chunk's
+    sweep when any of its lanes needs it. chunk_met(rays) gives the
+    (rays, chunks) bool of a kernel's cull."""
     total = warps = 0
-    for s in range(0, rays9.shape[1], block):
-        met = ik.occlusion_chunk_met(rays9[:, s:s + block], bounds)
+    for s in range(0, rays.shape[1], block):
+        met = chunk_met(rays[:, s:s + block])
         pad = -met.shape[0] % 32
         met = torch.nn.functional.pad(met, (0, 0, 0, pad))
         per_warp = met.reshape(-1, 32, met.shape[1]).any(1)
         live = per_warp.any(1)
         total += int(per_warp[live].sum())
         warps += int(live.sum())
-    return total / max(warps, 1)
+    return total, warps
 
 
 @contextlib.contextmanager
@@ -385,7 +458,9 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         unculled = occlusion_visited(ik, rays9, table)
         tests, met, pairs = (int(x.sum()) for x in
                              ik.occlusion_morton_work(rays9, table, bounds))
-        warp_met = warp_chunks_met(ik, rays9, bounds)
+        warp_met, warps = warp_chunks_met(
+            lambda r: ik.occlusion_chunk_met(r, bounds), rays9)
+        warp_met /= max(warps, 1)
         live = live_rays(rays9)
         k_ms = cuda_ms(lambda: ik.occlusion_morton(rays9, table, bounds,
                                                    block), 10)
@@ -418,7 +493,8 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         f"({b_by}) unculled_bound_ms={unculled_ms!r}")
     out["occlusion_morton"] = {"max_abs_err": 0.0, "ms": ms,
                                "plain_ms": plain_ms, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": None}
+                               "bound_by": b_by, "library_ms": None,
+                               "unculled_bound_ms": unculled_ms}
 
     # B3: all n_l ReGIR candidate rounds of the frame in one call.
     (surf, uni, slots, table, n_l, s, n_b), = seen["initial_light_candidates"]
@@ -438,16 +514,20 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         surf, uni, slots, table, n_l, s, n_b), 20)
     p_ms = cuda_ms(lambda: rk.initial_light_candidates_plain(
         surf, uni, slots, table, n_l, s, n_b), 2)
-    log(f"kernels: B3 pixels={n} n_l={n_l} slots={s} n_b={n_b} "
-        f"lights={table.shape[0]} pick_mismatch_share={pick_share!r} "
-        f"(bound {B3_PICK_SHARE}) max_rel_err={rel!r} (bound {B3_REL}) "
-        f"max_abs_err={err!r} kernel_ms={k_ms!r} plain_ms={p_ms!r}")
-    if pick_share > B3_PICK_SHARE or rel > B3_REL:
-        raise AssertionError("B3: kernel disagrees with its plain version")
     b_ms, b_by = bound(
         (surf.shape[0] + uni.shape[0] + slots.shape[0] + 10) * 4 * n
         + table.numel() * 4,
         n * (OPS_B3_PIXEL + n_l * OPS_B3_CANDIDATE))
+    info = rk.initial_light_candidates_info(table.shape[0], s)
+    occupancy = info["blocks_per_sm"] * info["threads"] / 2048
+    log(f"kernels: B3 pixels={n} n_l={n_l} slots={s} n_b={n_b} "
+        f"lights={table.shape[0]} pick_mismatch_share={pick_share!r} "
+        f"(bound {B3_PICK_SHARE}) max_rel_err={rel!r} (bound {B3_REL}) "
+        f"max_abs_err={err!r} kernel_ms={k_ms!r} plain_ms={p_ms!r} "
+        f"bound_ms={b_ms!r} ({b_by}) share_of_bound={b_ms / k_ms!r} "
+        f"resources={json.dumps(info)} occupancy={occupancy!r}")
+    if pick_share > B3_PICK_SHARE or rel > B3_REL:
+        raise AssertionError("B3: kernel disagrees with its plain version")
     out["initial_light_candidates"] = {
         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}
@@ -1028,28 +1108,20 @@ def capture_default_reprojections(bench, ik, rp, device="cuda"):
     """One default frame at 1920x1080 to warm the histories, then one that
     records every B4 call: the ReSTIR history, the denoiser's packed
     mirrors (nearest) and the TAA history (bilinear). Over that frame and
-    the next (one SHARC cadence, the update in one of them) it also sums
-    B1's bound per launch on each launch's own rays; returns (the B4
-    calls, B1's bound_ms per frame, B1's launches per frame)."""
+    the next (one SHARC cadence, the update in one of them) it also
+    records every B1 launch. Returns (the B4 calls, b1_frame's B1 kernel
+    ms, launches and line per frame)."""
     pipe, state, pose = bench.make_frame_setup(
         cfg=bench.default_frame_config(), device=device)
     state, _ = pipe.render_frame(state, pose)
-    b1 = []
-    orig = ik.intersect_morton
-
-    def bounded(rays, table, *args, **kwargs):
-        b1.append(b1_bound(rays, table)[0])
-        return orig(rays, table, *args, **kwargs)
-    ik.intersect_morton = bounded
-    try:
+    with recorded((ik,), ("intersect_morton",), clone=True) as b1:
         with recorded((rp,), ("reproject_packed",), clone=True) as seen:
             state, _ = pipe.render_frame(state, pose)
             torch.cuda.synchronize()
         pipe.render_frame(state, pose)
         torch.cuda.synchronize()
-    finally:
-        ik.intersect_morton = orig
-    return seen["reproject_packed"], sum(b1) / 2, len(b1) / 2
+    return (seen["reproject_packed"],
+            *b1_frame(ik, b1["intersect_morton"], 2))
 
 
 def check_default_reprojections(rp, calls):
@@ -1285,16 +1357,20 @@ def main():
         origin.reshape(n, 3), l_dir.reshape(n, 3),
         torch.zeros(n, device=dev),
         torch.where(live, float("inf"), -1.0).reshape(n))
-    table = accel.table
+    table, bounds = accel.table, accel.bounds
     b1 = []
     for label, rays in (("B1 primary", primary), ("B1 bounce-1", bounce1)):
         b1.append(compare_closest(
-            label, lambda r=rays: ik.intersect_morton(r, table),
-            lambda r=rays: ik.intersect_morton_plain(r, table,
+            label, lambda r=rays: ik.intersect_morton(r, table, bounds),
+            lambda r=rays: ik.intersect_morton_plain(r, table, bounds,
                                                      cfg.block_size),
             reps=20, plain_reps=2))
-    b1_ms, b1_by = b1_bound(primary, table)
-    log(f"kernels: B1 primary bound_ms={b1_ms!r} ({b1_by})")
+        line, work = b1_sums([b1_work(ik, rays, table, bounds)])
+        b1[-1].update(bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+                      unculled_bound_ms=work["unculled_bound_ms"])
+        log(f"kernels: {label} rays={rays.shape[1]} cols={table.shape[1]} "
+            f"chunks={bounds.shape[1]} filled_slots="
+            f"{int(bounds[4].sum())} {line}")
 
     golden_host = myscene.build(oscillator_grid=8, device=dev)
     gpos = np.array([0.0, 1.0, -5.0])
@@ -1352,6 +1428,15 @@ def main():
     if b1_launches < (iters + 1) * cfg.bounces:
         raise AssertionError(f"B1 launched {b1_launches} times for "
                              f"{iters + 1} frames of {cfg.bounces} bounces")
+    # B1 per frame: one more frame with its launches recorded, then each
+    # launch timed and its work counted on its own rays.
+    with recorded((ik,), ("intersect_morton",), clone=True) as seen:
+        bench.trace_frame(setup, 0)
+        torch.cuda.synchronize()
+    b1_ms_frame, b1_n, line = b1_frame(ik, seen["intersect_morton"], 1)
+    del seen
+    log(f"main: B1 per frame kernel_ms={b1_ms_frame!r} launches={b1_n!r} "
+        f"{line} | {smi}")
 
     # 5. B2, B3, B4 and B11 at the ReSTIR frame's own inputs ----------------
     seen, frame = capture_restir_inputs(bench, (ik, rk, rp))
@@ -1535,11 +1620,11 @@ def main():
     launches["cand_fused@mesh_fused"] = f_launches["cand_fused"]
 
     # 14. the default frame: B4 at its own inputs, then counted from zero ----
-    calls, b1_frame_ms, b1_frame_launches = capture_default_reprojections(
+    calls, b1_ms_frame, b1_n, line = capture_default_reprojections(
         bench, ik, rp, device=dev)
-    log(f"default kernels: B1 per frame bound_ms={b1_frame_ms!r} "
-        f"(sum over {b1_frame_launches!r} launches per frame, one SHARC "
-        f"cadence of two frames, each launch's own rays)")
+    log(f"default kernels: B1 per frame kernel_ms={b1_ms_frame!r} "
+        f"launches={b1_n!r} {line} (sums over one SHARC cadence of two "
+        f"frames, each launch timed and counted on its own rays) | {smi}")
     fields["reproject_packed@default"] = check_default_reprojections(rp,
                                                                      calls)
     del calls
@@ -1600,8 +1685,9 @@ def main():
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
-        "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"], "bound_ms": b1_ms,
-        "bound_by": b1_by, "library_ms": None}
+        "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"],
+        "bound_ms": b1[0]["bound_ms"], "bound_by": b1[0]["bound_by"],
+        "library_ms": None, "unculled_bound_ms": b1[0]["unculled_bound_ms"]}
     # The default frame's ReSTIR passes and primary rays are the ReSTIR
     # frame's: B1, B2, B3 and B11 keep the times of phases 2 and 5.
     for name in ("intersect_morton", "occlusion_morton",
@@ -1619,7 +1705,9 @@ def main():
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-            "bound_by": f["bound_by"], "library_ms": f["library_ms"]})
+            "bound_by": f["bound_by"], "library_ms": f["library_ms"],
+            **({"unculled_bound_ms": f["unculled_bound_ms"]}
+               if "unculled_bound_ms" in f else {})})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

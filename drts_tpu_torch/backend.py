@@ -44,8 +44,10 @@ _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 # C signatures of csrc/*.cu: every pointer and the stream as void*.
 _SIGNATURES = {
-    "drts_morton_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _INT, _VOIDP,
-                                _VOIDP, _VOIDP),
+    # rays, n, table, cols, bounds, n_chunks, cull_scale, pos_bits, t_out,
+    # obj_out, stream
+    "drts_morton_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                                _FLOAT, _INT, _VOIDP, _VOIDP, _VOIDP),
     "drts_brute_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _VOIDP,
                                _VOIDP),
     # rays, n, table, cols, bounds, n_chunks, cull_scale, occ_out, stream
@@ -55,6 +57,8 @@ _SIGNATURES = {
     "drts_initial_light_candidates": (_VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
                                       _INT, _INT, _INT, _INT, _VOIDP,
                                       _VOIDP, _VOIDP),
+    # n_lights, s, out (5 ints)
+    "drts_initial_light_candidates_info": (_INT, _INT, _VOIDP),
     # src, motion, h, w, c, bilinear, vec, out, ok, stream
     "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT,
                        _VOIDP, _VOIDP, _VOIDP),

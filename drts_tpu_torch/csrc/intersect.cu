@@ -9,21 +9,21 @@
 // PyTorch versions they are checked against).
 //
 // Design: one thread per ray. Rays arrive planar, (8, N) float32
-// [ox oy oz dx dy dz tmin tmax], so each row load is coalesced. B1 and B11
-// stage the sphere table through shared memory in tiles of kTile columns
-// as float4 pairs; every thread of a warp reads the same column at once, a
-// shared-memory broadcast. The per-pair work is ~25 float operations and
-// one IEEE sqrt, against 32 bytes read from the ray and 4 or 8 written, so
-// the sweep is bound by instruction issue (FP32 and the sqrt sequence),
-// not by device-memory bandwidth. B1 and B11 keep every pair: they have
-// no chunk culls, no dead-warp skip and no early exit. B2 stages its
-// table in tiles of whole chunks and culls chunks per lane by the chunk
-// bounds of the Morton accel (see its own note below).
+// [ox oy oz dx dy dz tmin tmax], so each row load is coalesced. The sphere
+// table goes through shared memory as float4 pairs; every thread of a warp
+// reads the same column at once, a shared-memory broadcast. The per-pair
+// work is ~25 float operations and one IEEE sqrt, against 32 bytes read
+// from the ray and 4 or 8 written, so the sweeps are bound by instruction
+// issue (FP32 and the sqrt sequence), not by device-memory bandwidth.
+// B11 keeps every pair: it has no accel to cull by. B1 and B2 stage the
+// Morton table in tiles of whole chunks with the chunk bounds of the
+// Morton accel, and cull chunks per lane (see their notes below); the
+// culls never change a bit of the result.
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply and add rounds on its own, in the order the plain PyTorch
 // versions use, so the kernels equal them bit for bit. The unguarded
-// sqrtf of a negative discriminant in the Morton kernel gives NaN, which
+// sqrtf of a negative discriminant in the Morton kernels gives NaN, which
 // fails both range compares, as the TPU kernel relies on.
 
 #include <cuda_runtime.h>
@@ -31,7 +31,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 512;
+constexpr int kTile = 512;  // B11's sphere tile
 constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
 
 struct Ray {
@@ -52,54 +52,176 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
   return r;
 }
 
-// B1. table: (9, cols) planar [cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2]
-// with empty slots at |c|^2-r^2 = 1e30. The result per ray is the min of
+// The Morton table of B1 and B2: (9, cols) planar
+// [cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2], empty slots at
+// |c|^2-r^2 = 1e30; bounds: (5, n_chunks) planar [cx cy cz r count], one
+// bounding sphere per chunk of `chunk` consecutive columns and the number
+// of its filled slots, which come first (clusters.make_morton_accel).
+//
+// Staging: each block stages the table into dynamic shared memory in
+// tiles of whole chunks, at most kTileBytes each, per column two float4s
+// [cx cy cz obj] [-2c |c|^2-r^2] and per chunk its bound and count; the
+// block-wide barriers around each tile are joined by every thread,
+// finished or dead ones too. The demo scene's 480 columns (~15 KB) are
+// one tile. The object id goes in as its int bits for B1's packed min and
+// as a float for B2's compare with the ray's excluded id.
+//
+// An empty slot has |c|^2-r^2 = 1e30, and b2^2 - c2 < 0 for every ray
+// while |o| + |c| < 1e14, so sweeping only the filled slots is exact.
+constexpr size_t kTileBytes = 48 * 1024;  // no opt-in above the default
+constexpr int kGroup = 4;  // B2's slots tested together before its exit
+
+template <bool kObjBits>
+__device__ __forceinline__ void stage_chunks(
+    const float* __restrict__ table, int cols,
+    const float* __restrict__ bounds, int n_chunks, int chunk, int k0,
+    int m, float scale, float4* s_lin, float4* s_quad, float4* s_bnd,
+    int* s_cnt) {
+  const int c0 = k0 * chunk;
+  for (int c = threadIdx.x; c < m * chunk; c += blockDim.x) {
+    const int col = c0 + c;
+    const float obj = table[4 * cols + col];
+    s_lin[c] = make_float4(table[0 * cols + col], table[1 * cols + col],
+                           table[2 * cols + col],
+                           kObjBits ? __int_as_float((int)obj) : obj);
+    s_quad[c] = make_float4(table[5 * cols + col], table[6 * cols + col],
+                            table[7 * cols + col], table[8 * cols + col]);
+  }
+  for (int k = threadIdx.x; k < m; k += blockDim.x) {
+    const int kk = k0 + k;
+    const float bx = bounds[0 * n_chunks + kk];
+    const float by = bounds[1 * n_chunks + kk];
+    const float bz = bounds[2 * n_chunks + kk];
+    const float br = bounds[3 * n_chunks + kk];
+    s_bnd[k] = make_float4(
+        bx, by, bz, br + scale * (fabsf(bx) + fabsf(by) + fabsf(bz) + br));
+    s_cnt[k] = min(max((int)bounds[4 * n_chunks + kk], 0), chunk);
+  }
+}
+
+// Shared-memory layout of one tile of `tile` chunks.
+struct ChunkTile {
+  float4* lin;
+  float4* quad;
+  float4* bnd;
+  int* cnt;
+};
+
+__device__ __forceinline__ ChunkTile chunk_tile(float4* s_mem, int tile,
+                                                int chunk) {
+  ChunkTile t;
+  t.lin = s_mem;
+  t.quad = t.lin + tile * chunk;
+  t.bnd = t.quad + tile * chunk;
+  t.cnt = reinterpret_cast<int*>(t.bnd + tile);
+  return t;
+}
+
+// B1: closest hit over the Morton table. The result per ray is the min of
 // the packed word (t bits with the low pos_bits replaced by the object
 // id), unpacked into t (truncated down) and the object id.
+//
+// Design: per lane and in table order (chunks sorted near to far from the
+// camera), a chunk is skipped when the ray's segment [tmin, t_end] passes
+// farther from the chunk's bound than lim, and only a met chunk's filled
+// slots are swept; a warp runs a chunk's sweep while any of its lanes
+// meets it. t_end starts at tmax; after each met chunk whose sweep left a
+// hit in the packed best, t_end = min(tmax, top(best)), where top(best) is
+// the largest float whose truncated bits equal the best's. The packed
+// winner w has (t_w & trunc) <= (best & trunc) for every best the lane
+// holds on the way, so t_w <= top(best) and its chunk is never skipped; a
+// sphere beyond top(best) truncates to a larger key and cannot win, not
+// even on a tie of truncated t. (The truncated t itself as segment end
+// would drop a tie that a lower object id wins.)
+//
+// The margin holds on a half-line (primary and bounce rays carry
+// tmax = +inf, so B2's margin, built on T = max(|tmin|, |tmax|), would be
+// infinite). With v = C - o, s* = v.d / d.d, e = R + scale (|C|_1 + R +
+// |o|_1) and k = sqrt(|d.d - 1|) + scale, the computed hit point
+// q = o + t d of a sphere of the chunk lies within e + k |t| of C (B2's
+// margin with T = |t|; R covers |c - C| + r). Projected on the ray,
+// |t - s*| sqrt(d.d) <= e + k |t|, so where |d.d - 1| <= 2^-8 (k <=
+// 0.0665, sqrt(d.d) >= 0.998), |t| <= 1.0713 |s*| + 1.0734 e <=
+// 1.125 (|s*| + e). The chunk is skipped when |v - s d|^2 > lim^2 with
+// s = clamp(s*, tmin, t_end) and lim = e + 1.125 k (|s*| + e): finite for
+// every chunk, so a ray with no hit yet is culled too. Outside
+// |d.d - 1| <= 2^-8 no chunk is skipped, and non-finite inputs make lim
+// infinite or NaN or the compare false: no skip. The caller passes scale
+// = ops/intersect_kernels.py:CULL_SCALE, which states the rounding part.
+// A pair whose discriminant is negative misses; the lane skips its root
+// and range tests (the plain version's NaN root fails them: the same
+// result). Most swept pairs miss, and neighbouring lanes miss the same
+// spheres. Bound by instruction issue: ~16 float operations per pair
+// swept, ~11 more and one sqrt where the discriminant is not negative,
+// ~30 per chunk tested. (Measured on an H100, PERF.md: the root skip
+// halved the primary batch's time, 0.60 -> 0.33 ms.)
 __global__ void __launch_bounds__(kThreads)
 morton_closest_hit(const float* __restrict__ rays, int n,
-                   const float* __restrict__ table, int cols, int pos_bits,
+                   const float* __restrict__ table, int cols,
+                   const float* __restrict__ bounds, int n_chunks, int chunk,
+                   int tile_chunks, float scale, int pos_bits,
                    float* __restrict__ t_out, int* __restrict__ obj_out) {
-  __shared__ float4 s_lin[kTile];   // cx cy cz obj (int bits)
-  __shared__ float4 s_quad[kTile];  // -2cx -2cy -2cz |c|^2-r^2
-
+  extern __shared__ float4 s_mem[];
+  const ChunkTile s = chunk_tile(s_mem, tile_chunks, chunk);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n;
   Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  if (in_range) r = load_ray(rays, n, i);
-  const bool live = in_range && r.tmax >= r.tmin;
-  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  if (i < n) r = load_ray(rays, n, i);
+  const bool live = i < n && r.tmax >= r.tmin;
   const int trunc = ~((1 << pos_bits) - 1);
+  float od = 0.f, oo = 0.f, inv_dd = 0.f, m_o = 0.f, slope = 0.f;
+  if (live) {
+    od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+    const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
+    const float dev = fabsf(dd - 1.0f);
+    slope = dev <= 0.00390625f ? 1.125f * (sqrtf(dev) + scale)
+                               : __int_as_float(kInfBits);
+    m_o = scale * o1;
+    inv_dd = 1.0f / dd;
+  }
   int best = kInfBits;
-
-  for (int base = 0; base < cols; base += kTile) {
-    const int m = min(kTile, cols - base);
+  float t_end = r.tmax;
+  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+    const int m = min(tile_chunks, n_chunks - k0);
     __syncthreads();
-    for (int c = threadIdx.x; c < m; c += blockDim.x) {
-      const int col = base + c;
-      s_lin[c] = make_float4(table[0 * cols + col], table[1 * cols + col],
-                             table[2 * cols + col],
-                             __int_as_float((int)table[4 * cols + col]));
-      s_quad[c] = make_float4(table[5 * cols + col], table[6 * cols + col],
-                              table[7 * cols + col], table[8 * cols + col]);
-    }
+    stage_chunks<true>(table, cols, bounds, n_chunks, chunk, k0, m, scale,
+                       s.lin, s.quad, s.bnd, s.cnt);
     __syncthreads();
     if (!live) continue;
-    for (int c = 0; c < m; ++c) {
-      const float4 a = s_lin[c];
-      const float4 q = s_quad[c];
-      const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
-      const float c2 = oo + (q.x * r.ox + q.y * r.oy + q.z * r.oz) + q.w;
-      const float sq = sqrtf(b2 * b2 - c2);  // NaN when the ray misses
-      const float t_near = -b2 - sq;
-      const float t = t_near >= r.tmin ? t_near : sq - b2;
-      if (t >= r.tmin && t <= r.tmax) {
-        best = min(best, (__float_as_int(t) & trunc) | __float_as_int(a.w));
+    for (int k = 0; k < m; ++k) {
+      const float4 b = s.bnd[k];
+      const float vx = b.x - r.ox, vy = b.y - r.oy, vz = b.z - r.oz;
+      const float vd = vx * r.dx + vy * r.dy + vz * r.dz;
+      const float s_star = vd * inv_dd;
+      const float sc = fminf(fmaxf(s_star, r.tmin), t_end);
+      const float wx = vx - sc * r.dx, wy = vy - sc * r.dy,
+                  wz = vz - sc * r.dz;
+      const float e = b.w + m_o;
+      const float lim = e + slope * (fabsf(s_star) + e);
+      if (wx * wx + wy * wy + wz * wz > lim * lim) continue;
+      const int c0 = k * chunk, end = c0 + s.cnt[k];
+#pragma unroll 4
+      for (int c = c0; c < end; ++c) {
+        const float4 a = s.lin[c];
+        const float4 q = s.quad[c];
+        const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
+        const float c2 = oo + (q.x * r.ox + q.y * r.oy + q.z * r.oz) + q.w;
+        const float disc = b2 * b2 - c2;
+        if (disc < 0.f) continue;  // a miss: its NaN root would fail
+        const float sq = sqrtf(disc);
+        const float t_near = -b2 - sq;
+        const float t = t_near >= r.tmin ? t_near : sq - b2;
+        if (t >= r.tmin && t <= r.tmax) {
+          best = min(best, (__float_as_int(t) & trunc) | __float_as_int(a.w));
+        }
+      }
+      if (best >= 0 && best < kInfBits) {
+        t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
       }
     }
   }
-  if (in_range) {
+  if (i < n) {
     t_out[i] = __int_as_float(best & trunc);
     obj_out[i] = best & ~trunc;
   }
@@ -160,28 +282,21 @@ brute_closest_hit(const float* __restrict__ rays, int n,
 }
 
 // B2. rays: (9, n) planar [ox oy oz dx dy dz tmin tmax exclude_obj];
-// table as B1; bounds: (5, n_chunks) planar [cx cy cz r count], one
-// bounding sphere per chunk of `chunk` consecutive columns and the number
-// of its filled slots, which come first. A ray is blocked when any column
-// has t in [tmin, tmax] and an object id other than the ray's excluded
-// one (-1 excludes nothing).
+// table and bounds as B1's. A ray is blocked when any column has t in
+// [tmin, tmax] and an object id other than the ray's excluded one (-1
+// excludes nothing).
 //
-// Design: one thread per shadow ray. Each block stages the table into
-// dynamic shared memory in tiles of whole chunks, at most kTileBytes each,
-// per column two float4s [cx cy cz obj] [-2c |c|^2-r^2] and per chunk its
-// bound and count; the block-wide barriers around each tile are joined by
-// every thread, finished or dead ones too. The demo scene's 480 columns
-// (~15 KB) are one tile. Every lane of a warp reads the same column at
-// once, a broadcast. Per lane and in table order, a chunk is skipped when
-// the ray's segment passes farther than the chunk's bound (the per-lane
-// form of the TPU kernel's per-block cone and range culls), only its
-// filled slots are swept, kGroup at a time, and the lane leaves after the
-// group that holds its first blocker; a warp runs a chunk's sweep while
-// any of its lanes needs it. Bound by instruction issue: ~22 float
-// operations and one sqrt per pair swept, 25 per chunk tested. (Measured
-// on an H100: a grid of one block per 256 rays beat a grid of resident
-// blocks walking the rays with a stride, whose last warps ran alone, and
-// groups of four slots beat one at a time; PERF.md.)
+// Design: one thread per shadow ray over the staged tiles. Per lane and
+// in table order, a chunk is skipped when the ray's segment passes farther
+// than the chunk's bound (the per-lane form of the TPU kernel's per-block
+// cone and range culls), only its filled slots are swept, kGroup at a
+// time, and the lane leaves after the group that holds its first blocker;
+// a warp runs a chunk's sweep while any of its lanes needs it. Bound by
+// instruction issue: ~22 float operations and one sqrt per pair swept, 25
+// per chunk tested. (Measured on an H100: a grid of one block per 256 rays
+// beat a grid of resident blocks walking the rays with a stride, whose
+// last warps ran alone, and groups of four slots beat one at a time;
+// PERF.md.)
 //
 // The cull never skips a chunk that holds a blocker, so the result equals
 // the unculled sweep bit for bit. With v = C - o and the segment's nearest
@@ -194,36 +309,7 @@ brute_closest_hit(const float* __restrict__ rays, int n,
 //   The quadratic takes d as a unit vector; T sqrt(|d.d-1|) covers the
 //   distance a non-unit d adds to a root's point, and outside d.d in
 //   [0.5, 2] no chunk is skipped.
-// Non-finite inputs make lim infinite or the compare false: no skip. An
-// empty slot has |c|^2-r^2 = 1e30, and b2^2 - c2 < 0 for every ray while
-// |o| + |c| < 1e14, so sweeping only the filled slots is exact there.
-constexpr size_t kTileBytes = 48 * 1024;  // no opt-in above the default
-constexpr int kGroup = 4;  // slots tested together before the exit check
-
-__device__ __forceinline__ void stage_occlusion(
-    const float* __restrict__ table, int cols,
-    const float* __restrict__ bounds, int n_chunks, int chunk, int k0,
-    int m, float scale, float4* s_lin, float4* s_quad, float4* s_bnd,
-    int* s_cnt) {
-  const int c0 = k0 * chunk;
-  for (int c = threadIdx.x; c < m * chunk; c += blockDim.x) {
-    const int col = c0 + c;
-    s_lin[c] = make_float4(table[0 * cols + col], table[1 * cols + col],
-                           table[2 * cols + col], table[4 * cols + col]);
-    s_quad[c] = make_float4(table[5 * cols + col], table[6 * cols + col],
-                            table[7 * cols + col], table[8 * cols + col]);
-  }
-  for (int k = threadIdx.x; k < m; k += blockDim.x) {
-    const int kk = k0 + k;
-    const float bx = bounds[0 * n_chunks + kk];
-    const float by = bounds[1 * n_chunks + kk];
-    const float bz = bounds[2 * n_chunks + kk];
-    const float br = bounds[3 * n_chunks + kk];
-    s_bnd[k] = make_float4(
-        bx, by, bz, br + scale * (fabsf(bx) + fabsf(by) + fabsf(bz) + br));
-    s_cnt[k] = min(max((int)bounds[4 * n_chunks + kk], 0), chunk);
-  }
-}
+// Non-finite inputs make lim infinite or the compare false: no skip.
 
 // One ray x table column of B2: t in [tmin, tmax] and another object.
 __device__ __forceinline__ bool pair_blocks(const float4 a, const float4 q,
@@ -244,10 +330,11 @@ morton_occlusion(const float* __restrict__ rays, int n,
                  int tile_chunks, float scale,
                  unsigned char* __restrict__ occ_out) {
   extern __shared__ float4 s_mem[];
-  float4* s_lin = s_mem;
-  float4* s_quad = s_lin + tile_chunks * chunk;
-  float4* s_bnd = s_quad + tile_chunks * chunk;
-  int* s_cnt = reinterpret_cast<int*>(s_bnd + tile_chunks);
+  const ChunkTile st = chunk_tile(s_mem, tile_chunks, chunk);
+  float4* s_lin = st.lin;
+  float4* s_quad = st.quad;
+  float4* s_bnd = st.bnd;
+  int* s_cnt = st.cnt;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
   if (i < n) r = load_ray(rays, n, i);
@@ -269,8 +356,8 @@ morton_occlusion(const float* __restrict__ rays, int n,
   for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
     const int m = min(tile_chunks, n_chunks - k0);
     __syncthreads();
-    stage_occlusion(table, cols, bounds, n_chunks, chunk, k0, m, scale,
-                    s_lin, s_quad, s_bnd, s_cnt);
+    stage_chunks<false>(table, cols, bounds, n_chunks, chunk, k0, m, scale,
+                        s_lin, s_quad, s_bnd, s_cnt);
     __syncthreads();
     for (int k = 0; open && k < m; ++k) {
       const float4 b = s_bnd[k];
@@ -308,16 +395,38 @@ morton_occlusion(const float* __restrict__ rays, int n,
 
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+// Chunks per shared-memory tile of the Morton kernels, and its bytes;
+// false where the bounds do not divide the table or no chunk fits.
+bool morton_tile(int cols, int n_chunks, int* chunk, int* tile,
+                 size_t* smem) {
+  if (n_chunks <= 0 || cols % n_chunks != 0) return false;
+  *chunk = cols / n_chunks;
+  const size_t per_chunk = 2 * sizeof(float4) * *chunk + sizeof(float4) +
+                           sizeof(int);
+  *tile = min(n_chunks, (int)(kTileBytes / per_chunk));
+  *smem = per_chunk * *tile;
+  return *tile >= 1;
+}
+
 }  // namespace
 
+// scale: the cull's rounding margin, relative to |o|_1 + |C|_1 + R + T
+// (B2) or |o|_1 + |C|_1 + R + |t| (B1).
 extern "C" int drts_morton_closest_hit(const float* rays, int n,
                                        const float* table, int cols,
-                                       int pos_bits, float* t_out,
-                                       int* obj_out, cudaStream_t stream) {
-  if (n > 0) {
-    morton_closest_hit<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, table, cols, pos_bits, t_out, obj_out);
+                                       const float* bounds, int n_chunks,
+                                       float scale, int pos_bits,
+                                       float* t_out, int* obj_out,
+                                       cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int chunk, tile;
+  size_t smem;
+  if (!morton_tile(cols, n_chunks, &chunk, &tile, &smem)) {
+    return cudaErrorInvalidValue;
   }
+  morton_closest_hit<<<grid_for(n), kThreads, smem, stream>>>(
+      rays, n, table, cols, bounds, n_chunks, chunk, tile, scale, pos_bits,
+      t_out, obj_out);
   return (int)cudaGetLastError();
 }
 
@@ -332,20 +441,18 @@ extern "C" int drts_brute_closest_hit(const float* rays, int n,
   return (int)cudaGetLastError();
 }
 
-// scale: the cull's rounding margin, relative to |o|_1 + |C|_1 + R + T.
 extern "C" int drts_morton_occlusion(const float* rays, int n,
                                      const float* table, int cols,
                                      const float* bounds, int n_chunks,
                                      float scale, unsigned char* occ_out,
                                      cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_chunks <= 0 || cols % n_chunks != 0) return cudaErrorInvalidValue;
-  const int chunk = cols / n_chunks;
-  const size_t per_chunk = 2 * sizeof(float4) * chunk + sizeof(float4) +
-                           sizeof(int);
-  const int tile = min(n_chunks, (int)(kTileBytes / per_chunk));
-  if (tile < 1) return cudaErrorInvalidValue;
-  morton_occlusion<<<grid_for(n), kThreads, per_chunk * tile, stream>>>(
+  int chunk, tile;
+  size_t smem;
+  if (!morton_tile(cols, n_chunks, &chunk, &tile, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  morton_occlusion<<<grid_for(n), kThreads, smem, stream>>>(
       rays, n, table, cols, bounds, n_chunks, chunk, tile, scale, occ_out);
   return (int)cudaGetLastError();
 }

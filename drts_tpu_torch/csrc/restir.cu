@@ -15,25 +15,50 @@
 //
 // Design: one thread per pixel, every stream planar so each row load and
 // store is coalesced. The compact light table ((L, 9) f32, at most 128
-// rows = 4.6 KB) sits in shared memory and a candidate's row is an indexed
-// load, where the TPU kernel used a one-hot matmul on its matrix unit. The
-// slot select is an indexed load of the pixel's own slot row. Bound by
-// memory: (24 + 4 n_l + 2 s + 10) words per pixel cross device memory
-// once (0.68 GB at 1080p with n_l = s = 8, ~0.2 ms at 3.35 TB/s); the
-// ~300 float operations per candidate fit under that.
+// rows = 4.6 KB on the frame's path) sits in shared memory and a
+// candidate's row is an indexed load, where the TPU kernel used a one-hot
+// matmul on its matrix unit. Bound by memory: (24 + 4 n_l + 2 s + 10)
+// words per pixel cross device memory once (0.68 GB at 1080p with
+// n_l = s = 8, ~0.2 ms at 3.35 TB/s); the ~300 float operations per
+// candidate fit under that.
+//
+// What held the first form back (PERF.md): each round's select was a
+// chain of loads, u_slot from device memory, then the pixel's own
+// candidate and weight rows gathered at the slot it picked (a warp's
+// load spread over up to s rows), then the light row: 16 serialized
+// device-memory round trips per pixel. This form breaks the chain:
+// - a block's 2 s slot rows are read row by row, coalesced, into shared
+//   memory laid out [row][pixel], so the select is a shared-memory load
+//   and the lanes of a warp hit distinct banks;
+// - the next round's four uniforms are loaded while this round computes;
+// - sin and cos of one angle come from one sincosf;
+// - what a thread keeps across its rounds but reads at most a few times a
+//   round (the reservoir's winner, the BSDF's colour, geometric-normal,
+//   index and lobe terms) lives in shared memory, [row][pixel], and
+//   __launch_bounds__ asks for 7 resident blocks of 128 threads: ptxas
+//   then fits 72 registers without a spill, where the first form held 100
+//   registers at 2 blocks of 256 threads per SM (25% occupancy; PERF.md).
+// Slot rows that do not fit the shared-memory budget are staged in tiles
+// of kSlotTileBytes: every round restages each tile (with a barrier) and
+// picks its slot from the tile that holds it; at s <= 32 there is one
+// tile, staged once.
 //
 // Numbers: built with -fmad=false and without --use_fast_math: every
 // multiply and add rounds on its own in the plain version's order, and
-// sqrtf and the divisions are IEEE. cosf and sinf are the CUDA library's
-// (2 ulp), so they may differ from PyTorch's in the last bit; the check
-// states a bound on reservoir picks that flip.
+// sqrtf and the divisions are IEEE. sincosf is the CUDA library's (2 ulp
+// for each of sin and cos), so they may differ from PyTorch's in the last
+// bit; the check states a bound on reservoir picks that flip.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;  // pixels per block
+constexpr int kMinBlocks = 7;  // resident blocks per SM asked of ptxas
 constexpr int kRowsPerLight = 9;
+// Slot rows per tile: 32 slots (64 rows) of 128 pixels.
+constexpr size_t kSlotTileBytes = 32 * 1024;
+constexpr size_t kDefaultSmem = 48 * 1024;  // above it, opt in
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kInvPi = 0.31830988618379067154f;
 constexpr float kTwoPi = 6.28318530717958647692f;
@@ -64,67 +89,132 @@ __device__ __forceinline__ float pow5(float x) {
   return x2 * x2 * x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Per-pixel rows of shared memory, [row][pixel] (each thread reads and
+// writes its own column only): what a thread keeps across its rounds but
+// reads at most a few times a round, held out of its registers: the
+// reservoir's winner and the BSDF's colour, geometric-normal, index and
+// lobe terms.
+enum {
+  kRUv0, kRUv1, kRPhat, kRDx, kRDy, kRDz, kRDist, kRIdx, kRAux,  // winner
+  kRF0r, kRF0g, kRF0b, kRAlr, kRAlg, kRAlb, kRCr, kRCg, kRCb,
+  kRGx, kRGy, kRGz, kRIorI, kRIorO, kRWd, kRWs, kRWt, kRG1v, kPixRows
+};
+
+// Copies slot rows [t0, t0 + tile_s) of the block's pixels into shared
+// memory, row by row (coalesced): the candidate rows, then the weight rows,
+// each [row][kThreads].
+__device__ __forceinline__ void stage_slots(const float* __restrict__ slots,
+                                            int n, int s, int i0, int t0,
+                                            int tile_s, float* s_slot) {
+  const int rows = min(tile_s, s - t0);
+  for (int k = threadIdx.x; k < 2 * rows * kThreads; k += kThreads) {
+    const int row = k / kThreads, col = k % kThreads;
+    const int src = row < rows ? t0 + row : s + t0 + row - rows;
+    const int dst = row < rows ? row : tile_s + row - rows;
+    s_slot[dst * kThreads + col] =
+        i0 + col < n ? slots[(size_t)src * n + i0 + col] : 0.f;
+  }
+}
+
+// Shared memory: the light table, one tile of slot rows, the per-pixel
+// rows. kMinBlocks caps the registers at 72, which ptxas meets without a
+// spill (PERF.md).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 initial_candidates(const float* __restrict__ surf,
                    const float* __restrict__ uni,
                    const float* __restrict__ slots, int n,
                    const float* __restrict__ table, int n_lights, int n_l,
-                   int s, int n_b, float* __restrict__ out_f,
+                   int s, int n_b, int tile_s, float* __restrict__ out_f,
                    int* __restrict__ out_i) {
-  extern __shared__ float s_table[];  // (n_lights, 9), row-major
-  for (int k = threadIdx.x; k < n_lights * kRowsPerLight; k += blockDim.x) {
-    s_table[k] = table[k];
-  }
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ float s_mem[];
+  float* s_table = s_mem;  // (n_lights, 9), row-major
+  float* s_slot = s_mem + n_lights * kRowsPerLight;
+  float* s_pix = s_slot + 2 * tile_s * kThreads + threadIdx.x;
+  auto pix = [s_pix](int row) -> float& { return s_pix[row * kThreads]; };
+  const int i0 = blockIdx.x * kThreads;
+  // Lanes past n compute on pixel n - 1 and store nothing: every thread
+  // joins the barriers of the slot tiles.
+  const int i = min(i0 + (int)threadIdx.x, n - 1);
   const size_t N = (size_t)n;
 #define SURF(row) surf[(row) * N + i]
   const float px = SURF(kPx), py = SURF(kPy), pz = SURF(kPz);
   const float nx = SURF(kNx), ny = SURF(kNy), nz = SURF(kNz);
-  const float gx = SURF(kGx), gy = SURF(kGy), gz = SURF(kGz);
   const float vx = SURF(kVx), vy = SURF(kVy), vz = SURF(kVz);
   const float cr = SURF(kCr), cg = SURF(kCg), cb = SURF(kCb);
   const float metal = SURF(kMetal), rough = SURF(kRough);
   const float ior_i = SURF(kIorI), ior_o = SURF(kIorO);
-  const float wt = SURF(kWt), wd = SURF(kWd), ws = SURF(kWs);
+  const float wt = SURF(kWt);
   const bool valid = SURF(kValid) > 0.5f;
+  pix(kRGx) = SURF(kGx);
+  pix(kRGy) = SURF(kGy);
+  pix(kRGz) = SURF(kGz);
+  pix(kRWd) = SURF(kWd);
+  pix(kRWs) = SURF(kWs);
 #undef SURF
+  float nu_slot = uni[0 * N + i], nu_keep = uni[1 * N + i];
+  float nuv0 = uni[2 * N + i], nuv1 = uni[3 * N + i];
+  for (int k = threadIdx.x; k < n_lights * kRowsPerLight; k += kThreads) {
+    s_table[k] = table[k];
+  }
+  const int n_tiles = (s + tile_s - 1) / tile_s;
+  stage_slots(slots, n, s, i0, 0, tile_s, s_slot);
+  __syncthreads();
 
   // BSDF parameters (bxdf.make_bsdf).
   float f_diel = (ior_i - ior_o) / (ior_i + ior_o);
   f_diel = f_diel * f_diel;
-  const float f0r = f_diel + (cr - f_diel) * metal;
-  const float f0g = f_diel + (cg - f_diel) * metal;
-  const float f0b = f_diel + (cb - f_diel) * metal;
-  const float alr = cr * (1.f - metal), alg = cg * (1.f - metal),
-              alb = cb * (1.f - metal);
+  pix(kRF0r) = f_diel + (cr - f_diel) * metal;
+  pix(kRF0g) = f_diel + (cg - f_diel) * metal;
+  pix(kRF0b) = f_diel + (cb - f_diel) * metal;
+  pix(kRAlr) = cr * (1.f - metal);
+  pix(kRAlg) = cg * (1.f - metal);
+  pix(kRAlb) = cb * (1.f - metal);
+  pix(kRCr) = cr;
+  pix(kRCg) = cg;
+  pix(kRCb) = cb;
+  pix(kRIorI) = ior_i;
+  pix(kRIorO) = ior_o;
+  pix(kRWt) = wt;
 
   // View-dependent terms shared by every candidate.
   const float nov = fabsf(dot3(nx, ny, nz, vx, vy, vz));
   const bool is_trans = wt > 0.f;
   const float a_g = rough * rough;
   const float a2_g = a_g * a_g;
-  const float g1_v =
+  pix(kRG1v) =
       2.f * nov /
       fmaxf(nov + sqrtf(fmaxf(a2_g + (1.f - a2_g) * nov * nov, 0.f)), 1e-8f);
   const float m_total = (float)(n_l + n_b);
   const float rw = 1.f - wt;
   const float p5_v = pow5(1.f - nov);
 
-  int res_idx = 0, res_aux = 0;
-  float res_uv0 = 0.f, res_uv1 = 0.f, res_phat = 0.f, w_sum = 0.f;
-  float win_dx = 0.f, win_dy = 0.f, win_dz = 0.f, win_dist = 0.f;
+  for (int k = kRUv0; k <= kRAux; ++k) pix(k) = 0.f;
+  float w_sum = 0.f;
 
   for (int r = 0; r < n_l; ++r) {
-    const float u_slot = uni[(4 * r + 0) * N + i];
-    const float u_keep = uni[(4 * r + 1) * N + i];
-    const float uv0 = uni[(4 * r + 2) * N + i];
-    const float uv1 = uni[(4 * r + 3) * N + i];
+    const float u_slot = nu_slot, u_keep = nu_keep, uv0 = nuv0, uv1 = nuv1;
+    if (r + 1 < n_l) {
+      nu_slot = uni[(4 * r + 4) * N + i];
+      nu_keep = uni[(4 * r + 5) * N + i];
+      nuv0 = uni[(4 * r + 6) * N + i];
+      nuv1 = uni[(4 * r + 7) * N + i];
+    }
 
     const int slot = min((int)(u_slot * (float)s), s - 1);
-    const float cand_f = slots[(size_t)slot * N + i];
-    const float w_cand = slots[(size_t)(s + slot) * N + i];
+    float cand_f = 0.f, w_cand = 0.f;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int t0 = t * tile_s;
+      if (n_tiles > 1) {
+        __syncthreads();
+        stage_slots(slots, n, s, i0, t0, tile_s, s_slot);
+        __syncthreads();
+      }
+      const int k = slot - t0;  // the slot's row in this tile
+      if (k >= 0 && k < tile_s) {
+        cand_f = s_slot[k * kThreads + threadIdx.x];
+        w_cand = s_slot[(tile_s + k) * kThreads + threadIdx.x];
+      }
+    }
     const int cand = min(max((int)cand_f, 0), n_lights - 1);
     const float* row = s_table + cand * kRowsPerLight;
     const float lcx = row[0], lcy = row[1], lcz = row[2], lrad = row[3];
@@ -148,7 +238,9 @@ initial_candidates(const float* __restrict__ surf,
     const float b = wx * wy * a;
     const float tx = 1.f + sgn * wx * wx * a, ty = sgn * b, tz = -sgn * wx;
     const float bx = b, by = sgn + wy * wy * a, bz = -wy;
-    const float sc = sin_t * cosf(phi), ss = sin_t * sinf(phi);
+    float sin_phi, cos_phi;
+    sincosf(phi, &sin_phi, &cos_phi);
+    const float sc = sin_t * cos_phi, ss = sin_t * sin_phi;
     const float ldx = tx * sc + bx * ss + wx * cos_t;
     const float ldy = ty * sc + by * ss + wy * cos_t;
     const float ldz = tz * sc + bz * ss + wz * cos_t;
@@ -160,11 +252,12 @@ initial_candidates(const float* __restrict__ surf,
 
     // Half vector: reflection form, or the refraction form where the
     // transmission lobe is on and L is below the geometric surface.
+    const float gx = pix(kRGx), gy = pix(kRGy), gz = pix(kRGz);
     float hx = ldx + vx, hy = ldy + vy, hz = ldz + vz;
     normalize3(hx, hy, hz);
-    float rx = ldx * ior_o + vx * ior_i;
-    float ry = ldy * ior_o + vy * ior_i;
-    float rz = ldz * ior_o + vz * ior_i;
+    float rx = ldx * pix(kRIorO) + vx * pix(kRIorI);
+    float ry = ldy * pix(kRIorO) + vy * pix(kRIorI);
+    float rz = ldz * pix(kRIorO) + vz * pix(kRIorI);
     normalize3(rx, ry, rz);
     if (dot3(gx, gy, gz, rx, ry, rz) < 0.f) {
       rx = -rx;
@@ -194,13 +287,17 @@ initial_candidates(const float* __restrict__ surf,
     const float vis = 0.5f / fmaxf(gv + gl, 1e-8f);
     const float p5 = pow5(1.f - voh);
     const float k_spec = front ? nol * d_ggx * vis * rw : 0.f;
-    const float k_trans = nol * wt;
-    const float sum_r =
-        k_diff * alr + k_spec * (f0r + (1.f - f0r) * p5) + k_trans * cr;
-    const float sum_g =
-        k_diff * alg + k_spec * (f0g + (1.f - f0g) * p5) + k_trans * cg;
-    const float sum_b =
-        k_diff * alb + k_spec * (f0b + (1.f - f0b) * p5) + k_trans * cb;
+    const float k_trans = nol * pix(kRWt);
+    const float f0r = pix(kRF0r), f0g = pix(kRF0g), f0b = pix(kRF0b);
+    const float sum_r = k_diff * pix(kRAlr) +
+                        k_spec * (f0r + (1.f - f0r) * p5) +
+                        k_trans * pix(kRCr);
+    const float sum_g = k_diff * pix(kRAlg) +
+                        k_spec * (f0g + (1.f - f0g) * p5) +
+                        k_trans * pix(kRCg);
+    const float sum_b = k_diff * pix(kRAlb) +
+                        k_spec * (f0b + (1.f - f0b) * p5) +
+                        k_trans * pix(kRCb);
     const float lum = 0.2126f * sum_r * em_r + 0.7152f * sum_g * em_g +
                       0.0722f * sum_b * em_b;
     const float p_hat = (valid && lpow > 0.f) ? lum * inv_cone : 0.f;
@@ -211,8 +308,9 @@ initial_candidates(const float* __restrict__ surf,
       // the BRDF technique for this light candidate.
       const float pdf_diff = front ? nol * kInvPi : 0.f;
       const float pdf_spec =
-          front ? g1_v * d_ggx / fmaxf(4.f * nov, 1e-6f) : 0.f;
-      const float p_w = wd * pdf_diff + ws * pdf_spec + wt * nol;
+          front ? pix(kRG1v) * d_ggx / fmaxf(4.f * nov, 1e-6f) : 0.f;
+      const float p_w =
+          pix(kRWd) * pdf_diff + pix(kRWs) * pdf_spec + pix(kRWt) * nol;
       const float p_other = p_w * inv_cone;
       const float p_self = 1.f / fmaxf(w_cand, 1e-20f);
       wi = m_total * p_hat /
@@ -224,28 +322,37 @@ initial_candidates(const float* __restrict__ surf,
 
     w_sum = w_sum + wi;
     if (u_keep * w_sum < wi) {
-      res_idx = cand;
-      res_aux = (int)laux;
-      res_uv0 = uv0;
-      res_uv1 = uv1;
-      res_phat = p_hat;
-      win_dx = ldx;
-      win_dy = ldy;
-      win_dz = ldz;
-      win_dist = ldist;
+      pix(kRUv0) = uv0;
+      pix(kRUv1) = uv1;
+      pix(kRPhat) = p_hat;
+      pix(kRDx) = ldx;
+      pix(kRDy) = ldy;
+      pix(kRDz) = ldz;
+      pix(kRDist) = ldist;
+      pix(kRIdx) = __int_as_float(cand);
+      pix(kRAux) = __int_as_float((int)laux);
     }
   }
 
-  out_f[0 * N + i] = res_uv0;
-  out_f[1 * N + i] = res_uv1;
-  out_f[2 * N + i] = res_phat;
+  if (i0 + (int)threadIdx.x >= n) return;
+  out_f[0 * N + i] = pix(kRUv0);
+  out_f[1 * N + i] = pix(kRUv1);
+  out_f[2 * N + i] = pix(kRPhat);
   out_f[3 * N + i] = w_sum;
-  out_f[4 * N + i] = win_dx;
-  out_f[5 * N + i] = win_dy;
-  out_f[6 * N + i] = win_dz;
-  out_f[7 * N + i] = win_dist;
-  out_i[0 * N + i] = res_idx;
-  out_i[1 * N + i] = res_aux;
+  out_f[4 * N + i] = pix(kRDx);
+  out_f[5 * N + i] = pix(kRDy);
+  out_f[6 * N + i] = pix(kRDz);
+  out_f[7 * N + i] = pix(kRDist);
+  out_i[0 * N + i] = __float_as_int(pix(kRIdx));
+  out_i[1 * N + i] = __float_as_int(pix(kRAux));
+}
+
+// Slot rows per shared-memory tile, and the launch's shared-memory bytes.
+void slot_tile(int n_lights, int s, int* tile_s, size_t* smem) {
+  *tile_s = min(s, max(1, (int)(kSlotTileBytes /
+                                (2 * kThreads * sizeof(float)))));
+  *smem = ((size_t)n_lights * kRowsPerLight +
+           (2 * (size_t)*tile_s + kPixRows) * kThreads) * sizeof(float);
 }
 
 }  // namespace
@@ -254,11 +361,47 @@ extern "C" int drts_initial_light_candidates(
     const float* surf, const float* uni, const float* slots, int n,
     const float* table, int n_lights, int n_l, int s, int n_b, float* out_f,
     int* out_i, cudaStream_t stream) {
-  if (n > 0) {
-    const int grid = (n + kThreads - 1) / kThreads;
-    const size_t smem = (size_t)n_lights * kRowsPerLight * sizeof(float);
-    initial_candidates<<<grid, kThreads, smem, stream>>>(
-        surf, uni, slots, n, table, n_lights, n_l, s, n_b, out_f, out_i);
+  if (n <= 0) return (int)cudaGetLastError();
+  int tile_s;
+  size_t smem;
+  slot_tile(n_lights, s, &tile_s, &smem);
+  if (smem > kDefaultSmem) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        initial_candidates, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
   }
+  const int grid = (n + kThreads - 1) / kThreads;
+  initial_candidates<<<grid, kThreads, smem, stream>>>(
+      surf, uni, slots, n, table, n_lights, n_l, s, n_b, tile_s, out_f,
+      out_i);
   return (int)cudaGetLastError();
+}
+
+// B3's resources at these sizes: out = [registers per thread, local
+// (spill) bytes per thread, shared bytes per block, threads per block,
+// resident blocks per SM].
+extern "C" int drts_initial_light_candidates_info(int n_lights, int s,
+                                                  int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, initial_candidates);
+  if (rc != cudaSuccess) return (int)rc;
+  int tile_s, blocks = 0;
+  size_t smem;
+  slot_tile(n_lights, s, &tile_s, &smem);
+  if (smem > kDefaultSmem) {
+    rc = cudaFuncSetAttribute(initial_candidates,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, initial_candidates, kThreads, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = kThreads;
+  out[4] = blocks;
+  return 0;
 }

@@ -6,9 +6,9 @@ passed, the brute-force kernel (B11) when none is. ``intersect_spheres_any``
 is the shadow ray: the any-hit kernel (B2) over the Morton table and its
 chunk bounds, or, with no accel, the hit bit of the brute-force kernel
 (B11). The reference's 8x128 screen-tile ray order is a TPU block-culling
-aid; results do not depend on it, and these kernels cull per ray or not
-at all, so rays keep pixel order (neighbouring lanes of a warp still
-share most of their work).
+aid; results do not depend on it, and these kernels cull per ray (B1, B2)
+or not at all (B11), so rays keep pixel order (neighbouring lanes of a
+warp still share most of their work).
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
     rays = pack_rays(origin.reshape(n, 3), direction.reshape(n, 3),
                      flat(t_min), flat(t_max))
     if isinstance(accel, clusters_mod.MortonAccel):
-        t_best, idx = ik.intersect_morton(rays, accel.table, block_size)
+        t_best, idx = ik.intersect_morton(rays, accel.table, accel.bounds,
+                                          block_size)
     elif accel is None:
         t_best, idx = ik.intersect_brute(rays, pack_spheres(centers, radii),
                                          block_size)

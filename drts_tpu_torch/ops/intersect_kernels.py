@@ -20,14 +20,17 @@ operations and one IEEE sqrt against 32 bytes of ray read once per ray, so
 the sweep is bound by instruction issue, not by memory bandwidth. The
 design keeps one thread per ray, stages the table in shared memory (a
 broadcast read per pair) and keeps the running best in registers, with no
-atomics. B1 and B11 sweep every pair. B2 culls per lane: it skips a chunk
-of the Morton table whose bound (``MortonAccel.bounds``) the ray's segment
-passes farther than a margin that covers rounding, sweeps only a chunk's
-filled slots (four at a time), and leaves at the first blocker; the culls
-never change a bit of the result (``csrc/intersect.cu`` states the
-margins).
-``occlusion_morton_work`` counts the chunk tests and pairs that this needs,
-with the kernel's own cull, for the bound of ``chip_smoke.py``.
+atomics. B11 sweeps every pair. B1 and B2 cull per lane: each skips a
+chunk of the Morton table whose bound (``MortonAccel.bounds``) the ray's
+segment passes farther than a margin that covers rounding, and sweeps only
+a chunk's filled slots. B1's segment ends at the hit it already holds
+(the largest t that truncates to its packed best), and its margin holds
+on the half-line of a ray with tmax = inf; B2 leaves at its first blocker.
+The culls never change a bit of the result (``csrc/intersect.cu`` states
+the margins). ``closest_chunk_walk`` repeats B1's walk lane by lane, and
+``intersect_morton_work`` and ``occlusion_morton_work`` count the chunk
+tests and pairs that B1 and B2 need, with the kernels' own culls, for the
+bounds of ``chip_smoke.py``.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel, or the wrapper raises. There is
@@ -85,44 +88,131 @@ def _blocks(n, cols, block):
 # B1: Morton-table closest hit, packed min
 
 
-def intersect_morton_plain(rays, table, block: int = 16384):
+def closest_pairs(rays, table, trunc):
+    """B1's pair test of each ray x table column, in the kernel's
+    operations and order: (packed (N, cols) int32, root (N, cols) bool).
+    packed is the word (truncated t bits | object id), INF_BITS where the
+    column is not hit in [tmin, tmax]; root is true where the
+    discriminant is not negative, the pairs for which the kernel takes the
+    root. ``trunc`` masks the t bits of the whole table's packing
+    (pos_bits of its columns)."""
+    cx, cy, cz, _, obj, m2x, m2y, m2z, ccrr = (c[None, :] for c in table)
+    ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays)
+    b2 = od - (cx * dx + cy * dy + cz * dz)
+    c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
+    disc = b2 * b2 - c2
+    sq = torch.sqrt(disc)                      # NaN when the ray misses
+    t_near = -b2 - sq
+    t = torch.where(t_near >= tmin, t_near, sq - b2)
+    ok = (t >= tmin) & (t <= tmax)             # NaN t fails both
+    ti = (t.view(torch.int32) & trunc) | obj.to(torch.int32)
+    return torch.where(ok, ti, INF_BITS), ~(disc < 0)
+
+
+def intersect_morton_plain(rays, table, bounds=None, block: int = 16384):
     """Plain PyTorch B1: the unculled packed-min sweep. rays (8, N)
     [ox oy oz dx dy dz tmin tmax] with tmin >= 0; table (9, cols)
     [cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2]. Returns t (N,) float32,
-    truncated down to the packed precision, and obj (N,) int32."""
+    truncated down to the packed precision, and obj (N,) int32.
+    ``bounds`` is ignored: the kernel's culls do not change the result,
+    which this computes from the table alone."""
     n, cols = rays.shape[1], table.shape[1]
     trunc = ~((1 << pos_bits(cols)) - 1)
-    cx, cy, cz, _, obj, m2x, m2y, m2z, ccrr = (c[None, :] for c in table)
-    obj = obj.to(torch.int32)
     packed = torch.empty(n, dtype=torch.int32, device=rays.device)
     starts, step = _blocks(n, cols, block)
     for s in starts:
-        ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(
-            rays[:, s:s + step])
-        b2 = od - (cx * dx + cy * dy + cz * dz)
-        c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
-        sq = torch.sqrt(b2 * b2 - c2)          # NaN when the ray misses
-        t_near = -b2 - sq
-        t = torch.where(t_near >= tmin, t_near, sq - b2)
-        ok = (t >= tmin) & (t <= tmax)         # NaN t fails both
-        ti = (t.view(torch.int32) & trunc) | obj
-        ti = torch.where(ok, ti, INF_BITS)
-        packed[s:s + step] = ti.amin(dim=1)
+        packed[s:s + step] = closest_pairs(rays[:, s:s + step], table,
+                                           trunc)[0].amin(dim=1)
     return (packed & trunc).view(torch.float32), packed & ~trunc
 
 
-def intersect_morton(rays, table, block: int = 16384):
-    """B1 closest hit; see intersect_morton_plain for the contract. A CUDA
-    tensor launches drts_morton_closest_hit (csrc/intersect.cu)."""
+def closest_chunk_walk(rays, table, bounds):
+    """B1's kernel walk, lane by lane in its operations and order: chunks
+    in table order, each tested against the ray's segment [tmin, t_end]
+    (t_end = tmax, then min(tmax, top(best)) once the packed best holds a
+    hit; csrc/intersect.cu states the cull and its margin), and a met
+    chunk's filled slots folded into the best. Returns (met (N, n_chunks)
+    bool, the packed best (N,) int32, roots (N,) int64: the swept pairs
+    whose discriminant is not negative). Dead lanes meet nothing."""
+    n, cols = rays.shape[1], table.shape[1]
+    chunk = _check_bounds(table, bounds)
+    trunc = ~((1 << pos_bits(cols)) - 1)
+    ox, oy, oz, dx, dy, dz, tmin, tmax = rays
+    live = tmax >= tmin
+    dd = dx * dx + dy * dy + dz * dz
+    o1 = ox.abs() + oy.abs() + oz.abs()
+    dev = (dd - 1.0).abs()
+    slope = torch.where(dev <= 2.0 ** -8,
+                        1.125 * (torch.sqrt(dev) + CULL_SCALE), float("inf"))
+    m_o = CULL_SCALE * o1
+    inv_dd = 1.0 / dd
+    bx, by, bz, br = bounds[:4]
+    bw = br + CULL_SCALE * (bx.abs() + by.abs() + bz.abs() + br)
+    count = torch.clamp(bounds[4].to(torch.int64), 0, chunk).tolist()
+    best = torch.full((n,), INF_BITS, dtype=torch.int32, device=rays.device)
+    met = torch.zeros((n, len(count)), dtype=torch.bool, device=rays.device)
+    roots = torch.zeros(n, dtype=torch.int64, device=rays.device)
+    for k, cnt in enumerate(count):
+        hit = (best >= 0) & (best < INF_BITS)
+        top = ((best & trunc) | ~trunc).view(torch.float32)
+        t_end = torch.where(hit, torch.fmin(tmax, top), tmax)
+        vx, vy, vz = bx[k] - ox, by[k] - oy, bz[k] - oz
+        vd = vx * dx + vy * dy + vz * dz
+        s_star = vd * inv_dd
+        s = torch.fmin(torch.fmax(s_star, tmin), t_end)
+        wx, wy, wz = vx - s * dx, vy - s * dy, vz - s * dz
+        e = bw[k] + m_o
+        lim = e + slope * (s_star.abs() + e)
+        met[:, k] = ~(wx * wx + wy * wy + wz * wz > lim * lim) & live
+        if cnt:
+            c0 = k * chunk
+            pk, root = closest_pairs(rays, table[:, c0:c0 + cnt], trunc)
+            best = torch.where(met[:, k], torch.minimum(best, pk.amin(1)),
+                               best)
+            roots += root.sum(1) * met[:, k]
+    return met, best, roots
+
+
+def intersect_morton_work(rays, table, bounds, block: int = 16384):
+    """The work B1's kernel needs on these rays, in its visit order (see
+    closest_chunk_walk): per ray, (chunk tests, chunks met, pairs swept,
+    roots taken), each int64 (N,). A live ray tests every chunk, sweeps
+    the filled slots of each chunk it meets and takes the root of each
+    swept pair whose discriminant is not negative; dead lanes do
+    nothing."""
+    n = rays.shape[1]
+    chunk = _check_bounds(table, bounds)
+    count = torch.clamp(bounds[4].to(torch.int64), 0, chunk)
+    out = [torch.zeros(n, dtype=torch.int64, device=rays.device)
+           for _ in range(4)]
+    starts, step = _blocks(n, chunk, block)
+    for s in starts:
+        r = rays[:, s:s + step]
+        met, _, roots = closest_chunk_walk(r, table, bounds)
+        out[0][s:s + step] = torch.where(r[7] >= r[6], bounds.shape[1], 0)
+        out[1][s:s + step] = met.sum(1)
+        out[2][s:s + step] = met.mul(count).sum(1)
+        out[3][s:s + step] = roots
+    return tuple(out)
+
+
+def intersect_morton(rays, table, bounds, block: int = 16384):
+    """B1 closest hit; see intersect_morton_plain for the contract. bounds
+    (5, n_chunks) is ``MortonAccel.bounds`` for ``table``; the kernel culls
+    chunks by it per lane. A CUDA tensor launches drts_morton_closest_hit
+    (csrc/intersect.cu)."""
     _check_pair(rays, table, 9)
+    _check_bounds(table, bounds)
     if rays.device.type == "cpu":
-        return intersect_morton_plain(rays, table, block)
+        return intersect_morton_plain(rays, table, bounds, block)
     lib = backend.kernels()
     n, cols = rays.shape[1], table.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     obj = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = lib.drts_morton_closest_hit(rays.data_ptr(), n, table.data_ptr(),
-                                     cols, pos_bits(cols), t.data_ptr(),
+                                     cols, bounds.data_ptr(),
+                                     bounds.shape[1], CULL_SCALE,
+                                     pos_bits(cols), t.data_ptr(),
                                      obj.data_ptr(),
                                      backend.stream_handle(rays))
     backend.check_launch(rc, "drts_morton_closest_hit")
@@ -214,9 +304,11 @@ def occlusion_pair_blocked(rays9, table):
     return (t >= tmin) & (t <= tmax) & (obj != exclude)
 
 
-# Rounding margin of B2's chunk cull, relative to S = |o|_1 + |C|_1 + R + T
-# (csrc/intersect.cu states the cull). The wrapper passes it to the kernel,
-# and occlusion_chunk_met reads it, so both cull with this one value. A
+# Rounding margin of B1's and B2's chunk culls, relative to S = |o|_1 +
+# |C|_1 + R + T, where T bounds |t| of a hit: max(|tmin|, |tmax|) for B2,
+# 1.125 (|s*| + e) for B1 (csrc/intersect.cu states both culls). The
+# wrappers pass it to the kernels, and occlusion_chunk_met and
+# closest_chunk_walk read it, so each cull runs with this one value. A
 # computed root t of the quadratic lies at most sqrt(E) from its sphere's
 # surface, E <= 32 u S^2 with u = 2^-24 (the rounding of od, oo, the
 # table's -2c.o and |c|^2-r^2, b2^2 - c2, the sqrt and t), so

@@ -12,7 +12,14 @@ What bounds it on the H100: memory. Each pixel reads its 24 surface rows,
 4 n_l uniforms and 2 s slot rows once and writes 10 rows; the ~300 float
 operations per candidate fit under that. The kernel is one thread per
 pixel with the compact light table in shared memory; the TPU kernel's
-one-hot matrix-unit row fetch becomes an indexed load.
+one-hot matrix-unit row fetch becomes an indexed load. A block's slot rows
+are read coalesced into shared memory, so a round's select is a
+shared-memory load and not a gather from device memory, and the next
+round's uniforms load while a round computes; what a thread keeps across
+its rounds but reads rarely (the reservoir's winner, colour, normal and
+lobe terms) waits in shared memory too, so seven blocks of 128 threads
+fit an SM (``csrc/restir.cu``). ``initial_light_candidates_info`` reads
+the kernel's registers, local bytes and resident blocks on the card.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain version,
 which repeats the kernel's arithmetic operation for operation; a CUDA
@@ -21,6 +28,7 @@ tensor launches the kernel, or the wrapper raises.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -42,8 +50,8 @@ N_SURF_ROWS = 24
  ROW_VALID,
  ROW_WD, ROW_WS, ROW_WT) = range(N_SURF_ROWS)
 TABLE_COLS = 9
-# The kernel keeps the table in shared memory, within the 48 KB a launch
-# gets without opting in to more.
+# The kernel keeps the table in shared memory, at most 48 KB of it (a tile
+# of slot rows goes beside it).
 MAX_TABLE_ROWS = 48 * 1024 // (4 * TABLE_COLS)
 
 
@@ -256,3 +264,16 @@ def initial_light_candidates(surf, uni, slots, table, n_l: int, s: int,
     backend.check_launch(rc, "drts_initial_light_candidates")
     backend.launched("initial_light_candidates")
     return out_f, out_i
+
+
+def initial_light_candidates_info(n_lights: int, s: int) -> dict:
+    """B3's resources on the card for a light table of ``n_lights`` rows
+    and ``s`` slots: registers and local (stack and spill) bytes per
+    thread, shared bytes and threads per block, and the blocks one SM holds
+    at once."""
+    out = (ctypes.c_int * 5)()
+    rc = backend.kernels().drts_initial_light_candidates_info(n_lights, s,
+                                                              out)
+    backend.check_launch(rc, "drts_initial_light_candidates_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm"), out))

@@ -3,7 +3,11 @@
 Marked ``cuda``; each test skips where PyTorch sees no GPU. They cover what
 the main paths' shapes do not: tables wider than one shared-memory tile
 (512 columns), ray and pixel counts that are not a multiple of the block
-size, dead lanes, light tables of 1 and 128 rows, reprojection of 1 to
+size, dead lanes, light tables of 1 and 128 rows, B1's chunk culls (a
+table of five shared-memory tiles, every tmax +inf or every one finite, a
+dead batch, singleton chunks, rays tangent to chunk bounds with the cull's
+rounding margin from the wrapper and at 0), B3 with 1 to 200 slots (seven
+slot tiles) and 1 to 12 rounds, reprojection of 1 to
 4,100 channels (each vector width, and pixels wider than one block) with
 motion off every edge and on views that are not 16-byte aligned, B2 with
 a table wider than one shared-memory tile, a dead batch, singleton chunks,
@@ -20,9 +24,9 @@ machine, which has no JAX, without the suite's conftest:
 Tolerance 0 for B1, B11, B2, B4 and B5 to B10: the kernels are built with
 -fmad=false and compute the same separately rounded operations in the same
 order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
-sinf and cosf where the plain version calls PyTorch's: picks may differ on
-<= 0.1% of pixels and the outputs elsewhere by <= 1e-5 of each row's
-largest value.
+sincosf where the plain version calls PyTorch's sin and cos: picks may
+differ on <= 0.1% of pixels and the outputs elsewhere by <= 1e-5 of each
+row's largest value.
 """
 
 import numpy as np
@@ -77,10 +81,92 @@ def test_morton_kernel_equals_plain(dev, k, n):
                                        torch.from_numpy(radii).to(dev))
     rays = rays.to(dev)
     before = backend.LAUNCHES["intersect_morton"]
-    out = ik.intersect_morton(rays, accel.table)
+    out = ik.intersect_morton(rays, accel.table, accel.bounds)
     assert backend.LAUNCHES["intersect_morton"] == before + 1
     assert_equal(out, ik.intersect_morton_plain(rays, accel.table))
     assert bool(torch.isfinite(out[0]).any())
+
+
+def closest_case(kind, dev):
+    """(accel, bounds, rays) on `dev` for test_morton_kernel_culls_exactly:
+    `kind` is (spheres, rays, variant)."""
+    k, n, variant = kind
+    if variant == "tangent":
+        accel, bounds, rays9 = tangent_case(k, seed=k)
+        rays = rays9[:8].clone()
+        rays[7, ::2] = float("inf")
+        return (clusters.MortonAccel(accel.table.to(dev), bounds.to(dev),
+                                     accel.n_chunks, accel.chunk),
+                bounds.to(dev), rays.to(dev))
+    centers, radii, rays = random_case(k, n, seed=k + 2)
+    if variant == "singletons":
+        radii[::7] = 2.5 + radii[::7]   # beyond big_radius: one per chunk
+    plan = clusters.build_plan_morton(centers, radii, max_members=32,
+                                      device=dev)
+    accel = clusters.make_morton_accel(plan, torch.from_numpy(centers).to(dev),
+                                       torch.from_numpy(radii).to(dev),
+                                       sort_origin=rays[:3].mean(1).to(dev))
+    live = rays[7] >= rays[6]
+    rng = np.random.RandomState(n)
+    if variant == "inf":
+        rays[7] = torch.where(live, float("inf"), -1.0)
+    if variant == "finite":
+        rays[7] = torch.where(live, torch.from_numpy(
+            np.asarray(30.0 * rng.rand(n), np.float32)), -1.0)
+    if variant == "dead":
+        rays[7] = -1.0
+    return accel, accel.bounds, rays.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("k,n,variant", [
+    (7000, 3001, "inf"), (1500, 5001, "finite"), (300, 1000, "dead"),
+    (300, 2001, "singletons"), (40, 257, "inf"), (400, 0, "tangent")])
+def test_morton_kernel_culls_exactly(dev, k, n, variant):
+    """B1's culls change no bit: equal to the unculled plain version with a
+    table of 7,008 columns (five shared-memory tiles), a ragged ray count,
+    every live tmax +inf or every one finite, a batch of dead lanes only,
+    big spheres in singleton chunks, and rays tangent to chunk bounds
+    refit with no slack (half of them with tmax = +inf); and the cull
+    does skip chunks."""
+    accel, bounds, rays = closest_case((k, n, variant), dev)
+    before = backend.LAUNCHES["intersect_morton"]
+    out = ik.intersect_morton(rays, accel.table, bounds)
+    assert backend.LAUNCHES["intersect_morton"] == before + 1
+    assert_equal(out, ik.intersect_morton_plain(rays, accel.table))
+    met, best, _ = ik.closest_chunk_walk(rays, accel.table, bounds)
+    live = rays[7] >= rays[6]
+    if variant == "dead":
+        assert not bool(torch.isfinite(out[0]).any())
+        assert not bool(met.any())
+    else:
+        assert bool(torch.isfinite(out[0]).any())
+        assert float(met[live].float().mean()) < 0.9
+    if variant == "singletons":
+        assert bool((bounds[4] == 1).any())
+    if k == 7000:   # more chunks than one 48 KB tile holds
+        assert bounds.shape[1] * (2 * 16 * 32 + 20) > 4 * 48 * 1024
+
+
+@pytest.mark.parametrize("scale", [ik.CULL_SCALE, 0.0])
+def test_morton_kernel_culls_with_the_wrappers_scale(dev, scale,
+                                                     monkeypatch):
+    """B1 on rays tangent to chunk bounds refit with no slack, half with
+    tmax = +inf, culls with the rounding margin the wrapper passes: with
+    CULL_SCALE it equals the unculled plain version, and with the margin
+    set to 0 it equals the culled walk of the same scale
+    (closest_chunk_walk), which drops winners there."""
+    monkeypatch.setattr(ik, "CULL_SCALE", scale)
+    accel, bounds, rays = closest_case((400, 0, "tangent"), "cpu")
+    _, best, _ = ik.closest_chunk_walk(rays, accel.table, bounds)
+    trunc = ~((1 << ik.pos_bits(accel.table.shape[1])) - 1)
+    t, obj = ik.intersect_morton(rays.to(dev), accel.table.to(dev),
+                                 bounds.to(dev))
+    t, obj = t.cpu(), obj.cpu()
+    assert torch.equal(t, (best & trunc).view(torch.float32))
+    assert torch.equal(obj, best & ~trunc)
+    plain = ik.intersect_morton_plain(rays, accel.table)
+    same = torch.equal(t.view(torch.int32), plain[0].view(torch.int32))
+    assert same == (scale > 0)
 
 
 @pytest.mark.parametrize("k,n", [(1300, 3001), (7, 257)])
@@ -258,6 +344,29 @@ def test_candidate_kernel_equals_plain(dev, n, n_lights, n_b):
     diff = (f_k - f_p).abs()[:, same].amax(1)
     assert bool((diff <= 1e-5 * f_p.abs().amax(1)).all()), diff
     assert float(f_k[3].max()) > 0.0   # some candidate carries weight
+
+
+@pytest.mark.parametrize("n_b,n_lights", [(0, 1), (1, 128)])
+@pytest.mark.parametrize("n_l", [1, 8, 12])
+@pytest.mark.parametrize("s", [1, 8, 32, 200])
+def test_candidate_kernel_stages_any_slot_count(dev, s, n_l, n_b, n_lights):
+    """B3's slot rows staged in shared memory for 1 to 200 slots (200 are
+    seven tiles of 32, restaged in every round), 1 to 12 rounds, with and
+    without the MIS term and with 1 and 128 lights, at a ragged pixel
+    count: within the bounds of test_candidate_kernel_equals_plain."""
+    n = 1001
+    surf, uni, slots, table = (x.to(dev) for x in candidate_inputs(
+        n, n_lights, seed=s + n_l, n_l=n_l, s=s))
+    f_k, i_k = rk.initial_light_candidates(surf, uni, slots, table, n_l, s,
+                                           n_b)
+    f_p, i_p = rk.initial_light_candidates_plain(surf, uni, slots, table,
+                                                 n_l, s, n_b)
+    same = (i_k == i_p).all(0)
+    assert 1.0 - float(same.float().mean()) <= 1e-3
+    diff = (f_k - f_p).abs()[:, same].amax(1)
+    assert bool((diff <= 1e-5 * f_p.abs().amax(1)).all()), diff
+    assert float(f_k[3].max()) > 0.0
+    assert rk.initial_light_candidates_info(n_lights, s)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.parametrize("c", [1, 2, 3, 4, 8, 9, 129, 258, 1025, 4100])
