@@ -38,7 +38,10 @@ Phases, one printed line or more each; any failure exits non-zero:
    prints its time against its bound and its registers, spills, shared
    memory and resident blocks as the card reports them
    (restir_kernels.initial_light_candidates_info); B4 prints its vector
-   width.
+   width; B11's bound counts the work its kernel needs
+   (intersect_kernels.intersect_brute_work: the spheres with r > 0 swept,
+   the roots of positive discriminants), printed beside the unculled
+   sweep's bound.
 6. restir: the ReSTIR frame (RenderPipeline.render_frame with physics,
    ReSTIR DI and post, denoiser "None", SHARC off) at 1920x1080 through
    bench.bench_frame, counted from zero: frame time, per-stage times,
@@ -56,7 +59,11 @@ Phases, one printed line or more each; any failure exits non-zero:
    on different instances), and B7 once more on the primary rays before
    any candidate round, where the serial walk carries every live lane (the
    frame's own backstop batches are almost empty); kernel and plain times
-   from CUDA events.
+   from CUDA events. B5's bound counts its culled walk
+   (trimesh_kernels.bound_scan_work: chunk tests, chunks met, rows swept,
+   roots taken), printed with chunks met per live ray and per warp, rows
+   and roots per live ray and the unculled sweep's bound; B11's as in
+   phase 5.
 9. mesh: the instanced-mesh frame (the demo scene as 438 instances of one
    512-face geosphere, 1920x1080, 1 spp, 8 bounces) through
    bench.bench_mesh, counted from zero: frame time, Mray/s, rays per frame
@@ -74,7 +81,8 @@ Phases, one printed line or more each; any failure exits non-zero:
    before any candidate round, where the serial walk carries every live
    lane, held against its plain version and against the loop's result on
    the same rays (B8 compares t in object units, B9 in world units: they
-   may differ on at most ANY_LOOP_SHARE of the live lanes).
+   may differ on at most ANY_LOOP_SHARE of the live lanes). B5 and B11
+   print their culled work as in phase 8.
 11. mesh restir: the all-mesh ReSTIR frame (render_frame on the scene of
    phase 9, physics on, every face of an emissive instance a triangle
    light) at 1920x1080 through bench.bench_frame(mesh=True), counted from
@@ -91,7 +99,8 @@ Phases, one printed line or more each; any failure exits non-zero:
    plain version against the multi-launch loop (cand_loop: B5 and B6 round
    by round) on the same rays, on the inputs the primary and bounce-1
    trace calls of the second fused mesh frame at 1920x1080 give it;
-   kernel, plain and loop times from CUDA events.
+   kernel, plain and loop times from CUDA events (the loop's B5 takes
+   the chunk spheres of the same call's B7 launch).
 13. fused mesh: the mesh frame of phase 9 with MESH_CAND = 2 through
    bench.bench_mesh, counted from zero: frame time, Mray/s and launches;
    per trace call B10 once, B7 once, B11 twice and no B5 or B6; the image
@@ -129,10 +138,10 @@ of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
 frame's).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
-tmax only; an any-hit sweep ends at its first blocking triangle; B1 and
-B2 count their culled walks, and their entries also carry
-"unculled_bound_ms"), and a kernel measured under its bound fails the
-run. Then the card's name and
+tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2
+and B5 count their culled walks and B11 its staged rows and roots, and
+their entries also carry "unculled_bound_ms"), and a kernel measured
+under its bound fails the run. Then the card's name and
 power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
@@ -166,7 +175,10 @@ OPS_B1_ROOT = 11          # ... not negative: root, range test, packed min
 OPS_B1_CHUNK = 29         # ray x chunk bound tested (the cull)
 OPS_B1_MET = 5            # a met chunk's segment end from the packed best
 OPS_B1_RAY = 30           # a live ray's od, oo, cull margin and unpacking
-OPS_B11_PAIR = 26         # ray x sphere
+OPS_B11_PAIR = 26         # ray x sphere of the unculled sweep
+OPS_B11_SWEPT = 17        # ray x staged sphere (r > 0): the discriminant
+OPS_B11_ROOT = 11         # ... positive: root, range test, compare, update
+OPS_B11_RAY = 10          # a live ray's od and oo
 OPS_B2_PAIR = 22          # ray x filled slot swept before the exit
 OPS_B2_CHUNK = 25         # ray x chunk bound tested (the cull)
 OPS_B2_RAY = 34           # a live ray's od, oo and cull margin
@@ -174,7 +186,12 @@ OPS_B2_RAY_UNCULLED = 10  # od and oo: the unculled sweep's per-ray count
 OPS_B3_PIXEL = 40         # BSDF parameters and view terms
 OPS_B3_CANDIDATE = 270    # cone sample, three-lobe BSDF, MIS, update
 OPS_B4_BILINEAR = 11      # per channel, the tent
-OPS_B5_PAIR = 27          # ray x bound-scan row
+OPS_B5_PAIR = 27          # ray x bound-scan row of the unculled sweep
+OPS_B5_SWEPT = 17         # ray x row of a met chunk: the discriminant
+OPS_B5_ROOT = 12          # ... not negative: root, interval, key, min
+OPS_B5_CHUNK = 29         # ray x chunk covering sphere tested (the cull)
+OPS_B5_MET = 5            # a met chunk's segment end from the best key
+OPS_B5_RAY = 30           # a live ray's od, oo and cull terms
 OPS_MT_PAIR = 55          # ray x triangle row (B6, B7)
 OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6, B7)
 OPS_B7_SPHERE = 30        # B7's ray x bounding-sphere test
@@ -346,11 +363,85 @@ def b1_frame(ik, calls, frames, reps=5):
     return ms / frames, len(calls) / frames, line
 
 
-def b11_work(rays, spheres):
-    """(bytes, operations) of one brute-force sweep."""
+def b11_work(ik, rays, spheres):
+    """B11's work on these rays (intersect_kernels.intersect_brute_work:
+    pairs swept, roots taken), with the bytes and operations of its bound
+    and the operations of the unculled sweep (every live ray x every
+    sphere), and its printed line."""
+    pairs, roots = (int(x.sum()) for x in ik.intersect_brute_work(
+        rays, spheres, 262144))
     n, live = rays.shape[1], live_rays(rays)
-    return (lane_bytes(n, live, 8, 2, spheres),
-            live * spheres.shape[1] * OPS_B11_PAIR)
+    w = {"live": live, "pairs": pairs, "roots": roots,
+         "bytes": lane_bytes(n, live, 8, 2, spheres),
+         "ops": pairs * OPS_B11_SWEPT + roots * OPS_B11_ROOT
+         + live * OPS_B11_RAY,
+         "unculled_ops": live * spheres.shape[1] * OPS_B11_PAIR}
+    w["line"] = (f"live={live} spheres={spheres.shape[1]} "
+                 f"staged={int((spheres[3] > 0).sum())} pairs={pairs} "
+                 f"roots={roots} roots_per_live_ray={roots / max(live, 1)!r} "
+                 f"bound_ms={bound(w['bytes'], w['ops'])[0]!r} "
+                 f"unculled_bound_ms="
+                 f"{bound(w['bytes'], w['unculled_ops'])[0]!r}")
+    return w
+
+
+def check_b5(ik, tk, label, args, plain_reps):
+    """B5 against its plain version on one recorded call (key words equal)
+    and its culled work (trimesh_kernels.bound_scan_work: chunk tests,
+    chunks met, rows swept, roots; chunks met per live warp from
+    bound_scan_walk). Returns its timed part (plain_ms 0.0 where
+    plain_reps is 0) with the operations of the unculled sweep."""
+    rays, bscan, cursor, inst_bounds, m_tbl, block = args
+    key_k = tk.bound_scan(*args)
+    key_p = tk.bound_scan_plain(*args)
+    torch.cuda.synchronize()
+    mismatch = words_differ((key_k,), (key_p,))
+    tests, met, rows, roots = (int(x.sum()) for x in tk.bound_scan_work(
+        rays, bscan, cursor, inst_bounds, m_tbl, 262144))
+    warp_met, warps = warp_chunks_met(
+        lambda r, cur: tk.bound_scan_walk(r, bscan, cur, inst_bounds,
+                                          m_tbl)[0], rays, 262144, cursor)
+    live = live_rays(rays)
+    n, m_pad = rays.shape[1], bscan.shape[0]
+    part = {"bytes": lane_bytes(n, live, 8 + 1, 1, bscan, inst_bounds),
+            "ops": tests * OPS_B5_CHUNK + met * OPS_B5_MET
+            + rows * OPS_B5_SWEPT + roots * OPS_B5_ROOT + live * OPS_B5_RAY,
+            "unculled_ops": live * m_pad * OPS_B5_PAIR,
+            "ms": cuda_ms(lambda: tk.bound_scan(*args), 10),
+            "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(*args),
+                                plain_reps) if plain_reps else 0.0}
+    per = max(live, 1)
+    log(f"{label} rays={n} live={live} rows={m_pad} instances={m_tbl} "
+        f"fresh_cursor={bool((cursor == -1).all())} "
+        f"found={int((key_k < ik.INF_BITS).sum())} mismatch={mismatch} "
+        f"chunk_tests={tests} chunks_met={met} rows_swept={rows} "
+        f"roots={roots} chunks_met_per_live_ray={met / per!r} "
+        f"chunks_met_per_live_warp={warp_met / max(warps, 1)!r} "
+        f"rows_per_live_ray={rows / per!r} roots_per_live_ray="
+        f"{roots / per!r} kernel_ms={part['ms']!r} "
+        f"plain_ms={part['plain_ms']!r} "
+        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r} "
+        f"unculled_bound_ms="
+        f"{bound(part['bytes'], part['unculled_ops'])[0]!r}")
+    if mismatch:
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version on {mismatch} keys")
+    return part
+
+
+def sum_parts(parts):
+    """One kernel's kernels-line fields from its timed parts: times summed,
+    the bound of the summed work and, where the parts count it, of the
+    summed unculled work."""
+    byts = sum(p["bytes"] for p in parts)
+    b_ms, b_by = bound(byts, sum(p["ops"] for p in parts))
+    out = {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in parts),
+           "plain_ms": sum(p["plain_ms"] for p in parts),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if all("unculled_ops" in p for p in parts):
+        out["unculled_bound_ms"] = bound(
+            byts, sum(p["unculled_ops"] for p in parts))[0]
+    return out
 
 
 def occlusion_visited(ik, rays9, table, block=32768):
@@ -368,14 +459,16 @@ def occlusion_visited(ik, rays9, table, block=32768):
     return visited
 
 
-def warp_chunks_met(chunk_met, rays, block=262144):
+def warp_chunks_met(chunk_met, rays, block=262144, *per_lane):
     """Chunks that some lane of a warp (32 consecutive rays) meets, summed
     over the warps that meet one, and those warps: a warp runs a chunk's
-    sweep when any of its lanes needs it. chunk_met(rays) gives the
-    (rays, chunks) bool of a kernel's cull."""
+    sweep when any of its lanes needs it. chunk_met(rays, *per_lane)
+    gives the (rays, chunks) bool of a kernel's cull; `per_lane` tensors
+    (N,) are cut into the same blocks as the rays."""
     total = warps = 0
     for s in range(0, rays.shape[1], block):
-        met = chunk_met(rays[:, s:s + block])
+        met = chunk_met(rays[:, s:s + block],
+                        *(x[s:s + block] for x in per_lane))
         pad = -met.shape[0] % 32
         met = torch.nn.functional.pad(met, (0, 0, 0, pad))
         per_warp = met.reshape(-1, 32, met.shape[1]).any(1)
@@ -610,9 +703,14 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         "B11 brdf-candidate", lambda: ik.intersect_brute(rays, spheres),
         lambda: ik.intersect_brute_plain(rays, spheres, block),
         reps=20, plain_reps=2)
-    b_ms, b_by = bound(*b11_work(rays, spheres))
+    w = b11_work(ik, rays, spheres)
+    b_ms, b_by = bound(w["bytes"], w["ops"])
+    unculled_ms = bound(w["bytes"], w["unculled_ops"])[0]
+    log(f"kernels: B11 brdf-candidate {w['line']} "
+        f"kernel_ms={out['intersect_brute']['ms']!r}")
     out["intersect_brute"].update(bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=None)
+                                  library_ms=None,
+                                  unculled_bound_ms=unculled_ms)
     return out
 
 
@@ -693,46 +791,15 @@ def check_mesh_kernels(ik, tk, seen):
     out = {}
     split_any = 0
 
-    def total(name, parts):
-        """Sum the timed launches of one kernel into its fields."""
-        b_ms, b_by = bound(sum(p["bytes"] for p in parts),
-                           sum(p["ops"] for p in parts))
-        out[name] = {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in parts),
-                     "plain_ms": sum(p["plain_ms"] for p in parts),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-
     for c, label in enumerate(("primary", "bounce-1")):
         timed = c == 0     # the plain versions are timed on the primary call
 
         # B5: the loop's rounds and the scan that marks the unresolved rays.
-        parts = []
-        for r, (rays, bscan, cursor, block) in enumerate(
-                seen["bound_scan"][4 * c:4 * c + 4]):
-            key_k = tk.bound_scan(rays, bscan, cursor, block)
-            key_p = tk.bound_scan_plain(rays, bscan, cursor, block)
-            torch.cuda.synchronize()
-            mismatch = words_differ((key_k,), (key_p,))
-            live = live_rays(rays)
-            n, m_pad = rays.shape[1], bscan.shape[0]
-            part = {"bytes": lane_bytes(n, live, 8 + 1, 1, bscan),
-                    "ops": live * m_pad * OPS_B5_PAIR,
-                    "ms": cuda_ms(lambda: tk.bound_scan(rays, bscan, cursor,
-                                                        block), 10),
-                    "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(
-                        rays, bscan, cursor, block), 1) if timed else 0.0}
-            parts.append(part)
-            log(f"mesh kernels: B5 {label} round {r + 1} rays={n} live={live} "
-                f"rows={m_pad} fresh_cursor={bool((cursor == -1).all())} "
-                f"found={int((key_k < ik.INF_BITS).sum())} "
-                f"mismatch={mismatch} kernel_ms={part['ms']!r} "
-                f"plain_ms={part['plain_ms']!r} "
-                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-            if mismatch:
-                raise AssertionError(f"B5 {label} round {r + 1}: kernel "
-                                     f"disagrees with its plain version on "
-                                     f"{mismatch} keys")
+        parts = [check_b5(ik, tk, f"mesh kernels: B5 {label} round {r + 1}",
+                          args, 1 if timed else 0)
+                 for r, args in enumerate(seen["bound_scan"][4 * c:4 * c + 4])]
         if timed:
-            total("bound_scan", parts)
+            out["bound_scan"] = sum_parts(parts)
 
         # B6: each round's sweep of the rays' own candidates.
         parts = []
@@ -776,7 +843,7 @@ def check_mesh_kernels(ik, tk, seen):
                                      f"{mismatch} words")
             split_any += split
         if timed:
-            total("shared_blas_sweep", parts)
+            out["shared_blas_sweep"] = sum_parts(parts)
 
         # B7: the frame's own backstop batch (few live lanes).
         check_b7(tk, f"{label} backstop",
@@ -792,13 +859,14 @@ def check_mesh_kernels(ik, tk, seen):
                 lambda: ik.intersect_brute(rays, spheres),
                 lambda: ik.intersect_brute_plain(rays, spheres, block),
                 reps=10, plain_reps=1)
-            res["bytes"], res["ops"] = b11_work(rays, spheres)
+            w = b11_work(ik, rays, spheres)
+            res.update(bytes=w["bytes"], ops=w["ops"],
+                       unculled_ops=w["unculled_ops"])
             parts.append(res)
-            log(f"mesh kernels: B11 {label} {which} live={live_rays(rays)} "
-                f"bound_ms={bound(res['bytes'], res['ops'])[0]!r} "
+            log(f"mesh kernels: B11 {label} {which} {w['line']} "
                 f"kernel_ms={res['ms']!r}")
         if timed:
-            total("intersect_brute@mesh", parts)
+            out["intersect_brute@mesh"] = sum_parts(parts)
 
     if split_any == 0:
         raise AssertionError("B6: no batch holds live neighbours with "
@@ -812,7 +880,7 @@ def check_mesh_kernels(ik, tk, seen):
     if b7["live"] < B7_MIN_LIVE or b7["hits"] == 0:
         raise AssertionError(f"B7: the batch without candidate rounds holds "
                              f"{b7['live']} live lanes and {b7['hits']} hits")
-    total("intersect_mesh_instances", [b7])
+    out["intersect_mesh_instances"] = sum_parts([b7])
     return out
 
 
@@ -927,14 +995,6 @@ def check_anyhit_kernels(ik, tk, seen):
             + json.dumps({k: len(v) for k, v in seen.items()})
             + " calls, expected 9 B5, 6 B8, 3 B9, 3 B11")
     out = {}
-
-    def total(name, parts):
-        b_ms, b_by = bound(sum(p["bytes"] for p in parts),
-                           sum(p["ops"] for p in parts))
-        out[name] = {"max_abs_err": 0.0, "ms": sum(p["ms"] for p in parts),
-                     "plain_ms": sum(p["plain_ms"] for p in parts),
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-
     b5_parts, b8_parts, b11_parts = [], [], []
     fullest = None
     for c, label in enumerate(("brdf-candidate", "initial", "final")):
@@ -945,38 +1005,20 @@ def check_anyhit_kernels(ik, tk, seen):
             lambda: ik.intersect_brute(rays, spheres),
             lambda: ik.intersect_brute_plain(rays, spheres, block),
             reps=10, plain_reps=1)
-        res["bytes"], res["ops"] = b11_work(rays, spheres)
+        w = b11_work(ik, rays, spheres)
+        res.update(bytes=w["bytes"], ops=w["ops"],
+                   unculled_ops=w["unculled_ops"])
         b11_parts.append(res)
-        log(f"mesh any-hit kernels: B11 {label} live={live_rays(rays)} "
-            f"bound_ms={bound(res['bytes'], res['ops'])[0]!r} "
+        log(f"mesh any-hit kernels: B11 {label} {w['line']} "
             f"kernel_ms={res['ms']!r}")
 
         # B5: the two rounds and the scan that marks the unresolved rays.
-        for r, (rays, bscan, cursor, block) in enumerate(
-                seen["bound_scan"][3 * c:3 * c + 3]):
-            key_k = tk.bound_scan(rays, bscan, cursor, block)
-            key_p = tk.bound_scan_plain(rays, bscan, cursor, block)
-            torch.cuda.synchronize()
-            mismatch = words_differ((key_k,), (key_p,))
+        for r, args in enumerate(seen["bound_scan"][3 * c:3 * c + 3]):
+            b5_parts.append(check_b5(
+                ik, tk, f"mesh any-hit kernels: B5 {label} round {r + 1}",
+                args, 1))
+            rays = args[0]
             live = live_rays(rays)
-            n, m_pad = rays.shape[1], bscan.shape[0]
-            part = {"bytes": lane_bytes(n, live, 8 + 1, 1, bscan),
-                    "ops": live * m_pad * OPS_B5_PAIR,
-                    "ms": cuda_ms(lambda: tk.bound_scan(rays, bscan, cursor,
-                                                        block), 10),
-                    "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(
-                        rays, bscan, cursor, block), 1)}
-            b5_parts.append(part)
-            log(f"mesh any-hit kernels: B5 {label} round {r + 1} rays={n} "
-                f"live={live} rows={m_pad} "
-                f"found={int((key_k < ik.INF_BITS).sum())} "
-                f"mismatch={mismatch} kernel_ms={part['ms']!r} "
-                f"plain_ms={part['plain_ms']!r} "
-                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-            if mismatch:
-                raise AssertionError(f"B5 {label} round {r + 1}: kernel "
-                                     f"disagrees with its plain version on "
-                                     f"{mismatch} keys")
             if r == 0 and (fullest is None or live > fullest[0]):
                 fullest = (live, label, rays, c)
 
@@ -1016,9 +1058,9 @@ def check_anyhit_kernels(ik, tk, seen):
         # B9: the frame's own backstop batch.
         check_b9(tk, f"{label} backstop",
                  seen["intersect_mesh_instances_any"][c], False)
-    total("bound_scan@mesh_restir", b5_parts)
-    total("shared_blas_any", b8_parts)
-    total("intersect_brute@mesh_restir", b11_parts)
+    out["bound_scan@mesh_restir"] = sum_parts(b5_parts)
+    out["shared_blas_any"] = sum_parts(b8_parts)
+    out["intersect_brute@mesh_restir"] = sum_parts(b11_parts)
 
     # B9 where it carries every ray: the fullest batch as the pre-pass left
     # it, no candidate round before it (intersect_instances_any's rounds=0),
@@ -1038,7 +1080,7 @@ def check_anyhit_kernels(ik, tk, seen):
                              f"blocked")
     if differ > ANY_LOOP_SHARE * b9["live"]:
         raise AssertionError("B9 alone disagrees with the candidate loop")
-    total("intersect_mesh_instances_any", [b9])
+    out["intersect_mesh_instances_any"] = sum_parts([b9])
     return out
 
 
@@ -1048,8 +1090,10 @@ def capture_fused_inputs(bench, pathtrace, trimesh, modules, device="cuda"):
     calls (the primary and the bounce-1 rays)."""
     scene, cam, cfg = bench.make_mesh_setup(device=device)
     pathtrace.trace_image(scene, cam, cfg, 0)
-    with recorded(modules, ("cand_fused",), clone=True,
-                  keep=lambda seen: len(seen["cand_fused"]) < 2) as seen:
+    with recorded(modules, ("cand_fused", "intersect_mesh_instances"),
+                  clone=True,
+                  keep=lambda seen: len(seen["intersect_mesh_instances"]) < 2
+                  ) as seen:
         pathtrace.trace_image(scene, cam, cfg, 1)
         torch.cuda.synchronize()
     return seen
@@ -1060,15 +1104,18 @@ def check_fused_kernel(tk, seen):
     against the multi-launch loop, bit for bit, on each recorded call; the
     kernels-line fields are the primary call's."""
     calls = seen["cand_fused"]
-    if len(calls) != 2:
+    if len(calls) != 2 or len(seen["intersect_mesh_instances"]) != 2:
         raise AssertionError(f"B10: recorded {len(calls)} calls, expected 2")
     fields = None
-    for label, args in zip(("primary", "bounce-1"), calls):
+    for label, args, b7_args in zip(("primary", "bounce-1"), calls,
+                                    seen["intersect_mesh_instances"]):
         rays, bscan, inst_tbl, tri_tbl, rounds, block = args
+        loop_args = (rays, bscan, inst_tbl, b7_args[2], tri_tbl, rounds,
+                     block)
         work = {}
         out_k = tk.cand_fused(*args)
         out_p = tk.cand_fused_plain(*args, work=work)
-        out_l = tk.cand_loop(*args)
+        out_l = tk.cand_loop(*loop_args)
         torch.cuda.synchronize()
         mismatch = words_differ(out_k, out_p)
         loop_mismatch = words_differ(out_p, out_l)
@@ -1083,7 +1130,7 @@ def check_fused_kernel(tk, seen):
         b_ms, b_by = bound(b_bytes, b_ops)
         k_ms = cuda_ms(lambda: tk.cand_fused(*args), 10)
         p_ms = cuda_ms(lambda: tk.cand_fused_plain(*args), 1)
-        l_ms = cuda_ms(lambda: tk.cand_loop(*args), 10)
+        l_ms = cuda_ms(lambda: tk.cand_loop(*loop_args), 10)
         found = int((out_k[0] < tk.INF_BITS).sum())
         log(f"fused kernel: B10 {label} rays={n} live={work['live']} "
             f"rounds={rounds} rows={m_pad} faces={f_pad} "

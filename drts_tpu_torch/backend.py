@@ -9,8 +9,9 @@ with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
 interface (``build/libdrts_kernels_<key>.so``, git-ignored), loaded with
 ``ctypes``. The key hashes the nvcc flags and the resolved nvcc path, so a
 change to either builds a new library; the build takes seconds and is also
-redone when a source is newer than the library. Each source compiles
-to its own object file, all at once, and one link makes the library.
+redone when a source or header is newer than the library. Each source
+compiles to its own object file, all at once, and one link makes the
+library.
 
 Launch counts: ``LAUNCHES`` holds one count per kernel wrapper
 (``ops/intersect_kernels.py``, ``ops/restir_kernels.py``,
@@ -34,6 +35,7 @@ PACKAGE_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 SOURCES = ("intersect.cu", "restir.cu", "reproject.cu", "trimesh.cu")
+HEADERS = ("rays.cuh",)   # included by intersect.cu and trimesh.cu
 # -fmad=false keeps every multiply and add separately rounded, as the plain
 # PyTorch versions compute them; no --use_fast_math (IEEE sqrt, NaN kept).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -62,9 +64,10 @@ _SIGNATURES = {
     # src, motion, h, w, c, bilinear, vec, out, ok, stream
     "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT,
                        _VOIDP, _VOIDP, _VOIDP),
-    # rays, n, cursor, table, m_pad, pos_bits, key_out, stream
-    "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _INT, _VOIDP,
-                        _VOIDP),
+    # rays, n, cursor, table, m_tbl, inst_bounds, ic_cols, inst_chunk,
+    # cull_scale, pos_bits, key_out, stream
+    "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _VOIDP, _INT,
+                        _INT, _FLOAT, _INT, _VOIDP, _VOIDP),
     # rays, n, cand, best_in, binst_in, inst_tbl, m_tbl, tri_tbl, f_pad,
     # pos_bits, best_out, binst_out, stream
     "drts_shared_blas_sweep": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
@@ -141,14 +144,15 @@ def lib_path(nvcc: str) -> str:
 
 def build(verbose: bool = False) -> str:
     """Compile csrc/ unless its library (see lib_path) is newer than every
-    source: one nvcc per source, all started together, then one link.
-    Returns the library's path. With verbose, prints ptxas register/spill
-    usage."""
+    source and header: one nvcc per source, all started together, then one
+    link. Returns the library's path. With verbose, prints ptxas
+    register/spill usage."""
     sources = [os.path.join(CSRC_DIR, s) for s in SOURCES]
     nvcc = _nvcc()
     path = lib_path(nvcc)
+    inputs = sources + [os.path.join(CSRC_DIR, h) for h in HEADERS]
     if os.path.exists(path) and not verbose and all(
-            os.path.getmtime(s) <= os.path.getmtime(path) for s in sources):
+            os.path.getmtime(s) <= os.path.getmtime(path) for s in inputs):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:

@@ -15,10 +15,11 @@
 // work is ~25 float operations and one IEEE sqrt, against 32 bytes read
 // from the ray and 4 or 8 written, so the sweeps are bound by instruction
 // issue (FP32 and the sqrt sequence), not by device-memory bandwidth.
-// B11 keeps every pair: it has no accel to cull by. B1 and B2 stage the
-// Morton table in tiles of whole chunks with the chunk bounds of the
-// Morton accel, and cull chunks per lane (see their notes below); the
-// culls never change a bit of the result.
+// B11 has no accel to cull by: it skips dead blocks, rows of radius 0 and
+// the root of every row the ray misses. B1 and B2 stage the Morton table in
+// tiles of whole chunks with the chunk bounds of the Morton accel, and
+// cull chunks per lane (see their notes below); no skip or cull changes a
+// bit of the result.
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply and add rounds on its own, in the order the plain PyTorch
@@ -28,29 +29,13 @@
 
 #include <cuda_runtime.h>
 
+#include "rays.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 512;  // B11's sphere tile
 constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tmin, tmax;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
-                                        int n, int i) {
-  Ray r;
-  r.ox = rays[0 * (size_t)n + i];
-  r.oy = rays[1 * (size_t)n + i];
-  r.oz = rays[2 * (size_t)n + i];
-  r.dx = rays[3 * (size_t)n + i];
-  r.dy = rays[4 * (size_t)n + i];
-  r.dz = rays[5 * (size_t)n + i];
-  r.tmin = rays[6 * (size_t)n + i];
-  r.tmax = rays[7 * (size_t)n + i];
-  return r;
-}
 
 // The Morton table of B1 and B2: (9, cols) planar
 // [cx cy cz r obj -2cx -2cy -2cz |c|^2-r^2], empty slots at
@@ -89,12 +74,10 @@ __device__ __forceinline__ void stage_chunks(
   }
   for (int k = threadIdx.x; k < m; k += blockDim.x) {
     const int kk = k0 + k;
-    const float bx = bounds[0 * n_chunks + kk];
-    const float by = bounds[1 * n_chunks + kk];
-    const float bz = bounds[2 * n_chunks + kk];
-    const float br = bounds[3 * n_chunks + kk];
-    s_bnd[k] = make_float4(
-        bx, by, bz, br + scale * (fabsf(bx) + fabsf(by) + fabsf(bz) + br));
+    s_bnd[k] = cull_sphere(bounds[0 * n_chunks + kk],
+                           bounds[1 * n_chunks + kk],
+                           bounds[2 * n_chunks + kk],
+                           bounds[3 * n_chunks + kk], scale);
     s_cnt[k] = min(max((int)bounds[4 * n_chunks + kk], 0), chunk);
   }
 }
@@ -134,20 +117,9 @@ __device__ __forceinline__ ChunkTile chunk_tile(float4* s_mem, int tile,
 // even on a tie of truncated t. (The truncated t itself as segment end
 // would drop a tie that a lower object id wins.)
 //
-// The margin holds on a half-line (primary and bounce rays carry
-// tmax = +inf, so B2's margin, built on T = max(|tmin|, |tmax|), would be
-// infinite). With v = C - o, s* = v.d / d.d, e = R + scale (|C|_1 + R +
-// |o|_1) and k = sqrt(|d.d - 1|) + scale, the computed hit point
-// q = o + t d of a sphere of the chunk lies within e + k |t| of C (B2's
-// margin with T = |t|; R covers |c - C| + r). Projected on the ray,
-// |t - s*| sqrt(d.d) <= e + k |t|, so where |d.d - 1| <= 2^-8 (k <=
-// 0.0665, sqrt(d.d) >= 0.998), |t| <= 1.0713 |s*| + 1.0734 e <=
-// 1.125 (|s*| + e). The chunk is skipped when |v - s d|^2 > lim^2 with
-// s = clamp(s*, tmin, t_end) and lim = e + 1.125 k (|s*| + e): finite for
-// every chunk, so a ray with no hit yet is culled too. Outside
-// |d.d - 1| <= 2^-8 no chunk is skipped, and non-finite inputs make lim
-// infinite or NaN or the compare false: no skip. The caller passes scale
-// = ops/intersect_kernels.py:CULL_SCALE, which states the rounding part.
+// The cull and its margin, which holds on a half-line (tmax = +inf), are
+// in csrc/rays.cuh, shared with B5; the caller passes scale =
+// ops/intersect_kernels.py:CULL_SCALE, which states the rounding part.
 // A pair whose discriminant is negative misses; the lane skips its root
 // and range tests (the plain version's NaN root fails them: the same
 // result). Most swept pairs miss, and neighbouring lanes miss the same
@@ -168,17 +140,12 @@ morton_closest_hit(const float* __restrict__ rays, int n,
   if (i < n) r = load_ray(rays, n, i);
   const bool live = i < n && r.tmax >= r.tmin;
   const int trunc = ~((1 << pos_bits) - 1);
-  float od = 0.f, oo = 0.f, inv_dd = 0.f, m_o = 0.f, slope = 0.f;
+  float od = 0.f, oo = 0.f;
+  SegmentCull cull = {0.f, 0.f, 0.f};
   if (live) {
     od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
     oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-    const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
-    const float dev = fabsf(dd - 1.0f);
-    slope = dev <= 0.00390625f ? 1.125f * (sqrtf(dev) + scale)
-                               : __int_as_float(kInfBits);
-    m_o = scale * o1;
-    inv_dd = 1.0f / dd;
+    cull = segment_cull(r, scale);
   }
   int best = kInfBits;
   float t_end = r.tmax;
@@ -190,16 +157,7 @@ morton_closest_hit(const float* __restrict__ rays, int n,
     __syncthreads();
     if (!live) continue;
     for (int k = 0; k < m; ++k) {
-      const float4 b = s.bnd[k];
-      const float vx = b.x - r.ox, vy = b.y - r.oy, vz = b.z - r.oz;
-      const float vd = vx * r.dx + vy * r.dy + vz * r.dz;
-      const float s_star = vd * inv_dd;
-      const float sc = fminf(fmaxf(s_star, r.tmin), t_end);
-      const float wx = vx - sc * r.dx, wy = vy - sc * r.dy,
-                  wz = vz - sc * r.dz;
-      const float e = b.w + m_o;
-      const float lim = e + slope * (fabsf(s_star) + e);
-      if (wx * wx + wy * wy + wz * wz > lim * lim) continue;
+      if (segment_misses(cull, r, t_end, s.bnd[k])) continue;
       const int c0 = k * chunk, end = c0 + s.cnt[k];
 #pragma unroll 4
       for (int c = c0; c < end; ++c) {
@@ -229,49 +187,126 @@ morton_closest_hit(const float* __restrict__ rays, int n,
 
 // B11. spheres: (4, k) planar [cx cy cz r], padded with r = 0. The
 // smallest t wins; on ties the lowest sphere index (strict <, ascending).
+//
+// Design: a dead lane reads its tmin and tmax only, and a block with no
+// live lane leaves before it reads the table (the TPU kernel's dead-block
+// skip). The others stage the table in tiles of
+// kTile columns, compacted: only the rows with r > 0 (the plain version's
+// `valid` needs r > 0), in index order, as (cx cy cz |c|^2-r^2) and the
+// index, so a light table whose unused rows are zeroed is swept only over
+// its lights. A live lane sweeps the staged rows kB11Group at a time: the
+// group's discriminants first, so its shared-memory loads and arithmetic
+// overlap, then in index order the root, the range test and the compare of
+// each row whose discriminant is positive (`valid` needs disc > 0, so a
+// row with disc <= 0 needs no root: the same result). Most rows miss, and
+// neighbouring lanes miss the same rows. Bound by instruction issue: ~17
+// float operations per row swept, ~11 more and one sqrt per positive
+// discriminant.
+constexpr int kB11Group = 8;
+
+// Stage columns [base, base + m) of the sphere table into s_sph / s_idx,
+// keeping the rows with r > 0 in index order; returns how many were kept
+// (the same on every thread). Every thread of the block calls it; its
+// first barrier comes before any write to s_sph or s_idx, so the tile
+// before it has been swept by then.
+__device__ __forceinline__ int stage_live_spheres(
+    const float* __restrict__ spheres, int k, int base, int m, float4* s_sph,
+    int* s_idx, int* s_warp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int kept = 0;
+  for (int c0 = 0; c0 < m; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    float cx = 0.f, cy = 0.f, cz = 0.f, rad = 0.f;
+    if (c < m) {
+      cx = spheres[0 * k + base + c];
+      cy = spheres[1 * k + base + c];
+      cz = spheres[2 * k + base + c];
+      rad = spheres[3 * k + base + c];
+    }
+    const bool keep = c < m && rad > 0.f;
+    const unsigned mask = __ballot_sync(0xFFFFFFFFu, keep);
+    if (lane == 0) s_warp[warp] = __popc(mask);
+    __syncthreads();
+    int at = kept, round = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      at += w < warp ? s_warp[w] : 0;
+      round += s_warp[w];
+    }
+    if (keep) {
+      at += __popc(mask & ((1u << lane) - 1u));
+      s_sph[at] = make_float4(cx, cy, cz, cx * cx + cy * cy + cz * cz -
+                                              rad * rad);
+      s_idx[at] = base + c;
+    }
+    kept += round;
+    __syncthreads();  // s_warp is read before the next round writes it
+  }
+  return kept;
+}
+
+// One ray x staged row of B11: the discriminant, and b through `b_out`.
+__device__ __forceinline__ float brute_disc(const float4 s, const Ray& r,
+                                            float od, float oo,
+                                            float* b_out) {
+  const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
+  const float c0 = oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s.w;
+  *b_out = b;
+  return b * b - c0;
+}
+
+// The root of a row with disc > 0, folded into the lane's best.
+__device__ __forceinline__ void brute_fold(float b, float disc, int idx,
+                                           const Ray& r, float* best_t,
+                                           int* best_i) {
+  const float sq = sqrtf(disc);
+  const float t_near = -b - sq;
+  const float t = t_near >= r.tmin ? t_near : -b + sq;
+  if (t >= r.tmin && t <= r.tmax && t < *best_t) {
+    *best_t = t;
+    *best_i = idx;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 brute_closest_hit(const float* __restrict__ rays, int n,
                   const float* __restrict__ spheres, int k,
                   float* __restrict__ t_out, int* __restrict__ idx_out) {
-  __shared__ float4 s_sph[kTile];  // cx cy cz r
-  __shared__ float s_cc[kTile];    // |c|^2 - r^2
+  __shared__ float4 s_sph[kTile];  // cx cy cz |c|^2-r^2, rows with r > 0
+  __shared__ int s_idx[kTile];     // their sphere indices
+  __shared__ int s_warp[kThreads / 32];
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n;
-  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  if (in_range) r = load_ray(rays, n, i);
-  const bool live = in_range && r.tmax >= r.tmin;
-  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
   float best_t = __int_as_float(kInfBits);
   int best_i = 0;
-
-  for (int base = 0; base < k; base += kTile) {
-    const int m = min(kTile, k - base);
-    __syncthreads();
-    for (int c = threadIdx.x; c < m; c += blockDim.x) {
-      const int col = base + c;
-      const float cx = spheres[0 * k + col], cy = spheres[1 * k + col];
-      const float cz = spheres[2 * k + col], rad = spheres[3 * k + col];
-      s_sph[c] = make_float4(cx, cy, cz, rad);
-      s_cc[c] = cx * cx + cy * cy + cz * cz - rad * rad;
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int c = 0; c < m; ++c) {
-      const float4 s = s_sph[c];
-      const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
-      const float c0 =
-          oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s_cc[c];
-      const float disc = b * b - c0;
-      const float sq = sqrtf(disc > 0.f ? disc : 0.f);
-      const float t_near = -b - sq;
-      const float t_far = -b + sq;
-      const float t = t_near >= r.tmin ? t_near : t_far;
-      if (disc > 0.f && t >= r.tmin && t <= r.tmax && s.w > 0.f &&
-          t < best_t) {
-        best_t = t;
-        best_i = base + c;
+  if (__syncthreads_or(live)) {
+    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    for (int base = 0; base < k; base += kTile) {
+      const int cnt = stage_live_spheres(spheres, k, base,
+                                         min(kTile, k - base), s_sph, s_idx,
+                                         s_warp);
+      if (!live) continue;
+      int c = 0;
+      for (; c + kB11Group <= cnt; c += kB11Group) {
+        float b[kB11Group], disc[kB11Group];
+#pragma unroll
+        for (int u = 0; u < kB11Group; ++u) {
+          disc[u] = brute_disc(s_sph[c + u], r, od, oo, &b[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kB11Group; ++u) {
+          if (disc[u] > 0.f) {
+            brute_fold(b[u], disc[u], s_idx[c + u], r, &best_t, &best_i);
+          }
+        }
+      }
+      for (; c < cnt; ++c) {
+        float b;
+        const float disc = brute_disc(s_sph[c], r, od, oo, &b);
+        if (disc > 0.f) brute_fold(b, disc, s_idx[c], r, &best_t, &best_i);
       }
     }
   }

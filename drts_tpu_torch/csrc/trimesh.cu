@@ -39,9 +39,12 @@
 //
 // Culls kept: a dead lane (tmax < tmin, or no candidate in B6) does no
 // work, and a block with no live lane leaves before it stages a table
-// (B5, B6); B7 tests each ray against every instance chunk's covering
-// sphere and every member's bounding sphere, with the ray's running best
-// as the far limit, and sweeps only the instances that pass. The TPU
+// (B5, B6); B5 tests each ray against every instance chunk's covering
+// sphere, with a segment that ends at its best key so far, and sweeps only
+// the rows of the chunks it meets (csrc/rays.cuh); B7 tests each
+// ray against every instance chunk's covering sphere and every member's
+// bounding sphere, with the ray's running best as the far limit, and
+// sweeps only the instances that pass. The TPU
 // kernels' triangle-chunk culls (bounding sphere, normal cone) are left
 // out: every sweep visits all face rows.
 //
@@ -55,30 +58,14 @@
 
 #include <cuda_runtime.h>
 
+#include "rays.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSphereTile = 512;  // B5: bound-scan rows per shared tile
+constexpr int kSphereTile = 512;  // B5, B10: bound-scan rows per shared tile
 constexpr int kFaceTile = 512;    // B6: triangle rows per shared tile
 constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, tmin, tmax;
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
-                                        int n, int i) {
-  Ray r;
-  r.ox = rays[0 * (size_t)n + i];
-  r.oy = rays[1 * (size_t)n + i];
-  r.oz = rays[2 * (size_t)n + i];
-  r.dx = rays[3 * (size_t)n + i];
-  r.dy = rays[4 * (size_t)n + i];
-  r.dz = rays[5 * (size_t)n + i];
-  r.tmin = rays[6 * (size_t)n + i];
-  r.tmax = rays[7 * (size_t)n + i];
-  return r;
-}
 
 struct Vec3 {
   float x, y, z;
@@ -139,47 +126,136 @@ __device__ __forceinline__ int mt_packed(
 }
 
 // B5. table: (m_pad, 4) rows [cx cy cz |c|^2-r^2], 1e30 in the last column
-// on padding. Per ray the least key (bits of max(entry t, 0) with the low
-// pos_bits replaced by the row) that is greater than the ray's cursor, over
-// the spheres whose [entry, exit] overlaps [tmin, tmax]. Ties of the
-// truncated entry t order by row, through the packed word itself.
+// on padding; its first m_tbl rows are the columns of the instance table,
+// grouped in chunks of `chunk` (INST_CHUNK) with one covering sphere each in
+// bounds (4, ic_cols) planar [cx cy cz r], ordered near to far
+// (make_inst_tables). Per ray the least key (bits of max(entry t, 0) with
+// the low pos_bits replaced by the row) that is greater than the ray's
+// cursor, over the spheres whose [entry, exit] overlaps [tmin, tmax]. Ties
+// of the truncated entry t order by row, through the packed word itself.
+//
+// Design: a dead lane reads its tmin and tmax only, and a block with no
+// live lane leaves before it stages a table. The others stage the rows
+// below m_tbl (the rows beyond are padding, which never passes) in tiles of
+// whole chunks, at most kSphereTile rows, with the tile's covering spheres.
+// Per lane and in table order, a chunk is skipped when the ray's segment
+// [tmin, t_end] passes farther from its covering sphere than the margin of
+// csrc/rays.cuh (B1's cull, which holds at tmax = +inf; scale =
+// ops/intersect_kernels.py:CULL_SCALE); a met chunk's rows are swept
+// kB5Group at a time, the group's discriminants first, so that its
+// shared-memory loads and arithmetic overlap; a warp runs a chunk's sweep
+// while any of its lanes meets it. t_end starts at tmax; once the lane
+// holds a key, t_end = min(tmax, top(best)), the largest float whose
+// truncated bits equal the best's: a row whose key is below the best has
+// its entry t at or below top(best) (and below tmax), and its exit at or
+// above tmin, so its roots' interval meets [tmin, t_end] (or holds t_end,
+// where t_end < tmin) and its chunk is met. The cull removes only rows
+// that cannot lower the best, so the min does not change. A row whose
+// discriminant is negative misses (the plain version's NaN root fails both
+// compares): the lane skips its root, compares and key; at disc = 0 the
+// root is 0 and the row can pass, so that one is kept. Bound by
+// instruction issue: ~17 float operations per row swept, ~12 more and one
+// sqrt per root taken, ~30 per chunk tested; in the candidate loop's later
+// rounds tmax has shrunk to the best hit, and fewer chunks are met.
+constexpr int kB5Group = 4;  // rows whose discriminants are taken together
+
+// One ray x bound-scan row of B5: the discriminant, and b through `b_out`.
+__device__ __forceinline__ float scan_disc(const float4 s, const Ray& r,
+                                           float od, float oo,
+                                           float* b_out) {
+  const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
+  const float c0 = oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s.w;
+  *b_out = b;
+  return b * b - c0;
+}
+
+// The root of a row whose discriminant is not negative (a negative one
+// misses: the plain version's NaN root fails both compares), its key
+// folded into the lane's best.
+__device__ __forceinline__ void scan_fold(float b, float disc, int row,
+                                          const Ray& r, int trunc, int prev,
+                                          int* best) {
+  const float sq = sqrtf(disc);
+  const float entry = -b - sq;
+  const float exit_t = sq - b;
+  const float ce = entry > 0.0f ? entry : 0.0f;
+  const int key = (__float_as_int(ce) & trunc) | row;
+  if (exit_t >= r.tmin && entry <= r.tmax && key > prev) {
+    *best = min(*best, key);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 bound_scan(const float* __restrict__ rays, int n,
            const int* __restrict__ cursor, const float4* __restrict__ table,
-           int m_pad, int pos_bits, int* __restrict__ key_out) {
-  __shared__ float4 s_tbl[kSphereTile];
+           int m_tbl, const float* __restrict__ bounds, int ic_cols,
+           int chunk, int tile_chunks, float scale, int pos_bits,
+           int* __restrict__ key_out) {
+  extern __shared__ float4 s_mem[];
+  float4* s_tbl = s_mem;                        // tile_chunks * chunk rows
+  float4* s_bnd = s_mem + tile_chunks * chunk;  // their covering spheres
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n;
-  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  if (in_range) r = load_ray(rays, n, i);
-  const bool live = in_range && r.tmax >= r.tmin;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
   int best = kInfBits;
   if (__syncthreads_or(live)) {
-    const int prev = live ? cursor[i] : 0;
-    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    int prev = 0;
+    float od = 0.f, oo = 0.f;
+    SegmentCull cull = {0.f, 0.f, 0.f};
+    if (live) {
+      prev = cursor[i];
+      od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+      oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+      cull = segment_cull(r, scale);
+    }
     const int trunc = ~((1 << pos_bits) - 1);
-    for (int base = 0; base < m_pad; base += kSphereTile) {
-      const int m = min(kSphereTile, m_pad - base);
+    const int n_chunks = (m_tbl + chunk - 1) / chunk;
+    float t_end = r.tmax;
+    for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+      const int m = min(tile_chunks, n_chunks - k0);
+      const int row0 = k0 * chunk;
+      const int rows = min(m * chunk, m_tbl - row0);
       __syncthreads();
-      for (int c = threadIdx.x; c < m; c += blockDim.x) {
-        s_tbl[c] = table[base + c];
+      for (int c = threadIdx.x; c < rows; c += blockDim.x) {
+        s_tbl[c] = table[row0 + c];
+      }
+      for (int k = threadIdx.x; k < m; k += blockDim.x) {
+        const int kk = k0 + k;
+        s_bnd[k] = cull_sphere(bounds[0 * ic_cols + kk],
+                               bounds[1 * ic_cols + kk],
+                               bounds[2 * ic_cols + kk],
+                               bounds[3 * ic_cols + kk], scale);
       }
       __syncthreads();
       if (!live) continue;
-      for (int c = 0; c < m; ++c) {
-        const float4 s = s_tbl[c];
-        const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
-        const float c0 =
-            oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s.w;
-        const float sq = sqrtf(b * b - c0);  // NaN when the ray misses
-        const float entry = -b - sq;
-        const float exit_t = sq - b;
-        const float ce = entry > 0.0f ? entry : 0.0f;
-        const int key = (__float_as_int(ce) & trunc) | (base + c);
-        if (exit_t >= r.tmin && entry <= r.tmax && key > prev) {
-          best = min(best, key);
+      for (int k = 0; k < m; ++k) {
+        if (segment_misses(cull, r, t_end, s_bnd[k])) continue;
+        const int end = min((k + 1) * chunk, rows);
+        int c = k * chunk;
+        for (; c + kB5Group <= end; c += kB5Group) {
+          float b[kB5Group], disc[kB5Group];
+#pragma unroll
+          for (int u = 0; u < kB5Group; ++u) {
+            disc[u] = scan_disc(s_tbl[c + u], r, od, oo, &b[u]);
+          }
+#pragma unroll
+          for (int u = 0; u < kB5Group; ++u) {
+            if (!(disc[u] < 0.f)) {
+              scan_fold(b[u], disc[u], row0 + c + u, r, trunc, prev, &best);
+            }
+          }
+        }
+        for (; c < end; ++c) {
+          float b;
+          const float disc = scan_disc(s_tbl[c], r, od, oo, &b);
+          if (!(disc < 0.f)) {
+            scan_fold(b, disc, row0 + c, r, trunc, prev, &best);
+          }
+        }
+        if (best < kInfBits) {
+          t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
         }
       }
     }
@@ -628,14 +704,24 @@ inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
+// m_tbl: the rows of table that are instance-table columns (the rest is
+// padding); bounds: (4, ic_cols) chunk spheres, ic_cols >= ceil(m_tbl /
+// chunk); scale: the cull's rounding margin (csrc/rays.cuh).
 extern "C" int drts_bound_scan(const float* rays, int n, const int* cursor,
-                               const float* table, int m_pad, int pos_bits,
-                               int* key_out, cudaStream_t stream) {
-  if (n > 0) {
-    bound_scan<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, cursor, reinterpret_cast<const float4*>(table), m_pad,
-        pos_bits, key_out);
+                               const float* table, int m_tbl,
+                               const float* bounds, int ic_cols, int chunk,
+                               float scale, int pos_bits, int* key_out,
+                               cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (m_tbl < 1 || chunk < 1 || ic_cols < (m_tbl + chunk - 1) / chunk) {
+    return cudaErrorInvalidValue;
   }
+  const int tile_chunks = max(1, kSphereTile / chunk);
+  const size_t smem = sizeof(float4) * (size_t)tile_chunks * (chunk + 1);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  bound_scan<<<grid_for(n), kThreads, smem, stream>>>(
+      rays, n, cursor, reinterpret_cast<const float4*>(table), m_tbl, bounds,
+      ic_cols, chunk, tile_chunks, scale, pos_bits, key_out);
   return (int)cudaGetLastError();
 }
 

@@ -20,17 +20,21 @@ operations and one IEEE sqrt against 32 bytes of ray read once per ray, so
 the sweep is bound by instruction issue, not by memory bandwidth. The
 design keeps one thread per ray, stages the table in shared memory (a
 broadcast read per pair) and keeps the running best in registers, with no
-atomics. B11 sweeps every pair. B1 and B2 cull per lane: each skips a
-chunk of the Morton table whose bound (``MortonAccel.bounds``) the ray's
-segment passes farther than a margin that covers rounding, and sweeps only
-a chunk's filled slots. B1's segment ends at the hit it already holds
-(the largest t that truncates to its packed best), and its margin holds
-on the half-line of a ray with tmax = inf; B2 leaves at its first blocker.
-The culls never change a bit of the result (``csrc/intersect.cu`` states
-the margins). ``closest_chunk_walk`` repeats B1's walk lane by lane, and
-``intersect_morton_work`` and ``occlusion_morton_work`` count the chunk
-tests and pairs that B1 and B2 need, with the kernels' own culls, for the
-bounds of ``chip_smoke.py``.
+atomics. B11 has no accel: a block of dead lanes skips the table, only
+the spheres with r > 0 are staged and swept, and a pair whose
+discriminant is not positive takes no root. B1 and B2 cull per lane: each
+skips a chunk of the Morton table whose bound (``MortonAccel.bounds``) the
+ray's segment passes farther than a margin that covers rounding, and
+sweeps only a chunk's filled slots. B1's segment ends at the hit it
+already holds (the largest t that truncates to its packed best), and its
+margin holds on the half-line of a ray with tmax = inf (the cull that B5
+shares: ``segment_cull``, ``segment_misses``); B2 leaves at its first
+blocker. No skip or cull changes a bit of the result (``csrc/intersect.cu``
+and ``csrc/rays.cuh`` state the margins). ``closest_chunk_walk``
+repeats B1's walk lane by lane, and ``intersect_morton_work``,
+``intersect_brute_work`` and ``occlusion_morton_work`` count the chunk
+tests, pairs and roots that B1, B11 and B2 need, with the kernels' own
+culls, for the bounds of ``chip_smoke.py``.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel, or the wrapper raises. There is
@@ -126,6 +130,52 @@ def intersect_morton_plain(rays, table, bounds=None, block: int = 16384):
     return (packed & trunc).view(torch.float32), packed & ~trunc
 
 
+def segment_cull(rays):
+    """The per-lane terms of the half-line chunk cull that B1 and B5 share
+    (csrc/rays.cuh states it and its margin), in its operations
+    and order: (inv_dd, m_o, slope), each (N,)."""
+    ox, oy, oz, dx, dy, dz = rays[:6]
+    dd = dx * dx + dy * dy + dz * dz
+    o1 = ox.abs() + oy.abs() + oz.abs()
+    dev = (dd - 1.0).abs()
+    slope = torch.where(dev <= 2.0 ** -8,
+                        1.125 * (torch.sqrt(dev) + CULL_SCALE), float("inf"))
+    return 1.0 / dd, CULL_SCALE * o1, slope
+
+
+def cull_spheres(bounds):
+    """(4, n_chunks) chunk spheres as the cull reads them: centre and
+    R + CULL_SCALE (|C|_1 + R), from the first four rows of `bounds`."""
+    bx, by, bz, br = bounds[:4]
+    return torch.stack([bx, by, bz, br + CULL_SCALE * (
+        bx.abs() + by.abs() + bz.abs() + br)])
+
+
+def segment_end(tmax, best, trunc):
+    """The cull's segment end: tmax, or min(tmax, top(best)) once the
+    packed best holds a key, top(best) being the largest float whose
+    truncated bits equal the best's."""
+    hit = (best >= 0) & (best < INF_BITS)
+    top = ((best & trunc) | ~trunc).view(torch.float32)
+    return torch.where(hit, torch.fmin(tmax, top), tmax)
+
+
+def segment_misses(rays, cull, sphere, t_end):
+    """(N,) bool: the segment [tmin, t_end] of each ray passes farther than
+    the margin from `sphere` (one column of cull_spheres): the lane skips
+    the chunk."""
+    ox, oy, oz, dx, dy, dz, tmin = rays[:7]
+    inv_dd, m_o, slope = cull
+    vx, vy, vz = sphere[0] - ox, sphere[1] - oy, sphere[2] - oz
+    vd = vx * dx + vy * dy + vz * dz
+    s_star = vd * inv_dd
+    s = torch.fmin(torch.fmax(s_star, tmin), t_end)
+    wx, wy, wz = vx - s * dx, vy - s * dy, vz - s * dz
+    e = sphere[3] + m_o
+    lim = e + slope * (s_star.abs() + e)
+    return wx * wx + wy * wy + wz * wz > lim * lim
+
+
 def closest_chunk_walk(rays, table, bounds):
     """B1's kernel walk, lane by lane in its operations and order: chunks
     in table order, each tested against the ray's segment [tmin, t_end]
@@ -137,33 +187,16 @@ def closest_chunk_walk(rays, table, bounds):
     n, cols = rays.shape[1], table.shape[1]
     chunk = _check_bounds(table, bounds)
     trunc = ~((1 << pos_bits(cols)) - 1)
-    ox, oy, oz, dx, dy, dz, tmin, tmax = rays
-    live = tmax >= tmin
-    dd = dx * dx + dy * dy + dz * dz
-    o1 = ox.abs() + oy.abs() + oz.abs()
-    dev = (dd - 1.0).abs()
-    slope = torch.where(dev <= 2.0 ** -8,
-                        1.125 * (torch.sqrt(dev) + CULL_SCALE), float("inf"))
-    m_o = CULL_SCALE * o1
-    inv_dd = 1.0 / dd
-    bx, by, bz, br = bounds[:4]
-    bw = br + CULL_SCALE * (bx.abs() + by.abs() + bz.abs() + br)
+    live = rays[7] >= rays[6]
+    cull = segment_cull(rays)
+    spheres = cull_spheres(bounds)
     count = torch.clamp(bounds[4].to(torch.int64), 0, chunk).tolist()
     best = torch.full((n,), INF_BITS, dtype=torch.int32, device=rays.device)
     met = torch.zeros((n, len(count)), dtype=torch.bool, device=rays.device)
     roots = torch.zeros(n, dtype=torch.int64, device=rays.device)
     for k, cnt in enumerate(count):
-        hit = (best >= 0) & (best < INF_BITS)
-        top = ((best & trunc) | ~trunc).view(torch.float32)
-        t_end = torch.where(hit, torch.fmin(tmax, top), tmax)
-        vx, vy, vz = bx[k] - ox, by[k] - oy, bz[k] - oz
-        vd = vx * dx + vy * dy + vz * dz
-        s_star = vd * inv_dd
-        s = torch.fmin(torch.fmax(s_star, tmin), t_end)
-        wx, wy, wz = vx - s * dx, vy - s * dy, vz - s * dz
-        e = bw[k] + m_o
-        lim = e + slope * (s_star.abs() + e)
-        met[:, k] = ~(wx * wx + wy * wy + wz * wz > lim * lim) & live
+        t_end = segment_end(rays[7], best, trunc)
+        met[:, k] = ~segment_misses(rays, cull, spheres[:, k], t_end) & live
         if cnt:
             c0 = k * chunk
             pk, root = closest_pairs(rays, table[:, c0:c0 + cnt], trunc)
@@ -252,6 +285,29 @@ def intersect_brute_plain(rays, spheres, block: int = 16384):
     return t_out, i_out
 
 
+def intersect_brute_work(rays, spheres, block: int = 16384):
+    """The work B11's kernel needs on these rays: per ray, (pairs swept,
+    roots taken), each int64 (N,). A live ray sweeps every sphere with
+    r > 0 (the kernel stages only those) and takes the root of each whose
+    discriminant is positive; dead lanes do nothing."""
+    n = rays.shape[1]
+    cx, cy, cz, r = (c[None, :] for c in spheres)
+    keep = r > 0.0
+    cc = cx * cx + cy * cy + cz * cz - r * r
+    pairs = torch.zeros(n, dtype=torch.int64, device=rays.device)
+    roots = torch.zeros_like(pairs)
+    starts, step = _blocks(n, spheres.shape[1], block)
+    for s in starts:
+        ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(
+            rays[:, s:s + step])
+        b = od - (cx * dx + cy * dy + cz * dz)
+        c0 = oo - 2.0 * (cx * ox + cy * oy + cz * oz) + cc
+        live = (tmax >= tmin)[:, 0]
+        pairs[s:s + step] = torch.where(live, int(keep.sum()), 0)
+        roots[s:s + step] = ((b * b - c0 > 0.0) & keep).sum(1) * live
+    return pairs, roots
+
+
 def intersect_brute(rays, spheres, block: int = 16384):
     """B11 closest hit; see intersect_brute_plain for the contract. A CUDA
     tensor launches drts_brute_closest_hit (csrc/intersect.cu)."""
@@ -304,16 +360,18 @@ def occlusion_pair_blocked(rays9, table):
     return (t >= tmin) & (t <= tmax) & (obj != exclude)
 
 
-# Rounding margin of B1's and B2's chunk culls, relative to S = |o|_1 +
-# |C|_1 + R + T, where T bounds |t| of a hit: max(|tmin|, |tmax|) for B2,
-# 1.125 (|s*| + e) for B1 (csrc/intersect.cu states both culls). The
-# wrappers pass it to the kernels, and occlusion_chunk_met and
-# closest_chunk_walk read it, so each cull runs with this one value. A
-# computed root t of the quadratic lies at most sqrt(E) from its sphere's
-# surface, E <= 32 u S^2 with u = 2^-24 (the rounding of od, oo, the
-# table's -2c.o and |c|^2-r^2, b2^2 - c2, the sqrt and t), so
-# sqrt(E) <= 2^-9.5 S; 2^-8 S also covers the refit's own rounding and the
-# cull test's.
+# Rounding margin of the chunk culls of B1, B2 and B5
+# (ops/trimesh_kernels.py), relative to S = |o|_1 + |C|_1 + R + T, where T
+# bounds |t| of a root: max(|tmin|, |tmax|) for B2, 1.125 (|s*| + e) for
+# B1 and B5 (csrc/intersect.cu and csrc/rays.cuh state the culls).
+# The wrappers pass it to the kernels, and the walks (occlusion_chunk_met,
+# segment_cull, cull_spheres) read it, so each cull runs with this one
+# value. A computed root t of the quadratic lies at most sqrt(E) from its
+# sphere's surface, E <= 32 u S^2 with u = 2^-24 (the rounding of od, oo,
+# the -2c.o term, |c|^2-r^2, b2^2 - c2, the sqrt and t), so
+# sqrt(E) <= 2^-9.5 S; 2^-8 S also covers the rounding of the covering
+# radius (the refit's, or make_inst_tables' float32 max(d + r) + 1e-5,
+# a few ulp of R) and the cull test's.
 CULL_SCALE = 2.0 ** -8
 
 

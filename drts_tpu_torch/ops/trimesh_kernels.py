@@ -35,10 +35,15 @@ candidate row and keeps its best in a register; a pair costs ~25 (B5) or
 ~50 (B6, B7) separately rounded float32 operations against 32-48 bytes per
 ray, so all of them are bound by the instruction rate, not by memory. Culls
 kept: a dead lane (tmax < tmin) does no work and a block of dead lanes
-leaves before it reads a table (B5, B6, B8); B7 and B9 test each ray
-against the instance chunks' covering spheres and the instances' bounding
-spheres, with the ray's running best (B7) or its own tmax (B9) as the far
-limit, and sweep only what passes. The reference's triangle-chunk culls
+leaves before it reads a table (B5, B6, B8); B5 tests each ray against the
+instance chunks' covering spheres, with a segment that ends at its best
+key so far (B1's half-line cull, ``intersect_kernels.segment_misses``),
+sweeps only the rows of the chunks it meets and takes no root where the
+discriminant is negative (``bound_scan_walk`` repeats its walk and
+``bound_scan_work`` counts it); B7 and B9 test each ray against the
+instance chunks' covering spheres and the instances' bounding spheres,
+with the ray's running best (B7) or its own tmax (B9) as the far limit,
+and sweep only what passes. The reference's triangle-chunk culls
 (chunk bounding spheres, normal cones, the convex back-face cull) are left
 out together with their tables: every sweep visits all faces. B10 also
 leaves out the reference's front-to-back chunk order (MESH_F2B), which
@@ -64,6 +69,7 @@ import torch
 from .. import backend
 from ..models.clusters import _morton3
 from ..utils import math as m
+from . import intersect_kernels
 from .intersect_kernels import INF_BITS, _blocks, _check, pos_bits
 
 TRI_PAD = 64          # the triangle table is padded to a multiple of this
@@ -290,55 +296,150 @@ def _to_object(rays, row):
 # B5: the bound scan
 
 
-def bound_scan_plain(rays, bscan_tbl, cursor, block: int = 16384):
+def scan_keys(rays, rows, pos, trunc, cursor):
+    """B5's test of each ray x bound-scan row, in the kernel's operations
+    and order. rays (8, L); rows (R, 4) of make_bscan_table; pos (R,)
+    int32 their table positions; cursor (L,). Returns (key (L, R) int32:
+    the packed key where the row's [entry, exit] overlaps [tmin, tmax] on
+    a live lane and the key is greater than the cursor, else INF_BITS;
+    root (L, R) bool: the discriminant is not negative, the rows for which
+    the kernel takes the root)."""
+    cx, cy, cz, ccrr = (c[None, :] for c in rows.T)
+    ox, oy, oz, dx, dy, dz, tmin, tmax = (r[:, None] for r in rays)
+    od = ox * dx + oy * dy + oz * dz
+    oo = ox * ox + oy * oy + oz * oz
+    b = od - (cx * dx + cy * dy + cz * dz)
+    c0 = oo - 2.0 * (cx * ox + cy * oy + cz * oz) + ccrr
+    disc = b * b - c0
+    sq = torch.sqrt(disc)                      # NaN when the ray misses
+    entry = -b - sq
+    exit_t = sq - b
+    ok = (exit_t >= tmin) & (entry <= tmax) & (tmax >= tmin)
+    ce = torch.where(entry > 0.0, entry, 0.0)
+    key = (ce.view(torch.int32) & trunc) | pos[None, :]
+    return (torch.where(ok & (key > cursor[:, None]), key, INF_BITS),
+            ~(disc < 0))
+
+
+def bound_scan_plain(rays, bscan_tbl, cursor, inst_bounds=None,
+                     m_tbl: int = None, block: int = 16384):
     """Plain PyTorch B5. rays (8, N) [ox oy oz dx dy dz tmin tmax], tmin
     >= 0, unit directions; bscan_tbl (M_pad, 4) from make_bscan_table;
     cursor (N,) int32, -1 to start. Returns key (N,) int32: the least
     packed key (bits of max(entry t, 0) with the low pos_bits(M_pad) bits
     replaced by the table position) greater than the cursor, over the
     bounding spheres whose [entry, exit] overlaps [tmin, tmax]; INF_BITS
-    where none is left, and on dead lanes (tmax < tmin)."""
+    where none is left, and on dead lanes (tmax < tmin). ``inst_bounds``
+    and ``m_tbl`` are ignored: the kernel's culls do not change the
+    result, which this computes from the whole table."""
     n, m_pad = rays.shape[1], bscan_tbl.shape[0]
     trunc = ~((1 << pos_bits(m_pad)) - 1)
-    cx, cy, cz, ccrr = (c[None, :] for c in bscan_tbl.T)
-    pos = torch.arange(m_pad, dtype=torch.int32,
-                       device=rays.device)[None, :]
+    pos = torch.arange(m_pad, dtype=torch.int32, device=rays.device)
     out = torch.empty(n, dtype=torch.int32, device=rays.device)
     starts, step = _blocks(n, m_pad, block)
     for s in starts:
-        ox, oy, oz, dx, dy, dz, tmin, tmax = (
-            r[:, None] for r in rays[:, s:s + step])
-        od = ox * dx + oy * dy + oz * dz
-        oo = ox * ox + oy * oy + oz * oz
-        b = od - (cx * dx + cy * dy + cz * dz)
-        c0 = oo - 2.0 * (cx * ox + cy * oy + cz * oz) + ccrr
-        sq = torch.sqrt(b * b - c0)            # NaN when the ray misses
-        entry = -b - sq
-        exit_t = sq - b
-        ok = (exit_t >= tmin) & (entry <= tmax) & (tmax >= tmin)
-        ce = torch.where(entry > 0.0, entry, 0.0)
-        key = (ce.view(torch.int32) & trunc) | pos
-        key = torch.where(ok & (key > cursor[s:s + step, None]), key,
-                          INF_BITS)
-        out[s:s + step] = key.amin(dim=1)
+        out[s:s + step] = scan_keys(rays[:, s:s + step], bscan_tbl, pos,
+                                    trunc, cursor[s:s + step])[0].amin(1)
     return out
 
 
-def bound_scan(rays, bscan_tbl, cursor, block: int = 16384):
-    """B5; see bound_scan_plain for the contract. A CUDA tensor launches
-    drts_bound_scan (csrc/trimesh.cu)."""
+def bound_scan_walk(rays, bscan_tbl, cursor, inst_bounds, m_tbl: int):
+    """B5's kernel walk, lane by lane in its operations and order: the
+    chunks of INST_CHUNK rows below m_tbl in table order, each chunk's
+    covering sphere (a column of inst_bounds) tested against the ray's
+    segment [tmin, t_end] (t_end = tmax, then min(tmax, top(best)) once
+    the lane holds a key; csrc/trimesh.cu and csrc/rays.cuh state
+    the cull and its margin), and a met chunk's rows folded into the
+    least key. Returns (met (N, n_chunks) bool, key (N,) int32, roots
+    (N,) int64: the swept rows whose discriminant is not negative). Dead
+    lanes meet nothing."""
+    n, m_pad = rays.shape[1], bscan_tbl.shape[0]
+    n_chunks = _check_scan_bounds(inst_bounds, m_tbl, m_pad)
+    trunc = ~((1 << pos_bits(m_pad)) - 1)
+    live = rays[7] >= rays[6]
+    cull = intersect_kernels.segment_cull(rays)
+    spheres = intersect_kernels.cull_spheres(inst_bounds)
+    pos = torch.arange(m_pad, dtype=torch.int32, device=rays.device)
+    best = torch.full((n,), INF_BITS, dtype=torch.int32, device=rays.device)
+    met = torch.zeros((n, n_chunks), dtype=torch.bool, device=rays.device)
+    roots = torch.zeros(n, dtype=torch.int64, device=rays.device)
+    for k in range(n_chunks):
+        t_end = intersect_kernels.segment_end(rays[7], best, trunc)
+        met[:, k] = live & ~intersect_kernels.segment_misses(
+            rays, cull, spheres[:, k], t_end)
+        lo, hi = k * INST_CHUNK, min((k + 1) * INST_CHUNK, m_tbl)
+        key, root = scan_keys(rays, bscan_tbl[lo:hi], pos[lo:hi], trunc,
+                              cursor)
+        best = torch.where(met[:, k], torch.minimum(best, key.amin(1)),
+                           best)
+        roots += root.sum(1) * met[:, k]
+    return met, best, roots
+
+
+def bound_scan_work(rays, bscan_tbl, cursor, inst_bounds, m_tbl: int,
+                    block: int = 16384):
+    """The work B5's kernel needs on these rays, in its visit order (see
+    bound_scan_walk): per ray, (chunk tests, chunks met, rows swept, roots
+    taken), each int64 (N,). A live ray tests every chunk, sweeps the rows
+    below m_tbl of each chunk it meets and takes the root of each swept
+    row whose discriminant is not negative; dead lanes do nothing."""
+    n = rays.shape[1]
+    n_chunks = _check_scan_bounds(inst_bounds, m_tbl, bscan_tbl.shape[0])
+    rows = torch.clamp(m_tbl - INST_CHUNK * torch.arange(
+        n_chunks, device=rays.device), max=INST_CHUNK)
+    out = [torch.zeros(n, dtype=torch.int64, device=rays.device)
+           for _ in range(4)]
+    starts, step = _blocks(n, INST_CHUNK, block)
+    for s in starts:
+        r = rays[:, s:s + step]
+        met, _, roots = bound_scan_walk(r, bscan_tbl, cursor[s:s + step],
+                                        inst_bounds, m_tbl)
+        out[0][s:s + step] = torch.where(r[7] >= r[6], n_chunks, 0)
+        out[1][s:s + step] = met.sum(1)
+        out[2][s:s + step] = met.mul(rows).sum(1)
+        out[3][s:s + step] = roots
+    return tuple(out)
+
+
+def _check_scan_bounds(inst_bounds, m_tbl, m_pad):
+    """B5's chunk spheres: (4, >= ceil(m_tbl / INST_CHUNK)) for 1 <= m_tbl
+    <= m_pad. Returns the chunk count."""
+    n_chunks = -(-m_tbl // INST_CHUNK)
+    if not 1 <= m_tbl <= m_pad:
+        raise ValueError(f"m_tbl = {m_tbl} outside [1, {m_pad}]")
+    if inst_bounds.dim() != 2 or inst_bounds.shape[0] != 4 \
+            or inst_bounds.shape[1] < n_chunks:
+        raise ValueError(f"inst_bounds {tuple(inst_bounds.shape)} does not "
+                         f"hold the {n_chunks} chunks of {m_tbl} rows")
+    return n_chunks
+
+
+def bound_scan(rays, bscan_tbl, cursor, inst_bounds, m_tbl: int,
+               block: int = 16384):
+    """B5; see bound_scan_plain for the contract. inst_bounds (4, IC_pad)
+    holds the covering spheres of the instance table's chunks
+    (make_inst_tables) and m_tbl its width: the rows of bscan_tbl below
+    m_tbl are its columns, in chunks of INST_CHUNK, and the rest is
+    padding. The kernel culls chunks by them per lane. A CUDA tensor
+    launches drts_bound_scan (csrc/trimesh.cu)."""
     _check_rays(rays)
     n = rays.shape[1]
     _check_table("bscan_tbl", bscan_tbl, 4, rays.device, rows_first=False)
     _check_words("cursor", cursor, n, rays.device)
-    if rays.device.type == "cpu":
-        return bound_scan_plain(rays, bscan_tbl, cursor, block)
-    lib = backend.kernels()
+    _check_table("inst_bounds", inst_bounds, 4, rays.device)
     m_pad = bscan_tbl.shape[0]
+    _check_scan_bounds(inst_bounds, m_tbl, m_pad)
+    if rays.device.type == "cpu":
+        return bound_scan_plain(rays, bscan_tbl, cursor, inst_bounds, m_tbl,
+                                block)
+    lib = backend.kernels()
     key = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = lib.drts_bound_scan(rays.data_ptr(), n, cursor.data_ptr(),
-                             bscan_tbl.data_ptr(), m_pad, pos_bits(m_pad),
-                             key.data_ptr(), backend.stream_handle(rays))
+                             bscan_tbl.data_ptr(), m_tbl,
+                             inst_bounds.data_ptr(), inst_bounds.shape[1],
+                             INST_CHUNK, intersect_kernels.CULL_SCALE,
+                             pos_bits(m_pad), key.data_ptr(),
+                             backend.stream_handle(rays))
     backend.check_launch(rc, "drts_bound_scan")
     backend.launched("bound_scan")
     return key
@@ -690,14 +791,15 @@ def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
 # The candidate loop and the hit refinement
 
 
-def cand_loop(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
+def cand_loop(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, rounds: int,
               block: int = 16384):
     """The candidate rounds of the multi-launch loop: `rounds` times, B5
-    hands every ray its next bounding sphere front to back, B6 sweeps that
-    instance and tmax tightens to the best hit; then one more B5 scan.
-    Returns (best, binst, key): the packed world best, its instance
-    position and the last scan's key (< INF_BITS where a sphere is left
-    ahead). `rays` is not modified."""
+    hands every ray its next bounding sphere front to back (culling by
+    the chunk spheres inst_bounds), B6 sweeps that instance and tmax
+    tightens to the best hit; then one more B5 scan. Returns (best, binst,
+    key): the packed world best, its instance position and the last scan's
+    key (< INF_BITS where a sphere is left ahead). `rays` is not
+    modified."""
     n, m_tbl = rays.shape[1], inst_tbl.shape[1]
     dev = rays.device
     pos_mask = (1 << pos_bits(bscan_tbl.shape[0])) - 1
@@ -707,7 +809,7 @@ def cand_loop(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
     best = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
     binst = torch.zeros(n, dtype=torch.int32, device=dev)
     for _ in range(rounds):
-        key = bound_scan(cur, bscan_tbl, cursor, block)
+        key = bound_scan(cur, bscan_tbl, cursor, inst_bounds, m_tbl, block)
         # m_tbl marks "no candidate": keys name real columns only.
         cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
             torch.int32)
@@ -715,7 +817,8 @@ def cand_loop(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
                                         tri_tbl, block)
         cursor = key
         cur[7] = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
-    return best, binst, bound_scan(cur, bscan_tbl, cursor, block)
+    return best, binst, bound_scan(cur, bscan_tbl, cursor, inst_bounds, m_tbl,
+                                   block)
 
 
 def _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
@@ -748,7 +851,7 @@ def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
     sphere ahead exactly, on their tightened range. Same contract as
     intersect_mesh_instances."""
     best, binst, key = cand_loop(rays, make_bscan_table(inst_tbl), inst_tbl,
-                                 tri_tbl, rounds, block)
+                                 inst_bounds, tri_tbl, rounds, block)
     return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
                      n_ichunks, block)
 
@@ -787,7 +890,7 @@ def cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
         cur[7] = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
         counts["scans"] += int((live0 & (cursor < INF_BITS)
                                 & (cur[7] >= cur[6])).sum())
-        key = bound_scan_plain(cur, bscan_tbl, cursor, block)
+        key = bound_scan_plain(cur, bscan_tbl, cursor, block=block)
         cursor = key
         if it == rounds:
             break
@@ -869,7 +972,7 @@ def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
     cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
     occ = torch.zeros(n, dtype=torch.int32, device=dev)
     for _ in range(rounds):
-        key = bound_scan(cur, bscan, cursor, block)
+        key = bound_scan(cur, bscan, cursor, inst_bounds, m_tbl, block)
         # m_tbl marks "no candidate": keys name real columns only.
         cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
             torch.int32)
@@ -877,7 +980,7 @@ def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
         cursor = key
         cur = without(occ > 0)
 
-    key = bound_scan(cur, bscan, cursor, block)
+    key = bound_scan(cur, bscan, cursor, inst_bounds, m_tbl, block)
     unresolved = (key < INF_BITS) & (occ == 0)
     occ_fb = intersect_mesh_instances_any(
         without(~unresolved), inst_tbl, inst_bounds, tri_tbl, n_ichunks,

@@ -86,7 +86,8 @@ def test_fused_plain_equals_the_loop(case, rounds):
     args = (case["rays"], case["bscan"], case["inst"], case["tmesh"].tri_tbl,
             rounds)
     fused = tk.cand_fused_plain(*args)
-    loop = tk.cand_loop(*args)
+    loop = tk.cand_loop(case["rays"], case["bscan"], case["inst"],
+                        case["bounds"], case["tmesh"].tri_tbl, rounds)
     for f, lp in zip(fused, loop):
         assert torch.equal(f, lp)
     best, _, key = fused

@@ -15,7 +15,11 @@ rays tangent to its chunk bounds and the cull's rounding margin taken
 from the wrapper, and for the mesh kernels 1 and 600
 instances (a scan table beyond one 512-row tile), a 2,048-face mesh (a
 triangle table of 72 KB, beyond one shared-memory tile) and a batch of
-dead lanes only; the any-hit mesh kernels also with short ranges and with
+dead lanes only; B5's chunk culls with 1,000 instances (two tiles), tmax
++inf, advanced cursors, rays tangent to members at a chunk's rim and the
+cull's margin from the wrapper and at 0; B11's skips with 1, 128 (every
+third row zeroed) and 700 spheres, rays that all miss and one live lane
+in a dead batch; the any-hit mesh kernels also with short ranges and with
 blocked bits already set, and B10 with 1 to 5 rounds. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
@@ -180,6 +184,53 @@ def test_brute_kernel_equals_plain(dev, k, n):
     assert backend.LAUNCHES["intersect_brute"] == before + 1
     assert_equal(out, ik.intersect_brute_plain(rays, spheres))
     assert bool(torch.isfinite(out[0]).any())
+
+
+def brute_case(k, n, variant, seed):
+    """(spheres, rays) on the CPU for test_brute_kernel_skips_exactly."""
+    centers, radii, rays = random_case(k, n, seed=seed)
+    if variant == "zeroed":
+        # The compact light table's layout: rows that are no light are 0.
+        centers[1::3] = 0.0
+        radii[1::3] = 0.0
+    if variant == "misses":
+        # Every ray leaves the scene: origins beyond it, pointing away.
+        rays[0] = 1000.0 + torch.rand(n) * 10.0
+        rays[3:6] = torch.tensor([1.0, 0.0, 0.0])[:, None]
+    if variant == "one live":
+        rays[7] = -1.0
+        rays[7, n // 2] = 1e9
+    spheres = intersect.pack_spheres(torch.from_numpy(centers),
+                                     torch.from_numpy(radii))
+    return spheres, rays
+
+
+@pytest.mark.parametrize("k,n,variant", [
+    (1, 1001, "aimed"), (128, 2049, "zeroed"), (700, 3001, "aimed"),
+    (128, 1024, "misses"), (128, 769, "one live")])
+def test_brute_kernel_skips_exactly(dev, k, n, variant):
+    """B11's skips (dead blocks, rows of radius 0, roots of missed rows)
+    change no bit: equal to the plain version with one sphere, a light
+    table with every third row zeroed, 700 spheres (two shared-memory
+    tiles), rays that all miss, and one live lane in an otherwise dead
+    batch (its block holds 255 dead lanes, the others none live)."""
+    spheres, rays = brute_case(k, n, variant, seed=k + n)
+    spheres, rays = spheres.to(dev), rays.to(dev)
+    before = backend.LAUNCHES["intersect_brute"]
+    out = ik.intersect_brute(rays, spheres)
+    assert backend.LAUNCHES["intersect_brute"] == before + 1
+    assert_equal(out, ik.intersect_brute_plain(rays, spheres))
+    hits = int(torch.isfinite(out[0]).sum())
+    if variant == "misses":
+        assert hits == 0
+    elif variant == "one live":
+        assert hits == int(torch.isfinite(out[0][n // 2]))
+        assert bool((out[1][torch.arange(n, device=dev) != n // 2] == 0)
+                    .all())
+    else:
+        assert hits > 0
+    if variant == "zeroed":
+        assert not bool((out[1][torch.isfinite(out[0])] % 3 == 1).any())
 
 
 def tangent_case(k, seed, per_chunk=6):
@@ -472,7 +523,7 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
     cur = rays.clone()
     before = dict(backend.LAUNCHES)
     for _ in range(2):
-        key = tk.bound_scan(cur, bscan, cursor)
+        key = tk.bound_scan(cur, bscan, cursor, inst_bounds, m_tbl)
         assert torch.equal(key, tk.bound_scan_plain(cur, bscan, cursor))
         cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
             torch.int32)
@@ -505,6 +556,78 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
     assert_equal(whole, on_cpu)
 
 
+def scan_case(k, n, variant, dev):
+    """(inst_tbl, inst_bounds, bscan, rays) for the bound-scan tests:
+    mesh_case's tables and rays, or the hand scene of
+    tests/test_torch_scan_culls.py (rays tangent to the members that touch
+    their chunk's covering sphere, origins inside covering spheres)."""
+    if variant == "tangent":
+        from test_torch_scan_culls import hand_scene
+        (inst_tbl, inst_bounds, _, _), rays = hand_scene()
+        inst_tbl, inst_bounds, rays = (x.to(dev) for x in
+                                       (inst_tbl, inst_bounds, rays))
+    else:
+        _, rays, (inst_tbl, inst_bounds, _, _) = mesh_case(
+            k, n, 2, seed=k + n + 2, dev=dev, dead=variant == "dead")
+        if variant == "inf":
+            rays[7] = torch.where(rays[7] >= rays[6], float("inf"), rays[7])
+    return inst_tbl, inst_bounds, tk.make_bscan_table(inst_tbl), rays
+
+
+@pytest.mark.parametrize("k,n,variant", [
+    (1000, 3001, "inf"), (438, 2049, "cursors"), (24, 1027, "dead"),
+    (600, 5001, "cursors"), (5, 300, "inf"), (20, 0, "tangent")])
+def test_bound_scan_kernel_culls_exactly(dev, k, n, variant):
+    """B5's chunk culls change no bit: equal to the unculled plain version
+    and to the culled walk with 1,000 instances (a 1,024-row scan table,
+    two shared-memory tiles) and every live tmax +inf, the mesh frame's
+    438 and 600 instances over three rounds of advanced cursors with the
+    segment ending at the entry found plus 2, a ragged ray count, a batch
+    of dead lanes only, one ragged chunk, and rays tangent to members at
+    their chunk's rim (half with tmax = +inf); and the cull skips
+    chunks."""
+    inst_tbl, inst_bounds, bscan, rays = scan_case(k, n, variant, dev)
+    m_tbl = inst_tbl.shape[1]
+    trunc = ~((1 << ik.pos_bits(bscan.shape[0])) - 1)
+    cursor = torch.full((rays.shape[1],), -1, dtype=torch.int32, device=dev)
+    cur = rays.clone()
+    skipped = 0
+    for _ in range(3 if variant == "cursors" else 1):
+        before = backend.LAUNCHES["bound_scan"]
+        key = tk.bound_scan(cur, bscan, cursor, inst_bounds, m_tbl)
+        assert backend.LAUNCHES["bound_scan"] == before + 1
+        assert torch.equal(key, tk.bound_scan_plain(cur, bscan, cursor))
+        met, walked, _ = tk.bound_scan_walk(cur, bscan, cursor, inst_bounds,
+                                            m_tbl)
+        assert torch.equal(key, walked)
+        skipped += int((~met[cur[7] >= cur[6]]).sum())
+        found = key < ik.INF_BITS
+        assert bool(found.any()) == (variant != "dead")
+        entry = (key & trunc).view(torch.float32)
+        cur[7] = torch.where(found, torch.fmin(rays[7], entry + 2.0), cur[7])
+        cursor = key
+    assert skipped > 0 or variant == "dead" or met.shape[1] == 1
+
+
+@pytest.mark.parametrize("scale", [ik.CULL_SCALE, 0.0])
+def test_bound_scan_kernel_culls_with_the_wrappers_scale(dev, scale,
+                                                         monkeypatch):
+    """B5 on rays tangent to members at their chunk's rim culls with the
+    rounding margin the wrapper passes: with CULL_SCALE it equals the
+    unculled plain version, and with the margin set to 0 it equals the
+    culled walk of the same scale, which drops keys there."""
+    monkeypatch.setattr(ik, "CULL_SCALE", scale)
+    inst_tbl, inst_bounds, bscan, rays = scan_case(20, 0, "tangent", "cpu")
+    cursor = torch.full((rays.shape[1],), -1, dtype=torch.int32)
+    walked = tk.bound_scan_walk(rays, bscan, cursor, inst_bounds,
+                                inst_tbl.shape[1])[1]
+    key = tk.bound_scan(rays.to(dev), bscan.to(dev), cursor.to(dev),
+                        inst_bounds.to(dev), inst_tbl.shape[1]).cpu()
+    assert torch.equal(key, walked)
+    plain = tk.bound_scan_plain(rays, bscan, cursor)
+    assert torch.equal(key, plain) == (scale > 0)
+
+
 @pytest.mark.parametrize("k,n,tess,dead", [
     (24, 5001, 3, False), (1, 300, 2, False), (600, 3001, 3, False),
     (24, 2049, 5, False), (24, 1024, 3, True)])
@@ -531,7 +654,7 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
     cur = rays
     before = dict(backend.LAUNCHES)
     for _ in range(2):
-        key = tk.bound_scan(cur, bscan, cursor)
+        key = tk.bound_scan(cur, bscan, cursor, inst_bounds, m_tbl)
         cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
             torch.int32)
         out = tk.shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl)
@@ -587,7 +710,8 @@ def test_cand_fused_kernel_equals_plain(dev, k, n, tess, dead, rounds):
     assert backend.LAUNCHES["cand_fused"] == before + 1
     assert_equal(out, tk.cand_fused_plain(rays, bscan, inst_tbl, tri_tbl,
                                           rounds))
-    assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, tri_tbl, rounds))
+    assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, inst_bounds,
+                                   tri_tbl, rounds))
     found = int((out[0] < ik.INF_BITS).sum())
     assert found == 0 if dead else found > 0
     fused = tk.intersect_mesh_instances_cand_fused(

@@ -247,11 +247,13 @@ def test_bound_scan_matches_interpret(kernel_case):
     here, which would then be found again)."""
     case = kernel_case
     start = np.full(case["n"], -1, np.int32)
+    tlas = (case["bounds"], case["inst"].shape[1])
     first = j_bound_scan(case, start)
-    got = tk.bound_scan(case["rays"], case["bscan"], T(start)).numpy()
+    got = tk.bound_scan(case["rays"], case["bscan"], T(start), *tlas).numpy()
     check_keys(case, got, first)
     second = j_bound_scan(case, first)
-    got2 = tk.bound_scan(case["rays"], case["bscan"], T(got.copy())).numpy()
+    got2 = tk.bound_scan(case["rays"], case["bscan"], T(got.copy()),
+                         *tlas).numpy()
     check_keys(case, got2, second)
     # The cursor advanced: every second key lies beyond its first.
     adv = (got2 < INF_BITS) & case["live"]
@@ -361,12 +363,19 @@ def test_wrappers_refuse_wrong_tensors(kernel_case):
     case = kernel_case
     n = case["n"]
     words = torch.zeros(n, dtype=torch.int32)
+    tlas = (case["bounds"], case["inst"].shape[1])
     with pytest.raises(ValueError):
-        tk.bound_scan(case["rays"], case["bscan"], words.long())
+        tk.bound_scan(case["rays"], case["bscan"], words.long(), *tlas)
     with pytest.raises(ValueError):
-        tk.bound_scan(case["rays"], case["bscan"].T, words)
+        tk.bound_scan(case["rays"], case["bscan"].T, words, *tlas)
     with pytest.raises(ValueError):
-        tk.bound_scan(case["rays"][:7], case["bscan"], words)
+        tk.bound_scan(case["rays"][:7], case["bscan"], words, *tlas)
+    with pytest.raises(ValueError, match="chunks"):
+        tk.bound_scan(case["rays"], case["bscan"], words,
+                      case["bounds"][:, :1].contiguous(), tlas[1])
+    with pytest.raises(ValueError, match="m_tbl"):
+        tk.bound_scan(case["rays"], case["bscan"], words, case["bounds"],
+                      case["bscan"].shape[0] + 1)
     with pytest.raises(ValueError):
         tk.shared_blas_sweep(case["rays"], words[:-1], words, words,
                              case["inst"], case["tmesh"].tri_tbl)
