@@ -59,7 +59,10 @@ Phases, one printed line or more each; any failure exits non-zero:
    on different instances), and B7 once more on the primary rays before
    any candidate round, where the serial walk carries every live lane (the
    frame's own backstop batches are almost empty); kernel and plain times
-   from CUDA events. B5's bound counts its culled walk
+   from CUDA events; beside B6's bound, the bound of the work its sweeps
+   would need with B8's triangle-chunk culls (trimesh_kernels.
+   shared_blas_sweep_work, whose fold must equal B6's words; B6's kernel
+   has no culls). B5's bound counts its culled walk
    (trimesh_kernels.bound_scan_work: chunk tests, chunks met, rows swept,
    roots taken), printed with chunks met per live ray and per warp, rows
    and roots per live ray and the unculled sweep's bound; B11's as in
@@ -82,7 +85,13 @@ Phases, one printed line or more each; any failure exits non-zero:
    lane, held against its plain version and against the loop's result on
    the same rays (B8 compares t in object units, B9 in world units: they
    may differ on at most ANY_LOOP_SHARE of the live lanes). B5 and B11
-   print their culled work as in phase 8.
+   print their culled work as in phase 8. B8 is also held to its culled
+   walk, and its bound counts that walk's work
+   (trimesh_kernels.shared_blas_any_work: triangle chunks tested and met,
+   cones tested, faces guard-tested, faces swept), printed with chunks met
+   per live lane and per warp, triangles swept per live lane and the
+   unculled sweep's bound; each launch is also timed at every triangle
+   chunk of TRI_CHUNKS.
 11. mesh restir: the all-mesh ReSTIR frame (render_frame on the scene of
    phase 9, physics on, every face of an emissive instance a triangle
    light) at 1920x1080 through bench.bench_frame(mesh=True), counted from
@@ -95,12 +104,16 @@ Phases, one printed line or more each; any failure exits non-zero:
    Then two all-mesh frames at 64x64 on the card and on the CPU, as
    phase 7.
 12. B10 kernel: the fused candidate closest hit (trimesh.MESH_CAND = 2)
-   against its plain version, bit for bit on best, binst and key, and the
-   plain version against the multi-launch loop (cand_loop: B5 and B6 round
-   by round) on the same rays, on the inputs the primary and bounce-1
-   trace calls of the second fused mesh frame at 1920x1080 give it;
-   kernel, plain and loop times from CUDA events (the loop's B5 takes
-   the chunk spheres of the same call's B7 launch).
+   against its plain version and its culled walk, bit for bit on best,
+   binst and key, and the plain version against the multi-launch loop
+   (cand_loop: B5 and B6 round by round) on the same rays, on the inputs
+   the primary and bounce-1 trace calls of the second fused mesh frame at
+   1920x1080 give it; kernel (at the kept triangle chunk and at each of
+   TRI_CHUNKS), plain and loop times from CUDA events. Its bound counts
+   the walk's work (trimesh_kernels.cand_fused_work: the scans' chunk
+   tests, chunks met, rows and roots, the sweeps' chunk tests, chunks
+   met, cones tested, faces guard-tested and swept), printed per live
+   lane, per sweep and per warp beside the unculled bound.
 13. fused mesh: the mesh frame of phase 9 with MESH_CAND = 2 through
    bench.bench_mesh, counted from zero: frame time, Mray/s and launches;
    per trace call B10 once, B7 once, B11 twice and no B5 or B6; the image
@@ -138,9 +151,10 @@ of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
 frame's).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
-tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2
-and B5 count their culled walks and B11 its staged rows and roots, and
-their entries also carry "unculled_bound_ms"), and a kernel measured
+tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
+B5, B8 and B10 count their culled walks and B11 its staged rows and
+roots, and their entries also carry "unculled_bound_ms"), and a kernel
+measured
 under its bound fails the run. Then the card's name and
 power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
@@ -195,8 +209,15 @@ OPS_B5_RAY = 30           # a live ray's od, oo and cull terms
 OPS_MT_PAIR = 55          # ray x triangle row (B6, B7)
 OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6, B7)
 OPS_B7_SPHERE = 30        # B7's ray x bounding-sphere test
-OPS_B10_SCAN_ROW = OPS_B5_PAIR   # B10's scan: a lane x bound-scan row
-OPS_B10_SWEEP_ROW = OPS_MT_PAIR  # B10's sweep: a lane x triangle row
+OPS_B10_SCAN_ROW = OPS_B5_PAIR   # B10's unculled scan: lane x scan row
+OPS_B10_SWEEP_ROW = OPS_MT_PAIR  # B10's unculled sweep: lane x triangle row
+OPS_TRI_CHUNK = 30        # B8, B10: lane x triangle chunk sphere tested
+OPS_TRI_END = 4           # ... B10's segment end from the best so far
+OPS_TRI_CONE = 14         # lane x missed chunk: its guard cone (a sqrt)
+OPS_TRI_GUARD = 7         # lane x face of a missed chunk: |dl . A| >= guard
+OPS_TRI_RAY = 16          # a sweeping lane's cull terms (segment_cull_tri)
+# Triangle chunk sizes timed in phases 10 and 12 beside the kept one.
+TRI_CHUNKS = (8, 16, 32, 64)
 # Tolerances of phase 5 (set just above what the card showed; see PERF.md).
 B3_PICK_SHARE = 1e-4      # share of pixels whose winner differs
 B3_REL = 1e-5             # elsewhere, of each output row's largest value
@@ -790,6 +811,12 @@ def check_mesh_kernels(ik, tk, seen):
             + " calls, expected 8 B5, 6 B6, 2 B7, 4 B11")
     out = {}
     split_any = 0
+    tri_blas = {}   # F_pad -> (tri_bounds, chunk) of the triangle table
+    for args in seen["shared_blas_sweep"]:
+        tbl = args[5]
+        tri_blas.setdefault(tbl.shape[0], (torch.from_numpy(
+            tk.tri_chunk_bounds(tbl.cpu().numpy(), tk.TRI_CHUNK)).to(
+                tbl.device), tk.TRI_CHUNK))
 
     for c, label in enumerate(("primary", "bounce-1")):
         timed = c == 0     # the plain versions are timed on the primary call
@@ -802,7 +829,7 @@ def check_mesh_kernels(ik, tk, seen):
             out["bound_scan"] = sum_parts(parts)
 
         # B6: each round's sweep of the rays' own candidates.
-        parts = []
+        parts, culled_parts = [], []
         for r, (rays, cand, best, binst, inst_tbl, tri_tbl, block
                 ) in enumerate(seen["shared_blas_sweep"][3 * c:3 * c + 3]):
             args = (rays, cand, best, binst, inst_tbl, tri_tbl, block)
@@ -832,18 +859,43 @@ def check_mesh_kernels(ik, tk, seen):
                     "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(
                         *args), 1) if timed else 0.0}
             parts.append(part)
+            # The bound of the work B6 would need with B8's triangle-chunk
+            # culls (its kernel has none), from the culled walk.
+            blas = tri_blas[f_pad]
+            culled_out, w = tk.shared_blas_sweep_work(*args[:6], *blas,
+                                                      262144)
+            culled_mismatch = words_differ(out_k, culled_out)
+            culled_ops = (w["tests"] * (OPS_TRI_CHUNK + OPS_TRI_END)
+                          + w["cones"] * OPS_TRI_CONE
+                          + w["guards"] * OPS_TRI_GUARD
+                          + w["rows"] * OPS_MT_PAIR
+                          + live * (OPS_TO_OBJECT + OPS_TRI_RAY))
+            culled_parts.append({"bytes": part["bytes"], "ops": culled_ops,
+                                 "ms": 0.0, "plain_ms": 0.0})
             log(f"mesh kernels: B6 {label} round {r + 1} rays={n} live={live} "
                 f"faces={f_pad} instances={m_tbl} improved={improved} "
                 f"neighbours_on_other_instance={split} mismatch={mismatch} "
                 f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
-                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-            if mismatch:
+                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r} "
+                f"with the triangle-chunk culls at chunk {blas[1]} "
+                f"(not in the kernel): chunk_tests={w['tests']} "
+                f"chunks_met={w['met']} cone_tests={w['cones']} "
+                f"guard_tests={w['guards']} triangles_swept={w['rows']} "
+                f"culled_bound_ms="
+                f"{bound(part['bytes'], culled_ops)[0]!r} "
+                f"culled_walk_mismatch={culled_mismatch}")
+            if mismatch or culled_mismatch:
                 raise AssertionError(f"B6 {label} round {r + 1}: kernel "
-                                     f"disagrees with its plain version on "
-                                     f"{mismatch} words")
+                                     f"disagrees with its plain version or "
+                                     f"the culled walk on {mismatch}, "
+                                     f"{culled_mismatch} words")
             split_any += split
         if timed:
             out["shared_blas_sweep"] = sum_parts(parts)
+            log(f"mesh kernels: B6 {label} culled_bound_ms for the 3 "
+                f"launches with the triangle-chunk culls: "
+                f"{sum_parts(culled_parts)['bound_ms']!r} (unculled "
+                f"{out['shared_blas_sweep']['bound_ms']!r})")
 
         # B7: the frame's own backstop batch (few live lanes).
         check_b7(tk, f"{label} backstop",
@@ -978,6 +1030,68 @@ def check_b9(tk, label, args, timed):
     return part
 
 
+def tri_tables(tk, tri_tbl, tri_bounds, chunk):
+    """The triangle table's chunk bounds (spheres and guard cones) at each
+    of TRI_CHUNKS (the recorded ones at the kept chunk)."""
+    host = tri_tbl.cpu().numpy()
+    return {c: tri_bounds if c == chunk else torch.from_numpy(
+        tk.tri_chunk_bounds(host, c)).to(tri_tbl.device) for c in TRI_CHUNKS}
+
+
+def check_b8(tk, label, args):
+    """B8 against its plain version and its culled walk on one recorded
+    call (every bit equal), its work (trimesh_kernels.shared_blas_any_work:
+    chunks tested and met, cones tested, faces guard-tested and swept) and
+    its times, at the kept chunk and at each of TRI_CHUNKS. Returns its
+    timed part with the operations of the unculled sweep and `chunk_ms`."""
+    rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds, chunk, block = args
+    occ_k = tk.shared_blas_any(*args)
+    occ_p = tk.shared_blas_any_plain(*args)
+    occ_w, w = tk.shared_blas_any_work(rays, cand, occ_in, inst_tbl, tri_tbl,
+                                       tri_bounds, chunk, 262144)
+    torch.cuda.synchronize()
+    mismatch = words_differ((occ_k,), (occ_p,))
+    walk_mismatch = words_differ((occ_k,), (occ_w,))
+    n, live = rays.shape[1], w["live"]
+    # A live lane reads its ray, cand and occ_in; any other lane at least
+    # its occ_in, which it passes through.
+    byts = lane_bytes(n, live, 8 + 2, 1, inst_tbl, tri_tbl, tri_bounds,
+                      dead_words=1)
+    part = {"bytes": byts,
+            "ops": w["tests"] * OPS_TRI_CHUNK + w["cones"] * OPS_TRI_CONE
+            + w["guards"] * OPS_TRI_GUARD + w["rows"] * OPS_MT_PAIR
+            + live * (OPS_TO_OBJECT + OPS_TRI_RAY),
+            "unculled_ops": w["faces"] * OPS_MT_PAIR + live * OPS_TO_OBJECT,
+            "ms": cuda_ms(lambda: tk.shared_blas_any(*args), 10),
+            "plain_ms": cuda_ms(lambda: tk.shared_blas_any_plain(*args), 1)}
+    spheres = tri_tables(tk, tri_tbl, tri_bounds, chunk)
+    part["chunk_ms"] = {c: cuda_ms(lambda c=c: tk.shared_blas_any(
+        rays, cand, occ_in, inst_tbl, tri_tbl, spheres[c], c, block), 10)
+        for c in TRI_CHUNKS}
+    per = max(live, 1)
+    log(f"mesh any-hit kernels: B8 {label} rays={n} live={live} "
+        f"faces={tri_tbl.shape[0]} chunk={chunk} "
+        f"instances={inst_tbl.shape[1]} "
+        f"bits_in={int((occ_in > 0).sum())} "
+        f"bits_out={int((occ_k > 0).sum())} mismatch={mismatch} "
+        f"walk_mismatch={walk_mismatch} chunk_tests={w['tests']} "
+        f"chunks_met={w['met']} cone_tests={w['cones']} "
+        f"guard_tests={w['guards']} triangles_swept={w['rows']} "
+        f"unculled_triangles={w['faces']} "
+        f"chunks_met_per_live_lane={w['met'] / per!r} "
+        f"chunks_met_per_live_warp={w['warp_met'] / max(w['warps'], 1)!r} "
+        f"triangles_swept_per_live_lane={w['rows'] / per!r} "
+        f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+        f"bound_ms={bound(byts, part['ops'])[0]!r} "
+        f"unculled_bound_ms={bound(byts, part['unculled_ops'])[0]!r} "
+        f"chunk_ms={json.dumps(part['chunk_ms'])}")
+    if mismatch or walk_mismatch:
+        raise AssertionError(f"B8 {label}: kernel disagrees with its plain "
+                             f"version or its walk on {mismatch}, "
+                             f"{walk_mismatch} lanes")
+    return part
+
+
 def check_anyhit_kernels(ik, tk, seen):
     """Phase 10: B8, B9 and the any-hit launches of B5 and B11 against
     their plain versions on the all-mesh ReSTIR frame's own inputs. The
@@ -996,6 +1110,7 @@ def check_anyhit_kernels(ik, tk, seen):
             + " calls, expected 9 B5, 6 B8, 3 B9, 3 B11")
     out = {}
     b5_parts, b8_parts, b11_parts = [], [], []
+    b8_chunk_ms = {}
     fullest = None
     for c, label in enumerate(("brdf-candidate", "initial", "final")):
         # B11: the any-hit pre-pass over the instance bounds (hit bit only).
@@ -1023,43 +1138,23 @@ def check_anyhit_kernels(ik, tk, seen):
                 fullest = (live, label, rays, c)
 
         # B8: each round's any-hit sweep of the rays' own candidates.
-        for r, (rays, cand, occ_in, inst_tbl, tri_tbl, block) in enumerate(
-                seen["shared_blas_any"][2 * c:2 * c + 2]):
-            args = (rays, cand, occ_in, inst_tbl, tri_tbl, block)
-            work = {}
-            occ_k = tk.shared_blas_any(*args)
-            occ_p = tk.shared_blas_any_plain(*args, work=work)
-            torch.cuda.synchronize()
-            mismatch = words_differ((occ_k,), (occ_p,))
-            n, live = rays.shape[1], work["live"]
-            # A live lane reads its ray, cand and occ_in; any other lane at
-            # least its occ_in, which it passes through.
-            part = {"bytes": lane_bytes(n, live, 8 + 2, 1, inst_tbl, tri_tbl,
-                                        dead_words=1),
-                    "ops": work["tri_tests"] * OPS_MT_PAIR
-                    + live * OPS_TO_OBJECT,
-                    "ms": cuda_ms(lambda: tk.shared_blas_any(*args), 10),
-                    "plain_ms": cuda_ms(lambda: tk.shared_blas_any_plain(
-                        *args), 1)}
+        for r, args in enumerate(seen["shared_blas_any"][2 * c:2 * c + 2]):
+            part = check_b8(tk, f"{label} round {r + 1}", args)
             b8_parts.append(part)
-            log(f"mesh any-hit kernels: B8 {label} round {r + 1} rays={n} "
-                f"live={live} faces={tri_tbl.shape[0]} "
-                f"instances={inst_tbl.shape[1]} "
-                f"bits_in={int((occ_in > 0).sum())} "
-                f"bits_out={int((occ_k > 0).sum())} "
-                f"triangle_tests={work['tri_tests']} mismatch={mismatch} "
-                f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
-                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-            if mismatch:
-                raise AssertionError(f"B8 {label} round {r + 1}: kernel "
-                                     f"disagrees with its plain version on "
-                                     f"{mismatch} lanes")
+            for chunk, ms in part["chunk_ms"].items():
+                b8_chunk_ms[chunk] = b8_chunk_ms.get(chunk, 0.0) + ms
 
         # B9: the frame's own backstop batch.
         check_b9(tk, f"{label} backstop",
                  seen["intersect_mesh_instances_any"][c], False)
     out["bound_scan@mesh_restir"] = sum_parts(b5_parts)
     out["shared_blas_any"] = sum_parts(b8_parts)
+    log("mesh any-hit kernels: B8 kernel_ms summed over the frame's 6 "
+        "launches by triangle chunk: " + " ".join(
+            f"chunk{c}={ms!r}" for c, ms in sorted(b8_chunk_ms.items()))
+        + f" (kept: {tk.TRI_CHUNK}; bound_ms={out['shared_blas_any']['bound_ms']!r}"
+        f" unculled_bound_ms="
+        f"{out['shared_blas_any']['unculled_bound_ms']!r})")
     out["intersect_brute@mesh_restir"] = sum_parts(b11_parts)
 
     # B9 where it carries every ray: the fullest batch as the pre-pass left
@@ -1068,8 +1163,9 @@ def check_anyhit_kernels(ik, tk, seen):
     _, label, rays, c = fullest
     tables = seen["intersect_mesh_instances_any"][c][1:]
     b9 = check_b9(tk, f"{label}, no candidate round", (rays, *tables), True)
-    loop = tk.intersect_mesh_instances_any_cand(rays, *tables[:4],
-                                                block=tables[4])
+    blas = seen["shared_blas_any"][2 * c][5:7]    # tri_bounds, chunk
+    loop = tk.intersect_mesh_instances_any_cand(rays, *tables[:3], *blas,
+                                                tables[3], block=tables[4])
     differ = int(((b9["occ"] > 0) != loop).sum())
     log(f"mesh any-hit kernels: B9 {label} alone vs the candidate loop: "
         f"{differ} of {b9['live']} live lanes differ "
@@ -1100,54 +1196,94 @@ def capture_fused_inputs(bench, pathtrace, trimesh, modules, device="cuda"):
 
 
 def check_fused_kernel(tk, seen):
-    """Phase 12: B10 against its plain version and the plain version
-    against the multi-launch loop, bit for bit, on each recorded call; the
-    kernels-line fields are the primary call's."""
+    """Phase 12: B10 against its plain version, its culled walk and the
+    multi-launch loop, bit for bit, on each recorded call, with its work
+    (trimesh_kernels.cand_fused_work: the scan's chunks tested and met,
+    rows swept and roots, the sweep's chunks tested and met, faces
+    guard-tested and swept) and the times of the kernel at each of
+    TRI_CHUNKS, the plain version and the loop; the kernels-line fields
+    are the primary call's."""
     calls = seen["cand_fused"]
     if len(calls) != 2 or len(seen["intersect_mesh_instances"]) != 2:
         raise AssertionError(f"B10: recorded {len(calls)} calls, expected 2")
     fields = None
-    for label, args, b7_args in zip(("primary", "bounce-1"), calls,
-                                    seen["intersect_mesh_instances"]):
-        rays, bscan, inst_tbl, tri_tbl, rounds, block = args
-        loop_args = (rays, bscan, inst_tbl, b7_args[2], tri_tbl, rounds,
+    for label, args in zip(("primary", "bounce-1"), calls):
+        (rays, bscan, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk,
+         rounds, block) = args
+        loop_args = (rays, bscan, inst_tbl, inst_bounds, tri_tbl, rounds,
                      block)
         work = {}
         out_k = tk.cand_fused(*args)
         out_p = tk.cand_fused_plain(*args, work=work)
         out_l = tk.cand_loop(*loop_args)
+        out_w, w = tk.cand_fused_work(*args[:8], 262144)
         torch.cuda.synchronize()
         mismatch = words_differ(out_k, out_p)
         loop_mismatch = words_differ(out_p, out_l)
+        walk_mismatch = words_differ(out_k, out_w)
         n, m_pad, f_pad = rays.shape[1], bscan.shape[0], tri_tbl.shape[0]
+        live, sweeps = work["live"], work["sweeps"]
         # A live lane reads its ray and writes three words; a dead one
         # reads tmin and tmax; each table once.
-        b_bytes = lane_bytes(n, work["live"], 8, 3, bscan, inst_tbl,
-                             tri_tbl)
-        b_ops = (work["scans"] * m_pad * OPS_B10_SCAN_ROW
-                 + work["sweeps"] * (f_pad * OPS_B10_SWEEP_ROW
-                                     + OPS_TO_OBJECT))
-        b_ms, b_by = bound(b_bytes, b_ops)
+        b_bytes = lane_bytes(n, live, 8, 3, bscan, inst_tbl, inst_bounds,
+                             tri_tbl, tri_bounds)
+        scan_ops = (w["scan_tests"] * OPS_B5_CHUNK + w["scan_met"] * OPS_B5_MET
+                    + w["scan_rows"] * OPS_B5_SWEPT
+                    + w["scan_roots"] * OPS_B5_ROOT + live * OPS_B5_RAY)
+        sweep_ops = (w["tri_tests"] * (OPS_TRI_CHUNK + OPS_TRI_END)
+                     + w["cones"] * OPS_TRI_CONE
+                     + w["guards"] * OPS_TRI_GUARD + w["faces"] * OPS_MT_PAIR
+                     + sweeps * (OPS_TO_OBJECT + OPS_TRI_RAY))
+        unculled_ops = (work["scans"] * m_pad * OPS_B10_SCAN_ROW
+                        + sweeps * (f_pad * OPS_B10_SWEEP_ROW
+                                    + OPS_TO_OBJECT))
+        b_ms, b_by = bound(b_bytes, scan_ops + sweep_ops)
+        u_ms = bound(b_bytes, unculled_ops)[0]
+        scan_ms = bound(0, scan_ops)[0]
+        sweep_ms = bound(0, sweep_ops)[0]
         k_ms = cuda_ms(lambda: tk.cand_fused(*args), 10)
         p_ms = cuda_ms(lambda: tk.cand_fused_plain(*args), 1)
         l_ms = cuda_ms(lambda: tk.cand_loop(*loop_args), 10)
+        spheres = tri_tables(tk, tri_tbl, tri_bounds, chunk)
+        chunk_ms = {c: cuda_ms(lambda c=c: tk.cand_fused(
+            rays, bscan, inst_tbl, inst_bounds, tri_tbl, spheres[c], c,
+            rounds, block), 10) for c in TRI_CHUNKS}
         found = int((out_k[0] < tk.INF_BITS).sum())
-        log(f"fused kernel: B10 {label} rays={n} live={work['live']} "
-            f"rounds={rounds} rows={m_pad} faces={f_pad} "
-            f"lane_scans={work['scans']} lane_sweeps={work['sweeps']} "
-            f"hits={found} unresolved={int((out_k[2] < tk.INF_BITS).sum())} "
-            f"mismatch={mismatch} plain_vs_loop_mismatch={loop_mismatch} "
+        per, per_sweep = max(live, 1), max(sweeps, 1)
+        warps = max(w["warps"], 1)
+        log(f"fused kernel: B10 {label} rays={n} live={live} "
+            f"rounds={rounds} rows={m_pad} instances={inst_tbl.shape[1]} "
+            f"faces={f_pad} chunk={chunk} lane_scans={work['scans']} "
+            f"lane_sweeps={sweeps} hits={found} "
+            f"unresolved={int((out_k[2] < tk.INF_BITS).sum())} "
+            f"mismatch={mismatch} walk_mismatch={walk_mismatch} "
+            f"plain_vs_loop_mismatch={loop_mismatch} "
+            f"scan: chunk_tests={w['scan_tests']} chunks_met={w['scan_met']} "
+            f"rows={w['scan_rows']} roots={w['scan_roots']} "
+            f"chunks_met_per_live_lane={w['scan_met'] / per!r} "
+            f"chunks_met_per_live_warp={w['scan_warp_met'] / warps!r} "
+            f"rows_per_live_lane={w['scan_rows'] / per!r} "
+            f"sweep: chunk_tests={w['tri_tests']} chunks_met={w['tri_met']} "
+            f"cone_tests={w['cones']} guard_tests={w['guards']} "
+            f"triangles_swept={w['faces']} "
+            f"chunks_met_per_sweep={w['tri_met'] / per_sweep!r} "
+            f"chunks_met_per_live_warp={w['tri_warp_met'] / warps!r} "
+            f"triangles_swept_per_live_lane={w['faces'] / per!r} "
+            f"triangles_swept_per_sweep={w['faces'] / per_sweep!r} "
             f"kernel_ms={k_ms!r} plain_ms={p_ms!r} "
-            f"loop_ms(B5+B6)={l_ms!r} bound_ms={b_ms!r} ({b_by})")
-        if mismatch or loop_mismatch:
-            raise AssertionError(f"B10 {label}: kernel, plain version and "
-                                 f"loop disagree ({mismatch}, "
-                                 f"{loop_mismatch} words)")
+            f"loop_ms(B5+B6)={l_ms!r} bound_ms={b_ms!r} ({b_by}; scan "
+            f"{scan_ms!r}, sweep {sweep_ms!r}) unculled_bound_ms={u_ms!r} "
+            f"chunk_ms={json.dumps(chunk_ms)}")
+        if mismatch or loop_mismatch or walk_mismatch:
+            raise AssertionError(f"B10 {label}: kernel, plain version, walk "
+                                 f"and loop disagree ({mismatch}, "
+                                 f"{walk_mismatch}, {loop_mismatch} words)")
         if found == 0:
             raise AssertionError(f"B10 {label}: no hit")
         if fields is None:
             fields = {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                      "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                      "unculled_bound_ms": u_ms}
     return fields
 
 

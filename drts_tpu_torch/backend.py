@@ -79,19 +79,24 @@ _SIGNATURES = {
     "drts_mesh_instances_closest": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                     _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
                                     _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP),
-    # rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, occ_out, stream
+    # rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, tri_bounds,
+    # tb_cols, chunk, tri_scale, guard, occ_out, stream
     "drts_shared_blas_any": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _INT,
-                             _VOIDP, _INT, _VOIDP, _VOIDP),
+                             _VOIDP, _INT, _VOIDP, _INT, _INT, _FLOAT,
+                             _FLOAT, _VOIDP, _VOIDP),
     # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
     # bound_scale, bound_pad, tri_tbl, f_pad, occ_out, stream
     "drts_mesh_instances_any": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                 _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
                                 _VOIDP, _VOIDP),
-    # rays, n, bscan, m_pad, bs_pos_bits, inst_tbl, m_tbl, tri_tbl, f_pad,
-    # pos_bits, rounds, best_out, binst_out, key_out, stream
+    # rays, n, bscan, m_pad, bs_pos_bits, inst_tbl, m_tbl, inst_bounds,
+    # ic_cols, inst_chunk, tri_tbl, f_pad, pos_bits, tri_bounds, tb_cols,
+    # tri_chunk, scan_scale, tri_scale, guard, rounds, best_out, binst_out,
+    # key_out, stream
     "drts_cand_fused": (_VOIDP, _INT, _VOIDP, _INT, _INT, _VOIDP, _INT,
-                        _VOIDP, _INT, _INT, _INT, _VOIDP, _VOIDP, _VOIDP,
-                        _VOIDP),
+                        _VOIDP, _INT, _INT, _VOIDP, _INT, _INT, _VOIDP, _INT,
+                        _INT, _FLOAT, _FLOAT, _FLOAT, _INT, _VOIDP, _VOIDP,
+                        _VOIDP, _VOIDP),
 }
 
 _lib = None

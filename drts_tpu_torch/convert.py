@@ -21,7 +21,7 @@ import torch
 from . import backend
 from .models import clusters, material, pipeline, scene as scene_mod
 from .ops import (camera as camera_mod, denoise, light, physics, restir,
-                  sharc, sky, taa, trimesh)
+                  sharc, sky, taa, trimesh, trimesh_kernels as tk)
 
 
 def _tensor(x, device):
@@ -47,15 +47,23 @@ def environment(src, device="cuda") -> sky.EnvironmentLight:
 
 def tri_mesh(src, device="cuda") -> trimesh.TriMesh:
     """A TriMesh with the reference's arrays as they are (its face order,
-    its triangle table); index arrays become int64."""
+    its triangle table); index arrays become int64. The chunk spheres are
+    built from that triangle table at the port's chunk size: the
+    reference's tri_bounds has other rows and another chunk."""
     fields = {}
     for f in dataclasses.fields(trimesh.TriMesh):
+        if f.name in ("tri_bounds", "tri_chunk"):
+            continue
         value = getattr(src, f.name)
         if f.name == "inscribed_radius":
             fields[f.name] = float(value)
         elif value is not None:
             fields[f.name] = _tensor(value, device)
     fields["faces"] = fields["faces"].long()
+    chunk = tk.TRI_CHUNK
+    fields["tri_bounds"] = _tensor(tk.tri_chunk_bounds(
+        np.asarray(src.tri_tbl, np.float32), chunk), device)
+    fields["tri_chunk"] = chunk
     return trimesh.TriMesh(**fields)
 
 

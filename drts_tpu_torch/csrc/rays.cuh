@@ -1,8 +1,9 @@
 // Rays of the sphere and mesh kernels (csrc/intersect.cu, csrc/trimesh.cu):
 // the planar layout (8, n) float32 [ox oy oz dx dy dz tmin tmax], the
 // loads of one lane's ray, and the per-lane chunk cull on a half-line that
-// B1 (chunks of the Morton sphere table) and B5 (chunks of the instance
-// table) share.
+// B1 (chunks of the Morton sphere table), B5 and B10's scan (chunks of the
+// instance table) share; B8 and B10's sweep (chunks of the triangle table)
+// take it with segment_cull_tri's terms (csrc/trimesh.cu states why).
 //
 // The chunk cull: a lane tests a chunk's covering sphere (C, R) against
 // its segment [tmin, t_end] and skips the chunk's rows where the segment
@@ -89,6 +90,22 @@ __device__ __forceinline__ SegmentCull segment_cull(const Ray& r,
   SegmentCull c;
   c.slope = dev <= 0.00390625f ? 1.125f * (sqrtf(dev) + scale)
                                : __int_as_float(0x7F800000);
+  c.m_o = scale * o1;
+  c.inv_dd = 1.0f / dd;
+  return c;
+}
+
+// The per-lane terms of the triangle-chunk cull (csrc/trimesh.cu): as
+// segment_cull, but with the slope 1.125 scale, since the point of a
+// triangle hit's t assumes no unit direction (the quadratic's sqrt(|d.d -
+// 1|) |t| term does not arise); +inf outside |d.d - 1| <= 2^-8: no skip.
+__device__ __forceinline__ SegmentCull segment_cull_tri(const Ray& r,
+                                                        float scale) {
+  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
+  const float dev = fabsf(dd - 1.0f);
+  SegmentCull c;
+  c.slope = dev <= 0.00390625f ? 1.125f * scale : __int_as_float(0x7F800000);
   c.m_o = scale * o1;
   c.inv_dd = 1.0f / dd;
   return c;

@@ -8,11 +8,12 @@
 // shared_blas_any (B8, the any-hit twin of B6), drts_mesh_instances_any
 // replaces intersect_mesh_instances_any (B9, the any-hit twin of B7) and
 // drts_cand_fused replaces cand_fused (B10, the candidate rounds of B5 and
-// B6 in one launch; without the reference's bundle, chunk and back-face
-// culls and its front-to-back chunk order, none of which changes a
-// result). All are bound to PyTorch through a plain C interface and ctypes
-// (drts_tpu_torch/ops/trimesh_kernels.py holds the wrappers, the table
-// makers and the plain PyTorch versions the kernels are checked against).
+// B6 in one launch; without the reference's bundle cone, far-chunk cut,
+// back-face cull and front-to-back chunk order, none of which changes a
+// result). All are bound to PyTorch through a plain C interface and
+// ctypes (drts_tpu_torch/ops/trimesh_kernels.py holds the wrappers, the
+// table makers and the plain PyTorch versions the kernels are checked
+// against).
 //
 // The TPU kernels work on blocks of 2,048 rays and decide per block: a
 // bundle's origin sphere and direction cone cull instance chunks, instances
@@ -37,16 +38,20 @@
 // its whole walk (B9), and B9's sphere tests take the lane's own tmax as
 // the far limit.
 //
-// Culls kept: a dead lane (tmax < tmin, or no candidate in B6) does no
-// work, and a block with no live lane leaves before it stages a table
-// (B5, B6); B5 tests each ray against every instance chunk's covering
-// sphere, with a segment that ends at its best key so far, and sweeps only
-// the rows of the chunks it meets (csrc/rays.cuh); B7 tests each
-// ray against every instance chunk's covering sphere and every member's
-// bounding sphere, with the ray's running best as the far limit, and
-// sweeps only the instances that pass. The TPU
-// kernels' triangle-chunk culls (bounding sphere, normal cone) are left
-// out: every sweep visits all face rows.
+// Culls kept: a dead lane (tmax < tmin, or no candidate in B6, B8) does
+// no work, and a block with no live lane leaves before it stages a table
+// (B5, B6, B8, B10); B5 and each round's scan of B10 test each ray against
+// every instance chunk's covering sphere, with a segment that ends at its
+// best key so far, and sweep only the rows of the chunks they meet
+// (csrc/rays.cuh; scan_walk); B8 and each sweep of B10 test the ray, in
+// the candidate's object frame, against every triangle chunk's covering
+// sphere, and in a chunk that the segment misses skip every face the ray
+// does not graze, all of them where the chunk's guard cone shows none is
+// grazed (sweep_tile states the cull); B7 tests each ray against
+// every instance chunk's covering sphere and every member's bounding
+// sphere, with the ray's running best as the far limit, and sweeps only
+// the instances that pass. B6, B7 and B9 visit every face row of an
+// instance they sweep.
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply, add, division and sqrt rounds on its own, in the order the
@@ -64,7 +69,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSphereTile = 512;  // B5, B10: bound-scan rows per shared tile
-constexpr int kFaceTile = 512;    // B6: triangle rows per shared tile
+constexpr int kFaceTile = 512;    // B6, B8, B10: triangle rows per tile
+constexpr int kMinTriChunk = 8;   // B8, B10: the least triangle chunk
 constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
 
 struct Vec3 {
@@ -173,16 +179,85 @@ __device__ __forceinline__ float scan_disc(const float4 s, const Ray& r,
 // misses: the plain version's NaN root fails both compares), its key
 // folded into the lane's best.
 __device__ __forceinline__ void scan_fold(float b, float disc, int row,
-                                          const Ray& r, int trunc, int prev,
-                                          int* best) {
+                                          float tmin, float tmax, int trunc,
+                                          int prev, int* best) {
   const float sq = sqrtf(disc);
   const float entry = -b - sq;
   const float exit_t = sq - b;
   const float ce = entry > 0.0f ? entry : 0.0f;
   const int key = (__float_as_int(ce) & trunc) | row;
-  if (exit_t >= r.tmin && entry <= r.tmax && key > prev) {
+  if (exit_t >= tmin && entry <= tmax && key > prev) {
     *best = min(*best, key);
   }
+}
+
+// B5's walk of one lane (bound_scan, and each round of cand_fused with
+// tmax = min(tmax, best t)): the least key greater than prev over the rows
+// below m_tbl whose [entry, exit] overlaps [tmin, tmax]. The table is
+// staged tile by tile with barriers that the whole block takes; *staged
+// (block-uniform, -1 for none) names the tile in shared memory, so a table
+// of one tile is staged once per launch. A lane that is not scanning takes
+// part in the barriers only.
+__device__ __forceinline__ int scan_walk(
+    bool scanning, const Ray& r, float tmax, const SegmentCull& cull,
+    float od, float oo, int prev, const float4* __restrict__ table,
+    int m_tbl, const float* __restrict__ bounds, int ic_cols, int chunk,
+    int tile_chunks, float scale, int trunc, float4* s_tbl, float4* s_bnd,
+    int* staged) {
+  int best = kInfBits;
+  const int n_chunks = (m_tbl + chunk - 1) / chunk;
+  float t_end = tmax;
+  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+    const int m = min(tile_chunks, n_chunks - k0);
+    const int row0 = k0 * chunk;
+    const int rows = min(m * chunk, m_tbl - row0);
+    if (*staged != k0) {
+      __syncthreads();
+      for (int c = threadIdx.x; c < rows; c += blockDim.x) {
+        s_tbl[c] = table[row0 + c];
+      }
+      for (int k = threadIdx.x; k < m; k += blockDim.x) {
+        const int kk = k0 + k;
+        s_bnd[k] = cull_sphere(bounds[0 * ic_cols + kk],
+                               bounds[1 * ic_cols + kk],
+                               bounds[2 * ic_cols + kk],
+                               bounds[3 * ic_cols + kk], scale);
+      }
+      __syncthreads();
+      *staged = k0;
+    }
+    if (!scanning) continue;
+    for (int k = 0; k < m; ++k) {
+      if (segment_misses(cull, r, t_end, s_bnd[k])) continue;
+      const int end = min((k + 1) * chunk, rows);
+      int c = k * chunk;
+      for (; c + kB5Group <= end; c += kB5Group) {
+        float b[kB5Group], disc[kB5Group];
+#pragma unroll
+        for (int u = 0; u < kB5Group; ++u) {
+          disc[u] = scan_disc(s_tbl[c + u], r, od, oo, &b[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kB5Group; ++u) {
+          if (!(disc[u] < 0.f)) {
+            scan_fold(b[u], disc[u], row0 + c + u, r.tmin, tmax, trunc,
+                      prev, &best);
+          }
+        }
+      }
+      for (; c < end; ++c) {
+        float b;
+        const float disc = scan_disc(s_tbl[c], r, od, oo, &b);
+        if (!(disc < 0.f)) {
+          scan_fold(b, disc, row0 + c, r.tmin, tmax, trunc, prev, &best);
+        }
+      }
+      if (best < kInfBits) {
+        t_end = fminf(tmax, __int_as_float((best & trunc) | ~trunc));
+      }
+    }
+  }
+  return best;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -210,55 +285,10 @@ bound_scan(const float* __restrict__ rays, int n,
       oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
       cull = segment_cull(r, scale);
     }
-    const int trunc = ~((1 << pos_bits) - 1);
-    const int n_chunks = (m_tbl + chunk - 1) / chunk;
-    float t_end = r.tmax;
-    for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
-      const int m = min(tile_chunks, n_chunks - k0);
-      const int row0 = k0 * chunk;
-      const int rows = min(m * chunk, m_tbl - row0);
-      __syncthreads();
-      for (int c = threadIdx.x; c < rows; c += blockDim.x) {
-        s_tbl[c] = table[row0 + c];
-      }
-      for (int k = threadIdx.x; k < m; k += blockDim.x) {
-        const int kk = k0 + k;
-        s_bnd[k] = cull_sphere(bounds[0 * ic_cols + kk],
-                               bounds[1 * ic_cols + kk],
-                               bounds[2 * ic_cols + kk],
-                               bounds[3 * ic_cols + kk], scale);
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int k = 0; k < m; ++k) {
-        if (segment_misses(cull, r, t_end, s_bnd[k])) continue;
-        const int end = min((k + 1) * chunk, rows);
-        int c = k * chunk;
-        for (; c + kB5Group <= end; c += kB5Group) {
-          float b[kB5Group], disc[kB5Group];
-#pragma unroll
-          for (int u = 0; u < kB5Group; ++u) {
-            disc[u] = scan_disc(s_tbl[c + u], r, od, oo, &b[u]);
-          }
-#pragma unroll
-          for (int u = 0; u < kB5Group; ++u) {
-            if (!(disc[u] < 0.f)) {
-              scan_fold(b[u], disc[u], row0 + c + u, r, trunc, prev, &best);
-            }
-          }
-        }
-        for (; c < end; ++c) {
-          float b;
-          const float disc = scan_disc(s_tbl[c], r, od, oo, &b);
-          if (!(disc < 0.f)) {
-            scan_fold(b, disc, row0 + c, r, trunc, prev, &best);
-          }
-        }
-        if (best < kInfBits) {
-          t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
-        }
-      }
-    }
+    int staged = -1;
+    best = scan_walk(live, r, r.tmax, cull, od, oo, prev, table, m_tbl,
+                     bounds, ic_cols, chunk, tile_chunks, scale,
+                     ~((1 << pos_bits) - 1), s_tbl, s_bnd, &staged);
   }
   if (in_range) key_out[i] = best;
 }
@@ -435,72 +465,216 @@ mesh_instances_closest(const float* __restrict__ rays, int n,
   inst_out[i] = binst;
 }
 
+// The triangle-chunk cull of B8 and of B10's sweep. The lane's ray is in
+// its candidate's object frame: ol and dl (rotated, not scaled), and
+// [tmin, tmax] scaled by inv_s, the very floats mt_hit compares, so the
+// argument needs nothing of conj_rotate or of the scaling but |dl.dl - 1|
+// <= 2^-8, which segment_cull_tri checks on the lane's own dl (a unit
+// world direction turned by a unit quaternion is within a few ulp of it;
+// a lane outside skips nothing).
+//
+// A skip is exact when the skipped face holds no pair that mt_hit, built
+// with -fmad=false, could accept on the segment. Let u = 2^-24 and T = ol
+// - v0 as computed (taken as the exact input: ol moves by <= u |T|), and
+// P, Q, det, U, V, W be MT's intermediates computed exactly from it. Each
+// computed cross or dot product is off by <= 7u times the product of its
+// factors' norms: |e_det| <= 7u |d||e1||e2|, |e_U| <= 7u |T||d||e2|, |e_V|
+// <= 7u |T||d||e1|, |e_W| <= 7u |T||e1||e2|. det T = -W d + U e1 + V e2
+// holds for any vectors, so with D = det + e_det the computed denominator
+// and (t, u, v) = (W, U, V)' / D before the division's two roundings,
+// X = ol + t d and Y = v0 + u e1 + v e2 obey D (X - Y) = e_det T + e_W d
+// - e_U e1 - e_V e2: |X - Y| <= 28u |T| / (G - 7u), G = |det| / (|d||e1|
+// |e2|) = |d . A| / |d| with A = (e1 x e2) / (|e1||e2|). An accepted pair
+// has u, v >= 0 and u + v <= 1 + u: Y lies within u max|e| of the face,
+// and the face within the chunk's covering sphere (C, R) up to R's
+// rounding (the rounded corners v0 + e1, v0 + e2 and the float32
+// distances: <= 6u (|C| + R)). The divisions' roundings move X by <= 2.01u
+// |t||d| and Y by <= 2.01u (|e1| + |e2|) <= 8.1u R. In all, the accepted t
+// puts ol + t dl within R + s (|ol|_1 + |C|_1 + R) + s |t| of C, with s =
+// u (28 / (G - 7u) + 20) (|T| <= |ol|_1 + |C|_1 + R).
+//
+// The guard bounds G per (lane, face): stage_faces computes A in float32
+// (off by <= 11u) and the lane g = |dl . A| (off by <= 3.01u |d|), so G >=
+// g / 1.002 - 14u. A face is skipped only where g >= guard: at
+// trimesh_kernels.TRI_GUARD = 2^-6, G >= 0.015593 and s <= 1816u. The cull
+// test's own rounding (s*, its clamp, w, |w|^2, lim) and the covering
+// radius's need <= 64u S, S = |ol|_1 + |C|_1 + R + |t|; the wrapper's
+// scale TRI_CULL_SCALE = 2^-13 = 2048u covers both. From there csrc/
+// rays.cuh's argument holds with k = scale and no sqrt(|d.d - 1|) term:
+// |t| <= 1.125 (|s*| + e), a point of the segment lies within lim of C,
+// and segment_misses is false. A face with g < guard, or a NaN g, is
+// swept: every face the ray grazes (its t may be rounding noise anywhere
+// on the segment), and the degenerate and padding rows (A = 0 where
+// |e1||e2| < 2^-64, which also keeps underflow's absolute errors far
+// inside the margin). B10's segment ends at min(tmax, top(best)) once the
+// lane holds a hit: a face that can lower the best has t <= top(best).
+
+// Stages face rows [base, base + m) as three float4 (v0x v0y v0z e1x)
+// (e1y e1z e2x e2y) (e2z Ax Ay Az), A the face's guard vector, and per
+// chunk of their m / chunk chunks three float4: the covering sphere as
+// cull_sphere reads it, and the guard cone (wx wy wz c) (s h - -) of
+// tri_bounds' rows 4-9.
+__device__ __forceinline__ void stage_faces(
+    const float* __restrict__ tri_tbl, int base, int m,
+    const float* __restrict__ tri_bounds, int tb_cols, int chunk,
+    float scale, float4* s_tri, float4* s_tc) {
+  for (int f = threadIdx.x; f < m; f += blockDim.x) {
+    const float* row = tri_tbl + (size_t)(base + f) * 9;
+    const float e1x = row[3], e1y = row[4], e1z = row[5];
+    const float e2x = row[6], e2y = row[7], e2z = row[8];
+    const float nx = e1y * e2z - e1z * e2y;
+    const float ny = e1z * e2x - e1x * e2z;
+    const float nz = e1x * e2y - e1y * e2x;
+    const float den = sqrtf(e1x * e1x + e1y * e1y + e1z * e1z) *
+                      sqrtf(e2x * e2x + e2y * e2y + e2z * e2z);
+    const float inv = den >= 0x1p-64f ? 1.0f / den : 0.0f;
+    s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], e1x);
+    s_tri[3 * f + 1] = make_float4(e1y, e1z, e2x, e2y);
+    s_tri[3 * f + 2] = make_float4(e2z, nx * inv, ny * inv, nz * inv);
+  }
+  const int c0 = base / chunk;
+  for (int k = threadIdx.x; k < m / chunk; k += blockDim.x) {
+    const float* col = tri_bounds + c0 + k;
+    s_tc[3 * k] = cull_sphere(col[0 * tb_cols], col[1 * tb_cols],
+                              col[2 * tb_cols], col[3 * tb_cols], scale);
+    s_tc[3 * k + 1] = make_float4(col[4 * tb_cols], col[5 * tb_cols],
+                                  col[6 * tb_cols], col[7 * tb_cols]);
+    s_tc[3 * k + 2] = make_float4(col[8 * tb_cols], col[9 * tb_cols], 0.f,
+                                  0.f);
+  }
+}
+
+// One lane's sweep of the staged tile (faces base.. base + m, whole
+// chunks), chunk by chunk in table order: a chunk met by the segment
+// [tmin, t_end] has every face swept; a missed one none where its guard
+// cone gives c |dl . w| - s sqrt(dl.dl - (dl . w)^2) - h >= guard (every
+// face's G is at least that plus h, which covers the lane's rounding:
+// trimesh_kernels._chunk_cone; the last three operations round by <= 4u,
+// inside the 0.015625 - 0.015593 that the bound on s leaves), else only
+// the faces the ray grazes (g < guard). Closest hit (kAny false): folds the packed words
+// into *best, t_end = min(tmax, top(*best)) once it holds a hit. Any hit:
+// returns true at the first face that blocks, t_end = tmax. A warp sweeps
+// a face while any of its lanes needs it. Bound by instruction issue:
+// ~34 float operations per chunk tested, ~7 per cone and per face
+// guard-tested, ~55 per face swept.
+template <bool kAny>
+__device__ __forceinline__ bool sweep_tile(const Ray& rl,
+                                           const SegmentCull& cull,
+                                           float guard, const float4* s_tri,
+                                           const float4* s_tc, int base,
+                                           int m, int chunk, int trunc,
+                                           int* best) {
+  const Vec3 o = {rl.ox, rl.oy, rl.oz}, d = {rl.dx, rl.dy, rl.dz};
+  const float dd = rl.dx * rl.dx + rl.dy * rl.dy + rl.dz * rl.dz;
+  for (int k = 0, f0 = 0; f0 < m; ++k, f0 += chunk) {
+    float t_end = rl.tmax;
+    if (!kAny && *best < kInfBits) {
+      t_end = fminf(rl.tmax, __int_as_float((*best & trunc) | ~trunc));
+    }
+    const bool met = !segment_misses(cull, rl, t_end, s_tc[3 * k]);
+    if (!met) {
+      const float4 cw = s_tc[3 * k + 1];
+      const float4 cs = s_tc[3 * k + 2];
+      const float x = rl.dx * cw.x + rl.dy * cw.y + rl.dz * cw.z;
+      if ((cw.w * fabsf(x) - cs.x * sqrtf(fmaxf(dd - x * x, 0.f))) - cs.y >=
+          guard) {
+        continue;
+      }
+    }
+    for (int f = f0; f < f0 + chunk; ++f) {
+      const float4 c = s_tri[3 * f + 2];
+      if (!met && fabsf(rl.dx * c.y + rl.dy * c.z + rl.dz * c.w) >= guard) {
+        continue;
+      }
+      const float4 a = s_tri[3 * f + 0];
+      const float4 b = s_tri[3 * f + 1];
+      if (kAny) {
+        float t;
+        if (mt_hit(o, d, rl.tmin, rl.tmax, a.x, a.y, a.z, a.w, b.x, b.y,
+                   b.z, b.w, c.x, &t)) {
+          return true;
+        }
+      } else {
+        *best = min(*best, mt_packed(o, d, rl.tmin, rl.tmax, a.x, a.y, a.z,
+                                     a.w, b.x, b.y, b.z, b.w, c.x, trunc,
+                                     base + f));
+      }
+    }
+  }
+  return false;
+}
+
+// The lane's ray in instance k's object frame (inst_tbl (9, m_tbl) [px py
+// pz qx qy qz qw 1/scale radius]): origin rotated and scaled, direction
+// rotated only, [tmin, tmax] scaled into object units. *inv_s_out gets
+// 1/scale.
+__device__ __forceinline__ Ray to_object(const Ray& r, float tmax,
+                                         const float* __restrict__ inst_tbl,
+                                         int m_tbl, int k, float* inv_s_out) {
+  const float px = __ldg(inst_tbl + 0 * m_tbl + k);
+  const float py = __ldg(inst_tbl + 1 * m_tbl + k);
+  const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
+  const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
+  const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
+  const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
+  const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
+  const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
+  const Vec3 ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py,
+                              r.oz - pz);
+  const Vec3 dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
+  *inv_s_out = inv_s;
+  return {ol.x * inv_s, ol.y * inv_s, ol.z * inv_s, dl.x, dl.y, dl.z,
+          r.tmin * inv_s, tmax * inv_s};
+}
+
 // B8. The any-hit twin of B6: does the lane's candidate instance block its
-// segment? A lane is live when tmax >= tmin, it has a candidate and
-// occ_in is 0; any other lane passes occ_in through. A live lane sweeps the
-// shared triangle table in its candidate's object frame, direction rotated
-// but not scaled, so tmin and tmax are scaled into object units, and stops
-// at the first triangle whose hit lies in that range.
+// segment? A lane is live when occ_in is 0, it has a candidate and tmax >=
+// tmin; any other lane passes occ_in through, having read occ_in (then
+// cand, then tmin and tmax) only. A live lane sweeps the shared triangle
+// table in its candidate's object frame with the triangle-chunk cull
+// (sweep_tile) and stops at the first face whose hit lies in its range; a
+// block stops staging tiles once none of its lanes is still sweeping.
 __global__ void __launch_bounds__(kThreads)
 shared_blas_any(const float* __restrict__ rays, int n,
                 const int* __restrict__ cand, const int* __restrict__ occ_in,
                 const float* __restrict__ inst_tbl, int m_tbl,
                 const float* __restrict__ tri_tbl, int f_pad,
-                int* __restrict__ occ_out) {
-  __shared__ float4 s_tri[kFaceTile * 3];  // rows laid out as in B6
+                const float* __restrict__ tri_bounds, int tb_cols, int chunk,
+                float scale, float guard, int* __restrict__ occ_out) {
+  __shared__ float4 s_tri[kFaceTile * 3];
+  __shared__ float4 s_tc[3 * kFaceTile / kMinTriChunk];
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n;
-  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  int k = -1, occ = 0;
+  int occ = 0, k = -1;
+  bool live = false;
+  Ray r;
   if (in_range) {
-    r = load_ray(rays, n, i);
-    k = cand[i];
     occ = occ_in[i];
+    if (occ == 0) {
+      k = cand[i];
+      if (k >= 0 && k < m_tbl) live = load_live_ray(rays, n, i, &r);
+    }
   }
-  const bool live =
-      in_range && r.tmax >= r.tmin && k >= 0 && k < m_tbl && occ == 0;
   if (__syncthreads_or(live)) {
-    Vec3 ol = {0.f, 0.f, 0.f}, dl = {0.f, 0.f, 1.f};
-    float tmn_l = 0.f, tmx_l = -1.f;
+    Ray rl = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+    SegmentCull cull = {0.f, 0.f, 0.f};
     if (live) {
-      const float px = __ldg(inst_tbl + 0 * m_tbl + k);
-      const float py = __ldg(inst_tbl + 1 * m_tbl + k);
-      const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
-      const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
-      const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
-      const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
-      const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
-      const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
-      ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
-      ol.x = ol.x * inv_s;
-      ol.y = ol.y * inv_s;
-      ol.z = ol.z * inv_s;
-      dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
-      tmn_l = r.tmin * inv_s;
-      tmx_l = r.tmax * inv_s;
+      float inv_s;
+      rl = to_object(r, r.tmax, inst_tbl, m_tbl, k, &inv_s);
+      cull = segment_cull_tri(rl, scale);
     }
     bool walking = live;
     for (int base = 0; base < f_pad; base += kFaceTile) {
       const int m = min(kFaceTile, f_pad - base);
+      if (!__syncthreads_or(walking)) break;
+      stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, chunk, scale, s_tri,
+                  s_tc);
       __syncthreads();
-      for (int f = threadIdx.x; f < m; f += blockDim.x) {
-        const float* row = tri_tbl + (size_t)(base + f) * 9;
-        s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], row[3]);
-        s_tri[3 * f + 1] = make_float4(row[4], row[5], row[6], row[7]);
-        s_tri[3 * f + 2] = make_float4(row[8], 0.f, 0.f, 0.f);
-      }
-      __syncthreads();
-      for (int f = 0; walking && f < m; ++f) {
-        const float4 a = s_tri[3 * f + 0];
-        const float4 b = s_tri[3 * f + 1];
-        const float4 c = s_tri[3 * f + 2];
-        float t;
-        if (mt_hit(ol, dl, tmn_l, tmx_l, a.x, a.y, a.z, a.w, b.x, b.y, b.z,
-                   b.w, c.x, &t)) {
-          occ = 1;
-          walking = false;
-        }
+      if (walking && sweep_tile<true>(rl, cull, guard, s_tri, s_tc, base, m,
+                                      chunk, 0, nullptr)) {
+        occ = 1;
+        walking = false;
       }
     }
   }
@@ -569,69 +743,62 @@ mesh_instances_any(const float* __restrict__ rays, int n,
 }
 
 // B10. The candidate loop in one launch: rounds + 1 bound scans (B5's
-// contract, with tmax_eff = min(tmax, best t) and a closed cursor never
-// rescanning), and after each of the first `rounds` scans the sweep of the
-// candidate found (B6's contract). Both tables sit in shared memory for the
-// whole launch when they fit one tile each (512 scan rows, 8 KB; 512 face
-// rows, 24 KB); a wider table is staged tile by tile on every pass, and the
-// barriers that staging needs are taken by the whole block, so a pass runs
-// when any lane of the block needs it. Per lane the walk is the loop's:
-// the same candidates in the same order, the same operations, so best,
+// contract and walk, scan_walk, with tmax_eff = min(tmax, best t) and a
+// closed cursor never rescanning), and after each of the first `rounds`
+// scans the sweep of the candidate found (B6's contract, with B8's
+// triangle-chunk cull, sweep_tile). Shared memory (dynamic, < 48 KB) holds
+// a scan tile of whole instance chunks (512 rows) with their covering
+// spheres and a face tile (512 faces) with its chunks' spheres and guard
+// cones (36,352 B at triangle chunk 8, 16-row instance chunks); a table of
+// one tile stays for the whole launch, a wider one is staged tile by tile
+// on every pass, and the barriers that staging needs are taken by the
+// whole block, so a pass runs when any lane of the block needs it. Per
+// lane the walk is the loop's: the same candidates in the same order and
+// the culls remove only rows and faces that cannot change a word, so best,
 // binst and the last key equal the multi-launch loop's words.
 __global__ void __launch_bounds__(kThreads)
 cand_fused(const float* __restrict__ rays, int n,
-           const float4* __restrict__ bscan, int m_pad, int bs_pos_bits,
+           const float4* __restrict__ bscan, int bs_pos_bits,
            const float* __restrict__ inst_tbl, int m_tbl,
+           const float* __restrict__ inst_bounds, int ic_cols,
+           int inst_chunk, int tile_chunks,
            const float* __restrict__ tri_tbl, int f_pad, int pos_bits,
-           int rounds, int* __restrict__ best_out, int* __restrict__ binst_out,
+           const float* __restrict__ tri_bounds, int tb_cols, int tri_chunk,
+           float scan_scale, float tri_scale, float guard, int rounds,
+           int* __restrict__ best_out, int* __restrict__ binst_out,
            int* __restrict__ key_out) {
-  __shared__ float4 s_bs[kSphereTile];
-  __shared__ float4 s_tri[kFaceTile * 3];  // rows laid out as in B6
+  extern __shared__ float4 s_mem[];
+  float4* s_bs = s_mem;                              // the scan tile
+  float4* s_bnd = s_bs + tile_chunks * inst_chunk;   // its chunks' spheres
+  float4* s_tri = s_bnd + tile_chunks;               // the face tile
+  float4* s_tc = s_tri + 3 * kFaceTile;              // its chunks' bounds
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool in_range = i < n;
-  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  if (in_range) r = load_ray(rays, n, i);
-  const bool live0 = in_range && r.tmax >= r.tmin;
+  Ray r;
+  SegmentCull cull = {0.f, 0.f, 0.f};
+  if (load_live_ray(rays, n, i, &r)) {
+    cull = segment_cull(r, scan_scale);
+  } else {  // tmax = -1 < tmin = 0 (a NaN tmax would pass fminf): no scan
+    r.tmin = 0.f;
+    r.tmax = -1.f;
+  }
   const int trunc = ~((1 << pos_bits) - 1);
   const int bs_trunc = ~((1 << bs_pos_bits) - 1);
   const int bs_mask = (1 << bs_pos_bits) - 1;
   const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
   const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
   int best = kInfBits, binst = 0, cursor = -1, key = kInfBits;
-  int bs_staged = -1, tri_staged = -1;  // the tile in shared memory
+  int bs_staged = -1, tri_staged = -1;  // the tiles in shared memory
   for (int it = 0; it <= rounds; ++it) {
     // The scan: the least key beyond the cursor on [tmin, tmax_eff].
     const float tmx = fminf(r.tmax, __int_as_float(best & trunc));
-    const bool scanning = live0 && cursor < kInfBits && tmx >= r.tmin;
+    const bool scanning = cursor < kInfBits && tmx >= r.tmin;
     key = kInfBits;
     if (__syncthreads_or(scanning)) {
-      for (int base = 0; base < m_pad; base += kSphereTile) {
-        const int m = min(kSphereTile, m_pad - base);
-        if (bs_staged != base) {
-          __syncthreads();
-          for (int c = threadIdx.x; c < m; c += blockDim.x) {
-            s_bs[c] = bscan[base + c];
-          }
-          __syncthreads();
-          bs_staged = base;
-        }
-        if (!scanning) continue;
-        for (int c = 0; c < m; ++c) {
-          const float4 s = s_bs[c];
-          const float b = od - (s.x * r.dx + s.y * r.dy + s.z * r.dz);
-          const float c0 =
-              oo - 2.0f * (s.x * r.ox + s.y * r.oy + s.z * r.oz) + s.w;
-          const float sq = sqrtf(b * b - c0);  // NaN when the ray misses
-          const float entry = -b - sq;
-          const float exit_t = sq - b;
-          const float ce = entry > 0.0f ? entry : 0.0f;
-          const int k = (__float_as_int(ce) & bs_trunc) | (base + c);
-          if (exit_t >= r.tmin && entry <= tmx && k > cursor) {
-            key = min(key, k);
-          }
-        }
-      }
+      key = scan_walk(scanning, r, tmx, cull, od, oo, cursor, bscan, m_tbl,
+                      inst_bounds, ic_cols, inst_chunk, tile_chunks,
+                      scan_scale, bs_trunc, s_bs, s_bnd, &bs_staged);
     }
     cursor = key;
     if (it == rounds) break;
@@ -640,52 +807,29 @@ cand_fused(const float* __restrict__ rays, int n,
     const int cand = key < kInfBits ? (key & bs_mask) : m_tbl;
     const bool sweeping = cand < m_tbl;
     if (!__syncthreads_or(sweeping)) continue;
-    Vec3 ol = {0.f, 0.f, 0.f}, dl = {0.f, 0.f, 1.f};
-    float tmn_l = 0.f, tmx_l = -1.f, s_w = 1.f;
+    Ray rl = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+    SegmentCull tcull = {0.f, 0.f, 0.f};
+    float inv_s = 1.f;
     if (sweeping) {
-      const float px = __ldg(inst_tbl + 0 * m_tbl + cand);
-      const float py = __ldg(inst_tbl + 1 * m_tbl + cand);
-      const float pz = __ldg(inst_tbl + 2 * m_tbl + cand);
-      const float qx = __ldg(inst_tbl + 3 * m_tbl + cand);
-      const float qy = __ldg(inst_tbl + 4 * m_tbl + cand);
-      const float qz = __ldg(inst_tbl + 5 * m_tbl + cand);
-      const float qw = __ldg(inst_tbl + 6 * m_tbl + cand);
-      const float inv_s = __ldg(inst_tbl + 7 * m_tbl + cand);
-      ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
-      ol.x = ol.x * inv_s;
-      ol.y = ol.y * inv_s;
-      ol.z = ol.z * inv_s;
-      dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
-      tmn_l = r.tmin * inv_s;
-      tmx_l = tmx * inv_s;
-      s_w = 1.0f / inv_s;
+      rl = to_object(r, tmx, inst_tbl, m_tbl, cand, &inv_s);
+      tcull = segment_cull_tri(rl, tri_scale);
     }
     int best_obj = kInfBits;
     for (int base = 0; base < f_pad; base += kFaceTile) {
       const int m = min(kFaceTile, f_pad - base);
       if (tri_staged != base) {
         __syncthreads();
-        for (int f = threadIdx.x; f < m; f += blockDim.x) {
-          const float* row = tri_tbl + (size_t)(base + f) * 9;
-          s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], row[3]);
-          s_tri[3 * f + 1] = make_float4(row[4], row[5], row[6], row[7]);
-          s_tri[3 * f + 2] = make_float4(row[8], 0.f, 0.f, 0.f);
-        }
+        stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, tri_chunk,
+                    tri_scale, s_tri, s_tc);
         __syncthreads();
         tri_staged = base;
       }
       if (!sweeping) continue;
-      for (int f = 0; f < m; ++f) {
-        const float4 a = s_tri[3 * f + 0];
-        const float4 b = s_tri[3 * f + 1];
-        const float4 c = s_tri[3 * f + 2];
-        best_obj = min(best_obj,
-                       mt_packed(ol, dl, tmn_l, tmx_l, a.x, a.y, a.z, a.w,
-                                 b.x, b.y, b.z, b.w, c.x, trunc, base + f));
-      }
+      sweep_tile<false>(rl, tcull, guard, s_tri, s_tc, base, m, tri_chunk,
+                        trunc, &best_obj);
     }
     if (sweeping && best_obj < kInfBits) {
-      const float t_w = __int_as_float(best_obj & trunc) * s_w;
+      const float t_w = __int_as_float(best_obj & trunc) * (1.0f / inv_s);
       const int packed_w = (__float_as_int(t_w) & trunc) | (best_obj & ~trunc);
       if (packed_w < best) {
         best = packed_w;
@@ -698,6 +842,14 @@ cand_fused(const float* __restrict__ rays, int n,
     binst_out[i] = binst;
     key_out[i] = key;
   }
+}
+
+// The triangle chunk sizes B8 and B10 take: a multiple of kMinTriChunk
+// that divides 64 (the triangle table's padding, so every tile holds whole
+// chunks), with tb_cols >= f_pad / chunk columns of bounds.
+inline bool tri_chunks_ok(int f_pad, int tb_cols, int chunk) {
+  return chunk >= kMinTriChunk && chunk % kMinTriChunk == 0 &&
+         64 % chunk == 0 && f_pad % 64 == 0 && tb_cols >= f_pad / chunk;
 }
 
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -755,14 +907,21 @@ extern "C" int drts_mesh_instances_closest(
   return (int)cudaGetLastError();
 }
 
+// tri_bounds: (10, tb_cols) covering spheres and guard cones of the
+// triangle table's chunks of `chunk` rows; scale: the triangle cull's
+// rounding margin and guard the least |dl . A| of a skipped face
+// (sweep_tile).
 extern "C" int drts_shared_blas_any(const float* rays, int n, const int* cand,
                                     const int* occ_in, const float* inst_tbl,
                                     int m_tbl, const float* tri_tbl, int f_pad,
+                                    const float* tri_bounds, int tb_cols,
+                                    int chunk, float scale, float guard,
                                     int* occ_out, cudaStream_t stream) {
-  if (n > 0) {
-    shared_blas_any<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, occ_out);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  if (!tri_chunks_ok(f_pad, tb_cols, chunk)) return cudaErrorInvalidValue;
+  shared_blas_any<<<grid_for(n), kThreads, 0, stream>>>(
+      rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, tri_bounds,
+      tb_cols, chunk, scale, guard, occ_out);
   return (int)cudaGetLastError();
 }
 
@@ -779,17 +938,35 @@ extern "C" int drts_mesh_instances_any(
   return (int)cudaGetLastError();
 }
 
+// bscan: (m_pad, 4) whose first m_tbl rows are the instance table's
+// columns, in chunks of inst_chunk with spheres inst_bounds (4, ic_cols);
+// tri_bounds and the scales as drts_shared_blas_any's, scan_scale B5's.
 extern "C" int drts_cand_fused(const float* rays, int n, const float* bscan,
                                int m_pad, int bs_pos_bits,
                                const float* inst_tbl, int m_tbl,
-                               const float* tri_tbl, int f_pad, int pos_bits,
-                               int rounds, int* best_out, int* binst_out,
-                               int* key_out, cudaStream_t stream) {
-  if (n > 0) {
-    cand_fused<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, reinterpret_cast<const float4*>(bscan), m_pad, bs_pos_bits,
-        inst_tbl, m_tbl, tri_tbl, f_pad, pos_bits, rounds, best_out,
-        binst_out, key_out);
+                               const float* inst_bounds, int ic_cols,
+                               int inst_chunk, const float* tri_tbl,
+                               int f_pad, int pos_bits,
+                               const float* tri_bounds, int tb_cols,
+                               int tri_chunk, float scan_scale,
+                               float tri_scale, float guard, int rounds,
+                               int* best_out, int* binst_out, int* key_out,
+                               cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (m_tbl < 1 || m_tbl > m_pad || inst_chunk < 1 ||
+      ic_cols < (m_tbl + inst_chunk - 1) / inst_chunk ||
+      !tri_chunks_ok(f_pad, tb_cols, tri_chunk)) {
+    return cudaErrorInvalidValue;
   }
+  const int tile_chunks = max(1, kSphereTile / inst_chunk);
+  const size_t smem =
+      sizeof(float4) * ((size_t)tile_chunks * (inst_chunk + 1) +
+                        3 * kFaceTile + 3 * kFaceTile / tri_chunk);
+  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  cand_fused<<<grid_for(n), kThreads, smem, stream>>>(
+      rays, n, reinterpret_cast<const float4*>(bscan), bs_pos_bits, inst_tbl,
+      m_tbl, inst_bounds, ic_cols, inst_chunk, tile_chunks, tri_tbl, f_pad,
+      pos_bits, tri_bounds, tb_cols, tri_chunk, scan_scale, tri_scale, guard,
+      rounds, best_out, binst_out, key_out);
   return (int)cudaGetLastError();
 }

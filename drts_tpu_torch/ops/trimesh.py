@@ -63,12 +63,16 @@ class TriMesh:
     e1: torch.Tensor         # (F, 3) v1 - v0
     e2: torch.Tensor         # (F, 3) v2 - v0
     bound_radius: torch.Tensor  # scalar: mesh-space bounding radius
-    # BLAS table (built once per mesh): padded Morton-ordered triangle
-    # rows. The reference's per-chunk bounds and cones (tri_bounds,
-    # n_chunks, convex, local_radius) feed only its triangle-chunk culls,
-    # which no kernel here has; they come with the first kernel that
-    # reads them.
+    # BLAS tables (built once per mesh): padded Morton-ordered triangle
+    # rows, and per run of tri_chunk rows a covering sphere and a guard
+    # cone, by which B8 and B10 cull per lane (trimesh_kernels.
+    # tri_chunk_bounds). The reference's tri_bounds has 8 rows: 0-3 the
+    # same spheres (at its own chunk), 4-7 normal cones for its convex
+    # back-face cull, which the port does not have; its n_chunks, convex
+    # and local_radius feed only its own culls.
     tri_tbl: torch.Tensor = None     # (F_pad, 9) [v0 e1 e2]
+    tri_bounds: torch.Tensor = None  # (10, C_pad) [cx cy cz r wx wy wz c s h]
+    tri_chunk: int = tk.TRI_CHUNK
     # Radius of the largest origin-centred ball that lies inside the mesh
     # (0 for an open mesh or an origin outside): it licenses the bounds
     # pre-pass's tmax clamp.
@@ -145,9 +149,9 @@ def _inscribed_radius(v0, e1, e2, faces) -> float:
 
 def make_mesh(positions, normals, uvs, faces, tangents=None,
               vertex_motion=None, device="cuda") -> TriMesh:
-    """Build a TriMesh from numpy arrays: per-face corners, the BLAS table
-    (trimesh_kernels.build_mesh_tables), the inscribed radius, all in
-    Morton face order."""
+    """Build a TriMesh from numpy arrays: per-face corners, the BLAS tables
+    (trimesh_kernels.build_mesh_tables at TRI_CHUNK), the inscribed
+    radius, all in Morton face order."""
     device = backend.device(device)
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
@@ -159,7 +163,8 @@ def make_mesh(positions, normals, uvs, faces, tangents=None,
     v0 = positions[faces[:, 0]]
     e1 = positions[faces[:, 1]] - v0
     e2 = positions[faces[:, 2]] - v0
-    order, tri_tbl = tk.build_mesh_tables(v0, e1, e2)
+    order, tri_tbl, tri_bounds = tk.build_mesh_tables(v0, e1, e2,
+                                                      tk.TRI_CHUNK)
     r_ins = _inscribed_radius(v0, e1, e2, faces)
     lengths = np.sqrt((positions * positions).sum(-1))
 
@@ -172,7 +177,8 @@ def make_mesh(positions, normals, uvs, faces, tangents=None,
         faces=tensor(faces[order].astype(np.int64)),
         v0=tensor(v0[order]), e1=tensor(e1[order]), e2=tensor(e2[order]),
         bound_radius=torch.tensor(lengths.max(), device=device),
-        tri_tbl=tensor(tri_tbl), inscribed_radius=r_ins,
+        tri_tbl=tensor(tri_tbl), tri_bounds=tensor(tri_bounds),
+        tri_chunk=tk.TRI_CHUNK, inscribed_radius=r_ins,
         vertex_motion=(None if vertex_motion is None
                        else tensor(np.asarray(vertex_motion, np.float32))))
 
@@ -329,10 +335,14 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
         origin, direction, t_min, t_max, mesh, inst_position, inst_rotation,
         inst_scale)
     if mode and rounds > 0:
-        cand = (tk.intersect_mesh_instances_cand_fused if mode == 2
-                else tk.intersect_mesh_instances_cand)
-        t_p, face_p, inst_p = cand(rays, inst_tbl, inst_bounds, mesh.tri_tbl,
-                                   n_ic, rounds=rounds, block=block_size)
+        if mode == 2:
+            t_p, face_p, inst_p = tk.intersect_mesh_instances_cand_fused(
+                rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+                mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
+        else:
+            t_p, face_p, inst_p = tk.intersect_mesh_instances_cand(
+                rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
+                rounds=rounds, block=block_size)
     else:
         t_p, face_p, inst_p = tk.intersect_mesh_instances(
             rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
@@ -384,8 +394,8 @@ def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
         inst_scale)
     if mode and rounds > 0:
         occ = tk.intersect_mesh_instances_any_cand(
-            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic, rounds=rounds,
-            block=block_size)
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+            mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
     else:
         occ = tk.intersect_mesh_instances_any(
             rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,

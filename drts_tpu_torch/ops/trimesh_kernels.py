@@ -35,20 +35,27 @@ candidate row and keeps its best in a register; a pair costs ~25 (B5) or
 ~50 (B6, B7) separately rounded float32 operations against 32-48 bytes per
 ray, so all of them are bound by the instruction rate, not by memory. Culls
 kept: a dead lane (tmax < tmin) does no work and a block of dead lanes
-leaves before it reads a table (B5, B6, B8); B5 tests each ray against the
-instance chunks' covering spheres, with a segment that ends at its best
-key so far (B1's half-line cull, ``intersect_kernels.segment_misses``),
-sweeps only the rows of the chunks it meets and takes no root where the
-discriminant is negative (``bound_scan_walk`` repeats its walk and
-``bound_scan_work`` counts it); B7 and B9 test each ray against the
+leaves before it reads a table (B5, B6, B8, B10); B5 and B10's scan test
+each ray against the instance chunks' covering spheres, with a segment
+that ends at its best key so far (B1's half-line cull,
+``intersect_kernels.segment_misses``), sweep only the rows of the chunks
+they meet and take no root where the discriminant is negative
+(``bound_scan_walk`` repeats the walk and ``bound_scan_work`` counts it);
+B8 and B10's sweep test the ray, in the candidate's object frame, against
+the covering spheres of the triangle table's chunks (``tri_bounds``, runs
+of ``chunk`` Morton-ordered rows), and in a chunk the segment misses they
+skip each face that the ray does not graze (``face_guards``;
+csrc/trimesh.cu states why a skip is exact against Moeller-Trumbore);
+``tri_sweep_walk`` repeats that sweep, ``shared_blas_any_walk`` and
+``cand_fused_walk`` the two kernels, and ``shared_blas_any_work`` and
+``cand_fused_work`` count them; B7 and B9 test each ray against the
 instance chunks' covering spheres and the instances' bounding spheres,
 with the ray's running best (B7) or its own tmax (B9) as the far limit,
-and sweep only what passes. The reference's triangle-chunk culls
-(chunk bounding spheres, normal cones, the convex back-face cull) are left
-out together with their tables: every sweep visits all faces. B10 also
-leaves out the reference's front-to-back chunk order (MESH_F2B), which
-changes no result either: a packed min does not depend on the order of
-the visits.
+and sweep only what passes. B6, B7 and B9 visit every face of an
+instance they sweep. Left out, none of which changes a result: the
+reference's normal-cone and convex back-face culls, B10's bundle cone,
+its far-chunk cut (farc) and its front-to-back chunk order (MESH_F2B): a
+packed min does not depend on the order of the visits.
 
 Ray directions are unit vectors on this path (B5, the bounds pre-pass and
 the sphere tests of B7 and B9 take the quadratic's leading coefficient as
@@ -73,6 +80,23 @@ from . import intersect_kernels
 from .intersect_kernels import INF_BITS, _blocks, _check, pos_bits
 
 TRI_PAD = 64          # the triangle table is padded to a multiple of this
+# Faces per chunk of the triangle table, one covering sphere and guard cone
+# each (tri_bounds): the chunk size the kernels use, chosen by timing 8,
+# 16, 32 and 64 on the card (chip_smoke.py phases 10 and 12; PERF.md).
+TRI_CHUNK = 8
+# The triangle-chunk cull of B8 and B10 (csrc/trimesh.cu derives both):
+# a lane skips a face of a chunk whose covering sphere its object-space
+# segment misses by more than the margin of TRI_CULL_SCALE, unless the ray
+# grazes the face (|d . A| < TRI_GUARD, face_guards). Moeller-Trumbore's
+# accepted t puts the ray within 1816 u S of the face at TRI_GUARD = 2^-6
+# (u = 2^-24, S = |o|_1 + |C|_1 + R + |t|); 2^-13 = 2048 u S also covers
+# the covering radius's rounding and the cull test's own. Setting either
+# to 0 loses hits (tests/test_torch_tri_culls.py).
+TRI_CULL_SCALE = 2.0 ** -13
+TRI_GUARD = 2.0 ** -6
+# Rows of tri_bounds: [cx cy cz r] the covering sphere, [wx wy wz c s h]
+# the guard cone (tri_chunk_bounds).
+TRI_BOUND_ROWS = 10
 INST_CHUNK = 16       # instances per TLAS chunk
 BSCAN_CHUNK = 128     # the bound-scan table is padded to a multiple of this
 CAND_ROUNDS = 3       # candidate rounds before the serial backstop
@@ -87,10 +111,115 @@ BOUND_PAD = 1e-5
 # Tables
 
 
-def build_mesh_tables(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
+def check_tri_chunk(chunk: int) -> int:
+    """A triangle chunk size: a positive multiple of 8 that divides
+    TRI_PAD, else ValueError."""
+    if (not isinstance(chunk, (int, np.integer)) or chunk <= 0
+            or chunk % 8 or TRI_PAD % chunk):
+        raise ValueError(f"triangle chunk {chunk!r} is not a positive "
+                         f"multiple of 8 that divides {TRI_PAD}")
+    return int(chunk)
+
+
+def _chunk_cone(rows: np.ndarray):
+    """One chunk's guard cone (w (3,) float32, c, s, h as float64): for
+    every ray direction d with |d.d - 1| <= 2^-8, each face's G = |d . A|
+    / |d| (A = e1 x e2 / (|e1| |e2|), exact from the float32 rows) is at
+    least c |d . w| - s sqrt(d.d - (d . w)^2), and a lane that computes
+    that in float32 and subtracts h stays below it. A face with e1 = 0 or
+    e2 = 0 is left out (Moeller-Trumbore's u or v is NaN there); a chunk
+    of such faces only gets c = s = 0, h = -1 (every face skipped); any
+    other face with |e1| |e2| < 2^-64 or a non-finite row gives no cone
+    (c = s = 0, h = 1).
+
+    Derivation: with n_f = A_f / q_f (q_f = |A_f|) at angle t_f from the
+    axis w / |w| (two-sided: |n_f . w| = |w| cos t_f), |d . n_f| >=
+    cos t_f |d . w| / |w| - sin t_f sqrt(|d|^2 - (d . w)^2 / |w|^2), so
+    G_f >= q (cos t |d . w| - sin t sqrt(|d|^2 |w|^2 - (d . w)^2)) /
+    (|d| |w|) with q = min q_f, cos t = min cos t_f (sin t the largest
+    sin t_f); c and s are q cos t
+    and q sin t over 1.0021 >= |d| |w| (where the bracket is positive,
+    which a skip needs). h covers the lane's float32: the sqrt of a value
+    off by <= 12u (the rounding of d . w, d.d and the difference) and by
+    |w|^2 - 1 (<= 3.7u), off by <= sqrt(12u) + sqrt(3.7u) < 1.33e-3, and
+    <= 8u for the rest."""
+    e1 = rows[:, 3:6].astype(np.float64)
+    e2 = rows[:, 6:9].astype(np.float64)
+    none = (np.zeros(3, np.float32), 0.0, 0.0, 1.0)
+    if not (np.isfinite(e1).all() and np.isfinite(e2).all()):
+        return none
+    den = np.linalg.norm(e1, axis=1) * np.linalg.norm(e2, axis=1)
+    if ((den > 0) & (den < 2.0 ** -64)).any():
+        return none
+    if not (den > 0).any():
+        return np.zeros(3, np.float32), 0.0, 0.0, -1.0
+    a = np.cross(e1[den > 0], e2[den > 0]) / den[den > 0, None]
+    q = np.linalg.norm(a, axis=1)
+    if not (q > 0).all():
+        return none
+    n = a / q[:, None]
+    m = (np.where(n @ n[0] < 0, -1.0, 1.0)[:, None] * n).sum(0)
+    if np.linalg.norm(m) < 1e-6:
+        return none
+    w = (m / np.linalg.norm(m)).astype(np.float32)
+    w64 = w.astype(np.float64)
+    cos_t = (np.abs(n @ w64) / np.linalg.norm(w64)).min()
+    sin_t = np.sqrt(max(0.0, 1.0 - cos_t * cos_t))
+    s = q.min() * sin_t / 1.0021
+    return w, q.min() * cos_t / 1.0021, s, s * 1.33e-3 + 8 * 2.0 ** -24
+
+
+def _f32(x: float, up: bool) -> np.float32:
+    """x rounded to float32 upwards (up) or downwards."""
+    y = np.float32(x)
+    if up and y < x:
+        return np.nextafter(y, np.float32(np.inf))
+    if not up and y > x:
+        return np.nextafter(y, np.float32(-np.inf))
+    return y
+
+
+def tri_chunk_bounds(tbl: np.ndarray, chunk: int) -> np.ndarray:
+    """(TRI_BOUND_ROWS, C_pad) float32, one column per run of `chunk` rows
+    of the triangle table (F_pad, 9), C_pad the chunk count rounded up to 8
+    (zero columns beyond). Rows 0-3 [cx cy cz r]: the covering sphere, the
+    padding rows' corners included, by the reference's formula
+    (trimesh_pallas.build_mesh_tables, rows 0-3): the mean of the chunk's 3
+    x chunk corners and the largest distance to it plus 1e-5. Rows 4-9 [wx
+    wy wz c s h]: the guard cone (_chunk_cone; c rounded down, s and h
+    up): a lane whose c |d . w| - s sqrt(d.d - (d . w)^2) - h reaches
+    TRI_GUARD skips the chunk's guard tests (the reference's rows 4-7 are
+    another cone, for its back-face cull)."""
+    chunk = check_tri_chunk(chunk)
+    f_pad = tbl.shape[0]
+    if f_pad % chunk:
+        raise ValueError(f"{f_pad} triangle rows are not whole chunks of "
+                         f"{chunk}")
+    n_chunks = f_pad // chunk
+    bounds = np.zeros((TRI_BOUND_ROWS, -(-n_chunks // 8) * 8), np.float32)
+    for c in range(n_chunks):
+        rows = tbl[c * chunk:(c + 1) * chunk]
+        pts = np.concatenate([rows[:, 0:3],
+                              rows[:, 0:3] + rows[:, 3:6],
+                              rows[:, 0:3] + rows[:, 6:9]])
+        ctr = pts.mean(axis=0)
+        bounds[0:3, c] = ctr
+        bounds[3, c] = np.sqrt(((pts - ctr) ** 2).sum(-1)).max() + 1e-5
+        w, cos_q, sin_q, slack = _chunk_cone(rows)
+        bounds[4:7, c] = w
+        bounds[7:10, c] = (_f32(cos_q, False), _f32(sin_q, True),
+                           _f32(slack, True))
+    return bounds
+
+
+def build_mesh_tables(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray,
+                      chunk: int):
     """Host-side BLAS build (numpy, once per mesh): Morton-order the faces
     by centroid and pad to a multiple of TRI_PAD with all-zero rows, which
-    never hit. Returns (order (F,), tri_tbl (F_pad, 9) [v0 e1 e2])."""
+    never hit. Returns (order (F,), tri_tbl (F_pad, 9) [v0 e1 e2],
+    tri_bounds (TRI_BOUND_ROWS, C_pad) from tri_chunk_bounds(tri_tbl,
+    chunk))."""
+    chunk = check_tri_chunk(chunk)
     f = v0.shape[0]
     cent = v0 + (e1 + e2) / 3.0
     lo = cent.min(axis=0)
@@ -103,7 +232,7 @@ def build_mesh_tables(v0: np.ndarray, e1: np.ndarray, e2: np.ndarray):
     tbl[:f, 0:3] = v0[order]
     tbl[:f, 3:6] = e1[order]
     tbl[:f, 6:9] = e2[order]
-    return order, tbl
+    return order, tbl, tri_chunk_bounds(tbl, chunk)
 
 
 def _spread_bits(v):
@@ -243,41 +372,167 @@ def _conj_rotate(qx, qy, qz, qw, vx, vy, vz):
     return rx, ry, rz
 
 
-def _sweep_packed(ol, dl, tmn, tmx, tri_tbl, trunc, block):
+def _mt_pairs(ol, dl, tmn, tmx, rows, trunc, pos):
     """Two-sided Moeller-Trumbore of L rays (ol, dl: three (L,) tensors
-    each; tmn, tmx (L,)) against every row of tri_tbl. Returns (L,) int32:
-    the least packed (t bits & trunc | face row) over the rows hit in
-    [tmn, tmx], INF_BITS where none. 1 / det is +-inf on a degenerate or
-    padded row, whose NaN or inf u, v, t fail the compares."""
+    each; tmn, tmx (L,)) against the triangle rows (R, 9) at table
+    positions pos (R,) int32. Returns (L, R) int32: the packed (t bits &
+    trunc | pos) where the hit lies in [tmn, tmx], INF_BITS elsewhere.
+    1 / det is +-inf on a degenerate or padded row, whose NaN or inf u, v,
+    t fail the compares."""
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (c[None, :]
+                                                    for c in rows.T)
+    olx, oly, olz = (x[:, None] for x in ol)
+    dlx, dly, dlz = (x[:, None] for x in dl)
+    pvx = dly * e2z - dlz * e2y
+    pvy = dlz * e2x - dlx * e2z
+    pvz = dlx * e2y - dly * e2x
+    det = pvx * e1x + pvy * e1y + pvz * e1z
+    inv = 1.0 / det
+    tvx = olx - v0x
+    tvy = oly - v0y
+    tvz = olz - v0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dlx * qvx + dly * qvy + dlz * qvz) * inv
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
+    ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (t >= tmn[:, None]) & (t <= tmx[:, None]))
+    return torch.where(ok, (t.view(torch.int32) & trunc) | pos[None, :],
+                       INF_BITS)
+
+
+def _sweep_packed(ol, dl, tmn, tmx, tri_tbl, trunc, block):
+    """_mt_pairs over every row of tri_tbl, in blocks of lanes. Returns
+    (L,) int32: the least packed word, INF_BITS where no row is hit."""
     n, f_pad = ol[0].shape[0], tri_tbl.shape[0]
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        c[None, :] for c in tri_tbl.T)
-    pos = torch.arange(f_pad, dtype=torch.int32,
-                       device=tri_tbl.device)[None, :]
+    pos = torch.arange(f_pad, dtype=torch.int32, device=tri_tbl.device)
     out = torch.empty(n, dtype=torch.int32, device=tri_tbl.device)
     starts, step = _blocks(n, f_pad, block)
     for s in starts:
-        olx, oly, olz = (x[s:s + step, None] for x in ol)
-        dlx, dly, dlz = (x[s:s + step, None] for x in dl)
-        pvx = dly * e2z - dlz * e2y
-        pvy = dlz * e2x - dlx * e2z
-        pvz = dlx * e2y - dly * e2x
-        det = pvx * e1x + pvy * e1y + pvz * e1z
-        inv = 1.0 / det
-        tvx = olx - v0x
-        tvy = oly - v0y
-        tvz = olz - v0z
-        u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv
-        qvx = tvy * e1z - tvz * e1y
-        qvy = tvz * e1x - tvx * e1z
-        qvz = tvx * e1y - tvy * e1x
-        v = (dlx * qvx + dly * qvy + dlz * qvz) * inv
-        t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv
-        ok = ((u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-              & (t >= tmn[s:s + step, None]) & (t <= tmx[s:s + step, None]))
-        ti = (t.view(torch.int32) & trunc) | pos
-        out[s:s + step] = torch.where(ok, ti, INF_BITS).amin(dim=1)
+        out[s:s + step] = _mt_pairs(
+            tuple(x[s:s + step] for x in ol), tuple(x[s:s + step] for x in dl),
+            tmn[s:s + step], tmx[s:s + step], tri_tbl, trunc, pos).amin(1)
     return out
+
+
+def face_guards(tri_tbl):
+    """(F_pad, 3) float32 A = (e1 x e2) / (|e1| |e2|) per face, in the
+    operations and order the kernels use when they stage a face; A = 0
+    where |e1| |e2| < 2^-64 (a degenerate or padding row, never skipped).
+    |d . A| / |d| is |cos| of the angle between the ray and the face's
+    normal times the sine of the face's angle at v0: csrc/trimesh.cu's
+    guard against rays that graze a face."""
+    e1x, e1y, e1z, e2x, e2y, e2z = tri_tbl[:, 3:9].T
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
+    den = (torch.sqrt(e1x * e1x + e1y * e1y + e1z * e1z)
+           * torch.sqrt(e2x * e2x + e2y * e2y + e2z * e2z))
+    inv = torch.where(den >= 2.0 ** -64, 1.0 / den, 0.0)
+    return torch.stack([nx * inv, ny * inv, nz * inv], dim=1)
+
+
+def tri_segment_cull(rl):
+    """The per-lane terms of the triangle-chunk cull, in the kernels'
+    operations and order: (inv_dd, m_o, slope), each (L,), as
+    intersect_kernels.segment_cull at TRI_CULL_SCALE but with the slope
+    1.125 TRI_CULL_SCALE (+inf outside |d.d - 1| <= 2^-8): a triangle's t
+    assumes no unit direction, so the quadratic's sqrt(|d.d - 1|) term
+    does not arise."""
+    ox, oy, oz, dx, dy, dz = rl[:6]
+    dd = dx * dx + dy * dy + dz * dz
+    o1 = ox.abs() + oy.abs() + oz.abs()
+    dev = (dd - 1.0).abs()
+    slope = torch.where(dev <= 2.0 ** -8, 1.125 * TRI_CULL_SCALE,
+                        float("inf"))
+    return 1.0 / dd, TRI_CULL_SCALE * o1, slope
+
+
+def tri_cull_spheres(tri_bounds):
+    """(4, C_pad) triangle-chunk spheres as the cull reads them (rows 0-3
+    of tri_bounds): centre and R + TRI_CULL_SCALE (|C|_1 + R)."""
+    bx, by, bz, br = tri_bounds[:4]
+    return torch.stack([bx, by, bz, br + TRI_CULL_SCALE * (
+        bx.abs() + by.abs() + bz.abs() + br)])
+
+
+def _check_tri_bounds(tri_bounds, chunk, f_pad, device):
+    """tri_bounds (TRI_BOUND_ROWS, >= F_pad / chunk) float32 for a valid
+    chunk size."""
+    chunk = check_tri_chunk(chunk)
+    _check_table("tri_bounds", tri_bounds, TRI_BOUND_ROWS, device)
+    if f_pad % chunk or tri_bounds.shape[1] < f_pad // chunk:
+        raise ValueError(f"tri_bounds {tuple(tri_bounds.shape)} does not "
+                         f"hold the chunks of {f_pad} rows at {chunk}")
+    return chunk
+
+
+def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
+                   any_hit: bool = False):
+    """The face sweep of B8 and B10, lane by lane in the kernels'
+    operations and order. rl (8, L): live lanes' rays in their candidate's
+    object frame [ol dl tmn tmx]. The chunks go in table order; a chunk's
+    covering sphere (a column of tri_bounds) is tested against the
+    segment [tmn, t_end] with B1's half-line cull (t_end = tmx, or for the
+    closest hit min(tmx, top(best)) once the lane holds a hit); every face
+    of a chunk the lane meets is swept; of a chunk it misses, none where
+    the chunk's guard cone gives c |dl . w| - s sqrt(dl.dl - (dl . w)^2) -
+    h >= TRI_GUARD (rows 4-9 of tri_bounds), else the faces with |dl . A|
+    < TRI_GUARD (face_guards). The any-hit sweep leaves at its first
+    blocking face. Returns (res (L,) int32: the least packed word, or for
+    any_hit the first blocking row; INF_BITS where none; met (L, C) bool:
+    the chunks met among those tested; work (L, 5) int64: chunks tested,
+    chunks met, cones tested, faces guard-tested, faces swept)."""
+    n, f_pad = rl.shape[1], tri_tbl.shape[0]
+    n_chunks = f_pad // chunk
+    dev = rl.device
+    ol, dl, tmn, tmx = tuple(rl[0:3]), tuple(rl[3:6]), rl[6], rl[7]
+    cull = tri_segment_cull(rl)
+    spheres = tri_cull_spheres(tri_bounds)
+    guards = face_guards(tri_tbl)
+    dd = dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2]
+    pos = torch.arange(f_pad, dtype=torch.int32, device=dev)
+    res = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
+    walking = torch.ones(n, dtype=torch.bool, device=dev)
+    met = torch.zeros((n, n_chunks), dtype=torch.bool, device=dev)
+    work = torch.zeros((n, 5), dtype=torch.int64, device=dev)
+    upto = torch.arange(chunk, device=dev)
+    for k in range(n_chunks):
+        lo, hi = k * chunk, (k + 1) * chunk
+        t_end = tmx if any_hit else intersect_kernels.segment_end(tmx, res,
+                                                                  trunc)
+        met[:, k] = walking & ~intersect_kernels.segment_misses(
+            rl, cull, spheres[:, k], t_end)
+        wx, wy, wz, cos_q, sin_q, slack = tri_bounds[4:10, k]
+        x = dl[0] * wx + dl[1] * wy + dl[2] * wz
+        low = (cos_q * x.abs() - sin_q * torch.sqrt(torch.clamp(
+            dd - x * x, min=0.0))) - slack
+        coned = ~met[:, k] & (low >= TRI_GUARD)
+        ax, ay, az = guards[lo:hi].T
+        g = (dl[0][:, None] * ax + dl[1][:, None] * ay
+             + dl[2][:, None] * az).abs()
+        swept = (met[:, k, None] | ~(g >= TRI_GUARD)) & ~coned[:, None]
+        packed = torch.where(swept, _mt_pairs(ol, dl, tmn, tmx, tri_tbl[lo:hi],
+                                              trunc, pos[lo:hi]), INF_BITS)
+        visited = walking[:, None].expand(n, chunk)
+        if any_hit:
+            hit = packed < INF_BITS
+            first = torch.where(hit.any(1), hit.to(torch.uint8).argmax(1),
+                                chunk)
+            visited = visited & (upto[None, :] <= first[:, None])
+            res = torch.where(walking & hit.any(1), lo + first, res)
+        else:
+            res = torch.minimum(res, packed.amin(1))
+        work[:, 0] += walking
+        work[:, 1] += met[:, k]
+        work[:, 2] += walking & ~met[:, k]
+        work[:, 3] += (visited & ~(met[:, k] | coned)[:, None]).sum(1)
+        work[:, 4] += (visited & swept).sum(1)
+        if any_hit:
+            walking = walking & (res == INF_BITS)
+    return res.to(torch.int32), met, work
 
 
 def _to_object(rays, row):
@@ -483,6 +738,54 @@ def shared_blas_sweep_plain(rays, cand, best, binst, inst_tbl, tri_tbl,
     return best_out, binst_out
 
 
+def _culled_sweep(rays, idx, cand, best, binst, tmax_eff, inst_tbl,
+                  tri_tbl, tri_bounds, chunk: int):
+    """B6's fold with the culled sweep (tri_sweep_walk, closest hit) of the
+    lanes idx on [tmin, tmax_eff] in their candidate's frame: the packed
+    object best rescaled to world units replaces the lane's best where
+    smaller, as shared_blas_sweep_plain folds. Returns (best, binst) for
+    all lanes, and the walk's met and work for the lanes idx."""
+    trunc = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
+    k = cand[idx]
+    ol, dl, inv_s = _to_object(rays[:, idx], inst_tbl[:, k.long()])
+    rl = torch.stack([*ol, *dl, rays[6, idx] * inv_s, tmax_eff[idx] * inv_s])
+    best_obj, met, work = tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk,
+                                         trunc)
+    t_w = (best_obj & trunc).view(torch.float32) * (1.0 / inv_s)
+    packed_w = (t_w.view(torch.int32) & trunc) | (best_obj & ~trunc)
+    better = (best_obj < INF_BITS) & (packed_w < best[idx])
+    best, binst = best.clone(), binst.clone()
+    best[idx] = torch.where(better, packed_w, best[idx])
+    binst[idx] = torch.where(better, k.to(torch.int32), binst[idx])
+    return best, binst, met, work
+
+
+def shared_blas_sweep_work(rays, cand, best, binst, inst_tbl, tri_tbl,
+                           tri_bounds, chunk: int, block: int = 65536):
+    """What B6's sweep would need with B8's triangle-chunk culls
+    (_culled_sweep, in blocks of lanes); B6's kernel itself sweeps every
+    face. Returns ((best, binst) folded from the culled walk, which must
+    equal shared_blas_sweep_plain's, a dict of sums: live, tests, met,
+    cones, guards, rows)."""
+    f_pad, m_tbl = tri_tbl.shape[0], inst_tbl.shape[1]
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
+    trunc = ~((1 << pos_bits(f_pad)) - 1)
+    names = ("tests", "met", "cones", "guards", "rows")
+    out = dict.fromkeys(("live", *names), 0)
+    tmax_eff = torch.minimum(rays[7], (best & trunc).view(torch.float32))
+    live = (tmax_eff >= rays[6]) & (cand >= 0) & (cand < m_tbl)
+    idx_all = torch.nonzero(live)[:, 0]
+    for s in range(0, idx_all.numel(), block):
+        idx = idx_all[s:s + block]
+        best, binst, _, work = _culled_sweep(rays, idx, cand, best, binst,
+                                             tmax_eff, inst_tbl, tri_tbl,
+                                             tri_bounds, chunk)
+        out["live"] += idx.numel()
+        for j, name in enumerate(names):
+            out[name] += int(work[:, j].sum())
+    return (best, binst), out
+
+
 def shared_blas_sweep(rays, cand, best, binst, inst_tbl, tri_tbl,
                       block: int = 16384):
     """B6; see shared_blas_sweep_plain for the contract. A CUDA tensor
@@ -636,6 +939,7 @@ def intersect_mesh_instances(rays, inst_tbl, inst_bounds, tri_tbl,
 
 
 def shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
+                          tri_bounds=None, chunk: int = None,
                           block: int = 16384, work: dict = None):
     """Plain PyTorch B8. rays (8, N); cand (N,) int32 table position of the
     ray's candidate instance (outside [0, M) = none); occ_in (N,) int32
@@ -646,9 +950,11 @@ def shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
     in the candidate's object frame with the direction rotated but not
     scaled, so tmin and tmax are scaled into object units; it returns 1
     where some triangle's hit lies in that range. Returns occ (N,) int32.
-    `work`, when given, receives the counts of this call: live lanes and
-    tri_tests, the (ray, triangle) pairs up to each lane's first blocking
-    row (all rows where none blocks)."""
+    ``tri_bounds`` and ``chunk`` are ignored: the kernel's culls do not
+    change the result, which this computes from every face. `work`, when
+    given, receives the counts of this call: live lanes and tri_tests, the
+    (ray, triangle) pairs up to each lane's first blocking row (all rows
+    where none blocks) of this unculled sweep."""
     f_pad, m_tbl = tri_tbl.shape[0], inst_tbl.shape[1]
     tmin, tmax = rays[6], rays[7]
     live = (tmax >= tmin) & (cand >= 0) & (cand < m_tbl) & (occ_in == 0)
@@ -670,25 +976,108 @@ def shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
     return occ
 
 
-def shared_blas_any(rays, cand, occ_in, inst_tbl, tri_tbl,
-                    block: int = 16384):
-    """B8; see shared_blas_any_plain for the contract. A CUDA tensor
-    launches drts_shared_blas_any (csrc/trimesh.cu)."""
+def _anyhit_lanes(rays, cand, occ_in, inst_tbl):
+    """B8's live lanes (N,) bool and their rays in the candidate's object
+    frame (8, L) [ol dl tmin/s tmax/s]."""
+    m_tbl = inst_tbl.shape[1]
+    live = ((rays[7] >= rays[6]) & (cand >= 0) & (cand < m_tbl)
+            & (occ_in == 0))
+    idx = torch.nonzero(live)[:, 0]
+    ol, dl, inv_s = _to_object(rays[:, idx], inst_tbl[:, cand[idx].long()])
+    return live, torch.stack([*ol, *dl, rays[6, idx] * inv_s,
+                              rays[7, idx] * inv_s])
+
+
+def shared_blas_any_walk(rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds,
+                         chunk: int):
+    """B8's kernel walk (tri_sweep_walk, any hit) lane by lane. Returns (occ
+    (N,) int32, met (N, C) bool: the triangle chunks each lane met, work
+    (N, 5) int64: chunks tested, chunks met, cones tested, faces
+    guard-tested, faces swept; zero on the lanes that do not sweep)."""
+    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
+    live, rl = _anyhit_lanes(rays, cand, occ_in, inst_tbl)
+    first, met_l, work_l = tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk, 0,
+                                          any_hit=True)
+    occ = occ_in.clone()
+    occ[live] = (first < INF_BITS).to(torch.int32)
+    met = torch.zeros((n, f_pad // chunk), dtype=torch.bool,
+                      device=rays.device)
+    met[live] = met_l
+    work = torch.zeros((n, 5), dtype=torch.int64, device=rays.device)
+    work[live] = work_l
+    return occ, met, work
+
+
+def warp_sum(met):
+    """Chunks that some lane of a warp (32 consecutive lanes) meets, summed
+    over the warps: a warp sweeps a chunk while any of its lanes meets it.
+    met (N, C) bool."""
+    n = met.shape[0]
+    pad = torch.zeros((-n % 32, met.shape[1]), dtype=torch.bool,
+                      device=met.device)
+    return int(torch.cat([met, pad]).reshape(-1, 32, met.shape[1])
+               .any(1).sum())
+
+
+def shared_blas_any_work(rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds,
+                         chunk: int, block: int = 65536):
+    """The work B8's kernel needs on these rays (shared_blas_any_walk, in
+    blocks of lanes). Returns (the walk's occ (N,), a dict of sums over
+    the lanes: live (lanes that sweep), tests (chunks tested), met (chunks
+    met), cones (cones tested), guards (faces guard-tested), rows (faces
+    swept), warp_met (chunks met per warp, see warp_sum), warps (warps
+    with a live lane), and faces (the faces an unculled sweep visits: up
+    to the first blocking row, all where none blocks, as
+    shared_blas_any_plain counts them))."""
+    names = ("tests", "met", "cones", "guards", "rows")
+    out = dict.fromkeys(("live", *names, "warp_met", "warps", "faces"), 0)
+    occ = torch.empty_like(occ_in)
+    block = max(32, block // 32 * 32)
+    for s in range(0, rays.shape[1], block):
+        e = slice(s, s + block)
+        args = (rays[:, e], cand[e], occ_in[e], inst_tbl)
+        occ[e], met, work = shared_blas_any_walk(*args, tri_tbl, tri_bounds,
+                                                 chunk)
+        live = _anyhit_lanes(*args)[0]
+        plain = {}
+        shared_blas_any_plain(*args, tri_tbl, work=plain)
+        out["faces"] += plain["tri_tests"]
+        out["live"] += int(live.sum())
+        for j, name in enumerate(names):
+            out[name] += int(work[:, j].sum())
+        out["warp_met"] += warp_sum(met)
+        out["warps"] += warp_sum(live[:, None])
+    return occ, out
+
+
+def shared_blas_any(rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds,
+                    chunk: int, block: int = 16384):
+    """B8; see shared_blas_any_plain for the contract. tri_bounds
+    (TRI_BOUND_ROWS, C_pad) holds the covering spheres and guard cones of
+    the triangle table's chunks of
+    `chunk` rows (tri_chunk_bounds); the kernel culls chunks and faces by
+    them per lane (tri_sweep_walk). A CUDA tensor launches
+    drts_shared_blas_any (csrc/trimesh.cu)."""
     _check_rays(rays)
     n = rays.shape[1]
     _check_words("cand", cand, n, rays.device)
     _check_words("occ_in", occ_in, n, rays.device)
     _check_table("inst_tbl", inst_tbl, 9, rays.device)
     _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    chunk = _check_tri_bounds(tri_bounds, chunk, tri_tbl.shape[0],
+                              rays.device)
     if rays.device.type == "cpu":
         return shared_blas_any_plain(rays, cand, occ_in, inst_tbl, tri_tbl,
-                                     block)
+                                     tri_bounds, chunk, block)
     lib = backend.kernels()
     occ = torch.empty_like(occ_in)
     rc = lib.drts_shared_blas_any(
         rays.data_ptr(), n, cand.data_ptr(), occ_in.data_ptr(),
         inst_tbl.data_ptr(), inst_tbl.shape[1], tri_tbl.data_ptr(),
-        tri_tbl.shape[0], occ.data_ptr(), backend.stream_handle(rays))
+        tri_tbl.shape[0], tri_bounds.data_ptr(), tri_bounds.shape[1], chunk,
+        TRI_CULL_SCALE, TRI_GUARD, occ.data_ptr(),
+        backend.stream_handle(rays))
     backend.check_launch(rc, "drts_shared_blas_any")
     backend.launched("shared_blas_any")
     return occ
@@ -860,8 +1249,9 @@ def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
 # B10: the candidate rounds fused into one launch
 
 
-def cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
-                     block: int = 16384, work: dict = None):
+def cand_fused_plain(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl,
+                     tri_bounds, chunk: int, rounds: int, block: int = 16384,
+                     work: dict = None):
     """Plain PyTorch B10. rays (8, N), tmin >= 0, unit directions;
     bscan_tbl (M_pad, 4) from make_bscan_table; inst_tbl (9, M); tri_tbl
     (F_pad, 9). Per lane: best, binst and the cursor start at INF_BITS, 0
@@ -873,9 +1263,12 @@ def cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
     its object frame and folds the world packed (t | face) into best and
     binst (B6's contract). Returns (best, binst, key), key from the last
     scan: the multi-launch loop's cand_loop, computed lane by lane as the
-    kernel does (the dead lanes, tmax < tmin, sweep nothing). `work`, when
-    given, receives the counts of this call: live lanes, scans (lane
-    scans made) and sweeps (lanes that swept an instance)."""
+    kernel does (the dead lanes, tmax < tmin, sweep nothing).
+    ``inst_bounds``, ``tri_bounds`` and ``chunk`` are ignored: the
+    kernel's culls do not change the result, which this computes from the
+    whole tables. `work`, when given, receives the counts of this call:
+    live lanes, scans (lane scans made) and sweeps (lanes that swept an
+    instance)."""
     m_tbl = inst_tbl.shape[1]
     pos_mask = (1 << pos_bits(bscan_tbl.shape[0])) - 1
     trunc_f = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
@@ -904,35 +1297,132 @@ def cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
     return best, binst, key
 
 
-def cand_fused(rays, bscan_tbl, inst_tbl, tri_tbl, rounds: int,
-               block: int = 16384):
-    """B10; see cand_fused_plain for the contract. A CUDA tensor launches
+def cand_fused_walk(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl,
+                    tri_bounds, chunk: int, rounds: int):
+    """B10's kernel walk, lane by lane in its operations and order: each
+    round's scan is B5's culled walk (bound_scan_walk) on [tmin,
+    tmax_eff] from the lane's cursor, and each sweep the culled face sweep
+    (tri_sweep_walk) of the candidate found. Returns ((best, binst, key)
+    as cand_fused_plain, work (N, 9) int64: the scan's chunks tested,
+    chunks met, rows swept and roots taken, then the sweep's chunks
+    tested, chunks met, cones tested, faces guard-tested and faces swept,
+    summed over the rounds, warp (2,) int: the scan's and the sweep's chunks met per
+    warp (warp_sum), summed over the rounds)."""
+    n, m_tbl, f_pad = rays.shape[1], inst_tbl.shape[1], tri_tbl.shape[0]
+    dev = rays.device
+    n_ic = _check_scan_bounds(inst_bounds, m_tbl, bscan_tbl.shape[0])
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, dev)
+    pos_mask = (1 << pos_bits(bscan_tbl.shape[0])) - 1
+    trunc_f = ~((1 << pos_bits(f_pad)) - 1)
+    scan_rows = torch.clamp(m_tbl - INST_CHUNK * torch.arange(
+        n_ic, device=dev), max=INST_CHUNK)
+    live0 = rays[7] >= rays[6]
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best = torch.full_like(cursor, INF_BITS)
+    binst = torch.zeros_like(cursor)
+    work = torch.zeros((n, 9), dtype=torch.int64, device=dev)
+    warp = [0, 0]
+    for it in range(rounds + 1):
+        tmx = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
+        scanning = live0 & (cursor < INF_BITS) & (tmx >= rays[6])
+        cur = rays.clone()
+        cur[7] = torch.where(scanning, tmx, float("-inf"))
+        met, key, roots = bound_scan_walk(cur, bscan_tbl, cursor,
+                                          inst_bounds, m_tbl)
+        work[:, 0] += torch.where(scanning, n_ic, 0)
+        work[:, 1] += met.sum(1)
+        work[:, 2] += met.mul(scan_rows).sum(1)
+        work[:, 3] += roots
+        warp[0] += warp_sum(met)
+        cursor = key
+        if it == rounds:
+            break
+        cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl)
+        idx = torch.nonzero(cand < m_tbl)[:, 0]
+        best, binst, met_l, work_l = _culled_sweep(
+            rays, idx, cand, best, binst, tmx, inst_tbl, tri_tbl, tri_bounds,
+            chunk)
+        work[idx, 4:] += work_l
+        met = torch.zeros((n, f_pad // chunk), dtype=torch.bool, device=dev)
+        met[idx] = met_l
+        warp[1] += warp_sum(met)
+    return (best, binst, key), work, warp
+
+
+def cand_fused_work(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl,
+                    tri_bounds, chunk: int, rounds: int, block: int = 65536):
+    """The work B10's kernel needs on these rays (cand_fused_walk, in
+    blocks of lanes). Returns (the walk's (best, binst, key), a dict of
+    sums over the lanes and rounds: scan_tests,
+    scan_met, scan_rows, scan_roots, tri_tests, tri_met, cones, guards,
+    faces (faces swept), scan_warp_met and tri_warp_met (chunks met per warp),
+    and warps (warps with a live lane))."""
+    names = ("scan_tests", "scan_met", "scan_rows", "scan_roots",
+             "tri_tests", "tri_met", "cones", "guards", "faces")
+    out = dict.fromkeys((*names, "scan_warp_met", "tri_warp_met", "warps"),
+                        0)
+    words = [torch.empty(rays.shape[1], dtype=torch.int32,
+                         device=rays.device) for _ in range(3)]
+    block = max(32, block // 32 * 32)
+    for s in range(0, rays.shape[1], block):
+        r = rays[:, s:s + block]
+        walked, work, warp = cand_fused_walk(r, bscan_tbl, inst_tbl,
+                                             inst_bounds, tri_tbl, tri_bounds,
+                                             chunk, rounds)
+        for w, x in zip(words, walked):
+            w[s:s + block] = x
+        for j, name in enumerate(names):
+            out[name] += int(work[:, j].sum())
+        out["scan_warp_met"] += warp[0]
+        out["tri_warp_met"] += warp[1]
+        out["warps"] += warp_sum((r[7] >= r[6])[:, None])
+    return tuple(words), out
+
+
+def cand_fused(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, tri_bounds,
+               chunk: int, rounds: int, block: int = 16384):
+    """B10; see cand_fused_plain for the contract. inst_bounds (4, IC_pad)
+    holds the covering spheres of the instance table's chunks
+    (make_inst_tables), by which each round's scan culls as B5 does;
+    tri_bounds (TRI_BOUND_ROWS, C_pad) those of the triangle table's
+    chunks of `chunk` rows (tri_chunk_bounds), by which each sweep culls
+    as B8 does
+    (cand_fused_walk repeats the kernel's walk). A CUDA tensor launches
     drts_cand_fused (csrc/trimesh.cu)."""
     _check_rays(rays)
     _check_table("bscan_tbl", bscan_tbl, 4, rays.device, rows_first=False)
     _check_table("inst_tbl", inst_tbl, 9, rays.device)
+    _check_table("inst_bounds", inst_bounds, 4, rays.device)
     _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    m_tbl, m_pad = inst_tbl.shape[1], bscan_tbl.shape[0]
+    _check_scan_bounds(inst_bounds, m_tbl, m_pad)
+    chunk = _check_tri_bounds(tri_bounds, chunk, tri_tbl.shape[0],
+                              rays.device)
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
     if rays.device.type == "cpu":
-        return cand_fused_plain(rays, bscan_tbl, inst_tbl, tri_tbl, rounds,
-                                block)
+        return cand_fused_plain(rays, bscan_tbl, inst_tbl, inst_bounds,
+                                tri_tbl, tri_bounds, chunk, rounds, block)
     lib = backend.kernels()
-    n, m_pad, f_pad = rays.shape[1], bscan_tbl.shape[0], tri_tbl.shape[0]
+    n, f_pad = rays.shape[1], tri_tbl.shape[0]
     best = torch.empty(n, dtype=torch.int32, device=rays.device)
     binst = torch.empty_like(best)
     key = torch.empty_like(best)
     rc = lib.drts_cand_fused(
         rays.data_ptr(), n, bscan_tbl.data_ptr(), m_pad, pos_bits(m_pad),
-        inst_tbl.data_ptr(), inst_tbl.shape[1], tri_tbl.data_ptr(), f_pad,
-        pos_bits(f_pad), rounds, best.data_ptr(), binst.data_ptr(),
-        key.data_ptr(), backend.stream_handle(rays))
+        inst_tbl.data_ptr(), m_tbl, inst_bounds.data_ptr(),
+        inst_bounds.shape[1], INST_CHUNK, tri_tbl.data_ptr(), f_pad,
+        pos_bits(f_pad), tri_bounds.data_ptr(), tri_bounds.shape[1], chunk,
+        intersect_kernels.CULL_SCALE, TRI_CULL_SCALE, TRI_GUARD, rounds,
+        best.data_ptr(), binst.data_ptr(), key.data_ptr(),
+        backend.stream_handle(rays))
     backend.check_launch(rc, "drts_cand_fused")
     backend.launched("cand_fused")
     return best, binst, key
 
 
 def intersect_mesh_instances_cand_fused(rays, inst_tbl, inst_bounds, tri_tbl,
+                                        tri_bounds, chunk: int,
                                         n_ichunks: int,
                                         rounds: int = CAND_ROUNDS,
                                         block: int = 16384):
@@ -942,13 +1432,14 @@ def intersect_mesh_instances_cand_fused(rays, inst_tbl, inst_bounds, tri_tbl,
     the candidates of the multi-launch loop in the same order, so both
     return the same words."""
     best, binst, key = cand_fused(rays, make_bscan_table(inst_tbl), inst_tbl,
-                                  tri_tbl, rounds, block)
+                                  inst_bounds, tri_tbl, tri_bounds, chunk,
+                                  rounds, block)
     return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
                      n_ichunks, block)
 
 
 def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
-                                      n_ichunks: int,
+                                      tri_bounds, chunk: int, n_ichunks: int,
                                       rounds: int = ANY_ROUNDS,
                                       block: int = 16384):
     """Candidate-iteration any hit: `rounds` times, B5 hands every ray its
@@ -976,7 +1467,8 @@ def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
         # m_tbl marks "no candidate": keys name real columns only.
         cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
             torch.int32)
-        occ = shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl, block)
+        occ = shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl, tri_bounds,
+                              chunk, block)
         cursor = key
         cur = without(occ > 0)
 

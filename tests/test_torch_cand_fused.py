@@ -83,8 +83,9 @@ def case():
 
 @pytest.mark.parametrize("rounds", [1, 3, 5])
 def test_fused_plain_equals_the_loop(case, rounds):
-    args = (case["rays"], case["bscan"], case["inst"], case["tmesh"].tri_tbl,
-            rounds)
+    tmesh = case["tmesh"]
+    args = (case["rays"], case["bscan"], case["inst"], case["bounds"],
+            tmesh.tri_tbl, tmesh.tri_bounds, tmesh.tri_chunk, rounds)
     fused = tk.cand_fused_plain(*args)
     loop = tk.cand_loop(case["rays"], case["bscan"], case["inst"],
                         case["bounds"], case["tmesh"].tri_tbl, rounds)
@@ -112,9 +113,10 @@ def test_fused_plain_matches_interpret(case):
         jt[0].shape[1], jt[3], jtp.INST_CHUNK, jmesh.n_chunks,
         jmesh.tri_tbl.shape[0] // jmesh.n_chunks, interpret=True,
         conv=bool(jmesh.convex), conv_r=float(jmesh.local_radius)))
+    tmesh = case["tmesh"]
     best, binst, key = (x.numpy() for x in tk.cand_fused_plain(
-        case["rays"], case["bscan"], case["inst"], case["tmesh"].tri_tbl,
-        rounds))
+        case["rays"], case["bscan"], case["inst"], case["bounds"],
+        tmesh.tri_tbl, tmesh.tri_bounds, tmesh.tri_chunk, rounds))
     mask = (1 << pos_bits(case["tmesh"].tri_tbl.shape[0])) - 1
     hit, j_hit = best < INF_BITS, j_best < INF_BITS
     assert (hit == j_hit).mean() > 0.999
@@ -192,4 +194,5 @@ def test_mode_switch(case, monkeypatch):
         ttrimesh.intersect_instances(*args)
     with pytest.raises(ValueError):
         tk.cand_fused(case["rays"], case["bscan"], case["inst"],
-                      case["tmesh"].tri_tbl, -1)
+                      case["bounds"], case["tmesh"].tri_tbl,
+                      case["tmesh"].tri_bounds, case["tmesh"].tri_chunk, -1)

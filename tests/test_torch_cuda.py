@@ -20,7 +20,12 @@ dead lanes only; B5's chunk culls with 1,000 instances (two tiles), tmax
 cull's margin from the wrapper and at 0; B11's skips with 1, 128 (every
 third row zeroed) and 700 spheres, rays that all miss and one live lane
 in a dead batch; the any-hit mesh kernels also with short ranges and with
-blocked bits already set, and B10 with 1 to 5 rounds. Run on a GPU
+blocked bits already set, and B10 with 1 to 5 rounds; the triangle-chunk
+culls of B8 and B10 at chunks 8, 32 and the kept one (600 instances, a
+2,048-face table, a dead batch, one live lane in it, the hand scene of
+tests/test_torch_tri_culls.py with grazing rays) against the walks and
+the plain versions, and with their margin and guard from the wrappers
+and at 0. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -646,6 +651,7 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
     rays[7] = torch.where((rays[7] > 0) & (torch.arange(n, device=dev) % 2
                                            == 0), short, rays[7])
     tri_tbl = mesh.tri_tbl
+    blas = (mesh.tri_bounds, mesh.tri_chunk)
     bscan = tk.make_bscan_table(inst_tbl)
     m_tbl = inst_tbl.shape[1]
     mask = (1 << ik.pos_bits(bscan.shape[0])) - 1
@@ -657,7 +663,7 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
         key = tk.bound_scan(cur, bscan, cursor, inst_bounds, m_tbl)
         cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
             torch.int32)
-        out = tk.shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl)
+        out = tk.shared_blas_any(cur, cand, occ, inst_tbl, tri_tbl, *blas)
         assert torch.equal(out, tk.shared_blas_any_plain(cur, cand, occ,
                                                          inst_tbl, tri_tbl))
         assert bool((out >= occ).all())
@@ -665,8 +671,8 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
         cur = rays.clone()
         cur[7] = torch.where(occ > 0, rays[6] - 1.0, rays[7])
     ones = torch.ones_like(occ)
-    assert torch.equal(tk.shared_blas_any(rays, cand, ones, inst_tbl, tri_tbl),
-                       ones)
+    assert torch.equal(tk.shared_blas_any(rays, cand, ones, inst_tbl, tri_tbl,
+                                          *blas), ones)
     for batch in (cur, rays):
         out = tk.intersect_mesh_instances_any(batch, inst_tbl, inst_bounds,
                                               tri_tbl, n_ic)
@@ -680,14 +686,14 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
     assert dead or bool((occ > 0).any())
 
     whole = tk.intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds,
-                                                 tri_tbl, n_ic)
-    cpu = (rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(), n_ic)
-    assert torch.equal(whole.cpu(),
-                       tk.intersect_mesh_instances_any_cand(*cpu))
+                                                 tri_tbl, *blas, n_ic)
+    cpu = (rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu())
+    assert torch.equal(whole.cpu(), tk.intersect_mesh_instances_any_cand(
+        *cpu, blas[0].cpu(), blas[1], n_ic))
     # The loop and the serial walk answer the same question; B8 compares in
     # object units and B9 in world units, so a hit within rounding of a
     # range end may fall on either side.
-    serial = tk.intersect_mesh_instances_any(*cpu) > 0
+    serial = tk.intersect_mesh_instances_any(*cpu, n_ic) > 0
     assert float((whole.cpu() != serial).float().mean()) <= 1e-3
 
 
@@ -705,17 +711,131 @@ def test_cand_fused_kernel_equals_plain(dev, k, n, tess, dead, rounds):
         k, n, tess, seed=k + n + rounds, dev=dev, dead=dead)
     tri_tbl = mesh.tri_tbl
     bscan = tk.make_bscan_table(inst_tbl)
+    args = (rays, bscan, inst_tbl, inst_bounds, tri_tbl, mesh.tri_bounds,
+            mesh.tri_chunk, rounds)
     before = backend.LAUNCHES["cand_fused"]
-    out = tk.cand_fused(rays, bscan, inst_tbl, tri_tbl, rounds)
+    out = tk.cand_fused(*args)
     assert backend.LAUNCHES["cand_fused"] == before + 1
-    assert_equal(out, tk.cand_fused_plain(rays, bscan, inst_tbl, tri_tbl,
-                                          rounds))
+    assert_equal(out, tk.cand_fused_plain(*args))
     assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, inst_bounds,
                                    tri_tbl, rounds))
     found = int((out[0] < ik.INF_BITS).sum())
     assert found == 0 if dead else found > 0
     fused = tk.intersect_mesh_instances_cand_fused(
-        rays, inst_tbl, inst_bounds, tri_tbl, n_ic, rounds=rounds)
+        rays, inst_tbl, inst_bounds, tri_tbl, mesh.tri_bounds, mesh.tri_chunk,
+        n_ic, rounds=rounds)
     loop = tk.intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds,
                                             tri_tbl, n_ic, rounds=rounds)
     assert_equal(fused, loop)
+
+
+def tri_case(variant, chunk, dev):
+    """(inst_tbl, inst_bounds, rays, cand, tri_tbl, tri_bounds) for the
+    triangle-chunk culls of B8 and B10: mesh_case's 600 instances over a
+    128-face geosphere (two scan tiles), its 24 instances over a
+    2,048-face one (four face tiles) with a ragged ray count, a batch of
+    dead lanes, one live lane in it, or tests/test_torch_tri_culls.py's
+    hand scene (grazing rays, origins inside, tangent rays, segments
+    ending on a hit). cand: B5's first candidates, or the hand scene's
+    instances. The triangle table's spheres at `chunk`."""
+    if variant == "hand":
+        from test_torch_tri_culls import hand_scene
+        inst_tbl, inst_bounds, rays, cand, (tri_tbl, _) = hand_scene(
+            chunk=chunk)
+        inst_tbl, inst_bounds, rays, cand, tri_tbl = (
+            x.to(dev) for x in (inst_tbl, inst_bounds, rays, cand, tri_tbl))
+    else:
+        k, n, tess = {"600": (600, 3001, 3), "2048": (24, 2049, 5)}.get(
+            variant, (24, 1024, 3))
+        mesh, rays, (inst_tbl, inst_bounds, _, _) = mesh_case(
+            k, n, tess, seed=k + n + chunk, dev=dev,
+            dead=variant in ("dead", "one"))
+        if variant == "one":
+            rays[7, 516] = 1e9  # an even lane: aimed at an instance
+        tri_tbl = mesh.tri_tbl
+        bscan = tk.make_bscan_table(inst_tbl)
+        key = tk.bound_scan(rays, bscan, torch.full(
+            (n,), -1, dtype=torch.int32, device=dev), inst_bounds,
+            inst_tbl.shape[1])
+        mask = (1 << ik.pos_bits(bscan.shape[0])) - 1
+        cand = torch.where(key < ik.INF_BITS, key & mask,
+                           inst_tbl.shape[1]).to(torch.int32)
+    tri_bounds = torch.from_numpy(tk.tri_chunk_bounds(
+        tri_tbl.cpu().numpy(), chunk)).to(dev)
+    return inst_tbl, inst_bounds, rays, cand, tri_tbl, tri_bounds
+
+
+TRI_VARIANTS = ("600", "2048", "dead", "one", "hand")
+
+
+@pytest.mark.parametrize("chunk", sorted({8, 32, tk.TRI_CHUNK}))
+@pytest.mark.parametrize("variant", TRI_VARIANTS)
+def test_anyhit_tri_culls_equal_walk(dev, variant, chunk):
+    """B8's triangle-chunk culls change no bit: equal to the unculled plain
+    version and to shared_blas_any_walk at chunks 8, 32 and the kept one,
+    with the full ranges and with every other live tmax cut to 3 units."""
+    inst_tbl, _, rays, cand, tri_tbl, tri_bounds = tri_case(variant, chunk,
+                                                            dev)
+    occ = torch.zeros(rays.shape[1], dtype=torch.int32, device=dev)
+    short = rays.clone()
+    short[7, ::2] = torch.clamp(short[7, ::2], max=3.0)
+    for batch in (rays, short):
+        before = backend.LAUNCHES["shared_blas_any"]
+        out = tk.shared_blas_any(batch, cand, occ, inst_tbl, tri_tbl,
+                                 tri_bounds, chunk)
+        assert backend.LAUNCHES["shared_blas_any"] == before + 1
+        assert torch.equal(out, tk.shared_blas_any_plain(
+            batch, cand, occ, inst_tbl, tri_tbl))
+        walked = tk.shared_blas_any_walk(batch, cand, occ, inst_tbl, tri_tbl,
+                                         tri_bounds, chunk)[0]
+        assert torch.equal(out, walked)
+        assert int(out.sum()) > 0 or variant in ("dead", "one")
+
+
+@pytest.mark.parametrize("chunk", sorted({8, 32, tk.TRI_CHUNK}))
+@pytest.mark.parametrize("variant,rounds", [
+    ("600", 4), ("2048", 5), ("dead", 3), ("one", 1), ("hand", 2),
+    ("hand", 3)])
+def test_fused_tri_culls_equal_walk(dev, variant, rounds, chunk):
+    """B10 with the scan's and the sweep's culls equals its unculled plain
+    version, cand_fused_walk and the multi-launch loop, best, binst and
+    key bit for bit, at chunks 8, 32 and the kept one, over 1 to 5
+    rounds."""
+    inst_tbl, inst_bounds, rays, _, tri_tbl, tri_bounds = tri_case(
+        variant, chunk, dev)
+    bscan = tk.make_bscan_table(inst_tbl)
+    args = (rays, bscan, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk,
+            rounds)
+    out = tk.cand_fused(*args)
+    assert_equal(out, tk.cand_fused_plain(*args))
+    assert_equal(out, tk.cand_fused_walk(*args)[0])
+    assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, inst_bounds,
+                                   tri_tbl, rounds))
+    found = int((out[0] < ik.INF_BITS).sum())
+    assert found == 0 if variant == "dead" else found > 0
+
+
+@pytest.mark.parametrize("margin", [True, False])
+def test_tri_culls_with_the_wrappers_margin(dev, margin, monkeypatch):
+    """B8 and B10 on the hand scene cull with the margin and guard the
+    wrappers pass: at TRI_CULL_SCALE and TRI_GUARD they equal the plain
+    versions; with both set to 0 they equal the walks of the same
+    settings, which drop hits on grazing rays."""
+    inst_tbl, inst_bounds, rays, cand, tri_tbl, tri_bounds = tri_case(
+        "hand", tk.TRI_CHUNK, dev)
+    occ = torch.zeros(rays.shape[1], dtype=torch.int32, device=dev)
+    fused = (rays, tk.make_bscan_table(inst_tbl), inst_tbl, inst_bounds,
+             tri_tbl, tri_bounds, tk.TRI_CHUNK, 1)
+    plain8 = tk.shared_blas_any_plain(rays, cand, occ, inst_tbl, tri_tbl)
+    plain10 = tk.cand_fused_plain(*fused)
+    if not margin:
+        monkeypatch.setattr(tk, "TRI_CULL_SCALE", 0.0)
+        monkeypatch.setattr(tk, "TRI_GUARD", 0.0)
+    out8 = tk.shared_blas_any(rays, cand, occ, inst_tbl, tri_tbl, tri_bounds,
+                              tk.TRI_CHUNK)
+    assert torch.equal(out8, tk.shared_blas_any_walk(
+        rays, cand, occ, inst_tbl, tri_tbl, tri_bounds, tk.TRI_CHUNK)[0])
+    out10 = tk.cand_fused(*fused)
+    assert_equal(out10, tk.cand_fused_walk(*fused)[0])
+    assert torch.equal(out8, plain8) == margin
+    assert torch.equal(out10[0], plain10[0]) == margin

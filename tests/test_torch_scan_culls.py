@@ -283,8 +283,9 @@ def test_culled_loop_equals_fused_plain(monkeypatch):
 
     (inst, bounds, _, _), rays = hard_scene(7, 24, n=1024)
     rays[7] = torch.where(rays[7] >= rays[6], 1e9, rays[7])
-    tri_tbl = trimesh.make_mesh(*geometry.create_geosphere(2.0, 2),
-                                device="cpu").tri_tbl
+    mesh = trimesh.make_mesh(*geometry.create_geosphere(2.0, 2),
+                             device="cpu")
+    tri_tbl = mesh.tri_tbl
     bscan = tk.make_bscan_table(inst)
     walks = []
 
@@ -295,7 +296,8 @@ def test_culled_loop_equals_fused_plain(monkeypatch):
     monkeypatch.setattr(tk, "bound_scan", walked)
     rounds = 3
     loop = tk.cand_loop(rays, bscan, inst, bounds, tri_tbl, rounds)
-    fused = tk.cand_fused_plain(rays, bscan, inst, tri_tbl, rounds)
+    fused = tk.cand_fused_plain(rays, bscan, inst, bounds, tri_tbl,
+                                mesh.tri_bounds, mesh.tri_chunk, rounds)
     assert walks == [inst.shape[1]] * (rounds + 1)
     for lp, fu in zip(loop, fused):
         assert torch.equal(lp, fu)

@@ -132,7 +132,7 @@ def test_build_mesh_tables_bit_for_bit(meshes, tess):
     v0 = pos[faces[:, 0]]
     e1, e2 = pos[faces[:, 1]] - v0, pos[faces[:, 2]] - v0
     expect = jtp.build_mesh_tables(v0, e1, e2)
-    order, tbl = tk.build_mesh_tables(v0, e1, e2)
+    order, tbl, _ = tk.build_mesh_tables(v0, e1, e2, tk.TRI_CHUNK)
     np.testing.assert_array_equal(order, expect[0])
     np.testing.assert_array_equal(tbl, expect[1])
     f = faces.shape[0]
@@ -147,7 +147,7 @@ def test_build_mesh_tables_open_mesh():
     e1 = np.array([[1, 0, 0], [1, 0, 0]], np.float32)
     e2 = np.array([[0, 1, 0], [0, 1, 1]], np.float32)
     expect = jtp.build_mesh_tables(v0, e1, e2)
-    order, tbl = tk.build_mesh_tables(v0, e1, e2)
+    order, tbl, _ = tk.build_mesh_tables(v0, e1, e2, tk.TRI_CHUNK)
     np.testing.assert_array_equal(order, expect[0])
     np.testing.assert_array_equal(tbl, expect[1])
     assert tbl.shape == (64, 9) and not tbl[2:].any()

@@ -130,8 +130,9 @@ def test_shared_blas_any_matches_interpret(kernel_case):
         work = {}
         got = tk.shared_blas_any_plain(case["rays"], T(cand), T(occ.copy()),
                                        case["inst"], tri_tbl, work=work)
-        via_wrapper = tk.shared_blas_any(case["rays"], T(cand), T(occ.copy()),
-                                         case["inst"], tri_tbl)
+        via_wrapper = tk.shared_blas_any(
+            case["rays"], T(cand), T(occ.copy()), case["inst"], tri_tbl,
+            case["tmesh"].tri_bounds, case["tmesh"].tri_chunk)
         assert torch.equal(got, via_wrapper)
         got = got.numpy()
         assert (got == expect).mean() > AGREE, (got != expect).sum()
@@ -213,10 +214,12 @@ def test_anyhit_wrappers_refuse_wrong_tensors(kernel_case):
     tri_tbl = case["tmesh"].tri_tbl
     with pytest.raises(ValueError):
         tk.shared_blas_any(case["rays"], words[:-1], words, case["inst"],
-                           tri_tbl)
+                           tri_tbl, case["tmesh"].tri_bounds,
+                           case["tmesh"].tri_chunk)
     with pytest.raises(ValueError):
         tk.shared_blas_any(case["rays"], words, words.long(), case["inst"],
-                           tri_tbl)
+                           tri_tbl, case["tmesh"].tri_bounds,
+                           case["tmesh"].tri_chunk)
     with pytest.raises(ValueError):
         tk.intersect_mesh_instances_any(case["rays"], case["inst"],
                                         case["bounds"].T.contiguous(),
