@@ -59,10 +59,12 @@ Phases, one printed line or more each; any failure exits non-zero:
    on different instances), and B7 once more on the primary rays before
    any candidate round, where the serial walk carries every live lane (the
    frame's own backstop batches are almost empty); kernel and plain times
-   from CUDA events; beside B6's bound, the bound of the work its sweeps
-   would need with B8's triangle-chunk culls (trimesh_kernels.
-   shared_blas_sweep_work, whose fold must equal B6's words; B6's kernel
-   has no culls). B5's bound counts its culled walk
+   from CUDA events. B6 is also held to its culled walk
+   (trimesh_kernels.shared_blas_sweep_work, whose fold must equal its
+   words), and its bound counts that walk's work (triangle chunks tested
+   and met, cones tested, faces guard-tested and swept), printed beside
+   the unculled sweep's bound; each launch is also timed at every
+   triangle chunk of TRI_CHUNKS. B5's bound counts its culled walk
    (trimesh_kernels.bound_scan_work: chunk tests, chunks met, rows swept,
    roots taken), printed with chunks met per live ray and per warp, rows
    and roots per live ray and the unculled sweep's bound; B11's as in
@@ -80,11 +82,18 @@ Phases, one printed line or more each; any failure exits non-zero:
    the three occluded_scene calls of the second all-mesh ReSTIR frame at
    1920x1080 give them (the BRDF candidate's occluder test, the initial
    visibility ray, final shading), with kernel and plain times from CUDA
-   events; and B9 once more on the fullest of the three shadow-ray batches
-   before any candidate round, where the serial walk carries every live
-   lane, held against its plain version and against the loop's result on
-   the same rays (B8 compares t in object units, B9 in world units: they
-   may differ on at most ANY_LOOP_SHARE of the live lanes). B5 and B11
+   events; B9 on each of the frame's three backstop batches, each timed
+   and printed with its live lanes and bound, and once more on the
+   fullest of the three shadow-ray batches before any candidate round,
+   where the serial walk carries every live lane, held against its plain
+   version and against the loop's result on the same rays (B8 compares t
+   in object units, B9 in world units: they may differ on at most
+   ANY_LOOP_SHARE of the live lanes); B9 is also held to its culled walk
+   and its bound counts that walk's work (trimesh_kernels.
+   intersect_mesh_instances_any_work), printed beside the unculled
+   sweep's; each B9 batch is also held and timed at every sparse-block
+   threshold of B9_SPARSE_SWEEP, its sparse and dense blocks are printed,
+   and both kinds must have run. B5 and B11
    print their culled work as in phase 8. B8 is also held to its culled
    walk, and its bound counts that walk's work
    (trimesh_kernels.shared_blas_any_work: triangle chunks tested and met,
@@ -143,7 +152,9 @@ and the times of phases 2 and 5; B5, B6, B7 and B11 once more
 phase 9 and the times of phase 8; B8, B9 and, once more, B5 and B11
 ("bound_scan@mesh_restir", "intersect_brute@mesh_restir": their any-hit
 launches alone) with the launches of phase 11 and the times of phase 10,
-summed over one frame's three calls (B9's are those of the full batch);
+summed over one frame's three calls (B9's are those of the full batch,
+and "intersect_mesh_instances_any@backstop" sums the frame's three
+backstop batches);
 B10 ("cand_fused@mesh_fused") with the launches of phase 13 and the times
 of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 ("...@default") with the launches of phase 14, B4 with the times of phase
@@ -152,7 +163,7 @@ and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
 frame's).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
-B5, B8 and B10 count their culled walks and B11 its staged rows and
+B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
 roots, and their entries also carry "unculled_bound_ms"), and a kernel
 measured
 under its bound fails the run. Then the card's name and
@@ -207,17 +218,20 @@ OPS_B5_CHUNK = 29         # ray x chunk covering sphere tested (the cull)
 OPS_B5_MET = 5            # a met chunk's segment end from the best key
 OPS_B5_RAY = 30           # a live ray's od, oo and cull terms
 OPS_MT_PAIR = 55          # ray x triangle row (B6, B7)
-OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6, B7)
+OPS_TO_OBJECT = 80        # a ray moved into an instance's frame (B6-B10)
 OPS_B7_SPHERE = 30        # B7's ray x bounding-sphere test
 OPS_B10_SCAN_ROW = OPS_B5_PAIR   # B10's unculled scan: lane x scan row
 OPS_B10_SWEEP_ROW = OPS_MT_PAIR  # B10's unculled sweep: lane x triangle row
-OPS_TRI_CHUNK = 30        # B8, B10: lane x triangle chunk sphere tested
-OPS_TRI_END = 4           # ... B10's segment end from the best so far
+OPS_TRI_CHUNK = 30        # B6, B8, B10: lane x triangle chunk sphere tested
+OPS_TRI_END = 4           # ... B6, B10: the segment end from the best so far
 OPS_TRI_CONE = 14         # lane x missed chunk: its guard cone (a sqrt)
 OPS_TRI_GUARD = 7         # lane x face of a missed chunk: |dl . A| >= guard
 OPS_TRI_RAY = 16          # a sweeping lane's cull terms (segment_cull_tri)
-# Triangle chunk sizes timed in phases 10 and 12 beside the kept one.
+# Triangle chunk sizes timed in phases 8, 10 and 12 beside the kept one.
 TRI_CHUNKS = (8, 16, 32, 64)
+# B9's sparse-block thresholds timed in phase 10 beside the kept one (0:
+# every block dense; 257: every block sparse).
+B9_SPARSE_SWEEP = (0, 16, 32, 64, 128, 257)
 # Tolerances of phase 5 (set just above what the card showed; see PERF.md).
 B3_PICK_SHARE = 1e-4      # share of pixels whose winner differs
 B3_REL = 1e-5             # elsewhere, of each output row's largest value
@@ -811,13 +825,6 @@ def check_mesh_kernels(ik, tk, seen):
             + " calls, expected 8 B5, 6 B6, 2 B7, 4 B11")
     out = {}
     split_any = 0
-    tri_blas = {}   # F_pad -> (tri_bounds, chunk) of the triangle table
-    for args in seen["shared_blas_sweep"]:
-        tbl = args[5]
-        tri_blas.setdefault(tbl.shape[0], (torch.from_numpy(
-            tk.tri_chunk_bounds(tbl.cpu().numpy(), tk.TRI_CHUNK)).to(
-                tbl.device), tk.TRI_CHUNK))
-
     for c, label in enumerate(("primary", "bounce-1")):
         timed = c == 0     # the plain versions are timed on the primary call
 
@@ -829,73 +836,19 @@ def check_mesh_kernels(ik, tk, seen):
             out["bound_scan"] = sum_parts(parts)
 
         # B6: each round's sweep of the rays' own candidates.
-        parts, culled_parts = [], []
-        for r, (rays, cand, best, binst, inst_tbl, tri_tbl, block
-                ) in enumerate(seen["shared_blas_sweep"][3 * c:3 * c + 3]):
-            args = (rays, cand, best, binst, inst_tbl, tri_tbl, block)
-            out_k = tk.shared_blas_sweep(*args)
-            out_p = tk.shared_blas_sweep_plain(*args)
-            torch.cuda.synchronize()
-            mismatch = words_differ(out_k, out_p)
-            n, f_pad = rays.shape[1], tri_tbl.shape[0]
-            m_tbl = inst_tbl.shape[1]
-            trunc = ~((1 << ik.pos_bits(f_pad)) - 1)
-            far = torch.minimum(rays[7], (best & trunc).view(torch.float32))
-            has_cand = (cand >= 0) & (cand < m_tbl)
-            live_mask = (far >= rays[6]) & has_cand
-            live = int(live_mask.sum())
-            # Neighbouring live lanes that sweep different instances.
-            split = int((live_mask[1:] & live_mask[:-1]
-                         & (cand[1:] != cand[:-1])).sum())
-            improved = int((out_k[0] != best).sum())
-            # A lane without a candidate passes its best and instance
-            # through (cand, best, binst in); one with a candidate also
-            # reads tmin and tmax; a live one the six other ray rows too.
-            part = {"bytes": lane_bytes(n, live, 8 + 3, 2, inst_tbl, tri_tbl,
-                                        dead_words=3)
-                    + 4 * 2 * (int(has_cand.sum()) - live),
-                    "ops": live * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
-                    "ms": cuda_ms(lambda: tk.shared_blas_sweep(*args), 10),
-                    "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(
-                        *args), 1) if timed else 0.0}
-            parts.append(part)
-            # The bound of the work B6 would need with B8's triangle-chunk
-            # culls (its kernel has none), from the culled walk.
-            blas = tri_blas[f_pad]
-            culled_out, w = tk.shared_blas_sweep_work(*args[:6], *blas,
-                                                      262144)
-            culled_mismatch = words_differ(out_k, culled_out)
-            culled_ops = (w["tests"] * (OPS_TRI_CHUNK + OPS_TRI_END)
-                          + w["cones"] * OPS_TRI_CONE
-                          + w["guards"] * OPS_TRI_GUARD
-                          + w["rows"] * OPS_MT_PAIR
-                          + live * (OPS_TO_OBJECT + OPS_TRI_RAY))
-            culled_parts.append({"bytes": part["bytes"], "ops": culled_ops,
-                                 "ms": 0.0, "plain_ms": 0.0})
-            log(f"mesh kernels: B6 {label} round {r + 1} rays={n} live={live} "
-                f"faces={f_pad} instances={m_tbl} improved={improved} "
-                f"neighbours_on_other_instance={split} mismatch={mismatch} "
-                f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
-                f"bound_ms={bound(part['bytes'], part['ops'])[0]!r} "
-                f"with the triangle-chunk culls at chunk {blas[1]} "
-                f"(not in the kernel): chunk_tests={w['tests']} "
-                f"chunks_met={w['met']} cone_tests={w['cones']} "
-                f"guard_tests={w['guards']} triangles_swept={w['rows']} "
-                f"culled_bound_ms="
-                f"{bound(part['bytes'], culled_ops)[0]!r} "
-                f"culled_walk_mismatch={culled_mismatch}")
-            if mismatch or culled_mismatch:
-                raise AssertionError(f"B6 {label} round {r + 1}: kernel "
-                                     f"disagrees with its plain version or "
-                                     f"the culled walk on {mismatch}, "
-                                     f"{culled_mismatch} words")
-            split_any += split
+        parts = [check_b6(ik, tk, f"{label} round {r + 1}", args, timed)
+                 for r, args in enumerate(
+                     seen["shared_blas_sweep"][3 * c:3 * c + 3])]
+        split_any += sum(p["split"] for p in parts)
+        b6 = sum_parts(parts)
+        log(f"mesh kernels: B6 {label} the 3 launches: kernel_ms="
+            f"{b6['ms']!r} bound_ms={b6['bound_ms']!r} (culled) "
+            f"unculled_bound_ms={b6['unculled_bound_ms']!r} kernel_ms by "
+            f"triangle chunk: " + " ".join(
+                f"chunk{ck}={sum(p['chunk_ms'][ck] for p in parts)!r}"
+                for ck in TRI_CHUNKS) + f" (kept: {tk.TRI_CHUNK})")
         if timed:
-            out["shared_blas_sweep"] = sum_parts(parts)
-            log(f"mesh kernels: B6 {label} culled_bound_ms for the 3 "
-                f"launches with the triangle-chunk culls: "
-                f"{sum_parts(culled_parts)['bound_ms']!r} (unculled "
-                f"{out['shared_blas_sweep']['bound_ms']!r})")
+            out["shared_blas_sweep"] = b6
 
         # B7: the frame's own backstop batch (few live lanes).
         check_b7(tk, f"{label} backstop",
@@ -934,6 +887,71 @@ def check_mesh_kernels(ik, tk, seen):
                              f"{b7['live']} live lanes and {b7['hits']} hits")
     out["intersect_mesh_instances"] = sum_parts([b7])
     return out
+
+
+def check_b6(ik, tk, label, args, timed):
+    """B6 against its plain version and its culled walk on one recorded
+    call (every word equal), its work (trimesh_kernels.
+    shared_blas_sweep_work: triangle chunks tested and met, cones tested,
+    faces guard-tested and swept) and its times, at the kept chunk and at
+    each of TRI_CHUNKS. Returns its timed part with the operations of the
+    unculled sweep, `chunk_ms` and `split` (neighbouring live lanes on
+    different candidates)."""
+    (rays, cand, best, binst, inst_tbl, tri_tbl, tri_bounds, chunk,
+     block) = args
+    out_k = tk.shared_blas_sweep(*args)
+    out_p = tk.shared_blas_sweep_plain(*args)
+    out_w, w = tk.shared_blas_sweep_work(*args[:8], 262144)
+    torch.cuda.synchronize()
+    mismatch = words_differ(out_k, out_p)
+    walk_mismatch = words_differ(out_k, out_w)
+    n, f_pad, m_tbl = rays.shape[1], tri_tbl.shape[0], inst_tbl.shape[1]
+    trunc = ~((1 << ik.pos_bits(f_pad)) - 1)
+    far = torch.minimum(rays[7], (best & trunc).view(torch.float32))
+    has_cand = (cand >= 0) & (cand < m_tbl)
+    live_mask = (far >= rays[6]) & has_cand
+    live = int(live_mask.sum())
+    # A lane without a candidate passes its best and instance through
+    # (cand, best, binst in); one with a candidate also reads tmin and
+    # tmax; a live one the six other ray rows too.
+    byts = (lane_bytes(n, live, 8 + 3, 2, inst_tbl, tri_tbl, tri_bounds,
+                       dead_words=3)
+            + 4 * 2 * (int(has_cand.sum()) - live))
+    part = {"bytes": byts,
+            "ops": (w["tests"] * (OPS_TRI_CHUNK + OPS_TRI_END)
+                    + w["cones"] * OPS_TRI_CONE + w["guards"] * OPS_TRI_GUARD
+                    + w["rows"] * OPS_MT_PAIR
+                    + live * (OPS_TO_OBJECT + OPS_TRI_RAY)),
+            "unculled_ops": live * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
+            "ms": cuda_ms(lambda: tk.shared_blas_sweep(*args), 10),
+            "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(*args), 1)
+            if timed else 0.0,
+            # Neighbouring live lanes that sweep different instances.
+            "split": int((live_mask[1:] & live_mask[:-1]
+                          & (cand[1:] != cand[:-1])).sum())}
+    spheres = tri_tables(tk, tri_tbl, tri_bounds, chunk)
+    part["chunk_ms"] = {ck: cuda_ms(lambda ck=ck: tk.shared_blas_sweep(
+        rays, cand, best, binst, inst_tbl, tri_tbl, spheres[ck], ck, block),
+        10) for ck in TRI_CHUNKS}
+    per = max(live, 1)
+    log(f"mesh kernels: B6 {label} rays={n} live={live} faces={f_pad} "
+        f"chunk={chunk} instances={m_tbl} "
+        f"improved={int((out_k[0] != best).sum())} "
+        f"neighbours_on_other_instance={part['split']} mismatch={mismatch} "
+        f"walk_mismatch={walk_mismatch} chunk_tests={w['tests']} "
+        f"chunks_met={w['met']} cone_tests={w['cones']} "
+        f"guard_tests={w['guards']} triangles_swept={w['rows']} "
+        f"chunks_met_per_live_lane={w['met'] / per!r} "
+        f"triangles_swept_per_live_lane={w['rows'] / per!r} "
+        f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+        f"bound_ms={bound(byts, part['ops'])[0]!r} "
+        f"unculled_bound_ms={bound(byts, part['unculled_ops'])[0]!r} "
+        f"chunk_ms={json.dumps(part['chunk_ms'])}")
+    if mismatch or walk_mismatch:
+        raise AssertionError(f"B6 {label}: kernel disagrees with its plain "
+                             f"version or its walk on {mismatch}, "
+                             f"{walk_mismatch} words")
+    return part
 
 
 def check_b7(tk, label, args, timed):
@@ -998,35 +1016,81 @@ def capture_anyhit_inputs(bench, trimesh, modules, device="cuda"):
     return seen
 
 
+def b9_blocks(rays, below):
+    """B9's blocks of 256 lanes with live lanes: (sparse, dense), sparse
+    those with fewer than `below`."""
+    live = rays[7] >= rays[6]
+    pad = torch.zeros(-live.numel() % 256, dtype=torch.bool,
+                      device=live.device)
+    per = torch.cat([live, pad]).reshape(-1, 256).sum(1)
+    return int(((per > 0) & (per < below)).sum()), int((per >= below).sum())
+
+
 def check_b9(tk, label, args, timed):
-    """B9 against its plain version on one batch: every bit equal. Returns
-    its timed part, with `live`, `blocked` and the kernel's result."""
-    rays, inst_tbl, inst_bounds, tri_tbl, n_ic, block = args
-    work = {}
+    """B9 against its plain version and its culled walk on one batch:
+    every bit equal. Its bound counts the walk's work
+    (trimesh_kernels.intersect_mesh_instances_any_work: sphere tests,
+    instances entered, triangle chunks tested and met, cones tested, faces
+    guard-tested and swept), printed beside the unculled sweep's. Timed at
+    the kept B9_SPARSE_LIVE and at each of B9_SPARSE_SWEEP. Returns its
+    timed part, with `live`, `blocked`, the kernel's result, `sparse_ms`
+    and `blocks` (sparse and dense blocks at the kept threshold)."""
+    rays, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk, n_ic, block = \
+        args
     occ_k = tk.intersect_mesh_instances_any(*args)
-    occ_p = tk.intersect_mesh_instances_any_plain(*args, work=work)
+    occ_p = tk.intersect_mesh_instances_any_plain(*args)
+    n = rays.shape[1]
+    occ_w, work = tk.intersect_mesh_instances_any_work(*args[:7], block=n)
     torch.cuda.synchronize()
     mismatch = words_differ((occ_k,), (occ_p,))
-    n = rays.shape[1]
+    walk_mismatch = words_differ((occ_k,), (occ_w,))
+    spheres = ((work["chunk_tests"] + work["inst_tests"]) * OPS_B7_SPHERE
+               + work["sweeps"] * OPS_TO_OBJECT)
     part = {
         "bytes": lane_bytes(n, work["live"], 8, 1, inst_tbl, inst_bounds,
-                            tri_tbl),
-        "ops": (work["chunk_tests"] + work["inst_tests"]) * OPS_B7_SPHERE
-        + work["sweeps"] * OPS_TO_OBJECT + work["tri_tests"] * OPS_MT_PAIR,
+                            tri_tbl, tri_bounds),
+        "ops": spheres + work["sweeps"] * OPS_TRI_RAY
+        + work["tests"] * OPS_TRI_CHUNK + work["cones"] * OPS_TRI_CONE
+        + work["guards"] * OPS_TRI_GUARD + work["rows"] * OPS_MT_PAIR,
+        "unculled_ops": spheres + work["tri_tests"] * OPS_MT_PAIR,
         "ms": cuda_ms(lambda: tk.intersect_mesh_instances_any(*args), 10),
         "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_any_plain(
             *args), 1) if timed else 0.0,
-        "live": work["live"], "blocked": int(occ_k.sum()), "occ": occ_k}
+        "live": work["live"], "blocked": int(occ_k.sum()), "occ": occ_k,
+        "blocks": b9_blocks(rays, tk.B9_SPARSE_LIVE), "sparse_ms": {}}
+    kept = tk.B9_SPARSE_LIVE
+    try:
+        for below in B9_SPARSE_SWEEP:
+            tk.B9_SPARSE_LIVE = below
+            if words_differ((tk.intersect_mesh_instances_any(*args),),
+                            (occ_p,)):
+                raise AssertionError(f"B9 {label}: kernel disagrees with "
+                                     f"its plain version at "
+                                     f"B9_SPARSE_LIVE = {below}")
+            part["sparse_ms"][below] = cuda_ms(
+                lambda: tk.intersect_mesh_instances_any(*args), 10)
+    finally:
+        tk.B9_SPARSE_LIVE = kept
     log(f"mesh any-hit kernels: B9 {label} rays={n} live={work['live']} "
         f"blocked={part['blocked']} chunk_tests={work['chunk_tests']} "
         f"instance_tests={work['inst_tests']} "
-        f"instance_sweeps={work['sweeps']} "
-        f"triangle_tests={work['tri_tests']} mismatch={mismatch} "
+        f"instance_sweeps={work['sweeps']} chunk={chunk} "
+        f"triangle_chunk_tests={work['tests']} chunks_met={work['met']} "
+        f"cone_tests={work['cones']} guard_tests={work['guards']} "
+        f"triangles_swept={work['rows']} "
+        f"unculled_triangles={work['tri_tests']} "
+        f"blocks_sparse={part['blocks'][0]} blocks_dense={part['blocks'][1]} "
+        f"(B9_SPARSE_LIVE={kept}) mismatch={mismatch} "
+        f"walk_mismatch={walk_mismatch} "
         f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
-        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-    if mismatch:
+        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r} "
+        f"unculled_bound_ms="
+        f"{bound(part['bytes'], part['unculled_ops'])[0]!r} "
+        f"kernel_ms_by_B9_SPARSE_LIVE={json.dumps(part['sparse_ms'])}")
+    if mismatch or walk_mismatch:
         raise AssertionError(f"B9 {label}: kernel disagrees with its plain "
-                             f"version on {mismatch} lanes")
+                             f"version or its walk on {mismatch}, "
+                             f"{walk_mismatch} lanes")
     return part
 
 
@@ -1109,7 +1173,7 @@ def check_anyhit_kernels(ik, tk, seen):
             + json.dumps({k: len(v) for k, v in seen.items()})
             + " calls, expected 9 B5, 6 B8, 3 B9, 3 B11")
     out = {}
-    b5_parts, b8_parts, b11_parts = [], [], []
+    b5_parts, b8_parts, b9_parts, b11_parts = [], [], [], []
     b8_chunk_ms = {}
     fullest = None
     for c, label in enumerate(("brdf-candidate", "initial", "final")):
@@ -1145,8 +1209,9 @@ def check_anyhit_kernels(ik, tk, seen):
                 b8_chunk_ms[chunk] = b8_chunk_ms.get(chunk, 0.0) + ms
 
         # B9: the frame's own backstop batch.
-        check_b9(tk, f"{label} backstop",
-                 seen["intersect_mesh_instances_any"][c], False)
+        b9_parts.append(check_b9(tk, f"{label} backstop",
+                                 seen["intersect_mesh_instances_any"][c],
+                                 True))
     out["bound_scan@mesh_restir"] = sum_parts(b5_parts)
     out["shared_blas_any"] = sum_parts(b8_parts)
     log("mesh any-hit kernels: B8 kernel_ms summed over the frame's 6 "
@@ -1156,16 +1221,27 @@ def check_anyhit_kernels(ik, tk, seen):
         f" unculled_bound_ms="
         f"{out['shared_blas_any']['unculled_bound_ms']!r})")
     out["intersect_brute@mesh_restir"] = sum_parts(b11_parts)
-
+    backstop = out["intersect_mesh_instances_any@backstop"] = sum_parts(
+        b9_parts)
+    log("mesh any-hit kernels: B9 the frame's 3 backstop batches: live="
+        + ",".join(str(p["live"]) for p in b9_parts)
+        + " kernel_ms=" + ",".join(repr(p["ms"]) for p in b9_parts)
+        + " bound_ms=" + ",".join(
+            repr(bound(p["bytes"], p["ops"])[0]) for p in b9_parts)
+        + f" sum: kernel_ms={backstop['ms']!r} "
+        f"bound_ms={backstop['bound_ms']!r} "
+        f"unculled_bound_ms={backstop['unculled_bound_ms']!r}; "
+        f"kernel_ms by B9_SPARSE_LIVE: " + " ".join(
+            f"{below}={sum(p['sparse_ms'][below] for p in b9_parts)!r}"
+            for below in B9_SPARSE_SWEEP))
     # B9 where it carries every ray: the fullest batch as the pre-pass left
     # it, no candidate round before it (intersect_instances_any's rounds=0),
     # and the loop's answer on the same rays.
     _, label, rays, c = fullest
     tables = seen["intersect_mesh_instances_any"][c][1:]
     b9 = check_b9(tk, f"{label}, no candidate round", (rays, *tables), True)
-    blas = seen["shared_blas_any"][2 * c][5:7]    # tri_bounds, chunk
-    loop = tk.intersect_mesh_instances_any_cand(rays, *tables[:3], *blas,
-                                                tables[3], block=tables[4])
+    loop = tk.intersect_mesh_instances_any_cand(rays, *tables[:6],
+                                                block=tables[6])
     differ = int(((b9["occ"] > 0) != loop).sum())
     log(f"mesh any-hit kernels: B9 {label} alone vs the candidate loop: "
         f"{differ} of {b9['live']} live lanes differ "
@@ -1176,6 +1252,10 @@ def check_anyhit_kernels(ik, tk, seen):
                              f"blocked")
     if differ > ANY_LOOP_SHARE * b9["live"]:
         raise AssertionError("B9 alone disagrees with the candidate loop")
+    paths = [sum(p["blocks"][j] for p in (*b9_parts, b9)) for j in (0, 1)]
+    if not all(paths):
+        raise AssertionError(f"B9: sparse and dense blocks {paths}: a path "
+                             f"of the kernel did not run")
     out["intersect_mesh_instances_any"] = sum_parts([b9])
     return out
 
@@ -1210,8 +1290,8 @@ def check_fused_kernel(tk, seen):
     for label, args in zip(("primary", "bounce-1"), calls):
         (rays, bscan, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk,
          rounds, block) = args
-        loop_args = (rays, bscan, inst_tbl, inst_bounds, tri_tbl, rounds,
-                     block)
+        loop_args = (rays, bscan, inst_tbl, inst_bounds, tri_tbl, tri_bounds,
+                     chunk, rounds, block)
         work = {}
         out_k = tk.cand_fused(*args)
         out_p = tk.cand_fused_plain(*args, work=work)
@@ -1760,6 +1840,8 @@ def main():
     launches["shared_blas_any"] = x_launches["shared_blas_any"]
     launches["intersect_mesh_instances_any"] = \
         x_launches["intersect_mesh_instances_any"]
+    launches["intersect_mesh_instances_any@backstop"] = \
+        x_launches["intersect_mesh_instances_any"]
     launches["bound_scan@mesh_restir"] = 9 * frames
     launches["intersect_brute@mesh_restir"] = 3 * frames
     check_small_frames(pipeline, bench, mesh=True)
@@ -1845,6 +1927,9 @@ def main():
         "shared_blas_any": ("drts_tpu_torch/csrc/trimesh.cu",
                             "drts_tpu/ops/trimesh_pallas.py:973"),
         "intersect_mesh_instances_any": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:545"),
+        "intersect_mesh_instances_any@backstop": (
             "drts_tpu_torch/csrc/trimesh.cu",
             "drts_tpu/ops/trimesh_pallas.py:545"),
         "bound_scan@mesh_restir": ("drts_tpu_torch/csrc/trimesh.cu",

@@ -69,10 +69,11 @@ _SIGNATURES = {
     "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _VOIDP, _INT,
                         _INT, _FLOAT, _INT, _VOIDP, _VOIDP),
     # rays, n, cand, best_in, binst_in, inst_tbl, m_tbl, tri_tbl, f_pad,
-    # pos_bits, best_out, binst_out, stream
+    # pos_bits, tri_bounds, tb_cols, chunk, tri_scale, guard, best_out,
+    # binst_out, stream
     "drts_shared_blas_sweep": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                               _INT, _VOIDP, _INT, _INT, _VOIDP, _VOIDP,
-                               _VOIDP),
+                               _INT, _VOIDP, _INT, _INT, _VOIDP, _INT, _INT,
+                               _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP),
     # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
     # bound_scale, bound_pad, tri_tbl, f_pad, pos_bits, t_out, face_out,
     # inst_out, stream
@@ -85,9 +86,11 @@ _SIGNATURES = {
                              _VOIDP, _INT, _VOIDP, _INT, _INT, _FLOAT,
                              _FLOAT, _VOIDP, _VOIDP),
     # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
-    # bound_scale, bound_pad, tri_tbl, f_pad, occ_out, stream
+    # bound_scale, bound_pad, tri_tbl, f_pad, tri_bounds, tb_cols, chunk,
+    # tri_scale, guard, sparse_below, occ_out, stream
     "drts_mesh_instances_any": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                 _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
+                                _VOIDP, _INT, _INT, _FLOAT, _FLOAT, _INT,
                                 _VOIDP, _VOIDP),
     # rays, n, bscan, m_pad, bs_pos_bits, inst_tbl, m_tbl, inst_bounds,
     # ic_cols, inst_chunk, tri_tbl, f_pad, pos_bits, tri_bounds, tb_cols,

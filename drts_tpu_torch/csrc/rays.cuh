@@ -57,6 +57,17 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ rays,
   return r;
 }
 
+// The six origin and direction rows of lane i's ray.
+__device__ __forceinline__ void load_origin_dir(
+    const float* __restrict__ rays, int n, int i, Ray* r) {
+  r->ox = rays[0 * (size_t)n + i];
+  r->oy = rays[1 * (size_t)n + i];
+  r->oz = rays[2 * (size_t)n + i];
+  r->dx = rays[3 * (size_t)n + i];
+  r->dy = rays[4 * (size_t)n + i];
+  r->dz = rays[5 * (size_t)n + i];
+}
+
 // Lane i's ray for a kernel whose dead lanes (tmax < tmin) do nothing:
 // tmin and tmax first, the other six rows only where the lane is live
 // (a dead lane keeps o = d = 0). Returns whether it is live.
@@ -67,12 +78,7 @@ __device__ __forceinline__ bool load_live_ray(const float* __restrict__ rays,
   r->tmin = rays[6 * (size_t)n + i];
   r->tmax = rays[7 * (size_t)n + i];
   if (!(r->tmax >= r->tmin)) return false;
-  r->ox = rays[0 * (size_t)n + i];
-  r->oy = rays[1 * (size_t)n + i];
-  r->oz = rays[2 * (size_t)n + i];
-  r->dx = rays[3 * (size_t)n + i];
-  r->dy = rays[4 * (size_t)n + i];
-  r->dz = rays[5 * (size_t)n + i];
+  load_origin_dir(rays, n, i, r);
   return true;
 }
 

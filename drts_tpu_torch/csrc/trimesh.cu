@@ -18,40 +18,42 @@
 // The TPU kernels work on blocks of 2,048 rays and decide per block: a
 // bundle's origin sphere and direction cone cull instance chunks, instances
 // and triangle chunks for the whole block, and B6 loops over the block's
-// distinct candidate instances. Here each kernel takes one thread per ray.
+// distinct candidate instances. Here B5-B8 and B10 take one thread per ray.
 // The thread reads its own candidate's instance row, keeps its best packed
 // word in a register and walks its own data-dependent loop; nothing is
-// reduced across threads and there are no atomics.
+// reduced across threads and there are no atomics. B9 compacts each
+// block's live lanes first: a block with few of them puts all its threads
+// on one live ray at a time, and otherwise one thread per live lane.
 //
 // Bound: a ray-sphere pair costs ~25 separately rounded float32 operations
 // and one IEEE sqrt (B5), a ray-triangle pair ~50 and one IEEE division
 // (B6-B9), against 36-48 bytes read and 4-12 written per ray. All five
 // are bound by the instruction rate, not by device memory. What the design
 // does about it: the tables (8-24 KB) are staged in shared memory as
-// float4, so the inner loop's loads are broadcasts of 16 bytes (B5, B6);
-// B6's per-lane instance row, which differs between neighbouring rays, is
-// gathered once per thread through the read-only cache; B7's loop is
-// different for every thread, so it reads all its tables through the
-// read-only cache with no barrier, and threads that are done do not wait.
-// B8 is laid out as B6 and B9 as B7; an any-hit lane needs no best, so it
-// leaves its sweep at the first triangle that blocks its segment (B8), or
-// its whole walk (B9), and B9's sphere tests take the lane's own tmax as
-// the far limit.
+// float4, so the inner loop's loads are broadcasts of 16 bytes (B5, B6,
+// B8, B9, B10); B6's per-lane instance row, which differs between
+// neighbouring rays, is gathered once per thread through the read-only
+// cache; B7's loop is different for every thread, so it reads all its
+// tables through the read-only cache with no barrier, and threads that are
+// done do not wait. B8 is laid out as B6; an any-hit lane needs no best,
+// so it leaves its sweep at the first triangle that blocks its segment
+// (B8), or its whole walk (B9), and B9's sphere tests take the lane's own
+// tmax as the far limit.
 //
 // Culls kept: a dead lane (tmax < tmin, or no candidate in B6, B8) does
 // no work, and a block with no live lane leaves before it stages a table
-// (B5, B6, B8, B10); B5 and each round's scan of B10 test each ray against
-// every instance chunk's covering sphere, with a segment that ends at its
-// best key so far, and sweep only the rows of the chunks they meet
-// (csrc/rays.cuh; scan_walk); B8 and each sweep of B10 test the ray, in
-// the candidate's object frame, against every triangle chunk's covering
-// sphere, and in a chunk that the segment misses skip every face the ray
-// does not graze, all of them where the chunk's guard cone shows none is
-// grazed (sweep_tile states the cull); B7 tests each ray against
-// every instance chunk's covering sphere and every member's bounding
-// sphere, with the ray's running best as the far limit, and sweeps only
-// the instances that pass. B6, B7 and B9 visit every face row of an
-// instance they sweep.
+// (B5, B6, B8, B9, B10); B5 and each round's scan of B10 test each ray
+// against every instance chunk's covering sphere, with a segment that ends
+// at its best key so far, and sweep only the rows of the chunks they meet
+// (csrc/rays.cuh; scan_walk); B6, B8, B9 and each sweep of B10 test the
+// ray, in the instance's object frame, against every triangle chunk's
+// covering sphere, and in a chunk that the segment misses skip every face
+// the ray does not graze, all of them where the chunk's guard cone shows
+// none is grazed (sweep_tile states the cull; blas_sweep is B6's and
+// B10's); B7 and B9 test each ray against every instance chunk's covering
+// sphere and every member's bounding sphere, with the ray's running best
+// (B7) or its own tmax (B9) as the far limit, and sweep only the instances
+// that pass. B7 visits every face row of an instance it sweeps.
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply, add, division and sqrt rounds on its own, in the order the
@@ -69,8 +71,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kSphereTile = 512;  // B5, B10: bound-scan rows per shared tile
-constexpr int kFaceTile = 512;    // B6, B8, B10: triangle rows per tile
-constexpr int kMinTriChunk = 8;   // B8, B10: the least triangle chunk
+constexpr int kFaceTile = 512;    // B6, B8, B9, B10: triangle rows per tile
+constexpr int kMinTriChunk = 8;   // B6, B8-B10: the least triangle chunk
 constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
 
 struct Vec3 {
@@ -293,94 +295,6 @@ bound_scan(const float* __restrict__ rays, int n,
   if (in_range) key_out[i] = best;
 }
 
-// B6. Each live lane sweeps the shared triangle table in the object frame
-// of its own candidate instance (cand, a column of inst_tbl (9, m_tbl)
-// [px py pz qx qy qz qw 1/scale radius]), direction rotated but not scaled,
-// so t is in object units; the least packed word is rescaled to world
-// units, repacked and folded into the incoming best. Ties of the truncated
-// t order by face row.
-__global__ void __launch_bounds__(kThreads)
-shared_blas_sweep(const float* __restrict__ rays, int n,
-                  const int* __restrict__ cand,
-                  const int* __restrict__ best_in,
-                  const int* __restrict__ binst_in,
-                  const float* __restrict__ inst_tbl, int m_tbl,
-                  const float* __restrict__ tri_tbl, int f_pad, int pos_bits,
-                  int* __restrict__ best_out, int* __restrict__ binst_out) {
-  // Rows as three float4: (v0x v0y v0z e1x) (e1y e1z e2x e2y) (e2z - - -).
-  __shared__ float4 s_tri[kFaceTile * 3];
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = i < n;
-  const int trunc = ~((1 << pos_bits) - 1);
-  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-  int k = -1, best0 = kInfBits, binst0 = 0;
-  if (in_range) {
-    r = load_ray(rays, n, i);
-    k = cand[i];
-    best0 = best_in[i];
-    binst0 = binst_in[i];
-  }
-  const float tmax_eff = fminf(r.tmax, __int_as_float(best0 & trunc));
-  const bool live = in_range && tmax_eff >= r.tmin && k >= 0 && k < m_tbl;
-  int best = best0, binst = binst0;
-  if (__syncthreads_or(live)) {
-    Vec3 ol = {0.f, 0.f, 0.f}, dl = {0.f, 0.f, 1.f};
-    float tmn_l = 0.f, tmx_l = -1.f, s_w = 1.f;
-    if (live) {
-      const float px = __ldg(inst_tbl + 0 * m_tbl + k);
-      const float py = __ldg(inst_tbl + 1 * m_tbl + k);
-      const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
-      const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
-      const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
-      const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
-      const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
-      const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
-      ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
-      ol.x = ol.x * inv_s;
-      ol.y = ol.y * inv_s;
-      ol.z = ol.z * inv_s;
-      dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
-      tmn_l = r.tmin * inv_s;
-      tmx_l = tmax_eff * inv_s;
-      s_w = 1.0f / inv_s;
-    }
-    int best_obj = kInfBits;
-    for (int base = 0; base < f_pad; base += kFaceTile) {
-      const int m = min(kFaceTile, f_pad - base);
-      __syncthreads();
-      for (int f = threadIdx.x; f < m; f += blockDim.x) {
-        const float* row = tri_tbl + (size_t)(base + f) * 9;
-        s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], row[3]);
-        s_tri[3 * f + 1] = make_float4(row[4], row[5], row[6], row[7]);
-        s_tri[3 * f + 2] = make_float4(row[8], 0.f, 0.f, 0.f);
-      }
-      __syncthreads();
-      if (!live) continue;
-      for (int f = 0; f < m; ++f) {
-        const float4 a = s_tri[3 * f + 0];
-        const float4 b = s_tri[3 * f + 1];
-        const float4 c = s_tri[3 * f + 2];
-        best_obj = min(best_obj,
-                       mt_packed(ol, dl, tmn_l, tmx_l, a.x, a.y, a.z, a.w,
-                                 b.x, b.y, b.z, b.w, c.x, trunc, base + f));
-      }
-    }
-    if (live && best_obj < kInfBits) {
-      const float t_w = __int_as_float(best_obj & trunc) * s_w;
-      const int packed_w = (__float_as_int(t_w) & trunc) | (best_obj & ~trunc);
-      if (packed_w < best0) {
-        best = packed_w;
-        binst = k;
-      }
-    }
-  }
-  if (in_range) {
-    best_out[i] = best;
-    binst_out[i] = binst;
-  }
-}
-
 // B7's per-ray sphere test (unit direction): the segment [tmin, far] meets
 // the sphere grown by the slack (rad * scale + pad; the wrapper's
 // BOUND_SCALE and BOUND_PAD). rad <= 0 (padding) never passes; the NaN
@@ -465,7 +379,7 @@ mesh_instances_closest(const float* __restrict__ rays, int n,
   inst_out[i] = binst;
 }
 
-// The triangle-chunk cull of B8 and of B10's sweep. The lane's ray is in
+// The triangle-chunk cull of B6, B8 and B10's sweep. The lane's ray is in
 // its candidate's object frame: ol and dl (rotated, not scaled), and
 // [tmin, tmax] scaled by inv_s, the very floats mt_hit compares, so the
 // argument needs nothing of conj_rotate or of the scaling but |dl.dl - 1|
@@ -506,8 +420,24 @@ mesh_instances_closest(const float* __restrict__ rays, int n,
 // swept: every face the ray grazes (its t may be rounding noise anywhere
 // on the segment), and the degenerate and padding rows (A = 0 where
 // |e1||e2| < 2^-64, which also keeps underflow's absolute errors far
-// inside the margin). B10's segment ends at min(tmax, top(best)) once the
-// lane holds a hit: a face that can lower the best has t <= top(best).
+// inside the margin). The closest hit's segment (B6, B10) ends at min(tmax,
+// top(best)) once the lane holds a hit in this sweep: a face that can
+// lower the best has t <= top(best).
+//
+// B9 tests another ray: its plain version's, with d = fl(dl * inv_s) (dl
+// rotated only, |d| = inv_s) and the world segment [tmin, tmax]; the cull
+// still reads rl = (ol, dl, fl(tmin * inv_s), fl(tmax * inv_s)), B8's
+// frame (any_rays). The argument above holds for d with three more terms.
+// (1) It never used |d| = 1: the MT bound 28u |T| / (G - 7u) is the same
+// for any length of d, and G = |d . A| / |d| is; d's direction differs
+// from dl's by <= 1.8u, so G >= g / 1.002 - 16u, and at g >= 2^-6 s stays
+// <= 1816u. (2) An accepted t in [tmin, tmax] puts X = ol + t d within
+// u |t'| |dl| of X' = ol + t' dl, t' = t inv_s exactly (d's rounding), and
+// X' is a point of rl's line. (3) t' lies in [tmin inv_s, tmax inv_s],
+// whose float ends differ from the exact ones by <= u |t'|: the segment's
+// nearest point moves by <= 1.01u |t'|. With the divisions' 2.01u |t||d| =
+// 2.01u |t'||dl|, X' lies within R + s (|ol|_1 + |C|_1 + R) + (s + 3u) |t'|
+// of C, and the 2048u margin, which needs 1816u + 64u, covers the 3u.
 
 // Stages face rows [base, base + m) as three float4 (v0x v0y v0z e1x)
 // (e1y e1z e2x e2y) (e2z Ax Ay Az), A the face's guard vector, and per
@@ -545,7 +475,11 @@ __device__ __forceinline__ void stage_faces(
 }
 
 // One lane's sweep of the staged tile (faces base.. base + m, whole
-// chunks), chunk by chunk in table order: a chunk met by the segment
+// chunks), chunk by chunk in table order, culled by rl (the candidate's
+// object frame: direction rotated, not scaled) and tested on rm, the ray
+// Moeller-Trumbore takes (rl itself for B6, B8 and B10; B9's ray with the
+// direction scaled by 1/scale and the world segment, as its plain version
+// computes it): a chunk met by rl's segment
 // [tmin, t_end] has every face swept; a missed one none where its guard
 // cone gives c |dl . w| - s sqrt(dl.dl - (dl . w)^2) - h >= guard (every
 // face's G is at least that plus h, which covers the lane's rounding:
@@ -560,11 +494,12 @@ __device__ __forceinline__ void stage_faces(
 template <bool kAny>
 __device__ __forceinline__ bool sweep_tile(const Ray& rl,
                                            const SegmentCull& cull,
-                                           float guard, const float4* s_tri,
+                                           const Ray& rm, float guard,
+                                           const float4* s_tri,
                                            const float4* s_tc, int base,
                                            int m, int chunk, int trunc,
                                            int* best) {
-  const Vec3 o = {rl.ox, rl.oy, rl.oz}, d = {rl.dx, rl.dy, rl.dz};
+  const Vec3 o = {rm.ox, rm.oy, rm.oz}, d = {rm.dx, rm.dy, rm.dz};
   const float dd = rl.dx * rl.dx + rl.dy * rl.dy + rl.dz * rl.dz;
   for (int k = 0, f0 = 0; f0 < m; ++k, f0 += chunk) {
     float t_end = rl.tmax;
@@ -590,12 +525,12 @@ __device__ __forceinline__ bool sweep_tile(const Ray& rl,
       const float4 b = s_tri[3 * f + 1];
       if (kAny) {
         float t;
-        if (mt_hit(o, d, rl.tmin, rl.tmax, a.x, a.y, a.z, a.w, b.x, b.y,
+        if (mt_hit(o, d, rm.tmin, rm.tmax, a.x, a.y, a.z, a.w, b.x, b.y,
                    b.z, b.w, c.x, &t)) {
           return true;
         }
       } else {
-        *best = min(*best, mt_packed(o, d, rl.tmin, rl.tmax, a.x, a.y, a.z,
+        *best = min(*best, mt_packed(o, d, rm.tmin, rm.tmax, a.x, a.y, a.z,
                                      a.w, b.x, b.y, b.z, b.w, c.x, trunc,
                                      base + f));
       }
@@ -625,6 +560,111 @@ __device__ __forceinline__ Ray to_object(const Ray& r, float tmax,
   *inv_s_out = inv_s;
   return {ol.x * inv_s, ol.y * inv_s, ol.z * inv_s, dl.x, dl.y, dl.z,
           r.tmin * inv_s, tmax * inv_s};
+}
+
+// B6's sweep of one lane's candidate instance (shared_blas_sweep, and
+// each round of cand_fused): the lane's segment [tmin, tmx] in the
+// candidate's object frame (to_object), the triangle table swept tile by
+// tile with the triangle-chunk cull (sweep_tile, closest hit), and the
+// least packed word, in object units, rescaled to world units, repacked and
+// folded into *best (world units) and *binst. The object best starts at
+// the packed miss: the two words are in different units, and only the
+// segment's end carries the world best in. A table of one tile is staged
+// once per launch (*staged, block-uniform, names the tile in shared
+// memory); a wider one tile by tile, with barriers that the whole block
+// takes, so a lane that is not sweeping takes part in them only. Closest
+// hit has no early exit: the block stages every tile.
+__device__ __forceinline__ void blas_sweep(
+    bool sweeping, const Ray& r, float tmx, int cand,
+    const float* __restrict__ inst_tbl, int m_tbl,
+    const float* __restrict__ tri_tbl, int f_pad,
+    const float* __restrict__ tri_bounds, int tb_cols, int chunk,
+    float scale, float guard, int trunc, float4* s_tri, float4* s_tc,
+    int* staged, int* best, int* binst) {
+  Ray rl = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  SegmentCull cull = {0.f, 0.f, 0.f};
+  float inv_s = 1.f;
+  if (sweeping) {
+    rl = to_object(r, tmx, inst_tbl, m_tbl, cand, &inv_s);
+    cull = segment_cull_tri(rl, scale);
+  }
+  int best_obj = kInfBits;
+  for (int base = 0; base < f_pad; base += kFaceTile) {
+    const int m = min(kFaceTile, f_pad - base);
+    if (*staged != base) {
+      __syncthreads();
+      stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, chunk, scale, s_tri,
+                  s_tc);
+      __syncthreads();
+      *staged = base;
+    }
+    if (!sweeping) continue;
+    sweep_tile<false>(rl, cull, rl, guard, s_tri, s_tc, base, m, chunk,
+                      trunc, &best_obj);
+  }
+  if (sweeping && best_obj < kInfBits) {
+    const float t_w = __int_as_float(best_obj & trunc) * (1.0f / inv_s);
+    const int packed_w = (__float_as_int(t_w) & trunc) | (best_obj & ~trunc);
+    if (packed_w < *best) {
+      *best = packed_w;
+      *binst = cand;
+    }
+  }
+}
+
+// B6. Each live lane sweeps the shared triangle table in the object frame
+// of its own candidate instance (cand, a column of inst_tbl (9, m_tbl)
+// [px py pz qx qy qz qw 1/scale radius]), direction rotated but not scaled,
+// so t is in object units; the least packed word is rescaled to world
+// units, repacked and folded into the incoming best. Ties of the truncated
+// t order by face row. A lane is live when it has a candidate in [0,
+// m_tbl) and tmax_eff = min(tmax, top(best_in)) >= tmin; it reads cand,
+// best_in and binst_in, then tmin and tmax where it has a candidate, then
+// the other six ray rows where it is live. The sweep is blas_sweep with
+// the segment ending at tmax_eff (scaled into object units); a block with
+// no live lane leaves before it stages a table.
+__global__ void __launch_bounds__(kThreads)
+shared_blas_sweep(const float* __restrict__ rays, int n,
+                  const int* __restrict__ cand,
+                  const int* __restrict__ best_in,
+                  const int* __restrict__ binst_in,
+                  const float* __restrict__ inst_tbl, int m_tbl,
+                  const float* __restrict__ tri_tbl, int f_pad, int pos_bits,
+                  const float* __restrict__ tri_bounds, int tb_cols,
+                  int chunk, float scale, float guard,
+                  int* __restrict__ best_out, int* __restrict__ binst_out) {
+  __shared__ float4 s_tri[kFaceTile * 3];
+  __shared__ float4 s_tc[3 * kFaceTile / kMinTriChunk];
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in_range = i < n;
+  const int trunc = ~((1 << pos_bits) - 1);
+  Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  int k = -1, best = kInfBits, binst = 0;
+  float tmax_eff = -1.f;
+  bool live = false;
+  if (in_range) {
+    k = cand[i];
+    best = best_in[i];
+    binst = binst_in[i];
+    if (k >= 0 && k < m_tbl) {
+      r.tmin = rays[6 * (size_t)n + i];
+      r.tmax = rays[7 * (size_t)n + i];
+      tmax_eff = fminf(r.tmax, __int_as_float(best & trunc));
+      live = tmax_eff >= r.tmin;
+      if (live) load_origin_dir(rays, n, i, &r);
+    }
+  }
+  if (__syncthreads_or(live)) {
+    int staged = -1;
+    blas_sweep(live, r, tmax_eff, k, inst_tbl, m_tbl, tri_tbl, f_pad,
+               tri_bounds, tb_cols, chunk, scale, guard, trunc, s_tri, s_tc,
+               &staged, &best, &binst);
+  }
+  if (in_range) {
+    best_out[i] = best;
+    binst_out[i] = binst;
+  }
 }
 
 // B8. The any-hit twin of B6: does the lane's candidate instance block its
@@ -671,8 +711,8 @@ shared_blas_any(const float* __restrict__ rays, int n,
       stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, chunk, scale, s_tri,
                   s_tc);
       __syncthreads();
-      if (walking && sweep_tile<true>(rl, cull, guard, s_tri, s_tc, base, m,
-                                      chunk, 0, nullptr)) {
+      if (walking && sweep_tile<true>(rl, cull, rl, guard, s_tri, s_tc, base,
+                                      m, chunk, 0, nullptr)) {
         occ = 1;
         walking = false;
       }
@@ -681,81 +721,250 @@ shared_blas_any(const float* __restrict__ rays, int n,
   if (in_range) occ_out[i] = occ;
 }
 
+// B9's two rays of a lane for instance k: rl, the triangle cull's, in
+// B8's frame (to_object: direction rotated, not scaled; segment scaled by
+// 1/scale), and rm, the one its plain version tests: the same origin, the
+// direction also scaled by 1/scale (the floats B7 computes), the world
+// segment [tmin, tmax] as given.
+__device__ __forceinline__ void any_rays(const Ray& r,
+                                         const float* __restrict__ inst_tbl,
+                                         int m_tbl, int k, Ray* rl, Ray* rm) {
+  float inv_s;
+  *rl = to_object(r, r.tmax, inst_tbl, m_tbl, k, &inv_s);
+  *rm = {rl->ox,         rl->oy,         rl->oz, rl->dx * inv_s,
+         rl->dy * inv_s, rl->dz * inv_s, r.tmin, r.tmax};
+}
+
+// B9's walk of one lane over the staged tile [0, m): the instance chunks
+// and their instances in table order, each entered where reaches passes
+// with the lane's own tmax as the far limit, and swept with the
+// triangle-chunk cull (sweep_tile on any_rays); true at the first face
+// whose hit lies in [tmin, tmax]. Each pass of the outer loop first moves
+// the lane on to its own next reached instance, then sweeps it: the lanes
+// of a warp sweep together, each its own instance (the staged faces are
+// broadcasts), so a warp sweeps as often as its lane with the most
+// reached instances, not once per instance that any of its lanes reaches.
+__device__ __forceinline__ bool any_walk_tile(
+    const Ray& r, const float* __restrict__ inst_tbl, int m_tbl,
+    const float* __restrict__ inst_bounds, int ic_cols, int n_ichunks,
+    int inst_chunk, const Slack slack, const float4* s_tri,
+    const float4* s_tc, int m, int chunk, float scale, float guard) {
+  int ic = 0, k = 0, k_end = 0;  // the walk's place: chunk ic, up to k_end
+  for (;;) {
+    int found = -1;
+    while (found < 0) {
+      if (k == k_end) {
+        if (ic == n_ichunks) break;
+        const bool met = reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
+                                 __ldg(inst_bounds + 1 * ic_cols + ic),
+                                 __ldg(inst_bounds + 2 * ic_cols + ic),
+                                 __ldg(inst_bounds + 3 * ic_cols + ic),
+                                 r.tmax, slack);
+        k = ic * inst_chunk;
+        k_end = met ? k + inst_chunk : k;
+        ++ic;
+        continue;
+      }
+      if (reaches(r, __ldg(inst_tbl + 0 * m_tbl + k),
+                  __ldg(inst_tbl + 1 * m_tbl + k),
+                  __ldg(inst_tbl + 2 * m_tbl + k),
+                  __ldg(inst_tbl + 8 * m_tbl + k), r.tmax, slack)) {
+        found = k;
+      }
+      ++k;
+    }
+    if (found < 0) return false;
+    Ray rl, rm;
+    any_rays(r, inst_tbl, m_tbl, found, &rl, &rm);
+    if (sweep_tile<true>(rl, segment_cull_tri(rl, scale), rm, guard, s_tri,
+                         s_tc, 0, m, chunk, 0, nullptr)) {
+      return true;
+    }
+  }
+}
+
+// Sparse B9: triangle chunks a thread sweeps between two checks of the
+// blocked flag.
+constexpr int kB9Chunks = 2;
+
 // B9. The any-hit twin of B7: is any triangle of any instance inside the
-// ray's [tmin, tmax]? The same (chunk, instance) walk in table order, the
-// direction scaled by 1/scale so t stays in world units and tmin, tmax are
-// used as given. There is no running best: both sphere tests take the
-// lane's own tmax as the far limit, and the lane leaves at its first
-// blocking triangle.
+// ray's [tmin, tmax]? An instance is swept where the ray reaches both its
+// chunk's covering sphere and its own bounding sphere, with the lane's own
+// tmax as the far limit (no running best); the direction is scaled by
+// 1/scale, so t stays in world units and tmin, tmax are used as given.
+// Any hit is an OR over the (instance, face) pairs, so any split of the
+// pairs over threads gives the plain version's bit, each pair being tested
+// with the same floats (any_rays' rm, then mt_hit); the triangle-chunk
+// cull skips only pairs that cannot hit (the cull's comment above extends
+// its argument to B9's direction).
+//
+// Design: the frame's backstop batches hold ~0.5-2M lanes of which a few
+// dozen are live, scattered, and one thread per ray leaves the card idle
+// while those few walk ~10^4 pairs each. So each block reads tmin and tmax
+// of its 256 lanes and compacts its live lanes in lane order (a ballot
+// prefix); a block with none writes zeros and leaves. Below sparse_below
+// live lanes (the wrapper's B9_SPARSE_LIVE) the block takes one live ray
+// at a time: each thread tests one instance (chunk sphere, then its own
+// sphere), the reached instances' rays and cull terms go to a shared list,
+// and the (instance, triangle chunk) pairs are split over all threads,
+// faces from the staged tile, kB9Chunks per thread between barriers that
+// OR the threads' hits, so the block leaves the ray at its first hit. At
+// or above it, each of the first n_live threads walks one compacted live
+// lane in B7's order (any_walk_tile), with faces from the staged tile.
+// Both put the tile loop outermost, so a table of one tile (512 faces) is
+// staged once; every barrier sits in control flow that is uniform over the
+// block (n_live, the list's length and the OR are results of barriers).
 __global__ void __launch_bounds__(kThreads)
 mesh_instances_any(const float* __restrict__ rays, int n,
                    const float* __restrict__ inst_tbl, int m_tbl,
                    const float* __restrict__ inst_bounds, int ic_cols,
                    int n_ichunks, int inst_chunk, const Slack slack,
                    const float* __restrict__ tri_tbl, int f_pad,
+                   const float* __restrict__ tri_bounds, int tb_cols,
+                   int chunk, float scale, float guard, int sparse_below,
                    int* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rays, n, i);
-  int occ = 0;
-  if (r.tmax >= r.tmin) {
-    for (int ic = 0; ic < n_ichunks && !occ; ++ic) {
-      if (!reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
-                   __ldg(inst_bounds + 1 * ic_cols + ic),
-                   __ldg(inst_bounds + 2 * ic_cols + ic),
-                   __ldg(inst_bounds + 3 * ic_cols + ic), r.tmax, slack)) {
-        continue;
+  __shared__ float4 s_tri[kFaceTile * 3];
+  __shared__ float4 s_tc[3 * kFaceTile / kMinTriChunk];
+  __shared__ float4 s_obj[3 * kThreads];  // sparse: reached instances' rays
+  __shared__ int s_live[kThreads];        // the live lanes, in lane order
+  __shared__ int s_occ[kThreads];         // sparse: their blocked bits
+  __shared__ int s_warp[kThreads / 32];   // live lanes per warp
+  __shared__ int s_count;                 // sparse: instances listed so far
+
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * kThreads + t;
+  float tmin = 0.f, tmax = -1.f;
+  if (i < n) {
+    tmin = rays[6 * (size_t)n + i];
+    tmax = rays[7 * (size_t)n + i];
+  }
+  const bool live = tmax >= tmin;
+  const unsigned ballot = __ballot_sync(0xffffffffu, live);
+  if ((t & 31) == 0) s_warp[t >> 5] = __popc(ballot);
+  if (t == 0) s_count = 0;
+  const int n_live = __syncthreads_count(live);
+  if (i < n && !live) occ_out[i] = 0;
+  if (n_live == 0) return;
+  if (live) {
+    int slot = __popc(ballot & ((1u << (t & 31)) - 1u));
+    for (int w = 0; w < (t >> 5); ++w) slot += s_warp[w];
+    s_live[slot] = i;
+    s_occ[slot] = 0;
+  }
+  __syncthreads();
+
+  if (n_live >= sparse_below) {
+    // Dense: thread t walks the t-th live lane.
+    const bool mine = t < n_live;
+    Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+    if (mine) r = load_ray(rays, n, s_live[t]);
+    bool walking = mine;
+    int occ = 0;
+    for (int base = 0; base < f_pad; base += kFaceTile) {
+      const int m = min(kFaceTile, f_pad - base);
+      if (!__syncthreads_or(walking)) break;
+      stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, chunk, scale, s_tri,
+                  s_tc);
+      __syncthreads();
+      if (walking && any_walk_tile(r, inst_tbl, m_tbl, inst_bounds, ic_cols,
+                                   n_ichunks, inst_chunk, slack, s_tri, s_tc,
+                                   m, chunk, scale, guard)) {
+        occ = 1;
+        walking = false;
       }
-      for (int k = ic * inst_chunk; k < (ic + 1) * inst_chunk && !occ; ++k) {
-        const float px = __ldg(inst_tbl + 0 * m_tbl + k);
-        const float py = __ldg(inst_tbl + 1 * m_tbl + k);
-        const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
-        const float brw = __ldg(inst_tbl + 8 * m_tbl + k);
-        if (!reaches(r, px, py, pz, brw, r.tmax, slack)) continue;
-        const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
-        const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
-        const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
-        const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
-        const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
-        Vec3 ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
-        ol.x = ol.x * inv_s;
-        ol.y = ol.y * inv_s;
-        ol.z = ol.z * inv_s;
-        Vec3 dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
-        dl.x = dl.x * inv_s;
-        dl.y = dl.y * inv_s;
-        dl.z = dl.z * inv_s;
-        for (int f = 0; f < f_pad; ++f) {
-          const float* row = tri_tbl + (size_t)f * 9;
-          float t;
-          if (mt_hit(ol, dl, r.tmin, r.tmax, __ldg(row + 0), __ldg(row + 1),
-                     __ldg(row + 2), __ldg(row + 3), __ldg(row + 4),
-                     __ldg(row + 5), __ldg(row + 6), __ldg(row + 7),
-                     __ldg(row + 8), &t)) {
-            occ = 1;
+    }
+    if (mine) occ_out[s_live[t]] = occ;
+    return;
+  }
+
+  // Sparse: the whole block on one live ray at a time.
+  int listed = 0;  // s_count at the start of the instance batch
+  for (int base = 0; base < f_pad; base += kFaceTile) {
+    const int m = min(kFaceTile, f_pad - base);
+    const int n_tc = m / chunk;  // triangle chunks in the tile
+    __syncthreads();
+    stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, chunk, scale, s_tri,
+                s_tc);
+    __syncthreads();
+    for (int j = 0; j < n_live; ++j) {
+      if (s_occ[j]) continue;  // blocked in an earlier tile
+      const Ray r = load_ray(rays, n, s_live[j]);
+      bool blocked = false;
+      for (int k0 = 0; k0 < m_tbl && !blocked; k0 += kThreads) {
+        const int k = k0 + t;
+        bool pass = false;
+        if (k < m_tbl) {
+          const int ic = k / inst_chunk;
+          pass = reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
+                         __ldg(inst_bounds + 1 * ic_cols + ic),
+                         __ldg(inst_bounds + 2 * ic_cols + ic),
+                         __ldg(inst_bounds + 3 * ic_cols + ic), r.tmax,
+                         slack) &&
+                 reaches(r, __ldg(inst_tbl + 0 * m_tbl + k),
+                         __ldg(inst_tbl + 1 * m_tbl + k),
+                         __ldg(inst_tbl + 2 * m_tbl + k),
+                         __ldg(inst_tbl + 8 * m_tbl + k), r.tmax, slack);
+        }
+        if (pass) {
+          float inv_s;
+          const Ray rl = to_object(r, r.tmax, inst_tbl, m_tbl, k, &inv_s);
+          const SegmentCull cull = segment_cull_tri(rl, scale);
+          const int slot = atomicAdd(&s_count, 1) - listed;
+          s_obj[3 * slot + 0] = make_float4(rl.ox, rl.oy, rl.oz, rl.dx);
+          s_obj[3 * slot + 1] = make_float4(rl.dy, rl.dz, rl.tmin, rl.tmax);
+          s_obj[3 * slot + 2] =
+              make_float4(inv_s, cull.inv_dd, cull.m_o, cull.slope);
+        }
+        const int n_inst = __syncthreads_count(pass);
+        listed += n_inst;
+        // Task p = s * n_tc + c, triangle chunk c of listed instance s:
+        // thread t takes p = t, t + kThreads, ...
+        int s = t / n_tc, c = t - s * n_tc;
+        for (int p0 = 0; p0 < n_inst * n_tc; p0 += kThreads * kB9Chunks) {
+          bool hit = false;
+          for (int q = 0; q < kB9Chunks && s < n_inst && !hit; ++q) {
+            const float4 a = s_obj[3 * s + 0];
+            const float4 b = s_obj[3 * s + 1];
+            const float4 e = s_obj[3 * s + 2];
+            const Ray rl = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+            const Ray rm = {a.x,       a.y,       a.z,    a.w * e.x,
+                            b.x * e.x, b.y * e.x, r.tmin, r.tmax};
+            hit = sweep_tile<true>(rl, {e.y, e.z, e.w}, rm, guard,
+                                   s_tri + 3 * c * chunk, s_tc + 3 * c, 0,
+                                   chunk, chunk, 0, nullptr);
+            c += kThreads;
+            while (c >= n_tc) {
+              c -= n_tc;
+              ++s;
+            }
+          }
+          if (__syncthreads_or(hit)) {
+            blocked = true;
             break;
           }
         }
       }
+      if (blocked && t == 0) s_occ[j] = 1;
     }
   }
-  occ_out[i] = occ;
+  __syncthreads();
+  if (t < n_live) occ_out[s_live[t]] = s_occ[t];
 }
 
 // B10. The candidate loop in one launch: rounds + 1 bound scans (B5's
 // contract and walk, scan_walk, with tmax_eff = min(tmax, best t) and a
 // closed cursor never rescanning), and after each of the first `rounds`
-// scans the sweep of the candidate found (B6's contract, with B8's
-// triangle-chunk cull, sweep_tile). Shared memory (dynamic, < 48 KB) holds
-// a scan tile of whole instance chunks (512 rows) with their covering
-// spheres and a face tile (512 faces) with its chunks' spheres and guard
-// cones (36,352 B at triangle chunk 8, 16-row instance chunks); a table of
-// one tile stays for the whole launch, a wider one is staged tile by tile
-// on every pass, and the barriers that staging needs are taken by the
-// whole block, so a pass runs when any lane of the block needs it. Per
-// lane the walk is the loop's: the same candidates in the same order and
-// the culls remove only rows and faces that cannot change a word, so best,
-// binst and the last key equal the multi-launch loop's words.
+// scans the sweep of the candidate found (B6's contract and walk,
+// blas_sweep, with the triangle-chunk cull of sweep_tile). Shared memory
+// (dynamic, < 48 KB) holds a scan tile of whole instance chunks (512 rows)
+// with their covering spheres and a face tile (512 faces) with its chunks'
+// spheres and guard cones (36,352 B at triangle chunk 8, 16-row instance
+// chunks); a table of one tile stays for the whole launch, a wider one is
+// staged tile by tile on every pass, and the barriers that staging needs are
+// taken by the whole block, so a pass runs when any lane of the block needs
+// it. Per lane the walk is the loop's: the same candidates in the same order
+// and the culls remove only rows and faces that cannot change a word, so
+// best, binst and the last key equal the multi-launch loop's words.
 __global__ void __launch_bounds__(kThreads)
 cand_fused(const float* __restrict__ rays, int n,
            const float4* __restrict__ bscan, int bs_pos_bits,
@@ -807,35 +1016,9 @@ cand_fused(const float* __restrict__ rays, int n,
     const int cand = key < kInfBits ? (key & bs_mask) : m_tbl;
     const bool sweeping = cand < m_tbl;
     if (!__syncthreads_or(sweeping)) continue;
-    Ray rl = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-    SegmentCull tcull = {0.f, 0.f, 0.f};
-    float inv_s = 1.f;
-    if (sweeping) {
-      rl = to_object(r, tmx, inst_tbl, m_tbl, cand, &inv_s);
-      tcull = segment_cull_tri(rl, tri_scale);
-    }
-    int best_obj = kInfBits;
-    for (int base = 0; base < f_pad; base += kFaceTile) {
-      const int m = min(kFaceTile, f_pad - base);
-      if (tri_staged != base) {
-        __syncthreads();
-        stage_faces(tri_tbl, base, m, tri_bounds, tb_cols, tri_chunk,
-                    tri_scale, s_tri, s_tc);
-        __syncthreads();
-        tri_staged = base;
-      }
-      if (!sweeping) continue;
-      sweep_tile<false>(rl, tcull, guard, s_tri, s_tc, base, m, tri_chunk,
-                        trunc, &best_obj);
-    }
-    if (sweeping && best_obj < kInfBits) {
-      const float t_w = __int_as_float(best_obj & trunc) * (1.0f / inv_s);
-      const int packed_w = (__float_as_int(t_w) & trunc) | (best_obj & ~trunc);
-      if (packed_w < best) {
-        best = packed_w;
-        binst = cand;
-      }
-    }
+    blas_sweep(sweeping, r, tmx, cand, inst_tbl, m_tbl, tri_tbl, f_pad,
+               tri_bounds, tb_cols, tri_chunk, tri_scale, guard, trunc, s_tri,
+               s_tc, &tri_staged, &best, &binst);
   }
   if (in_range) {
     best_out[i] = best;
@@ -844,7 +1027,7 @@ cand_fused(const float* __restrict__ rays, int n,
   }
 }
 
-// The triangle chunk sizes B8 and B10 take: a multiple of kMinTriChunk
+// The triangle chunk sizes B6, B8, B9 and B10 take: a multiple of kMinTriChunk
 // that divides 64 (the triangle table's padding, so every tile holds whole
 // chunks), with tb_cols >= f_pad / chunk columns of bounds.
 inline bool tri_chunks_ok(int f_pad, int tb_cols, int chunk) {
@@ -877,18 +1060,25 @@ extern "C" int drts_bound_scan(const float* rays, int n, const int* cursor,
   return (int)cudaGetLastError();
 }
 
+// tri_bounds: (10, tb_cols) covering spheres and guard cones of the
+// triangle table's chunks of `chunk` rows; scale: the triangle cull's
+// rounding margin and guard the least |dl . A| of a skipped face
+// (sweep_tile).
 extern "C" int drts_shared_blas_sweep(const float* rays, int n,
                                       const int* cand, const int* best_in,
                                       const int* binst_in,
                                       const float* inst_tbl, int m_tbl,
                                       const float* tri_tbl, int f_pad,
-                                      int pos_bits, int* best_out,
+                                      int pos_bits, const float* tri_bounds,
+                                      int tb_cols, int chunk, float scale,
+                                      float guard, int* best_out,
                                       int* binst_out, cudaStream_t stream) {
-  if (n > 0) {
-    shared_blas_sweep<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, cand, best_in, binst_in, inst_tbl, m_tbl, tri_tbl, f_pad,
-        pos_bits, best_out, binst_out);
-  }
+  if (n <= 0) return (int)cudaGetLastError();
+  if (!tri_chunks_ok(f_pad, tb_cols, chunk)) return cudaErrorInvalidValue;
+  shared_blas_sweep<<<grid_for(n), kThreads, 0, stream>>>(
+      rays, n, cand, best_in, binst_in, inst_tbl, m_tbl, tri_tbl, f_pad,
+      pos_bits, tri_bounds, tb_cols, chunk, scale, guard, best_out,
+      binst_out);
   return (int)cudaGetLastError();
 }
 
@@ -907,10 +1097,7 @@ extern "C" int drts_mesh_instances_closest(
   return (int)cudaGetLastError();
 }
 
-// tri_bounds: (10, tb_cols) covering spheres and guard cones of the
-// triangle table's chunks of `chunk` rows; scale: the triangle cull's
-// rounding margin and guard the least |dl . A| of a skipped face
-// (sweep_tile).
+// tri_bounds, chunk, scale and guard as drts_shared_blas_sweep's.
 extern "C" int drts_shared_blas_any(const float* rays, int n, const int* cand,
                                     const int* occ_in, const float* inst_tbl,
                                     int m_tbl, const float* tri_tbl, int f_pad,
@@ -925,16 +1112,24 @@ extern "C" int drts_shared_blas_any(const float* rays, int n, const int* cand,
   return (int)cudaGetLastError();
 }
 
+// tri_bounds, chunk, scale and guard as drts_shared_blas_sweep's;
+// sparse_below: a block with fewer live lanes takes them one at a time
+// with all its threads (mesh_instances_any).
 extern "C" int drts_mesh_instances_any(
     const float* rays, int n, const float* inst_tbl, int m_tbl,
     const float* inst_bounds, int ic_cols, int n_ichunks, int inst_chunk,
     float bound_scale, float bound_pad, const float* tri_tbl, int f_pad,
-    int* occ_out, cudaStream_t stream) {
-  if (n > 0) {
-    mesh_instances_any<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
-        Slack{bound_scale, bound_pad}, tri_tbl, f_pad, occ_out);
+    const float* tri_bounds, int tb_cols, int chunk, float scale,
+    float guard, int sparse_below, int* occ_out, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (inst_chunk < 1 || n_ichunks < 1 || m_tbl != n_ichunks * inst_chunk ||
+      ic_cols < n_ichunks || !tri_chunks_ok(f_pad, tb_cols, chunk)) {
+    return cudaErrorInvalidValue;
   }
+  mesh_instances_any<<<grid_for(n), kThreads, 0, stream>>>(
+      rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
+      Slack{bound_scale, bound_pad}, tri_tbl, f_pad, tri_bounds, tb_cols,
+      chunk, scale, guard, sparse_below, occ_out);
   return (int)cudaGetLastError();
 }
 

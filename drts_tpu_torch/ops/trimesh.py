@@ -65,7 +65,7 @@ class TriMesh:
     bound_radius: torch.Tensor  # scalar: mesh-space bounding radius
     # BLAS tables (built once per mesh): padded Morton-ordered triangle
     # rows, and per run of tri_chunk rows a covering sphere and a guard
-    # cone, by which B8 and B10 cull per lane (trimesh_kernels.
+    # cone, by which B6, B8, B9 and B10 cull per lane (trimesh_kernels.
     # tri_chunk_bounds). The reference's tri_bounds has 8 rows: 0-3 the
     # same spheres (at its own chunk), 4-7 normal cones for its convex
     # back-face cull, which the port does not have; its n_chunks, convex
@@ -341,8 +341,8 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
                 mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
         else:
             t_p, face_p, inst_p = tk.intersect_mesh_instances_cand(
-                rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
-                rounds=rounds, block=block_size)
+                rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+                mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
     else:
         t_p, face_p, inst_p = tk.intersect_mesh_instances(
             rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
@@ -398,8 +398,8 @@ def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
             mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
     else:
         occ = tk.intersect_mesh_instances_any(
-            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
-            block=block_size) > 0
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+            mesh.tri_chunk, n_ic, block=block_size) > 0
     return occ.reshape(lead)
 
 

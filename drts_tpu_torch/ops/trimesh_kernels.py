@@ -20,7 +20,9 @@ kernel for Hopper in ``csrc/trimesh.cu``:
   blocking triangle.
 - ``intersect_mesh_instances_any`` replaces
   ``trimesh_pallas.intersect_mesh_instances_any`` (B9): the any-hit twin of
-  B7, the exact backstop of the any-hit candidate loop.
+  B7, the exact backstop of the any-hit candidate loop. Its kernel compacts
+  each block's live lanes; a block with fewer than ``B9_SPARSE_LIVE`` of
+  them puts all its threads on one live ray at a time.
 - ``cand_fused`` replaces ``trimesh_pallas.cand_fused`` (B10): every round
   of the candidate loop (B5, then B6 on the candidate found) and the last
   scan in one launch, each lane walking its own candidates in the loop's
@@ -30,29 +32,32 @@ What the TPU kernels were: blocks of 2,048 rays that decide per block (a
 bundle's origin sphere and direction cone cull instance chunks, instances
 and triangle chunks for the whole block; B6 loops over the block's
 distinct candidates). Those culls are conservative and change no result.
-On the H100 each kernel takes one thread per ray, which reads its own
-candidate row and keeps its best in a register; a pair costs ~25 (B5) or
-~50 (B6, B7) separately rounded float32 operations against 32-48 bytes per
-ray, so all of them are bound by the instruction rate, not by memory. Culls
-kept: a dead lane (tmax < tmin) does no work and a block of dead lanes
-leaves before it reads a table (B5, B6, B8, B10); B5 and B10's scan test
-each ray against the instance chunks' covering spheres, with a segment
-that ends at its best key so far (B1's half-line cull,
+On the H100 each kernel but B9 takes one thread per ray, which reads its
+own candidate row and keeps its best in a register; a pair costs ~25 (B5)
+or ~50 (B6-B9) separately rounded float32 operations against 32-48 bytes
+per ray, so all of them are bound by the instruction rate, not by memory.
+Culls kept: a dead lane (tmax < tmin) does no work and a block of dead
+lanes leaves before it reads a table (B5, B6, B8, B9, B10); B5 and B10's
+scan test each ray against the instance chunks' covering spheres, with a
+segment that ends at its best key so far (B1's half-line cull,
 ``intersect_kernels.segment_misses``), sweep only the rows of the chunks
 they meet and take no root where the discriminant is negative
 (``bound_scan_walk`` repeats the walk and ``bound_scan_work`` counts it);
-B8 and B10's sweep test the ray, in the candidate's object frame, against
-the covering spheres of the triangle table's chunks (``tri_bounds``, runs
-of ``chunk`` Morton-ordered rows), and in a chunk the segment misses they
-skip each face that the ray does not graze (``face_guards``;
-csrc/trimesh.cu states why a skip is exact against Moeller-Trumbore);
-``tri_sweep_walk`` repeats that sweep, ``shared_blas_any_walk`` and
-``cand_fused_walk`` the two kernels, and ``shared_blas_any_work`` and
-``cand_fused_work`` count them; B7 and B9 test each ray against the
-instance chunks' covering spheres and the instances' bounding spheres,
-with the ray's running best (B7) or its own tmax (B9) as the far limit,
-and sweep only what passes. B6, B7 and B9 visit every face of an
-instance they sweep. Left out, none of which changes a result: the
+B6, B8, B9 and B10's sweep test the ray, in the instance's object frame,
+against the covering spheres of the triangle table's chunks
+(``tri_bounds``, runs of ``chunk`` Morton-ordered rows), and in a chunk the
+segment misses they skip each face that the ray does not graze
+(``face_guards``; csrc/trimesh.cu states why a skip is exact against
+Moeller-Trumbore, B9's direction of length 1/scale included);
+``tri_sweep_walk`` repeats that sweep, ``shared_blas_any_walk``,
+``intersect_mesh_instances_any_walk`` and ``cand_fused_walk`` the kernels
+of B8, B9 and B10, and ``shared_blas_sweep_work``,
+``shared_blas_any_work``, ``intersect_mesh_instances_any_work`` and
+``cand_fused_work`` count the walks of B6, B8, B9 and B10; B7 and B9 test
+each ray against the instance chunks' covering spheres and the instances'
+bounding spheres, with the ray's running best (B7) or its own tmax (B9)
+as the far limit, and sweep only what passes. B7 visits every face of an
+instance it sweeps. Left out, none of which changes a result: the
 reference's normal-cone and convex back-face culls, B10's bundle cone,
 its far-chunk cut (farc) and its front-to-back chunk order (MESH_F2B): a
 packed min does not depend on the order of the visits.
@@ -84,7 +89,7 @@ TRI_PAD = 64          # the triangle table is padded to a multiple of this
 # each (tri_bounds): the chunk size the kernels use, chosen by timing 8,
 # 16, 32 and 64 on the card (chip_smoke.py phases 10 and 12; PERF.md).
 TRI_CHUNK = 8
-# The triangle-chunk cull of B8 and B10 (csrc/trimesh.cu derives both):
+# The triangle-chunk cull of B6, B8-B10 (csrc/trimesh.cu derives both):
 # a lane skips a face of a chunk whose covering sphere its object-space
 # segment misses by more than the margin of TRI_CULL_SCALE, unless the ray
 # grazes the face (|d . A| < TRI_GUARD, face_guards). Moeller-Trumbore's
@@ -105,6 +110,11 @@ ANY_ROUNDS = 2        # any-hit candidate rounds before the serial backstop
 # (the kernel takes both, and INST_CHUNK, as arguments).
 BOUND_SCALE = 1.0001
 BOUND_PAD = 1e-5
+# B9's kernel: a block with fewer live lanes than this takes them one at a
+# time with all its threads, the others one thread per live lane; chosen
+# by timing thresholds on the card (chip_smoke.py phase 10; PERF.md). It
+# changes no result.
+B9_SPARSE_LIVE = 32
 
 
 # ----------------------------------------------------------------------------
@@ -470,8 +480,8 @@ def _check_tri_bounds(tri_bounds, chunk, f_pad, device):
 
 
 def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
-                   any_hit: bool = False):
-    """The face sweep of B8 and B10, lane by lane in the kernels'
+                   any_hit: bool = False, rm=None):
+    """The face sweep of B6, B8, B9 and B10, lane by lane in the kernels'
     operations and order. rl (8, L): live lanes' rays in their candidate's
     object frame [ol dl tmn tmx]. The chunks go in table order; a chunk's
     covering sphere (a column of tri_bounds) is tested against the
@@ -481,14 +491,17 @@ def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
     the chunk's guard cone gives c |dl . w| - s sqrt(dl.dl - (dl . w)^2) -
     h >= TRI_GUARD (rows 4-9 of tri_bounds), else the faces with |dl . A|
     < TRI_GUARD (face_guards). The any-hit sweep leaves at its first
-    blocking face. Returns (res (L,) int32: the least packed word, or for
+    blocking face. Moeller-Trumbore tests rm (8, L), B9's ray with the
+    direction scaled by 1/scale and the world segment, where given, else
+    rl itself. Returns (res (L,) int32: the least packed word, or for
     any_hit the first blocking row; INF_BITS where none; met (L, C) bool:
     the chunks met among those tested; work (L, 5) int64: chunks tested,
     chunks met, cones tested, faces guard-tested, faces swept)."""
     n, f_pad = rl.shape[1], tri_tbl.shape[0]
     n_chunks = f_pad // chunk
     dev = rl.device
-    ol, dl, tmn, tmx = tuple(rl[0:3]), tuple(rl[3:6]), rl[6], rl[7]
+    dl, tmx = tuple(rl[3:6]), rl[7]
+    mt = rl if rm is None else rm
     cull = tri_segment_cull(rl)
     spheres = tri_cull_spheres(tri_bounds)
     guards = face_guards(tri_tbl)
@@ -514,8 +527,9 @@ def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
         g = (dl[0][:, None] * ax + dl[1][:, None] * ay
              + dl[2][:, None] * az).abs()
         swept = (met[:, k, None] | ~(g >= TRI_GUARD)) & ~coned[:, None]
-        packed = torch.where(swept, _mt_pairs(ol, dl, tmn, tmx, tri_tbl[lo:hi],
-                                              trunc, pos[lo:hi]), INF_BITS)
+        packed = torch.where(swept, _mt_pairs(
+            tuple(mt[0:3]), tuple(mt[3:6]), mt[6], mt[7], tri_tbl[lo:hi],
+            trunc, pos[lo:hi]), INF_BITS)
         visited = walking[:, None].expand(n, chunk)
         if any_hit:
             hit = packed < INF_BITS
@@ -705,6 +719,7 @@ def bound_scan(rays, bscan_tbl, cursor, inst_bounds, m_tbl: int,
 
 
 def shared_blas_sweep_plain(rays, cand, best, binst, inst_tbl, tri_tbl,
+                            tri_bounds=None, chunk: int = None,
                             block: int = 16384):
     """Plain PyTorch B6. rays (8, N); cand (N,) int32 table position of
     the ray's candidate instance (outside [0, M) = none); best (N,) int32
@@ -715,7 +730,9 @@ def shared_blas_sweep_plain(rays, cand, best, binst, inst_tbl, tri_tbl,
     It sweeps the triangle table in the candidate's object frame with the
     direction rotated but not scaled, so t is in object units; the least
     packed word is rescaled (t * scale) and repacked, and replaces the
-    best where it is smaller. Returns the new (best, binst)."""
+    best where it is smaller. Returns the new (best, binst).
+    ``tri_bounds`` and ``chunk`` are ignored: the kernel's culls do not
+    change the result, which this computes from every face."""
     f_pad, m_tbl = tri_tbl.shape[0], inst_tbl.shape[1]
     trunc = ~((1 << pos_bits(f_pad)) - 1)
     tmin, tmax = rays[6], rays[7]
@@ -762,11 +779,11 @@ def _culled_sweep(rays, idx, cand, best, binst, tmax_eff, inst_tbl,
 
 def shared_blas_sweep_work(rays, cand, best, binst, inst_tbl, tri_tbl,
                            tri_bounds, chunk: int, block: int = 65536):
-    """What B6's sweep would need with B8's triangle-chunk culls
-    (_culled_sweep, in blocks of lanes); B6's kernel itself sweeps every
-    face. Returns ((best, binst) folded from the culled walk, which must
-    equal shared_blas_sweep_plain's, a dict of sums: live, tests, met,
-    cones, guards, rows)."""
+    """The work B6's kernel needs on these rays: its culled walk
+    (_culled_sweep, tri_sweep_walk's closest hit, in blocks of lanes).
+    Returns ((best, binst) folded from the walk, which must equal
+    shared_blas_sweep_plain's, a dict of sums: live, tests, met, cones,
+    guards, rows)."""
     f_pad, m_tbl = tri_tbl.shape[0], inst_tbl.shape[1]
     chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
     trunc = ~((1 << pos_bits(f_pad)) - 1)
@@ -787,27 +804,34 @@ def shared_blas_sweep_work(rays, cand, best, binst, inst_tbl, tri_tbl,
 
 
 def shared_blas_sweep(rays, cand, best, binst, inst_tbl, tri_tbl,
-                      block: int = 16384):
-    """B6; see shared_blas_sweep_plain for the contract. A CUDA tensor
-    launches drts_shared_blas_sweep (csrc/trimesh.cu)."""
+                      tri_bounds, chunk: int, block: int = 16384):
+    """B6; see shared_blas_sweep_plain for the contract. tri_bounds
+    (TRI_BOUND_ROWS, C_pad) holds the covering spheres and guard cones of
+    the triangle table's chunks of `chunk` rows (tri_chunk_bounds); the
+    kernel culls chunks and faces by them per lane, as B8 does
+    (shared_blas_sweep_work walks and counts it). A CUDA tensor launches
+    drts_shared_blas_sweep (csrc/trimesh.cu)."""
     _check_rays(rays)
     n = rays.shape[1]
     for name, x in (("cand", cand), ("best", best), ("binst", binst)):
         _check_words(name, x, n, rays.device)
     _check_table("inst_tbl", inst_tbl, 9, rays.device)
     _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    f_pad = tri_tbl.shape[0]
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
     if rays.device.type == "cpu":
         return shared_blas_sweep_plain(rays, cand, best, binst, inst_tbl,
-                                       tri_tbl, block)
+                                       tri_tbl, tri_bounds, chunk, block)
     lib = backend.kernels()
-    f_pad = tri_tbl.shape[0]
     best_out = torch.empty_like(best)
     binst_out = torch.empty_like(binst)
     rc = lib.drts_shared_blas_sweep(
         rays.data_ptr(), n, cand.data_ptr(), best.data_ptr(),
         binst.data_ptr(), inst_tbl.data_ptr(), inst_tbl.shape[1],
-        tri_tbl.data_ptr(), f_pad, pos_bits(f_pad), best_out.data_ptr(),
-        binst_out.data_ptr(), backend.stream_handle(rays))
+        tri_tbl.data_ptr(), f_pad, pos_bits(f_pad), tri_bounds.data_ptr(),
+        tri_bounds.shape[1], chunk, TRI_CULL_SCALE, TRI_GUARD,
+        best_out.data_ptr(), binst_out.data_ptr(),
+        backend.stream_handle(rays))
     backend.check_launch(rc, "drts_shared_blas_sweep")
     backend.launched("shared_blas_sweep")
     return best_out, binst_out
@@ -1087,29 +1111,26 @@ def shared_blas_any(rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds,
 # B9: the serial any-hit walk over every instance
 
 
-def intersect_mesh_instances_any_plain(rays, inst_tbl, inst_bounds, tri_tbl,
-                                       n_ichunks: int, block: int = 16384,
-                                       work: dict = None):
-    """Plain PyTorch B9. Inputs as intersect_mesh_instances_plain (unit
-    directions). Per ray, 1 where some triangle of some instance has its
-    hit in [tmin, tmax], the direction scaled by 1/scale so t stays in
-    world units and tmin, tmax are used as given. Returns occ (N,) int32.
-
-    The live lanes are compacted and walk the instances in table order; a
-    chunk, then an instance, is entered by the lanes not yet blocked whose
-    segment [tmin, tmax] meets its sphere (_reaches), and a blocked lane
-    leaves the walk. `work`, when given, receives the counts of this call:
-    live lanes, chunk_tests, inst_tests (sphere tests made), sweeps ((ray,
-    instance) pairs entered) and tri_tests ((ray, triangle) pairs up to
-    each sweep's first blocking row)."""
-    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+def _serial_anyhit(rays, inst_tbl, inst_bounds, n_ichunks: int, sweep):
+    """B9's walk over the instances, shared by its plain version and its
+    culled walk. The live lanes are compacted and walk the instances in
+    table order; a chunk, then an instance, is entered by the lanes not yet
+    blocked whose segment [tmin, tmax] meets its sphere (_reaches), and a
+    blocked lane leaves the walk. sweep(rk, row) sweeps instance `row` (a
+    column of inst_tbl) for the entering lanes' rays rk (8, L) and returns
+    their first blocking rows (L,) int32, INF_BITS where none, and (L, W)
+    int64 work. Returns (occ (N,) int32, counts: live lanes, chunk_tests,
+    inst_tests (sphere tests made) and sweeps ((ray, instance) pairs
+    entered), work (N, W) summed over each lane's sweeps)."""
+    n = rays.shape[1]
     if inst_tbl.shape[1] != n_ichunks * INST_CHUNK:
         raise ValueError(f"inst_tbl has {inst_tbl.shape[1]} columns, "
                          f"expected {n_ichunks} x {INST_CHUNK}")
     occ = torch.zeros(n, dtype=torch.int32, device=rays.device)
     live = torch.nonzero(rays[7] >= rays[6])[:, 0]
     counts = {"live": live.numel(), "chunk_tests": 0, "inst_tests": 0,
-              "sweeps": 0, "tri_tests": 0}
+              "sweeps": 0}
+    work = None
     if live.numel():
         r = rays[:, live]
         blocked = torch.zeros(live.numel(), dtype=torch.bool,
@@ -1133,31 +1154,130 @@ def intersect_mesh_instances_any_plain(rays, inst_tbl, inst_bounds, tri_tbl,
                 if sel.numel() == 0:
                     continue
                 counts["sweeps"] += sel.numel()
-                rk = r[:, sel]
-                ol, dl, inv_s = _to_object(rk, row)
-                dl = tuple(x * inv_s for x in dl)
-                first = _sweep_packed(ol, dl, rk[6], rk[7], tri_tbl, 0, block)
-                hit = first < INF_BITS
-                blocked[sel] = hit
-                counts["tri_tests"] += int(
-                    torch.where(hit, first + 1, f_pad).sum())
+                first, w = sweep(r[:, sel], row)
+                blocked[sel] = first < INF_BITS
+                if work is None:
+                    work = torch.zeros((n, w.shape[1]), dtype=torch.int64,
+                                       device=rays.device)
+                work[live[sel]] += w
         occ[live] = blocked.to(torch.int32)
+    return occ, counts, work
+
+
+def intersect_mesh_instances_any_plain(rays, inst_tbl, inst_bounds, tri_tbl,
+                                       tri_bounds, chunk, n_ichunks: int,
+                                       block: int = 16384,
+                                       work: dict = None):
+    """Plain PyTorch B9. Inputs as intersect_mesh_instances_plain (unit
+    directions). Per ray, 1 where some triangle of some instance has its
+    hit in [tmin, tmax], the direction scaled by 1/scale so t stays in
+    world units and tmin, tmax are used as given. Returns occ (N,) int32.
+
+    The walk over the instances is _serial_anyhit's; an entered instance's
+    faces are all swept, up to the first blocking one. ``tri_bounds`` and
+    ``chunk`` are ignored (None will do): the kernel's culls do not change
+    the result.
+    `work`, when given, receives the counts of this call: live lanes,
+    chunk_tests, inst_tests (sphere tests made), sweeps ((ray, instance)
+    pairs entered) and tri_tests ((ray, triangle) pairs up to each
+    sweep's first blocking row)."""
+    f_pad = tri_tbl.shape[0]
+
+    def sweep(rk, row):
+        ol, dl, inv_s = _to_object(rk, row)
+        first = _sweep_packed(ol, tuple(x * inv_s for x in dl), rk[6], rk[7],
+                              tri_tbl, 0, block)
+        tests = torch.where(first < INF_BITS, first + 1, f_pad)
+        return first, tests[:, None].long()
+
+    occ, counts, tests = _serial_anyhit(rays, inst_tbl, inst_bounds,
+                                        n_ichunks, sweep)
     if work is not None:
-        work.update(counts)
+        work.update(counts, tri_tests=0 if tests is None
+                    else int(tests.sum()))
     return occ
 
 
+def intersect_mesh_instances_any_walk(rays, inst_tbl, inst_bounds, tri_tbl,
+                                      tri_bounds, chunk: int,
+                                      n_ichunks: int):
+    """B9's kernel walk, lane by lane in its operations and order: the
+    plain version's walk over the instances (_serial_anyhit), and for each
+    instance entered the culled sweep (tri_sweep_walk, any hit) in B8's
+    frame (direction rotated only, [tmin, tmax] scaled by 1/scale), with
+    Moeller-Trumbore on the plain version's own ray (direction also scaled
+    by 1/scale, the world segment; csrc/trimesh.cu extends the cull's
+    argument to it). Returns (occ (N,) int32, counts as the plain
+    version's, work (N, 5) int64: triangle chunks tested, chunks met,
+    cones tested, faces guard-tested, faces swept, over the lane's
+    sweeps)."""
+    chunk = _check_tri_bounds(tri_bounds, chunk, tri_tbl.shape[0],
+                              rays.device)
+
+    def sweep(rk, row):
+        ol, dl, inv_s = _to_object(rk, row)
+        rl = torch.stack([*ol, *dl, rk[6] * inv_s, rk[7] * inv_s])
+        rm = torch.stack([*ol, *(x * inv_s for x in dl), rk[6], rk[7]])
+        first, _, w = tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk, 0,
+                                     any_hit=True, rm=rm)
+        return first, w
+
+    occ, counts, work = _serial_anyhit(rays, inst_tbl, inst_bounds,
+                                       n_ichunks, sweep)
+    if work is None:
+        work = torch.zeros((rays.shape[1], 5), dtype=torch.int64,
+                           device=rays.device)
+    return occ, counts, work
+
+
+def intersect_mesh_instances_any_work(rays, inst_tbl, inst_bounds, tri_tbl,
+                                      tri_bounds, chunk: int, n_ichunks: int,
+                                      block: int = 262144):
+    """The work B9's kernel needs on these rays
+    (intersect_mesh_instances_any_walk, in blocks of lanes). Returns (the
+    walk's occ (N,), a dict of sums: the plain version's counts (live,
+    chunk_tests, inst_tests, sweeps, and tri_tests: the faces its
+    unculled sweeps visit), and the walk's tests (triangle chunks tested),
+    met, cones, guards and rows (faces swept))."""
+    names = ("tests", "met", "cones", "guards", "rows")
+    out = dict.fromkeys(("live", "chunk_tests", "inst_tests", "sweeps",
+                         "tri_tests", *names), 0)
+    occ = torch.empty(rays.shape[1], dtype=torch.int32, device=rays.device)
+    for s in range(0, rays.shape[1], block):
+        r = rays[:, s:s + block]
+        occ[s:s + block], _, work = intersect_mesh_instances_any_walk(
+            r, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk, n_ichunks)
+        plain = {}
+        intersect_mesh_instances_any_plain(r, inst_tbl, inst_bounds, tri_tbl,
+                                           None, None, n_ichunks, work=plain)
+        for name, count in plain.items():
+            out[name] += count
+        for j, name in enumerate(names):
+            out[name] += int(work[:, j].sum())
+    return occ, out
+
+
 def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
-                                 n_ichunks: int, block: int = 16384):
-    """B9; see intersect_mesh_instances_any_plain for the contract. A CUDA
-    tensor launches drts_mesh_instances_any (csrc/trimesh.cu)."""
+                                 tri_bounds, chunk: int, n_ichunks: int,
+                                 block: int = 16384):
+    """B9; see intersect_mesh_instances_any_plain for the contract.
+    tri_bounds (TRI_BOUND_ROWS, C_pad) holds the covering spheres and guard
+    cones of the triangle table's chunks of `chunk` rows
+    (tri_chunk_bounds), by which the kernel culls each instance's sweep per
+    lane (intersect_mesh_instances_any_walk). A CUDA tensor launches
+    drts_mesh_instances_any (csrc/trimesh.cu), which compacts each block's
+    live lanes and takes a block of fewer than B9_SPARSE_LIVE (read now)
+    one live ray at a time with all its threads."""
     _check_rays(rays)
     _check_table("inst_tbl", inst_tbl, 9, rays.device)
     _check_table("inst_bounds", inst_bounds, 4, rays.device)
     _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    chunk = _check_tri_bounds(tri_bounds, chunk, tri_tbl.shape[0],
+                              rays.device)
     if rays.device.type == "cpu":
         return intersect_mesh_instances_any_plain(
-            rays, inst_tbl, inst_bounds, tri_tbl, n_ichunks, block)
+            rays, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk,
+            n_ichunks, block)
     if (inst_tbl.shape[1] != n_ichunks * INST_CHUNK
             or inst_bounds.shape[1] < n_ichunks):
         raise ValueError(f"inst_tbl {tuple(inst_tbl.shape)} and inst_bounds "
@@ -1170,7 +1290,9 @@ def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
         rays.data_ptr(), n, inst_tbl.data_ptr(), inst_tbl.shape[1],
         inst_bounds.data_ptr(), inst_bounds.shape[1], n_ichunks, INST_CHUNK,
         BOUND_SCALE, BOUND_PAD, tri_tbl.data_ptr(), tri_tbl.shape[0],
-        occ.data_ptr(), backend.stream_handle(rays))
+        tri_bounds.data_ptr(), tri_bounds.shape[1], chunk, TRI_CULL_SCALE,
+        TRI_GUARD, B9_SPARSE_LIVE, occ.data_ptr(),
+        backend.stream_handle(rays))
     backend.check_launch(rc, "drts_mesh_instances_any")
     backend.launched("intersect_mesh_instances_any")
     return occ
@@ -1180,12 +1302,13 @@ def intersect_mesh_instances_any(rays, inst_tbl, inst_bounds, tri_tbl,
 # The candidate loop and the hit refinement
 
 
-def cand_loop(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, rounds: int,
-              block: int = 16384):
+def cand_loop(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, tri_bounds,
+              chunk: int, rounds: int, block: int = 16384):
     """The candidate rounds of the multi-launch loop: `rounds` times, B5
     hands every ray its next bounding sphere front to back (culling by
-    the chunk spheres inst_bounds), B6 sweeps that instance and tmax
-    tightens to the best hit; then one more B5 scan. Returns (best, binst,
+    the chunk spheres inst_bounds), B6 sweeps that instance (culling by
+    the triangle chunks' bounds tri_bounds at `chunk`) and tmax tightens
+    to the best hit; then one more B5 scan. Returns (best, binst,
     key): the packed world best, its instance position and the last scan's
     key (< INF_BITS where a sphere is left ahead). `rays` is not
     modified."""
@@ -1203,7 +1326,7 @@ def cand_loop(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, rounds: int,
         cand = torch.where(key < INF_BITS, key & pos_mask, m_tbl).to(
             torch.int32)
         best, binst = shared_blas_sweep(cur, cand, best, binst, inst_tbl,
-                                        tri_tbl, block)
+                                        tri_tbl, tri_bounds, chunk, block)
         cursor = key
         cur[7] = torch.minimum(rays[7], (best & trunc_f).view(torch.float32))
     return best, binst, bound_scan(cur, bscan_tbl, cursor, inst_bounds, m_tbl,
@@ -1233,14 +1356,16 @@ def _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
 
 
 def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
-                                  n_ichunks: int, rounds: int = CAND_ROUNDS,
+                                  tri_bounds, chunk: int, n_ichunks: int,
+                                  rounds: int = CAND_ROUNDS,
                                   block: int = 16384):
     """Candidate-iteration closest hit (the reference's DRTS_MESH_CAND=1):
     the rounds of cand_loop, then B7 walks the rays that still have a
     sphere ahead exactly, on their tightened range. Same contract as
     intersect_mesh_instances."""
     best, binst, key = cand_loop(rays, make_bscan_table(inst_tbl), inst_tbl,
-                                 inst_bounds, tri_tbl, rounds, block)
+                                 inst_bounds, tri_tbl, tri_bounds, chunk,
+                                 rounds, block)
     return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
                      n_ichunks, block)
 
@@ -1291,7 +1416,7 @@ def cand_fused_plain(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl,
                            m_tbl).to(torch.int32)
         counts["sweeps"] += int((cand < m_tbl).sum())
         best, binst = shared_blas_sweep_plain(cur, cand, best, binst,
-                                              inst_tbl, tri_tbl, block)
+                                              inst_tbl, tri_tbl, block=block)
     if work is not None:
         work.update(counts)
     return best, binst, key
@@ -1475,8 +1600,8 @@ def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,
     key = bound_scan(cur, bscan, cursor, inst_bounds, m_tbl, block)
     unresolved = (key < INF_BITS) & (occ == 0)
     occ_fb = intersect_mesh_instances_any(
-        without(~unresolved), inst_tbl, inst_bounds, tri_tbl, n_ichunks,
-        block)
+        without(~unresolved), inst_tbl, inst_bounds, tri_tbl, tri_bounds,
+        chunk, n_ichunks, block)
     return (occ > 0) | (occ_fb > 0)
 
 

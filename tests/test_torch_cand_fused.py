@@ -88,7 +88,8 @@ def test_fused_plain_equals_the_loop(case, rounds):
             tmesh.tri_tbl, tmesh.tri_bounds, tmesh.tri_chunk, rounds)
     fused = tk.cand_fused_plain(*args)
     loop = tk.cand_loop(case["rays"], case["bscan"], case["inst"],
-                        case["bounds"], case["tmesh"].tri_tbl, rounds)
+                        case["bounds"], tmesh.tri_tbl, tmesh.tri_bounds,
+                        tmesh.tri_chunk, rounds)
     for f, lp in zip(fused, loop):
         assert torch.equal(f, lp)
     best, _, key = fused

@@ -25,7 +25,15 @@ culls of B8 and B10 at chunks 8, 32 and the kept one (600 instances, a
 2,048-face table, a dead batch, one live lane in it, the hand scene of
 tests/test_torch_tri_culls.py with grazing rays) against the walks and
 the plain versions, and with their margin and guard from the wrappers
-and at 0. Run on a GPU
+and at 0; B6's at chunks 8 and 32 over two rounds, with candidates -1
+and m_tbl and incoming bests closer than every face; and B9's sparse and
+dense paths (1 to 200 live lanes scattered through 4,099, all live, and
+blocks of 1, 40 in one warp, 63, 64, 100 and 256 live lanes; 600
+instances at scales 0.5, 1 and 2, a table of two face tiles), each with
+the threshold patched so that every block takes one path, and B9's
+triangle-chunk culls on the hand scene's rays for its instances of scale
+0.5, 1 and 2 with the margin and guard from the wrapper and at 0. Run on
+a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -532,7 +540,8 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
         assert torch.equal(key, tk.bound_scan_plain(cur, bscan, cursor))
         cand = torch.where(key < ik.INF_BITS, key & mask, m_tbl).to(
             torch.int32)
-        out = tk.shared_blas_sweep(cur, cand, best, binst, inst_tbl, tri_tbl)
+        out = tk.shared_blas_sweep(cur, cand, best, binst, inst_tbl, tri_tbl,
+                                   mesh.tri_bounds, mesh.tri_chunk)
         assert_equal(out, tk.shared_blas_sweep_plain(cur, cand, best, binst,
                                                      inst_tbl, tri_tbl))
         best, binst = out
@@ -555,9 +564,11 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
     assert dead or bool((best < ik.INF_BITS).any())
 
     whole = tk.intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds,
-                                             tri_tbl, n_ic)
+                                             tri_tbl, mesh.tri_bounds,
+                                             mesh.tri_chunk, n_ic)
     on_cpu = tk.intersect_mesh_instances_cand(
-        rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(), n_ic)
+        rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(),
+        mesh.tri_bounds.cpu(), mesh.tri_chunk, n_ic)
     assert_equal(whole, on_cpu)
 
 
@@ -675,9 +686,9 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
                                           *blas), ones)
     for batch in (cur, rays):
         out = tk.intersect_mesh_instances_any(batch, inst_tbl, inst_bounds,
-                                              tri_tbl, n_ic)
+                                              tri_tbl, *blas, n_ic)
         assert torch.equal(out, tk.intersect_mesh_instances_any_plain(
-            batch, inst_tbl, inst_bounds, tri_tbl, n_ic))
+            batch, inst_tbl, inst_bounds, tri_tbl, *blas, n_ic))
     assert backend.LAUNCHES["shared_blas_any"] == before["shared_blas_any"] + 3
     assert (backend.LAUNCHES["intersect_mesh_instances_any"]
             == before["intersect_mesh_instances_any"] + 2)
@@ -693,7 +704,8 @@ def test_mesh_anyhit_kernels_equal_plain(dev, k, n, tess, dead):
     # The loop and the serial walk answer the same question; B8 compares in
     # object units and B9 in world units, so a hit within rounding of a
     # range end may fall on either side.
-    serial = tk.intersect_mesh_instances_any(*cpu, n_ic) > 0
+    serial = tk.intersect_mesh_instances_any(*cpu, blas[0].cpu(), blas[1],
+                                             n_ic) > 0
     assert float((whole.cpu() != serial).float().mean()) <= 1e-3
 
 
@@ -718,14 +730,17 @@ def test_cand_fused_kernel_equals_plain(dev, k, n, tess, dead, rounds):
     assert backend.LAUNCHES["cand_fused"] == before + 1
     assert_equal(out, tk.cand_fused_plain(*args))
     assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, inst_bounds,
-                                   tri_tbl, rounds))
+                                   tri_tbl, mesh.tri_bounds, mesh.tri_chunk,
+                                   rounds))
     found = int((out[0] < ik.INF_BITS).sum())
     assert found == 0 if dead else found > 0
     fused = tk.intersect_mesh_instances_cand_fused(
         rays, inst_tbl, inst_bounds, tri_tbl, mesh.tri_bounds, mesh.tri_chunk,
         n_ic, rounds=rounds)
     loop = tk.intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds,
-                                            tri_tbl, n_ic, rounds=rounds)
+                                            tri_tbl, mesh.tri_bounds,
+                                            mesh.tri_chunk, n_ic,
+                                            rounds=rounds)
     assert_equal(fused, loop)
 
 
@@ -810,7 +825,7 @@ def test_fused_tri_culls_equal_walk(dev, variant, rounds, chunk):
     assert_equal(out, tk.cand_fused_plain(*args))
     assert_equal(out, tk.cand_fused_walk(*args)[0])
     assert_equal(out, tk.cand_loop(rays, bscan, inst_tbl, inst_bounds,
-                                   tri_tbl, rounds))
+                                   tri_tbl, tri_bounds, chunk, rounds))
     found = int((out[0] < ik.INF_BITS).sum())
     assert found == 0 if variant == "dead" else found > 0
 
@@ -839,3 +854,142 @@ def test_tri_culls_with_the_wrappers_margin(dev, margin, monkeypatch):
     assert_equal(out10, tk.cand_fused_walk(*fused)[0])
     assert torch.equal(out8, plain8) == margin
     assert torch.equal(out10[0], plain10[0]) == margin
+
+
+@pytest.mark.parametrize("chunk", [8, 32])
+@pytest.mark.parametrize("variant", ["600", "2048", "dead", "hand"])
+def test_sweep_kernel_culls_exactly(dev, variant, chunk):
+    """B6 with the triangle-chunk culls changes no bit: equal to its
+    unculled plain version and to the fold of its culled walk
+    (shared_blas_sweep_work) at chunks 8 and 32, over two rounds (the
+    second folding into the first's best), with a 2,048-face table (four
+    shared-memory tiles) and 600 instances at ragged ray counts, a batch
+    of dead lanes, the hand scene's grazing rays, candidates -1 and m_tbl,
+    and lanes whose incoming best (t = 0) is at or before every face."""
+    inst_tbl, _, rays, cand, tri_tbl, tri_bounds = tri_case(variant, chunk,
+                                                            dev)
+    n, m_tbl = rays.shape[1], inst_tbl.shape[1]
+    cand = cand.clone()
+    cand[1::7] = -1
+    cand[2::7] = m_tbl
+    best = torch.full((n,), ik.INF_BITS, dtype=torch.int32, device=dev)
+    binst = torch.zeros(n, dtype=torch.int32, device=dev)
+    best[3::5] = 0
+    binst[3::5] = 7
+    for _ in range(2):
+        args = (rays, cand, best, binst, inst_tbl, tri_tbl)
+        before = backend.LAUNCHES["shared_blas_sweep"]
+        out = tk.shared_blas_sweep(*args, tri_bounds, chunk)
+        assert backend.LAUNCHES["shared_blas_sweep"] == before + 1
+        assert_equal(out, tk.shared_blas_sweep_plain(*args))
+        assert_equal(out, tk.shared_blas_sweep_work(*args, tri_bounds,
+                                                    chunk)[0])
+        # A best of t = 0 stays, but for a hit at t = -0.0 (a ray in a
+        # face's plane from the face), whose packed word is negative.
+        kept = out[0][3::5] == best[3::5]
+        assert bool((kept | (out[0][3::5] < 0)).all())
+        assert torch.equal(out[1][3::5][kept], binst[3::5][kept])
+        none = (cand < 0) | (cand >= m_tbl)
+        assert torch.equal(out[0][none], best[none])
+        best, binst = out
+        cand = torch.where((cand >= 0) & (cand < m_tbl - 1), cand + 1, cand)
+    found = int((best[torch.arange(n, device=dev) % 5 != 3]
+                 < ik.INF_BITS).sum())
+    assert found == 0 if variant == "dead" else found > 0
+
+
+def b9_case(live, dev, n=4099, k=600, seed=3):
+    """B9's inputs: k instances at scales 0.5, 1 and 2 of a 1,024-face mesh
+    (two geospheres of 512 faces, the second moved and shrunk: two
+    shared-memory face tiles) and n rays, every other one aimed near an
+    instance and half of the live ones ending short of 12 units. `live`:
+    that many live lanes scattered over the batch, or "all", or "mixed":
+    blocks of 1 live lane, 256, 40 in one warp, 100 scattered, 63 and 64
+    (B9_SPARSE_LIVE's neighbours), the rest dead."""
+    rng = np.random.RandomState(seed)
+    pos, nrm, uv, faces = geometry.create_geosphere(2.0, 4)
+    mesh = trimesh.make_mesh(
+        np.concatenate([pos, pos * 0.5 + 0.3]), np.concatenate([nrm, nrm]),
+        np.concatenate([uv, uv]), np.concatenate([faces, faces + len(pos)]),
+        device=dev)
+    assert mesh.tri_tbl.shape[0] == 1024
+    ipos = np.asarray(rng.randn(k, 3) * 8, np.float32)
+    rot = rng.randn(k, 4)
+    rot = np.asarray(rot / np.linalg.norm(rot, axis=1, keepdims=True),
+                     np.float32)
+    scale = np.asarray(rng.choice([0.5, 1.0, 2.0], k), np.float32)
+    o = np.asarray(rng.randn(n, 3) * 12, np.float32)
+    d = rng.randn(n, 3)
+    d[::2] = (ipos[rng.randint(0, k, n)] + 0.3 * rng.randn(n, 3) - o)[::2]
+    d = np.asarray(d / np.linalg.norm(d, axis=1, keepdims=True), np.float32)
+    tmax = np.where(rng.rand(n) < 0.5, 12.0 * rng.rand(n), 1e9)
+    keep = np.zeros(n, bool)
+    if live == "all":
+        keep[:] = True
+    elif live == "mixed":
+        for b, lanes in enumerate((
+                [77], range(256), range(96, 136), rng.choice(256, 100, False),
+                rng.choice(256, 63, False), rng.choice(256, 64, False))):
+            keep[256 * b + np.asarray(list(lanes))] = True
+    else:
+        keep[rng.choice(n, live, replace=False)] = True
+    tmax = np.asarray(np.where(keep, tmax, -1.0), np.float32)
+    rays = intersect.pack_rays(torch.from_numpy(o), torch.from_numpy(d),
+                               torch.zeros(n), torch.from_numpy(tmax)).to(dev)
+    inst_tbl, inst_bounds, _, n_ic = tk.make_inst_tables(
+        torch.from_numpy(ipos).to(dev), torch.from_numpy(rot).to(dev),
+        torch.from_numpy(scale).to(dev), mesh.bound_radius,
+        sort_origin=torch.from_numpy(o.mean(0)).to(dev))
+    return ((rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+             mesh.tri_chunk, n_ic), int(keep.sum()))
+
+
+@pytest.mark.parametrize("live", [1, 5, 31, 33, 200, "all", "mixed"])
+def test_anyhit_serial_kernel_paths_equal_plain(dev, live, monkeypatch):
+    """B9's sparse path (a block's threads share its live rays) and its
+    dense path (a thread per compacted live lane) each equal the plain
+    version and its culled walk, bit for bit: on 1, 5, 31, 33 and 200
+    live lanes scattered
+    through 4,099, on every lane live, and on a batch with blocks of 1
+    live lane, 256, 40 in one warp, 100, 63 and 64, at the wrapper's
+    B9_SPARSE_LIVE, with every block sparse (257) and with every block
+    dense (0); 600 instances at scales 0.5, 1 and 2 and a table of two
+    face tiles."""
+    args, n_live = b9_case(live, dev)
+    plain = tk.intersect_mesh_instances_any_plain(*args)
+    assert torch.equal(tk.intersect_mesh_instances_any_walk(*args)[0], plain)
+    for sparse_live in (tk.B9_SPARSE_LIVE, 257, 0):
+        monkeypatch.setattr(tk, "B9_SPARSE_LIVE", sparse_live)
+        before = backend.LAUNCHES["intersect_mesh_instances_any"]
+        out = tk.intersect_mesh_instances_any(*args)
+        assert (backend.LAUNCHES["intersect_mesh_instances_any"]
+                == before + 1)
+        assert torch.equal(out, plain)
+    blocked = int(plain.sum())
+    assert blocked <= n_live and (blocked > 0 or n_live < 31)
+    assert blocked < n_live or n_live < 31
+
+
+@pytest.mark.parametrize("margin", [True, False])
+@pytest.mark.parametrize("scale", [0.5, 1.0, 2.0])
+def test_anyhit_serial_kernel_culls_with_the_wrappers_margin(
+        dev, scale, margin, monkeypatch):
+    """B9 on the hand scene's rays built for the instance of scale 0.5, 1
+    or 2 culls triangle chunks with the margin and guard the wrapper
+    passes, on both paths: at TRI_CULL_SCALE and TRI_GUARD it equals the
+    plain version; with both set to 0 it equals the culled walk of the
+    same settings, which drops hits on grazing rays."""
+    from test_torch_tri_culls import b9_hand
+    rays, inst, bounds, tri_tbl, tri_bounds, n_ic = b9_hand(scale)
+    args = (rays, inst, bounds, tri_tbl, tri_bounds, tk.TRI_CHUNK, n_ic)
+    plain = tk.intersect_mesh_instances_any_plain(*args)
+    if not margin:
+        monkeypatch.setattr(tk, "TRI_CULL_SCALE", 0.0)
+        monkeypatch.setattr(tk, "TRI_GUARD", 0.0)
+    walked = tk.intersect_mesh_instances_any_walk(*args)[0]
+    on_dev = tuple(x.to(dev) if torch.is_tensor(x) else x for x in args)
+    for sparse_live in (tk.B9_SPARSE_LIVE, 257, 0):
+        monkeypatch.setattr(tk, "B9_SPARSE_LIVE", sparse_live)
+        out = tk.intersect_mesh_instances_any(*on_dev).cpu()
+        assert torch.equal(out, walked)
+    assert torch.equal(out, plain) == margin

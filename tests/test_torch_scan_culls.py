@@ -295,7 +295,8 @@ def test_culled_loop_equals_fused_plain(monkeypatch):
                                   m_tbl)[1]
     monkeypatch.setattr(tk, "bound_scan", walked)
     rounds = 3
-    loop = tk.cand_loop(rays, bscan, inst, bounds, tri_tbl, rounds)
+    loop = tk.cand_loop(rays, bscan, inst, bounds, tri_tbl, mesh.tri_bounds,
+                        mesh.tri_chunk, rounds)
     fused = tk.cand_fused_plain(rays, bscan, inst, bounds, tri_tbl,
                                 mesh.tri_bounds, mesh.tri_chunk, rounds)
     assert walks == [inst.shape[1]] * (rounds + 1)

@@ -1,13 +1,16 @@
-"""The triangle-chunk culls of B8 and B10 (``trimesh_kernels.tri_sweep_walk``,
-``shared_blas_any_walk``, ``cand_fused_walk``) and the chunk table they read
-(``tri_chunk_bounds``), on the CPU.
+"""The triangle-chunk culls of B6, B8, B9 and B10 (``trimesh_kernels.
+tri_sweep_walk``, ``shared_blas_sweep_work``, ``shared_blas_any_walk``,
+``intersect_mesh_instances_any_walk``, ``cand_fused_walk``) and the chunk
+table they read (``tri_chunk_bounds``), on the CPU.
 
-The CUDA kernels of B8 and B10 sweep a candidate instance's faces chunk by
+The CUDA kernels of B6, B8, B9 and B10 sweep an instance's faces chunk by
 chunk: a lane skips the faces of a chunk whose covering sphere its
 object-space segment misses by more than the margin of TRI_CULL_SCALE,
 except the faces its ray grazes (|dl . A| < TRI_GUARD, ``face_guards``),
 whose Moeller-Trumbore t may be rounding noise anywhere on the segment
-(csrc/trimesh.cu states the argument). B10's scans are B5's culled walk.
+(csrc/trimesh.cu states the argument; B9 tests Moeller-Trumbore on its own
+ray, whose direction has length 1/scale). B10's scans are B5's culled
+walk.
 The walks repeat the kernels lane by lane in their operations and order;
 here they are held to the unculled plain versions, which
 tests/test_torch_trimesh_any.py and tests/test_torch_cand_fused.py hold to
@@ -314,7 +317,9 @@ def hand_scene(seed=5, tess=3, chunk=tk.TRI_CHUNK):
                                 T((tmin * s[:, 0]).astype(np.float32)),
                                 T((tmax * s[:, 0]).astype(np.float32)))
     rays[7, ::9] = -1.0
-    cand = np.argsort(order)[k].astype(np.int32)   # instance -> position
+    pos_of = np.zeros(3, np.int64)                 # instance -> position
+    pos_of[order[order >= 0]] = np.flatnonzero(order >= 0)
+    cand = pos_of[k].astype(np.int32)
     return inst, tables[1], rays, T(cand), (tri_tbl, tri_bounds)
 
 
@@ -538,8 +543,8 @@ def test_work_counters_sum_the_walks():
 
 @pytest.mark.parametrize("name", ["hard", "hand"])
 def test_b6_sweep_with_the_culls_equals_plain(name):
-    """shared_blas_sweep_work (B6's sweep walked with B8's culls, for the
-    bound of the culled work; B6's kernel has no culls) folds the same
+    """shared_blas_sweep_work (B6's kernel walk, with the triangle-chunk
+    culls it shares with B8 and B10, counted for its bound) folds the same
     best and binst as shared_blas_sweep_plain, from the first candidates
     and from a best already held on a third of the lanes."""
     if name == "hand":
@@ -557,7 +562,7 @@ def test_b6_sweep_with_the_culls_equals_plain(name):
     binst = torch.zeros(n, dtype=torch.int32)
     for _ in range(2):
         plain = tk.shared_blas_sweep_plain(rays, cand, best, binst, inst,
-                                           tri_tbl)
+                                           tri_tbl, tri_bounds, tk.TRI_CHUNK)
         culled, w = tk.shared_blas_sweep_work(rays, cand, best, binst, inst,
                                               tri_tbl, tri_bounds,
                                               tk.TRI_CHUNK, block=256)
@@ -565,3 +570,63 @@ def test_b6_sweep_with_the_culls_equals_plain(name):
             assert torch.equal(p, c)
         assert w["rows"] < w["live"] * tri_tbl.shape[0] and w["met"] > 0
         best = torch.where(torch.arange(n) % 3 == 0, plain[0], best)
+
+
+def b9_hand(scale, short=False):
+    """The hand scene for B9: (rays, inst_tbl, inst_bounds, tri_tbl,
+    tri_bounds, n_ichunks), only the rays built for the instance of the
+    given scale live, every other live tmax cut to 3 units with `short`."""
+    inst, bounds, rays, cand, (tri_tbl, tri_bounds) = hand_scene()
+    rays = rays.clone()
+    mine = inst[7, cand.long()] == np.float32(1.0 / scale)   # 1/scale
+    rays[7] = torch.where(mine, rays[7], -1.0)
+    if short:
+        rays[7, ::2] = torch.clamp(rays[7, ::2], max=3.0)
+    return (rays, inst, bounds, tri_tbl, tri_bounds,
+            inst.shape[1] // tk.INST_CHUNK)
+
+
+@pytest.mark.parametrize("short", [False, True])
+@pytest.mark.parametrize("scale", [0.5, 1.0, 2.0])
+def test_serial_anyhit_walk_equals_plain(scale, short):
+    """intersect_mesh_instances_any_walk (B9's kernel walk: the triangle
+    culls in B8's frame, Moeller-Trumbore on B9's own ray, whose direction
+    has length 1/scale) gives the plain version's bits on the hand scene's
+    rays built for the instance of scale 0.5, 1 or 2 (grazing rays,
+    origins inside, tangent rays, segments ending on a hit), with the full
+    ranges and with every other tmax cut to 3 units; the cull skips chunks
+    and the guard sweeps faces of skipped chunks."""
+    rays, inst, bounds, tri_tbl, tri_bounds, n_ic = b9_hand(scale, short)
+    plain_work = {}
+    plain = tk.intersect_mesh_instances_any_plain(
+        rays, inst, bounds, tri_tbl, None, None, n_ic, work=plain_work)
+    occ, counts, work = tk.intersect_mesh_instances_any_walk(
+        rays, inst, bounds, tri_tbl, tri_bounds, tk.TRI_CHUNK, n_ic)
+    assert torch.equal(occ, plain)
+    assert counts == {k: plain_work[k] for k in counts}
+    assert 0 < int(plain.sum()) < counts["live"]
+    tests, met, cones, guards, swept = work.sum(0).tolist()
+    assert met < tests and cones == tests - met
+    assert 0 < guards < cones * tk.TRI_CHUNK
+    assert swept < plain_work["tri_tests"]
+
+
+def test_serial_anyhit_walk_needs_the_margin_and_guard(monkeypatch):
+    """With the cull's margin at 0 and no guard, B9's walk drops hits that
+    Moeller-Trumbore accepts on the hand scene's grazing rays, at every
+    scale; the work counter sums the walk's counts and the plain
+    version's."""
+    for scale in (0.5, 1.0, 2.0):
+        args = b9_hand(scale)
+        blas = (*args[:4], args[4], tk.TRI_CHUNK, args[5])
+        plain = tk.intersect_mesh_instances_any_plain(*blas)
+        occ, w = tk.intersect_mesh_instances_any_work(*blas, block=512)
+        assert torch.equal(occ, plain)
+        walked = tk.intersect_mesh_instances_any_walk(*blas)
+        assert [w[k] for k in ("tests", "met", "cones", "guards", "rows")] \
+            == walked[2].sum(0).tolist()
+        with monkeypatch.context() as mp:
+            mp.setattr(tk, "TRI_CULL_SCALE", 0.0)
+            mp.setattr(tk, "TRI_GUARD", 0.0)
+            lost = tk.intersect_mesh_instances_any_walk(*blas)[0]
+        assert bool((lost <= plain).all()) and bool((lost < plain).any())

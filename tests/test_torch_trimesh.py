@@ -288,7 +288,8 @@ def test_shared_blas_sweep_matches_interpret(kernel_case):
         j_best, j_binst = j_sweep(case, cand, best, binst)
         t_best, t_binst = tk.shared_blas_sweep(
             case["rays"], T(cand), T(best.copy()), T(binst.copy()),
-            case["inst"], tri_tbl)
+            case["inst"], tri_tbl, case["tmesh"].tri_bounds,
+            case["tmesh"].tri_chunk)
         check_packed(t_best.numpy(), j_best, t_binst.numpy(), j_binst,
                      tri_tbl.shape[0])
         # Lanes without a candidate keep what they had.
@@ -376,9 +377,19 @@ def test_wrappers_refuse_wrong_tensors(kernel_case):
     with pytest.raises(ValueError, match="m_tbl"):
         tk.bound_scan(case["rays"], case["bscan"], words, case["bounds"],
                       case["bscan"].shape[0] + 1)
+    tmesh = case["tmesh"]
     with pytest.raises(ValueError):
         tk.shared_blas_sweep(case["rays"], words[:-1], words, words,
-                             case["inst"], case["tmesh"].tri_tbl)
+                             case["inst"], tmesh.tri_tbl, tmesh.tri_bounds,
+                             tmesh.tri_chunk)
+    with pytest.raises(ValueError, match="chunk"):
+        tk.shared_blas_sweep(case["rays"], words, words, words, case["inst"],
+                             tmesh.tri_tbl, tmesh.tri_bounds, 12)
+    with pytest.raises(ValueError, match="tri_bounds"):
+        tk.shared_blas_sweep(case["rays"], words, words, words, case["inst"],
+                             tmesh.tri_tbl,
+                             tmesh.tri_bounds[:, :1].contiguous(),
+                             tmesh.tri_chunk)
     with pytest.raises(ValueError):
         tk.intersect_mesh_instances(case["rays"], case["inst"],
                                     case["bounds"], case["tmesh"].tri_tbl,

@@ -163,17 +163,44 @@ def test_serial_anyhit_matches_interpret(kernel_case):
             jmesh.n_chunks, jmesh.tri_tbl.shape[0] // jmesh.n_chunks,
             interpret=True))
         work = {}
-        got = tk.intersect_mesh_instances_any_plain(
-            rays, case["inst"], case["bounds"], tmesh.tri_tbl, case["n_ic"],
-            work=work)
-        assert torch.equal(got, tk.intersect_mesh_instances_any(
-            rays, case["inst"], case["bounds"], tmesh.tri_tbl, case["n_ic"]))
+        args = (rays, case["inst"], case["bounds"], tmesh.tri_tbl,
+                tmesh.tri_bounds, tmesh.tri_chunk, case["n_ic"])
+        got = tk.intersect_mesh_instances_any_plain(*args, work=work)
+        assert torch.equal(got, tk.intersect_mesh_instances_any(*args))
         got = got.numpy()
         assert ((got > 0) == (expect > 0)).mean() > AGREE
         assert not got[case["dead"]].any()
         assert 0.05 < (got > 0).mean() < 0.95
         assert work["live"] == int((~case["dead"]).sum())
         assert work["sweeps"] >= int((got > 0).sum())
+
+
+def test_serial_anyhit_sparse_batch_matches_interpret(kernel_case):
+    """B9 on a batch as sparse as the frame's backstop batches: 9 live
+    lanes scattered through 4,096, the rest dead, on instances whose scales
+    are none of them 1 (the direction is scaled by 1/scale)."""
+    case = kernel_case
+    jmesh, tmesh = case["jmesh"], case["tmesh"]
+    inst = case["inst"]
+    assert not (inst[7][inst[8] > 0] == 1.0).any()   # padding: radius 0
+    rng = np.random.RandomState(5)
+    keep = rng.choice(np.flatnonzero(~case["dead"]), 9, replace=False)
+    rays = case["rays"].clone()
+    dead = np.ones(case["n"], bool)
+    dead[keep] = False
+    rays[7, T(dead)] = -1.0
+    expect = np.asarray(jtp.intersect_mesh_instances_any(
+        jnp.asarray(rays.numpy()), case["jinst"], case["jbounds"],
+        jmesh.tri_bounds, jmesh.tri_tbl, case["n_ic"], jtp.INST_CHUNK,
+        jmesh.n_chunks, jmesh.tri_tbl.shape[0] // jmesh.n_chunks,
+        interpret=True))
+    work = {}
+    got = tk.intersect_mesh_instances_any_plain(
+        rays, case["inst"], case["bounds"], tmesh.tri_tbl, tmesh.tri_bounds,
+        tmesh.tri_chunk, case["n_ic"], work=work).numpy()
+    np.testing.assert_array_equal(got > 0, expect > 0)
+    assert not got[dead].any() and work["live"] == 9
+    assert 0 < (got > 0).sum() < 9
 
 
 def dense_anyhit(rays, inst_tbl, tri_tbl):
@@ -199,8 +226,9 @@ def test_serial_anyhit_culls_change_nothing(kernel_case):
     case = kernel_case
     rays = case["rays"][:, :1024].contiguous()
     tri_tbl = case["tmesh"].tri_tbl
-    got = tk.intersect_mesh_instances_any(rays, case["inst"], case["bounds"],
-                                          tri_tbl, case["n_ic"]) > 0
+    got = tk.intersect_mesh_instances_any(
+        rays, case["inst"], case["bounds"], tri_tbl, case["tmesh"].tri_bounds,
+        case["tmesh"].tri_chunk, case["n_ic"]) > 0
     assert torch.equal(got, dense_anyhit(rays, case["inst"], tri_tbl))
     t, _, _ = tk.intersect_mesh_instances(rays, case["inst"], case["bounds"],
                                           tri_tbl, case["n_ic"])
@@ -220,14 +248,19 @@ def test_anyhit_wrappers_refuse_wrong_tensors(kernel_case):
         tk.shared_blas_any(case["rays"], words, words.long(), case["inst"],
                            tri_tbl, case["tmesh"].tri_bounds,
                            case["tmesh"].tri_chunk)
+    blas = (case["tmesh"].tri_bounds, case["tmesh"].tri_chunk)
     with pytest.raises(ValueError):
         tk.intersect_mesh_instances_any(case["rays"], case["inst"],
                                         case["bounds"].T.contiguous(),
-                                        tri_tbl, case["n_ic"])
+                                        tri_tbl, *blas, case["n_ic"])
     with pytest.raises(ValueError):
         tk.intersect_mesh_instances_any(case["rays"], case["inst"],
-                                        case["bounds"], tri_tbl,
+                                        case["bounds"], tri_tbl, *blas,
                                         case["n_ic"] + 1)
+    with pytest.raises(ValueError, match="chunk"):
+        tk.intersect_mesh_instances_any(case["rays"], case["inst"],
+                                        case["bounds"], tri_tbl, blas[0], 12,
+                                        case["n_ic"])
 
 
 # ----------------------------------------------------------------------------
