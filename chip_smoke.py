@@ -145,6 +145,27 @@ Phases, one printed line or more each; any failure exits non-zero:
 15. default frame small: three default frames at 64x64 (3 bounces, a
    4,096-slot cache) on the card and on the CPU from one start state, and
    one ReLAX and one DLSS-RR frame each, must agree within DEFAULT_*.
+16. mesh pipeline: the reference's bench_mesh_pipeline recipe
+   (bench.mesh_pipeline_config: the default frame graph on the scene of
+   phase 9, rendered at 960x540 and upscaled by TAA to 1920x1080, 8
+   bounces, block 32,768, physics off, compact_from=1) through
+   bench.bench_frame, counted from zero: frame time, per-stage times,
+   counters, spill waves per frame, launches (B4 by mode) and every
+   compaction the path traces ran (capacity, sort mode, pixel or slot
+   space); the bounce-1 segment must hold 519,168 slots in partition
+   mode; the image a finite (1080, 1920, 3) in [0, 1], SHARC hits on the
+   last timed frame, each of B4, B5, B6, B7, B8, B9 and B11 launched as
+   the stages need and B1, B2, B3 and B10 not at all.
+17. mesh pipeline small: three frames of that graph at 64x64 output (32x32
+   render, 3 bounces, a 4,096-slot cache, oscillator grid 3 as 45
+   instances of a 128-face geosphere) with compact_sort_partition_min=0,
+   so every compaction sorts by partition, on the card and on the CPU
+   from one start state, must agree within DEFAULT_*.
+18. fidelity: crosscheck.run(32, 18, 48 spp, 3 bounces) with the port's
+   side on the card must meet tests/test_crosscheck.py's bounds (0.97 <
+   energy_ratio < 1.03, mean_rel_err < 0.15); then fidelity.run and
+   fidelity.run_mesh at 160x90 (32-spp references, 8 real-time frames, no
+   cache), each SSIM finite and in (0, 1], printed with its wall time.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -160,7 +181,10 @@ of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 ("...@default") with the launches of phase 14, B4 with the times of phase
 14 (one frame's four reprojections), the others with those of phases 2
 and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
-frame's).
+frame's); and B4, B5, B6, B7, B8, B9 and B11 once more
+("...@mesh_pipeline") with the launches of phase 16 and the times the
+earlier phases give those kernels (B4 phase 14's, B5, B6, B7 and B11
+phase 8's, B8 phase 10's and B9 phase 10's backstop batches).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
@@ -1560,6 +1584,167 @@ def check_default_small(pipeline, bench, sharc_mod,
                                      f"the card disagrees with the CPU")
 
 
+@contextlib.contextmanager
+def compaction_tally(pathtrace):
+    """Count the path traces' compactions by (capacity, sort mode, input
+    space, wave)."""
+    tally = {}
+    orig = pathtrace._compact_slots
+
+    def tallied(act, l_dir, pixel_ids, cfg, cap, h, w, wave=0):
+        mode = ("none" if not cfg.compact_sort else "partition"
+                if cap >= cfg.compact_sort_partition_min else "key")
+        key = (f"cap={cap} sort={mode} "
+               f"{'pixels' if pixel_ids is None else 'slots'} wave={wave}")
+        tally[key] = tally.get(key, 0) + 1
+        return orig(act, l_dir, pixel_ids, cfg, cap, h, w, wave)
+    pathtrace._compact_slots = tallied
+    try:
+        yield tally
+    finally:
+        pathtrace._compact_slots = orig
+
+
+def run_mesh_pipeline(bench, backend, pathtrace, rp, smi, iters, dev):
+    """Phase 16: the all-mesh pipeline recipe through bench.bench_frame,
+    counted from zero; checks the image, the SHARC hits, the bounce-1
+    segment's partition sort and each kernel's launches. Returns the
+    launches."""
+    cfg = bench.mesh_pipeline_config()
+    backend.reset_launches()
+    with mode_tally(rp) as tally, compaction_tally(pathtrace) as packs:
+        stats, img = bench.bench_frame(iters=iters, device=dev, mesh=True,
+                                       cfg=cfg)
+    frames = stats["frames"]
+    launches = dict(backend.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    counters = stats["counters"]
+    hits = sum(v for k, v in counters.items() if k.startswith("sharc_hits"))
+    calls = launches["intersect_mesh_instances"]
+    log(f"mesh pipeline: render {cfg.render_width}x{cfg.render_height} "
+        f"output {cfg.output_width}x{cfg.output_height} "
+        f"bounces={cfg.bounces} compact_from={cfg.compact_from} "
+        f"frames={frames} frame_ms={stats['frame_ms']!r} "
+        f"rays_per_frame={stats['rays_per_frame']!r} sharc_hits={hits!r} "
+        f"wavefront_overflow_paths="
+        f"{counters['wavefront_overflow_paths']!r} "
+        f"spill_waves={stats['spill_waves']} "
+        f"spill_waves_per_frame={stats['spill_waves'] / frames!r} "
+        f"closest_hit_calls={calls} launches={json.dumps(launches)} "
+        f"B4_by_mode={json.dumps(tally)} finite={finite} "
+        f"min={float(img.min())!r} max={float(img.max())!r} "
+        f"mean={float(img.mean())!r} | {smi}")
+    log(f"mesh pipeline: compactions={json.dumps(packs)} (over {frames} "
+        f"frames)")
+    log(f"mesh pipeline: counters={json.dumps(counters)}")
+    log(f"mesh pipeline: passes_ms={json.dumps(stats['passes_ms'])}")
+    if (tuple(img.shape) != (cfg.output_height, cfg.output_width, 3)
+            or not finite or float(img.min()) < 0.0
+            or float(img.max()) > 1.0):
+        raise AssertionError("the mesh pipeline frame is not a finite "
+                             "image in [0, 1]")
+    if hits <= 0:
+        raise AssertionError("the mesh pipeline's last frame took nothing "
+                             "from the SHARC cache")
+    cap1 = pathtrace._compact_capacity(cfg.render_width * cfg.render_height,
+                                       1)
+    if packs.get(f"cap={cap1} sort=partition pixels wave=0", 0) < frames:
+        raise AssertionError(f"the bounce-1 segment did not compact into "
+                             f"{cap1} slots in partition mode every frame")
+    # Per frame as phase 11 (3 any-hit calls: 3 x B5, 2 x B8, 1 x B9, 1 x
+    # B11; the BRDF candidate's light sweep, B11), the four reprojections
+    # of phase 14, and per closest-hit call the counts of phase 9.
+    expect = {"shared_blas_any": 6 * frames,
+              "intersect_mesh_instances_any": 3 * frames,
+              "bound_scan": 4 * calls + 9 * frames,
+              "shared_blas_sweep": 3 * calls,
+              "intersect_brute": 2 * calls + 4 * frames,
+              "reproject_packed": 4 * frames, "intersect_morton": 0,
+              "occlusion_morton": 0, "initial_light_candidates": 0,
+              "cand_fused": 0}
+    for name, count in expect.items():
+        if launches[name] != count:
+            raise AssertionError(f"mesh pipeline: {name} launched "
+                                 f"{launches[name]} times in {frames} "
+                                 f"frames, expected {count}")
+    if tally != {"nearest": 3 * frames, "bilinear": frames}:
+        raise AssertionError(f"mesh pipeline: B4 modes {tally}")
+    if calls < frames * (cfg.bounces + 1):
+        raise AssertionError(f"{calls} closest-hit calls in {frames} frames "
+                             f"of {cfg.bounces} bounces")
+    return launches
+
+
+def check_mesh_pipeline_small(pipeline, bench, sharc_mod,
+                              devices=("cuda", "cpu")):
+    """Phase 17: three frames of the mesh pipeline graph at 64x64 output
+    (32x32 render, 3 bounces, a 4,096-slot cache, oscillator grid 3 as
+    45 instances of a 128-face geosphere), every compaction in partition
+    mode, on the card and on the CPU from one start state; bounds
+    DEFAULT_*."""
+    cfg = bench.mesh_pipeline_config(
+        output_width=64, output_height=64, render_width=32,
+        render_height=32, bounces=3, block_size=4096,
+        sharc=sharc_mod.SHARCConfig(capacity_log2=12))
+    results = []
+    for dev in devices:
+        pipe, state, _ = bench.make_frame_setup(
+            oscillator_grid=3, device=dev, mesh=True, tess=3, cfg=cfg)
+        base = pipe._pt_cfg
+        pipe._pt_cfg = lambda base=base: dataclasses.replace(
+            base(), compact_sort_partition_min=0)
+        eye = torch.tensor([0.0, 2.5, -4.0])
+        fwd = torch.tensor([0.0, 0.5, 0.0]) - eye
+        pose = pipeline.CameraPose(eye.to(dev), (fwd / fwd.norm()).to(dev),
+                                   torch.tensor([0.0, 1.0, 0.0]).to(dev))
+        frames = []
+        for _ in range(3):
+            state, img = pipe.render_frame(state, pose)
+            frames.append((img.cpu(), state.sharc.fingerprint.cpu(),
+                           {k: float(v) for k, v in state.counters.items()}))
+        results.append(frames)
+    for i, ((gimg, gfp, gc), (cimg, cfp, cc)) in enumerate(zip(*results)):
+        d = (gimg - cimg).abs()
+        off = float((d.amax(-1) > DEFAULT_OFF).float().mean())
+        filled = (gfp > 0) | (cfp > 0)
+        fp_same = float((gfp == cfp)[filled].float().mean())
+        log(f"mesh pipeline small: frame {i} image_mean_abs_diff="
+            f"{float(d.mean())!r} image_max_abs_diff={float(d.max())!r} "
+            f"pixels_off_{DEFAULT_OFF}={off!r} sharc_fingerprints_equal="
+            f"{fp_same!r} of {int(filled.sum())} filled slots "
+            f"overflow={gc['wavefront_overflow_paths']!r} "
+            f"finite={bool(torch.isfinite(gimg).all())}")
+        if (float(d.mean()) > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE
+                or fp_same < DEFAULT_FP_SHARE
+                or gc["wavefront_overflow_paths"]
+                != cc["wavefront_overflow_paths"]
+                or not bool(torch.isfinite(gimg).all())):
+            raise AssertionError("mesh pipeline small: the frame on the "
+                                 "card disagrees with the CPU")
+
+
+def check_fidelity(dev, smi):
+    """Phase 18: the independent-tracer crosscheck with the port's side on
+    the card, then the static and mesh fidelity runs at 160x90."""
+    from drts_tpu_torch import crosscheck, fidelity
+    t0 = time.perf_counter()
+    cc = crosscheck.run(width=32, height=18, spp=48, bounces=3, device=dev)
+    log(f"fidelity: crosscheck={json.dumps(cc)} "
+        f"wall_s={time.perf_counter() - t0!r} | {smi}")
+    if not (0.97 < cc["energy_ratio"] < 1.03 and cc["mean_rel_err"] < 0.15):
+        raise AssertionError("the crosscheck is off tests/test_crosscheck.py's "
+                             "bounds")
+    for name, fn in (("static", fidelity.run), ("mesh", fidelity.run_mesh)):
+        t0 = time.perf_counter()
+        res = fn(160, 90, spp_reference=32, frames_realtime=8,
+                 ref_cache=None, device=dev)
+        log(f"fidelity: {name} ssim={res['value']!r} "
+            f"wall_s={time.perf_counter() - t0!r} result={json.dumps(res)} "
+            f"| {smi}")
+        if not (np.isfinite(res["value"]) and 0.0 < res["value"] <= 1.0):
+            raise AssertionError(f"fidelity: the {name} SSIM is off (0, 1]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -1804,6 +1989,7 @@ def main():
         f"frames={frames} frame_ms={xstats['frame_ms']!r} "
         f"rays_per_frame={xstats['rays_per_frame']!r} "
         f"counters={json.dumps(xstats['counters'])} "
+        f"spill_waves={xstats['spill_waves']} "
         f"closest_hit_calls={calls} launches={json.dumps(x_launches)} "
         f"finite={x_finite} min={float(ximg.min())!r} "
         f"max={float(ximg.max())!r} mean={mean_x!r} "
@@ -1905,6 +2091,19 @@ def main():
     # 15. small default frames: kernels on the card vs the CPU --------------
     check_default_small(pipeline, bench, sharc_mod)
 
+    # 16. the all-mesh pipeline (compact_from=1), counted from zero ---------
+    p_launches = run_mesh_pipeline(bench, backend, pathtrace, rp, smi, 2, dev)
+    for name in ("reproject_packed", "bound_scan", "shared_blas_sweep",
+                 "intersect_mesh_instances", "shared_blas_any",
+                 "intersect_mesh_instances_any", "intersect_brute"):
+        launches[f"{name}@mesh_pipeline"] = p_launches[name]
+
+    # 17. small mesh pipeline frames in partition mode: card vs CPU ---------
+    check_mesh_pipeline_small(pipeline, bench, sharc_mod)
+
+    # 18. fidelity: the crosscheck and the static and mesh SSIM -------------
+    check_fidelity(dev, smi)
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -1950,6 +2149,26 @@ def main():
                                      "drts_tpu/ops/reproject_pallas.py:206"),
         "intersect_brute@default": ("drts_tpu_torch/csrc/intersect.cu",
                                     "drts_tpu/ops/intersect_pallas.py:762"),
+        "reproject_packed@mesh_pipeline": (
+            "drts_tpu_torch/csrc/reproject.cu",
+            "drts_tpu/ops/reproject_pallas.py:206"),
+        "bound_scan@mesh_pipeline": ("drts_tpu_torch/csrc/trimesh.cu",
+                                     "drts_tpu/ops/trimesh_pallas.py:646"),
+        "shared_blas_sweep@mesh_pipeline": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:839"),
+        "intersect_mesh_instances@mesh_pipeline": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:315"),
+        "shared_blas_any@mesh_pipeline": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:973"),
+        "intersect_mesh_instances_any@mesh_pipeline": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:545"),
+        "intersect_brute@mesh_pipeline": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
@@ -1961,6 +2180,18 @@ def main():
     for name in ("intersect_morton", "occlusion_morton",
                  "initial_light_candidates", "intersect_brute"):
         fields[f"{name}@default"] = fields[name]
+    # The mesh pipeline's kernels keep the times of the phases that hold
+    # them at full size.
+    for name, timed in (
+            ("reproject_packed", "reproject_packed@default"),
+            ("bound_scan", "bound_scan"),
+            ("shared_blas_sweep", "shared_blas_sweep"),
+            ("intersect_mesh_instances", "intersect_mesh_instances"),
+            ("shared_blas_any", "shared_blas_any"),
+            ("intersect_mesh_instances_any",
+             "intersect_mesh_instances_any@backstop"),
+            ("intersect_brute", "intersect_brute@mesh")):
+        fields[f"{name}@mesh_pipeline"] = fields[timed]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

@@ -27,6 +27,13 @@ denoiser, TAA, sharpen, bloom, ACES. The upscaled frame (``--upscaled``,
 the reference's ``bench.py:bench_upscaled``): the same graph rendered at
 960x540 and upscaled by TAA to 1920x1080, block 32,768.
 
+The all-mesh pipeline (``--mesh-pipeline``, the reference's
+``bench.py:bench_mesh_pipeline``): the default frame graph (ReSTIR, SHARC,
+ReBLUR, TAA) on the scene of ``--mesh``, untextured, rendered at 960x540
+and upscaled by TAA to 1920x1080, 8 bounces, block 32,768, physics off,
+and ``compact_from=1``: the bounce-1 wavefront is compacted too, into
+519,168 slots, enough for the partition-mode sort.
+
 ``--mesh-cand {0,1,2}`` sets ``ops.trimesh.MESH_CAND`` before the mesh
 frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
 loop, B10).
@@ -37,6 +44,7 @@ loop, B10).
     python -m drts_tpu_torch.bench --mesh-frame [--mesh-cand M] [--iters N]
     python -m drts_tpu_torch.bench --default-frame [--iters N]
     python -m drts_tpu_torch.bench --upscaled [--iters N]
+    python -m drts_tpu_torch.bench --mesh-pipeline [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -46,8 +54,9 @@ stage of one more frame, or with SHARC of the two frames of its update
 cadence, averaged, through render_frame's ``_run`` hook, timed with CUDA
 events and a synchronize per stage), rays_per_frame of the path
 trace, the frame's counters, and the frames and launches per kernel of
-the run (the all-mesh ReSTIR, default and upscaled frames alike); the
-mesh frame with
+the run and the spill waves the path trace ran (the all-mesh ReSTIR,
+default, upscaled and all-mesh pipeline frames alike); the mesh frame
+with
 mesh_trace_8b_mray_s, mesh_trace_8b_ms, rays_per_frame and the kernel
 launches of the run. All need a CUDA device and do not fall back to the
 CPU.
@@ -189,6 +198,17 @@ def default_frame_config(upscaled: bool = False, **overrides):
     return pipeline.PipelineConfig(**overrides)
 
 
+def mesh_pipeline_config(**overrides):
+    """The reference's ``bench_mesh_pipeline`` recipe (for the scene of
+    ``make_mesh_setup``): output 1920x1080, render 960x540, 8 bounces, 1
+    spp, block 32,768, ``compact_from=1``, physics off."""
+    return pipeline.PipelineConfig(**dict(dict(
+        output_width=1920, output_height=1080, render_width=960,
+        render_height=540, bounces=8, samples_per_pixel=1,
+        block_size=32768, compact_from=1, physics_enabled=False),
+        **overrides))
+
+
 def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
                      device="cuda", mesh: bool = False, tess: int = 4,
@@ -239,10 +259,11 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
     frame (width, height and bounces are then the config's). Returns
     (stats, the last timed frame's image); stats has frame_ms, passes_ms
     (each stage's mean over the stage-timed frames), rays_per_frame (path
-    trace, warm frame), the counters of the last timed frame and the
-    number of frames rendered."""
+    trace, warm frame), the counters of the last timed frame, the number
+    of frames rendered and the spill waves the path trace ran in them."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
                                          device=device, mesh=mesh, cfg=cfg)
+    pathtrace.spill_waves = 0
     traced = {}
 
     def capture(name, fn, *args):
@@ -273,6 +294,7 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
         "passes_ms": passes,
         "rays_per_frame": float(traced["rays"]),
         "counters": counters,
+        "spill_waves": pathtrace.spill_waves,
     }
     return stats, image
 
@@ -290,6 +312,9 @@ def main(argv=None):
                         help="the reference's default frame instead")
     parser.add_argument("--upscaled", action="store_true",
                         help="the default frame upscaled from 960x540")
+    parser.add_argument("--mesh-pipeline", action="store_true",
+                        help="the all-mesh pipeline, 540p upscaled to "
+                             "1080p, compact_from=1")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
@@ -313,7 +338,8 @@ def main(argv=None):
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)
         return
-    if args.frame or args.mesh_frame or args.default_frame or args.upscaled:
+    if (args.frame or args.mesh_frame or args.default_frame or args.upscaled
+            or args.mesh_pipeline):
         cfg = None
         metric = ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
                   else "restir_frame_1080p_8bounce")
@@ -321,9 +347,13 @@ def main(argv=None):
             cfg = default_frame_config(upscaled=args.upscaled)
             metric = ("upscaled_frame_540p_to_1080p_8bounce" if args.upscaled
                       else "default_frame_1080p_8bounce")
+        if args.mesh_pipeline:
+            cfg = mesh_pipeline_config()
+            metric = "mesh_pipeline_540p_to_1080p_8bounce"
         backend.reset_launches()
         stats, image = bench_frame(iters=args.iters, device=dev,
-                                   mesh=args.mesh_frame, cfg=cfg)
+                                   mesh=args.mesh_frame or args.mesh_pipeline,
+                                   cfg=cfg)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({

@@ -13,8 +13,10 @@ depth and normal, denoiser, TAA and SHARC state) is threaded through
 
 The constructor raises NotImplementedError for what waits for later
 slices: a thin lens, a focus distance other than 1, ``accel_mode="none"``
-and the ReSTIR options of ``restir.check_config``; ``compact_from=1``
-raises in the path trace. There is no counterpart of the reference's
+and the ReSTIR options of ``restir.check_config``. ``compact_from`` goes
+unchanged to the path trace and the SHARC update trace (1 compacts and
+sorts the bounce-1 wavefront too, the reference's all-mesh pipeline
+bench). There is no counterpart of the reference's
 ``intersect.pallas_enabled()`` gate: the accel is built every frame and
 every pass takes its kernel. An all-mesh scene (``myscene.as_mesh_scene``:
 an empty sphere table) has no cluster plan and no accel: its physics poses

@@ -9,21 +9,26 @@ capacity. Same integrator semantics as the reference: per-hit emission,
 three-lobe BSDF sampling, Russian roulette after bounce 3, the throughput
 cutoff and the NaN guard (Raytracing.hlsl:103-415).
 
-Ported: the dense bounces, the ``compact_from >= 2`` deep segment (the
-reference's ``compact_impl="scatter"`` / ``compact_gsel="direct"`` form
-with the key sort), the overflow spill, the ReSTIR DI handoff
-(``di_radiance``: added at the primary vertex, bounce-1 emission
-suppressed there), the SHARC query in the dense bounces and the deep
-segment (from ``sharc_query_from``), and ``sharc_update_trace``, the
-cache's downscaled update pass. Not ported yet (``trace_image`` and
-``sharc_update_trace`` raise): ``compact_from=1`` and the partition-mode
-sort the reference uses at capacities of 500,000 slots or more.
+The compaction is the reference's ``compact_impl="scatter"`` /
+``compact_gsel="direct"`` form. With ``compact_from=1`` the bounce-1
+wavefront is compacted too, into ``n / compact_fraction_first`` slots, and
+the deep segment cascades in that segment's slot space. Capacities of
+``compact_sort_partition_min`` slots or more replace the (octant, tile)
+key sort by a stable 9-bucket octant partition over a static tile-major
+compaction order, which gives the same grouping. ``overflow_spill`` runs a
+second wave over the paths the deep segment had to drop. Also here: the
+ReSTIR DI handoff (``di_radiance``: added at the primary vertex, bounce-1
+emission suppressed there), the SHARC query (from ``sharc_query_from``)
+and ``sharc_update_trace``, the cache's downscaled update pass, compacted
+after bounce 0 when ``compact_from=1``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 from ..models import scene as scene_mod
@@ -33,10 +38,9 @@ from . import bxdf, camera as camera_mod, intersect, post, shading, sharc
 from . import sky, trace as trace_mod
 
 
-# Screen-tile edge of the deep segment's (octant, tile) sort key.
-SORT_TILE = 64
-# The reference switches to its partition-mode sort at this capacity.
-PARTITION_MIN = 500_000
+# Spill waves run since the last reset: the host-side decision of
+# _deep_with_spill, counted for the benches.
+spill_waves = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +58,18 @@ class PathTraceConfig:
     compact_from: int = 2
     compact_fraction: int = 24
     compact_capacity: int = 0
+    # A second wave re-runs the deep segment over the lanes it dropped;
+    # off, those paths lose their remaining radiance (still counted in
+    # wavefront_overflow_paths).
+    overflow_spill: bool = True
+    # Capacity divisor of the bounce-1 segment (compact_from=1).
+    compact_fraction_first: int = 1
+    # Sort the compacted slots by (direction octant, screen tile) of
+    # compact_sort_tile pixels; from compact_sort_partition_min slots on,
+    # by the stable octant partition over a tile-major compaction order.
+    compact_sort: bool = True
+    compact_sort_tile: int = 64
+    compact_sort_partition_min: int = 500_000
     # First bounce that queries the SHARC cache (the reference's op
     # default 1; its pipeline sets 2).
     sharc_query_from: int = 1
@@ -153,42 +169,91 @@ def _compact_capacity(n_pixels: int, fraction: int) -> int:
     return -(-cap // 1024) * 1024
 
 
-def _compact_slots(act, l_dir_flat, cap: int, h: int, w: int,
-                   wave: int = 0):
-    """Pack the live lanes of `act` (pixel order) into a (cap,) slot buffer,
-    sort the slots by (direction octant, screen tile) and return src (slot
-    -> pixel, ns = empty), slot_live, overflow, the (keep, pos, perm)
-    mapper for _slots_to_space and gsel (slot gather with a dead row).
+@functools.lru_cache(maxsize=8)
+def _tile_order(h: int, w: int, tile: int, device: torch.device):
+    """The static tile-major order of an (h, w) frame (tm: compaction
+    position -> pixel) and its inverse, built once per shape and kept on
+    the device."""
+    pix = np.arange(h * w)
+    tiles_x = -(-w // tile)
+    tile_id = (pix // (w * tile)) * tiles_x + (pix % w) // tile
+    tm = np.argsort(tile_id, kind="stable")
+    return (torch.from_numpy(tm).to(device),
+            torch.from_numpy(np.argsort(tm)).to(device))
 
-    `wave` selects the window [wave*cap, (wave+1)*cap) of the live-lane
-    sequence: wave 1 packs the lanes wave 0 had to drop (the spill)."""
+
+def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
+                   wave: int = 0):
+    """Pack the live lanes of `act` into a (cap,) slot buffer, sort the
+    slots by (direction octant, screen tile) and return slot_live, the
+    overflow count, the (keep, pos, perm, cap) mapper for _slots_to_space
+    and gsel (slot gather with a dead row).
+
+    The input is the pixel frame (`pixel_ids` None) or a previous
+    segment's slots, whose true pixels `pixel_ids` gives. `wave` selects
+    the window [wave*cap, (wave+1)*cap) of the live-lane sequence: wave 1
+    packs the lanes wave 0 had to drop (the spill)."""
     ns = act.shape[0]
     dev = act.device
-    live_count = torch.cumsum(act.to(torch.int64), dim=0)
+    partition = cfg.compact_sort and cap >= cfg.compact_sort_partition_min
+    inv_tm = None
+    if partition and pixel_ids is None:
+        # Compact in tile-major pixel order: the stable octant partition
+        # below then groups slots by (octant, tile, pixel in tile), the key
+        # sort's grouping. Slot-space input is already tile-grouped by the
+        # segment before, so it compacts in place.
+        tm, inv_tm = _tile_order(h, w, cfg.compact_sort_tile, dev)
+        act_src, order_ids = act[tm], tm
+    else:
+        act_src, order_ids = act, torch.arange(ns, device=dev)
+    live_count = torch.cumsum(act_src.to(torch.int64), dim=0)
     pos = live_count - 1 - wave * cap
-    keep = act & (pos >= 0) & (pos < cap)
-    overflow = (act & (pos >= cap)).sum()
+    keep = act_src & (pos >= 0) & (pos < cap)
+    overflow = (act_src & (pos >= cap)).sum()
 
-    # Slot -> pixel table. Dropped lanes land on the extra slot `cap`,
-    # which is cut off.
+    # Slot -> input position table. Dropped lanes land on the extra slot
+    # `cap`, which is cut off.
     src = torch.full((cap + 1,), ns, dtype=torch.int64, device=dev)
-    src[torch.where(keep, pos, cap)] = torch.arange(ns, device=dev)
+    src[torch.where(keep, pos, cap)] = order_ids
     src = src[:cap]
+    if inv_tm is not None:
+        keep, pos = keep[inv_tm], pos[inv_tm]
 
     # Coherence sort: octant-major keeps every ray block inside one
     # direction octant, tile-minor keeps its origins local; empty slots
     # sort last. Per-path results do not depend on the slot order.
-    d = l_dir_flat
-    octant = ((d[:, 0] < 0).to(torch.int64) * 4
-              + (d[:, 1] < 0).to(torch.int64) * 2
-              + (d[:, 2] < 0).to(torch.int64))
-    tiles_x, tiles_y = -(-w // SORT_TILE), -(-h // SORT_TILE)
-    pix = torch.arange(ns, device=dev)
-    tile = (pix // (w * SORT_TILE)) * tiles_x + (pix % w) // SORT_TILE
-    key = torch.cat([octant * (tiles_x * tiles_y) + tile,
-                     torch.tensor([2 ** 30], device=dev)])
-    _, perm = torch.sort(key[torch.clamp(src, max=ns)], stable=True)
-    src = src[perm]
+    perm = None
+    if cfg.compact_sort:
+        d = l_dir_flat
+        octant = ((d[:, 0] < 0).to(torch.int64) * 4
+                  + (d[:, 1] < 0).to(torch.int64) * 2
+                  + (d[:, 2] < 0).to(torch.int64))
+        idx = torch.clamp(src, max=ns)
+        if partition:
+            # Bucket 8 holds the dead slots. One masked cumsum per bucket,
+            # the nine laid end to end in one flat scan: its inclusive
+            # count at (bucket b, slot s) is the slots of buckets < b plus
+            # the rank of s in b, so a slot's new position is the count at
+            # its own bucket, less one. (A cumsum down the (cap, 9) matrix
+            # instead runs the column scan of narrow tensors: 96 ms a frame
+            # at 519,168 slots on an H100.)
+            key = torch.cat([octant, octant.new_tensor([8])])[idx]
+            masks = key[None, :] == torch.arange(9, device=dev)[:, None]
+            counts = torch.cumsum(masks.reshape(-1).to(torch.int32), dim=0,
+                                  dtype=torch.int32).reshape(9, cap)
+            new_pos = counts.gather(0, key[None, :])[0].to(torch.int64) - 1
+            perm = torch.empty_like(new_pos)
+            perm[new_pos] = torch.arange(cap, device=dev)
+        else:
+            ts = cfg.compact_sort_tile
+            tiles_x, tiles_y = -(-w // ts), -(-h // ts)
+            pix = (torch.arange(ns, device=dev) if pixel_ids is None
+                   else pixel_ids)
+            tile = (pix // (w * ts)) * tiles_x + (pix % w) // ts
+            key = torch.cat([octant * (tiles_x * tiles_y) + tile,
+                             octant.new_tensor([2 ** 30])])
+            _, perm = torch.sort(key[idx], stable=True)
+        src = src[perm]
 
     slot_live = src < ns
     idx = torch.clamp(src, max=ns)
@@ -203,11 +268,13 @@ def _compact_slots(act, l_dir_flat, cap: int, h: int, w: int,
 
 
 def _slots_to_space(slot_vals, fill, mapper):
-    """(cap, C) slot values -> (ns, C) pixel values: un-permute to the
-    pre-sort slot order, then gather each kept pixel's slot."""
+    """(cap, C) slot values -> (ns, C) input-space values: un-permute to
+    the pre-sort slot order, then gather each kept element's slot."""
     keep, pos, perm, cap = mapper
-    vals = torch.empty_like(slot_vals)
-    vals[perm] = slot_vals
+    vals = slot_vals
+    if perm is not None:
+        vals = torch.empty_like(slot_vals)
+        vals[perm] = slot_vals
     vals = torch.cat([vals, torch.full((1,) + vals.shape[1:], fill,
                                        dtype=vals.dtype, device=vals.device)])
     return vals[torch.where(keep, pos, cap)]
@@ -215,36 +282,56 @@ def _slots_to_space(slot_vals, fill, mapper):
 
 def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                         rng, active, start_bounce: int, accel, cap: int,
-                        wave: int = 0, sharc_args=None, rough=None):
-    """Bounces [start_bounce, cfg.bounces] on the compacted survivor
-    buffer. Inputs are (H, W, ...) pixel-space state; `sharc_args` is
-    (state, config, camera position) where the cache is queried, `rough`
-    the paths' accumulated roughness. Returns a dict with the (H, W, 3)
-    radiance, the rays cast, the overflow count and the SHARC counters."""
-    h, w = active.shape
-    ns = h * w
-    cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3), cap, h, w,
-                        wave=wave)
+                        end_bounce: int | None = None, di_valid=None,
+                        want_aov: bool = False, return_state: bool = False,
+                        pixel_ids=None, img_hw=None, wave: int = 0,
+                        sharc_args=None, rough=None):
+    """Bounces [start_bounce, end_bounce] (default cfg.bounces) on the
+    compacted survivor buffer.
+
+    The input is (H, W, ...) pixel-space state, or a previous segment's
+    flat (ns, ...) slot state with `pixel_ids` (each element's true pixel)
+    and `img_hw`. `sharc_args` is (state, config, camera position) where
+    the cache is queried, `rough` the paths' accumulated roughness.
+    `di_valid` suppresses bounce-1 emission where ReSTIR's direct light
+    was added at the primary vertex; `want_aov` returns the first trace's
+    hit distance; `return_state` returns the continuation state in slot
+    space (with its pixel ids) for the next segment. Returns a dict with
+    the radiance, the rays cast, the overflow count, the SHARC counters
+    and the mapper; arrays are (H, W, ...) for pixel-space input, flat
+    otherwise."""
+    if end_bounce is None:
+        end_bounce = cfg.bounces
+    pixel_space = pixel_ids is None
+    h, w = active.shape if img_hw is None else img_hw
+    ns = active.numel()
+    cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3), pixel_ids,
+                        cfg, cap, h, w, wave=wave)
     gsel = cs["gsel"]
     c_origin = gsel(origin.reshape(ns, 3), [[0.0, 0.0, 0.0]])
     c_dir = gsel(l_dir.reshape(ns, 3), [[0.0, 0.0, 1.0]])
     c_thr = gsel(throughput.reshape(ns, 3), [[0.0, 0.0, 0.0]])
     c_rng = gsel(rng.reshape(ns), [0])
     c_rough = gsel(rough.reshape(ns), [0.0]) if sharc_args else None
+    c_di = (gsel(di_valid.reshape(ns), [False]) if di_valid is not None
+            else None)
     slot_live = cs["slot_live"]
     c_active = slot_live
     c_radiance = torch.zeros((cap, 3), dtype=torch.float32,
                              device=active.device)
+    c_hitdist = None
     zeros_c = torch.zeros(cap, dtype=torch.float32, device=active.device)
     rays = torch.zeros((), dtype=torch.float32, device=active.device)
     counters = {}
 
-    for bounce in range(start_bounce, cfg.bounces + 1):
+    for bounce in range(start_bounce, end_bounce + 1):
         rays = rays + c_active.sum()
         surf = trace_mod.trace_scene(
             scene, c_origin, c_dir, zeros_c,
             torch.where(c_active, float("inf"), -1.0), cfg.block_size,
             accel=accel, table=table, alpha_rounds=scene.alpha_test_rounds)
+        if want_aov and bounce == start_bounce:
+            c_hitdist = torch.where(surf.valid, surf.distance, float("inf"))
         env_color = sky.environment_color(scene.env, c_dir)
         miss = c_active & ~surf.valid
         c_radiance = c_radiance + torch.where(miss[..., None],
@@ -259,15 +346,21 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
             c_active = c_active & ~use_cache
 
         if bounce == cfg.bounces:
-            mat = shading.evaluate_material(surf.material, surf.uv,
-                                            surf.shading_normal,
-                                            surf.tangent)
+            emission = shading.evaluate_material(
+                surf.material, surf.uv, surf.shading_normal,
+                surf.tangent).emission
+            if c_di is not None and bounce == 1:
+                emission = torch.where(c_di[..., None], 0.0, emission)
             c_radiance = c_radiance + torch.where(c_active[..., None],
-                                                  c_thr * mat.emission, 0.0)
+                                                  c_thr * emission, 0.0)
             break
 
         emission, new_dir, weight, valid, lobe, bs, c_rng = \
             _shade_and_scatter(surf, c_dir, c_rng)
+        if c_di is not None and bounce == 1:
+            # DI already sampled this light at the primary vertex
+            # (Raytracing.hlsl:302).
+            emission = torch.where(c_di[..., None], 0.0, emission)
         c_radiance = c_radiance + torch.where(c_active[..., None],
                                               c_thr * emission, 0.0)
         c_thr = c_thr * weight
@@ -280,24 +373,46 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                                               surf.geometric_normal, new_dir)
         c_dir = new_dir
 
+    mapper = cs["mapper"]
+
+    def to_space(slot_vals, fill):
+        vals = _slots_to_space(slot_vals, fill, mapper)
+        return vals.reshape((h, w) + vals.shape[1:]) if pixel_space else vals
+
     contrib = torch.where(slot_live[..., None], c_radiance, 0.0)
-    radiance = _slots_to_space(contrib, 0.0, cs["mapper"]).reshape(h, w, 3)
-    return {"radiance": radiance, "rays": rays, "overflow": cs["overflow"],
-            "counters": counters}
+    out = {"radiance": to_space(contrib, 0.0), "rays": rays,
+           "overflow": cs["overflow"], "counters": counters,
+           "mapper": mapper}
+    if c_hitdist is not None:
+        out["hit_distance"] = to_space(c_hitdist[:, None],
+                                       float("inf"))[..., 0]
+    if return_state:
+        # The next segment re-compacts straight from these slots; the
+        # pixel ids keep each path's true pixel for its tile keys.
+        pix = (torch.arange(ns, device=active.device) if pixel_space
+               else pixel_ids)
+        out["state"] = {"origin": c_origin, "dir": c_dir,
+                        "throughput": c_thr, "roughness": c_rough,
+                        "rng": c_rng, "active": c_active,
+                        "pixel_ids": gsel(pix, [h * w])}
+    return out
 
 
 def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
                      active, start_bounce, accel, cap, sharc_args=None,
-                     rough=None):
-    """Deep segment plus, when it overflowed, a second wave over the
-    dropped lanes (the reference's default overflow_spill). The decision is
-    one host read of the overflow count per frame; only paths beyond 2x
-    capacity then drop."""
+                     rough=None, pixel_ids=None, img_hw=None):
+    """The terminal deep segment plus, with cfg.overflow_spill and when it
+    overflowed, a second wave over the dropped lanes. The decision is one
+    host read of the overflow count; only paths beyond 2x capacity then
+    drop."""
+    global spill_waves
     args = (scene, table, cfg, origin, l_dir, throughput, rng, active,
             start_bounce, accel, cap)
-    kw = {"sharc_args": sharc_args, "rough": rough}
+    kw = {"sharc_args": sharc_args, "rough": rough, "pixel_ids": pixel_ids,
+          "img_hw": img_hw}
     seg = _trace_deep_compact(*args, **kw)
-    if seg["overflow"].item() > 0:
+    if cfg.overflow_spill and seg["overflow"].item() > 0:
+        spill_waves += 1
         s2 = _trace_deep_compact(*args, wave=1, **kw)
         seg = {"radiance": seg["radiance"] + s2["radiance"],
                "rays": seg["rays"] + s2["rays"],
@@ -305,18 +420,6 @@ def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
                "counters": {k: v + s2["counters"][k]
                             for k, v in seg["counters"].items()}}
     return seg
-
-
-def _check_supported(cfg):
-    use_compact = 1 <= cfg.compact_from <= cfg.bounces
-    if not use_compact:
-        return
-    if cfg.compact_from == 1:
-        raise NotImplementedError("compact_from=1 is not ported yet")
-    cap = cfg.compact_capacity or _compact_capacity(
-        cfg.width * cfg.height, cfg.compact_fraction)
-    if cap >= PARTITION_MIN:
-        raise NotImplementedError("the partition-mode sort is not ported yet")
 
 
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
@@ -333,7 +436,6 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     it is added to the radiance. With ``sharc_state`` (and its
     ``sharc_cfg``), hits from bounce ``cfg.sharc_query_from`` on end into
     the cache where it holds their voxel."""
-    _check_supported(cfg)
     sharc_args = None
     if sharc_state is not None:
         sharc_args = (sharc_state, sharc_cfg, cam.position)
@@ -381,6 +483,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     dense_last = cfg.compact_from - 1 if use_compact else cfg.bounces
     cap = cfg.compact_capacity or _compact_capacity(h * w,
                                                     cfg.compact_fraction)
+    cap_first = _compact_capacity(h * w, cfg.compact_fraction_first)
 
     if di_radiance is not None:
         di_valid = primary_hit & (torch.sum(di_radiance, dim=-1) > 0.0)
@@ -467,15 +570,53 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         if use_compact:
             origin = intersect.safe_spawn_point(
                 surf.position, surf.geometric_normal, l_dir)
-            seg = _deep_with_spill(scene, table, cfg, origin, l_dir,
-                                   throughput, rng, active, cfg.compact_from,
-                                   accel, cap, sharc_args, rough)
-            sample_radiance = sample_radiance + seg["radiance"]
-            rays_traced = rays_traced + seg["rays"]
-            counters["wavefront_overflow_paths"] = (
-                counters["wavefront_overflow_paths"] + seg["overflow"])
-            for k, v in seg["counters"].items():
-                counters[k] = counters.get(k, 0.0) + v
+
+            def fold(seg, through=None):
+                """Add a segment's outputs; `through` is the segment in
+                whose slot space this one ran."""
+                nonlocal sample_radiance, rays_traced, hit_distance
+                rad = seg["radiance"]
+                if through is not None:
+                    rad = _slots_to_space(rad, 0.0,
+                                          through["mapper"]).reshape(h, w, 3)
+                sample_radiance = sample_radiance + rad
+                rays_traced = rays_traced + seg["rays"]
+                counters["wavefront_overflow_paths"] = (
+                    counters["wavefront_overflow_paths"] + seg["overflow"])
+                for k, v in seg["counters"].items():
+                    counters[k] = counters.get(k, 0.0) + v
+                if "hit_distance" in seg:
+                    hit_distance = seg["hit_distance"]
+
+            if cfg.compact_from == 1:
+                # The bounce-1 AOVs: the first scatter's lobe is bounce-0
+                # state; the hit distance comes back from the segment.
+                if sample_index == 0:
+                    is_diffuse = lobe == bxdf.LOBE_DIFFUSE
+                two_segment = cfg.bounces >= 2
+                seg = _trace_deep_compact(
+                    scene, table, cfg, origin, l_dir, throughput, rng,
+                    active, 1, accel, cap_first,
+                    end_bounce=1 if two_segment else cfg.bounces,
+                    di_valid=di_valid, want_aov=sample_index == 0,
+                    return_state=two_segment, sharc_args=sharc_args,
+                    rough=rough)
+                fold(seg)
+                if two_segment:
+                    # The deep segment cascades in the bounce-1 segment's
+                    # slot space.
+                    st = seg["state"]
+                    fold(_deep_with_spill(
+                        scene, table, cfg, st["origin"], st["dir"],
+                        st["throughput"], st["rng"], st["active"], 2, accel,
+                        cap, sharc_args, st["roughness"],
+                        pixel_ids=st["pixel_ids"], img_hw=(h, w)),
+                        through=seg)
+            else:
+                fold(_deep_with_spill(scene, table, cfg, origin, l_dir,
+                                      throughput, rng, active,
+                                      cfg.compact_from, accel, cap,
+                                      sharc_args, rough))
 
         # NaN guard (Raytracing.hlsl:377).
         finite = torch.all(torch.isfinite(sample_radiance), dim=-1,
@@ -510,10 +651,12 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     backward scan L_v = E_v + T_v * L_{v+1} and one splat of every level.
     Rays take a random sub-pixel jitter (Raytracing.hlsl:111-112) and the
     BSDF roughness is floored at the config's roughness threshold. Returns
-    (new SHARCState, {"sharc_splat_dropped_rows": scalar})."""
-    if cfg.compact_from == 1:
-        raise NotImplementedError("the compacted SHARC update trace "
-                                  "(compact_from=1) is not ported yet")
+    (new SHARCState, {"sharc_splat_dropped_rows": scalar}).
+
+    With cfg.compact_from == 1 the paths are compacted and octant-sorted
+    once after bounce 0, as in the main trace; their slots then stay
+    fixed, so the records of bounces >= 1 and the backward scan are in
+    slot space, and only level 1 -> 0 crosses back to pixel space."""
     h, w = cfg.height, cfg.width
     dev = scene.center.device
     py, px = torch.meshgrid(torch.arange(h, device=dev),
@@ -540,15 +683,20 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,
                                  cfg.block_size, accel=accel, table=table,
                                  alpha_rounds=scene.alpha_test_rounds)
+    use_compact = cfg.compact_from == 1 and cfg.bounces >= 1
+    mapper = origin = None
     for bounce in range(cfg.bounces + 1):
         if bounce > 0:
-            origin = intersect.safe_spawn_point(surf.position,
-                                                surf.geometric_normal, l_dir)
+            if origin is None:
+                origin = intersect.safe_spawn_point(
+                    surf.position, surf.geometric_normal, l_dir)
             surf = trace_mod.trace_scene(
-                scene, origin, l_dir, torch.zeros((h, w), device=dev),
+                scene, origin, l_dir,
+                torch.zeros(active.shape, device=dev),
                 torch.where(active, float("inf"), -1.0), cfg.block_size,
                 accel=accel, table=table,
                 alpha_rounds=scene.alpha_test_rounds)
+            origin = None
         miss = active & ~surf.valid
         env_color = sky.environment_color(scene.env, l_dir)
         live = active & surf.valid
@@ -560,8 +708,9 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                                             surf.tangent)
             emission = mat.emission
             l_dir_new = l_dir
-            weight = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-            valid = torch.zeros((h, w), dtype=torch.bool, device=dev)
+            weight = torch.zeros(active.shape + (3,), dtype=torch.float32,
+                                 device=dev)
+            valid = torch.zeros(active.shape, dtype=torch.bool, device=dev)
         else:
             emission, l_dir_new, weight, valid, _, _, rng = \
                 _shade_and_scatter(surf, l_dir, rng,
@@ -579,11 +728,28 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         active = live & valid
         l_dir = l_dir_new
 
+        if use_compact and bounce == 0:
+            ns = h * w
+            origin0 = intersect.safe_spawn_point(
+                surf.position, surf.geometric_normal, l_dir)
+            cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3),
+                                None, cfg, _compact_capacity(ns, 1), h, w)
+            gsel, mapper = cs["gsel"], cs["mapper"]
+            origin = gsel(origin0.reshape(ns, 3), [[0.0, 0.0, 0.0]])
+            l_dir = gsel(l_dir.reshape(ns, 3), [[0.0, 0.0, 1.0]])
+            rng = gsel(rng.reshape(ns), [0])
+            active = cs["slot_live"]
+
     # Backward scan: L_v = E_v + T_v * L_{v+1}, then one splat of all
     # levels.
     radiance_next = torch.zeros_like(emissions[-1])
     level_radiance = [None] * len(slots)
     for b in range(len(slots) - 1, -1, -1):
+        if radiance_next.shape != emissions[b].shape:
+            # Slot space (level 1) -> pixel space (level 0).
+            radiance_next = _slots_to_space(radiance_next, 0.0,
+                                            mapper).reshape(
+                emissions[b].shape)
         l_here = emissions[b] + seg_weights[b] * radiance_next
         l_here = torch.where(torch.isfinite(l_here), l_here, 0.0)
         level_radiance[b] = l_here

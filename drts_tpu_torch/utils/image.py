@@ -1,7 +1,8 @@
-"""Host image helpers of the port: a minimal PNG reader and SSIM.
+"""Host image helpers of the port: a minimal PNG writer and reader, and
+SSIM.
 
-Both are numpy-only, so the port needs neither PIL nor the JAX package to
-check a rendered frame against ``tests/golden/demo_64.png``.
+All are numpy-only, so the port needs neither PIL nor the JAX package to
+write a rendered frame or check it against ``tests/golden/demo_64.png``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,32 @@ import zlib
 import numpy as np
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+
+
+def write_png(path: str, image: np.ndarray) -> None:
+    """Write an (H, W), (H, W, 3) or (H, W, 4) uint8 or float [0, 1] array
+    as an 8-bit PNG whose rows all use filter type 0 (so read_png reads it
+    back)."""
+    img = np.asarray(image)
+    if img.dtype != np.uint8:
+        img = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    h, w, c = img.shape
+    color_type = {3: 2, 4: 6}[c]
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    raw = b"".join(b"\x00" + img[row].tobytes() for row in range(h))
+    png = (_PNG_MAGIC
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                        0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw, 6))
+           + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)
 
 
 def read_png(path: str) -> np.ndarray:

@@ -32,13 +32,18 @@ blocks of 1, 40 in one warp, 63, 64, 100 and 256 live lanes; 600
 instances at scales 0.5, 1 and 2, a table of two face tiles), each with
 the threshold patched so that every block takes one path, and B9's
 triangle-chunk culls on the hand scene's rays for its instances of scale
-0.5, 1 and 2 with the margin and guard from the wrapper and at 0. Run on
-a GPU
+0.5, 1 and 2 with the margin and guard from the wrapper and at 0. Whole
+``compact_from=1`` path-trace frames at 48x48 (spheres through B1, the
+mesh scene through B5-B7 and B11) hold the card to the CPU with the key
+sort, the partition at every capacity, the partition over ragged tiles
+and a 32-slot deep segment with and without the spill wave. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance 0 for B1, B11, B2, B4 and B5 to B10: the kernels are built with
+The frames: equal rays and overflow counts, radiance within 1e-3 on >=
+99.5% of pixels and 1e-5 on average. Tolerance 0 for B1, B11, B2, B4 and
+B5 to B10: the kernels are built with
 -fmad=false and compute the same separately rounded operations in the same
 order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
 sincosf where the plain version calls PyTorch's sin and cos: picks may
@@ -993,3 +998,70 @@ def test_anyhit_serial_kernel_culls_with_the_wrappers_margin(
         out = tk.intersect_mesh_instances_any(*on_dev).cpu()
         assert torch.equal(out, walked)
     assert torch.equal(out, plain) == margin
+
+
+def compact_first_frame(device, mesh, **cfg_kw):
+    """One compact_from=1 path-trace frame of the demo scene (oscillator
+    grid 3; with `mesh` as tessellation-1 instances, no accel, else the
+    Morton accel) at 48x48, 6 bounces, seen from (0, 1, -5)."""
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.ops import camera, pathtrace
+    host = myscene.build(oscillator_grid=3, device=device)
+    if mesh:
+        host = myscene.as_mesh_scene(host, tessellation=1)
+    eye = np.array([0.0, 1.0, -5.0])
+    cam = camera.make_camera(tuple(eye), tuple(-eye / np.linalg.norm(eye)),
+                             aspect=1.0, device=device)
+    accel = None
+    if not mesh:
+        plan = clusters.build_plan_morton(host.scene.center.cpu().numpy(),
+                                          host.scene.radius.cpu().numpy(),
+                                          max_members=8, device=device)
+        accel = clusters.make_morton_accel(plan, host.scene.center,
+                                           host.scene.radius,
+                                           sort_origin=cam.position)
+    cfg = pathtrace.PathTraceConfig(width=48, height=48, bounces=6,
+                                    block_size=4096, compact_from=1,
+                                    compact_fraction=4, **cfg_kw)
+    return pathtrace.trace_image(host.scene, cam, cfg, 3, accel=accel)
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["spheres", "mesh"])
+@pytest.mark.parametrize("variant", ["key", "partition", "ragged",
+                                     "spill", "no_spill"])
+def test_compact_first_trace_card_equals_cpu(dev, mesh, variant):
+    """compact_from=1 on the card (B1 or the mesh kernels) against the CPU
+    (plain versions): the key sort, the partition at every capacity
+    (compact_sort_partition_min=0), the partition over ragged 20-pixel
+    tiles (48 = 2 x 20 + 8), and a deep capacity of 32 slots with the
+    spill wave and with overflow_spill=False. The rays, the spill waves
+    and the overflow count are equal, and the radiance within 1e-3 on >=
+    99.5% of pixels, 1e-5 on average (plain PyTorch ops may round
+    differently on the card)."""
+    from drts_tpu_torch.ops import pathtrace
+    kw = {"key": {}, "partition": {"compact_sort_partition_min": 0},
+          "ragged": {"compact_sort_partition_min": 0,
+                     "compact_sort_tile": 20},
+          "spill": {"compact_capacity": 32},
+          "no_spill": {"compact_capacity": 32,
+                       "overflow_spill": False}}[variant]
+    before = dict(backend.LAUNCHES)
+    pathtrace.spill_waves = 0
+    card = compact_first_frame(dev, mesh, **kw)
+    launched = {k: v - before[k] for k, v in backend.LAUNCHES.items()}
+    waves = pathtrace.spill_waves
+    cpu = compact_first_frame("cpu", mesh, **kw)
+    assert pathtrace.spill_waves == 2 * waves
+    assert (waves > 0) == (variant == "spill")
+    kernel = "intersect_mesh_instances" if mesh else "intersect_morton"
+    assert launched[kernel] >= 7
+    assert float(card.rays_traced) == float(cpu.rays_traced)
+    assert (float(card.counters["wavefront_overflow_paths"])
+            == float(cpu.counters["wavefront_overflow_paths"]))
+    if variant == "no_spill":
+        assert float(cpu.counters["wavefront_overflow_paths"]) > 0
+    d = (card.radiance.cpu() - cpu.radiance).abs()
+    assert torch.isfinite(card.radiance).all()
+    assert float(d.mean()) <= 1e-5, float(d.mean())
+    assert float((d.amax(-1) <= 1e-3).float().mean()) >= 0.995
+    assert torch.equal(card.is_diffuse.cpu(), cpu.is_diffuse)
