@@ -148,12 +148,22 @@ Phases, one printed line or more each; any failure exits non-zero:
 16. mesh pipeline: the reference's bench_mesh_pipeline recipe
    (bench.mesh_pipeline_config: the default frame graph on the scene of
    phase 9, rendered at 960x540 and upscaled by TAA to 1920x1080, 8
-   bounces, block 32,768, physics off, compact_from=1) through
+   bounces, block 32,768, physics off, compact_from=1). First its kernels
+   at its own inputs, recorded by stage in the second of two frames: the
+   bounce-1 segment's compaction in partition mode and as the key sort
+   (the same pixel in every slot, both timed); B5, B6, B7 and B11 on every
+   closest-hit call of the trace stage (the bounce-1 segment's 519,168
+   octant-partitioned slots, dead ones at the tail, then the deep
+   segment's bounces in its slot space), B5, B8, B9 and B11 on the three
+   shadow batches as in phase 10, B11 on the BRDF candidate's light sweep
+   and B4 on the four reprojections as in phase 14, each against its
+   plain version (every word equal; B4 bilinear within B4_BILINEAR_REL)
+   and timed beside it. Then through
    bench.bench_frame, counted from zero: frame time, per-stage times,
    counters, spill waves per frame, launches (B4 by mode) and every
-   compaction the path traces ran (capacity, sort mode, pixel or slot
-   space); the bounce-1 segment must hold 519,168 slots in partition
-   mode; the image a finite (1080, 1920, 3) in [0, 1], SHARC hits on the
+   compaction the path traces ran (capacity, the sort _compact_slots
+   reports it ran, pixel or slot space); the bounce-1 segment must hold
+   519,168 slots in partition mode; the image a finite (1080, 1920, 3) in [0, 1], SHARC hits on the
    last timed frame, each of B4, B5, B6, B7, B8, B9 and B11 launched as
    the stages need and B1, B2, B3 and B10 not at all.
 17. mesh pipeline small: three frames of that graph at 64x64 output (32x32
@@ -182,9 +192,12 @@ of phase 12's primary call; and B1, B2, B3, B4 and B11 once more
 14 (one frame's four reprojections), the others with those of phases 2
 and 5 (the default frame's ReSTIR passes and primary rays are the ReSTIR
 frame's); and B4, B5, B6, B7, B8, B9 and B11 once more
-("...@mesh_pipeline") with the launches of phase 16 and the times the
-earlier phases give those kernels (B4 phase 14's, B5, B6, B7 and B11
-phase 8's, B8 phase 10's and B9 phase 10's backstop batches).
+("...@mesh_pipeline") with the launches and the times of phase 16: B5,
+B6, B7 and B11 summed over one frame's trace stage (B7 its own backstop
+batches), "bound_scan@mesh_pipeline_any", B8, B9 (the backstop batches)
+and "intersect_brute@mesh_pipeline_any" over its three shadow batches,
+"intersect_brute@mesh_pipeline_lights" its light sweep, B4 its four
+reprojections.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
@@ -1180,9 +1193,10 @@ def check_b8(tk, label, args):
     return part
 
 
-def check_anyhit_kernels(ik, tk, seen):
+def check_anyhit_kernels(ik, tk, seen, path=""):
     """Phase 10: B8, B9 and the any-hit launches of B5 and B11 against
-    their plain versions on the all-mesh ReSTIR frame's own inputs. The
+    their plain versions on the all-mesh ReSTIR frame's own inputs (phase
+    16: the mesh pipeline's, `path` heading every printed label). The
     kernels-line fields of B8, "bound_scan@mesh_restir" and
     "intersect_brute@mesh_restir" are sums over one frame's three
     occluded_scene calls (6, 9 and 3 launches); B9's are those of the
@@ -1201,6 +1215,7 @@ def check_anyhit_kernels(ik, tk, seen):
     b8_chunk_ms = {}
     fullest = None
     for c, label in enumerate(("brdf-candidate", "initial", "final")):
+        label = path + label
         # B11: the any-hit pre-pass over the instance bounds (hit bit only).
         rays, spheres, block = seen["intersect_brute"][c]
         res = compare_closest(
@@ -1238,8 +1253,8 @@ def check_anyhit_kernels(ik, tk, seen):
                                  True))
     out["bound_scan@mesh_restir"] = sum_parts(b5_parts)
     out["shared_blas_any"] = sum_parts(b8_parts)
-    log("mesh any-hit kernels: B8 kernel_ms summed over the frame's 6 "
-        "launches by triangle chunk: " + " ".join(
+    log(f"mesh any-hit kernels: {path}B8 kernel_ms summed over the frame's "
+        "6 launches by triangle chunk: " + " ".join(
             f"chunk{c}={ms!r}" for c, ms in sorted(b8_chunk_ms.items()))
         + f" (kept: {tk.TRI_CHUNK}; bound_ms={out['shared_blas_any']['bound_ms']!r}"
         f" unculled_bound_ms="
@@ -1247,7 +1262,8 @@ def check_anyhit_kernels(ik, tk, seen):
     out["intersect_brute@mesh_restir"] = sum_parts(b11_parts)
     backstop = out["intersect_mesh_instances_any@backstop"] = sum_parts(
         b9_parts)
-    log("mesh any-hit kernels: B9 the frame's 3 backstop batches: live="
+    log(f"mesh any-hit kernels: {path}B9 the frame's 3 backstop batches: "
+        "live="
         + ",".join(str(p["live"]) for p in b9_parts)
         + " kernel_ms=" + ",".join(repr(p["ms"]) for p in b9_parts)
         + " bound_ms=" + ",".join(
@@ -1411,13 +1427,13 @@ def capture_default_reprojections(bench, ik, rp, device="cuda"):
             *b1_frame(ik, b1["intersect_morton"], 2))
 
 
-def check_default_reprojections(rp, calls):
+def check_default_reprojections(rp, calls, label="default"):
     """Phase 14 (first part): B4 against its plain version on each of a
-    default frame's reprojections; returns the summed kernels-line fields
-    and the calls' modes."""
+    default frame's reprojections (phase 16: the mesh pipeline frame's,
+    `label` "mesh pipeline"); returns the summed kernels-line fields."""
     modes = [mode for _, _, mode in calls]
     if sorted(modes) != ["bilinear", "nearest", "nearest", "nearest"]:
-        raise AssertionError(f"B4 in the default frame: modes {modes}, "
+        raise AssertionError(f"B4 in the {label} frame: modes {modes}, "
                              f"expected 3 nearest and 1 bilinear")
     ms = plain_ms = lib_ms = bytes_moved = ops = err = 0.0
     for src, motion, mode in calls:
@@ -1450,7 +1466,7 @@ def check_default_reprojections(rp, calls):
             chw, grid, mode=mode, padding_mode="border", align_corners=True),
             50)
         vec = 1 if mode == "bilinear" else rp.vector_width(c, src, o_k)
-        log(f"default kernels: B4 {mode} {h}x{w}x{c} vector_width={vec} "
+        log(f"{label} kernels: B4 {mode} {h}x{w}x{c} vector_width={vec} "
             f"mismatch={bad} ok_mismatch={ok_mismatch} "
             f"kernel_ms={k!r} plain_ms={p!r} grid_sample_ms={lib!r} "
             f"bound_ms={bound((2 * c * 4 + 8 + 1) * h * w, 0)[0]!r}")
@@ -1586,18 +1602,17 @@ def check_default_small(pipeline, bench, sharc_mod,
 
 @contextlib.contextmanager
 def compaction_tally(pathtrace):
-    """Count the path traces' compactions by (capacity, sort mode, input
-    space, wave)."""
+    """Count the path traces' compactions by (capacity, the sort that
+    _compact_slots reports it ran, input space, wave)."""
     tally = {}
     orig = pathtrace._compact_slots
 
     def tallied(act, l_dir, pixel_ids, cfg, cap, h, w, wave=0):
-        mode = ("none" if not cfg.compact_sort else "partition"
-                if cap >= cfg.compact_sort_partition_min else "key")
-        key = (f"cap={cap} sort={mode} "
+        cs = orig(act, l_dir, pixel_ids, cfg, cap, h, w, wave)
+        key = (f"cap={cap} sort={cs['sort']} "
                f"{'pixels' if pixel_ids is None else 'slots'} wave={wave}")
         tally[key] = tally.get(key, 0) + 1
-        return orig(act, l_dir, pixel_ids, cfg, cap, h, w, wave)
+        return cs
     pathtrace._compact_slots = tallied
     try:
         yield tally
@@ -1605,12 +1620,189 @@ def compaction_tally(pathtrace):
         pathtrace._compact_slots = orig
 
 
-def run_mesh_pipeline(bench, backend, pathtrace, rp, smi, iters, dev):
+def capture_pipeline_inputs(bench, pathtrace, trimesh, ik, tk, rp, cfg,
+                            device="cuda"):
+    """One mesh pipeline frame to warm the histories, then one that
+    records, by stage: the arguments of every B5, B6, B7 and B11 call and
+    every compaction of the trace stage (the bounce-1 segment on its
+    compacted, octant-partitioned slots, then each bounce of the deep
+    segment in that segment's slot space); of every B5, B8, B9 and B11
+    call inside trimesh.intersect_instances_any (the frame's three shadow
+    batches); of the BRDF candidate's B11 light sweep (the ReSTIR initial
+    stage outside the any-hit calls); and of every B4 call. Closest-hit,
+    compaction and B4 tensors are copied (the candidate loop tightens its
+    rays in place). Returns (closest, compactions, shadow, light sweeps,
+    B4 calls)."""
+    pipe, state, pose = bench.make_frame_setup(device=device, mesh=True,
+                                               cfg=cfg)
+    state, _ = pipe.render_frame(state, pose)
+    stage, inside = [None], [False]
+
+    def run(name, fn, *args):
+        stage[0] = name
+        try:
+            return fn(*args)
+        finally:
+            stage[0] = None
+    orig = trimesh.intersect_instances_any
+
+    def any_hit(*args, **kwargs):
+        inside[0] = True
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def in_trace(seen):
+        return stage[0] == "trace" and not inside[0]
+    trimesh.intersect_instances_any = any_hit
+    try:
+        with recorded((ik, tk), ("bound_scan", "shared_blas_sweep",
+                                 "intersect_mesh_instances",
+                                 "intersect_brute"),
+                      clone=True, keep=in_trace) as closest, \
+                recorded((pathtrace,), ("_compact_slots",), clone=True,
+                         keep=in_trace) as packs, \
+                recorded((ik, tk), ("bound_scan", "shared_blas_any",
+                                    "intersect_mesh_instances_any",
+                                    "intersect_brute"),
+                         keep=lambda seen: inside[0]) as shadow, \
+                recorded((ik,), ("intersect_brute",),
+                         keep=lambda seen: stage[0] == "restir_initial"
+                         and not inside[0]) as lights, \
+                recorded((rp,), ("reproject_packed",), clone=True) as b4:
+            pipe.render_frame(state, pose, _run=run)
+            torch.cuda.synchronize()
+    finally:
+        trimesh.intersect_instances_any = orig
+    return (closest, packs["_compact_slots"], shadow,
+            lights["intersect_brute"], b4["reproject_packed"])
+
+
+def check_pipeline_closest(ik, tk, seen, cap1):
+    """Phase 16: B5, B6, B7 and B11 against their plain versions on every
+    closest-hit call of one mesh pipeline frame's trace stage: first the
+    bounce-1 segment (cap1 slots, octant-partitioned, the dead slots at
+    the tail), then each bounce of the deep segment in that segment's slot
+    space. Each launch is timed beside its plain version; the kernels-line
+    fields of "...@mesh_pipeline" are sums over all of them (one frame's
+    trace stage), B7's over the frame's own backstop batches."""
+    calls = len(seen["intersect_mesh_instances"])
+    if (calls < 2 or len(seen["bound_scan"]) != 4 * calls
+            or len(seen["shared_blas_sweep"]) != 3 * calls
+            or len(seen["intersect_brute"]) != 2 * calls):
+        raise AssertionError(
+            "mesh pipeline kernels: recorded "
+            + json.dumps({k: len(v) for k, v in seen.items()})
+            + " calls, expected per closest-hit call 4 B5, 3 B6, 1 B7 and "
+            "2 B11")
+    if seen["intersect_mesh_instances"][0][0].shape[1] != cap1:
+        raise AssertionError(f"mesh pipeline kernels: the trace stage's "
+                             f"first call is not the {cap1}-slot bounce-1 "
+                             f"segment")
+    names = ("bound_scan", "shared_blas_sweep", "intersect_mesh_instances",
+             "intersect_brute")
+    parts = {name: ([], []) for name in names}
+    for c in range(calls):
+        label = ("pipeline bounce-1 segment" if c == 0
+                 else f"pipeline deep segment call {c}")
+        seg = min(c, 1)
+        for r, args in enumerate(seen["bound_scan"][4 * c:4 * c + 4]):
+            parts["bound_scan"][seg].append(check_b5(
+                ik, tk, f"mesh kernels: B5 {label} round {r + 1}", args, 1))
+        for r, args in enumerate(seen["shared_blas_sweep"][3 * c:3 * c + 3]):
+            parts["shared_blas_sweep"][seg].append(
+                check_b6(ik, tk, f"{label} round {r + 1}", args, True))
+        parts["intersect_mesh_instances"][seg].append(
+            check_b7(tk, f"{label} backstop",
+                     seen["intersect_mesh_instances"][c], True))
+        for which, (rays, spheres, block) in zip(
+                ("bounds", "inscribed balls"),
+                seen["intersect_brute"][2 * c:2 * c + 2]):
+            res = compare_closest(
+                f"B11 {label} {which} K={spheres.shape[1]}",
+                lambda: ik.intersect_brute(rays, spheres),
+                lambda: ik.intersect_brute_plain(rays, spheres, block),
+                reps=10, plain_reps=1)
+            w = b11_work(ik, rays, spheres)
+            res.update(bytes=w["bytes"], ops=w["ops"],
+                       unculled_ops=w["unculled_ops"])
+            parts["intersect_brute"][seg].append(res)
+            log(f"mesh kernels: B11 {label} {which} {w['line']} "
+                f"kernel_ms={res['ms']!r}")
+    out = {}
+    for name in names:
+        first, deep = parts[name]
+        f1, fd = sum_parts(first), sum_parts(deep)
+        out[f"{name}@mesh_pipeline"] = total = sum_parts(first + deep)
+        log(f"mesh pipeline kernels: {name} over one frame's trace stage "
+            f"({len(first) + len(deep)} launches): kernel_ms="
+            f"{total['ms']!r} plain_ms={total['plain_ms']!r} bound_ms="
+            f"{total['bound_ms']!r} ({total['bound_by']}); bounce-1 segment "
+            f"kernel_ms={f1['ms']!r} bound_ms={f1['bound_ms']!r}; deep "
+            f"segment ({calls - 1} calls) kernel_ms={fd['ms']!r} "
+            f"bound_ms={fd['bound_ms']!r}")
+    return out
+
+
+def check_pipeline_lights(ik, calls):
+    """Phase 16: B11 against its plain version on the mesh pipeline
+    frame's BRDF-candidate light sweep; returns its kernels-line fields."""
+    if len(calls) != 1:
+        raise AssertionError(f"mesh pipeline kernels: {len(calls)} B11 "
+                             f"light sweeps in the ReSTIR initial stage, "
+                             f"expected 1")
+    rays, spheres, block = calls[0]
+    res = compare_closest(
+        f"B11 pipeline light sweep K={spheres.shape[1]}",
+        lambda: ik.intersect_brute(rays, spheres),
+        lambda: ik.intersect_brute_plain(rays, spheres, block),
+        reps=10, plain_reps=1)
+    w = b11_work(ik, rays, spheres)
+    res.update(bytes=w["bytes"], ops=w["ops"],
+               unculled_ops=w["unculled_ops"])
+    log(f"mesh kernels: B11 pipeline light sweep {w['line']} "
+        f"kernel_ms={res['ms']!r}")
+    return sum_parts([res])
+
+
+def check_partition_sort(pathtrace, calls, cap1):
+    """Phase 16: the bounce-1 segment's compaction on its own input, in
+    partition mode and, with compact_sort_partition_min raised past its
+    capacity, as the (octant, tile) key sort. In pixel space the two give
+    every slot the same pixel, so the rest of the frame is the same work
+    and the difference of their times is the frame's."""
+    act, l_dir, pixel_ids, cfg, cap, h, w = calls[0]
+    if cap != cap1 or pixel_ids is not None:
+        raise AssertionError(f"mesh pipeline: the trace stage's first "
+                             f"compaction is not the {cap1}-slot bounce-1 "
+                             f"segment in pixel space")
+    ids = torch.arange(act.numel(), device=act.device)
+    runs = {}
+    for pmin in (cfg.compact_sort_partition_min, 10 ** 9):
+        c = dataclasses.replace(cfg, compact_sort_partition_min=pmin)
+        cs = pathtrace._compact_slots(act, l_dir, pixel_ids, c, cap, h, w)
+        runs[cs["sort"]] = (cs["gsel"](ids, act.numel()), cuda_ms(
+            lambda c=c: pathtrace._compact_slots(act, l_dir, pixel_ids, c,
+                                                 cap, h, w), 10))
+    if set(runs) != {"partition", "key"}:
+        raise AssertionError(f"mesh pipeline: the compaction ran the sorts "
+                             f"{sorted(runs)}")
+    differ = int((runs["partition"][0] != runs["key"][0]).sum())
+    log(f"mesh pipeline: bounce-1 compaction {h}x{w} -> {cap} slots, "
+        f"live={int(act.sum())} partition_ms={runs['partition'][1]!r} "
+        f"key_sort_ms={runs['key'][1]!r} slots_differing={differ}")
+    if differ:
+        raise AssertionError("mesh pipeline: the partition and the key "
+                             "sort put different pixels in the slots")
+
+
+def run_mesh_pipeline(bench, backend, pathtrace, rp, smi, iters, dev, cfg):
     """Phase 16: the all-mesh pipeline recipe through bench.bench_frame,
     counted from zero; checks the image, the SHARC hits, the bounce-1
     segment's partition sort and each kernel's launches. Returns the
-    launches."""
-    cfg = bench.mesh_pipeline_config()
+    launches by kernels-line row: closest-hit and shadow launches of B5
+    and B11 apart, and B11's light sweeps."""
     backend.reset_launches()
     with mode_tally(rp) as tally, compaction_tally(pathtrace) as packs:
         stats, img = bench.bench_frame(iters=iters, device=dev, mesh=True,
@@ -1672,7 +1864,15 @@ def run_mesh_pipeline(bench, backend, pathtrace, rp, smi, iters, dev):
     if calls < frames * (cfg.bounces + 1):
         raise AssertionError(f"{calls} closest-hit calls in {frames} frames "
                              f"of {cfg.bounces} bounces")
-    return launches
+    rows = {f"{name}@mesh_pipeline": launches[name] for name in (
+        "reproject_packed", "shared_blas_sweep", "intersect_mesh_instances",
+        "shared_blas_any", "intersect_mesh_instances_any")}
+    rows.update({"bound_scan@mesh_pipeline": 4 * calls,
+                 "bound_scan@mesh_pipeline_any": 9 * frames,
+                 "intersect_brute@mesh_pipeline": 2 * calls,
+                 "intersect_brute@mesh_pipeline_any": 3 * frames,
+                 "intersect_brute@mesh_pipeline_lights": frames})
+    return rows
 
 
 def check_mesh_pipeline_small(pipeline, bench, sharc_mod,
@@ -1732,8 +1932,8 @@ def check_fidelity(dev, smi):
     log(f"fidelity: crosscheck={json.dumps(cc)} "
         f"wall_s={time.perf_counter() - t0!r} | {smi}")
     if not (0.97 < cc["energy_ratio"] < 1.03 and cc["mean_rel_err"] < 0.15):
-        raise AssertionError("the crosscheck is off tests/test_crosscheck.py's "
-                             "bounds")
+        raise AssertionError("the crosscheck is off the bounds of "
+                             "tests/test_crosscheck.py")
     for name, fn in (("static", fidelity.run), ("mesh", fidelity.run_mesh)):
         t0 = time.perf_counter()
         res = fn(160, 90, spp_reference=32, frames_realtime=8,
@@ -2091,12 +2291,31 @@ def main():
     # 15. small default frames: kernels on the card vs the CPU --------------
     check_default_small(pipeline, bench, sharc_mod)
 
-    # 16. the all-mesh pipeline (compact_from=1), counted from zero ---------
-    p_launches = run_mesh_pipeline(bench, backend, pathtrace, rp, smi, 2, dev)
-    for name in ("reproject_packed", "bound_scan", "shared_blas_sweep",
-                 "intersect_mesh_instances", "shared_blas_any",
-                 "intersect_mesh_instances_any", "intersect_brute"):
-        launches[f"{name}@mesh_pipeline"] = p_launches[name]
+    # 16. the all-mesh pipeline (compact_from=1): each kernel at the
+    # frame's own inputs, then counted from zero ---------------------------
+    pcfg = bench.mesh_pipeline_config()
+    cap1 = pathtrace._compact_capacity(
+        pcfg.render_width * pcfg.render_height, 1)
+    closest, packs, shadow, sweeps, b4 = capture_pipeline_inputs(
+        bench, pathtrace, trimesh, ik, tk, rp, pcfg, device=dev)
+    check_partition_sort(pathtrace, packs, cap1)
+    fields.update(check_pipeline_closest(ik, tk, closest, cap1))
+    any_fields = check_anyhit_kernels(ik, tk, shadow, path="pipeline ")
+    for row, name in (
+            ("bound_scan@mesh_pipeline_any", "bound_scan@mesh_restir"),
+            ("shared_blas_any@mesh_pipeline", "shared_blas_any"),
+            ("intersect_mesh_instances_any@mesh_pipeline",
+             "intersect_mesh_instances_any@backstop"),
+            ("intersect_brute@mesh_pipeline_any",
+             "intersect_brute@mesh_restir")):
+        fields[row] = any_fields[name]
+    fields["intersect_brute@mesh_pipeline_lights"] = check_pipeline_lights(
+        ik, sweeps)
+    fields["reproject_packed@mesh_pipeline"] = check_default_reprojections(
+        rp, b4, label="mesh pipeline")
+    del closest, packs, shadow, sweeps, b4, any_fields
+    launches.update(run_mesh_pipeline(bench, backend, pathtrace, rp, smi, 2,
+                                      dev, pcfg))
 
     # 17. small mesh pipeline frames in partition mode: card vs CPU ---------
     check_mesh_pipeline_small(pipeline, bench, sharc_mod)
@@ -2169,6 +2388,15 @@ def main():
         "intersect_brute@mesh_pipeline": (
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
+        "bound_scan@mesh_pipeline_any": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:646"),
+        "intersect_brute@mesh_pipeline_any": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_brute@mesh_pipeline_lights": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
@@ -2180,18 +2408,6 @@ def main():
     for name in ("intersect_morton", "occlusion_morton",
                  "initial_light_candidates", "intersect_brute"):
         fields[f"{name}@default"] = fields[name]
-    # The mesh pipeline's kernels keep the times of the phases that hold
-    # them at full size.
-    for name, timed in (
-            ("reproject_packed", "reproject_packed@default"),
-            ("bound_scan", "bound_scan"),
-            ("shared_blas_sweep", "shared_blas_sweep"),
-            ("intersect_mesh_instances", "intersect_mesh_instances"),
-            ("shared_blas_any", "shared_blas_any"),
-            ("intersect_mesh_instances_any",
-             "intersect_mesh_instances_any@backstop"),
-            ("intersect_brute", "intersect_brute@mesh")):
-        fields[f"{name}@mesh_pipeline"] = fields[timed]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

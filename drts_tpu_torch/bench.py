@@ -263,19 +263,24 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
     of frames rendered and the spill waves the path trace ran in them."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
                                          device=device, mesh=mesh, cfg=cfg)
-    pathtrace.spill_waves = 0
-    traced = {}
+    traced = {"spill_waves": 0}
 
-    def capture(name, fn, *args):
-        out = fn(*args)
-        if name == "trace":
-            traced["rays"] = out.rays_traced
-        return out
-    state, image = pipe.render_frame(state, pose, _run=capture)
+    def counted(run=None):
+        """A _run hook around `run` (default: the stage itself) that keeps
+        the first frame's rays traced and adds up the spill waves (a host
+        int, so no sync)."""
+        def hook(name, fn, *args):
+            out = fn(*args) if run is None else run(name, fn, *args)
+            if name == "trace":
+                traced.setdefault("rays", out.rays_traced)
+                traced["spill_waves"] += out.spill_waves
+            return out
+        return hook
+    state, image = pipe.render_frame(state, pose, _run=counted())
     _sync(device)
     start = time.perf_counter()
     for _ in range(iters):
-        state, image = pipe.render_frame(state, pose)
+        state, image = pipe.render_frame(state, pose, _run=counted())
     _sync(device)
     elapsed = time.perf_counter() - start
     counters = {k: float(v) for k, v in state.counters.items()}
@@ -284,8 +289,8 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
     passes = {}
     for _ in range(staged):
         frame = {}
-        state, _ = pipe.render_frame(state, pose,
-                                     _run=stage_timer(frame, device))
+        state, _ = pipe.render_frame(
+            state, pose, _run=counted(stage_timer(frame, device)))
         for name, ms in frame.items():
             passes[name] = passes.get(name, 0.0) + ms / staged
     stats = {
@@ -294,7 +299,7 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
         "passes_ms": passes,
         "rays_per_frame": float(traced["rays"]),
         "counters": counters,
-        "spill_waves": pathtrace.spill_waves,
+        "spill_waves": traced["spill_waves"],
     }
     return stats, image
 

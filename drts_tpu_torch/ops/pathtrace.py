@@ -38,11 +38,6 @@ from . import bxdf, camera as camera_mod, intersect, post, shading, sharc
 from . import sky, trace as trace_mod
 
 
-# Spill waves run since the last reset: the host-side decision of
-# _deep_with_spill, counted for the benches.
-spill_waves = 0
-
-
 @dataclasses.dataclass(frozen=True)
 class PathTraceConfig:
     """Integrator settings, with the reference's names and defaults."""
@@ -91,6 +86,8 @@ class TraceOutput:
     # {"wavefront_overflow_paths": scalar} and, with SHARC, per bounce b
     # "sharc_{hits,queries,gate,entry}_b{b}".
     counters: dict
+    # Overflow spill waves run (the host's decision in _deep_with_spill).
+    spill_waves: int = 0
 
 
 def _shade_and_scatter(surf, ray_d, rng, mat=None,
@@ -186,8 +183,9 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
                    wave: int = 0):
     """Pack the live lanes of `act` into a (cap,) slot buffer, sort the
     slots by (direction octant, screen tile) and return slot_live, the
-    overflow count, the (keep, pos, perm, cap) mapper for _slots_to_space
-    and gsel (slot gather with a dead row).
+    overflow count, the (keep, pos, perm, cap) mapper for _slots_to_space,
+    gsel (slot gather with a dead row) and the sort that ran ("partition",
+    "key" or "none").
 
     The input is the pixel frame (`pixel_ids` None) or a previous
     segment's slots, whose true pixels `pixel_ids` gives. `wave` selects
@@ -222,7 +220,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
     # Coherence sort: octant-major keeps every ray block inside one
     # direction octant, tile-minor keeps its origins local; empty slots
     # sort last. Per-path results do not depend on the slot order.
-    perm = None
+    perm, sort = None, "none"
     if cfg.compact_sort:
         d = l_dir_flat
         octant = ((d[:, 0] < 0).to(torch.int64) * 4
@@ -244,6 +242,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
             new_pos = counts.gather(0, key[None, :])[0].to(torch.int64) - 1
             perm = torch.empty_like(new_pos)
             perm[new_pos] = torch.arange(cap, device=dev)
+            sort = "partition"
         else:
             ts = cfg.compact_sort_tile
             tiles_x, tiles_y = -(-w // ts), -(-h // ts)
@@ -253,6 +252,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
             key = torch.cat([octant * (tiles_x * tiles_y) + tile,
                              octant.new_tensor([2 ** 30])])
             _, perm = torch.sort(key[idx], stable=True)
+            sort = "key"
         src = src[perm]
 
     slot_live = src < ns
@@ -264,7 +264,7 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
         return ext[idx]
 
     return {"slot_live": slot_live, "overflow": overflow,
-            "mapper": (keep, pos, perm, cap), "gsel": gsel}
+            "mapper": (keep, pos, perm, cap), "gsel": gsel, "sort": sort}
 
 
 def _slots_to_space(slot_vals, fill, mapper):
@@ -404,21 +404,20 @@ def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
     """The terminal deep segment plus, with cfg.overflow_spill and when it
     overflowed, a second wave over the dropped lanes. The decision is one
     host read of the overflow count; only paths beyond 2x capacity then
-    drop."""
-    global spill_waves
+    drop. The result's "spill_waves" says whether the second wave ran."""
     args = (scene, table, cfg, origin, l_dir, throughput, rng, active,
             start_bounce, accel, cap)
     kw = {"sharc_args": sharc_args, "rough": rough, "pixel_ids": pixel_ids,
           "img_hw": img_hw}
-    seg = _trace_deep_compact(*args, **kw)
+    seg = dict(_trace_deep_compact(*args, **kw), spill_waves=0)
     if cfg.overflow_spill and seg["overflow"].item() > 0:
-        spill_waves += 1
         s2 = _trace_deep_compact(*args, wave=1, **kw)
         seg = {"radiance": seg["radiance"] + s2["radiance"],
                "rays": seg["rays"] + s2["rays"],
                "overflow": s2["overflow"],
                "counters": {k: v + s2["counters"][k]
-                            for k, v in seg["counters"].items()}}
+                            for k, v in seg["counters"].items()},
+               "spill_waves": 1}
     return seg
 
 
@@ -478,6 +477,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     rays_traced = torch.tensor(float(h * w), device=dev)
     counters = {"wavefront_overflow_paths":
                 torch.zeros((), dtype=torch.float32, device=dev)}
+    spill_waves = 0
 
     use_compact = 1 <= cfg.compact_from <= cfg.bounces
     dense_last = cfg.compact_from - 1 if use_compact else cfg.bounces
@@ -575,6 +575,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 """Add a segment's outputs; `through` is the segment in
                 whose slot space this one ran."""
                 nonlocal sample_radiance, rays_traced, hit_distance
+                nonlocal spill_waves
                 rad = seg["radiance"]
                 if through is not None:
                     rad = _slots_to_space(rad, 0.0,
@@ -587,6 +588,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                     counters[k] = counters.get(k, 0.0) + v
                 if "hit_distance" in seg:
                     hit_distance = seg["hit_distance"]
+                spill_waves += seg.get("spill_waves", 0)
 
             if cfg.compact_from == 1:
                 # The bounce-1 AOVs: the first scatter's lobe is bounce-0
@@ -635,7 +637,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         primary_valid=primary_hit, primary_position=primary_surf.position,
         primary_normal=p_mat.shading_normal, primary_albedo=p_albedo,
         primary_f_env=p_f_env, primary_radiance=primary_radiance,
-        rays_traced=rays_traced, counters=counters)
+        rays_traced=rays_traced, counters=counters, spill_waves=spill_waves)
 
 
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,

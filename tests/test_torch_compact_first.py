@@ -127,6 +127,8 @@ def test_no_spill_drops_and_counts_like_jax(scenes):
     assert (float(spilled.counters["wavefront_overflow_paths"])
             < float(tout.counters["wavefront_overflow_paths"]))
     assert float(spilled.rays_traced) > float(tout.rays_traced)
+    # The deep segment's spill wave ran once, and only with the spill on.
+    assert (spilled.spill_waves, tout.spill_waves) == (1, 0)
 
 
 def test_compacted_sharc_update_matches_jax(scenes):
@@ -209,6 +211,29 @@ def _slot_inputs(h, w, seed):
     act = rng.random(h * w) < 0.6
     d = rng.normal(size=(h * w, 3)).astype(np.float32)
     return act, d
+
+
+@pytest.mark.parametrize("cfg_kw,space,sort", [
+    ({}, "pixels", "partition"), ({}, "slots", "partition"),
+    ({"compact_sort_partition_min": 2049}, "pixels", "key"),
+    ({"compact_sort_partition_min": 2049}, "slots", "key"),
+    ({"compact_sort": False}, "pixels", "none")],
+    ids=["partition-pixels", "partition-slots", "key-pixels", "key-slots",
+         "none"])
+def test_compact_slots_reports_the_sort_it_ran(cfg_kw, space, sort):
+    """_compact_slots says which sort it ran: the partition from
+    compact_sort_partition_min slots on (2048 here, in pixel and in slot
+    space), the key sort below it, none with compact_sort off."""
+    h, w, cap = 40, 54, 2048
+    act, d = _slot_inputs(h, w, 3)
+    pix = (None if space == "pixels"
+           else torch.from_numpy(np.random.default_rng(4).permutation(h * w)))
+    cfg = tpathtrace.PathTraceConfig(
+        **dict({"compact_sort_partition_min": 2048}, **cfg_kw))
+    cs = tpathtrace._compact_slots(torch.from_numpy(act),
+                                   torch.from_numpy(d), pix, cfg, cap, h, w)
+    assert cs["sort"] == sort
+    assert (cs["mapper"][2] is None) == (sort == "none")
 
 
 @pytest.mark.parametrize("wave", [0, 1])

@@ -1038,7 +1038,6 @@ def test_compact_first_trace_card_equals_cpu(dev, mesh, variant):
     and the overflow count are equal, and the radiance within 1e-3 on >=
     99.5% of pixels, 1e-5 on average (plain PyTorch ops may round
     differently on the card)."""
-    from drts_tpu_torch.ops import pathtrace
     kw = {"key": {}, "partition": {"compact_sort_partition_min": 0},
           "ragged": {"compact_sort_partition_min": 0,
                      "compact_sort_tile": 20},
@@ -1046,13 +1045,11 @@ def test_compact_first_trace_card_equals_cpu(dev, mesh, variant):
           "no_spill": {"compact_capacity": 32,
                        "overflow_spill": False}}[variant]
     before = dict(backend.LAUNCHES)
-    pathtrace.spill_waves = 0
     card = compact_first_frame(dev, mesh, **kw)
     launched = {k: v - before[k] for k, v in backend.LAUNCHES.items()}
-    waves = pathtrace.spill_waves
     cpu = compact_first_frame("cpu", mesh, **kw)
-    assert pathtrace.spill_waves == 2 * waves
-    assert (waves > 0) == (variant == "spill")
+    assert card.spill_waves == cpu.spill_waves
+    assert (card.spill_waves > 0) == (variant == "spill")
     kernel = "intersect_mesh_instances" if mesh else "intersect_morton"
     assert launched[kernel] >= 7
     assert float(card.rays_traced) == float(cpu.rays_traced)

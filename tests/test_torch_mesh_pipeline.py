@@ -4,9 +4,11 @@ lights, SHARC with its update every second frame and queries from bounce
 2, ReBLUR, TAA, sharpen, bloom, ACES) on ``as_mesh_scene(build(
 oscillator_grid=2), tessellation=1)`` at 32x32, 3 bounces, a 4,096-slot
 cache, three consecutive frames from one converted start state, with
-``compact_from=2`` and with ``compact_from=1`` (the reference's
-``bench_mesh_pipeline`` integrator: the bounce-1 wavefront compacted and
-sorted too, and the SHARC update trace compacted after bounce 0).
+``compact_from=2``. tests/test_torch_mesh_pipeline_first.py runs the same
+graph with ``compact_from=1`` (the reference's ``bench_mesh_pipeline``
+integrator: the bounce-1 wavefront compacted and sorted too, and the SHARC
+update trace compacted after bounce 0). Each file compiles one reference
+frame graph under jit, which takes most of its time.
 tests/test_torch_compact_first.py holds the partition-mode sort.
 
 The reference runs its Pallas kernels in interpret mode, each frame under
@@ -84,13 +86,8 @@ def render_both(compact_from):
     return ref, port
 
 
-@pytest.fixture(scope="module", params=[2, 1], ids=lambda c: f"compact_from={c}")
-def frames(request):
-    return render_both(request.param)
-
-
-def test_mesh_pipeline_frames_match(frames):
-    ref, port = frames
+def assert_frames_match(ref, port):
+    """The bounds of the module docstring, frame by frame."""
     for i, ((jc, jimg), (tc, timg)) in enumerate(zip(ref, port)):
         assert timg.shape == (H, W, 3) and np.isfinite(timg).all()
         assert timg.min() >= 0.0 and timg.max() <= 1.0
@@ -105,3 +102,9 @@ def test_mesh_pipeline_frames_match(frames):
     # paths there; hits are phase 16 of chip_smoke.py's, at full size).
     assert sum(float(v) for k, v in port[-1][0].items()
                if k.startswith("sharc_queries")) > 0
+
+
+@pytest.mark.parametrize("compact_from", [2],
+                         ids=lambda c: f"compact_from={c}")
+def test_mesh_pipeline_frames_match(compact_from):
+    assert_frames_match(*render_both(compact_from))
