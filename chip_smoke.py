@@ -176,6 +176,25 @@ Phases, one printed line or more each; any failure exits non-zero:
    energy_ratio < 1.03, mean_rel_err < 0.15); then fidelity.run and
    fidelity.run_mesh at 160x90 (32-spp references, 8 real-time frames, no
    cache), each SSIM finite and in (0, 1], printed with its wall time.
+19. textured frame: the default frame graph (bench --textured-frame) on
+   the mixed textured scene, add_mesh_content(build(oscillator_grid=10),
+   tessellation=3): 438 spheres and three geosphere instances (one an
+   alpha-tested cutout checker, two alpha rounds) in one trace. First its
+   kernels on its own inputs, the second frame's calls recorded by stage:
+   B1, B5, B6, B7 and B11 on every closest-hit call of the G-buffer and
+   trace stages, its alpha rounds included (sparse batches with t_min > 0
+   per lane); B2 and, for the instances, B5, B8, B9 and B11 on the three
+   shadow batches; B11 on the light sweep; B4 on its four reprojections;
+   each held to its plain version (every word equal; B4 bilinear within
+   B4_BILINEAR_REL) and timed. B3 must not run (the instances make the
+   light table a triangle table). The primary lanes that the textured
+   alpha rejected are counted from the G-buffer's surfaces and must be
+   some. Then through bench.bench_frame, counted from zero: frame time,
+   per-stage times, launches per kernel (by formula from the closest-hit
+   calls), a finite (1080, 1920, 3) image in [0, 1], SHARC hits. Then three
+   64x64 textured default frames and one 64x64 ReSTIR frame lit by a
+   seeded lat-long environment map (written with the port's write_exr to a
+   temporary directory), card against CPU, each within DEFAULT_*.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -197,7 +216,12 @@ B6, B7 and B11 summed over one frame's trace stage (B7 its own backstop
 batches), "bound_scan@mesh_pipeline_any", B8, B9 (the backstop batches)
 and "intersect_brute@mesh_pipeline_any" over its three shadow batches,
 "intersect_brute@mesh_pipeline_lights" its light sweep, B4 its four
-reprojections.
+reprojections; and B1, B2, B4, B5, B6, B7, B8, B9 and B11 once more
+("...@textured", with "bound_scan@textured_any",
+"intersect_brute@textured_any" and "intersect_brute@textured_lights")
+with the launches and the times of phase 19: the closest-hit kernels
+summed over one frame's G-buffer and trace stages, the any-hit kernels
+and B2 over its three shadow batches.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
@@ -318,14 +342,16 @@ def bound(bytes_moved, ops):
 _FLUSH = None
 
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn over reps calls (after one warm call), each
-    timed on its own with CUDA events after a 256 MB write evicts the
-    50 MB L2 cache, as the frame leaves it between two calls."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of fn over reps calls (after one warm call, or
+    none where the caller has just run fn), each timed on its own with
+    CUDA events after a 256 MB write evicts the 50 MB L2 cache, as the
+    frame leaves it between two calls."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    fn()
+    if warm:
+        fn()
     total = 0.0
     for _ in range(reps):
         _FLUSH.zero_()
@@ -353,7 +379,7 @@ def compare_closest(name, kernel, plain, reps, plain_reps):
     err = float((t_k[both] - t_p[both]).abs().max()) if bool(both.any()) \
         else 0.0
     ms = cuda_ms(kernel, reps)
-    plain_ms = cuda_ms(plain, plain_reps)
+    plain_ms = cuda_ms(plain, plain_reps, warm=False)
     log(f"kernels: {name} rays={t_k.numel()} hits={int(fin.sum())} "
         f"t_mismatch={t_mismatch} idx_mismatch={idx_mismatch} "
         f"hit_mismatch={hit_mismatch} max_abs_err={err!r} "
@@ -481,7 +507,8 @@ def check_b5(ik, tk, label, args, plain_reps):
             "unculled_ops": live * m_pad * OPS_B5_PAIR,
             "ms": cuda_ms(lambda: tk.bound_scan(*args), 10),
             "plain_ms": cuda_ms(lambda: tk.bound_scan_plain(*args),
-                                plain_reps) if plain_reps else 0.0}
+                                plain_reps, warm=False) if plain_reps
+            else 0.0}
     per = max(live, 1)
     log(f"{label} rays={n} live={live} rows={m_pad} instances={m_tbl} "
         f"fresh_cursor={bool((cursor == -1).all())} "
@@ -602,16 +629,13 @@ def capture_restir_inputs(bench, modules, width=1920, height=1080,
     return seen, frame
 
 
-def check_restir_kernels(ik, rk, rp, seen, frame):
-    """Phase 5: each kernel against its plain version on the frame's own
-    inputs. Returns the kernels' JSON fields (launches excepted)."""
-    out = {}
-
-    # B2: the frame's three visibility batches (BRDF candidate, initial,
-    # final shading); times and bounds are the sum over them.
-    calls = seen["occlusion_morton"]
+def check_b2(ik, calls, frame, path=""):
+    """B2 against its plain version on a frame's three visibility batches
+    (BRDF candidate, initial, final shading), each timed and its culled
+    work counted; `path` heads the printed lines. Returns the kernels-line
+    fields, times and bounds summed over the three."""
     if len(calls) != 3:
-        raise AssertionError(f"B2 ran {len(calls)} times in the warm frame, "
+        raise AssertionError(f"B2 ran {len(calls)} times in {frame}, "
                              f"expected 3")
     ms = plain_ms = bytes_moved = ops = unculled_ops = 0.0
     for label, (rays9, table, bounds, block) in zip(
@@ -631,7 +655,7 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
                                                    block), 10)
         p_ms = cuda_ms(lambda: ik.occlusion_morton_plain(rays9, table,
                                                          bounds, block), 2)
-        log(f"kernels: B2 {label} rays={rays9.shape[1]} live={live} "
+        log(f"{path}kernels: B2 {label} rays={rays9.shape[1]} live={live} "
             f"cols={table.shape[1]} chunks={bounds.shape[1]} "
             f"chunk_tests={tests} chunks_met={met} visited_pairs={pairs} "
             f"visited_pairs_unculled={unculled} "
@@ -654,12 +678,22 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
                          + live * OPS_B2_RAY_UNCULLED)
     b_ms, b_by = bound(bytes_moved, ops)
     unculled_ms = bound(bytes_moved, unculled_ops)[0]
-    log(f"kernels: B2 three batches kernel_ms={ms!r} bound_ms={b_ms!r} "
-        f"({b_by}) unculled_bound_ms={unculled_ms!r}")
-    out["occlusion_morton"] = {"max_abs_err": 0.0, "ms": ms,
-                               "plain_ms": plain_ms, "bound_ms": b_ms,
-                               "bound_by": b_by, "library_ms": None,
-                               "unculled_bound_ms": unculled_ms}
+    log(f"{path}kernels: B2 three batches kernel_ms={ms!r} "
+        f"bound_ms={b_ms!r} ({b_by}) unculled_bound_ms={unculled_ms!r}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "unculled_bound_ms": unculled_ms}
+
+
+def check_restir_kernels(ik, rk, rp, seen, frame):
+    """Phase 5: each kernel against its plain version on the frame's own
+    inputs. Returns the kernels' JSON fields (launches excepted)."""
+    out = {}
+
+    # B2: the frame's three visibility batches (BRDF candidate, initial,
+    # final shading); times and bounds are the sum over them.
+    out["occlusion_morton"] = check_b2(ik, seen["occlusion_morton"],
+                                       "the warm frame")
 
     # B3: all n_l ReGIR candidate rounds of the frame in one call.
     (surf, uni, slots, table, n_l, s, n_b), = seen["initial_light_candidates"]
@@ -926,12 +960,12 @@ def check_mesh_kernels(ik, tk, seen):
     return out
 
 
-def check_b6(ik, tk, label, args, timed):
+def check_b6(ik, tk, label, args, timed, chunks=TRI_CHUNKS):
     """B6 against its plain version and its culled walk on one recorded
     call (every word equal), its work (trimesh_kernels.
     shared_blas_sweep_work: triangle chunks tested and met, cones tested,
     faces guard-tested and swept) and its times, at the kept chunk and at
-    each of TRI_CHUNKS. Returns its timed part with the operations of the
+    each of `chunks`. Returns its timed part with the operations of the
     unculled sweep, `chunk_ms` and `split` (neighbouring live lanes on
     different candidates)."""
     (rays, cand, best, binst, inst_tbl, tri_tbl, tri_bounds, chunk,
@@ -961,15 +995,15 @@ def check_b6(ik, tk, label, args, timed):
                     + live * (OPS_TO_OBJECT + OPS_TRI_RAY)),
             "unculled_ops": live * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
             "ms": cuda_ms(lambda: tk.shared_blas_sweep(*args), 10),
-            "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(*args), 1)
-            if timed else 0.0,
+            "plain_ms": cuda_ms(lambda: tk.shared_blas_sweep_plain(*args), 1,
+                                warm=False) if timed else 0.0,
             # Neighbouring live lanes that sweep different instances.
             "split": int((live_mask[1:] & live_mask[:-1]
                           & (cand[1:] != cand[:-1])).sum())}
     spheres = tri_tables(tk, tri_tbl, tri_bounds, chunk)
     part["chunk_ms"] = {ck: cuda_ms(lambda ck=ck: tk.shared_blas_sweep(
         rays, cand, best, binst, inst_tbl, tri_tbl, spheres[ck], ck, block),
-        10) for ck in TRI_CHUNKS}
+        10) for ck in chunks}
     per = max(live, 1)
     log(f"mesh kernels: B6 {label} rays={n} live={live} faces={f_pad} "
         f"chunk={chunk} instances={m_tbl} "
@@ -1008,7 +1042,7 @@ def check_b7(tk, label, args, timed):
         + work["sweeps"] * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
         "ms": cuda_ms(lambda: tk.intersect_mesh_instances(*args), 10),
         "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_plain(*args),
-                            1) if timed else 0.0,
+                            1, warm=False) if timed else 0.0,
         "live": work["live"], "hits": int(torch.isfinite(out_k[0]).sum())}
     log(f"mesh kernels: B7 {label} rays={n} live={work['live']} "
         f"hits={part['hits']} chunk_tests={work['chunk_tests']} "
@@ -1063,13 +1097,13 @@ def b9_blocks(rays, below):
     return int(((per > 0) & (per < below)).sum()), int((per >= below).sum())
 
 
-def check_b9(tk, label, args, timed):
+def check_b9(tk, label, args, timed, sweep=B9_SPARSE_SWEEP):
     """B9 against its plain version and its culled walk on one batch:
     every bit equal. Its bound counts the walk's work
     (trimesh_kernels.intersect_mesh_instances_any_work: sphere tests,
     instances entered, triangle chunks tested and met, cones tested, faces
     guard-tested and swept), printed beside the unculled sweep's. Timed at
-    the kept B9_SPARSE_LIVE and at each of B9_SPARSE_SWEEP. Returns its
+    the kept B9_SPARSE_LIVE and at each of `sweep`. Returns its
     timed part, with `live`, `blocked`, the kernel's result, `sparse_ms`
     and `blocks` (sparse and dense blocks at the kept threshold)."""
     rays, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk, n_ic, block = \
@@ -1092,12 +1126,12 @@ def check_b9(tk, label, args, timed):
         "unculled_ops": spheres + work["tri_tests"] * OPS_MT_PAIR,
         "ms": cuda_ms(lambda: tk.intersect_mesh_instances_any(*args), 10),
         "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_any_plain(
-            *args), 1) if timed else 0.0,
+            *args), 1, warm=False) if timed else 0.0,
         "live": work["live"], "blocked": int(occ_k.sum()), "occ": occ_k,
         "blocks": b9_blocks(rays, tk.B9_SPARSE_LIVE), "sparse_ms": {}}
     kept = tk.B9_SPARSE_LIVE
     try:
-        for below in B9_SPARSE_SWEEP:
+        for below in sweep:
             tk.B9_SPARSE_LIVE = below
             if words_differ((tk.intersect_mesh_instances_any(*args),),
                             (occ_p,)):
@@ -1139,11 +1173,11 @@ def tri_tables(tk, tri_tbl, tri_bounds, chunk):
         tk.tri_chunk_bounds(host, c)).to(tri_tbl.device) for c in TRI_CHUNKS}
 
 
-def check_b8(tk, label, args):
+def check_b8(tk, label, args, chunks=TRI_CHUNKS):
     """B8 against its plain version and its culled walk on one recorded
     call (every bit equal), its work (trimesh_kernels.shared_blas_any_work:
     chunks tested and met, cones tested, faces guard-tested and swept) and
-    its times, at the kept chunk and at each of TRI_CHUNKS. Returns its
+    its times, at the kept chunk and at each of `chunks`. Returns its
     timed part with the operations of the unculled sweep and `chunk_ms`."""
     rays, cand, occ_in, inst_tbl, tri_tbl, tri_bounds, chunk, block = args
     occ_k = tk.shared_blas_any(*args)
@@ -1164,11 +1198,12 @@ def check_b8(tk, label, args):
             + live * (OPS_TO_OBJECT + OPS_TRI_RAY),
             "unculled_ops": w["faces"] * OPS_MT_PAIR + live * OPS_TO_OBJECT,
             "ms": cuda_ms(lambda: tk.shared_blas_any(*args), 10),
-            "plain_ms": cuda_ms(lambda: tk.shared_blas_any_plain(*args), 1)}
+            "plain_ms": cuda_ms(lambda: tk.shared_blas_any_plain(*args), 1,
+                                warm=False)}
     spheres = tri_tables(tk, tri_tbl, tri_bounds, chunk)
     part["chunk_ms"] = {c: cuda_ms(lambda c=c: tk.shared_blas_any(
         rays, cand, occ_in, inst_tbl, tri_tbl, spheres[c], c, block), 10)
-        for c in TRI_CHUNKS}
+        for c in chunks}
     per = max(live, 1)
     log(f"mesh any-hit kernels: B8 {label} rays={n} live={live} "
         f"faces={tri_tbl.shape[0]} chunk={chunk} "
@@ -1945,6 +1980,384 @@ def check_fidelity(dev, smi):
             raise AssertionError(f"fidelity: the {name} SSIM is off (0, 1]")
 
 
+# Phase 19's small frames look at the mesh instances from 4 units away,
+# with the sphere field behind them (tests/test_torch_textured_frame.py's
+# pose).
+TEXTURED_EYE = (0.0, 2.0, -9.5)
+TEXTURED_TARGET = (0.0, 1.4, -4.0)
+
+
+def capture_textured_inputs(bench, trimesh, ik, tk, rk, rp, cfg,
+                            device="cuda"):
+    """Phase 19: one textured frame to warm the histories, then one that
+    records, by stage: the arguments of every B1, B5, B6, B7 and B11 call
+    of the closest-hit calls in the G-buffer and trace stages (the primary
+    rays, their two alpha rounds, every bounce and its alpha rounds;
+    tensors copied, as the candidate loop tightens its rays in place); of
+    every B2 call and every B5, B8, B9 and B11 call inside trimesh.
+    intersect_instances_any (the shadow batches); the BRDF candidate's B11
+    light sweep; every B3 call; every B4 call (copied). Also keeps the
+    frame's scene, camera and accel and its G-buffer. Returns (closest,
+    shadow, B2 calls, light sweeps, B3 calls, B4 calls, frame)."""
+    pipe, state, pose = bench.make_frame_setup(device=device, cfg=cfg,
+                                               textured=True)
+    state, _ = pipe.render_frame(state, pose)
+    stage, inside, frame = [None], [False], {}
+
+    def run(name, fn, *args):
+        stage[0] = name
+        try:
+            out = fn(*args)
+        finally:
+            stage[0] = None
+        if name == "update":
+            frame["scene"], frame["cam"], frame["accel"] = out[1:]
+        if name == "gbuffer":
+            frame["gbuf"] = out
+        return out
+    orig = trimesh.intersect_instances_any
+
+    def any_hit(*args, **kwargs):
+        inside[0] = True
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def in_closest(seen):
+        return stage[0] in ("gbuffer", "trace") and not inside[0]
+    trimesh.intersect_instances_any = any_hit
+    try:
+        with recorded((ik, tk), ("intersect_morton", "bound_scan",
+                                 "shared_blas_sweep",
+                                 "intersect_mesh_instances",
+                                 "intersect_brute"),
+                      clone=True, keep=in_closest) as closest, \
+                recorded((ik, tk), ("bound_scan", "shared_blas_any",
+                                    "intersect_mesh_instances_any",
+                                    "intersect_brute"),
+                         keep=lambda seen: inside[0]) as shadow, \
+                recorded((ik,), ("occlusion_morton",)) as b2, \
+                recorded((ik,), ("intersect_brute",),
+                         keep=lambda seen: stage[0] == "restir_initial"
+                         and not inside[0]) as lights, \
+                recorded((rk,), ("initial_light_candidates",)) as b3, \
+                recorded((rp,), ("reproject_packed",), clone=True) as b4:
+            pipe.render_frame(state, pose, _run=run)
+            torch.cuda.synchronize()
+    finally:
+        trimesh.intersect_instances_any = orig
+    return (closest, shadow, b2["occlusion_morton"],
+            lights["intersect_brute"], b3["initial_light_candidates"],
+            b4["reproject_packed"], frame)
+
+
+def b1_part(ik, label, args):
+    """B1 against its plain version on one recorded call (t and index
+    words equal), timed, with the work of its culled walk
+    (intersect_kernels.intersect_morton_work). Returns its timed part."""
+    rays, table, bounds, block = (*args, 16384)[:4]
+    res = compare_closest(
+        label, lambda: ik.intersect_morton(rays, table, bounds, block),
+        lambda: ik.intersect_morton_plain(rays, table, bounds, block),
+        reps=5, plain_reps=1)
+    tests, met, pairs, roots = (int(x.sum()) for x in
+                                ik.intersect_morton_work(rays, table, bounds,
+                                                         262144))
+    n, live = rays.shape[1], live_rays(rays)
+    res.update(bytes=lane_bytes(n, live, 8, 2, table, bounds),
+               ops=tests * OPS_B1_CHUNK + met * OPS_B1_MET
+               + pairs * OPS_B1_SWEPT + roots * OPS_B1_ROOT
+               + live * OPS_B1_RAY,
+               unculled_ops=live * table.shape[1] * OPS_B1_PAIR,
+               live=live, tmin_positive=int(
+                   ((rays[6] > 0) & (rays[7] >= rays[6])).sum()))
+    log(f"textured kernels: {label} live={live} live_with_tmin_above_0="
+        f"{res['tmin_positive']} chunk_tests={tests} chunks_met={met} "
+        f"pairs={pairs} roots={roots} "
+        f"bound_ms={bound(res['bytes'], res['ops'])[0]!r}")
+    return res
+
+
+def b11_part(ik, label, args):
+    """B11 against its plain version on one recorded call, timed, with
+    its work (intersect_kernels.intersect_brute_work)."""
+    rays, spheres, block = args
+    res = compare_closest(
+        label, lambda: ik.intersect_brute(rays, spheres),
+        lambda: ik.intersect_brute_plain(rays, spheres, block),
+        reps=5, plain_reps=1)
+    w = b11_work(ik, rays, spheres)
+    res.update(bytes=w["bytes"], ops=w["ops"],
+               unculled_ops=w["unculled_ops"])
+    log(f"textured kernels: {label} {w['line']}")
+    return res
+
+
+def check_textured_closest(ik, tk, seen, alpha_rounds):
+    """Phase 19: B1, B5, B6, B7 and B11 against their plain versions on
+    every closest-hit call of one textured frame's G-buffer and trace
+    stages: per call one B1 (the spheres, through the Morton accel), two
+    B11 (the instance pre-pass), four B5, three B6 and one B7 (the
+    instances, bounded by each lane's sphere hit). Each call of the
+    primary rays and of the dense bounce is followed by `alpha_rounds`
+    re-traces of the rejected lanes (t_min > 0 per lane, the rest dead).
+    Returns the "...@textured" fields: sums over all of them."""
+    calls = len(seen["intersect_mesh_instances"])
+    counts = {k: len(v) for k, v in seen.items()}
+    if (calls < 2 * (alpha_rounds + 1)
+            or counts["intersect_morton"] != calls
+            or counts["bound_scan"] != 4 * calls
+            or counts["shared_blas_sweep"] != 3 * calls
+            or counts["intersect_brute"] != 2 * calls):
+        raise AssertionError(
+            "textured kernels: recorded " + json.dumps(counts)
+            + " calls, expected per closest-hit call 1 B1, 4 B5, 3 B6, "
+            "1 B7 and 2 B11")
+    names = ("intersect_morton", "bound_scan", "shared_blas_sweep",
+             "intersect_mesh_instances", "intersect_brute")
+    parts = {name: [] for name in names}
+    sparse = 0
+    for c in range(calls):
+        r = c % (alpha_rounds + 1)
+        label = (f"call {c} ("
+                 + ("first trace" if r == 0 else f"alpha round {r}") + ")")
+        b1 = b1_part(ik, f"B1 textured {label}",
+                     seen["intersect_morton"][c])
+        parts["intersect_morton"].append(b1)
+        sparse += b1["tmin_positive"] if r else 0
+        for i, args in enumerate(seen["bound_scan"][4 * c:4 * c + 4]):
+            parts["bound_scan"].append(check_b5(
+                ik, tk, f"textured kernels: B5 {label} round {i + 1}", args,
+                1))
+        for i, args in enumerate(seen["shared_blas_sweep"][3 * c:3 * c + 3]):
+            parts["shared_blas_sweep"].append(check_b6(
+                ik, tk, f"textured {label} round {i + 1}", args, True,
+                chunks=()))
+        parts["intersect_mesh_instances"].append(check_b7(
+            tk, f"textured {label} backstop",
+            seen["intersect_mesh_instances"][c], True))
+        for which, args in zip(("bounds", "inscribed balls"),
+                               seen["intersect_brute"][2 * c:2 * c + 2]):
+            parts["intersect_brute"].append(b11_part(
+                ik, f"B11 textured {label} {which}", args))
+    if sparse == 0:
+        raise AssertionError("textured kernels: no alpha round held a live "
+                             "lane with t_min > 0")
+    out = {}
+    for name in names:
+        total = sum_parts(parts[name])
+        total["max_abs_err"] = max(p.get("max_abs_err", 0.0)
+                                   for p in parts[name])
+        out[f"{name}@textured"] = total
+        log(f"textured kernels: {name} over one frame's {calls} "
+            f"closest-hit calls ({len(parts[name])} launches): kernel_ms="
+            f"{total['ms']!r} plain_ms={total['plain_ms']!r} bound_ms="
+            f"{total['bound_ms']!r} ({total['bound_by']})")
+    log(f"textured kernels: alpha-round B1 lanes live with t_min > 0: "
+        f"{sparse}")
+    return out
+
+
+def check_textured_shadow(ik, tk, seen, b2_calls):
+    """Phase 19: B2 on the textured frame's three shadow batches (the
+    spheres), then B5, B8, B9 and B11 on the same batches' instance half
+    (trimesh.intersect_instances_any: the pre-pass, two candidate rounds
+    and the scan, the backstop). Returns the "...@textured" fields, each
+    summed over one frame's three batches."""
+    out = {"occlusion_morton@textured": check_b2(
+        ik, b2_calls, "the textured frame", path="textured ")}
+    counts = {k: len(v) for k, v in seen.items()}
+    if counts != {"bound_scan": 9, "shared_blas_any": 6,
+                  "intersect_mesh_instances_any": 3, "intersect_brute": 3}:
+        raise AssertionError("textured any-hit kernels: recorded "
+                             + json.dumps(counts) + " calls, expected 9 B5, "
+                             "6 B8, 3 B9, 3 B11")
+    b5, b8, b9, b11 = [], [], [], []
+    for c, label in enumerate(("brdf-candidate", "initial", "final")):
+        label = "textured " + label
+        b11.append(b11_part(ik, f"B11 any-hit pre-pass {label}",
+                            seen["intersect_brute"][c]))
+        for r, args in enumerate(seen["bound_scan"][3 * c:3 * c + 3]):
+            b5.append(check_b5(ik, tk, f"textured any-hit kernels: B5 "
+                                       f"{label} round {r + 1}", args, 1))
+        for r, args in enumerate(seen["shared_blas_any"][2 * c:2 * c + 2]):
+            b8.append(check_b8(tk, f"{label} round {r + 1}", args,
+                               chunks=()))
+        b9.append(check_b9(tk, f"{label} backstop",
+                           seen["intersect_mesh_instances_any"][c], True,
+                           sweep=()))
+    out["bound_scan@textured_any"] = sum_parts(b5)
+    out["shared_blas_any@textured"] = sum_parts(b8)
+    out["intersect_mesh_instances_any@textured"] = sum_parts(b9)
+    out["intersect_brute@textured_any"] = sum_parts(b11)
+    for name in ("bound_scan@textured_any", "shared_blas_any@textured",
+                 "intersect_mesh_instances_any@textured",
+                 "intersect_brute@textured_any"):
+        f = out[name]
+        log(f"textured any-hit kernels: {name} over the frame's three "
+            f"batches: kernel_ms={f['ms']!r} plain_ms={f['plain_ms']!r} "
+            f"bound_ms={f['bound_ms']!r} ({f['bound_by']})")
+    return out
+
+
+def textured_alpha_rejections(trace, shading, camera_mod, frame, block):
+    """Phase 19: primary lanes that the textured alpha test rejected,
+    counted from the recorded frame's G-buffer: its primary rays traced
+    again with no alpha round give each lane's first surface; a lane
+    counts where that surface's material alpha passes its cutoff, its
+    base-colour map's alpha at level 0 takes it below, and the G-buffer's
+    surface lies behind it (or is a miss)."""
+    scene, cam, accel, gbuf = (frame[k] for k in ("scene", "cam", "accel",
+                                                  "gbuf"))
+    h, w = gbuf.linear_depth.shape
+    _, _, t_min, t_max = camera_mod.generate_pinhole_rays(
+        cam, camera_mod.pixel_ndc(w, h, cam.jitter))
+    first = trace.trace_scene(
+        scene, gbuf.ray_origin, gbuf.ray_direction,
+        torch.broadcast_to(t_min, (h, w)), torch.broadcast_to(t_max, (h, w)),
+        block, accel=accel, alpha_rounds=0)
+    mat = first.material
+    const = mat.base_color[..., 3]
+    tex = shading.sample_packed(scene.textures, mat.base_color_map, first.uv,
+                                "nearest0").alpha
+    by_map = (first.valid & (const >= mat.alpha_cutoff)
+              & (const * tex < mat.alpha_cutoff))
+    behind = ~gbuf.surf.valid | (gbuf.surf.distance > first.distance)
+    return int(by_map.sum()), int((by_map & behind).sum())
+
+
+def run_textured_frame(bench, backend, rp, smi, iters, dev, cfg):
+    """Phase 19: the textured frame through bench.bench_frame, counted
+    from zero; checks the image, the SHARC hits and each kernel's
+    launches. Returns the launches by kernels-line row."""
+    backend.reset_launches()
+    with mode_tally(rp) as tally:
+        stats, img = bench.bench_frame(iters=iters, device=dev, cfg=cfg,
+                                       textured=True)
+    frames = stats["frames"]
+    launches = dict(backend.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    counters = stats["counters"]
+    hits = sum(v for k, v in counters.items() if k.startswith("sharc_hits"))
+    calls = launches["intersect_mesh_instances"]
+    log(f"textured frame: render {cfg.render_width}x{cfg.render_height} "
+        f"output {cfg.output_width}x{cfg.output_height} "
+        f"bounces={cfg.bounces} spheres+instances=438+3 alpha_rounds=2 "
+        f"frames={frames} frame_ms={stats['frame_ms']!r} "
+        f"rays_per_frame={stats['rays_per_frame']!r} sharc_hits={hits!r} "
+        f"spill_waves={stats['spill_waves']} closest_hit_calls={calls} "
+        f"closest_hit_calls_per_frame={calls / frames!r} "
+        f"launches={json.dumps(launches)} "
+        f"launches_per_frame={sum(launches.values()) / frames!r} "
+        f"B4_by_mode={json.dumps(tally)} finite={finite} "
+        f"min={float(img.min())!r} max={float(img.max())!r} "
+        f"mean={float(img.mean())!r} | {smi}")
+    log(f"textured frame: counters={json.dumps(counters)}")
+    log(f"textured frame: passes_ms={json.dumps(stats['passes_ms'])}")
+    if (tuple(img.shape) != (cfg.output_height, cfg.output_width, 3)
+            or not finite or float(img.min()) < 0.0
+            or float(img.max()) > 1.0):
+        raise AssertionError("the textured frame is not a finite image in "
+                             "[0, 1]")
+    if hits <= 0:
+        raise AssertionError("the textured frame's last frame took nothing "
+                             "from the SHARC cache")
+    # Per closest-hit call the counts of phase 9 and one B1; per frame the
+    # three shadow batches (3 x B2, and per batch 3 x B5, 2 x B8, 1 x B9,
+    # 1 x B11), the light sweep (B11) and four reprojections. B3 does not
+    # run: the mesh instances make the light table a triangle table
+    # (restir.initial_sampling takes the loop, as the reference's
+    # restir.py does).
+    expect = {"intersect_morton": calls,
+              "bound_scan": 4 * calls + 9 * frames,
+              "shared_blas_sweep": 3 * calls,
+              "intersect_brute": 2 * calls + 4 * frames,
+              "occlusion_morton": 3 * frames,
+              "shared_blas_any": 6 * frames,
+              "intersect_mesh_instances_any": 3 * frames,
+              "reproject_packed": 4 * frames,
+              "initial_light_candidates": 0, "cand_fused": 0}
+    for name, count in expect.items():
+        if launches[name] != count:
+            raise AssertionError(f"textured frame: {name} launched "
+                                 f"{launches[name]} times in {frames} "
+                                 f"frames, expected {count}")
+    if tally != {"nearest": 3 * frames, "bilinear": frames}:
+        raise AssertionError(f"textured frame: B4 modes {tally}")
+    if calls < frames * (cfg.bounces + 1) * 3:
+        raise AssertionError(f"{calls} closest-hit calls in {frames} "
+                             f"frames of {cfg.bounces} bounces and two "
+                             f"alpha rounds")
+    rows = {f"{name}@textured": launches[name] for name in (
+        "intersect_morton", "shared_blas_sweep", "intersect_mesh_instances",
+        "occlusion_morton", "shared_blas_any",
+        "intersect_mesh_instances_any", "reproject_packed")}
+    rows.update({"bound_scan@textured": 4 * calls,
+                 "bound_scan@textured_any": 9 * frames,
+                 "intersect_brute@textured": 2 * calls,
+                 "intersect_brute@textured_any": 3 * frames,
+                 "intersect_brute@textured_lights": frames})
+    return rows
+
+
+def check_textured_small(pipeline, bench, sharc_mod, image,
+                         devices=("cuda", "cpu")):
+    """Phase 19: three default frames of the textured scene at 64x64 (3
+    bounces, a 4,096-slot cache, oscillator grid 3), then one ReSTIR frame
+    of the demo scene lit by a seeded 32x64 lat-long environment map
+    (written with image.write_exr to a temporary directory), on the card
+    and on the CPU from one start state; bounds DEFAULT_*."""
+    import tempfile
+    cfg = bench.default_frame_config(
+        output_width=64, output_height=64, render_width=64,
+        render_height=64, bounces=3, block_size=4096,
+        sharc=sharc_mod.SHARCConfig(capacity_log2=12))
+    env = np.random.default_rng(19).random((32, 64, 3)).astype(
+        np.float32) * 4.0
+    with tempfile.TemporaryDirectory() as tmp:
+        env_path = os.path.join(tmp, "env.exr")
+        image.write_exr(env_path, env)
+        results = []
+        for dev in devices:
+            eye = torch.tensor(TEXTURED_EYE)
+            fwd = torch.tensor(TEXTURED_TARGET) - eye
+            pose = pipeline.CameraPose(eye.to(dev),
+                                       (fwd / fwd.norm()).to(dev),
+                                       torch.tensor([0.0, 1.0, 0.0]).to(dev))
+            pipe, state, _ = bench.make_frame_setup(
+                oscillator_grid=3, device=dev, cfg=cfg, textured=True)
+            frames = []
+            for _ in range(3):
+                state, img = pipe.render_frame(state, pose)
+                frames.append((img.cpu(), state.sharc.fingerprint.cpu()))
+            pipe, state, pose = bench.make_frame_setup(
+                64, 64, bounces=2, oscillator_grid=3, device=dev,
+                env_map_path=env_path)
+            state, img = pipe.render_frame(state, pose)
+            frames.append((img.cpu(), None))
+            results.append(frames)
+    for i, ((gimg, gfp), (cimg, cfp)) in enumerate(zip(*results)):
+        label = (f"textured default frame {i}" if i < 3
+                 else "ReSTIR frame with a lat-long environment map")
+        d = (gimg - cimg).abs()
+        off = float((d.amax(-1) > DEFAULT_OFF).float().mean())
+        fp_same = 1.0
+        if gfp is not None:
+            filled = (gfp > 0) | (cfp > 0)
+            fp_same = float((gfp == cfp)[filled].float().mean())
+        log(f"textured small: {label} image_mean_abs_diff="
+            f"{float(d.mean())!r} image_max_abs_diff={float(d.max())!r} "
+            f"pixels_off_{DEFAULT_OFF}={off!r} sharc_fingerprints_equal="
+            f"{fp_same!r} image_mean={float(gimg.mean())!r} "
+            f"finite={bool(torch.isfinite(gimg).all())}")
+        if (float(d.mean()) > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE
+                or fp_same < DEFAULT_FP_SHARE
+                or not bool(torch.isfinite(gimg).all())):
+            raise AssertionError(f"textured small: the {label} on the card "
+                                 f"disagrees with the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -2323,6 +2736,44 @@ def main():
     # 18. fidelity: the crosscheck and the static and mesh SSIM -------------
     check_fidelity(dev, smi)
 
+    # 19. the textured frame: each kernel at the frame's own inputs, the
+    # textured alpha's rejections, then counted from zero; small frames --
+    from drts_tpu_torch.ops import shading, trace
+    t0 = time.perf_counter()
+    tcfg = bench.default_frame_config()
+    closest, shadow, b2_calls, sweeps, b3_calls, b4, frame = \
+        capture_textured_inputs(bench, trimesh, ik, tk, rk, rp, tcfg,
+                                device=dev)
+    fields.update(check_textured_closest(ik, tk, closest,
+                                         frame["scene"].alpha_test_rounds))
+    fields.update(check_textured_shadow(ik, tk, shadow, b2_calls))
+    lights = [b11_part(ik, "B11 textured light sweep", args)
+              for args in sweeps]
+    if len(lights) != 1:
+        raise AssertionError(f"textured kernels: {len(lights)} B11 light "
+                             f"sweeps in the ReSTIR initial stage")
+    fields["intersect_brute@textured_lights"] = sum_parts(lights)
+    fields["reproject_packed@textured"] = check_default_reprojections(
+        rp, b4, label="textured")
+    log(f"textured kernels: B3 calls={len(b3_calls)} (the instances make "
+        f"the light table a triangle table, whose candidates the fused "
+        f"kernel does not sample; the reference gates it off the same way)")
+    if b3_calls:
+        raise AssertionError("B3 ran on the textured frame")
+    by_map, rejected = textured_alpha_rejections(
+        trace, shading, camera_mod, frame, tcfg.block_size)
+    log(f"textured alpha: primary lanes whose map alpha falls below the "
+        f"cutoff={by_map} of them behind in the G-buffer={rejected}")
+    if rejected <= 0:
+        raise AssertionError("no primary lane was rejected by textured "
+                             "alpha")
+    del closest, shadow, b2_calls, sweeps, b4, frame
+    log(f"textured kernels: checked in {time.perf_counter() - t0:.1f} s")
+    launches.update(run_textured_frame(bench, backend, rp, smi, 2, dev,
+                                       tcfg))
+    check_textured_small(pipeline, bench, sharc_mod, image)
+    log(f"textured: phase 19 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -2395,6 +2846,34 @@ def main():
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
         "intersect_brute@mesh_pipeline_lights": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_morton@textured": ("drts_tpu_torch/csrc/intersect.cu",
+                                      "drts_tpu/ops/intersect_pallas.py:311"),
+        "occlusion_morton@textured": ("drts_tpu_torch/csrc/intersect.cu",
+                                      "drts_tpu/ops/intersect_pallas.py:509"),
+        "reproject_packed@textured": ("drts_tpu_torch/csrc/reproject.cu",
+                                      "drts_tpu/ops/reproject_pallas.py:206"),
+        "bound_scan@textured": ("drts_tpu_torch/csrc/trimesh.cu",
+                                "drts_tpu/ops/trimesh_pallas.py:646"),
+        "shared_blas_sweep@textured": ("drts_tpu_torch/csrc/trimesh.cu",
+                                       "drts_tpu/ops/trimesh_pallas.py:839"),
+        "intersect_mesh_instances@textured": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:315"),
+        "shared_blas_any@textured": ("drts_tpu_torch/csrc/trimesh.cu",
+                                     "drts_tpu/ops/trimesh_pallas.py:973"),
+        "intersect_mesh_instances_any@textured": (
+            "drts_tpu_torch/csrc/trimesh.cu",
+            "drts_tpu/ops/trimesh_pallas.py:545"),
+        "intersect_brute@textured": ("drts_tpu_torch/csrc/intersect.cu",
+                                     "drts_tpu/ops/intersect_pallas.py:762"),
+        "bound_scan@textured_any": ("drts_tpu_torch/csrc/trimesh.cu",
+                                    "drts_tpu/ops/trimesh_pallas.py:646"),
+        "intersect_brute@textured_any": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_brute@textured_lights": (
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
     }

@@ -34,6 +34,15 @@ and upscaled by TAA to 1920x1080, 8 bounces, block 32,768, physics off,
 and ``compact_from=1``: the bounce-1 wavefront is compacted too, into
 519,168 slots, enough for the partition-mode sort.
 
+The textured frame (``--textured-frame``): the default frame graph,
+``PipelineConfig()`` at 1920x1080 native, on the mixed textured scene
+``myscene.add_mesh_content(build(oscillator_grid=10), tessellation=3)``:
+438 spheres and three 128-face geosphere instances (gold metal, a checker
+and an alpha-tested cutout checker; packed texture sets of 2 words at
+256^2), two alpha-test rounds, spheres and instances in one trace. The
+reference renders this scene through this graph in its own tests
+(tests/test_mesh_pipeline.py).
+
 ``--mesh-cand {0,1,2}`` sets ``ops.trimesh.MESH_CAND`` before the mesh
 frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
 loop, B10).
@@ -45,6 +54,7 @@ loop, B10).
     python -m drts_tpu_torch.bench --default-frame [--iters N]
     python -m drts_tpu_torch.bench --upscaled [--iters N]
     python -m drts_tpu_torch.bench --mesh-pipeline [--iters N]
+    python -m drts_tpu_torch.bench --textured-frame [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -55,7 +65,8 @@ cadence, averaged, through render_frame's ``_run`` hook, timed with CUDA
 events and a synchronize per stage), rays_per_frame of the path
 trace, the frame's counters, and the frames and launches per kernel of
 the run and the spill waves the path trace ran (the all-mesh ReSTIR,
-default, upscaled and all-mesh pipeline frames alike); the mesh frame
+default, upscaled, all-mesh pipeline and textured frames alike); the mesh
+frame
 with
 mesh_trace_8b_mray_s, mesh_trace_8b_ms, rays_per_frame and the kernel
 launches of the run. All need a CUDA device and do not fall back to the
@@ -212,16 +223,22 @@ def mesh_pipeline_config(**overrides):
 def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
                      device="cuda", mesh: bool = False, tess: int = 4,
-                     cfg: pipeline.PipelineConfig | None = None):
+                     cfg: pipeline.PipelineConfig | None = None,
+                     textured: bool = False, env_map_path: str | None = None):
     """The ReSTIR frame's pipeline, start state and camera pose (or, with
     `cfg`, that configuration's); with `mesh`, on the scene as instances
-    of one geosphere of `tess`."""
+    of one geosphere of `tess`; with `textured`, on the mixed textured
+    scene (add_mesh_content at tessellation 3). `env_map_path` lights the
+    scene with a lat-long EXR map."""
     if cfg is None:
         cfg = pipeline.restir_frame_config(width, height, bounces)
     pipe = pipeline.RenderPipeline(cfg, device)
-    host = myscene.build(oscillator_grid=oscillator_grid, device=pipe.device)
+    host = myscene.build(oscillator_grid=oscillator_grid,
+                         env_map_path=env_map_path, device=pipe.device)
     if mesh:
         host = myscene.as_mesh_scene(host, tessellation=tess)
+    if textured:
+        host = myscene.add_mesh_content(host, tessellation=3)
     return pipe, pipe.init_state(host), pipe.default_camera_pose(host)
 
 
@@ -251,18 +268,21 @@ def stage_timer(passes: dict, device):
 
 def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
                 iters: int = 4, device="cuda", mesh: bool = False,
-                cfg: pipeline.PipelineConfig | None = None):
+                cfg: pipeline.PipelineConfig | None = None,
+                textured: bool = False):
     """One warm ReSTIR frame, then `iters` timed frames, then frames timed
     stage by stage (one, or with SHARC one cadence of
     `sharc_update_period` frames, so that the update's cost is in); with
-    `mesh`, the all-mesh ReSTIR frame; with `cfg`, that configuration's
-    frame (width, height and bounces are then the config's). Returns
+    `mesh`, the all-mesh ReSTIR frame; with `textured`, on the mixed
+    textured scene; with `cfg`, that configuration's frame (width, height
+    and bounces are then the config's). Returns
     (stats, the last timed frame's image); stats has frame_ms, passes_ms
     (each stage's mean over the stage-timed frames), rays_per_frame (path
     trace, warm frame), the counters of the last timed frame, the number
     of frames rendered and the spill waves the path trace ran in them."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
-                                         device=device, mesh=mesh, cfg=cfg)
+                                         device=device, mesh=mesh, cfg=cfg,
+                                         textured=textured)
     traced = {"spill_waves": 0}
 
     def counted(run=None):
@@ -320,6 +340,9 @@ def main(argv=None):
     parser.add_argument("--mesh-pipeline", action="store_true",
                         help="the all-mesh pipeline, 540p upscaled to "
                              "1080p, compact_from=1")
+    parser.add_argument("--textured-frame", action="store_true",
+                        help="the default frame on the mixed textured "
+                             "scene")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
@@ -344,7 +367,7 @@ def main(argv=None):
         }), flush=True)
         return
     if (args.frame or args.mesh_frame or args.default_frame or args.upscaled
-            or args.mesh_pipeline):
+            or args.mesh_pipeline or args.textured_frame):
         cfg = None
         metric = ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
                   else "restir_frame_1080p_8bounce")
@@ -355,10 +378,13 @@ def main(argv=None):
         if args.mesh_pipeline:
             cfg = mesh_pipeline_config()
             metric = "mesh_pipeline_540p_to_1080p_8bounce"
+        if args.textured_frame:
+            cfg = default_frame_config()
+            metric = "textured_frame_1080p_8bounce"
         backend.reset_launches()
         stats, image = bench_frame(iters=args.iters, device=dev,
                                    mesh=args.mesh_frame or args.mesh_pipeline,
-                                   cfg=cfg)
+                                   cfg=cfg, textured=args.textured_frame)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({

@@ -3,8 +3,9 @@
 Each function reads the reference object's fields by name (any object with
 those attributes will do, e.g. the reference dataclass after mapping
 ``np.asarray`` over its leaves), so this module needs no JAX. Covered:
-``SphereScene`` with its ``Materials``, environment light, ``TriMesh`` and
-``MeshInstances``, ``Camera``,
+``SphereScene`` with its ``Materials``, environment light (and its
+lat-long map), ``PackedTextures``, ``TriMesh`` and ``MeshInstances``,
+``Camera``,
 ``ClusterPlan``, ``MortonAccel``, ``RigidBodies``, ``Lights``,
 ``ReGIRGrid``, ``Reservoirs``, ``SHARCState``, ``DenoiserState``,
 ``TAAState`` and a whole ``FrameState``. ``device`` defaults to the card,
@@ -20,6 +21,7 @@ import torch
 
 from . import backend
 from .models import clusters, material, pipeline, scene as scene_mod
+from .models import texpack
 from .ops import (camera as camera_mod, denoise, light, physics, restir,
                   sharc, sky, taa, trimesh, trimesh_kernels as tk)
 
@@ -37,12 +39,33 @@ def materials(src, device="cuda") -> material.Materials:
     return material.Materials(**_fields(material.Materials, src, device))
 
 
+def _optional(x, device):
+    return None if x is None else _tensor(x, device)
+
+
 def environment(src, device="cuda") -> sky.EnvironmentLight:
-    if getattr(src, "texture", None) is not None:
-        raise NotImplementedError("lat-long environment maps are not "
-                                  "ported yet")
-    return sky.EnvironmentLight(color=_tensor(src.color, device),
-                                rotation=_tensor(src.rotation, device))
+    """The environment light with its lat-long map and quarter-size mip
+    as they are (None where the reference has none)."""
+    return sky.EnvironmentLight(
+        color=_tensor(src.color, device),
+        rotation=_tensor(src.rotation, device),
+        texture=_optional(getattr(src, "texture", None), device),
+        texture_low=_optional(getattr(src, "texture_low", None), device))
+
+
+def packed_textures(src, device="cuda") -> texpack.PackedTextures:
+    """The reference's uint32 rows become int32 tensors with the same
+    bits."""
+    def words(x):
+        return None if x is None else _tensor(
+            np.ascontiguousarray(np.asarray(x, np.uint32)).view(np.int32),
+            device)
+    return texpack.PackedTextures(
+        rows=words(src.rows),
+        emissive_mean=_tensor(src.emissive_mean, device),
+        size=int(src.size), n_words=int(src.n_words),
+        rows_half=words(src.rows_half), half_size=int(src.half_size),
+        emissive_small=_optional(src.emissive_small, device))
 
 
 def tri_mesh(src, device="cuda") -> trimesh.TriMesh:
@@ -73,9 +96,7 @@ def mesh_instances(src, device="cuda") -> scene_mod.MeshInstances:
 
 
 def scene(src, device="cuda") -> scene_mod.SphereScene:
-    """SphereScene with or without mesh instances; textures raise."""
-    if src.textures is not None:
-        raise NotImplementedError("textured scenes are not ported yet")
+    """SphereScene with or without mesh instances and textures."""
     mesh = mi = None
     if src.mesh is not None:
         mesh = tri_mesh(src.mesh, device)
@@ -89,6 +110,8 @@ def scene(src, device="cuda") -> scene_mod.SphereScene:
         radius=_tensor(src.radius, device),
         materials=materials(src.materials, device),
         env=environment(src.env, device),
+        textures=(packed_textures(src.textures, device)
+                  if src.textures is not None else None),
         alpha_test_rounds=int(src.alpha_test_rounds))
 
 

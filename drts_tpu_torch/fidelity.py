@@ -5,9 +5,11 @@ The reference render is the port's own unbiased path tracer run with
 camera-jittered accumulation and no denoising or post, the ground truth
 the reference's converged DXR output stands for. The candidate is the
 real-time configuration (1 spp, ReSTIR, SHARC, denoise, TAA), compared
-after the same tone mapping. The port has no textures yet, so every run
-is untextured (``load_textures=False``; its result says ``"textures":
-false``) and not comparable with a textured bar.
+after the same tone mapping. ``load_textures=True`` builds the scene as
+the reference does (models/assets.py): textured where the reference's
+texture files load, untextured where they are absent, under the same
+cache key. A result's ``"textures"`` says whether its scene held
+textures; an untextured run is not comparable with a textured bar.
 
 Converged references are cached as ``.npz`` in ``ref_cache_dir()``, the
 port's own directory: a port run never scores itself against a reference
@@ -58,12 +60,6 @@ def _note(msg: str):
     work."""
     print(f"fidelity[{time.strftime('%H:%M:%S')}]: {msg}", file=sys.stderr,
           flush=True)
-
-
-def _no_textures(load_textures: bool):
-    if load_textures:
-        raise NotImplementedError("textures are not ported yet: run with "
-                                  "load_textures=False")
 
 
 def _sync(device):
@@ -219,9 +215,8 @@ def run_motion(width: int = 640, height: int = 360,
     from .models import myscene, pipeline as pipeline_mod
     from .utils import image as image_mod
 
-    _no_textures(load_textures)
     dev = backend.device(device)
-    host = myscene.build(seed=seed, device=dev)
+    host = myscene.build(seed=seed, load_textures=load_textures, device=dev)
     poses = _orbit_poses(host, n_frames)
     pipe = pipeline_mod.RenderPipeline(
         _realtime_config(width, height, pipeline_overrides), dev)
@@ -272,7 +267,7 @@ def run_motion(width: int = 640, height: int = 360,
         "evaluated": len(scores),
         "reference_spp": spp_reference,
         "resolution": f"{width}x{height}",
-        "textures": load_textures,
+        "textures": host.scene.textures is not None,
     }
 
 
@@ -289,10 +284,10 @@ def run_mesh(width: int = 640, height: int = 360,
     from .models import myscene
     from .utils import image as image_mod
 
-    _no_textures(load_textures)
     dev = backend.device(device)
-    mh = myscene.as_mesh_scene(myscene.build(seed=seed, device=dev),
-                               tessellation=tessellation)
+    mh = myscene.as_mesh_scene(
+        myscene.build(seed=seed, load_textures=load_textures, device=dev),
+        tessellation=tessellation)
     key = (f"mesh{tessellation}_s{seed}_t{int(load_textures)}"
            f"_{width}x{height}_spp{spp_reference}")
     ref_display = _display(_cached_reference(
@@ -316,7 +311,7 @@ def run_mesh(width: int = 640, height: int = 360,
         "realtime_frames": frames_realtime,
         "tessellation": tessellation,
         "resolution": f"{width}x{height}",
-        "textures": load_textures,
+        "textures": mh.scene.textures is not None,
     }
 
 
@@ -333,9 +328,8 @@ def run(width: int = 640, height: int = 360, spp_reference: int = 1024,
     from .models import myscene
     from .utils import image as image_mod
 
-    _no_textures(load_textures)
     dev = backend.device(device)
-    host = myscene.build(seed=seed, device=dev)
+    host = myscene.build(seed=seed, load_textures=load_textures, device=dev)
     key = (f"static_s{seed}_t{int(load_textures)}_{width}x{height}"
            f"_spp{spp_reference}")
     ref_display = _display(_cached_reference(
@@ -359,7 +353,7 @@ def run(width: int = 640, height: int = 360, spp_reference: int = 1024,
         "reference_spp": spp_reference,
         "realtime_frames": frames_realtime,
         "resolution": f"{width}x{height}",
-        "textures": load_textures,
+        "textures": host.scene.textures is not None,
     }
     if crosscheck_spp:
         # A full frame against the independent numpy tracer, which shares

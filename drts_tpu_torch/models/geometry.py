@@ -1,5 +1,6 @@
 """Mesh generators and tangent frames (port of
-``drts_tpu/models/geometry.py``; host-side numpy).
+``drts_tpu/models/geometry.py``; host-side numpy), and the analytic
+sphere's lat-long tangent (a tensor function).
 
 The geosphere is built the way DirectXTK12's ``CreateGeoSphere`` builds it:
 octahedron base, edge-midpoint subdivision, projection to the sphere,
@@ -11,6 +12,7 @@ numpy construction only, and the two agree as sets of vertices and faces.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def create_geosphere(diameter: float = 1.0, tessellation: int = 3):
@@ -94,3 +96,13 @@ def compute_tangent_frame(indices: np.ndarray, positions: np.ndarray,
                            1e-12)
     tan = np.where(lens > 1e-8, tan / np.maximum(lens, 1e-12), fallback)
     return tan.astype(np.float32)
+
+
+def sphere_tangent(normal):
+    """Analytic lat-long tangent (d position / d u) of unit-sphere normals
+    (..., 3) tensors, consistent with the geosphere UVs: the analytic
+    sphere path's normal-mapping tangent."""
+    x, z = normal[..., 0], normal[..., 2]
+    sin_theta = torch.sqrt(torch.clamp(x * x + z * z, min=1e-12))
+    return torch.stack([z / sin_theta, torch.zeros_like(x), -x / sin_theta],
+                       dim=-1)

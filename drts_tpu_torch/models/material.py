@@ -53,6 +53,11 @@ class Materials:
         """Material::GetEmission = strength * color."""
         return self.emissive_strength[..., None] * self.emissive_color
 
+    def gather(self, idx):
+        """Per-ray material fetch by object index."""
+        return Materials(**{f.name: getattr(self, f.name)[idx]
+                            for f in dataclasses.fields(Materials)})
+
 
 INT_FIELDS = ("base_color_map", "emissive_color_map", "metallic_map",
               "roughness_map", "normal_map", "transmission_map")

@@ -375,6 +375,7 @@ class RenderPipeline:
             russian_roulette=c.russian_roulette,
             throughput_threshold=c.throughput_threshold,
             block_size=c.block_size, compact_from=c.compact_from,
+            texture_bounces=c.texture_bounces,
             sharc_query_from=c.sharc_query_from)
 
     def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index):

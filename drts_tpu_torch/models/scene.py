@@ -12,6 +12,7 @@ import torch
 
 from ..ops import sky
 from ..utils import math as m
+from . import geometry
 from .material import Materials
 
 
@@ -33,10 +34,11 @@ class MeshInstances:
 class SphereScene:
     """All scene state a render pass reads (SURVEY.md §1 L2).
 
-    ``textures`` mirrors the reference's field; the port's passes raise
-    where it is set, because textured shading waits for a later slice.
-    ``mesh`` (an ops.trimesh.TriMesh) with ``mesh_instances`` is traced by
-    the closest-hit path; visibility rays raise for it."""
+    ``textures`` are the packed texture sets (models/texpack.
+    PackedTextures) or None: one quad-duplicated row gather per hit
+    replaces the reference's six map samples. ``mesh`` (an ops.trimesh.
+    TriMesh) with ``mesh_instances`` is traced by the closest-hit and
+    visibility paths."""
     center: torch.Tensor         # (K, 3)
     rotation: torch.Tensor       # (K, 4) quaternion, object->world
     prev_center: torch.Tensor    # (K, 3)
@@ -123,8 +125,6 @@ def surface_attributes(scene: SphereScene, hit, ray_direction,
     its low mantissa bits truncated (the packed closest-hit encoding), and
     one Newton step on f(t) = |o + t d - c|^2 - r^2 recovers full float32
     precision. It is a no-op (f = 0) for exact-t producers."""
-    if scene.textures is not None:
-        raise NotImplementedError("textured surfaces are not ported yet")
     if table is None:
         table = object_table(scene)
     # One row gather (the reference's fetch_rows, a one-hot MXU matmul at
@@ -144,10 +144,18 @@ def surface_attributes(scene: SphereScene, hit, ray_direction,
     normal = m.normalize(position - center)
     is_front = m.dot(normal, ray_direction) < 0.0
     shading_normal = torch.where(is_front[..., None], normal, -normal)
-    # No texture maps in flight: the lat-long UV is unused.
-    uv = torch.zeros(hit.t.shape + (2,), dtype=torch.float32,
-                     device=hit.t.device)
-    tangent, _ = m.orthonormal_basis(shading_normal)
+    if scene.textures is not None:
+        # The instance-rotated lat-long parametrization (the geosphere's
+        # UV layout, MyScene.ixx:53-88).
+        rot = row[..., 4:8]
+        obj_normal = m.quat_rotate(m.quat_conj(rot), normal)
+        uv = m.to_latlong(obj_normal)
+        tangent = m.quat_rotate(rot, geometry.sphere_tangent(obj_normal))
+    else:
+        # No texture maps in flight: the lat-long UV is unused.
+        uv = torch.zeros(hit.t.shape + (2,), dtype=torch.float32,
+                         device=hit.t.device)
+        tangent, _ = m.orthonormal_basis(shading_normal)
 
     material = Materials(
         base_color=torch.cat([row[..., 15:18], row[..., 18:19]], dim=-1),

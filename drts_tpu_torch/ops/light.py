@@ -7,8 +7,11 @@ mesh instances, every face of an emissive instance (a triangle light).
 ids) and its power CDF; sphere lights are sampled by solid-angle cone
 sampling, triangle lights uniformly by area with the solid-angle pdf. The
 reference's one-hot MXU row fetch (``light._onehot_fetch``) is a plain
-index gather here: the same rows exactly. Textured emitters (the
-per-face emissive average) wait for the textured scene and raise.
+index gather here: the same rows exactly. With textures, a sphere
+light's radiance takes its set's whole-map emissive mean (a lat-long
+sphere's footprint is the whole map), and a triangle light's the area
+average of its emissive map over the face's UV triangle
+(``_face_emissive_avg``, LightPreparation.hlsl:86-128).
 """
 
 from __future__ import annotations
@@ -82,6 +85,66 @@ def fetch_rows(lights: Lights, idx) -> LightRows:
                      aux=torch.round(row[..., 8]).long(), **tri)
 
 
+def _face_emissive_avg(em_small, uvs, faces):
+    """Per-(set, face) filtered emissive average -> (T', F, 3): the exact
+    area average of the 32^2 emissive mip over each face's UV triangle
+    (texel centres inside it, U-wrap aware), and a bilinear tap at the
+    wrapped UV centroid for faces that cover no texel centre. The
+    reference's per-triangle SampleGrad whose footprint covers the
+    triangle (LightPreparation.hlsl:86-128); one (F, S^2) mask product."""
+    t, s = em_small.shape[0], em_small.shape[1]
+    dev = em_small.device
+    uv = uvs[faces]                       # (F, 3, 2)
+    u = uv[..., 0]
+    # Canonicalize the U wrap per face: each corner into corner 0's period.
+    u = u - torch.round(u - u[..., :1])
+    a = torch.stack([u[..., 0], uv[..., 0, 1]], -1)  # (F, 2)
+    b = torch.stack([u[..., 1], uv[..., 1, 1]], -1)
+    c = torch.stack([u[..., 2], uv[..., 2, 1]], -1)
+
+    tc = (torch.arange(s, dtype=torch.float32, device=dev) + 0.5) / s
+    py, px = torch.meshgrid(tc, tc, indexing="ij")   # rows = v
+    p = torch.stack([px.reshape(-1), py.reshape(-1)], -1)   # (P, 2)
+
+    def inside(pp):
+        def edge(q0, q1):
+            return ((q1[:, None, 0] - q0[:, None, 0])
+                    * (pp[None, :, 1] - q0[:, None, 1])
+                    - (q1[:, None, 1] - q0[:, None, 1])
+                    * (pp[None, :, 0] - q0[:, None, 0]))
+        e0, e1_, e2_ = edge(a, b), edge(b, c), edge(c, a)
+        return (((e0 >= 0) & (e1_ >= 0) & (e2_ >= 0))
+                | ((e0 <= 0) & (e1_ <= 0) & (e2_ <= 0)))
+
+    shift = torch.tensor([1.0, 0.0], device=dev)
+    # Periodic U: a texel centre counts if it, or a copy one period away,
+    # lies inside the canonicalized triangle.
+    maskf = (inside(p) | inside(p + shift) | inside(p - shift)).to(
+        torch.float32)                                    # (F, P)
+    count = maskf.sum(dim=1)                              # (F,)
+    sums = torch.einsum("fp,tpc->tfc", maskf, em_small.reshape(t, s * s, 3))
+    avg = sums / torch.clamp(count, min=1.0)[None, :, None]
+
+    # Sub-texel fallback: bilinear tap at the wrapped UV centroid (the
+    # texel-centre convention of shading.sample_packed).
+    cen = (a + b + c) / 3.0
+    x = torch.remainder(cen[:, 0], 1.0) * s - 0.5
+    y = cen[:, 1] * s - 0.5
+    x0 = torch.floor(x)
+    y0c = torch.clamp(torch.floor(y), 0, s - 1)
+    fx = (x - x0)[:, None]
+    fy = torch.clamp(y - y0c, 0.0, 1.0)[:, None]
+    x0i = torch.remainder(x0.long(), s)
+    x1i = torch.remainder(x0i + 1, s)
+    y0i = y0c.long()
+    y1i = torch.clamp(y0i + 1, 0, s - 1)
+    tap = (em_small[:, y0i, x0i] * (1 - fx) * (1 - fy)
+           + em_small[:, y0i, x1i] * fx * (1 - fy)
+           + em_small[:, y1i, x0i] * (1 - fx) * fy
+           + em_small[:, y1i, x1i] * fx * fy)
+    return torch.where((count > 0)[None, :, None], avg, tap)
+
+
 def prepare(scene: SphereScene) -> Lights:
     """CountLights/PrepareResources/Process analogue
     (LightPreparation.ixx:52-133): emission -> power -> compact light list
@@ -89,12 +152,19 @@ def prepare(scene: SphereScene) -> Lights:
     face of an emissive mesh instance is a triangle light with world-space
     edges and power = area x luminance (one common pi dropped on both
     kinds, so a mixed scene samples them in proportion to emitted
-    power)."""
-    if scene.textures is not None:
-        raise NotImplementedError("textured emitters are not ported yet")
+    power). With textures, an emissive-mapped sphere's radiance is scaled
+    by its set's whole-map mean and a triangle light's by its face's
+    filtered average of the map (_face_emissive_avg)."""
     k = scene.center.shape[0]
     dev = scene.center.device
     all_emission = scene.materials.emission()
+    tex = scene.textures
+    if tex is not None:
+        # Per-set emissive-map mean, computed when the sets were baked.
+        emap_all = scene.materials.emissive_color_map
+        avg = tex.emissive_mean[torch.clamp(emap_all, min=0).long()]
+        all_emission = all_emission * torch.where(
+            (emap_all >= 0)[:, None], avg, 1.0)
     emission = all_emission[:k]
     power = m.luminance(emission) * (4.0 * math.pi) \
         * scene.radius * scene.radius
@@ -103,8 +173,21 @@ def prepare(scene: SphereScene) -> Lights:
     if has_tri:
         mesh, mi = scene.mesh, scene.mesh_instances
         mcount, f = mi.center.shape[0], mesh.v0.shape[0]
-        em_face = torch.broadcast_to(all_emission[k:k + mcount, None, :],
-                                     (mcount, f, 3))
+        em_inst = all_emission[k:k + mcount]              # (M, 3)
+        if tex is not None and tex.emissive_small is not None:
+            # Raw material emission x the face's footprint average of its
+            # emissive map, in place of the whole-map mean above.
+            emap_i = scene.materials.emissive_color_map[k:k + mcount]
+            face_avg = _face_emissive_avg(tex.emissive_small, mesh.uvs,
+                                          mesh.faces)     # (T', F, 3)
+            raw_em = scene.materials.emission()[k:k + mcount]
+            per_face = face_avg[torch.clamp(emap_i, min=0).long()]
+            em_face = torch.where((emap_i >= 0)[:, None, None],
+                                  raw_em[:, None, :] * per_face,
+                                  em_inst[:, None, :])   # (M, F, 3)
+        else:
+            em_face = torch.broadcast_to(em_inst[:, None, :],
+                                         (mcount, f, 3))
         rot = mi.rotation[:, None, :]                     # (M, 1, 4)
         scl = mi.scale[:, None, None]
         v0w = mi.center[:, None, :] + m.quat_rotate(rot, mesh.v0[None] * scl)

@@ -20,7 +20,11 @@ second wave over the paths the deep segment had to drop. Also here: the
 ReSTIR DI handoff (``di_radiance``: added at the primary vertex, bounce-1
 emission suppressed there), the SHARC query (from ``sharc_query_from``)
 and ``sharc_update_trace``, the cache's downscaled update pass, compacted
-after bounce 0 when ``compact_from=1``.
+after bounce 0 when ``compact_from=1``. Textures follow the reference's
+``texture_bounces`` policy at every site: the primary hit samples them
+bilinear, bounces below ``texture_bounces`` nearest from the half-size
+mip, later bounces not at all, and their misses read the environment's
+quarter-size mip.
 """
 
 from __future__ import annotations
@@ -68,6 +72,11 @@ class PathTraceConfig:
     # First bounce that queries the SHARC cache (the reference's op
     # default 1; its pipeline sets 2).
     sharc_query_from: int = 1
+    # Bounces below this fetch textures (the primary hit bilinear, later
+    # ones "nearest" from the half-size mip); from it on, materials take
+    # their constants and misses the environment's quarter-size mip (their
+    # ray footprint spans many texels).
+    texture_bounces: int = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,15 +100,17 @@ class TraceOutput:
 
 
 def _shade_and_scatter(surf, ray_d, rng, mat=None,
-                       min_roughness: float = 0.0):
+                       min_roughness: float = 0.0, textures=None):
     """One bounce's material eval + BSDF sample. Returns (emission,
-    new_dir, eval/pdf weight, valid, lobe, bsdf, rng). `min_roughness`
-    floors the roughness: the SHARC update trace's RoughnessThreshold
-    (Raytracing.hlsl:309), so cached paths diffuse out instead of
-    following mirror chains."""
+    new_dir, eval/pdf weight, valid, lobe, bsdf, rng). A precomputed `mat`
+    (the G-buffer's) skips the texture fetch; else `textures` (or None)
+    are read "nearest". `min_roughness` floors the roughness: the
+    SHARC update trace's RoughnessThreshold (Raytracing.hlsl:309), so
+    cached paths diffuse out instead of following mirror chains."""
     if mat is None:
         mat = shading.evaluate_material(surf.material, surf.uv,
-                                        surf.shading_normal, surf.tangent)
+                                        surf.shading_normal, surf.tangent,
+                                        textures, "nearest")
     if min_roughness > 0.0:
         mat = dataclasses.replace(
             mat, roughness=torch.clamp(mat.roughness, min=min_roughness))
@@ -332,7 +343,8 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
             accel=accel, table=table, alpha_rounds=scene.alpha_test_rounds)
         if want_aov and bounce == start_bounce:
             c_hitdist = torch.where(surf.valid, surf.distance, float("inf"))
-        env_color = sky.environment_color(scene.env, c_dir)
+        env_color = sky.environment_color(
+            scene.env, c_dir, wide=bounce >= cfg.texture_bounces)
         miss = c_active & ~surf.valid
         c_radiance = c_radiance + torch.where(miss[..., None],
                                               c_thr * env_color, 0.0)
@@ -345,10 +357,11 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
                                                   c_thr * cached, 0.0)
             c_active = c_active & ~use_cache
 
+        atlas_b = scene.textures if bounce < cfg.texture_bounces else None
         if bounce == cfg.bounces:
             emission = shading.evaluate_material(
                 surf.material, surf.uv, surf.shading_normal,
-                surf.tangent).emission
+                surf.tangent, atlas_b, "nearest").emission
             if c_di is not None and bounce == 1:
                 emission = torch.where(c_di[..., None], 0.0, emission)
             c_radiance = c_radiance + torch.where(c_active[..., None],
@@ -356,7 +369,7 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
             break
 
         emission, new_dir, weight, valid, lobe, bs, c_rng = \
-            _shade_and_scatter(surf, c_dir, c_rng)
+            _shade_and_scatter(surf, c_dir, c_rng, textures=atlas_b)
         if c_di is not None and bounce == 1:
             # DI already sampled this light at the primary vertex
             # (Raytracing.hlsl:302).
@@ -525,7 +538,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                                                float("inf"))
 
             # Miss -> environment light, terminate (Raytracing.hlsl:241-259).
-            env_color = sky.environment_color(scene.env, ray_d)
+            env_color = sky.environment_color(
+                scene.env, ray_d, wide=bounce >= cfg.texture_bounces)
             miss = active & ~hit_ok
             sample_radiance = sample_radiance + torch.where(
                 miss[..., None], throughput * env_color, 0.0)
@@ -538,11 +552,13 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                     use_cache[..., None], throughput * cached, 0.0)
                 active = active & ~use_cache
 
+            atlas_b = scene.textures if bounce < cfg.texture_bounces \
+                else None
             if bounce == cfg.bounces:
                 # Last iteration only adds emission (no scatter needed).
                 mat = p_mat if bounce == 0 else shading.evaluate_material(
                     surf.material, surf.uv, surf.shading_normal,
-                    surf.tangent)
+                    surf.tangent, atlas_b, "nearest")
                 emission = mat.emission
                 if bounce == 1:
                     emission = torch.where(di_valid[..., None], 0.0,
@@ -553,7 +569,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
 
             emission, l_dir, weight, valid, lobe, bs, rng = \
                 _shade_and_scatter(surf, ray_d, rng,
-                                   mat=p_mat if bounce == 0 else None)
+                                   mat=p_mat if bounce == 0 else None,
+                                   textures=atlas_b)
             if bounce == 1:
                 # DI already sampled this light at the primary vertex
                 # (Raytracing.hlsl:302).
@@ -700,14 +717,16 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 alpha_rounds=scene.alpha_test_rounds)
             origin = None
         miss = active & ~surf.valid
-        env_color = sky.environment_color(scene.env, l_dir)
+        env_color = sky.environment_color(
+            scene.env, l_dir, wide=bounce >= cfg.texture_bounces)
         live = active & surf.valid
         slot, fp = sharc.cache_key(surf.position, _front_normal(surf),
                                    cam.position, sharc_cfg)
+        atlas_b = scene.textures if bounce < cfg.texture_bounces else None
         if bounce == cfg.bounces:
             mat = shading.evaluate_material(surf.material, surf.uv,
                                             surf.shading_normal,
-                                            surf.tangent)
+                                            surf.tangent, atlas_b, "nearest")
             emission = mat.emission
             l_dir_new = l_dir
             weight = torch.zeros(active.shape + (3,), dtype=torch.float32,
@@ -716,7 +735,8 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         else:
             emission, l_dir_new, weight, valid, _, _, rng = \
                 _shade_and_scatter(surf, l_dir, rng,
-                                   min_roughness=sharc_cfg.roughness_threshold)
+                                   min_roughness=sharc_cfg.roughness_threshold,
+                                   textures=atlas_b)
         if di_small is not None and bounce == 0:
             emission = emission + di_small
         emissions.append(torch.where(

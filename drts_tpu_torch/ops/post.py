@@ -1,5 +1,6 @@
 """Post-processing: bloom, merge, sharpening, tone mapping, chromatic
-aberration and bilinear resize (port of ``drts_tpu/ops/post.py``).
+aberration, bilinear resize and the mip pyramid (port of
+``drts_tpu/ops/post.py``).
 
 Each pass is a pure (H, W, 3) -> (H, W, 3) function over plain PyTorch ops.
 Clamp-addressed neighbourhood shifts are index gathers with clamped
@@ -237,3 +238,19 @@ def chromatic_aberration(img, strength: float = 0.0):
     return torch.stack([img[..., c] if s == 1.0
                         else _scale_about_center(img[..., c], s)
                         for c, s in enumerate(scales)], dim=-1)
+
+
+# ----------------------------------------------------------------------------
+# Mip pyramid (MipmapGeneration.hlsl's 2x2 averager)
+
+
+def generate_mips(img, levels: int):
+    """[img, mip1, ..., mipN] with 2x2 averaging per level; img (H, W) or
+    (H, W, C) with H and W divisible by 2^levels."""
+    mips = [img]
+    cur = img
+    for _ in range(levels):
+        h, w = cur.shape[0] // 2, cur.shape[1] // 2
+        cur = cur.reshape((h, 2, w, 2) + cur.shape[2:]).mean(dim=(1, 3))
+        mips.append(cur)
+    return mips

@@ -7,8 +7,9 @@ visibility ray over spheres and mesh instances.
 Hit-index space: [0, K) sphere instances, [K, K+M) mesh instances; both
 resolve through the same packed object table (models/scene.py).
 
-Not ported yet (they raise): textured alpha and deforming meshes'
-``prev_offset``.
+The alpha test multiplies the material's alpha by its base-colour map's
+alpha at level 0 ("nearest0"). Deforming meshes (``vertex_motion``)
+raise: their ``prev_offset`` has no port.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..models import scene as scene_mod
 from ..utils import math as m
-from . import intersect, trimesh
+from . import intersect, shading, trimesh
 
 
 def _where_nd(mask, a, b):
@@ -111,8 +112,9 @@ def trace_scene(scene, origin, direction, t_min, t_max,
     ``alpha_rounds`` > 0 enables alpha-tested transparency (IsOpaque,
     ShadingHelpers.hlsli:105-159): hits whose material alpha falls below
     the material's cutoff are discarded and the ray is re-traced from just
-    past them, up to that many rounds. Textured alpha raises with the
-    textured scene."""
+    past them, up to that many rounds. With textures the alpha is the
+    material's times its base-colour map's, read at level 0 through the
+    map's set id (``"nearest0"``: cutout silhouettes must not blur)."""
     if table is None:
         table = scene_mod.object_table(scene)
     hit, tri = _closest_hit(scene, origin, direction, t_min, t_max,
@@ -121,6 +123,10 @@ def trace_scene(scene, origin, direction, t_min, t_max,
 
     for _ in range(alpha_rounds):
         alpha = surf.material.base_color[..., 3]
+        if scene.textures is not None:
+            alpha = alpha * shading.sample_packed(
+                scene.textures, surf.material.base_color_map, surf.uv,
+                "nearest0").alpha
         rejected = surf.valid & (alpha < surf.material.alpha_cutoff)
         t_min2 = torch.where(rejected,
                              surf.distance * (1.0 + 1e-4) + 1e-4, 0.0)

@@ -5,12 +5,14 @@ instanced-mesh frame (``bench.make_mesh_setup``) or, with ``--mesh-frame``,
 of the all-mesh ReSTIR frame, or, with ``--default-frame`` and
 ``--upscaled``, of the reference's default frame (``bench.
 default_frame_config``), or, with ``--mesh-pipeline``, of the all-mesh
-pipeline (``bench.mesh_pipeline_config``), on one GPU. ``--mesh-cand`` sets
+pipeline (``bench.mesh_pipeline_config``), or, with ``--textured-frame``,
+of the default frame on the mixed textured scene (``bench.
+make_frame_setup(textured=True)``), on one GPU. ``--mesh-cand`` sets
 ``ops.trimesh.MESH_CAND`` first.
 
     python -m drts_tpu_torch.profile_frame
         [--frame | --mesh | --mesh-frame | --default-frame | --upscaled
-         | --mesh-pipeline]
+         | --mesh-pipeline | --textured-frame]
         [--mesh-cand M] [--frames N] [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
@@ -67,16 +69,17 @@ def _frame_step(recipe: str, device):
             frame[0] += 1
         return step
     if recipe in ("restir_frame", "mesh_restir_frame", "default_frame",
-                  "upscaled_frame", "mesh_pipeline"):
+                  "upscaled_frame", "mesh_pipeline", "textured_frame"):
         cfg = None
-        if recipe in ("default_frame", "upscaled_frame"):
+        if recipe in ("default_frame", "upscaled_frame", "textured_frame"):
             cfg = bench.default_frame_config(
                 upscaled=recipe == "upscaled_frame")
         if recipe == "mesh_pipeline":
             cfg = bench.mesh_pipeline_config()
         pipe, state, pose = bench.make_frame_setup(
             device=device, mesh=recipe in ("mesh_restir_frame",
-                                           "mesh_pipeline"), cfg=cfg)
+                                           "mesh_pipeline"), cfg=cfg,
+            textured=recipe == "textured_frame")
         box = [state]
 
         def step():
@@ -139,12 +142,15 @@ def main(argv=None):
                         help="the default frame upscaled from 960x540")
     parser.add_argument("--mesh-pipeline", action="store_true",
                         help="the all-mesh pipeline (compact_from=1)")
+    parser.add_argument("--textured-frame", action="store_true",
+                        help="the default frame on the mixed textured scene")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES)
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     trimesh.MESH_CAND = args.mesh_cand
-    recipe = ("mesh_pipeline" if args.mesh_pipeline
+    recipe = ("textured_frame" if args.textured_frame
+              else "mesh_pipeline" if args.mesh_pipeline
               else "mesh_restir_frame" if args.mesh_frame
               else "mesh_frame" if args.mesh
               else "default_frame" if args.default_frame

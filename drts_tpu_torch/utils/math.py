@@ -8,6 +8,8 @@ leading axes.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import backend
@@ -120,6 +122,13 @@ def quat_from_axis_angle(axis, angle, device="cuda"):
 # frames / bases
 
 
+def calculate_tbn(n, t):
+    """Gram-Schmidt TBN rows (T', B, N) (Math::CalculateTBN,
+    Math.hlsli:18-22)."""
+    t = normalize(t - n * dot(n, t, keepdims=True))
+    return t, cross(n, t), n
+
+
 def orthonormal_basis(n):
     """Branchless tangent basis from a unit normal (Duff et al.): returns
     (t, b) with (t, b, n) right-handed."""
@@ -156,6 +165,14 @@ def calculate_ndc(uv):
     scale = torch.tensor([2.0, -2.0], dtype=uv.dtype, device=uv.device)
     bias = torch.tensor([-1.0, 1.0], dtype=uv.dtype, device=uv.device)
     return uv * scale + bias
+
+
+def to_latlong(direction):
+    """Unit direction -> lat-long UV (Math::ToLatLongCoordinate)."""
+    u = (1.0 + torch.atan2(direction[..., 0], direction[..., 2])
+         / math.pi) / 2
+    v = torch.acos(torch.clamp(direction[..., 1], -1.0, 1.0)) / math.pi
+    return torch.stack([u, v], dim=-1)
 
 
 # ----------------------------------------------------------------------------

@@ -36,7 +36,11 @@ triangle-chunk culls on the hand scene's rays for its instances of scale
 ``compact_from=1`` path-trace frames at 48x48 (spheres through B1, the
 mesh scene through B5-B7 and B11) hold the card to the CPU with the key
 sort, the partition at every capacity, the partition over ragged tiles
-and a 32-slot deep segment with and without the spill wave. Run on a GPU
+and a 32-slot deep segment with and without the spill wave. The packed
+texture path (shading.sample_packed in its three filters and
+evaluate_material with a normal map, 2- and 3-word sets) runs on the card
+through every index clamp: u below half a texel, u and v at 0 and 1, set
+ids -1 and past the last set, NaN and infinite uv. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1062,3 +1066,89 @@ def test_compact_first_trace_card_equals_cpu(dev, mesh, variant):
     assert float(d.mean()) <= 1e-5, float(d.mean())
     assert float((d.amax(-1) <= 1e-3).float().mean()) >= 0.995
     assert torch.equal(card.is_diffuse.cpu(), cpu.is_diffuse)
+
+
+def texture_case(words, n=4099, seed=0):
+    """A packed texture set of 2 or 3 words (64^2 baked at 32) and per-lane
+    (set id, uv): random uv over [-0.3, 1.3]^2, then the edges a frame
+    rarely reaches (u below 0.5/S, u = 0 and 1, v = 0 and 1), set id -1,
+    ids past the last set, and uv NaN or infinite on invalid lanes."""
+    from drts_tpu_torch.models import material, texpack
+    rng = np.random.RandomState(seed)
+    atlas = rng.random_sample((4, 64, 64, 4)).astype(np.float32)
+    md = material.MaterialDesc
+    descs = [md(base_color_map=0, normal_map=1, metallic_map=2,
+                roughness_map=3),
+             md(base_color_map=1, normal_map=0)]
+    if words == 3:
+        descs.append(md(emissive_color_map=2, transmission_map=3,
+                        emissive_strength=2.0, emissive_color=(1, 1, 1)))
+    packed, mats = texpack.build(atlas, material.pack_materials(descs,
+                                                                "cpu"),
+                                 size=32)
+    uv = rng.uniform(-0.3, 1.3, (n, 2)).astype(np.float32)
+    s = packed.size
+    edges = [[0.1 / s, 0.5], [0.49 / s, 0.0], [0.0, 1.0], [1.0, 0.0],
+             [0.5, 1.0], [np.nan, 0.5], [0.5, np.nan], [np.inf, -np.inf],
+             [1.0 - 1e-7, 1.0], [-1e-7, 0.5]]
+    uv[:len(edges)] = edges
+    obj = rng.randint(0, len(descs), n)
+    return packed, mats, obj, uv
+
+
+def to_dev(x, dev):
+    import dataclasses
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_dev(getattr(x, f.name), dev)
+                          for f in dataclasses.fields(x)})
+    return x.to(dev) if torch.is_tensor(x) else x
+
+
+@pytest.mark.parametrize("filt", ["bilinear", "nearest", "nearest0"])
+@pytest.mark.parametrize("words", [2, 3])
+def test_sample_packed_on_the_card(dev, words, filt):
+    """shading.sample_packed on the card against the CPU, through every
+    index clamp: no device assert, every channel within 1e-6 (the same
+    separately rounded operations), finite everywhere, NaN uv read as 0."""
+    from drts_tpu_torch.ops import shading
+    packed, _, _, uv = texture_case(words)
+    rng = np.random.RandomState(1)
+    n_sets = packed.rows.shape[0] // packed.size ** 2
+    sets = torch.from_numpy(rng.randint(-1, n_sets + 2, uv.shape[0]))
+    sets[:4] = -1
+    uv_t = torch.from_numpy(uv)
+    cpu = shading.sample_packed(packed, sets, uv_t, filt)
+    card = shading.sample_packed(to_dev(packed, dev), sets.to(dev),
+                                 uv_t.to(dev), filt)
+    torch.cuda.synchronize()
+    zero = shading.sample_packed(packed, sets, torch.nan_to_num(
+        uv_t, nan=0.0, posinf=0.0, neginf=0.0), filt)
+    for f in ("base_rgb", "alpha", "normal_xy", "metallic", "roughness",
+              "emissive_rgb", "transmission"):
+        c, g = getattr(cpu, f), getattr(card, f).cpu()
+        assert torch.isfinite(g).all(), f
+        assert float((c - g).abs().max()) <= 1e-6, f
+        assert torch.equal(c, getattr(zero, f)), f
+
+
+@pytest.mark.parametrize("words", [2, 3])
+def test_evaluate_material_on_the_card(dev, words):
+    """shading.evaluate_material with a normal map on the card against the
+    CPU on the same edge cases: within 1e-6, the perturbed normal too."""
+    from drts_tpu_torch.ops import shading
+    packed, mats, obj, uv = texture_case(words, seed=2)
+    rng = np.random.RandomState(3)
+    nrm = rng.randn(uv.shape[0], 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    tan = rng.randn(uv.shape[0], 3).astype(np.float32)
+    args = [mats.gather(torch.from_numpy(obj))] + [
+        torch.from_numpy(x) for x in (uv, nrm, tan)]
+    cpu = shading.evaluate_material(*args, packed, "bilinear")
+    card = shading.evaluate_material(*[to_dev(a, dev) for a in args],
+                                     to_dev(packed, dev), "bilinear")
+    torch.cuda.synchronize()
+    for f in ("base_color", "alpha", "emission", "metallic", "roughness",
+              "transmission", "shading_normal"):
+        c, g = getattr(cpu, f), getattr(card, f).cpu()
+        assert torch.isfinite(g).all(), f
+        assert float((c - g).abs().max()) <= 1e-6, f

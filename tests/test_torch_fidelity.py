@@ -15,12 +15,15 @@ writer against the reference's, on the CPU at tiny sizes.
   pixels may flip their in-frame test between the packages);
 - ``run``, ``run_mesh`` and ``run_motion`` (renders stubbed) return the
   reference's keys plus ``"textures"``; a second call reads the cached
-  ``.npz`` and does not render; ``load_textures=True`` raises;
+  ``.npz`` and does not render; with ``load_textures=True`` and the
+  texture directory absent, ``run`` scores the reference's untextured
+  scene under the reference's cache key;
 - ``write_png`` -> ``read_png`` gives the pixels the reference's numpy
   encoder writes;
 - ``main --record`` merges its result into a JSON file.
 """
 
+import dataclasses
 import json
 import os
 
@@ -30,11 +33,11 @@ import pytest
 import torch
 
 from drts_tpu import fidelity as jfidelity
-from drts_tpu.models import myscene as jmyscene
+from drts_tpu.models import assets as jassets, myscene as jmyscene
 from drts_tpu.ops import sharc as jsharc, restir as jrestir
 from drts_tpu.utils import image as jimage
 from drts_tpu_torch import convert, fidelity as tfidelity
-from drts_tpu_torch.models import myscene as tmyscene
+from drts_tpu_torch.models import assets as tassets, myscene as tmyscene
 from drts_tpu_torch.ops import sharc as tsharc, restir as trestir
 from drts_tpu_torch.utils import image as timage
 
@@ -142,9 +145,31 @@ def test_run_results_and_cache(tmp_path, monkeypatch):
                                   ref_cache=str(tmp_path), device="cpu")
     assert set(motion) == jkeys["run_motion"] | {"textures"}
     assert "orbit_s0_t0_16x8_spp32_f0.npz" in os.listdir(tmp_path)
-    for fn in (tfidelity.run, tfidelity.run_mesh, tfidelity.run_motion):
-        with pytest.raises(NotImplementedError):
-            fn(16, 8, load_textures=True, device="cpu")
+    # load_textures=True with no texture directory (each package's loader
+    # pointed at one that does not exist): the reference's untextured
+    # scene under the reference's key.
+    absent = str(tmp_path / "no_textures_here")
+    monkeypatch.setattr(jassets.load_texture_atlas, "__defaults__",
+                        (absent, 512))
+    monkeypatch.setattr(tassets, "DEFAULT_ASSET_DIR", absent)
+    scenes = {}
+    for name, module, kw in (("jax", jfidelity, {}),
+                             ("torch", tfidelity, {"device": "cpu"})):
+        def grab(host, width, height, *args, _name=name, **kwargs):
+            scenes[_name] = host.scene
+            return np.full((height, width, 3), 0.5, np.float32)
+        monkeypatch.setattr(module, "reference_render", grab)
+        res = module.run(16, 8, 32, 1, load_textures=True,
+                         ref_cache=str(tmp_path / name), **kw)
+        assert os.listdir(tmp_path / name) == ["static_s0_t1_16x8_spp32.npz"]
+    assert res["textures"] is False
+    assert scenes["jax"].textures is None and scenes["torch"].textures is None
+    want = convert.scene(jax.tree.map(np.asarray, scenes["jax"]), "cpu")
+    for f in ("center", "radius", "rotation"):
+        assert torch.equal(getattr(scenes["torch"], f), getattr(want, f))
+    for f in dataclasses.fields(want.materials):
+        assert torch.equal(getattr(scenes["torch"].materials, f.name),
+                           getattr(want.materials, f.name)), f.name
 
 
 def test_write_png_round_trip(tmp_path, monkeypatch):
