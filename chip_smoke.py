@@ -195,6 +195,27 @@ Phases, one printed line or more each; any failure exits non-zero:
    64x64 textured default frames and one 64x64 ReSTIR frame lit by a
    seeded lat-long environment map (written with the port's write_exr to a
    temporary directory), card against CPU, each within DEFAULT_*.
+20. options: the settings window's options. The options frame (bench
+   --options-frame: PipelineConfig() with the thin lens, aperture 0.05,
+   focused at 15, ReSTIR with raytraced temporal and spatial bias
+   correction, the real previous surface and shared offsets): its second
+   frame's calls recorded by stage, B1 on the thin-lens primaries (each
+   lane its own origin), B2 on its six visibility batches (BRDF
+   candidate, initial, the temporal history, the spatial cross terms
+   from this surface and from the neighbour's, final), B3, B4 on its four
+   reprojections (the ReSTIR history at C = 12) and at C = 5 on that
+   history's first five words, B11 on the light sweep, each held to its
+   plain version and timed; then through bench.bench_frame, counted from
+   zero (per frame 6 x B2, B3, B11, 4 x B4). The ReSTIR frame with
+   accel_mode="none" (bench --frame --accel none) likewise: B11 on every
+   closest hit, the light sweep and the three shadow batches, B1 and B2
+   not at all. Then every option config at 64x64 on the card and on the
+   CPU from one start state, within DEFAULT_*: the options frame with and
+   without an accel, Power_RIS, Uniform without an accel,
+   local_light_samples=0, the candidate batch, the pairwise modes on the
+   pseudo previous surface (B4 at C = 5), the all-mesh frame in the
+   raytraced modes, and a deforming mesh, whose motion vectors must agree
+   within 1e-3 px and move.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -221,7 +242,14 @@ reprojections; and B1, B2, B4, B5, B6, B7, B8, B9 and B11 once more
 "intersect_brute@textured_any" and "intersect_brute@textured_lights")
 with the launches and the times of phase 19: the closest-hit kernels
 summed over one frame's G-buffer and trace stages, the any-hit kernels
-and B2 over its three shadow batches.
+and B2 over its three shadow batches; and B1, B2, B3, B4 and B11 once
+more ("...@options") with the launches and the times of phase 20's
+options frame (B1 its thin-lens primaries, B2 its six batches, B4 its
+four reprojections, B11 its light sweep), and B11
+("intersect_brute@accel_none", "intersect_brute@accel_none_any") with
+the launches and the times of phase 20's accel-none frame, summed over
+one frame's closest hits and light sweep and over its three shadow
+batches.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
@@ -578,11 +606,12 @@ def warp_chunks_met(chunk_met, rays, block=262144, *per_lane):
 
 
 @contextlib.contextmanager
-def recorded(modules, names, clone=False, keep=None):
+def recorded(modules, names, clone=False, keep=None, tag=None):
     """Swap the wrappers `names` of `modules` for recorders. Yields a dict
     name -> list of the positional arguments of each call, in order; with
     `clone`, tensors are copied (for callers that update them in place);
-    `keep(seen)` false skips the record."""
+    `keep(seen)` false skips the record; with `tag`, each record is
+    (tag(), arguments)."""
     seen = {name: [] for name in names}
     saved = []
     for mod in modules:
@@ -593,9 +622,11 @@ def recorded(modules, names, clone=False, keep=None):
 
                 def rec(*args, _orig=orig, _name=name, **kwargs):
                     if keep is None or keep(seen):
-                        seen[_name].append(tuple(
+                        kept = tuple(
                             a.clone() if clone and torch.is_tensor(a) else a
-                            for a in args))
+                            for a in args)
+                        seen[_name].append(kept if tag is None
+                                           else (tag(), kept))
                     return _orig(*args, **kwargs)
                 setattr(mod, name, rec)
     try:
@@ -629,17 +660,18 @@ def capture_restir_inputs(bench, modules, width=1920, height=1080,
     return seen, frame
 
 
-def check_b2(ik, calls, frame, path=""):
-    """B2 against its plain version on a frame's three visibility batches
-    (BRDF candidate, initial, final shading), each timed and its culled
-    work counted; `path` heads the printed lines. Returns the kernels-line
-    fields, times and bounds summed over the three."""
-    if len(calls) != 3:
+def check_b2(ik, calls, frame, path="",
+             labels=("brdf-candidate", "initial", "final")):
+    """B2 against its plain version on a frame's visibility batches (by
+    default its three: BRDF candidate, initial, final shading; one per
+    label), each timed and its culled work counted; `path` heads the
+    printed lines. Returns the kernels-line fields, times and bounds
+    summed over the batches."""
+    if len(calls) != len(labels):
         raise AssertionError(f"B2 ran {len(calls)} times in {frame}, "
-                             f"expected 3")
+                             f"expected {len(labels)}")
     ms = plain_ms = bytes_moved = ops = unculled_ops = 0.0
-    for label, (rays9, table, bounds, block) in zip(
-            ("brdf-candidate", "initial", "final"), calls):
+    for label, (rays9, table, bounds, block) in zip(labels, calls):
         occ_k = ik.occlusion_morton(rays9, table, bounds, block)
         occ_p = ik.occlusion_morton_plain(rays9, table, bounds, block)
         torch.cuda.synchronize()
@@ -678,25 +710,19 @@ def check_b2(ik, calls, frame, path=""):
                          + live * OPS_B2_RAY_UNCULLED)
     b_ms, b_by = bound(bytes_moved, ops)
     unculled_ms = bound(bytes_moved, unculled_ops)[0]
-    log(f"{path}kernels: B2 three batches kernel_ms={ms!r} "
+    log(f"{path}kernels: B2 {len(labels)} batches kernel_ms={ms!r} "
         f"bound_ms={b_ms!r} ({b_by}) unculled_bound_ms={unculled_ms!r}")
     return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "unculled_bound_ms": unculled_ms}
 
 
-def check_restir_kernels(ik, rk, rp, seen, frame):
-    """Phase 5: each kernel against its plain version on the frame's own
-    inputs. Returns the kernels' JSON fields (launches excepted)."""
-    out = {}
-
-    # B2: the frame's three visibility batches (BRDF candidate, initial,
-    # final shading); times and bounds are the sum over them.
-    out["occlusion_morton"] = check_b2(ik, seen["occlusion_morton"],
-                                       "the warm frame")
-
-    # B3: all n_l ReGIR candidate rounds of the frame in one call.
-    (surf, uni, slots, table, n_l, s, n_b), = seen["initial_light_candidates"]
+def check_b3(rk, call, path=""):
+    """B3 against its plain version on one recorded call (a frame's n_l
+    ReGIR candidate rounds), timed, with its bound and the resources the
+    card reports; `path` heads the printed line. Returns the kernels-line
+    fields."""
+    surf, uni, slots, table, n_l, s, n_b = call
     f_k, i_k = rk.initial_light_candidates(surf, uni, slots, table, n_l, s,
                                            n_b)
     f_p, i_p = rk.initial_light_candidates_plain(surf, uni, slots, table,
@@ -719,7 +745,7 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         n * (OPS_B3_PIXEL + n_l * OPS_B3_CANDIDATE))
     info = rk.initial_light_candidates_info(table.shape[0], s)
     occupancy = info["blocks_per_sm"] * info["threads"] / 2048
-    log(f"kernels: B3 pixels={n} n_l={n_l} slots={s} n_b={n_b} "
+    log(f"{path}kernels: B3 pixels={n} n_l={n_l} slots={s} n_b={n_b} "
         f"lights={table.shape[0]} pick_mismatch_share={pick_share!r} "
         f"(bound {B3_PICK_SHARE}) max_rel_err={rel!r} (bound {B3_REL}) "
         f"max_abs_err={err!r} kernel_ms={k_ms!r} plain_ms={p_ms!r} "
@@ -727,9 +753,23 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         f"resources={json.dumps(info)} occupancy={occupancy!r}")
     if pick_share > B3_PICK_SHARE or rel > B3_REL:
         raise AssertionError("B3: kernel disagrees with its plain version")
-    out["initial_light_candidates"] = {
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}
+    return {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_restir_kernels(ik, rk, rp, seen, frame):
+    """Phase 5: each kernel against its plain version on the frame's own
+    inputs. Returns the kernels' JSON fields (launches excepted)."""
+    out = {}
+
+    # B2: the frame's three visibility batches (BRDF candidate, initial,
+    # final shading); times and bounds are the sum over them.
+    out["occlusion_morton"] = check_b2(ik, seen["occlusion_morton"],
+                                       "the warm frame")
+
+    # B3: all n_l ReGIR candidate rounds of the frame in one call.
+    (call,) = seen["initial_light_candidates"]
+    out["initial_light_candidates"] = check_b3(rk, call)
 
     # B4 nearest: the temporal pass's packed reservoir history. The check
     # means something only where the history differs from pixel to pixel
@@ -2079,9 +2119,10 @@ def b1_part(ik, label, args):
     return res
 
 
-def b11_part(ik, label, args):
+def b11_part(ik, label, args, path="textured kernels"):
     """B11 against its plain version on one recorded call, timed, with
-    its work (intersect_kernels.intersect_brute_work)."""
+    its work (intersect_kernels.intersect_brute_work); `path` heads the
+    printed line."""
     rays, spheres, block = args
     res = compare_closest(
         label, lambda: ik.intersect_brute(rays, spheres),
@@ -2090,7 +2131,7 @@ def b11_part(ik, label, args):
     w = b11_work(ik, rays, spheres)
     res.update(bytes=w["bytes"], ops=w["ops"],
                unculled_ops=w["unculled_ops"])
-    log(f"textured kernels: {label} {w['line']}")
+    log(f"{path}: {label} {w['line']}")
     return res
 
 
@@ -2356,6 +2397,292 @@ def check_textured_small(pipeline, bench, sharc_mod, image,
                 or not bool(torch.isfinite(gimg).all())):
             raise AssertionError(f"textured small: the {label} on the card "
                                  f"disagrees with the CPU")
+
+
+def capture_options_inputs(bench, ik, rk, rp, cfg, device="cuda"):
+    """Phase 20: one frame of `cfg` (the options frame, or the ReSTIR frame
+    with accel_mode="none") to warm the histories and the previous-surface
+    rows, then one that records the arguments of every B1, B2, B3, B4 and
+    B11 call (copied), each tagged with (its frame-graph stage, whether
+    intersect.intersect_spheres_any made it: a shadow ray through B11).
+    Returns {name: [((stage, any_hit), args), ...]}."""
+    from drts_tpu_torch.ops import intersect
+    pipe, state, pose = bench.make_frame_setup(device=device, cfg=cfg)
+    state, _ = pipe.render_frame(state, pose)
+    stage, inside = [None], [False]
+    orig_any = intersect.intersect_spheres_any
+
+    def any_hit(*args, **kwargs):
+        inside[0] = True
+        try:
+            return orig_any(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def run(name, fn, *args):
+        stage[0] = name
+        try:
+            return fn(*args)
+        finally:
+            stage[0] = None
+    intersect.intersect_spheres_any = any_hit
+    try:
+        with recorded((ik, rk, rp), (
+                "intersect_morton", "occlusion_morton",
+                "initial_light_candidates", "reproject_packed",
+                "intersect_brute"), clone=True,
+                tag=lambda: (stage[0], inside[0])) as seen:
+            pipe.render_frame(state, pose, _run=run)
+            torch.cuda.synchronize()
+    finally:
+        intersect.intersect_spheres_any = orig_any
+    return seen
+
+
+def check_options_kernels(ik, rk, rp, seen):
+    """Phase 20: the options frame's kernels on its own inputs: B1 on the
+    thin-lens primaries (every lane its own origin), B2 on its six
+    visibility batches (BRDF candidate, initial, the raytraced temporal
+    history, the raytraced spatial cross terms from this surface and from
+    the neighbour's, final), B3, B4 on its four reprojections (the ReSTIR
+    history at C = 12: reservoir, target pdf and the previous surface) and
+    once more at C = 5 on that history's first five words (the pseudo
+    previous surface's rows), and B11's light sweep; each against its
+    plain version and timed. Returns the kernels-line fields."""
+    out = {}
+    primaries = [a for (st, _), a in seen["intersect_morton"]
+                 if st == "gbuffer"]
+    if len(primaries) != 1:
+        raise AssertionError(f"options kernels: {len(primaries)} B1 calls "
+                             f"in the G-buffer, expected 1")
+    rays, table, bounds, block = primaries[0]
+    origins = torch.unique(rays[0:3].T, dim=0).shape[0]
+    res = compare_closest(
+        "options B1 thin-lens primaries",
+        lambda: ik.intersect_morton(rays, table, bounds),
+        lambda: ik.intersect_morton_plain(rays, table, bounds, block),
+        reps=20, plain_reps=2)
+    line, work = b1_sums([b1_work(ik, rays, table, bounds)])
+    log(f"options kernels: B1 thin-lens primaries distinct_origins="
+        f"{origins} of {rays.shape[1]} {line}")
+    if origins < 0.9 * rays.shape[1]:
+        raise AssertionError("options kernels: the primaries do not leave "
+                             "their own aperture points")
+    res.update(bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+               library_ms=None, unculled_bound_ms=work["unculled_bound_ms"])
+    out["intersect_morton@options"] = res
+
+    b2 = seen["occlusion_morton"]
+    stages = [st for (st, _), _ in b2]
+    expect = ["restir_initial", "restir_initial", "restir_temporal",
+              "restir_spatial", "restir_spatial", "restir_final"]
+    if stages != expect:
+        raise AssertionError(f"options kernels: B2 by stage {stages}")
+    out["occlusion_morton@options"] = check_b2(
+        ik, [a for _, a in b2], "the options frame", path="options ",
+        labels=("brdf-candidate", "initial", "temporal-history",
+                "spatial-from-surface", "spatial-from-neighbour", "final"))
+
+    (b3,) = [a for _, a in seen["initial_light_candidates"]]
+    out["initial_light_candidates@options"] = check_b3(rk, b3,
+                                                       path="options ")
+
+    b4 = [a for _, a in seen["reproject_packed"]]
+    restir_rows = [a for (st, _), a in seen["reproject_packed"]
+                   if st == "restir_temporal"]
+    if [a[0].shape[-1] for a in restir_rows] != [12]:
+        raise AssertionError("options kernels: the ReSTIR history is not "
+                             "one 12-word reprojection")
+    out["reproject_packed@options"] = check_default_reprojections(
+        rp, b4, label="options")
+    src12, motion, _ = restir_rows[0]
+    src5 = src12[..., :5].contiguous()
+    h, w, _ = src5.shape
+    o_k, ok_k = rp.reproject_packed(src5, motion, "nearest")
+    o_p, ok_p = rp.reproject_packed_plain(src5, motion, "nearest")
+    torch.cuda.synchronize()
+    bad = int((o_k.view(torch.int32) != o_p.view(torch.int32)).sum())
+    bad += int((ok_k != ok_p).sum())
+    k_ms = cuda_ms(lambda: rp.reproject_packed(src5, motion, "nearest"), 50)
+    p_ms = cuda_ms(lambda: rp.reproject_packed_plain(src5, motion,
+                                                     "nearest"), 10)
+    b_ms = bound((2 * 5 * 4 + 8 + 1) * h * w, 0)[0]
+    log(f"options kernels: B4 nearest {h}x{w}x5 (the pairwise rows) "
+        f"vector_width={rp.vector_width(5, src5, o_k)} mismatch={bad} "
+        f"kernel_ms={k_ms!r} plain_ms={p_ms!r} bound_ms={b_ms!r}")
+    if bad:
+        raise AssertionError("B4 nearest at C = 5: kernel disagrees with its "
+                             "plain version")
+
+    sweeps = [a for _, a in seen["intersect_brute"]]
+    if len(sweeps) != 1:
+        raise AssertionError(f"options kernels: {len(sweeps)} B11 calls, "
+                             f"expected the light sweep alone")
+    out["intersect_brute@options"] = sum_parts(
+        [b11_part(ik, "B11 light sweep", sweeps[0], path="options kernels")])
+    return out
+
+
+def check_accel_none_kernels(ik, seen):
+    """Phase 20: B11 on every call of a ReSTIR frame with
+    accel_mode="none": the closest hits (G-buffer, every bounce, the light
+    sweep) and the three shadow batches that intersect_spheres_any sends
+    through it; each against its plain version, timed. B1 and B2 must not
+    run. Returns the kernels-line fields of the closest hits and of the
+    shadow rays (sums over one frame)."""
+    if seen["intersect_morton"] or seen["occlusion_morton"]:
+        raise AssertionError("accel none: B1 or B2 ran without an accel")
+    calls = list(enumerate(seen["intersect_brute"]))
+    closest = [b11_part(ik, f"B11 {st} closest hit {i}", a,
+                        path="accel none kernels")
+               for i, ((st, any_hit), a) in calls if not any_hit]
+    shadow = [b11_part(ik, f"B11 {st} shadow batch {i}", a,
+                       path="accel none kernels")
+              for i, ((st, any_hit), a) in calls if any_hit]
+    if len(shadow) != 3:
+        raise AssertionError(f"accel none: {len(shadow)} shadow batches, "
+                             f"expected 3")
+    fields = {"intersect_brute@accel_none": sum_parts(closest),
+              "intersect_brute@accel_none_any": sum_parts(shadow)}
+    for name, f in fields.items():
+        log(f"accel none kernels: {name} calls="
+            f"{len(closest) if name.endswith('none') else 3} "
+            f"kernel_ms={f['ms']!r} plain_ms={f['plain_ms']!r} "
+            f"bound_ms={f['bound_ms']!r} ({f['bound_by']})")
+    return fields, len(closest)
+
+
+def run_options_frame(bench, backend, rp, smi, iters, dev, cfg, label):
+    """Phase 20: the options frame (or the ReSTIR frame with no accel,
+    `label` "accel none") through bench.bench_frame, counted from zero;
+    checks the image and each kernel's launches. Returns the launches."""
+    backend.reset_launches()
+    with mode_tally(rp) as tally:
+        stats, img = bench.bench_frame(iters=iters, device=dev, cfg=cfg)
+    frames = stats["frames"]
+    launches = dict(backend.LAUNCHES)
+    finite = bool(torch.isfinite(img).all())
+    log(f"{label}: render {cfg.render_width}x{cfg.render_height} "
+        f"bounces={cfg.bounces} aperture={cfg.aperture_radius} "
+        f"focus={cfg.focus_distance} accel={cfg.accel_mode} "
+        f"restir={json.dumps(dataclasses.asdict(cfg.restir))} "
+        f"frames={frames} frame_ms={stats['frame_ms']!r} "
+        f"rays_per_frame={stats['rays_per_frame']!r} "
+        f"spill_waves={stats['spill_waves']} "
+        f"launches={json.dumps(launches)} "
+        f"launches_per_frame={sum(launches.values()) / frames!r} "
+        f"B4_by_mode={json.dumps(tally)} finite={finite} "
+        f"min={float(img.min())!r} max={float(img.max())!r} "
+        f"mean={float(img.mean())!r} | {smi}")
+    log(f"{label}: counters={json.dumps(stats['counters'])}")
+    log(f"{label}: passes_ms={json.dumps(stats['passes_ms'])}")
+    if (tuple(img.shape) != (cfg.output_height, cfg.output_width, 3)
+            or not finite or float(img.min()) < 0.0
+            or float(img.max()) > 1.0):
+        raise AssertionError(f"the {label} frame is not a finite image in "
+                             f"[0, 1]")
+    return launches, frames, tally
+
+
+def check_options_small(pipeline, bench, sharc_mod, myscene,
+                        devices=("cuda", "cpu")):
+    """Phase 20: every option config at 64x64 on the card and on the CPU
+    from one start state, two frames each, bounds DEFAULT_*: the options
+    frame (default graph: thin lens, focus, raytraced modes, real
+    previous surface, shared offsets) with and without an accel; ReSTIR
+    frames in Power_RIS, Uniform (no accel) and with local_light_samples=0,
+    the candidate batch (initial_kernel off), the pairwise modes on the
+    pseudo previous surface (B4 at C = 5); the all-mesh ReSTIR frame in
+    the raytraced modes; and the all-mesh frame with a deforming mesh,
+    whose G-buffer motion must agree within 1e-3 px and move."""
+    from drts_tpu_torch.ops import restir
+    opts = bench.options_frame_config(
+        output_width=64, output_height=64, render_width=64,
+        render_height=64, bounces=3, block_size=4096,
+        sharc=sharc_mod.SHARCConfig(capacity_log2=12))
+    rframe = dataclasses.replace(pipeline.restir_frame_config(64, 64, 2),
+                                 block_size=4096)
+
+    def with_restir(**kw):
+        return dataclasses.replace(rframe, restir=restir.ReSTIRConfig(**kw))
+    raytraced = dict(spatial_bias_correction="raytraced",
+                     temporal_bias_correction="raytraced",
+                     temporal_prev_surface="real")
+    runs = (("options", opts, False, False),
+            ("options accel none",
+             dataclasses.replace(opts, accel_mode="none"), False, False),
+            ("Power_RIS", with_restir(local_light_mode="Power_RIS"), False,
+             False),
+            ("Uniform accel none", dataclasses.replace(
+                with_restir(local_light_mode="Uniform"), accel_mode="none"),
+             False, False),
+            ("local_light_samples=0", with_restir(local_light_samples=0),
+             False, False),
+            ("candidate_batch", with_restir(candidate_batch=True,
+                                            initial_kernel=False),
+             False, False),
+            ("pairwise pseudo", with_restir(
+                spatial_bias_correction="pairwise",
+                temporal_bias_correction="pairwise",
+                spatial_offset_mode="shared"), False, False),
+            ("all-mesh raytraced", with_restir(**raytraced), True, False),
+            ("deforming mesh", rframe, True, True))
+    for label, cfg, mesh, deform in runs:
+        results = []
+        for dev in devices:
+            pipe = pipeline.RenderPipeline(cfg, dev)
+            host = myscene.build(oscillator_grid=3, device=pipe.device)
+            if mesh:
+                host = myscene.as_mesh_scene(host, tessellation=3)
+            if deform:
+                m = host.scene.mesh
+                vm = torch.tensor([0.12, -0.07, 0.05], device=pipe.device
+                                  ).expand(m.positions.shape[0], 3)
+                host = dataclasses.replace(host, scene=dataclasses.replace(
+                    host.scene, mesh=dataclasses.replace(
+                        m, vertex_motion=vm.contiguous())))
+            state = pipe.init_state(host)
+            eye = torch.tensor([0.0, 2.5, -4.0])
+            fwd = torch.tensor([0.0, 0.5, 0.0]) - eye
+            pose = pipeline.CameraPose(eye.to(dev), (fwd / fwd.norm()).to(dev),
+                                       torch.tensor([0.0, 1.0, 0.0]).to(dev))
+            frames = []
+            for _ in range(2):
+                motion = {}
+
+                def run(name, fn, *args, motion=motion):
+                    out = fn(*args)
+                    if name == "gbuffer":
+                        motion["m"] = out.motion
+                        motion["valid"] = out.surf.valid
+                    return out
+                state, img = pipe.render_frame(state, pose, _run=run)
+                frames.append((img.cpu(), motion["m"].cpu(),
+                               motion["valid"].cpu()))
+            results.append(frames)
+        for i, ((gimg, gmo, gval), (cimg, cmo, cval)) in enumerate(
+                zip(*results)):
+            d = (gimg - cimg).abs()
+            off = float((d.amax(-1) > DEFAULT_OFF).float().mean())
+            both = gval & cval
+            mo_diff = float((gmo - cmo).abs()[both].max()) \
+                if bool(both.any()) else 0.0
+            moving = float(gmo[both].abs().max()) if bool(both.any()) \
+                else 0.0
+            log(f"options small: {label} frame {i} image_mean_abs_diff="
+                f"{float(d.mean())!r} image_max_abs_diff={float(d.max())!r} "
+                f"pixels_off_{DEFAULT_OFF}={off!r} "
+                f"motion_max_abs_diff={mo_diff!r} motion_max={moving!r} "
+                f"image_mean={float(gimg.mean())!r} "
+                f"finite={bool(torch.isfinite(gimg).all())}")
+            if (float(d.mean()) > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE
+                    or not bool(torch.isfinite(gimg).all())):
+                raise AssertionError(f"options small: the {label} frame on "
+                                     f"the card disagrees with the CPU")
+            if deform and (mo_diff > 1e-3 or moving < 0.05):
+                raise AssertionError("options small: the deforming mesh's "
+                                     "motion vectors disagree or do not "
+                                     "move")
 
 
 def main():
@@ -2774,6 +3101,62 @@ def main():
     check_textured_small(pipeline, bench, sharc_mod, image)
     log(f"textured: phase 19 took {time.perf_counter() - t0:.1f} s")
 
+    # 20. the settings window's options: the options frame's and the
+    # accel-none frame's kernels at their own inputs, both frames counted
+    # from zero, every option config at 64x64 card vs CPU ---------------
+    t0 = time.perf_counter()
+    ocfg = bench.options_frame_config()
+    seen = capture_options_inputs(bench, ik, rk, rp, ocfg, device=dev)
+    fields.update(check_options_kernels(ik, rk, rp, seen))
+    del seen
+    o_launches, frames, tally = run_options_frame(
+        bench, backend, rp, smi, 2, dev, ocfg, "options frame")
+    updates = -(-frames // ocfg.sharc_update_period)
+    # Per frame: six visibility batches (BRDF candidate, initial, the
+    # raytraced temporal history, two spatial cross terms, final), B3, the
+    # light sweep and four reprojections (the ReSTIR history at C = 12);
+    # B1 as in the default frame.
+    expect = {"occlusion_morton": 6 * frames,
+              "initial_light_candidates": frames, "intersect_brute": frames,
+              "reproject_packed": 4 * frames, "bound_scan": 0,
+              "cand_fused": 0}
+    for name, count in expect.items():
+        if o_launches[name] != count:
+            raise AssertionError(f"options frame: {name} launched "
+                                 f"{o_launches[name]} times in {frames} "
+                                 f"frames, expected {count}")
+    if tally != {"nearest": 3 * frames, "bilinear": frames}:
+        raise AssertionError(f"options frame: B4 modes {tally}")
+    if o_launches["intersect_morton"] < (ocfg.bounces + 1) * (frames
+                                                              + updates):
+        raise AssertionError(f"options frame: B1 launched "
+                             f"{o_launches['intersect_morton']} times")
+    for name in ("intersect_morton", "occlusion_morton",
+                 "initial_light_candidates", "reproject_packed",
+                 "intersect_brute"):
+        launches[f"{name}@options"] = o_launches[name]
+
+    ncfg = pipeline.restir_frame_config(accel_mode="none")
+    seen = capture_options_inputs(bench, ik, rk, rp, ncfg, device=dev)
+    n_fields, n_closest = check_accel_none_kernels(ik, seen)
+    fields.update(n_fields)
+    del seen
+    n_launches, frames, _ = run_options_frame(
+        bench, backend, rp, smi, 2, dev, ncfg, "accel none frame")
+    expect = {"intersect_morton": 0, "occlusion_morton": 0,
+              "initial_light_candidates": frames,
+              "reproject_packed": frames,
+              "intersect_brute": (n_closest + 3) * frames}
+    for name, count in expect.items():
+        if n_launches[name] != count:
+            raise AssertionError(f"accel none frame: {name} launched "
+                                 f"{n_launches[name]} times in {frames} "
+                                 f"frames, expected {count}")
+    launches["intersect_brute@accel_none"] = n_closest * frames
+    launches["intersect_brute@accel_none_any"] = 3 * frames
+    check_options_small(pipeline, bench, sharc_mod, myscene)
+    log(f"options: phase 20 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -2874,6 +3257,22 @@ def main():
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
         "intersect_brute@textured_lights": (
+            "drts_tpu_torch/csrc/intersect.cu",
+            "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_morton@options": ("drts_tpu_torch/csrc/intersect.cu",
+                                     "drts_tpu/ops/intersect_pallas.py:311"),
+        "occlusion_morton@options": ("drts_tpu_torch/csrc/intersect.cu",
+                                     "drts_tpu/ops/intersect_pallas.py:509"),
+        "initial_light_candidates@options": (
+            "drts_tpu_torch/csrc/restir.cu",
+            "drts_tpu/ops/restir_pallas.py:289"),
+        "reproject_packed@options": ("drts_tpu_torch/csrc/reproject.cu",
+                                     "drts_tpu/ops/reproject_pallas.py:206"),
+        "intersect_brute@options": ("drts_tpu_torch/csrc/intersect.cu",
+                                    "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_brute@accel_none": ("drts_tpu_torch/csrc/intersect.cu",
+                                       "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_brute@accel_none_any": (
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
     }

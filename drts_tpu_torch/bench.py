@@ -43,6 +43,16 @@ and an alpha-tested cutout checker; packed texture sets of 2 words at
 reference renders this scene through this graph in its own tests
 (tests/test_mesh_pipeline.py).
 
+The options frame (``--options-frame``): ``PipelineConfig()`` at
+1920x1080 on the demo scene with every exact choice of the settings
+window on: the thin lens (aperture 0.05) focused at the demo camera's
+distance to the scene origin (15), and ReSTIR with raytraced temporal and
+spatial bias correction, the real previous surface and shared spatial
+offsets. ``--accel none`` runs a sphere recipe (``--frame``,
+``--default-frame``, ``--options-frame``) with ``accel_mode="none"``: no
+Morton accel, so every sphere closest hit and shadow ray goes through the
+brute-force kernel (B11).
+
 ``--mesh-cand {0,1,2}`` sets ``ops.trimesh.MESH_CAND`` before the mesh
 frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
 loop, B10).
@@ -55,6 +65,8 @@ loop, B10).
     python -m drts_tpu_torch.bench --upscaled [--iters N]
     python -m drts_tpu_torch.bench --mesh-pipeline [--iters N]
     python -m drts_tpu_torch.bench --textured-frame [--iters N]
+    python -m drts_tpu_torch.bench --options-frame [--accel none] [--iters N]
+    python -m drts_tpu_torch.bench --frame --accel none [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -85,7 +97,7 @@ import torch
 
 from . import backend
 from .models import clusters, myscene, pipeline, scene as scene_mod
-from .ops import camera as camera_mod, gbuffer, pathtrace, trimesh
+from .ops import camera as camera_mod, gbuffer, pathtrace, restir, trimesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,6 +219,21 @@ def default_frame_config(upscaled: bool = False, **overrides):
         overrides = dict(dict(render_width=960, render_height=540,
                               block_size=32768), **overrides)
     return pipeline.PipelineConfig(**overrides)
+
+
+def options_frame_config(**overrides):
+    """``PipelineConfig()`` with every exact choice of the settings window
+    on: aperture 0.05, the focus at the demo camera's distance to the
+    scene origin, raytraced temporal and spatial bias correction, the real
+    previous surface and shared spatial offsets."""
+    focus = float(np.linalg.norm(myscene.MySceneHost.camera_position))
+    return pipeline.PipelineConfig(**dict(dict(
+        aperture_radius=0.05, focus_distance=focus,
+        restir=restir.ReSTIRConfig(spatial_bias_correction="raytraced",
+                                   temporal_bias_correction="raytraced",
+                                   temporal_prev_surface="real",
+                                   spatial_offset_mode="shared")),
+        **overrides))
 
 
 def mesh_pipeline_config(**overrides):
@@ -343,11 +370,21 @@ def main(argv=None):
     parser.add_argument("--textured-frame", action="store_true",
                         help="the default frame on the mixed textured "
                              "scene")
+    parser.add_argument("--options-frame", action="store_true",
+                        help="the default frame with the thin lens and the "
+                             "raytraced ReSTIR modes")
+    parser.add_argument("--accel", default="morton",
+                        choices=pipeline.ACCEL_MODES,
+                        help="accel_mode of the sphere frame recipes")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
                              "MESH_CAND)")
     args = parser.parse_args(argv)
+    sphere_frame = args.frame or args.default_frame or args.options_frame
+    if args.accel != "morton" and not sphere_frame:
+        parser.error("--accel applies to --frame, --default-frame and "
+                     "--options-frame")
     dev = backend.device("cuda")
     trimesh.MESH_CAND = args.mesh_cand
     if args.mesh:
@@ -367,7 +404,8 @@ def main(argv=None):
         }), flush=True)
         return
     if (args.frame or args.mesh_frame or args.default_frame or args.upscaled
-            or args.mesh_pipeline or args.textured_frame):
+            or args.mesh_pipeline or args.textured_frame
+            or args.options_frame):
         cfg = None
         metric = ("mesh_restir_frame_1080p_8bounce" if args.mesh_frame
                   else "restir_frame_1080p_8bounce")
@@ -381,6 +419,14 @@ def main(argv=None):
         if args.textured_frame:
             cfg = default_frame_config()
             metric = "textured_frame_1080p_8bounce"
+        if args.options_frame:
+            cfg = options_frame_config()
+            metric = "options_frame_1080p_8bounce"
+        if args.accel != "morton":
+            if cfg is None:
+                cfg = pipeline.restir_frame_config()
+            cfg = dataclasses.replace(cfg, accel_mode=args.accel)
+            metric += f"_accel_{args.accel}"
         backend.reset_launches()
         stats, image = bench_frame(iters=args.iters, device=dev,
                                    mesh=args.mesh_frame or args.mesh_pipeline,
@@ -389,7 +435,7 @@ def main(argv=None):
             raise RuntimeError("non-finite image")
         print(json.dumps({
             "metric": metric, "value": stats["frame_ms"], "unit": "ms",
-            **stats, "mesh_cand": args.mesh_cand,
+            **stats, "mesh_cand": args.mesh_cand, "accel": args.accel,
             "launches": dict(backend.LAUNCHES),
             "device": torch.cuda.get_device_name(dev),
         }), flush=True)

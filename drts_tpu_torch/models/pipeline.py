@@ -11,9 +11,16 @@ sharpen -> bloom -> tone map -> debug view. History (reservoirs, previous
 depth and normal, denoiser, TAA and SHARC state) is threaded through
 ``FrameState``; ``PipelineConfig()`` is the reference's default frame.
 
-The constructor raises NotImplementedError for what waits for later
-slices: a thin lens, a focus distance other than 1, ``accel_mode="none"``
-and the ReSTIR options of ``restir.check_config``. ``compact_from`` goes
+Every option of the reference's settings window renders: the thin lens
+(``aperture_radius`` > 0: per-pixel aperture samples in the G-buffer) and
+the focus distance (the current and the previous camera are built with
+it), ``accel_mode="none"`` (no sphere accel: every sphere closest hit and
+shadow ray goes through the brute-force kernel, B11), and every ReSTIR
+mode of ``restir.ReSTIRConfig``; the constructor raises ValueError only
+for names the reference does not know. With
+``temporal_prev_surface="real"`` in a pairwise or raytraced temporal mode,
+``FrameState.prev_surface_rows`` carries the previous G-buffer's
+``restir.pack_prev_material`` rows. ``compact_from`` goes
 unchanged to the path trace and the SHARC update trace (1 compacts and
 sorts the bounce-1 wavefront too, the reference's all-mesh pipeline
 bench). There is no counterpart of the reference's
@@ -122,7 +129,9 @@ class FrameState:
     reservoirs: restir.Reservoirs
     prev_depth: torch.Tensor         # (RH, RW) previous linear depth
     prev_normal: torch.Tensor        # (RH, RW, 3) previous shading normal
-    prev_surface_rows: torch.Tensor  # (1, 1, 7) placeholder (basic mode)
+    # (RH, RW, 7) restir.pack_prev_material rows of the previous frame for
+    # the real previous surface; a (1, 1, 7) placeholder otherwise.
+    prev_surface_rows: torch.Tensor
     sharc: sharc_mod.SHARCState
     earth_gravity: torch.Tensor      # scalar bool toggles
     star_gravity: torch.Tensor
@@ -157,6 +166,7 @@ class CameraPose:
 
 DENOISERS = ("None", "NRDReBLUR", "NRDReLAX", "DLSSRayReconstruction")
 TAA_MODES = ("auto", "on", "off")
+ACCEL_MODES = ("morton", "none")
 
 
 def _check_supported(c: PipelineConfig) -> None:
@@ -169,14 +179,9 @@ def _check_supported(c: PipelineConfig) -> None:
         if value not in allowed:
             raise ValueError(f"{name} must be one of {allowed}, got "
                              f"{value!r}")
-    waits = [
-        (c.aperture_radius > 0.0, "the thin-lens camera"),
-        (c.focus_distance != 1.0, "a focus distance other than 1"),
-        (c.accel_mode != "morton", f"accel_mode={c.accel_mode!r}"),
-    ]
-    for bad, what in waits:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if c.accel_mode not in ACCEL_MODES:
+        raise ValueError(f"accel_mode must be one of {ACCEL_MODES}, got "
+                         f"{c.accel_mode!r}")
     if c.restir_enabled:
         restir.check_config(c.restir)
 
@@ -204,13 +209,23 @@ class RenderPipeline:
         """Build the static cluster plan (the BLAS-build analogue)."""
         centers = host.scene.center.cpu().numpy()
         self._planned = True
-        if centers.shape[0] == 0:
-            # All-mesh scene: no sphere sweep, so no sphere accel.
+        if centers.shape[0] == 0 or self.cfg.accel_mode == "none":
+            # All-mesh scene (no sphere sweep) or no accel wanted: the
+            # sphere sweeps go through the brute-force kernel.
             self.cluster_plan = None
             return
         self.cluster_plan = clusters.build_plan_morton(
             centers, host.scene.radius.cpu().numpy(), max_members=32,
             device=self.device)
+
+    def _use_real_prev_surface(self) -> bool:
+        """Whether FrameState carries the previous frame's surface rows
+        (the real previous surface of pairwise temporal reuse)."""
+        c = self.cfg
+        return (c.restir_enabled and c.restir.temporal_enabled
+                and c.restir.temporal_bias_correction in ("pairwise",
+                                                          "raytraced")
+                and c.restir.temporal_prev_surface == "real")
 
     def _counter_keys(self):
         c = self.cfg
@@ -244,7 +259,10 @@ class RenderPipeline:
                                   device=dev),
             prev_normal=torch.zeros((c.render_height, c.render_width, 3),
                                     device=dev),
-            prev_surface_rows=torch.zeros((1, 1, 7), device=dev),
+            prev_surface_rows=torch.zeros(
+                (c.render_height, c.render_width, 7)
+                if self._use_real_prev_surface() else (1, 1, 7),
+                device=dev),
             sharc=sharc_mod.init_state(c.sharc, dev),
             earth_gravity=torch.tensor(False, device=dev),
             star_gravity=torch.tensor(False, device=dev),
@@ -286,15 +304,18 @@ class RenderPipeline:
         else:
             jitter = torch.zeros(2, device=self.device)
         aspect = c.render_width / c.render_height
+        # |forward| = the focus distance, for the previous camera too (its
+        # frame scales the motion vectors' projection).
         cam = camera_mod.make_camera(
             pose.position, pose.forward, pose.up,
             horizontal_fov_deg=c.horizontal_fov_deg, aspect=aspect,
-            jitter=jitter, device=self.device)
+            jitter=jitter, aperture_radius=c.aperture_radius,
+            focus_distance=c.focus_distance, device=self.device)
         if prev_pose is not None:
             prev = camera_mod.make_camera(
                 prev_pose.position, prev_pose.forward, prev_pose.up,
                 horizontal_fov_deg=c.horizontal_fov_deg, aspect=aspect,
-                device=self.device)
+                focus_distance=c.focus_distance, device=self.device)
             cam = dataclasses.replace(
                 cam, prev_position=prev.position, prev_right=prev.right,
                 prev_up=prev.up, prev_forward=prev.forward)
@@ -328,16 +349,21 @@ class RenderPipeline:
                 sort_origin=cam.position)
         return bodies, scene, cam, accel
 
-    def _stage_gbuffer(self, scene, cam, accel):
+    def _stage_gbuffer(self, scene, cam, accel, frame_index=0):
         c = self.cfg
         return gbuffer.generate(scene, cam, c.render_width, c.render_height,
-                                c.block_size, accel=accel)
+                                c.block_size, accel=accel,
+                                thin_lens=c.aperture_radius > 0.0,
+                                frame_index=frame_index)
 
     def _restir_prepare(self, scene, cam, frame_index):
-        """Light preparation and the ReGIR grid (RTXDI.ixx:141-241 head)."""
+        """Light preparation and the ReGIR grid (RTXDI.ixx:141-241 head);
+        the grid exists in ReGIR_RIS mode only (RTXDI.ixx:218)."""
         lights = light_mod.prepare(scene)
-        grid = restir.build_regir_grid(lights, cam.position, self.cfg.restir,
-                                       frame_index)
+        grid = None
+        if self.cfg.restir.local_light_mode == "ReGIR_RIS":
+            grid = restir.build_regir_grid(lights, cam.position,
+                                           self.cfg.restir, frame_index)
         return lights, grid
 
     def _restir_initial(self, gbuf, scene, lights, grid, frame_index, accel):
@@ -349,19 +375,30 @@ class RenderPipeline:
         return surface, cur
 
     def _restir_temporal(self, state, cur, surface, lights, gbuf, reset,
-                         frame_index):
+                         frame_index, scene=None, accel=None, cam=None):
         c = self.cfg
         hist = state.reservoirs
         if reset:
             hist = restir.init_reservoirs(c.render_height, c.render_width,
                                           self.device)
+        prev_material = prev_cam_pos = None
+        if self._use_real_prev_surface():
+            prev_material = state.prev_surface_rows
+            if reset:
+                prev_material = torch.zeros_like(prev_material)
+            prev_cam_pos = cam.prev_position if cam is not None else None
         return restir.temporal_resampling(
             cur, hist, surface, lights, gbuf.motion, state.prev_depth,
-            state.prev_normal, c.restir, frame_index)
+            state.prev_normal, c.restir, frame_index, scene=scene,
+            accel=accel, block_size=c.block_size,
+            prev_material=prev_material, prev_camera_position=prev_cam_pos)
 
-    def _restir_spatial(self, cur, surface, lights, frame_index):
-        return restir.spatial_resampling(cur, surface, lights,
-                                         self.cfg.restir, frame_index)
+    def _restir_spatial(self, cur, surface, lights, frame_index,
+                        frame_count, scene=None, accel=None):
+        return restir.spatial_resampling(
+            cur, surface, lights, self.cfg.restir, frame_index, scene=scene,
+            accel=accel, block_size=self.cfg.block_size,
+            frame_count=frame_count)
 
     def _restir_final(self, cur, surface, scene, lights, accel):
         return restir.final_shading(cur, surface, scene, lights,
@@ -551,7 +588,9 @@ class RenderPipeline:
         bodies, scene, cam, accel = run(
             "update", lambda s, p: self._stage_update(s, p, dt, prev_pose),
             state, pose)
-        gbuf = run("gbuffer", self._stage_gbuffer, scene, cam, accel)
+        gbuf = run("gbuffer", lambda s, cm, a: self._stage_gbuffer(s, cm, a,
+                                                                 fi),
+                   scene, cam, accel)
 
         di_total = di_diffuse = di_specular = grid = None
         reservoirs = state.reservoirs
@@ -568,14 +607,16 @@ class RenderPipeline:
             if c.restir.temporal_enabled:
                 cur = run(
                     "restir_temporal",
-                    lambda st, cu, su, li, g: self._restir_temporal(
-                        st, cu, su, li, g, reset, fi),
-                    state, cur, surface, lights, gbuf)
+                    lambda st, cu, su, li, g, s2, a2, cm:
+                    self._restir_temporal(st, cu, su, li, g, reset, fi, s2,
+                                          a2, cm),
+                    state, cur, surface, lights, gbuf, scene, accel, cam)
             if c.restir.spatial_enabled:
                 cur = run(
                     "restir_spatial",
-                    lambda cu, su, li: self._restir_spatial(cu, su, li, fi),
-                    cur, surface, lights)
+                    lambda cu, su, li, s2, a2: self._restir_spatial(
+                        cu, su, li, fi, state.frame_count, s2, a2),
+                    cur, surface, lights, scene, accel)
             di_diffuse, di_specular = run(
                 "restir_final", self._restir_final, cur, surface, scene,
                 lights, accel)
@@ -586,9 +627,10 @@ class RenderPipeline:
             frame_counters["lights_dropped"] = lights.dropped_lights
             frame_counters["lights_dropped_power_frac"] = \
                 lights.dropped_power_frac
-            n_cells = c.restir.regir_cells_per_axis ** 3
-            frame_counters["regir_occupancy"] = torch.mean(
-                (grid.weight[:n_cells] > 0).to(torch.float32))
+            if grid is not None:
+                n_cells = c.restir.regir_cells_per_axis ** 3
+                frame_counters["regir_occupancy"] = torch.mean(
+                    (grid.weight[:n_cells] > 0).to(torch.float32))
 
         # SHARC: the update pass at the downscaled size, then the main
         # trace queries the fresh cache (Raytracing.ixx:114-148).
@@ -634,7 +676,10 @@ class RenderPipeline:
             prev_depth=torch.where(torch.isfinite(gbuf.linear_depth),
                                    gbuf.linear_depth, 1e8),
             prev_normal=out.primary_normal,
-            prev_surface_rows=state.prev_surface_rows, sharc=sharc_state,
+            prev_surface_rows=(restir.pack_prev_material(gbuf)
+                               if self._use_real_prev_surface()
+                               else state.prev_surface_rows),
+            sharc=sharc_state,
             earth_gravity=state.earth_gravity,
             star_gravity=state.star_gravity, counters=counters,
             frame_count=state.frame_count + 1)

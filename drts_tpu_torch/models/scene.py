@@ -75,6 +75,12 @@ class HitSurface:
     distance: torch.Tensor          # (...,)
     object_index: torch.Tensor      # (...,) int
     material: Materials             # per-ray gathered material
+    # (..., 3) previous - current object-space offset at the hit: the
+    # interpolated per-vertex motion of a deforming mesh, in the current
+    # pose's object axes scaled to world units (zero on other lanes);
+    # None when no mesh deforms. The G-buffer adds it before the previous
+    # pose (GBufferGeneration.hlsl:62-91).
+    prev_offset: torch.Tensor | None = None
 
 
 # Packed per-object attribute table, one row per object. Columns:

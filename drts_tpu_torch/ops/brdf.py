@@ -1,8 +1,8 @@
 """Microfacet BRDF terms and importance sampling (port of
 ``drts_tpu/ops/brdf.py``): GGX D, height-correlated Smith visibility,
 Schlick and dielectric Fresnel, Burley diffuse, the split-sum environment
-fit, and cosine / VNDF sampling. Elementwise over broadcastable tensors;
-``roughness`` is the linear (perceptual) roughness.
+fit, and cosine, VNDF and unit-disk sampling. Elementwise over
+broadcastable tensors; ``roughness`` is the linear (perceptual) roughness.
 """
 
 from __future__ import annotations
@@ -125,6 +125,14 @@ def sample_cosine_hemisphere(random2):
 
 def pdf_cosine_hemisphere(nol):
     return nol * INV_PI
+
+
+def sample_uniform_disk(random2):
+    """Uniform unit-disk point (ImportanceSampling::Uniform, the thin
+    lens's aperture sample)."""
+    r = torch.sqrt(random2[..., 0])
+    phi = 2.0 * PI * random2[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
 
 
 def sample_vndf_ggx(random2, roughness, v_local):

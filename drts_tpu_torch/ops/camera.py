@@ -1,5 +1,5 @@
-"""Camera constants, pinhole ray generation and reprojection (port of
-``drts_tpu/ops/camera.py``).
+"""Camera constants, pinhole and thin-lens ray generation and
+reprojection (port of ``drts_tpu/ops/camera.py``).
 
 The scaled right/up/forward frame follows the reference: |forward| = focus
 distance, |right| = tan(hfov/2)*|forward|, |up| = |right| / aspect
@@ -16,6 +16,7 @@ import torch
 
 from .. import backend
 from ..utils import math as m
+from . import brdf
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,12 +38,15 @@ class Camera:
 
 def make_camera(position, forward=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0),
                 horizontal_fov_deg: float = 90.0, aspect: float = 16 / 9,
-                jitter=(0.0, 0.0), near_depth: float = 1e-3,
-                far_depth: float = 1e8, device="cuda") -> Camera:
-    """Pinhole camera constants, as CameraController::SetLens builds them
-    (Camera.ixx:138-153), with a unit focus distance and the previous frame
-    equal to this one. ``aspect`` = width / height; ``device`` defaults to
-    the card."""
+                jitter=(0.0, 0.0), aperture_radius: float = 0.0,
+                near_depth: float = 1e-3, far_depth: float = 1e8,
+                focus_distance: float = 1.0, device="cuda") -> Camera:
+    """Camera constants, as CameraController::SetLens builds them
+    (Camera.ixx:138-153), with the previous frame equal to this one.
+    ``focus_distance`` scales the whole frame (|forward| = focus distance,
+    the thin lens's focal plane; pinhole directions are normalized, so it
+    does not change them). ``aspect`` = width / height; ``device``
+    defaults to the card."""
     device = backend.device(device)
 
     def f32(x):
@@ -50,17 +54,21 @@ def make_camera(position, forward=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0),
 
     position = f32(position)
     f = m.normalize(f32(forward))
+    if focus_distance != 1.0:
+        # (x * 1 is x: the unit focus skips a launch.)
+        f = f * focus_distance
     r = m.normalize(m.cross(f32(up), f))
     u = m.cross(m.normalize(f), r)
     # float32 scale factors, rounded exactly as the reference's numpy ones.
     tan_half = np.tan(np.radians(horizontal_fov_deg) / 2).astype(np.float32)
-    r = r * float(tan_half)
-    u = u * float(tan_half / aspect)
+    scale = tan_half * np.float32(focus_distance)
+    r = r * float(scale)
+    u = u * float(scale / np.float32(aspect))
     return Camera(position=position, right=r, up=u, forward=f,
                   prev_position=position, prev_right=r, prev_up=u,
                   prev_forward=f, jitter=f32(jitter),
-                  aperture_radius=f32(0.0), near_depth=f32(near_depth),
-                  far_depth=f32(far_depth))
+                  aperture_radius=f32(aperture_radius),
+                  near_depth=f32(near_depth), far_depth=f32(far_depth))
 
 
 def pixel_ndc(width: int, height: int, jitter):
@@ -82,6 +90,23 @@ def generate_pinhole_rays(cam: Camera, ndc):
     inv_cos = 1.0 / m.dot(m.normalize(cam.forward), d)
     origin = cam.position.expand(d.shape)
     return origin, d, cam.near_depth * inv_cos, cam.far_depth * inv_cos
+
+
+def generate_thin_lens_rays(cam: Camera, ndc, random2):
+    """Camera.hlsli:43-54 GenerateThinLensRay (depth of field): each ray
+    leaves its own aperture point and passes through the pinhole ray's
+    point on the focal plane. Returns (origin, direction, t_min, t_max),
+    the origin per ray."""
+    disk = brdf.sample_uniform_disk(random2)
+    r_n = m.normalize(cam.right)
+    u_n = m.normalize(cam.up)
+    offset = (r_n * disk[..., 0:1] + u_n * disk[..., 1:2]) \
+        * cam.aperture_radius
+    target = ndc[..., 0:1] * cam.right + ndc[..., 1:2] * cam.up + cam.forward
+    d = m.normalize(target - offset)
+    inv_cos = 1.0 / m.dot(m.normalize(cam.forward), d)
+    return (cam.position + offset, d, cam.near_depth * inv_cos,
+            cam.far_depth * inv_cos)
 
 
 def project_to_ndc(cam: Camera, world_pos, previous: bool = False):

@@ -1,6 +1,7 @@
-"""G-buffer generation (port of ``drts_tpu/ops/gbuffer.py``, pinhole only):
-primary visibility, material channels, demodulation albedos and motion
-vectors (GBufferGeneration.hlsl:117-232)."""
+"""G-buffer generation (port of ``drts_tpu/ops/gbuffer.py``): primary
+visibility through pinhole or thin-lens rays, material channels,
+demodulation albedos and motion vectors (GBufferGeneration.hlsl:117-232),
+deforming meshes' per-vertex motion included."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from ..models import scene as scene_mod
 from ..utils import math as m
+from ..utils import rng as rng_mod
 from . import bxdf, camera as camera_mod, shading, sky, trace as trace_mod
 
 
@@ -29,10 +31,24 @@ class GBuffer:
 
 def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
              width: int, height: int, block_size: int = 16384,
-             accel=None) -> GBuffer:
-    """Primary-ray pass with pinhole rays. (The thin-lens option waits.)"""
+             accel=None, thin_lens: bool = False,
+             frame_index=0) -> GBuffer:
+    """Primary-ray pass. With ``thin_lens`` the primary rays sample the
+    camera aperture (Camera.hlsli:43-54), each pixel from its own stream
+    of ``frame_index``, so every pixel has its own ray origin."""
     ndc = camera_mod.pixel_ndc(width, height, cam.jitter)
-    ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(cam, ndc)
+    if thin_lens:
+        dev = ndc.device
+        py, px = torch.meshgrid(torch.arange(height, device=dev),
+                                torch.arange(width, device=dev),
+                                indexing="ij")
+        u2, _ = rng_mod.next_floats(
+            rng_mod.init(px + 977, py + 557, frame_index), 2)
+        ray_o, ray_d, t_min, t_max = camera_mod.generate_thin_lens_rays(
+            cam, ndc, u2)
+    else:
+        ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(cam,
+                                                                      ndc)
     t_min = torch.broadcast_to(t_min, (height, width))
     t_max = torch.broadcast_to(t_max, (height, width))
 
@@ -62,6 +78,10 @@ def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     row = table[surf.object_index]
     obj_local = m.quat_rotate(m.quat_conj(row[..., 4:8]),
                               surf.position - row[..., 0:3])
+    if surf.prev_offset is not None:
+        # Deforming meshes: the interpolated per-vertex motion, added
+        # before the previous pose (GBufferGeneration.hlsl:70-84).
+        obj_local = obj_local + surf.prev_offset
     prev_world = row[..., 8:11] + m.quat_rotate(row[..., 11:15], obj_local)
     prev_ndc, _ = camera_mod.project_to_ndc(cam, prev_world, previous=True)
     cur_ndc, _ = camera_mod.project_to_ndc(cam, surf.position,

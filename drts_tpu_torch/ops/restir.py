@@ -1,24 +1,30 @@
 """ReSTIR DI: ReGIR grid, initial / temporal / spatial reservoir resampling
 and final shading (port of ``drts_tpu/ops/restir.py``).
 
-The path the port takes is the reference's default: ReGIR_RIS local-light
-candidates through the fused candidate kernel (B3,
-``restir_kernels.initial_light_candidates``) plus BRDF-ray candidates
-(the light sweep is B11, the occluder test B2), temporal reuse in
-``basic`` bias mode over the exact nearest reprojection (B4), spatial
-reuse in ``basic`` mode with ``per_pixel`` disc offsets, the boiling
-filter, and final shading with its visibility ray (B2). A scene with
-triangle lights (any scene with mesh instances), or ``initial_kernel=
-False``, takes the reference's sequential candidate loop instead of B3,
-finds its BRDF-ray triangle candidates by a dense sweep over the compact
-rows' triangles, and casts its visibility rays through the mesh any-hit
-kernels (``trace.occluded_scene``). Reservoirs are SoA (H, W) tensors;
-light ids are compact ids (``light.Lights``), kept as int64.
+The reference's default path: ReGIR_RIS local-light candidates through
+the fused candidate kernel (B3, ``restir_kernels.initial_light_candidates``)
+plus BRDF-ray candidates (the light sweep is B11, the occluder test B2),
+temporal reuse in ``basic`` bias mode over the exact nearest reprojection
+(B4), spatial reuse in ``basic`` mode with ``per_pixel`` disc offsets, the
+boiling filter, and final shading with its visibility ray (B2). A scene
+with triangle lights (any scene with mesh instances), the ``Power_RIS`` and
+``Uniform`` light modes, ``local_light_samples = 0`` or ``initial_kernel=
+False`` take the reference's sequential candidate loop instead of B3 (or,
+with ``candidate_batch``, the same draws evaluated as one batch); a scene
+with triangle lights finds its BRDF-ray triangle candidates by a dense
+sweep over the compact rows' triangles and casts its visibility rays
+through the mesh any-hit kernels (``trace.occluded_scene``).
 
-Options this path does not take raise NotImplementedError (see
-``check_config``): the pairwise and raytraced bias modes, the real
-previous surface, Power_RIS and Uniform candidates, ``candidate_batch``
-and shared spatial offsets.
+The pairwise and raytraced bias modes reuse with confidence-weighted
+pairwise MIS: temporal reuse reprojects the stored target pdf beside the
+reservoir row (5 words through B4) and, with ``temporal_prev_surface=
+"real"``, the previous frame's surface rows too (12 words); spatial reuse
+gathers each neighbour's reservoir and surface rows in one 34-word row.
+The raytraced modes trace a visibility batch per cross term. ``shared``
+spatial offsets take one golden-angle offset per round and frame, computed
+on the host in float32 as the reference computes it from its int32 frame
+index, and roll the packed rows by it. Reservoirs are SoA (H, W) tensors;
+light ids are compact ids (``light.Lights``), kept as int64.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import dataclasses
 import math
 import types
 
+import numpy as np
 import torch
 
 from ..utils import math as m
@@ -63,24 +70,23 @@ class ReSTIRConfig:
     initial_kernel: bool = True
 
 
+LIGHT_MODES = ("ReGIR_RIS", "Power_RIS", "Uniform")
+BIAS_MODES = ("basic", "pairwise", "raytraced")
+PREV_SURFACES = ("pseudo", "real")
+OFFSET_MODES = ("per_pixel", "shared")
+
+
 def check_config(cfg: ReSTIRConfig) -> None:
-    """Raise NotImplementedError for the options the port does not take."""
-    waits = {
-        "local_light_mode": (cfg.local_light_mode, "ReGIR_RIS"),
-        "spatial_bias_correction": (cfg.spatial_bias_correction, "basic"),
-        "temporal_bias_correction": (cfg.temporal_bias_correction, "basic"),
-        "spatial_offset_mode": (cfg.spatial_offset_mode, "per_pixel"),
-        "candidate_batch": (cfg.candidate_batch, False),
-    }
-    for name, (value, ported) in waits.items():
-        if value != ported:
-            raise NotImplementedError(f"ReSTIR {name}={value!r} is not "
-                                      f"ported yet (only {ported!r})")
-    if cfg.temporal_prev_surface == "real":
-        raise NotImplementedError("temporal_prev_surface='real' is not "
-                                  "ported yet")
-    if cfg.local_light_samples < 1:
-        raise NotImplementedError("local_light_samples = 0 is not ported")
+    """Raise ValueError for a mode name the reference does not know."""
+    for name, allowed in (("local_light_mode", LIGHT_MODES),
+                          ("spatial_bias_correction", BIAS_MODES),
+                          ("temporal_bias_correction", BIAS_MODES),
+                          ("temporal_prev_surface", PREV_SURFACES),
+                          ("spatial_offset_mode", OFFSET_MODES)):
+        value = getattr(cfg, name)
+        if value not in allowed:
+            raise ValueError(f"ReSTIR {name} must be one of {allowed}, got "
+                             f"{value!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,41 +315,94 @@ def _pixel_grid(h: int, w: int, device):
                           torch.arange(w, device=device), indexing="ij")
 
 
-def _light_candidates_loop(surface: Surface, lights: light_mod.Lights,
-                           rows_all, cfg: ReSTIRConfig, rng):
-    """The sequential light-candidate loop (the reference's path without
-    its fused kernel): per round, a slot of the pixel's prefetched ReGIR
-    row gives the candidate and its RIS source weight, the balance
-    heuristic against the BRDF technique weighs it, and the reservoir
-    takes it by weighted reservoir sampling. rows_all: (H, W, s) packed
-    slots. Returns (res_idx, res_uv, res_phat, w_sum, m_count, rng)."""
+def _map_surface(fn, surface: Surface) -> Surface:
+    """`fn` applied to every tensor of a Surface (its BSDF and vectors
+    included)."""
+    def go(x):
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: go(getattr(x, f.name))
+                              for f in dataclasses.fields(x)})
+        return fn(x)
+    return go(surface)
+
+
+def _valid_lights(lights: light_mod.Lights):
+    """The number of compact rows with positive power, as a float32
+    scalar on the device."""
+    return torch.sum((lights.compact[:, 7] > 0).to(torch.float32))
+
+
+def _light_candidates(surface: Surface, lights: light_mod.Lights, rows_all,
+                      cfg: ReSTIRConfig, rng):
+    """The light-candidate rounds without the fused kernel (the reference's
+    sequential loop, or with ``candidate_batch`` the same draws evaluated
+    as one (n_l, H, W) batch and merged in the loop's order): per round a
+    candidate and its RIS source weight (a slot of the pixel's prefetched
+    ReGIR row, a fresh power-CDF draw, or a uniform pick over the valid
+    lights), weighed by the balance heuristic against the BRDF technique
+    and taken by weighted reservoir sampling. rows_all: (H, W, s) packed
+    slots (ReGIR_RIS only). Returns (res_idx, res_uv, res_phat, w_sum,
+    m_count, rng)."""
     h, w = surface.depth.shape
     dev = surface.depth.device
     s = cfg.regir_slots_per_cell
     n_l, n_b = cfg.local_light_samples, cfg.brdf_samples
     m_total = float(n_l + n_b)
+
+    def pick_candidate(u_slot):
+        if cfg.local_light_mode == "Power_RIS":
+            cand, pick_pdf = light_mod.sample_light_index(lights, u_slot)
+            w_cand = torch.where(pick_pdf > 0, 1.0 / torch.clamp(
+                pick_pdf, min=1e-20), 0.0)
+        elif cfg.local_light_mode == "Uniform":
+            # Uniform over the valid compact lights (they sort first).
+            n_valid = _valid_lights(lights)
+            cand = torch.minimum((u_slot * n_valid).to(torch.int64),
+                                 torch.clamp(n_valid - 1, min=0).long())
+            w_cand = torch.broadcast_to(n_valid, cand.shape)
+        else:
+            slot = torch.clamp((u_slot * s).to(torch.int64), max=s - 1)
+            rows = torch.broadcast_to(rows_all, slot.shape + (s,))
+            cand_f, w_cand = m.unpack2f16(
+                rows.gather(-1, slot[..., None])[..., 0])
+            cand = torch.round(cand_f).long()
+        return cand, w_cand
+
+    def candidate_weight(surf, cand, uv, w_cand):
+        if n_b > 0:
+            p_self = 1.0 / torch.clamp(w_cand, min=1e-20)
+            p_hat, p_other = _target_pdf_with_bsdf(surf, lights, cand, uv)
+            wi = m_total * p_hat / torch.clamp(
+                n_l * p_self + n_b * p_other, min=1e-20)
+            wi = torch.where(w_cand > 0, wi, 0.0)
+        else:
+            p_hat = _target_pdf(surf, lights, cand, uv)[0]
+            wi = p_hat * w_cand
+        return p_hat, wi
+
+    draws = []
+    for _ in range(n_l):
+        u2, rng = rng_mod.next_floats(rng, 2)
+        uv, rng = rng_mod.next_floats(rng, 2)
+        draws.append((u2[..., 0], u2[..., 1], uv))
+    if cfg.candidate_batch and n_l > 0:
+        cand_all, w_all = pick_candidate(torch.stack([d[0] for d in draws]))
+        p_hat_all, wi_all = candidate_weight(
+            _map_surface(lambda x: x[None], surface), cand_all,
+            torch.stack([d[2] for d in draws]), w_all)
+        rounds = [(cand_all[i], p_hat_all[i], wi_all[i]) for i in range(n_l)]
+    else:
+        rounds = []
+        for u_slot, _, uv in draws:
+            cand, w_cand = pick_candidate(u_slot)
+            rounds.append((cand,) + candidate_weight(surface, cand, uv,
+                                                     w_cand))
     res_idx = torch.zeros((h, w), dtype=torch.int64, device=dev)
     res_uv = torch.zeros((h, w, 2), device=dev)
     res_phat = torch.zeros((h, w), device=dev)
     w_sum = torch.zeros((h, w), device=dev)
     m_count = torch.zeros((h, w), device=dev)
-    for _ in range(n_l):
-        u2, rng = rng_mod.next_floats(rng, 2)
-        uv, rng = rng_mod.next_floats(rng, 2)
-        u_slot, u_keep = u2[..., 0], u2[..., 1]
-        slot = torch.clamp((u_slot * s).to(torch.int64), max=s - 1)
-        row = rows_all.gather(-1, slot[..., None])[..., 0]
-        cand_f, w_cand = m.unpack2f16(row)
-        cand = torch.round(cand_f).long()
-        if n_b > 0:
-            p_self = 1.0 / torch.clamp(w_cand, min=1e-20)
-            p_hat, p_other = _target_pdf_with_bsdf(surface, lights, cand, uv)
-            wi = m_total * p_hat / torch.clamp(
-                n_l * p_self + n_b * p_other, min=1e-20)
-            wi = torch.where(w_cand > 0, wi, 0.0)
-        else:
-            p_hat = _target_pdf(surface, lights, cand, uv)[0]
-            wi = p_hat * w_cand
+    for (_, u_keep, uv), (cand, p_hat, wi) in zip(draws, rounds):
         w_sum = w_sum + wi
         m_count = m_count + 1.0
         take = (u_keep * w_sum) < wi
@@ -370,13 +429,13 @@ def _intersect_tri_lights(lights: light_mod.Lights, origin, direction, live):
 
 
 def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
-                     grid: ReGIRGrid, cfg: ReSTIRConfig, frame_index,
+                     grid: ReGIRGrid | None, cfg: ReSTIRConfig, frame_index,
                      block_size: int = 16384, accel=None) -> Reservoirs:
-    """n_l ReGIR light candidates (B3, or the sequential loop for a scene
-    with triangle lights or with initial_kernel off) and n_b BRDF-ray
+    """n_l light candidates (B3 in ReGIR_RIS mode on a sphere-light table
+    with initial_kernel on, else _light_candidates) and n_b BRDF-ray
     candidates (B11 light sweep and, with triangle lights, the dense
     triangle sweep; the occluder test) into one reservoir per pixel, then
-    the initial visibility ray."""
+    the initial visibility ray. `grid` is used in ReGIR_RIS mode only."""
     check_config(cfg)
     h, w = surface.depth.shape
     dev = surface.depth.device
@@ -384,20 +443,26 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
     rng = rng_mod.init(px + 17, py + 31, frame_index * 3 + 1)
 
     s = cfg.regir_slots_per_cell
-    n_cells = cfg.regir_cells_per_axis
-    cell, inside = _cell_of(grid, surface.position, n_cells)
-    # Pixels outside the grid volume draw from one of the fallback rows.
-    u_fb, rng = rng_mod.next_float(rng)
-    fb_cell = n_cells ** 3 + torch.clamp(
-        (u_fb * N_FALLBACK_CELLS).to(torch.int64), max=N_FALLBACK_CELLS - 1)
-    rows_all = grid.packed[torch.where(inside, cell, fb_cell)]   # (H, W, s)
+    rows_all = None
+    if cfg.local_light_mode == "ReGIR_RIS":
+        n_cells = cfg.regir_cells_per_axis
+        cell, inside = _cell_of(grid, surface.position, n_cells)
+        # Pixels outside the grid volume draw from one of the fallback
+        # rows.
+        u_fb, rng = rng_mod.next_float(rng)
+        fb_cell = n_cells ** 3 + torch.clamp(
+            (u_fb * N_FALLBACK_CELLS).to(torch.int64),
+            max=N_FALLBACK_CELLS - 1)
+        rows_all = grid.packed[torch.where(inside, cell, fb_cell)]  # (H,W,s)
 
     n_l, n_b = cfg.local_light_samples, cfg.brdf_samples
     m_total = float(n_l + n_b)
 
-    # The fused kernel serves sphere-only light tables (its rows are 9
-    # wide and it samples cones only).
-    use_kernel = cfg.initial_kernel and not lights.has_triangles
+    # The reference's kernel gate: ReGIR_RIS candidates from a sphere-only
+    # light table (the kernel's rows are 9 wide and it samples cones only).
+    use_kernel = (cfg.initial_kernel and n_l > 0
+                  and cfg.local_light_mode == "ReGIR_RIS"
+                  and not lights.has_triangles)
     win_dir = win_dist = win_aux = None
     if use_kernel:
         # The uniforms in the sequential loop's draw order, as planar rows.
@@ -424,7 +489,7 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
         m_count = torch.full((h, w), float(n_l), device=dev)
     else:
         res_idx, res_uv, res_phat, w_sum, m_count, rng = \
-            _light_candidates_loop(surface, lights, rows_all, cfg, rng)
+            _light_candidates(surface, lights, rows_all, cfg, rng)
 
     # BRDF-ray candidates: sample the BSDF, find the nearest light along
     # the ray (a sweep over the compact table), test for occluders, fold
@@ -474,9 +539,15 @@ def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
         _, _, cone_pdf_b, _ = light_mod.sample_light_rows(
             krows, surface.position, uv_b)
         p_self = p_w / torch.clamp(cone_pdf_b, min=1e-12)
-        # MIS light-technique density: the power pdf (RTXDI's BRDF-candidate
+        # MIS light-technique density: uniform over the valid lights in
+        # Uniform mode, else the power pdf (RTXDI's BRDF-candidate
         # approximation where candidates come from the ReGIR grid).
-        p_light = krows.power / torch.clamp(lights.total_power, min=1e-20)
+        if cfg.local_light_mode == "Uniform":
+            p_light = torch.where(krows.power > 0, 1.0 / torch.clamp(
+                _valid_lights(lights), min=1.0), 0.0)
+        else:
+            p_light = krows.power / torch.clamp(lights.total_power,
+                                                min=1e-20)
         p_hat_b = torch.where(ok, _target_pdf_rows(surface, krows, uv_b)[0],
                               0.0)
         wi = torch.where(ok & (p_self > 0), m_total * p_hat_b / torch.clamp(
@@ -550,43 +621,114 @@ def _finalize(idx, uv, phat, w_sum, m_count) -> Reservoirs:
                       w_out=w_out, phat=phat)
 
 
-def _pack_reservoirs(res: Reservoirs, depth, normal):
-    """(H, W, 4) packed reservoir and guide rows for one-row fetches:
-    [idx|M as f16 pair, uv as f16 pair, w_out, depth|oct8 normal]."""
-    return torch.stack([
+def _pack_reservoirs(res: Reservoirs, depth, normal, extra=None):
+    """(H, W, 4 [+ E]) packed reservoir and guide rows for one-row fetches:
+    [idx|M as f16 pair, uv as f16 pair, w_out, depth|oct8 normal], then
+    the E words of `extra`."""
+    packed = torch.stack([
         m.pack2f16(res.light_index.to(torch.float32), res.m_count),
         m.pack2f16(res.uv[..., 0], res.uv[..., 1]),
         res.w_out,
         m.pack_depth_oct8(depth, normal),
     ], dim=-1)
+    if extra is not None:
+        packed = torch.cat([packed, extra], dim=-1)
+    return packed
 
 
 def _unpack_rows(row):
-    """Packed reservoir rows -> (idx, uv, m_count, w_out, depth, normal)."""
+    """Packed reservoir rows -> (idx, uv, m_count, w_out, depth, normal,
+    the extra words)."""
     idx_f, m_count = m.unpack2f16(row[..., 0])
     u0, u1 = m.unpack2f16(row[..., 1])
     depth, normal = m.unpack_depth_oct8(row[..., 3])
     return (torch.round(idx_f).long(), torch.stack([u0, u1], dim=-1),
-            m_count, row[..., 2], depth, normal)
+            m_count, row[..., 2], depth, normal, row[..., 4:])
+
+
+def pack_prev_material(gbuf):
+    """(H, W, 7) rows of what RAB_GetGBufferSurface(previousFrame) reads
+    from the previous G-buffer (RTXDIAppBridge.hlsli:293-348): world
+    position (f32 x3), then f16 pairs [r|g, b|metallic, roughness|ior,
+    transmission|valid]. The pipeline keeps them from each frame's
+    G-buffer for temporal_prev_surface="real"."""
+    mat, surf = gbuf.mat, gbuf.surf
+    return torch.cat([
+        surf.position,
+        m.pack2f16(mat.base_color[..., 0], mat.base_color[..., 1])[..., None],
+        m.pack2f16(mat.base_color[..., 2], mat.metallic)[..., None],
+        m.pack2f16(mat.roughness, mat.ior)[..., None],
+        m.pack2f16(mat.transmission,
+                   surf.valid.to(torch.float32))[..., None],
+    ], dim=-1)
+
+
+def _prev_surface_from_rows(mrows, pn, pd, hist_ok, prev_camera_position,
+                            fallback_view) -> Surface:
+    """The previous frame's Surface from reprojected pack_prev_material
+    rows (the previousFrame branch of RAB_GetGBufferSurface, with its
+    MinRoughness = 0.05 validity gate)."""
+    pos_p = mrows[..., 0:3]
+    cr, cg = m.unpack2f16(mrows[..., 3])
+    cb, metal = m.unpack2f16(mrows[..., 4])
+    rough, ior = m.unpack2f16(mrows[..., 5])
+    trans, pvalid_f = m.unpack2f16(mrows[..., 6])
+    valid_p = hist_ok & (pvalid_f > 0.5) & (rough >= 0.05)
+    if prev_camera_position is not None:
+        view_p = m.normalize(prev_camera_position - pos_p)
+    else:
+        view_p = fallback_view
+    front_p = m.dot(pn, view_p) > 0
+    sv_p = bxdf.make_surface_vectors(front_p, pn, pn)
+    bs_p = bxdf.make_bsdf(torch.stack([cr, cg, cb], dim=-1), metal, rough,
+                          ior, trans, front_p)
+    return Surface(valid=valid_p, position=pos_p, view=view_p, bsdf=bs_p,
+                   sv=sv_p, lobe_weights=bxdf.lobe_weights(bs_p, sv_p,
+                                                           view_p),
+                   depth=pd, normal=pn)
+
+
+def _spawn_occluded(from_surface: Surface, direction, dist, rows, scene,
+                    block_size, accel, live):
+    """The visibility ray from `from_surface` toward a light sample whose
+    direction, distance and rows _target_pdf gave: True where occluded."""
+    origin = intersect.safe_spawn_point(
+        from_surface.position, from_surface.sv.front_geometric_normal,
+        direction)
+    return _occluded(origin, direction, dist, scene, rows.aux, block_size,
+                     accel, live=live)
 
 
 # ----------------------------------------------------------------------------
-# temporal resampling (DITemporalResampling.hlsl), basic bias mode
+# temporal resampling (DITemporalResampling.hlsl)
 
 
 def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
                         lights: light_mod.Lights, motion, prev_depth,
-                        prev_normal, cfg: ReSTIRConfig,
-                        frame_index) -> Reservoirs:
+                        prev_normal, cfg: ReSTIRConfig, frame_index,
+                        scene=None, accel=None, block_size: int = 16384,
+                        prev_material=None,
+                        prev_camera_position=None) -> Reservoirs:
     """Merge the reprojected previous reservoir (nearest taps through B4,
     valid where in frame and depth/normal-similar) into the current one,
-    then the boiling filter."""
+    then the boiling filter. In the pairwise and raytraced modes the
+    history row carries its stored target pdf (and, with
+    temporal_prev_surface="real" and `prev_material` given, the previous
+    frame's pack_prev_material rows), and the history is MIS-balanced
+    against the canonical reservoir; "raytraced" (with a `scene`) traces
+    the history sample's visibility from this surface."""
     check_config(cfg)
     h, w = surface.depth.shape
     dev = surface.depth.device
-    packed = _pack_reservoirs(prev, prev_depth, prev_normal)
+    pairwise = cfg.temporal_bias_correction in ("pairwise", "raytraced")
+    real_prev = (pairwise and cfg.temporal_prev_surface == "real"
+                 and prev_material is not None)
+    extra = prev.phat[..., None] if pairwise else None
+    if real_prev:
+        extra = torch.cat([extra, prev_material], dim=-1)
+    packed = _pack_reservoirs(prev, prev_depth, prev_normal, extra)
     row, in_bounds = rp.reproject_packed(packed, motion, "nearest")
-    p_idx, p_uv, p_m, p_w, pd, pn = _unpack_rows(row)
+    p_idx, p_uv, p_m, p_w, pd, pn, rest = _unpack_rows(row)
 
     depth_ok = torch.abs(pd - surface.depth) <= cfg.depth_threshold \
         * torch.clamp(torch.abs(surface.depth), min=1e-3)
@@ -597,18 +739,66 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
     p_m = torch.minimum(p_m, cfg.max_history
                         * torch.clamp(cur.m_count, min=1.0))
     p_m = torch.where(hist_ok, p_m, 0.0)
-    p_phat = _target_pdf(surface, lights, p_idx, p_uv)[0]
-    b_w = p_phat * p_w * p_m
+    p_phat, p_dir, p_dist, _, _, _, _, p_rows = _target_pdf(
+        surface, lights, p_idx, p_uv)
 
     rng = rng_mod.init(torch.arange(w, device=dev)[None, :] + 3,
                        torch.arange(h, device=dev)[:, None] + 5,
                        frame_index * 3 + 2)
     u_keep, _ = rng_mod.next_float(rng)
-    idx, uv, phat, w_sum, m_count = _merge(
-        cur.light_index, cur.uv, cur.phat,
-        cur.phat * cur.w_out * cur.m_count, cur.m_count,
-        p_idx, p_uv, b_w, p_m, p_phat, u_keep)
-    out = _finalize(idx, uv, phat, w_sum, m_count)
+    cur_phat = cur.phat
+    if pairwise:
+        # The single history "neighbour" against the canonical reservoir
+        # with confidence weights (the k = 1 case of _spatial_pairwise).
+        # p_hat_prev(x_prev) rides the history row; the current sample is
+        # evaluated at the previous surface: the real one from its rows,
+        # or the pseudo one (this surface's BSDF with the reprojected
+        # normal).
+        p_phat_prev = torch.where(hist_ok, rest[..., 0], 0.0)
+        if real_prev:
+            psurf = _prev_surface_from_rows(rest[..., 1:8], pn, pd, hist_ok,
+                                            prev_camera_position,
+                                            surface.view)
+        else:
+            sv_p = bxdf.make_surface_vectors(torch.ones_like(hist_ok), pn,
+                                             pn)
+            psurf = Surface(valid=hist_ok, position=surface.position,
+                            view=surface.view, bsdf=surface.bsdf, sv=sv_p,
+                            lobe_weights=bxdf.lobe_weights(
+                                surface.bsdf, sv_p, surface.view),
+                            depth=pd, normal=pn)
+        phat_c_xi = p_phat
+        phat_i_xc = _target_pdf(psurf, lights, cur.light_index, cur.uv)[0]
+        if cfg.temporal_bias_correction == "raytraced" and scene is not None:
+            occ = _spawn_occluded(surface, p_dir, p_dist, p_rows, scene,
+                                  block_size, accel,
+                                  live=hist_ok & (phat_c_xi > 0))
+            phat_c_xi = torch.where(occ, 0.0, phat_c_xi)
+        m_c = cur.m_count
+        a_xc = p_m * phat_i_xc
+        f_xc = m_c * cur_phat
+        mc_weight = torch.where(f_xc > 0, f_xc / torch.clamp(a_xc + f_xc,
+                                                            min=1e-20), 0.0)
+        a_xi = p_m * p_phat_prev
+        m_i = torch.where(p_m > 0, a_xi / torch.clamp(
+            a_xi + m_c * phat_c_xi, min=1e-20), 0.0)
+        b_w2 = m_i * phat_c_xi * p_w
+        w_sum = mc_weight * cur_phat * cur.w_out + b_w2
+        take = (u_keep * w_sum) < b_w2
+        phat = torch.where(take, phat_c_xi, cur_phat)
+        out = Reservoirs(
+            light_index=torch.where(take, p_idx, cur.light_index),
+            uv=torch.where(take[..., None], p_uv, cur.uv), w_sum=w_sum,
+            m_count=cur.m_count + p_m,
+            w_out=torch.where(phat > 0, w_sum / torch.clamp(phat, min=1e-20),
+                              0.0),
+            phat=phat)
+    else:
+        idx, uv, phat, w_sum, m_count = _merge(
+            cur.light_index, cur.uv, cur_phat,
+            cur_phat * cur.w_out * cur.m_count, cur.m_count,
+            p_idx, p_uv, p_phat * p_w * p_m, p_m, p_phat, u_keep)
+        out = _finalize(idx, uv, phat, w_sum, m_count)
 
     # Boiling filter: kill reservoirs whose weight far exceeds the local
     # average.
@@ -634,43 +824,205 @@ def _avg_pool(x, size: int):
 
 
 # ----------------------------------------------------------------------------
-# spatial resampling (DISpatialResampling.hlsl), basic bias mode
+# spatial resampling (DISpatialResampling.hlsl)
+
+GOLDEN_ANGLE = 2.39996323
 
 
-def spatial_resampling(cur: Reservoirs, surface: Surface,
-                       lights: light_mod.Lights, cfg: ReSTIRConfig,
-                       frame_index) -> Reservoirs:
-    """1/M spatial reuse: per round, one disc neighbour per pixel
-    (per_pixel offsets), gated by depth/normal similarity, its sample
-    re-evaluated at this surface."""
-    check_config(cfg)
+def shared_offsets(frame: int, cfg: ReSTIRConfig):
+    """The ``shared`` mode's (dx, dy) per round of frame `frame`: one
+    golden-angle disc offset per (round, frame), computed in float32 as
+    the reference computes it from its int32 frame index (its
+    ``restir.py:1041-1047``), on the host, so torch.roll takes Python ints
+    and the card is not read."""
+    f32 = np.float32
+    out = []
+    for s_i in range(cfg.spatial_samples):
+        seq = f32(np.int32(frame) * np.int32(cfg.spatial_samples)
+                  + np.int32(s_i))
+        frac = np.fmod(seq * f32(0.6180339887), f32(1.0))
+        rad = (f32(0.35) + f32(0.6) * frac) * f32(cfg.spatial_radius) \
+            + f32(1.0)
+        ang = seq * f32(GOLDEN_ANGLE)
+        out.append((int(np.round(rad * np.cos(ang))),
+                    int(np.round(rad * np.sin(ang)))))
+    return out
+
+
+def _pack_surface_rows(surface: Surface):
+    """(H, W, 30) rows of all a target pdf needs at a gathered neighbour
+    surface (the RAB_GetGBufferSurface fetch, RTXDIAppBridge.hlsli:293-348,
+    packed for one wide row gather)."""
+    bs = surface.bsdf
+    return torch.cat([
+        surface.position, surface.normal, surface.view,
+        surface.sv.front_geometric_normal,
+        bs.albedo, bs.f0,
+        bs.roughness[..., None], bs.ior_i[..., None], bs.ior_o[..., None],
+        bs.transmission[..., None], bs.metallic[..., None],
+        bs.base_color, surface.lobe_weights,
+        surface.valid.to(torch.float32)[..., None],
+    ], dim=-1)
+
+
+def _surface_from_rows(rows) -> Surface:
+    """A Surface from _pack_surface_rows output (the tangent basis
+    re-derived from the shading normal)."""
+    nrm = rows[..., 3:6]
+    t, b = m.orthonormal_basis(nrm)
+    sv = bxdf.SurfaceVectors(front_geometric_normal=rows[..., 9:12],
+                             shading_normal=nrm, tangent=t, bitangent=b)
+    bs = bxdf.BSDF(base_color=rows[..., 23:26], metallic=rows[..., 22],
+                   albedo=rows[..., 12:15], roughness=rows[..., 18],
+                   ior_i=rows[..., 19], ior_o=rows[..., 20],
+                   f0=rows[..., 15:18], transmission=rows[..., 21])
+    return Surface(valid=rows[..., 29] > 0.5, position=rows[..., 0:3],
+                   view=rows[..., 6:9], bsdf=bs, sv=sv,
+                   lobe_weights=rows[..., 26:29],
+                   depth=torch.zeros_like(rows[..., 18]), normal=nrm)
+
+
+def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
+                       frame_index, with_surface: bool, frame_count=None):
+    """cfg.spatial_samples neighbours: per round, the packed rows of one
+    neighbour per pixel (a disc offset per pixel, or with ``shared`` one
+    roll of all rows by shared_offsets of `frame_count`, default
+    int(frame_index)), gathered once as one row (4 words, or 34 with the
+    neighbour's surface), and the similarity tests. Returns a list of
+    dicts."""
     h, w = surface.depth.shape
     py, px = _pixel_grid(h, w, surface.depth.device)
     rng = rng_mod.init(px, py, frame_index * 3 + 3)
     sdepth = torch.where(torch.isfinite(surface.depth), surface.depth, 1e8)
-    packed = _pack_reservoirs(cur, sdepth, surface.normal).reshape(h * w, 4)
-
-    phat, idx, uv = cur.phat, cur.light_index, cur.uv
-    w_sum = phat * cur.w_out * cur.m_count
-    m_count = cur.m_count
-    for _ in range(cfg.spatial_samples):
+    packed = _pack_reservoirs(
+        cur, sdepth, surface.normal,
+        _pack_surface_rows(surface) if with_surface else None)
+    shared = None
+    if cfg.spatial_offset_mode == "shared":
+        shared = shared_offsets(int(frame_index) if frame_count is None
+                                else frame_count, cfg)
+    flat = packed.reshape(h * w, packed.shape[-1])
+    out = []
+    for s_i in range(cfg.spatial_samples):
         u3, rng = rng_mod.next_floats(rng, 3)
-        radius = u3[..., 0] * cfg.spatial_radius + 1.0
-        angle = u3[..., 1] * 2.0 * math.pi
-        nx = torch.clamp(px + torch.round(radius * torch.cos(angle)).long(),
-                         0, w - 1)
-        ny = torch.clamp(py + torch.round(radius * torch.sin(angle)).long(),
-                         0, h - 1)
-        n_idx, n_uv, n_m, n_w, nd, nn = _unpack_rows(packed[ny * w + nx])
+        if shared is not None:
+            # Wrapped border lanes land on the far edge and fail the
+            # similarity tests like any dissimilar neighbour.
+            dx, dy = shared[s_i]
+            rows = torch.roll(packed, shifts=(-dy, -dx), dims=(0, 1))
+        else:
+            radius = u3[..., 0] * cfg.spatial_radius + 1.0
+            angle = u3[..., 1] * 2.0 * math.pi
+            nx = torch.clamp(px + torch.round(
+                radius * torch.cos(angle)).long(), 0, w - 1)
+            ny = torch.clamp(py + torch.round(
+                radius * torch.sin(angle)).long(), 0, h - 1)
+            rows = flat[ny * w + nx]
+        n_idx, n_uv, n_m, n_w, nd, nn, rest = _unpack_rows(rows)
         depth_ok = torch.abs(nd - sdepth) <= cfg.depth_threshold \
             * torch.clamp(torch.abs(sdepth), min=1e-3)
         normal_ok = m.dot(nn, surface.normal) >= cfg.normal_threshold
-        n_m = torch.where(depth_ok & normal_ok & surface.valid, n_m, 0.0)
-        n_phat = _target_pdf(surface, lights, n_idx, n_uv)[0]
-        b_w = torch.where(n_m > 0, n_phat * n_w * n_m, 0.0)
+        ok = depth_ok & normal_ok & surface.valid
+        n = {"idx": n_idx, "uv": n_uv, "m": torch.where(ok, n_m, 0.0),
+             "w": n_w, "u_keep": u3[..., 2]}
+        if with_surface:
+            n["surface"] = _surface_from_rows(rest)
+        out.append(n)
+    return out
+
+
+def _spatial_pairwise(cur: Reservoirs, surface: Surface,
+                      lights: light_mod.Lights, cfg: ReSTIRConfig,
+                      frame_index, scene=None, accel=None,
+                      block_size: int = 16384,
+                      frame_count=None) -> Reservoirs:
+    """Pairwise-MIS spatial reuse: each neighbour is balanced against the
+    canonical reservoir with confidence (M) weights,
+
+        m_i(x) = M_i p_i(x) / (k M_i p_i(x) + M_c p_c(x))
+        m_c(x_c) = (1/k) sum_i M_c p_c(x_c) / (k M_i p_i(x_c) + M_c p_c(x_c))
+
+    (the RTXDI pairwise bias correction, RTXDI.ixx:73-139), so the finalize
+    divides by p only. "raytraced" (with a `scene`) multiplies both cross
+    terms by a traced visibility: one batch from this surface toward each
+    neighbour's sample, one from each neighbour's surface toward this
+    sample."""
+    raytraced = (cfg.spatial_bias_correction == "raytraced"
+                 and scene is not None)
+    k = float(cfg.spatial_samples)
+    neighbors = _spatial_neighbors(cur, surface, cfg, frame_index, True,
+                                   frame_count)
+    phat_c, m_c = cur.phat, cur.m_count
+
+    def cross(from_surface, idx, uv):
+        """p_hat of sample (idx, uv) at `from_surface`, times its traced
+        visibility in raytraced mode."""
+        p_hat, direction, dist, _, _, _, _, rows = _target_pdf(
+            from_surface, lights, idx, uv)
+        if not raytraced:
+            return p_hat
+        occ = _spawn_occluded(from_surface, direction, dist, rows, scene,
+                              block_size, accel, live=from_surface.valid)
+        return p_hat * (~occ).to(torch.float32)
+
+    # Pass 1: the cross evaluations and the canonical MIS weight.
+    mc_weight = torch.zeros_like(phat_c)
+    evals = []
+    for n in neighbors:
+        nsurf = n["surface"]
+        phat_i_xi = _target_pdf(nsurf, lights, n["idx"], n["uv"])[0]
+        phat_c_xi = cross(surface, n["idx"], n["uv"])
+        phat_i_xc = cross(nsurf, cur.light_index, cur.uv)
+        a_xc = k * n["m"] * phat_i_xc
+        f_xc = m_c * phat_c
+        mc_weight = mc_weight + torch.where(
+            f_xc > 0, f_xc / torch.clamp(a_xc + f_xc, min=1e-20), 0.0) / k
+        evals.append((phat_i_xi, phat_c_xi))
+
+    # Pass 2: the streaming merge of the MIS-weighted neighbours.
+    idx, uv, phat = cur.light_index, cur.uv, phat_c
+    w_sum = mc_weight * phat_c * cur.w_out
+    m_count = m_c
+    for n, (phat_i_xi, phat_c_xi) in zip(neighbors, evals):
+        a_xi = k * n["m"] * phat_i_xi
+        m_i = torch.where(n["m"] > 0, n["m"] * phat_i_xi / torch.clamp(
+            a_xi + m_c * phat_c_xi, min=1e-20), 0.0)
+        b_w = m_i * phat_c_xi * n["w"]
+        w_sum = w_sum + b_w
+        take = (n["u_keep"] * w_sum) < b_w
+        idx = torch.where(take, n["idx"], idx)
+        uv = torch.where(take[..., None], n["uv"], uv)
+        phat = torch.where(take, phat_c_xi, phat)
+        m_count = m_count + n["m"]
+    w_out = torch.where(phat > 0, w_sum / torch.clamp(phat, min=1e-20), 0.0)
+    return Reservoirs(light_index=idx, uv=uv, w_sum=w_sum, m_count=m_count,
+                      w_out=w_out, phat=phat)
+
+
+def spatial_resampling(cur: Reservoirs, surface: Surface,
+                       lights: light_mod.Lights, cfg: ReSTIRConfig,
+                       frame_index, scene=None, accel=None,
+                       block_size: int = 16384,
+                       frame_count: int | None = None) -> Reservoirs:
+    """Spatial reuse over cfg.spatial_samples neighbours: 1/M in ``basic``
+    mode (each neighbour's sample re-evaluated at this surface), else
+    _spatial_pairwise. `frame_count` is the host's copy of `frame_index`
+    for ``shared`` offsets (a tensor frame_index is read back without
+    it)."""
+    check_config(cfg)
+    if cfg.spatial_bias_correction in ("pairwise", "raytraced"):
+        return _spatial_pairwise(cur, surface, lights, cfg, frame_index,
+                                 scene, accel, block_size, frame_count)
+    phat, idx, uv = cur.phat, cur.light_index, cur.uv
+    w_sum = phat * cur.w_out * cur.m_count
+    m_count = cur.m_count
+    for n in _spatial_neighbors(cur, surface, cfg, frame_index, False,
+                                frame_count):
+        n_phat = _target_pdf(surface, lights, n["idx"], n["uv"])[0]
+        b_w = torch.where(n["m"] > 0, n_phat * n["w"] * n["m"], 0.0)
         idx, uv, phat, w_sum, m_count = _merge(
-            idx, uv, phat, w_sum, m_count, n_idx, n_uv, b_w, n_m, n_phat,
-            u3[..., 2])
+            idx, uv, phat, w_sum, m_count, n["idx"], n["uv"], b_w, n["m"],
+            n_phat, n["u_keep"])
     return _finalize(idx, uv, phat, w_sum, m_count)
 
 

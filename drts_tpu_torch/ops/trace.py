@@ -8,8 +8,9 @@ Hit-index space: [0, K) sphere instances, [K, K+M) mesh instances; both
 resolve through the same packed object table (models/scene.py).
 
 The alpha test multiplies the material's alpha by its base-colour map's
-alpha at level 0 ("nearest0"). Deforming meshes (``vertex_motion``)
-raise: their ``prev_offset`` has no port.
+alpha at level 0 ("nearest0"). A deforming mesh (``TriMesh.
+vertex_motion``) gives its hits a ``prev_offset``: the per-vertex motion
+at the hit's barycentrics, scaled by the instance scale.
 """
 
 from __future__ import annotations
@@ -69,9 +70,6 @@ def _surface_of(scene, hit, tri, ray_direction, table):
     surf = scene_mod.surface_attributes(scene, hit, ray_direction, table)
     if tri is None:
         return surf
-    if scene.mesh.vertex_motion is not None:
-        raise NotImplementedError("deforming meshes (vertex_motion) are not "
-                                  "ported yet")
     mi = scene.mesh_instances
     n_sh, uv_m, tan_m = trimesh.interpolate_attributes(scene.mesh, tri,
                                                        mi.rotation)
@@ -84,22 +82,40 @@ def _surface_of(scene, hit, tri, ray_direction, table):
     n_sh = torch.where(m.dot(n_sh, ray_direction)[..., None] < 0.0, n_sh,
                        -n_sh)
     mm = tri.hit
-    return dataclasses.replace(
+    surf = dataclasses.replace(
         surf,
         geometric_normal=_where_nd(mm, gn, surf.geometric_normal),
         shading_normal=_where_nd(mm, n_sh, surf.shading_normal),
         tangent=_where_nd(mm, tan_m, surf.tangent),
         uv=_where_nd(mm, uv_m, surf.uv),
         is_front_face=torch.where(mm, is_front, surf.is_front_face))
+    vm_table = scene.mesh.vertex_motion
+    if vm_table is not None:
+        # Deforming mesh (GBufferGeneration.hlsl:62-91): the previous-minus-
+        # current object motion at the hit's barycentrics, summed in the
+        # reference's order, in world units of the current pose's axes
+        # (the G-buffer's previous pose applies the rotation).
+        corners = scene.mesh.faces[tri.face]
+        b1, b2 = tri.barycentrics[..., 0:1], tri.barycentrics[..., 1:2]
+        vm = (vm_table[corners[..., 0]] * (1.0 - b1 - b2)
+              + vm_table[corners[..., 1]] * b1
+              + vm_table[corners[..., 2]] * b2)
+        vm = vm * mi.scale[tri.instance][..., None]
+        surf = dataclasses.replace(
+            surf, prev_offset=_where_nd(mm, vm, torch.zeros_like(vm)))
+    return surf
 
 
 def _merge_surface(mask, a, b):
-    """Field by field, a where mask else b (the material included)."""
+    """Field by field, a where mask else b (the material included; an
+    absent prev_offset stays absent)."""
     def merge(x, y):
         if dataclasses.is_dataclass(x):
             return type(x)(**{f.name: merge(getattr(x, f.name),
                                             getattr(y, f.name))
                               for f in dataclasses.fields(x)})
+        if x is None:
+            return None
         return _where_nd(mask, x, y)
     return merge(a, b)
 

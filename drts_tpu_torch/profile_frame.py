@@ -7,13 +7,17 @@ of the all-mesh ReSTIR frame, or, with ``--default-frame`` and
 default_frame_config``), or, with ``--mesh-pipeline``, of the all-mesh
 pipeline (``bench.mesh_pipeline_config``), or, with ``--textured-frame``,
 of the default frame on the mixed textured scene (``bench.
-make_frame_setup(textured=True)``), on one GPU. ``--mesh-cand`` sets
-``ops.trimesh.MESH_CAND`` first.
+make_frame_setup(textured=True)``), or, with ``--options-frame``, of the
+default frame with the thin lens and the raytraced ReSTIR modes (``bench.
+options_frame_config``), on one GPU. ``--mesh-cand`` sets
+``ops.trimesh.MESH_CAND`` first; ``--accel none`` runs a sphere frame
+recipe (``--frame``, ``--default-frame``, ``--options-frame``) with no
+accel.
 
     python -m drts_tpu_torch.profile_frame
         [--frame | --mesh | --mesh-frame | --default-frame | --upscaled
-         | --mesh-pipeline | --textured-frame]
-        [--mesh-cand M] [--frames N] [--out PATH]
+         | --mesh-pipeline | --textured-frame | --options-frame]
+        [--accel none] [--mesh-cand M] [--frames N] [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
@@ -26,6 +30,7 @@ it stretches the frame. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -35,6 +40,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import backend, bench
+from .models import pipeline
 from .ops import pathtrace, trimesh
 
 # The hand-written kernels' function names in csrc/*.cu.
@@ -58,8 +64,9 @@ def _frames_wall_us(step, frames: int) -> float:
     return (time.perf_counter() - start) * 1e6
 
 
-def _frame_step(recipe: str, device):
-    """A function that renders the next frame of the chosen recipe."""
+def _frame_step(recipe: str, device, accel: str = "morton"):
+    """A function that renders the next frame of the chosen recipe (a
+    sphere frame recipe with `accel` as its accel_mode)."""
     frame = [0]
     if recipe == "mesh_frame":
         scene, cam, cfg = bench.make_mesh_setup(device=device)
@@ -69,13 +76,19 @@ def _frame_step(recipe: str, device):
             frame[0] += 1
         return step
     if recipe in ("restir_frame", "mesh_restir_frame", "default_frame",
-                  "upscaled_frame", "mesh_pipeline", "textured_frame"):
+                  "upscaled_frame", "mesh_pipeline", "textured_frame",
+                  "options_frame"):
         cfg = None
         if recipe in ("default_frame", "upscaled_frame", "textured_frame"):
             cfg = bench.default_frame_config(
                 upscaled=recipe == "upscaled_frame")
         if recipe == "mesh_pipeline":
             cfg = bench.mesh_pipeline_config()
+        if recipe == "options_frame":
+            cfg = bench.options_frame_config()
+        if accel != "morton":
+            cfg = dataclasses.replace(
+                cfg or pipeline.restir_frame_config(), accel_mode=accel)
         pipe, state, pose = bench.make_frame_setup(
             device=device, mesh=recipe in ("mesh_restir_frame",
                                            "mesh_pipeline"), cfg=cfg,
@@ -94,8 +107,8 @@ def _frame_step(recipe: str, device):
 
 
 def profile_frames(frames: int = 2, device="cuda",
-                   recipe: str = "trace_frame") -> dict:
-    step = _frame_step(recipe, device)
+                   recipe: str = "trace_frame", accel: str = "morton") -> dict:
+    step = _frame_step(recipe, device, accel)
     step()                                           # warm
     plain_us = _frames_wall_us(step, frames)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -113,7 +126,7 @@ def profile_frames(frames: int = 2, device="cuda",
             "ms_per_frame": sum(_device_us(e) for e in found) / frames / 1e3}
     return {
         "device": torch.cuda.get_device_name(0),
-        "recipe": recipe, "mesh_cand": trimesh.MESH_CAND,
+        "recipe": recipe, "accel": accel, "mesh_cand": trimesh.MESH_CAND,
         "frames": frames,
         "frame_ms_unprofiled": plain_us / frames / 1e3,
         "frame_ms_profiled": wall_us / frames / 1e3,
@@ -144,19 +157,31 @@ def main(argv=None):
                         help="the all-mesh pipeline (compact_from=1)")
     parser.add_argument("--textured-frame", action="store_true",
                         help="the default frame on the mixed textured scene")
+    parser.add_argument("--options-frame", action="store_true",
+                        help="the default frame with the thin lens and the "
+                             "raytraced ReSTIR modes")
+    parser.add_argument("--accel", default="morton",
+                        choices=pipeline.ACCEL_MODES,
+                        help="accel_mode of the sphere frame recipes")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES)
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
+    if args.accel != "morton" and not (args.frame or args.default_frame
+                                       or args.options_frame):
+        parser.error("--accel applies to --frame, --default-frame and "
+                     "--options-frame")
     trimesh.MESH_CAND = args.mesh_cand
-    recipe = ("textured_frame" if args.textured_frame
+    recipe = ("options_frame" if args.options_frame
+              else "textured_frame" if args.textured_frame
               else "mesh_pipeline" if args.mesh_pipeline
               else "mesh_restir_frame" if args.mesh_frame
               else "mesh_frame" if args.mesh
               else "default_frame" if args.default_frame
               else "upscaled_frame" if args.upscaled
               else "restir_frame" if args.frame else "trace_frame")
-    result = profile_frames(args.frames, backend.device("cuda"), recipe)
+    result = profile_frames(args.frames, backend.device("cuda"), recipe,
+                            args.accel)
     text = json.dumps(result, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,7 +9,10 @@ dead batch, singleton chunks, rays tangent to chunk bounds with the cull's
 rounding margin from the wrapper and at 0), B3 with 1 to 200 slots (seven
 slot tiles) and 1 to 12 rounds, reprojection of 1 to
 4,100 channels (each vector width, and pixels wider than one block) with
-motion off every edge and on views that are not 16-byte aligned, B2 with
+motion off every edge and on views that are not 16-byte aligned, and the
+pairwise ReSTIR history rows at 5 and 12 words (a ragged width, an
+unaligned view, a strided view), B11's any hit as accel_mode="none" runs
+it (every lane dead; a third live with an excluded sphere each), B2 with
 a table wider than one shared-memory tile, a dead batch, singleton chunks,
 rays tangent to its chunk bounds and the cull's rounding margin taken
 from the wrapper, and for the mesh kernels 1 and 600
@@ -493,6 +496,82 @@ def test_reproject_kernel_misaligned_src(dev, c, offset, vec):
     assert torch.equal(out.cpu().view(torch.int32),
                        out_p.cpu().view(torch.int32))
     assert torch.equal(ok.cpu(), ok_p.cpu())
+
+
+@pytest.mark.parametrize("c", [5, 12])
+@pytest.mark.parametrize("variant", ["ragged", "unaligned", "strided"])
+def test_reproject_kernel_restir_rows(dev, c, variant):
+    """B4 nearest on the pairwise ReSTIR history rows: C = 5 (the four
+    reservoir words and the target pdf) and C = 12 (and the seven words of
+    the previous surface), 67 px wide (not a whole number of the kernel's
+    patches), on a view one word into its storage (C = 12 then takes one
+    word per thread) and on the first C words of wider rows (a strided
+    view, which the wrapper makes contiguous). The words are random bit
+    patterns, NaN payloads included: nearest copies them."""
+    h, w = 31, 67
+    rng = np.random.RandomState(c)
+    words = rng.randint(-2 ** 31, 2 ** 31 - 1, size=(h, w, c + 3),
+                        dtype=np.int64).astype(np.int32)
+    full = torch.from_numpy(words).view(torch.float32).to(dev)
+    if variant == "ragged":
+        src = full[..., :c].contiguous()
+        assert rp.vector_width(c, src) == {5: 1, 12: 4}[c]
+    elif variant == "unaligned":
+        store = torch.empty(h * w * c + 1, dtype=torch.float32, device=dev)
+        src = store[1:].view(h, w, c)
+        src.copy_(full[..., :c])
+        assert src.data_ptr() % 16 == 4 and rp.vector_width(c, src) == 1
+    else:
+        src = full[..., :c]
+        assert not src.is_contiguous()
+    motion = torch.from_numpy(np.asarray(rng.randn(h, w, 2) * 3,
+                                         np.float32)).to(dev)
+    before = backend.LAUNCHES["reproject_packed"]
+    out, ok = rp.reproject_packed(src, motion, "nearest")
+    assert backend.LAUNCHES["reproject_packed"] == before + 1
+    out_p, ok_p = rp.reproject_packed_plain(src, motion, "nearest")
+    assert torch.equal(out.cpu().view(torch.int32),
+                       out_p.cpu().view(torch.int32))
+    assert torch.equal(ok.cpu(), ok_p.cpu())
+    assert 0 < int(ok.sum()) < h * w
+
+
+@pytest.mark.parametrize("variant", ["all dead", "all dead excluded",
+                                     "mixed excluded"])
+def test_brute_anyhit_dead_lanes(dev, variant):
+    """The shadow rays of accel_mode="none": intersect_spheres_any with no
+    accel launches B11 once and reads its hit bit, against the excluded
+    object. A batch whose every lane is dead (tmax = -1, as the raytraced
+    batches give the lanes whose answer nobody reads) blocks nothing; a
+    batch with a third of its lanes live, each excluding a random sphere,
+    equals the CPU's."""
+    n, k = 4097, 438
+    centers, radii, rays = random_case(k, n, seed=11)
+    rng = np.random.RandomState(12)
+    tmax = torch.full((n,), -1.0)
+    if variant == "mixed excluded":
+        live = torch.from_numpy(rng.rand(n) < 1 / 3)
+        tmax = torch.where(live, torch.from_numpy(
+            np.asarray(30.0 * rng.rand(n), np.float32)), tmax)
+    excl = (torch.from_numpy(rng.randint(0, k, n)) if "excluded" in variant
+            else None)
+    args = (rays[0:3].T.contiguous(), rays[3:6].T.contiguous(),
+            torch.zeros(n), tmax)
+    kw = dict(centers=torch.from_numpy(centers),
+              radii=torch.from_numpy(radii))
+    want = intersect.intersect_spheres_any(*args, 4096, exclude_index=excl,
+                                           **kw)
+    before = backend.LAUNCHES["intersect_brute"]
+    got = intersect.intersect_spheres_any(
+        *(a.to(dev) for a in args), 4096,
+        exclude_index=None if excl is None else excl.to(dev),
+        **{key: v.to(dev) for key, v in kw.items()})
+    assert backend.LAUNCHES["intersect_brute"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    if variant == "mixed excluded":
+        assert 0 < int(want.sum()) < int(live.sum())
+    else:
+        assert not bool(got.any())
 
 
 def mesh_case(k, n, tess, seed, dev, dead=False):

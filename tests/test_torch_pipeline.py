@@ -183,26 +183,26 @@ def test_reference_windows_keep_every_in_frame_pixel(frames):
 
 
 def test_options_that_wait_raise():
-    """The thin lens, a focus distance other than 1, accel_mode "none" and
-    the ReSTIR modes still raise; SHARC, the denoisers, TAA, upscaling and
-    the debug views (slice 2b) construct, the reference's default config
-    included; unknown names raise ValueError."""
+    """No option waits any more: the thin lens, a focus distance other
+    than 1, accel_mode "none", the ReSTIR modes, SHARC, the denoisers,
+    TAA, upscaling and the debug views construct, the reference's default
+    config included; unknown names raise ValueError."""
     base = tpipeline.restir_frame_config(W, H, 2)
     for kw in (dict(aperture_radius=0.1), dict(focus_distance=2.0),
                dict(accel_mode="none"),
                dict(restir=dataclasses.replace(
-                   base.restir, spatial_bias_correction="pairwise"))):
-        with pytest.raises(NotImplementedError):
-            tpipeline.RenderPipeline(dataclasses.replace(base, **kw),
-                                     device="cpu")
-    for kw in (dict(sharc_enabled=True), dict(denoiser="NRDReBLUR"),
+                   base.restir, spatial_bias_correction="pairwise")),
+               dict(sharc_enabled=True), dict(denoiser="NRDReBLUR"),
                dict(upscaling=True), dict(taa_mode="on"),
                dict(debug_view="ReGIRCells")):
         tpipeline.RenderPipeline(dataclasses.replace(base, **kw),
                                  device="cpu")
     tpipeline.RenderPipeline(tpipeline.PipelineConfig(), device="cpu")
     for kw in (dict(denoiser="NRD"), dict(debug_view="Heat"),
-               dict(taa_history_filter="lanczos"), dict(taa_mode="always")):
+               dict(taa_history_filter="lanczos"), dict(taa_mode="always"),
+               dict(accel_mode="bvh"),
+               dict(restir=dataclasses.replace(
+                   base.restir, spatial_bias_correction="exact"))):
         with pytest.raises(ValueError):
             tpipeline.RenderPipeline(dataclasses.replace(base, **kw),
                                      device="cpu")

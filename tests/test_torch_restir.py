@@ -274,6 +274,9 @@ def test_final_shading(ref, port):
 
 
 def test_options_that_wait_raise(port):
+    """No ReSTIR option waits any more: every mode name the reference
+    knows runs (tests/test_torch_restir_modes.py holds each against the
+    reference), and only a name it does not know raises ValueError."""
     for kw in (dict(spatial_bias_correction="pairwise"),
                dict(temporal_bias_correction="raytraced"),
                dict(temporal_prev_surface="real"),
@@ -281,7 +284,17 @@ def test_options_that_wait_raise(port):
                dict(local_light_mode="Uniform"),
                dict(candidate_batch=True),
                dict(spatial_offset_mode="shared")):
-        with pytest.raises(NotImplementedError):
+        out = trestir.spatial_resampling(
+            port["temporal"], port["surface"], port["lights"],
+            trestir.ReSTIRConfig(**kw), FRAME, scene=port["scene"],
+            accel=port["accel"], block_size=4096)
+        assert bool(torch.isfinite(out.w_out).all())
+    for kw in (dict(spatial_bias_correction="exact"),
+               dict(temporal_bias_correction="none"),
+               dict(temporal_prev_surface="true"),
+               dict(local_light_mode="ReGIR"),
+               dict(spatial_offset_mode="global")):
+        with pytest.raises(ValueError):
             trestir.spatial_resampling(port["temporal"], port["surface"],
                                        port["lights"],
                                        trestir.ReSTIRConfig(**kw), FRAME)
