@@ -216,6 +216,26 @@ Phases, one printed line or more each; any failure exits non-zero:
    pseudo previous surface (B4 at C = 5), the all-mesh frame in the
    raytraced modes, and a deforming mesh, whose motion vectors must agree
    within 1e-3 px and move.
+21. shell: the port's CLI, Session and checkpoints at the reference's
+   GraphicsSettings() (1920x1080 output, SR Auto, so rendered at 960x540
+   and upscaled by TAA; ReSTIR DI, SHARC, ReBLUR, post). (a)
+   app.main([... "render", "--frames", "4", "--resume", <dir>,
+   "--checkpoint-every", "2", "--metrics-out", ...]) counted from zero:
+   the PNG, the metrics line with frame_ms and the JSON-lines records,
+   LATEST in the checkpoint directory. (b) A Session: three frames, a
+   dynamic set (post.exposure: the next frame launches each kernel as
+   often as the frame two before it), a static set (raytracing.bounces),
+   a realloc set (post.super_resolution_mode Native: render 1920x1080,
+   the frame count carried). (c) save_rotating at frame 3, a fresh
+   Session through resume_or_init, its next frame against the
+   uninterrupted session's: frame_index, frame_count and launches equal,
+   the image within DEFAULT_* (the largest difference printed, and
+   whether it is bit-exact). (d) Session.step's warm frame time, also at
+   the bench's block 32,768, beside bench --upscaled's, for the record. (e) One frame under
+   obs.device_trace and obs.pass_scope: the Chrome trace must hold the
+   scope and a launch of each of the five kernels. Every frame of (a)-(c)
+   is a finite (1080, 1920, 3) image in [0, 1] that launched B1, B2, B3,
+   B4 and B11.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -2685,6 +2705,231 @@ def check_options_small(pipeline, bench, sharc_mod, myscene,
                                      "move")
 
 
+# Phase 21: the shell (app.py, session.py, utils/checkpoint.py) at the
+# reference's GraphicsSettings(): 1920x1080 output, SR Auto, so rendered at
+# 960x540 and upscaled by TAA. The kernels each of its frames must launch.
+SHELL_KERNELS = ("intersect_morton", "occlusion_morton",
+                 "initial_light_candidates", "reproject_packed",
+                 "intersect_brute")
+# Their __global__ functions in csrc/, as a device trace names them.
+SHELL_KERNEL_SYMBOLS = ("morton_closest_hit", "morton_occlusion",
+                        "initial_candidates", "reproject",
+                        "brute_closest_hit")
+
+
+@contextlib.contextmanager
+def per_frame_launches(backend, session_mod, frames):
+    """Record, for every Session.step, the kernel launches it made and its
+    image's shape, finiteness and range (appended to `frames`)."""
+    orig = session_mod.Session.step
+
+    def step(self, *args, **kwargs):
+        before = dict(backend.LAUNCHES)
+        img = orig(self, *args, **kwargs)
+        frames.append({
+            "launches": {k: backend.LAUNCHES[k] - before[k]
+                         for k in backend.LAUNCHES},
+            "shape": tuple(img.shape),
+            "finite": bool(torch.isfinite(img).all()),
+            "min": float(img.min()), "max": float(img.max()),
+            "render": (self.pipe.cfg.render_width,
+                       self.pipe.cfg.render_height)})
+        return img
+    session_mod.Session.step = step
+    try:
+        yield frames
+    finally:
+        session_mod.Session.step = orig
+
+
+def shell_launches(frames):
+    """The path's kernels' launches of each recorded frame, as JSON."""
+    return json.dumps([[f["launches"][k] for k in SHELL_KERNELS]
+                       for f in frames])
+
+
+def check_shell_frames(label, frames):
+    """Every frame a finite (1080, 1920, 3) image in [0, 1] that launched
+    B1, B2, B3, B4 and B11."""
+    for i, f in enumerate(frames):
+        missing = [k for k in SHELL_KERNELS if f["launches"][k] <= 0]
+        if (f["shape"] != (1080, 1920, 3) or not f["finite"]
+                or f["min"] < 0.0 or f["max"] > 1.0 or missing):
+            raise AssertionError(f"{label} frame {i}: {f} (not launched: "
+                                 f"{missing})")
+
+
+def shell_session(session_mod, myscene, settings, dev):
+    return session_mod.Session(settings, output_width=1920,
+                               output_height=1080,
+                               host=myscene.build(device=dev), device=dev)
+
+
+def run_shell(backend, bench, smi, dev):
+    """Phase 21: (a) `app.main(... render --resume --checkpoint-every 2
+    --metrics-out)` at 1920x1080 on GraphicsSettings(), counted from zero;
+    (b) a Session taking a dynamic, a static and a realloc set; (c) a
+    rotating checkpoint resumed into a fresh Session against the
+    uninterrupted one; (d) the session's warm frame time beside
+    bench --upscaled's; (e) one frame under obs.device_trace."""
+    import io
+    import tempfile
+
+    from drts_tpu_torch import app, config, session as session_mod
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.utils import checkpoint, image, obs
+
+    defaults = config.GraphicsSettings().check()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the CLI --------------------------------------------------
+        settings_path = os.path.join(tmp, "graphics.json")
+        config.save_settings(defaults, settings_path)
+        out, ckpt = os.path.join(tmp, "out"), os.path.join(tmp, "ckpt")
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        frames = []
+        t0 = time.perf_counter()
+        backend.reset_launches()
+        with per_frame_launches(backend, session_mod, frames), \
+                contextlib.redirect_stdout(io.StringIO()) as text:
+            app.main(["--width", "1920", "--height", "1080", "--settings",
+                      settings_path, "render", "--frames", "4", "--out-dir",
+                      out, "--resume", ckpt, "--checkpoint-every", "2",
+                      "--metrics-out", metrics])
+        launches = dict(backend.LAUNCHES)
+        wall = time.perf_counter() - t0
+        for line in text.getvalue().splitlines():
+            log(f"shell cli: | {line[:400]}")
+        png = image.read_png(os.path.join(out, "frame_0003.png"))
+        with open(metrics) as f:
+            records = [json.loads(line) for line in f]
+        log(f"shell cli: 4 frames at render {frames[0]['render']} -> "
+            f"1920x1080 in {wall:.1f} s (session build included); "
+            f"frame_ms={[r['frame_ms'] for r in records]!r} "
+            f"launches={json.dumps(launches)} per frame="
+            f"{shell_launches(frames)} | {smi}")
+        check_shell_frames("shell cli", frames)
+        if (png.shape != (1080, 1920, 3) or not np.isfinite(png).all()
+                or len(records) != 4
+                or not all(r["frame_ms"] > 0 for r in records)
+                or '"frame_ms"' not in text.getvalue()
+                or "checkpointed frame 2" not in text.getvalue()
+                or not os.path.exists(os.path.join(ckpt, "LATEST"))
+                or frames[0]["render"] != (960, 540)):
+            raise AssertionError("shell cli: the PNG, the metrics or the "
+                                 "checkpoint is missing or wrong")
+
+        # (b) a live Session: dynamic, static and realloc sets ---------
+        frames = []
+        with per_frame_launches(backend, session_mod, frames):
+            sess = shell_session(session_mod, myscene, defaults, dev)
+            for _ in range(3):
+                sess.step()
+            hows = [sess.set("post.exposure", "1.5")]
+            sess.step()
+            hows.append(sess.set("raytracing.bounces", "4"))
+            sess.step()
+            hows.append(sess.set("post.super_resolution_mode", "Native"))
+            render = (sess.pipe.cfg.render_width, sess.pipe.cfg.render_height)
+            sess.step()
+        log(f"shell session: sets {hows} render after realloc {render} "
+            f"frame_count={sess.state.frame_count} launches per frame="
+            f"{shell_launches(frames)} | {smi}")
+        check_shell_frames("shell session", frames)
+        if hows != ["dynamic", "static", "realloc"] or render != (1920,
+                                                                  1080):
+            raise AssertionError(f"shell session: sets {hows}, render "
+                                 f"{render}")
+        if frames[3]["launches"] != frames[1]["launches"]:
+            raise AssertionError("shell session: the frame after the "
+                                 "dynamic set launched otherwise than the "
+                                 "frame two before it")
+        if frames[5]["render"] != (1920, 1080) or \
+                sess.state.frame_count != 6:
+            raise AssertionError("shell session: the realloc lost the "
+                                 "frame count or the render size")
+        del sess
+
+        # (c) resume on the card ---------------------------------------
+        k = 3
+        frames = []
+        with per_frame_launches(backend, session_mod, frames):
+            sess = shell_session(session_mod, myscene, defaults, dev)
+            for _ in range(k):
+                sess.step()
+            resume_dir = os.path.join(tmp, "resume")
+            checkpoint.save_rotating(sess.state, resume_dir)
+            golden = sess.step().cpu()
+            fresh = shell_session(session_mod, myscene, defaults, dev)
+            fresh.state, ok = checkpoint.resume_or_init(
+                fresh.pipe, resume_dir, fresh.host)
+            img = fresh.step().cpu()
+        d = (img - golden).abs()
+        off = float((d.amax(-1) > DEFAULT_OFF).float().mean())
+        same = (int(fresh.state.frame_index), fresh.state.frame_count) == (
+            int(sess.state.frame_index), sess.state.frame_count)
+        log(f"shell resume: saved at frame {k}, resumed={ok} frame_index="
+            f"{int(fresh.state.frame_index)} frame_count="
+            f"{fresh.state.frame_count} (uninterrupted "
+            f"{int(sess.state.frame_index)}, {sess.state.frame_count}) "
+            f"image_mean_abs_diff={float(d.mean())!r} image_max_abs_diff="
+            f"{float(d.max())!r} pixels_off_{DEFAULT_OFF}={off!r} "
+            f"bit_exact={bool(torch.equal(img, golden))} launches "
+            f"resumed={shell_launches(frames[-1:])} uninterrupted="
+            f"{shell_launches(frames[k:k + 1])} | {smi}")
+        check_shell_frames("shell resume", frames)
+        if (not ok or not same or float(d.mean()) > DEFAULT_MEAN
+                or off > DEFAULT_OFF_SHARE
+                or frames[-1]["launches"] != frames[k]["launches"]):
+            raise AssertionError("shell resume: the resumed frame differs "
+                                 "from the uninterrupted one")
+
+        # (d) frame time, for the record: the session as from_settings
+        # builds it (block 16,384), the same at the bench's block 32,768,
+        # and bench --upscaled -------------------------------------------
+        iters = 4
+
+        def warm_ms(s):
+            s.step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                s.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / iters * 1e3
+        sess_ms = warm_ms(sess)
+        wide = session_mod.Session(
+            defaults, output_width=1920, output_height=1080,
+            host=myscene.build(device=dev),
+            config_overrides={"block_size": 32768}, device=dev)
+        wide_ms = warm_ms(wide)
+        del wide
+        stats, _ = bench.bench_frame(
+            iters=iters, device=dev,
+            cfg=bench.default_frame_config(upscaled=True))
+        log(f"shell frame time: Session.step {sess_ms!r} ms (block "
+            f"{sess.pipe.cfg.block_size}), {wide_ms!r} ms (block 32768), "
+            f"bench --upscaled {stats['frame_ms']!r} ms (block 32768); "
+            f"{iters} warm frames each | {smi}")
+
+        # (e) one frame under obs.device_trace ------------------------------
+        trace_dir = os.path.join(tmp, "trace")
+        with obs.device_trace(trace_dir):
+            with obs.pass_scope("shell_frame"):
+                sess.step()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        hand = {name: sum(name in e.get("name", "") for e in kernels)
+                for name in SHELL_KERNEL_SYMBOLS}
+        scoped = sum(e.get("name") == "shell_frame" for e in events)
+        log(f"shell trace: {len(events)} events, {len(kernels)} kernel "
+            f"launches, the hand kernels {json.dumps(hand)}, "
+            f"'shell_frame' scopes {scoped} | {smi}")
+        if not scoped or not all(hand.values()):
+            raise AssertionError("shell trace: the frame's scope or a hand "
+                                 "kernel is missing from the trace")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -3156,6 +3401,12 @@ def main():
     launches["intersect_brute@accel_none_any"] = 3 * frames
     check_options_small(pipeline, bench, sharc_mod, myscene)
     log(f"options: phase 20 took {time.perf_counter() - t0:.1f} s")
+
+    # 21. the shell: the CLI, a live Session and a resume at the
+    # reference's GraphicsSettings() (1080p, SR Auto) ----------------------
+    t0 = time.perf_counter()
+    run_shell(backend, bench, smi, dev)
+    log(f"shell: phase 21 took {time.perf_counter() - t0:.1f} s")
 
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",

@@ -41,7 +41,7 @@ import dataclasses
 
 import torch
 
-from .. import backend
+from .. import backend, config as config_mod
 from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
                    light as light_mod, pathtrace, physics, post, restir,
                    sharc as sharc_mod, taa)
@@ -53,7 +53,8 @@ from . import clusters, myscene, scene as scene_mod
 class PipelineConfig:
     """Static pipeline topology, with the reference's names and defaults:
     ``PipelineConfig()`` is the reference's default frame (SHARC, ReBLUR,
-    TAA at native resolution)."""
+    TAA at native resolution); ``from_settings`` derives it from the
+    settings window's ``config.GraphicsSettings``."""
     output_width: int = 1920
     output_height: int = 1080
     render_width: int = 1920
@@ -103,6 +104,80 @@ class PipelineConfig:
     sharc_downscale: int = 4
     sharc_update_period: int = 2
     texture_bounces: int = 2
+
+    @classmethod
+    def from_settings(cls, s: config_mod.GraphicsSettings,
+                      output_width: int | None = None,
+                      output_height: int | None = None) -> "PipelineConfig":
+        """The topology of `s` (the settings window's GraphicsSettings):
+        the output size defaults to the settings' render size, and an
+        upscaler other than None renders at ``taa.render_size_for`` of
+        the super-resolution mode unless that mode is Native."""
+        ow = output_width or s.render_width
+        oh = output_height or s.render_height
+        if (s.post.upscaler != config_mod.Upscaler.NONE
+                and s.post.super_resolution_mode
+                != config_mod.SuperResolutionMode.NATIVE):
+            rw, rh = taa.render_size_for(ow, oh,
+                                         s.post.super_resolution_mode.value)
+        else:
+            rw, rh = ow, oh
+        r = s.restir_di
+        return cls(
+            output_width=ow, output_height=oh,
+            render_width=rw, render_height=rh,
+            restir_enabled=r.is_enabled,
+            restir=restir.ReSTIRConfig(
+                regir_cells_per_axis=r.regir_cells_per_axis,
+                regir_cell_size=r.regir_cell_size,
+                regir_build_samples=r.regir_build_samples,
+                local_light_mode=r.local_light_mode.value,
+                local_light_samples=r.local_light_samples,
+                brdf_samples=r.brdf_samples,
+                temporal_enabled=r.is_temporal_resampling_enabled,
+                spatial_enabled=r.is_spatial_resampling_enabled,
+                max_history=r.max_history_length,
+                boiling_filter_strength=r.boiling_filter_strength,
+                spatial_samples=r.spatial_samples,
+                spatial_radius=r.spatial_radius,
+                spatial_bias_correction=r.spatial_bias_correction,
+                temporal_bias_correction=r.temporal_bias_correction,
+                temporal_prev_surface=r.temporal_prev_surface,
+                spatial_offset_mode=r.spatial_offset_mode),
+            sharc_enabled=s.rtxgi == config_mod.RTXGITechnique.SHARC,
+            sharc=sharc_mod.SHARCConfig(
+                capacity_log2=s.sharc.capacity_log2,
+                scene_scale=s.sharc.scene_scale,
+                accumulation_frames=s.sharc.accumulation_frames,
+                max_stale_frames=s.sharc.max_stale_frames,
+                roughness_threshold=s.sharc.roughness_threshold,
+                anti_firefly=s.sharc.is_anti_firefly_enabled),
+            sharc_downscale=s.sharc.downscale_factor,
+            bounces=s.raytracing.bounces,
+            samples_per_pixel=s.raytracing.samples_per_pixel,
+            russian_roulette=s.raytracing.is_russian_roulette_enabled,
+            throughput_threshold=s.raytracing.throughput_threshold,
+            denoiser=s.post.denoiser.value,
+            denoiser_max_history=s.post.denoiser_max_history,
+            denoiser_clamp_gamma=s.post.denoiser_clamp_gamma,
+            denoiser_specular_virtual=s.post.denoiser_specular_virtual,
+            upscaling=(rw, rh) != (ow, oh),
+            bloom_enabled=s.post.is_bloom_enabled,
+            bloom_strength=s.post.bloom_strength,
+            sharpen_enabled=s.post.is_sharpening_enabled,
+            sharpness=s.post.sharpness,
+            chromatic_aberration_strength=(
+                s.post.chromatic_aberration_strength),
+            tone_map_operator=s.post.tone_map_operator.value,
+            exposure=s.post.exposure,
+            hdr_enabled=s.post.is_hdr_enabled,
+            paper_white_nits=s.post.paper_white_nits,
+            hdr_color_rotation=s.post.hdr_color_rotation.value,
+            aperture_radius=s.camera.aperture_radius,
+            focus_distance=s.camera.focus_distance,
+            jitter_enabled=s.camera.is_jitter_enabled,
+            horizontal_fov_deg=s.camera.horizontal_field_of_view,
+        )
 
 
 def restir_frame_config(width: int = 1920, height: int = 1080,

@@ -5,6 +5,7 @@ The scaled right/up/forward frame follows the reference: |forward| = focus
 distance, |right| = tan(hfov/2)*|forward|, |up| = |right| / aspect
 (Camera.ixx:138-153), and rays are
 ``normalize(NDC.x * right + NDC.y * up + forward)`` (Camera.hlsli:27-41).
+``CameraController`` and ``apply_input_key`` are the CLI's fly camera.
 """
 
 from __future__ import annotations
@@ -131,3 +132,115 @@ def ndc_to_pixel(ndc, width: int, height: int):
     uv = ((ndc - torch.tensor([-1.0, 1.0], dtype=dt, device=dev))
           / torch.tensor([2.0, -2.0], dtype=dt, device=dev))
     return uv * torch.tensor([width, height], dtype=dt, device=dev) - 0.5
+
+
+class CameraController:
+    """Quaternion fly camera, the reference's CameraController
+    (Camera.ixx:38-178): translate in the local frame, yaw about world up,
+    pitch about local right, roll about forward (Camera.ixx:109). Its
+    state is numpy float64 on the host, as input handling is
+    (ProcessInput, App.cpp:812-970); ``pose`` hands the pipeline a
+    float32 ``CameraPose`` on a device."""
+
+    def __init__(self, position=(0.0, 0.0, -15.0), forward=(0.0, 0.0, 1.0),
+                 up=(0.0, 1.0, 0.0)):
+        self.position = np.asarray(position, np.float64)
+        f = np.asarray(forward, np.float64)
+        self._forward = f / np.linalg.norm(f)
+        u = np.asarray(up, np.float64)
+        r = np.cross(u, self._forward)
+        self._right = r / np.linalg.norm(r)
+        self._up = np.cross(self._forward, self._right)
+
+    @property
+    def forward(self):
+        return self._forward.copy()
+
+    @property
+    def right(self):
+        return self._right.copy()
+
+    @property
+    def up(self):
+        return self._up.copy()
+
+    def translate(self, displacement) -> None:
+        """Move in the local frame (right, up, forward), Camera.ixx:105."""
+        d = np.asarray(displacement, np.float64)
+        self.position = (self.position + d[0] * self._right
+                         + d[1] * self._up + d[2] * self._forward)
+
+    @staticmethod
+    def _rotate(v, axis, angle):
+        axis = axis / np.linalg.norm(axis)
+        c, s = np.cos(angle), np.sin(angle)
+        return (v * c + np.cross(axis, v) * s
+                + axis * np.dot(axis, v) * (1.0 - c))
+
+    def rotate(self, yaw: float = 0.0, pitch: float = 0.0,
+               roll: float = 0.0) -> None:
+        """Camera.ixx:109: yaw about world +Y, pitch about local right,
+        roll about local forward (the reference's signs)."""
+        for axis, angle in (((0.0, 1.0, 0.0), yaw),
+                            (self._right, -pitch),
+                            (self._forward, -roll)):
+            if angle:
+                axis = np.asarray(axis, np.float64)
+                self._forward = self._rotate(self._forward, axis, angle)
+                self._right = self._rotate(self._right, axis, angle)
+        self._forward /= np.linalg.norm(self._forward)
+        self._right -= self._forward * np.dot(self._right, self._forward)
+        self._right /= np.linalg.norm(self._right)
+        self._up = np.cross(self._forward, self._right)
+
+    def look_at(self, target) -> None:
+        f = np.asarray(target, np.float64) - self.position
+        self._forward = f / np.linalg.norm(f)
+        r = np.cross((0.0, 1.0, 0.0), self._forward)
+        if np.linalg.norm(r) < 1e-6:
+            r = np.array([1.0, 0.0, 0.0])
+        self._right = r / np.linalg.norm(r)
+        self._up = np.cross(self._forward, self._right)
+
+    def pose(self, device="cuda"):
+        """The pipeline's CameraPose, float32 tensors on `device`."""
+        from ..models.pipeline import CameraPose
+        device = backend.device(device)
+
+        def f32(x):
+            return torch.tensor(x, dtype=torch.float32, device=device)
+        return CameraPose(position=f32(self.position),
+                          forward=f32(self._forward), up=f32(self._up))
+
+
+# Key bindings of the CLI fly camera (the terminal stand-in for the
+# reference's ProcessInput WASD and mouse, App.cpp:812-970): translation
+# in the local frame, ijkl/uo look, r reset, p screenshot, x quit.
+KEY_HELP = ("w/s fwd/back  a/d left/right  q/e down/up  "
+            "j/l yaw  i/k pitch  u/o roll  r reset  p screenshot  x quit")
+
+
+def apply_input_key(controller: CameraController, key: str,
+                    move_step: float = 1.0,
+                    turn_step: float = np.deg2rad(5.0)) -> str:
+    """Apply one key to the controller. Returns the action taken:
+    'move' | 'turn' | 'reset' | 'screenshot' | 'quit' | '' (ignored)."""
+    moves = {"w": (0, 0, 1), "s": (0, 0, -1), "a": (-1, 0, 0),
+             "d": (1, 0, 0), "q": (0, -1, 0), "e": (0, 1, 0)}
+    turns = {"j": (-1, 0, 0), "l": (1, 0, 0), "i": (0, 1, 0),
+             "k": (0, -1, 0), "u": (0, 0, -1), "o": (0, 0, 1)}
+    k = key.lower()
+    if k in moves:
+        controller.translate(np.asarray(moves[k], np.float64) * move_step)
+        return "move"
+    if k in turns:
+        yaw, pitch, roll = (np.asarray(turns[k], np.float64) * turn_step)
+        controller.rotate(yaw=yaw, pitch=pitch, roll=roll)
+        return "turn"
+    if k == "r":
+        return "reset"
+    if k == "p":
+        return "screenshot"
+    if k == "x":
+        return "quit"
+    return ""

@@ -1,6 +1,7 @@
 """Host image helpers of the port: a minimal PNG writer and reader, the
 texture loader (PIL, where it is installed), a minimal OpenEXR reader and
-writer, and SSIM (port of ``drts_tpu/utils/image.py``).
+writer, the Reinhard preview map and SSIM (port of
+``drts_tpu/utils/image.py``).
 
 All but the texture loader are numpy-only, so the port needs neither PIL
 nor the JAX package to write a rendered frame, check it against
@@ -246,6 +247,14 @@ def write_exr(path: str, image: np.ndarray) -> None:
         struct.pack_into("<Q", out, table_pos + 8 * i, o)
     with open(path, "wb") as f:
         f.write(bytes(out))
+
+
+def tonemap_preview(radiance: np.ndarray, exposure: float = 1.0) -> np.ndarray:
+    """Quick Reinhard + sRGB preview mapping for debug PNGs."""
+    x = np.maximum(np.asarray(radiance, np.float32) * exposure, 0.0)
+    x = x / (1.0 + x)
+    return np.where(x <= 0.0031308, x * 12.92,
+                    1.055 * np.power(np.maximum(x, 1e-8), 1 / 2.4) - 0.055)
 
 
 def ssim(a: np.ndarray, b: np.ndarray, data_range: float = 1.0) -> float:

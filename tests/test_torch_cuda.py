@@ -1231,3 +1231,74 @@ def test_evaluate_material_on_the_card(dev, words):
         c, g = getattr(cpu, f), getattr(card, f).cpu()
         assert torch.isfinite(g).all(), f
         assert float((c - g).abs().max()) <= 1e-6, f
+
+
+def _shell_settings(size=64):
+    """The reference's GraphicsSettings() at `size` x `size` (SR Auto:
+    rendered at half), 3 bounces and the smallest SHARC cache (2^16)."""
+    import dataclasses
+
+    from drts_tpu_torch import config
+    s = config.GraphicsSettings(render_width=size, render_height=size)
+    return dataclasses.replace(
+        s, raytracing=dataclasses.replace(s.raytracing, bounces=3),
+        sharc=dataclasses.replace(s.sharc, capacity_log2=16)).check()
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """A 64x64 default-graph FrameState saved from the card and restored
+    to the card by resume_or_init: every leaf equal, on the card, and the
+    host frame count back."""
+    from drts_tpu_torch.models import myscene, pipeline
+    from drts_tpu_torch.utils import checkpoint
+    cfg = pipeline.PipelineConfig.from_settings(_shell_settings())
+    pipe = pipeline.RenderPipeline(cfg, dev)
+    host = myscene.build(oscillator_grid=3, device=dev)
+    state, pose = pipe.init_state(host), pipe.default_camera_pose(host)
+    for _ in range(3):
+        state, _ = pipe.render_frame(state, pose)
+    checkpoint.save_rotating(state, str(tmp_path))
+    pipe2 = pipeline.RenderPipeline(cfg, dev)
+    restored, ok = checkpoint.resume_or_init(pipe2, str(tmp_path), host)
+    assert ok and restored.frame_count == 3
+    saved, back = checkpoint.flatten(state), checkpoint.flatten(restored)
+    assert set(saved) == set(back)
+    on_card = 0
+    for k, v in back.items():
+        # Host numbers flatten to CPU tensors; every tensor of the state
+        # stays on the card.
+        assert v.device == saved[k].device, k
+        on_card += v.device.type == "cuda"
+        assert torch.equal(v.cpu(), saved[k].cpu()), k
+    # frame_count, scene.alpha_test_rounds and the bodies' spring_rest_y,
+    # earth_index and star_index are the host numbers.
+    assert on_card == len(back) - 5
+
+
+def test_session_card_against_cpu(dev):
+    """One Session on the card and one on the CPU from one start state
+    (the CPU's, restored onto the card), 64x64 output rendered at 32x32,
+    through two frames, a dynamic set, a frame, a static set and a frame:
+    each image within chip_smoke.py's DEFAULT_* bounds (mean |difference|
+    <= 2e-4; <= 0.2% of pixels off by more than 0.05)."""
+    from drts_tpu_torch import session
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.utils import checkpoint
+    sessions = [session.Session(
+        _shell_settings(), host=myscene.build(oscillator_grid=3, device=d),
+        device=d) for d in ("cpu", dev)]
+    cpu, card = sessions
+    card.state = checkpoint.restore_flat(card.state,
+                                         checkpoint.flatten(cpu.state))
+    script = [None, None, ("post.exposure", "1.5"), ("raytracing.bounces",
+                                                      "2")]
+    for change in script:
+        if change is not None:
+            assert cpu.set(*change) == card.set(*change)
+        a, b = cpu.step(), card.step().cpu()
+        assert b.shape == (64, 64, 3) and torch.isfinite(b).all()
+        d = (a - b).abs()
+        off = float((d.amax(-1) > 0.05).float().mean())
+        assert float(d.mean()) <= 2e-4 and off <= 2e-3, (change,
+                                                          float(d.mean()),
+                                                          off)
