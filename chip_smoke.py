@@ -236,6 +236,21 @@ Phases, one printed line or more each; any failure exits non-zero:
    scope and a launch of each of the five kernels. Every frame of (a)-(c)
    is a finite (1080, 1920, 3) image in [0, 1] that launched B1, B2, B3,
    B4 and B11.
+22. banded: the multi-device frame (drts_tpu_torch/parallel) at
+   PipelineConfig(), 1920x1080, three frames. (a) One NCCL rank
+   (multihost.initialize with a localhost coordinator, world size 1):
+   render_frame(group=...) against render_frame(group=None) from the same
+   state, bit for bit (the image and every FrameState leaf) on the SHARC
+   skip frame and within DEFAULT_* on the update frames, the same
+   launches. (c) graft_entry.dryrun_multichip(1) on that group. (b) Two
+   gloo ranks on the one card (multihost.spawn; NCCL takes one card per
+   rank), every collective on CUDA tensors: each rank's images within
+   DEFAULT_* of (a)'s,
+   the ranks' FrameState leaves equal (parallel.mesh.replica_checksums),
+   each rank's launches of B1, B2, B3, B4 and B11 per frame; then rank 0
+   records one more frame's kernel calls, holds each to its plain version
+   and times it on its band's inputs (B4 on the gathered frame's). (d)
+   The time of each.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -269,7 +284,10 @@ four reprojections, B11 its light sweep), and B11
 ("intersect_brute@accel_none", "intersect_brute@accel_none_any") with
 the launches and the times of phase 20's accel-none frame, summed over
 one frame's closest hits and light sweep and over its three shadow
-batches.
+batches; and B1, B2, B3, B4 and B11 once more ("...@banded") with rank
+0's launches over phase 22 (b)'s three frames and the times of its
+recorded frame (B1 per frame, B2 its three batches, B4 its four
+reprojections, B11 its light sweep).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
@@ -2715,6 +2733,8 @@ SHELL_KERNELS = ("intersect_morton", "occlusion_morton",
 SHELL_KERNEL_SYMBOLS = ("morton_closest_hit", "morton_occlusion",
                         "initial_candidates", "reproject",
                         "brute_closest_hit")
+# Phase 22: the banded frame's kernels (the same five).
+BANDED_KERNELS = SHELL_KERNELS
 
 
 @contextlib.contextmanager
@@ -2928,6 +2948,214 @@ def run_shell(backend, bench, smi, dev):
         if not scoped or not all(hand.values()):
             raise AssertionError("shell trace: the frame's scope or a hand "
                                  "kernel is missing from the trace")
+
+
+# Phase 22: the banded frame (drts_tpu_torch/parallel) at PipelineConfig(),
+# 1920x1080, three frames (SHARC updates on frames 0 and 2).
+BANDED_FRAMES = 3
+
+
+def frame_diff(a, b):
+    """(mean |difference|, share of pixels off by more than DEFAULT_OFF,
+    largest difference) of two images."""
+    d = (a.float().cpu() - b.float().cpu()).abs()
+    return (float(d.mean()), float((d.amax(-1) > DEFAULT_OFF).float().mean()),
+            float(d.max()))
+
+
+def banded_kernel_fields(ik, rk, rp, seen):
+    """The @banded kernels-line fields from one recorded banded frame of
+    rank 0: B1 over the frame's launches on its band's rays, B2 on its
+    band's three visibility batches, B3 on its band's pixels, B4 on the
+    four reprojections of the gathered frame, B11 on its band's light
+    sweep; each against its plain version and timed."""
+    out = {}
+    calls = seen["intersect_morton"]
+    rays, table, bounds = calls[0][:3]
+    first = compare_closest(
+        "banded B1 primary (band)", lambda: ik.intersect_morton(
+            rays, table, bounds),
+        lambda: ik.intersect_morton_plain(rays, table, bounds, 262144),
+        reps=10, plain_reps=2)
+    ms, n, line = b1_frame(ik, calls, 1)
+    _, work = b1_sums([b1_work(ik, *c[:3]) for c in calls])
+    plain_ms = sum(cuda_ms(lambda c=c: ik.intersect_morton_plain(
+        *c[:3], 262144), 1) for c in calls)
+    log(f"banded kernels: B1 per frame kernel_ms={ms!r} launches={n!r} "
+        f"plain_ms={plain_ms!r} {line}")
+    out["intersect_morton@banded"] = {
+        "max_abs_err": first["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": work["bound_ms"], "bound_by": work["bound_by"],
+        "library_ms": None, "unculled_bound_ms": work["unculled_bound_ms"]}
+    out["occlusion_morton@banded"] = check_b2(
+        ik, seen["occlusion_morton"], "the banded frame", path="banded ")
+    (call,) = seen["initial_light_candidates"]
+    out["initial_light_candidates@banded"] = check_b3(rk, call,
+                                                      path="banded ")
+    out["reproject_packed@banded"] = check_default_reprojections(
+        rp, seen["reproject_packed"], label="banded")
+    (rays, spheres, block), = seen["intersect_brute"]
+    f = compare_closest(
+        "banded B11 brdf-candidate", lambda: ik.intersect_brute(rays,
+                                                                spheres),
+        lambda: ik.intersect_brute_plain(rays, spheres, block),
+        reps=20, plain_reps=2)
+    w = b11_work(ik, rays, spheres)
+    b_ms, b_by = bound(w["bytes"], w["ops"])
+    log(f"banded kernels: B11 brdf-candidate {w['line']} "
+        f"kernel_ms={f['ms']!r}")
+    f.update(bound_ms=b_ms, bound_by=b_by, library_ms=None,
+             unculled_bound_ms=bound(w["bytes"], w["unculled_ops"])[0])
+    out["intersect_brute@banded"] = f
+    return out
+
+
+def banded_rank(group, out_dir):
+    """Phase 22 (b), one of two ranks (gloo) on the one card: the three
+    frames of (a) banded over `group`, counted from zero, then one more
+    frame whose kernel calls rank 0 records, holds to their plain versions
+    and times while rank 1 waits. Saves its images, launches per frame,
+    replica checksums, band and frame times to out_dir/rank<r>.pt."""
+    import torch.distributed as dist
+
+    from drts_tpu_torch import backend, graft_entry
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.ops import intersect_kernels as ik
+    from drts_tpu_torch.ops import reproject_kernels as rp
+    from drts_tpu_torch.ops import restir_kernels as rk
+    from drts_tpu_torch.parallel import mesh, multihost
+
+    dev = multihost.rank_device("cuda")
+    backend.kernels()
+    pipe, state, pose = graft_entry._setup(pipeline.PipelineConfig(), dev)
+    r = dist.get_rank(group)
+    images, launches, frame_ms = [], [], []
+    for _ in range(BANDED_FRAMES):
+        backend.reset_launches()
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        state, img = pipe.render_frame(state, pose, group=group)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dict(backend.LAUNCHES))
+        images.append(img.cpu())
+    sums = mesh.replica_checksums(state, group)
+    with recorded((ik, rk, rp), BANDED_KERNELS, clone=True) as seen:
+        pipe.render_frame(state, pose, group=group)
+        torch.cuda.synchronize()
+    dist.barrier(group)
+    fields = banded_kernel_fields(ik, rk, rp, seen) if r == 0 else {}
+    del seen
+    dist.barrier(group)
+    torch.save({"images": images, "launches": launches, "checksums": sums,
+                "band": mesh.group_band(pipe.cfg.render_height, group),
+                "frame_ms": frame_ms, "fields": fields},
+               os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def run_banded(backend, smi, dev):
+    """Phase 22: (a) one NCCL rank at PipelineConfig() 1920x1080, three
+    frames through render_frame(group=...), each against
+    render_frame(group=None) from the same state: bit for bit (image and
+    every FrameState leaf) on the SHARC skip frame, within DEFAULT_* on the
+    update frames (the splat's float atomics add in another order); (c)
+    dryrun_multichip(1) on that group; (b) two gloo ranks on the one card,
+    the same three frames, each image within DEFAULT_* of (a)'s, the
+    ranks' states equal, each rank's launches of B1, B2, B3, B4 and B11
+    per frame, and the @banded kernel fields (rank 0, on its band's
+    inputs); (d) the time of each. Returns (the kernels-line fields, the
+    launches of rank 0 over (b)'s three frames)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from drts_tpu_torch import graft_entry
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.parallel import mesh, multihost
+
+    # (a) one NCCL rank -----------------------------------------------------
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                         device="cuda")
+    group = multihost.global_group()
+    cfg = pipeline.PipelineConfig()
+    pipe, state, pose = graft_entry._setup(cfg, dev)
+    images_a = []
+    for i in range(BANDED_FRAMES):
+        update = state.frame_count % cfg.sharc_update_period == 0
+        backend.reset_launches()
+        s_g, img_g = pipe.render_frame(state, pose, group=group)
+        launches_g = dict(backend.LAUNCHES)
+        backend.reset_launches()
+        s_n, img_n = pipe.render_frame(state, pose)
+        launches_n = dict(backend.LAUNCHES)
+        torch.cuda.synchronize()
+        mean, off, dmax = frame_diff(img_g, img_n)
+        same = mesh.replica_checksums(s_g) == mesh.replica_checksums(s_n)
+        exact = bool(torch.equal(img_g, img_n))
+        log(f"banded (a) nccl 1 rank: frame {i} sharc_update={update} "
+            f"image_mean_abs_diff={mean!r} pixels_off_{DEFAULT_OFF}={off!r} "
+            f"max_abs_diff={dmax!r} image_bit_exact={exact} "
+            f"state_bit_exact={same} counters_banded="
+            f"{json.dumps({k: float(v) for k, v in s_g.counters.items()})} "
+            f"launches banded={json.dumps(launches_g)} "
+            f"unbanded={json.dumps(launches_n)} | {smi}")
+        if launches_g != launches_n or not bool(torch.isfinite(img_g).all()):
+            raise AssertionError(f"banded (a) frame {i}: launches differ or "
+                                 f"the image is not finite")
+        if not update and not (exact and same):
+            raise AssertionError(f"banded (a) frame {i}: a SHARC skip frame "
+                                 f"differs from the unbanded frame")
+        if mean > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE:
+            raise AssertionError(f"banded (a) frame {i}: off the unbanded "
+                                 f"frame")
+        state = s_g
+        images_a.append(img_g.cpu())
+    ta = time.perf_counter() - t0
+    del pipe, state, s_g, s_n
+
+    # (c) the dry run on the one-rank group ----------------------------------
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    tc = time.perf_counter() - t0
+    dist.destroy_process_group()
+    log(f"banded (c) dryrun_multichip(1): passed in {tc:.1f} s | {smi}")
+
+    # (b) two gloo ranks on the one card -------------------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.spawn(banded_rank, 2, "cuda", backend_name="gloo",
+                        args=(tmp,))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    tb = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        diffs = [frame_diff(a, b) for a, b in zip(res["images"], images_a)]
+        per_frame = [[f[k] for k in BANDED_KERNELS] for f in res["launches"]]
+        log(f"banded (b) gloo rank {r} of 2 on one card: band {res['band']} "
+            f"frame_ms={res['frame_ms']!r} image vs (a) (mean, pixels off, "
+            f"max)={diffs!r} launches per frame (B1, B2, B3, B4, B11)="
+            f"{json.dumps(per_frame)} | {smi}")
+        for i, (mean, off, _) in enumerate(diffs):
+            if mean > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE:
+                raise AssertionError(f"banded (b) rank {r} frame {i}: off "
+                                     f"the one-rank frame")
+        for i, f in enumerate(res["launches"]):
+            missing = [k for k in BANDED_KERNELS if f[k] <= 0]
+            if missing:
+                raise AssertionError(f"banded (b) rank {r} frame {i}: "
+                                     f"{missing} not launched")
+    differ = mesh.replicas_differ(ranks[0]["checksums"])
+    if differ or ranks[0]["checksums"] != ranks[1]["checksums"]:
+        raise AssertionError(f"banded (b): the ranks' states differ at "
+                             f"{differ}")
+    log(f"banded (d): (a) {ta:.1f} s, (b) {tb:.1f} s (two processes "
+        f"included), (c) {tc:.1f} s; replicas equal on "
+        f"{len(ranks[0]['checksums'])} leaves | {smi}")
+    launches = {f"{k}@banded": sum(f[k] for f in ranks[0]["launches"])
+                for k in BANDED_KERNELS}
+    return ranks[0]["fields"], launches
 
 
 def main():
@@ -3408,6 +3636,14 @@ def main():
     run_shell(backend, bench, smi, dev)
     log(f"shell: phase 21 took {time.perf_counter() - t0:.1f} s")
 
+    # 22. the banded frame: one NCCL rank, the dry run, two gloo ranks on
+    # the one card ------------------------------------------------------------
+    t0 = time.perf_counter()
+    b_fields, b_launches = run_banded(backend, smi, dev)
+    fields.update(b_fields)
+    launches.update(b_launches)
+    log(f"banded: phase 22 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -3526,6 +3762,17 @@ def main():
         "intersect_brute@accel_none_any": (
             "drts_tpu_torch/csrc/intersect.cu",
             "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_morton@banded": ("drts_tpu_torch/csrc/intersect.cu",
+                                    "drts_tpu/ops/intersect_pallas.py:311"),
+        "occlusion_morton@banded": ("drts_tpu_torch/csrc/intersect.cu",
+                                    "drts_tpu/ops/intersect_pallas.py:509"),
+        "initial_light_candidates@banded": (
+            "drts_tpu_torch/csrc/restir.cu",
+            "drts_tpu/ops/restir_pallas.py:289"),
+        "reproject_packed@banded": ("drts_tpu_torch/csrc/reproject.cu",
+                                    "drts_tpu/ops/reproject_pallas.py:206"),
+        "intersect_brute@banded": ("drts_tpu_torch/csrc/intersect.cu",
+                                   "drts_tpu/ops/intersect_pallas.py:762"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),

@@ -33,6 +33,18 @@ itself.
 The SHARC cadence is decided on the host: ``FrameState.frame_count`` is a
 Python int beside the device's ``frame_index``, so the skip frames read
 nothing back from the card.
+
+``render_frame(..., group=...)`` renders the frame banded over the ranks
+of a ``torch.distributed`` group (``drts_tpu_torch.parallel``): the
+G-buffer, ReSTIR's initial candidates and final shading, the SHARC update
+trace and the path trace run on this rank's row band; the update and
+ReSTIR's light table and grid run on every rank; their band outputs are
+gathered (the stages "gather_*") before ReSTIR's temporal and spatial
+reuse, the denoiser, TAA and post, which run on the full frame on every
+rank. The SHARC splat and the counters that sum over pixels are
+all-reduced, so every rank ends the frame with the same ``FrameState``
+and image. Without a group the frame makes exactly the launches it makes
+on one device.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ from .. import backend, config as config_mod
 from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
                    light as light_mod, pathtrace, physics, post, restir,
                    sharc as sharc_mod, taa)
+from ..parallel import mesh as mesh_mod
 from ..utils import rng as rng_mod
 from . import clusters, myscene, scene as scene_mod
 
@@ -424,12 +437,12 @@ class RenderPipeline:
                 sort_origin=cam.position)
         return bodies, scene, cam, accel
 
-    def _stage_gbuffer(self, scene, cam, accel, frame_index=0):
+    def _stage_gbuffer(self, scene, cam, accel, frame_index=0, rows=None):
         c = self.cfg
         return gbuffer.generate(scene, cam, c.render_width, c.render_height,
                                 c.block_size, accel=accel,
                                 thin_lens=c.aperture_radius > 0.0,
-                                frame_index=frame_index)
+                                frame_index=frame_index, rows=rows)
 
     def _restir_prepare(self, scene, cam, frame_index):
         """Light preparation and the ReGIR grid (RTXDI.ixx:141-241 head);
@@ -441,12 +454,13 @@ class RenderPipeline:
                                            self.cfg.restir, frame_index)
         return lights, grid
 
-    def _restir_initial(self, gbuf, scene, lights, grid, frame_index, accel):
+    def _restir_initial(self, gbuf, scene, lights, grid, frame_index, accel,
+                        row0=0):
         c = self.cfg
         surface = restir.make_surface(gbuf)
         cur = restir.initial_sampling(surface, scene, lights, grid,
                                       c.restir, frame_index, c.block_size,
-                                      accel=accel)
+                                      accel=accel, row0=row0)
         return surface, cur
 
     def _restir_temporal(self, state, cur, surface, lights, gbuf, reset,
@@ -490,11 +504,13 @@ class RenderPipeline:
             texture_bounces=c.texture_bounces,
             sharc_query_from=c.sharc_query_from)
 
-    def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index):
+    def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index,
+                     group=None):
         """SHARC update trace + resolve at the downscaled size
         (Raytracing.ixx:114-148), every sharc_update_period frames by the
         host's frame count; a skip frame keeps the cache and counts zero
-        dropped rows."""
+        dropped rows. With a group, the band's rows and an all-reduced
+        splat."""
         c = self.cfg
         if state.frame_count % max(c.sharc_update_period, 1) != 0:
             return state.sharc, {"sharc_splat_dropped_rows": torch.zeros(
@@ -505,17 +521,41 @@ class RenderPipeline:
             height=max(1, c.render_height // c.sharc_downscale))
         return pathtrace.sharc_update_trace(
             scene, cam, state.sharc, c.sharc, su_cfg, frame_index,
-            di_radiance=di_total, accel=accel)
+            di_radiance=di_total, accel=accel, group=group)
 
     def _stage_trace(self, scene, cam, gbuf, sharc_state, di_total,
-                     frame_index, accel):
+                     frame_index, accel, rows=None):
         c = self.cfg
         return pathtrace.trace_image(
             scene, cam, self._pt_cfg(), frame_index, gbuf=gbuf,
             sharc_state=sharc_state if c.sharc_enabled else None,
             sharc_cfg=c.sharc if c.sharc_enabled else None,
             di_radiance=di_total, di_in_radiance=c.denoiser == "None",
-            accel=accel)
+            accel=accel, rows=rows)
+
+    def _gather_trace(self, out, gbuf, group):
+        """The banded trace's full frame: its radiance and first-bounce
+        AOVs gathered, the primary AOVs from the gathered G-buffer (the
+        trace takes them from it), the rays, counters and spill waves
+        summed over the ranks."""
+        radiance, is_diffuse, hit_distance = mesh_mod.gather_tree(
+            (out.radiance, out.is_diffuse, out.hit_distance), group,
+            self.cfg.render_height)
+        sums = mesh_mod.all_reduce_counters(
+            {**out.counters, "rays_traced": out.rays_traced,
+             "spill_waves": torch.tensor(float(out.spill_waves),
+                                         device=self.device)}, group)
+        spill_waves = int(sums.pop("spill_waves").item())
+        rays_traced = sums.pop("rays_traced")
+        return pathtrace.TraceOutput(
+            radiance=radiance, is_diffuse=is_diffuse,
+            hit_distance=hit_distance, primary_valid=gbuf.surf.valid,
+            primary_position=gbuf.surf.position,
+            primary_normal=gbuf.mat.shading_normal,
+            primary_albedo=gbuf.diffuse_albedo,
+            primary_f_env=gbuf.specular_albedo,
+            primary_radiance=gbuf.radiance, rays_traced=rays_traced,
+            counters=sums, spill_waves=spill_waves)
 
     def _stage_denoise(self, state, out, gbuf, cam, di_diffuse, di_specular,
                        reset):
@@ -647,25 +687,44 @@ class RenderPipeline:
     def render_frame(self, state: FrameState, pose: CameraPose,
                      dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
                      reset: bool = False,
-                     dyn: DynamicSettings | None = None, _run=None):
+                     dyn: DynamicSettings | None = None, _run=None,
+                     group=None):
         """One App::Tick (update + render + post).
 
         ``_run(name, fn, *args)`` wraps every frame-graph stage (the
         PIX-scoped-event seam, App.cpp:598); ``bench.bench_frame`` times
-        stages through it. Returns (new_state, image (OH, OW, 3) in
-        [0, 1])."""
+        stages through it. With a ``group`` (every rank of it calls with
+        the same state), this rank renders its row band and the frame's
+        exchanges run as the stages "gather_*" (see the module
+        docstring). Returns (new_state, image (OH, OW, 3) in [0, 1])."""
         if self.cluster_plan is None and not self._planned:
             raise RuntimeError("call init_state or build_plan first")
         c = self.cfg
         run = _run if _run is not None else (lambda name, fn, *a: fn(*a))
         fi = state.frame_index
+        band = None
+        if group is not None:
+            band = mesh_mod.group_band(c.render_height, group)
+
+        def gathered(name, tree):
+            """A band stage's per-pixel outputs, as the full frame."""
+            if group is None:
+                return tree
+            return run(name, lambda t: mesh_mod.gather_tree(
+                t, group, c.render_height), tree)
+
+        def band_rows(tree):
+            """This rank's rows of a full-frame tree."""
+            if group is None:
+                return tree
+            return mesh_mod.map_tensors(lambda t: t[band[0]:band[1]], tree)
 
         bodies, scene, cam, accel = run(
             "update", lambda s, p: self._stage_update(s, p, dt, prev_pose),
             state, pose)
-        gbuf = run("gbuffer", lambda s, cm, a: self._stage_gbuffer(s, cm, a,
-                                                                 fi),
-                   scene, cam, accel)
+        gbuf_band = run("gbuffer", lambda s, cm, a: self._stage_gbuffer(
+            s, cm, a, fi, band), scene, cam, accel)
+        gbuf = gathered("gather_gbuffer", gbuf_band)
 
         di_total = di_diffuse = di_specular = grid = None
         reservoirs = state.reservoirs
@@ -676,25 +735,31 @@ class RenderPipeline:
                 lambda s, cm: self._restir_prepare(s, cm, fi), scene, cam)
             surface, cur = run(
                 "restir_initial",
-                lambda g, s, li, gr, a: self._restir_initial(g, s, li, gr,
-                                                             fi, a),
-                gbuf, scene, lights, grid, accel)
+                lambda g, s, li, gr, a: self._restir_initial(
+                    g, s, li, gr, fi, a, band[0] if band else 0),
+                gbuf_band, scene, lights, grid, accel)
+            # Temporal and spatial reuse read other pixels: the full frame.
+            surface_full = surface
+            if group is not None:
+                cur = gathered("gather_reservoirs", cur)
+                surface_full = restir.make_surface(gbuf)
             if c.restir.temporal_enabled:
                 cur = run(
                     "restir_temporal",
                     lambda st, cu, su, li, g, s2, a2, cm:
                     self._restir_temporal(st, cu, su, li, g, reset, fi, s2,
                                           a2, cm),
-                    state, cur, surface, lights, gbuf, scene, accel, cam)
+                    state, cur, surface_full, lights, gbuf, scene, accel,
+                    cam)
             if c.restir.spatial_enabled:
                 cur = run(
                     "restir_spatial",
                     lambda cu, su, li, s2, a2: self._restir_spatial(
                         cu, su, li, fi, state.frame_count, s2, a2),
-                    cur, surface, lights, scene, accel)
-            di_diffuse, di_specular = run(
-                "restir_final", self._restir_final, cur, surface, scene,
-                lights, accel)
+                    cur, surface_full, lights, scene, accel)
+            di_diffuse, di_specular = gathered("gather_di", run(
+                "restir_final", self._restir_final, band_rows(cur), surface,
+                scene, lights, accel))
             di_total = di_diffuse + di_specular
             reservoirs = cur
             # MAX_LIGHTS cap accounting and ReGIR occupancy (the fraction
@@ -714,14 +779,18 @@ class RenderPipeline:
             sharc_state, sharc_counters = run(
                 "sharc_update",
                 lambda st, s, cm, di, a: self._stage_sharc(st, s, cm, di, a,
-                                                           fi),
+                                                           fi, group),
                 state, scene, cam, di_total, accel)
             frame_counters.update(sharc_counters)
 
         out = run("trace",
                   lambda s, cm, g, sh, di, a: self._stage_trace(
-                      s, cm, g, sh, di, fi, a),
-                  scene, cam, gbuf, sharc_state, di_total, accel)
+                      s, cm, g, sh, di, fi, a, band),
+                  scene, cam, gbuf_band, sharc_state, band_rows(di_total),
+                  accel)
+        if group is not None:
+            out = run("gather_trace", lambda o, g: self._gather_trace(
+                o, g, group), out, gbuf)
 
         den_state, confidence = state.denoiser, None
         if c.denoiser != "None":

@@ -72,11 +72,14 @@ def make_camera(position, forward=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0),
                   near_depth=f32(near_depth), far_depth=f32(far_depth))
 
 
-def pixel_ndc(width: int, height: int, jitter):
-    """Per-pixel (H, W, 2) NDC grid with camera jitter (Math::CalculateUV/NDC)."""
+def pixel_ndc(width: int, height: int, jitter, rows=None):
+    """Per-pixel (H, W, 2) NDC grid with camera jitter (Math::CalculateUV/NDC).
+    ``rows`` = (start, end) gives a band of the height-row frame: its
+    (end - start, W, 2) grid, each pixel's NDC as in the whole frame."""
     dev = jitter.device
+    r0, r1 = rows if rows is not None else (0, height)
     px = torch.arange(width, dtype=torch.float32, device=dev)
-    py = torch.arange(height, dtype=torch.float32, device=dev)
+    py = torch.arange(r0, r1, dtype=torch.float32, device=dev)
     xy = torch.stack(torch.meshgrid(px, py, indexing="xy"), dim=-1)
     dims = torch.tensor([width, height], dtype=torch.float32, device=dev)
     return m.calculate_ndc(m.calculate_uv(xy, dims, jitter))

@@ -32,14 +32,17 @@ class GBuffer:
 def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
              width: int, height: int, block_size: int = 16384,
              accel=None, thin_lens: bool = False,
-             frame_index=0) -> GBuffer:
+             frame_index=0, rows=None) -> GBuffer:
     """Primary-ray pass. With ``thin_lens`` the primary rays sample the
     camera aperture (Camera.hlsli:43-54), each pixel from its own stream
-    of ``frame_index``, so every pixel has its own ray origin."""
-    ndc = camera_mod.pixel_ndc(width, height, cam.jitter)
+    of ``frame_index``, so every pixel has its own ray origin. ``rows`` =
+    (start, end) renders that band of the height-row frame (its pixels'
+    NDC, streams and motion as in the whole frame)."""
+    r0, r1 = rows if rows is not None else (0, height)
+    ndc = camera_mod.pixel_ndc(width, height, cam.jitter, rows)
     if thin_lens:
         dev = ndc.device
-        py, px = torch.meshgrid(torch.arange(height, device=dev),
+        py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
                                 torch.arange(width, device=dev),
                                 indexing="ij")
         u2, _ = rng_mod.next_floats(
@@ -49,8 +52,8 @@ def generate(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     else:
         ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(cam,
                                                                       ndc)
-    t_min = torch.broadcast_to(t_min, (height, width))
-    t_max = torch.broadcast_to(t_max, (height, width))
+    t_min = torch.broadcast_to(t_min, (r1 - r0, width))
+    t_max = torch.broadcast_to(t_max, (r1 - r0, width))
 
     table = scene_mod.object_table(scene)
     surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,

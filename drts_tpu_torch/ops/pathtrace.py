@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..models import scene as scene_mod
+from ..parallel import mesh as mesh_mod
 from ..utils import math as m
 from ..utils import rng as rng_mod
 from . import bxdf, camera as camera_mod, intersect, post, shading, sharc
@@ -437,7 +438,8 @@ def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 cfg: PathTraceConfig, frame_index, gbuf=None,
                 sharc_state=None, sharc_cfg=None, di_radiance=None,
-                di_in_radiance: bool = True, accel=None) -> TraceOutput:
+                di_in_radiance: bool = True, accel=None,
+                rows=None) -> TraceOutput:
     """Render one frame's path-traced radiance (plus AOVs).
 
     With a G-buffer the primary hit is reused from it instead of re-traced
@@ -447,18 +449,24 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     ``di_in_radiance`` (the denoiser-off routing, Raytracing.hlsl:379-385)
     it is added to the radiance. With ``sharc_state`` (and its
     ``sharc_cfg``), hits from bounce ``cfg.sharc_query_from`` on end into
-    the cache where it holds their voxel."""
+    the cache where it holds their voxel. ``rows`` = (start, end) traces
+    that band of the cfg.height-row frame: its pixels' NDC and streams
+    are the whole frame's, and the outputs, the G-buffer and
+    ``di_radiance`` are (end - start, W, ...); the compaction packs the
+    band's pixels into the whole frame's capacity."""
     sharc_args = None
     if sharc_state is not None:
         sharc_args = (sharc_state, sharc_cfg, cam.position)
-    h, w = cfg.height, cfg.width
+    w = cfg.width
+    r0, r1 = rows if rows is not None else (0, cfg.height)
+    h = r1 - r0
     dev = scene.center.device
-    ndc = camera_mod.pixel_ndc(w, h, cam.jitter)
+    ndc = camera_mod.pixel_ndc(w, cfg.height, cam.jitter, rows)
     ray_o0, ray_d0, t_min0, t_max0 = camera_mod.generate_pinhole_rays(cam,
                                                                       ndc)
     t_min0 = torch.broadcast_to(t_min0, (h, w))
     t_max0 = torch.broadcast_to(t_max0, (h, w))
-    py, px = torch.meshgrid(torch.arange(h, device=dev),
+    py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
                             torch.arange(w, device=dev), indexing="ij")
     table = scene_mod.object_table(scene)
 
@@ -494,8 +502,11 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
 
     use_compact = 1 <= cfg.compact_from <= cfg.bounces
     dense_last = cfg.compact_from - 1 if use_compact else cfg.bounces
-    cap = cfg.compact_capacity or _compact_capacity(h * w,
-                                                    cfg.compact_fraction)
+    # The whole frame's deep-segment capacity (at most the band's pixels):
+    # a band then spills only where the whole frame would.
+    cap = cfg.compact_capacity or min(
+        _compact_capacity(cfg.height * w, cfg.compact_fraction),
+        _compact_capacity(h * w, 1))
     cap_first = _compact_capacity(h * w, cfg.compact_fraction_first)
 
     if di_radiance is not None:
@@ -659,7 +670,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
 
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                        sharc_state, sharc_cfg, cfg: PathTraceConfig,
-                       frame_index, di_radiance=None, accel=None):
+                       frame_index, di_radiance=None, accel=None,
+                       group=None):
     """The SHARC_UPDATE pass: a trace at the downscaled size (cfg.width and
     cfg.height are already downscaled) whose path radiance is splatted into
     the cache, then resolved (Raytracing.hlsl's SHARC_UPDATE permutation,
@@ -675,23 +687,37 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     With cfg.compact_from == 1 the paths are compacted and octant-sorted
     once after bounce 0, as in the main trace; their slots then stay
     fixed, so the records of bounces >= 1 and the backward scan are in
-    slot space, and only level 1 -> 0 crosses back to pixel space."""
-    h, w = cfg.height, cfg.width
+    slot space, and only level 1 -> 0 crosses back to pixel space.
+
+    With a ``group`` (of the banded frame) this rank traces its row band
+    of the downscaled frame (``di_radiance`` is the whole frame's) and
+    splats its rows; ``splat_levels`` all-reduces the splat, so every
+    rank resolves the same cache and reports the dropped rows of all."""
+    w = cfg.width
+    rows = None
+    if group is not None:
+        rows = mesh_mod.group_band(cfg.height, group)
+    r0, r1 = rows if rows is not None else (0, cfg.height)
+    h = r1 - r0
     dev = scene.center.device
-    py, px = torch.meshgrid(torch.arange(h, device=dev),
+    py, px = torch.meshgrid(torch.arange(r0, r1, device=dev),
                             torch.arange(w, device=dev), indexing="ij")
     rng = rng_mod.init(px + 131, py + 173, frame_index)
     jit2, rng = rng_mod.next_floats(rng, 2)
-    ndc = camera_mod.pixel_ndc(w, h, torch.zeros(2, device=dev))
+    ndc = camera_mod.pixel_ndc(w, cfg.height, torch.zeros(2, device=dev),
+                               rows)
     jitter_ndc = ((jit2 - 0.5) * torch.tensor([2.0, -2.0], device=dev)
-                  / torch.tensor([w, h], dtype=torch.float32, device=dev))
+                  / torch.tensor([w, cfg.height], dtype=torch.float32,
+                                 device=dev))
     ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(
         cam, ndc + jitter_ndc)
     t_min = torch.broadcast_to(t_min, (h, w))
     t_max = torch.broadcast_to(t_max, (h, w))
     table = scene_mod.object_table(scene)
-    di_small = (post.resize_bilinear(di_radiance, h, w)
+    di_small = (post.resize_bilinear(di_radiance, cfg.height, w)
                 if di_radiance is not None else None)
+    if di_small is not None and rows is not None:
+        di_small = di_small[r0:r1]
 
     # Per bounce: emissions[b] is the radiance emitted at level b (the hit's
     # emission, or once, at the miss level, the environment);
@@ -782,7 +808,7 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
            torch.zeros(capacity, dtype=torch.float32, device=dev),
            torch.zeros(capacity, dtype=torch.int64, device=dev))
     frame_sum, frame_count, frame_fp, dropped = sharc.splat_levels(
-        acc, slots, fps, level_radiance, actives)
+        acc, slots, fps, level_radiance, actives, group=group)
     new_state = sharc.resolve(sharc_state, frame_sum, frame_count, frame_fp,
                               sharc_cfg)
     return new_state, {"sharc_splat_dropped_rows":

@@ -310,8 +310,9 @@ def _pack_surface_planar(surface: Surface):
     return torch.stack([r.reshape(-1).to(torch.float32) for r in rows])
 
 
-def _pixel_grid(h: int, w: int, device):
-    return torch.meshgrid(torch.arange(h, device=device),
+def _pixel_grid(h: int, w: int, device, row0: int = 0):
+    """(py, px) of an (h, w) grid whose first row is image row `row0`."""
+    return torch.meshgrid(torch.arange(row0, row0 + h, device=device),
                           torch.arange(w, device=device), indexing="ij")
 
 
@@ -430,16 +431,19 @@ def _intersect_tri_lights(lights: light_mod.Lights, origin, direction, live):
 
 def initial_sampling(surface: Surface, scene, lights: light_mod.Lights,
                      grid: ReGIRGrid | None, cfg: ReSTIRConfig, frame_index,
-                     block_size: int = 16384, accel=None) -> Reservoirs:
+                     block_size: int = 16384, accel=None,
+                     row0: int = 0) -> Reservoirs:
     """n_l light candidates (B3 in ReGIR_RIS mode on a sphere-light table
     with initial_kernel on, else _light_candidates) and n_b BRDF-ray
     candidates (B11 light sweep and, with triangle lights, the dense
     triangle sweep; the occluder test) into one reservoir per pixel, then
-    the initial visibility ray. `grid` is used in ReGIR_RIS mode only."""
+    the initial visibility ray. `grid` is used in ReGIR_RIS mode only.
+    A `surface` of a row band starting at image row `row0` takes its
+    pixels' streams of the whole frame."""
     check_config(cfg)
     h, w = surface.depth.shape
     dev = surface.depth.device
-    py, px = _pixel_grid(h, w, dev)
+    py, px = _pixel_grid(h, w, dev, row0)
     rng = rng_mod.init(px + 17, py + 31, frame_index * 3 + 1)
 
     s = cfg.regir_slots_per_cell

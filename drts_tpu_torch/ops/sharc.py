@@ -28,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from ..utils import math as m
 from ..utils import rng as rng_mod
@@ -222,7 +223,7 @@ def _compact_rows(keep, cap: int):
 
 
 def splat_levels(state_accum, slots_list, fps_list, radiance_list,
-                 active_list):
+                 active_list, group=None):
     """Scatter every bounce level's vertex radiance in two scatters (an add
     of [rgb * w, w] and a max of the fingerprint claim). Returns (sum (C,
     3), count (C,), fp (C,), dropped rows).
@@ -231,7 +232,14 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     drop slot; the first n/3 live rows are kept (all of them at n <=
     16384), sorted by slot (stable), merged within groups of 32
     (_local_dedup), and the first n/6 surviving rows are scattered: live
-    rows beyond either cap are dropped and counted."""
+    rows beyond either cap are dropped and counted.
+
+    With a ``group`` (the banded frame: each rank splats its band's rows
+    into zeroed accumulators) the splat is all-reduced over the ranks: a
+    SUM of the (C, 4) sums and counts, a MAX of the fingerprints and a SUM
+    of the dropped rows, so every rank returns the same. The caps apply
+    to each rank's rows, so a band may drop rows that one call over the
+    whole frame keeps, and the reverse."""
     acc_sum, acc_count, acc_fp = state_accum
     capacity = acc_count.shape[0]
     dev = acc_count.device
@@ -269,8 +277,13 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     acc4.index_add_(0, c_slots, c_payload)
     fp_out = torch.cat([acc_fp, acc_fp.new_zeros(1)])
     fp_out.scatter_reduce_(0, c_slots, c_fp, reduce="amax")
+    dropped = (dropped + dropped_pre).to(dev)
+    if group is not None:
+        dist.all_reduce(acc4, group=group)
+        dist.all_reduce(fp_out, op=dist.ReduceOp.MAX, group=group)
+        dist.all_reduce(dropped, group=group)
     return (acc4[:capacity, 0:3], acc4[:capacity, 3], fp_out[:capacity],
-            (dropped + dropped_pre).to(dev))
+            dropped)
 
 
 def resolve(state: SHARCState, frame_sum, frame_count, frame_fp,

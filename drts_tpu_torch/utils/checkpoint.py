@@ -38,20 +38,20 @@ class CheckpointMismatch(ValueError):
     """The checkpoint's paths or shapes differ from the state's."""
 
 
-def _leaves(obj, prefix=""):
+def leaves(obj, prefix=""):
     """(dotted path, leaf) of every tensor and host number of `obj`, a
     tree of dataclasses, dicts, lists and tuples; None holds no leaf."""
     if obj is None:
         return
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         for f in dataclasses.fields(obj):
-            yield from _leaves(getattr(obj, f.name), f"{prefix}{f.name}.")
+            yield from leaves(getattr(obj, f.name), f"{prefix}{f.name}.")
     elif isinstance(obj, dict):
         for k, v in obj.items():
-            yield from _leaves(v, f"{prefix}{k}.")
+            yield from leaves(v, f"{prefix}{k}.")
     elif isinstance(obj, (list, tuple)):
         for i, v in enumerate(obj):
-            yield from _leaves(v, f"{prefix}{i}.")
+            yield from leaves(v, f"{prefix}{i}.")
     elif isinstance(obj, (torch.Tensor, bool, int, float)):
         yield prefix[:-1], obj
     else:
@@ -62,7 +62,7 @@ def _leaves(obj, prefix=""):
 def flatten(state) -> dict:
     """The flat ``{dotted.path: tensor}`` dict that ``save`` writes."""
     flat = {}
-    for path, leaf in _leaves(state):
+    for path, leaf in leaves(state):
         if isinstance(leaf, torch.Tensor):
             flat[path] = leaf.detach()
         else:   # a host number: float64 keeps a Python float exact

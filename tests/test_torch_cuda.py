@@ -43,7 +43,11 @@ and a 32-slot deep segment with and without the spill wave. The packed
 texture path (shading.sample_packed in its three filters and
 evaluate_material with a normal map, 2- and 3-word sets) runs on the card
 through every index clamp: u below half a texel, u and v at 0 and 1, set
-ids -1 and past the last set, NaN and infinite uv. Run on a GPU
+ids -1 and past the last set, NaN and infinite uv. The banded frame
+(drts_tpu_torch/parallel) at 64x64: one NCCL rank bit for bit against the
+unbanded frame on a SHARC skip frame, and two and three gloo ranks
+sharing the card (even and uneven bands) within chip_smoke.py's
+DEFAULT_* bounds of the one-device frames. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1302,3 +1306,73 @@ def test_session_card_against_cpu(dev):
         assert float(d.mean()) <= 2e-4 and off <= 2e-3, (change,
                                                           float(d.mean()),
                                                           off)
+
+
+def _banded_config(height=64):
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.ops import sharc
+    return pipeline.PipelineConfig(
+        output_width=64, output_height=height, render_width=64,
+        render_height=height, bounces=2, block_size=4096,
+        sharc=sharc.SHARCConfig(capacity_log2=12))
+
+
+def test_one_nccl_rank_equals_the_unbanded_frame(dev):
+    """A 64x64 default-graph frame banded over one NCCL rank against
+    render_frame(group=None) from the same state, on a SHARC skip frame
+    (no float atomics): the image and every FrameState leaf bit for bit,
+    the same launches."""
+    import torch.distributed as dist
+
+    from drts_tpu_torch import graft_entry
+    from drts_tpu_torch.parallel import mesh, multihost
+    if dist.is_initialized():
+        pytest.skip("a process group is already running")
+    pipe, state, pose = graft_entry._setup(_banded_config(), dev, 3)
+    state, _ = pipe.render_frame(state, pose)     # frame 1 skips SHARC
+    assert multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                device="cuda")
+    try:
+        backend.reset_launches()
+        s_g, img_g = pipe.render_frame(state, pose,
+                                       group=multihost.global_group())
+        launches = dict(backend.LAUNCHES)
+        backend.reset_launches()
+        s_n, img_n = pipe.render_frame(state, pose)
+        assert launches == backend.LAUNCHES
+        assert torch.equal(img_g, img_n)
+        assert mesh.replica_checksums(s_g) == mesh.replica_checksums(s_n)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("ranks,height", [(2, 64), (3, 64)],
+                         ids=["even", "uneven"])
+def test_gloo_ranks_on_the_card_near_one_device(dev, tmp_path, ranks,
+                                                height):
+    """Two frames banded over gloo ranks sharing the card (two: bands of
+    32 rows; three: bands of 21, 21 and 22 rows, and 5, 5 and 6 rows of
+    the SHARC update trace) against the one-device frames: each image
+    within chip_smoke.py's DEFAULT_* bounds (mean |difference| <= 2e-4;
+    <= 0.2% of pixels off by more than 0.05), every rank's state equal."""
+    from drts_tpu_torch import graft_entry
+    from drts_tpu_torch.parallel import mesh, multihost
+    cfg = _banded_config(height)
+    multihost.spawn(graft_entry.frames_worker, ranks, "cuda",
+                    backend_name="gloo",
+                    args=([cfg], 2, str(tmp_path), 3, None, "cuda"))
+    runs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)[0]
+            for r in range(ranks)]
+    pipe, state, pose = graft_entry._setup(cfg, dev, 3)
+    for i in range(2):
+        state, img = pipe.render_frame(state, pose)
+        for run in runs:
+            d = (run["images"][i] - img.cpu()).abs()
+            off = float((d.amax(-1) > 0.05).float().mean())
+            assert float(d.mean()) <= 2e-4 and off <= 2e-3, (
+                i, float(d.mean()), off)
+    assert all(run["checksums"] == runs[0]["checksums"] for run in runs)
+    assert not mesh.replicas_differ(runs[0]["checksums"])
+    assert [run["band"] for run in runs] == [
+        mesh.row_band(height, r, ranks) for r in range(ranks)]
+    assert all(run["launches"]["intersect_morton"] > 0 for run in runs)
