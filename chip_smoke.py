@@ -251,6 +251,19 @@ Phases, one printed line or more each; any failure exits non-zero:
    records one more frame's kernel calls, holds each to its plain version
    and times it on its band's inputs (B4 on the gathered frame's). (d)
    The time of each.
+23. record: python -m drts_tpu_torch.bench --record, the reference's
+   bench record (bench.py:main: the headline path trace, the full
+   pipeline, the upscaled frame, the mesh trace at 2 and 8 bounces, the
+   all-mesh pipeline, the port's fidelity record), run as a user runs it,
+   in a process of its own with a RECORD_TIMEOUT limit: exit 0, the last
+   line's keys the reference's (bench.RECORD_KEYS, fidelity_recorded
+   included), no "errors", "device" the card's name, every number finite
+   and above zero but the counters (loss counts, zero where nothing is
+   lost: finite and >= 0; the SHARC rates in [0, 1], some hit rate above
+   zero); each bench's launches from its stderr line as its graph
+   launches them (the counts of phases 4, 9, 14 and 16 by frames and
+   closest-hit calls). The record is printed on a line of its own, with
+   the phase's time.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -3158,6 +3171,138 @@ def run_banded(backend, smi, dev):
     return ranks[0]["fields"], launches
 
 
+# Phase 23: the record's limit in seconds, and the kernels each of its
+# benches must not launch.
+RECORD_TIMEOUT = 600
+SPHERE_ONLY = ("bound_scan", "shared_blas_sweep", "intersect_mesh_instances",
+               "shared_blas_any", "intersect_mesh_instances_any",
+               "cand_fused")
+MESH_ONLY = ("intersect_morton", "occlusion_morton",
+             "initial_light_candidates", "cand_fused")
+
+
+def record_numbers(value, path=""):
+    """(path, number) of every number in a record, bools aside."""
+    if isinstance(value, dict):
+        for k, v in value.items():
+            yield from record_numbers(v, f"{path}.{k}" if path else k)
+    elif isinstance(value, list):
+        for i, v in enumerate(value):
+            yield from record_numbers(v, f"{path}[{i}]")
+    elif isinstance(value, (int, float)) and not isinstance(value, bool):
+        yield path, value
+
+
+def expect_launches(name, got, want):
+    for kernel, count in want.items():
+        if got[kernel] != count:
+            raise AssertionError(f"record {name}: {kernel} launched "
+                                 f"{got[kernel]} times, expected {count}")
+
+
+def check_record_launches(bench_name, frames, launches):
+    """Phase 23: each bench's launches as its graph makes them (phase 4's
+    bound for the path traces, phase 14's counts for the sphere frame
+    graph, phase 9's per closest-hit call for the mesh traces, phase 16's
+    for the all-mesh pipeline)."""
+    f = frames
+    if bench_name == "trace":
+        expect_launches(bench_name, launches, dict.fromkeys(
+            SPHERE_ONLY + ("occlusion_morton", "initial_light_candidates",
+                           "reproject_packed", "intersect_brute"), 0))
+        if launches["intersect_morton"] < 8 * f:
+            raise AssertionError(f"record trace: B1 launched "
+                                 f"{launches['intersect_morton']} times in "
+                                 f"{f} frames of 8 bounces")
+    elif bench_name in ("full_pipeline", "upscaled"):
+        expect_launches(bench_name, launches, dict(
+            dict.fromkeys(SPHERE_ONLY, 0), occlusion_morton=3 * f,
+            initial_light_candidates=f, intersect_brute=f,
+            reproject_packed=4 * f))
+        updates = -(-f // 2)
+        if launches["intersect_morton"] < 9 * (f + updates):
+            raise AssertionError(f"record {bench_name}: B1 launched "
+                                 f"{launches['intersect_morton']} times in "
+                                 f"{f} frames")
+    elif bench_name in ("mesh", "mesh8"):
+        bounces = 2 if bench_name == "mesh" else 8
+        calls = launches["intersect_mesh_instances"]
+        if calls < f * (bounces + 1):
+            raise AssertionError(f"record {bench_name}: {calls} closest-hit "
+                                 f"calls in {f} frames of {bounces} bounces")
+        expect_launches(bench_name, launches, dict(
+            dict.fromkeys(MESH_ONLY + ("reproject_packed", "shared_blas_any",
+                                       "intersect_mesh_instances_any"), 0),
+            bound_scan=4 * calls, shared_blas_sweep=3 * calls,
+            intersect_brute=2 * calls))
+    else:
+        calls = launches["intersect_mesh_instances"]
+        if calls < f * 9:
+            raise AssertionError(f"record mesh_pipeline: {calls} closest-hit "
+                                 f"calls in {f} frames of 8 bounces")
+        expect_launches(bench_name, launches, dict(
+            dict.fromkeys(MESH_ONLY, 0), shared_blas_any=6 * f,
+            intersect_mesh_instances_any=3 * f,
+            bound_scan=4 * calls + 9 * f, shared_blas_sweep=3 * calls,
+            intersect_brute=2 * calls + 4 * f, reproject_packed=4 * f))
+
+
+def run_record(bench, smi):
+    """Phase 23: the port's bench record as a user runs it (python -m
+    drts_tpu_torch.bench --record), in a process of its own; checks its
+    exit code, its keys against the reference's, its numbers and each
+    bench's launches. Returns the record."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "drts_tpu_torch.bench", "--record"],
+        cwd=HERE, capture_output=True, text=True, timeout=RECORD_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    notes = [line for line in proc.stderr.splitlines()
+             if line.startswith("bench: ")]
+    for line in notes:
+        log(f"record: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"bench --record exited {proc.returncode} "
+                             f"after {seconds:.1f} s:\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"record: {json.dumps(rec)}")
+    log(f"record: bench --record took {seconds:.1f} s | {smi}")
+    if "errors" in rec:
+        raise AssertionError(f"bench --record: errors {rec['errors']}")
+    if set(rec) != bench.RECORD_KEYS:
+        raise AssertionError(f"bench --record: keys {sorted(rec)} are not "
+                             f"the reference's {sorted(bench.RECORD_KEYS)}")
+    if rec["device"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench --record: device {rec['device']!r}")
+    for path, value in record_numbers(rec):
+        counter = path.startswith("counters.")
+        if not np.isfinite(value) or value < 0 or (
+                value == 0 and not counter):
+            raise AssertionError(f"bench --record: {path} = {value!r}")
+    rates = [v for k in ("sharc_hit_rate", "sharc_gate_rate",
+                         "sharc_entry_rate")
+             for v in rec["counters"][k].values()]
+    if max(rates) > 1 or max(rec["counters"]["sharc_hit_rate"].values()) \
+            <= 0:
+        raise AssertionError(f"bench --record: SHARC rates {rates}")
+    seen = {}
+    for line in notes:
+        if line.startswith("bench: launches "):
+            entry = json.loads(line[len("bench: launches "):])
+            seen[entry["bench"]] = entry
+            check_record_launches(entry["bench"], entry["frames"],
+                                  entry["launches"])
+    if list(seen) != ["trace", "full_pipeline", "upscaled", "mesh",
+                      "mesh8", "mesh_pipeline"]:
+        raise AssertionError(f"bench --record: launches of {list(seen)}")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -3643,6 +3788,11 @@ def main():
     fields.update(b_fields)
     launches.update(b_launches)
     log(f"banded: phase 22 took {time.perf_counter() - t0:.1f} s")
+
+    # 23. the reference's bench record through the port's CLI -------------
+    t0 = time.perf_counter()
+    run_record(bench, smi)
+    log(f"record: phase 23 took {time.perf_counter() - t0:.1f} s")
 
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",

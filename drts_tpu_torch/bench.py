@@ -57,6 +57,21 @@ brute-force kernel (B11).
 frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
 loop, B10).
 
+The record (``--record``, the reference's ``bench.py:main``): six
+benches at the reference's recipes and iteration counts in one JSON line
+with the reference's keys (``record``): the headline path trace
+(``bench_trace`` on the textured build, block 32,768, 1 warm and 8 timed
+frames), the full pipeline (``bench_full_pipeline``: the frame graph at
+native 1920x1080, block 32,768, 4 timed frames, its stage times and
+counter report), the upscaled frame (``bench_upscaled``, 960x540 to
+1920x1080, block 32,768, 4 timed), the mesh trace at 2 bounces (4 timed)
+and at 8 (2 timed; ``bench_mesh``, untextured), the all-mesh pipeline
+(``bench_mesh_pipeline``, 2 timed) and the port's fidelity record
+(``FIDELITY_TORCH.json``). ``--fast`` keeps the headline alone. A bench
+that fails lands in "errors" and the process exits 1 after printing the
+line. Each bench's launches, frames and spill waves go to stderr.
+``--iters`` does not apply to the record.
+
     python -m drts_tpu_torch.bench [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
     python -m drts_tpu_torch.bench --mesh [--mesh-cand M] [--iters N]
@@ -67,6 +82,7 @@ loop, B10).
     python -m drts_tpu_torch.bench --textured-frame [--iters N]
     python -m drts_tpu_torch.bench --options-frame [--accel none] [--iters N]
     python -m drts_tpu_torch.bench --frame --accel none [--iters N]
+    python -m drts_tpu_torch.bench --record [--fast]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -90,7 +106,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import signal
+import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -111,8 +131,10 @@ class TraceSetup:
 
 def make_trace_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, spp: int = 1,
-                     oscillator_grid: int = 10, device="cuda") -> TraceSetup:
-    host = myscene.build(oscillator_grid=oscillator_grid, device=device)
+                     oscillator_grid: int = 10, device="cuda",
+                     load_textures: bool = False) -> TraceSetup:
+    host = myscene.build(oscillator_grid=oscillator_grid,
+                         load_textures=load_textures, device=device)
     scene = host.scene
     plan = clusters.build_plan_morton(scene.center.cpu().numpy(),
                                       scene.radius.cpu().numpy(),
@@ -145,17 +167,22 @@ def _sync(device):
 
 
 def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
-                spp: int = 1, iters: int = 8, device="cuda"):
+                spp: int = 1, iters: int = 8, device="cuda",
+                load_textures: bool = False):
     """One warm frame, then `iters` timed frames. Returns (stats, the last
-    frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame and
-    overflow_paths (of the last frame)."""
-    setup = make_trace_setup(width, height, bounces, spp, device=device)
+    frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
+    overflow_paths (of the last frame), frames and the spill waves of all
+    of them."""
+    setup = make_trace_setup(width, height, bounces, spp, device=device,
+                             load_textures=load_textures)
     out = trace_frame(setup, 0)
     _sync(device)
     rays_per_frame = float(out.rays_traced)
+    spill_waves = out.spill_waves
     start = time.perf_counter()
     for i in range(iters):
         out = trace_frame(setup, i + 1)
+        spill_waves += out.spill_waves
     _sync(device)
     elapsed = time.perf_counter() - start
     stats = {
@@ -164,6 +191,7 @@ def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
         "rays_per_frame": rays_per_frame,
         "overflow_paths": float(
             out.counters["wavefront_overflow_paths"]),
+        "frames": 1 + iters, "spill_waves": spill_waves,
     }
     return stats, out
 
@@ -189,16 +217,19 @@ def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
                bounces: int = 8, iters: int = 4, oscillator_grid: int = 10,
                device="cuda"):
     """One warm mesh frame, then `iters` timed frames. Returns (stats, the
-    last frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame
-    and overflow_paths (of the last frame)."""
+    last frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
+    overflow_paths (of the last frame), frames and the spill waves of all
+    of them."""
     scene, cam, cfg = make_mesh_setup(width, height, tess, bounces,
                                       oscillator_grid, device=device)
     out = pathtrace.trace_image(scene, cam, cfg, 0)
     _sync(device)
     rays_per_frame = float(out.rays_traced)
+    spill_waves = out.spill_waves
     start = time.perf_counter()
     for i in range(iters):
         out = pathtrace.trace_image(scene, cam, cfg, i + 1)
+        spill_waves += out.spill_waves
     _sync(device)
     elapsed = time.perf_counter() - start
     stats = {
@@ -207,6 +238,7 @@ def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
         "rays_per_frame": rays_per_frame,
         "overflow_paths": float(
             out.counters["wavefront_overflow_paths"]),
+        "frames": 1 + iters, "spill_waves": spill_waves,
     }
     return stats, out
 
@@ -251,16 +283,19 @@ def make_frame_setup(width: int = 1920, height: int = 1080,
                      bounces: int = 8, oscillator_grid: int = 10,
                      device="cuda", mesh: bool = False, tess: int = 4,
                      cfg: pipeline.PipelineConfig | None = None,
-                     textured: bool = False, env_map_path: str | None = None):
+                     textured: bool = False, env_map_path: str | None = None,
+                     load_textures: bool = False):
     """The ReSTIR frame's pipeline, start state and camera pose (or, with
     `cfg`, that configuration's); with `mesh`, on the scene as instances
     of one geosphere of `tess`; with `textured`, on the mixed textured
     scene (add_mesh_content at tessellation 3). `env_map_path` lights the
-    scene with a lat-long EXR map."""
+    scene with a lat-long EXR map; `load_textures` builds the demo scene
+    with the reference's texture files where they load."""
     if cfg is None:
         cfg = pipeline.restir_frame_config(width, height, bounces)
     pipe = pipeline.RenderPipeline(cfg, device)
     host = myscene.build(oscillator_grid=oscillator_grid,
+                         load_textures=load_textures,
                          env_map_path=env_map_path, device=pipe.device)
     if mesh:
         host = myscene.as_mesh_scene(host, tessellation=tess)
@@ -296,20 +331,23 @@ def stage_timer(passes: dict, device):
 def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
                 iters: int = 4, device="cuda", mesh: bool = False,
                 cfg: pipeline.PipelineConfig | None = None,
-                textured: bool = False):
-    """One warm ReSTIR frame, then `iters` timed frames, then frames timed
-    stage by stage (one, or with SHARC one cadence of
-    `sharc_update_period` frames, so that the update's cost is in); with
-    `mesh`, the all-mesh ReSTIR frame; with `textured`, on the mixed
-    textured scene; with `cfg`, that configuration's frame (width, height
-    and bounces are then the config's). Returns
+                textured: bool = False, load_textures: bool = False,
+                profile: bool = True):
+    """One warm ReSTIR frame, then `iters` timed frames, then, with
+    `profile`, frames timed stage by stage (one, or with SHARC one cadence
+    of `sharc_update_period` frames, so that the update's cost is in);
+    with `mesh`, the all-mesh ReSTIR frame; with `textured`, on the mixed
+    textured scene; `load_textures` as in make_frame_setup; with `cfg`,
+    that configuration's frame (width, height and bounces are then the
+    config's). Returns
     (stats, the last timed frame's image); stats has frame_ms, passes_ms
     (each stage's mean over the stage-timed frames), rays_per_frame (path
     trace, warm frame), the counters of the last timed frame, the number
     of frames rendered and the spill waves the path trace ran in them."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
                                          device=device, mesh=mesh, cfg=cfg,
-                                         textured=textured)
+                                         textured=textured,
+                                         load_textures=load_textures)
     traced = {"spill_waves": 0}
 
     def counted(run=None):
@@ -331,8 +369,8 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
     _sync(device)
     elapsed = time.perf_counter() - start
     counters = {k: float(v) for k, v in state.counters.items()}
-    staged = (max(pipe.cfg.sharc_update_period, 1)
-              if pipe.cfg.sharc_enabled else 1)
+    staged = ((max(pipe.cfg.sharc_update_period, 1)
+               if pipe.cfg.sharc_enabled else 1) if profile else 0)
     passes = {}
     for _ in range(staged):
         frame = {}
@@ -351,9 +389,235 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
     return stats, image
 
 
+def counter_report(counters: dict) -> dict:
+    """The reference bench's counter report (``bench.py:128-147``): per
+    bounce b the SHARC hit, gate and entry rates over its queries (3
+    places), and every other counter rounded to 1 place."""
+    hit_rates, gate_rates, entry_rates = {}, {}, {}
+    for k in list(counters):
+        if k.startswith("sharc_hits_b"):
+            b = k[len("sharc_hits_b"):]
+            q = counters.get(f"sharc_queries_b{b}", 0.0)
+            if q > 0:
+                hit_rates[f"b{b}"] = round(counters[k] / q, 3)
+                gate_rates[f"b{b}"] = round(
+                    counters.get(f"sharc_gate_b{b}", 0.0) / q, 3)
+                entry_rates[f"b{b}"] = round(
+                    counters.get(f"sharc_entry_b{b}", 0.0) / q, 3)
+    report = {k: round(v, 1) for k, v in counters.items()
+              if not k.startswith(("sharc_hits", "sharc_queries",
+                                   "sharc_gate", "sharc_entry"))}
+    if hit_rates:
+        report["sharc_hit_rate"] = hit_rates
+        report["sharc_gate_rate"] = gate_rates
+        report["sharc_entry_rate"] = entry_rates
+    return report
+
+
+def _checked_frames(cfg, iters, device, mesh=False, profile=False):
+    """bench_frame on the textured build of the demo scene; raises on a
+    non-finite image and drops it. Returns the stats."""
+    stats, image = bench_frame(iters=iters, device=device, mesh=mesh,
+                               cfg=cfg, load_textures=True, profile=profile)
+    if not bool(torch.isfinite(image).all()):
+        raise RuntimeError("non-finite image")
+    return stats
+
+
+def bench_full_pipeline(iters: int = 4, device="cuda"):
+    """The reference's ``bench_full_pipeline``: the frame graph at native
+    1920x1080, 8 bounces, 1 spp, block 32,768, on the textured build; one
+    warm frame, then `iters` timed. Returns (frame ms, passes_ms rounded to
+    2 places, counter_report of the last timed frame, stats): the stages
+    are timed by stage_timer over one SHARC cadence after the timed
+    frames."""
+    cfg = default_frame_config(block_size=32768)
+    stats = _checked_frames(cfg, iters, device, profile=True)
+    passes = {k: round(v, 2) for k, v in stats["passes_ms"].items()}
+    return stats["frame_ms"], passes, counter_report(stats["counters"]), \
+        stats
+
+
+def bench_upscaled(iters: int = 4, device="cuda"):
+    """The reference's ``bench_upscaled``: default_frame_config(upscaled=
+    True), 960x540 upscaled by TAA to 1920x1080, on the textured build; one
+    warm frame, then `iters` timed. Returns (frame ms, stats)."""
+    stats = _checked_frames(default_frame_config(upscaled=True), iters,
+                            device)
+    return stats["frame_ms"], stats
+
+
+def bench_mesh_pipeline(iters: int = 2, device="cuda"):
+    """The reference's ``bench_mesh_pipeline``: mesh_pipeline_config() on
+    the all-mesh scene (the textured build as instances of a
+    tessellation-4 geosphere); one warm frame, then `iters` timed. Returns
+    (frame ms, stats)."""
+    stats = _checked_frames(mesh_pipeline_config(), iters, device,
+                            mesh=True)
+    return stats["frame_ms"], stats
+
+
+# The keys of the reference bench's record (``bench.py:main``), with and
+# without DRTS_BENCH_FAST, where the fidelity record exists; "errors" comes
+# only with a failed bench.
+FAST_RECORD_KEYS = frozenset((
+    "metric", "value", "unit", "vs_baseline", "device", "frame_ms",
+    "rays_per_frame", "fidelity_recorded"))
+RECORD_KEYS = FAST_RECORD_KEYS | frozenset((
+    "full_pipeline_ms", "passes_ms", "counters", "passes_sum_ms",
+    "full_pipeline_upscaled_ms", "mesh_trace_mray_s", "mesh_trace_ms",
+    "mesh_trace_8b_mray_s", "mesh_trace_8b_ms",
+    "mesh_pipeline_upscaled_ms"))
+
+# The port's record of its fidelity runs (python -m drts_tpu_torch.fidelity
+# --record FIDELITY_TORCH.json), at the root of the checkout.
+FIDELITY_PATH = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "FIDELITY_TORCH.json")
+
+
+def device_name(device) -> str:
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return str(device)
+
+
+def _note(msg):
+    print(msg, file=sys.stderr, flush=True)
+
+
+def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
+           note=_note):
+    """The reference bench's record (``bench.py:main``): the headline
+    path trace, then (unless `fast`) the full pipeline with its stage
+    times and counters, the upscaled frame, the mesh trace at 2 and at 8
+    bounces and the all-mesh pipeline, each in its own try, so a failure
+    keeps what ran before it; then the port's fidelity record from
+    `fidelity_path` where that file exists. Each bench's launches per
+    kernel, frames and spill waves go to `note` as one line, ``bench:
+    launches {...}``. Returns (record, errors); the errors, each prefixed
+    with its bench's name as the reference does, are in the record too
+    when there are any.
+
+    Where it differs from the reference, on purpose: `fast` stands for
+    DRTS_BENCH_FAST; "device" is the card's name; there is no compile
+    cache; passes_ms is timed by stage_timer (CUDA events) over one SHARC
+    cadence after the timed frames, where the reference jits each pass
+    and writes -1.0 for one that fails (here a failed pass fails its bench
+    into the errors); every bench raises on a non-finite image and drops
+    its state before the next."""
+    device = torch.device(device)
+    rec = {
+        "metric": "path_trace_1080p_1spp_8bounce",
+        "value": 0.0,
+        "unit": "Mray/s/chip",
+        "vs_baseline": 0.0,
+        "device": device_name(device),
+    }
+    errors = []
+
+    def run(name, fn):
+        backend.reset_launches()
+        try:
+            stats = fn()
+        except Exception:
+            errors.append(f"{name}: " + traceback.format_exc(limit=2))
+            return
+        finally:
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        note("bench: launches " + json.dumps({
+            "bench": name, "frames": stats["frames"],
+            "spill_waves": stats["spill_waves"],
+            "launches": dict(backend.LAUNCHES)}))
+
+    def trace():
+        note("bench: trace...")
+        stats, out = bench_trace(device=device, load_textures=True)
+        if not bool(torch.isfinite(out.radiance).all()):
+            raise RuntimeError("non-finite radiance")
+        mray_s, frame_ms = stats["mray_s"], stats["frame_ms"]
+        rec.update(value=round(mray_s, 2),
+                   vs_baseline=round(mray_s / 200.0, 4),
+                   frame_ms=round(frame_ms, 2),
+                   rays_per_frame=int(stats["rays_per_frame"]))
+        note(f"bench: trace {mray_s:.1f} Mray/s ({frame_ms:.1f} ms)")
+        return stats
+
+    def full_pipeline():
+        note("bench: full pipeline...")
+        full_ms, passes, counters, stats = bench_full_pipeline(
+            device=device)
+        rec["full_pipeline_ms"] = round(full_ms, 2)
+        rec["passes_ms"] = passes
+        rec["counters"] = counters
+        rec["passes_sum_ms"] = round(
+            sum(v for v in passes.values() if v > 0), 2)
+        note(f"bench: full pipeline {full_ms:.1f} ms")
+        return stats
+
+    def upscaled():
+        note("bench: upscaled (reference-default DLSS-SR Auto)...")
+        up_ms, stats = bench_upscaled(device=device)
+        rec["full_pipeline_upscaled_ms"] = round(up_ms, 2)
+        note(f"bench: upscaled pipeline {up_ms:.1f} ms")
+        return stats
+
+    def mesh(bounces, iters, prefix):
+        note(f"bench: instanced-mesh trace @{bounces} bounces...")
+        stats, out = bench_mesh(bounces=bounces, iters=iters, device=device)
+        if not bool(torch.isfinite(out.radiance).all()):
+            raise RuntimeError("non-finite radiance")
+        rec[f"{prefix}_mray_s"] = round(stats["mray_s"], 2)
+        rec[f"{prefix}_ms"] = round(stats["frame_ms"], 2)
+        note(f"bench: mesh trace {bounces}b {stats['mray_s']:.2f} Mray/s "
+             f"({stats['frame_ms']:.1f} ms)")
+        return stats
+
+    def mesh_pipeline():
+        note("bench: mesh full pipeline (reference-default upscale)...")
+        ms, stats = bench_mesh_pipeline(device=device)
+        rec["mesh_pipeline_upscaled_ms"] = round(ms, 2)
+        note(f"bench: mesh pipeline {ms:.1f} ms")
+        return stats
+
+    # Headline first, so that a later failure cannot lose it.
+    run("trace", trace)
+    if not fast:
+        run("full_pipeline", full_pipeline)
+        run("upscaled", upscaled)
+        run("mesh", lambda: mesh(2, 4, "mesh_trace"))
+        run("mesh8", lambda: mesh(8, 2, "mesh_trace_8b"))
+        run("mesh_pipeline", mesh_pipeline)
+    if os.path.exists(fidelity_path):
+        try:
+            with open(fidelity_path) as fh:
+                rec["fidelity_recorded"] = json.load(fh)
+        except Exception:
+            errors.append("fidelity_record: "
+                          + traceback.format_exc(limit=1))
+    if errors:
+        rec["errors"] = errors
+    return rec, errors
+
+
+def _watchdog(*_):
+    print(json.dumps({"error": "bench watchdog expired"}), flush=True)
+    os._exit(3)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--iters", type=int, default=8)
+    parser.add_argument("--iters", type=int, default=8,
+                        help="timed frames (the record keeps the "
+                             "reference's counts)")
+    parser.add_argument("--record", action="store_true",
+                        help="the reference bench's record: all six "
+                             "benches in one JSON line")
+    parser.add_argument("--fast", action="store_true",
+                        help="with --record, the headline alone (the "
+                             "reference's DRTS_BENCH_FAST)")
     parser.add_argument("--frame", action="store_true",
                         help="the ReSTIR frame instead of the path trace")
     parser.add_argument("--mesh", action="store_true",
@@ -385,7 +649,30 @@ def main(argv=None):
     if args.accel != "morton" and not sphere_frame:
         parser.error("--accel applies to --frame, --default-frame and "
                      "--options-frame")
+    if args.fast and not args.record:
+        parser.error("--fast applies to --record")
+    if args.record and (sphere_frame or args.mesh or args.mesh_frame
+                        or args.upscaled or args.mesh_pipeline
+                        or args.textured_frame
+                        or args.mesh_cand != trimesh.MESH_CAND):
+        parser.error("--record runs the reference's recipes: no frame "
+                     "flag or --mesh-cand with it")
     dev = backend.device("cuda")
+    if args.record:
+        # A bench that hangs the card exits with code 3 after 45 minutes
+        # (the reference's watchdog), set here and not at import.
+        previous = signal.signal(signal.SIGALRM, _watchdog)
+        signal.alarm(45 * 60)
+        try:
+            rec, errors = record(dev, fast=args.fast,
+                                 fidelity_path=FIDELITY_PATH)
+        finally:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, previous)
+        print(json.dumps(rec), flush=True)
+        if errors:
+            sys.exit(1)
+        return
     trimesh.MESH_CAND = args.mesh_cand
     if args.mesh:
         backend.reset_launches()
@@ -400,7 +687,7 @@ def main(argv=None):
             "overflow_paths": stats["overflow_paths"],
             "frames": args.iters + 1, "mesh_cand": args.mesh_cand,
             "launches": dict(backend.LAUNCHES),
-            "device": torch.cuda.get_device_name(dev),
+            "device": device_name(dev),
         }), flush=True)
         return
     if (args.frame or args.mesh_frame or args.default_frame or args.upscaled
@@ -437,7 +724,7 @@ def main(argv=None):
             "metric": metric, "value": stats["frame_ms"], "unit": "ms",
             **stats, "mesh_cand": args.mesh_cand, "accel": args.accel,
             "launches": dict(backend.LAUNCHES),
-            "device": torch.cuda.get_device_name(dev),
+            "device": device_name(dev),
         }), flush=True)
         return
     stats, out = bench_trace(iters=args.iters, device=dev)
@@ -449,7 +736,7 @@ def main(argv=None):
         "unit": "Mray/s/chip",
         "frame_ms": stats["frame_ms"],
         "rays_per_frame": int(stats["rays_per_frame"]),
-        "device": torch.cuda.get_device_name(dev),
+        "device": device_name(dev),
     }), flush=True)
 
 

@@ -5,10 +5,10 @@ The reference render is the port's own unbiased path tracer run with
 camera-jittered accumulation and no denoising or post, the ground truth
 the reference's converged DXR output stands for. The candidate is the
 real-time configuration (1 spp, ReSTIR, SHARC, denoise, TAA), compared
-after the same tone mapping. ``load_textures=True`` builds the scene as
-the reference does (models/assets.py): textured where the reference's
-texture files load, untextured where they are absent, under the same
-cache key. A result's ``"textures"`` says whether its scene held
+after the same tone mapping. ``load_textures=True``, the default as in
+the reference, builds the scene as the reference does (models/assets.py):
+textured where the reference's texture files load, untextured where they
+are absent, under the same cache key. A result's ``"textures"`` says whether its scene held
 textures; an untextured run is not comparable with a textured bar.
 
 Converged references are cached as ``.npz`` in ``ref_cache_dir()``, the
@@ -201,7 +201,7 @@ def _save(save_dir, images: dict):
 def run_motion(width: int = 640, height: int = 360,
                spp_reference: int = 256, n_frames: int = 32,
                warmup: int = 24, seed: int = 0, eval_every: int = 4,
-               load_textures: bool = False,
+               load_textures: bool = True,
                ref_cache: str | None = DEFAULT_REF_CACHE,
                save_dir: str | None = None,
                pipeline_overrides: dict | None = None,
@@ -274,7 +274,7 @@ def run_motion(width: int = 640, height: int = 360,
 def run_mesh(width: int = 640, height: int = 360,
              spp_reference: int = 256, frames_realtime: int = 64,
              seed: int = 0, tessellation: int = 4,
-             load_textures: bool = False,
+             load_textures: bool = True,
              ref_cache: str | None = DEFAULT_REF_CACHE,
              save_dir: str | None = None, device="cuda") -> dict:
     """Static fidelity of the mesh path: the demo scene as instances of
@@ -317,7 +317,7 @@ def run_mesh(width: int = 640, height: int = 360,
 
 def run(width: int = 640, height: int = 360, spp_reference: int = 1024,
         frames_realtime: int = 64, seed: int = 0,
-        load_textures: bool = False, save_dir: str | None = None,
+        load_textures: bool = True, save_dir: str | None = None,
         ref_cache: str | None = DEFAULT_REF_CACHE,
         crosscheck_spp: int = 0,
         pipeline_overrides: dict | None = None, device="cuda") -> dict:

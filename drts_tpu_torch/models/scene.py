@@ -52,6 +52,10 @@ class SphereScene:
     # Alpha-test re-trace rounds (IsOpaque); 0 = all opaque.
     alpha_test_rounds: int = 0
 
+    @property
+    def object_count(self) -> int:
+        return self.center.shape[0]
+
 
 def advance_pose(scene: SphereScene, new_center, new_rotation) -> SphereScene:
     """Per-frame pose update, keeping the previous pose for motion vectors

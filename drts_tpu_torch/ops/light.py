@@ -74,7 +74,9 @@ class LightRows:
 
 def fetch_rows(lights: Lights, idx) -> LightRows:
     """COMPACT-indexed light fetch; `aux` is the source object id. Ids are
-    clamped into the table, as the reference's gather clamps them."""
+    clamped into the table, so a negative id reads row 0 where the
+    reference's gather counts it from the end; compact ids come from
+    sample_light_index, in [0, L), so no path passes one."""
     row = lights.compact[torch.clamp(idx, 0, lights.compact.shape[0] - 1)]
     tri = {}
     if lights.has_triangles:
@@ -83,6 +85,20 @@ def fetch_rows(lights: Lights, idx) -> LightRows:
     return LightRows(center=row[..., 0:3], radius=row[..., 3],
                      emission=row[..., 4:7], power=row[..., 7],
                      aux=torch.round(row[..., 8]).long(), **tri)
+
+
+def fetch_rows_object(lights: Lights, obj_idx) -> LightRows:
+    """OBJECT-indexed fetch (for BRDF-ray candidates that hit geometry);
+    `aux` is the compact light id, -1 where the object is no light. Ids
+    index as the reference's gather does: a negative id counts from the
+    end (-1, a miss, reads the last row), and ids are then clamped into
+    the table."""
+    k = lights.table.shape[0]
+    row = lights.table[torch.clamp(torch.where(obj_idx < 0, obj_idx + k,
+                                               obj_idx), 0, k - 1)]
+    return LightRows(center=row[..., 0:3], radius=row[..., 3],
+                     emission=row[..., 4:7], power=row[..., 7],
+                     aux=torch.round(row[..., 8]).long())
 
 
 def _face_emissive_avg(em_small, uvs, faces):
@@ -295,6 +311,13 @@ def sample_light_index(lights: Lights, u):
     return idx, pdf
 
 
+def sample_sphere_light(lights: Lights, idx, surface_pos, rand2):
+    """Cone sampling of the sphere light of compact id `idx`: its row
+    fetched, then ``sample_sphere_light_rows``."""
+    return sample_sphere_light_rows(fetch_rows(lights, idx), surface_pos,
+                                    rand2)
+
+
 def sample_light_rows(rows: LightRows, surface_pos, rand2):
     """Light sampling from pre-gathered rows, by kind: sphere rows by
     solid-angle cone sampling, triangle rows uniformly by area with the
@@ -400,3 +423,9 @@ def light_pdf_rows(rows: LightRows, surface_pos):
     sin_max_sq = torch.clamp((rows.radius / dist_c) ** 2, 0.0, 1.0 - 1e-6)
     cos_max = torch.sqrt(1.0 - sin_max_sq)
     return 1.0 / torch.clamp(2.0 * math.pi * (1.0 - cos_max), min=1e-8)
+
+
+def light_pdf(lights: Lights, idx, surface_pos):
+    """Solid-angle pdf of having cone-sampled the light of compact id `idx`
+    from `surface_pos`: its row fetched, then ``light_pdf_rows``."""
+    return light_pdf_rows(fetch_rows(lights, idx), surface_pos)

@@ -41,6 +41,11 @@ def first_cosmic_speed(mass, r):
     return np.sqrt(GRAVITATIONAL_CONSTANT * mass / r)
 
 
+def spring_constant(mass, period):
+    """SimpleHarmonicMotion::Spring::CalculateConstant (PhysX.h:28)."""
+    return 4.0 * math.pi ** 2 * mass / (period * period)
+
+
 @dataclasses.dataclass(frozen=True)
 class RigidBodies:
     """SoA rigid-body state over K spheres."""

@@ -1,9 +1,8 @@
 """Vector / quaternion / frame math (port of ``drts_tpu/utils/math.py``).
 
-Only the functions the path-trace slice calls. Same conventions as the
-reference: vectors and colors are ``(..., 3)`` float32 tensors, quaternions
-``(..., 4)`` in (x, y, z, w) order, every function elementwise over the
-leading axes.
+Same conventions as the reference: vectors and colors are ``(..., 3)``
+float32 tensors, quaternions ``(..., 4)`` in (x, y, z, w) order, every
+function elementwise over the leading axes.
 """
 
 from __future__ import annotations
@@ -24,6 +23,12 @@ def sqr(x):
 
 def saturate(x):
     return torch.clamp(x, 0.0, 1.0)
+
+
+def safe_div(a, b, eps: float = 1e-20):
+    """a / b with |b| clamped away from zero, its sign kept."""
+    return a / torch.where(torch.abs(b) < eps,
+                           torch.where(b < 0, -eps, eps), b)
 
 
 def sign_not_zero(x):
@@ -67,6 +72,18 @@ def refract(i, n, eta):
     tir = k[..., 0] < 0.0
     dir_ = eta * i + (eta * cosi - torch.sqrt(torch.clamp(k, min=0.0))) * n
     return torch.where(tir[..., None], 0.0, dir_), tir
+
+
+def vec3(x, y, z, device="cuda"):
+    """(..., 3) float32 from three components, broadcast together. Tensors
+    keep their device; scalars and arrays alone go to `device`."""
+    dev = next((v.device for v in (x, y, z) if isinstance(v, torch.Tensor)),
+               None)
+    if dev is None:
+        dev = backend.device(device)
+    parts = [torch.as_tensor(v, dtype=torch.float32, device=dev)
+             for v in (x, y, z)]
+    return torch.stack(torch.broadcast_tensors(*parts), dim=-1)
 
 
 def lerp(a, b, t):
@@ -116,6 +133,20 @@ def quat_from_axis_angle(axis, angle, device="cuda"):
     half = 0.5 * torch.as_tensor(angle, dtype=torch.float32, device=device)
     s = torch.sin(half)[..., None]
     return torch.cat([axis * s, torch.cos(half)[..., None]], dim=-1)
+
+
+def quat_to_matrix(q):
+    """(..., 4) quaternion -> (..., 3, 3) rotation matrix (rows = basis)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    mat = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy + wz), 2 * (xz - wy),
+        2 * (xy - wz), 1 - 2 * (xx + zz), 2 * (yz + wx),
+        2 * (xz + wy), 2 * (yz - wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return mat.reshape(mat.shape[:-1] + (3, 3))
 
 
 # ----------------------------------------------------------------------------

@@ -47,7 +47,8 @@ ids -1 and past the last set, NaN and infinite uv. The banded frame
 (drts_tpu_torch/parallel) at 64x64: one NCCL rank bit for bit against the
 unbanded frame on a SHARC skip frame, and two and three gloo ranks
 sharing the card (even and uneven bands) within chip_smoke.py's
-DEFAULT_* bounds of the one-device frames. Run on a GPU
+DEFAULT_* bounds of the one-device frames. graft_entry.entry()'s frame
+step once: a finite (256, 256, 3) image. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -1376,3 +1377,17 @@ def test_gloo_ranks_on_the_card_near_one_device(dev, tmp_path, ranks,
     assert [run["band"] for run in runs] == [
         mesh.row_band(height, r, ranks) for r in range(ranks)]
     assert all(run["launches"]["intersect_morton"] > 0 for run in runs)
+
+
+def test_graft_entry_frame_on_the_card(dev):
+    """graft_entry.entry()'s frame step (the flagship pipeline at 256x256,
+    4 bounces), called once on the card: a finite (256, 256, 3) image that
+    launched B1."""
+    from drts_tpu_torch import graft_entry
+    fn, args = graft_entry.entry(device="cuda")
+    backend.reset_launches()
+    image = fn(*args)
+    assert tuple(image.shape) == (256, 256, 3)
+    assert image.device.type == "cuda"
+    assert bool(torch.isfinite(image).all())
+    assert backend.LAUNCHES["intersect_morton"] > 0

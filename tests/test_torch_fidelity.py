@@ -20,10 +20,14 @@ writer against the reference's, on the CPU at tiny sizes.
   scene under the reference's cache key;
 - ``write_png`` -> ``read_png`` gives the pixels the reference's numpy
   encoder writes;
-- ``main --record`` merges its result into a JSON file.
+- ``main --record`` merges its result into a JSON file;
+- ``run``, ``run_mesh`` and ``run_motion`` default every parameter as the
+  reference's do (``load_textures=True`` among them), but the reference
+  cache directory, which is each package's own.
 """
 
 import dataclasses
+import inspect
 import json
 import os
 
@@ -130,18 +134,20 @@ def test_run_results_and_cache(tmp_path, monkeypatch):
     }
     for name, kw in (("run", {}), ("run_mesh", {"tessellation": 1})):
         fn = getattr(tfidelity, name)
-        res = fn(16, 8, 32, 1, ref_cache=str(tmp_path), device="cpu", **kw)
+        res = fn(16, 8, 32, 1, load_textures=False, ref_cache=str(tmp_path),
+                 device="cpu", **kw)
         assert set(res) == jkeys[name] | {"textures"}
         assert res["textures"] is False and np.isfinite(res["value"])
     assert sorted(os.listdir(tmp_path)) == ["mesh1_s0_t0_16x8_spp32.npz",
                                             "static_s0_t0_16x8_spp32.npz"]
     assert tcalls == ["reference", "realtime"] * 2
     tcalls.clear()
-    again = tfidelity.run(16, 8, 32, 1, ref_cache=str(tmp_path),
-                          device="cpu")
+    again = tfidelity.run(16, 8, 32, 1, load_textures=False,
+                          ref_cache=str(tmp_path), device="cpu")
     assert tcalls == ["realtime"]
     assert set(again) == jkeys["run"] | {"textures"}
     motion = tfidelity.run_motion(16, 8, 32, 2, warmup=0,
+                                  load_textures=False,
                                   ref_cache=str(tmp_path), device="cpu")
     assert set(motion) == jkeys["run_motion"] | {"textures"}
     assert "orbit_s0_t0_16x8_spp32_f0.npz" in os.listdir(tmp_path)
@@ -206,3 +212,19 @@ def test_main_records(tmp_path, monkeypatch):
     assert rec == {"other": {"value": 1},
                    "ssim_vs_reference": {"metric": "ssim_vs_reference",
                                          "value": 0.5}}
+
+
+@pytest.mark.parametrize("name", ["run", "run_motion", "run_mesh"])
+def test_defaults_match_the_reference(name):
+    """The same parameters with the same defaults as the reference's
+    function (so `python -m drts_tpu_torch.fidelity` builds the scene with
+    load_textures=True, as the reference's does), but ``device`` (the
+    port's alone) and ``ref_cache`` (each package's own directory)."""
+    ref = inspect.signature(getattr(jfidelity, name)).parameters
+    port = inspect.signature(getattr(tfidelity, name)).parameters
+    assert set(port) == set(ref) | {"device"}
+    assert port["load_textures"].default is True
+    for pname, param in ref.items():
+        if pname != "ref_cache":
+            assert port[pname].default == param.default, pname
+    assert port["ref_cache"].default == tfidelity.DEFAULT_REF_CACHE
