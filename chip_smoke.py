@@ -264,6 +264,34 @@ Phases, one printed line or more each; any failure exits non-zero:
    launches them (the counts of phases 4, 9, 14 and 16 by frames and
    closest-hit calls). The record is printed on a line of its own, with
    the phase's time.
+24. routes: the reference's other two sphere-accel routes. (a) The MXU
+   opt-in (intersect._USE_MXU set for the phase and restored after it;
+   make_morton_accel then builds the A-matrices): B12a against its plain
+   version on the headline frame's 2,073,600 primary rays (hit/miss flips
+   only within MXU_GRAZE of grazing and on at most MXU_FLIP_SHARE of the
+   live rays; t within MXU_T_RTOL relative plus MXU_T_ATOL where no
+   sphere is within MXU_STRICT of grazing), both timed, its bound from
+   intersect_kernels.intersect_morton_mxu_work (the tensor-core products
+   at the dense bf16 rate, the tail at the float32 rate); the headline
+   frame (bench.trace_frame, frame 1 after a warm frame 0) with the
+   opt-in on and off, counted from zero: B12a 9 plus 7 a spill wave (the
+   deep segment again), B1 0, the frame times and the image difference; the upscaled default
+   frame (960x540 to 1920x1080) over one SHARC cadence of two frames with
+   the opt-in on and off from the same state: B12a 13.5 a frame (9, and 9
+   more for the SHARC update every second frame) plus 7 a spill wave, B12b
+   3 a frame, B1 and B2 0 (with the opt-in off: B1 likewise, B2 3 a
+   frame), the frame times and
+   the image difference, and B12b against its plain version on the
+   first frame's three shadow batches (flips as B12a's), each timed with
+   its bound. (b) The clustered accel (clusters.build_plan on the rest
+   pose, make_accel per frame, bench.make_trace_setup(accel="clustered")):
+   B13 against its plain version on the primary rays, every word equal,
+   both timed, its bound from intersect_clustered_work; the headline
+   frame counted from zero (B13 9 plus 7 a spill wave, no B1 or B11) and
+   its image against the Morton route's frame of (a). Each image
+   difference is printed as the mean |difference| of the tone-mapped
+   images, the share of pixels that differ at all and of those off by
+   more than DEFAULT_OFF; the mean must stay under ROUTE_MEAN.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -300,13 +328,20 @@ one frame's closest hits and light sweep and over its three shadow
 batches; and B1, B2, B3, B4 and B11 once more ("...@banded") with rank
 0's launches over phase 22 (b)'s three frames and the times of its
 recorded frame (B1 per frame, B2 its three batches, B4 its four
-reprojections, B11 its light sweep).
+reprojections, B11 its light sweep); and B12a ("intersect_morton_mxu")
+with the launches of phase 24's MXU headline frame and the times on its
+primary rays, B12b ("occlusion_morton_mxu") with the launches of its two
+default frames and the times summed over the three shadow batches, and
+B13 ("intersect_clustered") with the launches of the clustered headline
+frame and the times on its primary rays.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
-roots, and their entries also carry "unculled_bound_ms"), and a kernel
-measured
-under its bound fails the run. Then the card's name and
+roots, and their entries also carry "unculled_bound_ms"; B12a and B12b
+the filled slots of the chunks each lane meets, their products at the
+tensor cores' rate beside their tails at the float32 rate; B13 its
+cluster tests and the member slots of the clusters each lane touches),
+and a kernel measured under its bound fails the run. Then the card's name and
 power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
@@ -332,6 +367,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # on its own, 33.5e12 per second.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 33.5e12
+# The tensor cores' dense bf16 rate (B12a, B12b's products).
+TC_BF16_FLOPS_PER_S = 989e12
 # Operations per unit of work, counted from csrc/*.cu (a sqrt, division,
 # sine or cosine counts as one; compares and the integer min as one each).
 OPS_B1_PAIR = 25          # ray x table column of the unculled sweep
@@ -367,6 +404,12 @@ OPS_TRI_END = 4           # ... B6, B10: the segment end from the best so far
 OPS_TRI_CONE = 14         # lane x missed chunk: its guard cone (a sqrt)
 OPS_TRI_GUARD = 7         # lane x face of a missed chunk: |dl . A| >= guard
 OPS_TRI_RAY = 16          # a sweeping lane's cull terms (segment_cull_tri)
+OPS_B12_TC = 96           # B12: (ray, slot) of the bf16x3 product: 3 x 16 MACs
+OPS_B12_PAIR = 4          # ... its tail's c2, discriminant and test
+OPS_B13_CLUSTER = 30      # B13: ray x cluster bound tested (a sqrt)
+OPS_B13_SLOT = 23         # ... ray x member slot of a touched cluster
+OPS_B13_ROOT = 12         # ... positive discriminant: root, tests, update
+OPS_B13_RAY = 10          # a live ray's od and oo
 # Triangle chunk sizes timed in phases 8, 10 and 12 beside the kept one.
 TRI_CHUNKS = (8, 16, 32, 64)
 # B9's sparse-block thresholds timed in phase 10 beside the kept one (0:
@@ -404,17 +447,37 @@ DEFAULT_MEAN = 2e-4       # mean |image difference|
 DEFAULT_OFF = 0.05        # a pixel is off beyond this |difference| ...
 DEFAULT_OFF_SHARE = 2e-3  # ... on at most this share of pixels
 DEFAULT_FP_SHARE = 0.99   # SHARC slots with the same fingerprint
+# Phase 24, B12a and B12b against their plain versions: the tensor cores
+# sum the bf16 products in their own order and with their own rounding,
+# coarser than the plain version's float32 matmuls. Hit/miss may flip only
+# on rays within MXU_GRAZE of grazing a sphere and on at most
+# MXU_FLIP_SHARE of the live rays (the reference's share for its MXU
+# kernel); where no sphere is within MXU_STRICT of grazing, t agrees
+# within MXU_T_RTOL relative plus MXU_T_ATOL absolute (the reference's
+# margins for its MXU kernel; tests/test_torch_cuda.py states the model).
+MXU_GRAZE = 5e-2
+MXU_FLIP_SHARE = 5e-3
+MXU_STRICT = 3e-2
+MXU_T_RTOL = 1e-3
+MXU_T_ATOL = 1e-2
+# Phase 24, a route's frame against the default route's from the same
+# seed: a sanity bound on the mean |difference| of the tone-mapped images
+# (the routes differ where a root moves: near grazing, at a bounce ray's
+# own sphere, and then along the path).
+ROUTE_MEAN = 0.02
 
 
 def log(msg):
     print(msg, flush=True)
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, tc_flops=0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the float32 issue rate."""
+    operations over their rate: float32 operations over the CUDA cores'
+    issue rate or tensor-core flops over the dense bf16 rate, whichever
+    takes longer (the two units run side by side)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, tc_flops / TC_BF16_FLOPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -3196,7 +3259,7 @@ def record_numbers(value, path=""):
 def expect_launches(name, got, want):
     for kernel, count in want.items():
         if got[kernel] != count:
-            raise AssertionError(f"record {name}: {kernel} launched "
+            raise AssertionError(f"{name}: {kernel} launched "
                                  f"{got[kernel]} times, expected {count}")
 
 
@@ -3207,7 +3270,7 @@ def check_record_launches(bench_name, frames, launches):
     for the all-mesh pipeline)."""
     f = frames
     if bench_name == "trace":
-        expect_launches(bench_name, launches, dict.fromkeys(
+        expect_launches(f"record {bench_name}", launches, dict.fromkeys(
             SPHERE_ONLY + ("occlusion_morton", "initial_light_candidates",
                            "reproject_packed", "intersect_brute"), 0))
         if launches["intersect_morton"] < 8 * f:
@@ -3215,7 +3278,7 @@ def check_record_launches(bench_name, frames, launches):
                                  f"{launches['intersect_morton']} times in "
                                  f"{f} frames of 8 bounces")
     elif bench_name in ("full_pipeline", "upscaled"):
-        expect_launches(bench_name, launches, dict(
+        expect_launches(f"record {bench_name}", launches, dict(
             dict.fromkeys(SPHERE_ONLY, 0), occlusion_morton=3 * f,
             initial_light_candidates=f, intersect_brute=f,
             reproject_packed=4 * f))
@@ -3230,7 +3293,7 @@ def check_record_launches(bench_name, frames, launches):
         if calls < f * (bounces + 1):
             raise AssertionError(f"record {bench_name}: {calls} closest-hit "
                                  f"calls in {f} frames of {bounces} bounces")
-        expect_launches(bench_name, launches, dict(
+        expect_launches(f"record {bench_name}", launches, dict(
             dict.fromkeys(MESH_ONLY + ("reproject_packed", "shared_blas_any",
                                        "intersect_mesh_instances_any"), 0),
             bound_scan=4 * calls, shared_blas_sweep=3 * calls,
@@ -3240,7 +3303,7 @@ def check_record_launches(bench_name, frames, launches):
         if calls < f * 9:
             raise AssertionError(f"record mesh_pipeline: {calls} closest-hit "
                                  f"calls in {f} frames of 8 bounces")
-        expect_launches(bench_name, launches, dict(
+        expect_launches(f"record {bench_name}", launches, dict(
             dict.fromkeys(MESH_ONLY, 0), shared_blas_any=6 * f,
             intersect_mesh_instances_any=3 * f,
             bound_scan=4 * calls + 9 * f, shared_blas_sweep=3 * calls,
@@ -3301,6 +3364,335 @@ def run_record(bench, smi):
                       "mesh8", "mesh_pipeline"]:
         raise AssertionError(f"bench --record: launches of {list(seen)}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 24: the MXU route (B12a, B12b) and the clustered route (B13)
+
+
+def table_spheres(table):
+    """The filled slots of a Morton table: (centres (K, 3), radii (K,))."""
+    filled = table[3] > 0.0
+    return table[:3, filled].T.contiguous(), table[3, filled].contiguous()
+
+
+def grazing(rays, centers, radii, step=32768):
+    """(N,) float32 on the card: min over spheres of |distance(ray line,
+    centre) - r|, the margin by which a ray misses or clears a sphere's
+    rim."""
+    o = rays[:3].T
+    d = rays[3:6].T / rays[3:6].T.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    out = torch.empty(rays.shape[1], device=rays.device)
+    for s in range(0, rays.shape[1], step):
+        oc = o[s:s + step, None, :] - centers[None]
+        dd = d[s:s + step, None, :]
+        perp = oc - (oc * dd).sum(-1, keepdim=True) * dd
+        out[s:s + step] = (perp.norm(dim=-1) - radii[None]).abs().amin(1)
+    return out
+
+
+def mxu_flips(label, flip, graze, live):
+    """Gate B12's hit/miss flips: grazing rays only, at most
+    MXU_FLIP_SHARE of the live ones."""
+    n_flip = int(flip.sum())
+    worst = float(graze[flip].max()) if n_flip else 0.0
+    if n_flip > MXU_FLIP_SHARE * max(live, 1) or worst >= MXU_GRAZE:
+        raise AssertionError(f"{label}: {n_flip} hit/miss flips against "
+                             f"the plain version (largest grazing margin "
+                             f"{worst!r})")
+    return n_flip, worst
+
+
+def check_b12a(ik, label, rays, accel, reps=10):
+    """B12a against its plain version on `rays` (MXU_* tolerances), both
+    timed, and its bound from intersect_morton_mxu_work: tensor-core
+    products and tail operations for the filled slots of the chunks each
+    live lane meets, chunk tests, the rays' bytes and the tables."""
+    args = (rays, accel.table, accel.bounds, accel.mxu_a)
+    t_k, i_k = ik.intersect_morton_mxu(*args)
+    t_p, i_p = ik.intersect_morton_mxu_plain(*args)
+    torch.cuda.synchronize()
+    graze = grazing(rays, *table_spheres(accel.table))
+    n, live = rays.shape[1], live_rays(rays)
+    fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
+    flips, worst = mxu_flips(label, fin_k != fin_p, graze, live)
+    both = fin_k & fin_p
+    strict = both & (graze > MXU_STRICT)
+    gap = (t_k - t_p).abs()[strict]
+    over = int((gap > MXU_T_RTOL * t_p[strict] + MXU_T_ATOL).sum())
+    rel = float((gap / t_p[strict]).max()) if bool(strict.any()) else 0.0
+    idx_strict = int((i_k != i_p)[strict].sum())
+    err_all = float((t_k - t_p)[both].abs().max()) if bool(both.any()) \
+        else 0.0
+    err = float(gap.max()) if bool(strict.any()) else 0.0
+    same = float((t_k.view(torch.int32) == t_p.view(torch.int32))[both]
+                 .float().mean()) if bool(both.any()) else 1.0
+    ms = cuda_ms(lambda: ik.intersect_morton_mxu(*args), reps)
+    plain_ms = cuda_ms(lambda: ik.intersect_morton_mxu_plain(*args), 2,
+                       warm=False)
+    tests, met, swept, pairs, slots = (
+        int(x.sum()) for x in ik.intersect_morton_mxu_work(*args))
+    b_ms, b_by = bound(
+        lane_bytes(n, live, 8, 2, accel.table, accel.bounds, accel.mxu_a),
+        tests * OPS_B1_CHUNK + met * OPS_B1_MET + pairs * OPS_B12_PAIR
+        + live * OPS_B1_RAY, pairs * OPS_B12_TC)
+    log(f"routes: {label} rays={n} live={live} hits={int(fin_p.sum())} "
+        f"flips={flips} largest_flip_graze={worst!r} "
+        f"t_max_rel_non_grazing={rel!r} t_off_tolerance={over} "
+        f"idx_mismatch_non_grazing={idx_strict} "
+        f"idx_mismatch={int((i_k != i_p)[both].sum())} "
+        f"max_abs_err_non_grazing={err!r} max_abs_err_all_hits="
+        f"{err_all!r} bit_equal_share={same!r} kernel_ms={ms!r} "
+        f"plain_ms={plain_ms!r} chunk_tests={tests} chunks_met={met} "
+        f"chunks_swept_by_warps={swept} pairs_met={pairs} "
+        f"slots_swept_by_warps={slots} bound_ms={b_ms!r} ({b_by})")
+    if over:
+        raise AssertionError(f"{label}: t of {over} rays off the plain "
+                             f"version away from grazing")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def check_b12b(ik, calls, reps=10):
+    """B12b against its plain version on each recorded batch (MXU_*
+    flips), both timed, and its bound from occlusion_morton_mxu_work;
+    times summed over the batches, the bound of their summed work."""
+    tot = {"ms": 0.0, "plain_ms": 0.0}
+    work = [0, 0, 0]   # bytes, float32 operations, tensor-core flops
+    flips_all = 0
+    for b, call in enumerate(calls):
+        args = call[:4]
+        rays9, table = args[0], args[1]
+        occ_k = ik.occlusion_morton_mxu(*args)
+        occ_p = ik.occlusion_morton_mxu_plain(*args)
+        torch.cuda.synchronize()
+        live = live_rays(rays9)
+        graze = grazing(rays9, *table_spheres(table))
+        flips, worst = mxu_flips(f"B12b batch {b}", occ_k != occ_p, graze,
+                                 live)
+        flips_all += flips
+        ms = cuda_ms(lambda: ik.occlusion_morton_mxu(*args), reps)
+        plain_ms = cuda_ms(lambda: ik.occlusion_morton_mxu_plain(*args), 1,
+                           warm=False)
+        tests, met, swept, pairs, slots = (
+            int(x.sum()) for x in ik.occlusion_morton_mxu_work(*args))
+        part = (lane_bytes(rays9.shape[1], live, 9, 0.25, *args[1:]),
+                tests * OPS_B2_CHUNK + pairs * OPS_B12_PAIR
+                + live * OPS_B2_RAY, pairs * OPS_B12_TC)
+        work = [a + b for a, b in zip(work, part)]
+        b_ms, b_by = bound(*part)
+        log(f"routes: B12b batch {b} rays={rays9.shape[1]} live={live} "
+            f"occluded={int(occ_p.sum())} flips={flips} "
+            f"largest_flip_graze={worst!r} kernel_ms={ms!r} "
+            f"plain_ms={plain_ms!r} chunk_tests={tests} chunks_met={met} "
+            f"chunks_swept_by_warps={swept} pairs_met={pairs} "
+            f"slots_swept_by_warps={slots} bound_ms={b_ms!r} ({b_by})")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+    b_ms, b_by = bound(*work)
+    return dict(tot, max_abs_err=float(flips_all > 0), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def check_b13(ik, rays, accel, reps=10):
+    """B13 against its plain version on `rays`, every word equal, both
+    timed, and its bound from intersect_clustered_work: per live ray every
+    cluster's bound test, the member slots of the clusters it touches and
+    the roots of their positive discriminants."""
+    args = (rays, accel.bounds_tbl, accel.members_tbl, accel.n_clusters,
+            accel.max_members)
+    f = compare_closest("B13 primary", lambda: ik.intersect_clustered(*args),
+                        lambda: ik.intersect_clustered_plain(*args),
+                        reps=reps, plain_reps=1)
+    tests, touched, swept, roots = (
+        int(x.sum()) for x in ik.intersect_clustered_work(*args))
+    n, live = rays.shape[1], live_rays(rays)
+    mm = accel.max_members
+    b_ms, b_by = bound(
+        lane_bytes(n, live, 8, 2, accel.bounds_tbl, accel.members_tbl),
+        tests * OPS_B13_CLUSTER + touched * mm * OPS_B13_SLOT
+        + roots * OPS_B13_ROOT + live * OPS_B13_RAY)
+    log(f"routes: B13 primary clusters={accel.n_clusters} "
+        f"members_per_cluster={mm} live={live} cluster_tests={tests} "
+        f"clusters_touched={touched} clusters_swept_by_warps={swept} "
+        f"touched_per_live_ray={touched / max(live, 1)!r} roots={roots} "
+        f"bound_ms={b_ms!r} ({b_by})")
+    return dict(f, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def trace_calls(cfg, spill_waves):
+    """Closest-hit calls of one path-trace frame: the G-buffer and the
+    bounces, and per spill wave the deep segment's bounces again."""
+    return cfg.bounces + 1 + (cfg.bounces - cfg.compact_from + 1) \
+        * spill_waves
+
+
+def timed_trace_frame(bench, backend, setup, index):
+    """One warm frame, then frame `index` counted from zero and timed on a
+    host clock ending in a synchronize. Returns (tone-mapped image, ms,
+    launches, spill waves, rays traced)."""
+    from drts_tpu_torch.ops import post
+    bench.trace_frame(setup, 0)
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    t0 = time.perf_counter()
+    out = bench.trace_frame(setup, index)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    img = post.tonemap(out.radiance)
+    shape = (setup.cfg.height, setup.cfg.width, 3)
+    if tuple(img.shape) != shape or not bool(torch.isfinite(img).all()):
+        raise AssertionError("the path-trace frame is not a finite image")
+    return img, ms, dict(backend.LAUNCHES), out.spill_waves, \
+        float(out.rays_traced)
+
+
+def route_diff(label, img, ref):
+    """Print and gate a route's frame against the default route's:
+    (mean |difference|, share of pixels that differ at all, share off by
+    more than DEFAULT_OFF, largest difference)."""
+    mean, off, worst = frame_diff(img, ref)
+    differ = float(((img.float() - ref.float()).abs().amax(-1) > 0)
+                   .float().mean())
+    if mean > ROUTE_MEAN:
+        raise AssertionError(f"{label}: mean |difference| {mean!r} to the "
+                             f"default route's frame")
+    return (f"mean_abs_diff={mean!r} differing_pixel_share={differ!r} "
+            f"share_off_by_{DEFAULT_OFF}={off!r} max_abs_diff={worst!r}")
+
+
+def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
+                  primary):
+    """Phase 24 (a): the MXU opt-in. B12a on the headline frame's primary
+    rays; the headline frame and the upscaled default frame counted from
+    zero with the opt-in on and off from the same seed (frame time,
+    launches, image difference); B12b on the default frame's three shadow
+    batches. Returns (fields, launches, the opt-in-off headline image)."""
+    setup = bench.make_trace_setup(device=dev)
+    scene, cam = setup.scene, setup.cam
+    saved = intersect._USE_MXU
+    fields, launches = {}, {}
+    try:
+        intersect._USE_MXU = True
+        accel = clusters.make_morton_accel(setup.plan, scene.center,
+                                           scene.radius,
+                                           sort_origin=cam.position)
+        if accel.mxu_a is None:
+            raise AssertionError("the MXU opt-in built no A-matrices")
+        fields["intersect_morton_mxu"] = check_b12a(
+            ik, "B12a primary", primary, accel)
+        runs = {}
+        for on in (True, False):
+            intersect._USE_MXU = on
+            runs[on] = timed_trace_frame(bench, backend, setup, 1)
+        img, ms, got, spills, rays = runs[True]
+        expect_launches("MXU headline frame", got, {
+            "intersect_morton_mxu": trace_calls(setup.cfg, spills),
+            "intersect_morton": 0, "occlusion_morton": 0,
+            "occlusion_morton_mxu": 0})
+        expect_launches("opt-in off headline frame", runs[False][2], {
+            "intersect_morton_mxu": 0,
+            "intersect_morton": trace_calls(setup.cfg, runs[False][3])})
+        launches["intersect_morton_mxu"] = got["intersect_morton_mxu"]
+        log(f"routes: MXU headline frame {setup.cfg.width}x"
+            f"{setup.cfg.height} bounces={setup.cfg.bounces} "
+            f"frame_ms={ms!r} opt_in_off_frame_ms={runs[False][1]!r} "
+            f"rays={rays!r} opt_in_off_rays={runs[False][4]!r} "
+            f"spill_waves={spills} B12a={got['intersect_morton_mxu']} "
+            f"B1={got['intersect_morton']} opt_in_off_spill_waves="
+            f"{runs[False][3]} opt_in_off_B1="
+            f"{runs[False][2]['intersect_morton']} "
+            f"{route_diff('MXU headline frame', img, runs[False][0])} "
+            f"| {smi}")
+
+        cfg = bench.default_frame_config(upscaled=True)
+        pipe, state, pose = bench.make_frame_setup(cfg=cfg, device=dev)
+        intersect._USE_MXU = True
+        state, _ = pipe.render_frame(state, pose)    # a SHARC update frame
+        torch.cuda.synchronize()
+        frames = {}
+        for on in (True, False):
+            intersect._USE_MXU = on
+            spills = [0]
+
+            def run(name, fn, *args):
+                out = fn(*args)
+                if name == "trace":
+                    spills[0] += out.spill_waves
+                return out
+            with recorded((ik,), ("occlusion_morton_mxu",), clone=True,
+                          keep=lambda seen: len(
+                              seen["occlusion_morton_mxu"]) < 3) as seen:
+                backend.reset_launches()
+                t0 = time.perf_counter()
+                s1, _ = pipe.render_frame(state, pose, _run=run)
+                _, img = pipe.render_frame(s1, pose, _run=run)
+                torch.cuda.synchronize()
+            frames[on] = (img, (time.perf_counter() - t0) * 1e3 / 2,
+                          dict(backend.LAUNCHES),
+                          seen["occlusion_morton_mxu"], spills[0])
+        img, ms, got, calls, spills = frames[True]
+        # Two frames: the G-buffer and 8 bounces each, the SHARC update
+        # trace (9) on the second, 7 a spill wave.
+        closest = 3 * (cfg.bounces + 1) + (cfg.bounces - cfg.compact_from
+                                           + 1) * spills
+        expect_launches("MXU default frames", got, {
+            "intersect_morton_mxu": closest, "occlusion_morton_mxu": 6,
+            "intersect_morton": 0, "occlusion_morton": 0,
+            "initial_light_candidates": 2, "reproject_packed": 8,
+            "intersect_brute": 2})
+        expect_launches("opt-in off default frames", frames[False][2], {
+            "occlusion_morton_mxu": 0, "intersect_morton_mxu": 0,
+            "occlusion_morton": 6, "intersect_morton": 3 * (
+                cfg.bounces + 1) + (cfg.bounces - cfg.compact_from + 1)
+            * frames[False][4]})
+        if (tuple(img.shape) != (cfg.output_height, cfg.output_width, 3)
+                or not bool(torch.isfinite(img).all())
+                or float(img.min()) < 0.0 or float(img.max()) > 1.0):
+            raise AssertionError("the MXU default frame is not a finite "
+                                 "image in [0, 1]")
+        launches["occlusion_morton_mxu"] = got["occlusion_morton_mxu"]
+        log(f"routes: MXU upscaled default frames ({cfg.render_width}x"
+            f"{cfg.render_height} to {cfg.output_width}x{cfg.output_height}"
+            f", a SHARC cadence) frame_ms={ms!r} opt_in_off_frame_ms="
+            f"{frames[False][1]!r} spill_waves={spills} "
+            f"opt_in_off_spill_waves={frames[False][4]} B12a_per_frame="
+            f"{got['intersect_morton_mxu'] / 2!r} B12b_per_frame="
+            f"{got['occlusion_morton_mxu'] / 2!r} launches="
+            f"{json.dumps(got)} "
+            f"{route_diff('MXU default frame', img, frames[False][0])} "
+            f"| {smi}")
+        if len(calls) != 3:
+            raise AssertionError(f"{len(calls)} B12b batches recorded")
+        fields["occlusion_morton_mxu"] = check_b12b(ik, calls)
+    finally:
+        intersect._USE_MXU = saved
+    return fields, launches, runs[False][0]
+
+
+def run_clustered_route(bench, backend, clusters, ik, smi, dev, primary,
+                        morton_img):
+    """Phase 24 (b): the headline frame through the clustered accel
+    (clusters.build_plan on the rest pose, make_accel per frame): B13 on
+    the primary rays, then the frame counted from zero against the Morton
+    route's frame of the same seed."""
+    setup = bench.make_trace_setup(device=dev, accel="clustered")
+    scene = setup.scene
+    accel = clusters.make_accel(setup.plan, scene.center, scene.radius)
+    fields = {"intersect_clustered": check_b13(ik, primary, accel)}
+    img, ms, got, spills, rays = timed_trace_frame(bench, backend, setup, 1)
+    expect_launches("clustered headline frame", got, {
+        "intersect_clustered": trace_calls(setup.cfg, spills),
+        "intersect_morton": 0, "intersect_morton_mxu": 0,
+        "intersect_brute": 0})
+    log(f"routes: clustered headline frame {setup.cfg.width}x"
+        f"{setup.cfg.height} bounces={setup.cfg.bounces} "
+        f"clusters={accel.n_clusters} members_per_cluster="
+        f"{accel.max_members} frame_ms={ms!r} rays={rays!r} "
+        f"spill_waves={spills} "
+        f"B13={got['intersect_clustered']} "
+        f"{route_diff('clustered headline frame', img, morton_img)} | {smi}")
+    return fields, {"intersect_clustered": got["intersect_clustered"]}
 
 
 def main():
@@ -3794,6 +4186,18 @@ def main():
     run_record(bench, smi)
     log(f"record: phase 23 took {time.perf_counter() - t0:.1f} s")
 
+    # 24. the reference's other sphere-accel routes: the MXU opt-in (B12a,
+    # B12b) and the clustered accel (B13) ---------------------------------
+    t0 = time.perf_counter()
+    m_fields, m_launches, morton_img = run_mxu_route(
+        bench, backend, intersect, clusters, ik, smi, dev, primary)
+    c_fields, c_launches = run_clustered_route(
+        bench, backend, clusters, ik, smi, dev, primary, morton_img)
+    fields.update(m_fields, **c_fields)
+    launches.update(m_launches, **c_launches)
+    del morton_img
+    log(f"routes: phase 24 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -3923,6 +4327,12 @@ def main():
                                     "drts_tpu/ops/reproject_pallas.py:206"),
         "intersect_brute@banded": ("drts_tpu_torch/csrc/intersect.cu",
                                    "drts_tpu/ops/intersect_pallas.py:762"),
+        "intersect_morton_mxu": ("drts_tpu_torch/csrc/intersect.cu",
+                                 "drts_tpu/ops/intersect_pallas.py:408"),
+        "occlusion_morton_mxu": ("drts_tpu_torch/csrc/intersect.cu",
+                                 "drts_tpu/ops/intersect_pallas.py:597"),
+        "intersect_clustered": ("drts_tpu_torch/csrc/intersect.cu",
+                                "drts_tpu/ops/intersect_pallas.py:716"),
     }
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),

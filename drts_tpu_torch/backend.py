@@ -52,6 +52,19 @@ _SIGNATURES = {
                                 _FLOAT, _INT, _VOIDP, _VOIDP, _VOIDP),
     "drts_brute_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _VOIDP,
                                _VOIDP),
+    # rays, n, table, cols, bounds, n_chunks, mxu_a, cull_scale, pos_bits,
+    # t_out, obj_out, stream
+    "drts_morton_mxu_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP,
+                                    _INT, _VOIDP, _FLOAT, _INT, _VOIDP,
+                                    _VOIDP, _VOIDP),
+    # rays, n, table, cols, bounds, n_chunks, mxu_a, cull_scale, occ_out,
+    # stream
+    "drts_morton_mxu_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                                  _VOIDP, _FLOAT, _VOIDP, _VOIDP),
+    # rays, n, bounds_tbl, c_pad, members_tbl, n_clusters, max_members,
+    # t_out, obj_out, stream
+    "drts_clustered_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
+                                   _INT, _VOIDP, _VOIDP, _VOIDP),
     # rays, n, table, cols, bounds, n_chunks, cull_scale, occ_out, stream
     "drts_morton_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                               _FLOAT, _VOIDP, _VOIDP),
@@ -108,7 +121,9 @@ LAUNCHES = dict.fromkeys(("intersect_morton", "intersect_brute",
                           "reproject_packed", "bound_scan",
                           "shared_blas_sweep", "intersect_mesh_instances",
                           "shared_blas_any",
-                          "intersect_mesh_instances_any", "cand_fused"), 0)
+                          "intersect_mesh_instances_any", "cand_fused",
+                          "intersect_morton_mxu", "occlusion_morton_mxu",
+                          "intersect_clustered"), 0)
 
 
 def launched(name: str) -> None:

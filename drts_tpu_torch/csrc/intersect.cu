@@ -2,9 +2,12 @@
 //
 // drts_morton_closest_hit replaces the TPU kernel
 // drts_tpu/ops/intersect_pallas.py:intersect_morton_planar (B1),
-// drts_brute_closest_hit replaces intersect_spheres_planar (B11) and
-// drts_morton_occlusion replaces occlusion_morton_planar (B2). All are
-// bound to PyTorch through a plain C interface and ctypes
+// drts_brute_closest_hit replaces intersect_spheres_planar (B11),
+// drts_morton_occlusion replaces occlusion_morton_planar (B2),
+// drts_morton_mxu_closest_hit and drts_morton_mxu_occlusion replace
+// intersect_morton_mxu (B12a) and occlusion_morton_mxu (B12b), and
+// drts_clustered_closest_hit replaces intersect_clustered_planar (B13).
+// All are bound to PyTorch through a plain C interface and ctypes
 // (drts_tpu_torch/ops/intersect_kernels.py holds the wrappers and the plain
 // PyTorch versions they are checked against).
 //
@@ -23,11 +26,14 @@
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply and add rounds on its own, in the order the plain PyTorch
-// versions use, so the kernels equal them bit for bit. The unguarded
-// sqrtf of a negative discriminant in the Morton kernels gives NaN, which
-// fails both range compares, as the TPU kernel relies on.
+// versions use, so the kernels equal them bit for bit (B12a and B12b but
+// for the tensor cores' sums, see their note). The unguarded sqrtf of a
+// negative discriminant in the Morton kernels gives NaN, which fails both
+// range compares, as the TPU kernel relies on.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "rays.cuh"
 
@@ -100,6 +106,24 @@ __device__ __forceinline__ ChunkTile chunk_tile(float4* s_mem, int tile,
   return t;
 }
 
+// The closest-hit tail of the Morton kernels (B1, B12a;
+// intersect_pallas._slim_tail) for one pair: fold the packed word
+// (truncated t bits | obj) of a root in [tmin, tmax] into *best. A pair
+// whose discriminant is negative misses and takes no root (the plain
+// version's NaN root fails the range test: the same result).
+__device__ __forceinline__ void fold_packed(float b2, float c2, float tmin,
+                                            float tmax, int obj, int trunc,
+                                            int* best) {
+  const float disc = b2 * b2 - c2;
+  if (disc < 0.f) return;
+  const float sq = sqrtf(disc);
+  const float t_near = -b2 - sq;
+  const float t = t_near >= tmin ? t_near : sq - b2;
+  if (t >= tmin && t <= tmax) {
+    *best = min(*best, (__float_as_int(t) & trunc) | obj);
+  }
+}
+
 // B1: closest hit over the Morton table. The result per ray is the min of
 // the packed word (t bits with the low pos_bits replaced by the object
 // id), unpacked into t (truncated down) and the object id.
@@ -165,14 +189,8 @@ morton_closest_hit(const float* __restrict__ rays, int n,
         const float4 q = s.quad[c];
         const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
         const float c2 = oo + (q.x * r.ox + q.y * r.oy + q.z * r.oz) + q.w;
-        const float disc = b2 * b2 - c2;
-        if (disc < 0.f) continue;  // a miss: its NaN root would fail
-        const float sq = sqrtf(disc);
-        const float t_near = -b2 - sq;
-        const float t = t_near >= r.tmin ? t_near : sq - b2;
-        if (t >= r.tmin && t <= r.tmax) {
-          best = min(best, (__float_as_int(t) & trunc) | __float_as_int(a.w));
-        }
+        fold_packed(b2, c2, r.tmin, r.tmax, __float_as_int(a.w), trunc,
+                    &best);
       }
       if (best >= 0 && best < kInfBits) {
         t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
@@ -346,16 +364,53 @@ brute_closest_hit(const float* __restrict__ rays, int n,
 //   [0.5, 2] no chunk is skipped.
 // Non-finite inputs make lim infinite or the compare false: no skip.
 
-// One ray x table column of B2: t in [tmin, tmax] and another object.
+// The any-hit test of the Morton kernels (B2, B12b) for one pair: the
+// root (near, else far) in [tmin, tmax] and an object other than the
+// excluded one.
+__device__ __forceinline__ bool root_blocks(float b2, float c2, float tmin,
+                                            float tmax, float obj,
+                                            float exclude) {
+  const float sq = sqrtf(b2 * b2 - c2);  // NaN when the ray misses
+  const float t_near = -b2 - sq;
+  const float t = t_near >= tmin ? t_near : sq - b2;
+  return t >= tmin && t <= tmax && obj != exclude;
+}
+
+// One ray x table column of B2.
 __device__ __forceinline__ bool pair_blocks(const float4 a, const float4 q,
                                             const Ray& r, float od, float oo,
                                             float exclude) {
   const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
   const float c2 = oo + (q.x * r.ox + q.y * r.oy + q.z * r.oz) + q.w;
-  const float sq = sqrtf(b2 * b2 - c2);  // NaN when the ray misses
-  const float t_near = -b2 - sq;
-  const float t = t_near >= r.tmin ? t_near : sq - b2;
-  return t >= r.tmin && t <= r.tmax && a.w != exclude;
+  return root_blocks(b2, c2, r.tmin, r.tmax, a.w, exclude);
+}
+
+// B2's chunk test on a lane's segment [tmin, tmax] (see the note above):
+// the per-lane terms, and true where the lane skips the chunk.
+struct RangeCull {
+  float inv_dd, m_r;
+};
+
+__device__ __forceinline__ RangeCull range_cull(const Ray& r, float scale) {
+  const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
+  const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
+  const float big_t = fmaxf(fabsf(r.tmin), fabsf(r.tmax));
+  RangeCull c;
+  c.m_r = dd >= 0.5f && dd <= 2.0f
+              ? big_t * sqrtf(fabsf(dd - 1.0f)) + scale * (o1 + big_t)
+              : __int_as_float(kInfBits);
+  c.inv_dd = 1.0f / dd;
+  return c;
+}
+
+__device__ __forceinline__ bool range_misses(const RangeCull& c,
+                                             const Ray& r, float4 b) {
+  const float vx = b.x - r.ox, vy = b.y - r.oy, vz = b.z - r.oz;
+  const float vd = vx * r.dx + vy * r.dy + vz * r.dz;
+  const float s = fminf(fmaxf(vd * c.inv_dd, r.tmin), r.tmax);
+  const float wx = vx - s * r.dx, wy = vy - s * r.dy, wz = vz - s * r.dz;
+  const float lim = b.w + c.m_r;
+  return wx * wx + wy * wy + wz * wz > lim * lim;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -374,18 +429,13 @@ morton_occlusion(const float* __restrict__ rays, int n,
   Ray r = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
   if (i < n) r = load_ray(rays, n, i);
   bool open = i < n && r.tmax >= r.tmin;  // live and not yet blocked
-  float exclude = 0.f, od = 0.f, oo = 0.f, inv_dd = 0.f, m_r = 0.f;
+  float exclude = 0.f, od = 0.f, oo = 0.f;
+  RangeCull cull = {0.f, 0.f};
   if (open) {
     exclude = rays[8 * (size_t)n + i];
     od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
     oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    const float dd = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
-    const float o1 = fabsf(r.ox) + fabsf(r.oy) + fabsf(r.oz);
-    const float big_t = fmaxf(fabsf(r.tmin), fabsf(r.tmax));
-    m_r = dd >= 0.5f && dd <= 2.0f
-              ? big_t * sqrtf(fabsf(dd - 1.0f)) + scale * (o1 + big_t)
-              : __int_as_float(kInfBits);
-    inv_dd = 1.0f / dd;
+    cull = range_cull(r, scale);
   }
   bool blocked = false;
   for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
@@ -395,13 +445,7 @@ morton_occlusion(const float* __restrict__ rays, int n,
                         s_lin, s_quad, s_bnd, s_cnt);
     __syncthreads();
     for (int k = 0; open && k < m; ++k) {
-      const float4 b = s_bnd[k];
-      const float vx = b.x - r.ox, vy = b.y - r.oy, vz = b.z - r.oz;
-      const float vd = vx * r.dx + vy * r.dy + vz * r.dz;
-      const float s = fminf(fmaxf(vd * inv_dd, r.tmin), r.tmax);
-      const float wx = vx - s * r.dx, wy = vy - s * r.dy, wz = vz - s * r.dz;
-      const float lim = b.w + m_r;
-      if (wx * wx + wy * wy + wz * wz > lim * lim) continue;
+      if (range_misses(cull, r, s_bnd[k])) continue;
       int c = k * chunk;
       const int end = c + s_cnt[k];
       for (; c + kGroup <= end; c += kGroup) {
@@ -428,6 +472,436 @@ morton_occlusion(const float* __restrict__ rays, int n,
   if (i < n) occ_out[i] = blocked;
 }
 
+
+// B12a and B12b: B1's and B2's functions with the quadratic's b and
+// c0 - |o|^2 from a rank-8 product on the tensor cores. Per chunk the
+// A-matrix (2*chunk, 8) [b rows; c rows] (clusters.make_mxu_tables) times
+// the rays' X = [dx dy dz ox oy oz od 1] gives Y; b2 = Y_b and
+// c2 = Y_c + |o|^2. The product runs at the reference's "high"
+// precision: both operands split into bf16 halves (__float2bfloat16_rn,
+// as intersect_pallas._mxu_dot's casts), and Y = hi.hi + hi.lo + lo.hi
+// with float32 sums.
+//
+// Design: mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), a warp per
+// 32 rays. The reference's K = 8 packs into k16: the first mma takes
+// A = [a_hi | a_hi] against B = [x_hi ; x_lo] (hi.hi + hi.lo), the second
+// A = [a_lo | 0] against the same B (lo.hi), accumulating into the
+// first's result; 8 of the second's 32 K-slots are zero. A 16-row tile
+// holds the b rows of 8 spheres (rows 0-7) and their c rows (rows 8-15),
+// so the thread that holds b of sphere g for a ray in its C fragment
+// (c0, c1: row g) also holds its c (c2, c3: row g + 8): the tail needs no
+// shuffle at any chunk size, and a chunk that is not a multiple of 8
+// sphere slots is padded in shared memory with slots that never hit (b
+// rows 0, c rows |c|^2 - r^2 = 1e30). The staging splits the table's
+// A-matrices once per block into per-thread fragments in shared memory:
+// per slot and per thread-in-group t (k = 2t, 2t+1) one uint4 of packed
+// bf16 pairs {b_hi, c_hi, b_lo, c_lo}.
+//
+// Lane L owns ray warp_base + L for the loads, the cull and the result.
+// The four 8-ray tiles of the warp's 32 rays are laid out so that column
+// c of tile j is the ray of lane (2j + (c & 1)) * 4 + (c >> 1): the lane
+// (g, t) that holds columns 2t and 2t + 1 of tile j in its C fragment
+// reduces them with the lanes of the same t, and a reduce-scatter over
+// the lane bits 2-4 (7 shuffles, B12a) or one ballot per (tile, column)
+// (B12b) leaves each ray's result in its owner lane (g = 2j + e).
+//
+// The tail runs on the CUDA cores: B12a's is B1's slim tail (the packed
+// (t bits & trunc) | obj, min over the chunk), B12b's _anyhit_mxu_kernel's
+// (unguarded sqrt, near root else far, blocked in [tmin, tmax] and not the
+// excluded object). Chunks are culled per warp: each owner lane tests
+// the chunk's bound as B1 (B12a: the half-line segment ending at its best)
+// or B2 (B12b: the segment [tmin, tmax]) does, with the caller's margin
+// (ops/intersect_kernels.py:MXU_CULL_SCALE, which covers the product's
+// rounding), and the warp sweeps the chunk's filled slots, in groups of
+// 8, where any lane meets it. Every lane folds a swept chunk's pairs, so
+// a result differs from the unculled sweep only where a whole warp culls
+// a chunk. B12b's warp leaves once none of its lanes is open.
+//
+// Numbers: the tensor cores add the products in an order and with
+// roundings that IEEE does not specify, so Y can differ from the plain
+// version's (hi.hi + hi.lo) + lo.hi in float32 by a few ulp of its terms:
+// the kernels are held to their plain versions with a stated tolerance
+// (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit for bit.
+// Bound: per swept (ray, slot) the two mmas issue 64 MACs (128 flops,
+// ~0.13 ps at the dense bf16 rate of 989 TFLOP/s) and the tail ~12 float
+// operations (~0.36 ps at 33.5e12 a second): the tail's float32 issue on
+// the CUDA cores limits the kernels, not the product.
+
+struct MxuTile {
+  uint4* frag;  // per slot, 4 threads-in-group: {b_hi, c_hi, b_lo, c_lo}
+  int* obj;     // per slot: the object id (B12a: int; B12b: float bits)
+  float4* bnd;  // per chunk: cull_sphere
+  int* cnt;     // per chunk: filled slots
+};
+
+__device__ __forceinline__ MxuTile mxu_tile(uint4* s_mem, int tile,
+                                            int chunk_pad) {
+  MxuTile t;
+  t.frag = s_mem;
+  t.bnd = reinterpret_cast<float4*>(t.frag + (size_t)tile * chunk_pad * 4);
+  t.obj = reinterpret_cast<int*>(t.bnd + tile);
+  t.cnt = t.obj + tile * chunk_pad;
+  return t;
+}
+
+// Two floats as a bf16 pair, element k in the low half (the mma
+// fragments' order).
+__device__ __forceinline__ uint32_t bf16_pair(float lo_k, float hi_k) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo_k, hi_k);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// x - bf16(x), the low half's float (exact in float32).
+__device__ __forceinline__ float bf16_rest(float x) {
+  return x - __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool kObjBits>
+__device__ __forceinline__ void stage_mxu(
+    const float* __restrict__ table, int cols,
+    const float* __restrict__ bounds, int n_chunks, int chunk,
+    int chunk_pad, const float* __restrict__ mxu_a, int k0, int m,
+    float scale, const MxuTile& s) {
+  for (int q = threadIdx.x; q < m * chunk_pad * 4; q += blockDim.x) {
+    const int slot = q >> 2, t = q & 3;
+    const int k = slot / chunk_pad, i = slot - k * chunk_pad;
+    float b0 = 0.f, b1 = 0.f, c0 = 0.f, c1 = t == 3 ? 1e30f : 0.f;
+    if (i < chunk) {
+      const float* brow = mxu_a + ((size_t)2 * chunk * (k0 + k) + i) * 8;
+      const float* crow = brow + (size_t)chunk * 8;
+      b0 = brow[2 * t];
+      b1 = brow[2 * t + 1];
+      c0 = crow[2 * t];
+      c1 = crow[2 * t + 1];
+    }
+    s.frag[q] = make_uint4(bf16_pair(b0, b1), bf16_pair(c0, c1),
+                           bf16_pair(bf16_rest(b0), bf16_rest(b1)),
+                           bf16_pair(bf16_rest(c0), bf16_rest(c1)));
+    if (t == 0) {
+      const float obj = i < chunk ? table[4 * cols + (k0 + k) * chunk + i]
+                                  : 0.f;
+      s.obj[slot] = kObjBits ? (int)obj : __float_as_int(obj);
+    }
+  }
+  for (int k = threadIdx.x; k < m; k += blockDim.x) {
+    const int kk = k0 + k;
+    s.bnd[k] = cull_sphere(bounds[0 * n_chunks + kk],
+                           bounds[1 * n_chunks + kk],
+                           bounds[2 * n_chunks + kk],
+                           bounds[3 * n_chunks + kk], scale);
+    s.cnt[k] = min(max((int)bounds[4 * n_chunks + kk], 0), chunk);
+  }
+}
+
+// D = A B + D, m16n8k16, bf16 A (row) and B (col), f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The warp's rays as the mma's B operand and the tail's ray terms: for
+// tile j, this lane's B fragment {x_hi, x_lo} pair (k = 2t, 2t + 1) of
+// column g, and tmin, tmax, |o|^2 (and, for B12b, the excluded object) of
+// its C fragment's columns 2t + e.
+struct MxuRays {
+  uint32_t bh[4], bl[4];
+  float tmin[4][2], tmax[4][2], oo[4][2], excl[4][2];
+};
+
+template <bool kExclude>
+__device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
+                                         float exclude, MxuRays* x) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float v[8] = {r.dx, r.dy, r.dz, r.ox, r.oy, r.oz, od, 1.0f};
+  uint32_t hi[4], lo[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    hi[p] = bf16_pair(v[2 * p], v[2 * p + 1]);
+    lo[p] = bf16_pair(bf16_rest(v[2 * p]), bf16_rest(v[2 * p + 1]));
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int src = (2 * j + (g & 1)) * 4 + (g >> 1);
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const uint32_t vh = __shfl_sync(0xFFFFFFFFu, hi[p], src);
+      const uint32_t vl = __shfl_sync(0xFFFFFFFFu, lo[p], src);
+      if (p == t) {
+        x->bh[j] = vh;
+        x->bl[j] = vl;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int owner = (2 * j + e) * 4 + t;
+      x->tmin[j][e] = __shfl_sync(0xFFFFFFFFu, r.tmin, owner);
+      x->tmax[j][e] = __shfl_sync(0xFFFFFFFFu, r.tmax, owner);
+      x->oo[j][e] = __shfl_sync(0xFFFFFFFFu, oo, owner);
+      if (kExclude) x->excl[j][e] = __shfl_sync(0xFFFFFFFFu, exclude, owner);
+    }
+  }
+}
+
+// Y for 8 spheres (this lane's sphere g) x the 8 rays of tile j: d[0..1]
+// = b2 of columns 2t, 2t + 1, d[2..3] = their c2 - |o|^2.
+__device__ __forceinline__ void mxu_tile_product(const uint4 f,
+                                                 const MxuRays& x, int j,
+                                                 float d[4]) {
+  d[0] = d[1] = d[2] = d[3] = 0.f;
+  mma_bf16(d, f.x, f.y, f.x, f.y, x.bh[j], x.bl[j]);
+  mma_bf16(d, f.z, f.w, 0u, 0u, x.bh[j], x.bl[j]);
+}
+
+// Min over the lanes with this lane's t of v[q], q = 2j + e, left in the
+// lane with g = q (a reduce-scatter over lane bits 4, 3, 2).
+__device__ __forceinline__ int reduce_scatter_min(const int v[8]) {
+  const int lane = threadIdx.x & 31;
+  const bool b2 = lane & 16, b1 = lane & 8, b0 = lane & 4;
+  int a[4], b[2];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int got = __shfl_xor_sync(0xFFFFFFFFu, b2 ? v[q] : v[q + 4], 16);
+    a[q] = min(b2 ? v[q + 4] : v[q], got);
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int got = __shfl_xor_sync(0xFFFFFFFFu, b1 ? a[q] : a[q + 2], 8);
+    b[q] = min(b1 ? a[q + 2] : a[q], got);
+  }
+  const int got = __shfl_xor_sync(0xFFFFFFFFu, b0 ? b[0] : b[1], 4);
+  return min(b0 ? b[1] : b[0], got);
+}
+
+__global__ void __launch_bounds__(kThreads)
+morton_mxu_closest_hit(const float* __restrict__ rays, int n,
+                       const float* __restrict__ table, int cols,
+                       const float* __restrict__ bounds, int n_chunks,
+                       int chunk, int chunk_pad,
+                       const float* __restrict__ mxu_a, int tile_chunks,
+                       float scale, int pos_bits, float* __restrict__ t_out,
+                       int* __restrict__ obj_out) {
+  extern __shared__ uint4 s_mxu[];
+  const MxuTile s = mxu_tile(s_mxu, tile_chunks, chunk_pad);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int g = (threadIdx.x & 31) >> 2;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
+  const int trunc = ~((1 << pos_bits) - 1);
+  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  const SegmentCull cull = segment_cull(r, scale);
+  const bool warp_live = __any_sync(0xFFFFFFFFu, live);
+  MxuRays x;
+  if (warp_live) mxu_rays<false>(r, od, oo, 0.f, &x);
+  int best = kInfBits;
+  float t_end = r.tmax;
+  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+    const int m = min(tile_chunks, n_chunks - k0);
+    __syncthreads();
+    stage_mxu<true>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
+                    k0, m, scale, s);
+    __syncthreads();
+    if (!warp_live) continue;
+    for (int k = 0; k < m; ++k) {
+      const bool meet = live && !segment_misses(cull, r, t_end, s.bnd[k]);
+      if (!__any_sync(0xFFFFFFFFu, meet)) continue;
+      int part[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) part[q] = kInfBits;
+      const int groups = (s.cnt[k] + 7) >> 3;
+      for (int grp = 0; grp < groups; ++grp) {
+        const int slot = k * chunk_pad + grp * 8 + g;
+        const uint4 f = s.frag[slot * 4 + (threadIdx.x & 3)];
+        const int obj = s.obj[slot];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float d[4];
+          mxu_tile_product(f, x, j, d);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            fold_packed(d[e], d[2 + e] + x.oo[j][e], x.tmin[j][e],
+                        x.tmax[j][e], obj, trunc, &part[2 * j + e]);
+          }
+        }
+      }
+      best = min(best, reduce_scatter_min(part));
+      if (best >= 0 && best < kInfBits) {
+        t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
+      }
+    }
+  }
+  if (i < n) {
+    t_out[i] = __int_as_float(best & trunc);
+    obj_out[i] = best & ~trunc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+morton_mxu_occlusion(const float* __restrict__ rays, int n,
+                     const float* __restrict__ table, int cols,
+                     const float* __restrict__ bounds, int n_chunks,
+                     int chunk, int chunk_pad,
+                     const float* __restrict__ mxu_a, int tile_chunks,
+                     float scale, unsigned char* __restrict__ occ_out) {
+  extern __shared__ uint4 s_mxu[];
+  const MxuTile s = mxu_tile(s_mxu, tile_chunks, chunk_pad);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
+  const float exclude = live ? rays[8 * (size_t)n + i] : 0.f;
+  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+  const RangeCull cull = range_cull(r, scale);
+  const bool warp_live = __any_sync(0xFFFFFFFFu, live);
+  MxuRays x;
+  if (warp_live) mxu_rays<true>(r, od, oo, exclude, &x);
+  bool open = live;  // live and not yet blocked
+  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+    const int m = min(tile_chunks, n_chunks - k0);
+    __syncthreads();
+    stage_mxu<false>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
+                     k0, m, scale, s);
+    __syncthreads();
+    for (int k = 0; k < m && __any_sync(0xFFFFFFFFu, open); ++k) {
+      const bool meet = open && !range_misses(cull, r, s.bnd[k]);
+      if (!__any_sync(0xFFFFFFFFu, meet)) continue;
+      unsigned part = 0;  // bit 2j + e: column 2t + e of tile j blocked
+      const int groups = (s.cnt[k] + 7) >> 3;
+      for (int grp = 0; grp < groups; ++grp) {
+        const int slot = k * chunk_pad + grp * 8 + g;
+        const uint4 f = s.frag[slot * 4 + t];
+        const float obj = __int_as_float(s.obj[slot]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float d[4];
+          mxu_tile_product(f, x, j, d);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // A pair whose discriminant is negative takes no root (its
+            // NaN root would not block); the skip saves its sqrt.
+            const float c2 = d[2 + e] + x.oo[j][e];
+            if (!(d[e] * d[e] - c2 < 0.f) &&
+                root_blocks(d[e], c2, x.tmin[j][e], x.tmax[j][e], obj,
+                            x.excl[j][e])) {
+              part |= 1u << (2 * j + e);
+            }
+          }
+        }
+      }
+      bool mine = false;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const unsigned votes = __ballot_sync(0xFFFFFFFFu, (part >> q) & 1u);
+        if (q == g) mine = (votes & (0x11111111u << t)) != 0u;
+      }
+      if (mine && live) open = false;
+    }
+  }
+  if (i < n) occ_out[i] = live && !open;
+}
+
+// B13. rays (8, n); bounds (4, c_pad) [cx cy cz r]; members
+// (c_pad * mm, 8) [cx cy cz r obj 0 0 0], r = 0 in an empty slot
+// (clusters.pack_for_kernel). Per cluster in plan order: the bound test
+// (disc > 0 and the root interval meeting [tmin, tmax]); where some lane
+// of the warp passes it, the member sweep of all mm slots: t of a slot
+// with disc2 > 0, t in [tmin, tmax] and r > 0, the first slot at the
+// least t; a cluster's best replaces the ray's where strictly less. A
+// miss gives t = +inf and obj 0.
+//
+// Design: one thread per ray; the bounds go through shared memory in
+// tiles of kClusterTile clusters (a broadcast read per cluster), the
+// member rows through the read-only cache, every lane of a warp reading
+// the same row at once. The TPU kernel sweeps a cluster's members for a
+// block of 2048 rays where any of them touches its bound; here a warp
+// does where any of its lanes does (__any_sync), the per-warp form of the
+// same vote. It changes no result: a member hit by a ray lies inside the
+// cluster's bound (refit's covering radius plus its 0.25 slack), so the
+// ray's line meets the bound with its interval over the hit's t. Dead
+// lanes touch nothing. The arithmetic is the reference's
+// (intersect_pallas._clustered_kernel), each operation in its order, so
+// with -fmad=false the kernel equals its plain version bit for bit.
+// Bound by instruction issue: ~25 float operations and one sqrt per
+// cluster tested, ~28 and one sqrt per member slot swept.
+constexpr int kClusterTile = 1024;
+
+__global__ void __launch_bounds__(kThreads)
+clustered_closest_hit(const float* __restrict__ rays, int n,
+                      const float* __restrict__ bounds, int c_pad,
+                      const float* __restrict__ members, int n_clusters,
+                      int mm, float* __restrict__ t_out,
+                      int* __restrict__ obj_out) {
+  __shared__ float4 s_bnd[kClusterTile];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
+  float best_t = __int_as_float(kInfBits);
+  int best_i = 0;
+  if (__syncthreads_or(live)) {
+    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const float4* __restrict__ rows = reinterpret_cast<const float4*>(members);
+    for (int c0 = 0; c0 < n_clusters; c0 += kClusterTile) {
+      const int m = min(kClusterTile, n_clusters - c0);
+      __syncthreads();
+      for (int c = threadIdx.x; c < m; c += blockDim.x) {
+        s_bnd[c] = make_float4(bounds[0 * c_pad + c0 + c],
+                               bounds[1 * c_pad + c0 + c],
+                               bounds[2 * c_pad + c0 + c],
+                               bounds[3 * c_pad + c0 + c]);
+      }
+      __syncthreads();
+      for (int c = 0; c < m; ++c) {
+        const float4 bb = s_bnd[c];
+        const float b = od - (bb.x * r.dx + bb.y * r.dy + bb.z * r.dz);
+        const float cc = oo - 2.0f * (bb.x * r.ox + bb.y * r.oy +
+                                      bb.z * r.oz) +
+                         (bb.x * bb.x + bb.y * bb.y + bb.z * bb.z -
+                          bb.w * bb.w);
+        const float disc = b * b - cc;
+        const float sq = sqrtf(fmaxf(disc, 0.f));
+        const bool touched = live && disc > 0.f && -b - sq <= r.tmax &&
+                             -b + sq >= r.tmin;
+        if (!__any_sync(0xFFFFFFFFu, touched)) continue;
+        float chunk_t = __int_as_float(kInfBits);
+        float chunk_obj = 0.f;
+        const size_t base = (size_t)(c0 + c) * mm;
+        for (int s = 0; s < mm; ++s) {
+          const float4 a = __ldg(rows + 2 * (base + s));
+          const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
+          const float c2 = oo - 2.0f * (a.x * r.ox + a.y * r.oy +
+                                        a.z * r.oz) +
+                           (a.x * a.x + a.y * a.y + a.z * a.z - a.w * a.w);
+          const float disc2 = b2 * b2 - c2;
+          const float sq2 = sqrtf(fmaxf(disc2, 0.f));
+          const float t_near = -b2 - sq2;
+          const float t = t_near >= r.tmin ? t_near : -b2 + sq2;
+          if (disc2 > 0.f && t >= r.tmin && t <= r.tmax && a.w > 0.f &&
+              t < chunk_t) {
+            chunk_t = t;
+            chunk_obj = __ldg(members + 8 * (base + s) + 4);
+          }
+        }
+        if (chunk_t < best_t) {
+          best_t = chunk_t;
+          best_i = (int)chunk_obj;
+        }
+      }
+    }
+  }
+  if (i < n) {
+    t_out[i] = best_t;
+    obj_out[i] = best_i;
+  }
+}
+
 inline int grid_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // Chunks per shared-memory tile of the Morton kernels, and its bytes;
@@ -438,6 +912,22 @@ bool morton_tile(int cols, int n_chunks, int* chunk, int* tile,
   *chunk = cols / n_chunks;
   const size_t per_chunk = 2 * sizeof(float4) * *chunk + sizeof(float4) +
                            sizeof(int);
+  *tile = min(n_chunks, (int)(kTileBytes / per_chunk));
+  *smem = per_chunk * *tile;
+  return *tile >= 1;
+}
+
+// The tensor-core kernels' chunk layout: slots per chunk padded to whole
+// groups of 8, chunks per shared-memory tile and its bytes; false where
+// the bounds do not divide the table or no chunk fits.
+bool mxu_tile_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
+                    int* tile, size_t* smem) {
+  if (n_chunks <= 0 || cols % n_chunks != 0) return false;
+  *chunk = cols / n_chunks;
+  *chunk_pad = (*chunk + 7) / 8 * 8;
+  const size_t per_chunk = (size_t)*chunk_pad * (4 * sizeof(uint4) +
+                                                 sizeof(int)) +
+                           sizeof(float4) + sizeof(int);
   *tile = min(n_chunks, (int)(kTileBytes / per_chunk));
   *smem = per_chunk * *tile;
   return *tile >= 1;
@@ -489,5 +979,60 @@ extern "C" int drts_morton_occlusion(const float* rays, int n,
   }
   morton_occlusion<<<grid_for(n), kThreads, smem, stream>>>(
       rays, n, table, cols, bounds, n_chunks, chunk, tile, scale, occ_out);
+  return (int)cudaGetLastError();
+}
+
+// scale: the cull's rounding margin (ops/intersect_kernels.py:
+// MXU_CULL_SCALE); mxu_a: (n_chunks * 2 * chunk, 8) float32.
+extern "C" int drts_morton_mxu_closest_hit(const float* rays, int n,
+                                           const float* table, int cols,
+                                           const float* bounds, int n_chunks,
+                                           const float* mxu_a, float scale,
+                                           int pos_bits, float* t_out,
+                                           int* obj_out,
+                                           cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int chunk, chunk_pad, tile;
+  size_t smem;
+  if (!mxu_tile_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  morton_mxu_closest_hit<<<grid_for(n), kThreads, smem, stream>>>(
+      rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
+      scale, pos_bits, t_out, obj_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int drts_morton_mxu_occlusion(const float* rays, int n,
+                                         const float* table, int cols,
+                                         const float* bounds, int n_chunks,
+                                         const float* mxu_a, float scale,
+                                         unsigned char* occ_out,
+                                         cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int chunk, chunk_pad, tile;
+  size_t smem;
+  if (!mxu_tile_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  morton_mxu_occlusion<<<grid_for(n), kThreads, smem, stream>>>(
+      rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
+      scale, occ_out);
+  return (int)cudaGetLastError();
+}
+
+// bounds: (4, c_pad); members: (c_pad * mm, 8); n_clusters <= c_pad.
+extern "C" int drts_clustered_closest_hit(const float* rays, int n,
+                                          const float* bounds, int c_pad,
+                                          const float* members,
+                                          int n_clusters, int mm,
+                                          float* t_out, int* obj_out,
+                                          cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (n_clusters <= 0 || n_clusters > c_pad || mm <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  clustered_closest_hit<<<grid_for(n), kThreads, 0, stream>>>(
+      rays, n, bounds, c_pad, members, n_clusters, mm, t_out, obj_out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,15 @@
-"""Morton sphere accel (port of the Morton half of
-``drts_tpu/models/clusters.py``): a host-side static plan that sorts small
-spheres along a Morton curve and chunks them, and a per-frame refit that
-packs the Morton-ordered sphere table the closest-hit and any-hit kernels
-sweep, with the chunk bounds the any-hit kernel culls by.
+"""Sphere accels (port of ``drts_tpu/models/clusters.py``).
+
+The Morton accel: a host-side static plan that sorts small spheres along
+a Morton curve and chunks them, and a per-frame refit that packs the
+Morton-ordered sphere table the closest-hit and any-hit kernels sweep,
+with the chunk bounds they cull by; under the MXU opt-in
+(``ops/intersect._USE_MXU``) also the chunk A-matrices of the
+tensor-core kernels (``make_mxu_tables``).
+
+The clustered accel: a static xz binning of the spheres (``build_plan``)
+and per frame the cluster bounds and member table of the cluster-culled
+kernel (``make_accel``: ``refit`` + ``pack_for_kernel``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,20 @@ class MortonAccel:
     bounds: torch.Tensor      # (5, C)
     n_chunks: int
     chunk: int
+    mxu_a: torch.Tensor | None = None   # (C*2M, 8) chunk A-matrices
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusteredAccel:
+    """Tables of the cluster-culled kernel: per cluster its bounding
+    sphere, ``bounds_tbl`` (4, C_pad) [cx cy cz r], and its ``max_members``
+    member slots, ``members_tbl`` (C_pad*M, 8) [cx cy cz r obj 0 0 0]
+    (r = 0 for an empty slot). ``n_clusters`` is the unpadded count;
+    C_pad rounds it up to a multiple of 8."""
+    bounds_tbl: torch.Tensor
+    members_tbl: torch.Tensor
+    n_clusters: int
+    max_members: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +81,36 @@ def _morton3(x: np.ndarray) -> np.ndarray:
             | (spread(x[:, 2]) << 2))
 
 
+def build_plan(positions: np.ndarray, radii: np.ndarray,
+               cell_size: float = 4.0, device="cuda") -> ClusterPlan:
+    """Greedy binning on the xz plane at rest pose: spheres larger than
+    half a cell become singleton clusters, the rest bin by
+    floor(xz / cell_size) in order of first appearance, and a bin of more
+    than MAX_MEMBERS splits into consecutive runs of MAX_MEMBERS. The
+    plan lives on ``device``, by default the card."""
+    device = backend.device(device)
+    big = radii > cell_size * 0.5
+    bins: dict = {}
+    for i in range(positions.shape[0]):
+        if big[i]:
+            bins[("big", i)] = [i]
+            continue
+        key = (int(np.floor(positions[i, 0] / cell_size)),
+               int(np.floor(positions[i, 2] / cell_size)))
+        bins.setdefault(key, []).append(i)
+    clusters = [members[s:s + MAX_MEMBERS] for members in bins.values()
+                for s in range(0, len(members), MAX_MEMBERS)]
+    return _plan(clusters, MAX_MEMBERS, device)
+
+
+def _plan(clusters, max_members, device) -> ClusterPlan:
+    table = np.full((len(clusters), max_members), -1, np.int32)
+    for ci, members in enumerate(clusters):
+        table[ci, :len(members)] = members
+    return ClusterPlan(member_object=torch.from_numpy(table).long().to(device),
+                       num_clusters=len(clusters))
+
+
 def build_plan_morton(positions: np.ndarray, radii: np.ndarray,
                       big_radius: float = 2.0,
                       max_members: int = MAX_MEMBERS,
@@ -80,23 +131,14 @@ def build_plan_morton(positions: np.ndarray, radii: np.ndarray,
     clusters = [order[s:s + max_members]
                 for s in range(0, len(order), max_members)]
     clusters += [[i] for i in big]
-    c = len(clusters)
-    table = np.full((c, max_members), -1, np.int32)
-    for ci, members in enumerate(clusters):
-        table[ci, :len(members)] = members
-    return ClusterPlan(member_object=torch.from_numpy(table).long().to(device),
-                       num_clusters=c)
+    return _plan(clusters, max_members, device)
 
 
 def refit(plan: ClusterPlan, centers, radii, slack: float = 0.25
           ) -> ClusterBounds:
     """Per-frame bound update: centroid + covering radius with a motion
     slack margin."""
-    member = plan.member_object
-    valid = member >= 0
-    safe = torch.clamp(member, min=0)
-    pos = centers[safe]                               # (C, M, 3)
-    rad = torch.where(valid, radii[safe], 0.0)        # (C, M)
+    valid, pos, rad = _members(plan.member_object, centers, radii)
     count = torch.clamp(valid.sum(dim=1), min=1)
     centroid = torch.where(valid[..., None], pos, 0.0).sum(dim=1) \
         / count[:, None]
@@ -105,13 +147,87 @@ def refit(plan: ClusterPlan, centers, radii, slack: float = 0.25
     return ClusterBounds(center=centroid, radius=cover + slack)
 
 
+def _members(member, centers, radii):
+    """Per slot of `member` (C, M): (valid, centre (C, M, 3), radius with
+    0 in empty slots)."""
+    valid = member >= 0
+    safe = torch.clamp(member, min=0)
+    return valid, centers[safe], torch.where(valid, radii[safe], 0.0)
+
+
+def _pad_to(x, total):
+    """Zero-pad a 1-D tensor to `total` entries."""
+    return torch.nn.functional.pad(x, (0, total - x.shape[0]))
+
+
+def pack_for_kernel(plan: ClusterPlan, bounds: ClusterBounds, centers,
+                    radii):
+    """The cluster-culled kernel's tables: bounds (4, C_pad) [cx cy cz r]
+    and members (C_pad*M, 8) [cx cy cz r obj 0 0 0], C_pad the cluster
+    count rounded up to a multiple of 8; padded clusters are zero, and an
+    empty slot has radius 0 and object 0 (never hit)."""
+    member = plan.member_object
+    valid, mpos, mrad = _members(member, centers, radii)
+    c, mm = member.shape
+    c_pad = -(-c // 8) * 8
+    cols = torch.stack([mpos[..., 0].reshape(c * mm),
+                        mpos[..., 1].reshape(c * mm),
+                        mpos[..., 2].reshape(c * mm),
+                        mrad.reshape(c * mm),
+                        torch.where(valid, member, 0).reshape(c * mm)
+                        .to(torch.float32)], dim=-1)
+    members = torch.zeros((c_pad * mm, 8), dtype=torch.float32,
+                          device=member.device)
+    members[:c * mm, :5] = cols
+    bounds_tbl = torch.stack([_pad_to(bounds.center[:, 0], c_pad),
+                              _pad_to(bounds.center[:, 1], c_pad),
+                              _pad_to(bounds.center[:, 2], c_pad),
+                              _pad_to(bounds.radius, c_pad)])
+    return bounds_tbl.contiguous(), members
+
+
+def make_accel(plan: ClusterPlan, centers, radii) -> ClusteredAccel:
+    """Per-frame tables of the cluster-culled kernel: refit + pack."""
+    bounds_tbl, members_tbl = pack_for_kernel(
+        plan, refit(plan, centers, radii), centers, radii)
+    return ClusteredAccel(bounds_tbl=bounds_tbl, members_tbl=members_tbl,
+                          n_clusters=plan.num_clusters,
+                          max_members=plan.member_object.shape[1])
+
+
+def make_mxu_tables(table, n_chunks: int, chunk: int):
+    """Chunk A-matrices of the tensor-core kernels (B12a/B12b), from the
+    Morton table's rows 0-3 in its chunk order: per chunk a (2*chunk, 8)
+    block, so that A @ [dx dy dz ox oy oz od 1] gives the quadratic's b
+    (rows [0, chunk)) and c0 - |o|^2 (rows [chunk, 2*chunk)):
+
+        b rows:  [-cx -cy -cz  0    0    0   1  0]
+        c rows:  [ 0   0   0  -2cx -2cy -2cz 0  |c|^2-r^2]
+
+    Empty slots (r = 0) get |c|^2 - r^2 = 1e30, which forces a negative
+    discriminant."""
+    cx, cy, cz, r = table[0], table[1], table[2], table[3]
+    ccrr = torch.where(r > 0.0, cx * cx + cy * cy + cz * cz - r * r, 1e30)
+    zeros = torch.zeros_like(cx)
+    ones = torch.ones_like(cx)
+    top = torch.stack([-cx, -cy, -cz, zeros, zeros, zeros, ones, zeros],
+                      dim=-1)
+    bot = torch.stack([zeros, zeros, zeros, -2.0 * cx, -2.0 * cy,
+                       -2.0 * cz, zeros, ccrr], dim=-1)
+    a = torch.cat([top.reshape(n_chunks, chunk, 8),
+                   bot.reshape(n_chunks, chunk, 8)], dim=1)
+    return a.reshape(n_chunks * 2 * chunk, 8).contiguous()
+
+
 def make_morton_accel(plan: ClusterPlan, centers, radii,
                       sort_origin=None) -> MortonAccel:
     """Per-frame tables for the Morton kernels: refit chunk bounds and
     pack the planar Morton-ordered sphere table with an object-index row.
     `sort_origin` (usually the camera position) orders chunks near-to-far
     from that point; the order does not change the closest hit (a min over
-    chunks; object ids ride the table rows) or the any hit."""
+    chunks; object ids ride the table rows) or the any hit. Under the MXU
+    opt-in (``ops/intersect._USE_MXU``) the accel also carries the
+    tensor-core kernels' A-matrices (``make_mxu_tables``)."""
     member = plan.member_object
     bounds = refit(plan, centers, radii)
     center, radius = bounds.center, bounds.radius
@@ -120,10 +236,7 @@ def make_morton_accel(plan: ClusterPlan, centers, radii,
         order = torch.argsort(key, stable=True)
         member, center, radius = member[order], center[order], radius[order]
     c, mm = member.shape
-    valid = member >= 0
-    safe = torch.clamp(member, min=0)
-    mpos = centers[safe]
-    mrad = torch.where(valid, radii[safe], 0.0)
+    valid, mpos, mrad = _members(member, centers, radii)
     flat = c * mm
     cx = mpos[..., 0].reshape(flat)
     cy = mpos[..., 1].reshape(flat)
@@ -138,5 +251,8 @@ def make_morton_accel(plan: ClusterPlan, centers, radii,
                          -2.0 * cx, -2.0 * cy, -2.0 * cz, ccrr])
     count = valid.sum(dim=1).to(torch.float32)
     bounds_tbl = torch.cat([center.T, radius[None], count[None]])
+    from ..ops import intersect   # ops.intersect imports this module
     return MortonAccel(table=table.contiguous(),
-                       bounds=bounds_tbl.contiguous(), n_chunks=c, chunk=mm)
+                       bounds=bounds_tbl.contiguous(), n_chunks=c, chunk=mm,
+                       mxu_a=(make_mxu_tables(table, c, mm)
+                              if intersect._USE_MXU else None))

@@ -2,24 +2,34 @@
 
 ``intersect_spheres`` packs the rays planar and hands them to a kernel in
 ``intersect_kernels``: the Morton-table kernel (B1) when a MortonAccel is
-passed, the brute-force kernel (B11) when none is. ``intersect_spheres_any``
-is the shadow ray: the any-hit kernel (B2) over the Morton table and its
-chunk bounds, or, with no accel, the hit bit of the brute-force kernel
-(B11). The reference's 8x128 screen-tile ray order is a TPU block-culling
-aid; results do not depend on it, and these kernels cull per ray (B1, B2)
-or not at all (B11), so rays keep pixel order (neighbouring lanes of a
-warp still share most of their work).
+passed, or its tensor-core form (B12a) under the MXU opt-in; the
+cluster-culled kernel (B13) when a ClusteredAccel is; the brute-force
+kernel (B11) when none is. ``intersect_spheres_any`` is the shadow ray:
+the any-hit kernel (B2) over the Morton table and its chunk bounds (B12b
+under the opt-in), or, with a ClusteredAccel or no accel, the hit bit of
+the closest hit (B13, B11) where its object is not the excluded one.
+The reference's 8x128 screen-tile ray order is a TPU block-culling aid;
+results do not depend on it, and these kernels cull per ray or per warp
+(B1, B2, B12, B13) or not at all (B11), so rays keep pixel order
+(neighbouring lanes of a warp still share most of their work).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
 from ..models import clusters as clusters_mod
 from ..utils import math as m
 from . import intersect_kernels as ik
+
+# The reference's opt-in to its MXU kernels (drts_tpu/ops/intersect.py:39),
+# read at import as it reads it: a MortonAccel then goes to the
+# tensor-core kernels B12a and B12b, and make_morton_accel builds their
+# A-matrices (MortonAccel.mxu_a). Off by default.
+_USE_MXU = os.environ.get("DRTS_MXU_KERNEL", "") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +60,8 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
     origin/direction: (..., 3); t_min/t_max broadcastable to (...,) with
     t_min >= 0; centers (K, 3); radii (K,). With a MortonAccel the hit t is
     truncated down (the packed encoding); models/scene.surface_attributes
-    refines it, with the normal and the rest of the surface.
+    refines it, with the normal and the rest of the surface. With a
+    ClusteredAccel or none it is exact.
     ``block_size`` sizes the plain versions' ray blocks."""
     lead = origin.shape[:-1]
     n = origin[..., 0].numel()
@@ -62,8 +73,18 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
     rays = pack_rays(origin.reshape(n, 3), direction.reshape(n, 3),
                      flat(t_min), flat(t_max))
     if isinstance(accel, clusters_mod.MortonAccel):
-        t_best, idx = ik.intersect_morton(rays, accel.table, accel.bounds,
-                                          block_size)
+        if _USE_MXU and accel.mxu_a is not None:
+            t_best, idx = ik.intersect_morton_mxu(
+                rays, accel.table, accel.bounds, accel.mxu_a, block_size)
+        else:
+            t_best, idx = ik.intersect_morton(rays, accel.table,
+                                              accel.bounds, block_size)
+    elif isinstance(accel, clusters_mod.ClusteredAccel):
+        t_best, idx = ik.intersect_clustered(
+            rays, accel.bounds_tbl, accel.members_tbl, accel.n_clusters,
+            accel.max_members, block_size)
+        # The reference's clamp (drts_tpu/ops/intersect.py:180-187).
+        idx = torch.clamp(idx, max=centers.shape[0] - 1)
     elif accel is None:
         t_best, idx = ik.intersect_brute(rays, pack_spheres(centers, radii),
                                          block_size)
@@ -81,15 +102,17 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
     nothing) has its hit t in [t_min, t_max].
 
     With a MortonAccel this is the any-hit kernel over its table (the
-    reference's ``_anyhit_kernel``). With no accel it is the reference's
-    other function: the closest hit over `centers`, `radii` (B11), and a
-    ray is blocked where that closest sphere is not the excluded one."""
-    if accel is None:
+    reference's ``_anyhit_kernel``, or ``_anyhit_mxu_kernel`` under the
+    MXU opt-in). With a ClusteredAccel or no accel it is the reference's
+    other function: the closest hit over `centers`, `radii` (B13 over the
+    accel's tables, B11 without), and a ray is blocked where that closest
+    sphere is not the excluded one."""
+    if accel is None or isinstance(accel, clusters_mod.ClusteredAccel):
         if centers is None or radii is None:
-            raise ValueError("the any-hit without an accel sweeps centers "
-                             "and radii, which were not given")
+            raise ValueError("the any-hit through the closest hit needs "
+                             "centers and radii, which were not given")
         hit = intersect_spheres(origin, direction, t_min, t_max, centers,
-                                radii, block_size)
+                                radii, block_size, accel=accel)
         if exclude_index is not None:
             return hit.hit & (hit.index != exclude_index)
         return hit.hit
@@ -106,8 +129,13 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
                      flat(t_min), flat(t_max))
     exclude = flat(-1.0 if exclude_index is None else exclude_index)
     rays9 = torch.cat([rays, exclude[None]]).contiguous()
-    return ik.occlusion_morton(rays9, accel.table, accel.bounds,
-                               block_size).reshape(lead)
+    if _USE_MXU and accel.mxu_a is not None:
+        occ = ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
+                                      accel.mxu_a, block_size)
+    else:
+        occ = ik.occlusion_morton(rays9, accel.table, accel.bounds,
+                                  block_size)
+    return occ.reshape(lead)
 
 
 def _make_hit(origin, direction, t_best, idx) -> SphereHit:

@@ -1,8 +1,7 @@
 """The ray-sphere kernels of the port: wrappers, plain versions, counters.
 
-Counterpart of ``drts_tpu/ops/intersect_pallas.py``. Three TPU kernels are
-on the port's paths so far, and each becomes a CUDA C++ kernel for Hopper
-in ``csrc/intersect.cu``:
+Counterpart of ``drts_tpu/ops/intersect_pallas.py``. Each of its six TPU
+kernels becomes a CUDA C++ kernel for Hopper in ``csrc/intersect.cu``:
 
 - ``intersect_morton`` replaces ``intersect_pallas.intersect_morton_planar``
   (B1): closest hit over a Morton-ordered sphere table, reduced as the min
@@ -12,8 +11,19 @@ in ``csrc/intersect.cu``:
   lowest index on ties.
 - ``occlusion_morton`` replaces ``intersect_pallas.occlusion_morton_planar``
   (B2): the any-hit shadow ray over B1's table, with one excluded object
-  per ray (the target light). It also serves ``occlusion_morton_mxu``
-  (B12b), which computes the same function.
+  per ray (the target light).
+- ``intersect_morton_mxu`` and ``occlusion_morton_mxu`` replace
+  ``intersect_pallas.intersect_morton_mxu`` (B12a) and
+  ``occlusion_morton_mxu`` (B12b), the reference's opt-in
+  (``ops/intersect._USE_MXU``): B1's and B2's functions with the
+  quadratic's b and c0 - |o|^2 from a bf16x3 product of per-chunk
+  A-matrices (``MortonAccel.mxu_a``) and the rays, on the tensor cores.
+  Their results differ from B1's and B2's near grazing.
+- ``intersect_clustered`` replaces
+  ``intersect_pallas.intersect_clustered_planar`` (B13): closest hit over
+  a ClusteredAccel, a bound test per cluster and a sweep of its member
+  slots; exact t, the first minimum within a cluster, clusters merged in
+  plan order by a strict <.
 
 What bounds them on the H100: each ray-sphere pair costs ~25 float
 operations and one IEEE sqrt against 32 bytes of ray read once per ray, so
@@ -30,11 +40,17 @@ already holds (the largest t that truncates to its packed best), and its
 margin holds on the half-line of a ray with tmax = inf (the cull that B5
 shares: ``segment_cull``, ``segment_misses``); B2 leaves at its first
 blocker. No skip or cull changes a bit of the result (``csrc/intersect.cu``
-and ``csrc/rays.cuh`` state the margins). ``closest_chunk_walk``
-repeats B1's walk lane by lane, and ``intersect_morton_work``,
-``intersect_brute_work`` and ``occlusion_morton_work`` count the chunk
-tests, pairs and roots that B1, B11 and B2 need, with the kernels' own
-culls, for the bounds of ``chip_smoke.py``.
+and ``csrc/rays.cuh`` state the margins). B12a and B12b run the product
+for a warp's 32 rays and cull chunks per warp, with B1's and B2's tests
+and a margin that covers the product's rounding (MXU_CULL_SCALE); B13
+sweeps a cluster's members for a warp where any lane touches its bound.
+``closest_chunk_walk``, ``mxu_chunk_walk`` and ``mxu_occlusion_walk``
+repeat B1's, B12a's and B12b's walks, and ``intersect_morton_work``,
+``intersect_brute_work``, ``occlusion_morton_work``,
+``intersect_morton_mxu_work``, ``occlusion_morton_mxu_work`` and
+``intersect_clustered_work`` count the chunk or cluster tests, pairs and
+roots that the kernels need, with their own culls, for the bounds of
+``chip_smoke.py``.
 
 Dispatch is by the tensor's device: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the kernel, or the wrapper raises. There is
@@ -43,6 +59,8 @@ no fallback. Each wrapper counts its kernel launches in
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -104,6 +122,13 @@ def closest_pairs(rays, table, trunc):
     ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays)
     b2 = od - (cx * dx + cy * dy + cz * dz)
     c2 = oo + (m2x * ox + m2y * oy + m2z * oz) + ccrr
+    return _packed_tail(b2, c2, tmin, tmax, obj, trunc)
+
+
+def _packed_tail(b2, c2, tmin, tmax, obj, trunc):
+    """The closest-hit tail of the Morton kernels (B1, B12a;
+    ``intersect_pallas._slim_tail``): (packed, root) as closest_pairs
+    returns them, from the quadratic's b2 and c2."""
     disc = b2 * b2 - c2
     sq = torch.sqrt(disc)                      # NaN when the ray misses
     t_near = -b2 - sq
@@ -130,24 +155,28 @@ def intersect_morton_plain(rays, table, bounds=None, block: int = 16384):
     return (packed & trunc).view(torch.float32), packed & ~trunc
 
 
-def segment_cull(rays):
-    """The per-lane terms of the half-line chunk cull that B1 and B5 share
-    (csrc/rays.cuh states it and its margin), in its operations
-    and order: (inv_dd, m_o, slope), each (N,)."""
+def segment_cull(rays, scale=None):
+    """The per-lane terms of the half-line chunk cull that B1, B5 and
+    B12a share (csrc/rays.cuh states it and its margin), in its operations
+    and order: (inv_dd, m_o, slope), each (N,). ``scale`` is the rounding
+    margin, CULL_SCALE by default."""
+    scale = CULL_SCALE if scale is None else scale
     ox, oy, oz, dx, dy, dz = rays[:6]
     dd = dx * dx + dy * dy + dz * dz
     o1 = ox.abs() + oy.abs() + oz.abs()
     dev = (dd - 1.0).abs()
     slope = torch.where(dev <= 2.0 ** -8,
-                        1.125 * (torch.sqrt(dev) + CULL_SCALE), float("inf"))
-    return 1.0 / dd, CULL_SCALE * o1, slope
+                        1.125 * (torch.sqrt(dev) + scale), float("inf"))
+    return 1.0 / dd, scale * o1, slope
 
 
-def cull_spheres(bounds):
+def cull_spheres(bounds, scale=None):
     """(4, n_chunks) chunk spheres as the cull reads them: centre and
-    R + CULL_SCALE (|C|_1 + R), from the first four rows of `bounds`."""
+    R + scale (|C|_1 + R), from the first four rows of `bounds`; ``scale``
+    is CULL_SCALE by default."""
+    scale = CULL_SCALE if scale is None else scale
     bx, by, bz, br = bounds[:4]
-    return torch.stack([bx, by, bz, br + CULL_SCALE * (
+    return torch.stack([bx, by, bz, br + scale * (
         bx.abs() + by.abs() + bz.abs() + br)])
 
 
@@ -387,19 +416,21 @@ def _check_bounds(table, bounds):
     return table.shape[1] // n_chunks
 
 
-def occlusion_chunk_met(rays9, bounds):
-    """(N, n_chunks) bool: B2's chunk cull lets the chunk through for the
-    ray (its segment passes within the chunk's bound plus the margins),
-    in the kernel's operations and order. Dead lanes meet nothing."""
+def occlusion_chunk_met(rays9, bounds, scale=None):
+    """(N, n_chunks) bool: B2's chunk cull (B12b's with MXU_CULL_SCALE)
+    lets the chunk through for the ray (its segment passes within the
+    chunk's bound plus the margins), in the kernel's operations and
+    order; ``scale`` is CULL_SCALE by default. Dead lanes meet nothing."""
+    scale = CULL_SCALE if scale is None else scale
     ox, oy, oz, dx, dy, dz, tmin, tmax = (r[:, None] for r in rays9[:8])
     bx, by, bz, br = (b[None, :] for b in bounds[:4])
-    m_k = br + CULL_SCALE * (bx.abs() + by.abs() + bz.abs() + br)
+    m_k = br + scale * (bx.abs() + by.abs() + bz.abs() + br)
     dd = dx * dx + dy * dy + dz * dz
     o1 = ox.abs() + oy.abs() + oz.abs()
     big_t = torch.fmax(tmin.abs(), tmax.abs())
     m_r = torch.where((dd >= 0.5) & (dd <= 2.0),
                       big_t * torch.sqrt((dd - 1.0).abs())
-                      + CULL_SCALE * (o1 + big_t), float("inf"))
+                      + scale * (o1 + big_t), float("inf"))
     inv_dd = 1.0 / dd
     vx, vy, vz = bx - ox, by - oy, bz - oz
     vd = vx * dx + vy * dy + vz * dz
@@ -464,3 +495,437 @@ def occlusion_morton(rays9, table, bounds, block: int = 16384):
     backend.check_launch(rc, "drts_morton_occlusion")
     backend.launched("occlusion_morton")
     return occ
+
+
+# ----------------------------------------------------------------------------
+# B12a / B12b: the Morton kernels with b and c0 - |o|^2 from a bf16x3
+# product on the tensor cores
+
+# The reference's DRTS_MXU_PREC (drts_tpu/ops/intersect_pallas.py:47-56),
+# read at import as it reads it. The port implements its shipping value,
+# "high" (bf16x3); the MXU route raises on any other.
+MXU_PREC = os.environ.get("DRTS_MXU_PREC", "high")
+
+# Rounding margin of B12a's and B12b's chunk culls, in the form and the
+# place of CULL_SCALE (S = |o|_1 + |C|_1 + R + T). The product gives each
+# term a_k x_k of b and c0 - |o|^2 as hi.hi + hi.lo + lo.hi of its bf16
+# halves, off by at most ~3 2^-18 |a_k x_k| (each half rounds at 2^-9
+# relative, the dropped lo.lo is below 2^-18), and the accumulation adds
+# a few f32 ulp. With sum |a_k x_k| <= S for b and <= 2 S^2 for c0 - |o|^2,
+# the discriminant is off by E <= 2^-13.4 S^2 with f32's own rounding, and
+# a computed root's point lies within sqrt(E) <= 2^-6.7 S of its sphere.
+# 2^-6 covers that and the cull test's rounding.
+MXU_CULL_SCALE = 2.0 ** -6
+
+
+def _check_mxu_prec():
+    if MXU_PREC != "high":
+        raise ValueError(f"DRTS_MXU_PREC={MXU_PREC!r}: the port implements "
+                         f"the shipping precision 'high' (bf16x3) only")
+
+
+def split_bf16(x):
+    """float32 -> (hi, lo), each a bfloat16 value held in float32: hi
+    rounds x to bfloat16, lo rounds x - hi (both to nearest even)."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+
+
+def mxu_product(a, x):
+    """(rows, 8) @ (8, N) at the reference's "high" precision: the three
+    leading bf16 products of the operands' halves with float32 sums,
+    (hi.hi + hi.lo) + lo.hi (``intersect_pallas._mxu_dot``)."""
+    a_hi, a_lo = split_bf16(a)
+    x_hi, x_lo = split_bf16(x)
+    return (a_hi @ x_hi + a_hi @ x_lo) + a_lo @ x_hi
+
+
+def mxu_coefficients(rays, mxu_a, chunk):
+    """The tensor-core kernels' quadratic per ray x table column: (b2, c2),
+    each (N, cols), b2 from the A-matrices' b rows and c2 = the c rows'
+    product + |o|^2. rays (8+, N) planar; mxu_a (n_chunks*2*chunk, 8)."""
+    ox, oy, oz, dx, dy, dz = rays[:6]
+    od = ox * dx + oy * dy + oz * dz
+    oo = ox * ox + oy * oy + oz * oz
+    x = torch.stack([dx, dy, dz, ox, oy, oz, od, torch.ones_like(ox)])
+    y = mxu_product(mxu_a, x).reshape(-1, 2, chunk, x.shape[1])
+    b2 = y[:, 0].reshape(-1, x.shape[1]).T
+    c2 = y[:, 1].reshape(-1, x.shape[1]).T + oo[:, None]
+    return b2, c2
+
+
+def _check_mxu(table, bounds, mxu_a):
+    _check_mxu_prec()
+    chunk = _check_bounds(table, bounds)
+    if mxu_a is None:
+        raise ValueError("the MXU route needs MortonAccel.mxu_a "
+                         "(make_morton_accel under the opt-in, or "
+                         "make_mxu_tables)")
+    if (mxu_a.dtype != torch.float32 or mxu_a.dim() != 2
+            or tuple(mxu_a.shape) != (2 * table.shape[1], 8)):
+        raise ValueError(f"mxu_a must be ({2 * table.shape[1]}, 8) float32, "
+                         f"got {tuple(mxu_a.shape)} {mxu_a.dtype}")
+    if not mxu_a.is_contiguous() or mxu_a.device != table.device:
+        raise ValueError("mxu_a must be contiguous, on the table's device")
+    return chunk
+
+
+def mxu_closest_pairs(rays, table, mxu_a, chunk, trunc):
+    """B12a's pair test of each ray x table column: the packed word
+    (truncated t bits | object id), INF_BITS where the column is not hit
+    in [tmin, tmax] (B1's tail, ``intersect_pallas._slim_tail``, on the
+    product's b2 and c2). (N, cols) int32."""
+    b2, c2 = mxu_coefficients(rays, mxu_a, chunk)
+    return _packed_tail(b2, c2, rays[6][:, None], rays[7][:, None],
+                        table[4][None, :], trunc)[0]
+
+
+def intersect_morton_mxu_plain(rays, table, bounds, mxu_a,
+                               block: int = 16384):
+    """Plain PyTorch B12a: the unculled packed-min sweep with b and
+    c0 - |o|^2 from ``mxu_product``. rays (8, N) with tmin >= 0; table and
+    bounds as B1's; mxu_a (n_chunks*2*chunk, 8) from make_mxu_tables.
+    Returns t (N,) float32, truncated down, and obj (N,) int32."""
+    chunk = _check_mxu(table, bounds, mxu_a)
+    n, cols = rays.shape[1], table.shape[1]
+    trunc = ~((1 << pos_bits(cols)) - 1)
+    packed = torch.empty(n, dtype=torch.int32, device=rays.device)
+    starts, step = _blocks(n, 2 * cols, block)
+    for s in starts:
+        packed[s:s + step] = mxu_closest_pairs(
+            rays[:, s:s + step], table, mxu_a, chunk, trunc).amin(dim=1)
+    return (packed & trunc).view(torch.float32), packed & ~trunc
+
+
+def _warp_any(x):
+    """(N, ...) bool -> (N, ...) bool: any over each lane's warp of 32
+    consecutive lanes (dimension 0)."""
+    n = x.shape[0]
+    pad = x.new_zeros(((-n) % 32,) + x.shape[1:])
+    w = torch.cat([x, pad]).reshape(-1, 32, *x.shape[1:]).any(1)
+    return w.repeat_interleave(32, dim=0)[:n]
+
+
+def mxu_chunk_walk(rays, table, bounds, mxu_a):
+    """B12a's kernel walk in PyTorch: chunks in table order; a lane meets a
+    chunk as B1's lane does (closest_chunk_walk) but with MXU_CULL_SCALE;
+    a warp of 32 consecutive lanes sweeps the chunk where any of its
+    lanes meets it, and every lane of a sweeping warp folds the chunk's
+    pairs (``mxu_closest_pairs``) into its packed best. Returns (met
+    (N, n_chunks) bool, swept (N, n_chunks) bool: the lane's warp swept
+    the chunk, the packed best (N,) int32)."""
+    chunk = _check_mxu(table, bounds, mxu_a)
+    n, cols = rays.shape[1], table.shape[1]
+    trunc = ~((1 << pos_bits(cols)) - 1)
+    live = rays[7] >= rays[6]
+    cull = segment_cull(rays, MXU_CULL_SCALE)
+    spheres = cull_spheres(bounds, MXU_CULL_SCALE)
+    pk = mxu_closest_pairs(rays, table, mxu_a, chunk, trunc)
+    best = torch.full((n,), INF_BITS, dtype=torch.int32, device=rays.device)
+    n_chunks = bounds.shape[1]
+    met = torch.zeros((n, n_chunks), dtype=torch.bool, device=rays.device)
+    swept = torch.zeros_like(met)
+    for k in range(n_chunks):
+        t_end = segment_end(rays[7], best, trunc)
+        met[:, k] = ~segment_misses(rays, cull, spheres[:, k], t_end) & live
+        swept[:, k] = _warp_any(met[:, k])
+        c0 = k * chunk
+        best = torch.where(swept[:, k], torch.minimum(
+            best, pk[:, c0:c0 + chunk].amin(1)), best)
+    return met, swept, best
+
+
+def _slots_swept(bounds, chunk):
+    """Per chunk, the slots a tensor-core kernel sweeps: its filled slots
+    rounded up to whole groups of 8 spheres, (n_chunks,) int64."""
+    count = torch.clamp(bounds[4].to(torch.int64), 0, chunk)
+    return count, (count + 7) // 8 * 8
+
+
+def intersect_morton_mxu_work(rays, table, bounds, mxu_a,
+                              block: int = 32768):
+    """The work B12a's kernel needs on these rays (see mxu_chunk_walk):
+    per ray, (chunk tests, chunks met, chunks its warp swept, filled slots
+    of the chunks it met, slots of the chunks its warp swept), each int64
+    (N,). A live ray tests every chunk; dead lanes test none. The
+    products and tails a lane needs at the least are the filled slots of
+    the chunks it meets; the kernel runs them for every lane of a
+    sweeping warp, in groups of 8 slots."""
+    n = rays.shape[1]
+    chunk = _check_mxu(table, bounds, mxu_a)
+    count, groups = _slots_swept(bounds, chunk)
+    out = [torch.zeros(n, dtype=torch.int64, device=rays.device)
+           for _ in range(5)]
+    step = max(32, block // 32 * 32)
+    for s in range(0, n, step):
+        r = rays[:, s:s + step]
+        met, swept, _ = mxu_chunk_walk(r, table, bounds, mxu_a)
+        out[0][s:s + step] = torch.where(r[7] >= r[6], bounds.shape[1], 0)
+        out[1][s:s + step] = met.sum(1)
+        out[2][s:s + step] = swept.sum(1)
+        out[3][s:s + step] = met.mul(count).sum(1)
+        out[4][s:s + step] = swept.mul(groups).sum(1)
+    return tuple(out)
+
+
+def intersect_morton_mxu(rays, table, bounds, mxu_a, block: int = 16384):
+    """B12a closest hit; see intersect_morton_mxu_plain for the contract.
+    A CUDA tensor launches drts_morton_mxu_closest_hit (csrc/intersect.cu),
+    which runs the product on the tensor cores and culls chunks per warp
+    by `bounds` with MXU_CULL_SCALE."""
+    _check_pair(rays, table, 9)
+    _check_mxu(table, bounds, mxu_a)
+    if rays.device.type == "cpu":
+        return intersect_morton_mxu_plain(rays, table, bounds, mxu_a, block)
+    lib = backend.kernels()
+    n, cols = rays.shape[1], table.shape[1]
+    t = torch.empty(n, dtype=torch.float32, device=rays.device)
+    obj = torch.empty(n, dtype=torch.int32, device=rays.device)
+    rc = lib.drts_morton_mxu_closest_hit(
+        rays.data_ptr(), n, table.data_ptr(), cols, bounds.data_ptr(),
+        bounds.shape[1], mxu_a.data_ptr(), MXU_CULL_SCALE, pos_bits(cols),
+        t.data_ptr(), obj.data_ptr(), backend.stream_handle(rays))
+    backend.check_launch(rc, "drts_morton_mxu_closest_hit")
+    backend.launched("intersect_morton_mxu")
+    return t, obj
+
+
+def mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk):
+    """B12b's pair test, (N, cols) bool (``_anyhit_mxu_kernel``'s tail):
+    the unguarded sqrt of the product's discriminant (NaN below 0), the
+    near root unless it lies before tmin, blocked where t is in
+    [tmin, tmax] and the column's object is not the ray's excluded one."""
+    b2, c2 = mxu_coefficients(rays9, mxu_a, chunk)
+    tmin, tmax, exclude = (r[:, None] for r in rays9[6:9])
+    sq = torch.sqrt(b2 * b2 - c2)              # NaN when the ray misses
+    t_near = -b2 - sq
+    t = torch.where(t_near >= tmin, t_near, sq - b2)
+    return (t >= tmin) & (t <= tmax) & (table[4][None, :] != exclude)
+
+
+def occlusion_morton_mxu_plain(rays9, table, bounds, mxu_a,
+                               block: int = 16384):
+    """Plain PyTorch B12b: rays9 (9, N) [ox oy oz dx dy dz tmin tmax
+    exclude_obj] (exclude -1 = none); table and bounds as B2's; mxu_a as
+    B12a's. Returns occluded (N,) bool: some column blocks the ray
+    (``mxu_occlusion_pair_blocked``)."""
+    chunk = _check_mxu(table, bounds, mxu_a)
+    n, cols = rays9.shape[1], table.shape[1]
+    occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
+    starts, step = _blocks(n, 2 * cols, block)
+    for s in starts:
+        occ[s:s + step] = mxu_occlusion_pair_blocked(
+            rays9[:, s:s + step], table, mxu_a, chunk).any(1)
+    return occ
+
+
+def mxu_occlusion_walk(rays9, table, bounds, mxu_a):
+    """B12b's kernel walk in PyTorch: chunks in table order while the
+    lane's warp of 32 consecutive lanes holds an open lane (live, not yet
+    blocked); an open lane meets a chunk as B2's lane does
+    (occlusion_chunk_met) but with MXU_CULL_SCALE; the warp sweeps the
+    chunk where any lane meets it, and a swept chunk's blocking pairs
+    block its lanes. Returns (tested (N, n_chunks) bool: the lane was
+    open and tested the chunk, swept (N, n_chunks) bool, occluded
+    (N,) bool)."""
+    chunk = _check_mxu(table, bounds, mxu_a)
+    n = rays9.shape[1]
+    live = rays9[7] >= rays9[6]
+    met_all = occlusion_chunk_met(rays9, bounds, MXU_CULL_SCALE)
+    blocks = mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk)
+    occ = torch.zeros(n, dtype=torch.bool, device=rays9.device)
+    n_chunks = bounds.shape[1]
+    tested = torch.zeros((n, n_chunks), dtype=torch.bool,
+                         device=rays9.device)
+    swept = torch.zeros_like(tested)
+    for k in range(n_chunks):
+        open_ = live & ~occ
+        tested[:, k] = open_ & _warp_any(open_)
+        swept[:, k] = _warp_any(met_all[:, k] & open_)
+        c0 = k * chunk
+        occ |= swept[:, k] & live & blocks[:, c0:c0 + chunk].any(1)
+    return tested, swept, occ
+
+
+def occlusion_morton_mxu_work(rays9, table, bounds, mxu_a,
+                              block: int = 32768):
+    """The work B12b's kernel needs on these rays (see mxu_occlusion_walk):
+    per ray, (chunk tests, chunks met, chunks its warp swept, filled slots
+    of the chunks it met, slots of the chunks its warp swept), each int64
+    (N,); a lane tests chunks while it is open."""
+    n = rays9.shape[1]
+    chunk = _check_mxu(table, bounds, mxu_a)
+    count, groups = _slots_swept(bounds, chunk)
+    out = [torch.zeros(n, dtype=torch.int64, device=rays9.device)
+           for _ in range(5)]
+    step = max(32, block // 32 * 32)
+    for s in range(0, n, step):
+        r = rays9[:, s:s + step]
+        tested, swept, _ = mxu_occlusion_walk(r, table, bounds, mxu_a)
+        met = tested & occlusion_chunk_met(r, bounds, MXU_CULL_SCALE)
+        out[0][s:s + step] = tested.sum(1)
+        out[1][s:s + step] = met.sum(1)
+        out[2][s:s + step] = swept.sum(1)
+        out[3][s:s + step] = met.mul(count).sum(1)
+        out[4][s:s + step] = swept.mul(groups).sum(1)
+    return tuple(out)
+
+
+def occlusion_morton_mxu(rays9, table, bounds, mxu_a, block: int = 16384):
+    """B12b any hit; see occlusion_morton_mxu_plain for the contract. A
+    CUDA tensor launches drts_morton_mxu_occlusion (csrc/intersect.cu):
+    the product on the tensor cores, chunks culled per warp by `bounds`
+    with MXU_CULL_SCALE, a warp leaving once every lane is blocked."""
+    _check_pair(rays9, table, 9, ray_rows=9)
+    _check_mxu(table, bounds, mxu_a)
+    if rays9.device.type == "cpu":
+        return occlusion_morton_mxu_plain(rays9, table, bounds, mxu_a,
+                                          block)
+    lib = backend.kernels()
+    n, cols = rays9.shape[1], table.shape[1]
+    occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
+    rc = lib.drts_morton_mxu_occlusion(
+        rays9.data_ptr(), n, table.data_ptr(), cols, bounds.data_ptr(),
+        bounds.shape[1], mxu_a.data_ptr(), MXU_CULL_SCALE, occ.data_ptr(),
+        backend.stream_handle(rays9))
+    backend.check_launch(rc, "drts_morton_mxu_occlusion")
+    backend.launched("occlusion_morton_mxu")
+    return occ
+
+
+# ----------------------------------------------------------------------------
+# B13: cluster-culled closest hit
+
+
+def _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
+                     max_members):
+    _check("rays", rays, 8)
+    _check("bounds_tbl", bounds_tbl, 4)
+    if (members_tbl.dtype != torch.float32 or members_tbl.dim() != 2
+            or members_tbl.shape[1] != 8 or not members_tbl.is_contiguous()):
+        raise ValueError(f"members_tbl must be contiguous (C_pad*M, 8) "
+                         f"float32, got {tuple(members_tbl.shape)}")
+    if not 0 < n_clusters <= bounds_tbl.shape[1] or max_members < 1 or (
+            members_tbl.shape[0] != bounds_tbl.shape[1] * max_members):
+        raise ValueError(f"{n_clusters} clusters of {max_members} do not "
+                         f"fit bounds {tuple(bounds_tbl.shape)} and "
+                         f"members {tuple(members_tbl.shape)}")
+    if not (rays.device == bounds_tbl.device == members_tbl.device):
+        raise ValueError("rays, bounds_tbl and members_tbl must share a "
+                         "device")
+    if rays.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {rays.device}")
+
+
+def clustered_touched(rays, bounds_tbl, n_clusters):
+    """(N, n_clusters) bool: the ray's line meets the cluster's bounding
+    sphere with an interval that overlaps [tmin, tmax] (the reference's
+    per-cluster test, ``intersect_pallas._clustered_kernel``, in its
+    operations and order); dead lanes touch nothing."""
+    bx, by, bz, br = (b[None, :n_clusters] for b in bounds_tbl)
+    ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays)
+    b = od - (bx * dx + by * dy + bz * dz)
+    c0 = oo - 2.0 * (bx * ox + by * oy + bz * oz) \
+        + (bx * bx + by * by + bz * bz - br * br)
+    disc = b * b - c0
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    return ((disc > 0.0) & (-b - sq <= tmax) & (-b + sq >= tmin)
+            & (tmax >= tmin))
+
+
+def clustered_member_t(rays, members_tbl, n_slots):
+    """(t (N, n_slots), disc2 > 0 (N, n_slots)) of each ray x member slot
+    in the reference's operations and order: the hit t, inf where the slot
+    is empty (r = 0), its discriminant is not positive or t leaves
+    [tmin, tmax]."""
+    cx, cy, cz, r = (c[None, :] for c in members_tbl[:n_slots, :4].T)
+    ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays)
+    b2 = od - (cx * dx + cy * dy + cz * dz)
+    c2 = oo - 2.0 * (cx * ox + cy * oy + cz * oz) \
+        + (cx * cx + cy * cy + cz * cz - r * r)
+    disc2 = b2 * b2 - c2
+    sq2 = torch.sqrt(torch.clamp(disc2, min=0.0))
+    t_near = -b2 - sq2
+    t = torch.where(t_near >= tmin, t_near, -b2 + sq2)
+    valid = (disc2 > 0.0) & (t >= tmin) & (t <= tmax) & (r > 0.0)
+    return torch.where(valid, t, float("inf")), disc2 > 0.0
+
+
+def intersect_clustered_plain(rays, bounds_tbl, members_tbl,
+                              n_clusters: int, max_members: int,
+                              block: int = 16384):
+    """Plain PyTorch B13: every cluster's members swept, no cull. rays
+    (8, N); bounds_tbl (4, C_pad); members_tbl (C_pad*M, 8)
+    [cx cy cz r obj 0 0 0] (models/clusters.pack_for_kernel). Per cluster
+    the first member at the least t, across clusters the first cluster
+    at the least t (strict < in plan order). Returns t (N,) float32
+    exact (inf on a miss) and obj (N,) int32 (0 on a miss).
+    ``bounds_tbl`` is checked but not read: the kernel's cull changes no
+    result."""
+    _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
+                     max_members)
+    n, mm = rays.shape[1], max_members
+    obj = members_tbl[:n_clusters * mm, 4].reshape(n_clusters, mm)
+    t_out = torch.empty(n, dtype=torch.float32, device=rays.device)
+    i_out = torch.empty(n, dtype=torch.int32, device=rays.device)
+    starts, step = _blocks(n, n_clusters * mm, block)
+    for s in starts:
+        r = rays[:, s:s + step]
+        t, _ = clustered_member_t(r, members_tbl, n_clusters * mm)
+        chunk_t, arg = t.reshape(-1, n_clusters, mm).min(dim=2)
+        best_t, best_c = chunk_t.min(dim=1)     # first cluster of the min
+        chunk_obj = obj[best_c, arg.gather(1, best_c[:, None])[:, 0]]
+        t_out[s:s + step] = best_t
+        i_out[s:s + step] = torch.where(torch.isfinite(best_t), chunk_obj,
+                                        0.0).to(torch.int32)
+    return t_out, i_out
+
+
+def intersect_clustered_work(rays, bounds_tbl, members_tbl,
+                             n_clusters: int, max_members: int,
+                             block: int = 32768):
+    """The work B13's kernel needs on these rays: per ray, (cluster tests,
+    clusters touched, clusters its warp of 32 consecutive lanes swept,
+    roots: member slots of its touched clusters whose discriminant is
+    positive), each int64 (N,). A live ray tests every cluster and needs
+    the member sweep (max_members slots) of each cluster it touches; the
+    kernel sweeps a cluster for a whole warp where any lane touches it."""
+    _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
+                     max_members)
+    n, mm = rays.shape[1], max_members
+    out = [torch.zeros(n, dtype=torch.int64, device=rays.device)
+           for _ in range(4)]
+    step = max(32, min(block, (1 << 24) // (n_clusters * mm)) // 32 * 32)
+    for s in range(0, n, step):
+        r = rays[:, s:s + step]
+        touched = clustered_touched(r, bounds_tbl, n_clusters)
+        swept = _warp_any(touched)
+        _, pos = clustered_member_t(r, members_tbl, n_clusters * mm)
+        roots = pos.reshape(-1, n_clusters, mm).sum(2)
+        out[0][s:s + step] = torch.where(r[7] >= r[6], n_clusters, 0)
+        out[1][s:s + step] = touched.sum(1)
+        out[2][s:s + step] = swept.sum(1)
+        out[3][s:s + step] = (roots * touched).sum(1)
+    return tuple(out)
+
+
+def intersect_clustered(rays, bounds_tbl, members_tbl, n_clusters: int,
+                        max_members: int, block: int = 16384):
+    """B13 closest hit; see intersect_clustered_plain for the contract. A
+    CUDA tensor launches drts_clustered_closest_hit (csrc/intersect.cu)."""
+    _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
+                     max_members)
+    if rays.device.type == "cpu":
+        return intersect_clustered_plain(rays, bounds_tbl, members_tbl,
+                                         n_clusters, max_members, block)
+    lib = backend.kernels()
+    n = rays.shape[1]
+    t = torch.empty(n, dtype=torch.float32, device=rays.device)
+    obj = torch.empty(n, dtype=torch.int32, device=rays.device)
+    rc = lib.drts_clustered_closest_hit(
+        rays.data_ptr(), n, bounds_tbl.data_ptr(), bounds_tbl.shape[1],
+        members_tbl.data_ptr(), n_clusters, max_members, t.data_ptr(),
+        obj.data_ptr(), backend.stream_handle(rays))
+    backend.check_launch(rc, "drts_clustered_closest_hit")
+    backend.launched("intersect_clustered")
+    return t, obj

@@ -48,20 +48,31 @@ ids -1 and past the last set, NaN and infinite uv. The banded frame
 unbanded frame on a SHARC skip frame, and two and three gloo ranks
 sharing the card (even and uneven bands) within chip_smoke.py's
 DEFAULT_* bounds of the one-device frames. graft_entry.entry()'s frame
-step once: a finite (256, 256, 3) image. Run on a GPU
+step once: a finite (256, 256, 3) image. B12a and B12b (the tensor-core
+Morton kernels) at chunks of 8, 12 (padded to 16), 16, 32 and 64 slots
+(three shared-memory tiles at 64), ragged ray counts, partly filled
+chunks, shadow-ray ranges, an excluded object on every ray and a batch of
+dead lanes, within the MXU_* tolerances; B13 with cluster counts that are
+no multiple of 8, empty slots, rays that start inside a cluster bound, a
+dead batch and finite ranges, every word equal; intersect_spheres and
+intersect_spheres_any through both routes launch B13, and B12a and B12b
+under the opt-in. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The frames: equal rays and overflow counts, radiance within 1e-3 on >=
-99.5% of pixels and 1e-5 on average. Tolerance 0 for B1, B11, B2, B4 and
-B5 to B10: the kernels are built with
+99.5% of pixels and 1e-5 on average. Tolerance 0 for B1, B11, B2, B4,
+B5 to B10 and B13: the kernels are built with
 -fmad=false and compute the same separately rounded operations in the same
 order as the plain versions (B4 nearest copies words). B3 calls the CUDA library's
 sincosf where the plain version calls PyTorch's sin and cos: picks may
 differ on <= 0.1% of pixels and the outputs elsewhere by <= 1e-5 of each
-row's largest value.
+row's largest value. B12a and B12b sum on the tensor cores (MXU_* below
+states their tolerance).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -1391,3 +1402,209 @@ def test_graft_entry_frame_on_the_card(dev):
     assert image.device.type == "cuda"
     assert bool(torch.isfinite(image).all())
     assert backend.LAUNCHES["intersect_morton"] > 0
+
+
+# B12a, B12b (the tensor-core Morton kernels) and B13 (cluster-culled)
+
+# B12 against its plain version: the tensor cores sum the bf16 products in
+# their own order and with their own rounding, coarser than the plain
+# version's float32 matmuls (measured on an H100 on the demo frame's
+# primary rays: the kernel differs from the product summed in float64 in
+# 18,958 words where the float32 plain version does in 7,037). Hit/miss may
+# flip only on rays that graze a sphere (|distance(line, centre) - r| <
+# MXU_GRAZE; measured up to 0.026) and on at most MXU_FLIP_SHARE of the
+# live rays (the reference's share for its MXU kernel); where no sphere is
+# within MXU_STRICT of grazing, t agrees within MXU_T_RTOL relative plus
+# MXU_T_ATOL absolute (the reference's margins, tests/test_post_denoise.py:
+# 304-310): the sums' error in c0 moves a root by δc0 / (2 sqrt(disc)).
+MXU_GRAZE = 5e-2
+MXU_FLIP_SHARE = 5e-3
+MXU_STRICT = 3e-2
+MXU_T_RTOL = 1e-3
+MXU_T_ATOL = 1e-2
+
+
+def grazing(rays, centers, radii):
+    """(N,) float64: min over spheres of |distance(ray line, centre) - r|."""
+    o = rays[:3].T.double().cpu().numpy()
+    d = rays[3:6].T.double().cpu().numpy()
+    d = d / np.maximum(np.linalg.norm(d, axis=1, keepdims=True), 1e-30)
+    out = np.empty(o.shape[0])
+    for s in range(0, o.shape[0], 2048):
+        oc = o[s:s + 2048, None, :] - centers[None].astype(np.float64)
+        perp = oc - (oc * d[s:s + 2048, None, :]).sum(-1, keepdims=True) \
+            * d[s:s + 2048, None, :]
+        out[s:s + 2048] = np.abs(np.linalg.norm(perp, axis=-1)
+                                 - radii[None]).min(1)
+    return torch.from_numpy(out)
+
+
+def assert_mxu_close(out, plain, rays, graze):
+    (t_k, i_k), (t_p, i_p) = [(t.cpu(), i.cpu()) for t, i in (out, plain)]
+    live = (rays[7] >= rays[6]).cpu()
+    flip = torch.isfinite(t_k) != torch.isfinite(t_p)
+    assert not bool((flip & ~live).any())
+    assert bool((graze[flip] < MXU_GRAZE).all())
+    assert int(flip.sum()) <= MXU_FLIP_SHARE * max(int(live.sum()), 1)
+    both = torch.isfinite(t_k) & torch.isfinite(t_p)
+    strict = both & (graze > MXU_STRICT)
+    assert torch.allclose(t_k[strict], t_p[strict], rtol=MXU_T_RTOL,
+                          atol=MXU_T_ATOL)
+
+
+def mxu_case(k, n, chunk, seed, dev):
+    centers, radii, rays = random_case(k, n, seed)
+    plan = clusters.build_plan_morton(centers, radii, max_members=chunk,
+                                      device=dev)
+    accel = clusters.make_morton_accel(
+        plan, torch.from_numpy(centers).to(dev),
+        torch.from_numpy(radii).to(dev), sort_origin=rays[:3].mean(1).to(dev))
+    accel = dataclasses.replace(accel, mxu_a=clusters.make_mxu_tables(
+        accel.table, accel.n_chunks, accel.chunk))
+    return centers, radii, accel, rays.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("k,n,chunk,variant", [
+    (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"),
+    (300, 1000, 16, "aimed"), (1500, 2049, 64, "aimed"),
+    (200, 777, 12, "aimed"), (300, 1000, 32, "dead")])
+def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant):
+    """B12a against its plain version: chunks of 8, 12 (padded to 16 in
+    shared memory), 16, 32 and 64 slots (at 64, three shared-memory
+    tiles), ragged ray counts, partly filled chunks (empty slots), within
+    the MXU_* tolerances; it launches once, and its walk's lanes cull
+    chunks. "dead" is a batch of dead lanes only: no hit."""
+    centers, radii, accel, rays = mxu_case(k, n, chunk, k + n, dev)
+    if variant == "dead":
+        rays[7] = -1.0
+    before = backend.LAUNCHES["intersect_morton_mxu"]
+    out = ik.intersect_morton_mxu(rays, accel.table, accel.bounds,
+                                  accel.mxu_a)
+    assert backend.LAUNCHES["intersect_morton_mxu"] == before + 1
+    plain = ik.intersect_morton_mxu_plain(rays, accel.table, accel.bounds,
+                                          accel.mxu_a)
+    assert_mxu_close(out, plain, rays, grazing(rays, centers, radii))
+    assert bool((accel.bounds[4] < chunk).any())
+    if variant == "dead":
+        assert not bool(torch.isfinite(out[0]).any())
+        assert not bool(out[1].any())
+        return
+    assert bool(torch.isfinite(out[0]).any())
+    met, _, _ = ik.mxu_chunk_walk(rays, accel.table, accel.bounds,
+                                  accel.mxu_a)
+    assert float(met[rays[7] >= rays[6]].float().mean()) < 0.9
+
+
+@pytest.mark.parametrize("k,n,chunk,variant", [
+    (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"), (300, 1000, 16,
+                                                       "exclude"),
+    (1500, 2049, 64, "exclude"), (200, 777, 12, "aimed"),
+    (300, 1000, 32, "dead")])
+def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant):
+    """B12b against its plain version at chunks of 8 to 64 slots, ragged
+    ray counts and shadow-ray ranges (tmax 30 x a uniform number): hit bits
+    may flip only on grazing rays (MXU_GRAZE, MXU_FLIP_SHARE); "exclude"
+    excludes on every ray the sphere it aims at, "dead" is a batch of dead
+    lanes only (nothing occluded)."""
+    centers, radii, accel, rays = mxu_case(k, n, chunk, k + n + 1, dev)
+    rng = np.random.RandomState(n)
+    live = rays[7] >= rays[6]
+    tmax = torch.from_numpy(np.asarray(30.0 * rng.rand(n), np.float32))
+    rays[7] = torch.where(live, tmax.to(dev), -1.0)
+    if variant == "dead":
+        rays[7] = -1.0
+    exclude = torch.full((n,), -1.0)
+    if variant == "exclude":
+        o = rays[:3].T.cpu().numpy()
+        d = rays[3:6].T.cpu().numpy()
+        aim = ((centers[None] - o[:, None]) * d[:, None]).sum(-1)
+        perp = np.linalg.norm(centers[None] - o[:, None] - aim[..., None]
+                              * d[:, None], axis=-1)
+        exclude = torch.from_numpy(np.argmin(perp - radii[None], 1)
+                                   .astype(np.float32))
+    rays9 = torch.cat([rays, exclude[None].to(dev)]).contiguous()
+    before = backend.LAUNCHES["occlusion_morton_mxu"]
+    occ = ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
+                                  accel.mxu_a).cpu()
+    assert backend.LAUNCHES["occlusion_morton_mxu"] == before + 1
+    plain = ik.occlusion_morton_mxu_plain(rays9, accel.table, accel.bounds,
+                                          accel.mxu_a).cpu()
+    graze = grazing(rays, centers, radii)
+    flip = occ != plain
+    assert bool((graze[flip] < MXU_GRAZE).all())
+    assert int(flip.sum()) <= MXU_FLIP_SHARE * max(int(live.sum()), 1)
+    if variant == "dead":
+        assert not bool(occ.any())
+    else:
+        assert bool(occ.any()) and not bool(occ.all())
+
+
+@pytest.mark.parametrize("k,n,variant", [
+    (438, 3001, "aimed"), (55, 257, "aimed"), (700, 2048, "inside"),
+    (300, 1000, "dead"), (130, 1001, "finite")])
+def test_clustered_kernel_equals_plain(dev, k, n, variant):
+    """B13 against its plain version, every word equal: xz-binned plans
+    whose cluster count is no multiple of 8 (padded bound columns) and
+    whose clusters hold empty slots, ragged ray counts, rays that start
+    inside a cluster bound ("inside": origins at cluster centres, some
+    inside a member), a batch of dead lanes only, finite tmax."""
+    centers, radii, rays = random_case(k, n, seed=k + n + 2)
+    radii[::50] = 2.5    # bigger than half a cell: singleton clusters
+    plan = clusters.build_plan(centers, radii, device=dev)
+    accel = clusters.make_accel(plan, torch.from_numpy(centers).to(dev),
+                                torch.from_numpy(radii).to(dev))
+    if variant == "inside":
+        at = accel.bounds_tbl[:3, :accel.n_clusters].T.cpu()
+        rays[:3] = at[torch.arange(n) % accel.n_clusters].T
+        rays[7] = torch.where(rays[7] >= rays[6], 1e9, -1.0)
+    if variant == "dead":
+        rays[7] = -1.0
+    if variant == "finite":
+        live = rays[7] >= rays[6]
+        rays[7] = torch.where(live, torch.from_numpy(np.asarray(
+            20.0 * np.random.RandomState(n).rand(n), np.float32)), -1.0)
+    rays = rays.to(dev).contiguous()
+    assert accel.n_clusters % 8 != 0
+    assert bool((accel.members_tbl[:, 3] == 0).any())
+    before = backend.LAUNCHES["intersect_clustered"]
+    out = ik.intersect_clustered(rays, accel.bounds_tbl, accel.members_tbl,
+                                 accel.n_clusters, accel.max_members)
+    assert backend.LAUNCHES["intersect_clustered"] == before + 1
+    assert_equal(out, ik.intersect_clustered_plain(
+        rays, accel.bounds_tbl, accel.members_tbl, accel.n_clusters,
+        accel.max_members))
+    if variant == "dead":
+        assert not bool(torch.isfinite(out[0]).any())
+        assert not bool(out[1].any())
+    else:
+        assert bool(torch.isfinite(out[0]).any())
+
+
+def test_routes_dispatch_on_the_card(dev, monkeypatch):
+    """intersect_spheres and intersect_spheres_any with a ClusteredAccel
+    launch B13 (the any hit through the closest hit), and under the MXU
+    opt-in a MortonAccel launches B12a and B12b, not B1 or B2."""
+    centers, radii, rays = random_case(438, 2000, seed=5)
+    c, r = torch.from_numpy(centers).to(dev), torch.from_numpy(radii).to(dev)
+    o, d = rays[:3].T.to(dev), rays[3:6].T.to(dev)
+    tmax = rays[7].to(dev)
+    acc = clusters.make_accel(clusters.build_plan(centers, radii, device=dev),
+                              c, r)
+    backend.reset_launches()
+    hit = intersect.intersect_spheres(o, d, 0.0, tmax, c, r, accel=acc)
+    occ = intersect.intersect_spheres_any(o, d, 0.0, tmax, accel=acc,
+                                          centers=c, radii=r,
+                                          exclude_index=hit.index)
+    assert backend.LAUNCHES["intersect_clustered"] == 2
+    assert not bool(occ.any())   # the closest hit is the excluded one
+    monkeypatch.setattr(intersect, "_USE_MXU", True)
+    macc = clusters.make_morton_accel(
+        clusters.build_plan_morton(centers, radii, device=dev), c, r)
+    assert macc.mxu_a is not None
+    backend.reset_launches()
+    intersect.intersect_spheres(o, d, 0.0, tmax, c, r, accel=macc)
+    intersect.intersect_spheres_any(o, d, 0.0, tmax, accel=macc)
+    assert backend.LAUNCHES["intersect_morton_mxu"] == 1
+    assert backend.LAUNCHES["occlusion_morton_mxu"] == 1
+    assert backend.LAUNCHES["intersect_morton"] == 0
+    assert backend.LAUNCHES["occlusion_morton"] == 0
