@@ -265,26 +265,29 @@ Phases, one printed line or more each; any failure exits non-zero:
    closest-hit calls). The record is printed on a line of its own, with
    the phase's time.
 24. routes: the reference's other two sphere-accel routes. (a) The MXU
-   opt-in (intersect._USE_MXU set for the phase and restored after it;
+   opt-in (clusters._USE_MXU set for the phase and restored after it;
    make_morton_accel then builds the A-matrices): B12a against its plain
    version on the headline frame's 2,073,600 primary rays (hit/miss flips
    only within MXU_GRAZE of grazing and on at most MXU_FLIP_SHARE of the
-   live rays; t within MXU_T_RTOL relative plus MXU_T_ATOL where no
-   sphere is within MXU_STRICT of grazing), both timed, its bound from
-   intersect_kernels.intersect_morton_mxu_work (the tensor-core products
-   at the dense bf16 rate, the tail at the float32 rate); the headline
-   frame (bench.trace_frame, frame 1 after a warm frame 0) with the
-   opt-in on and off, counted from zero: B12a 9 plus 7 a spill wave (the
-   deep segment again), B1 0, the frame times and the image difference; the upscaled default
-   frame (960x540 to 1920x1080) over one SHARC cadence of two frames with
-   the opt-in on and off from the same state: B12a 13.5 a frame (9, and 9
-   more for the SHARC update every second frame) plus 7 a spill wave, B12b
-   3 a frame, B1 and B2 0 (with the opt-in off: B1 likewise, B2 3 a
-   frame), the frame times and
-   the image difference, and B12b against its plain version on the
-   first frame's three shadow batches (flips as B12a's), each timed with
-   its bound. (b) The clustered accel (clusters.build_plan on the rest
-   pose, make_accel per frame, bench.make_trace_setup(accel="clustered")):
+   live rays; t within MXU_T_RTOL relative plus MXU_T_ATOL and the index
+   the plain version's or a tie where no sphere is within MXU_STRICT of
+   grazing) and against itself with the chunk cull off (every word
+   equal: the cull's margin MXU_CULL_SCALE holds), both timed, its bound
+   from intersect_kernels.intersect_morton_mxu_work (the tensor-core
+   products at the dense bf16 rate, the tail at the float32 rate); the
+   headline frame (bench.trace_frame, frame 1 after a warm frame 0) with
+   the opt-in on and off, counted from zero: B12a 9 plus 7 a spill wave
+   (the deep segment again), B1 0, the frame times and the image
+   difference; the upscaled default frame (960x540 to 1920x1080) over one
+   SHARC cadence of two frames with the opt-in on and off from the same
+   state: B12a 13.5 a frame (9, and 9 more for the SHARC update every
+   second frame) plus 7 a spill wave, B12b 3 a frame, B1 and B2 0 (with the
+   opt-in off: B1 likewise, B2 3 a frame), the frame times and the image
+   difference, and B12b against its plain version on the first frame's
+   three shadow batches (flips as B12a's, every bit equal with the cull
+   off), each timed with its bound. (b) The clustered accel
+   (clusters.build_plan on the rest pose, make_accel per frame,
+   bench.make_trace_setup(accel="clustered")):
    B13 against its plain version on the primary rays, every word equal,
    both timed, its bound from intersect_clustered_work; the headline
    frame counted from zero (B13 9 plus 7 a spill wave, no B1 or B11) and
@@ -452,9 +455,16 @@ DEFAULT_FP_SHARE = 0.99   # SHARC slots with the same fingerprint
 # coarser than the plain version's float32 matmuls. Hit/miss may flip only
 # on rays within MXU_GRAZE of grazing a sphere and on at most
 # MXU_FLIP_SHARE of the live rays (the reference's share for its MXU
-# kernel); where no sphere is within MXU_STRICT of grazing, t agrees
-# within MXU_T_RTOL relative plus MXU_T_ATOL absolute (the reference's
-# margins for its MXU kernel; tests/test_torch_cuda.py states the model).
+# kernel). MXU_GRAZE is this port's own limit, not the reference's 1e-3
+# (tests/test_post_denoise.py:300, a scene of small coordinates): the
+# product's error in the discriminant grows with the square of the
+# coordinates' scale, and on the demo scene an H100 showed flips up to
+# 0.026 (B12a, primary rays) and 0.039 (B12b, shadow rays). Where no
+# sphere is within MXU_STRICT of grazing, t agrees within MXU_T_RTOL
+# relative plus MXU_T_ATOL absolute, and the object index is the plain
+# version's, or one that the plain version's own pair test meets at its
+# t within the same tolerance (a tie; the reference's t margins and index
+# rule, tests/test_post_denoise.py:304-319).
 MXU_GRAZE = 5e-2
 MXU_FLIP_SHARE = 5e-3
 MXU_STRICT = 3e-2
@@ -3403,15 +3413,53 @@ def mxu_flips(label, flip, graze, live):
     return n_flip, worst
 
 
+def mxu_index_off(ik, rays, accel, t_p, i_k, i_p, strict):
+    """(mismatches, mismatches off tolerance) of B12a's object index on
+    the `strict` rays: a mismatch is within tolerance where the plain
+    version's own pair test meets the kernel's object at the plain
+    version's t within MXU_T_RTOL plus MXU_T_ATOL (a tie)."""
+    diff = strict & (i_k != i_p)
+    if not bool(diff.any()):
+        return 0, 0
+    table = accel.table
+    trunc = ~((1 << ik.pos_bits(table.shape[1])) - 1)
+    pairs = ik.mxu_closest_pairs(rays[:, diff], table, accel.mxu_a,
+                                 accel.chunk, trunc)
+    mine = table[4].to(torch.int32)[None, :] == i_k[diff][:, None]
+    word = torch.where(mine, pairs, ik.INF_BITS).amin(1)
+    t_obj = (word & trunc).view(torch.float32)
+    t_ref = t_p[diff]
+    tie = (word != ik.INF_BITS) & (
+        (t_obj - t_ref).abs() <= MXU_T_RTOL * t_ref + MXU_T_ATOL)
+    return int(diff.sum()), int((~tie).sum())
+
+
+@contextlib.contextmanager
+def mxu_cull_off(ik):
+    """B12a and B12b with the chunk cull off: an infinite margin lets
+    every chunk through, and the walk skips none."""
+    saved = ik.MXU_CULL_SCALE
+    ik.MXU_CULL_SCALE = float("inf")
+    try:
+        yield
+    finally:
+        ik.MXU_CULL_SCALE = saved
+
+
 def check_b12a(ik, label, rays, accel, reps=10):
-    """B12a against its plain version on `rays` (MXU_* tolerances), both
+    """B12a against its plain version on `rays` (MXU_* tolerances) and
+    against itself with the chunk cull off (every word equal), both
     timed, and its bound from intersect_morton_mxu_work: tensor-core
     products and tail operations for the filled slots of the chunks each
     live lane meets, chunk tests, the rays' bytes and the tables."""
     args = (rays, accel.table, accel.bounds, accel.mxu_a)
     t_k, i_k = ik.intersect_morton_mxu(*args)
     t_p, i_p = ik.intersect_morton_mxu_plain(*args)
+    with mxu_cull_off(ik):
+        t_u, i_u = ik.intersect_morton_mxu(*args)
     torch.cuda.synchronize()
+    cull_diff = int(((t_k.view(torch.int32) != t_u.view(torch.int32))
+                     | (i_k != i_u)).sum())
     graze = grazing(rays, *table_spheres(accel.table))
     n, live = rays.shape[1], live_rays(rays)
     fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
@@ -3421,7 +3469,8 @@ def check_b12a(ik, label, rays, accel, reps=10):
     gap = (t_k - t_p).abs()[strict]
     over = int((gap > MXU_T_RTOL * t_p[strict] + MXU_T_ATOL).sum())
     rel = float((gap / t_p[strict]).max()) if bool(strict.any()) else 0.0
-    idx_strict = int((i_k != i_p)[strict].sum())
+    idx_strict, idx_over = mxu_index_off(ik, rays, accel, t_p, i_k, i_p,
+                                         strict)
     err_all = float((t_k - t_p)[both].abs().max()) if bool(both.any()) \
         else 0.0
     err = float(gap.max()) if bool(strict.any()) else 0.0
@@ -3440,7 +3489,9 @@ def check_b12a(ik, label, rays, accel, reps=10):
         f"flips={flips} largest_flip_graze={worst!r} "
         f"t_max_rel_non_grazing={rel!r} t_off_tolerance={over} "
         f"idx_mismatch_non_grazing={idx_strict} "
+        f"idx_off_tolerance={idx_over} "
         f"idx_mismatch={int((i_k != i_p)[both].sum())} "
+        f"cull_off_words_differing={cull_diff} "
         f"max_abs_err_non_grazing={err!r} max_abs_err_all_hits="
         f"{err_all!r} bit_equal_share={same!r} kernel_ms={ms!r} "
         f"plain_ms={plain_ms!r} chunk_tests={tests} chunks_met={met} "
@@ -3449,13 +3500,22 @@ def check_b12a(ik, label, rays, accel, reps=10):
     if over:
         raise AssertionError(f"{label}: t of {over} rays off the plain "
                              f"version away from grazing")
+    if idx_over:
+        raise AssertionError(f"{label}: the object index of {idx_over} "
+                             f"rays differs from the plain version's away "
+                             f"from grazing, and its sphere is not met at "
+                             f"the plain version's t")
+    if cull_diff:
+        raise AssertionError(f"{label}: {cull_diff} rays change with the "
+                             f"chunk cull off")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def check_b12b(ik, calls, reps=10):
     """B12b against its plain version on each recorded batch (MXU_*
-    flips), both timed, and its bound from occlusion_morton_mxu_work;
+    flips) and against itself with the chunk cull off (every bit equal),
+    both timed, and its bound from occlusion_morton_mxu_work;
     times summed over the batches, the bound of their summed work."""
     tot = {"ms": 0.0, "plain_ms": 0.0}
     work = [0, 0, 0]   # bytes, float32 operations, tensor-core flops
@@ -3465,7 +3525,12 @@ def check_b12b(ik, calls, reps=10):
         rays9, table = args[0], args[1]
         occ_k = ik.occlusion_morton_mxu(*args)
         occ_p = ik.occlusion_morton_mxu_plain(*args)
+        with mxu_cull_off(ik):
+            cull_diff = int((ik.occlusion_morton_mxu(*args) != occ_k).sum())
         torch.cuda.synchronize()
+        if cull_diff:
+            raise AssertionError(f"B12b batch {b}: {cull_diff} rays change "
+                                 f"with the chunk cull off")
         live = live_rays(rays9)
         graze = grazing(rays9, *table_spheres(table))
         flips, worst = mxu_flips(f"B12b batch {b}", occ_k != occ_p, graze,
@@ -3561,8 +3626,7 @@ def route_diff(label, img, ref):
             f"share_off_by_{DEFAULT_OFF}={off!r} max_abs_diff={worst!r}")
 
 
-def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
-                  primary):
+def run_mxu_route(bench, backend, clusters, ik, smi, dev, primary):
     """Phase 24 (a): the MXU opt-in. B12a on the headline frame's primary
     rays; the headline frame and the upscaled default frame counted from
     zero with the opt-in on and off from the same seed (frame time,
@@ -3570,10 +3634,10 @@ def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
     batches. Returns (fields, launches, the opt-in-off headline image)."""
     setup = bench.make_trace_setup(device=dev)
     scene, cam = setup.scene, setup.cam
-    saved = intersect._USE_MXU
+    saved = clusters._USE_MXU
     fields, launches = {}, {}
     try:
-        intersect._USE_MXU = True
+        clusters._USE_MXU = True
         accel = clusters.make_morton_accel(setup.plan, scene.center,
                                            scene.radius,
                                            sort_origin=cam.position)
@@ -3583,7 +3647,7 @@ def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
             ik, "B12a primary", primary, accel)
         runs = {}
         for on in (True, False):
-            intersect._USE_MXU = on
+            clusters._USE_MXU = on
             runs[on] = timed_trace_frame(bench, backend, setup, 1)
         img, ms, got, spills, rays = runs[True]
         expect_launches("MXU headline frame", got, {
@@ -3607,12 +3671,12 @@ def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
 
         cfg = bench.default_frame_config(upscaled=True)
         pipe, state, pose = bench.make_frame_setup(cfg=cfg, device=dev)
-        intersect._USE_MXU = True
+        clusters._USE_MXU = True
         state, _ = pipe.render_frame(state, pose)    # a SHARC update frame
         torch.cuda.synchronize()
         frames = {}
         for on in (True, False):
-            intersect._USE_MXU = on
+            clusters._USE_MXU = on
             spills = [0]
 
             def run(name, fn, *args):
@@ -3666,7 +3730,7 @@ def run_mxu_route(bench, backend, intersect, clusters, ik, smi, dev,
             raise AssertionError(f"{len(calls)} B12b batches recorded")
         fields["occlusion_morton_mxu"] = check_b12b(ik, calls)
     finally:
-        intersect._USE_MXU = saved
+        clusters._USE_MXU = saved
     return fields, launches, runs[False][0]
 
 
@@ -4190,7 +4254,7 @@ def main():
     # B12b) and the clustered accel (B13) ---------------------------------
     t0 = time.perf_counter()
     m_fields, m_launches, morton_img = run_mxu_route(
-        bench, backend, intersect, clusters, ik, smi, dev, primary)
+        bench, backend, clusters, ik, smi, dev, primary)
     c_fields, c_launches = run_clustered_route(
         bench, backend, clusters, ik, smi, dev, primary, morton_img)
     fields.update(m_fields, **c_fields)

@@ -53,14 +53,13 @@ offsets. ``--accel none`` runs a sphere recipe (``--frame``,
 Morton accel, so every sphere closest hit and shadow ray goes through the
 brute-force kernel (B11).
 
-``--accel clustered`` runs the path trace (no frame flag) with the
+``make_trace_setup(accel="clustered")`` gives the path trace the
 reference's clustered accel: the xz-binned plan of ``clusters.build_plan``
 and per frame ``clusters.make_accel``, so every closest hit goes through
-the cluster-culled kernel (B13); its line adds the accel, frames, spill
-waves and launches. ``DRTS_MXU_KERNEL=1`` in the environment (the
-reference's opt-in, read at import by ``ops.intersect``) sends every
-Morton closest hit and shadow ray of any recipe through the tensor-core
-kernels (B12a, B12b).
+the cluster-culled kernel (B13); ``chip_smoke.py`` runs that frame.
+``DRTS_MXU_KERNEL=1`` in the environment (the reference's opt-in, read at
+import by ``models.clusters``) sends every Morton closest hit and shadow
+ray of any recipe through the tensor-core kernels (B12a, B12b).
 
 ``--mesh-cand {0,1,2}`` sets ``ops.trimesh.MESH_CAND`` before the mesh
 frames (0 the serial walk, 1 the candidate loop, the default, 2 the fused
@@ -81,7 +80,7 @@ that fails lands in "errors" and the process exits 1 after printing the
 line. Each bench's launches, frames and spill waves go to stderr.
 ``--iters`` does not apply to the record.
 
-    python -m drts_tpu_torch.bench [--accel clustered] [--iters N]
+    python -m drts_tpu_torch.bench [--iters N]
     DRTS_MXU_KERNEL=1 python -m drts_tpu_torch.bench --frame [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
     python -m drts_tpu_torch.bench --mesh [--mesh-cand M] [--iters N]
@@ -195,14 +194,13 @@ def _sync(device):
 
 def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
                 spp: int = 1, iters: int = 8, device="cuda",
-                load_textures: bool = False, accel: str = "morton"):
-    """One warm frame, then `iters` timed frames, with the sphere accel
-    `accel` (TRACE_ACCELS). Returns (stats, the last frame's
-    TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
+                load_textures: bool = False):
+    """One warm frame, then `iters` timed frames. Returns (stats, the last
+    frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
     overflow_paths (of the last frame), frames and the spill waves of all
     of them."""
     setup = make_trace_setup(width, height, bounces, spp, device=device,
-                             load_textures=load_textures, accel=accel)
+                             load_textures=load_textures)
     out = trace_frame(setup, 0)
     _sync(device)
     rays_per_frame = float(out.rays_traced)
@@ -666,24 +664,16 @@ def main(argv=None):
                         help="the default frame with the thin lens and the "
                              "raytraced ReSTIR modes")
     parser.add_argument("--accel", default="morton",
-                        choices=pipeline.ACCEL_MODES + ("clustered",),
-                        help="accel_mode of the sphere frame recipes; "
-                             "clustered: the path trace's cluster-culled "
-                             "accel")
+                        choices=pipeline.ACCEL_MODES,
+                        help="accel_mode of the sphere frame recipes")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
                              "MESH_CAND)")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
-    path_trace = not (sphere_frame or args.record or args.mesh
-                      or args.mesh_frame or args.upscaled
-                      or args.mesh_pipeline or args.textured_frame)
-    if args.accel == "clustered" and not path_trace:
-        parser.error("--accel clustered applies to the path trace (no "
-                     "frame flag)")
-    if args.accel == "none" and not sphere_frame:
-        parser.error("--accel none applies to --frame, --default-frame and "
+    if args.accel != "morton" and not sphere_frame:
+        parser.error("--accel applies to --frame, --default-frame and "
                      "--options-frame")
     if args.fast and not args.record:
         parser.error("--fast applies to --record")
@@ -763,9 +753,7 @@ def main(argv=None):
             "device": device_name(dev),
         }), flush=True)
         return
-    backend.reset_launches()
-    clustered = {"accel": "clustered"} if args.accel == "clustered" else {}
-    stats, out = bench_trace(iters=args.iters, device=dev, **clustered)
+    stats, out = bench_trace(iters=args.iters, device=dev)
     if not np.isfinite(out.radiance.cpu().numpy()).all():
         raise RuntimeError("non-finite radiance")
     print(json.dumps({
@@ -775,11 +763,6 @@ def main(argv=None):
         "frame_ms": stats["frame_ms"],
         "rays_per_frame": int(stats["rays_per_frame"]),
         "device": device_name(dev),
-        # The reference's headline keys; the clustered accel is the port's
-        # route of the reference's ClusteredAccel, so its line says so.
-        **({**clustered, "frames": stats["frames"],
-            "spill_waves": stats["spill_waves"],
-            "launches": dict(backend.LAUNCHES)} if clustered else {}),
     }), flush=True)
 
 

@@ -3,9 +3,10 @@
 The Morton accel: a host-side static plan that sorts small spheres along
 a Morton curve and chunks them, and a per-frame refit that packs the
 Morton-ordered sphere table the closest-hit and any-hit kernels sweep,
-with the chunk bounds they cull by; under the MXU opt-in
-(``ops/intersect._USE_MXU``) also the chunk A-matrices of the
-tensor-core kernels (``make_mxu_tables``).
+with the chunk bounds they cull by; under the MXU opt-in (``_USE_MXU``)
+also the chunk A-matrices of the tensor-core kernels
+(``make_mxu_tables``), which send the accel's closest and any hits
+through those kernels.
 
 The clustered accel: a static xz binning of the spheres (``build_plan``)
 and per frame the cluster bounds and member table of the cluster-culled
@@ -15,6 +16,7 @@ kernel (``make_accel``: ``refit`` + ``pack_for_kernel``).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -22,6 +24,12 @@ import torch
 from .. import backend
 
 MAX_MEMBERS = 32
+
+# The reference's opt-in to its MXU kernels (drts_tpu/ops/intersect.py:39),
+# read at import as it reads it: make_morton_accel then builds the chunk
+# A-matrices (MortonAccel.mxu_a), and ops.intersect sends an accel that
+# carries them to the tensor-core kernels B12a and B12b. Off by default.
+_USE_MXU = os.environ.get("DRTS_MXU_KERNEL", "") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,8 +234,8 @@ def make_morton_accel(plan: ClusterPlan, centers, radii,
     `sort_origin` (usually the camera position) orders chunks near-to-far
     from that point; the order does not change the closest hit (a min over
     chunks; object ids ride the table rows) or the any hit. Under the MXU
-    opt-in (``ops/intersect._USE_MXU``) the accel also carries the
-    tensor-core kernels' A-matrices (``make_mxu_tables``)."""
+    opt-in (``_USE_MXU``) the accel also carries the tensor-core kernels'
+    A-matrices (``make_mxu_tables``)."""
     member = plan.member_object
     bounds = refit(plan, centers, radii)
     center, radius = bounds.center, bounds.radius
@@ -251,8 +259,7 @@ def make_morton_accel(plan: ClusterPlan, centers, radii,
                          -2.0 * cx, -2.0 * cy, -2.0 * cz, ccrr])
     count = valid.sum(dim=1).to(torch.float32)
     bounds_tbl = torch.cat([center.T, radius[None], count[None]])
-    from ..ops import intersect   # ops.intersect imports this module
     return MortonAccel(table=table.contiguous(),
                        bounds=bounds_tbl.contiguous(), n_chunks=c, chunk=mm,
                        mxu_a=(make_mxu_tables(table, c, mm)
-                              if intersect._USE_MXU else None))
+                              if _USE_MXU else None))

@@ -2,11 +2,13 @@
 
 ``intersect_spheres`` packs the rays planar and hands them to a kernel in
 ``intersect_kernels``: the Morton-table kernel (B1) when a MortonAccel is
-passed, or its tensor-core form (B12a) under the MXU opt-in; the
+passed, or its tensor-core form (B12a) when the accel carries the
+tensor-core kernels' A-matrices (``mxu_a``, built under the MXU opt-in
+``models/clusters._USE_MXU``); the
 cluster-culled kernel (B13) when a ClusteredAccel is; the brute-force
 kernel (B11) when none is. ``intersect_spheres_any`` is the shadow ray:
 the any-hit kernel (B2) over the Morton table and its chunk bounds (B12b
-under the opt-in), or, with a ClusteredAccel or no accel, the hit bit of
+with ``mxu_a``), or, with a ClusteredAccel or no accel, the hit bit of
 the closest hit (B13, B11) where its object is not the excluded one.
 The reference's 8x128 screen-tile ray order is a TPU block-culling aid;
 results do not depend on it, and these kernels cull per ray or per warp
@@ -17,19 +19,12 @@ results do not depend on it, and these kernels cull per ray or per warp
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import torch
 
 from ..models import clusters as clusters_mod
 from ..utils import math as m
 from . import intersect_kernels as ik
-
-# The reference's opt-in to its MXU kernels (drts_tpu/ops/intersect.py:39),
-# read at import as it reads it: a MortonAccel then goes to the
-# tensor-core kernels B12a and B12b, and make_morton_accel builds their
-# A-matrices (MortonAccel.mxu_a). Off by default.
-_USE_MXU = os.environ.get("DRTS_MXU_KERNEL", "") == "1"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +68,7 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
     rays = pack_rays(origin.reshape(n, 3), direction.reshape(n, 3),
                      flat(t_min), flat(t_max))
     if isinstance(accel, clusters_mod.MortonAccel):
-        if _USE_MXU and accel.mxu_a is not None:
+        if accel.mxu_a is not None:
             t_best, idx = ik.intersect_morton_mxu(
                 rays, accel.table, accel.bounds, accel.mxu_a, block_size)
         else:
@@ -102,11 +97,11 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
     nothing) has its hit t in [t_min, t_max].
 
     With a MortonAccel this is the any-hit kernel over its table (the
-    reference's ``_anyhit_kernel``, or ``_anyhit_mxu_kernel`` under the
-    MXU opt-in). With a ClusteredAccel or no accel it is the reference's
-    other function: the closest hit over `centers`, `radii` (B13 over the
-    accel's tables, B11 without), and a ray is blocked where that closest
-    sphere is not the excluded one."""
+    reference's ``_anyhit_kernel``, or ``_anyhit_mxu_kernel`` when the
+    accel carries ``mxu_a``). With a ClusteredAccel or no accel it is the
+    reference's other function: the closest hit over `centers`, `radii`
+    (B13 over the accel's tables, B11 without), and a ray is blocked where
+    that closest sphere is not the excluded one."""
     if accel is None or isinstance(accel, clusters_mod.ClusteredAccel):
         if centers is None or radii is None:
             raise ValueError("the any-hit through the closest hit needs "
@@ -129,7 +124,7 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
                      flat(t_min), flat(t_max))
     exclude = flat(-1.0 if exclude_index is None else exclude_index)
     rays9 = torch.cat([rays, exclude[None]]).contiguous()
-    if _USE_MXU and accel.mxu_a is not None:
+    if accel.mxu_a is not None:
         occ = ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
                                       accel.mxu_a, block_size)
     else:

@@ -15,7 +15,7 @@ kernels becomes a CUDA C++ kernel for Hopper in ``csrc/intersect.cu``:
 - ``intersect_morton_mxu`` and ``occlusion_morton_mxu`` replace
   ``intersect_pallas.intersect_morton_mxu`` (B12a) and
   ``occlusion_morton_mxu`` (B12b), the reference's opt-in
-  (``ops/intersect._USE_MXU``): B1's and B2's functions with the
+  (``models/clusters._USE_MXU``): B1's and B2's functions with the
   quadratic's b and c0 - |o|^2 from a bf16x3 product of per-chunk
   A-matrices (``MortonAccel.mxu_a``) and the rays, on the tensor cores.
   Their results differ from B1's and B2's near grazing.
@@ -509,12 +509,22 @@ MXU_PREC = os.environ.get("DRTS_MXU_PREC", "high")
 # Rounding margin of B12a's and B12b's chunk culls, in the form and the
 # place of CULL_SCALE (S = |o|_1 + |C|_1 + R + T). The product gives each
 # term a_k x_k of b and c0 - |o|^2 as hi.hi + hi.lo + lo.hi of its bf16
-# halves, off by at most ~3 2^-18 |a_k x_k| (each half rounds at 2^-9
-# relative, the dropped lo.lo is below 2^-18), and the accumulation adds
-# a few f32 ulp. With sum |a_k x_k| <= S for b and <= 2 S^2 for c0 - |o|^2,
-# the discriminant is off by E <= 2^-13.4 S^2 with f32's own rounding, and
-# a computed root's point lies within sqrt(E) <= 2^-6.7 S of its sphere.
-# 2^-6 covers that and the cull test's rounding.
+# halves, each product exact in float32; the split drops at most
+# 3 2^-18 |a_k x_k| (each half rounds at 2^-9 relative, lo.lo is below
+# 2^-18). The tensor cores' accumulation is not IEEE-specified, and an
+# H100 sums more coarsely than float32 does, so the bound takes the worst
+# of any order, truncation and no guard bit: each of an mma's 17 addends
+# (16 products and the accumulator) and its final rounding err by at most
+# 2^-23 of the sum of the magnitudes, 18 2^-23 < 2^-18.8 for one mma and
+# 2^-17.8 for the two. The product is then off by at most
+# eps = 3 2^-18 + 2^-17.8 < 2^-15.9 of sum |a_k x_k|. With
+# sum |a_k x_k| <= S for b and <= 2 S^2 for c0 - |o|^2, the discriminant
+# is off by 2 |b| eps S + 2 eps S^2 <= 4 eps S^2 and, with f32's own
+# rounding of the tail (32 u S^2, u = 2^-24), by E <= 2^-13.9 S^2; a
+# computed root's point lies within sqrt(E) <= 2^-6.9 S of its sphere.
+# 2^-6 covers that and the cull test's rounding. The card tests and
+# chip_smoke.py's phase 24 check it: with the cull off (an infinite
+# margin) both kernels give every word they give with it.
 MXU_CULL_SCALE = 2.0 ** -6
 
 

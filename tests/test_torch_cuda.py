@@ -52,7 +52,8 @@ step once: a finite (256, 256, 3) image. B12a and B12b (the tensor-core
 Morton kernels) at chunks of 8, 12 (padded to 16), 16, 32 and 64 slots
 (three shared-memory tiles at 64), ragged ray counts, partly filled
 chunks, shadow-ray ranges, an excluded object on every ray and a batch of
-dead lanes, within the MXU_* tolerances; B13 with cluster counts that are
+dead lanes, within the MXU_* tolerances, and every word the same with
+their chunk cull off; B13 with cluster counts that are
 no multiple of 8, empty slots, rays that start inside a cluster bound, a
 dead batch and finite ranges, every word equal; intersect_spheres and
 intersect_spheres_any through both routes launch B13, and B12a and B12b
@@ -1412,11 +1413,19 @@ def test_graft_entry_frame_on_the_card(dev):
 # primary rays: the kernel differs from the product summed in float64 in
 # 18,958 words where the float32 plain version does in 7,037). Hit/miss may
 # flip only on rays that graze a sphere (|distance(line, centre) - r| <
-# MXU_GRAZE; measured up to 0.026) and on at most MXU_FLIP_SHARE of the
-# live rays (the reference's share for its MXU kernel); where no sphere is
+# MXU_GRAZE) and on at most MXU_FLIP_SHARE of the live rays (the
+# reference's share for its MXU kernel). MXU_GRAZE is this port's own
+# limit, not the reference's 1e-3 (tests/test_post_denoise.py:300, on a
+# scene of small coordinates): the error in the discriminant grows with
+# the square of the coordinates' scale, and on the demo scene an H100
+# showed flips up to 0.026 (B12a) and 0.039 (B12b). Where no sphere is
 # within MXU_STRICT of grazing, t agrees within MXU_T_RTOL relative plus
 # MXU_T_ATOL absolute (the reference's margins, tests/test_post_denoise.py:
-# 304-310): the sums' error in c0 moves a root by δc0 / (2 sqrt(disc)).
+# 304-310; the sums' error in c0 moves a root by δc0 / (2 sqrt(disc))),
+# and the object index is the plain version's, or one that the plain
+# version's own pair test meets at its t within that tolerance (a tie, the
+# reference's index rule, :316-319). With the chunk cull off
+# (MXU_CULL_SCALE infinite) the kernels give every word they give with it.
 MXU_GRAZE = 5e-2
 MXU_FLIP_SHARE = 5e-3
 MXU_STRICT = 3e-2
@@ -1439,7 +1448,7 @@ def grazing(rays, centers, radii):
     return torch.from_numpy(out)
 
 
-def assert_mxu_close(out, plain, rays, graze):
+def assert_mxu_close(out, plain, rays, graze, accel):
     (t_k, i_k), (t_p, i_p) = [(t.cpu(), i.cpu()) for t, i in (out, plain)]
     live = (rays[7] >= rays[6]).cpu()
     flip = torch.isfinite(t_k) != torch.isfinite(t_p)
@@ -1450,6 +1459,33 @@ def assert_mxu_close(out, plain, rays, graze):
     strict = both & (graze > MXU_STRICT)
     assert torch.allclose(t_k[strict], t_p[strict], rtol=MXU_T_RTOL,
                           atol=MXU_T_ATOL)
+    # A differing index is a tie: the plain version's own pair test meets
+    # the kernel's object at the plain version's t.
+    diff = strict & (i_k != i_p)
+    if not bool(diff.any()):
+        return
+    trunc = ~((1 << ik.pos_bits(accel.table.shape[1])) - 1)
+    pairs = ik.mxu_closest_pairs(rays[:, diff.to(rays.device)],
+                                 accel.table, accel.mxu_a, accel.chunk,
+                                 trunc).cpu()
+    mine = accel.table[4].to(torch.int32).cpu()[None, :] == i_k[diff][:, None]
+    word = torch.where(mine, pairs, ik.INF_BITS).amin(1)
+    t_obj, t_ref = (word & trunc).view(torch.float32), t_p[diff]
+    assert bool((word != ik.INF_BITS).all())
+    assert bool(((t_obj - t_ref).abs() <= MXU_T_RTOL * t_ref + MXU_T_ATOL)
+                .all())
+
+
+def assert_same_with_cull_off(fn, out, monkeypatch):
+    """`fn` run again with the MXU chunk cull off gives every word of
+    `out`."""
+    with monkeypatch.context() as m:
+        m.setattr(ik, "MXU_CULL_SCALE", float("inf"))
+        again = fn()
+    if isinstance(out, tuple):
+        assert_equal(out, again)
+    else:
+        assert torch.equal(out, again)
 
 
 def mxu_case(k, n, chunk, seed, dev):
@@ -1468,7 +1504,8 @@ def mxu_case(k, n, chunk, seed, dev):
     (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"),
     (300, 1000, 16, "aimed"), (1500, 2049, 64, "aimed"),
     (200, 777, 12, "aimed"), (300, 1000, 32, "dead")])
-def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant):
+def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant,
+                                       monkeypatch):
     """B12a against its plain version: chunks of 8, 12 (padded to 16 in
     shared memory), 16, 32 and 64 slots (at 64, three shared-memory
     tiles), ragged ray counts, partly filled chunks (empty slots), within
@@ -1483,7 +1520,10 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant):
     assert backend.LAUNCHES["intersect_morton_mxu"] == before + 1
     plain = ik.intersect_morton_mxu_plain(rays, accel.table, accel.bounds,
                                           accel.mxu_a)
-    assert_mxu_close(out, plain, rays, grazing(rays, centers, radii))
+    assert_mxu_close(out, plain, rays, grazing(rays, centers, radii), accel)
+    assert_same_with_cull_off(
+        lambda: ik.intersect_morton_mxu(rays, accel.table, accel.bounds,
+                                        accel.mxu_a), out, monkeypatch)
     assert bool((accel.bounds[4] < chunk).any())
     if variant == "dead":
         assert not bool(torch.isfinite(out[0]).any())
@@ -1500,7 +1540,8 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant):
                                                        "exclude"),
     (1500, 2049, 64, "exclude"), (200, 777, 12, "aimed"),
     (300, 1000, 32, "dead")])
-def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant):
+def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
+                                         monkeypatch):
     """B12b against its plain version at chunks of 8 to 64 slots, ragged
     ray counts and shadow-ray ranges (tmax 30 x a uniform number): hit bits
     may flip only on grazing rays (MXU_GRAZE, MXU_FLIP_SHARE); "exclude"
@@ -1529,6 +1570,9 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant):
     assert backend.LAUNCHES["occlusion_morton_mxu"] == before + 1
     plain = ik.occlusion_morton_mxu_plain(rays9, accel.table, accel.bounds,
                                           accel.mxu_a).cpu()
+    assert_same_with_cull_off(
+        lambda: ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
+                                        accel.mxu_a).cpu(), occ, monkeypatch)
     graze = grazing(rays, centers, radii)
     flip = occ != plain
     assert bool((graze[flip] < MXU_GRAZE).all())
@@ -1597,7 +1641,7 @@ def test_routes_dispatch_on_the_card(dev, monkeypatch):
                                           exclude_index=hit.index)
     assert backend.LAUNCHES["intersect_clustered"] == 2
     assert not bool(occ.any())   # the closest hit is the excluded one
-    monkeypatch.setattr(intersect, "_USE_MXU", True)
+    monkeypatch.setattr(clusters, "_USE_MXU", True)
     macc = clusters.make_morton_accel(
         clusters.build_plan_morton(centers, radii, device=dev), c, r)
     assert macc.mxu_a is not None

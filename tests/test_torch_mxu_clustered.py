@@ -90,7 +90,7 @@ def case():
 def port_morton(c, monkeypatch, mxu=True):
     """The port's Morton accel for the case, built under the MXU opt-in
     (or without it)."""
-    monkeypatch.setattr(tintersect, "_USE_MXU", mxu)
+    monkeypatch.setattr(tclusters, "_USE_MXU", mxu)
     return tclusters.make_morton_accel(
         convert.cluster_plan(c["plan"], "cpu"), torch.from_numpy(c["centers"]),
         torch.from_numpy(c["radii"]))
@@ -182,16 +182,16 @@ def test_make_mxu_tables_matches_reference(case, monkeypatch):
 
 
 def test_opt_in_off_builds_no_mxu_tables(case, monkeypatch):
-    """Without the opt-in make_morton_accel builds no A-matrices, and the
-    Morton route runs B1's plain version unchanged: the same words as
-    intersect_morton on the accel built with them."""
+    """Without the opt-in make_morton_accel builds no A-matrices and the
+    same table, and the Morton route runs B1's plain version unchanged:
+    the same words as intersect_morton on the table built with them."""
     on = port_morton(case, monkeypatch)
     off = port_morton(case, monkeypatch, mxu=False)
     assert off.mxu_a is None
     assert torch.equal(off.table, on.table)
     o, d = torch.from_numpy(case["o"]), torch.from_numpy(case["d"])
     c, r = torch.from_numpy(case["centers"]), torch.from_numpy(case["radii"])
-    hit = tintersect.intersect_spheres(o, d, 0.0, 1e9, c, r, accel=on)
+    hit = tintersect.intersect_spheres(o, d, 0.0, 1e9, c, r, accel=off)
     t, i = ik.intersect_morton(case["trays"], on.table, on.bounds)
     assert torch.equal(hit.t.view(torch.int32), t.view(torch.int32))
     assert torch.equal(hit.index, i.long())
@@ -385,7 +385,7 @@ def test_trace_image_routes_match_reference(frame_case, route, monkeypatch):
             tclusters.build_plan(centers, radii, device="cpu"),
             scene.center, scene.radius)
     else:
-        monkeypatch.setattr(tintersect, "_USE_MXU", True)
+        monkeypatch.setattr(tclusters, "_USE_MXU", True)
         acc = tclusters.make_morton_accel(
             tclusters.build_plan_morton(centers, radii, max_members=8,
                                         device="cpu"),
