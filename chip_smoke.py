@@ -274,11 +274,16 @@ Phases, one printed line or more each; any failure exits non-zero:
    grazing) and against itself with the chunk cull off (every word
    equal: the cull's margin MXU_CULL_SCALE holds), both timed, its bound
    from intersect_kernels.intersect_morton_mxu_work (the tensor-core
-   products at the dense bf16 rate, the tail at the float32 rate); the
-   headline frame (bench.trace_frame, frame 1 after a warm frame 0) with
-   the opt-in on and off, counted from zero: B12a 9 plus 7 a spill wave
-   (the deep segment again), B1 0, the frame times and the image
-   difference; the upscaled default frame (960x540 to 1920x1080) over one
+   products at the dense bf16 rate, the tail at the float32 rate), its
+   share of the bound and its resources (intersect_morton_mxu_info:
+   registers, spill bytes, shared bytes, blocks an SM, the persistent
+   grid, the table resident or tiled); the headline frame
+   (bench.trace_frame, frame 1 after a warm frame 0) with the opt-in on
+   and off, counted from zero: B12a 9 plus 7 a spill wave (the deep
+   segment again), B1 0, the frame times and the image difference, then
+   B12a summed over that frame's launches, recorded from one more frame 1
+   and each timed on its own rays, beside the sum of their bounds; the
+   upscaled default frame (960x540 to 1920x1080) over one
    SHARC cadence of two frames with the opt-in on and off from the same
    state: B12a 13.5 a frame (9, and 9 more for the SHARC update every
    second frame) plus 7 a spill wave, B12b 3 a frame, B1 and B2 0 (with the
@@ -289,9 +294,12 @@ Phases, one printed line or more each; any failure exits non-zero:
    (clusters.build_plan on the rest pose, make_accel per frame,
    bench.make_trace_setup(accel="clustered")):
    B13 against its plain version on the primary rays, every word equal,
-   both timed, its bound from intersect_clustered_work; the headline
-   frame counted from zero (B13 9 plus 7 a spill wave, no B1 or B11) and
-   its image against the Morton route's frame of (a). Each image
+   both timed, its bound from intersect_clustered_work (printed beside
+   the bound of every slot of the touched clusters), its share of the
+   bound and its resources (intersect_clustered_info); the headline frame
+   counted from zero (B13 9 plus 7 a spill wave, no B1 or B11), B13 summed
+   over its launches as B12a's, and its image against the Morton route's
+   frame of (a). Each image
    difference is printed as the mean |difference| of the tone-mapped
    images, the share of pixels that differ at all and of those off by
    more than DEFAULT_OFF; the mean must stay under ROUTE_MEAN.
@@ -343,8 +351,10 @@ B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
 roots, and their entries also carry "unculled_bound_ms"; B12a and B12b
 the filled slots of the chunks each lane meets, their products at the
 tensor cores' rate beside their tails at the float32 rate; B13 its
-cluster tests and the member slots of the clusters each lane touches),
-and a kernel measured under its bound fails the run. Then the card's name and
+cluster tests, the filled member slots of the clusters each lane
+touches, their roots and each slot's |c|^2 - r^2 once), and a kernel
+measured under its bound fails the run. B12a's and B13's entries also
+carry "share_of_bound", the bound over the kernel's time. Then the card's name and
 power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
 without the package beside it, it exits non-zero before printing any
 result.
@@ -409,10 +419,12 @@ OPS_TRI_GUARD = 7         # lane x face of a missed chunk: |dl . A| >= guard
 OPS_TRI_RAY = 16          # a sweeping lane's cull terms (segment_cull_tri)
 OPS_B12_TC = 96           # B12: (ray, slot) of the bf16x3 product: 3 x 16 MACs
 OPS_B12_PAIR = 4          # ... its tail's c2, discriminant and test
-OPS_B13_CLUSTER = 30      # B13: ray x cluster bound tested (a sqrt)
-OPS_B13_SLOT = 23         # ... ray x member slot of a touched cluster
+OPS_B13_CLUSTER = 16      # B13: ray x cluster bound, to its discriminant
+OPS_B13_CLUSTER_ROOT = 7  # ... positive: root, the interval's ends, tests
+OPS_B13_SLOT = 16         # ... ray x filled member slot of a touched cluster
 OPS_B13_ROOT = 12         # ... positive discriminant: root, tests, update
 OPS_B13_RAY = 10          # a live ray's od and oo
+OPS_B13_STAGED = 7        # a cluster's or slot's |c|^2 - r^2, once
 # Triangle chunk sizes timed in phases 8, 10 and 12 beside the kept one.
 TRI_CHUNKS = (8, 16, 32, 64)
 # B9's sparse-block thresholds timed in phase 10 beside the kept one (0:
@@ -3446,12 +3458,39 @@ def mxu_cull_off(ik):
         ik.MXU_CULL_SCALE = saved
 
 
+def b12a_bound(ik, rays, table, bounds, mxu_a):
+    """B12a's work on `rays` (intersect_morton_mxu_work: chunk tests,
+    chunks met, chunks swept by warps, filled slots of the chunks each
+    lane meets, slots swept by warps) and its bound: tensor-core products
+    and tail operations for the filled slots of the chunks each live lane
+    meets, chunk tests, the rays' bytes and the tables."""
+    tests, met, swept, pairs, slots = (
+        int(x.sum()) for x in ik.intersect_morton_mxu_work(
+            rays, table, bounds, mxu_a))
+    n, live = rays.shape[1], live_rays(rays)
+    b_ms, b_by = bound(
+        lane_bytes(n, live, 8, 2, table, bounds, mxu_a),
+        tests * OPS_B1_CHUNK + met * OPS_B1_MET + pairs * OPS_B12_PAIR
+        + live * OPS_B1_RAY, pairs * OPS_B12_TC)
+    return {"tests": tests, "met": met, "swept": swept, "pairs": pairs,
+            "slots": slots, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def resources(info):
+    """A kernel's resources (intersect_kernels.*_info) as printed."""
+    return (f"registers={info['registers']} "
+            f"spill_bytes={info['local_bytes']} "
+            f"shared_bytes={info['shared_bytes']} "
+            f"threads={info['threads']} "
+            f"blocks_per_sm={info['blocks_per_sm']} grid={info['grid']} "
+            f"resident={info['resident']}")
+
+
 def check_b12a(ik, label, rays, accel, reps=10):
     """B12a against its plain version on `rays` (MXU_* tolerances) and
     against itself with the chunk cull off (every word equal), both
-    timed, and its bound from intersect_morton_mxu_work: tensor-core
-    products and tail operations for the filled slots of the chunks each
-    live lane meets, chunk tests, the rays' bytes and the tables."""
+    timed, with its bound (b12a_bound), its share of the bound and its
+    resources."""
     args = (rays, accel.table, accel.bounds, accel.mxu_a)
     t_k, i_k = ik.intersect_morton_mxu(*args)
     t_p, i_p = ik.intersect_morton_mxu_plain(*args)
@@ -3479,12 +3518,8 @@ def check_b12a(ik, label, rays, accel, reps=10):
     ms = cuda_ms(lambda: ik.intersect_morton_mxu(*args), reps)
     plain_ms = cuda_ms(lambda: ik.intersect_morton_mxu_plain(*args), 2,
                        warm=False)
-    tests, met, swept, pairs, slots = (
-        int(x.sum()) for x in ik.intersect_morton_mxu_work(*args))
-    b_ms, b_by = bound(
-        lane_bytes(n, live, 8, 2, accel.table, accel.bounds, accel.mxu_a),
-        tests * OPS_B1_CHUNK + met * OPS_B1_MET + pairs * OPS_B12_PAIR
-        + live * OPS_B1_RAY, pairs * OPS_B12_TC)
+    w = b12a_bound(ik, *args)
+    info = ik.intersect_morton_mxu_info(accel.table, accel.bounds, n)
     log(f"routes: {label} rays={n} live={live} hits={int(fin_p.sum())} "
         f"flips={flips} largest_flip_graze={worst!r} "
         f"t_max_rel_non_grazing={rel!r} t_off_tolerance={over} "
@@ -3494,9 +3529,11 @@ def check_b12a(ik, label, rays, accel, reps=10):
         f"cull_off_words_differing={cull_diff} "
         f"max_abs_err_non_grazing={err!r} max_abs_err_all_hits="
         f"{err_all!r} bit_equal_share={same!r} kernel_ms={ms!r} "
-        f"plain_ms={plain_ms!r} chunk_tests={tests} chunks_met={met} "
-        f"chunks_swept_by_warps={swept} pairs_met={pairs} "
-        f"slots_swept_by_warps={slots} bound_ms={b_ms!r} ({b_by})")
+        f"plain_ms={plain_ms!r} chunk_tests={w['tests']} "
+        f"chunks_met={w['met']} chunks_swept_by_warps={w['swept']} "
+        f"pairs_met={w['pairs']} slots_swept_by_warps={w['slots']} "
+        f"bound_ms={w['bound_ms']!r} ({w['bound_by']}) "
+        f"share_of_bound={w['bound_ms'] / ms!r} {resources(info)}")
     if over:
         raise AssertionError(f"{label}: t of {over} rays off the plain "
                              f"version away from grazing")
@@ -3509,7 +3546,8 @@ def check_b12a(ik, label, rays, accel, reps=10):
         raise AssertionError(f"{label}: {cull_diff} rays change with the "
                              f"chunk cull off")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+            "library_ms": None, "share_of_bound": w["bound_ms"] / ms}
 
 
 def check_b12b(ik, calls, reps=10):
@@ -3559,30 +3597,77 @@ def check_b12b(ik, calls, reps=10):
                 bound_by=b_by, library_ms=None)
 
 
+def b13_bound(ik, rays, bounds_tbl, members_tbl, n_clusters, mm):
+    """B13's work on `rays` (intersect_clustered_work: cluster tests,
+    cluster roots, clusters touched, clusters swept by warps, the filled
+    slots of the touched clusters, their roots) and its bound: per live
+    ray every cluster's bound test and the root of each positive one, the
+    filled slots of the clusters it touches and the roots of their
+    positive discriminants, each cluster's and slot's |c|^2 - r^2 once,
+    the rays' bytes and the tables. Also the bound of the count that the
+    kernel's filled-slot stop and staged constants leave out (every slot
+    of a touched cluster, each test and slot computing its own |c|^2 -
+    r^2 and each test its root)."""
+    w = dict(zip(("tests", "cluster_roots", "touched", "swept", "slots",
+                  "roots"), (int(x.sum()) for x in ik.intersect_clustered_work(
+                      rays, bounds_tbl, members_tbl, n_clusters, mm))))
+    n, live = rays.shape[1], live_rays(rays)
+    moved = lane_bytes(n, live, 8, 2, bounds_tbl, members_tbl)
+    staged = n_clusters * (mm + 1) * OPS_B13_STAGED
+    w["bound_ms"], w["bound_by"] = bound(
+        moved, w["tests"] * OPS_B13_CLUSTER
+        + w["cluster_roots"] * OPS_B13_CLUSTER_ROOT
+        + w["slots"] * OPS_B13_SLOT + w["roots"] * OPS_B13_ROOT
+        + live * OPS_B13_RAY + staged)
+    w["bound_ms_every_slot"], _ = bound(
+        moved, w["tests"] * (OPS_B13_CLUSTER + OPS_B13_CLUSTER_ROOT
+                             + OPS_B13_STAGED)
+        + w["touched"] * mm * (OPS_B13_SLOT + OPS_B13_STAGED)
+        + w["roots"] * OPS_B13_ROOT + live * OPS_B13_RAY)
+    w["live"] = live
+    return w
+
+
 def check_b13(ik, rays, accel, reps=10):
     """B13 against its plain version on `rays`, every word equal, both
-    timed, and its bound from intersect_clustered_work: per live ray every
-    cluster's bound test, the member slots of the clusters it touches and
-    the roots of their positive discriminants."""
+    timed, with its bound (b13_bound), its share of the bound and its
+    resources."""
     args = (rays, accel.bounds_tbl, accel.members_tbl, accel.n_clusters,
             accel.max_members)
     f = compare_closest("B13 primary", lambda: ik.intersect_clustered(*args),
                         lambda: ik.intersect_clustered_plain(*args),
                         reps=reps, plain_reps=1)
-    tests, touched, swept, roots = (
-        int(x.sum()) for x in ik.intersect_clustered_work(*args))
-    n, live = rays.shape[1], live_rays(rays)
-    mm = accel.max_members
-    b_ms, b_by = bound(
-        lane_bytes(n, live, 8, 2, accel.bounds_tbl, accel.members_tbl),
-        tests * OPS_B13_CLUSTER + touched * mm * OPS_B13_SLOT
-        + roots * OPS_B13_ROOT + live * OPS_B13_RAY)
+    w = b13_bound(ik, *args)
+    info = ik.intersect_clustered_info(accel.n_clusters, accel.max_members,
+                                       rays.shape[1])
+    filled = ik.clustered_filled(accel.members_tbl, accel.n_clusters,
+                                 accel.max_members)
+    live = max(w["live"], 1)
     log(f"routes: B13 primary clusters={accel.n_clusters} "
-        f"members_per_cluster={mm} live={live} cluster_tests={tests} "
-        f"clusters_touched={touched} clusters_swept_by_warps={swept} "
-        f"touched_per_live_ray={touched / max(live, 1)!r} roots={roots} "
-        f"bound_ms={b_ms!r} ({b_by})")
-    return dict(f, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        f"members_per_cluster={accel.max_members} "
+        f"filled_slots_per_cluster={float(filled.float().mean())!r} "
+        f"live={w['live']} cluster_tests={w['tests']} "
+        f"cluster_roots={w['cluster_roots']} "
+        f"clusters_touched={w['touched']} "
+        f"clusters_swept_by_warps={w['swept']} "
+        f"touched_per_live_ray={w['touched'] / live!r} "
+        f"filled_slots_swept={w['slots']} roots={w['roots']} "
+        f"bound_ms={w['bound_ms']!r} ({w['bound_by']}) "
+        f"bound_ms_every_slot={w['bound_ms_every_slot']!r} "
+        f"share_of_bound={w['bound_ms'] / f['ms']!r} {resources(info)}")
+    return dict(f, bound_ms=w["bound_ms"], bound_by=w["bound_by"],
+                library_ms=None, share_of_bound=w["bound_ms"] / f["ms"])
+
+
+def route_frame_sums(label, calls, time_call, work):
+    """A kernel summed over one frame's recorded calls: each call timed on
+    its own inputs (CUDA events, L2 flushed) beside its bound (`work(args)`
+    gives its bound_ms). Prints and returns (ms, bound_ms)."""
+    ms = sum(cuda_ms(lambda a=a: time_call(a), 5) for a in calls)
+    b_ms = sum(work(a)["bound_ms"] for a in calls)
+    log(f"routes: {label} per frame: launches={len(calls)} "
+        f"kernel_ms={ms!r} bound_ms={b_ms!r} share_of_bound={b_ms / ms!r}")
+    return ms, b_ms
 
 
 def trace_calls(cfg, spill_waves):
@@ -3658,6 +3743,15 @@ def run_mxu_route(bench, backend, clusters, ik, smi, dev, primary):
             "intersect_morton_mxu": 0,
             "intersect_morton": trace_calls(setup.cfg, runs[False][3])})
         launches["intersect_morton_mxu"] = got["intersect_morton_mxu"]
+        clusters._USE_MXU = True
+        with recorded((ik,), ("intersect_morton_mxu",), clone=True) as seen:
+            bench.trace_frame(setup, 1)
+            torch.cuda.synchronize()
+        route_frame_sums("B12a MXU headline frame",
+                         seen["intersect_morton_mxu"],
+                         lambda a: ik.intersect_morton_mxu(*a[:4]),
+                         lambda a: b12a_bound(ik, *a[:4]))
+        del seen
         log(f"routes: MXU headline frame {setup.cfg.width}x"
             f"{setup.cfg.height} bounces={setup.cfg.bounces} "
             f"frame_ms={ms!r} opt_in_off_frame_ms={runs[False][1]!r} "
@@ -3745,6 +3839,14 @@ def run_clustered_route(bench, backend, clusters, ik, smi, dev, primary,
     accel = clusters.make_accel(setup.plan, scene.center, scene.radius)
     fields = {"intersect_clustered": check_b13(ik, primary, accel)}
     img, ms, got, spills, rays = timed_trace_frame(bench, backend, setup, 1)
+    with recorded((ik,), ("intersect_clustered",), clone=True) as seen:
+        bench.trace_frame(setup, 1)
+        torch.cuda.synchronize()
+    route_frame_sums("B13 clustered headline frame",
+                     seen["intersect_clustered"],
+                     lambda a: ik.intersect_clustered(*a[:5]),
+                     lambda a: b13_bound(ik, *a[:5]))
+    del seen
     expect_launches("clustered headline frame", got, {
         "intersect_clustered": trace_calls(setup.cfg, spills),
         "intersect_morton": 0, "intersect_morton_mxu": 0,
@@ -4421,8 +4523,8 @@ def main():
             "max_abs_err": f["max_abs_err"], "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": f["library_ms"],
-            **({"unculled_bound_ms": f["unculled_bound_ms"]}
-               if "unculled_bound_ms" in f else {})})
+            **{k: f[k] for k in ("unculled_bound_ms", "share_of_bound")
+               if k in f}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -61,10 +61,14 @@ _SIGNATURES = {
     # stream
     "drts_morton_mxu_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                   _VOIDP, _FLOAT, _VOIDP, _VOIDP),
+    # cols, n_chunks, n, out (7 ints)
+    "drts_morton_mxu_closest_hit_info": (_INT, _INT, _INT, _VOIDP),
     # rays, n, bounds_tbl, c_pad, members_tbl, n_clusters, max_members,
     # t_out, obj_out, stream
     "drts_clustered_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                    _INT, _VOIDP, _VOIDP, _VOIDP),
+    # n_clusters, max_members, n, out (7 ints)
+    "drts_clustered_closest_hit_info": (_INT, _INT, _INT, _VOIDP),
     # rays, n, table, cols, bounds, n_chunks, cull_scale, occ_out, stream
     "drts_morton_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                               _FLOAT, _VOIDP, _VOIDP),

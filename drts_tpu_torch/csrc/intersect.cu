@@ -35,6 +35,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 #include "rays.cuh"
 
 namespace {
@@ -59,7 +62,10 @@ constexpr int kInfBits = 0x7F800000;  // bit pattern of +inf: packed miss
 //
 // An empty slot has |c|^2-r^2 = 1e30, and b2^2 - c2 < 0 for every ray
 // while |o| + |c| < 1e14, so sweeping only the filled slots is exact.
-constexpr size_t kTileBytes = 48 * 1024;  // no opt-in above the default
+// kTileBytes: the tile of the tiled loops. A launch above the default
+// 48 KB of dynamic shared memory (B12a's tile with its exchange rows, a
+// resident image) raises the kernel's limit in persistent_grid.
+constexpr size_t kTileBytes = 48 * 1024;
 constexpr int kGroup = 4;  // B2's slots tested together before its exit
 
 template <bool kObjBits>
@@ -493,20 +499,21 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // shuffle at any chunk size, and a chunk that is not a multiple of 8
 // sphere slots is padded in shared memory with slots that never hit (b
 // rows 0, c rows |c|^2 - r^2 = 1e30). The staging splits the table's
-// A-matrices once per block into per-thread fragments in shared memory:
-// per slot and per thread-in-group t (k = 2t, 2t+1) one uint4 of packed
-// bf16 pairs {b_hi, c_hi, b_lo, c_lo}.
+// A-matrices into per-thread fragments in shared memory (B12b: once per
+// block; B12a: once per persistent block, see its note): per slot and per
+// thread-in-group t (k = 2t, 2t+1) one uint4 of packed bf16 pairs
+// {b_hi, c_hi, b_lo, c_lo}.
 //
 // Lane L owns ray warp_base + L for the loads, the cull and the result.
 // The four 8-ray tiles of the warp's 32 rays are laid out so that column
 // c of tile j is the ray of lane (2j + (c & 1)) * 4 + (c >> 1): the lane
 // (g, t) that holds columns 2t and 2t + 1 of tile j in its C fragment
-// reduces them with the lanes of the same t, and a reduce-scatter over
-// the lane bits 2-4 (7 shuffles, B12a) or one ballot per (tile, column)
-// (B12b) leaves each ray's result in its owner lane (g = 2j + e).
+// holds rays of lanes (2j + e) * 4 + t. B12b votes one ballot per (tile,
+// column), which leaves each ray's result in its owner lane; B12a hands
+// each pair to its ray's lane through shared memory (its note below).
 //
 // The tail runs on the CUDA cores: B12a's is B1's slim tail (the packed
-// (t bits & trunc) | obj, min over the chunk), B12b's _anyhit_mxu_kernel's
+// (t bits & trunc) | obj, min over the pairs), B12b's _anyhit_mxu_kernel's
 // (unguarded sqrt, near root else far, blocked in [tmin, tmax] and not the
 // excluded object). Chunks are culled per warp: each owner lane tests
 // the chunk's bound as B1 (B12a: the half-line segment ending at its best)
@@ -524,8 +531,12 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit for bit.
 // Bound: per swept (ray, slot) the two mmas issue 64 MACs (128 flops,
 // ~0.13 ps at the dense bf16 rate of 989 TFLOP/s) and the tail ~12 float
-// operations (~0.36 ps at 33.5e12 a second): the tail's float32 issue on
-// the CUDA cores limits the kernels, not the product.
+// operations (~0.36 ps at 33.5e12 a second): by those rates the tail's
+// float32 issue would limit the kernels. Measured on an H100, the
+// mma.sync chain does instead: on the demo frame's primary rays with the
+// cull off, B12a's products alone took 0.50 ms of its 0.83, far from the
+// dense rate (which only wgmma reaches; its sums are another order, so
+// it would need its own tolerance).
 
 struct MxuTile {
   uint4* frag;  // per slot, 4 threads-in-group: {b_hi, c_hi, b_lo, c_lo}
@@ -614,9 +625,11 @@ struct MxuRays {
   float tmin[4][2], tmax[4][2], oo[4][2], excl[4][2];
 };
 
-template <bool kExclude>
-__device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
-                                         float exclude, MxuRays* x) {
+// The B fragments alone: for tile j, this lane's {x_hi, x_lo} pair
+// (k = 2t, 2t + 1) of column g.
+__device__ __forceinline__ void mxu_b_fragments(const Ray& r, float od,
+                                                uint32_t bh[4],
+                                                uint32_t bl[4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float v[8] = {r.dx, r.dy, r.dz, r.ox, r.oy, r.oz, od, 1.0f};
   uint32_t hi[4], lo[4];
@@ -633,10 +646,20 @@ __device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
       const uint32_t vh = __shfl_sync(0xFFFFFFFFu, hi[p], src);
       const uint32_t vl = __shfl_sync(0xFFFFFFFFu, lo[p], src);
       if (p == t) {
-        x->bh[j] = vh;
-        x->bl[j] = vl;
+        bh[j] = vh;
+        bl[j] = vl;
       }
     }
+  }
+}
+
+template <bool kExclude>
+__device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
+                                         float exclude, MxuRays* x) {
+  const int t = threadIdx.x & 3;
+  mxu_b_fragments(r, od, x->bh, x->bl);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int owner = (2 * j + e) * 4 + t;
@@ -648,37 +671,50 @@ __device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
   }
 }
 
-// Y for 8 spheres (this lane's sphere g) x the 8 rays of tile j: d[0..1]
-// = b2 of columns 2t, 2t + 1, d[2..3] = their c2 - |o|^2.
-__device__ __forceinline__ void mxu_tile_product(const uint4 f,
-                                                 const MxuRays& x, int j,
-                                                 float d[4]) {
+// Y for 8 spheres (this lane's sphere g) x the 8 rays of a tile whose B
+// fragment is {bh, bl}: d[0..1] = b2 of columns 2t, 2t + 1, d[2..3] =
+// their c2 - |o|^2.
+__device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
+                                                 uint32_t bl, float d[4]) {
   d[0] = d[1] = d[2] = d[3] = 0.f;
-  mma_bf16(d, f.x, f.y, f.x, f.y, x.bh[j], x.bl[j]);
-  mma_bf16(d, f.z, f.w, 0u, 0u, x.bh[j], x.bl[j]);
+  mma_bf16(d, f.x, f.y, f.x, f.y, bh, bl);
+  mma_bf16(d, f.z, f.w, 0u, 0u, bh, bl);
 }
 
-// Min over the lanes with this lane's t of v[q], q = 2j + e, left in the
-// lane with g = q (a reduce-scatter over lane bits 4, 3, 2).
-__device__ __forceinline__ int reduce_scatter_min(const int v[8]) {
-  const int lane = threadIdx.x & 31;
-  const bool b2 = lane & 16, b1 = lane & 8, b0 = lane & 4;
-  int a[4], b[2];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int got = __shfl_xor_sync(0xFFFFFFFFu, b2 ? v[q] : v[q + 4], 16);
-    a[q] = min(b2 ? v[q + 4] : v[q], got);
-  }
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int got = __shfl_xor_sync(0xFFFFFFFFu, b1 ? a[q] : a[q + 2], 8);
-    b[q] = min(b1 ? a[q + 2] : a[q], got);
-  }
-  const int got = __shfl_xor_sync(0xFFFFFFFFu, b0 ? b[0] : b[1], 4);
-  return min(b0 ? b[1] : b[0], got);
-}
+// B12a: a persistent grid (persistent_grid: blocks = SMs x resident
+// blocks) whose blocks walk blocks of kThreads rays, each warp 32 of them.
+// Where the table's image fits in kResidentBytes (the demo scene's
+// 32,940 B does), a block stages it once for its whole life and its warps
+// never meet a block barrier; a larger table keeps a tiled loop: per
+// block of rays, each tile of kTileBytes staged between two barriers.
+// Shared memory holds the warps' exchange rows first, then the image
+// (cudaFuncSetAttribute raises the kernel's limit above 48 KB).
+//
+// The products are those of the note above: per (group of 8 slots, 8-ray
+// tile) two mma.sync. The C fragment leaves lane (g, t) with b2 and
+// c2 - |o|^2 of slot g for rays 2t, 2t + 1 of the tile; a warp-wide fold
+// over the fragment would mix 8 slots and 4 rays, and its discriminant
+// branch would diverge wherever any of the 32 pairs meets (measured on an
+// H100 on the demo frame's primary rays: a kernel that folded so took
+// 0.505 ms, 0.95 with every root taken, and staged the table in each of
+// ~8,100 blocks for 0.069 of it). Here each lane stores its pairs into
+// its warp's exchange rows (slot-major, kSwapRow float2 a row: the stores
+// of a tile and the loads of a ray's slots each meet 32 distinct banks),
+// and after a __syncwarp each lane loads its own ray's 8 pairs and folds
+// them in slot order, as B1 does: a warp-wide fold tests one slot against
+// 32 neighbouring rays, which agree on the branch where the rays are
+// coherent. The packed min does not depend on the order of its folds, so
+// the words are those of any fold of the same products. No lane needs
+// the other rays' tmin, tmax and |o|^2, nor a reduce-scatter: at most 64
+// registers, 4 blocks of 256 an SM.
+constexpr int kSwapRow = 36;                // float2: 32 rays and 4 of padding
+constexpr int kSwapWarp = 8 * kSwapRow;     // float2: a warp's 8 slot rows
+constexpr size_t kSwapBytes = (kThreads / 32) * kSwapWarp * sizeof(float2);
+// The largest table image a block keeps resident; with the exchange rows
+// two blocks still fit an SM's 227 KB.
+constexpr size_t kResidentBytes = 92 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 morton_mxu_closest_hit(const float* __restrict__ rays, int n,
                        const float* __restrict__ table, int cols,
                        const float* __restrict__ bounds, int n_chunks,
@@ -687,58 +723,75 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
                        float scale, int pos_bits, float* __restrict__ t_out,
                        int* __restrict__ obj_out) {
   extern __shared__ uint4 s_mxu[];
-  const MxuTile s = mxu_tile(s_mxu, tile_chunks, chunk_pad);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int g = (threadIdx.x & 31) >> 2;
-  Ray r;
-  const bool live = load_live_ray(rays, n, i, &r);
+  float2* swap = reinterpret_cast<float2*>(s_mxu) + (threadIdx.x >> 5) *
+                                                        kSwapWarp;
+  const MxuTile s = mxu_tile(s_mxu + kSwapBytes / sizeof(uint4),
+                             tile_chunks, chunk_pad);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int trunc = ~((1 << pos_bits) - 1);
-  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-  const SegmentCull cull = segment_cull(r, scale);
-  const bool warp_live = __any_sync(0xFFFFFFFFu, live);
-  MxuRays x;
-  if (warp_live) mxu_rays<false>(r, od, oo, 0.f, &x);
-  int best = kInfBits;
-  float t_end = r.tmax;
-  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
-    const int m = min(tile_chunks, n_chunks - k0);
-    __syncthreads();
+  const bool resident = tile_chunks >= n_chunks;
+  if (resident) {
     stage_mxu<true>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
-                    k0, m, scale, s);
+                    0, n_chunks, scale, s);
     __syncthreads();
-    if (!warp_live) continue;
-    for (int k = 0; k < m; ++k) {
-      const bool meet = live && !segment_misses(cull, r, t_end, s.bnd[k]);
-      if (!__any_sync(0xFFFFFFFFu, meet)) continue;
-      int part[8];
+  }
+  for (int base = blockIdx.x * kThreads; base < n;
+       base += gridDim.x * kThreads) {
+    const int i = base + threadIdx.x;
+    Ray r;
+    const bool live = load_live_ray(rays, n, i, &r);
+    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const SegmentCull cull = segment_cull(r, scale);
+    const bool warp_live = __any_sync(0xFFFFFFFFu, live);
+    uint32_t bh[4], bl[4];
+    if (warp_live) mxu_b_fragments(r, od, bh, bl);
+    int best = kInfBits;
+    float t_end = r.tmax;
+    for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+      const int m = min(tile_chunks, n_chunks - k0);
+      if (!resident) {
+        __syncthreads();
+        stage_mxu<true>(table, cols, bounds, n_chunks, chunk, chunk_pad,
+                        mxu_a, k0, m, scale, s);
+        __syncthreads();
+      }
+      if (!warp_live) continue;
+      for (int k = 0; k < m; ++k) {
+        const bool meet = live && !segment_misses(cull, r, t_end, s.bnd[k]);
+        if (!__any_sync(0xFFFFFFFFu, meet)) continue;
+        const int groups = (s.cnt[k] + 7) >> 3;
+        for (int grp = 0; grp < groups; ++grp) {
+          const int slot0 = k * chunk_pad + grp * 8;
+          const uint4 f = s.frag[(slot0 + g) * 4 + t];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) part[q] = kInfBits;
-      const int groups = (s.cnt[k] + 7) >> 3;
-      for (int grp = 0; grp < groups; ++grp) {
-        const int slot = k * chunk_pad + grp * 8 + g;
-        const uint4 f = s.frag[slot * 4 + (threadIdx.x & 3)];
-        const int obj = s.obj[slot];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float d[4];
-          mxu_tile_product(f, x, j, d);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            fold_packed(d[e], d[2 + e] + x.oo[j][e], x.tmin[j][e],
-                        x.tmax[j][e], obj, trunc, &part[2 * j + e]);
+          for (int j = 0; j < 4; ++j) {
+            float d[4];
+            mxu_tile_product(f, bh[j], bl[j], d);
+            // Column 2t + e of tile j is the ray of lane (2j + e) * 4 + t.
+            swap[g * kSwapRow + (2 * j) * 4 + t] = make_float2(d[0], d[2]);
+            swap[g * kSwapRow + (2 * j + 1) * 4 + t] = make_float2(d[1], d[3]);
           }
+          __syncwarp();
+          const int4 o0 = *reinterpret_cast<const int4*>(s.obj + slot0);
+          const int4 o1 = *reinterpret_cast<const int4*>(s.obj + slot0 + 4);
+          const int obj[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const float2 y = swap[q * kSwapRow + lane];
+            fold_packed(y.x, y.y + oo, r.tmin, r.tmax, obj[q], trunc, &best);
+          }
+          __syncwarp();
+        }
+        if (best >= 0 && best < kInfBits) {
+          t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
         }
       }
-      best = min(best, reduce_scatter_min(part));
-      if (best >= 0 && best < kInfBits) {
-        t_end = fminf(r.tmax, __int_as_float((best & trunc) | ~trunc));
-      }
     }
-  }
-  if (i < n) {
-    t_out[i] = __int_as_float(best & trunc);
-    obj_out[i] = best & ~trunc;
+    if (i < n) {
+      t_out[i] = __int_as_float(best & trunc);
+      obj_out[i] = best & ~trunc;
+    }
   }
 }
 
@@ -781,7 +834,7 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float d[4];
-          mxu_tile_product(f, x, j, d);
+          mxu_tile_product(f, x.bh[j], x.bl[j], d);
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             // A pair whose discriminant is negative takes no root (its
@@ -811,94 +864,199 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
 // (c_pad * mm, 8) [cx cy cz r obj 0 0 0], r = 0 in an empty slot
 // (clusters.pack_for_kernel). Per cluster in plan order: the bound test
 // (disc > 0 and the root interval meeting [tmin, tmax]); where some lane
-// of the warp passes it, the member sweep of all mm slots: t of a slot
-// with disc2 > 0, t in [tmin, tmax] and r > 0, the first slot at the
-// least t; a cluster's best replaces the ray's where strictly less. A
-// miss gives t = +inf and obj 0.
+// of the warp passes it, the member sweep: t of a slot with disc2 > 0, t
+// in [tmin, tmax] and r > 0, the first slot at the least t; a cluster's
+// best replaces the ray's where strictly less. A miss gives t = +inf and
+// obj 0.
 //
-// Design: one thread per ray; the bounds go through shared memory in
-// tiles of kClusterTile clusters (a broadcast read per cluster), the
-// member rows through the read-only cache, every lane of a warp reading
-// the same row at once. The TPU kernel sweeps a cluster's members for a
-// block of 2048 rays where any of them touches its bound; here a warp
-// does where any of its lanes does (__any_sync), the per-warp form of the
-// same vote. It changes no result: a member hit by a ray lies inside the
-// cluster's bound (refit's covering radius plus its 0.25 slack), so the
-// ray's line meets the bound with its interval over the hit's t. Dead
-// lanes touch nothing. The arithmetic is the reference's
+// Design: a persistent grid (persistent_grid) whose blocks walk blocks of
+// kThreads rays, one thread per ray. Each block stages the plan into
+// shared memory: the member rows' [cx cy cz r] and objects by cp.async,
+// the bounds by plain loads, then each cluster's filled count, the last
+// slot with r > 0 plus one. Where the image fits in kResidentBytes (the
+// demo plan's 37 clusters of 32 take 24,420 B) it is staged once for the
+// block's life and the warps never meet a block barrier; a larger plan
+// keeps a tiled loop over clusters, each tile of kTileBytes staged between
+// barriers per block of rays. Every read of the plan is then a shared
+// broadcast: every lane of a warp reads the same cluster and slot. The
+// TPU kernel sweeps a cluster's members for a block of 2048 rays where any
+// of them touches its bound; here a warp does where any of its lanes does
+// (__any_sync), the per-warp form of the same vote. It changes no result:
+// a member hit by a ray lies inside the cluster's bound (refit's covering
+// radius plus its 0.25 slack), so the ray's line meets the bound with its
+// interval over the hit's t. Dead lanes touch nothing.
+//
+// Skips that change no bit: a sweep stops at the cluster's filled count
+// (a slot past it has r = 0, and a slot whose r is not > 0 never passes
+// the test; the demo plan fills 11.8 of 32 slots on average), and a root
+// is taken only where its discriminant is positive, in the bound test
+// and in each slot (the result reads it nowhere else, and there
+// sqrt(max(disc, 0)) = sqrt(disc)). The staging computes each quadratic's
+// sphere-side constant |c|^2 - r^2 once per slot and cluster, and moves
+// r > 0 into the object. The arithmetic is the reference's
 // (intersect_pallas._clustered_kernel), each operation in its order, so
 // with -fmad=false the kernel equals its plain version bit for bit.
-// Bound by instruction issue: ~25 float operations and one sqrt per
-// cluster tested, ~28 and one sqrt per member slot swept.
-constexpr int kClusterTile = 1024;
+// Bound by instruction issue: ~16 float operations per cluster tested and
+// ~7 more and one sqrt where disc > 0, ~16 per filled slot swept and ~12
+// and one sqrt per positive discriminant. (Measured on an H100 on the
+// demo frame's primary rays, with member rows still read from device
+// memory: stopping at the filled count took a kernel that swept every
+// slot from 0.534 to 0.323 ms, the roots where disc > 0 to 0.209; then
+// the persistent grid with the plan in shared memory took 0.232, and with
+// the staged constants 0.201.)
+
+// Shared-memory layout of tile clusters of mm slots: [cx cy cz r] per
+// slot, the bound [cx cy cz r] per cluster, the object per slot, the
+// filled count per cluster. After staging, each w holds |c|^2 - r^2 and a
+// slot whose r is not > 0 holds object -1.
+struct ClusterTile {
+  float4* row;
+  float4* bnd;
+  float* obj;
+  int* cnt;
+};
+
+__device__ __forceinline__ ClusterTile cluster_tile(float4* s_mem, int tile,
+                                                    int mm) {
+  ClusterTile t;
+  t.row = s_mem;
+  t.bnd = t.row + (size_t)tile * mm;
+  t.obj = reinterpret_cast<float*>(t.bnd + tile);
+  t.cnt = reinterpret_cast<int*>(t.obj + (size_t)tile * mm);
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Stage clusters [c0, c0 + m) of the plan. Every thread of the block calls
+// it; it ends with a barrier, and the caller's barrier before it keeps a
+// tile being swept from being overwritten.
+__device__ __forceinline__ void stage_clusters(
+    const float* __restrict__ bounds, int c_pad,
+    const float* __restrict__ members, int mm, int c0, int m,
+    const ClusterTile& s) {
+  const float* rows = members + (size_t)8 * c0 * mm;
+  for (int q = threadIdx.x; q < m * mm; q += blockDim.x) {
+    cp_async16(s.row + q, rows + (size_t)8 * q);
+    cp_async4(s.obj + q, rows + (size_t)8 * q + 4);
+  }
+  for (int c = threadIdx.x; c < m; c += blockDim.x) {
+    s.bnd[c] = make_float4(bounds[0 * c_pad + c0 + c],
+                           bounds[1 * c_pad + c0 + c],
+                           bounds[2 * c_pad + c0 + c],
+                           bounds[3 * c_pad + c0 + c]);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int c = threadIdx.x; c < m; c += blockDim.x) {
+    int filled = mm;
+    while (filled > 0 && !(s.row[c * mm + filled - 1].w > 0.f)) --filled;
+    s.cnt[c] = filled;
+  }
+  __syncthreads();
+  // The sphere-side constant of each quadratic, in the reference's
+  // operations and order; r > 0 moves into the object (-1: no hit).
+  for (int q = threadIdx.x; q < m * mm; q += blockDim.x) {
+    const float4 a = s.row[q];
+    s.row[q].w = a.x * a.x + a.y * a.y + a.z * a.z - a.w * a.w;
+    if (!(a.w > 0.f)) s.obj[q] = -1.f;
+  }
+  for (int c = threadIdx.x; c < m; c += blockDim.x) {
+    const float4 b = s.bnd[c];
+    s.bnd[c].w = b.x * b.x + b.y * b.y + b.z * b.z - b.w * b.w;
+  }
+  __syncthreads();
+}
 
 __global__ void __launch_bounds__(kThreads)
 clustered_closest_hit(const float* __restrict__ rays, int n,
                       const float* __restrict__ bounds, int c_pad,
                       const float* __restrict__ members, int n_clusters,
-                      int mm, float* __restrict__ t_out,
+                      int mm, int tile_clusters, float* __restrict__ t_out,
                       int* __restrict__ obj_out) {
-  __shared__ float4 s_bnd[kClusterTile];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  Ray r;
-  const bool live = load_live_ray(rays, n, i, &r);
-  float best_t = __int_as_float(kInfBits);
-  int best_i = 0;
-  if (__syncthreads_or(live)) {
-    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-    const float4* __restrict__ rows = reinterpret_cast<const float4*>(members);
-    for (int c0 = 0; c0 < n_clusters; c0 += kClusterTile) {
-      const int m = min(kClusterTile, n_clusters - c0);
-      __syncthreads();
-      for (int c = threadIdx.x; c < m; c += blockDim.x) {
-        s_bnd[c] = make_float4(bounds[0 * c_pad + c0 + c],
-                               bounds[1 * c_pad + c0 + c],
-                               bounds[2 * c_pad + c0 + c],
-                               bounds[3 * c_pad + c0 + c]);
-      }
-      __syncthreads();
-      for (int c = 0; c < m; ++c) {
-        const float4 bb = s_bnd[c];
-        const float b = od - (bb.x * r.dx + bb.y * r.dy + bb.z * r.dz);
-        const float cc = oo - 2.0f * (bb.x * r.ox + bb.y * r.oy +
-                                      bb.z * r.oz) +
-                         (bb.x * bb.x + bb.y * bb.y + bb.z * bb.z -
-                          bb.w * bb.w);
-        const float disc = b * b - cc;
-        const float sq = sqrtf(fmaxf(disc, 0.f));
-        const bool touched = live && disc > 0.f && -b - sq <= r.tmax &&
-                             -b + sq >= r.tmin;
-        if (!__any_sync(0xFFFFFFFFu, touched)) continue;
-        float chunk_t = __int_as_float(kInfBits);
-        float chunk_obj = 0.f;
-        const size_t base = (size_t)(c0 + c) * mm;
-        for (int s = 0; s < mm; ++s) {
-          const float4 a = __ldg(rows + 2 * (base + s));
-          const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
-          const float c2 = oo - 2.0f * (a.x * r.ox + a.y * r.oy +
-                                        a.z * r.oz) +
-                           (a.x * a.x + a.y * a.y + a.z * a.z - a.w * a.w);
-          const float disc2 = b2 * b2 - c2;
-          const float sq2 = sqrtf(fmaxf(disc2, 0.f));
-          const float t_near = -b2 - sq2;
-          const float t = t_near >= r.tmin ? t_near : -b2 + sq2;
-          if (disc2 > 0.f && t >= r.tmin && t <= r.tmax && a.w > 0.f &&
-              t < chunk_t) {
-            chunk_t = t;
-            chunk_obj = __ldg(members + 8 * (base + s) + 4);
-          }
+  extern __shared__ float4 s_cl[];
+  const ClusterTile s = cluster_tile(s_cl, tile_clusters, mm);
+  const bool resident = tile_clusters >= n_clusters;
+  if (resident) stage_clusters(bounds, c_pad, members, mm, 0, n_clusters, s);
+  for (int base = blockIdx.x * kThreads; base < n;
+       base += gridDim.x * kThreads) {
+    const int i = base + threadIdx.x;
+    Ray r;
+    const bool live = load_live_ray(rays, n, i, &r);
+    float best_t = __int_as_float(kInfBits);
+    int best_i = 0;
+    // A warp with no live lane touches nothing; in the tiled loop the
+    // block decides together, for the barriers of its staging.
+    if (resident ? __any_sync(0xFFFFFFFFu, live) : __syncthreads_or(live)) {
+      const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+      const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+      for (int c0 = 0; c0 < n_clusters; c0 += tile_clusters) {
+        const int m = min(tile_clusters, n_clusters - c0);
+        if (!resident) {
+          __syncthreads();
+          stage_clusters(bounds, c_pad, members, mm, c0, m, s);
         }
-        if (chunk_t < best_t) {
-          best_t = chunk_t;
-          best_i = (int)chunk_obj;
+        for (int c = 0; c < m; ++c) {
+          const float4 bb = s.bnd[c];
+          const float b = od - (bb.x * r.dx + bb.y * r.dy + bb.z * r.dz);
+          const float cc = oo - 2.0f * (bb.x * r.ox + bb.y * r.oy +
+                                        bb.z * r.oz) + bb.w;
+          const float disc = b * b - cc;
+          bool touched = false;
+          if (live && disc > 0.f) {
+            const float sq = sqrtf(disc);
+            touched = -b - sq <= r.tmax && -b + sq >= r.tmin;
+          }
+          if (!__any_sync(0xFFFFFFFFu, touched)) continue;
+          float chunk_t = __int_as_float(kInfBits);
+          float chunk_obj = 0.f;
+          const float4* row = s.row + (size_t)c * mm;
+          const int filled = s.cnt[c];
+          for (int k = 0; k < filled; ++k) {
+            const float4 a = row[k];
+            const float b2 = od - (a.x * r.dx + a.y * r.dy + a.z * r.dz);
+            const float c2 = oo - 2.0f * (a.x * r.ox + a.y * r.oy +
+                                          a.z * r.oz) + a.w;
+            const float disc2 = b2 * b2 - c2;
+            if (disc2 > 0.f) {
+              const float sq2 = sqrtf(disc2);
+              const float t_near = -b2 - sq2;
+              const float t = t_near >= r.tmin ? t_near : -b2 + sq2;
+              const float o = s.obj[(size_t)c * mm + k];
+              if (t >= r.tmin && t <= r.tmax && o >= 0.f && t < chunk_t) {
+                chunk_t = t;
+                chunk_obj = o;
+              }
+            }
+          }
+          if (chunk_t < best_t) {
+            best_t = chunk_t;
+            best_i = (int)chunk_obj;
+          }
         }
       }
     }
-  }
-  if (i < n) {
-    t_out[i] = best_t;
-    obj_out[i] = best_i;
+    if (i < n) {
+      t_out[i] = best_t;
+      obj_out[i] = best_i;
+    }
   }
 }
 
@@ -931,6 +1089,108 @@ bool mxu_tile_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
   *tile = min(n_chunks, (int)(kTileBytes / per_chunk));
   *smem = per_chunk * *tile;
   return *tile >= 1;
+}
+
+// B12a's shape: as mxu_tile_shape, but the whole table as one resident
+// image where it fits in kResidentBytes, and the warps' exchange rows
+// before the image.
+bool mxu_closest_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
+                       int* tile, size_t* smem) {
+  if (!mxu_tile_shape(cols, n_chunks, chunk, chunk_pad, tile, smem)) {
+    return false;
+  }
+  const size_t per_chunk = *smem / *tile;
+  if (per_chunk * n_chunks <= kResidentBytes) *tile = n_chunks;
+  *smem = per_chunk * *tile + kSwapBytes;
+  return true;
+}
+
+// B13's shape: clusters per shared-memory tile and its bytes, the whole
+// plan where it fits in kResidentBytes, else tiles of kTileBytes; false
+// where no cluster fits.
+bool cluster_shape(int n_clusters, int mm, int* tile, size_t* smem) {
+  const size_t per_cluster = (size_t)mm * (sizeof(float4) + sizeof(float)) +
+                             sizeof(float4) + sizeof(int);
+  const size_t limit = per_cluster * n_clusters <= kResidentBytes
+                           ? kResidentBytes
+                           : kTileBytes;
+  *tile = min(n_clusters, (int)(limit / per_cluster));
+  *smem = per_cluster * *tile;
+  return *tile >= 1;
+}
+
+// A persistent grid for `kernel` at `smem` bytes of dynamic shared memory:
+// as many blocks as the card holds at once (SMs x resident blocks), at most
+// one per kThreads rays. The runtime is asked for the SM count and the
+// resident blocks once per (device, kernel, smem), and the answer kept; the
+// kernel's dynamic shared-memory limit is raised where smem is above the
+// default 48 KB and above every smem the kernel was launched with before.
+struct GridShape {
+  int dev;
+  const void* kernel;
+  size_t smem;
+  int sms;
+  int per_sm;
+};
+
+cudaError_t persistent_grid(const void* kernel, size_t smem, int n,
+                            int* grid, int* per_sm) {
+  static std::mutex mu;
+  static std::vector<GridShape> shapes;
+  int dev;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t raised = kTileBytes;
+  for (const GridShape& k : shapes) {
+    if (k.dev != dev || k.kernel != kernel) continue;
+    if (k.smem == smem) {
+      *per_sm = k.per_sm;
+      *grid = min(k.sms * k.per_sm, grid_for(n));
+      return cudaSuccess;
+    }
+    if (k.smem > raised) raised = k.smem;
+  }
+  GridShape k{dev, kernel, smem, 0, 0};
+  rc = cudaDeviceGetAttribute(&k.sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == cudaSuccess && smem > raised) {
+    rc = cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+  }
+  if (rc == cudaSuccess) {
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k.per_sm, kernel,
+                                                       kThreads, smem);
+  }
+  if (rc != cudaSuccess) return rc;
+  if (k.per_sm < 1) return cudaErrorInvalidConfiguration;
+  shapes.push_back(k);
+  *per_sm = k.per_sm;
+  *grid = min(k.sms * k.per_sm, grid_for(n));
+  return cudaSuccess;
+}
+
+// A kernel's resources at a launch shape: out = [registers per thread,
+// local (spill) bytes per thread, dynamic shared bytes per block, threads
+// per block, resident blocks per SM, blocks in the grid, 1 where the
+// table is resident].
+int kernel_info(const void* kernel, size_t smem, int n, bool resident,
+                int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t rc = cudaFuncGetAttributes(&attr, kernel);
+  int grid = 0, per_sm = 0;
+  if (rc == cudaSuccess) {
+    rc = persistent_grid(kernel, smem, n, &grid, &per_sm);
+  }
+  if (rc != cudaSuccess) return (int)rc;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[3] = kThreads;
+  out[4] = per_sm;
+  out[5] = grid;
+  out[6] = resident;
+  return 0;
 }
 
 }  // namespace
@@ -992,15 +1252,31 @@ extern "C" int drts_morton_mxu_closest_hit(const float* rays, int n,
                                            int* obj_out,
                                            cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  int chunk, chunk_pad, tile;
+  int chunk, chunk_pad, tile, grid, per_sm;
   size_t smem;
-  if (!mxu_tile_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+  if (!mxu_closest_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
     return cudaErrorInvalidValue;
   }
-  morton_mxu_closest_hit<<<grid_for(n), kThreads, smem, stream>>>(
+  const cudaError_t rc = persistent_grid(
+      (const void*)morton_mxu_closest_hit, smem, n, &grid, &per_sm);
+  if (rc != cudaSuccess) return (int)rc;
+  morton_mxu_closest_hit<<<grid, kThreads, smem, stream>>>(
       rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
       scale, pos_bits, t_out, obj_out);
   return (int)cudaGetLastError();
+}
+
+// B12a's resources for a table of cols columns in n_chunks chunks and n
+// rays (kernel_info's out).
+extern "C" int drts_morton_mxu_closest_hit_info(int cols, int n_chunks,
+                                                int n, int* out) {
+  int chunk, chunk_pad, tile;
+  size_t smem;
+  if (!mxu_closest_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  return kernel_info((const void*)morton_mxu_closest_hit, smem, n,
+                     tile >= n_chunks, out);
 }
 
 extern "C" int drts_morton_mxu_occlusion(const float* rays, int n,
@@ -1021,7 +1297,9 @@ extern "C" int drts_morton_mxu_occlusion(const float* rays, int n,
   return (int)cudaGetLastError();
 }
 
-// bounds: (4, c_pad); members: (c_pad * mm, 8); n_clusters <= c_pad.
+// bounds: (4, c_pad); members: (c_pad * mm, 8), 16-byte aligned (the
+// member rows go to shared memory by 16-byte cp.async); n_clusters <=
+// c_pad.
 extern "C" int drts_clustered_closest_hit(const float* rays, int n,
                                           const float* bounds, int c_pad,
                                           const float* members,
@@ -1029,10 +1307,31 @@ extern "C" int drts_clustered_closest_hit(const float* rays, int n,
                                           float* t_out, int* obj_out,
                                           cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (n_clusters <= 0 || n_clusters > c_pad || mm <= 0) {
+  int tile, grid, per_sm;
+  size_t smem;
+  if (n_clusters <= 0 || n_clusters > c_pad || mm <= 0 ||
+      reinterpret_cast<uintptr_t>(members) % 16 != 0 ||
+      !cluster_shape(n_clusters, mm, &tile, &smem)) {
     return cudaErrorInvalidValue;
   }
-  clustered_closest_hit<<<grid_for(n), kThreads, 0, stream>>>(
-      rays, n, bounds, c_pad, members, n_clusters, mm, t_out, obj_out);
+  const cudaError_t rc = persistent_grid((const void*)clustered_closest_hit,
+                                         smem, n, &grid, &per_sm);
+  if (rc != cudaSuccess) return (int)rc;
+  clustered_closest_hit<<<grid, kThreads, smem, stream>>>(
+      rays, n, bounds, c_pad, members, n_clusters, mm, tile, t_out, obj_out);
   return (int)cudaGetLastError();
+}
+
+// B13's resources for n_clusters clusters of mm slots and n rays
+// (kernel_info's out).
+extern "C" int drts_clustered_closest_hit_info(int n_clusters, int mm, int n,
+                                               int* out) {
+  int tile;
+  size_t smem;
+  if (n_clusters <= 0 || mm <= 0 ||
+      !cluster_shape(n_clusters, mm, &tile, &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  return kernel_info((const void*)clustered_closest_hit, smem, n,
+                     tile >= n_clusters, out);
 }

@@ -43,7 +43,11 @@ blocker. No skip or cull changes a bit of the result (``csrc/intersect.cu``
 and ``csrc/rays.cuh`` state the margins). B12a and B12b run the product
 for a warp's 32 rays and cull chunks per warp, with B1's and B2's tests
 and a margin that covers the product's rounding (MXU_CULL_SCALE); B13
-sweeps a cluster's members for a warp where any lane touches its bound.
+sweeps a cluster's members for a warp where any lane touches its bound,
+up to the cluster's filled count (``clustered_filled``). B12a and B13 run
+on a persistent grid whose blocks stage the table or plan once (up to
+92 KB; a larger one in tiles per block of rays), and B12a folds each
+ray's pairs in that ray's own lane.
 ``closest_chunk_walk``, ``mxu_chunk_walk`` and ``mxu_occlusion_walk``
 repeat B1's, B12a's and B12b's walks, and ``intersect_morton_work``,
 ``intersect_brute_work``, ``occlusion_morton_work``,
@@ -60,6 +64,7 @@ no fallback. Each wrapper counts its kernel launches in
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import torch
@@ -681,8 +686,10 @@ def intersect_morton_mxu_work(rays, table, bounds, mxu_a,
 def intersect_morton_mxu(rays, table, bounds, mxu_a, block: int = 16384):
     """B12a closest hit; see intersect_morton_mxu_plain for the contract.
     A CUDA tensor launches drts_morton_mxu_closest_hit (csrc/intersect.cu),
-    which runs the product on the tensor cores and culls chunks per warp
-    by `bounds` with MXU_CULL_SCALE."""
+    which runs the product on the tensor cores, culls chunks per warp by
+    `bounds` with MXU_CULL_SCALE and folds each ray's pairs in its own lane,
+    on a persistent grid that stages a table of up to 92 KB once per
+    block."""
     _check_pair(rays, table, 9)
     _check_mxu(table, bounds, mxu_a)
     if rays.device.type == "cpu":
@@ -698,6 +705,24 @@ def intersect_morton_mxu(rays, table, bounds, mxu_a, block: int = 16384):
     backend.check_launch(rc, "drts_morton_mxu_closest_hit")
     backend.launched("intersect_morton_mxu")
     return t, obj
+
+
+def _kernel_info(fn, name, *args) -> dict:
+    out = (ctypes.c_int * 7)()
+    backend.check_launch(fn(*args, out), name)
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads",
+                     "blocks_per_sm", "grid", "resident"), out))
+
+
+def intersect_morton_mxu_info(table, bounds, n: int) -> dict:
+    """B12a's resources on the card for this table and n rays: registers
+    and local (stack and spill) bytes per thread, shared bytes and threads
+    per block, the blocks one SM holds at once, the persistent grid's
+    blocks and whether the table's image is resident (1) or tiled (0)."""
+    lib = backend.kernels()
+    return _kernel_info(lib.drts_morton_mxu_closest_hit_info,
+                        "drts_morton_mxu_closest_hit_info", table.shape[1],
+                        bounds.shape[1], n)
 
 
 def mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk):
@@ -827,17 +852,25 @@ def _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
         raise ValueError(f"unsupported device {rays.device}")
 
 
-def clustered_touched(rays, bounds_tbl, n_clusters):
-    """(N, n_clusters) bool: the ray's line meets the cluster's bounding
-    sphere with an interval that overlaps [tmin, tmax] (the reference's
-    per-cluster test, ``intersect_pallas._clustered_kernel``, in its
-    operations and order); dead lanes touch nothing."""
+def clustered_disc(rays, bounds_tbl, n_clusters):
+    """(b, disc), each (N, n_clusters): the quadratic of the ray against
+    each cluster's bounding sphere (the reference's per-cluster test,
+    ``intersect_pallas._clustered_kernel``, in its operations and order)."""
     bx, by, bz, br = (b[None, :n_clusters] for b in bounds_tbl)
     ox, oy, oz, dx, dy, dz, tmin, tmax, od, oo = _ray_rows(rays)
     b = od - (bx * dx + by * dy + bz * dz)
     c0 = oo - 2.0 * (bx * ox + by * oy + bz * oz) \
         + (bx * bx + by * by + bz * bz - br * br)
-    disc = b * b - c0
+    return b, b * b - c0
+
+
+def clustered_touched(rays, bounds_tbl, n_clusters):
+    """(N, n_clusters) bool: the ray's line meets the cluster's bounding
+    sphere with an interval that overlaps [tmin, tmax] (the reference's
+    per-cluster test, ``intersect_pallas._clustered_kernel``, in its
+    operations and order); dead lanes touch nothing."""
+    tmin, tmax = rays[6][:, None], rays[7][:, None]
+    b, disc = clustered_disc(rays, bounds_tbl, n_clusters)
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
     return ((disc > 0.0) & (-b - sq <= tmax) & (-b + sq >= tmin)
             & (tmax >= tmin))
@@ -891,38 +924,62 @@ def intersect_clustered_plain(rays, bounds_tbl, members_tbl,
     return t_out, i_out
 
 
+def clustered_filled(members_tbl, n_clusters: int, max_members: int):
+    """(n_clusters,) int64: each cluster's filled count, the last member
+    slot with r > 0 plus one (0 for a cluster with none). B13's kernel
+    sweeps a cluster's slots up to it: the slots after it have r = 0 and
+    never hit."""
+    r = members_tbl[:n_clusters * max_members, 3].reshape(n_clusters,
+                                                         max_members)
+    pos = torch.arange(1, max_members + 1, device=members_tbl.device)
+    return torch.where(r > 0.0, pos, 0).amax(1)
+
+
 def intersect_clustered_work(rays, bounds_tbl, members_tbl,
                              n_clusters: int, max_members: int,
                              block: int = 32768):
     """The work B13's kernel needs on these rays: per ray, (cluster tests,
-    clusters touched, clusters its warp of 32 consecutive lanes swept,
-    roots: member slots of its touched clusters whose discriminant is
-    positive), each int64 (N,). A live ray tests every cluster and needs
-    the member sweep (max_members slots) of each cluster it touches; the
-    kernel sweeps a cluster for a whole warp where any lane touches it."""
+    cluster roots: the tests whose discriminant is positive, clusters
+    touched, clusters its warp of 32 consecutive lanes swept, slots: the
+    filled slots (``clustered_filled``) of the clusters it touches, roots:
+    the slots among those whose discriminant is positive), each int64
+    (N,). A live ray tests every cluster and needs the member sweep of the
+    filled slots of each cluster it touches; the kernel sweeps a cluster
+    for a whole warp where any lane touches it."""
     _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
                      max_members)
     n, mm = rays.shape[1], max_members
+    filled = clustered_filled(members_tbl, n_clusters, mm)
+    in_filled = (torch.arange(mm, device=rays.device)[None, :]
+                 < filled[:, None])
     out = [torch.zeros(n, dtype=torch.int64, device=rays.device)
-           for _ in range(4)]
+           for _ in range(6)]
     step = max(32, min(block, (1 << 24) // (n_clusters * mm)) // 32 * 32)
     for s in range(0, n, step):
         r = rays[:, s:s + step]
         touched = clustered_touched(r, bounds_tbl, n_clusters)
         swept = _warp_any(touched)
         _, pos = clustered_member_t(r, members_tbl, n_clusters * mm)
-        roots = pos.reshape(-1, n_clusters, mm).sum(2)
-        out[0][s:s + step] = torch.where(r[7] >= r[6], n_clusters, 0)
-        out[1][s:s + step] = touched.sum(1)
-        out[2][s:s + step] = swept.sum(1)
-        out[3][s:s + step] = (roots * touched).sum(1)
+        roots = (pos.reshape(-1, n_clusters, mm) & in_filled).sum(2)
+        live = r[7] >= r[6]
+        out[0][s:s + step] = torch.where(live, n_clusters, 0)
+        _, disc = clustered_disc(r, bounds_tbl, n_clusters)
+        out[1][s:s + step] = ((disc > 0.0) & live[:, None]).sum(1)
+        out[2][s:s + step] = touched.sum(1)
+        out[3][s:s + step] = swept.sum(1)
+        out[4][s:s + step] = (filled * touched).sum(1)
+        out[5][s:s + step] = (roots * touched).sum(1)
     return tuple(out)
 
 
 def intersect_clustered(rays, bounds_tbl, members_tbl, n_clusters: int,
                         max_members: int, block: int = 16384):
     """B13 closest hit; see intersect_clustered_plain for the contract. A
-    CUDA tensor launches drts_clustered_closest_hit (csrc/intersect.cu)."""
+    CUDA tensor launches drts_clustered_closest_hit (csrc/intersect.cu):
+    a persistent grid whose blocks stage the plan in shared memory (once,
+    where it fits in 92 KB), each member sweep stopping at the cluster's
+    filled count (``clustered_filled``). members_tbl must be 16-byte
+    aligned, as every table the allocator gives is."""
     _check_clustered(rays, bounds_tbl, members_tbl, n_clusters,
                      max_members)
     if rays.device.type == "cpu":
@@ -939,3 +996,13 @@ def intersect_clustered(rays, bounds_tbl, members_tbl, n_clusters: int,
     backend.check_launch(rc, "drts_clustered_closest_hit")
     backend.launched("intersect_clustered")
     return t, obj
+
+
+def intersect_clustered_info(n_clusters: int, max_members: int,
+                             n: int) -> dict:
+    """B13's resources on the card for a plan of ``n_clusters`` clusters of
+    ``max_members`` slots and n rays (as intersect_morton_mxu_info)."""
+    lib = backend.kernels()
+    return _kernel_info(lib.drts_clustered_closest_hit_info,
+                        "drts_clustered_closest_hit_info", n_clusters,
+                        max_members, n)

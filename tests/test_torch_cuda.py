@@ -51,11 +51,15 @@ DEFAULT_* bounds of the one-device frames. graft_entry.entry()'s frame
 step once: a finite (256, 256, 3) image. B12a and B12b (the tensor-core
 Morton kernels) at chunks of 8, 12 (padded to 16), 16, 32 and 64 slots
 (three shared-memory tiles at 64), ragged ray counts, partly filled
-chunks, shadow-ray ranges, an excluded object on every ray and a batch of
-dead lanes, within the MXU_* tolerances, and every word the same with
-their chunk cull off; B13 with cluster counts that are
-no multiple of 8, empty slots, rays that start inside a cluster bound, a
-dead batch and finite ranges, every word equal; intersect_spheres and
+chunks, shadow-ray ranges, an excluded object on every ray, a batch of
+dead lanes and one of dead warps, within the MXU_* tolerances, and every
+word the same with their chunk cull off; B12a's table resident in each
+block of its persistent grid and tiled, and batches beyond one wave of
+that grid (equal, bit for bit, to the same kernel on sub-batches); B13
+with cluster counts that are no multiple of 8, empty slots, clusters of
+1, 12 and 32 filled slots, rays that start inside a cluster bound, a dead
+batch, dead warps and finite ranges, its plan resident and tiled and a
+batch beyond one wave, every word equal; intersect_spheres and
 intersect_spheres_any through both routes launch B13, and B12a and B12b
 under the opt-in. Run on a GPU
 machine, which has no JAX, without the suite's conftest:
@@ -1500,24 +1504,58 @@ def mxu_case(k, n, chunk, seed, dev):
     return centers, radii, accel, rays.to(dev).contiguous()
 
 
-@pytest.mark.parametrize("k,n,chunk,variant", [
-    (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"),
-    (300, 1000, 16, "aimed"), (1500, 2049, 64, "aimed"),
-    (200, 777, 12, "aimed"), (300, 1000, 32, "dead")])
-def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant,
+def dead_warps(rays):
+    """Every other warp of 32 lanes dead, but for one live lane in the
+    first dead warp."""
+    lane = torch.arange(rays.shape[1], device=rays.device)
+    dead = ((lane // 32) % 2 == 1) & (lane != 45)
+    rays[7] = torch.where(dead, -1.0, rays[7])
+
+
+@pytest.mark.parametrize("k,n,chunk,variant,path", [
+    (1500, 3001, 32, "aimed", "tiled"), (43, 257, 8, "aimed", "resident"),
+    (300, 1000, 16, "aimed", "resident"), (1500, 2049, 64, "aimed", "tiled"),
+    (200, 777, 12, "aimed", "resident"), (300, 1000, 32, "dead", "resident"),
+    (300, 300001, 32, "aimed", "resident"),
+    (1500, 140001, 64, "aimed", "tiled"),
+    (300, 5000, 32, "dead warps", "resident")])
+def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
                                        monkeypatch):
     """B12a against its plain version: chunks of 8, 12 (padded to 16 in
-    shared memory), 16, 32 and 64 slots (at 64, three shared-memory
-    tiles), ragged ray counts, partly filled chunks (empty slots), within
-    the MXU_* tolerances; it launches once, and its walk's lanes cull
-    chunks. "dead" is a batch of dead lanes only: no hit."""
+    shared memory), 16, 32 and 64 slots, ragged ray counts, partly filled
+    chunks (empty slots), within the MXU_* tolerances; it launches once,
+    and its walk's lanes cull chunks. Tables of up to 92 KB stay resident
+    in each block of the persistent grid, larger ones (1,500 spheres in
+    chunks of 32 or 64) take the tiled loop (three tiles at 64); 300,001
+    and 140,001 rays are more than one persistent wave of blocks can hold,
+    with a ragged end, and give the words that launches of sub-batches
+    below one wave give. "dead" is a batch of dead lanes only: no hit;
+    "dead warps" kills every other warp but for one lane."""
     centers, radii, accel, rays = mxu_case(k, n, chunk, k + n, dev)
     if variant == "dead":
         rays[7] = -1.0
+    if variant == "dead warps":
+        dead_warps(rays)
+    info = ik.intersect_morton_mxu_info(accel.table, accel.bounds, n)
+    assert info["resident"] == (path == "resident")
+    assert info["local_bytes"] == 0
+    if n > 100000:
+        assert n > info["grid"] * info["threads"]
+    else:
+        assert info["grid"] == -(-n // info["threads"])
     before = backend.LAUNCHES["intersect_morton_mxu"]
     out = ik.intersect_morton_mxu(rays, accel.table, accel.bounds,
                                   accel.mxu_a)
     assert backend.LAUNCHES["intersect_morton_mxu"] == before + 1
+    if n > 100000:
+        # The persistent grid's loop over blocks of rays, bit for bit: the
+        # same warps of 32 rays in launches below one wave.
+        step = 65536
+        assert step < info["grid"] * info["threads"]
+        assert_equal(out, [torch.cat(x) for x in zip(*(
+            ik.intersect_morton_mxu(rays[:, s:s + step].contiguous(),
+                                    accel.table, accel.bounds, accel.mxu_a)
+            for s in range(0, n, step)))])
     plain = ik.intersect_morton_mxu_plain(rays, accel.table, accel.bounds,
                                           accel.mxu_a)
     assert_mxu_close(out, plain, rays, grazing(rays, centers, radii), accel)
@@ -1583,17 +1621,51 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
         assert bool(occ.any()) and not bool(occ.all())
 
 
+def filled_case(n, seed):
+    """Clusters of 32, 12 and 1 filled slots (40 small spheres in one xz
+    cell of 4, 12 in another, one bigger than half a cell) and 60 spread,
+    with every other ray aimed near a sphere."""
+    centers, radii, rays = random_case(113, n, seed)
+    rng = np.random.RandomState(seed)
+    centers[:40, 0] = 0.5 + 3.0 * rng.rand(40)
+    centers[:40, 2] = 0.5 + 3.0 * rng.rand(40)
+    centers[40:52, 0] = 8.5 + 3.0 * rng.rand(12)
+    centers[40:52, 2] = 0.5 + 3.0 * rng.rand(12)
+    centers[52:, 0] = np.where(centers[52:, 0] < 12, centers[52:, 0] - 12,
+                               centers[52:, 0])
+    radii[52] = 2.5
+    o = rays[:3].T.numpy()
+    aim = centers[rng.randint(0, 113, n)] - o
+    d = np.where(np.arange(n)[:, None] % 2 == 0, aim, rays[3:6].T.numpy())
+    d = d / np.linalg.norm(d, axis=1, keepdims=True)
+    rays[3:6] = torch.from_numpy(np.asarray(d, np.float32)).T
+    return centers, radii, rays
+
+
 @pytest.mark.parametrize("k,n,variant", [
     (438, 3001, "aimed"), (55, 257, "aimed"), (700, 2048, "inside"),
-    (300, 1000, "dead"), (130, 1001, "finite")])
+    (300, 1000, "dead"), (130, 1001, "finite"), (438, 300001, "aimed"),
+    (3000, 5001, "tiled"), (113, 4001, "filled"),
+    (438, 5000, "dead warps")])
 def test_clustered_kernel_equals_plain(dev, k, n, variant):
     """B13 against its plain version, every word equal: xz-binned plans
     whose cluster count is no multiple of 8 (padded bound columns) and
     whose clusters hold empty slots, ragged ray counts, rays that start
     inside a cluster bound ("inside": origins at cluster centres, some
-    inside a member), a batch of dead lanes only, finite tmax."""
-    centers, radii, rays = random_case(k, n, seed=k + n + 2)
-    radii[::50] = 2.5    # bigger than half a cell: singleton clusters
+    inside a member), a batch of dead lanes only, finite tmax. Plans of up
+    to 92 KB stay resident in each block of the persistent grid; "tiled"
+    spreads 3,000 spheres over ~1,000 clusters (beyond 92 KB: the tiled
+    loop over clusters); 300,001 rays are more than one persistent wave
+    of blocks can hold, with a ragged end; "filled" holds clusters of 32,
+    12 and 1 filled slots; "dead warps" kills every other warp but for
+    one lane."""
+    if variant == "filled":
+        centers, radii, rays = filled_case(n, seed=k + n + 2)
+    else:
+        centers, radii, rays = random_case(k, n, seed=k + n + 2)
+        radii[::50] = 2.5    # bigger than half a cell: singleton clusters
+    if variant == "tiled":
+        centers[:, [0, 2]] *= 8.0
     plan = clusters.build_plan(centers, radii, device=dev)
     accel = clusters.make_accel(plan, torch.from_numpy(centers).to(dev),
                                 torch.from_numpy(radii).to(dev))
@@ -1607,9 +1679,22 @@ def test_clustered_kernel_equals_plain(dev, k, n, variant):
         live = rays[7] >= rays[6]
         rays[7] = torch.where(live, torch.from_numpy(np.asarray(
             20.0 * np.random.RandomState(n).rand(n), np.float32)), -1.0)
+    if variant == "dead warps":
+        dead_warps(rays)
     rays = rays.to(dev).contiguous()
-    assert accel.n_clusters % 8 != 0
+    if variant != "filled":
+        assert accel.n_clusters % 8 != 0
     assert bool((accel.members_tbl[:, 3] == 0).any())
+    filled = ik.clustered_filled(accel.members_tbl, accel.n_clusters,
+                                 accel.max_members)
+    if variant == "filled":
+        assert {1, 12, 32} <= set(filled.tolist())
+    info = ik.intersect_clustered_info(accel.n_clusters, accel.max_members,
+                                       n)
+    assert info["resident"] == (variant != "tiled")
+    assert info["local_bytes"] == 0
+    if n > 100000:
+        assert n > info["grid"] * info["threads"]
     before = backend.LAUNCHES["intersect_clustered"]
     out = ik.intersect_clustered(rays, accel.bounds_tbl, accel.members_tbl,
                                  accel.n_clusters, accel.max_members)

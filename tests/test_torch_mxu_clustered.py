@@ -166,6 +166,22 @@ def test_pack_for_kernel_and_make_accel_match_reference():
                                                    jacc.max_members)
 
 
+def test_clustered_filled_matches_reference_member_counts():
+    """clustered_filled (the slots B13's sweep stops at: the last r > 0
+    slot plus one) on the reference's own member table equals the member
+    counts of its plan, bit for bit: the bins case holds a full cluster
+    (32), a run of 26 and five singletons."""
+    pos, radii = _bins_case()
+    plan = jclusters.build_plan(pos, radii)
+    _, members = jax.jit(lambda p, r: jclusters.pack_for_kernel(
+        plan, jclusters.refit(plan, p, r), p, r))(pos, radii)
+    got = ik.clustered_filled(torch.from_numpy(np.array(members)),
+                              plan.num_clusters, jclusters.MAX_MEMBERS)
+    want = (plan.member_object >= 0).sum(1)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert {1, 26, jclusters.MAX_MEMBERS} <= set(want.tolist())
+
+
 def test_make_mxu_tables_matches_reference(case, monkeypatch):
     """make_mxu_tables from the port's Morton table against the
     reference's A-matrices, and make_morton_accel under the opt-in carries
