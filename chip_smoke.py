@@ -59,7 +59,10 @@ Phases, one printed line or more each; any failure exits non-zero:
    on different instances), and B7 once more on the primary rays before
    any candidate round, where the serial walk carries every live lane (the
    frame's own backstop batches are almost empty); kernel and plain times
-   from CUDA events. B6 is also held to its culled walk
+   from CUDA events. B7 is also held to its culled walk
+   (trimesh_kernels.intersect_mesh_instances_work), and its bound counts
+   that walk's sphere tests, instances entered and triangle work, printed
+   beside the unculled sweeps' bound. B6 is also held to its culled walk
    (trimesh_kernels.shared_blas_sweep_work, whose fold must equal its
    words), and its bound counts that walk's work (triangle chunks tested
    and met, cones tested, faces guard-tested and swept), printed beside
@@ -347,17 +350,17 @@ B13 ("intersect_clustered") with the launches of the clustered headline
 frame and the times on its primary rays.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
-B5, B6, B8, B9 and B10 count their culled walks and B11 its staged rows and
+B5-B10 count their culled walks and B11 its staged rows and
 roots, and their entries also carry "unculled_bound_ms"; B12a and B12b
 the filled slots of the chunks each lane meets, their products at the
 tensor cores' rate beside their tails at the float32 rate; B13 its
 cluster tests, the filled member slots of the clusters each lane
 touches, their roots and each slot's |c|^2 - r^2 once), and a kernel
-measured under its bound fails the run. B12a's and B13's entries also
-carry "share_of_bound", the bound over the kernel's time. Then the card's name and
-power limit, and, last, {"ok": true, "device": {...}}. Without a GPU, or
-without the package beside it, it exits non-zero before printing any
-result.
+measured under its bound fails the run. B12a's, B12b's and B13's entries
+also carry "share_of_bound", the bound over the kernel's time. Then the
+card's name and power limit, and, last, {"ok": true, "device": {...}}.
+Without a GPU, or without the package beside it, it exits non-zero before
+printing any result.
 """
 
 import contextlib
@@ -1202,34 +1205,54 @@ def check_b6(ik, tk, label, args, timed, chunks=TRI_CHUNKS):
 
 
 def check_b7(tk, label, args, timed):
-    """B7 against its plain version on one recorded batch: t, face and
-    instance words equal. Returns its timed part, with `live` and `hits`."""
-    rays, inst_tbl, inst_bounds, tri_tbl, n_ic, block = args
-    work = {}
+    """B7 against its plain version and its culled walk on one recorded
+    batch (t, face and instance words equal), its work (trimesh_kernels.
+    intersect_mesh_instances_work: chunk and instance sphere tests,
+    instances swept, triangle chunks tested and met, cones tested, faces
+    guard-tested and swept) and its time, with the bound of the culled work
+    and of the unculled sweeps (every face of each instance entered).
+    Returns its timed part, with `live` and `hits`."""
+    (rays, inst_tbl, inst_bounds, tri_tbl, n_ic, tri_bounds, chunk,
+     block) = args
     out_k = tk.intersect_mesh_instances(*args)
-    out_p = tk.intersect_mesh_instances_plain(*args, work=work)
+    out_p = tk.intersect_mesh_instances_plain(*args)
+    out_w, w = tk.intersect_mesh_instances_work(*args[:4], tri_bounds, chunk,
+                                                n_ic, 1 << 22)
     torch.cuda.synchronize()
     mismatch = words_differ(out_k, out_p)
+    walk_mismatch = words_differ(out_k, out_w)
     n, f_pad = rays.shape[1], tri_tbl.shape[0]
+    spheres = (w["chunk_tests"] + w["inst_tests"]) * OPS_B7_SPHERE
     part = {
-        "bytes": lane_bytes(n, work["live"], 8, 3, inst_tbl, inst_bounds,
-                            tri_tbl),
-        "ops": (work["chunk_tests"] + work["inst_tests"]) * OPS_B7_SPHERE
-        + work["sweeps"] * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
+        "bytes": lane_bytes(n, w["live"], 8, 3, inst_tbl, inst_bounds,
+                            tri_tbl, tri_bounds),
+        "ops": spheres + w["tests"] * (OPS_TRI_CHUNK + OPS_TRI_END)
+        + w["cones"] * OPS_TRI_CONE + w["guards"] * OPS_TRI_GUARD
+        + w["rows"] * OPS_MT_PAIR
+        + w["sweeps"] * (OPS_TO_OBJECT + OPS_TRI_RAY),
+        "unculled_ops": spheres
+        + w["sweeps"] * (f_pad * OPS_MT_PAIR + OPS_TO_OBJECT),
         "ms": cuda_ms(lambda: tk.intersect_mesh_instances(*args), 10),
         "plain_ms": cuda_ms(lambda: tk.intersect_mesh_instances_plain(*args),
                             1, warm=False) if timed else 0.0,
-        "live": work["live"], "hits": int(torch.isfinite(out_k[0]).sum())}
-    log(f"mesh kernels: B7 {label} rays={n} live={work['live']} "
-        f"hits={part['hits']} chunk_tests={work['chunk_tests']} "
-        f"instance_tests={work['inst_tests']} "
-        f"instance_sweeps={work['sweeps']} faces={f_pad} "
-        f"mismatch={mismatch} kernel_ms={part['ms']!r} "
-        f"plain_ms={part['plain_ms']!r} "
-        f"bound_ms={bound(part['bytes'], part['ops'])[0]!r}")
-    if mismatch:
+        "live": w["live"], "hits": int(torch.isfinite(out_k[0]).sum())}
+    b_ms = bound(part["bytes"], part["ops"])[0]
+    log(f"mesh kernels: B7 {label} rays={n} live={w['live']} "
+        f"hits={part['hits']} chunk_tests={w['chunk_tests']} "
+        f"instance_tests={w['inst_tests']} "
+        f"instance_sweeps={w['sweeps']} faces={f_pad} chunk={chunk} "
+        f"tri_chunk_tests={w['tests']} tri_chunks_met={w['met']} "
+        f"cone_tests={w['cones']} guard_tests={w['guards']} "
+        f"triangles_swept={w['rows']} triangles_unculled={w['tri_tests']} "
+        f"mismatch={mismatch} walk_mismatch={walk_mismatch} "
+        f"kernel_ms={part['ms']!r} plain_ms={part['plain_ms']!r} "
+        f"bound_ms={b_ms!r} unculled_bound_ms="
+        f"{bound(part['bytes'], part['unculled_ops'])[0]!r} "
+        f"share_of_bound={b_ms / part['ms']!r}")
+    if mismatch or walk_mismatch:
         raise AssertionError(f"B7 {label}: kernel disagrees with its plain "
-                             f"version on {mismatch} words")
+                             f"version or its walk on {mismatch}, "
+                             f"{walk_mismatch} words")
     return part
 
 
@@ -3593,8 +3616,14 @@ def check_b12b(ik, calls, reps=10):
         tot["ms"] += ms
         tot["plain_ms"] += plain_ms
     b_ms, b_by = bound(*work)
+    info = ik.occlusion_morton_mxu_info(calls[0][1], calls[0][2],
+                                        calls[0][0].shape[1])
+    log(f"routes: B12b the {len(calls)} batches: kernel_ms={tot['ms']!r} "
+        f"bound_ms={b_ms!r} ({b_by}) share_of_bound={b_ms / tot['ms']!r} "
+        f"{resources(info)}")
     return dict(tot, max_abs_err=float(flips_all > 0), bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None,
+                share_of_bound=b_ms / tot["ms"])
 
 
 def b13_bound(ik, rays, bounds_tbl, members_tbl, n_clusters, mm):

@@ -63,6 +63,7 @@ _SIGNATURES = {
                                   _VOIDP, _FLOAT, _VOIDP, _VOIDP),
     # cols, n_chunks, n, out (7 ints)
     "drts_morton_mxu_closest_hit_info": (_INT, _INT, _INT, _VOIDP),
+    "drts_morton_mxu_occlusion_info": (_INT, _INT, _INT, _VOIDP),
     # rays, n, bounds_tbl, c_pad, members_tbl, n_clusters, max_members,
     # t_out, obj_out, stream
     "drts_clustered_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
@@ -92,11 +93,12 @@ _SIGNATURES = {
                                _INT, _VOIDP, _INT, _INT, _VOIDP, _INT, _INT,
                                _FLOAT, _FLOAT, _VOIDP, _VOIDP, _VOIDP),
     # rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
-    # bound_scale, bound_pad, tri_tbl, f_pad, pos_bits, t_out, face_out,
-    # inst_out, stream
+    # bound_scale, bound_pad, tri_tbl, f_pad, pos_bits, tri_bounds, tb_cols,
+    # chunk, tri_scale, guard, image, t_out, face_out, inst_out, stream
     "drts_mesh_instances_closest": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
                                     _INT, _INT, _FLOAT, _FLOAT, _VOIDP, _INT,
-                                    _INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP),
+                                    _INT, _VOIDP, _INT, _INT, _FLOAT, _FLOAT,
+                                    _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP),
     # rays, n, cand, occ_in, inst_tbl, m_tbl, tri_tbl, f_pad, tri_bounds,
     # tb_cols, chunk, tri_scale, guard, occ_out, stream
     "drts_shared_blas_any": (_VOIDP, _INT, _VOIDP, _VOIDP, _VOIDP, _INT,

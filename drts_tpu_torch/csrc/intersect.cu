@@ -489,10 +489,10 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // with float32 sums.
 //
 // Design: mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), a warp per
-// 32 rays. The reference's K = 8 packs into k16: the first mma takes
-// A = [a_hi | a_hi] against B = [x_hi ; x_lo] (hi.hi + hi.lo), the second
-// A = [a_lo | 0] against the same B (lo.hi), accumulating into the
-// first's result; 8 of the second's 32 K-slots are zero. A 16-row tile
+// 32 rays. B = [x_hi ; x_lo] (the reference's K = 8 twice); three mmas
+// take A = [a_hi | 0] (hi.hi), [0 | a_hi] (hi.lo) and [a_lo | 0] (lo.hi),
+// each into a zeroed accumulator, and the CUDA cores add the three in
+// float32 (mxu_tile_product). A 16-row tile
 // holds the b rows of 8 spheres (rows 0-7) and their c rows (rows 8-15),
 // so the thread that holds b of sphere g for a ray in its C fragment
 // (c0, c1: row g) also holds its c (c2, c3: row g + 8): the tail needs no
@@ -524,19 +524,29 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // a result differs from the unculled sweep only where a whole warp culls
 // a chunk. B12b's warp leaves once none of its lanes is open.
 //
-// Numbers: the tensor cores add the products in an order and with
-// roundings that IEEE does not specify, so Y can differ from the plain
-// version's (hi.hi + hi.lo) + lo.hi in float32 by a few ulp of its terms:
-// the kernels are held to their plain versions with a stated tolerance
-// (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit for bit.
-// Bound: per swept (ray, slot) the two mmas issue 64 MACs (128 flops,
-// ~0.13 ps at the dense bf16 rate of 989 TFLOP/s) and the tail ~12 float
-// operations (~0.36 ps at 33.5e12 a second): by those rates the tail's
-// float32 issue would limit the kernels. Measured on an H100, the
-// mma.sync chain does instead: on the demo frame's primary rays with the
-// cull off, B12a's products alone took 0.50 ms of its 0.83, far from the
-// dense rate (which only wgmma reaches; its sums are another order, so
-// it would need its own tolerance).
+// Numbers: each mma sums its 8 products in an order and with roundings
+// that IEEE does not specify, so each product can differ from the plain
+// version's float32 matmul by about an ulp of its terms; the three are
+// added in the plain version's order, (hi.hi + hi.lo) + lo.hi, on the CUDA
+// cores. (Measured on an H100 against the float64 sum of the same halves:
+// a K = 8 sum on the tensor cores within 2^-23.1 of sum |a||x|, cuBLAS's
+// float32 within 2^-23.0; one mma for hi.hi + hi.lo with lo.hi
+// accumulated into it within 2^-21.9, and it flipped 65 of 300,001 random
+// rays against the plain version where these sums flip none; PERF.md, PR
+// 19.) The kernels are held to their plain versions with a stated
+// tolerance (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit
+// for bit: the bf16x3 split itself lies up to ~2^-16 of sum |a||x| off the
+// exact product, on both sides alike, which can move the discriminant of
+// a ray that misses its sphere by a few hundredths to about zero, where a
+// float32-grade difference of the sums decides the hit.
+// Bound: per swept (ray, slot) the three mmas issue 96 MACs (192 flops,
+// half on zero K-slots; ~0.19 ps at the dense bf16 rate of 989 TFLOP/s)
+// and the tail ~12 float operations (~0.36 ps at 33.5e12 a second): by
+// those rates the tail's float32 issue would limit the kernels. Measured
+// on an H100, the mma.sync chain does instead: on the demo frame's primary
+// rays with the cull off, B12a's products (then two mmas) alone took 0.50
+// ms of its 0.83, far from the dense rate (which only wgmma reaches; its
+// sums are another order, so it would need its own tolerance).
 
 struct MxuTile {
   uint4* frag;  // per slot, 4 threads-in-group: {b_hi, c_hi, b_lo, c_lo}
@@ -604,29 +614,21 @@ __device__ __forceinline__ void stage_mxu(
   }
 }
 
-// D = A B + D, m16n8k16, bf16 A (row) and B (col), f32 accumulate.
+// D = A B, m16n8k16, bf16 A (row) and B (col), f32 sums from a zero
+// accumulator.
 __device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
                                          uint32_t a3, uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// The warp's rays as the mma's B operand and the tail's ray terms: for
-// tile j, this lane's B fragment {x_hi, x_lo} pair (k = 2t, 2t + 1) of
-// column g, and tmin, tmax, |o|^2 (and, for B12b, the excluded object) of
-// its C fragment's columns 2t + e.
-struct MxuRays {
-  uint32_t bh[4], bl[4];
-  float tmin[4][2], tmax[4][2], oo[4][2], excl[4][2];
-};
-
-// The B fragments alone: for tile j, this lane's {x_hi, x_lo} pair
-// (k = 2t, 2t + 1) of column g.
+// The warp's rays as the mma's B operand: for tile j, this lane's
+// {x_hi, x_lo} pair (k = 2t, 2t + 1) of column g.
 __device__ __forceinline__ void mxu_b_fragments(const Ray& r, float od,
                                                 uint32_t bh[4],
                                                 uint32_t bl[4]) {
@@ -653,32 +655,23 @@ __device__ __forceinline__ void mxu_b_fragments(const Ray& r, float od,
   }
 }
 
-template <bool kExclude>
-__device__ __forceinline__ void mxu_rays(const Ray& r, float od, float oo,
-                                         float exclude, MxuRays* x) {
-  const int t = threadIdx.x & 3;
-  mxu_b_fragments(r, od, x->bh, x->bl);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int owner = (2 * j + e) * 4 + t;
-      x->tmin[j][e] = __shfl_sync(0xFFFFFFFFu, r.tmin, owner);
-      x->tmax[j][e] = __shfl_sync(0xFFFFFFFFu, r.tmax, owner);
-      x->oo[j][e] = __shfl_sync(0xFFFFFFFFu, oo, owner);
-      if (kExclude) x->excl[j][e] = __shfl_sync(0xFFFFFFFFu, exclude, owner);
-    }
-  }
-}
-
 // Y for 8 spheres (this lane's sphere g) x the 8 rays of a tile whose B
 // fragment is {bh, bl}: d[0..1] = b2 of columns 2t, 2t + 1, d[2..3] =
-// their c2 - |o|^2.
+// their c2 - |o|^2. Each of the three products runs as its own mma into a
+// zeroed accumulator, its A fragment zero in the other 8 K-slots (hi.hi:
+// a_hi against x_hi; hi.lo: a_hi against x_lo; lo.hi: a_lo against x_hi),
+// and the CUDA cores add them in the plain version's order,
+// (hi.hi + hi.lo) + lo.hi (see the note above on why).
 __device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
                                                  uint32_t bl, float d[4]) {
-  d[0] = d[1] = d[2] = d[3] = 0.f;
-  mma_bf16(d, f.x, f.y, f.x, f.y, bh, bl);
-  mma_bf16(d, f.z, f.w, 0u, 0u, bh, bl);
+  float p[4];
+  mma_bf16(d, f.x, f.y, 0u, 0u, bh, bl);
+  mma_bf16(p, 0u, 0u, f.x, f.y, bh, bl);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+  mma_bf16(p, f.z, f.w, 0u, 0u, bh, bl);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
 }
 
 // B12a: a persistent grid (persistent_grid: blocks = SMs x resident
@@ -691,7 +684,7 @@ __device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
 // (cudaFuncSetAttribute raises the kernel's limit above 48 KB).
 //
 // The products are those of the note above: per (group of 8 slots, 8-ray
-// tile) two mma.sync. The C fragment leaves lane (g, t) with b2 and
+// tile) three mma.sync. The C fragment leaves lane (g, t) with b2 and
 // c2 - |o|^2 of slot g for rays 2t, 2t + 1 of the tile; a warp-wide fold
 // over the fragment would mix 8 slots and 4 rays, and its discriminant
 // branch would diverge wherever any of the 32 pairs meets (measured on an
@@ -705,8 +698,10 @@ __device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
 // 32 neighbouring rays, which agree on the branch where the rays are
 // coherent. The packed min does not depend on the order of its folds, so
 // the words are those of any fold of the same products. No lane needs
-// the other rays' tmin, tmax and |o|^2, nor a reduce-scatter: at most 64
-// registers, 4 blocks of 256 an SM.
+// the other rays' tmin, tmax and |o|^2, nor a reduce-scatter. At 4 blocks
+// of 256 an SM (64 registers) the three-mma product spills 8 bytes, so
+// B12a takes 3 (80 registers, no spill; measured on an H100, the spilling
+// build was 5% faster: PERF.md, PR 19).
 constexpr int kSwapRow = 36;                // float2: 32 rays and 4 of padding
 constexpr int kSwapWarp = 8 * kSwapRow;     // float2: a warp's 8 slot rows
 constexpr size_t kSwapBytes = (kThreads / 32) * kSwapWarp * sizeof(float2);
@@ -714,7 +709,7 @@ constexpr size_t kSwapBytes = (kThreads / 32) * kSwapWarp * sizeof(float2);
 // two blocks still fit an SM's 227 KB.
 constexpr size_t kResidentBytes = 92 * 1024;
 
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, 3)
 morton_mxu_closest_hit(const float* __restrict__ rays, int n,
                        const float* __restrict__ table, int cols,
                        const float* __restrict__ bounds, int n_chunks,
@@ -773,13 +768,11 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
             swap[g * kSwapRow + (2 * j + 1) * 4 + t] = make_float2(d[1], d[3]);
           }
           __syncwarp();
-          const int4 o0 = *reinterpret_cast<const int4*>(s.obj + slot0);
-          const int4 o1 = *reinterpret_cast<const int4*>(s.obj + slot0 + 4);
-          const int obj[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
 #pragma unroll
           for (int q = 0; q < 8; ++q) {
             const float2 y = swap[q * kSwapRow + lane];
-            fold_packed(y.x, y.y + oo, r.tmin, r.tmax, obj[q], trunc, &best);
+            fold_packed(y.x, y.y + oo, r.tmin, r.tmax, s.obj[slot0 + q],
+                        trunc, &best);
           }
           __syncwarp();
         }
@@ -795,6 +788,29 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
   }
 }
 
+// B12b: B12a's grid and staging (a persistent grid; the table image
+// staged once per block where it fits in kResidentBytes, with no block
+// barrier after it, else the tiled loop per block of rays), B2's contract.
+// Per chunk in table order, while some lane of the warp is open (live,
+// not yet blocked): each open lane tests the chunk's bound on its segment
+// [tmin, tmax] (range_misses with the caller's margin), and where some
+// lane meets it the warp sweeps the chunk's filled slots in groups of 8.
+// Lane (g, t) tests the 8 pairs of its C fragments (slot g, columns 2t +
+// e of each tile j): the discriminant first, the root only where it is not
+// negative (the plain version's NaN root does not block: the same
+// result), blocked where the root lies in [tmin, tmax] and the slot's
+// object is not the excluded one; then one ballot per (tile, column)
+// leaves each ray's bit in its own lane, and a warp leaves the chunk loop
+// once none of its lanes is open. The bit is an OR over the swept pairs,
+// so any order of the tests gives the same bit. The column's ray terms
+// (tmin, tmax, |o|^2, the excluded object) come from the warp's ray rows
+// in shared memory, one 16-byte load a pair, not from 32 registers of
+// shuffled terms: 48 registers, 5 blocks of 256 an SM. (Measured on an
+// H100 on the MXU default frame's shadow batches, on this grid: B12a's
+// exchange rows 3% slower, the terms in 80 registers 1% faster; PERF.md,
+// PR 19.)
+constexpr size_t kRayBytes = kThreads * sizeof(float4);
+
 __global__ void __launch_bounds__(kThreads)
 morton_mxu_occlusion(const float* __restrict__ rays, int n,
                      const float* __restrict__ table, int cols,
@@ -803,61 +819,75 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
                      const float* __restrict__ mxu_a, int tile_chunks,
                      float scale, unsigned char* __restrict__ occ_out) {
   extern __shared__ uint4 s_mxu[];
-  const MxuTile s = mxu_tile(s_mxu, tile_chunks, chunk_pad);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float4* s_ray = reinterpret_cast<float4*>(s_mxu) + (threadIdx.x & ~31);
+  const MxuTile s = mxu_tile(s_mxu + kRayBytes / sizeof(uint4), tile_chunks,
+                             chunk_pad);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  Ray r;
-  const bool live = load_live_ray(rays, n, i, &r);
-  const float exclude = live ? rays[8 * (size_t)n + i] : 0.f;
-  const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
-  const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
-  const RangeCull cull = range_cull(r, scale);
-  const bool warp_live = __any_sync(0xFFFFFFFFu, live);
-  MxuRays x;
-  if (warp_live) mxu_rays<true>(r, od, oo, exclude, &x);
-  bool open = live;  // live and not yet blocked
-  for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
-    const int m = min(tile_chunks, n_chunks - k0);
-    __syncthreads();
+  const bool resident = tile_chunks >= n_chunks;
+  if (resident) {
     stage_mxu<false>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
-                     k0, m, scale, s);
+                     0, n_chunks, scale, s);
     __syncthreads();
-    for (int k = 0; k < m && __any_sync(0xFFFFFFFFu, open); ++k) {
-      const bool meet = open && !range_misses(cull, r, s.bnd[k]);
-      if (!__any_sync(0xFFFFFFFFu, meet)) continue;
-      unsigned part = 0;  // bit 2j + e: column 2t + e of tile j blocked
-      const int groups = (s.cnt[k] + 7) >> 3;
-      for (int grp = 0; grp < groups; ++grp) {
-        const int slot = k * chunk_pad + grp * 8 + g;
-        const uint4 f = s.frag[slot * 4 + t];
-        const float obj = __int_as_float(s.obj[slot]);
+  }
+  for (int base = blockIdx.x * kThreads; base < n;
+       base += gridDim.x * kThreads) {
+    const int i = base + threadIdx.x;
+    Ray r;
+    const bool live = load_live_ray(rays, n, i, &r);
+    const float exclude = live ? rays[8 * (size_t)n + i] : 0.f;
+    const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
+    const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
+    const RangeCull cull = range_cull(r, scale);
+    uint32_t bh[4], bl[4];
+    if (__any_sync(0xFFFFFFFFu, live)) mxu_b_fragments(r, od, bh, bl);
+    __syncwarp();  // the ray rows' last reads for the previous rays
+    s_ray[lane] = make_float4(r.tmin, r.tmax, oo, exclude);
+    __syncwarp();
+    bool open = live;  // live and not yet blocked
+    for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
+      const int m = min(tile_chunks, n_chunks - k0);
+      if (!resident) {
+        __syncthreads();
+        stage_mxu<false>(table, cols, bounds, n_chunks, chunk, chunk_pad,
+                         mxu_a, k0, m, scale, s);
+        __syncthreads();
+      }
+      for (int k = 0; k < m && __any_sync(0xFFFFFFFFu, open); ++k) {
+        const bool meet = open && !range_misses(cull, r, s.bnd[k]);
+        if (!__any_sync(0xFFFFFFFFu, meet)) continue;
+        unsigned part = 0;  // bit 2j + e: column 2t + e of tile j blocked
+        const int groups = (s.cnt[k] + 7) >> 3;
+        for (int grp = 0; grp < groups; ++grp) {
+          const int slot = k * chunk_pad + grp * 8 + g;
+          const uint4 f = s.frag[slot * 4 + t];
+          const float obj = __int_as_float(s.obj[slot]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float d[4];
-          mxu_tile_product(f, x.bh[j], x.bl[j], d);
+          for (int j = 0; j < 4; ++j) {
+            float d[4];
+            mxu_tile_product(f, bh[j], bl[j], d);
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // A pair whose discriminant is negative takes no root (its
-            // NaN root would not block); the skip saves its sqrt.
-            const float c2 = d[2 + e] + x.oo[j][e];
-            if (!(d[e] * d[e] - c2 < 0.f) &&
-                root_blocks(d[e], c2, x.tmin[j][e], x.tmax[j][e], obj,
-                            x.excl[j][e])) {
-              part |= 1u << (2 * j + e);
+            for (int e = 0; e < 2; ++e) {
+              // Column 2t + e of tile j is the ray of lane (2j + e) 4 + t.
+              const float4 x = s_ray[(2 * j + e) * 4 + t];
+              const float c2 = d[2 + e] + x.z;
+              if (!(d[e] * d[e] - c2 < 0.f) &&
+                  root_blocks(d[e], c2, x.x, x.y, obj, x.w)) {
+                part |= 1u << (2 * j + e);
+              }
             }
           }
         }
-      }
-      bool mine = false;
+        bool mine = false;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const unsigned votes = __ballot_sync(0xFFFFFFFFu, (part >> q) & 1u);
-        if (q == g) mine = (votes & (0x11111111u << t)) != 0u;
+        for (int q = 0; q < 8; ++q) {
+          const unsigned votes = __ballot_sync(0xFFFFFFFFu, (part >> q) & 1u);
+          if (q == g) mine = (votes & (0x11111111u << t)) != 0u;
+        }
+        if (mine) open = false;
       }
-      if (mine && live) open = false;
     }
+    if (i < n) occ_out[i] = live && !open;
   }
-  if (i < n) occ_out[i] = live && !open;
 }
 
 // B13. rays (8, n); bounds (4, c_pad) [cx cy cz r]; members
@@ -1091,17 +1121,17 @@ bool mxu_tile_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
   return *tile >= 1;
 }
 
-// B12a's shape: as mxu_tile_shape, but the whole table as one resident
-// image where it fits in kResidentBytes, and the warps' exchange rows
-// before the image.
-bool mxu_closest_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
-                       int* tile, size_t* smem) {
+// B12a's and B12b's shape: as mxu_tile_shape, but the whole table as one
+// resident image where it fits in kResidentBytes, and `head` bytes (B12a's
+// exchange rows, B12b's ray rows) before the image.
+bool mxu_shape(int cols, int n_chunks, size_t head, int* chunk,
+               int* chunk_pad, int* tile, size_t* smem) {
   if (!mxu_tile_shape(cols, n_chunks, chunk, chunk_pad, tile, smem)) {
     return false;
   }
   const size_t per_chunk = *smem / *tile;
   if (per_chunk * n_chunks <= kResidentBytes) *tile = n_chunks;
-  *smem = per_chunk * *tile + kSwapBytes;
+  *smem = per_chunk * *tile + head;
   return true;
 }
 
@@ -1254,7 +1284,8 @@ extern "C" int drts_morton_mxu_closest_hit(const float* rays, int n,
   if (n <= 0) return (int)cudaGetLastError();
   int chunk, chunk_pad, tile, grid, per_sm;
   size_t smem;
-  if (!mxu_closest_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+  if (!mxu_shape(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
+                 &smem)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t rc = persistent_grid(
@@ -1272,7 +1303,8 @@ extern "C" int drts_morton_mxu_closest_hit_info(int cols, int n_chunks,
                                                 int n, int* out) {
   int chunk, chunk_pad, tile;
   size_t smem;
-  if (!mxu_closest_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+  if (!mxu_shape(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
+                 &smem)) {
     return cudaErrorInvalidValue;
   }
   return kernel_info((const void*)morton_mxu_closest_hit, smem, n,
@@ -1286,15 +1318,33 @@ extern "C" int drts_morton_mxu_occlusion(const float* rays, int n,
                                          unsigned char* occ_out,
                                          cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  int chunk, chunk_pad, tile;
+  int chunk, chunk_pad, tile, grid, per_sm;
   size_t smem;
-  if (!mxu_tile_shape(cols, n_chunks, &chunk, &chunk_pad, &tile, &smem)) {
+  if (!mxu_shape(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
+                 &smem)) {
     return cudaErrorInvalidValue;
   }
-  morton_mxu_occlusion<<<grid_for(n), kThreads, smem, stream>>>(
+  const cudaError_t rc = persistent_grid((const void*)morton_mxu_occlusion,
+                                         smem, n, &grid, &per_sm);
+  if (rc != cudaSuccess) return (int)rc;
+  morton_mxu_occlusion<<<grid, kThreads, smem, stream>>>(
       rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
       scale, occ_out);
   return (int)cudaGetLastError();
+}
+
+// B12b's resources for a table of cols columns in n_chunks chunks and n
+// rays (kernel_info's out).
+extern "C" int drts_morton_mxu_occlusion_info(int cols, int n_chunks, int n,
+                                              int* out) {
+  int chunk, chunk_pad, tile;
+  size_t smem;
+  if (!mxu_shape(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
+                 &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  return kernel_info((const void*)morton_mxu_occlusion, smem, n,
+                     tile >= n_chunks, out);
 }
 
 // bounds: (4, c_pad); members: (c_pad * mm, 8), 16-byte aligned (the

@@ -30,19 +30,19 @@
 // (B6-B9), against 36-48 bytes read and 4-12 written per ray. All five
 // are bound by the instruction rate, not by device memory. What the design
 // does about it: the tables (8-24 KB) are staged in shared memory as
-// float4, so the inner loop's loads are broadcasts of 16 bytes (B5, B6,
-// B8, B9, B10); B6's per-lane instance row, which differs between
-// neighbouring rays, is gathered once per thread through the read-only
-// cache; B7's loop is different for every thread, so it reads all its
-// tables through the read-only cache with no barrier, and threads that are
-// done do not wait. B8 is laid out as B6; an any-hit lane needs no best,
-// so it leaves its sweep at the first triangle that blocks its segment
-// (B8), or its whole walk (B9), and B9's sphere tests take the lane's own
-// tmax as the far limit.
+// float4, so the inner loop's loads are broadcasts of 16 bytes (B5-B10);
+// B6's per-lane instance row, which differs between neighbouring rays, is
+// gathered once per thread through the read-only cache; B7's walk is
+// different for every thread, so after staging its faces once it takes no
+// barrier, reads the instance rows through the read-only cache, and
+// threads that are done do not wait. B8 is laid out as B6; an any-hit
+// lane needs no best, so it leaves its sweep at the first triangle that
+// blocks its segment (B8), or its whole walk (B9), and B9's sphere tests
+// take the lane's own tmax as the far limit.
 //
 // Culls kept: a dead lane (tmax < tmin, or no candidate in B6, B8) does
 // no work, and a block with no live lane leaves before it stages a table
-// (B5, B6, B8, B9, B10); B5 and each round's scan of B10 test each ray
+// (B5-B10); B5 and each round's scan of B10 test each ray
 // against every instance chunk's covering sphere, with a segment that ends
 // at its best key so far, and sweep only the rows of the chunks they meet
 // (csrc/rays.cuh; scan_walk); B6, B8, B9 and each sweep of B10 test the
@@ -50,10 +50,10 @@
 // covering sphere, and in a chunk that the segment misses skip every face
 // the ray does not graze, all of them where the chunk's guard cone shows
 // none is grazed (sweep_tile states the cull; blas_sweep is B6's and
-// B10's); B7 and B9 test each ray against every instance chunk's covering
-// sphere and every member's bounding sphere, with the ray's running best
-// (B7) or its own tmax (B9) as the far limit, and sweep only the instances
-// that pass. B7 visits every face row of an instance it sweeps.
+// B10's; B7 and B9 sweep each instance they enter so); B7 and B9 test each
+// ray against every instance chunk's covering sphere and every member's
+// bounding sphere, with the ray's running best (B7) or its own tmax (B9)
+// as the far limit, and sweep only the instances that pass.
 //
 // Numbers: built with -fmad=false and without --use_fast_math. Every
 // multiply, add, division and sqrt rounds on its own, in the order the
@@ -314,72 +314,7 @@ __device__ __forceinline__ bool reaches(const Ray& r, float cx, float cy,
   return rad > 0.0f && b + h >= r.tmin && b - h <= far;
 }
 
-// B7. Per ray the closest hit over every instance and every face, the
-// direction scaled by 1/scale so t stays in world units. Instances are
-// visited in table order, chunk by chunk; the instance recorded is the
-// first at which the packed best strictly improved. inst_bounds:
-// (4, ic_cols) chunk spheres [cx cy cz r]; m_tbl = n_ichunks * inst_chunk.
-__global__ void __launch_bounds__(kThreads)
-mesh_instances_closest(const float* __restrict__ rays, int n,
-                       const float* __restrict__ inst_tbl, int m_tbl,
-                       const float* __restrict__ inst_bounds, int ic_cols,
-                       int n_ichunks, int inst_chunk, const Slack slack,
-                       const float* __restrict__ tri_tbl, int f_pad,
-                       int pos_bits, float* __restrict__ t_out,
-                       int* __restrict__ face_out, int* __restrict__ inst_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(rays, n, i);
-  const int trunc = ~((1 << pos_bits) - 1);
-  int best = kInfBits, binst = 0;
-  if (r.tmax >= r.tmin) {
-    for (int ic = 0; ic < n_ichunks; ++ic) {
-      const float far_c = fminf(r.tmax, __int_as_float(best & trunc));
-      if (!reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
-                   __ldg(inst_bounds + 1 * ic_cols + ic),
-                   __ldg(inst_bounds + 2 * ic_cols + ic),
-                   __ldg(inst_bounds + 3 * ic_cols + ic), far_c, slack)) {
-        continue;
-      }
-      for (int k = ic * inst_chunk; k < (ic + 1) * inst_chunk; ++k) {
-        const float px = __ldg(inst_tbl + 0 * m_tbl + k);
-        const float py = __ldg(inst_tbl + 1 * m_tbl + k);
-        const float pz = __ldg(inst_tbl + 2 * m_tbl + k);
-        const float brw = __ldg(inst_tbl + 8 * m_tbl + k);
-        const float far_k = fminf(r.tmax, __int_as_float(best & trunc));
-        if (!reaches(r, px, py, pz, brw, far_k, slack)) continue;
-        const float qx = __ldg(inst_tbl + 3 * m_tbl + k);
-        const float qy = __ldg(inst_tbl + 4 * m_tbl + k);
-        const float qz = __ldg(inst_tbl + 5 * m_tbl + k);
-        const float qw = __ldg(inst_tbl + 6 * m_tbl + k);
-        const float inv_s = __ldg(inst_tbl + 7 * m_tbl + k);
-        Vec3 ol = conj_rotate(qx, qy, qz, qw, r.ox - px, r.oy - py, r.oz - pz);
-        ol.x = ol.x * inv_s;
-        ol.y = ol.y * inv_s;
-        ol.z = ol.z * inv_s;
-        Vec3 dl = conj_rotate(qx, qy, qz, qw, r.dx, r.dy, r.dz);
-        dl.x = dl.x * inv_s;
-        dl.y = dl.y * inv_s;
-        dl.z = dl.z * inv_s;
-        const int prev = best;
-        for (int f = 0; f < f_pad; ++f) {
-          const float* row = tri_tbl + (size_t)f * 9;
-          best = min(best,
-                     mt_packed(ol, dl, r.tmin, r.tmax, __ldg(row + 0),
-                               __ldg(row + 1), __ldg(row + 2), __ldg(row + 3),
-                               __ldg(row + 4), __ldg(row + 5), __ldg(row + 6),
-                               __ldg(row + 7), __ldg(row + 8), trunc, f));
-        }
-        if (best < prev) binst = k;
-      }
-    }
-  }
-  t_out[i] = __int_as_float(best & trunc);
-  face_out[i] = best & ~trunc;
-  inst_out[i] = binst;
-}
-
-// The triangle-chunk cull of B6, B8 and B10's sweep. The lane's ray is in
+// The triangle-chunk cull of B6-B10's sweeps. The lane's ray is in
 // its candidate's object frame: ol and dl (rotated, not scaled), and
 // [tmin, tmax] scaled by inv_s, the very floats mt_hit compares, so the
 // argument needs nothing of conj_rotate or of the scaling but |dl.dl - 1|
@@ -424,69 +359,85 @@ mesh_instances_closest(const float* __restrict__ rays, int n,
 // top(best)) once the lane holds a hit in this sweep: a face that can
 // lower the best has t <= top(best).
 //
-// B9 tests another ray: its plain version's, with d = fl(dl * inv_s) (dl
-// rotated only, |d| = inv_s) and the world segment [tmin, tmax]; the cull
-// still reads rl = (ol, dl, fl(tmin * inv_s), fl(tmax * inv_s)), B8's
-// frame (any_rays). The argument above holds for d with three more terms.
+// B7 and B9 test another ray: their plain versions', with d = fl(dl *
+// inv_s) (dl rotated only, |d| = inv_s) and the world segment [tmin,
+// tmax]; the cull still reads rl = (ol, dl, fl(tmin * inv_s), fl(t_end *
+// inv_s)), B8's frame (any_rays; B7's t_end = min(tmax, top(best)) with
+// the best in world units, B9's t_end = tmax). The argument above holds
+// for d with three more terms.
 // (1) It never used |d| = 1: the MT bound 28u |T| / (G - 7u) is the same
 // for any length of d, and G = |d . A| / |d| is; d's direction differs
 // from dl's by <= 1.8u, so G >= g / 1.002 - 16u, and at g >= 2^-6 s stays
 // <= 1816u. (2) An accepted t in [tmin, tmax] puts X = ol + t d within
 // u |t'| |dl| of X' = ol + t' dl, t' = t inv_s exactly (d's rounding), and
-// X' is a point of rl's line. (3) t' lies in [tmin inv_s, tmax inv_s],
+// X' is a point of rl's line. (3) t' lies in [tmin inv_s, t_end inv_s]
+// (B7: a face that can lower the world best has t <= top(best)),
 // whose float ends differ from the exact ones by <= u |t'|: the segment's
 // nearest point moves by <= 1.01u |t'|. With the divisions' 2.01u |t||d| =
 // 2.01u |t'||dl|, X' lies within R + s (|ol|_1 + |C|_1 + R) + (s + 3u) |t'|
 // of C, and the 2048u margin, which needs 1816u + 64u, covers the 3u.
 
-// Stages face rows [base, base + m) as three float4 (v0x v0y v0z e1x)
-// (e1y e1z e2x e2y) (e2z Ax Ay Az), A the face's guard vector, and per
-// chunk of their m / chunk chunks three float4: the covering sphere as
-// cull_sphere reads it, and the guard cone (wx wy wz c) (s h - -) of
-// tri_bounds' rows 4-9.
+// The staged form of the triangle table: per face three float4 (v0x v0y
+// v0z e1x) (e1y e1z e2x e2y) (e2z Ax Ay Az), A the face's guard vector,
+// and per chunk three float4: the covering sphere as cull_sphere reads it,
+// and the guard cone (wx wy wz c) (s h - -) of tri_bounds' rows 4-9.
+__device__ __forceinline__ void stage_face(const float* __restrict__ tri_tbl,
+                                           int f, float4* dst) {
+  const float* row = tri_tbl + (size_t)f * 9;
+  const float e1x = row[3], e1y = row[4], e1z = row[5];
+  const float e2x = row[6], e2y = row[7], e2z = row[8];
+  const float nx = e1y * e2z - e1z * e2y;
+  const float ny = e1z * e2x - e1x * e2z;
+  const float nz = e1x * e2y - e1y * e2x;
+  const float den = sqrtf(e1x * e1x + e1y * e1y + e1z * e1z) *
+                    sqrtf(e2x * e2x + e2y * e2y + e2z * e2z);
+  const float inv = den >= 0x1p-64f ? 1.0f / den : 0.0f;
+  dst[0] = make_float4(row[0], row[1], row[2], e1x);
+  dst[1] = make_float4(e1y, e1z, e2x, e2y);
+  dst[2] = make_float4(e2z, nx * inv, ny * inv, nz * inv);
+}
+
+__device__ __forceinline__ void stage_tri_chunk(
+    const float* __restrict__ tri_bounds, int tb_cols, int k, float scale,
+    float4* dst) {
+  const float* col = tri_bounds + k;
+  dst[0] = cull_sphere(col[0 * tb_cols], col[1 * tb_cols], col[2 * tb_cols],
+                       col[3 * tb_cols], scale);
+  dst[1] = make_float4(col[4 * tb_cols], col[5 * tb_cols], col[6 * tb_cols],
+                       col[7 * tb_cols]);
+  dst[2] = make_float4(col[8 * tb_cols], col[9 * tb_cols], 0.f, 0.f);
+}
+
+// Stages face rows [base, base + m) and their m / chunk chunks into shared
+// memory, the whole block taking part.
 __device__ __forceinline__ void stage_faces(
     const float* __restrict__ tri_tbl, int base, int m,
     const float* __restrict__ tri_bounds, int tb_cols, int chunk,
     float scale, float4* s_tri, float4* s_tc) {
   for (int f = threadIdx.x; f < m; f += blockDim.x) {
-    const float* row = tri_tbl + (size_t)(base + f) * 9;
-    const float e1x = row[3], e1y = row[4], e1z = row[5];
-    const float e2x = row[6], e2y = row[7], e2z = row[8];
-    const float nx = e1y * e2z - e1z * e2y;
-    const float ny = e1z * e2x - e1x * e2z;
-    const float nz = e1x * e2y - e1y * e2x;
-    const float den = sqrtf(e1x * e1x + e1y * e1y + e1z * e1z) *
-                      sqrtf(e2x * e2x + e2y * e2y + e2z * e2z);
-    const float inv = den >= 0x1p-64f ? 1.0f / den : 0.0f;
-    s_tri[3 * f + 0] = make_float4(row[0], row[1], row[2], e1x);
-    s_tri[3 * f + 1] = make_float4(e1y, e1z, e2x, e2y);
-    s_tri[3 * f + 2] = make_float4(e2z, nx * inv, ny * inv, nz * inv);
+    stage_face(tri_tbl, base + f, s_tri + 3 * f);
   }
   const int c0 = base / chunk;
   for (int k = threadIdx.x; k < m / chunk; k += blockDim.x) {
-    const float* col = tri_bounds + c0 + k;
-    s_tc[3 * k] = cull_sphere(col[0 * tb_cols], col[1 * tb_cols],
-                              col[2 * tb_cols], col[3 * tb_cols], scale);
-    s_tc[3 * k + 1] = make_float4(col[4 * tb_cols], col[5 * tb_cols],
-                                  col[6 * tb_cols], col[7 * tb_cols]);
-    s_tc[3 * k + 2] = make_float4(col[8 * tb_cols], col[9 * tb_cols], 0.f,
-                                  0.f);
+    stage_tri_chunk(tri_bounds, tb_cols, c0 + k, scale, s_tc + 3 * k);
   }
 }
 
 // One lane's sweep of the staged tile (faces base.. base + m, whole
 // chunks), chunk by chunk in table order, culled by rl (the candidate's
 // object frame: direction rotated, not scaled) and tested on rm, the ray
-// Moeller-Trumbore takes (rl itself for B6, B8 and B10; B9's ray with the
-// direction scaled by 1/scale and the world segment, as its plain version
-// computes it): a chunk met by rl's segment
+// Moeller-Trumbore takes (rl itself for B6, B8 and B10; B7's and B9's ray
+// with the direction scaled by 1/scale and the world segment, as their
+// plain versions compute it): a chunk met by rl's segment
 // [tmin, t_end] has every face swept; a missed one none where its guard
 // cone gives c |dl . w| - s sqrt(dl.dl - (dl . w)^2) - h >= guard (every
 // face's G is at least that plus h, which covers the lane's rounding:
 // trimesh_kernels._chunk_cone; the last three operations round by <= 4u,
 // inside the 0.015625 - 0.015593 that the bound on s leaves), else only
 // the faces the ray grazes (g < guard). Closest hit (kAny false): folds the packed words
-// into *best, t_end = min(tmax, top(*best)) once it holds a hit. Any hit:
+// into *best, t_end = min(tmax, top(*best) end_scale) once it holds a hit
+// (end_scale 1 where *best is in rl's units, B6 and B10; 1/scale where it
+// is in world units, B7). Any hit:
 // returns true at the first face that blocks, t_end = tmax. A warp sweeps
 // a face while any of its lanes needs it. Bound by instruction issue:
 // ~34 float operations per chunk tested, ~7 per cone and per face
@@ -498,13 +449,14 @@ __device__ __forceinline__ bool sweep_tile(const Ray& rl,
                                            const float4* s_tri,
                                            const float4* s_tc, int base,
                                            int m, int chunk, int trunc,
-                                           int* best) {
+                                           int* best, float end_scale = 1.f) {
   const Vec3 o = {rm.ox, rm.oy, rm.oz}, d = {rm.dx, rm.dy, rm.dz};
   const float dd = rl.dx * rl.dx + rl.dy * rl.dy + rl.dz * rl.dz;
   for (int k = 0, f0 = 0; f0 < m; ++k, f0 += chunk) {
     float t_end = rl.tmax;
     if (!kAny && *best < kInfBits) {
-      t_end = fminf(rl.tmax, __int_as_float((*best & trunc) | ~trunc));
+      const float top = __int_as_float((*best & trunc) | ~trunc);
+      t_end = fminf(rl.tmax, top * end_scale);
     }
     const bool met = !segment_misses(cull, rl, t_end, s_tc[3 * k]);
     if (!met) {
@@ -719,6 +671,115 @@ shared_blas_any(const float* __restrict__ rays, int n,
     }
   }
   if (in_range) occ_out[i] = occ;
+}
+
+// B7. Per ray the closest hit over every instance and every face, the
+// direction scaled by 1/scale so t stays in world units. Instances are
+// visited in table order, chunk by chunk, each entered where reaches
+// passes with the running best as the far limit; the instance recorded is
+// the first at which the packed best strictly improved. inst_bounds:
+// (4, ic_cols) chunk spheres [cx cy cz r]; m_tbl = n_ichunks * inst_chunk.
+//
+// Design: a lane reads tmin and tmax first and the other six rows only
+// where it is live (load_live_ray), and a block with no live lane writes
+// its misses and leaves: a backstop batch of ~2M lanes with a few dozen
+// live moves 8 B in and 12 B out per dead lane. (Measured on an H100, four
+// rays a thread, for more of those bytes in flight, was slower on every
+// batch; PERF.md, PR 19.) A block with live lanes stages the triangle
+// table (f_pad <= kFaceTile: the geosphere's 512 faces) with its chunks'
+// spheres and guard cones in shared memory once, in sweep_tile's form;
+// after that barrier no lane waits for another, and a warp with no live
+// lane writes its misses and leaves. A wider table is
+// staged once per launch in device memory (stage_face_image, into the
+// wrapper's scratch) and read from there (kStaged false). Each live lane
+// walks the instances in table order, reads the instance rows through the
+// read-only cache, and sweeps an entered instance chunk by chunk with the
+// triangle-chunk cull of sweep_tile: culled in B8's frame (any_rays' rl:
+// direction rotated only, unit, the segment [tmin, t_end] scaled by
+// 1/scale, t_end = min(tmax, top(best)) in world units) and tested on B7's
+// own ray (rm: the direction scaled by 1/scale, the world [tmin, tmax]),
+// so every word is the unculled walk's: the cull's argument above holds
+// for rm as it does for B9, with the segment's end from the world best
+// (a face that can lower the best has t <= top(best), and t' = t / scale
+// exactly, within the 3u that argument (3) leaves for the rounded ends).
+// Bound by instruction issue: ~30 float operations per sphere test, ~80
+// to move a ray into an instance's frame, and sweep_tile's per chunk,
+// cone, guard and face.
+template <bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+mesh_instances_closest(const float* __restrict__ rays, int n,
+                       const float* __restrict__ inst_tbl, int m_tbl,
+                       const float* __restrict__ inst_bounds, int ic_cols,
+                       int n_ichunks, int inst_chunk, const Slack slack,
+                       const float* __restrict__ tri_tbl, int f_pad,
+                       int pos_bits, const float* __restrict__ tri_bounds,
+                       int tb_cols, int chunk, float scale, float guard,
+                       const float4* __restrict__ image,
+                       float* __restrict__ t_out, int* __restrict__ face_out,
+                       int* __restrict__ inst_out) {
+  __shared__ float4 s_tri[kFaceTile * 3];
+  __shared__ float4 s_tc[3 * kFaceTile / kMinTriChunk];
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  Ray r;
+  const bool live = load_live_ray(rays, n, i, &r);
+  const int trunc = ~((1 << pos_bits) - 1);
+  int best = kInfBits, binst = 0;
+  const float4* tri = kStaged ? s_tri : image;
+  const float4* tc = kStaged ? s_tc : image + 3 * (size_t)f_pad;
+  if (kStaged && __syncthreads_or(live)) {
+    stage_faces(tri_tbl, 0, f_pad, tri_bounds, tb_cols, chunk, scale, s_tri,
+                s_tc);
+    __syncthreads();
+  }
+  if (live) {
+    for (int ic = 0; ic < n_ichunks; ++ic) {
+      const float far_c = fminf(r.tmax, __int_as_float(best & trunc));
+      if (!reaches(r, __ldg(inst_bounds + 0 * ic_cols + ic),
+                   __ldg(inst_bounds + 1 * ic_cols + ic),
+                   __ldg(inst_bounds + 2 * ic_cols + ic),
+                   __ldg(inst_bounds + 3 * ic_cols + ic), far_c, slack)) {
+        continue;
+      }
+      for (int k = ic * inst_chunk; k < (ic + 1) * inst_chunk; ++k) {
+        const float far_k = fminf(r.tmax, __int_as_float(best & trunc));
+        if (!reaches(r, __ldg(inst_tbl + 0 * m_tbl + k),
+                     __ldg(inst_tbl + 1 * m_tbl + k),
+                     __ldg(inst_tbl + 2 * m_tbl + k),
+                     __ldg(inst_tbl + 8 * m_tbl + k), far_k, slack)) {
+          continue;
+        }
+        float inv_s;
+        const Ray rl = to_object(r, r.tmax, inst_tbl, m_tbl, k, &inv_s);
+        const Ray rm = {rl.ox,         rl.oy,         rl.oz, rl.dx * inv_s,
+                        rl.dy * inv_s, rl.dz * inv_s, r.tmin, r.tmax};
+        const int prev = best;
+        sweep_tile<false>(rl, segment_cull_tri(rl, scale), rm, guard, tri, tc,
+                          0, f_pad, chunk, trunc, &best, inv_s);
+        if (best < prev) binst = k;
+      }
+    }
+  }
+  if (i < n) {
+    t_out[i] = __int_as_float(best & trunc);
+    face_out[i] = best & ~trunc;
+    inst_out[i] = binst;
+  }
+}
+
+// The triangle table in sweep_tile's staged form, in device memory: faces
+// [0, f_pad) at image[0, 3 f_pad), chunks after them (B7's table wider
+// than kFaceTile).
+__global__ void __launch_bounds__(kThreads)
+stage_face_image(const float* __restrict__ tri_tbl, int f_pad,
+                 const float* __restrict__ tri_bounds, int tb_cols, int chunk,
+                 float scale, float4* __restrict__ image) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q < f_pad) stage_face(tri_tbl, q, image + 3 * (size_t)q);
+  if (q < f_pad / chunk) {
+    stage_tri_chunk(tri_bounds, tb_cols, q, scale,
+                    image + 3 * (size_t)f_pad + 3 * q);
+  }
 }
 
 // B9's two rays of a lane for instance k: rl, the triangle cull's, in
@@ -1027,7 +1088,7 @@ cand_fused(const float* __restrict__ rays, int n,
   }
 }
 
-// The triangle chunk sizes B6, B8, B9 and B10 take: a multiple of kMinTriChunk
+// The triangle chunk sizes B6-B10 take: a multiple of kMinTriChunk
 // that divides 64 (the triangle table's padding, so every tile holds whole
 // chunks), with tb_cols >= f_pad / chunk columns of bounds.
 inline bool tri_chunks_ok(int f_pad, int tb_cols, int chunk) {
@@ -1082,18 +1143,37 @@ extern "C" int drts_shared_blas_sweep(const float* rays, int n,
   return (int)cudaGetLastError();
 }
 
+// tri_bounds, chunk, scale and guard as drts_shared_blas_sweep's; image:
+// scratch of 3 (f_pad + f_pad / chunk) float4 where f_pad > kFaceTile
+// (the staged table goes there), else null.
 extern "C" int drts_mesh_instances_closest(
     const float* rays, int n, const float* inst_tbl, int m_tbl,
     const float* inst_bounds, int ic_cols, int n_ichunks, int inst_chunk,
     float bound_scale, float bound_pad, const float* tri_tbl, int f_pad,
-    int pos_bits, float* t_out, int* face_out, int* inst_out,
-    cudaStream_t stream) {
-  if (n > 0) {
-    mesh_instances_closest<<<grid_for(n), kThreads, 0, stream>>>(
-        rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
-        Slack{bound_scale, bound_pad}, tri_tbl, f_pad, pos_bits, t_out,
-        face_out, inst_out);
+    int pos_bits, const float* tri_bounds, int tb_cols, int chunk,
+    float scale, float guard, float* image, float* t_out, int* face_out,
+    int* inst_out, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  if (inst_chunk < 1 || n_ichunks < 1 || m_tbl != n_ichunks * inst_chunk ||
+      ic_cols < n_ichunks || !tri_chunks_ok(f_pad, tb_cols, chunk) ||
+      (f_pad > kFaceTile) != (image != nullptr)) {
+    return cudaErrorInvalidValue;
   }
+  float4* img = reinterpret_cast<float4*>(image);
+  if (img == nullptr) {
+    mesh_instances_closest<true><<<grid_for(n), kThreads, 0, stream>>>(
+        rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks,
+        inst_chunk, Slack{bound_scale, bound_pad}, tri_tbl, f_pad, pos_bits,
+        tri_bounds, tb_cols, chunk, scale, guard, img, t_out, face_out,
+        inst_out);
+    return (int)cudaGetLastError();
+  }
+  stage_face_image<<<grid_for(f_pad), kThreads, 0, stream>>>(
+      tri_tbl, f_pad, tri_bounds, tb_cols, chunk, scale, img);
+  mesh_instances_closest<false><<<grid_for(n), kThreads, 0, stream>>>(
+      rays, n, inst_tbl, m_tbl, inst_bounds, ic_cols, n_ichunks, inst_chunk,
+      Slack{bound_scale, bound_pad}, tri_tbl, f_pad, pos_bits, tri_bounds,
+      tb_cols, chunk, scale, guard, img, t_out, face_out, inst_out);
   return (int)cudaGetLastError();
 }
 

@@ -516,17 +516,18 @@ MXU_PREC = os.environ.get("DRTS_MXU_PREC", "high")
 # term a_k x_k of b and c0 - |o|^2 as hi.hi + hi.lo + lo.hi of its bf16
 # halves, each product exact in float32; the split drops at most
 # 3 2^-18 |a_k x_k| (each half rounds at 2^-9 relative, lo.lo is below
-# 2^-18). The tensor cores' accumulation is not IEEE-specified, and an
-# H100 sums more coarsely than float32 does, so the bound takes the worst
-# of any order, truncation and no guard bit: each of an mma's 17 addends
-# (16 products and the accumulator) and its final rounding err by at most
-# 2^-23 of the sum of the magnitudes, 18 2^-23 < 2^-18.8 for one mma and
-# 2^-17.8 for the two. The product is then off by at most
-# eps = 3 2^-18 + 2^-17.8 < 2^-15.9 of sum |a_k x_k|. With
+# 2^-18). Each of the three runs as its own mma (K = 8), whose sum IEEE
+# does not specify, so the bound takes the worst of any order, truncation
+# and no guard bit: each of an mma's 9 addends (8 products and the zero
+# accumulator) and its final rounding err by at most 2^-23 of the sum of
+# the magnitudes, 10 2^-23 for hi.hi (hi.lo's and lo.hi's magnitudes are
+# 2^-8 of it) and, with the two float32 adds, < 2^-19.5 in all (measured
+# on an H100: 2^-22.2; PERF.md, PR 19). The product is then off by at
+# most eps = 3 2^-18 + 2^-19.5 < 2^-16.3 of sum |a_k x_k|. With
 # sum |a_k x_k| <= S for b and <= 2 S^2 for c0 - |o|^2, the discriminant
 # is off by 2 |b| eps S + 2 eps S^2 <= 4 eps S^2 and, with f32's own
-# rounding of the tail (32 u S^2, u = 2^-24), by E <= 2^-13.9 S^2; a
-# computed root's point lies within sqrt(E) <= 2^-6.9 S of its sphere.
+# rounding of the tail (32 u S^2, u = 2^-24), by E <= 2^-14.2 S^2; a
+# computed root's point lies within sqrt(E) <= 2^-7.1 S of its sphere.
 # 2^-6 covers that and the cull test's rounding. The card tests and
 # chip_smoke.py's phase 24 check it: with the cull off (an infinite
 # margin) both kernels give every word they give with it.
@@ -725,6 +726,14 @@ def intersect_morton_mxu_info(table, bounds, n: int) -> dict:
                         bounds.shape[1], n)
 
 
+def occlusion_morton_mxu_info(table, bounds, n: int) -> dict:
+    """B12b's resources on the card, as intersect_morton_mxu_info's."""
+    lib = backend.kernels()
+    return _kernel_info(lib.drts_morton_mxu_occlusion_info,
+                        "drts_morton_mxu_occlusion_info", table.shape[1],
+                        bounds.shape[1], n)
+
+
 def mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk):
     """B12b's pair test, (N, cols) bool (``_anyhit_mxu_kernel``'s tail):
     the unguarded sqrt of the product's discriminant (NaN below 0), the
@@ -810,7 +819,8 @@ def occlusion_morton_mxu(rays9, table, bounds, mxu_a, block: int = 16384):
     """B12b any hit; see occlusion_morton_mxu_plain for the contract. A
     CUDA tensor launches drts_morton_mxu_occlusion (csrc/intersect.cu):
     the product on the tensor cores, chunks culled per warp by `bounds`
-    with MXU_CULL_SCALE, a warp leaving once every lane is blocked."""
+    with MXU_CULL_SCALE, each ray's pairs tested in its own lane, a warp
+    leaving once every lane is blocked, on B12a's persistent grid."""
     _check_pair(rays9, table, 9, ray_rows=9)
     _check_mxu(table, bounds, mxu_a)
     if rays9.device.type == "cpu":

@@ -345,8 +345,8 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
                 mesh.tri_chunk, n_ic, rounds=rounds, block=block_size)
     else:
         t_p, face_p, inst_p = tk.intersect_mesh_instances(
-            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic,
-            block=block_size)
+            rays, inst_tbl, inst_bounds, mesh.tri_tbl, n_ic, mesh.tri_bounds,
+            mesh.tri_chunk, block_size)
     # The kernels' instance ids are table positions; map them back.
     inst_p = torch.clamp(
         order[torch.clamp(inst_p.long(), max=order.shape[0] - 1)], min=0)

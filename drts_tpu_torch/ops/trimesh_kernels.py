@@ -33,31 +33,34 @@ bundle's origin sphere and direction cone cull instance chunks, instances
 and triangle chunks for the whole block; B6 loops over the block's
 distinct candidates). Those culls are conservative and change no result.
 On the H100 each kernel but B9 takes one thread per ray, which reads its
-own candidate row and keeps its best in a register; a pair costs ~25 (B5)
-or ~50 (B6-B9) separately rounded float32 operations against 32-48 bytes
-per ray, so all of them are bound by the instruction rate, not by memory.
-Culls kept: a dead lane (tmax < tmin) does no work and a block of dead
-lanes leaves before it reads a table (B5, B6, B8, B9, B10); B5 and B10's
-scan test each ray against the instance chunks' covering spheres, with a
+own candidate row and keeps its best in a register (B9 compacts a block's
+live lanes first); a pair costs ~25 (B5) or ~50 (B6-B9) separately
+rounded float32 operations against 32-48 bytes per ray, so all of them
+are bound by the instruction rate, not by memory, but for B7 on a
+backstop batch of dead lanes. Culls kept: a dead lane (tmax < tmin) does
+no work and a block of dead lanes leaves before it reads a table
+(B5-B10); B5 and B10's scan test each ray against the instance chunks'
+covering spheres, with a
 segment that ends at its best key so far (B1's half-line cull,
 ``intersect_kernels.segment_misses``), sweep only the rows of the chunks
 they meet and take no root where the discriminant is negative
 (``bound_scan_walk`` repeats the walk and ``bound_scan_work`` counts it);
-B6, B8, B9 and B10's sweep test the ray, in the instance's object frame,
-against the covering spheres of the triangle table's chunks
-(``tri_bounds``, runs of ``chunk`` Morton-ordered rows), and in a chunk the
-segment misses they skip each face that the ray does not graze
-(``face_guards``; csrc/trimesh.cu states why a skip is exact against
-Moeller-Trumbore, B9's direction of length 1/scale included);
-``tri_sweep_walk`` repeats that sweep, ``shared_blas_any_walk``,
-``intersect_mesh_instances_any_walk`` and ``cand_fused_walk`` the kernels
-of B8, B9 and B10, and ``shared_blas_sweep_work``,
-``shared_blas_any_work``, ``intersect_mesh_instances_any_work`` and
-``cand_fused_work`` count the walks of B6, B8, B9 and B10; B7 and B9 test
-each ray against the instance chunks' covering spheres and the instances'
-bounding spheres, with the ray's running best (B7) or its own tmax (B9)
-as the far limit, and sweep only what passes. B7 visits every face of an
-instance it sweeps. Left out, none of which changes a result: the
+B6-B10's sweeps test the ray, in the instance's object frame, against
+the covering spheres of the triangle table's chunks (``tri_bounds``, runs
+of ``chunk`` Morton-ordered rows), and in a chunk the segment misses they
+skip each face that the ray does not graze (``face_guards``;
+csrc/trimesh.cu states why a skip is exact against Moeller-Trumbore, B7's
+and B9's direction of length 1/scale included); ``tri_sweep_walk``
+repeats that sweep, ``shared_blas_any_walk``,
+``intersect_mesh_instances_walk``, ``intersect_mesh_instances_any_walk``
+and ``cand_fused_walk`` the kernels of B8, B7, B9 and B10, and
+``shared_blas_sweep_work``, ``shared_blas_any_work``,
+``intersect_mesh_instances_work``, ``intersect_mesh_instances_any_work``
+and ``cand_fused_work`` count the walks of B6, B8, B7, B9 and B10; B7 and
+B9 test each ray against the instance chunks' covering spheres and the
+instances' bounding spheres, with the ray's running best (B7) or its own
+tmax (B9) as the far limit, and sweep only what passes. Left out, none
+of which changes a result: the
 reference's normal-cone and convex back-face culls, B10's bundle cone,
 its far-chunk cut (farc) and its front-to-back chunk order (MESH_F2B): a
 packed min does not depend on the order of the visits.
@@ -85,6 +88,9 @@ from . import intersect_kernels
 from .intersect_kernels import INF_BITS, _blocks, _check, pos_bits
 
 TRI_PAD = 64          # the triangle table is padded to a multiple of this
+# Faces per shared-memory tile of the triangle kernels (csrc/trimesh.cu's
+# kFaceTile); B7 stages a wider table into scratch memory instead.
+FACE_TILE = 512
 # Faces per chunk of the triangle table, one covering sphere and guard cone
 # each (tri_bounds): the chunk size the kernels use, chosen by timing 8,
 # 16, 32 and 64 on the card (chip_smoke.py phases 10 and 12; PERF.md).
@@ -480,7 +486,8 @@ def _check_tri_bounds(tri_bounds, chunk, f_pad, device):
 
 
 def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
-                   any_hit: bool = False, rm=None):
+                   any_hit: bool = False, rm=None, best=None,
+                   end_scale=None):
     """The face sweep of B6, B8, B9 and B10, lane by lane in the kernels'
     operations and order. rl (8, L): live lanes' rays in their candidate's
     object frame [ol dl tmn tmx]. The chunks go in table order; a chunk's
@@ -493,7 +500,10 @@ def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
     < TRI_GUARD (face_guards). The any-hit sweep leaves at its first
     blocking face. Moeller-Trumbore tests rm (8, L), B9's ray with the
     direction scaled by 1/scale and the world segment, where given, else
-    rl itself. Returns (res (L,) int32: the least packed word, or for
+    rl itself. The closest hit folds into `best` (L,) where given (B7's
+    running world best) and with `end_scale` (B7's 1/scale) ends the
+    segment at min(tmx, top(best) * end_scale), the best being in world
+    units. Returns (res (L,) int32: the least packed word, or for
     any_hit the first blocking row; INF_BITS where none; met (L, C) bool:
     the chunks met among those tested; work (L, 5) int64: chunks tested,
     chunks met, cones tested, faces guard-tested, faces swept)."""
@@ -507,15 +517,22 @@ def tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk: int, trunc: int,
     guards = face_guards(tri_tbl)
     dd = dl[0] * dl[0] + dl[1] * dl[1] + dl[2] * dl[2]
     pos = torch.arange(f_pad, dtype=torch.int32, device=dev)
-    res = torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
+    res = (torch.full((n,), INF_BITS, dtype=torch.int32, device=dev)
+           if best is None else best.clone())
     walking = torch.ones(n, dtype=torch.bool, device=dev)
     met = torch.zeros((n, n_chunks), dtype=torch.bool, device=dev)
     work = torch.zeros((n, 5), dtype=torch.int64, device=dev)
     upto = torch.arange(chunk, device=dev)
     for k in range(n_chunks):
         lo, hi = k * chunk, (k + 1) * chunk
-        t_end = tmx if any_hit else intersect_kernels.segment_end(tmx, res,
-                                                                  trunc)
+        if any_hit:
+            t_end = tmx
+        elif end_scale is None:
+            t_end = intersect_kernels.segment_end(tmx, res, trunc)
+        else:
+            top = ((res & trunc) | ~trunc).view(torch.float32)
+            t_end = torch.where((res >= 0) & (res < INF_BITS),
+                                torch.fmin(tmx, top * end_scale), tmx)
         met[:, k] = walking & ~intersect_kernels.segment_misses(
             rl, cull, spheres[:, k], t_end)
         wx, wy, wz, cos_q, sin_q, slack = tri_bounds[4:10, k]
@@ -856,36 +873,32 @@ def _reaches(rays, sphere, far):
     return (r > 0.0) & (b + h >= tmin) & (b - h <= far)
 
 
-def intersect_mesh_instances_plain(rays, inst_tbl, inst_bounds, tri_tbl,
-                                   n_ichunks: int, block: int = 16384,
-                                   work: dict = None):
-    """Plain PyTorch B7. rays (8, N), unit directions; inst_tbl (9, M)
-    with M = n_ichunks * INST_CHUNK; inst_bounds (4, IC_pad) chunk
-    spheres; tri_tbl (F_pad, 9). Per ray, the closest hit over every
-    instance and face, the direction scaled by 1/scale so t stays in world
-    units. Returns (t (N,) float32 truncated down to the packed precision,
-    inf on miss; face (N,) int32 table row; inst (N,) int32 table
-    position: the first, in table order, at which the packed best
-    improved).
-
-    The live lanes are compacted, then the instances are visited in table
-    order as the kernel visits them: a chunk, then an instance, is
-    entered by the lanes whose segment up to their running best meets its
-    sphere (_reaches), and only those (ray, instance) pairs are swept.
-    `work`, when given, receives the counts of this call: live lanes,
-    chunk_tests, inst_tests (sphere tests made) and sweeps ((ray,
-    instance) pairs swept over the triangle table)."""
-    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+def _serial_closest(rays, inst_tbl, inst_bounds, n_ichunks: int, trunc: int,
+                    sweep):
+    """B7's walk over the instances, shared by its plain version and its
+    culled walk. The live lanes are compacted, then the instances are
+    visited in table order as the kernel visits them: a chunk, then an
+    instance, is entered by the lanes whose segment up to their running
+    best meets its sphere (_reaches), and only those (ray, instance) pairs
+    are swept. sweep(rk, row, best) sweeps instance `row` (a column of
+    inst_tbl) for the entering lanes' rays rk (8, L) and packed world
+    bests (L,) and returns their least packed words (L,) int32, INF_BITS
+    where none, and (L, W) int64 work or None; the instance recorded is the
+    first at which a lane's best strictly improved. Returns (packed (N,)
+    int32, inst (N,) int32, counts: live lanes, chunk_tests, inst_tests
+    (sphere tests made) and sweeps ((ray, instance) pairs swept), work
+    (N, W) summed over each lane's sweeps, or None)."""
+    n = rays.shape[1]
     if inst_tbl.shape[1] != n_ichunks * INST_CHUNK:
         raise ValueError(f"inst_tbl has {inst_tbl.shape[1]} columns, "
                          f"expected {n_ichunks} x {INST_CHUNK}")
-    trunc = ~((1 << pos_bits(f_pad)) - 1)
     packed = torch.full((n,), INF_BITS, dtype=torch.int32,
                         device=rays.device)
     inst = torch.zeros(n, dtype=torch.int32, device=rays.device)
     live = torch.nonzero(rays[7] >= rays[6])[:, 0]
     counts = {"live": live.numel(), "chunk_tests": 0, "inst_tests": 0,
               "sweeps": 0}
+    work = None
     if live.numel():
         r = rays[:, live]
         best = packed[live]
@@ -911,46 +924,162 @@ def intersect_mesh_instances_plain(rays, inst_tbl, inst_bounds, tri_tbl,
                 if sel.numel() == 0:
                     continue
                 counts["sweeps"] += sel.numel()
-                rk = r[:, sel]
-                ol, dl, inv_s = _to_object(rk, row)
-                dl = tuple(x * inv_s for x in dl)
-                hit = _sweep_packed(ol, dl, rk[6], rk[7], tri_tbl, trunc,
-                                    block)
+                hit, w = sweep(r[:, sel], row, best[sel])
                 better = hit < best[sel]
                 binst[sel] = torch.where(better, k, binst[sel])
                 best[sel] = torch.where(better, hit, best[sel])
+                if w is not None:
+                    if work is None:
+                        work = torch.zeros((n, w.shape[1]), dtype=torch.int64,
+                                           device=rays.device)
+                    work[live[sel]] += w
         packed[live] = best
         inst[live] = binst
+    return packed, inst, counts, work
+
+
+def intersect_mesh_instances_plain(rays, inst_tbl, inst_bounds, tri_tbl,
+                                   n_ichunks: int, tri_bounds=None,
+                                   chunk: int = None, block: int = 16384,
+                                   work: dict = None):
+    """Plain PyTorch B7. rays (8, N), unit directions; inst_tbl (9, M)
+    with M = n_ichunks * INST_CHUNK; inst_bounds (4, IC_pad) chunk
+    spheres; tri_tbl (F_pad, 9). Per ray, the closest hit over every
+    instance and face, the direction scaled by 1/scale so t stays in world
+    units. Returns (t (N,) float32 truncated down to the packed precision,
+    inf on miss; face (N,) int32 table row; inst (N,) int32 table
+    position: the first, in table order, at which the packed best
+    improved).
+
+    The walk over the instances is _serial_closest's; an entered
+    instance's faces are all swept. ``tri_bounds`` and ``chunk`` are
+    ignored (None will do): the kernel's culls do not change the result.
+    `work`, when given, receives the counts of this call: live lanes,
+    chunk_tests, inst_tests (sphere tests made) and sweeps ((ray,
+    instance) pairs swept over the triangle table)."""
+    trunc = ~((1 << pos_bits(tri_tbl.shape[0])) - 1)
+
+    def sweep(rk, row, _best):
+        ol, dl, inv_s = _to_object(rk, row)
+        return _sweep_packed(ol, tuple(x * inv_s for x in dl), rk[6], rk[7],
+                             tri_tbl, trunc, block), None
+
+    packed, inst, counts, _ = _serial_closest(rays, inst_tbl, inst_bounds,
+                                              n_ichunks, trunc, sweep)
     if work is not None:
         work.update(counts)
     return (packed & trunc).view(torch.float32), packed & ~trunc, inst
 
 
+def intersect_mesh_instances_walk(rays, inst_tbl, inst_bounds, tri_tbl,
+                                  tri_bounds, chunk: int, n_ichunks: int):
+    """B7's kernel walk, lane by lane in its operations and order: the
+    plain version's walk over the instances (_serial_closest), and for
+    each instance entered the culled sweep (tri_sweep_walk, closest hit)
+    in B8's frame (direction rotated only, [tmin, tmax] scaled by 1/scale),
+    with Moeller-Trumbore on the plain version's own ray (direction also
+    scaled by 1/scale, the world segment) folding into the lane's running
+    world best, whose top times 1/scale ends the cull's segment
+    (csrc/trimesh.cu extends the cull's argument to it). Returns ((t, face,
+    inst) as the plain version's, counts as the plain version's, work
+    (N, 5) int64: triangle chunks tested, chunks met, cones tested, faces
+    guard-tested, faces swept, over the lane's sweeps)."""
+    f_pad = tri_tbl.shape[0]
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
+    trunc = ~((1 << pos_bits(f_pad)) - 1)
+
+    def sweep(rk, row, best):
+        ol, dl, inv_s = _to_object(rk, row)
+        rl = torch.stack([*ol, *dl, rk[6] * inv_s, rk[7] * inv_s])
+        rm = torch.stack([*ol, *(x * inv_s for x in dl), rk[6], rk[7]])
+        res, _, w = tri_sweep_walk(rl, tri_tbl, tri_bounds, chunk, trunc,
+                                   rm=rm, best=best, end_scale=inv_s)
+        return res, w
+
+    packed, inst, counts, work = _serial_closest(rays, inst_tbl, inst_bounds,
+                                                 n_ichunks, trunc, sweep)
+    if work is None:
+        work = torch.zeros((rays.shape[1], 5), dtype=torch.int64,
+                           device=rays.device)
+    return ((packed & trunc).view(torch.float32), packed & ~trunc, inst), \
+        counts, work
+
+
+def intersect_mesh_instances_work(rays, inst_tbl, inst_bounds, tri_tbl,
+                                  tri_bounds, chunk: int, n_ichunks: int,
+                                  block: int = 262144):
+    """The work B7's kernel needs on these rays
+    (intersect_mesh_instances_walk, in blocks of lanes). Returns (the
+    walk's (t, face, inst), a dict of sums: the walk's counts (live,
+    chunk_tests, inst_tests, sweeps), its tests (triangle chunks tested),
+    met, cones, guards and rows (faces swept), and tri_tests: the faces the
+    unculled sweeps visit, sweeps x F_pad)."""
+    names = ("tests", "met", "cones", "guards", "rows")
+    out = dict.fromkeys(("live", "chunk_tests", "inst_tests", "sweeps",
+                         "tri_tests", *names), 0)
+    n = rays.shape[1]
+    res = (torch.empty(n, dtype=torch.float32, device=rays.device),
+           torch.empty(n, dtype=torch.int32, device=rays.device),
+           torch.empty(n, dtype=torch.int32, device=rays.device))
+    for s in range(0, n, block):
+        words, counts, work = intersect_mesh_instances_walk(
+            rays[:, s:s + block], inst_tbl, inst_bounds, tri_tbl, tri_bounds,
+            chunk, n_ichunks)
+        for whole, part in zip(res, words):
+            whole[s:s + block] = part
+        for name, count in counts.items():
+            out[name] += count
+        for j, name in enumerate(names):
+            out[name] += int(work[:, j].sum())
+    out["tri_tests"] = out["sweeps"] * tri_tbl.shape[0]
+    return res, out
+
+
 def intersect_mesh_instances(rays, inst_tbl, inst_bounds, tri_tbl,
-                             n_ichunks: int, block: int = 16384):
-    """B7; see intersect_mesh_instances_plain for the contract. A CUDA
-    tensor launches drts_mesh_instances_closest (csrc/trimesh.cu)."""
+                             n_ichunks: int, tri_bounds=None,
+                             chunk: int = None, block: int = 16384):
+    """B7; see intersect_mesh_instances_plain for the contract. tri_bounds
+    (TRI_BOUND_ROWS, C_pad) holds the covering spheres and guard cones of
+    the triangle table's chunks of `chunk` rows (tri_chunk_bounds), by
+    which the kernel culls each instance's sweep per lane
+    (intersect_mesh_instances_walk); the CPU path may leave both None. A
+    CUDA tensor launches drts_mesh_instances_closest (csrc/trimesh.cu),
+    which stages the faces of a table of up to FACE_TILE rows in each
+    block's shared memory (a wider one once per launch into scratch
+    memory) and lets blocks and warps with no live lane leave at once."""
     _check_rays(rays)
     _check_table("inst_tbl", inst_tbl, 9, rays.device)
     _check_table("inst_bounds", inst_bounds, 4, rays.device)
     _check_table("tri_tbl", tri_tbl, 9, rays.device, rows_first=False)
+    f_pad = tri_tbl.shape[0]
     if rays.device.type == "cpu":
         return intersect_mesh_instances_plain(rays, inst_tbl, inst_bounds,
-                                              tri_tbl, n_ichunks, block)
+                                              tri_tbl, n_ichunks, tri_bounds,
+                                              chunk, block)
+    if tri_bounds is None or chunk is None:
+        raise ValueError("B7's kernel culls by the triangle table's chunk "
+                         "bounds: pass tri_bounds and chunk")
+    chunk = _check_tri_bounds(tri_bounds, chunk, f_pad, rays.device)
     if (inst_tbl.shape[1] != n_ichunks * INST_CHUNK
             or inst_bounds.shape[1] < n_ichunks):
         raise ValueError(f"inst_tbl {tuple(inst_tbl.shape)} and inst_bounds "
                          f"{tuple(inst_bounds.shape)} do not hold "
                          f"{n_ichunks} chunks of {INST_CHUNK}")
     lib = backend.kernels()
-    n, f_pad = rays.shape[1], tri_tbl.shape[0]
+    n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     face = torch.empty(n, dtype=torch.int32, device=rays.device)
     inst = torch.empty(n, dtype=torch.int32, device=rays.device)
+    image = None
+    if f_pad > FACE_TILE:
+        image = torch.empty((3 * (f_pad + f_pad // chunk), 4),
+                            dtype=torch.float32, device=rays.device)
     rc = lib.drts_mesh_instances_closest(
         rays.data_ptr(), n, inst_tbl.data_ptr(), inst_tbl.shape[1],
         inst_bounds.data_ptr(), inst_bounds.shape[1], n_ichunks, INST_CHUNK,
         BOUND_SCALE, BOUND_PAD, tri_tbl.data_ptr(), f_pad, pos_bits(f_pad),
+        tri_bounds.data_ptr(), tri_bounds.shape[1], chunk, TRI_CULL_SCALE,
+        TRI_GUARD, None if image is None else image.data_ptr(),
         t.data_ptr(), face.data_ptr(), inst.data_ptr(),
         backend.stream_handle(rays))
     backend.check_launch(rc, "drts_mesh_instances_closest")
@@ -1334,7 +1463,7 @@ def cand_loop(rays, bscan_tbl, inst_tbl, inst_bounds, tri_tbl, tri_bounds,
 
 
 def _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
-              n_ichunks: int, block: int):
+              tri_bounds, chunk: int, n_ichunks: int, block: int):
     """B7 on the lanes the candidate rounds left unresolved (key <
     INF_BITS), on their range tightened to the best so far, merged with
     the rounds' best. Returns intersect_mesh_instances' (t, face, inst)."""
@@ -1346,7 +1475,8 @@ def _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
     cur[7] = torch.where(unresolved, torch.minimum(rays[7], t_w),
                          rays[6] - 1.0)
     t_fb, face_fb, inst_fb = intersect_mesh_instances(
-        cur, inst_tbl, inst_bounds, tri_tbl, n_ichunks, block)
+        cur, inst_tbl, inst_bounds, tri_tbl, n_ichunks, tri_bounds, chunk,
+        block)
     fb_better = unresolved & (t_fb < t_w)
     t_w = torch.where(fb_better, t_fb,
                       torch.where(best < INF_BITS, t_w, float("inf")))
@@ -1367,7 +1497,7 @@ def intersect_mesh_instances_cand(rays, inst_tbl, inst_bounds, tri_tbl,
                                  inst_bounds, tri_tbl, tri_bounds, chunk,
                                  rounds, block)
     return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
-                     n_ichunks, block)
+                     tri_bounds, chunk, n_ichunks, block)
 
 
 # ----------------------------------------------------------------------------
@@ -1560,7 +1690,7 @@ def intersect_mesh_instances_cand_fused(rays, inst_tbl, inst_bounds, tri_tbl,
                                   inst_bounds, tri_tbl, tri_bounds, chunk,
                                   rounds, block)
     return _backstop(rays, best, binst, key, inst_tbl, inst_bounds, tri_tbl,
-                     n_ichunks, block)
+                     tri_bounds, chunk, n_ichunks, block)
 
 
 def intersect_mesh_instances_any_cand(rays, inst_tbl, inst_bounds, tri_tbl,

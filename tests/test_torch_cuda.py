@@ -35,7 +35,13 @@ blocks of 1, 40 in one warp, 63, 64, 100 and 256 live lanes; 600
 instances at scales 0.5, 1 and 2, a table of two face tiles), each with
 the threshold patched so that every block takes one path, and B9's
 triangle-chunk culls on the hand scene's rays for its instances of scale
-0.5, 1 and 2 with the margin and guard from the wrapper and at 0. Whole
+0.5, 1 and 2 with the margin and guard from the wrapper and at 0; B7
+(faces staged per block, the triangle-chunk culls in B8's frame) against
+its plain version and its walk at instance scales 0.25, 1 and 4
+(tests/test_torch_b7_culls.py's edge, grazing, rim and segment-end rays),
+at 4,099 rays over 600 instances, with every lane dead, dead warps, 20
+live lanes of 4,099 (a backstop batch) and a 2,048-face table staged in
+scratch memory. Whole
 ``compact_from=1`` path-trace frames at 48x48 (spheres through B1, the
 mesh scene through B5-B7 and B11) hold the card to the CPU with the key
 sort, the partition at every capacity, the partition over ragged tiles
@@ -53,9 +59,9 @@ Morton kernels) at chunks of 8, 12 (padded to 16), 16, 32 and 64 slots
 (three shared-memory tiles at 64), ragged ray counts, partly filled
 chunks, shadow-ray ranges, an excluded object on every ray, a batch of
 dead lanes and one of dead warps, within the MXU_* tolerances, and every
-word the same with their chunk cull off; B12a's table resident in each
-block of its persistent grid and tiled, and batches beyond one wave of
-that grid (equal, bit for bit, to the same kernel on sub-batches); B13
+word the same with their chunk cull off; their tables resident in each
+block of their persistent grids and tiled, and batches beyond one wave of
+those grids (equal, bit for bit, to the same kernel on sub-batches); B13
 with cluster counts that are no multiple of 8, empty slots, clusters of
 1, 12 and 32 filled slots, rays that start inside a cluster bound, a dead
 batch, dead warps and finite ranges, its plan resident and tiled and a
@@ -660,7 +666,8 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
     # The loop's rays, tightened to the best so far, then the untouched.
     for batch in (cur, rays):
         out = tk.intersect_mesh_instances(batch, inst_tbl, inst_bounds,
-                                          tri_tbl, n_ic)
+                                          tri_tbl, n_ic, mesh.tri_bounds,
+                                          mesh.tri_chunk)
         assert_equal(out, tk.intersect_mesh_instances_plain(
             batch, inst_tbl, inst_bounds, tri_tbl, n_ic))
     assert backend.LAUNCHES["bound_scan"] == before["bound_scan"] + 2
@@ -679,6 +686,70 @@ def test_mesh_kernels_equal_plain(dev, k, n, tess, dead):
         rays.cpu(), inst_tbl.cpu(), inst_bounds.cpu(), tri_tbl.cpu(),
         mesh.tri_bounds.cpu(), mesh.tri_chunk, n_ic)
     assert_equal(whole, on_cpu)
+
+
+def b7_batch(variant, dev):
+    """B7's arguments for a card case: tests/test_torch_b7_culls.py's
+    scene with the rays built for the instance of one scale live
+    ("scale0.25", "scale1", "scale4": edge, grazing, rim and segment-end
+    rays, the segment ending at the running best); or mesh_case's 600
+    instances of the 512-face geosphere (the demo mesh) at 4,099 rays
+    (ragged: no multiple of the block), with every lane dead ("dead"),
+    every other warp dead but for one lane ("dead warps"), or all lanes
+    dead but 20 scattered ones with tmax cut to 3 units ("backstop", the
+    candidate loop's leftovers); "wide" is the 2,048-face geosphere, a
+    table B7 stages once per launch in scratch memory."""
+    if variant.startswith("scale"):
+        from test_torch_b7_culls import scene_for
+        args = scene_for(float(variant[5:]))
+        return tuple(a.to(dev) if torch.is_tensor(a) else a for a in args)
+    mesh, rays, (inst_tbl, inst_bounds, _, n_ic) = mesh_case(
+        600, 4099, 5 if variant == "wide" else 4, seed=19, dev=dev,
+        dead=variant == "dead")
+    if variant == "dead warps":
+        dead_warps(rays)
+    if variant == "backstop":
+        keep = torch.zeros(rays.shape[1], dtype=torch.bool, device=dev)
+        live = torch.nonzero(rays[7] >= rays[6])[:, 0]
+        keep[live[torch.randperm(live.numel(), generator=torch.Generator()
+                                 .manual_seed(19))[:20].to(dev)]] = True
+        rays[7] = torch.where(keep, torch.clamp(rays[7], max=3.0), -1.0)
+    return (rays, inst_tbl, inst_bounds, mesh.tri_tbl, mesh.tri_bounds,
+            mesh.tri_chunk, n_ic)
+
+
+@pytest.mark.parametrize("variant", [
+    "scale0.25", "scale1", "scale4", "ragged", "dead", "dead warps",
+    "backstop", "wide"])
+def test_b7_kernel_equals_plain_and_walk(dev, variant):
+    """B7's kernel (faces staged once per block, the triangle-chunk culls
+    of csrc/trimesh.cu in B8's frame, Moeller-Trumbore on B7's own ray)
+    gives every word of its plain version and of its walk, and launches
+    once: at instance scales 0.25, 1 and 4, ragged n, a batch of dead
+    lanes, dead warps, a backstop-shaped batch and a table wider than one
+    shared-memory tile (see b7_batch)."""
+    rays, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk, n_ic = \
+        b7_batch(variant, dev)
+    before = backend.LAUNCHES["intersect_mesh_instances"]
+    out = tk.intersect_mesh_instances(rays, inst_tbl, inst_bounds, tri_tbl,
+                                      n_ic, tri_bounds, chunk)
+    assert backend.LAUNCHES["intersect_mesh_instances"] == before + 1
+    assert_equal(out, tk.intersect_mesh_instances_plain(
+        rays, inst_tbl, inst_bounds, tri_tbl, n_ic))
+    words, counts, work = tk.intersect_mesh_instances_walk(
+        rays, inst_tbl, inst_bounds, tri_tbl, tri_bounds, chunk, n_ic)
+    assert_equal(out, words)
+    hits = int(torch.isfinite(out[0]).sum())
+    if variant == "dead":
+        assert hits == 0 and counts["live"] == 0
+        return
+    assert 0 < hits <= counts["live"]
+    if variant == "backstop":
+        assert counts["live"] == 20
+    if variant == "dead warps":
+        assert counts["live"] < rays.shape[1] // 2
+    tests, met = work.sum(0).tolist()[:2]
+    assert met < tests
 
 
 def scan_case(k, n, variant, dev):
@@ -1577,14 +1648,19 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
     (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"), (300, 1000, 16,
                                                        "exclude"),
     (1500, 2049, 64, "exclude"), (200, 777, 12, "aimed"),
-    (300, 1000, 32, "dead")])
+    (300, 1000, 32, "dead"), (300, 300001, 32, "aimed"),
+    (1500, 140001, 64, "aimed"), (300, 5000, 32, "dead warps")])
 def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
                                          monkeypatch):
     """B12b against its plain version at chunks of 8 to 64 slots, ragged
     ray counts and shadow-ray ranges (tmax 30 x a uniform number): hit bits
     may flip only on grazing rays (MXU_GRAZE, MXU_FLIP_SHARE); "exclude"
     excludes on every ray the sphere it aims at, "dead" is a batch of dead
-    lanes only (nothing occluded)."""
+    lanes only (nothing occluded), "dead warps" kills every other warp but
+    for one lane. Tables of up to 92 KB stay resident in each block of the
+    persistent grid, those of 1,500 spheres take the tiled loop; 300,001
+    and 140,001 rays are more than one persistent wave holds, and give the
+    bits that launches of sub-batches below one wave give."""
     centers, radii, accel, rays = mxu_case(k, n, chunk, k + n + 1, dev)
     rng = np.random.RandomState(n)
     live = rays[7] >= rays[6]
@@ -1592,6 +1668,16 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
     rays[7] = torch.where(live, tmax.to(dev), -1.0)
     if variant == "dead":
         rays[7] = -1.0
+    if variant == "dead warps":
+        dead_warps(rays)
+    live = rays[7] >= rays[6]
+    info = ik.occlusion_morton_mxu_info(accel.table, accel.bounds, n)
+    assert info["resident"] == (k < 1500)
+    assert info["local_bytes"] == 0
+    if n > 100000:
+        assert n > info["grid"] * info["threads"]
+    else:
+        assert info["grid"] == -(-n // info["threads"])
     exclude = torch.full((n,), -1.0)
     if variant == "exclude":
         o = rays[:3].T.cpu().numpy()
@@ -1606,6 +1692,14 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
     occ = ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
                                   accel.mxu_a).cpu()
     assert backend.LAUNCHES["occlusion_morton_mxu"] == before + 1
+    if n > 100000:
+        # The persistent grid's loop over blocks of rays, bit for bit: the
+        # same warps of 32 rays in launches below one wave.
+        step = 65536
+        assert step < info["grid"] * info["threads"]
+        assert torch.equal(occ, torch.cat([ik.occlusion_morton_mxu(
+            rays9[:, s:s + step].contiguous(), accel.table, accel.bounds,
+            accel.mxu_a).cpu() for s in range(0, n, step)]))
     plain = ik.occlusion_morton_mxu_plain(rays9, accel.table, accel.bounds,
                                           accel.mxu_a).cpu()
     assert_same_with_cull_off(
