@@ -239,7 +239,7 @@ Phases, one printed line or more each; any failure exits non-zero:
    scope and a launch of each of the five kernels. Every frame of (a)-(c)
    is a finite (1080, 1920, 3) image in [0, 1] that launched B1, B2, B3,
    B4 and B11.
-22. banded: the multi-device frame (drts_tpu_torch/parallel) at
+22. banded: the sharded multi-device frame (drts_tpu_torch/parallel) at
    PipelineConfig(), 1920x1080, three frames. (a) One NCCL rank
    (multihost.initialize with a localhost coordinator, world size 1):
    render_frame(group=...) against render_frame(group=None) from the same
@@ -247,13 +247,21 @@ Phases, one printed line or more each; any failure exits non-zero:
    skip frame and within DEFAULT_* on the update frames, the same
    launches. (c) graft_entry.dryrun_multichip(1) on that group. (b) Two
    gloo ranks on the one card (multihost.spawn; NCCL takes one card per
-   rank), every collective on CUDA tensors: each rank's images within
-   DEFAULT_* of (a)'s,
-   the ranks' FrameState leaves equal (parallel.mesh.replica_checksums),
-   each rank's launches of B1, B2, B3, B4 and B11 per frame; then rank 0
-   records one more frame's kernel calls, holds each to its plain version
-   and times it on its band's inputs (B4 on the gathered frame's). (d)
-   The time of each.
+   rank), every collective on CUDA tensors, from
+   RenderPipeline.shard_state of the start state: each rank's band of
+   each image within DEFAULT_* of (a)'s rows; after the three frames each
+   per-row leaf within DEFAULT_* of (a)'s final state's rows, each
+   per-slot leaf of (a)'s slot range (the fingerprints equal on
+   DEFAULT_FP_SHARE of the slots filled in either), each leaf shaped as
+   the placement says, the replicated leaves equal on both ranks
+   (parallel.mesh.replica_checksums over those leaves only); each rank's
+   FrameState bytes and peak device memory, its launches of B1, B2, B3,
+   B4 and B11 per frame, and both reduce-scatter forms on CUDA tensors;
+   then rank RECORD_RANK (1, whose band starts at row 540, so B4 runs at
+   a nonzero row offset) records one more frame's kernel calls, holds
+   each to its plain version and times it on its band's inputs (B4 on
+   the gathered histories, writing its band's rows). (d) The time of
+   each.
 23. record: python -m drts_tpu_torch.bench --record, the reference's
    bench record (bench.py:main: the headline path trace, the full
    pipeline, the upscaled frame, the mesh trace at 2 and 8 bounces, the
@@ -340,9 +348,9 @@ four reprojections, B11 its light sweep), and B11
 the launches and the times of phase 20's accel-none frame, summed over
 one frame's closest hits and light sweep and over its three shadow
 batches; and B1, B2, B3, B4 and B11 once more ("...@banded") with rank
-0's launches over phase 22 (b)'s three frames and the times of its
+1's launches over phase 22 (b)'s three frames and the times of its
 recorded frame (B1 per frame, B2 its three batches, B4 its four
-reprojections, B11 its light sweep); and B12a ("intersect_morton_mxu")
+reprojections at row offset 540, B11 its light sweep); and B12a ("intersect_morton_mxu")
 with the launches of phase 24's MXU headline frame and the times on its
 primary rays, B12b ("occlusion_morton_mxu") with the launches of its two
 default frames and the times summed over the three shadow batches, and
@@ -913,7 +921,7 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
     # B4 nearest: the temporal pass's packed reservoir history. The check
     # means something only where the history differs from pixel to pixel
     # and some taps land on another pixel than their own.
-    (packed, motion, mode), = seen["reproject_packed"]
+    (packed, motion, mode, *row0), = seen["reproject_packed"]
     h, w, c = packed.shape
     distinct = int(torch.unique(packed.view(torch.int32)).numel())
     moved = int((torch.round(motion).abs().amax(-1) > 0).sum())
@@ -921,8 +929,8 @@ def check_restir_kernels(ik, rk, rp, seen, frame):
         raise AssertionError(f"B4 nearest: the history is not a warm "
                              f"frame's ({distinct} distinct words, "
                              f"{moved} taps off their pixel)")
-    o_k, ok_k = rp.reproject_packed(packed, motion, mode)
-    o_p, ok_p = rp.reproject_packed_plain(packed, motion, mode)
+    o_k, ok_k = rp.reproject_packed(packed, motion, mode, *row0)
+    o_p, ok_p = rp.reproject_packed_plain(packed, motion, mode, *row0)
     torch.cuda.synchronize()
     bits = int((o_k.view(torch.int32) != o_p.view(torch.int32)).sum())
     ok_mismatch = int((ok_k != ok_p).sum())
@@ -1665,15 +1673,21 @@ def check_default_reprojections(rp, calls, label="default"):
     """Phase 14 (first part): B4 against its plain version on each of a
     default frame's reprojections (phase 16: the mesh pipeline frame's,
     `label` "mesh pipeline"); returns the summed kernels-line fields."""
-    modes = [mode for _, _, mode in calls]
+    modes = [call[2] for call in calls]
     if sorted(modes) != ["bilinear", "nearest", "nearest", "nearest"]:
         raise AssertionError(f"B4 in the {label} frame: modes {modes}, "
                              f"expected 3 nearest and 1 bilinear")
     ms = plain_ms = lib_ms = bytes_moved = ops = err = 0.0
-    for src, motion, mode in calls:
-        h, w, c = src.shape
-        o_k, ok_k = rp.reproject_packed(src, motion, mode)
-        o_p, ok_p = rp.reproject_packed_plain(src, motion, mode)
+    offsets = []
+    for src, motion, mode, *rest in calls:
+        # A band's rows of the history (the sharded frame): from history
+        # row `row0`, h rows.
+        row0 = rest[0] if rest else 0
+        offsets.append(row0)
+        src_h, w, c = src.shape
+        h = motion.shape[0]
+        o_k, ok_k = rp.reproject_packed(src, motion, mode, row0)
+        o_p, ok_p = rp.reproject_packed_plain(src, motion, mode, row0)
         torch.cuda.synchronize()
         ok_mismatch = int((ok_k != ok_p).sum())
         if mode == "nearest":
@@ -1691,16 +1705,18 @@ def check_default_reprojections(rp, calls, label="default"):
         grid = torch.stack([
             (torch.arange(w, device=motion.device)[None, :] + motion[..., 0])
             / (w - 1) * 2 - 1,
-            (torch.arange(h, device=motion.device)[:, None] + motion[..., 1])
-            / (h - 1) * 2 - 1], dim=-1)[None]
+            (torch.arange(row0, row0 + h, device=motion.device)[:, None]
+             + motion[..., 1]) / (src_h - 1) * 2 - 1], dim=-1)[None]
         chw = src.permute(2, 0, 1)[None].contiguous()
-        k = cuda_ms(lambda: rp.reproject_packed(src, motion, mode), 50)
-        p = cuda_ms(lambda: rp.reproject_packed_plain(src, motion, mode), 10)
+        k = cuda_ms(lambda: rp.reproject_packed(src, motion, mode, row0), 50)
+        p = cuda_ms(lambda: rp.reproject_packed_plain(src, motion, mode,
+                                                      row0), 10)
         lib = cuda_ms(lambda: torch.nn.functional.grid_sample(
             chw, grid, mode=mode, padding_mode="border", align_corners=True),
             50)
         vec = 1 if mode == "bilinear" else rp.vector_width(c, src, o_k)
-        log(f"{label} kernels: B4 {mode} {h}x{w}x{c} vector_width={vec} "
+        log(f"{label} kernels: B4 {mode} {h}x{w}x{c} of {src_h} rows from "
+            f"row {row0} vector_width={vec} "
             f"mismatch={bad} ok_mismatch={ok_mismatch} "
             f"kernel_ms={k!r} plain_ms={p!r} grid_sample_ms={lib!r} "
             f"bound_ms={bound((2 * c * 4 + 8 + 1) * h * w, 0)[0]!r}")
@@ -1711,7 +1727,8 @@ def check_default_reprojections(rp, calls, label="default"):
         bytes_moved += (2 * c * 4 + 8 + 1) * h * w
     b_ms, b_by = bound(bytes_moved, ops)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            "row_offsets": offsets}
 
 
 @contextlib.contextmanager
@@ -1721,9 +1738,9 @@ def mode_tally(rp):
     tally = {"nearest": 0, "bilinear": 0}
     orig = rp.reproject_packed
 
-    def tallied(src, motion, mode="bilinear"):
+    def tallied(src, motion, mode="bilinear", row0=0):
         tally[mode] += 1
-        return orig(src, motion, mode)
+        return orig(src, motion, mode, row0)
     rp.reproject_packed = tallied
     try:
         yield tally
@@ -2654,7 +2671,7 @@ def check_options_kernels(ik, rk, rp, seen):
                              "one 12-word reprojection")
     out["reproject_packed@options"] = check_default_reprojections(
         rp, b4, label="options")
-    src12, motion, _ = restir_rows[0]
+    src12, motion, *_ = restir_rows[0]
     src5 = src12[..., :5].contiguous()
     h, w, _ = src5.shape
     o_k, ok_k = rp.reproject_packed(src5, motion, "nearest")
@@ -3071,9 +3088,16 @@ def run_shell(backend, bench, smi, dev):
                                  "kernel is missing from the trace")
 
 
-# Phase 22: the banded frame (drts_tpu_torch/parallel) at PipelineConfig(),
-# 1920x1080, three frames (SHARC updates on frames 0 and 2).
+# Phase 22: the sharded frame (drts_tpu_torch/parallel) at PipelineConfig(),
+# 1920x1080, three frames (SHARC updates on frames 0 and 2); the rank of
+# (b) whose recorded frame gives the @banded kernel fields (its band
+# starts at row 540: B4 reads the gathered histories from that row on).
 BANDED_FRAMES = 3
+RECORD_RANK = 1
+# The leaves of 32-bit words (f16 pairs, packed normals, SHARC's meta
+# bits): compared by their f16 halves.
+WORD_LEAVES = ("denoiser.packed", "denoiser.packed_spec", "taa.packed",
+               "sharc.packed", "prev_surface_rows")
 
 
 def frame_diff(a, b):
@@ -3084,11 +3108,71 @@ def frame_diff(a, b):
             float(d.max()))
 
 
+def leaf_diff(path, a, b):
+    """(mean |difference| over the mean magnitude (at least 1), share of
+    elements off) of a FrameState leaf against another's: floats by value
+    (off beyond DEFAULT_OFF times max(1, |value|)), 32-bit words by their
+    f16 halves where both are finite (a half finite on one side only is
+    off), integers by the share that differ."""
+    a, b = a.cpu(), b.cpu()
+    if path in WORD_LEAVES:
+        a = a.contiguous().view(torch.float16).double()
+        b = b.contiguous().view(torch.float16).double()
+        both = torch.isfinite(a) & torch.isfinite(b)
+        d = torch.where(both, (a - b).abs(), 0.0)
+        off = (~both & (torch.isfinite(a) | torch.isfinite(b))) | (
+            d > DEFAULT_OFF * torch.clamp(b.abs(), min=1.0))
+        scale = max(float(torch.where(both, b.abs(), 0.0).mean()), 1.0)
+        return float(d.mean()) / scale, float(off.float().mean())
+    if not a.dtype.is_floating_point:
+        return 0.0, float((a != b).float().mean())
+    a, b = a.double(), b.double()
+    d = (a - b).abs()
+    scale = max(float(b.abs().mean()), 1.0)
+    return (float(d.mean()) / scale,
+            float((d > DEFAULT_OFF * torch.clamp(b.abs(), min=1.0))
+                  .float().mean()))
+
+
+def check_shards(r, shards, state_a, placed, n=2):
+    """Phase 22 (b): rank r's final shards against the one-rank final
+    state's (its band of each per-row leaf, its range of each per-slot
+    leaf, each replicated leaf whole). Returns the worst (path, mean,
+    share off) and raises where a leaf is off DEFAULT_*."""
+    from drts_tpu_torch.parallel import mesh
+    from drts_tpu_torch.utils import checkpoint
+    full = dict(checkpoint.leaves(state_a))
+    worst = ("", 0.0, 0.0)
+    for path, leaf in checkpoint.leaves(shards):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        want = full[path]
+        if placed[path] != mesh.REPLICATED:
+            s, e = mesh.row_band(want.shape[0], r, n)
+            want = want[s:e]
+        if path == "sharc.fingerprint":
+            filled = (leaf != 0) | (want != 0)
+            same = float((leaf == want)[filled].float().mean())
+            if same < DEFAULT_FP_SHARE:
+                raise AssertionError(f"banded (b) rank {r}: {path} equal "
+                                     f"on {same!r} of the filled slots")
+            continue
+        mean, off = leaf_diff(path, leaf, want)
+        if (off, mean) > (worst[2], worst[1]):
+            worst = (path, mean, off)
+        if mean > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE:
+            raise AssertionError(f"banded (b) rank {r}: {path} off the "
+                                 f"one-rank state (mean {mean!r}, share "
+                                 f"off {off!r})")
+    return worst
+
+
 def banded_kernel_fields(ik, rk, rp, seen):
-    """The @banded kernels-line fields from one recorded banded frame of
-    rank 0: B1 over the frame's launches on its band's rays, B2 on its
-    band's three visibility batches, B3 on its band's pixels, B4 on the
-    four reprojections of the gathered frame, B11 on its band's light
+    """The @banded kernels-line fields from one recorded sharded frame of
+    rank RECORD_RANK: B1 over the frame's launches on its band's rays, B2
+    on its band's three visibility batches, B3 on its band's pixels, B4 on
+    the four reprojections that write its band's rows of the gathered
+    histories (a nonzero row offset, required), B11 on its band's light
     sweep; each against its plain version and timed."""
     out = {}
     calls = seen["intersect_morton"]
@@ -3115,6 +3199,10 @@ def banded_kernel_fields(ik, rk, rp, seen):
                                                       path="banded ")
     out["reproject_packed@banded"] = check_default_reprojections(
         rp, seen["reproject_packed"], label="banded")
+    offsets = out["reproject_packed@banded"]["row_offsets"]
+    if not all(offsets):
+        raise AssertionError(f"banded B4: row offsets {offsets}, expected "
+                             f"the band's first rows")
     (rays, spheres, block), = seen["intersect_brute"]
     f = compare_closest(
         "banded B11 brdf-candidate", lambda: ik.intersect_brute(rays,
@@ -3133,10 +3221,13 @@ def banded_kernel_fields(ik, rk, rp, seen):
 
 def banded_rank(group, out_dir):
     """Phase 22 (b), one of two ranks (gloo) on the one card: the three
-    frames of (a) banded over `group`, counted from zero, then one more
-    frame whose kernel calls rank 0 records, holds to their plain versions
-    and times while rank 1 waits. Saves its images, launches per frame,
-    replica checksums, band and frame times to out_dir/rank<r>.pt."""
+    frames of (a) sharded over `group` from shard_state of the start
+    state, counted from zero, then one more frame whose kernel calls rank
+    RECORD_RANK records, holds to their plain versions and times while
+    the other waits; both reduce-scatter forms on CUDA tensors. Saves its
+    image bands, launches per frame, replicated leaves' checksums, final
+    shards, leaves off their placement, band, frame times, FrameState
+    bytes and peak device memory to out_dir/rank<r>.pt."""
     import torch.distributed as dist
 
     from drts_tpu_torch import backend, graft_entry
@@ -3148,8 +3239,11 @@ def banded_rank(group, out_dir):
 
     dev = multihost.rank_device("cuda")
     backend.kernels()
-    pipe, state, pose = graft_entry._setup(pipeline.PipelineConfig(), dev)
+    pipe, state0, pose = graft_entry._setup(pipeline.PipelineConfig(), dev)
     r = dist.get_rank(group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = pipe.shard_state(state0, group)
     images, launches, frame_ms = [], [], []
     for _ in range(BANDED_FRAMES):
         backend.reset_launches()
@@ -3161,15 +3255,30 @@ def banded_rank(group, out_dir):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(dict(backend.LAUNCHES))
         images.append(img.cpu())
-    sums = mesh.replica_checksums(state, group)
+    peak = torch.cuda.max_memory_allocated(dev)
+    sums = graft_entry.replicated_checksums(pipe, state, group)
+    bad = graft_entry.misplaced(pipe, state0, state, group)
+    # Both reduce-scatter forms on CUDA tensors under gloo.
+    band = mesh.Band.of(group, 1000)
+    x = torch.arange(4000, dtype=torch.float32, device=dev).reshape(
+        1000, 4) * (r + 1)
+    want = x[band.start:band.end] * 3 / (r + 1)
+    forms = {form: bool(torch.equal(band.reduce_scatter(x, form=form), want))
+             for form in mesh.REDUCE_SCATTER_FORMS}
+    del state0
     with recorded((ik, rk, rp), BANDED_KERNELS, clone=True) as seen:
         pipe.render_frame(state, pose, group=group)
         torch.cuda.synchronize()
     dist.barrier(group)
-    fields = banded_kernel_fields(ik, rk, rp, seen) if r == 0 else {}
+    fields = (banded_kernel_fields(ik, rk, rp, seen) if r == RECORD_RANK
+              else {})
     del seen
     dist.barrier(group)
     torch.save({"images": images, "launches": launches, "checksums": sums,
+                "misplaced": bad, "forms": forms,
+                "state": mesh.map_tensors(lambda t: t.cpu(), state),
+                "placement": pipe.placement(state, 2),
+                "state_bytes": mesh.state_bytes(state), "peak_bytes": peak,
                 "band": mesh.group_band(pipe.cfg.render_height, group),
                 "frame_ms": frame_ms, "fields": fields},
                os.path.join(out_dir, f"rank{r}.pt"))
@@ -3182,11 +3291,14 @@ def run_banded(backend, smi, dev):
     every FrameState leaf) on the SHARC skip frame, within DEFAULT_* on the
     update frames (the splat's float atomics add in another order); (c)
     dryrun_multichip(1) on that group; (b) two gloo ranks on the one card,
-    the same three frames, each image within DEFAULT_* of (a)'s, the
-    ranks' states equal, each rank's launches of B1, B2, B3, B4 and B11
-    per frame, and the @banded kernel fields (rank 0, on its band's
-    inputs); (d) the time of each. Returns (the kernels-line fields, the
-    launches of rank 0 over (b)'s three frames)."""
+    the same three frames sharded: each image band within DEFAULT_* of
+    (a)'s rows, the final shards against (a)'s final state
+    (check_shards), every leaf where the placement puts it, the
+    replicated leaves equal, each rank's launches of B1, B2, B3, B4 and
+    B11 per frame, its FrameState bytes and peak memory, and the @banded
+    kernel fields (rank RECORD_RANK, on its band's inputs); (d) the time
+    of each. Returns (the kernels-line fields, the launches of rank
+    RECORD_RANK over (b)'s three frames)."""
     import tempfile
 
     import torch.distributed as dist
@@ -3202,6 +3314,7 @@ def run_banded(backend, smi, dev):
     group = multihost.global_group()
     cfg = pipeline.PipelineConfig()
     pipe, state, pose = graft_entry._setup(cfg, dev)
+    bytes_one = mesh.state_bytes(state)
     images_a = []
     for i in range(BANDED_FRAMES):
         update = state.frame_count % cfg.sharc_update_period == 0
@@ -3233,6 +3346,7 @@ def run_banded(backend, smi, dev):
                                  f"frame")
         state = s_g
         images_a.append(img_g.cpu())
+    state_a = mesh.map_tensors(lambda t: t.cpu(), state)
     ta = time.perf_counter() - t0
     del pipe, state, s_g, s_n
 
@@ -3251,32 +3365,45 @@ def run_banded(backend, smi, dev):
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
     tb = time.perf_counter() - t0
+    oh = cfg.output_height
     for r, res in enumerate(ranks):
-        diffs = [frame_diff(a, b) for a, b in zip(res["images"], images_a)]
+        s, e = mesh.row_band(oh, r, 2)
+        diffs = [frame_diff(a, b[s:e]) for a, b in zip(res["images"],
+                                                       images_a)]
         per_frame = [[f[k] for k in BANDED_KERNELS] for f in res["launches"]]
+        worst = check_shards(r, res["state"], state_a, res["placement"])
         log(f"banded (b) gloo rank {r} of 2 on one card: band {res['band']} "
-            f"frame_ms={res['frame_ms']!r} image vs (a) (mean, pixels off, "
-            f"max)={diffs!r} launches per frame (B1, B2, B3, B4, B11)="
+            f"frame_ms={res['frame_ms']!r} image band vs (a)'s rows (mean, "
+            f"pixels off, max)={diffs!r} worst leaf vs (a) (path, mean, "
+            f"share off)={worst!r} state_bytes={res['state_bytes']} "
+            f"(one device {bytes_one}) peak_memory_bytes="
+            f"{res['peak_bytes']} reduce_scatter forms={res['forms']} "
+            f"launches per frame (B1, B2, B3, B4, B11)="
             f"{json.dumps(per_frame)} | {smi}")
         for i, (mean, off, _) in enumerate(diffs):
             if mean > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE:
                 raise AssertionError(f"banded (b) rank {r} frame {i}: off "
-                                     f"the one-rank frame")
+                                     f"the one-rank frame's rows")
         for i, f in enumerate(res["launches"]):
             missing = [k for k in BANDED_KERNELS if f[k] <= 0]
             if missing:
                 raise AssertionError(f"banded (b) rank {r} frame {i}: "
                                      f"{missing} not launched")
+        if res["misplaced"] or not all(res["forms"].values()):
+            raise AssertionError(f"banded (b) rank {r}: leaves off their "
+                                 f"placement {res['misplaced']} or a "
+                                 f"reduce-scatter form wrong {res['forms']}")
     differ = mesh.replicas_differ(ranks[0]["checksums"])
     if differ or ranks[0]["checksums"] != ranks[1]["checksums"]:
-        raise AssertionError(f"banded (b): the ranks' states differ at "
-                             f"{differ}")
+        raise AssertionError(f"banded (b): the ranks' replicated leaves "
+                             f"differ at {differ}")
     log(f"banded (d): (a) {ta:.1f} s, (b) {tb:.1f} s (two processes "
-        f"included), (c) {tc:.1f} s; replicas equal on "
+        f"included), (c) {tc:.1f} s; replicated leaves equal on "
         f"{len(ranks[0]['checksums'])} leaves | {smi}")
-    launches = {f"{k}@banded": sum(f[k] for f in ranks[0]["launches"])
+    launches = {f"{k}@banded": sum(f[k] for f in
+                                    ranks[RECORD_RANK]["launches"])
                 for k in BANDED_KERNELS}
-    return ranks[0]["fields"], launches
+    return ranks[RECORD_RANK]["fields"], launches
 
 
 # Phase 23: the record's limit in seconds, and the kernels each of its

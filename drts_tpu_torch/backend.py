@@ -79,9 +79,9 @@ _SIGNATURES = {
                                       _VOIDP, _VOIDP),
     # n_lights, s, out (5 ints)
     "drts_initial_light_candidates_info": (_INT, _INT, _VOIDP),
-    # src, motion, h, w, c, bilinear, vec, out, ok, stream
-    "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT,
-                       _VOIDP, _VOIDP, _VOIDP),
+    # src, motion, h, src_h, row0, w, c, bilinear, vec, out, ok, stream
+    "drts_reproject": (_VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _INT,
+                       _INT, _VOIDP, _VOIDP, _VOIDP),
     # rays, n, cursor, table, m_tbl, inst_bounds, ic_cols, inst_chunk,
     # cull_scale, pos_bits, key_out, stream
     "drts_bound_scan": (_VOIDP, _INT, _VOIDP, _VOIDP, _INT, _VOIDP, _INT,

@@ -7,15 +7,17 @@
 // reproject_kernels.py holds the wrapper and the plain PyTorch version it
 // is checked against.
 //
-// Per output pixel (x, y), the (H, W, C) history is sampled at
-// (x + motion_x, y + motion_y):
+// Per output pixel (x, y) of a band of h rows starting at history row
+// row0, the (src_h, W, C) history is sampled at (x + motion_x,
+// row0 + y + motion_y) (row0 = 0 and h = src_h: the whole frame; the
+// sharded frame writes only its band's rows of the gathered history):
 // - nearest: the tap at round-half-even, clamped into the frame; the C
 //   32-bit words are copied as integers, so f16-packed rows arrive bit for
 //   bit;
 // - bilinear: the clamp-addressed tent of reproject_pallas._gather_fallback
 //   (floor, fraction, both taps of each axis clamped).
-// ok = the sample point lies inside the frame (the caller's disocclusion
-// test). The TPU fetched one window per 16 x 384 tile because a random row
+// ok = the sample point lies inside the history's frame (the caller's
+// disocclusion test). The TPU fetched one window per 16 x 384 tile because a random row
 // gather is slow there; on this card the gather is the kernel, and its
 // taps are exact whatever the motion field.
 //
@@ -64,8 +66,9 @@ __device__ __forceinline__ int clamp_index(float v, int hi) {
 // vectors of consecutive pixels, and no thread divides by c / V.
 template <int V, bool kBilinear>
 __global__ void reproject(const float* __restrict__ src,
-                          const float2* __restrict__ motion, int h, int w,
-                          int c, float* __restrict__ out,
+                          const float2* __restrict__ motion, int h,
+                          int src_h, int row0, int w, int c,
+                          float* __restrict__ out,
                           unsigned char* __restrict__ ok) {
   using Vec = typename Words<V>::type;
   const int x = blockIdx.x * blockDim.y + threadIdx.y;
@@ -74,14 +77,14 @@ __global__ void reproject(const float* __restrict__ src,
   const size_t i = (size_t)y * w + x;
   const float2 m = motion[i];
   const float px = (float)x + m.x;
-  const float py = (float)y + m.y;
+  const float py = (float)(row0 + y) + m.y;
   if (threadIdx.x == 0) {
     ok[i] = px >= 0.f && px <= (float)(w - 1) && py >= 0.f &&
-            py <= (float)(h - 1);
+            py <= (float)(src_h - 1);
   }
   if (!kBilinear) {
     const int xi = clamp_index(rintf(px), w - 1);
-    const int yi = clamp_index(rintf(py), h - 1);
+    const int yi = clamp_index(rintf(py), src_h - 1);
     const Vec* row =
         reinterpret_cast<const Vec*>(src + ((size_t)yi * w + xi) * c);
     Vec* dst = reinterpret_cast<Vec*>(out + i * c);
@@ -90,8 +93,8 @@ __global__ void reproject(const float* __restrict__ src,
   }
   const float y0 = floorf(py), x0 = floorf(px);
   const float fy = py - y0, fx = px - x0;
-  const int y0i = clamp_index(y0, h - 1), x0i = clamp_index(x0, w - 1);
-  const int y1i = min(y0i + 1, h - 1), x1i = min(x0i + 1, w - 1);
+  const int y0i = clamp_index(y0, src_h - 1), x0i = clamp_index(x0, w - 1);
+  const int y1i = min(y0i + 1, src_h - 1), x1i = min(x0i + 1, w - 1);
   const float* r00 = src + ((size_t)y0i * w + x0i) * c;
   const float* r01 = src + ((size_t)y0i * w + x1i) * c;
   const float* r10 = src + ((size_t)y1i * w + x0i) * c;
@@ -105,45 +108,50 @@ __global__ void reproject(const float* __restrict__ src,
 // per_pixel: the threads that share a pixel (its c / V vector slots in
 // nearest mode, 1 in bilinear mode).
 template <int V, bool kBilinear>
-cudaError_t launch(const float* src, const float* motion, int h, int w,
-                   int c, int per_pixel, float* out, unsigned char* ok,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* src, const float* motion, int h, int src_h,
+                   int row0, int w, int c, int per_pixel, float* out,
+                   unsigned char* ok, cudaStream_t stream) {
   const int slots = min(per_pixel, kMaxThreads);
   const int pixels = max(1, kSlots / slots);
   const int rows = max(1, min(kRows, kMaxThreads / (slots * pixels)));
   const dim3 block(slots, pixels, rows);
   const dim3 grid((w + pixels - 1) / pixels, (h + rows - 1) / rows);
   reproject<V, kBilinear><<<grid, block, 0, stream>>>(
-      src, reinterpret_cast<const float2*>(motion), h, w, c, out, ok);
+      src, reinterpret_cast<const float2*>(motion), h, src_h, row0, w, c,
+      out, ok);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// vec: words per thread in nearest mode (1, 2 or 4), dividing c, with src
-// and out aligned to 4 * vec bytes and motion to 8; 1 in bilinear mode,
-// where a thread takes a pixel's c channels.
+// h output rows (motion and out) of the src_h-row history, starting at
+// history row row0 (0 <= row0, row0 + h <= src_h). vec: words per thread
+// in nearest mode (1, 2 or 4), dividing c, with src and out aligned to
+// 4 * vec bytes and motion to 8; 1 in bilinear mode, where a thread takes
+// a pixel's c channels.
 extern "C" int drts_reproject(const float* src, const float* motion, int h,
-                              int w, int c, int bilinear, int vec,
-                              float* out, unsigned char* ok,
-                              cudaStream_t stream) {
+                              int src_h, int row0, int w, int c,
+                              int bilinear, int vec, float* out,
+                              unsigned char* ok, cudaStream_t stream) {
   if (h <= 0 || w <= 0) return (int)cudaGetLastError();
-  if (c <= 0 || c % vec != 0 || (bilinear && vec != 1)) {
+  if (c <= 0 || c % vec != 0 || (bilinear && vec != 1) || row0 < 0 ||
+      row0 + h > src_h) {
     return cudaErrorInvalidValue;
   }
   if (bilinear) {
-    return (int)launch<1, true>(src, motion, h, w, c, 1, out, ok, stream);
+    return (int)launch<1, true>(src, motion, h, src_h, row0, w, c, 1, out,
+                                ok, stream);
   }
   switch (vec) {
     case 4:
-      return (int)launch<4, false>(src, motion, h, w, c, c / 4, out, ok,
-                                   stream);
+      return (int)launch<4, false>(src, motion, h, src_h, row0, w, c, c / 4,
+                                   out, ok, stream);
     case 2:
-      return (int)launch<2, false>(src, motion, h, w, c, c / 2, out, ok,
-                                   stream);
+      return (int)launch<2, false>(src, motion, h, src_h, row0, w, c, c / 2,
+                                   out, ok, stream);
     case 1:
-      return (int)launch<1, false>(src, motion, h, w, c, c, out, ok,
-                                   stream);
+      return (int)launch<1, false>(src, motion, h, src_h, row0, w, c, c,
+                                   out, ok, stream);
     default:
       return cudaErrorInvalidValue;
   }

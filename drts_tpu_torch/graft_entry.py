@@ -1,31 +1,35 @@
 """Entry points of the port (port of ``__graft_entry__.py``): one
-frame step, the multi-device dry run and the banded frame's scaling run.
+frame step, the multi-device dry run and the sharded frame's scaling run.
 
 - ``entry()``: (fn, example args) of one frame step of the flagship
   pipeline at 256x256, 4 bounces, on the card.
 - ``dryrun_multichip(n)``: the reference's recipe (64x64 below 8 devices,
   ``max(128, 8n)`` from 8; 2 bounces, ``compact_from=1``, SHARC 2^16,
-  ReSTIR 8 cells) rendered banded over n ranks (one frame, its image
-  finite and every rank's ``FrameState`` the same), then the banded
-  ``trace_image`` over the instanced-geosphere scene. Under an existing
-  process group it runs on that group's first n ranks; otherwise it
-  spawns n ranks (NCCL, one card each, on ``cuda``; gloo on ``cpu``).
+  ReSTIR 8 cells) rendered sharded over n ranks (one frame: every leaf
+  of the new state shaped as ``RenderPipeline.placement`` says, the
+  replicated ones the same on every rank, the gathered image finite),
+  then the banded ``trace_image`` over the instanced-geosphere scene.
+  Under an existing process group it runs on that group's first n ranks;
+  otherwise it spawns n ranks (NCCL, one card each, on ``cuda``; gloo on
+  ``cpu``).
 - ``python -m drts_tpu_torch.graft_entry``, alone or under torchrun::
 
       torchrun --nproc_per_node 4 -m drts_tpu_torch.graft_entry \\
           --default-frame [--width 1920 --height 1080] [--frames 5]
 
   renders the frame (``PipelineConfig()`` at the size given with
-  ``--default-frame``, else ``entry``'s recipe) unbanded on rank 0
-  (``group=None``, reported as rank count 0), then banded over the first
+  ``--default-frame``, else ``entry``'s recipe) unsharded on rank 0
+  (``group=None``, reported as rank count 0), then sharded over the first
   1, 2, 4, ... ranks and all of them, each from the same start state: the
   warm frame, then ``--frames - 1`` timed frames (a synchronize and a
-  barrier around each) and one SHARC cadence timed stage by stage. Rank
-  0 holds every banded image to the unbanded one (the bounds of
-  ``DEFAULT_*``), every count's replicas must agree, and it prints one
-  JSON line: per rank count the frame time and the counters, and per
-  rank its stage times, launches and spill waves a frame; a failed check
-  exits non-zero.
+  barrier around each) and one SHARC cadence timed stage by stage (the
+  ranks aligned by a barrier before each stage). Rank
+  0 holds every gathered image to the unsharded one (the bounds of
+  ``DEFAULT_*``), every count's replicated leaves must agree, and it
+  prints one JSON line: per rank count the frame time and the counters,
+  and per rank its stage times, launches, spill waves a frame, the bytes
+  of its ``FrameState`` between frames and its peak device memory; a
+  failed check exits non-zero.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from . import backend, bench
 from .models import myscene, pipeline
 from .ops import camera as camera_mod, pathtrace, restir, sharc
 from .parallel import mesh as mesh_mod, multihost
+from .utils import checkpoint
 
 # The bounds of chip_smoke.py's DEFAULT_* (a frame of another rank count,
 # or another order of the SHARC splat's float additions, against this one):
@@ -83,11 +88,14 @@ def _setup(cfg, device, oscillator_grid=10, pose=None):
 def entry(device="cuda"):
     """(fn, example_args): one frame step of the flagship pipeline
     (physics + G-buffer + path trace + denoise + post) at 256x256;
-    ``fn(state, pose, group=None)`` returns the image."""
+    ``fn(state, pose, group=None)`` returns the image (with a group, the
+    whole image, gathered from the ranks' bands)."""
     pipe, state, pose = _setup(_config(256, 256, bounces=4, spp=1), device)
 
     def fn(state, pose, group=None):
         _, image = pipe.render_frame(state, pose, 1.0 / 60.0, group=group)
+        if group is not None:
+            image = mesh_mod.gather_rows(image, group, pipe.cfg.output_height)
         return image
 
     return fn, (state, pose)
@@ -100,12 +108,15 @@ def _dryrun(group, n_devices, device):
                                        compact_from=1), dev)
     new_state, image = pipe.render_frame(state, pose, 1.0 / 60.0,
                                          group=group)
+    image = mesh_mod.gather_rows(image, group, pipe.cfg.output_height)
     assert image.shape == (pipe.cfg.output_height, pipe.cfg.output_width,
                            3)
     assert bool(torch.isfinite(image).all())
-    differ = mesh_mod.replicas_differ(mesh_mod.replica_checksums(new_state,
-                                                                 group))
-    assert not differ, f"the ranks' states differ at {differ}"
+    bad = misplaced(pipe, state, new_state, group)
+    assert not bad, f"leaves off their placement: {bad}"
+    differ = mesh_mod.replicas_differ(replicated_checksums(pipe, new_state,
+                                                           group))
+    assert not differ, f"the ranks' replicated leaves differ at {differ}"
 
     # The mesh path under the same bands: one banded trace over the
     # instanced-geosphere scene (one shared BLAS and an instance table,
@@ -119,6 +130,36 @@ def _dryrun(group, n_devices, device):
     mimg = banded_trace(group, mh, mcfg)
     assert mimg.shape == (mh_h, mw, 3)
     assert bool(torch.isfinite(mimg).all())
+
+
+def replicated_checksums(pipe, state, group):
+    """``mesh.replica_checksums`` over the leaves the placement
+    replicates."""
+    placed = pipe.placement(state, dist.get_world_size(group))
+    return mesh_mod.replica_checksums(
+        state, group, {p for p, k in placed.items()
+                       if k == mesh_mod.REPLICATED})
+
+
+def misplaced(pipe, state0, state, group):
+    """The paths of `state` (a rank's shards after a sharded frame) whose
+    first axis is not what the placement of the one-device `state0` says:
+    the rank's band or slot range for "rows" and "slots", the one-device
+    size for "replicated"."""
+    r, n = mesh_mod.group_rank(group)
+    placed = pipe.placement(state0, n)
+    full = dict(checkpoint.leaves(state0))
+    bad = []
+    for path, leaf in checkpoint.leaves(state):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        want = tuple(full[path].shape)
+        if placed[path] != mesh_mod.REPLICATED:
+            s, e = mesh_mod.row_band(want[0], r, n)
+            want = (e - s,) + want[1:]
+        if tuple(leaf.shape) != want:
+            bad.append((path, tuple(leaf.shape), want))
+    return bad
 
 
 def banded_trace(group, host, cfg, frame_index=0):
@@ -145,7 +186,7 @@ def trace_worker(group, cfg, oscillator_grid, out_dir, device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """The full frame step banded over n ranks, one step, then the banded
+    """The full frame step sharded over n ranks, one step, then the banded
     mesh trace (see the module docstring). Under a started process group,
     every rank of it calls this; otherwise it spawns the n ranks."""
     if dist.is_initialized():
@@ -159,16 +200,19 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
 def frames_worker(group, cfgs, frames, out_dir, oscillator_grid=10,
                   pose=None, device="cuda"):
     """A rank of ``multihost.spawn`` (the tests' spawned ranks): for each
-    config of `cfgs`, `frames` frames banded over `group` from the demo
-    scene's start state; then, per config, this rank's images, final
-    state (on the CPU), replica checksums (over the group), band and
-    kernel launches, saved as a list with torch.save to
-    ``out_dir/rank<r>.pt``."""
+    config of `cfgs`, `frames` frames sharded over `group` from the demo
+    scene's start state (cut by ``RenderPipeline.shard_state``); then, per
+    config, this rank's image bands, final shards (on the CPU), the leaves
+    off their placement (``misplaced``), the checksums of the replicated
+    leaves (over the group), the gathered final state, render band (the
+    global group's ``process_local_rows``) and kernel launches, saved as a
+    list with torch.save to ``out_dir/rank<r>.pt``."""
     dev = multihost.rank_device(device)
     runs = []
     for cfg in cfgs:
-        pipe, state, pose_ = _setup(cfg, dev, oscillator_grid, pose)
+        pipe, state0, pose_ = _setup(cfg, dev, oscillator_grid, pose)
         backend.reset_launches()
+        state = pipe.shard_state(state0, group)
         images = []
         for _ in range(frames):
             state, image = pipe.render_frame(state, pose_, group=group)
@@ -176,10 +220,62 @@ def frames_worker(group, cfgs, frames, out_dir, oscillator_grid=10,
         runs.append({
             "images": images,
             "state": mesh_mod.map_tensors(lambda t: t.cpu(), state),
-            "checksums": mesh_mod.replica_checksums(state, group),
+            "misplaced": misplaced(pipe, state0, state, group),
+            "checksums": replicated_checksums(pipe, state, group),
+            "gathered": mesh_mod.map_tensors(
+                lambda t: t.cpu(), pipe.gather_state(state, group)),
             "launches": dict(backend.LAUNCHES),
-            "band": mesh_mod.group_band(cfg.render_height, group)})
+            "band": multihost.process_local_rows(cfg.render_height)})
     torch.save(runs, os.path.join(out_dir, f"rank{dist.get_rank(group)}.pt"))
+
+
+# The row shifts and roll offsets exchange_worker checks (rows of halo).
+EXCHANGE_SHIFTS = (-5, -2, -1, 1, 3, 5)
+
+
+def exchange_worker(group, height, width, out_dir, device="cuda"):
+    """A rank of ``multihost.spawn`` (the tests' spawned ranks): the
+    sharded frame's exchanges on this rank's ``row_band`` of seeded data,
+    the same on every rank. Saves to ``out_dir/rank<r>.pt``: the band's
+    rows of ``post._shift`` (an (H, W, 3) image) and
+    ``denoise._shift_chw`` (a (3, H, W) stack) by each of
+    EXCHANGE_SHIFTS rows and one column, computed on the band and a
+    clamped halo of |shift| rows; the band's rows of ``torch.roll`` by
+    each shift, from a cyclic halo; this rank's rows of the sum and the
+    max over the ranks of each rank's (H, 4) and (H,) int64 data in
+    both reduce-scatter forms; and the whole image gathered back."""
+    from .ops import denoise, post
+    dev = multihost.rank_device(device)
+    r, n = mesh_mod.group_rank(group)
+    band = mesh_mod.Band.of(group, height)
+    gen = torch.Generator().manual_seed(height * 1000 + width)
+    img = torch.randn((height, width, 3), generator=gen).to(dev)
+    mine = img[band.start:band.end]
+    chw = img.permute(2, 0, 1)[:, band.start:band.end]
+    out = {"band": band.span(), "shift": {}, "shift_chw": {}, "roll": {},
+           "reduce_scatter": {}}
+    for dy in EXCHANGE_SHIFTS:
+        k = abs(dy)
+        ext = band.halo([mine], k, k)[0]
+        out["shift"][dy] = band.inner(post._shift(ext, dy, 1), k).cpu()
+        ext_chw = band.halo([chw.permute(1, 2, 0)], k, k)[0]
+        out["shift_chw"][dy] = band.inner(
+            denoise._shift_chw(ext_chw.permute(2, 0, 1), dy, 1)
+            .permute(1, 2, 0), k).cpu()
+        lo, hi = max(0, -dy), max(0, dy)
+        ring = band.halo([mine], lo, hi, cyclic=True)[0]
+        out["roll"][dy] = torch.roll(ring[lo + dy:lo + dy + band.rows],
+                                     shifts=-1, dims=1).cpu()
+    local = torch.Generator().manual_seed(7 + r)
+    sums = torch.randn((height, 4), generator=local).to(dev)
+    words = torch.randint(0, 1 << 40, (height,), generator=local).to(dev)
+    for form in mesh_mod.REDUCE_SCATTER_FORMS:
+        out["reduce_scatter"][form] = (
+            band.reduce_scatter(sums, form=form).cpu(),
+            band.reduce_scatter(words, op=dist.ReduceOp.MAX,
+                                form=form).cpu())
+    out["gathered"] = band.gather(mine).cpu()
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
 
 
 def _sync(dev, group):
@@ -189,11 +285,23 @@ def _sync(dev, group):
         dist.barrier(group)
 
 
-def _scaling_run(pipe, state, pose, frames, group, dev):
+def _scaling_run(cfg, frames, group, dev):
     """The warm frame, `frames` - 1 timed frames and one SHARC cadence
-    timed stage by stage, banded over `group` (None: one device). Returns
-    (frame ms, the last image, the last state, this rank's stats: stage
-    ms, and launches and spill waves of its own band per timed frame)."""
+    timed stage by stage of `cfg` on the demo scene, sharded over `group`
+    (None: one device) from a start state of its own, which a rank holds
+    only as its shards. Returns (frame ms, the last image gathered whole,
+    the pipeline, the start state's leaves as meta tensors, the last state
+    (this rank's shards), this rank's stats: stage ms, launches and spill
+    waves of its own band per timed frame, the bytes of its state between
+    frames and its peak device memory over the run)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    pipe, state, pose = _setup(cfg, dev)
+    like = mesh_mod.map_tensors(
+        lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), state)
+    if group is not None:
+        state = pipe.shard_state(state, group)
     state, image = pipe.render_frame(state, pose, group=group)
     _sync(dev, group)
     backend.reset_launches()
@@ -220,13 +328,27 @@ def _scaling_run(pipe, state, pose, frames, group, dev):
     passes = {}
     for _ in range(staged):
         frame = {}
-        state, image = pipe.render_frame(
-            state, pose, group=group, _run=bench.stage_timer(frame, dev))
+        timer = bench.stage_timer(frame, dev)
+
+        def aligned(name, fn, *args):
+            # The ranks start each stage together (a synchronize and a
+            # barrier outside the timed span), so a stage's time holds its
+            # own work and exchanges, not the wait for a rank still in an
+            # earlier stage.
+            _sync(dev, group)
+            return timer(name, fn, *args)
+        state, image = pipe.render_frame(state, pose, group=group,
+                                         _run=aligned)
         for name, ms in frame.items():
             passes[name] = passes.get(name, 0.0) + ms / staged
     _sync(dev, group)
     stats["passes_ms"] = passes
-    return elapsed / timed * 1e3, image, state, stats
+    stats["state_bytes"] = mesh_mod.state_bytes(state)
+    stats["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None)
+    if group is not None:
+        image = mesh_mod.gather_rows(image, group, pipe.cfg.output_height)
+    return elapsed / timed * 1e3, image, pipe, like, state, stats
 
 
 def main(argv=None) -> int:
@@ -253,9 +375,8 @@ def main(argv=None) -> int:
     else:
         w, h = args.width or 256, args.height or 256
         cfg = _config(w, h, bounces=4, spp=1)
-    pipe, state0, pose = _setup(cfg, dev)
 
-    # Rank count 0 is the unbanded frame (group=None), on rank 0 alone.
+    # Rank count 0 is the unsharded frame (group=None), on rank 0 alone.
     counts = [0] + (sorted({k for k in (1, 2, 4, 8, 16, 32) if k <= world}
                            | {world}) if started else [])
     report = {"world": world, "config": f"{w}x{h}"
@@ -263,19 +384,21 @@ def main(argv=None) -> int:
               "device": (torch.cuda.get_device_name(dev)
                          if dev.type == "cuda" else "cpu"),
               "frame_ms": {}, "counters": {}, "replicas_equal": {},
+              "misplaced": {},
               "ranks": {}}
     images = {}
     for k in counts:
         group = mesh_mod.make_group(k) if k else None
         if not (mesh_mod.is_member(group) if k else rank == 0):
             continue
-        ms, image, state, stats = _scaling_run(pipe, state0, pose,
-                                               args.frames, group, dev)
+        ms, image, pipe, like, state, stats = _scaling_run(
+            cfg, args.frames, group, dev)
         per_rank = [stats]
         if group is not None:
             differ = mesh_mod.replicas_differ(
-                mesh_mod.replica_checksums(state, group))
+                replicated_checksums(pipe, state, group))
             report["replicas_equal"][k] = not differ
+            report["misplaced"][k] = misplaced(pipe, like, state, group)
             per_rank = [None] * k
             dist.all_gather_object(per_rank, stats, group=group)
         images[k] = image.cpu()
@@ -283,7 +406,9 @@ def main(argv=None) -> int:
         report["counters"][k] = {n: float(v) for n, v in
                                  state.counters.items()}
         report["ranks"][k] = per_rank
-    ok = all(report["replicas_equal"].values())
+        del pipe, state, image
+    ok = (all(report["replicas_equal"].values())
+          and not any(report["misplaced"].values()))
     if rank == 0:
         for name in ("image_mean_abs_diff", "image_max_abs_diff",
                      "pixels_off"):

@@ -34,17 +34,17 @@ The SHARC cadence is decided on the host: ``FrameState.frame_count`` is a
 Python int beside the device's ``frame_index``, so the skip frames read
 nothing back from the card.
 
-``render_frame(..., group=...)`` renders the frame banded over the ranks
-of a ``torch.distributed`` group (``drts_tpu_torch.parallel``): the
-G-buffer, ReSTIR's initial candidates and final shading, the SHARC update
-trace and the path trace run on this rank's row band; the update and
-ReSTIR's light table and grid run on every rank; their band outputs are
-gathered (the stages "gather_*") before ReSTIR's temporal and spatial
-reuse, the denoiser, TAA and post, which run on the full frame on every
-rank. The SHARC splat and the counters that sum over pixels are
-all-reduced, so every rank ends the frame with the same ``FrameState``
-and image. Without a group the frame makes exactly the launches it makes
-on one device.
+``render_frame(..., group=...)`` renders the frame sharded over the ranks
+of a ``torch.distributed`` group (``drts_tpu_torch.parallel``): each rank
+holds its shards of ``FrameState`` between frames (``placement``: the
+frame buffers by rows, the SHARC cache by slot range, the rest whole),
+renders its row band (a stage of a fixed footprint with a halo from its
+neighbours, a history fetch at pixel + motion from that history gathered
+for the stage), splats into its slot range and resolves it, and returns
+its band of the image's output rows. The exchanges outside the stages
+are the stages "gather_sharc_mirror", "reduce_trace_counters" and
+"store_shards". Without a group the frame makes exactly the launches it
+makes on one device.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from .. import backend, config as config_mod
 from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
@@ -59,6 +60,7 @@ from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
                    sharc as sharc_mod, taa)
 from ..parallel import mesh as mesh_mod
 from ..utils import rng as rng_mod
+from ..utils.checkpoint import leaves
 from . import clusters, myscene, scene as scene_mod
 
 
@@ -464,12 +466,13 @@ class RenderPipeline:
         return surface, cur
 
     def _restir_temporal(self, state, cur, surface, lights, gbuf, reset,
-                         frame_index, scene=None, accel=None, cam=None):
+                         frame_index, scene=None, accel=None, cam=None,
+                         band=None):
         c = self.cfg
         hist = state.reservoirs
         if reset:
-            hist = restir.init_reservoirs(c.render_height, c.render_width,
-                                          self.device)
+            hist = restir.init_reservoirs(state.prev_depth.shape[0],
+                                          c.render_width, self.device)
         prev_material = prev_cam_pos = None
         if self._use_real_prev_surface():
             prev_material = state.prev_surface_rows
@@ -480,14 +483,15 @@ class RenderPipeline:
             cur, hist, surface, lights, gbuf.motion, state.prev_depth,
             state.prev_normal, c.restir, frame_index, scene=scene,
             accel=accel, block_size=c.block_size,
-            prev_material=prev_material, prev_camera_position=prev_cam_pos)
+            prev_material=prev_material, prev_camera_position=prev_cam_pos,
+            band=band)
 
     def _restir_spatial(self, cur, surface, lights, frame_index,
-                        frame_count, scene=None, accel=None):
+                        frame_count, scene=None, accel=None, band=None):
         return restir.spatial_resampling(
             cur, surface, lights, self.cfg.restir, frame_index, scene=scene,
             accel=accel, block_size=self.cfg.block_size,
-            frame_count=frame_count)
+            frame_count=frame_count, band=band)
 
     def _restir_final(self, cur, surface, scene, lights, accel):
         return restir.final_shading(cur, surface, scene, lights,
@@ -505,23 +509,36 @@ class RenderPipeline:
             sharc_query_from=c.sharc_query_from)
 
     def _stage_sharc(self, state, scene, cam, di_total, accel, frame_index,
-                     group=None):
+                     sh=None):
         """SHARC update trace + resolve at the downscaled size
         (Raytracing.ixx:114-148), every sharc_update_period frames by the
         host's frame count; a skip frame keeps the cache and counts zero
-        dropped rows. With a group, the band's rows and an all-reduced
-        splat."""
+        dropped rows. Sharded (`sh`): this rank's band of the downscaled
+        rows (the DI resized to them from a halo), the splat
+        reduce-scattered into the slot ranges, this rank's range resolved;
+        the cache comes back as the range."""
         c = self.cfg
+        sharc_state = state.sharc
+        if sh is not None:
+            sharc_state = sh.slot_range(sharc_state)
         if state.frame_count % max(c.sharc_update_period, 1) != 0:
-            return state.sharc, {"sharc_splat_dropped_rows": torch.zeros(
+            return sharc_state, {"sharc_splat_dropped_rows": torch.zeros(
                 (), dtype=torch.float32, device=self.device)}
         su_cfg = dataclasses.replace(
             self._pt_cfg(),
             width=max(1, c.render_width // c.sharc_downscale),
             height=max(1, c.render_height // c.sharc_downscale))
+        band = di_small = slots = None
+        if sh is not None:
+            band = mesh_mod.Band.of(sh.group, su_cfg.height)
+            slots = sh.slots
+            if di_total is not None:
+                di_small = post.resize_band(di_total, sh.render, band,
+                                            su_cfg.width)
         return pathtrace.sharc_update_trace(
-            scene, cam, state.sharc, c.sharc, su_cfg, frame_index,
-            di_radiance=di_total, accel=accel, group=group)
+            scene, cam, sharc_state, c.sharc, su_cfg, frame_index,
+            di_radiance=di_total, accel=accel, band=band, slots=slots,
+            di_small=di_small)
 
     def _stage_trace(self, scene, cam, gbuf, sharc_state, di_total,
                      frame_index, accel, rows=None):
@@ -533,35 +550,24 @@ class RenderPipeline:
             di_radiance=di_total, di_in_radiance=c.denoiser == "None",
             accel=accel, rows=rows)
 
-    def _gather_trace(self, out, gbuf, group):
-        """The banded trace's full frame: its radiance and first-bounce
-        AOVs gathered, the primary AOVs from the gathered G-buffer (the
-        trace takes them from it), the rays, counters and spill waves
-        summed over the ranks."""
-        radiance, is_diffuse, hit_distance = mesh_mod.gather_tree(
-            (out.radiance, out.is_diffuse, out.hit_distance), group,
-            self.cfg.render_height)
+    def _reduce_trace(self, out, group):
+        """The sharded trace's counters, rays and spill waves summed over
+        the ranks (its pixels stay the band's)."""
         sums = mesh_mod.all_reduce_counters(
             {**out.counters, "rays_traced": out.rays_traced,
              "spill_waves": torch.tensor(float(out.spill_waves),
                                          device=self.device)}, group)
         spill_waves = int(sums.pop("spill_waves").item())
         rays_traced = sums.pop("rays_traced")
-        return pathtrace.TraceOutput(
-            radiance=radiance, is_diffuse=is_diffuse,
-            hit_distance=hit_distance, primary_valid=gbuf.surf.valid,
-            primary_position=gbuf.surf.position,
-            primary_normal=gbuf.mat.shading_normal,
-            primary_albedo=gbuf.diffuse_albedo,
-            primary_f_env=gbuf.specular_albedo,
-            primary_radiance=gbuf.radiance, rays_traced=rays_traced,
-            counters=sums, spill_waves=spill_waves)
+        return dataclasses.replace(out, rays_traced=rays_traced,
+                                   counters=sums, spill_waves=spill_waves)
 
     def _stage_denoise(self, state, out, gbuf, cam, di_diffuse, di_specular,
-                       reset):
+                       reset, band=None):
         """Demodulated denoise + compose (Raytracing.hlsl:400-413 +
         NRDComposition). Returns (denoiser state, colour, the TAA
-        confidence of DLSS-RR or None)."""
+        confidence of DLSS-RR or None). On a band, `state.denoiser` holds
+        its rows (the history fetch gathers the leaves it reads)."""
         # Indirect radiance split into demodulated diffuse and specular
         # channels, plus the direct light per channel.
         indirect = torch.clamp(out.radiance - out.primary_radiance, min=0.0)
@@ -605,7 +611,7 @@ class RenderPipeline:
         den_state, f_diff, f_spec = den_fn(
             state.denoiser, diff4, spec4, gbuf.motion, out.primary_normal,
             gbuf.linear_depth, out.primary_valid, gbuf.mat.roughness, reset,
-            den_cfg, motion_specular=motion_spec)
+            den_cfg, motion_specular=motion_spec, band=band)
         color = denoise.compose(out.primary_radiance, f_diff, f_spec,
                                 out.primary_albedo, out.primary_f_env,
                                 out.primary_valid)
@@ -613,10 +619,12 @@ class RenderPipeline:
                       if c.denoiser == "DLSSRayReconstruction" else None)
         return den_state, color, confidence
 
-    def _stage_taa(self, state, color, gbuf, cam, reset, confidence=None):
+    def _stage_taa(self, state, color, gbuf, cam, reset, confidence=None,
+                   sh=None):
         """TAA upscale (the DLSS-SR / XeSS slot, App.cpp:1644-1708); with
         no TAA, a render size other than the output size is resized
-        bilinearly."""
+        bilinearly. Sharded (`sh`): the render band in, the output band
+        out (``taa.upscale``)."""
         c = self.cfg
         taa_state = state.taa
         use_taa = {"auto": c.upscaling or c.denoiser != "None",
@@ -630,29 +638,40 @@ class RenderPipeline:
                                   clip_gamma_motion=c.taa_clip_gamma_motion,
                                   clip_motion_px=c.taa_clip_motion_px,
                                   blend_alpha=c.taa_blend_alpha),
-                confidence=confidence)
+                confidence=confidence,
+                band=sh.render if sh is not None else None,
+                out_band=sh.output if sh is not None else None)
         elif (c.output_height, c.output_width) != (c.render_height,
                                                    c.render_width):
-            color = post.resize_bilinear(color, c.output_height,
-                                         c.output_width)
+            color = self._to_output(color, sh)
         return taa_state, color
 
-    def _stage_postfx(self, color, dyn: DynamicSettings | None = None):
+    def _to_output(self, img, sh=None):
+        """A render-size image resized to the output size (bilinear), as
+        the output band's rows of the render band's on the sharded frame."""
+        c = self.cfg
+        if sh is None:
+            return post.resize_bilinear(img, c.output_height, c.output_width)
+        return post.resize_band(img, sh.render, sh.output, c.output_width)
+
+    def _stage_postfx(self, color, dyn: DynamicSettings | None = None,
+                      band=None):
         """Sharpen + bloom + tone map (App.cpp:1498-1514), then the
-        display-space chromatic aberration."""
+        display-space chromatic aberration; on an output band, each
+        neighbour-reading pass with its halo."""
         c = self.cfg
         if dyn is None:
             dyn = default_dynamic(c, self.device)
         if c.sharpen_enabled:
-            color = post.sharpen(color, dyn.sharpness)
+            color = post.sharpen(color, dyn.sharpness, band)
         if c.bloom_enabled:
-            color = post.bloom(color, dyn.bloom_strength)
+            color = post.bloom(color, dyn.bloom_strength, band=band)
         color = post.tonemap(color, c.tone_map_operator, dyn.exposure,
                              hdr=c.hdr_enabled,
                              paper_white_nits=c.paper_white_nits,
                              color_rotation=c.hdr_color_rotation)
-        return post.chromatic_aberration(color,
-                                         c.chromatic_aberration_strength)
+        return post.chromatic_aberration(
+            color, c.chromatic_aberration_strength, band)
 
     def _stage_post(self, state, color, gbuf, cam, reset, confidence=None,
                     dyn: DynamicSettings | None = None):
@@ -663,7 +682,7 @@ class RenderPipeline:
                                            confidence)
         return taa_state, self._stage_postfx(color, dyn)
 
-    def _stage_debug(self, image, gbuf, cam, grid, den_state):
+    def _stage_debug(self, image, gbuf, cam, grid, den_state, sh=None):
         """The diagnostic views (DIFinalShading.hlsl:69-75,
         Raytracing.hlsl:279-284, App.cpp:1522-1524)."""
         c = self.cfg
@@ -672,17 +691,70 @@ class RenderPipeline:
                 and grid is not None):
             dbg = debugviz.regir_cells(grid, surf.position, surf.valid,
                                        c.restir.regir_cells_per_axis)
-            return post.resize_bilinear(dbg, c.output_height, c.output_width)
+            return self._to_output(dbg, sh)
         if c.debug_view == "SHARC" and c.sharc_enabled:
             front = torch.where(surf.is_front_face[..., None],
                                 surf.geometric_normal, -surf.geometric_normal)
             dbg = debugviz.sharc_voxels(surf.position, front, cam.position,
                                         surf.valid, c.sharc)
-            return post.resize_bilinear(dbg, c.output_height, c.output_width)
+            return self._to_output(dbg, sh)
         if c.debug_view == "NRDValidation" and c.denoiser != "None":
-            return debugviz.validation_overlay(image,
-                                               den_state.history_length)
+            resize = None
+            if (c.output_height, c.output_width) != (c.render_height,
+                                                     c.render_width):
+                resize = lambda x: self._to_output(x, sh)  # noqa: E731
+            return debugviz.validation_overlay(
+                image, den_state.history_length, resize=resize)
         return image
+
+    # -- the sharded frame -------------------------------------------------
+
+    def placement(self, state: FrameState, n: int) -> dict:
+        """{dotted path: mesh.ROWS | SLOTS | REPLICATED} of `state` on n
+        ranks: ``mesh.frame_state_placement`` of the one-device state's
+        shapes (`state` may hold either them or a rank's shards), with the
+        render and output heights and the SHARC capacity. The frame
+        buffers (denoiser, TAA, reservoirs, previous depth, normal and
+        surface rows, SHARC) follow the rule; the scene, physics,
+        toggles and counters stay replicated whatever their shapes."""
+        c = self.cfg
+        cap = 1 << c.sharc.capacity_log2
+        rows_of = {"taa": c.output_height, "sharc": cap}
+        for name in _RENDER_BUFFERS:
+            rows_of[name] = c.render_height
+        if not self._use_real_prev_surface():
+            del rows_of["prev_surface_rows"]   # the (1, 1, 7) placeholder
+
+        def one_device(path, leaf):
+            rows = rows_of.get(path.split(".")[0])
+            if rows is None:
+                return leaf
+            return torch.empty((rows,) + tuple(leaf.shape[1:]),
+                               dtype=leaf.dtype, device="meta")
+        kinds = mesh_mod.frame_state_placement(
+            mesh_mod.map_leaves(one_device, state),
+            (c.render_height, c.output_height), (cap,), n)
+        return {p: k if p.split(".")[0] in rows_of else mesh_mod.REPLICATED
+                for p, k in kinds.items()}
+
+    def shard_state(self, state: FrameState, group) -> FrameState:
+        """A one-device state cut to this rank's shards (``placement``)."""
+        return mesh_mod.shard_state(
+            state, group, self.placement(state, dist.get_world_size(group)))
+
+    def gather_state(self, state: FrameState, group) -> FrameState:
+        """The one-device state from the ranks' shards, on every rank."""
+        return mesh_mod.gather_state(
+            state, group, self.placement(state, dist.get_world_size(group)))
+
+    def _shards(self, state, group) -> "_Shards":
+        c = self.cfg
+        n = dist.get_world_size(group)
+        return _Shards(
+            group=group, placement=self.placement(state, n),
+            render=mesh_mod.Band.of(group, c.render_height),
+            output=mesh_mod.Band.of(group, c.output_height),
+            slots=mesh_mod.Band.of(group, 1 << c.sharc.capacity_log2))
 
     def render_frame(self, state: FrameState, pose: CameraPose,
                      dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
@@ -694,37 +766,27 @@ class RenderPipeline:
         ``_run(name, fn, *args)`` wraps every frame-graph stage (the
         PIX-scoped-event seam, App.cpp:598); ``bench.bench_frame`` times
         stages through it. With a ``group`` (every rank of it calls with
-        the same state), this rank renders its row band and the frame's
-        exchanges run as the stages "gather_*" (see the module
-        docstring). Returns (new_state, image (OH, OW, 3) in [0, 1])."""
+        its shards of the same state, or the whole one-device state) the
+        frame is sharded (module docstring): it returns this rank's
+        shards of the new state (``placement``) and its band of the
+        image's output rows. Returns (new_state, image (OH, OW, 3) in
+        [0, 1])."""
         if self.cluster_plan is None and not self._planned:
             raise RuntimeError("call init_state or build_plan first")
         c = self.cfg
         run = _run if _run is not None else (lambda name, fn, *a: fn(*a))
         fi = state.frame_index
-        band = None
+        sh = band = rows = out_band = None
         if group is not None:
-            band = mesh_mod.group_band(c.render_height, group)
-
-        def gathered(name, tree):
-            """A band stage's per-pixel outputs, as the full frame."""
-            if group is None:
-                return tree
-            return run(name, lambda t: mesh_mod.gather_tree(
-                t, group, c.render_height), tree)
-
-        def band_rows(tree):
-            """This rank's rows of a full-frame tree."""
-            if group is None:
-                return tree
-            return mesh_mod.map_tensors(lambda t: t[band[0]:band[1]], tree)
+            sh = self._shards(state, group)
+            band, out_band, rows = sh.render, sh.output, sh.render.span()
+            state = sh.band_rows(state)
 
         bodies, scene, cam, accel = run(
             "update", lambda s, p: self._stage_update(s, p, dt, prev_pose),
             state, pose)
-        gbuf_band = run("gbuffer", lambda s, cm, a: self._stage_gbuffer(
-            s, cm, a, fi, band), scene, cam, accel)
-        gbuf = gathered("gather_gbuffer", gbuf_band)
+        gbuf = run("gbuffer", lambda s, cm, a: self._stage_gbuffer(
+            s, cm, a, fi, rows), scene, cam, accel)
 
         di_total = di_diffuse = di_specular = grid = None
         reservoirs = state.reservoirs
@@ -736,30 +798,24 @@ class RenderPipeline:
             surface, cur = run(
                 "restir_initial",
                 lambda g, s, li, gr, a: self._restir_initial(
-                    g, s, li, gr, fi, a, band[0] if band else 0),
-                gbuf_band, scene, lights, grid, accel)
-            # Temporal and spatial reuse read other pixels: the full frame.
-            surface_full = surface
-            if group is not None:
-                cur = gathered("gather_reservoirs", cur)
-                surface_full = restir.make_surface(gbuf)
+                    g, s, li, gr, fi, a, rows[0] if rows else 0),
+                gbuf, scene, lights, grid, accel)
             if c.restir.temporal_enabled:
                 cur = run(
                     "restir_temporal",
                     lambda st, cu, su, li, g, s2, a2, cm:
                     self._restir_temporal(st, cu, su, li, g, reset, fi, s2,
-                                          a2, cm),
-                    state, cur, surface_full, lights, gbuf, scene, accel,
-                    cam)
+                                          a2, cm, band),
+                    state, cur, surface, lights, gbuf, scene, accel, cam)
             if c.restir.spatial_enabled:
                 cur = run(
                     "restir_spatial",
                     lambda cu, su, li, s2, a2: self._restir_spatial(
-                        cu, su, li, fi, state.frame_count, s2, a2),
-                    cur, surface_full, lights, scene, accel)
-            di_diffuse, di_specular = gathered("gather_di", run(
-                "restir_final", self._restir_final, band_rows(cur), surface,
-                scene, lights, accel))
+                        cu, su, li, fi, state.frame_count, s2, a2, band),
+                    cur, surface, lights, scene, accel)
+            di_diffuse, di_specular = run(
+                "restir_final", self._restir_final, cur, surface, scene,
+                lights, accel)
             di_total = di_diffuse + di_specular
             reservoirs = cur
             # MAX_LIGHTS cap accounting and ReGIR occupancy (the fraction
@@ -773,41 +829,46 @@ class RenderPipeline:
                     (grid.weight[:n_cells] > 0).to(torch.float32))
 
         # SHARC: the update pass at the downscaled size, then the main
-        # trace queries the fresh cache (Raytracing.ixx:114-148).
-        sharc_state = state.sharc
+        # trace queries the fresh cache (Raytracing.ixx:114-148); sharded,
+        # through the whole query mirror, gathered once.
+        sharc_state = query = state.sharc
         if c.sharc_enabled:
             sharc_state, sharc_counters = run(
                 "sharc_update",
                 lambda st, s, cm, di, a: self._stage_sharc(st, s, cm, di, a,
-                                                           fi, group),
+                                                           fi, sh),
                 state, scene, cam, di_total, accel)
             frame_counters.update(sharc_counters)
+            query = sharc_state
+            if sh is not None:
+                query = run("gather_sharc_mirror", sharc_mod.query_mirror,
+                            sharc_state, sh.slots)
 
         out = run("trace",
-                  lambda s, cm, g, sh, di, a: self._stage_trace(
-                      s, cm, g, sh, di, fi, a, band),
-                  scene, cam, gbuf_band, sharc_state, band_rows(di_total),
-                  accel)
-        if group is not None:
-            out = run("gather_trace", lambda o, g: self._gather_trace(
-                o, g, group), out, gbuf)
+                  lambda s, cm, g, sh_, di, a: self._stage_trace(
+                      s, cm, g, sh_, di, fi, a, rows),
+                  scene, cam, gbuf, query, di_total, accel)
+        if sh is not None:
+            out = run("reduce_trace_counters",
+                      lambda o: self._reduce_trace(o, group), out)
 
         den_state, confidence = state.denoiser, None
         if c.denoiser != "None":
             den_state, color, confidence = run(
                 "denoise",
                 lambda st, o, g, cm, dd, ds: self._stage_denoise(
-                    st, o, g, cm, dd, ds, reset),
+                    st, o, g, cm, dd, ds, reset, band),
                 state, out, gbuf, cam, di_diffuse, di_specular)
         else:
             color = out.radiance
         taa_state, color = run(
             "taa", lambda st, cl, g, cm, cf: self._stage_taa(
-                st, cl, g, cm, reset, cf),
+                st, cl, g, cm, reset, cf, sh),
             state, color, gbuf, cam, confidence)
-        image = run("post", self._stage_postfx, color, dyn)
+        image = run("post", lambda cl, d: self._stage_postfx(cl, d, out_band),
+                    color, dyn)
         if c.debug_view != "None":
-            image = self._stage_debug(image, gbuf, cam, grid, den_state)
+            image = self._stage_debug(image, gbuf, cam, grid, den_state, sh)
 
         frame_counters.update(out.counters)
         counters = {k: torch.as_tensor(frame_counters.get(k, 0.0),
@@ -827,4 +888,76 @@ class RenderPipeline:
             earth_gravity=state.earth_gravity,
             star_gravity=state.star_gravity, counters=counters,
             frame_count=state.frame_count + 1)
+        if sh is not None:
+            new_state = run("store_shards", sh.at_rest, new_state)
         return new_state, image
+
+
+# The FrameState fields of render-height rows (``RenderPipeline.placement``).
+_RENDER_BUFFERS = ("denoiser", "reservoirs", "prev_depth", "prev_normal",
+                   "prev_surface_rows")
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shards:
+    """One rank's view of the sharded frame: its group, the state's
+    placement and its render-row, output-row and SHARC-slot bands."""
+    group: object
+    placement: dict
+    render: mesh_mod.Band
+    output: mesh_mod.Band
+    slots: mesh_mod.Band
+
+    def _band_of(self, path):
+        """The band of a frame buffer's leaf (None: not a buffer)."""
+        top = path.split(".")[0]
+        if top == "taa":
+            return self.output
+        if top == "sharc":
+            return self.slots
+        return self.render if top in _RENDER_BUFFERS else None
+
+    def band_rows(self, state):
+        """`state` with each per-row frame buffer as this rank's rows: cut
+        where it holds the whole frame (a replicated buffer, or the
+        one-device state), as it is where it holds the rank's band. The
+        stages read history at pixel + motion through ``Band.full``; the
+        SHARC stage takes its slot range itself (``slot_range``)."""
+        def cut(path, leaf):
+            b = self._band_of(path)
+            if b is None or b is self.slots or leaf.ndim < 2 \
+                    or leaf.shape[0] != b.height:
+                return leaf
+            return leaf[b.start:b.end]
+        return mesh_mod.map_leaves(cut, state)
+
+    def slot_range(self, sharc_state):
+        """The SHARC cache as this rank's slot range."""
+        b = self.slots
+        return mesh_mod.map_tensors(
+            lambda t: t[b.start:b.end] if t.shape[0] == b.height else t,
+            sharc_state)
+
+    def at_rest(self, state):
+        """The new state as the placement keeps it between frames: per-row
+        and per-slot leaves as this rank's band or range; a frame buffer
+        the rule replicates (its height does not divide by n), computed by
+        bands, gathered whole (one all-gather per band kind, in a fixed
+        order)."""
+        keep, gather = {}, {}
+        for path, leaf in leaves(state):
+            b = self._band_of(path)
+            if b is None or not isinstance(leaf, torch.Tensor) \
+                    or leaf.ndim == 0:
+                continue
+            if self.placement.get(path) != mesh_mod.REPLICATED:
+                if leaf.shape[0] == b.height and b.rows != b.height:
+                    keep[path] = leaf[b.start:b.end]
+            elif leaf.shape[0] == b.rows and b.rows != b.height:
+                gather.setdefault(id(b), []).append((path, leaf))
+        for b in (self.render, self.output, self.slots):
+            got = gather.get(id(b), [])
+            if got:
+                full = b.gather_tree([leaf for _, leaf in got])
+                keep.update({p: t for (p, _), t in zip(got, full)})
+        return mesh_mod.map_leaves(lambda p, t: keep.get(p, t), state)

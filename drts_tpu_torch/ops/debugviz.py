@@ -41,11 +41,15 @@ def sharc_voxels(position, normal, camera_position, valid, cfg):
     return torch.where(valid[..., None], _hash_color(slot), 0.0)
 
 
-def validation_overlay(image, history_length, max_frames: float = 30.0):
+def validation_overlay(image, history_length, max_frames: float = 30.0,
+                       resize=None):
     """History-length heat (red young, green converged) blended 50% over
-    the image."""
+    the image; `resize` takes the render-size heat to the image's size
+    (bilinear by default, where the sizes differ)."""
     t = torch.clamp(history_length / max_frames, 0.0, 1.0)
     heat = torch.stack([1.0 - t, t, torch.zeros_like(t)], dim=-1)
-    if heat.shape[:2] != image.shape[:2]:
+    if resize is not None:
+        heat = resize(heat)
+    elif heat.shape[:2] != image.shape[:2]:
         heat = post.resize_bilinear(heat, image.shape[0], image.shape[1])
     return 0.5 * image + 0.5 * heat

@@ -19,6 +19,13 @@ full-f32 concatenation otherwise. The kernel is the exact gather, so its
 residuals beyond 3 px, which its XLA path does not. Images are (H, W, C)
 at the public functions, as the reference; the a-trous passes work on
 (C, H, W) stacks.
+
+With a ``band`` (``parallel.mesh.Band``, the sharded frame) the inputs and
+outputs hold the band's rows: the history leaves that B4 reads at pixel +
+motion are gathered for the fetch (B4 writes the band's rows), and each
+clamp-addressed filter runs on the band plus a halo of its footprint,
+fetched once: one row for the 3x3 clamps (two for ReLAX, whose firefly
+clamp comes first), 2^i - 1 rows for i a-trous passes.
 """
 
 from __future__ import annotations
@@ -177,19 +184,32 @@ def _luma(rgb):
             + _LUMA_W[2] * rgb[..., 2])
 
 
-def _reproject(packed, motion, history_filter: str):
+def _reproject(packed, motion, history_filter: str, band=None):
     """History fetch of an (H, W, C) buffer at pixel + motion through B4.
-    Returns (prev (H, W, C), in_bounds (H, W))."""
+    Returns (prev (H, W, C), in_bounds (H, W)). With a band, `motion` holds
+    its rows and `packed` its rows or the whole frame's (gathered)."""
+    row0 = 0
+    if band is not None:
+        packed, row0 = band.full(packed), band.start
     return reproject_kernels.reproject_packed(packed.contiguous(),
                                               motion.contiguous(),
-                                              history_filter)
+                                              history_filter, row0)
 
 
-def _neighborhood_clamp(prev, cur, gamma: float):
-    """Clamp reprojected history to the current frame's 3x3 per-channel
-    mean +- gamma * sigma; gamma <= 0 disables."""
-    if gamma <= 0.0:
-        return prev
+def _with_halo(band, k: int, fn, *tensors):
+    """fn(*tensors), a clamp-addressed filter whose rows read at most `k`
+    rows away: on a band, run on its rows plus a k-row halo and cut back
+    to its rows (a tensor or a tuple of them)."""
+    if band is None:
+        return fn(*tensors)
+    out = fn(*band.halo(list(tensors), k, k))
+    if isinstance(out, tuple):
+        return tuple(band.inner(o, k) for o in out)
+    return band.inner(out, k)
+
+
+def _clip_box(cur, gamma: float):
+    """The 3x3 per-channel mean -+ gamma * sigma of `cur`."""
     m1 = torch.zeros_like(cur)
     m2 = torch.zeros_like(cur)
     for dy in (-1, 0, 1):
@@ -199,7 +219,26 @@ def _neighborhood_clamp(prev, cur, gamma: float):
             m2 = m2 + s * s
     mean = m1 / 9.0
     sigma = torch.sqrt(torch.clamp(m2 / 9.0 - mean * mean, min=0.0)) * gamma
-    return torch.clamp(prev, mean - sigma, mean + sigma)
+    return mean - sigma, mean + sigma
+
+
+def _neighborhood_clamp(prev, cur, gamma: float):
+    """Clamp reprojected history to the current frame's 3x3 per-channel
+    mean +- gamma * sigma; gamma <= 0 disables."""
+    if gamma <= 0.0:
+        return prev
+    return torch.clamp(prev, *_clip_box(cur, gamma))
+
+
+def _clamp_pair(prev_d, prev_s, cur_d, cur_s, gamma: float, band=None):
+    """_neighborhood_clamp of the diffuse and specular histories; on a
+    band, the boxes from a one-row halo of the current signals."""
+    if gamma <= 0.0:
+        return prev_d, prev_s
+    lo_d, hi_d, lo_s, hi_s = _with_halo(
+        band, 1, lambda d, s: (*_clip_box(d, gamma), *_clip_box(s, gamma)),
+        cur_d, cur_s)
+    return torch.clamp(prev_d, lo_d, hi_d), torch.clamp(prev_s, lo_s, hi_s)
 
 
 def virtual_specular_motion(surface_motion, hit_position, ray_direction,
@@ -247,31 +286,32 @@ def _sanitize(depth, diffuse, specular):
 
 
 def _fetch_history(state: DenoiserState, motion, cfg: DenoiseConfig,
-                   relax: bool):
+                   relax: bool, band=None):
     """(prev diffuse, specular, hist, normal, depth, moments or None,
     in_bounds): nearest from the packed mirror, else the config's filter
     on the full-f32 concatenation."""
     if cfg.history_filter == "nearest":
-        prev, in_bounds = _reproject(state.packed, motion, "nearest")
+        prev, in_bounds = _reproject(state.packed, motion, "nearest", band)
         return (*_unpack_history(prev), in_bounds)
     parts = [state.diffuse, state.specular, state.history_length[..., None],
              state.normal, state.depth[..., None]]
     if relax:
         parts.append(state.moments)
     prev, in_bounds = _reproject(torch.cat(parts, dim=-1), motion,
-                                 cfg.history_filter)
+                                 cfg.history_filter, band)
     return (prev[..., 0:4], prev[..., 4:8], prev[..., 8], prev[..., 9:12],
             prev[..., 12], prev[..., 13:17] if relax else None, in_bounds)
 
 
 def _history_tests(state, motion, motion_specular, normal, depth, valid,
-                   reset, cfg, relax):
+                   reset, cfg, relax, band=None):
     """The history fetch and its disocclusion tests (depth + normal
     consistency). Returns (prev_diffuse, prev_specular, prev_hist,
     prev_moments, history_valid, spec_valid); the specular history comes
     from the virtual-point mirror when `motion_specular` is given."""
     (prev_diffuse, prev_specular, prev_hist, prev_normal, prev_depth,
-     prev_moments, in_bounds) = _fetch_history(state, motion, cfg, relax)
+     prev_moments, in_bounds) = _fetch_history(state, motion, cfg, relax,
+                                               band)
     depth_ok = torch.abs(prev_depth - depth) \
         <= cfg.depth_threshold * torch.clamp(torch.abs(depth), min=1e-3)
     normal_ok = m.dot(prev_normal, normal) >= cfg.normal_threshold
@@ -279,7 +319,8 @@ def _history_tests(state, motion, motion_specular, normal, depth, valid,
     spec_valid = history_valid
     if motion_specular is not None and cfg.specular_virtual:
         prev_spec_v, in_bounds_v = _reproject(state.packed_spec,
-                                              motion_specular, "nearest")
+                                              motion_specular, "nearest",
+                                              band)
         prev_specular = _unpack_spec(prev_spec_v)
         spec_valid = in_bounds_v & normal_ok & valid & ~reset
     return (prev_diffuse, prev_specular, prev_hist, prev_moments,
@@ -288,22 +329,23 @@ def _history_tests(state, motion, motion_specular, normal, depth, valid,
 
 def denoise(state: DenoiserState, diffuse, specular, motion, normal, depth,
             valid, roughness, reset, cfg: DenoiseConfig = DenoiseConfig(),
-            motion_specular=None):
+            motion_specular=None, band=None):
     """ReBLUR: temporal accumulation + spatial filtering of the demodulated
     signals. diffuse/specular (H, W, 4) rgb + hit distance; motion (H, W,
     2), prev pixel = pixel + motion; normal/depth/valid/roughness the
     current G-buffer's; reset a bool (drop all history);
-    motion_specular optional (H, W, 2) virtual-point motion. Returns
-    (new_state, filtered diffuse, filtered specular), each (H, W, 4)."""
+    motion_specular optional (H, W, 2) virtual-point motion; band the
+    sharded frame's (module docstring). Returns (new_state, filtered
+    diffuse, filtered specular), each (H, W, 4)."""
     reset = torch.as_tensor(reset, device=diffuse.device)
     depth, diffuse, specular = _sanitize(depth, diffuse, specular)
     (prev_diffuse, prev_specular, prev_hist, _, history_valid,
      spec_valid) = _history_tests(state, motion, motion_specular, normal,
-                                  depth, valid, reset, cfg, relax=False)
-    prev_diffuse = _neighborhood_clamp(prev_diffuse, diffuse,
-                                       cfg.clamp_gamma)
-    prev_specular = _neighborhood_clamp(prev_specular, specular,
-                                        cfg.clamp_gamma)
+                                  depth, valid, reset, cfg, relax=False,
+                                  band=band)
+    prev_diffuse, prev_specular = _clamp_pair(
+        prev_diffuse, prev_specular, diffuse, specular, cfg.clamp_gamma,
+        band)
 
     hist = torch.where(history_valid, prev_hist, 0.0)
     new_hist = torch.clamp(hist + 1.0, max=float(cfg.max_accumulated_frames))
@@ -321,16 +363,19 @@ def denoise(state: DenoiserState, diffuse, specular, motion, normal, depth,
     acc_specular = m.lerp(torch.where(spec_valid[..., None], prev_specular,
                                       0.0), specular, spec_alpha)
 
-    normal_chw = normal.permute(2, 0, 1)
-    f_diffuse = acc_diffuse.permute(2, 0, 1)
-    f_specular = acc_specular.permute(2, 0, 1)
-    for i in range(cfg.atrous_iterations):
-        step = 1 << i
-        f_diffuse = _atrous_pass_chw(f_diffuse, normal_chw, depth, step, cfg)
-        f_specular = _atrous_pass_chw(f_specular, normal_chw, depth, step,
-                                      cfg)
-    f_diffuse = f_diffuse.permute(1, 2, 0)
-    f_specular = f_specular.permute(1, 2, 0)
+    def atrous(acc_d, acc_s, nrm, dep):
+        normal_chw = nrm.permute(2, 0, 1)
+        f_d = acc_d.permute(2, 0, 1)
+        f_s = acc_s.permute(2, 0, 1)
+        for i in range(cfg.atrous_iterations):
+            step = 1 << i
+            f_d = _atrous_pass_chw(f_d, normal_chw, dep, step, cfg)
+            f_s = _atrous_pass_chw(f_s, normal_chw, dep, step, cfg)
+        return f_d.permute(1, 2, 0), f_s.permute(1, 2, 0)
+
+    f_diffuse, f_specular = _with_halo(
+        band, (1 << cfg.atrous_iterations) - 1, atrous, acc_diffuse,
+        acc_specular, normal, depth)
 
     # Convergence fade: young pixels take the full spatial kernel,
     # converged ones none; mirror-like specular stays unfiltered.
@@ -398,18 +443,42 @@ def _atrous_relax_chw(signal, var, normal, depth, step: int,
     return acc / wsum[None], acc_var / (wsum * wsum)
 
 
+def _spatial_variance(lum):
+    """The 3x3 variance of a luminance plane (ReLAX's young-pixel
+    estimate)."""
+    sp1 = sp2 = torch.zeros_like(lum)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ls = _shift(lum, dy, dx)
+            sp1 = sp1 + ls
+            sp2 = sp2 + ls * ls
+    return torch.clamp(sp2 / 9.0 - (sp1 / 9.0) ** 2, min=0.0)
+
+
 def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
                   depth, valid, roughness, reset,
                   cfg: DenoiseConfig = DenoiseConfig(),
-                  motion_specular=None):
+                  motion_specular=None, band=None):
     """ReLAX: moment accumulation + variance-guided a-trous, with the I/O
     contract of ``denoise``. Young pixels (history < 4) take a 3x3 spatial
     variance estimate; fireflies are clamped first."""
     reset = torch.as_tensor(reset, device=diffuse.device)
     depth, diffuse, specular = _sanitize(depth, diffuse, specular)
-    if cfg.relax_firefly:
-        diffuse = _firefly_suppress(diffuse, cfg.relax_firefly_factor)
-        specular = _firefly_suppress(specular, cfg.relax_firefly_factor)
+    gamma = cfg.clamp_gamma
+
+    def spatial(d, s):
+        """The 3x3 filters of the current signals: the firefly clamp, the
+        history clip boxes and the luminance variances."""
+        if cfg.relax_firefly:
+            d = _firefly_suppress(d, cfg.relax_firefly_factor)
+            s = _firefly_suppress(s, cfg.relax_firefly_factor)
+        boxes = ((*_clip_box(d, gamma), *_clip_box(s, gamma))
+                 if gamma > 0.0 else ())
+        return (d, s, _spatial_variance(_luma(d)),
+                _spatial_variance(_luma(s)), *boxes)
+
+    diffuse, specular, sp_var_d, sp_var_s, *boxes = _with_halo(
+        band, 2 if cfg.relax_firefly else 1, spatial, diffuse, specular)
     lum_d = _luma(diffuse)
     lum_s = _luma(specular)
     cur_moments = torch.stack([lum_d, lum_d * lum_d, lum_s, lum_s * lum_s],
@@ -417,11 +486,11 @@ def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
 
     (prev_diffuse, prev_specular, prev_hist, prev_moments, history_valid,
      spec_valid) = _history_tests(state, motion, motion_specular, normal,
-                                  depth, valid, reset, cfg, relax=True)
-    prev_diffuse = _neighborhood_clamp(prev_diffuse, diffuse,
-                                       cfg.clamp_gamma)
-    prev_specular = _neighborhood_clamp(prev_specular, specular,
-                                        cfg.clamp_gamma)
+                                  depth, valid, reset, cfg, relax=True,
+                                  band=band)
+    if boxes:
+        prev_diffuse = torch.clamp(prev_diffuse, boxes[0], boxes[1])
+        prev_specular = torch.clamp(prev_specular, boxes[2], boxes[3])
 
     hist = torch.where(history_valid, prev_hist, 0.0)
     new_hist = torch.clamp(hist + 1.0, max=float(cfg.max_accumulated_frames))
@@ -439,32 +508,25 @@ def denoise_relax(state: DenoiserState, diffuse, specular, motion, normal,
                         min=0.0)
     var_s = torch.clamp(acc_moments[..., 3] - acc_moments[..., 2] ** 2,
                         min=0.0)
-    sp_d1 = sp_d2 = sp_s1 = sp_s2 = torch.zeros_like(lum_d)
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            ld = _shift(lum_d, dy, dx)
-            ls = _shift(lum_s, dy, dx)
-            sp_d1 = sp_d1 + ld
-            sp_d2 = sp_d2 + ld * ld
-            sp_s1 = sp_s1 + ls
-            sp_s2 = sp_s2 + ls * ls
-    sp_var_d = torch.clamp(sp_d2 / 9.0 - (sp_d1 / 9.0) ** 2, min=0.0)
-    sp_var_s = torch.clamp(sp_s2 / 9.0 - (sp_s1 / 9.0) ** 2, min=0.0)
     young = new_hist < 4.0
     var_d = torch.where(young, torch.maximum(var_d, sp_var_d), var_d)
     var_s = torch.where(young, torch.maximum(var_s, sp_var_s), var_s)
 
-    normal_chw = normal.permute(2, 0, 1)
-    f_diffuse = acc_diffuse.permute(2, 0, 1)
-    f_specular = acc_specular.permute(2, 0, 1)
-    for i in range(cfg.relax_atrous_iterations):
-        step = 1 << i
-        f_diffuse, var_d = _atrous_relax_chw(f_diffuse, var_d, normal_chw,
-                                             depth, step, cfg)
-        f_specular, var_s = _atrous_relax_chw(f_specular, var_s, normal_chw,
-                                              depth, step, cfg)
-    f_diffuse = f_diffuse.permute(1, 2, 0)
-    f_specular = f_specular.permute(1, 2, 0)
+    def atrous(acc_d, v_d, acc_s, v_s, nrm, dep):
+        normal_chw = nrm.permute(2, 0, 1)
+        f_d = acc_d.permute(2, 0, 1)
+        f_s = acc_s.permute(2, 0, 1)
+        for i in range(cfg.relax_atrous_iterations):
+            step = 1 << i
+            f_d, v_d = _atrous_relax_chw(f_d, v_d, normal_chw, dep, step,
+                                         cfg)
+            f_s, v_s = _atrous_relax_chw(f_s, v_s, normal_chw, dep, step,
+                                         cfg)
+        return f_d.permute(1, 2, 0), f_s.permute(1, 2, 0)
+
+    f_diffuse, f_specular = _with_halo(
+        band, (1 << cfg.relax_atrous_iterations) - 1, atrous, acc_diffuse,
+        var_d, acc_specular, var_s, normal, depth)
     spec_keep = torch.clamp(roughness * 4.0, 0.1, 1.0)[..., None]
     f_specular = m.lerp(acc_specular, f_specular, spec_keep)
 

@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from ..models import scene as scene_mod
-from ..parallel import mesh as mesh_mod
 from ..utils import math as m
 from ..utils import rng as rng_mod
 from . import bxdf, camera as camera_mod, intersect, post, shading, sharc
@@ -671,7 +670,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                        sharc_state, sharc_cfg, cfg: PathTraceConfig,
                        frame_index, di_radiance=None, accel=None,
-                       group=None):
+                       band=None, slots=None, di_small=None):
     """The SHARC_UPDATE pass: a trace at the downscaled size (cfg.width and
     cfg.height are already downscaled) whose path radiance is splatted into
     the cache, then resolved (Raytracing.hlsl's SHARC_UPDATE permutation,
@@ -689,14 +688,15 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     fixed, so the records of bounces >= 1 and the backward scan are in
     slot space, and only level 1 -> 0 crosses back to pixel space.
 
-    With a ``group`` (of the banded frame) this rank traces its row band
-    of the downscaled frame (``di_radiance`` is the whole frame's) and
-    splats its rows; ``splat_levels`` all-reduces the splat, so every
-    rank resolves the same cache and reports the dropped rows of all."""
+    On the sharded frame this rank traces ``band`` (a Band of the
+    downscaled frame's rows; ``di_small`` is the DI resized to its rows,
+    in place of ``di_radiance``) and splats its rows; ``splat_levels``
+    reduce-scatters the splat into the ``slots`` ranges, and the resolve
+    updates this rank's range of `sharc_state` (which holds that range),
+    so the returned cache holds it too. The dropped rows are all
+    ranks'."""
     w = cfg.width
-    rows = None
-    if group is not None:
-        rows = mesh_mod.group_band(cfg.height, group)
+    rows = band.span() if band is not None else None
     r0, r1 = rows if rows is not None else (0, cfg.height)
     h = r1 - r0
     dev = scene.center.device
@@ -714,15 +714,13 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     t_min = torch.broadcast_to(t_min, (h, w))
     t_max = torch.broadcast_to(t_max, (h, w))
     table = scene_mod.object_table(scene)
-    di_small = (post.resize_bilinear(di_radiance, cfg.height, w)
-                if di_radiance is not None else None)
-    if di_small is not None and rows is not None:
-        di_small = di_small[r0:r1]
+    if di_small is None and di_radiance is not None:
+        di_small = post.resize_bilinear(di_radiance, cfg.height, w)
 
     # Per bounce: emissions[b] is the radiance emitted at level b (the hit's
     # emission, or once, at the miss level, the environment);
     # seg_weights[b] is zero where the path does not go on.
-    slots, fps, emissions, seg_weights, actives = [], [], [], [], []
+    slot_ids, fps, emissions, seg_weights, actives = [], [], [], [], []
     active = torch.ones((h, w), dtype=torch.bool, device=dev)
     l_dir = ray_d
     surf = trace_mod.trace_scene(scene, ray_o, ray_d, t_min, t_max,
@@ -768,7 +766,7 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         emissions.append(torch.where(
             live[..., None], emission,
             torch.where(miss[..., None], env_color, 0.0)))
-        slots.append(slot)
+        slot_ids.append(slot)
         fps.append(fp)
         seg_weights.append(torch.where((live & valid)[..., None], weight,
                                        0.0))
@@ -791,8 +789,8 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     # Backward scan: L_v = E_v + T_v * L_{v+1}, then one splat of all
     # levels.
     radiance_next = torch.zeros_like(emissions[-1])
-    level_radiance = [None] * len(slots)
-    for b in range(len(slots) - 1, -1, -1):
+    level_radiance = [None] * len(slot_ids)
+    for b in range(len(slot_ids) - 1, -1, -1):
         if radiance_next.shape != emissions[b].shape:
             # Slot space (level 1) -> pixel space (level 0).
             radiance_next = _slots_to_space(radiance_next, 0.0,
@@ -803,12 +801,13 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         level_radiance[b] = l_here
         radiance_next = l_here
 
-    capacity = sharc_state.fingerprint.shape[0]
+    capacity = (slots.height if slots is not None
+                else sharc_state.fingerprint.shape[0])
     acc = (torch.zeros((capacity, 3), dtype=torch.float32, device=dev),
            torch.zeros(capacity, dtype=torch.float32, device=dev),
            torch.zeros(capacity, dtype=torch.int64, device=dev))
     frame_sum, frame_count, frame_fp, dropped = sharc.splat_levels(
-        acc, slots, fps, level_radiance, actives, group=group)
+        acc, slot_ids, fps, level_radiance, actives, slots)
     new_state = sharc.resolve(sharc_state, frame_sum, frame_count, frame_fp,
                               sharc_cfg)
     return new_state, {"sharc_splat_dropped_rows":

@@ -5,9 +5,21 @@ aberration, bilinear resize and the mip pyramid (port of
 Each pass is a pure (H, W, 3) -> (H, W, 3) function over plain PyTorch ops.
 Clamp-addressed neighbourhood shifts are index gathers with clamped
 indices, the same values as the reference's edge pad and slice.
+
+On the sharded frame each pass takes a ``band`` (``parallel.mesh.Band``)
+and works on that band's rows plus a halo of its footprint from the
+neighbours, clamped at the frame's edges, so a band's rows are the whole
+frame's: sharpen one row; each bloom downsample one row below and two
+above, each upsample the source rows of its bilinear taps and its tent
+(mip l + 1's band is the rows 2y of mip l's, so no mip is gathered);
+chromatic aberration the rows its resample reads; ``resize_band`` the
+rows its bilinear taps read.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -107,12 +119,19 @@ def merge(a, b, weight_a, weight_b):
     return a * weight_a + b * weight_b
 
 
-def resize_bilinear(img, out_h: int, out_w: int):
+def resize_bilinear(img, out_h: int, out_w: int, rows=None,
+                    src_row0: int = 0, src_h: int | None = None):
     """Bilinear resize (align-corners=False, clamp addressing), the
-    sampler behaviour the post shaders rely on."""
+    sampler behaviour the post shaders rely on. ``rows`` = (start, end)
+    gives those output rows only, from an `img` that holds rows src_row0...
+    of a src_h-row source (the rows they read; the source's edges
+    clamp)."""
     h, w = img.shape[0], img.shape[1]
+    if src_h is not None:
+        h = src_h
+    o0, o1 = rows if rows is not None else (0, out_h)
     dev = img.device
-    y = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) \
+    y = (torch.arange(o0, o1, dtype=torch.float32, device=dev) + 0.5) \
         * (h / out_h) - 0.5
     x = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) \
         * (w / out_w) - 0.5
@@ -122,12 +141,35 @@ def resize_bilinear(img, out_h: int, out_w: int):
     fx = (x - x0)[None, :, None]
     y0i = torch.clamp(y0.long(), 0, h - 1)
     y1i = torch.clamp(y0i + 1, 0, h - 1)
+    if src_row0:
+        y0i, y1i = y0i - src_row0, y1i - src_row0
     x0i = torch.clamp(x0.long(), 0, w - 1)
     x1i = torch.clamp(x0i + 1, 0, w - 1)
     top = img[y0i][:, x0i] * (1 - fx) + img[y0i][:, x1i] * fx
     bot = img[y1i][:, x0i] * (1 - fx) + img[y1i][:, x1i] * fx
     return top * (1 - fy) + bot * fy
 
+
+def resize_source(o0: int, o1: int, src_h: int, out_h: int):
+    """[first, last + 1) of the source rows that output rows [o0, o1) of a
+    resize from src_h rows read (a row of margin each side for the float
+    rounding)."""
+    ratio = src_h / out_h
+    return (math.floor((o0 + 0.5) * ratio - 0.5) - 1,
+            math.floor((o1 - 0.5) * ratio - 0.5) + 3)
+
+
+def resize_band(img, band, out_band, out_w: int, grow: int = 0):
+    """``resize_bilinear`` to out_band.height x out_w of the frame whose
+    `band` rows `img` holds, as out_band's rows and `grow` more each side
+    (cut at the frame's edges, ``out_band.ext_span(grow, grow)``): the
+    source rows come as a halo."""
+    out_h = out_band.height
+    lo, hi = out_band.source_halo(band, lambda a, b: resize_source(
+        max(0, a - grow), min(out_h, b + grow), band.height, out_h))
+    ext = band.halo([img], lo, hi)[0]
+    return resize_bilinear(ext, out_h, out_w, out_band.ext_span(grow, grow),
+                           band.ext_span(lo, hi)[0], band.height)
 
 # ----------------------------------------------------------------------------
 # Bloom (Bloom.hlsl:33-110): 13-tap Karis-average downsample and 9-tap tent
@@ -150,6 +192,12 @@ def _karis_weight(c):
 def bloom_downsample(img):
     """13-tap downsample with the Karis average over its five 4-tap box
     groups (firefly suppression), then 2x decimation."""
+    return _bloom_filter(img)[::2, ::2]
+
+
+def _bloom_filter(img):
+    """bloom_downsample's 13-tap filter at every pixel (rows y - 1 to
+    y + 2), before the decimation."""
     def box(dy, dx):
         return 0.25 * (_shift(img, dy, dx) + _shift(img, dy, dx + 1)
                        + _shift(img, dy + 1, dx) + _shift(img, dy + 1, dx + 1))
@@ -165,31 +213,55 @@ def bloom_downsample(img):
     w_bl = _karis_weight(g_bl) * 0.125
     w_br = _karis_weight(g_br) * 0.125
     total = w_c + w_tl + w_tr + w_bl + w_br
-    filtered = (g_c * w_c + g_tl * w_tl + g_tr * w_tr + g_bl * w_bl
-                + g_br * w_br) / total
-    return filtered[::2, ::2]
+    return (g_c * w_c + g_tl * w_tl + g_tr * w_tr + g_bl * w_bl
+            + g_br * w_br) / total
 
 
-def bloom_upsample(img, out_h: int, out_w: int):
-    """9-tap tent filter upsample (Bloom.hlsl upsample pass)."""
-    up = resize_bilinear(img, out_h, out_w)
+def _tent(up):
     acc = 4.0 * up
     for dy, dx, w in ((-1, 0, 2.0), (1, 0, 2.0), (0, -1, 2.0), (0, 1, 2.0),
                       (-1, -1, 1.0), (-1, 1, 1.0), (1, -1, 1.0), (1, 1, 1.0)):
         acc = acc + w * _shift(up, dy, dx)
-    return acc / 16.0
+    return acc
 
 
-def bloom(img, strength=0.05, levels: int = 4):
+def bloom_upsample(img, out_h: int, out_w: int, band=None, out_band=None):
+    """9-tap tent filter upsample (Bloom.hlsl upsample pass); with bands,
+    out_band's rows from `img`'s `band` rows."""
+    if band is None:
+        return _tent(resize_bilinear(img, out_h, out_w)) / 16.0
+    acc = _tent(resize_band(img, band, out_band, out_w, grow=1))
+    return out_band.inner(acc, 1) / 16.0
+
+
+def _half_band(band):
+    """The band of mip l + 1 whose rows y are the rows 2y of `band`'s."""
+    return dataclasses.replace(
+        band, bands=tuple(((s + 1) // 2, (e + 1) // 2)
+                          for s, e in band.bands),
+        height=(band.height + 1) // 2)
+
+
+def bloom(img, strength=0.05, levels: int = 4, band=None):
     """The bloom chain (Bloom.ixx::Process): `levels` downsamples, as many
-    tent upsamples with additive blend, merged at `strength`."""
-    mips = [img]
+    tent upsamples with additive blend, merged at `strength`. With a
+    band, `img` holds its rows and so does the result."""
+    mips, bands = [img], [band]
     for _ in range(levels):
-        mips.append(bloom_downsample(mips[-1]))
+        b = bands[-1]
+        if b is None:
+            mips.append(bloom_downsample(mips[-1]))
+            bands.append(None)
+            continue
+        filtered = b.inner(_bloom_filter(b.halo([mips[-1]], 1, 2)[0]), 1)
+        mips.append(filtered[b.start % 2::2, ::2])
+        bands.append(_half_band(b))
     up = mips[-1]
     for level in range(levels - 1, -1, -1):
         target = mips[level]
-        up = target + bloom_upsample(up, target.shape[0], target.shape[1])
+        up = target + bloom_upsample(
+            up, bands[level].height if band is not None else target.shape[0],
+            target.shape[1], bands[level + 1], bands[level])
     return merge(img, up / (levels + 1), 1.0 - strength, strength)
 
 
@@ -197,9 +269,14 @@ def bloom(img, strength=0.05, levels: int = 4):
 # Sharpen (the NIS slot, App.cpp:1498-1502): contrast-adaptive unsharp mask.
 
 
-def sharpen(img, sharpness=0.5):
-    blur = 0.25 * (_shift(img, -1, 0) + _shift(img, 1, 0)
-                   + _shift(img, 0, -1) + _shift(img, 0, 1))
+def sharpen(img, sharpness=0.5, band=None):
+    src = img
+    if band is not None:
+        src = band.halo([img], 1, 1)[0]
+    blur = 0.25 * (_shift(src, -1, 0) + _shift(src, 1, 0)
+                   + _shift(src, 0, -1) + _shift(src, 0, 1))
+    if band is not None:
+        blur = band.inner(blur, 1)
     amount = 0.8 * sharpness
     return torch.clamp(img + (img - blur) * amount, min=0.0)
 
@@ -209,34 +286,56 @@ def sharpen(img, sharpness=0.5):
 # image centre, as separable bilinear resamples with static coordinates.
 
 
-def _scale_about_center(ch, scale: float):
+def _axis_taps(n: int, scale: float):
+    """(i0, i1, f) of the resample of an n-long axis about its centre."""
+    coords = (np.arange(n, dtype=np.float64) - (n - 1) / 2) / scale \
+        + (n - 1) / 2
+    i0 = np.clip(np.floor(coords).astype(np.int64), 0, n - 1)
+    i1 = np.minimum(i0 + 1, n - 1)
+    return i0, i1, np.clip(coords - i0, 0.0, 1.0)
+
+
+def _scale_about_center(ch, scale: float, band=None, src_row0: int = 0):
+    """With a band: its rows of the whole frame's, from `ch` holding rows
+    src_row0... (the rows its taps read)."""
     out = ch
     for axis in (0, 1):
-        n = out.shape[axis]
-        coords = (np.arange(n, dtype=np.float64) - (n - 1) / 2) / scale \
-            + (n - 1) / 2
-        i0 = np.clip(np.floor(coords).astype(np.int64), 0, n - 1)
-        i1 = np.minimum(i0 + 1, n - 1)
-        f = torch.as_tensor(np.clip(coords - i0, 0.0, 1.0),
-                            dtype=torch.float32, device=ch.device)
+        if axis == 0 and band is not None:
+            i0, i1, f = _axis_taps(band.height, scale)
+            s, e = band.span()
+            i0, i1, f = i0[s:e] - src_row0, i1[s:e] - src_row0, f[s:e]
+        else:
+            i0, i1, f = _axis_taps(out.shape[axis], scale)
+        f = torch.as_tensor(f, dtype=torch.float32, device=ch.device)
         a = torch.index_select(out, axis, torch.as_tensor(i0,
                                                           device=ch.device))
         b = torch.index_select(out, axis, torch.as_tensor(i1,
                                                           device=ch.device))
         fshape = [1, 1]
-        fshape[axis] = n
+        fshape[axis] = f.shape[0]
         out = a + (b - a) * f.reshape(fshape)
     return out
 
 
-def chromatic_aberration(img, strength: float = 0.0):
+def chromatic_aberration(img, strength: float = 0.0, band=None):
     """(H, W, 3) display-space image -> lateral CA; `strength` is the
-    relative magnification split between R and B (0 = off)."""
+    relative magnification split between R and B (0 = off). With a band,
+    `img` holds its rows and so does the result."""
     if strength <= 0.0:
         return img
     scales = (1.0 + strength, 1.0, 1.0 - strength)
+    src, row0 = img, 0
+    if band is not None:
+        taps = [_axis_taps(band.height, sc) for sc in scales if sc != 1.0]
+
+        def need(s, e):
+            return (min(int(t[0][s:e].min()) for t in taps),
+                    max(int(t[1][s:e].max()) for t in taps) + 1)
+        lo, hi = band.source_halo(band, need)
+        src = band.halo([img], lo, hi)[0]
+        row0 = band.ext_span(lo, hi)[0]
     return torch.stack([img[..., c] if s == 1.0
-                        else _scale_about_center(img[..., c], s)
+                        else _scale_about_center(src[..., c], s, band, row0)
                         for c, s in enumerate(scales)], dim=-1)
 
 

@@ -9,6 +9,9 @@ rows arrive bit for bit) or clamp-addressed bilinear mode (the formulas of
 ``reproject_pallas._gather_fallback``). ``ok`` is the sample point's
 in-frame test. The TPU kernel's extra ``ok=False`` for residuals outside
 both of its windows has no counterpart: the gather is exact for any motion.
+A ``row0`` writes only the rows of a band of the frame: motion holds the
+band's h rows, the history the whole frame's, and output row y samples
+history row row0 + y + motion y (the sharded frame's history fetch).
 
 What bounds it on the H100: memory. One row of C words per tap in, C words
 out and the motion per pixel. The kernel is one thread per (pixel, vector
@@ -42,14 +45,14 @@ def vector_width(c: int, *tensors) -> int:
     return 1
 
 
-def _coords(motion):
+def _coords(motion, src_h: int, row0: int):
     h, w = motion.shape[:2]
     dev = motion.device
     px = torch.arange(w, dtype=torch.float32, device=dev)[None, :] \
         + motion[..., 0]
-    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None] \
-        + motion[..., 1]
-    ok = (px >= 0) & (px <= w - 1) & (py >= 0) & (py <= h - 1)
+    py = torch.arange(row0, row0 + h, dtype=torch.float32,
+                      device=dev)[:, None] + motion[..., 1]
+    ok = (px >= 0) & (px <= w - 1) & (py >= 0) & (py <= src_h - 1)
     return px, py, ok
 
 
@@ -58,11 +61,14 @@ def _clamp_index(v, hi: int):
     return torch.clamp(torch.nan_to_num(v, nan=0.0), 0, hi).long()
 
 
-def reproject_packed_plain(src, motion, mode: str = "bilinear"):
-    """Plain PyTorch B4. src (H, W, C) float32; motion (H, W, 2) pixel
-    offsets (x, y). Returns (out (H, W, C), ok (H, W) bool)."""
+def reproject_packed_plain(src, motion, mode: str = "bilinear",
+                           row0: int = 0):
+    """Plain PyTorch B4. src (H, W, C) float32; motion (h, W, 2) pixel
+    offsets (x, y) of the h rows from history row `row0` on (the whole
+    frame by default). Returns (out (h, W, C), ok (h, W) bool): output row
+    y samples the history at (x + motion x, row0 + y + motion y)."""
     h, w, c = src.shape
-    px, py, ok = _coords(motion)
+    px, py, ok = _coords(motion, h, row0)
     if mode == "nearest":
         lin = _clamp_index(torch.round(py), h - 1) * w \
             + _clamp_index(torch.round(px), w - 1)
@@ -84,7 +90,7 @@ def reproject_packed_plain(src, motion, mode: str = "bilinear"):
     return out, ok
 
 
-def reproject_packed(src, motion, mode: str = "bilinear"):
+def reproject_packed(src, motion, mode: str = "bilinear", row0: int = 0):
     """B4; see reproject_packed_plain for the contract. A CUDA tensor
     launches drts_reproject (csrc/reproject.cu)."""
     if mode not in MODES:
@@ -92,27 +98,32 @@ def reproject_packed(src, motion, mode: str = "bilinear"):
     if src.dim() != 3 or src.dtype != torch.float32:
         raise ValueError(f"src must be (H, W, C) float32, got "
                          f"{tuple(src.shape)} {src.dtype}")
-    h, w, c = src.shape
-    if tuple(motion.shape) != (h, w, 2) or motion.dtype != torch.float32:
-        raise ValueError(f"motion must be ({h}, {w}, 2) float32, got "
+    src_h, w, c = src.shape
+    h = motion.shape[0]
+    if (motion.dim() != 3 or tuple(motion.shape[1:]) != (w, 2)
+            or motion.dtype != torch.float32
+            or not 0 <= row0 <= row0 + h <= src_h):
+        raise ValueError(f"motion must be (h, {w}, 2) float32 with rows "
+                         f"{row0} + h within {src_h}, got "
                          f"{tuple(motion.shape)} {motion.dtype}")
     if src.device != motion.device:
         raise ValueError(f"src on {src.device}, motion on {motion.device}")
     if src.device.type == "cpu":
-        return reproject_packed_plain(src, motion, mode)
+        return reproject_packed_plain(src, motion, mode, row0)
     if src.device.type != "cuda":
         raise ValueError(f"unsupported device {src.device}")
     src = src.contiguous()
     motion = motion.contiguous()
     if motion.data_ptr() % 8:
         motion = motion.clone()   # the kernel loads (x, y) as one float2
-    out = torch.empty_like(src)
+    out = src.new_empty((h, w, c))
     ok = torch.empty((h, w), dtype=torch.bool, device=src.device)
     bilinear = mode == "bilinear"
     vec = 1 if bilinear else vector_width(c, src, out)
     rc = backend.kernels().drts_reproject(
-        src.data_ptr(), motion.data_ptr(), h, w, c, int(bilinear), vec,
-        out.data_ptr(), ok.data_ptr(), backend.stream_handle(src))
+        src.data_ptr(), motion.data_ptr(), h, src_h, row0, w, c,
+        int(bilinear), vec, out.data_ptr(), ok.data_ptr(),
+        backend.stream_handle(src))
     backend.check_launch(rc, "drts_reproject")
     backend.launched("reproject_packed")
     return out, ok

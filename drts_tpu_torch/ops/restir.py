@@ -712,7 +712,7 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
                         prev_normal, cfg: ReSTIRConfig, frame_index,
                         scene=None, accel=None, block_size: int = 16384,
                         prev_material=None,
-                        prev_camera_position=None) -> Reservoirs:
+                        prev_camera_position=None, band=None) -> Reservoirs:
     """Merge the reprojected previous reservoir (nearest taps through B4,
     valid where in frame and depth/normal-similar) into the current one,
     then the boiling filter. In the pairwise and raytraced modes the
@@ -720,9 +720,16 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
     temporal_prev_surface="real" and `prev_material` given, the previous
     frame's pack_prev_material rows), and the history is MIS-balanced
     against the canonical reservoir; "raytraced" (with a `scene`) traces
-    the history sample's visibility from this surface."""
+    the history sample's visibility from this surface.
+
+    With a ``band`` (``parallel.mesh.Band`` of the sharded frame) the
+    current buffers hold the band's rows and the history its band or the
+    whole frame: the packed history rows are gathered (the one gather of
+    the stage), B4 writes the band's rows, and the boiling filter's 16-row
+    tiles read a halo of the neighbours' weights."""
     check_config(cfg)
     h, w = surface.depth.shape
+    row0 = band.start if band is not None else 0
     dev = surface.depth.device
     pairwise = cfg.temporal_bias_correction in ("pairwise", "raytraced")
     real_prev = (pairwise and cfg.temporal_prev_surface == "real"
@@ -731,7 +738,9 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
     if real_prev:
         extra = torch.cat([extra, prev_material], dim=-1)
     packed = _pack_reservoirs(prev, prev_depth, prev_normal, extra)
-    row, in_bounds = rp.reproject_packed(packed, motion, "nearest")
+    if band is not None:
+        packed = band.full(packed)
+    row, in_bounds = rp.reproject_packed(packed, motion, "nearest", row0)
     p_idx, p_uv, p_m, p_w, pd, pn, rest = _unpack_rows(row)
 
     depth_ok = torch.abs(pd - surface.depth) <= cfg.depth_threshold \
@@ -747,7 +756,7 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
         surface, lights, p_idx, p_uv)
 
     rng = rng_mod.init(torch.arange(w, device=dev)[None, :] + 3,
-                       torch.arange(h, device=dev)[:, None] + 5,
+                       torch.arange(row0, row0 + h, device=dev)[:, None] + 5,
                        frame_index * 3 + 2)
     u_keep, _ = rng_mod.next_float(rng)
     cur_phat = cur.phat
@@ -808,7 +817,7 @@ def temporal_resampling(cur: Reservoirs, prev: Reservoirs, surface: Surface,
     # average.
     if cfg.boiling_filter_strength > 0:
         weight = out.w_out * phat
-        threshold = _avg_pool(weight, 16) \
+        threshold = _avg_pool_band(weight, BOILING_TILE, band) \
             * (1.0 + 9.0 * (1.0 - cfg.boiling_filter_strength))
         boiling = weight > torch.clamp(threshold, min=1e-12)
         out = dataclasses.replace(
@@ -827,10 +836,31 @@ def _avg_pool(x, size: int):
     return up[:h, :w]
 
 
+def _tile_span(start: int, end: int, size: int, height: int):
+    """The rows of the size-row tiles that rows [start, end) touch."""
+    return start // size * size, min(-(-end // size) * size, height)
+
+
+def _avg_pool_band(x, size: int, band=None):
+    """_avg_pool's rows of this band: its tiles' rows fetched from the
+    neighbours (a halo up to the tile edges), pooled, the band's rows
+    kept."""
+    if band is None:
+        return _avg_pool(x, size)
+    lo, hi = band.source_halo(band, lambda s, e: _tile_span(s, e, size,
+                                                            band.height))
+    ext = band.halo([x], lo, hi)[0]
+    a = band.ext_span(lo, hi)[0]
+    t0, t1 = _tile_span(band.start, band.end, size, band.height)
+    pooled = _avg_pool(ext[t0 - a:t1 - a], size)
+    return pooled[band.start - t0:band.end - t0]
+
+
 # ----------------------------------------------------------------------------
 # spatial resampling (DISpatialResampling.hlsl)
 
 GOLDEN_ANGLE = 2.39996323
+BOILING_TILE = 16
 
 
 def shared_offsets(frame: int, cfg: ReSTIRConfig):
@@ -886,16 +916,27 @@ def _surface_from_rows(rows) -> Surface:
                    depth=torch.zeros_like(rows[..., 18]), normal=nrm)
 
 
+def spatial_reach(cfg: ReSTIRConfig) -> int:
+    """The most rows a per-pixel disc offset moves: |round(r sin a)| with
+    r < spatial_radius + 1."""
+    return int(math.ceil(cfg.spatial_radius)) + 1
+
+
 def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
-                       frame_index, with_surface: bool, frame_count=None):
+                       frame_index, with_surface: bool, frame_count=None,
+                       band=None):
     """cfg.spatial_samples neighbours: per round, the packed rows of one
     neighbour per pixel (a disc offset per pixel, or with ``shared`` one
     roll of all rows by shared_offsets of `frame_count`, default
     int(frame_index)), gathered once as one row (4 words, or 34 with the
     neighbour's surface), and the similarity tests. Returns a list of
-    dicts."""
+    dicts. With a ``band`` (the sharded frame's) the buffers hold the
+    band's rows and the neighbours' rows come as a halo: clamped at the
+    frame's edges for disc offsets (``spatial_reach`` rows), wrapped for
+    the shared rolls (their largest row offsets)."""
     h, w = surface.depth.shape
-    py, px = _pixel_grid(h, w, surface.depth.device)
+    row0 = band.start if band is not None else 0
+    py, px = _pixel_grid(h, w, surface.depth.device, row0)
     rng = rng_mod.init(px, py, frame_index * 3 + 3)
     sdepth = torch.where(torch.isfinite(surface.depth), surface.depth, 1e8)
     packed = _pack_reservoirs(
@@ -905,7 +946,17 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
     if cfg.spatial_offset_mode == "shared":
         shared = shared_offsets(int(frame_index) if frame_count is None
                                 else frame_count, cfg)
-    flat = packed.reshape(h * w, packed.shape[-1])
+    full_h, lo = h, 0
+    if band is not None and shared is not None:
+        dys = [dy for _, dy in shared]
+        lo, hi = max(0, -min(dys)), max(0, max(dys))
+        packed = band.halo([packed], lo, hi, cyclic=True)[0]
+    elif band is not None:
+        reach = spatial_reach(cfg)
+        packed = band.halo([packed], reach, reach)[0]
+        full_h = band.height
+        row0 = band.ext_span(reach, reach)[0]
+    flat = packed.reshape(-1, packed.shape[-1])
     out = []
     for s_i in range(cfg.spatial_samples):
         u3, rng = rng_mod.next_floats(rng, 3)
@@ -913,14 +964,20 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
             # Wrapped border lanes land on the far edge and fail the
             # similarity tests like any dissimilar neighbour.
             dx, dy = shared[s_i]
-            rows = torch.roll(packed, shifts=(-dy, -dx), dims=(0, 1))
+            if band is None:
+                rows = torch.roll(packed, shifts=(-dy, -dx), dims=(0, 1))
+            else:
+                rows = torch.roll(packed[lo + dy:lo + dy + h], shifts=-dx,
+                                  dims=1)
         else:
             radius = u3[..., 0] * cfg.spatial_radius + 1.0
             angle = u3[..., 1] * 2.0 * math.pi
             nx = torch.clamp(px + torch.round(
                 radius * torch.cos(angle)).long(), 0, w - 1)
             ny = torch.clamp(py + torch.round(
-                radius * torch.sin(angle)).long(), 0, h - 1)
+                radius * torch.sin(angle)).long(), 0, full_h - 1)
+            if row0:
+                ny = ny - row0
             rows = flat[ny * w + nx]
         n_idx, n_uv, n_m, n_w, nd, nn, rest = _unpack_rows(rows)
         depth_ok = torch.abs(nd - sdepth) <= cfg.depth_threshold \
@@ -939,7 +996,7 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
                       lights: light_mod.Lights, cfg: ReSTIRConfig,
                       frame_index, scene=None, accel=None,
                       block_size: int = 16384,
-                      frame_count=None) -> Reservoirs:
+                      frame_count=None, band=None) -> Reservoirs:
     """Pairwise-MIS spatial reuse: each neighbour is balanced against the
     canonical reservoir with confidence (M) weights,
 
@@ -955,7 +1012,7 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
                  and scene is not None)
     k = float(cfg.spatial_samples)
     neighbors = _spatial_neighbors(cur, surface, cfg, frame_index, True,
-                                   frame_count)
+                                   frame_count, band)
     phat_c, m_c = cur.phat, cur.m_count
 
     def cross(from_surface, idx, uv):
@@ -1007,21 +1064,22 @@ def spatial_resampling(cur: Reservoirs, surface: Surface,
                        lights: light_mod.Lights, cfg: ReSTIRConfig,
                        frame_index, scene=None, accel=None,
                        block_size: int = 16384,
-                       frame_count: int | None = None) -> Reservoirs:
+                       frame_count: int | None = None,
+                       band=None) -> Reservoirs:
     """Spatial reuse over cfg.spatial_samples neighbours: 1/M in ``basic``
     mode (each neighbour's sample re-evaluated at this surface), else
     _spatial_pairwise. `frame_count` is the host's copy of `frame_index`
     for ``shared`` offsets (a tensor frame_index is read back without
-    it)."""
+    it). With a ``band`` the buffers hold its rows (_spatial_neighbors)."""
     check_config(cfg)
     if cfg.spatial_bias_correction in ("pairwise", "raytraced"):
         return _spatial_pairwise(cur, surface, lights, cfg, frame_index,
-                                 scene, accel, block_size, frame_count)
+                                 scene, accel, block_size, frame_count, band)
     phat, idx, uv = cur.phat, cur.light_index, cur.uv
     w_sum = phat * cur.w_out * cur.m_count
     m_count = cur.m_count
     for n in _spatial_neighbors(cur, surface, cfg, frame_index, False,
-                                frame_count):
+                                frame_count, band):
         n_phat = _target_pdf(surface, lights, n["idx"], n["uv"])[0]
         b_w = torch.where(n["m"] > 0, n_phat * n["w"] * n["m"], 0.0)
         idx, uv, phat, w_sum, m_count = _merge(

@@ -21,6 +21,12 @@ of the result. The splat's float sums are PyTorch's ``index_add_``, whose
 order of additions differs from the reference's scatter (and, on a card,
 from run to run): the cache's radiance is held to a tolerance, not bit for
 bit.
+
+On the sharded frame the cache lives in slot ranges (``slot_band``, a
+``parallel.mesh.Band`` over the capacity): ``splat_levels`` reduce-scatters
+each rank's splat into the ranges, ``resolve`` runs on a range as on the
+whole table (it is per slot), and the query mirror is all-gathered once a
+frame for the path trace (``query_mirror``).
 """
 
 from __future__ import annotations
@@ -223,7 +229,7 @@ def _compact_rows(keep, cap: int):
 
 
 def splat_levels(state_accum, slots_list, fps_list, radiance_list,
-                 active_list, group=None):
+                 active_list, slot_band=None):
     """Scatter every bounce level's vertex radiance in two scatters (an add
     of [rgb * w, w] and a max of the fingerprint claim). Returns (sum (C,
     3), count (C,), fp (C,), dropped rows).
@@ -234,12 +240,13 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     (_local_dedup), and the first n/6 surviving rows are scattered: live
     rows beyond either cap are dropped and counted.
 
-    With a ``group`` (the banded frame: each rank splats its band's rows
-    into zeroed accumulators) the splat is all-reduced over the ranks: a
-    SUM of the (C, 4) sums and counts, a MAX of the fingerprints and a SUM
-    of the dropped rows, so every rank returns the same. The caps apply
-    to each rank's rows, so a band may drop rows that one call over the
-    whole frame keeps, and the reverse."""
+    With ``slot_band`` (the sharded frame's Band over the capacity: each
+    rank splats its band's rows into zeroed accumulators) the splat is
+    reduce-scattered into the ranks' slot ranges: a SUM of the (C, 4)
+    sums and counts and a MAX of the fingerprints, this rank's range
+    returned, and the dropped rows all-reduced. The caps apply to each
+    rank's rows, so a band may drop rows that one call over the whole
+    frame keeps, and the reverse."""
     acc_sum, acc_count, acc_fp = state_accum
     capacity = acc_count.shape[0]
     dev = acc_count.device
@@ -278,12 +285,21 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     fp_out = torch.cat([acc_fp, acc_fp.new_zeros(1)])
     fp_out.scatter_reduce_(0, c_slots, c_fp, reduce="amax")
     dropped = (dropped + dropped_pre).to(dev)
-    if group is not None:
-        dist.all_reduce(acc4, group=group)
-        dist.all_reduce(fp_out, op=dist.ReduceOp.MAX, group=group)
-        dist.all_reduce(dropped, group=group)
-    return (acc4[:capacity, 0:3], acc4[:capacity, 3], fp_out[:capacity],
-            dropped)
+    acc4, fp_out = acc4[:capacity], fp_out[:capacity]
+    if slot_band is not None:
+        acc4 = slot_band.reduce_scatter(acc4)
+        fp_out = slot_band.reduce_scatter(fp_out, op=dist.ReduceOp.MAX)
+        if slot_band.n > 1:
+            dist.all_reduce(dropped, group=slot_band.group)
+    return acc4[:, 0:3], acc4[:, 3], fp_out, dropped
+
+
+def query_mirror(state: SHARCState, slots=None) -> SHARCState:
+    """`state` with the whole query mirror: gathered from the ranks' slot
+    ranges (one all-gather) where it holds this rank's range."""
+    if slots is None:
+        return state
+    return dataclasses.replace(state, packed=slots.full(state.packed))
 
 
 def resolve(state: SHARCState, frame_sum, frame_count, frame_fp,

@@ -12,11 +12,18 @@ reference's TPU path does; its XLA path reads the f16-packed mirror
 instead (``packed``, kept here as the state's fetch mirror). "catmull" is
 the reference's 16-tap Catmull-Rom in plain PyTorch, as the reference
 serves it only by XLA; like its XLA path it has no window mask.
+
+On the sharded frame (``upscale(..., band=, out_band=)``) a rank writes its
+band of output rows: its render rows and a halo (the rows its bilinear
+taps and its 3x3 clip read, ``source_rows``) come from the neighbours, the
+history is gathered for the fetch at pixel + motion, and B4 writes the
+band's rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -104,14 +111,20 @@ def _catmull_rom_sample(img, y, x):
     return torch.clamp(acc, min=0.0)
 
 
-def _separable_bilinear(img, y, x):
+def _separable_bilinear(img, y, x, src_h: int | None = None,
+                        src_row0: int = 0):
     """Bilinear resample on a separable grid (per-axis 1-D coordinates
-    y (OH,), x (OW,)), clamp addressed."""
+    y (OH,), x (OW,)), clamp addressed. `img` may hold rows src_row0... of
+    a src_h-row frame (the frame's edges clamp)."""
     h, w = img.shape[0], img.shape[1]
+    if src_h is not None:
+        h = src_h
     y0 = torch.floor(y)
     fy = (y - y0)[:, None, None]
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     y1i = torch.clamp(y0i + 1, 0, h - 1)
+    if src_row0:
+        y0i, y1i = y0i - src_row0, y1i - src_row0
     rows = img[y0i] * (1.0 - fy) + img[y1i] * fy
     x0 = torch.floor(x)
     fx = (x - x0)[None, :, None]
@@ -120,67 +133,106 @@ def _separable_bilinear(img, y, x):
     return rows[:, x0i] * (1.0 - fx) + rows[:, x1i] * fx
 
 
+def source_rows(o0: int, o1: int, rh: int, out_h: int, taps: int = 2):
+    """[first, last + 1) of the render rows that output rows [o0, o1) of
+    an upscale from rh rows read: the bilinear taps at (o + 0.5) * rh /
+    out_h - 0.5 shifted by a jitter of at most half a pixel, widened by
+    `taps` rows for the float rounding and the tent's second tap."""
+    ratio = rh / out_h
+    return (math.floor((o0 + 0.5) * ratio - 0.5 - 0.5) - taps + 1,
+            math.floor((o1 - 0.5) * ratio - 0.5 + 0.5) + taps + 1)
+
+
 def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
-            reset, cfg: TAAConfig = TAAConfig(), confidence=None):
+            reset, cfg: TAAConfig = TAAConfig(), confidence=None,
+            band=None, out_band=None):
     """One TAA-upscale step. color (RH, RW, 3) jittered render-size frame;
     motion (RH, RW, 2) render-size pixel motion (prev = cur + motion);
     jitter (2,) the camera jitter (x, y) in render pixels; reset a bool.
     ``confidence`` (RH, RW) in [0, 1], optional: DLSS-RR's coupling, low
     confidence raises the blend toward the current frame. Returns
-    (new_state, output (OH, OW, 3))."""
+    (new_state, output (OH, OW, 3)). With ``band`` and ``out_band`` (the
+    sharded frame's render and output bands, ``parallel.mesh.Band``) the
+    render inputs and the history hold their band's rows (the history may
+    hold the whole frame), and the state and output come back as the
+    output band's rows."""
     if cfg.history_filter not in HISTORY_FILTERS:
         raise ValueError(f"history_filter must be one of {HISTORY_FILTERS}, "
                          f"got {cfg.history_filter!r}")
     dev = color.device
-    rh, rw = color.shape[0], color.shape[1]
+    rw = color.shape[1]
+    rh = band.height if band is not None else color.shape[0]
     scale_y = out_h / rh
     scale_x = out_w / rw
+    history = state.history
+    o0, o1 = out_band.span() if out_band is not None else (0, out_h)
+    # `up` covers output rows [u0, u1): the band and the clip's one row.
+    u0, u1, c0 = o0, o1, 0
+    if band is not None:
+        u0, u1 = max(0, o0 - 1), min(out_h, o1 + 1)
+        lo, hi = out_band.source_halo(band, lambda a, b: source_rows(
+            max(0, a - 1), min(out_h, b + 1), rh, out_h))
+        parts = [color, motion] + ([confidence[..., None]]
+                                   if confidence is not None else [])
+        parts = band.halo(parts, lo, hi)
+        color, motion = parts[0], parts[1]
+        if confidence is not None:
+            confidence = parts[2][..., 0]
+        c0 = band.ext_span(lo, hi)[0]
+        history = out_band.full(history)
 
     if cfg.jitter_aware:
         # Render sample i sits at i + jitter: read the source at q - jitter.
-        qy = (torch.arange(out_h, dtype=torch.float32, device=dev) + 0.5) \
-            / scale_y - 0.5
+        qy = (torch.arange(u0, u1, dtype=torch.float32, device=dev)
+              + 0.5) / scale_y - 0.5
         qx = (torch.arange(out_w, dtype=torch.float32, device=dev) + 0.5) \
             / scale_x - 0.5
         sy = qy - jitter[1]
         sx = qx - jitter[0]
-        up = _separable_bilinear(color, sy, sx)
+        up = _separable_bilinear(color, sy, sx, rh, c0)
         dy = sy - torch.round(sy)
         dx = sx - torch.round(sx)
         d2 = (dy * dy)[:, None] + (dx * dx)[None, :]
         sample_w = torch.exp(-d2 / (2.0 * cfg.jitter_sigma ** 2))
     else:
-        up = post.resize_bilinear(color, out_h, out_w)
-        sample_w = torch.ones((out_h, out_w), dtype=torch.float32, device=dev)
+        up = post.resize_bilinear(color, out_h, out_w, (u0, u1), c0, rh)
+        sample_w = torch.ones((u1 - u0, out_w), dtype=torch.float32,
+                              device=dev)
+    h = o1 - o0
+    sample_w = sample_w[o0 - u0:o1 - u0]
 
     # Motion at output size, in output pixels.
-    motion_up = post.resize_bilinear(motion, out_h, out_w) \
+    motion_up = post.resize_bilinear(motion, out_h, out_w, (o0, o1), c0,
+                                     rh) \
         * torch.tensor([scale_x, scale_y], dtype=torch.float32, device=dev)
-    py = torch.arange(out_h, dtype=torch.float32, device=dev)[:, None] \
+    py = torch.arange(o0, o1, dtype=torch.float32, device=dev)[:, None] \
         * torch.ones((1, out_w), dtype=torch.float32, device=dev)
     px = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :] \
-        * torch.ones((out_h, 1), dtype=torch.float32, device=dev)
+        * torch.ones((h, 1), dtype=torch.float32, device=dev)
     if cfg.history_filter == "catmull":
-        hist = _catmull_rom_sample(state.history, py + motion_up[..., 1],
+        hist = _catmull_rom_sample(history, py + motion_up[..., 1],
                                    px + motion_up[..., 0])
     else:
         hist, _ = reproject_kernels.reproject_packed(
-            state.history.contiguous(), motion_up.contiguous(), "bilinear")
+            history.contiguous(), motion_up.contiguous(), "bilinear", o0)
 
-    # Neighbourhood variance clip in the upsampled current frame.
+    # Neighbourhood variance clip in the upsampled current frame (clamped
+    # at the frame's edges: `up` holds the band's rows and one more each
+    # side inside the frame).
     m1 = torch.zeros_like(up)
     m2 = torch.zeros_like(up)
     for oy in (-1, 0, 1):
         for ox in (-1, 0, 1):
-            ys = torch.clamp(torch.arange(out_h, device=dev) + oy, 0,
-                             out_h - 1)
+            ys = torch.clamp(torch.arange(u1 - u0, device=dev) + oy, 0,
+                             u1 - u0 - 1)
             xs = torch.clamp(torch.arange(out_w, device=dev) + ox, 0,
                              out_w - 1)
             s = up[ys][:, xs]
             m1 = m1 + s
             m2 = m2 + s * s
-    mean = m1 / 9.0
-    var = torch.clamp(m2 / 9.0 - mean * mean, min=0.0)
+    up = up[o0 - u0:o1 - u0]
+    mean = (m1 / 9.0)[o0 - u0:o1 - u0]
+    var = torch.clamp((m2 / 9.0)[o0 - u0:o1 - u0] - mean * mean, min=0.0)
     gamma = cfg.clip_gamma
     if cfg.clip_gamma_motion >= 0.0:
         mlen = torch.sqrt(motion_up[..., 0] ** 2 + motion_up[..., 1] ** 2)
@@ -196,7 +248,7 @@ def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
     alpha = cfg.blend_alpha * (0.25 + 0.75 * sample_w)
     if confidence is not None:
         conf_up = post.resize_bilinear(confidence[..., None], out_h,
-                                       out_w)[..., 0]
+                                       out_w, (o0, o1), c0, rh)[..., 0]
         alpha = torch.clamp(alpha * (1.0 + 3.0 * (1.0 - conf_up)), 0.0, 1.0)
     keep = in_bounds & ~torch.as_tensor(reset, device=dev)
     alpha = torch.where(keep, alpha, 1.0)[..., None]

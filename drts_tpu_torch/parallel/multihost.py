@@ -1,4 +1,4 @@
-"""Process-group start-up for the banded frame (port of
+"""Process-group start-up for the sharded frame (port of
 ``drts_tpu/parallel/multihost.py``).
 
 The reference calls ``jax.distributed.initialize`` from arguments or
@@ -99,9 +99,10 @@ def rank_device(device="cuda") -> torch.device:
 
 def process_local_rows(height: int) -> tuple[int, int]:
     """The [start, end) image rows this process renders under the row
-    bands of the global group (all of them for a single process). The
-    counterpart of the reference's helper; the frame takes its band from
-    its group (``mesh.group_band``), and only the tests call this."""
+    bands of the global group (all of them for a single process), the
+    counterpart of the reference's helper: a rank of the global group
+    holds these rows of each render-height buffer between frames
+    (``graft_entry.frames_worker`` reports them)."""
     if not dist.is_initialized():
         return 0, height
     return mesh_mod.row_band(height, dist.get_rank(), dist.get_world_size())

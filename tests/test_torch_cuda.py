@@ -502,6 +502,36 @@ def test_reproject_kernel_equals_plain(dev, c, mode):
     assert 0 < int(ok.sum()) < h * w
 
 
+@pytest.mark.parametrize("row0", ["0", "1", "half-1"])
+@pytest.mark.parametrize("c", [5, 12])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_reproject_kernel_row_offset(dev, row0, c, mode):
+    """B4 writing a band of the frame (the sharded frame's history fetch):
+    the rows from row offset 0, 1 and H/2 - 1 of a 38-row history, 19
+    rows each, at 5 and 12 words, in both modes, bit for bit the plain
+    version's; and the band's rows of the whole frame's."""
+    h, w, rows = 38, 45, 19
+    r0 = {"0": 0, "1": 1, "half-1": h // 2 - 1}[row0]
+    rng = np.random.RandomState(c)
+    src = torch.from_numpy(np.asarray(rng.randn(h, w, c), np.float32)).to(dev)
+    motion = torch.from_numpy(np.asarray(rng.randn(h, w, 2) * 12,
+                                         np.float32)).to(dev)
+    band = motion[r0:r0 + rows]
+    before = backend.LAUNCHES["reproject_packed"]
+    out, ok = rp.reproject_packed(src, band, mode, r0)
+    assert backend.LAUNCHES["reproject_packed"] == before + 1
+    assert tuple(out.shape) == (rows, w, c)
+    out_p, ok_p = rp.reproject_packed_plain(src, band, mode, r0)
+    assert torch.equal(out.cpu().view(torch.int32),
+                       out_p.cpu().view(torch.int32))
+    assert torch.equal(ok.cpu(), ok_p.cpu())
+    whole, whole_ok = rp.reproject_packed(src, motion, mode)
+    assert torch.equal(out.cpu().view(torch.int32),
+                       whole[r0:r0 + rows].cpu().view(torch.int32))
+    assert torch.equal(ok.cpu(), whole_ok[r0:r0 + rows].cpu())
+    assert 0 < int(ok.sum()) < rows * w
+
+
 @pytest.mark.parametrize("c,offset,vec", [(4, 1, 1), (4, 2, 2), (8, 2, 2),
                                           (8, 1, 1)])
 def test_reproject_kernel_misaligned_src(dev, c, offset, vec):
@@ -1438,11 +1468,13 @@ def test_one_nccl_rank_equals_the_unbanded_frame(dev):
                          ids=["even", "uneven"])
 def test_gloo_ranks_on_the_card_near_one_device(dev, tmp_path, ranks,
                                                 height):
-    """Two frames banded over gloo ranks sharing the card (two: bands of
+    """Two frames sharded over gloo ranks sharing the card (two: bands of
     32 rows; three: bands of 21, 21 and 22 rows, and 5, 5 and 6 rows of
-    the SHARC update trace) against the one-device frames: each image
-    within chip_smoke.py's DEFAULT_* bounds (mean |difference| <= 2e-4;
-    <= 0.2% of pixels off by more than 0.05), every rank's state equal."""
+    the SHARC update trace) against the one-device frames: the ranks'
+    image bands together within chip_smoke.py's DEFAULT_* bounds (mean
+    |difference| <= 2e-4; <= 0.2% of pixels off by more than 0.05), every
+    leaf shaped as the placement says, the replicated leaves equal on
+    every rank."""
     from drts_tpu_torch import graft_entry
     from drts_tpu_torch.parallel import mesh, multihost
     cfg = _banded_config(height)
@@ -1454,11 +1486,12 @@ def test_gloo_ranks_on_the_card_near_one_device(dev, tmp_path, ranks,
     pipe, state, pose = graft_entry._setup(cfg, dev, 3)
     for i in range(2):
         state, img = pipe.render_frame(state, pose)
-        for run in runs:
-            d = (run["images"][i] - img.cpu()).abs()
-            off = float((d.amax(-1) > 0.05).float().mean())
-            assert float(d.mean()) <= 2e-4 and off <= 2e-3, (
-                i, float(d.mean()), off)
+        whole = torch.cat([run["images"][i] for run in runs])
+        d = (whole - img.cpu()).abs()
+        off = float((d.amax(-1) > 0.05).float().mean())
+        assert float(d.mean()) <= 2e-4 and off <= 2e-3, (
+            i, float(d.mean()), off)
+    assert all(not run["misplaced"] for run in runs)
     assert all(run["checksums"] == runs[0]["checksums"] for run in runs)
     assert not mesh.replicas_differ(runs[0]["checksums"])
     assert [run["band"] for run in runs] == [

@@ -1,4 +1,4 @@
-"""The port's multi-device frame (``drts_tpu_torch/parallel``,
+"""The port's sharded multi-device frame (``drts_tpu_torch/parallel``,
 ``drts_tpu_torch/graft_entry.py``) against the reference's sharded one.
 
 The ranks are real processes: ``multihost.spawn`` starts them with gloo on
@@ -23,25 +23,46 @@ CPU mesh, on its XLA path.
 - A band of a 96x96 trace holds the whole frame's deep-segment capacity
   (not its own rows' share), so it spills only where the whole frame
   does; its radiance is the frame's rows bit for bit.
-- A 2-rank ``render_frame`` at 32x32, two frames (2 bounces, ReSTIR,
-  ReBLUR, TAA) from the demo scene's camera (oscillator grid 3): with
-  SHARC off, bit for bit the port's own one-device frames; with SHARC on
-  (a 4,096-slot cache, updated on frame 0), within
-  tests/test_parallel.py's ``assert_f16_close`` bound of the one-device
-  frames (every value within 1.5 f16 ULP, at most 1% beyond 2e-4) and
-  within tests/test_torch_default_frame.py's bounds of the reference's
-  2-device sharded frames under one jit (frame 0: mean <= 2e-4, off by
-  more than 1e-3 on <= 2% of pixels; frame 1: mean <= 4e-3, off by more
-  than 0.02 on <= 12% and by more than 0.05 on <= 3%); every leaf of
-  both ranks' final states equal (``replica_checksums``), and each
-  rank's band ``process_local_rows`` would give it. (The close-up pose of
+- A 2-rank sharded ``render_frame`` at 32x32, two frames (2 bounces,
+  ReSTIR, ReBLUR, TAA) from the demo scene's camera (oscillator grid 3),
+  from ``RenderPipeline.shard_state`` of the one-device start state:
+  each rank's image band and every per-row leaf the one-device frames'
+  rows, every per-slot leaf the one-device cache's slot range, every
+  replicated leaf the one-device leaf; with SHARC off bit for bit, with
+  SHARC on (a 4,096-slot cache, updated on frame 0) within
+  tests/test_parallel.py's ``assert_f16_close`` bound (every value within
+  1.5 f16 ULP, at most 1% beyond 2e-4; integer leaves exact; the f16
+  halves of packed words within one step) of the one-device frames. The
+  gathered image is held within tests/test_torch_default_frame.py's
+  bounds of the reference's 2-device sharded frames under one jit (frame
+  0: mean <= 2e-4, off by more than 1e-3 on <= 2% of pixels; frame 1:
+  mean <= 4e-3, off by more than 0.02 on <= 12% and by more than 0.05 on
+  <= 3%). After the frames every leaf is shaped as
+  ``frame_state_placement`` says (a band of 16 rows, a range of 2,048
+  slots, or whole), the replicated leaves are equal on both ranks
+  (``replica_checksums``) and each rank's band is the one
+  ``process_local_rows`` gives it. (The close-up pose of
   tests/test_torch_default_frame.py does not fit those bounds here on
   the reference's XLA path: its fused multiply-adds move a few hit points,
   and at 32x32 a few pixels carry the mean: 6.6e-4 on frame 0 one device
   against one device, as banded. That test runs the reference in
   interpret mode at 64x64.)
+- 3 ranks of a frame of other options (``options_config``: upscaled,
+  ReLAX, shared-offset pairwise ReSTIR with the real previous surface,
+  Catmull-Rom TAA history, chromatic aberration, the NRD validation
+  view; 16 render rows, so its buffers stay whole between frames): bit
+  for bit the one-device frames.
+- The exchanges on 2 and 3 ranks of a 13-row frame (uneven bands):
+  ``Band.halo``'s clamped rows give a band the rows of ``post._shift``
+  and ``denoise._shift_chw`` of the whole frame, its cyclic rows those of
+  ``torch.roll``; ``Band.reduce_scatter`` in both forms gives each rank
+  its rows of the sum and the max over the ranks; ``Band.gather`` the
+  whole frame.
+- B4's plain version with a row offset (the sharded frame's history
+  fetch) gives the band's rows of the whole frame's, in both modes at 2,
+  5 and 12 words.
 - ``dryrun_multichip(2, device="cpu")``: the reference's dry-run recipe
-  (a 64x64 frame and a 32x32 mesh trace) banded over two spawned ranks.
+  (a 64x64 frame and a 32x32 mesh trace) sharded over two spawned ranks.
 """
 
 import os
@@ -58,6 +79,8 @@ from drts_tpu.parallel import mesh as jmesh, multihost as jmultihost
 from drts_tpu_torch import convert, graft_entry
 from drts_tpu_torch.models import myscene as tmyscene, pipeline as tpipeline
 from drts_tpu_torch.ops import camera as tcamera, pathtrace as tpathtrace
+from drts_tpu_torch.ops import denoise as tdenoise, post as tpost
+from drts_tpu_torch.ops import reproject_kernels as trp
 from drts_tpu_torch.ops import sharc as tsharc
 from drts_tpu_torch.parallel import mesh, multihost
 from drts_tpu_torch.utils import checkpoint
@@ -235,19 +258,41 @@ def assert_f16_close(a, b, name):
     assert (rel > 2e-4).mean() <= 0.01, (name, (rel > 2e-4).mean())
 
 
+# Leaves of 32-bit words (f16 pairs, packed normals, SHARC's meta bits).
+WORD_LEAVES = ("denoiser.packed", "denoiser.packed_spec", "taa.packed",
+               "sharc.packed")
+
+
+def assert_leaf_close(path, a, b):
+    """A leaf of the SHARC frame against the one-device one: integers
+    exact, floats within assert_f16_close, each 16-bit half of a packed
+    word within one step of the other's."""
+    if path in WORD_LEAVES:
+        wa = a.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+        wb = b.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+        for shift in (0, 16):
+            d = (((wa >> shift) & 0xFFFF) - ((wb >> shift) & 0xFFFF)).abs()
+            assert int(d.max()) <= 1, (path, int(d.max()))
+    elif a.dtype.is_floating_point:
+        assert_f16_close(a.numpy(), b.numpy(), path)
+    else:
+        assert torch.equal(a, b), path
+
+
 def _one_device(cfg):
     pipe, state, pose = graft_entry._setup(cfg, "cpu", 3)
     out = []
     for _ in range(FRAMES):
         state, img = pipe.render_frame(state, pose)
         out.append((state, img))
-    return out
+    return pipe, out
 
 
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
-    """The port: 2-rank and one-device frames with SHARC off and on; the
-    reference: its 2-device sharded frames (SHARC on) under one jit."""
+    """The port: 2-rank sharded and one-device frames with SHARC off and
+    on; the reference: its 2-device sharded frames (SHARC on) under one
+    jit."""
     cfgs = [small_config(tpipeline.PipelineConfig, tsharc.SHARCConfig,
                          sharc_enabled=on) for on in (False, True)]
     tmp = tmp_path_factory.mktemp("ranks")
@@ -282,40 +327,61 @@ def frames(tmp_path_factory):
     return out
 
 
+def _shard_of(pipe, state, path, leaf, r, n=2):
+    """Rank r's shard of the one-device `state`'s leaf at `path`."""
+    placed = pipe.placement(state, n)
+    if placed[path] == mesh.REPLICATED:
+        return leaf
+    s, e = mesh.row_band(leaf.shape[0], r, n)
+    return leaf[s:e]
+
+
 @pytest.mark.parametrize("i", range(FRAMES))
 def test_two_ranks_equal_one_device_without_sharc(frames, i):
-    ranks, one = frames[False]
-    for r in ranks:
-        assert torch.equal(r["images"][i], one[i][1])
+    ranks, (pipe, one) = frames[False]
+    for r, run in enumerate(ranks):
+        s, e = mesh.row_band(H, r, 2)
+        assert torch.equal(run["images"][i], one[i][1][s:e])
     if i == FRAMES - 1:
-        flat = dict(checkpoint.leaves(one[-1][0]))
-        for r in ranks:
-            for path, leaf in checkpoint.leaves(r["state"]):
+        state = one[-1][0]
+        flat = dict(checkpoint.leaves(state))
+        for r, run in enumerate(ranks):
+            for path, leaf in checkpoint.leaves(run["state"]):
+                want = flat[path]
+                if isinstance(leaf, torch.Tensor):
+                    want = _shard_of(pipe, state, path, want, r)
+                    assert torch.equal(leaf, want), path
+                else:
+                    assert leaf == want, path
+            for path, leaf in checkpoint.leaves(run["gathered"]):
                 if isinstance(leaf, torch.Tensor):
                     assert torch.equal(leaf, flat[path]), path
-                else:
-                    assert leaf == flat[path], path
 
 
 @pytest.mark.parametrize("i", range(FRAMES))
 def test_two_ranks_near_one_device_with_sharc(frames, i):
-    ranks, one = frames[True]
+    ranks, (pipe, one) = frames[True]
     state, img = one[i]
-    for r in ranks:
-        assert_f16_close(r["images"][i].numpy(), img.numpy(), "image")
+    for r, run in enumerate(ranks):
+        s, e = mesh.row_band(H, r, 2)
+        assert_f16_close(run["images"][i].numpy(), img[s:e].numpy(),
+                         "image")
     if i == FRAMES - 1:
-        for r in ranks:
-            assert_f16_close(r["state"].taa.history.numpy(),
-                             state.taa.history.numpy(), "taa_history")
+        flat = dict(checkpoint.leaves(state))
+        for r, run in enumerate(ranks):
+            for path, leaf in checkpoint.leaves(run["state"]):
+                if isinstance(leaf, torch.Tensor):
+                    assert_leaf_close(path, leaf, _shard_of(
+                        pipe, state, path, flat[path], r))
             for k, v in state.counters.items():
-                assert float(r["state"].counters[k]) == float(v), k
+                assert float(run["state"].counters[k]) == float(v), k
 
 
 @pytest.mark.parametrize("i", range(FRAMES))
 def test_two_ranks_match_the_reference_sharded_frame(frames, i):
     ranks, _ = frames[True]
     jimg = frames["reference"][i]
-    timg = ranks[0]["images"][i].numpy()
+    timg = torch.cat([run["images"][i] for run in ranks]).numpy()
     assert timg.shape == (H, W, 3) and np.isfinite(timg).all()
     d = np.abs(timg - jimg)
     off = d.max(-1)
@@ -330,12 +396,173 @@ def test_two_ranks_match_the_reference_sharded_frame(frames, i):
 
 @pytest.mark.parametrize("sharc_on", [False, True])
 def test_replicas_and_bands(frames, sharc_on):
-    ranks, _ = frames[sharc_on]
+    """The replicated leaves are the same on both ranks, and nothing
+    else is compared across them: the per-row and per-slot leaves are
+    each rank's own shard. Each rank's band is process_local_rows'."""
+    ranks, (pipe, one) = frames[sharc_on]
     sums = [r["checksums"] for r in ranks]
     assert sums[0] == sums[1]
     assert not mesh.replicas_differ(sums[0])
     assert all(len(v) == 2 for v in sums[0].values())
+    placed = pipe.placement(one[-1][0], 2)
+    assert set(sums[0]) == {p for p, k in placed.items()
+                            if k == mesh.REPLICATED}
     assert [r["band"] for r in ranks] == [(0, H // 2), (H // 2, H)]
+
+
+@pytest.mark.parametrize("sharc_on", [False, True])
+def test_sharded_leaves_follow_the_placement(frames, sharc_on):
+    """After the frames, each rank holds what frame_state_placement says
+    of the one-device state: a band of 16 of the 32 rows, half of the
+    4,096 SHARC slots, or the whole leaf."""
+    ranks, (pipe, one) = frames[sharc_on]
+    state = one[-1][0]
+    placed = mesh.frame_state_placement(state, (H,), (1 << 12,), 2)
+    kinds = set()
+    for r, run in enumerate(ranks):
+        assert run["misplaced"] == []
+        flat = dict(checkpoint.leaves(run["state"]))
+        for path, leaf in checkpoint.leaves(state):
+            if not isinstance(leaf, torch.Tensor):
+                continue
+            want = tuple(leaf.shape)
+            if placed[path] == mesh.ROWS:
+                want = (H // 2,) + want[1:]
+            elif placed[path] == mesh.SLOTS:
+                want = ((1 << 12) // 2,) + want[1:]
+            assert tuple(flat[path].shape) == want, path
+            kinds.add(placed[path])
+    assert kinds == {mesh.ROWS, mesh.SLOTS, mesh.REPLICATED}
+    assert placed["taa.history"] == mesh.ROWS
+    assert placed["sharc.packed"] == mesh.SLOTS
+    assert placed["scene.center"] == mesh.REPLICATED
+
+
+def options_config():
+    """3 ranks' frame of other options: 32x16 upscaled to 48x24 (render
+    bands of 5, 5 and 6 rows, replicated between frames; output bands of
+    8), ReLAX, shared-offset pairwise ReSTIR with the real previous
+    surface, Catmull-Rom TAA history, chromatic aberration and the NRD
+    validation view. The widths are multiples of 32: PyTorch's CPU
+    kernels run whole groups of 32 floats through their vector body and
+    the rest through a scalar loop, which round the sky's transcendentals
+    differently in the last bit, so a band of another width puts some
+    pixels in the other loop than the whole frame does (an artifact of the
+    CPU kernels, not of the bands: on the card each element is computed
+    alike, and chip_smoke.py phase 22 (b) finds the bands' images equal
+    to one rank's)."""
+    from drts_tpu_torch.ops import restir as trestir
+    return tpipeline.PipelineConfig(
+        output_width=48, output_height=24, render_width=32,
+        render_height=16, upscaling=True, bounces=2, block_size=4096,
+        sharc_enabled=False, sharc=tsharc.SHARCConfig(capacity_log2=12),
+        denoiser="NRDReLAX", taa_history_filter="catmull",
+        chromatic_aberration_strength=0.05, debug_view="NRDValidation",
+        restir=trestir.ReSTIRConfig(
+            spatial_offset_mode="shared", spatial_bias_correction="pairwise",
+            temporal_bias_correction="pairwise",
+            temporal_prev_surface="real"))
+
+
+def test_three_ranks_equal_one_device_with_other_options(tmp_path):
+    """Two frames of options_config sharded over 3 ranks: each rank's
+    image band the one-device frames' rows bit for bit, the gathered
+    state the one-device state, every leaf where the placement puts it
+    (the render-height buffers whole: 16 does not divide by 3)."""
+    cfg = options_config()
+    multihost.spawn(graft_entry.frames_worker, 3, "cpu",
+                    args=([cfg], FRAMES, str(tmp_path), 3, None, "cpu"))
+    runs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)[0]
+            for r in range(3)]
+    pipe, one = _one_device(cfg)
+    placed = pipe.placement(one[-1][0], 3)
+    assert placed["reservoirs.uv"] == mesh.REPLICATED
+    assert placed["taa.history"] == mesh.ROWS
+    for r, run in enumerate(runs):
+        s, e = mesh.row_band(24, r, 3)
+        for i in range(FRAMES):
+            assert torch.equal(run["images"][i], one[i][1][s:e]), (r, i)
+        assert run["misplaced"] == []
+        flat = dict(checkpoint.leaves(one[-1][0]))
+        for path, leaf in checkpoint.leaves(run["gathered"]):
+            if isinstance(leaf, torch.Tensor):
+                assert torch.equal(leaf, flat[path]), path
+
+
+EXCHANGE_H, EXCHANGE_W = 13, 6
+
+
+@pytest.fixture(scope="module")
+def exchanges(tmp_path_factory):
+    """graft_entry.exchange_worker's results on 2 and 3 gloo ranks of a
+    13-row frame (bands of 6 and 7 rows; 4, 4 and 5)."""
+    out = {}
+    for n in (2, 3):
+        tmp = tmp_path_factory.mktemp(f"exchange{n}")
+        multihost.spawn(graft_entry.exchange_worker, n, "cpu",
+                        args=(EXCHANGE_H, EXCHANGE_W, str(tmp), "cpu"))
+        out[n] = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                  for r in range(n)]
+    gen = torch.Generator().manual_seed(EXCHANGE_H * 1000 + EXCHANGE_W)
+    out["image"] = torch.randn((EXCHANGE_H, EXCHANGE_W, 3), generator=gen)
+    return out
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("op", ["shift", "shift_chw", "roll"])
+def test_halo_matches_the_whole_frame(exchanges, n, op):
+    img = exchanges["image"]
+    for r, run in enumerate(exchanges[n]):
+        s, e = mesh.row_band(EXCHANGE_H, r, n)
+        assert run["band"] == (s, e)
+        for dy in graft_entry.EXCHANGE_SHIFTS:
+            if op == "shift":
+                whole = tpost._shift(img, dy, 1)
+            elif op == "shift_chw":
+                whole = tdenoise._shift_chw(img.permute(2, 0, 1), dy,
+                                            1).permute(1, 2, 0)
+            else:
+                whole = torch.roll(img, shifts=(-dy, -1), dims=(0, 1))
+            assert torch.equal(run[op][dy], whole[s:e]), (r, dy)
+
+
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("form", ["native", "all_reduce"])
+def test_reduce_scatter_forms(exchanges, n, form):
+    """Each rank's rows of the sum and the max over the ranks; and the
+    whole image gathered back from the bands."""
+    sums, words = [], []
+    for r in range(n):
+        local = torch.Generator().manual_seed(7 + r)
+        sums.append(torch.randn((EXCHANGE_H, 4), generator=local))
+        words.append(torch.randint(0, 1 << 40, (EXCHANGE_H,),
+                                   generator=local))
+    total = torch.stack(sums).sum(0)
+    top = torch.stack(words).amax(0)
+    for r, run in enumerate(exchanges[n]):
+        s, e = mesh.row_band(EXCHANGE_H, r, n)
+        got_sum, got_max = run["reduce_scatter"][form]
+        assert torch.allclose(got_sum, total[s:e], rtol=1e-6, atol=1e-6)
+        assert torch.equal(got_max, top[s:e])
+        assert torch.equal(run["gathered"], exchanges["image"])
+
+
+@pytest.mark.parametrize("c", [2, 5, 12])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_reproject_row_offset_equals_the_whole_frame(c, mode):
+    h, w = 23, 17
+    rng = np.random.RandomState(c)
+    src = torch.from_numpy(np.asarray(rng.randn(h, w, c), np.float32))
+    motion = torch.from_numpy(np.asarray(rng.randn(h, w, 2) * 6,
+                                         np.float32))
+    whole, whole_ok = trp.reproject_packed(src, motion, mode)
+    for s, e in [(0, 7), (7, 15), (15, 23), (11, 12)]:
+        out, ok = trp.reproject_packed(src, motion[s:e], mode, s)
+        assert torch.equal(out.view(torch.int32),
+                           whole[s:e].view(torch.int32)), (s, e)
+        assert torch.equal(ok, whole_ok[s:e])
+    with pytest.raises(ValueError):
+        trp.reproject_packed(src, motion[15:], mode, 16)
 
 
 def test_dryrun_multichip_two_ranks():
