@@ -310,7 +310,17 @@ Phases, one printed line or more each; any failure exits non-zero:
    bound and its resources (intersect_clustered_info); the headline frame
    counted from zero (B13 9 plus 7 a spill wave, no B1 or B11), B13 summed
    over its launches as B12a's, and its image against the Morton route's
-   frame of (a). Each image
+   frame of (a). (c) The reference's other two MXU precisions
+   (intersect_kernels.MXU_PREC set to "default", then "highest", and
+   restored): B12a on the primary rays and B12b on (a)'s three shadow
+   batches, each against its plain version (the MXU_* limits; grazing at
+   "default" on the plain version's own quadratic) and with its chunk cull
+   off (every word equal; "default" runs with it off), timed as a median
+   of 10 with its bound (1 or 6 mmas a swept slot), share and resources;
+   then at that precision the headline frame and the two upscaled default
+   frames counted from zero (B12a and B12b as in (a), no B1 or B2),
+   finite images in [0, 1], printed against the opt-in-off frames. Each
+   image
    difference is printed as the mean |difference| of the tone-mapped
    images, the share of pixels that differ at all and of those off by
    more than DEFAULT_OFF; the mean must stay under ROUTE_MEAN.
@@ -353,7 +363,9 @@ recorded frame (B1 per frame, B2 its three batches, B4 its four
 reprojections at row offset 540, B11 its light sweep); and B12a ("intersect_morton_mxu")
 with the launches of phase 24's MXU headline frame and the times on its
 primary rays, B12b ("occlusion_morton_mxu") with the launches of its two
-default frames and the times summed over the three shadow batches, and
+default frames and the times summed over the three shadow batches, the
+same two at "default" and "highest" ("...@default", "...@highest") with
+the launches and the median times of phase 24 (c), and
 B13 ("intersect_clustered") with the launches of the clustered headline
 frame and the times on its primary rays.
 Every bound counts what this run's lanes need (a dead lane reads tmin and
@@ -375,6 +387,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -428,7 +441,8 @@ OPS_TRI_END = 4           # ... B6, B10: the segment end from the best so far
 OPS_TRI_CONE = 14         # lane x missed chunk: its guard cone (a sqrt)
 OPS_TRI_GUARD = 7         # lane x face of a missed chunk: |dl . A| >= guard
 OPS_TRI_RAY = 16          # a sweeping lane's cull terms (segment_cull_tri)
-OPS_B12_TC = 96           # B12: (ray, slot) of the bf16x3 product: 3 x 16 MACs
+OPS_B12_MMA = 32          # B12: (ray, slot) x a product's mma: 16 MACs; 1,
+#                           3 or 6 mmas (intersect_kernels.mxu_products)
 OPS_B12_PAIR = 4          # ... its tail's c2, discriminant and test
 OPS_B13_CLUSTER = 16      # B13: ray x cluster bound, to its discriminant
 OPS_B13_CLUSTER_ROOT = 7  # ... positive: root, the interval's ends, tests
@@ -487,7 +501,14 @@ DEFAULT_FP_SHARE = 0.99   # SHARC slots with the same fingerprint
 # relative plus MXU_T_ATOL absolute, and the object index is the plain
 # version's, or one that the plain version's own pair test meets at its
 # t within the same tolerance (a tie; the reference's t margins and index
-# rule, tests/test_post_denoise.py:304-319).
+# rule, tests/test_post_denoise.py:304-319). The same limits hold at each
+# of the reference's precisions (phase 24 (c)), the kernel and its plain
+# version differing by the sums' order alone; at "default" both take the
+# same single bf16 pass, which moves each discriminant far from the exact
+# one (intersect_kernels.MXU_CULL_SCALE), so grazing there is measured on
+# the plain version's own quadratic (own_grazing), not on the spheres, and
+# a pair whose root lies within the t tolerance of tmin or tmax counts as
+# grazing (tests/test_torch_cuda.py states why).
 MXU_GRAZE = 5e-2
 MXU_FLIP_SHARE = 5e-3
 MXU_STRICT = 3e-2
@@ -3548,6 +3569,47 @@ def table_spheres(table):
     return table[:3, filled].T.contiguous(), table[3, filled].contiguous()
 
 
+def own_grazing(ik, rays, table, bounds, mxu_a, step=32768):
+    """(N,) float32 on the card: min over the table's filled columns of
+    |sqrt(r^2 - disc) - r|, disc the plain version's own discriminant at
+    MXU_PREC (for unit directions, disc = r^2 - distance^2); 0 for a
+    column whose root (the tail's: near, else far) lies within
+    MXU_T_RTOL |t| + MXU_T_ATOL of tmin or tmax."""
+    out = torch.empty(rays.shape[1], device=rays.device)
+    r = table[3][None, :]
+    chunk = table.shape[1] // bounds.shape[1]
+    for s in range(0, rays.shape[1], step):
+        part = rays[:, s:s + step]
+        b2, c2 = ik.mxu_coefficients(part, mxu_a, chunk)
+        disc = b2 * b2 - c2
+        dist = torch.sqrt(torch.clamp(r * r - disc, min=0.0))
+        graze = torch.where(r > 0, (dist - r).abs(), float("inf"))
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        tmin, tmax = part[6][:, None], part[7][:, None]
+        t = torch.where(-b2 - sq >= tmin, -b2 - sq, sq - b2)
+        tol = MXU_T_RTOL * t.abs() + MXU_T_ATOL
+        edge = (disc >= 0) & (((t - tmin).abs() <= tol)
+                              | ((t - tmax).abs() <= tol))
+        out[s:s + step] = torch.where(edge, 0.0, graze).amin(1)
+    return out
+
+
+def mxu_grazing(ik, rays, table, bounds, mxu_a):
+    """The grazing margin the MXU_* limits read at MXU_PREC: the plain
+    version's own at "default", the spheres' at the others."""
+    if ik.MXU_PREC == "default":
+        return own_grazing(ik, rays, table, bounds, mxu_a)
+    return grazing(rays, *table_spheres(table))
+
+
+def cuda_median_ms(fn, reps):
+    """Median device time of fn over reps calls after one warm call, each
+    timed as cuda_ms times it (CUDA events, L2 flushed)."""
+    fn()
+    return statistics.median(cuda_ms(fn, 1, warm=False)
+                             for _ in range(reps))
+
+
 def grazing(rays, centers, radii, step=32768):
     """(N,) float32 on the card: min over spheres of |distance(ray line,
     centre) - r|, the margin by which a ray misses or clears a sphere's
@@ -3600,12 +3662,12 @@ def mxu_index_off(ik, rays, accel, t_p, i_k, i_p, strict):
 def mxu_cull_off(ik):
     """B12a and B12b with the chunk cull off: an infinite margin lets
     every chunk through, and the walk skips none."""
-    saved = ik.MXU_CULL_SCALE
-    ik.MXU_CULL_SCALE = float("inf")
+    saved = dict(ik.MXU_CULL_SCALE)
+    ik.MXU_CULL_SCALE[ik.MXU_PREC] = float("inf")
     try:
         yield
     finally:
-        ik.MXU_CULL_SCALE = saved
+        ik.MXU_CULL_SCALE.update(saved)
 
 
 def b12a_bound(ik, rays, table, bounds, mxu_a):
@@ -3621,7 +3683,7 @@ def b12a_bound(ik, rays, table, bounds, mxu_a):
     b_ms, b_by = bound(
         lane_bytes(n, live, 8, 2, table, bounds, mxu_a),
         tests * OPS_B1_CHUNK + met * OPS_B1_MET + pairs * OPS_B12_PAIR
-        + live * OPS_B1_RAY, pairs * OPS_B12_TC)
+        + live * OPS_B1_RAY, pairs * OPS_B12_MMA * ik.mxu_products())
     return {"tests": tests, "met": met, "swept": swept, "pairs": pairs,
             "slots": slots, "bound_ms": b_ms, "bound_by": b_by}
 
@@ -3636,11 +3698,11 @@ def resources(info):
             f"resident={info['resident']}")
 
 
-def check_b12a(ik, label, rays, accel, reps=10):
-    """B12a against its plain version on `rays` (MXU_* tolerances) and
-    against itself with the chunk cull off (every word equal), both
-    timed, with its bound (b12a_bound), its share of the bound and its
-    resources."""
+def check_b12a(ik, label, rays, accel, reps=10, timer=cuda_ms):
+    """B12a at MXU_PREC against its plain version on `rays` (MXU_*
+    tolerances) and against itself with the chunk cull off (every word
+    equal), both timed (`timer`: the mean, or cuda_median_ms), with its
+    bound (b12a_bound), its share of the bound and its resources."""
     args = (rays, accel.table, accel.bounds, accel.mxu_a)
     t_k, i_k = ik.intersect_morton_mxu(*args)
     t_p, i_p = ik.intersect_morton_mxu_plain(*args)
@@ -3649,7 +3711,7 @@ def check_b12a(ik, label, rays, accel, reps=10):
     torch.cuda.synchronize()
     cull_diff = int(((t_k.view(torch.int32) != t_u.view(torch.int32))
                      | (i_k != i_u)).sum())
-    graze = grazing(rays, *table_spheres(accel.table))
+    graze = mxu_grazing(ik, *args)
     n, live = rays.shape[1], live_rays(rays)
     fin_k, fin_p = torch.isfinite(t_k), torch.isfinite(t_p)
     flips, worst = mxu_flips(label, fin_k != fin_p, graze, live)
@@ -3665,7 +3727,7 @@ def check_b12a(ik, label, rays, accel, reps=10):
     err = float(gap.max()) if bool(strict.any()) else 0.0
     same = float((t_k.view(torch.int32) == t_p.view(torch.int32))[both]
                  .float().mean()) if bool(both.any()) else 1.0
-    ms = cuda_ms(lambda: ik.intersect_morton_mxu(*args), reps)
+    ms = timer(lambda: ik.intersect_morton_mxu(*args), reps)
     plain_ms = cuda_ms(lambda: ik.intersect_morton_mxu_plain(*args), 2,
                        warm=False)
     w = b12a_bound(ik, *args)
@@ -3700,11 +3762,12 @@ def check_b12a(ik, label, rays, accel, reps=10):
             "library_ms": None, "share_of_bound": w["bound_ms"] / ms}
 
 
-def check_b12b(ik, calls, reps=10):
-    """B12b against its plain version on each recorded batch (MXU_*
-    flips) and against itself with the chunk cull off (every bit equal),
-    both timed, and its bound from occlusion_morton_mxu_work;
-    times summed over the batches, the bound of their summed work."""
+def check_b12b(ik, calls, reps=10, timer=cuda_ms, label="B12b"):
+    """B12b at MXU_PREC against its plain version on each recorded batch
+    (MXU_* flips) and against itself with the chunk cull off (every bit
+    equal), both timed (`timer`, as check_b12a's), and its bound from
+    occlusion_morton_mxu_work; times summed over the batches, the bound of
+    their summed work."""
     tot = {"ms": 0.0, "plain_ms": 0.0}
     work = [0, 0, 0]   # bytes, float32 operations, tensor-core flops
     flips_all = 0
@@ -3717,24 +3780,25 @@ def check_b12b(ik, calls, reps=10):
             cull_diff = int((ik.occlusion_morton_mxu(*args) != occ_k).sum())
         torch.cuda.synchronize()
         if cull_diff:
-            raise AssertionError(f"B12b batch {b}: {cull_diff} rays change "
-                                 f"with the chunk cull off")
+            raise AssertionError(f"{label} batch {b}: {cull_diff} rays "
+                                 f"change with the chunk cull off")
         live = live_rays(rays9)
-        graze = grazing(rays9, *table_spheres(table))
-        flips, worst = mxu_flips(f"B12b batch {b}", occ_k != occ_p, graze,
-                                 live)
+        graze = mxu_grazing(ik, *args)
+        flips, worst = mxu_flips(f"{label} batch {b}", occ_k != occ_p,
+                                 graze, live)
         flips_all += flips
-        ms = cuda_ms(lambda: ik.occlusion_morton_mxu(*args), reps)
+        ms = timer(lambda: ik.occlusion_morton_mxu(*args), reps)
         plain_ms = cuda_ms(lambda: ik.occlusion_morton_mxu_plain(*args), 1,
                            warm=False)
         tests, met, swept, pairs, slots = (
             int(x.sum()) for x in ik.occlusion_morton_mxu_work(*args))
         part = (lane_bytes(rays9.shape[1], live, 9, 0.25, *args[1:]),
                 tests * OPS_B2_CHUNK + pairs * OPS_B12_PAIR
-                + live * OPS_B2_RAY, pairs * OPS_B12_TC)
+                + live * OPS_B2_RAY,
+                pairs * OPS_B12_MMA * ik.mxu_products())
         work = [a + b for a, b in zip(work, part)]
         b_ms, b_by = bound(*part)
-        log(f"routes: B12b batch {b} rays={rays9.shape[1]} live={live} "
+        log(f"routes: {label} batch {b} rays={rays9.shape[1]} live={live} "
             f"occluded={int(occ_p.sum())} flips={flips} "
             f"largest_flip_graze={worst!r} kernel_ms={ms!r} "
             f"plain_ms={plain_ms!r} chunk_tests={tests} chunks_met={met} "
@@ -3745,7 +3809,8 @@ def check_b12b(ik, calls, reps=10):
     b_ms, b_by = bound(*work)
     info = ik.occlusion_morton_mxu_info(calls[0][1], calls[0][2],
                                         calls[0][0].shape[1])
-    log(f"routes: B12b the {len(calls)} batches: kernel_ms={tot['ms']!r} "
+    log(f"routes: {label} the {len(calls)} batches: "
+        f"kernel_ms={tot['ms']!r} "
         f"bound_ms={b_ms!r} ({b_by}) share_of_bound={b_ms / tot['ms']!r} "
         f"{resources(info)}")
     return dict(tot, max_abs_err=float(flips_all > 0), bound_ms=b_ms,
@@ -3979,9 +4044,92 @@ def run_mxu_route(bench, backend, clusters, ik, smi, dev, primary):
         if len(calls) != 3:
             raise AssertionError(f"{len(calls)} B12b batches recorded")
         fields["occlusion_morton_mxu"] = check_b12b(ik, calls)
+        clusters._USE_MXU = True
+        p_fields, p_launches = run_mxu_precisions(
+            bench, backend, ik, smi, setup, accel, primary, calls,
+            (pipe, state, pose, cfg, runs[False][0]))
+        fields.update(p_fields)
+        launches.update(p_launches)
     finally:
         clusters._USE_MXU = saved
     return fields, launches, runs[False][0]
+
+
+# The reference's other two MXU precisions (DRTS_MXU_PREC), phase 24 (c).
+MXU_OTHER_PRECS = ("default", "highest")
+
+
+def run_mxu_precisions(bench, backend, ik, smi, setup, accel, primary,
+                       calls, frame):
+    """Phase 24 (c): B12a and B12b at "default" and "highest"
+    (intersect_kernels.MXU_PREC set for each and restored after): B12a on
+    the headline frame's primary rays and B12b on (a)'s three recorded
+    shadow batches, each against its plain version (MXU_* limits) and with
+    its chunk cull off (every word equal), timed as a median of 10 with
+    its bound, share and resources; then, counted from zero at that
+    precision, the headline frame (B12a as in (a), no B1, B2 or B12b) and
+    the two upscaled default frames (B12a as in (a), B12b 6), their
+    images finite and in [0, 1] and printed against the opt-in-off
+    frames. Returns (fields, launches) of the "...@default" and
+    "...@highest" entries."""
+    pipe, state, pose, cfg, headline_off = frame
+    fields, launches = {}, {}
+    saved = ik.MXU_PREC
+    try:
+        for prec in MXU_OTHER_PRECS:
+            ik.MXU_PREC = prec
+            fields[f"intersect_morton_mxu@{prec}"] = check_b12a(
+                ik, f"B12a primary @{prec}", primary, accel,
+                timer=cuda_median_ms)
+            fields[f"occlusion_morton_mxu@{prec}"] = check_b12b(
+                ik, calls, timer=cuda_median_ms, label=f"B12b @{prec}")
+            img, ms, got, spills, rays = timed_trace_frame(bench, backend,
+                                                           setup, 1)
+            expect_launches(f"MXU headline frame @{prec}", got, {
+                "intersect_morton_mxu": trace_calls(setup.cfg, spills),
+                "intersect_morton": 0, "occlusion_morton": 0,
+                "occlusion_morton_mxu": 0})
+            waves = [0]
+
+            def run(name, fn, *args):
+                out = fn(*args)
+                if name == "trace":
+                    waves[0] += out.spill_waves
+                return out
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            s1, _ = pipe.render_frame(state, pose, _run=run)
+            _, dimg = pipe.render_frame(s1, pose, _run=run)
+            torch.cuda.synchronize()
+            d_ms = (time.perf_counter() - t0) * 1e3 / 2
+            d_got = dict(backend.LAUNCHES)
+            expect_launches(f"MXU default frames @{prec}", d_got, {
+                "intersect_morton_mxu": 3 * (cfg.bounces + 1) + (
+                    cfg.bounces - cfg.compact_from + 1) * waves[0],
+                "occlusion_morton_mxu": 6, "intersect_morton": 0,
+                "occlusion_morton": 0})
+            for name, im in (("headline", img), ("default", dimg)):
+                if (not bool(torch.isfinite(im).all())
+                        or float(im.min()) < 0.0 or float(im.max()) > 1.0):
+                    raise AssertionError(f"the MXU {name} frame @{prec} is "
+                                         f"not a finite image in [0, 1]")
+            mean, off, worst = frame_diff(img, headline_off)
+            log(f"routes: MXU @{prec} headline frame frame_ms={ms!r} "
+                f"rays={rays!r} spill_waves={spills} "
+                f"B12a={got['intersect_morton_mxu']} against the "
+                f"opt-in-off frame: mean_abs_diff={mean!r} "
+                f"share_off_by_{DEFAULT_OFF}="
+                f"{off!r} max_abs_diff={worst!r}; upscaled default frames "
+                f"frame_ms={d_ms!r} spill_waves={waves[0]} B12a="
+                f"{d_got['intersect_morton_mxu']} B12b="
+                f"{d_got['occlusion_morton_mxu']} | {smi}")
+            launches[f"intersect_morton_mxu@{prec}"] = \
+                got["intersect_morton_mxu"]
+            launches[f"occlusion_morton_mxu@{prec}"] = \
+                d_got["occlusion_morton_mxu"]
+    finally:
+        ik.MXU_PREC = saved
+    return fields, launches
 
 
 def run_clustered_route(bench, backend, clusters, ik, smi, dev, primary,
@@ -4653,6 +4801,11 @@ def main():
                                  "drts_tpu/ops/intersect_pallas.py:408"),
         "occlusion_morton_mxu": ("drts_tpu_torch/csrc/intersect.cu",
                                  "drts_tpu/ops/intersect_pallas.py:597"),
+        **{f"{name}@{prec}": ("drts_tpu_torch/csrc/intersect.cu",
+                              f"drts_tpu/ops/intersect_pallas.py:{line}")
+           for prec in MXU_OTHER_PRECS
+           for name, line in (("intersect_morton_mxu", 408),
+                              ("occlusion_morton_mxu", 597))},
         "intersect_clustered": ("drts_tpu_torch/csrc/intersect.cu",
                                 "drts_tpu/ops/intersect_pallas.py:716"),
     }

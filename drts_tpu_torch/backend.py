@@ -52,18 +52,19 @@ _SIGNATURES = {
                                 _FLOAT, _INT, _VOIDP, _VOIDP, _VOIDP),
     "drts_brute_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _VOIDP,
                                _VOIDP),
-    # rays, n, table, cols, bounds, n_chunks, mxu_a, cull_scale, pos_bits,
-    # t_out, obj_out, stream
+    # rays, n, table, cols, bounds, n_chunks, mxu_a, parts (the
+    # precision's bf16 parts: 1, 2, 3), cull_scale, pos_bits, t_out,
+    # obj_out, stream
     "drts_morton_mxu_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP,
-                                    _INT, _VOIDP, _FLOAT, _INT, _VOIDP,
-                                    _VOIDP, _VOIDP),
-    # rays, n, table, cols, bounds, n_chunks, mxu_a, cull_scale, occ_out,
-    # stream
+                                    _INT, _VOIDP, _INT, _FLOAT, _INT,
+                                    _VOIDP, _VOIDP, _VOIDP),
+    # rays, n, table, cols, bounds, n_chunks, mxu_a, parts, cull_scale,
+    # occ_out, stream
     "drts_morton_mxu_occlusion": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,
-                                  _VOIDP, _FLOAT, _VOIDP, _VOIDP),
-    # cols, n_chunks, n, out (7 ints)
-    "drts_morton_mxu_closest_hit_info": (_INT, _INT, _INT, _VOIDP),
-    "drts_morton_mxu_occlusion_info": (_INT, _INT, _INT, _VOIDP),
+                                  _VOIDP, _INT, _FLOAT, _VOIDP, _VOIDP),
+    # cols, n_chunks, n, parts, out (7 ints)
+    "drts_morton_mxu_closest_hit_info": (_INT, _INT, _INT, _INT, _VOIDP),
+    "drts_morton_mxu_occlusion_info": (_INT, _INT, _INT, _INT, _VOIDP),
     # rays, n, bounds_tbl, c_pad, members_tbl, n_clusters, max_members,
     # t_out, obj_out, stream
     "drts_clustered_closest_hit": (_VOIDP, _INT, _VOIDP, _INT, _VOIDP, _INT,

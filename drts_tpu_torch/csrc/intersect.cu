@@ -483,16 +483,24 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // c0 - |o|^2 from a rank-8 product on the tensor cores. Per chunk the
 // A-matrix (2*chunk, 8) [b rows; c rows] (clusters.make_mxu_tables) times
 // the rays' X = [dx dy dz ox oy oz od 1] gives Y; b2 = Y_b and
-// c2 = Y_c + |o|^2. The product runs at the reference's "high"
-// precision: both operands split into bf16 halves (__float2bfloat16_rn,
-// as intersect_pallas._mxu_dot's casts), and Y = hi.hi + hi.lo + lo.hi
-// with float32 sums.
+// c2 = Y_c + |o|^2. The product runs at the reference's DRTS_MXU_PREC
+// (ops/intersect_kernels.py: MXU_PARTS, MXU_PRODUCTS), each kernel a
+// template on the number P of bf16 parts that each operand splits into
+// (__float2bfloat16_rn, as intersect_pallas._mxu_dot's casts; each part
+// rounds what the ones before it leave, x - hi and x - hi - mid, exact in
+// float32):
+//
+//   P = 1, "default":  hi.hi, one mma.
+//   P = 2, "high":     (hi.hi + hi.lo) + lo.hi, three mmas.
+//   P = 3, "highest":  ((((lo.hi + hi.lo) + mid.mid) + mid.hi) + hi.mid)
+//                      + hi.hi, six mmas (mid.lo, lo.mid, lo.lo dropped).
 //
 // Design: mma.sync.aligned.m16n8k16 (bf16 in, f32 accumulate), a warp per
-// 32 rays. B = [x_hi ; x_lo] (the reference's K = 8 twice); three mmas
-// take A = [a_hi | 0] (hi.hi), [0 | a_hi] (hi.lo) and [a_lo | 0] (lo.hi),
-// each into a zeroed accumulator, and the CUDA cores add the three in
-// float32 (mxu_tile_product). A 16-row tile
+// 32 rays. The reference's K = 8 fills half of the mma's K = 16: each
+// product takes its A part in K-slots 0-7 or 8-15, zero in the other
+// eight, against a B operand that holds the matching X part there
+// (mxu_tile_product), each into a zeroed accumulator, and the CUDA cores
+// add the products in float32 in the plain version's order. A 16-row tile
 // holds the b rows of 8 spheres (rows 0-7) and their c rows (rows 8-15),
 // so the thread that holds b of sphere g for a ray in its C fragment
 // (c0, c1: row g) also holds its c (c2, c3: row g + 8): the tail needs no
@@ -501,8 +509,8 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // rows 0, c rows |c|^2 - r^2 = 1e30). The staging splits the table's
 // A-matrices into per-thread fragments in shared memory (B12b: once per
 // block; B12a: once per persistent block, see its note): per slot and per
-// thread-in-group t (k = 2t, 2t+1) one uint4 of packed bf16 pairs
-// {b_hi, c_hi, b_lo, c_lo}.
+// thread-in-group t (k = 2t, 2t+1) the P parts as packed bf16 pairs of
+// the b and c rows (MxuParts<P>::Frag: 8, 16 or 24 bytes).
 //
 // Lane L owns ray warp_base + L for the loads, the cull and the result.
 // The four 8-ray tiles of the warp's 32 rays are laid out so that column
@@ -518,47 +526,77 @@ morton_occlusion(const float* __restrict__ rays, int n,
 // excluded object). Chunks are culled per warp: each owner lane tests
 // the chunk's bound as B1 (B12a: the half-line segment ending at its best)
 // or B2 (B12b: the segment [tmin, tmax]) does, with the caller's margin
-// (ops/intersect_kernels.py:MXU_CULL_SCALE, which covers the product's
-// rounding), and the warp sweeps the chunk's filled slots, in groups of
-// 8, where any lane meets it. Every lane folds a swept chunk's pairs, so
-// a result differs from the unculled sweep only where a whole warp culls
-// a chunk. B12b's warp leaves once none of its lanes is open.
+// (ops/intersect_kernels.py: MXU_CULL_SCALE, per precision, which covers
+// the product's rounding; infinite at "default", whose margin would cut
+// next to nothing), and the warp sweeps the chunk's filled slots, in
+// groups of 8, where any lane meets it. Every lane folds a swept chunk's
+// pairs, so a result differs from the unculled sweep only where a whole
+// warp culls a chunk. B12b's warp leaves once none of its lanes is open.
 //
 // Numbers: each mma sums its 8 products in an order and with roundings
 // that IEEE does not specify, so each product can differ from the plain
-// version's float32 matmul by about an ulp of its terms; the three are
-// added in the plain version's order, (hi.hi + hi.lo) + lo.hi, on the CUDA
-// cores. (Measured on an H100 against the float64 sum of the same halves:
-// a K = 8 sum on the tensor cores within 2^-23.1 of sum |a||x|, cuBLAS's
-// float32 within 2^-23.0; one mma for hi.hi + hi.lo with lo.hi
-// accumulated into it within 2^-21.9, and it flipped 65 of 300,001 random
-// rays against the plain version where these sums flip none; PERF.md, PR
-// 19.) The kernels are held to their plain versions with a stated
-// tolerance (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit
-// for bit: the bf16x3 split itself lies up to ~2^-16 of sum |a||x| off the
-// exact product, on both sides alike, which can move the discriminant of
-// a ray that misses its sphere by a few hundredths to about zero, where a
-// float32-grade difference of the sums decides the hit.
-// Bound: per swept (ray, slot) the three mmas issue 96 MACs (192 flops,
-// half on zero K-slots; ~0.19 ps at the dense bf16 rate of 989 TFLOP/s)
-// and the tail ~12 float operations (~0.36 ps at 33.5e12 a second): by
-// those rates the tail's float32 issue would limit the kernels. Measured
-// on an H100, the mma.sync chain does instead: on the demo frame's primary
-// rays with the cull off, B12a's products (then two mmas) alone took 0.50
-// ms of its 0.83, far from the dense rate (which only wgmma reaches; its
-// sums are another order, so it would need its own tolerance).
+// version's float32 matmul by about an ulp of its terms; the products are
+// added in the plain version's order on the CUDA cores. (Measured on an
+// H100 against the float64 sum of the same halves: a K = 8 sum on the
+// tensor cores within 2^-23.1 of sum |a||x|, cuBLAS's float32 within
+// 2^-23.0; one mma for hi.hi + hi.lo with lo.hi accumulated into it within
+// 2^-21.9, and it flipped 65 of 300,001 random rays against the plain
+// version where these sums flip none; PERF.md.) The kernels are
+// held to their plain versions with a stated tolerance
+// (tests/test_torch_cuda.py, chip_smoke.py phase 24), not bit for bit: the
+// split itself lies off the exact product (up to ~2^-14 of sum |a||x| at
+// "high", ~2^-7 at "default", ~2^-23 at "highest"), on both sides alike,
+// which can move the discriminant of a ray that misses its sphere to about
+// zero, where a float32-grade difference of the sums decides the hit.
+// Bound: per swept (ray, slot) each mma issues 32 MACs (64 flops, half on
+// zero K-slots; ~0.065 ps at the dense bf16 rate of 989 TFLOP/s), P = 1, 2,
+// 3 giving 1, 3, 6 mmas, and the tail ~12 float operations (~0.36 ps at
+// 33.5e12 a second): by those rates the tail's float32 issue would limit
+// the kernels. Measured on an H100, the mma.sync chain does instead: on
+// the demo frame's primary rays with the cull off, B12a's products (then
+// two mmas) alone took 0.50 ms of its 0.83, far from the dense rate (which
+// only wgmma reaches; its sums are another order, so it would need its own
+// tolerance).
 
+// The per-thread fragment of one slot: the P bf16 parts of the b and c
+// pairs, each part as {b pair, c pair}.
+struct MxuFrag3 {
+  uint2 hi, mid, lo;
+};
+
+template <int P>
+struct MxuParts;
+// Frag: a slot's per-thread fragment; kMinBlocks: B12a's launch bounds'
+// resident blocks an SM (its note).
+template <>
+struct MxuParts<1> {
+  using Frag = uint2;  // {b_hi, c_hi}
+  static constexpr int kMinBlocks = 3;
+};
+template <>
+struct MxuParts<2> {
+  using Frag = uint4;  // {b_hi, c_hi, b_lo, c_lo}
+  static constexpr int kMinBlocks = 3;
+};
+template <>
+struct MxuParts<3> {
+  using Frag = MxuFrag3;
+  static constexpr int kMinBlocks = 2;
+};
+
+template <class F>
 struct MxuTile {
-  uint4* frag;  // per slot, 4 threads-in-group: {b_hi, c_hi, b_lo, c_lo}
+  F* frag;      // per slot, 4 threads-in-group: MxuParts<P>::Frag
   int* obj;     // per slot: the object id (B12a: int; B12b: float bits)
   float4* bnd;  // per chunk: cull_sphere
   int* cnt;     // per chunk: filled slots
 };
 
-__device__ __forceinline__ MxuTile mxu_tile(uint4* s_mem, int tile,
-                                            int chunk_pad) {
-  MxuTile t;
-  t.frag = s_mem;
+template <class F>
+__device__ __forceinline__ MxuTile<F> mxu_tile(uint4* s_mem, int tile,
+                                               int chunk_pad) {
+  MxuTile<F> t;
+  t.frag = reinterpret_cast<F*>(s_mem);
   t.bnd = reinterpret_cast<float4*>(t.frag + (size_t)tile * chunk_pad * 4);
   t.obj = reinterpret_cast<int*>(t.bnd + tile);
   t.cnt = t.obj + tile * chunk_pad;
@@ -572,17 +610,42 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo_k, float hi_k) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// x - bf16(x), the low half's float (exact in float32).
+// x - bf16(x): what the next part rounds (exact in float32).
 __device__ __forceinline__ float bf16_rest(float x) {
   return x - __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool kObjBits>
+// A slot's fragment for thread-in-group t: the parts of its b pair
+// (b0, b1) and c pair (c0, c1).
+template <int P>
+__device__ __forceinline__ typename MxuParts<P>::Frag mxu_frag(float b0,
+                                                               float b1,
+                                                               float c0,
+                                                               float c1) {
+  if constexpr (P == 1) {
+    return make_uint2(bf16_pair(b0, b1), bf16_pair(c0, c1));
+  } else if constexpr (P == 2) {
+    return make_uint4(bf16_pair(b0, b1), bf16_pair(c0, c1),
+                      bf16_pair(bf16_rest(b0), bf16_rest(b1)),
+                      bf16_pair(bf16_rest(c0), bf16_rest(c1)));
+  } else {
+    const float rb0 = bf16_rest(b0), rb1 = bf16_rest(b1);
+    const float rc0 = bf16_rest(c0), rc1 = bf16_rest(c1);
+    MxuFrag3 f;
+    f.hi = make_uint2(bf16_pair(b0, b1), bf16_pair(c0, c1));
+    f.mid = make_uint2(bf16_pair(rb0, rb1), bf16_pair(rc0, rc1));
+    f.lo = make_uint2(bf16_pair(bf16_rest(rb0), bf16_rest(rb1)),
+                      bf16_pair(bf16_rest(rc0), bf16_rest(rc1)));
+    return f;
+  }
+}
+
+template <int P, bool kObjBits>
 __device__ __forceinline__ void stage_mxu(
     const float* __restrict__ table, int cols,
     const float* __restrict__ bounds, int n_chunks, int chunk,
     int chunk_pad, const float* __restrict__ mxu_a, int k0, int m,
-    float scale, const MxuTile& s) {
+    float scale, const MxuTile<typename MxuParts<P>::Frag>& s) {
   for (int q = threadIdx.x; q < m * chunk_pad * 4; q += blockDim.x) {
     const int slot = q >> 2, t = q & 3;
     const int k = slot / chunk_pad, i = slot - k * chunk_pad;
@@ -595,9 +658,7 @@ __device__ __forceinline__ void stage_mxu(
       c0 = crow[2 * t];
       c1 = crow[2 * t + 1];
     }
-    s.frag[q] = make_uint4(bf16_pair(b0, b1), bf16_pair(c0, c1),
-                           bf16_pair(bf16_rest(b0), bf16_rest(b1)),
-                           bf16_pair(bf16_rest(c0), bf16_rest(c1)));
+    s.frag[q] = mxu_frag<P>(b0, b1, c0, c1);
     if (t == 0) {
       const float obj = i < chunk ? table[4 * cols + (k0 + k) * chunk + i]
                                   : 0.f;
@@ -627,51 +688,84 @@ __device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-// The warp's rays as the mma's B operand: for tile j, this lane's
-// {x_hi, x_lo} pair (k = 2t, 2t + 1) of column g.
+// The warp's rays as the mma's B operand: for tile j, this lane's pair
+// (k = 2t, 2t + 1) of column g in each of the P parts, b[q][j] (q = 0 hi,
+// then lo at P = 2, mid and lo at P = 3).
+template <int P>
 __device__ __forceinline__ void mxu_b_fragments(const Ray& r, float od,
-                                                uint32_t bh[4],
-                                                uint32_t bl[4]) {
+                                                uint32_t b[P][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const float v[8] = {r.dx, r.dy, r.dz, r.ox, r.oy, r.oz, od, 1.0f};
-  uint32_t hi[4], lo[4];
+  uint32_t part[P][4];
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
-    hi[p] = bf16_pair(v[2 * p], v[2 * p + 1]);
-    lo[p] = bf16_pair(bf16_rest(v[2 * p]), bf16_rest(v[2 * p + 1]));
+    float x0 = v[2 * p], x1 = v[2 * p + 1];
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      part[q][p] = bf16_pair(x0, x1);
+      if (q + 1 < P) {
+        x0 = bf16_rest(x0);
+        x1 = bf16_rest(x1);
+      }
+    }
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int src = (2 * j + (g & 1)) * 4 + (g >> 1);
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      const uint32_t vh = __shfl_sync(0xFFFFFFFFu, hi[p], src);
-      const uint32_t vl = __shfl_sync(0xFFFFFFFFu, lo[p], src);
-      if (p == t) {
-        bh[j] = vh;
-        bl[j] = vl;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        const uint32_t v_q = __shfl_sync(0xFFFFFFFFu, part[q][p], src);
+        if (p == t) b[q][j] = v_q;
       }
     }
   }
 }
 
-// Y for 8 spheres (this lane's sphere g) x the 8 rays of a tile whose B
-// fragment is {bh, bl}: d[0..1] = b2 of columns 2t, 2t + 1, d[2..3] =
-// their c2 - |o|^2. Each of the three products runs as its own mma into a
-// zeroed accumulator, its A fragment zero in the other 8 K-slots (hi.hi:
-// a_hi against x_hi; hi.lo: a_hi against x_lo; lo.hi: a_lo against x_hi),
-// and the CUDA cores add them in the plain version's order,
-// (hi.hi + hi.lo) + lo.hi (see the note above on why).
-__device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
-                                                 uint32_t bl, float d[4]) {
-  float p[4];
-  mma_bf16(d, f.x, f.y, 0u, 0u, bh, bl);
-  mma_bf16(p, 0u, 0u, f.x, f.y, bh, bl);
+// Y for 8 spheres (this lane's sphere g) x the 8 rays of tile j, whose B
+// fragments are b[.][j]: d[0..1] = b2 of columns 2t, 2t + 1, d[2..3] =
+// their c2 - |o|^2. Each product runs as its own mma into a zeroed
+// accumulator, its A part in K-slots 0-7 or 8-15 and zero in the others,
+// against the X part that the B operand holds in those slots, and the
+// CUDA cores add them in the plain version's order (MXU_PRODUCTS; see the
+// note above on why).
+template <int P>
+__device__ __forceinline__ void mxu_tile_product(
+    const typename MxuParts<P>::Frag f, const uint32_t b[P][4], int j,
+    float d[4]) {
+  if constexpr (P == 1) {
+    mma_bf16(d, f.x, f.y, 0u, 0u, b[0][j], 0u);                 // hi.hi
+  } else if constexpr (P == 2) {
+    float p[4];
+    mma_bf16(d, f.x, f.y, 0u, 0u, b[0][j], b[1][j]);            // hi.hi
+    mma_bf16(p, 0u, 0u, f.x, f.y, b[0][j], b[1][j]);            // hi.lo
 #pragma unroll
-  for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
-  mma_bf16(p, f.z, f.w, 0u, 0u, bh, bl);
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    mma_bf16(p, f.z, f.w, 0u, 0u, b[0][j], b[1][j]);            // lo.hi
 #pragma unroll
-  for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+  } else {
+    // B = [x_hi; x_mid] for five products, [x_lo; 0] for hi.lo.
+    const uint32_t bh = b[0][j], bm = b[1][j], bl = b[2][j];
+    float p[4];
+    mma_bf16(d, f.lo.x, f.lo.y, 0u, 0u, bh, bm);                // lo.hi
+    mma_bf16(p, f.hi.x, f.hi.y, 0u, 0u, bl, 0u);                // hi.lo
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    mma_bf16(p, 0u, 0u, f.mid.x, f.mid.y, bh, bm);              // mid.mid
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    mma_bf16(p, f.mid.x, f.mid.y, 0u, 0u, bh, bm);              // mid.hi
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    mma_bf16(p, 0u, 0u, f.hi.x, f.hi.y, bh, bm);                // hi.mid
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+    mma_bf16(p, f.hi.x, f.hi.y, 0u, 0u, bh, bm);                // hi.hi
+#pragma unroll
+    for (int q = 0; q < 4; ++q) d[q] = __fadd_rn(d[q], p[q]);
+  }
 }
 
 // B12a: a persistent grid (persistent_grid: blocks = SMs x resident
@@ -684,24 +778,25 @@ __device__ __forceinline__ void mxu_tile_product(const uint4 f, uint32_t bh,
 // (cudaFuncSetAttribute raises the kernel's limit above 48 KB).
 //
 // The products are those of the note above: per (group of 8 slots, 8-ray
-// tile) three mma.sync. The C fragment leaves lane (g, t) with b2 and
-// c2 - |o|^2 of slot g for rays 2t, 2t + 1 of the tile; a warp-wide fold
-// over the fragment would mix 8 slots and 4 rays, and its discriminant
+// tile) one, three or six mma.sync. The C fragment leaves lane (g, t) with
+// b2 and c2 - |o|^2 of slot g for rays 2t, 2t + 1 of the tile; a warp-wide
+// fold over the fragment would mix 8 slots and 4 rays, and its discriminant
 // branch would diverge wherever any of the 32 pairs meets (measured on an
-// H100 on the demo frame's primary rays: a kernel that folded so took
-// 0.505 ms, 0.95 with every root taken, and staged the table in each of
-// ~8,100 blocks for 0.069 of it). Here each lane stores its pairs into
-// its warp's exchange rows (slot-major, kSwapRow float2 a row: the stores
-// of a tile and the loads of a ray's slots each meet 32 distinct banks),
-// and after a __syncwarp each lane loads its own ray's 8 pairs and folds
-// them in slot order, as B1 does: a warp-wide fold tests one slot against
-// 32 neighbouring rays, which agree on the branch where the rays are
-// coherent. The packed min does not depend on the order of its folds, so
-// the words are those of any fold of the same products. No lane needs
-// the other rays' tmin, tmax and |o|^2, nor a reduce-scatter. At 4 blocks
-// of 256 an SM (64 registers) the three-mma product spills 8 bytes, so
-// B12a takes 3 (80 registers, no spill; measured on an H100, the spilling
-// build was 5% faster: PERF.md, PR 19).
+// H100 on the demo frame's primary rays: a kernel that folded so took 0.505
+// ms, 0.95 with every root taken, and staged the table in each of ~8,100
+// blocks for 0.069 of it). Here each lane stores its pairs into its warp's
+// exchange rows (slot-major, kSwapRow float2 a row: the stores of a tile and
+// the loads of a ray's slots each meet 32 distinct banks), and after a
+// __syncwarp each lane loads its own ray's 8 pairs and folds them in slot
+// order, as B1 does: a warp-wide fold tests one slot against 32 neighbouring
+// rays, which agree on the branch where the rays are coherent. The packed
+// min does not depend on the order of its folds, so the words are those of
+// any fold of the same products. No lane needs the other rays' tmin, tmax
+// and |o|^2, nor a reduce-scatter. At 4 blocks of 256 an SM (64 registers)
+// the three-mma product spills 8 bytes, so B12a takes 3 (80 registers, no
+// spill; measured on an H100, the spilling build was 5% faster: PERF.md, PR
+// 19); "default" keeps 3, "highest" (12 registers of B fragments and a
+// 24-byte fragment) takes 2 (MxuParts<P>::kMinBlocks).
 constexpr int kSwapRow = 36;                // float2: 32 rays and 4 of padding
 constexpr int kSwapWarp = 8 * kSwapRow;     // float2: a warp's 8 slot rows
 constexpr size_t kSwapBytes = (kThreads / 32) * kSwapWarp * sizeof(float2);
@@ -709,7 +804,8 @@ constexpr size_t kSwapBytes = (kThreads / 32) * kSwapWarp * sizeof(float2);
 // two blocks still fit an SM's 227 KB.
 constexpr size_t kResidentBytes = 92 * 1024;
 
-__global__ void __launch_bounds__(kThreads, 3)
+template <int P>
+__global__ void __launch_bounds__(kThreads, MxuParts<P>::kMinBlocks)
 morton_mxu_closest_hit(const float* __restrict__ rays, int n,
                        const float* __restrict__ table, int cols,
                        const float* __restrict__ bounds, int n_chunks,
@@ -717,17 +813,18 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
                        const float* __restrict__ mxu_a, int tile_chunks,
                        float scale, int pos_bits, float* __restrict__ t_out,
                        int* __restrict__ obj_out) {
+  using Frag = typename MxuParts<P>::Frag;
   extern __shared__ uint4 s_mxu[];
   float2* swap = reinterpret_cast<float2*>(s_mxu) + (threadIdx.x >> 5) *
                                                         kSwapWarp;
-  const MxuTile s = mxu_tile(s_mxu + kSwapBytes / sizeof(uint4),
-                             tile_chunks, chunk_pad);
+  const MxuTile<Frag> s = mxu_tile<Frag>(s_mxu + kSwapBytes / sizeof(uint4),
+                                         tile_chunks, chunk_pad);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int trunc = ~((1 << pos_bits) - 1);
   const bool resident = tile_chunks >= n_chunks;
   if (resident) {
-    stage_mxu<true>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
-                    0, n_chunks, scale, s);
+    stage_mxu<P, true>(table, cols, bounds, n_chunks, chunk, chunk_pad,
+                       mxu_a, 0, n_chunks, scale, s);
     __syncthreads();
   }
   for (int base = blockIdx.x * kThreads; base < n;
@@ -739,16 +836,16 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
     const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
     const SegmentCull cull = segment_cull(r, scale);
     const bool warp_live = __any_sync(0xFFFFFFFFu, live);
-    uint32_t bh[4], bl[4];
-    if (warp_live) mxu_b_fragments(r, od, bh, bl);
+    uint32_t b[P][4];
+    if (warp_live) mxu_b_fragments<P>(r, od, b);
     int best = kInfBits;
     float t_end = r.tmax;
     for (int k0 = 0; k0 < n_chunks; k0 += tile_chunks) {
       const int m = min(tile_chunks, n_chunks - k0);
       if (!resident) {
         __syncthreads();
-        stage_mxu<true>(table, cols, bounds, n_chunks, chunk, chunk_pad,
-                        mxu_a, k0, m, scale, s);
+        stage_mxu<P, true>(table, cols, bounds, n_chunks, chunk, chunk_pad,
+                           mxu_a, k0, m, scale, s);
         __syncthreads();
       }
       if (!warp_live) continue;
@@ -758,11 +855,11 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
         const int groups = (s.cnt[k] + 7) >> 3;
         for (int grp = 0; grp < groups; ++grp) {
           const int slot0 = k * chunk_pad + grp * 8;
-          const uint4 f = s.frag[(slot0 + g) * 4 + t];
+          const Frag f = s.frag[(slot0 + g) * 4 + t];
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             float d[4];
-            mxu_tile_product(f, bh[j], bl[j], d);
+            mxu_tile_product<P>(f, b, j, d);
             // Column 2t + e of tile j is the ray of lane (2j + e) * 4 + t.
             swap[g * kSwapRow + (2 * j) * 4 + t] = make_float2(d[0], d[2]);
             swap[g * kSwapRow + (2 * j + 1) * 4 + t] = make_float2(d[1], d[3]);
@@ -807,26 +904,30 @@ morton_mxu_closest_hit(const float* __restrict__ rays, int n,
 // in shared memory, one 16-byte load a pair, not from 32 registers of
 // shuffled terms: 48 registers, 5 blocks of 256 an SM. (Measured on an
 // H100 on the MXU default frame's shadow batches, on this grid: B12a's
-// exchange rows 3% slower, the terms in 80 registers 1% faster; PERF.md,
-// PR 19.)
+// exchange rows 3% slower, the terms in 80 registers 1% faster;
+// PERF.md.) Left free, ptxas builds "highest" at 64 registers with 20
+// bytes of spills, so its kernel asks for 3 blocks an SM (up to 80
+// registers: morton_mxu_occlusion_highest); a bound of 1 block moved
+// "high" from 48 registers to 56 (measured on an H100; PERF.md), so the
+// other two stay free.
 constexpr size_t kRayBytes = kThreads * sizeof(float4);
 
-__global__ void __launch_bounds__(kThreads)
-morton_mxu_occlusion(const float* __restrict__ rays, int n,
-                     const float* __restrict__ table, int cols,
-                     const float* __restrict__ bounds, int n_chunks,
-                     int chunk, int chunk_pad,
-                     const float* __restrict__ mxu_a, int tile_chunks,
-                     float scale, unsigned char* __restrict__ occ_out) {
+template <int P>
+__device__ __forceinline__ void mxu_occlusion_body(
+    const float* __restrict__ rays, int n, const float* __restrict__ table,
+    int cols, const float* __restrict__ bounds, int n_chunks, int chunk,
+    int chunk_pad, const float* __restrict__ mxu_a, int tile_chunks,
+    float scale, unsigned char* __restrict__ occ_out) {
+  using Frag = typename MxuParts<P>::Frag;
   extern __shared__ uint4 s_mxu[];
   float4* s_ray = reinterpret_cast<float4*>(s_mxu) + (threadIdx.x & ~31);
-  const MxuTile s = mxu_tile(s_mxu + kRayBytes / sizeof(uint4), tile_chunks,
-                             chunk_pad);
+  const MxuTile<Frag> s = mxu_tile<Frag>(s_mxu + kRayBytes / sizeof(uint4),
+                                         tile_chunks, chunk_pad);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const bool resident = tile_chunks >= n_chunks;
   if (resident) {
-    stage_mxu<false>(table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
-                     0, n_chunks, scale, s);
+    stage_mxu<P, false>(table, cols, bounds, n_chunks, chunk, chunk_pad,
+                        mxu_a, 0, n_chunks, scale, s);
     __syncthreads();
   }
   for (int base = blockIdx.x * kThreads; base < n;
@@ -838,8 +939,8 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
     const float od = r.ox * r.dx + r.oy * r.dy + r.oz * r.dz;
     const float oo = r.ox * r.ox + r.oy * r.oy + r.oz * r.oz;
     const RangeCull cull = range_cull(r, scale);
-    uint32_t bh[4], bl[4];
-    if (__any_sync(0xFFFFFFFFu, live)) mxu_b_fragments(r, od, bh, bl);
+    uint32_t b[P][4];
+    if (__any_sync(0xFFFFFFFFu, live)) mxu_b_fragments<P>(r, od, b);
     __syncwarp();  // the ray rows' last reads for the previous rays
     s_ray[lane] = make_float4(r.tmin, r.tmax, oo, exclude);
     __syncwarp();
@@ -848,8 +949,8 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
       const int m = min(tile_chunks, n_chunks - k0);
       if (!resident) {
         __syncthreads();
-        stage_mxu<false>(table, cols, bounds, n_chunks, chunk, chunk_pad,
-                         mxu_a, k0, m, scale, s);
+        stage_mxu<P, false>(table, cols, bounds, n_chunks, chunk,
+                            chunk_pad, mxu_a, k0, m, scale, s);
         __syncthreads();
       }
       for (int k = 0; k < m && __any_sync(0xFFFFFFFFu, open); ++k) {
@@ -859,12 +960,12 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
         const int groups = (s.cnt[k] + 7) >> 3;
         for (int grp = 0; grp < groups; ++grp) {
           const int slot = k * chunk_pad + grp * 8 + g;
-          const uint4 f = s.frag[slot * 4 + t];
+          const Frag f = s.frag[slot * 4 + t];
           const float obj = __int_as_float(s.obj[slot]);
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             float d[4];
-            mxu_tile_product(f, bh[j], bl[j], d);
+            mxu_tile_product<P>(f, b, j, d);
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               // Column 2t + e of tile j is the ray of lane (2j + e) 4 + t.
@@ -888,6 +989,30 @@ morton_mxu_occlusion(const float* __restrict__ rays, int n,
     }
     if (i < n) occ_out[i] = live && !open;
   }
+}
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+morton_mxu_occlusion(const float* __restrict__ rays, int n,
+                     const float* __restrict__ table, int cols,
+                     const float* __restrict__ bounds, int n_chunks,
+                     int chunk, int chunk_pad,
+                     const float* __restrict__ mxu_a, int tile_chunks,
+                     float scale, unsigned char* __restrict__ occ_out) {
+  mxu_occlusion_body<P>(rays, n, table, cols, bounds, n_chunks, chunk,
+                        chunk_pad, mxu_a, tile_chunks, scale, occ_out);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+morton_mxu_occlusion_highest(const float* __restrict__ rays, int n,
+                             const float* __restrict__ table, int cols,
+                             const float* __restrict__ bounds, int n_chunks,
+                             int chunk, int chunk_pad,
+                             const float* __restrict__ mxu_a,
+                             int tile_chunks, float scale,
+                             unsigned char* __restrict__ occ_out) {
+  mxu_occlusion_body<3>(rays, n, table, cols, bounds, n_chunks, chunk,
+                        chunk_pad, mxu_a, tile_chunks, scale, occ_out);
 }
 
 // B13. rays (8, n); bounds (4, c_pad) [cx cy cz r]; members
@@ -1105,15 +1230,16 @@ bool morton_tile(int cols, int n_chunks, int* chunk, int* tile,
   return *tile >= 1;
 }
 
-// The tensor-core kernels' chunk layout: slots per chunk padded to whole
-// groups of 8, chunks per shared-memory tile and its bytes; false where
-// the bounds do not divide the table or no chunk fits.
-bool mxu_tile_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
-                    int* tile, size_t* smem) {
+// The tensor-core kernels' chunk layout for fragments of frag_bytes
+// (MxuParts<P>::Frag): slots per chunk padded to whole groups of 8, chunks
+// per shared-memory tile and its bytes; false where the bounds do not
+// divide the table or no chunk fits.
+bool mxu_tile_shape(int cols, int n_chunks, size_t frag_bytes, int* chunk,
+                    int* chunk_pad, int* tile, size_t* smem) {
   if (n_chunks <= 0 || cols % n_chunks != 0) return false;
   *chunk = cols / n_chunks;
   *chunk_pad = (*chunk + 7) / 8 * 8;
-  const size_t per_chunk = (size_t)*chunk_pad * (4 * sizeof(uint4) +
+  const size_t per_chunk = (size_t)*chunk_pad * (4 * frag_bytes +
                                                  sizeof(int)) +
                            sizeof(float4) + sizeof(int);
   *tile = min(n_chunks, (int)(kTileBytes / per_chunk));
@@ -1124,9 +1250,11 @@ bool mxu_tile_shape(int cols, int n_chunks, int* chunk, int* chunk_pad,
 // B12a's and B12b's shape: as mxu_tile_shape, but the whole table as one
 // resident image where it fits in kResidentBytes, and `head` bytes (B12a's
 // exchange rows, B12b's ray rows) before the image.
+template <int P>
 bool mxu_shape(int cols, int n_chunks, size_t head, int* chunk,
                int* chunk_pad, int* tile, size_t* smem) {
-  if (!mxu_tile_shape(cols, n_chunks, chunk, chunk_pad, tile, smem)) {
+  if (!mxu_tile_shape(cols, n_chunks, sizeof(typename MxuParts<P>::Frag),
+                      chunk, chunk_pad, tile, smem)) {
     return false;
   }
   const size_t per_chunk = *smem / *tile;
@@ -1272,79 +1400,169 @@ extern "C" int drts_morton_occlusion(const float* rays, int n,
   return (int)cudaGetLastError();
 }
 
-// scale: the cull's rounding margin (ops/intersect_kernels.py:
-// MXU_CULL_SCALE); mxu_a: (n_chunks * 2 * chunk, 8) float32.
-extern "C" int drts_morton_mxu_closest_hit(const float* rays, int n,
-                                           const float* table, int cols,
-                                           const float* bounds, int n_chunks,
-                                           const float* mxu_a, float scale,
-                                           int pos_bits, float* t_out,
-                                           int* obj_out,
-                                           cudaStream_t stream) {
+namespace {
+
+// B12a's and B12b's launches and resources, per precision's parts.
+template <int P>
+int mxu_closest_hit(const float* rays, int n, const float* table, int cols,
+                    const float* bounds, int n_chunks, const float* mxu_a,
+                    float scale, int pos_bits, float* t_out, int* obj_out,
+                    cudaStream_t stream) {
   if (n <= 0) return (int)cudaGetLastError();
   int chunk, chunk_pad, tile, grid, per_sm;
   size_t smem;
-  if (!mxu_shape(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
-                 &smem)) {
+  if (!mxu_shape<P>(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
+                    &smem)) {
     return cudaErrorInvalidValue;
   }
   const cudaError_t rc = persistent_grid(
-      (const void*)morton_mxu_closest_hit, smem, n, &grid, &per_sm);
+      (const void*)morton_mxu_closest_hit<P>, smem, n, &grid, &per_sm);
   if (rc != cudaSuccess) return (int)rc;
-  morton_mxu_closest_hit<<<grid, kThreads, smem, stream>>>(
+  morton_mxu_closest_hit<P><<<grid, kThreads, smem, stream>>>(
       rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
       scale, pos_bits, t_out, obj_out);
   return (int)cudaGetLastError();
 }
 
-// B12a's resources for a table of cols columns in n_chunks chunks and n
-// rays (kernel_info's out).
-extern "C" int drts_morton_mxu_closest_hit_info(int cols, int n_chunks,
-                                                int n, int* out) {
+template <int P>
+int mxu_closest_hit_info(int cols, int n_chunks, int n, int* out) {
   int chunk, chunk_pad, tile;
   size_t smem;
-  if (!mxu_shape(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
-                 &smem)) {
+  if (!mxu_shape<P>(cols, n_chunks, kSwapBytes, &chunk, &chunk_pad, &tile,
+                    &smem)) {
     return cudaErrorInvalidValue;
   }
-  return kernel_info((const void*)morton_mxu_closest_hit, smem, n,
+  return kernel_info((const void*)morton_mxu_closest_hit<P>, smem, n,
                      tile >= n_chunks, out);
+}
+
+// B12b's kernel at P parts.
+template <int P>
+const void* mxu_occlusion_kernel() {
+  if constexpr (P == 3) return (const void*)morton_mxu_occlusion_highest;
+  return (const void*)morton_mxu_occlusion<P>;
+}
+
+template <int P>
+int mxu_occlusion(const float* rays, int n, const float* table, int cols,
+                  const float* bounds, int n_chunks, const float* mxu_a,
+                  float scale, unsigned char* occ_out, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int chunk, chunk_pad, tile, grid, per_sm;
+  size_t smem;
+  if (!mxu_shape<P>(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
+                    &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t rc = persistent_grid(mxu_occlusion_kernel<P>(), smem,
+                                         n, &grid, &per_sm);
+  if (rc != cudaSuccess) return (int)rc;
+  if constexpr (P == 3) {
+    morton_mxu_occlusion_highest<<<grid, kThreads, smem, stream>>>(
+        rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
+        tile, scale, occ_out);
+  } else {
+    morton_mxu_occlusion<P><<<grid, kThreads, smem, stream>>>(
+        rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a,
+        tile, scale, occ_out);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int mxu_occlusion_info(int cols, int n_chunks, int n, int* out) {
+  int chunk, chunk_pad, tile;
+  size_t smem;
+  if (!mxu_shape<P>(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
+                    &smem)) {
+    return cudaErrorInvalidValue;
+  }
+  return kernel_info(mxu_occlusion_kernel<P>(), smem, n, tile >= n_chunks,
+                     out);
+}
+
+}  // namespace
+
+// parts: the bf16 parts of the precision's split (ops/intersect_kernels.py:
+// MXU_PARTS: 1 "default", 2 "high", 3 "highest"; any other is refused);
+// scale: the cull's rounding margin (MXU_CULL_SCALE); mxu_a:
+// (n_chunks * 2 * chunk, 8) float32.
+extern "C" int drts_morton_mxu_closest_hit(const float* rays, int n,
+                                           const float* table, int cols,
+                                           const float* bounds, int n_chunks,
+                                           const float* mxu_a, int parts,
+                                           float scale, int pos_bits,
+                                           float* t_out, int* obj_out,
+                                           cudaStream_t stream) {
+  switch (parts) {
+    case 1:
+      return mxu_closest_hit<1>(rays, n, table, cols, bounds, n_chunks,
+                                mxu_a, scale, pos_bits, t_out, obj_out,
+                                stream);
+    case 2:
+      return mxu_closest_hit<2>(rays, n, table, cols, bounds, n_chunks,
+                                mxu_a, scale, pos_bits, t_out, obj_out,
+                                stream);
+    case 3:
+      return mxu_closest_hit<3>(rays, n, table, cols, bounds, n_chunks,
+                                mxu_a, scale, pos_bits, t_out, obj_out,
+                                stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// B12a's resources at `parts` for a table of cols columns in n_chunks
+// chunks and n rays (kernel_info's out).
+extern "C" int drts_morton_mxu_closest_hit_info(int cols, int n_chunks,
+                                                int n, int parts, int* out) {
+  switch (parts) {
+    case 1:
+      return mxu_closest_hit_info<1>(cols, n_chunks, n, out);
+    case 2:
+      return mxu_closest_hit_info<2>(cols, n_chunks, n, out);
+    case 3:
+      return mxu_closest_hit_info<3>(cols, n_chunks, n, out);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int drts_morton_mxu_occlusion(const float* rays, int n,
                                          const float* table, int cols,
                                          const float* bounds, int n_chunks,
-                                         const float* mxu_a, float scale,
-                                         unsigned char* occ_out,
+                                         const float* mxu_a, int parts,
+                                         float scale, unsigned char* occ_out,
                                          cudaStream_t stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  int chunk, chunk_pad, tile, grid, per_sm;
-  size_t smem;
-  if (!mxu_shape(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
-                 &smem)) {
-    return cudaErrorInvalidValue;
+  switch (parts) {
+    case 1:
+      return mxu_occlusion<1>(rays, n, table, cols, bounds, n_chunks, mxu_a,
+                              scale, occ_out, stream);
+    case 2:
+      return mxu_occlusion<2>(rays, n, table, cols, bounds, n_chunks, mxu_a,
+                              scale, occ_out, stream);
+    case 3:
+      return mxu_occlusion<3>(rays, n, table, cols, bounds, n_chunks, mxu_a,
+                              scale, occ_out, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
-  const cudaError_t rc = persistent_grid((const void*)morton_mxu_occlusion,
-                                         smem, n, &grid, &per_sm);
-  if (rc != cudaSuccess) return (int)rc;
-  morton_mxu_occlusion<<<grid, kThreads, smem, stream>>>(
-      rays, n, table, cols, bounds, n_chunks, chunk, chunk_pad, mxu_a, tile,
-      scale, occ_out);
-  return (int)cudaGetLastError();
 }
 
-// B12b's resources for a table of cols columns in n_chunks chunks and n
-// rays (kernel_info's out).
+// B12b's resources at `parts` for a table of cols columns in n_chunks
+// chunks and n rays (kernel_info's out).
 extern "C" int drts_morton_mxu_occlusion_info(int cols, int n_chunks, int n,
-                                              int* out) {
-  int chunk, chunk_pad, tile;
-  size_t smem;
-  if (!mxu_shape(cols, n_chunks, kRayBytes, &chunk, &chunk_pad, &tile,
-                 &smem)) {
-    return cudaErrorInvalidValue;
+                                              int parts, int* out) {
+  switch (parts) {
+    case 1:
+      return mxu_occlusion_info<1>(cols, n_chunks, n, out);
+    case 2:
+      return mxu_occlusion_info<2>(cols, n_chunks, n, out);
+    case 3:
+      return mxu_occlusion_info<3>(cols, n_chunks, n, out);
+    default:
+      return cudaErrorInvalidValue;
   }
-  return kernel_info((const void*)morton_mxu_occlusion, smem, n,
-                     tile >= n_chunks, out);
 }
 
 // bounds: (4, c_pad); members: (c_pad * mm, 8), 16-byte aligned (the

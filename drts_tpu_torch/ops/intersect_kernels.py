@@ -16,9 +16,11 @@ kernels becomes a CUDA C++ kernel for Hopper in ``csrc/intersect.cu``:
   ``intersect_pallas.intersect_morton_mxu`` (B12a) and
   ``occlusion_morton_mxu`` (B12b), the reference's opt-in
   (``models/clusters._USE_MXU``): B1's and B2's functions with the
-  quadratic's b and c0 - |o|^2 from a bf16x3 product of per-chunk
-  A-matrices (``MortonAccel.mxu_a``) and the rays, on the tensor cores.
-  Their results differ from B1's and B2's near grazing.
+  quadratic's b and c0 - |o|^2 from a product of per-chunk A-matrices
+  (``MortonAccel.mxu_a``) and the rays at the reference's
+  ``DRTS_MXU_PREC`` (one, three or six bf16 products: MXU_PRODUCTS), on
+  the tensor cores. Their results differ from B1's and B2's near grazing
+  (at "default", by the single pass's rounding, far from it too).
 - ``intersect_clustered`` replaces
   ``intersect_pallas.intersect_clustered_planar`` (B13): closest hit over
   a ClusteredAccel, a bound test per cluster and a sweep of its member
@@ -42,7 +44,8 @@ shares: ``segment_cull``, ``segment_misses``); B2 leaves at its first
 blocker. No skip or cull changes a bit of the result (``csrc/intersect.cu``
 and ``csrc/rays.cuh`` state the margins). B12a and B12b run the product
 for a warp's 32 rays and cull chunks per warp, with B1's and B2's tests
-and a margin that covers the product's rounding (MXU_CULL_SCALE); B13
+and a margin that covers the product's rounding (MXU_CULL_SCALE, per
+precision); B13
 sweeps a cluster's members for a warp where any lane touches its bound,
 up to the cluster's filled count (``clustered_filled``). B12a and B13 run
 on a persistent grid whose blocks stage the table or plan once (up to
@@ -422,7 +425,7 @@ def _check_bounds(table, bounds):
 
 
 def occlusion_chunk_met(rays9, bounds, scale=None):
-    """(N, n_chunks) bool: B2's chunk cull (B12b's with MXU_CULL_SCALE)
+    """(N, n_chunks) bool: B2's chunk cull (B12b's with mxu_cull_scale())
     lets the chunk through for the ray (its segment passes within the
     chunk's bound plus the margins), in the kernel's operations and
     order; ``scale`` is CULL_SCALE by default. Dead lanes meet nothing."""
@@ -503,68 +506,141 @@ def occlusion_morton(rays9, table, bounds, block: int = 16384):
 
 
 # ----------------------------------------------------------------------------
-# B12a / B12b: the Morton kernels with b and c0 - |o|^2 from a bf16x3
-# product on the tensor cores
+# B12a / B12b: the Morton kernels with b and c0 - |o|^2 from a product of
+# bf16 parts on the tensor cores
 
-# The reference's DRTS_MXU_PREC (drts_tpu/ops/intersect_pallas.py:47-56),
-# read at import as it reads it. The port implements its shipping value,
-# "high" (bf16x3); the MXU route raises on any other.
+# The reference's DRTS_MXU_PREC (drts_tpu/ops/intersect_pallas.py:47-76),
+# read at import as it reads it: "default", "high" (the shipping value) or
+# "highest". Its TPU semantics for float32 operands, and the port's
+# product Y = A X (A the (2*chunk, 8) chunk matrices, X = [d, o, o.d, 1]):
+#
+#   default  XLA's DEFAULT: one bf16 pass with float32 sums. Each operand
+#            as hi = bf16(x); the product hi.hi.
+#   high     built by hand in the reference (bf16x3): hi and lo =
+#            bf16(x - hi); (hi.hi + hi.lo) + lo.hi.
+#   highest  XLA's HIGHEST (bf16x6): hi, mid = bf16(x - hi) and lo =
+#            bf16(x - hi - mid); the six products hi.hi, hi.mid, mid.hi,
+#            hi.lo, mid.mid, lo.hi (mid.lo, lo.mid and lo.lo dropped),
+#            added smallest first: ((((lo.hi + hi.lo) + mid.mid) + mid.hi)
+#            + hi.mid) + hi.hi.
+#
+# Each product is a K = 8 sum of exact bf16 x bf16 terms with float32
+# accumulation, its own matmul here and its own mma.sync on the card, and
+# the products are added in float32 in MXU_PRODUCTS' order by both. On the
+# CPU the reference's interpret mode runs both DEFAULT and HIGHEST as a
+# plain float32 dot, so its CPU run shows neither TPU rounding.
 MXU_PREC = os.environ.get("DRTS_MXU_PREC", "high")
 
-# Rounding margin of B12a's and B12b's chunk culls, in the form and the
-# place of CULL_SCALE (S = |o|_1 + |C|_1 + R + T). The product gives each
-# term a_k x_k of b and c0 - |o|^2 as hi.hi + hi.lo + lo.hi of its bf16
-# halves, each product exact in float32; the split drops at most
-# 3 2^-18 |a_k x_k| (each half rounds at 2^-9 relative, lo.lo is below
-# 2^-18). Each of the three runs as its own mma (K = 8), whose sum IEEE
-# does not specify, so the bound takes the worst of any order, truncation
-# and no guard bit: each of an mma's 9 addends (8 products and the zero
-# accumulator) and its final rounding err by at most 2^-23 of the sum of
-# the magnitudes, 10 2^-23 for hi.hi (hi.lo's and lo.hi's magnitudes are
-# 2^-8 of it) and, with the two float32 adds, < 2^-19.5 in all (measured
-# on an H100: 2^-22.2; PERF.md, PR 19). The product is then off by at
-# most eps = 3 2^-18 + 2^-19.5 < 2^-16.3 of sum |a_k x_k|. With
-# sum |a_k x_k| <= S for b and <= 2 S^2 for c0 - |o|^2, the discriminant
-# is off by 2 |b| eps S + 2 eps S^2 <= 4 eps S^2 and, with f32's own
-# rounding of the tail (32 u S^2, u = 2^-24), by E <= 2^-14.2 S^2; a
-# computed root's point lies within sqrt(E) <= 2^-7.1 S of its sphere.
-# 2^-6 covers that and the cull test's rounding. The card tests and
-# chip_smoke.py's phase 24 check it: with the cull off (an infinite
-# margin) both kernels give every word they give with it.
-MXU_CULL_SCALE = 2.0 ** -6
+# Per precision: the bf16 parts of each operand's split, and the products
+# as (part of A, part of X) in the order they are added (0 = hi, 1 = lo at
+# "high" and mid at "highest", 2 = lo at "highest").
+MXU_PARTS = {"default": 1, "high": 2, "highest": 3}
+MXU_PRODUCTS = {
+    "default": ((0, 0),),
+    "high": ((0, 0), (0, 1), (1, 0)),
+    "highest": ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0)),
+}
+
+# Rounding margin of B12a's and B12b's chunk culls per precision, in the
+# form and the place of CULL_SCALE (S = |o|_1 + |C|_1 + R + T). Every
+# product of bf16 parts is exact in float32, so the product's error has two
+# sources. The split: the part of each term a_k x_k that the kept products
+# leave out, relative to |a_k x_k| (a bf16 rounding errs by at most 2^-8
+# of its operand). The K = 8 sums: each product runs as its own mma,
+# whose sum IEEE does not specify, so the bound takes the worst of any
+# order, truncation and no guard bit: each of an mma's 9 addends (8
+# products and the zero accumulator) and its final rounding err by at most
+# 2^-23 of the sum of the magnitudes, 10 2^-23 for hi.hi (every other
+# product's magnitudes are at most 2^-8 of it) and, with the float32 adds
+# of the products, < 2^-19.5 of sum |a_k x_k| in all (measured on an H100
+# at "high": 2^-22.2; PERF.md). With eps the product's error
+# relative to sum |a_k x_k|, and sum |a_k x_k| <= S for b and <= 2 S^2 for
+# c0 - |o|^2, the discriminant is off by 2 |b| eps S + 2 eps S^2 <=
+# 4 eps S^2 and, with f32's own rounding of the tail (32 u S^2, u =
+# 2^-24), by E; a computed root's point lies within sqrt(E) of its sphere,
+# which the margin covers with the cull test's own rounding:
+#
+#   high     lo leaves at most 2^-16 of x, so the split drops at most
+#            3 2^-16 (1 + 2^-7) (lo.lo and the two parts' roundings);
+#            eps < 2^-14.3, E < 2^-12.3 S^2, sqrt(E) < 2^-6.15 S: 2^-6.
+#   highest  hi + mid + lo is x exactly (each part takes the next 8 of
+#            float32's 24 bits), so the split drops only mid.lo + lo.mid +
+#            lo.lo, at most 2^-23 (1 + 2^-7); eps < 2^-19.3, E < 2^-16.9
+#            S^2, sqrt(E) < 2^-8.4 S: 2^-7, half of high's.
+#   default  hi.hi drops at most (2 2^-8 + 2^-16) (1 + 2^-8); eps <
+#            2^-6.98, E < 2^-4.97 S^2, sqrt(E) < 2^-2.48 S: 2^-2. At a
+#            quarter of S every chunk's bound grows past the demo scene's
+#            spacing: on its frame's primary rays a warp sweeps 99.95% of
+#            the chunks at 2^-2 against 51% at "high"
+#            (tests/test_torch_mxu_prec.py holds this at 96x54), so the cull
+#            cuts next to nothing and this precision runs with it off: an
+#            infinite margin, every chunk met and swept.
+#
+# The card tests and chip_smoke.py's phase 24 check each finite margin:
+# with the cull off (an infinite margin) both kernels give every word they
+# give with it.
+MXU_CULL_SCALE = {"default": float("inf"), "high": 2.0 ** -6,
+                  "highest": 2.0 ** -7}
 
 
-def _check_mxu_prec():
-    if MXU_PREC != "high":
-        raise ValueError(f"DRTS_MXU_PREC={MXU_PREC!r}: the port implements "
-                         f"the shipping precision 'high' (bf16x3) only")
+def _check_mxu_prec(prec=None):
+    prec = MXU_PREC if prec is None else prec
+    if prec not in MXU_PARTS:
+        raise ValueError(f"DRTS_MXU_PREC={prec!r}: the reference's MXU "
+                         f"precisions are {tuple(MXU_PARTS)}")
+    return prec
 
 
-def split_bf16(x):
-    """float32 -> (hi, lo), each a bfloat16 value held in float32: hi
-    rounds x to bfloat16, lo rounds x - hi (both to nearest even)."""
-    hi = x.to(torch.bfloat16).to(torch.float32)
-    return hi, (x - hi).to(torch.bfloat16).to(torch.float32)
+def mxu_cull_scale(prec=None):
+    """The chunk cull's margin at the precision (MXU_PREC by default)."""
+    return MXU_CULL_SCALE[_check_mxu_prec(prec)]
 
 
-def mxu_product(a, x):
-    """(rows, 8) @ (8, N) at the reference's "high" precision: the three
-    leading bf16 products of the operands' halves with float32 sums,
-    (hi.hi + hi.lo) + lo.hi (``intersect_pallas._mxu_dot``)."""
-    a_hi, a_lo = split_bf16(a)
-    x_hi, x_lo = split_bf16(x)
-    return (a_hi @ x_hi + a_hi @ x_lo) + a_lo @ x_hi
+def mxu_products(prec=None):
+    """The bf16 products (one mma each on the card) per swept (ray, slot)
+    group at the precision: 1, 3 or 6."""
+    return len(MXU_PRODUCTS[_check_mxu_prec(prec)])
 
 
-def mxu_coefficients(rays, mxu_a, chunk):
+def split_bf16(x, parts: int = 2):
+    """float32 -> [hi, ...], `parts` bfloat16 values held in float32: each
+    rounds (to nearest even) what the ones before it leave of x, as the
+    reference's chain of ``astype(jnp.bfloat16)`` casts does (x - hi, then
+    x - hi - mid, each exact in float32)."""
+    out, rest = [], x
+    for _ in range(parts):
+        p = rest.to(torch.bfloat16).to(torch.float32)
+        out.append(p)
+        rest = rest - p
+    return out
+
+
+def mxu_product(a, x, prec=None):
+    """(rows, 8) @ (8, N) at the reference's MXU precision `prec`
+    (MXU_PREC by default; ``intersect_pallas._mxu_dot`` on the TPU): both
+    operands split into MXU_PARTS[prec] bf16 parts, each product of
+    MXU_PRODUCTS[prec] a float32 matmul of exact terms, the products added
+    in float32 in that order ("high": (hi.hi + hi.lo) + lo.hi)."""
+    prec = _check_mxu_prec(prec)
+    a_p = split_bf16(a, MXU_PARTS[prec])
+    x_p = split_bf16(x, MXU_PARTS[prec])
+    (i, j), *rest = MXU_PRODUCTS[prec]
+    y = a_p[i] @ x_p[j]
+    for i, j in rest:
+        y = y + a_p[i] @ x_p[j]
+    return y
+
+
+def mxu_coefficients(rays, mxu_a, chunk, prec=None):
     """The tensor-core kernels' quadratic per ray x table column: (b2, c2),
     each (N, cols), b2 from the A-matrices' b rows and c2 = the c rows'
-    product + |o|^2. rays (8+, N) planar; mxu_a (n_chunks*2*chunk, 8)."""
+    product + |o|^2, the product at `prec` (MXU_PREC by default). rays
+    (8+, N) planar; mxu_a (n_chunks*2*chunk, 8)."""
     ox, oy, oz, dx, dy, dz = rays[:6]
     od = ox * dx + oy * dy + oz * dz
     oo = ox * ox + oy * oy + oz * oz
     x = torch.stack([dx, dy, dz, ox, oy, oz, od, torch.ones_like(ox)])
-    y = mxu_product(mxu_a, x).reshape(-1, 2, chunk, x.shape[1])
+    y = mxu_product(mxu_a, x, prec).reshape(-1, 2, chunk, x.shape[1])
     b2 = y[:, 0].reshape(-1, x.shape[1]).T
     c2 = y[:, 1].reshape(-1, x.shape[1]).T + oo[:, None]
     return b2, c2
@@ -586,12 +662,13 @@ def _check_mxu(table, bounds, mxu_a):
     return chunk
 
 
-def mxu_closest_pairs(rays, table, mxu_a, chunk, trunc):
+def mxu_closest_pairs(rays, table, mxu_a, chunk, trunc, prec=None):
     """B12a's pair test of each ray x table column: the packed word
     (truncated t bits | object id), INF_BITS where the column is not hit
     in [tmin, tmax] (B1's tail, ``intersect_pallas._slim_tail``, on the
-    product's b2 and c2). (N, cols) int32."""
-    b2, c2 = mxu_coefficients(rays, mxu_a, chunk)
+    product's b2 and c2 at `prec`, MXU_PREC by default). (N, cols)
+    int32."""
+    b2, c2 = mxu_coefficients(rays, mxu_a, chunk, prec)
     return _packed_tail(b2, c2, rays[6][:, None], rays[7][:, None],
                         table[4][None, :], trunc)[0]
 
@@ -599,9 +676,10 @@ def mxu_closest_pairs(rays, table, mxu_a, chunk, trunc):
 def intersect_morton_mxu_plain(rays, table, bounds, mxu_a,
                                block: int = 16384):
     """Plain PyTorch B12a: the unculled packed-min sweep with b and
-    c0 - |o|^2 from ``mxu_product``. rays (8, N) with tmin >= 0; table and
-    bounds as B1's; mxu_a (n_chunks*2*chunk, 8) from make_mxu_tables.
-    Returns t (N,) float32, truncated down, and obj (N,) int32."""
+    c0 - |o|^2 from ``mxu_product`` at MXU_PREC. rays (8, N) with
+    tmin >= 0; table and bounds as B1's; mxu_a (n_chunks*2*chunk, 8) from
+    make_mxu_tables. Returns t (N,) float32, truncated down, and obj (N,)
+    int32."""
     chunk = _check_mxu(table, bounds, mxu_a)
     n, cols = rays.shape[1], table.shape[1]
     trunc = ~((1 << pos_bits(cols)) - 1)
@@ -624,7 +702,8 @@ def _warp_any(x):
 
 def mxu_chunk_walk(rays, table, bounds, mxu_a):
     """B12a's kernel walk in PyTorch: chunks in table order; a lane meets a
-    chunk as B1's lane does (closest_chunk_walk) but with MXU_CULL_SCALE;
+    chunk as B1's lane does (closest_chunk_walk) but with the precision's
+    margin (mxu_cull_scale);
     a warp of 32 consecutive lanes sweeps the chunk where any of its
     lanes meets it, and every lane of a sweeping warp folds the chunk's
     pairs (``mxu_closest_pairs``) into its packed best. Returns (met
@@ -634,8 +713,9 @@ def mxu_chunk_walk(rays, table, bounds, mxu_a):
     n, cols = rays.shape[1], table.shape[1]
     trunc = ~((1 << pos_bits(cols)) - 1)
     live = rays[7] >= rays[6]
-    cull = segment_cull(rays, MXU_CULL_SCALE)
-    spheres = cull_spheres(bounds, MXU_CULL_SCALE)
+    scale = mxu_cull_scale()
+    cull = segment_cull(rays, scale)
+    spheres = cull_spheres(bounds, scale)
     pk = mxu_closest_pairs(rays, table, mxu_a, chunk, trunc)
     best = torch.full((n,), INF_BITS, dtype=torch.int32, device=rays.device)
     n_chunks = bounds.shape[1]
@@ -663,10 +743,12 @@ def intersect_morton_mxu_work(rays, table, bounds, mxu_a,
     """The work B12a's kernel needs on these rays (see mxu_chunk_walk):
     per ray, (chunk tests, chunks met, chunks its warp swept, filled slots
     of the chunks it met, slots of the chunks its warp swept), each int64
-    (N,). A live ray tests every chunk; dead lanes test none. The
-    products and tails a lane needs at the least are the filled slots of
-    the chunks it meets; the kernel runs them for every lane of a
-    sweeping warp, in groups of 8 slots."""
+    (N,), at MXU_PREC's margin. A live ray tests every chunk; dead lanes
+    test none. The products and tails a lane needs at the least are the
+    filled slots of the chunks it meets, each slot's product
+    mxu_products() mmas (1, 3 or 6; chip_smoke.py's bound counts them);
+    the kernel runs them for every lane of a sweeping warp, in groups of 8
+    slots."""
     n = rays.shape[1]
     chunk = _check_mxu(table, bounds, mxu_a)
     count, groups = _slots_swept(bounds, chunk)
@@ -688,9 +770,10 @@ def intersect_morton_mxu(rays, table, bounds, mxu_a, block: int = 16384):
     """B12a closest hit; see intersect_morton_mxu_plain for the contract.
     A CUDA tensor launches drts_morton_mxu_closest_hit (csrc/intersect.cu),
     which runs the product on the tensor cores, culls chunks per warp by
-    `bounds` with MXU_CULL_SCALE and folds each ray's pairs in its own lane,
-    on a persistent grid that stages a table of up to 92 KB once per
-    block."""
+    `bounds` with mxu_cull_scale() and folds each ray's pairs in its own
+    lane, on a persistent grid that stages a table of up to 92 KB once per
+    block. The kernel is built for each precision and takes MXU_PREC's
+    parts."""
     _check_pair(rays, table, 9)
     _check_mxu(table, bounds, mxu_a)
     if rays.device.type == "cpu":
@@ -701,8 +784,9 @@ def intersect_morton_mxu(rays, table, bounds, mxu_a, block: int = 16384):
     obj = torch.empty(n, dtype=torch.int32, device=rays.device)
     rc = lib.drts_morton_mxu_closest_hit(
         rays.data_ptr(), n, table.data_ptr(), cols, bounds.data_ptr(),
-        bounds.shape[1], mxu_a.data_ptr(), MXU_CULL_SCALE, pos_bits(cols),
-        t.data_ptr(), obj.data_ptr(), backend.stream_handle(rays))
+        bounds.shape[1], mxu_a.data_ptr(), MXU_PARTS[MXU_PREC],
+        mxu_cull_scale(), pos_bits(cols), t.data_ptr(), obj.data_ptr(),
+        backend.stream_handle(rays))
     backend.check_launch(rc, "drts_morton_mxu_closest_hit")
     backend.launched("intersect_morton_mxu")
     return t, obj
@@ -716,14 +800,15 @@ def _kernel_info(fn, name, *args) -> dict:
 
 
 def intersect_morton_mxu_info(table, bounds, n: int) -> dict:
-    """B12a's resources on the card for this table and n rays: registers
-    and local (stack and spill) bytes per thread, shared bytes and threads
-    per block, the blocks one SM holds at once, the persistent grid's
-    blocks and whether the table's image is resident (1) or tiled (0)."""
+    """B12a's resources on the card for this table, n rays and MXU_PREC's
+    build: registers and local (stack and spill) bytes per thread, shared
+    bytes and threads per block, the blocks one SM holds at once, the
+    persistent grid's blocks and whether the table's image is resident (1)
+    or tiled (0)."""
     lib = backend.kernels()
     return _kernel_info(lib.drts_morton_mxu_closest_hit_info,
                         "drts_morton_mxu_closest_hit_info", table.shape[1],
-                        bounds.shape[1], n)
+                        bounds.shape[1], n, MXU_PARTS[_check_mxu_prec()])
 
 
 def occlusion_morton_mxu_info(table, bounds, n: int) -> dict:
@@ -731,15 +816,16 @@ def occlusion_morton_mxu_info(table, bounds, n: int) -> dict:
     lib = backend.kernels()
     return _kernel_info(lib.drts_morton_mxu_occlusion_info,
                         "drts_morton_mxu_occlusion_info", table.shape[1],
-                        bounds.shape[1], n)
+                        bounds.shape[1], n, MXU_PARTS[_check_mxu_prec()])
 
 
-def mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk):
+def mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk, prec=None):
     """B12b's pair test, (N, cols) bool (``_anyhit_mxu_kernel``'s tail):
     the unguarded sqrt of the product's discriminant (NaN below 0), the
     near root unless it lies before tmin, blocked where t is in
-    [tmin, tmax] and the column's object is not the ray's excluded one."""
-    b2, c2 = mxu_coefficients(rays9, mxu_a, chunk)
+    [tmin, tmax] and the column's object is not the ray's excluded one.
+    The product at `prec` (MXU_PREC by default)."""
+    b2, c2 = mxu_coefficients(rays9, mxu_a, chunk, prec)
     tmin, tmax, exclude = (r[:, None] for r in rays9[6:9])
     sq = torch.sqrt(b2 * b2 - c2)              # NaN when the ray misses
     t_near = -b2 - sq
@@ -751,8 +837,8 @@ def occlusion_morton_mxu_plain(rays9, table, bounds, mxu_a,
                                block: int = 16384):
     """Plain PyTorch B12b: rays9 (9, N) [ox oy oz dx dy dz tmin tmax
     exclude_obj] (exclude -1 = none); table and bounds as B2's; mxu_a as
-    B12a's. Returns occluded (N,) bool: some column blocks the ray
-    (``mxu_occlusion_pair_blocked``)."""
+    B12a's; the product at MXU_PREC. Returns occluded (N,) bool: some
+    column blocks the ray (``mxu_occlusion_pair_blocked``)."""
     chunk = _check_mxu(table, bounds, mxu_a)
     n, cols = rays9.shape[1], table.shape[1]
     occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
@@ -767,7 +853,7 @@ def mxu_occlusion_walk(rays9, table, bounds, mxu_a):
     """B12b's kernel walk in PyTorch: chunks in table order while the
     lane's warp of 32 consecutive lanes holds an open lane (live, not yet
     blocked); an open lane meets a chunk as B2's lane does
-    (occlusion_chunk_met) but with MXU_CULL_SCALE; the warp sweeps the
+    (occlusion_chunk_met) but with mxu_cull_scale(); the warp sweeps the
     chunk where any lane meets it, and a swept chunk's blocking pairs
     block its lanes. Returns (tested (N, n_chunks) bool: the lane was
     open and tested the chunk, swept (N, n_chunks) bool, occluded
@@ -775,7 +861,7 @@ def mxu_occlusion_walk(rays9, table, bounds, mxu_a):
     chunk = _check_mxu(table, bounds, mxu_a)
     n = rays9.shape[1]
     live = rays9[7] >= rays9[6]
-    met_all = occlusion_chunk_met(rays9, bounds, MXU_CULL_SCALE)
+    met_all = occlusion_chunk_met(rays9, bounds, mxu_cull_scale())
     blocks = mxu_occlusion_pair_blocked(rays9, table, mxu_a, chunk)
     occ = torch.zeros(n, dtype=torch.bool, device=rays9.device)
     n_chunks = bounds.shape[1]
@@ -796,7 +882,8 @@ def occlusion_morton_mxu_work(rays9, table, bounds, mxu_a,
     """The work B12b's kernel needs on these rays (see mxu_occlusion_walk):
     per ray, (chunk tests, chunks met, chunks its warp swept, filled slots
     of the chunks it met, slots of the chunks its warp swept), each int64
-    (N,); a lane tests chunks while it is open."""
+    (N,), at MXU_PREC's margin and with its mxu_products() mmas a slot as
+    intersect_morton_mxu_work's; a lane tests chunks while it is open."""
     n = rays9.shape[1]
     chunk = _check_mxu(table, bounds, mxu_a)
     count, groups = _slots_swept(bounds, chunk)
@@ -806,7 +893,7 @@ def occlusion_morton_mxu_work(rays9, table, bounds, mxu_a,
     for s in range(0, n, step):
         r = rays9[:, s:s + step]
         tested, swept, _ = mxu_occlusion_walk(r, table, bounds, mxu_a)
-        met = tested & occlusion_chunk_met(r, bounds, MXU_CULL_SCALE)
+        met = tested & occlusion_chunk_met(r, bounds, mxu_cull_scale())
         out[0][s:s + step] = tested.sum(1)
         out[1][s:s + step] = met.sum(1)
         out[2][s:s + step] = swept.sum(1)
@@ -819,8 +906,9 @@ def occlusion_morton_mxu(rays9, table, bounds, mxu_a, block: int = 16384):
     """B12b any hit; see occlusion_morton_mxu_plain for the contract. A
     CUDA tensor launches drts_morton_mxu_occlusion (csrc/intersect.cu):
     the product on the tensor cores, chunks culled per warp by `bounds`
-    with MXU_CULL_SCALE, each ray's pairs tested in its own lane, a warp
-    leaving once every lane is blocked, on B12a's persistent grid."""
+    with mxu_cull_scale(), each ray's pairs tested in its own lane, a warp
+    leaving once every lane is blocked, on B12a's persistent grid, built
+    for each precision as B12a is."""
     _check_pair(rays9, table, 9, ray_rows=9)
     _check_mxu(table, bounds, mxu_a)
     if rays9.device.type == "cpu":
@@ -831,8 +919,8 @@ def occlusion_morton_mxu(rays9, table, bounds, mxu_a, block: int = 16384):
     occ = torch.empty(n, dtype=torch.bool, device=rays9.device)
     rc = lib.drts_morton_mxu_occlusion(
         rays9.data_ptr(), n, table.data_ptr(), cols, bounds.data_ptr(),
-        bounds.shape[1], mxu_a.data_ptr(), MXU_CULL_SCALE, occ.data_ptr(),
-        backend.stream_handle(rays9))
+        bounds.shape[1], mxu_a.data_ptr(), MXU_PARTS[MXU_PREC],
+        mxu_cull_scale(), occ.data_ptr(), backend.stream_handle(rays9))
     backend.check_launch(rc, "drts_morton_mxu_occlusion")
     backend.launched("occlusion_morton_mxu")
     return occ

@@ -61,7 +61,9 @@ chunks, shadow-ray ranges, an excluded object on every ray, a batch of
 dead lanes and one of dead warps, within the MXU_* tolerances, and every
 word the same with their chunk cull off; their tables resident in each
 block of their persistent grids and tiled, and batches beyond one wave of
-those grids (equal, bit for bit, to the same kernel on sub-batches); B13
+those grids (equal, bit for bit, to the same kernel on sub-batches); each
+at the reference's three precisions (DRTS_MXU_PREC default, high and
+highest: a build of each kernel per precision); B13
 with cluster counts that are no multiple of 8, empty slots, clusters of
 1, 12 and 32 filled slots, rays that start inside a cluster bound, a dead
 batch, dead warps and finite ranges, its plan resident and tiled and a
@@ -1534,6 +1536,18 @@ def test_graft_entry_frame_on_the_card(dev):
 # version's own pair test meets at its t within that tolerance (a tie, the
 # reference's index rule, :316-319). With the chunk cull off
 # (MXU_CULL_SCALE infinite) the kernels give every word they give with it.
+# The same limits hold at each precision, the kernel and its plain version
+# differing by the sums' order alone: "highest" splits the operands exactly
+# and "high" as the plain version does. At "default" both take the same
+# single bf16 pass, which moves each discriminant by up to ~2^-5 S^2
+# (intersect_kernels.MXU_CULL_SCALE) from the exact one, so grazing there
+# is measured on the plain version's own quadratic (own_grazing: the
+# radius its discriminant implies), not on the spheres; the sums' order
+# moves that measure no more than at "high". A flip also comes where a
+# root lies within the sums' error of tmin or tmax (one B12b ray of the
+# 300,001-ray case at "default" on an H100, own margin 0.20), so there
+# own_grazing counts a pair whose root lies within MXU_T_RTOL |t| +
+# MXU_T_ATOL of either end as grazing (margin 0).
 MXU_GRAZE = 5e-2
 MXU_FLIP_SHARE = 5e-3
 MXU_STRICT = 3e-2
@@ -1554,6 +1568,47 @@ def grazing(rays, centers, radii):
         out[s:s + 2048] = np.abs(np.linalg.norm(perp, axis=-1)
                                  - radii[None]).min(1)
     return torch.from_numpy(out)
+
+
+def own_grazing(rays, accel, step=32768):
+    """(N,) float64: min over the table's filled columns of
+    |sqrt(r^2 - disc) - r|, disc the plain version's own discriminant at
+    MXU_PREC: its grazing margin (for unit directions, disc = r^2 -
+    distance^2); 0 for a column whose root (the tail's: near, else far)
+    lies within MXU_T_RTOL |t| + MXU_T_ATOL of tmin or tmax."""
+    out = torch.empty(rays.shape[1], dtype=torch.float64)
+    r = accel.table[3][None, :].double()
+    for s in range(0, rays.shape[1], step):
+        part = rays[:, s:s + step]
+        b2, c2 = ik.mxu_coefficients(part, accel.mxu_a, accel.chunk)
+        disc = (b2 * b2 - c2).double()
+        dist = torch.sqrt(torch.clamp(r * r - disc, min=0.0))
+        graze = torch.where(r > 0, (dist - r).abs(), float("inf"))
+        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        tmin, tmax = (x.double()[:, None] for x in part[6:8])
+        t = torch.where(-b2 - sq >= tmin, -b2 - sq, sq - b2)
+        tol = MXU_T_RTOL * t.abs() + MXU_T_ATOL
+        edge = (disc >= 0) & (((t - tmin).abs() <= tol)
+                              | ((t - tmax).abs() <= tol))
+        out[s:s + step] = torch.where(edge, 0.0, graze).amin(1).cpu()
+    return out
+
+
+def mxu_grazing(rays, centers, radii, accel):
+    """The grazing margin the MXU_* limits read at MXU_PREC: the plain
+    version's own at "default", the spheres' (grazing) at the others."""
+    if ik.MXU_PREC == "default":
+        return own_grazing(rays, accel)
+    return grazing(rays, centers, radii)
+
+
+def mxu_resident(accel, prec):
+    """Whether B12's table image (per chunk, 8-slot groups of 4 fragments
+    of 8 bytes a part and an object each, the bound and the count) fits
+    the 92 KB that a block keeps resident."""
+    pad = (accel.chunk + 7) // 8 * 8
+    image = accel.n_chunks * (pad * (32 * ik.MXU_PARTS[prec] + 4) + 20)
+    return image <= 92 * 1024
 
 
 def assert_mxu_close(out, plain, rays, graze, accel):
@@ -1588,7 +1643,7 @@ def assert_same_with_cull_off(fn, out, monkeypatch):
     """`fn` run again with the MXU chunk cull off gives every word of
     `out`."""
     with monkeypatch.context() as m:
-        m.setattr(ik, "MXU_CULL_SCALE", float("inf"))
+        m.setitem(ik.MXU_CULL_SCALE, ik.MXU_PREC, float("inf"))
         again = fn()
     if isinstance(out, tuple):
         assert_equal(out, again)
@@ -1616,15 +1671,17 @@ def dead_warps(rays):
     rays[7] = torch.where(dead, -1.0, rays[7])
 
 
+@pytest.mark.parametrize("prec", ["high", "default", "highest"])
 @pytest.mark.parametrize("k,n,chunk,variant,path", [
     (1500, 3001, 32, "aimed", "tiled"), (43, 257, 8, "aimed", "resident"),
     (300, 1000, 16, "aimed", "resident"), (1500, 2049, 64, "aimed", "tiled"),
     (200, 777, 12, "aimed", "resident"), (300, 1000, 32, "dead", "resident"),
     (300, 300001, 32, "aimed", "resident"),
     (1500, 140001, 64, "aimed", "tiled"),
-    (300, 5000, 32, "dead warps", "resident")])
+    (300, 5000, 32, "dead warps", "resident"),
+    (3000, 4001, 64, "aimed", "tiled")])
 def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
-                                       monkeypatch):
+                                       prec, monkeypatch):
     """B12a against its plain version: chunks of 8, 12 (padded to 16 in
     shared memory), 16, 32 and 64 slots, ragged ray counts, partly filled
     chunks (empty slots), within the MXU_* tolerances; it launches once,
@@ -1634,14 +1691,20 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
     and 140,001 rays are more than one persistent wave of blocks can hold,
     with a ragged end, and give the words that launches of sub-batches
     below one wave give. "dead" is a batch of dead lanes only: no hit;
-    "dead warps" kills every other warp but for one lane."""
+    "dead warps" kills every other warp but for one lane. Each case runs
+    at the three precisions; `path` is "high"'s and "highest"'s, and
+    "default"'s smaller image keeps the 1,500-sphere tables resident (the
+    3,000-sphere one is tiled at every precision)."""
+    monkeypatch.setattr(ik, "MXU_PREC", prec)
     centers, radii, accel, rays = mxu_case(k, n, chunk, k + n, dev)
     if variant == "dead":
         rays[7] = -1.0
     if variant == "dead warps":
         dead_warps(rays)
     info = ik.intersect_morton_mxu_info(accel.table, accel.bounds, n)
-    assert info["resident"] == (path == "resident")
+    assert info["resident"] == mxu_resident(accel, prec)
+    if prec != "default":
+        assert info["resident"] == (path == "resident")
     assert info["local_bytes"] == 0
     if n > 100000:
         assert n > info["grid"] * info["threads"]
@@ -1662,7 +1725,8 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
             for s in range(0, n, step)))])
     plain = ik.intersect_morton_mxu_plain(rays, accel.table, accel.bounds,
                                           accel.mxu_a)
-    assert_mxu_close(out, plain, rays, grazing(rays, centers, radii), accel)
+    assert_mxu_close(out, plain, rays,
+                     mxu_grazing(rays, centers, radii, accel), accel)
     assert_same_with_cull_off(
         lambda: ik.intersect_morton_mxu(rays, accel.table, accel.bounds,
                                         accel.mxu_a), out, monkeypatch)
@@ -1674,16 +1738,19 @@ def test_mxu_closest_kernel_near_plain(dev, k, n, chunk, variant, path,
     assert bool(torch.isfinite(out[0]).any())
     met, _, _ = ik.mxu_chunk_walk(rays, accel.table, accel.bounds,
                                   accel.mxu_a)
-    assert float(met[rays[7] >= rays[6]].float().mean()) < 0.9
+    if prec != "default":   # "default" runs with the cull off
+        assert float(met[rays[7] >= rays[6]].float().mean()) < 0.9
 
 
+@pytest.mark.parametrize("prec", ["high", "default", "highest"])
 @pytest.mark.parametrize("k,n,chunk,variant", [
     (1500, 3001, 32, "aimed"), (43, 257, 8, "aimed"), (300, 1000, 16,
                                                        "exclude"),
     (1500, 2049, 64, "exclude"), (200, 777, 12, "aimed"),
     (300, 1000, 32, "dead"), (300, 300001, 32, "aimed"),
-    (1500, 140001, 64, "aimed"), (300, 5000, 32, "dead warps")])
-def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
+    (1500, 140001, 64, "aimed"), (300, 5000, 32, "dead warps"),
+    (3000, 4001, 64, "aimed")])
+def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant, prec,
                                          monkeypatch):
     """B12b against its plain version at chunks of 8 to 64 slots, ragged
     ray counts and shadow-ray ranges (tmax 30 x a uniform number): hit bits
@@ -1693,7 +1760,10 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
     for one lane. Tables of up to 92 KB stay resident in each block of the
     persistent grid, those of 1,500 spheres take the tiled loop; 300,001
     and 140,001 rays are more than one persistent wave holds, and give the
-    bits that launches of sub-batches below one wave give."""
+    bits that launches of sub-batches below one wave give. Each case runs
+    at the three precisions ("default" keeps the 1,500-sphere tables
+    resident; the 3,000-sphere one is tiled at every precision)."""
+    monkeypatch.setattr(ik, "MXU_PREC", prec)
     centers, radii, accel, rays = mxu_case(k, n, chunk, k + n + 1, dev)
     rng = np.random.RandomState(n)
     live = rays[7] >= rays[6]
@@ -1705,7 +1775,9 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
         dead_warps(rays)
     live = rays[7] >= rays[6]
     info = ik.occlusion_morton_mxu_info(accel.table, accel.bounds, n)
-    assert info["resident"] == (k < 1500)
+    assert info["resident"] == mxu_resident(accel, prec)
+    assert info["resident"] == (k < 1500 or (prec == "default"
+                                             and k < 3000))
     assert info["local_bytes"] == 0
     if n > 100000:
         assert n > info["grid"] * info["threads"]
@@ -1738,7 +1810,7 @@ def test_mxu_occlusion_kernel_near_plain(dev, k, n, chunk, variant,
     assert_same_with_cull_off(
         lambda: ik.occlusion_morton_mxu(rays9, accel.table, accel.bounds,
                                         accel.mxu_a).cpu(), occ, monkeypatch)
-    graze = grazing(rays, centers, radii)
+    graze = mxu_grazing(rays, centers, radii, accel)
     flip = occ != plain
     assert bool((graze[flip] < MXU_GRAZE).all())
     assert int(flip.sum()) <= MXU_FLIP_SHARE * max(int(live.sum()), 1)

@@ -361,7 +361,9 @@ def reference_frame(scene, cam, route):
     """The reference's 32x32, 2-bounce frame on the route: its XLA path
     for the clustered accel (the same closest hit; the accel is a TPU
     aid there), its MXU kernels in interpret mode under its opt-in for
-    the Morton accel (8 per chunk, sorted from the camera)."""
+    the Morton accel (8 per chunk, sorted from the camera), at HIGHEST
+    for "mxu_highest" (its precision patched, JAX's caches cleared before
+    and after: the jitted kernels read it at trace time)."""
     cfg = jpathtrace.PathTraceConfig(**FRAME)
     if route == "clustered":
         out = jax.jit(lambda s, c: jpathtrace.trace_image(s, c, cfg, 0))(
@@ -378,17 +380,26 @@ def reference_frame(scene, cam, route):
         return jpathtrace.trace_image(s, c, cfg, 0, accel=acc)
 
     old = (jintersect.BACKEND, jintersect._USE_MXU)
+    old_prec = (ip._MXU_PREC_NAME, ip._MXU_PRECISION)
     jintersect.BACKEND, jintersect._USE_MXU = "interpret", True
+    if route == "mxu_highest":
+        ip._MXU_PREC_NAME = "highest"
+        ip._MXU_PRECISION = jax.lax.Precision.HIGHEST
+        jax.clear_caches()
     try:
         out = jax.block_until_ready(frame(scene, cam))
     finally:
         jintersect.BACKEND, jintersect._USE_MXU = old
+        if route == "mxu_highest":
+            ip._MXU_PREC_NAME, ip._MXU_PRECISION = old_prec
+            jax.clear_caches()
     return np.asarray(out.radiance), float(out.rays_traced)
 
 
-@pytest.mark.parametrize("route", ["clustered", "mxu"])
+@pytest.mark.parametrize("route", ["clustered", "mxu", "mxu_highest"])
 def test_trace_image_routes_match_reference(frame_case, route, monkeypatch):
-    """trace_image through each route (B13's plain version, or B12a's)
+    """trace_image through each route (B13's plain version, or B12a's, at
+    "high" or, "mxu_highest", at DRTS_MXU_PREC=highest on both sides)
     against the reference's frame on the same route: radiance within 1e-3
     on >= 99.5% of pixels, the same rays traced. (The MXU route's bf16x3
     quadratic moves roots near grazing and at a bounce ray's own sphere,
@@ -402,6 +413,8 @@ def test_trace_image_routes_match_reference(frame_case, route, monkeypatch):
             scene.center, scene.radius)
     else:
         monkeypatch.setattr(tclusters, "_USE_MXU", True)
+        monkeypatch.setattr(ik, "MXU_PREC", "highest" if route ==
+                            "mxu_highest" else "high")
         acc = tclusters.make_morton_accel(
             tclusters.build_plan_morton(centers, radii, max_members=8,
                                         device="cpu"),
@@ -415,18 +428,33 @@ def test_trace_image_routes_match_reference(frame_case, route, monkeypatch):
     assert float(out.rays_traced) == rays_ref
 
 
-def test_mxu_precision_other_than_high_raises(case, monkeypatch):
-    """DRTS_MXU_PREC's TPU dot precisions "default" and "highest" are not
-    implemented: the MXU route raises instead of ignoring them."""
+@pytest.mark.parametrize("prec", ["default", "high", "highest", "bf16x3",
+                                  "no mxu_a"])
+def test_mxu_precision_names(case, monkeypatch, prec):
+    """DRTS_MXU_PREC's three names run both MXU kernels (hits, some rays
+    blocked); any other name raises a ValueError that names the variable,
+    in both kernels, and the route without MortonAccel.mxu_a raises at
+    every precision."""
     acc = port_morton(case, monkeypatch)
     rays9 = torch.cat([case["trays"], torch.full((1, case["n"]), -1.0)])
-    for prec in ("default", "highest"):
-        monkeypatch.setattr(ik, "MXU_PREC", prec)
+    args = (acc.table, acc.bounds, acc.mxu_a)
+    if prec == "no mxu_a":
+        for name in ik.MXU_PARTS:
+            monkeypatch.setattr(ik, "MXU_PREC", name)
+            with pytest.raises(ValueError, match="mxu_a"):
+                ik.intersect_morton_mxu(case["trays"], acc.table,
+                                        acc.bounds, None)
+            with pytest.raises(ValueError, match="mxu_a"):
+                ik.occlusion_morton_mxu(rays9, acc.table, acc.bounds, None)
+        return
+    monkeypatch.setattr(ik, "MXU_PREC", prec)
+    if prec not in ik.MXU_PARTS:
         with pytest.raises(ValueError, match="DRTS_MXU_PREC"):
-            ik.intersect_morton_mxu(case["trays"], acc.table, acc.bounds,
-                                    acc.mxu_a)
+            ik.intersect_morton_mxu(case["trays"], *args)
         with pytest.raises(ValueError, match="DRTS_MXU_PREC"):
-            ik.occlusion_morton_mxu(rays9, acc.table, acc.bounds, acc.mxu_a)
-    monkeypatch.setattr(ik, "MXU_PREC", "high")
-    with pytest.raises(ValueError, match="mxu_a"):
-        ik.intersect_morton_mxu(case["trays"], acc.table, acc.bounds, None)
+            ik.occlusion_morton_mxu(rays9, *args)
+        return
+    t, i = ik.intersect_morton_mxu(case["trays"], *args, block=500)
+    occ = ik.occlusion_morton_mxu(rays9, *args, block=500)
+    assert t.shape == i.shape == occ.shape == (case["n"],)
+    assert bool(torch.isfinite(t).any()) and bool(occ.any())
