@@ -324,6 +324,24 @@ Phases, one printed line or more each; any failure exits non-zero:
    difference is printed as the mean |difference| of the tone-mapped
    images, the share of pixels that differ at all and of those off by
    more than DEFAULT_OFF; the mean must stay under ROUTE_MEAN.
+25. graphs: the compiled frame (drts_tpu_torch/graphs.py). (a) The
+   1080p default frame from one start: GRAPH_FRAMES eager frames twice
+   (their run-to-run spread: SHARC's splat sums with float atomics) and
+   through RenderPipeline.render_frame_graph once (both cadence variants
+   captured, then replayed); each graph image within DEFAULT_MEAN and
+   DEFAULT_OFF_SHARE plus that spread of the eager one; each eager frame's
+   launches of B1, B2, B3, B4 and B11 equal to its phase's captured
+   frame plus its spill waves' captured launches; the graph frames' spill
+   waves the eager frames'. (b) The headline frame (bench.trace_frame)
+   eager and through pathtrace.trace_image_graph: the radiance bit for
+   bit, the launches against the capture as in (a). (c) The default frame
+   with a GRAPH_SPILL_CAPACITY-slot deep segment: as (a), and every frame
+   replays its captured spill wave. Each prints the eager and graph
+   frame ms (CUDA events at the frame boundaries, GRAPH_FRAMES frames
+   after the first: median, min, max), the host launches of a graph frame
+   (graph launches and input writes; one host read besides), the kernel
+   launches a frame eager and captured, the capture seconds and the peak
+   device memory.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -367,7 +385,12 @@ default frames and the times summed over the three shadow batches, the
 same two at "default" and "highest" ("...@default", "...@highest") with
 the launches and the median times of phase 24 (c), and
 B13 ("intersect_clustered") with the launches of the clustered headline
-frame and the times on its primary rays.
+frame and the times on its primary rays; and B1, B2, B3, B4 and B11 once
+more ("...@graph") with the launches the default frame's graph replays
+made in phase 25 (a) (the capture's counts a frame, by cadence phase and
+spill wave) and the max_abs_err, times and bounds of "...@default": the
+script times no kernel inside a replayed graph (``profile_frame --graph``
+traces their device times there).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5-B10 count their culled walks and B11 its staged rows and
@@ -4165,6 +4188,226 @@ def run_clustered_route(bench, backend, clusters, ik, smi, dev, primary,
     return fields, {"intersect_clustered": got["intersect_clustered"]}
 
 
+# Phase 25: the compiled frame (drts_tpu_torch/graphs.py). The frames
+# each run is timed over, the kernels its entries carry, and the deep
+# segment's capacity of the forced-spill default frame (the demo frame's
+# bounce-2 survivors number ~100,000).
+GRAPH_FRAMES = 8
+GRAPH_KERNELS = ("intersect_morton", "occlusion_morton",
+                 "initial_light_candidates", "reproject_packed",
+                 "intersect_brute")
+GRAPH_SPILL_CAPACITY = 32768
+
+
+def frame_marks(step, frames):
+    """Run `step` `frames` times; returns each frame's ms between CUDA
+    events recorded at the frame boundaries (no synchronize between)."""
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[0].record()
+    for _ in range(frames):
+        step()
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def spread(ms):
+    return (f"median={statistics.median(ms)!r} min={min(ms)!r} "
+            f"max={max(ms)!r}")
+
+
+def eager_frames(backend, pathtrace, step, frames):
+    """`frames` eager frames through step(); returns (each frame's
+    launches of GRAPH_KERNELS, each frame's spill waves, the images)."""
+    launches, waves, images = [], [], []
+    for _ in range(frames):
+        before = dict(backend.LAUNCHES)
+        ran = []
+
+        def decide(overflow, wave1):
+            run = overflow.item() > 0
+            if run:
+                wave1()
+            ran.append(int(run))
+            return int(run)
+        with pathtrace.spill_hook(decide):
+            images.append(step().clone())
+        launches.append({k: backend.LAUNCHES[k] - before[k]
+                         for k in GRAPH_KERNELS})
+        waves.append(sum(ran))
+    return launches, waves, images
+
+
+def graph_launches_check(label, call, phases, eager_launches, eager_waves):
+    """Each eager frame's launches of GRAPH_KERNELS against its cadence
+    phase's captured frame plus its spill waves' captured launches."""
+    for i, (got, waves) in enumerate(zip(eager_launches, eager_waves)):
+        cap = call.stats.captured_launches[phases[i]]
+        want = {k: cap["frame"].get(k, 0)
+                + sum(sp.get(k, 0) for sp in cap["spill_waves"][:waves])
+                for k in GRAPH_KERNELS}
+        if want != got:
+            raise AssertionError(f"graph {label}: frame {i}'s capture "
+                                 f"holds {want}, the eager frame launched "
+                                 f"{got}")
+
+
+def image_spread(a, b):
+    d = (a.float() - b.float()).abs()
+    return float(d.mean()), float((d.amax(-1) > DEFAULT_OFF).float().mean())
+
+
+def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
+                       patch=None):
+    """Phase 25 (a): a pipeline frame (`patch` edits its path-trace
+    config) from one start: GRAPH_FRAMES eager frames twice and through
+    render_frame_graph once. Checks the images (bit for bit without
+    SHARC; with it, within DEFAULT_* plus the eager run-to-run spread),
+    each frame's launches against its phase's capture, the spill waves.
+    Returns (the graph callable's stats, eager ms, graph ms, eager and
+    graph peak memory)."""
+    pipe, s0, pose = bench.make_frame_setup(cfg=cfg, device=dev)
+    if patch is not None:
+        base = pipe._pt_cfg
+        pipe._pt_cfg = lambda: dataclasses.replace(base(), **patch)
+    box = [s0]
+
+    def eager():
+        box[0], img = pipe.render_frame(box[0], pose)
+        return img
+    runs = []
+    for _ in range(2):
+        box[0] = s0
+        torch.cuda.reset_peak_memory_stats()
+        runs.append(eager_frames(backend, pathtrace, eager, GRAPH_FRAMES))
+    eager_peak = torch.cuda.max_memory_allocated()
+    box[0] = s0
+    eager_ms = frame_marks(eager, GRAPH_FRAMES)
+    box[0] = s0
+    call = pipe.render_frame_graph()
+
+    def graph():
+        box[0], img = call(box[0], pose)
+        return img
+    torch.cuda.reset_peak_memory_stats()
+    graph_images = [graph().clone() for _ in range(GRAPH_FRAMES)]
+    box[0] = s0
+    graph_ms = frame_marks(graph, GRAPH_FRAMES)
+    graph_peak = torch.cuda.max_memory_allocated()
+    (e_launch, e_waves, e_img), (_, e_waves2, e_img2) = runs
+    phases = [f % call.cycle for f in range(GRAPH_FRAMES)]
+    graph_launches_check(label, call, phases, e_launch, e_waves)
+    g_waves = call.stats.spill_waves
+    worst = (0.0, 0.0)
+    for i, (a, a2, b) in enumerate(zip(e_img, e_img2, graph_images)):
+        ee, eg = image_spread(a, a2), image_spread(a, b)
+        exact = torch.equal(a.view(torch.int32), b.view(torch.int32))
+        worst = max(worst, eg)
+        if cfg.sharc_enabled:
+            ok = (eg[0] <= DEFAULT_MEAN + ee[0]
+                  and eg[1] <= DEFAULT_OFF_SHARE + ee[1])
+        else:
+            ok = exact
+        if not ok or not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"graph {label}: frame {i} graph against "
+                                 f"eager {eg} (eager twice {ee}, bit for "
+                                 f"bit {exact})")
+    log(f"graph {label}: {cfg.render_width}x{cfg.render_height} to "
+        f"{cfg.output_width}x{cfg.output_height} frames={GRAPH_FRAMES} "
+        f"eager_ms {spread(eager_ms)} graph_ms {spread(graph_ms)} "
+        f"host_launches_per_graph_frame="
+        f"{call.stats.last_host_launches} eager_kernel_launches_per_frame="
+        f"{json.dumps(e_launch[0])} captured="
+        f"{json.dumps(call.stats.captured_launches)} "
+        f"capture_s={json.dumps(call.stats.capture_s)} spill_waves eager="
+        f"{sum(e_waves)} eager2={sum(e_waves2)} graph={g_waves} "
+        f"worst_graph_vs_eager(mean, share off)={worst!r} "
+        f"peak_bytes eager={eager_peak} graph={graph_peak} | {smi}")
+    if g_waves != 2 * sum(e_waves):
+        raise AssertionError(f"graph {label}: {g_waves} spill waves in "
+                             f"{2 * GRAPH_FRAMES} graph frames, the eager "
+                             f"frames ran {sum(e_waves)} in "
+                             f"{GRAPH_FRAMES}")
+    return call.stats, eager_ms, graph_ms, eager_peak, graph_peak
+
+
+def run_graph_trace(backend, bench, pathtrace, smi, dev):
+    """Phase 25 (b): the headline frame (accel, G-buffer, trace) eager and
+    through trace_image_graph, GRAPH_FRAMES each from frame 1 on: the
+    radiance, rays and overflow bit for bit, the launches against the
+    capture, the spill waves."""
+    setup = bench.make_trace_setup(device=dev)
+    call = pathtrace.trace_image_graph(setup.cfg, setup.plan)
+    idx = [1]
+
+    def eager():
+        out = bench.trace_frame(setup, torch.tensor(idx[0], device=dev))
+        idx[0] += 1
+        return out.radiance
+
+    def graph():
+        out = call(setup.scene, setup.cam, idx[0])
+        idx[0] += 1
+        return out
+    bench.trace_frame(setup, torch.tensor(0, device=dev))   # warm
+    e_launch, e_waves, e_img = eager_frames(backend, pathtrace, eager,
+                                            GRAPH_FRAMES)
+    idx[0] = 1
+    g_img = []
+    for _ in range(GRAPH_FRAMES):
+        g_img.append(graph().radiance.clone())
+    idx[0] = 1
+    eager_ms = frame_marks(eager, GRAPH_FRAMES)
+    idx[0] = 1
+    graph_ms = frame_marks(graph, GRAPH_FRAMES)
+    graph_launches_check("headline", call, [0] * GRAPH_FRAMES, e_launch,
+                         e_waves)
+    for i, (a, b) in enumerate(zip(e_img, g_img)):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"graph headline: frame {i + 1}'s "
+                                 f"radiance differs from the eager frame's "
+                                 f"({float((a - b).abs().max())!r})")
+    log(f"graph headline: 1920x1080 bounces=8 frames={GRAPH_FRAMES} "
+        f"eager_ms {spread(eager_ms)} graph_ms {spread(graph_ms)} "
+        f"host_launches_per_graph_frame="
+        f"{call.stats.last_host_launches} eager_kernel_launches_per_frame="
+        f"{json.dumps(e_launch[0])} captured="
+        f"{json.dumps(call.stats.captured_launches)} "
+        f"capture_s={json.dumps(call.stats.capture_s)} spill_waves eager="
+        f"{sum(e_waves)} graph={call.stats.spill_waves} | {smi}")
+    if call.stats.spill_waves != 2 * sum(e_waves):
+        raise AssertionError("graph headline: spill waves differ")
+    return call.stats
+
+
+def run_graphs(backend, bench, pathtrace, smi, dev):
+    """Phase 25: the default frame and the headline frame as CUDA graph
+    replays against eager frames (run_graph_pipeline, run_graph_trace),
+    then the default frame with a 32,768-slot deep segment, which spills
+    every frame. Returns the launches the default frame's replays made,
+    from its capture."""
+    stats, *_ = run_graph_pipeline(backend, bench, pathtrace, smi, dev,
+                                   "default frame",
+                                   bench.default_frame_config())
+    run_graph_trace(backend, bench, pathtrace, smi, dev)
+    forced, *_ = run_graph_pipeline(
+        backend, bench, pathtrace, smi, dev, "forced-spill default frame",
+        bench.default_frame_config(),
+        patch={"compact_capacity": GRAPH_SPILL_CAPACITY})
+    if forced.spill_waves < 2 * GRAPH_FRAMES or not all(
+            cap["spill_waves"] and cap["spill_waves"][0].get(
+                "intersect_morton", 0) > 0
+            for cap in forced.captured_launches.values()):
+        raise AssertionError("graph: the forced-spill frame did not replay "
+                             "its spill wave every frame")
+    for name in GRAPH_KERNELS:
+        if stats.launches.get(name, 0) <= 0:
+            raise AssertionError(f"graph: {name} was not launched inside "
+                                 f"the default frame's graph")
+    return {f"{name}@graph": stats.launches[name] for name in GRAPH_KERNELS}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -4668,6 +4911,12 @@ def main():
     del morton_img
     log(f"routes: phase 24 took {time.perf_counter() - t0:.1f} s")
 
+    # 25. the compiled frame: the default and headline frames as CUDA graph
+    # replays against eager frames --------------------------------------
+    t0 = time.perf_counter()
+    launches.update(run_graphs(backend, bench, pathtrace, smi, dev))
+    log(f"graphs: phase 25 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -4809,6 +5058,7 @@ def main():
         "intersect_clustered": ("drts_tpu_torch/csrc/intersect.cu",
                                 "drts_tpu/ops/intersect_pallas.py:716"),
     }
+    rows.update({f"{name}@graph": rows[name] for name in GRAPH_KERNELS})
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
         "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"],
@@ -4819,6 +5069,10 @@ def main():
     for name in ("intersect_morton", "occlusion_morton",
                  "initial_light_candidates", "intersect_brute"):
         fields[f"{name}@default"] = fields[name]
+    # The graph frame replays the default frame's kernels on its inputs:
+    # its entries carry the @default readings (see the docstring).
+    for name in GRAPH_KERNELS:
+        fields[f"{name}@graph"] = fields[f"{name}@default"]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

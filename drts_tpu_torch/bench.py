@@ -80,6 +80,17 @@ that fails lands in "errors" and the process exits 1 after printing the
 line. Each bench's launches, frames and spill waves go to stderr.
 ``--iters`` does not apply to the record.
 
+``--graph`` runs the path trace, ``--frame``, ``--default-frame`` or
+``--upscaled`` as CUDA graph replays (``pathtrace.trace_image_graph``,
+``RenderPipeline.render_frame_graph``): the warm frame captures, the timed
+frames replay; passes_ms stays the eager frames' stage times. The frame
+lines also carry each timed frame's ms between CUDA events at the frame
+boundaries (frame_ms_each, frame_ms_median) and the peak device memory,
+and with ``--graph`` the callable's stats (capture seconds, host
+launches, the kernels' launches the replays made, spill waves); the path
+trace's line keeps the reference's keys without ``--graph`` and notes
+those on stderr.
+
     python -m drts_tpu_torch.bench [--iters N]
     DRTS_MXU_KERNEL=1 python -m drts_tpu_torch.bench --frame [--iters N]
     python -m drts_tpu_torch.bench --frame [--iters N]
@@ -92,6 +103,8 @@ line. Each bench's launches, frames and spill waves go to stderr.
     python -m drts_tpu_torch.bench --options-frame [--accel none] [--iters N]
     python -m drts_tpu_torch.bench --frame --accel none [--iters N]
     python -m drts_tpu_torch.bench --record [--fast]
+    python -m drts_tpu_torch.bench [--frame | --default-frame | --upscaled]
+        --graph [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -192,23 +205,71 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
+def _mark(device):
+    """A frame boundary: a CUDA event recorded on the current stream on a
+    card (no synchronize), the host clock elsewhere."""
+    if torch.device(device).type == "cuda":
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+    return time.perf_counter()
+
+
+def _spans_ms(marks) -> list:
+    """The ms between consecutive marks (after a synchronize)."""
+    if isinstance(marks[0], float):
+        return [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    return [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+
+
+def _reset_peak(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _timing(device, marks, graph_stats) -> dict:
+    """Per-frame times, peak device memory and, for graph frames, the
+    callable's stats."""
+    each = _spans_ms(marks)
+    out = {"frame_ms_each": each,
+           "frame_ms_median": float(np.median(each)) if each else None}
+    if torch.device(device).type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if graph_stats is not None:
+        out["graph"] = graph_stats.as_dict()
+    return out
+
+
 def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
                 spp: int = 1, iters: int = 8, device="cuda",
-                load_textures: bool = False):
-    """One warm frame, then `iters` timed frames. Returns (stats, the last
-    frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
-    overflow_paths (of the last frame), frames and the spill waves of all
-    of them."""
+                load_textures: bool = False, graph: bool = False):
+    """One warm frame, then `iters` timed frames; with `graph`, each frame
+    a replay of ``pathtrace.trace_image_graph`` (the warm frame captures
+    it). Returns (stats, the last frame's TraceOutput); stats has mray_s,
+    frame_ms, rays_per_frame, overflow_paths (of the last frame), frames,
+    the spill waves of all of them, each timed frame's ms (CUDA events
+    at the frame boundaries), the peak device memory and, with `graph`,
+    the callable's stats (captures, launches, host launches)."""
     setup = make_trace_setup(width, height, bounces, spp, device=device,
                              load_textures=load_textures)
-    out = trace_frame(setup, 0)
+    graphed = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
+               else None)
+
+    def frame(i):
+        if graphed is not None:
+            return graphed(setup.scene, setup.cam, i)
+        return trace_frame(setup, i)
+    _reset_peak(device)
+    out = frame(0)
     _sync(device)
     rays_per_frame = float(out.rays_traced)
     spill_waves = out.spill_waves
+    marks = [_mark(device)]
     start = time.perf_counter()
     for i in range(iters):
-        out = trace_frame(setup, i + 1)
+        out = frame(i + 1)
         spill_waves += out.spill_waves
+        marks.append(_mark(device))
     _sync(device)
     elapsed = time.perf_counter() - start
     stats = {
@@ -218,6 +279,7 @@ def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
         "overflow_paths": float(
             out.counters["wavefront_overflow_paths"]),
         "frames": 1 + iters, "spill_waves": spill_waves,
+        **_timing(device, marks, graphed and graphed.stats),
     }
     return stats, out
 
@@ -358,18 +420,23 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
                 iters: int = 4, device="cuda", mesh: bool = False,
                 cfg: pipeline.PipelineConfig | None = None,
                 textured: bool = False, load_textures: bool = False,
-                profile: bool = True):
+                profile: bool = True, graph: bool = False):
     """One warm ReSTIR frame, then `iters` timed frames, then, with
     `profile`, frames timed stage by stage (one, or with SHARC one cadence
-    of `sharc_update_period` frames, so that the update's cost is in);
+    of `sharc_update_period` frames, so that the update's cost is in,
+    always eager); with `graph`, the warm and timed frames are replays of
+    ``RenderPipeline.render_frame_graph`` (the warm frame captures it);
     with `mesh`, the all-mesh ReSTIR frame; with `textured`, on the mixed
     textured scene; `load_textures` as in make_frame_setup; with `cfg`,
     that configuration's frame (width, height and bounces are then the
     config's). Returns
     (stats, the last timed frame's image); stats has frame_ms, passes_ms
     (each stage's mean over the stage-timed frames), rays_per_frame (path
-    trace, warm frame), the counters of the last timed frame, the number
-    of frames rendered and the spill waves the path trace ran in them."""
+    trace, the first eager frame; None for graph frames without
+    `profile`), the counters of the last timed frame, the number of frames
+    rendered, the spill waves the path trace ran in them, each timed
+    frame's ms (CUDA events at the frame boundaries), the peak device
+    memory and, with `graph`, the callable's stats."""
     pipe, state, pose = make_frame_setup(width, height, bounces,
                                          device=device, mesh=mesh, cfg=cfg,
                                          textured=textured,
@@ -387,13 +454,23 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
                 traced["spill_waves"] += out.spill_waves
             return out
         return hook
-    state, image = pipe.render_frame(state, pose, _run=counted())
+    graphed = pipe.render_frame_graph() if graph else None
+
+    def frame(state):
+        if graphed is not None:
+            return graphed(state, pose)
+        return pipe.render_frame(state, pose, _run=counted())
+    _reset_peak(device)
+    state, image = frame(state)
     _sync(device)
+    marks = [_mark(device)]
     start = time.perf_counter()
     for _ in range(iters):
-        state, image = pipe.render_frame(state, pose, _run=counted())
+        state, image = frame(state)
+        marks.append(_mark(device))
     _sync(device)
     elapsed = time.perf_counter() - start
+    timing = _timing(device, marks, graphed and graphed.stats)
     counters = {k: float(v) for k, v in state.counters.items()}
     staged = ((max(pipe.cfg.sharc_update_period, 1)
                if pipe.cfg.sharc_enabled else 1) if profile else 0)
@@ -404,13 +481,17 @@ def bench_frame(width: int = 1920, height: int = 1080, bounces: int = 8,
             state, pose, _run=counted(stage_timer(frame, device)))
         for name, ms in frame.items():
             passes[name] = passes.get(name, 0.0) + ms / staged
+    if graphed is not None:
+        traced["spill_waves"] += graphed.stats.spill_waves
     stats = {
         "frame_ms": elapsed / iters * 1e3,
         "frames": 1 + iters + staged,
         "passes_ms": passes,
-        "rays_per_frame": float(traced["rays"]),
+        "rays_per_frame": (float(traced["rays"]) if "rays" in traced
+                           else None),
         "counters": counters,
         "spill_waves": traced["spill_waves"],
+        **timing,
     }
     return stats, image
 
@@ -670,6 +751,9 @@ def main(argv=None):
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
                              "MESH_CAND)")
+    parser.add_argument("--graph", action="store_true",
+                        help="each frame as CUDA graph replays (the path "
+                             "trace, --frame, --default-frame, --upscaled)")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
     if args.accel != "morton" and not sphere_frame:
@@ -677,6 +761,11 @@ def main(argv=None):
                      "--options-frame")
     if args.fast and not args.record:
         parser.error("--fast applies to --record")
+    if args.graph and (args.record or args.mesh or args.mesh_frame
+                       or args.mesh_pipeline or args.textured_frame
+                       or args.options_frame or args.accel != "morton"):
+        parser.error("--graph applies to the path trace, --frame, "
+                     "--default-frame and --upscaled")
     if args.record and (sphere_frame or args.mesh or args.mesh_frame
                         or args.upscaled or args.mesh_pipeline
                         or args.textured_frame
@@ -743,7 +832,8 @@ def main(argv=None):
         backend.reset_launches()
         stats, image = bench_frame(iters=args.iters, device=dev,
                                    mesh=args.mesh_frame or args.mesh_pipeline,
-                                   cfg=cfg, textured=args.textured_frame)
+                                   cfg=cfg, textured=args.textured_frame,
+                                   graph=args.graph)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({
@@ -753,15 +843,30 @@ def main(argv=None):
             "device": device_name(dev),
         }), flush=True)
         return
-    stats, out = bench_trace(iters=args.iters, device=dev)
+    backend.reset_launches()
+    graph = {"graph": True} if args.graph else {}
+    stats, out = bench_trace(iters=args.iters, device=dev, **graph)
     if not np.isfinite(out.radiance.cpu().numpy()).all():
         raise RuntimeError("non-finite radiance")
+    if args.graph:
+        # The graph frame's line adds its timings and the callable's stats
+        # to the headline keys, which stay as they are without the flag.
+        graph = {k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
+                                       "peak_memory_bytes", "graph",
+                                       "spill_waves")}
+        graph["launches"] = dict(backend.LAUNCHES)
+    else:
+        _note("bench: " + json.dumps({
+            k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
+                                  "peak_memory_bytes", "spill_waves")
+            if k in stats}))
     print(json.dumps({
         "metric": "path_trace_1080p_1spp_8bounce",
         "value": stats["mray_s"],
         "unit": "Mray/s/chip",
         "frame_ms": stats["frame_ms"],
         "rays_per_frame": int(stats["rays_per_frame"]),
+        **graph,
         "device": device_name(dev),
     }), flush=True)
 

@@ -355,6 +355,25 @@ void slot_tile(int n_lights, int s, int* tile_s, size_t* smem) {
            (2 * (size_t)*tile_s + kPixRows) * kThreads) * sizeof(float);
 }
 
+// Raises B3's dynamic shared-memory limit on the current device to at
+// least `smem`. CUDA keeps the limit for each device, so this does too,
+// and calls only when it grows: a launch inside a CUDA graph capture
+// then makes no attribute call.
+cudaError_t raise_smem_limit(size_t smem) {
+  constexpr int kMaxDevices = 64;
+  static size_t raised[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem <= kDefaultSmem || smem <= raised[dev]) return cudaSuccess;
+  rc = cudaFuncSetAttribute(initial_candidates,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)smem);
+  if (rc == cudaSuccess) raised[dev] = smem;
+  return rc;
+}
+
 }  // namespace
 
 extern "C" int drts_initial_light_candidates(
@@ -365,12 +384,8 @@ extern "C" int drts_initial_light_candidates(
   int tile_s;
   size_t smem;
   slot_tile(n_lights, s, &tile_s, &smem);
-  if (smem > kDefaultSmem) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        initial_candidates, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  const cudaError_t rc = raise_smem_limit(smem);
+  if (rc != cudaSuccess) return (int)rc;
   const int grid = (n + kThreads - 1) / kThreads;
   initial_candidates<<<grid, kThreads, smem, stream>>>(
       surf, uni, slots, n, table, n_lights, n_l, s, n_b, tile_s, out_f,
@@ -389,12 +404,8 @@ extern "C" int drts_initial_light_candidates_info(int n_lights, int s,
   int tile_s, blocks = 0;
   size_t smem;
   slot_tile(n_lights, s, &tile_s, &smem);
-  if (smem > kDefaultSmem) {
-    rc = cudaFuncSetAttribute(initial_candidates,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  rc = raise_smem_limit(smem);
+  if (rc != cudaSuccess) return (int)rc;
   rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &blocks, initial_candidates, kThreads, smem);
   if (rc != cudaSuccess) return (int)rc;

@@ -54,7 +54,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from .. import backend, config as config_mod
+from .. import backend, config as config_mod, graphs
 from ..ops import (camera as camera_mod, debugviz, denoise, gbuffer,
                    light as light_mod, pathtrace, physics, post, restir,
                    sharc as sharc_mod, taa)
@@ -389,8 +389,12 @@ class RenderPipeline:
                 prev_pose: CameraPose | None = None) -> camera_mod.Camera:
         c = self.cfg
         if c.jitter_enabled:
-            jitter = self.jitter_table[state.frame_index
-                                       % self.jitter_table.shape[0]]
+            # A gather on the device (indexing by a 0-d tensor can read it
+            # back to the host).
+            jitter = torch.index_select(
+                self.jitter_table, 0,
+                (state.frame_index % self.jitter_table.shape[0]).reshape(1)
+            )[0]
         else:
             jitter = torch.zeros(2, device=self.device)
         aspect = c.render_width / c.render_height
@@ -470,13 +474,22 @@ class RenderPipeline:
                          band=None):
         c = self.cfg
         hist = state.reservoirs
-        if reset:
+        if isinstance(reset, torch.Tensor):
+            # A device flag (the graph frame's): the fresh history where it
+            # is set, selected on the device.
+            fresh = dict(leaves(restir.init_reservoirs(
+                state.prev_depth.shape[0], c.render_width, self.device)))
+            hist = mesh_mod.map_leaves(
+                lambda p, t: torch.where(reset, fresh[p], t), hist)
+        elif reset:
             hist = restir.init_reservoirs(state.prev_depth.shape[0],
                                           c.render_width, self.device)
         prev_material = prev_cam_pos = None
         if self._use_real_prev_surface():
             prev_material = state.prev_surface_rows
-            if reset:
+            if isinstance(reset, torch.Tensor):
+                prev_material = torch.where(reset, 0.0, prev_material)
+            elif reset:
                 prev_material = torch.zeros_like(prev_material)
             prev_cam_pos = cam.prev_position if cam is not None else None
         return restir.temporal_resampling(
@@ -871,9 +884,9 @@ class RenderPipeline:
             image = self._stage_debug(image, gbuf, cam, grid, den_state, sh)
 
         frame_counters.update(out.counters)
-        counters = {k: torch.as_tensor(frame_counters.get(k, 0.0),
-                                       dtype=torch.float32,
-                                       device=self.device)
+        counters = {k: (frame_counters[k].to(torch.float32)
+                        if k in frame_counters
+                        else torch.zeros((), device=self.device))
                     for k in self._counter_keys()}
         new_state = FrameState(
             frame_index=state.frame_index + 1, bodies=bodies, scene=scene,
@@ -891,6 +904,168 @@ class RenderPipeline:
         if sh is not None:
             new_state = run("store_shards", sh.at_rest, new_state)
         return new_state, image
+
+    def render_frame_graph(self) -> "FrameGraph":
+        """The counterpart of the reference's ``render_frame_jit``: a
+        callable ``(state, pose, dt, prev_pose=None, reset=False,
+        dyn=None) -> (state, image)`` that runs each frame as CUDA graph
+        replays (``FrameGraph``)."""
+        return FrameGraph(self)
+
+
+def graph_refusal(cfg: PipelineConfig, scene) -> str | None:
+    """Why a frame of `cfg` on `scene` has no graph form yet, or None: the
+    graphs hold the sphere frames (``PipelineConfig()``, the settings'
+    default frame, the ReSTIR frame); the mesh, textured and options
+    frames and the MXU route stay eager for now."""
+    r = cfg.restir
+    for bad, why in (
+            (scene.mesh is not None or scene.mesh_instances is not None,
+             "a mesh scene"),
+            (scene.textures is not None, "a textured scene"),
+            (cfg.accel_mode != "morton", f"accel_mode={cfg.accel_mode!r}"),
+            (clusters._USE_MXU, "the MXU route (DRTS_MXU_KERNEL)"),
+            (cfg.aperture_radius > 0.0, "the thin lens"),
+            (cfg.restir_enabled and r.spatial_offset_mode == "shared",
+             "shared spatial offsets (host-int rolls each frame)"),
+            (cfg.restir_enabled and "raytraced" in (
+                r.spatial_bias_correction, r.temporal_bias_correction),
+             "raytraced bias correction"),
+            (cfg.restir_enabled and r.temporal_prev_surface == "real",
+             "the real previous surface")):
+        if bad:
+            return why
+    return None
+
+
+class FrameGraph:
+    """``RenderPipeline.render_frame`` as CUDA graphs (see graphs.py).
+
+    On CUDA tensors the first call captures one variant per phase of the
+    cycle (the SHARC cadence: an update and a skip frame; without SHARC
+    two alike frames), each after one eager warm-up frame on a side
+    stream, all in one memory pool, and every call replays the variant of
+    its state's ``frame_count``. ``dt``, ``reset``, the poses and the
+    dynamic settings are device inputs the call writes before the replay
+    (``reset`` is a device flag: the history selects its fresh value on
+    the device; ``prev_pose=None`` is the pose itself, which the eager
+    frame equals bit for bit).
+
+    The state ping-pongs: each phase reads the buffers the phase before
+    it wrote (its graph's outputs), and the last phase of the cycle copies
+    its new state into the first phase's inputs inside its graph (one
+    device copy of the state a cycle). A call copies into the inputs only
+    a state it did not return (the first frame, a resume, a state from
+    elsewhere). The returned image lives until the next call, the
+    returned state until the call after it (each phase owns its buffers):
+    clone what you keep longer.
+
+    On CPU tensors a call runs the eager frame with the same inputs as
+    the pieces the capture would make (``graphs.run_pieces``). Raises
+    ValueError for a frame outside the graphs' slice (``graph_refusal``)
+    or a `group`, and graphs.CaptureError when a capture fails; there is
+    no eager fallback on the card. ``stats`` (graphs.GraphStats) counts
+    frames, spill waves, host launches and the kernels' launches."""
+
+    def __init__(self, pipe: RenderPipeline):
+        self.pipe = pipe
+        c = pipe.cfg
+        period = max(c.sharc_update_period, 1) if c.sharc_enabled else 1
+        self.cycle = period if period >= 2 else 2
+        self.stats = graphs.GraphStats()
+        self._dyn = default_dynamic(c, pipe.device)
+        self._inputs = None     # graphs.Inputs: poses, dt, reset, dyn
+        self._states = []       # each phase's input state
+        self._frames = []       # each phase's graphs.Captured
+
+    def _check(self, state, group):
+        if group is not None:
+            raise ValueError("the graph frame runs on one device: no group")
+        why = graph_refusal(self.pipe.cfg, state.scene)
+        if why is not None:
+            raise ValueError(f"no graph form of this frame yet: {why}")
+
+    @staticmethod
+    def _device_inputs(inp, dev):
+        """The call's inputs as the frame reads them: dt and reset as 0-d
+        device tensors."""
+        def as_dev(x, dtype):
+            if isinstance(x, torch.Tensor):
+                return x.to(device=dev, dtype=dtype)
+            return torch.full((), x, dtype=dtype, device=dev)
+        return dict(inp, dt=as_dev(inp["dt"], torch.float32),
+                    reset=as_dev(inp["reset"], torch.bool))
+
+    def _run(self, state, inp):
+        return self.pipe.render_frame(
+            state, inp["pose"], inp["dt"], prev_pose=inp["prev_pose"],
+            reset=inp["reset"], dyn=inp["dyn"])
+
+    def __call__(self, state: FrameState, pose: CameraPose,
+                 dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
+                 reset=False, dyn: DynamicSettings | None = None,
+                 group=None):
+        self._check(state, group)
+        dev = state.frame_index.device
+        # A missing prev_pose is the pose; a missing dyn the defaults.
+        inp = {"pose": pose,
+               "prev_pose": prev_pose if prev_pose is not None else pose,
+               "dt": dt, "reset": reset,
+               "dyn": dyn if dyn is not None else self._dyn}
+        if not graphs.on_card(dev):
+            dev_inp = self._device_inputs(inp, dev)
+            (new_state, image), waves = graphs.run_pieces(
+                lambda: self._run(state, dev_inp))
+            self.stats.frames += 1
+            self.stats.spill_waves += waves
+            return new_state, image
+        if not self._frames:
+            self._capture(state, self._device_inputs(inp, dev))
+        phase = state.frame_count % self.cycle
+        # The frame writes its counters and never reads them: the inputs
+        # take the captured ones (a static change can change their keys).
+        state = dataclasses.replace(state,
+                                    counters=self._states[phase].counters)
+        writes = self._inputs.write(inp)
+        writes += graphs.write_tree(self._states[phase], state)
+        before = self.stats.host_launches
+        self.stats.host_launches += writes
+        self._frames[phase].replay(self.stats)
+        self.stats.last_host_launches = self.stats.host_launches - before
+        new_state, image = self._frames[phase].outputs
+        return dataclasses.replace(new_state,
+                                   frame_count=state.frame_count + 1), image
+
+    def _capture(self, state, inp):
+        """Warm up and capture every phase, in cycle order, in one pool."""
+        self._inputs = graphs.Inputs(inp)
+        state = dataclasses.replace(state, counters={
+            k: torch.zeros((), device=self.pipe.device)
+            for k in self.pipe._counter_keys()})
+        first = dataclasses.replace(graphs.clone_tree(state), frame_count=0)
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.Stream()
+        ins = first
+        for phase in range(self.cycle):
+            ins = dataclasses.replace(ins, frame_count=phase)
+            graphs.write_tree(ins, state)
+            last = phase == self.cycle - 1
+
+            def frame(ins=ins, last=last):
+                new_state, image = self._run(ins, self._inputs.tree)
+                if last:
+                    # Close the cycle: the next phase 0 reads `first`.
+                    graphs.write_tree(first, new_state)
+                    new_state = first
+                return new_state, image
+
+            graphs.warm_up(lambda ins=ins: self._run(ins, self._inputs.tree),
+                           stream)
+            captured = graphs.Captured.capture(frame, pool, stream)
+            self.stats.captured(phase, captured)
+            self._states.append(ins)
+            self._frames.append(captured)
+            ins = captured.outputs[0]
 
 
 # The FrameState fields of render-height rows (``RenderPipeline.placement``).

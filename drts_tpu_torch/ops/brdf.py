@@ -145,7 +145,7 @@ def sample_vndf_ggx(random2, roughness, v_local):
         (lensq > 1e-12)[..., None],
         torch.stack([-vh[..., 1], vh[..., 0], torch.zeros_like(lensq)],
                     dim=-1) * _rsqrt(lensq)[..., None],
-        torch.tensor([1.0, 0.0, 0.0], dtype=vh.dtype, device=vh.device))
+        m.const((1.0, 0.0, 0.0), vh.dtype, vh.device))
     t2 = m.cross(vh, t1)
     r = torch.sqrt(torch.clamp(random2[..., 0], 0.0, 1.0))
     phi = 2.0 * PI * random2[..., 1]

@@ -53,6 +53,14 @@ def make_camera(position, forward=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0),
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
+    def scalar(x):
+        # The lens constants (numbers, or the jitter's pair) are made once:
+        # a frame captured as a CUDA graph copies nothing from the host.
+        if isinstance(x, torch.Tensor):
+            return f32(x)
+        return m.const(tuple(x) if isinstance(x, (tuple, list)) else x,
+                       device=device)
+
     position = f32(position)
     f = m.normalize(f32(forward))
     if focus_distance != 1.0:
@@ -67,9 +75,9 @@ def make_camera(position, forward=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0),
     u = u * float(scale / np.float32(aspect))
     return Camera(position=position, right=r, up=u, forward=f,
                   prev_position=position, prev_right=r, prev_up=u,
-                  prev_forward=f, jitter=f32(jitter),
-                  aperture_radius=f32(aperture_radius),
-                  near_depth=f32(near_depth), far_depth=f32(far_depth))
+                  prev_forward=f, jitter=scalar(jitter),
+                  aperture_radius=scalar(aperture_radius),
+                  near_depth=scalar(near_depth), far_depth=scalar(far_depth))
 
 
 def pixel_ndc(width: int, height: int, jitter, rows=None):
@@ -81,7 +89,7 @@ def pixel_ndc(width: int, height: int, jitter, rows=None):
     px = torch.arange(width, dtype=torch.float32, device=dev)
     py = torch.arange(r0, r1, dtype=torch.float32, device=dev)
     xy = torch.stack(torch.meshgrid(px, py, indexing="xy"), dim=-1)
-    dims = torch.tensor([width, height], dtype=torch.float32, device=dev)
+    dims = m.const((width, height), device=dev)
     return m.calculate_ndc(m.calculate_uv(xy, dims, jitter))
 
 
@@ -132,9 +140,9 @@ def project_to_ndc(cam: Camera, world_pos, previous: bool = False):
 def ndc_to_pixel(ndc, width: int, height: int):
     """Inverse of Math::CalculateNDC -> pixel coordinates (float)."""
     dev, dt = ndc.device, ndc.dtype
-    uv = ((ndc - torch.tensor([-1.0, 1.0], dtype=dt, device=dev))
-          / torch.tensor([2.0, -2.0], dtype=dt, device=dev))
-    return uv * torch.tensor([width, height], dtype=dt, device=dev) - 0.5
+    uv = ((ndc - m.const((-1.0, 1.0), dt, dev))
+          / m.const((2.0, -2.0), dt, dev))
+    return uv * m.const((width, height), dt, dev) - 0.5
 
 
 class CameraController:

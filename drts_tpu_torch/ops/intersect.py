@@ -48,6 +48,16 @@ def pack_spheres(centers, radii):
     return torch.cat([centers.T, radii[None]]).to(torch.float32).contiguous()
 
 
+def _flat(x, lead, n: int, device):
+    """`x`, a tensor or a number broadcastable to `lead`, as an (n,)
+    float32 row on `device`; a number is filled there (no host copy)."""
+    if isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    else:
+        x = torch.full((), float(x), device=device)
+    return torch.broadcast_to(x, lead).reshape(n)
+
+
 def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
                       block_size: int = 16384, accel=None) -> SphereHit:
     """Closest hit of rays against all spheres.
@@ -62,8 +72,7 @@ def intersect_spheres(origin, direction, t_min, t_max, centers, radii,
     n = origin[..., 0].numel()
 
     def flat(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
-        return torch.broadcast_to(x, lead).reshape(n)
+        return _flat(x, lead, n, origin.device)
 
     rays = pack_rays(origin.reshape(n, 3), direction.reshape(n, 3),
                      flat(t_min), flat(t_max))
@@ -117,8 +126,7 @@ def intersect_spheres_any(origin, direction, t_min, t_max,
     n = origin[..., 0].numel()
 
     def flat(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
-        return torch.broadcast_to(x, lead).reshape(n)
+        return _flat(x, lead, n, origin.device)
 
     rays = pack_rays(origin.reshape(n, 3), direction.reshape(n, 3),
                      flat(t_min), flat(t_max))

@@ -132,7 +132,7 @@ def _face_emissive_avg(em_small, uvs, faces):
         return (((e0 >= 0) & (e1_ >= 0) & (e2_ >= 0))
                 | ((e0 <= 0) & (e1_ <= 0) & (e2_ <= 0)))
 
-    shift = torch.tensor([1.0, 0.0], device=dev)
+    shift = m.const((1.0, 0.0), device=dev)
     # Periodic U: a texel centre counts if it, or a copy one period away,
     # lies inside the canonicalized triangle.
     maskf = (inside(p) | inside(p + shift) | inside(p - shift)).to(
@@ -276,7 +276,7 @@ def prepare(scene: SphereScene) -> Lights:
             emission[safe_cand], top_power[:, None],
             top_cand[:, None].to(torch.float32)], dim=-1)
     empty = torch.zeros_like(compact)
-    empty[:, 8] = -1.0
+    empty[:, 8].fill_(-1.0)
     compact = torch.where(is_light[:, None], compact, empty)
     cdf = torch.cumsum(top_power, dim=0) / torch.clamp(total, min=1e-20)
 

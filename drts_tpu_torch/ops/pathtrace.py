@@ -29,6 +29,7 @@ quarter-size mip.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -95,7 +96,8 @@ class TraceOutput:
     # {"wavefront_overflow_paths": scalar} and, with SHARC, per bounce b
     # "sharc_{hits,queries,gate,entry}_b{b}".
     counters: dict
-    # Overflow spill waves run (the host's decision in _deep_with_spill).
+    # Overflow spill waves run (the host's decision in _spill); a frame
+    # captured as a CUDA graph counts its waves at replay instead.
     spill_waves: int = 0
 
 
@@ -246,7 +248,8 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
             # its own bucket, less one. (A cumsum down the (cap, 9) matrix
             # instead runs the column scan of narrow tensors: 96 ms a frame
             # at 519,168 slots on an H100.)
-            key = torch.cat([octant, octant.new_tensor([8])])[idx]
+            key = torch.cat([octant, torch.full((1,), 8, dtype=octant.dtype,
+                                                device=dev)])[idx]
             masks = key[None, :] == torch.arange(9, device=dev)[:, None]
             counts = torch.cumsum(masks.reshape(-1).to(torch.int32), dim=0,
                                   dtype=torch.int32).reshape(9, cap)
@@ -261,7 +264,8 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
                    else pixel_ids)
             tile = (pix // (w * ts)) * tiles_x + (pix % w) // ts
             key = torch.cat([octant * (tiles_x * tiles_y) + tile,
-                             octant.new_tensor([2 ** 30])])
+                             torch.full((1,), 2 ** 30, dtype=octant.dtype,
+                                        device=dev)])
             _, perm = torch.sort(key[idx], stable=True)
             sort = "key"
         src = src[perm]
@@ -270,12 +274,25 @@ def _compact_slots(act, l_dir_flat, pixel_ids, cfg, cap: int, h: int, w: int,
     idx = torch.clamp(src, max=ns)
 
     def gsel(x_flat, dead):
-        dead = torch.as_tensor(dead, dtype=x_flat.dtype, device=dev)
-        ext = torch.cat([x_flat, dead.reshape((1,) + x_flat.shape[1:])])
-        return ext[idx]
+        """x_flat's rows in slot order; a dead slot takes `dead`: a number,
+        or nested lists or tuples of one row's values (made once, as
+        ``m.const``: nothing is copied from the host in a capture)."""
+        shape = (1,) + x_flat.shape[1:]
+        if isinstance(dead, (list, tuple)):
+            row = m.const(_flatten(dead), x_flat.dtype, dev).reshape(shape)
+        else:
+            row = torch.full(shape, dead, dtype=x_flat.dtype, device=dev)
+        return torch.cat([x_flat, row])[idx]
 
     return {"slot_live": slot_live, "overflow": overflow,
             "mapper": (keep, pos, perm, cap), "gsel": gsel, "sort": sort}
+
+
+def _flatten(values) -> tuple:
+    """Nested lists or tuples of numbers as one flat tuple."""
+    if isinstance(values, (list, tuple)):
+        return sum((_flatten(v) for v in values), ())
+    return (values,)
 
 
 def _slots_to_space(slot_vals, fill, mapper):
@@ -319,12 +336,12 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
     cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3), pixel_ids,
                         cfg, cap, h, w, wave=wave)
     gsel = cs["gsel"]
-    c_origin = gsel(origin.reshape(ns, 3), [[0.0, 0.0, 0.0]])
-    c_dir = gsel(l_dir.reshape(ns, 3), [[0.0, 0.0, 1.0]])
-    c_thr = gsel(throughput.reshape(ns, 3), [[0.0, 0.0, 0.0]])
-    c_rng = gsel(rng.reshape(ns), [0])
-    c_rough = gsel(rough.reshape(ns), [0.0]) if sharc_args else None
-    c_di = (gsel(di_valid.reshape(ns), [False]) if di_valid is not None
+    c_origin = gsel(origin.reshape(ns, 3), 0.0)
+    c_dir = gsel(l_dir.reshape(ns, 3), (0.0, 0.0, 1.0))
+    c_thr = gsel(throughput.reshape(ns, 3), 0.0)
+    c_rng = gsel(rng.reshape(ns), 0)
+    c_rough = gsel(rough.reshape(ns), 0.0) if sharc_args else None
+    c_di = (gsel(di_valid.reshape(ns), False) if di_valid is not None
             else None)
     slot_live = cs["slot_live"]
     c_active = slot_live
@@ -407,31 +424,66 @@ def _trace_deep_compact(scene, table, cfg, origin, l_dir, throughput,
         out["state"] = {"origin": c_origin, "dir": c_dir,
                         "throughput": c_thr, "roughness": c_rough,
                         "rng": c_rng, "active": c_active,
-                        "pixel_ids": gsel(pix, [h * w])}
+                        "pixel_ids": gsel(pix, h * w)}
     return out
+
+
+# The spill decision's hook: None decides in _spill itself. A frame run
+# as CUDA graphs (drts_tpu_torch/graphs.py) sets it, through spill_hook,
+# to end the captured piece at the decision, capture the second wave as a
+# piece of its own and start the next piece: the counterpart of the
+# reference's lax.cond (drts_tpu/ops/pathtrace.py:640-670).
+_SPILL_HOOK = None
+
+
+@contextlib.contextmanager
+def spill_hook(fn):
+    """Route every spill decision made inside the block to
+    fn(overflow, wave1) -> the waves it ran (0 or 1)."""
+    global _SPILL_HOOK
+    prev, _SPILL_HOOK = _SPILL_HOOK, fn
+    try:
+        yield
+    finally:
+        _SPILL_HOOK = prev
+
+
+def _spill(overflow, wave1) -> int:
+    """Run wave1 (the second wave, which merges into the first wave's
+    outputs in place) when the 0-d device count `overflow` is above 0:
+    one host read. Returns the waves run."""
+    if _SPILL_HOOK is not None:
+        return _SPILL_HOOK(overflow, wave1)
+    if overflow.item() > 0:
+        wave1()
+        return 1
+    return 0
 
 
 def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
                      active, start_bounce, accel, cap, sharc_args=None,
                      rough=None, pixel_ids=None, img_hw=None):
     """The terminal deep segment plus, with cfg.overflow_spill and when it
-    overflowed, a second wave over the dropped lanes. The decision is one
-    host read of the overflow count; only paths beyond 2x capacity then
-    drop. The result's "spill_waves" says whether the second wave ran."""
+    overflowed, a second wave over the dropped lanes (``_spill``); only
+    paths beyond 2x capacity then drop. The second wave adds into the
+    first's radiance, rays and counters and replaces its overflow count,
+    in place. The result's "spill_waves" says whether it ran."""
     args = (scene, table, cfg, origin, l_dir, throughput, rng, active,
             start_bounce, accel, cap)
     kw = {"sharc_args": sharc_args, "rough": rough, "pixel_ids": pixel_ids,
           "img_hw": img_hw}
-    seg = dict(_trace_deep_compact(*args, **kw), spill_waves=0)
-    if cfg.overflow_spill and seg["overflow"].item() > 0:
-        s2 = _trace_deep_compact(*args, wave=1, **kw)
-        seg = {"radiance": seg["radiance"] + s2["radiance"],
-               "rays": seg["rays"] + s2["rays"],
-               "overflow": s2["overflow"],
-               "counters": {k: v + s2["counters"][k]
-                            for k, v in seg["counters"].items()},
-               "spill_waves": 1}
-    return seg
+    seg = _trace_deep_compact(*args, **kw)
+    waves = 0
+    if cfg.overflow_spill:
+        def wave1():
+            s2 = _trace_deep_compact(*args, wave=1, **kw)
+            seg["radiance"].add_(s2["radiance"])
+            seg["rays"].add_(s2["rays"])
+            seg["overflow"].copy_(s2["overflow"])
+            for k, v in seg["counters"].items():
+                v.add_(s2["counters"][k])
+        waves = _spill(seg["overflow"], wave1)
+    return dict(seg, spill_waves=waves)
 
 
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
@@ -494,7 +546,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     radiance = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
     is_diffuse = torch.ones((h, w), dtype=torch.bool, device=dev)
     hit_distance = torch.full((h, w), float("inf"), device=dev)
-    rays_traced = torch.tensor(float(h * w), device=dev)
+    rays_traced = torch.full((), float(h * w), device=dev)
     counters = {"wavefront_overflow_paths":
                 torch.zeros((), dtype=torch.float32, device=dev)}
     spill_waves = 0
@@ -667,6 +719,16 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         rays_traced=rays_traced, counters=counters, spill_waves=spill_waves)
 
 
+def trace_image_graph(cfg: PathTraceConfig, plan=None):
+    """The counterpart of the reference's ``trace_image_jit``: a callable
+    ``(scene, cam, frame_index) -> TraceOutput`` that runs the frame as
+    CUDA graph replays, split at the spill decision (``graphs.TraceGraph``;
+    with a Morton cluster `plan`, the headline bench's frame: accel,
+    G-buffer, trace)."""
+    from .. import graphs
+    return graphs.TraceGraph(cfg, plan)
+
+
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                        sharc_state, sharc_cfg, cfg: PathTraceConfig,
                        frame_index, di_radiance=None, accel=None,
@@ -706,9 +768,8 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     jit2, rng = rng_mod.next_floats(rng, 2)
     ndc = camera_mod.pixel_ndc(w, cfg.height, torch.zeros(2, device=dev),
                                rows)
-    jitter_ndc = ((jit2 - 0.5) * torch.tensor([2.0, -2.0], device=dev)
-                  / torch.tensor([w, cfg.height], dtype=torch.float32,
-                                 device=dev))
+    jitter_ndc = ((jit2 - 0.5) * m.const((2.0, -2.0), device=dev)
+                  / m.const((w, cfg.height), device=dev))
     ray_o, ray_d, t_min, t_max = camera_mod.generate_pinhole_rays(
         cam, ndc + jitter_ndc)
     t_min = torch.broadcast_to(t_min, (h, w))
@@ -781,9 +842,9 @@ def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
             cs = _compact_slots(active.reshape(ns), l_dir.reshape(ns, 3),
                                 None, cfg, _compact_capacity(ns, 1), h, w)
             gsel, mapper = cs["gsel"], cs["mapper"]
-            origin = gsel(origin0.reshape(ns, 3), [[0.0, 0.0, 0.0]])
-            l_dir = gsel(l_dir.reshape(ns, 3), [[0.0, 0.0, 1.0]])
-            rng = gsel(rng.reshape(ns), [0])
+            origin = gsel(origin0.reshape(ns, 3), 0.0)
+            l_dir = gsel(l_dir.reshape(ns, 3), (0.0, 0.0, 1.0))
+            rng = gsel(rng.reshape(ns), 0)
             active = cs["slot_live"]
 
     # Backward scan: L_v = E_v + T_v * L_{v+1}, then one splat of all

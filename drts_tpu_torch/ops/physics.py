@@ -130,8 +130,15 @@ def _resolve_contacts(b: RigidBodies, position, velocity,
 def step(b: RigidBodies, dt, earth_gravity=False, star_gravity=False,
          contact_iterations: int = 4) -> RigidBodies:
     """One physics step (PhysX::Tick + MyScene::Tick force pass); dt is
-    clamped to MAX_TIMESTEP (MyScene.ixx:395). Returns the new state."""
-    dt = min(float(dt), MAX_TIMESTEP)
+    clamped to MAX_TIMESTEP (MyScene.ixx:395). `dt` is a number or a 0-d
+    float32 tensor on the bodies' device (a frame captured as a CUDA graph
+    reads it at every replay, as the reference traces it). Returns the new
+    state."""
+    if not isinstance(dt, torch.Tensor):
+        # A fill on the device, not a copy from the host.
+        dt = torch.full((), float(dt), dtype=torch.float32,
+                        device=b.position.device)
+    dt = torch.clamp(dt, max=MAX_TIMESTEP)
     accel = _accelerations(b, earth_gravity, star_gravity)
     dynamic = (b.inv_mass > 0)[:, None]
     velocity = torch.where(dynamic, b.velocity + accel * dt, b.velocity)

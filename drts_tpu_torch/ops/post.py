@@ -91,8 +91,8 @@ def tonemap_hdr10(x, exposure=1.0, paper_white_nits: float = 200.0,
     """HDR10 signal (App.cpp:1737-1744): primaries rotation, paper-white
     scale, ST.2084 encode."""
     v = torch.clamp(x * exposure, min=0.0)
-    mat = torch.tensor(COLOR_ROTATIONS[color_rotation], dtype=v.dtype,
-                       device=v.device)
+    mat = m.const(tuple(map(tuple, COLOR_ROTATIONS[color_rotation])),
+                  v.dtype, v.device)
     v = torch.einsum("...c,rc->...r", v, mat)
     return st2084_encode(v * paper_white_nits)
 

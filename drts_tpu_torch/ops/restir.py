@@ -275,8 +275,8 @@ def build_regir_grid(lights: light_mod.Lights, camera_position,
     return ReGIRGrid(light_index=all_idx, weight=all_w,
                      packed=m.pack2f16(all_idx.to(torch.float32), all_w),
                      origin=origin,
-                     cell_size=torch.tensor(cfg.regir_cell_size,
-                                            dtype=torch.float32, device=dev))
+                     cell_size=m.const(float(cfg.regir_cell_size),
+                                       device=dev))
 
 
 def _cell_of(grid: ReGIRGrid, position, n: int):

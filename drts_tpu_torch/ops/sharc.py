@@ -261,7 +261,8 @@ def splat_levels(state_accum, slots_list, fps_list, radiance_list,
     n0 = slots.shape[0]
     cap_live = n0 if n0 <= 16384 else -(-n0 // 3 // 1024) * 1024
     take, dropped_pre = _compact_rows(slots < capacity, cap_live)
-    slots = torch.cat([slots, slots.new_tensor([capacity])])[take]
+    slots = torch.cat([slots, torch.full((1,), capacity, dtype=slots.dtype,
+                                         device=slots.device)])[take]
     payload = torch.cat([payload, payload.new_zeros((1, 4))])[take]
     fp = torch.cat([fp, fp.new_zeros(1)])[take]
 

@@ -53,8 +53,7 @@ def procedural_sky(direction):
     """ShadingHelpers.hlsli:29 gradient fallback (sRGB-encoded lerp)."""
     t = (direction[..., 1:2] + 1.0) * 0.5
     one = torch.ones(3, dtype=direction.dtype, device=direction.device)
-    top = torch.tensor([0.5, 0.7, 1.0], dtype=direction.dtype,
-                       device=direction.device)
+    top = m.const((0.5, 0.7, 1.0), direction.dtype, direction.device)
     return m.from_srgb(m.lerp(one, top, t))
 
 

@@ -204,7 +204,7 @@ def upscale(state: TAAState, color, motion, jitter, out_h: int, out_w: int,
     # Motion at output size, in output pixels.
     motion_up = post.resize_bilinear(motion, out_h, out_w, (o0, o1), c0,
                                      rh) \
-        * torch.tensor([scale_x, scale_y], dtype=torch.float32, device=dev)
+        * m.const((scale_x, scale_y), device=dev)
     py = torch.arange(o0, o1, dtype=torch.float32, device=dev)[:, None] \
         * torch.ones((1, out_w), dtype=torch.float32, device=dev)
     px = torch.arange(out_w, dtype=torch.float32, device=dev)[None, :] \

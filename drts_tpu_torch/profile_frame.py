@@ -17,14 +17,18 @@ accel.
     python -m drts_tpu_torch.profile_frame
         [--frame | --mesh | --mesh-frame | --default-frame | --upscaled
          | --mesh-pipeline | --textured-frame | --options-frame]
-        [--accel none] [--mesh-cand M] [--frames N] [--out PATH]
+        [--accel none] [--mesh-cand M] [--frames N] [--graph] [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
 launches per frame, each hand-written kernel's device time and calls per
 frame, and the top device kernels by total time. The trace records device
 activity only (no host op tracing); the two frame times show by how much
-it stretches the frame. Needs a CUDA device.
+it stretches the frame. With ``--graph`` (the path trace, ``--frame``,
+``--default-frame``, ``--upscaled``) the frames are CUDA graph replays
+(the warm frame captures them) and the object also holds the host
+launches of the last frame (graph launches, input writes) and the
+callable's stats. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,9 +68,16 @@ def _frames_wall_us(step, frames: int) -> float:
     return (time.perf_counter() - start) * 1e6
 
 
-def _frame_step(recipe: str, device, accel: str = "morton"):
+GRAPH_RECIPES = ("trace_frame", "restir_frame", "default_frame",
+                 "upscaled_frame")
+
+
+def _frame_step(recipe: str, device, accel: str = "morton",
+                graph: bool = False):
     """A function that renders the next frame of the chosen recipe (a
-    sphere frame recipe with `accel` as its accel_mode)."""
+    sphere frame recipe with `accel` as its accel_mode); with `graph`,
+    as CUDA graph replays (the first call captures). Returns (step, the
+    graph callable or None)."""
     frame = [0]
     if recipe == "mesh_frame":
         scene, cam, cfg = bench.make_mesh_setup(device=device)
@@ -74,7 +85,7 @@ def _frame_step(recipe: str, device, accel: str = "morton"):
         def step():
             pathtrace.trace_image(scene, cam, cfg, frame[0])
             frame[0] += 1
-        return step
+        return step, None
     if recipe in ("restir_frame", "mesh_restir_frame", "default_frame",
                   "upscaled_frame", "mesh_pipeline", "textured_frame",
                   "options_frame"):
@@ -94,22 +105,29 @@ def _frame_step(recipe: str, device, accel: str = "morton"):
                                            "mesh_pipeline"), cfg=cfg,
             textured=recipe == "textured_frame")
         box = [state]
+        render = pipe.render_frame_graph() if graph else pipe.render_frame
 
         def step():
-            box[0], _ = pipe.render_frame(box[0], pose)
-        return step
+            box[0], _ = render(box[0], pose)
+        return step, render if graph else None
     setup = bench.make_trace_setup(device=device)
+    traced = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
+              else None)
 
     def step():
-        bench.trace_frame(setup, frame[0])
+        if traced is not None:
+            traced(setup.scene, setup.cam, frame[0])
+        else:
+            bench.trace_frame(setup, frame[0])
         frame[0] += 1
-    return step
+    return step, traced
 
 
 def profile_frames(frames: int = 2, device="cuda",
-                   recipe: str = "trace_frame", accel: str = "morton") -> dict:
-    step = _frame_step(recipe, device, accel)
-    step()                                           # warm
+                   recipe: str = "trace_frame", accel: str = "morton",
+                   graph: bool = False) -> dict:
+    step, graphed = _frame_step(recipe, device, accel, graph)
+    step()                                           # warm (and capture)
     plain_us = _frames_wall_us(step, frames)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall_us = _frames_wall_us(step, frames)
@@ -124,10 +142,10 @@ def profile_frames(frames: int = 2, device="cuda",
         hand[name] = {
             "calls_per_frame": sum(e.count for e in found) / frames,
             "ms_per_frame": sum(_device_us(e) for e in found) / frames / 1e3}
-    return {
+    out = {
         "device": torch.cuda.get_device_name(0),
         "recipe": recipe, "accel": accel, "mesh_cand": trimesh.MESH_CAND,
-        "frames": frames,
+        "graph": graph, "frames": frames,
         "frame_ms_unprofiled": plain_us / frames / 1e3,
         "frame_ms_profiled": wall_us / frames / 1e3,
         "device_busy_ms_per_frame": busy_us / frames / 1e3,
@@ -138,6 +156,11 @@ def profile_frames(frames: int = 2, device="cuda",
                          "ms_per_frame": _device_us(e) / frames / 1e3}
                         for e in top],
     }
+    if graphed is not None:
+        out["graph_host_launches_per_frame"] = \
+            graphed.stats.last_host_launches
+        out["graph_stats"] = graphed.stats.as_dict()
+    return out
 
 
 def main(argv=None):
@@ -165,6 +188,9 @@ def main(argv=None):
                         help="accel_mode of the sphere frame recipes")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES)
+    parser.add_argument("--graph", action="store_true",
+                        help="frames as CUDA graph replays (the path "
+                             "trace, --frame, --default-frame, --upscaled)")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     if args.accel != "morton" and not (args.frame or args.default_frame
@@ -180,8 +206,11 @@ def main(argv=None):
               else "default_frame" if args.default_frame
               else "upscaled_frame" if args.upscaled
               else "restir_frame" if args.frame else "trace_frame")
+    if args.graph and recipe not in GRAPH_RECIPES:
+        parser.error("--graph applies to the path trace, --frame, "
+                     "--default-frame and --upscaled")
     result = profile_frames(args.frames, backend.device("cuda"), recipe,
-                            args.accel)
+                            args.accel, args.graph)
     text = json.dumps(result, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -17,10 +17,15 @@ The reference's settings window changes ~40 GraphicsSettings live
   the host's frame count, the rigid bodies, the scene and the gravity
   toggles.
 
-There is no jit to drop: the port runs its frame eagerly, so the static
-branch rebuilds the pipeline and nothing is compiled again but for the
-CUDA kernels' first build. ``Session`` is what the CLI drives
-(``app.py``: ``--mutate``, ``--watch-settings`` and ``set``).
+By default the port runs its frame eagerly, so the static branch rebuilds
+the pipeline and nothing is compiled again but for the CUDA kernels'
+first build. ``Session(..., graph=True)`` steps through
+``RenderPipeline.render_frame_graph`` instead, the counterpart of the
+reference's jitted step: ``dt``, ``reset``, the poses and the dynamic
+settings are device inputs of the captured frame, and a static or realloc
+change drops the callable, so the next step captures again (lazily, as
+the reference compiles again). ``Session`` is what the CLI drives
+(``app.py``: ``--mutate``, ``--watch-settings``, ``set`` and ``--graph``).
 """
 
 from __future__ import annotations
@@ -95,8 +100,11 @@ class Session:
                  output_width: int | None = None,
                  output_height: int | None = None,
                  host=None, seed: int = 0,
-                 config_overrides: dict | None = None, device="cuda"):
+                 config_overrides: dict | None = None, device="cuda",
+                 graph: bool = False):
         self.settings = settings.check()
+        self.graph = graph
+        self._frame = None      # the graph callable, made at the next step
         self.output_width = output_width
         self.output_height = output_height
         self.config_overrides = dict(config_overrides or {})
@@ -139,6 +147,7 @@ class Session:
 
         old_cfg = self.pipe.cfg
         self.pipe = self._make_pipeline()
+        self._frame = None
         cfg = self.pipe.cfg
         if key in REALLOC_KEYS or cfg.render_width != old_cfg.render_width \
                 or cfg.render_height != old_cfg.render_height:
@@ -198,12 +207,19 @@ class Session:
              dt: float = 1.0 / 60.0,
              prev_pose: pipeline.CameraPose | None = None):
         """Render one frame (a pending history reset applies to it).
-        Returns the (OH, OW, 3) image in [0, 1] on the session's device."""
+        Returns the (OH, OW, 3) image in [0, 1] on the session's device;
+        with ``graph``, the next step rewrites it (and ``state`` the step
+        after): clone what you keep."""
         if pose is None:
             pose = self.default_pose()
         reset = self._pending_reset
         self._pending_reset = False
-        self.state, image = self.pipe.render_frame(
+        render = self.pipe.render_frame
+        if self.graph:
+            if self._frame is None:
+                self._frame = self.pipe.render_frame_graph()
+            render = self._frame
+        self.state, image = render(
             self.state, pose, dt,
             prev_pose=prev_pose if prev_pose is not None else pose,
             reset=reset, dyn=self.dyn)

@@ -7,11 +7,26 @@ function elementwise over the leading axes.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from .. import backend
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values, dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """The tensor of `values` (a number or nested tuples), made once per
+    (values, dtype, device) and then shared: the frame's small constants
+    come from the host only on their first use, so a CUDA graph capture
+    after one eager frame copies nothing from the host. Never write into
+    it."""
+    return _const(values, dtype, torch.device(device))
 
 # ----------------------------------------------------------------------------
 # scalar helpers
@@ -115,8 +130,7 @@ def quat_integrate(q, omega, dt):
 
 
 def quat_conj(q):
-    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
-                            device=q.device)
+    return q * const((-1.0, -1.0, -1.0, 1.0), q.dtype, q.device)
 
 
 def quat_rotate(q, v):
@@ -193,8 +207,8 @@ def calculate_uv(pixel_xy, dims_xy, jitter_xy=0.0):
 
 def calculate_ndc(uv):
     """UV -> NDC: x in [-1,1], y flipped — Math::CalculateNDC."""
-    scale = torch.tensor([2.0, -2.0], dtype=uv.dtype, device=uv.device)
-    bias = torch.tensor([-1.0, 1.0], dtype=uv.dtype, device=uv.device)
+    scale = const((2.0, -2.0), uv.dtype, uv.device)
+    bias = const((-1.0, 1.0), uv.dtype, uv.device)
     return uv * scale + bias
 
 
@@ -229,8 +243,7 @@ _LUMA = (0.2126, 0.7152, 0.0722)
 
 
 def luminance(rgb):
-    return torch.sum(rgb * torch.tensor(_LUMA, dtype=rgb.dtype,
-                                        device=rgb.device), dim=-1)
+    return torch.sum(rgb * const(_LUMA, rgb.dtype, rgb.device), dim=-1)
 
 
 def from_srgb(c):

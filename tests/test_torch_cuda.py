@@ -1936,3 +1936,152 @@ def test_routes_dispatch_on_the_card(dev, monkeypatch):
     assert backend.LAUNCHES["occlusion_morton_mxu"] == 1
     assert backend.LAUNCHES["intersect_morton"] == 0
     assert backend.LAUNCHES["occlusion_morton"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The graph frames (drts_tpu_torch/graphs.py): replays against eager frames.
+
+GRAPH_EYE, GRAPH_TARGET = (0.0, 2.5, -4.0), (0.0, 0.5, 0.0)
+
+
+def graph_setup(dev, cfg):
+    from drts_tpu_torch.models import myscene, pipeline
+    pipe = pipeline.RenderPipeline(cfg, dev)
+    state = pipe.init_state(myscene.build(oscillator_grid=3, device=dev))
+    eye = torch.tensor(GRAPH_EYE)
+    fwd = torch.tensor(GRAPH_TARGET) - eye
+    pose = pipeline.CameraPose(eye.to(dev), (fwd / fwd.norm()).to(dev),
+                               torch.tensor([0.0, 1.0, 0.0]).to(dev))
+    return pipe, state, pose
+
+
+def word_bits(t):
+    return t if t.dtype == torch.bool else t.reshape(-1).view(torch.uint8)
+
+
+def tensor_leaves(tree):
+    from drts_tpu_torch.utils.checkpoint import leaves
+    return [(p, t) for p, t in leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def run_graph_frames(pipe, state, pose, graph, dts, resets=None):
+    """Frames from `state` (images cloned: a graph call rewrites them);
+    returns (the last state, cloned, and the images)."""
+    from drts_tpu_torch import graphs
+    call = pipe.render_frame_graph() if graph else pipe.render_frame
+    images = []
+    for i, dt in enumerate(dts):
+        reset = bool(resets and resets[i])
+        state, img = call(state, pose, dt, reset=reset)
+        images.append(img.clone())
+    return graphs.clone_tree(state), images, call
+
+
+def image_off(a, b, limit=0.05):
+    d = (a.float() - b.float()).abs()
+    return float(d.mean()), float((d.amax(-1) > limit).float().mean())
+
+
+def test_graph_restir_frame_equals_eager(dev):
+    """The ReSTIR frame (no SHARC: no float atomics) at 64x64 through four
+    graph replays (dt and reset changing) equals the eager frames bit for
+    bit: images, every state leaf, the counters."""
+    from drts_tpu_torch import graphs
+    from drts_tpu_torch.models import pipeline
+    pipe, state, pose = graph_setup(dev, pipeline.restir_frame_config(
+        64, 64, 3))
+    dts, resets = (1 / 60, 1 / 120, 1 / 30, 1 / 60), (0, 0, 1, 0)
+    se, ie, _ = run_graph_frames(pipe, state, pose, False, dts, resets)
+    sg, ig, call = run_graph_frames(pipe, state, pose, True, dts, resets)
+    assert call.stats.frames == 4 and len(call.stats.capture_s) == 2
+    for a, b in zip(ie, ig):
+        assert torch.equal(word_bits(a), word_bits(b))
+    for (p, a), (_, b) in zip(tensor_leaves(se),
+                              tensor_leaves(sg)):
+        assert torch.equal(word_bits(a), word_bits(b)), p
+    assert sg.frame_count == se.frame_count == 4
+
+
+def test_graph_default_frame_near_eager(dev):
+    """The default frame (SHARC's splat sums with float atomics) at 64x64,
+    four frames: two eager runs from one start differ by some amount; the
+    graph frames stay within chip_smoke.py's DEFAULT_* bounds of the eager
+    ones and within that run-to-run amount plus those bounds; the bodies
+    (no atomics) equal bit for bit, the counters within 2% + 2."""
+    from drts_tpu_torch.ops import sharc
+    from drts_tpu_torch.models import pipeline
+    cfg = pipeline.PipelineConfig(
+        output_width=64, output_height=64, render_width=64,
+        render_height=64, bounces=3, block_size=4096,
+        sharc=sharc.SHARCConfig(capacity_log2=12))
+    pipe, state, pose = graph_setup(dev, cfg)
+    dts = (1 / 60,) * 4
+    se, ie, _ = run_graph_frames(pipe, state, pose, False, dts)
+    se2, ie2, _ = run_graph_frames(pipe, state, pose, False, dts)
+    sg, ig, call = run_graph_frames(pipe, state, pose, True, dts)
+    for a, a2, b in zip(ie, ie2, ig):
+        spread = image_off(a, a2)
+        mean, off = image_off(a, b)
+        assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
+            mean, off, spread)
+    assert torch.equal(sg.bodies.position, se.bodies.position)
+    for k, v in se.counters.items():
+        g = float(sg.counters[k])
+        assert abs(g - float(v)) <= 0.02 * max(abs(float(v)), abs(g)) + 2, k
+    assert call.stats.frames == 4
+
+
+def test_graph_dt_reaches_the_physics(dev):
+    """Each replay reads the call's dt: the graph frames' bodies equal the
+    eager frames' bit for bit under a changing dt and move otherwise than
+    under a fixed one."""
+    from drts_tpu_torch.models import pipeline
+    pipe, state, pose = graph_setup(dev, pipeline.restir_frame_config(
+        32, 32, 2))
+    dts = (1 / 60, 1 / 240, 1 / 30, 1 / 100)
+    se, _, _ = run_graph_frames(pipe, state, pose, False, dts)
+    sg, _, _ = run_graph_frames(pipe, state, pose, True, dts)
+    sf, _, _ = run_graph_frames(pipe, state, pose, True, (1 / 60,) * 4)
+    for name in ("position", "velocity", "rotation"):
+        assert torch.equal(getattr(sg.bodies, name),
+                           getattr(se.bodies, name)), name
+    assert not torch.equal(sg.bodies.position, sf.bodies.position)
+
+
+def test_graph_session_resume_equals_eager_resume(dev, tmp_path):
+    """A checkpoint of three eager Session frames, resumed by an eager
+    Session and by Session(graph=True): three more frames each (a static
+    set before the last), images within the DEFAULT_* bounds plus the
+    run-to-run spread of two eager resumes, the host frame count equal."""
+    from drts_tpu_torch import session
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.utils import checkpoint
+
+    def make(graph=False):
+        return session.Session(_shell_settings(),
+                               host=myscene.build(oscillator_grid=3,
+                                                  device=dev),
+                               device=dev, graph=graph)
+    first = make()
+    for _ in range(3):
+        first.step()
+    checkpoint.save_rotating(first.state, str(tmp_path))
+    runs = []
+    for graph in (False, False, True):
+        s = make(graph)
+        s.state, ok = checkpoint.resume_or_init(s.pipe, str(tmp_path),
+                                                s.host)
+        assert ok and s.state.frame_count == 3
+        images = []
+        for i in range(3):
+            if i == 2:
+                assert s.set("raytracing.bounces", "2") == "static"
+            images.append(s.step().clone())
+        runs.append((s.state.frame_count, images))
+    (c0, e0), (_, e1), (cg, g) = runs
+    assert c0 == cg == 6
+    for a, a2, b in zip(e0, e1, g):
+        spread = image_off(a, a2)
+        mean, off = image_off(a, b)
+        assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
+            mean, off, spread)
