@@ -342,6 +342,20 @@ Phases, one printed line or more each; any failure exits non-zero:
    (graph launches and input writes; one host read besides), the kernel
    launches a frame eager and captured, the capture seconds and the peak
    device memory.
+26. graphs: the compiled mesh frames, as phase 25 on the all-mesh scene.
+   (a) bench_mesh's frame (bench.make_mesh_setup: 1080p, 8 bounces, 438
+   instances of a 512-face geosphere) eager and through
+   pathtrace.trace_image_graph at MESH_CAND 1 (B5, B6, B7, B11) and 2
+   (B10, B7, B11): the radiance bit for bit; (b) the all-mesh ReSTIR
+   frame (physics, no SHARC): images bit for bit; (c) the all-mesh
+   pipeline (bench.mesh_pipeline_config: 960x540 to 1080p,
+   compact_from=1 with the bounce-1 segment in partition mode, SHARC,
+   ReBLUR, TAA): images within DEFAULT_MEAN and DEFAULT_OFF_SHARE plus
+   two eager runs' spread. Each over GRAPH_FRAMES frames eager and
+   through the graph; each eager frame's launches of B4-B11 equal to its
+   variant's captured launches plus its spill waves'; each part's
+   replays launch every kernel of its path and none of B1, B2, B3. Each
+   prints ms, host launches, capture seconds and peak memory.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -390,7 +404,10 @@ more ("...@graph") with the launches the default frame's graph replays
 made in phase 25 (a) (the capture's counts a frame, by cadence phase and
 spill wave) and the max_abs_err, times and bounds of "...@default": the
 script times no kernel inside a replayed graph (``profile_frame --graph``
-traces their device times there).
+traces their device times there); and B4-B11 once more
+("...@mesh_graph") with the launches all of phase 26's replays made (the
+captures' counts) and the readings of "@mesh" (B5, B6, B7, B11: phase
+8; B10: phase 12) and "@mesh_pipeline" (B4, B8, B9: phase 16).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5-B10 count their culled walks and B11 its staged rows and
@@ -4217,9 +4234,9 @@ def spread(ms):
             f"max={max(ms)!r}")
 
 
-def eager_frames(backend, pathtrace, step, frames):
+def eager_frames(backend, pathtrace, step, frames, kernels=GRAPH_KERNELS):
     """`frames` eager frames through step(); returns (each frame's
-    launches of GRAPH_KERNELS, each frame's spill waves, the images)."""
+    launches of `kernels`, each frame's spill waves, the images)."""
     launches, waves, images = [], [], []
     for _ in range(frames):
         before = dict(backend.LAUNCHES)
@@ -4234,19 +4251,20 @@ def eager_frames(backend, pathtrace, step, frames):
         with pathtrace.spill_hook(decide):
             images.append(step().clone())
         launches.append({k: backend.LAUNCHES[k] - before[k]
-                         for k in GRAPH_KERNELS})
+                         for k in kernels})
         waves.append(sum(ran))
     return launches, waves, images
 
 
-def graph_launches_check(label, call, phases, eager_launches, eager_waves):
-    """Each eager frame's launches of GRAPH_KERNELS against its cadence
+def graph_launches_check(label, call, phases, eager_launches, eager_waves,
+                         kernels=GRAPH_KERNELS):
+    """Each eager frame's launches of `kernels` against its cadence
     phase's captured frame plus its spill waves' captured launches."""
     for i, (got, waves) in enumerate(zip(eager_launches, eager_waves)):
         cap = call.stats.captured_launches[phases[i]]
         want = {k: cap["frame"].get(k, 0)
                 + sum(sp.get(k, 0) for sp in cap["spill_waves"][:waves])
-                for k in GRAPH_KERNELS}
+                for k in kernels}
         if want != got:
             raise AssertionError(f"graph {label}: frame {i}'s capture "
                                  f"holds {want}, the eager frame launched "
@@ -4259,15 +4277,16 @@ def image_spread(a, b):
 
 
 def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
-                       patch=None):
+                       patch=None, mesh=False, kernels=GRAPH_KERNELS):
     """Phase 25 (a): a pipeline frame (`patch` edits its path-trace
-    config) from one start: GRAPH_FRAMES eager frames twice and through
-    render_frame_graph once. Checks the images (bit for bit without
-    SHARC; with it, within DEFAULT_* plus the eager run-to-run spread),
-    each frame's launches against its phase's capture, the spill waves.
-    Returns (the graph callable's stats, eager ms, graph ms, eager and
-    graph peak memory)."""
-    pipe, s0, pose = bench.make_frame_setup(cfg=cfg, device=dev)
+    config; `mesh`: on the all-mesh scene, phase 26 (b) and (c)) from one
+    start: GRAPH_FRAMES eager frames twice and through render_frame_graph
+    once. Checks the images (bit for bit without SHARC; with it, within
+    DEFAULT_* plus the eager run-to-run spread), each frame's launches of
+    `kernels` against its phase's capture, the spill waves. Returns (the
+    graph callable's stats, eager ms, graph ms, eager and graph peak
+    memory)."""
+    pipe, s0, pose = bench.make_frame_setup(cfg=cfg, device=dev, mesh=mesh)
     if patch is not None:
         base = pipe._pt_cfg
         pipe._pt_cfg = lambda: dataclasses.replace(base(), **patch)
@@ -4280,7 +4299,8 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
     for _ in range(2):
         box[0] = s0
         torch.cuda.reset_peak_memory_stats()
-        runs.append(eager_frames(backend, pathtrace, eager, GRAPH_FRAMES))
+        runs.append(eager_frames(backend, pathtrace, eager, GRAPH_FRAMES,
+                                 kernels))
     eager_peak = torch.cuda.max_memory_allocated()
     box[0] = s0
     eager_ms = frame_marks(eager, GRAPH_FRAMES)
@@ -4297,7 +4317,7 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
     graph_peak = torch.cuda.max_memory_allocated()
     (e_launch, e_waves, e_img), (_, e_waves2, e_img2) = runs
     phases = [f % call.cycle for f in range(GRAPH_FRAMES)]
-    graph_launches_check(label, call, phases, e_launch, e_waves)
+    graph_launches_check(label, call, phases, e_launch, e_waves, kernels)
     g_waves = call.stats.spill_waves
     worst = (0.0, 0.0)
     for i, (a, a2, b) in enumerate(zip(e_img, e_img2, graph_images)):
@@ -4332,28 +4352,32 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
     return call.stats, eager_ms, graph_ms, eager_peak, graph_peak
 
 
-def run_graph_trace(backend, bench, pathtrace, smi, dev):
-    """Phase 25 (b): the headline frame (accel, G-buffer, trace) eager and
-    through trace_image_graph, GRAPH_FRAMES each from frame 1 on: the
-    radiance, rays and overflow bit for bit, the launches against the
-    capture, the spill waves."""
-    setup = bench.make_trace_setup(device=dev)
-    call = pathtrace.trace_image_graph(setup.cfg, setup.plan)
+def run_graph_trace(backend, pathtrace, smi, dev, label, eager_frame, call,
+                    scene, cam, kernels=GRAPH_KERNELS):
+    """Phase 25 (b) and 26 (a): a trace frame eager (eager_frame(index
+    tensor) -> TraceOutput) and through the trace_image_graph callable
+    `call` on (scene, cam), GRAPH_FRAMES each from frame 1 on: the
+    radiance bit for bit, each eager frame's launches of `kernels`
+    against the capture plus its spill waves', the spill waves. Returns
+    the callable's stats."""
     idx = [1]
 
     def eager():
-        out = bench.trace_frame(setup, torch.tensor(idx[0], device=dev))
+        out = eager_frame(torch.tensor(idx[0], device=dev))
         idx[0] += 1
         return out.radiance
 
     def graph():
-        out = call(setup.scene, setup.cam, idx[0])
+        out = call(scene, cam, idx[0])
         idx[0] += 1
         return out
-    bench.trace_frame(setup, torch.tensor(0, device=dev))   # warm
+    torch.cuda.reset_peak_memory_stats()
+    eager_frame(torch.tensor(0, device=dev))   # warm
     e_launch, e_waves, e_img = eager_frames(backend, pathtrace, eager,
-                                            GRAPH_FRAMES)
+                                            GRAPH_FRAMES, kernels)
+    eager_peak = torch.cuda.max_memory_allocated()
     idx[0] = 1
+    torch.cuda.reset_peak_memory_stats()
     g_img = []
     for _ in range(GRAPH_FRAMES):
         g_img.append(graph().radiance.clone())
@@ -4361,23 +4385,25 @@ def run_graph_trace(backend, bench, pathtrace, smi, dev):
     eager_ms = frame_marks(eager, GRAPH_FRAMES)
     idx[0] = 1
     graph_ms = frame_marks(graph, GRAPH_FRAMES)
-    graph_launches_check("headline", call, [0] * GRAPH_FRAMES, e_launch,
-                         e_waves)
+    graph_peak = torch.cuda.max_memory_allocated()
+    graph_launches_check(label, call, [0] * GRAPH_FRAMES, e_launch, e_waves,
+                         kernels)
     for i, (a, b) in enumerate(zip(e_img, g_img)):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError(f"graph headline: frame {i + 1}'s "
+            raise AssertionError(f"graph {label}: frame {i + 1}'s "
                                  f"radiance differs from the eager frame's "
                                  f"({float((a - b).abs().max())!r})")
-    log(f"graph headline: 1920x1080 bounces=8 frames={GRAPH_FRAMES} "
+    log(f"graph {label}: 1920x1080 bounces=8 frames={GRAPH_FRAMES} "
         f"eager_ms {spread(eager_ms)} graph_ms {spread(graph_ms)} "
         f"host_launches_per_graph_frame="
         f"{call.stats.last_host_launches} eager_kernel_launches_per_frame="
         f"{json.dumps(e_launch[0])} captured="
         f"{json.dumps(call.stats.captured_launches)} "
         f"capture_s={json.dumps(call.stats.capture_s)} spill_waves eager="
-        f"{sum(e_waves)} graph={call.stats.spill_waves} | {smi}")
+        f"{sum(e_waves)} graph={call.stats.spill_waves} "
+        f"peak_bytes eager={eager_peak} graph={graph_peak} | {smi}")
     if call.stats.spill_waves != 2 * sum(e_waves):
-        raise AssertionError("graph headline: spill waves differ")
+        raise AssertionError(f"graph {label}: spill waves differ")
     return call.stats
 
 
@@ -4390,7 +4416,12 @@ def run_graphs(backend, bench, pathtrace, smi, dev):
     stats, *_ = run_graph_pipeline(backend, bench, pathtrace, smi, dev,
                                    "default frame",
                                    bench.default_frame_config())
-    run_graph_trace(backend, bench, pathtrace, smi, dev)
+    setup = bench.make_trace_setup(device=dev)
+    run_graph_trace(backend, pathtrace, smi, dev, "headline",
+                    lambda index: bench.trace_frame(setup, index),
+                    pathtrace.trace_image_graph(setup.cfg, setup.plan),
+                    setup.scene, setup.cam)
+    del setup
     forced, *_ = run_graph_pipeline(
         backend, bench, pathtrace, smi, dev, "forced-spill default frame",
         bench.default_frame_config(),
@@ -4406,6 +4437,85 @@ def run_graphs(backend, bench, pathtrace, smi, dev):
             raise AssertionError(f"graph: {name} was not launched inside "
                                  f"the default frame's graph")
     return {f"{name}@graph": stats.launches[name] for name in GRAPH_KERNELS}
+
+
+# Phase 26: the compiled mesh frames. The kernels their entries carry
+# (B4-B11), the closest-hit forms the mesh trace runs in (trimesh.
+# MESH_CAND: 1 the candidate loop, B5 and B6; 2 the fused loop, B10), the
+# kernels each part's replays must launch, and the readings each
+# "...@mesh_graph" entry carries (phases 8, 12 and 16).
+MESH_GRAPH_KERNELS = ("reproject_packed", "bound_scan", "shared_blas_sweep",
+                      "intersect_mesh_instances", "shared_blas_any",
+                      "intersect_mesh_instances_any", "cand_fused",
+                      "intersect_brute")
+MESH_GRAPH_CANDS = (1, 2)
+MESH_GRAPH_NEEDS = {
+    "mesh trace 1": ("bound_scan", "shared_blas_sweep",
+                     "intersect_mesh_instances", "intersect_brute"),
+    "mesh trace 2": ("cand_fused", "intersect_mesh_instances",
+                     "intersect_brute"),
+    "all-mesh restir frame": ("reproject_packed", "bound_scan",
+                              "shared_blas_sweep", "intersect_mesh_instances",
+                              "shared_blas_any",
+                              "intersect_mesh_instances_any",
+                              "intersect_brute"),
+    "all-mesh pipeline": ("reproject_packed", "bound_scan",
+                          "shared_blas_sweep", "intersect_mesh_instances",
+                          "shared_blas_any", "intersect_mesh_instances_any",
+                          "intersect_brute")}
+MESH_GRAPH_READINGS = {
+    "reproject_packed": "reproject_packed@mesh_pipeline",
+    "bound_scan": "bound_scan", "shared_blas_sweep": "shared_blas_sweep",
+    "intersect_mesh_instances": "intersect_mesh_instances",
+    "shared_blas_any": "shared_blas_any@mesh_pipeline",
+    "intersect_mesh_instances_any":
+        "intersect_mesh_instances_any@mesh_pipeline",
+    "cand_fused": "cand_fused@mesh_fused",
+    "intersect_brute": "intersect_brute@mesh"}
+
+
+def run_mesh_graphs(backend, bench, pathtrace, trimesh, smi, dev):
+    """Phase 26: the mesh frames as CUDA graph replays against eager frames:
+    (a) bench_mesh's frame (1080p, 8 bounces, 438 instances of a 512-face
+    geosphere) at each MESH_CAND of MESH_GRAPH_CANDS through
+    run_graph_trace, (b) the all-mesh ReSTIR frame (bit for bit: no SHARC)
+    and (c) the all-mesh pipeline (SHARC: within DEFAULT_* plus the eager
+    spread) through run_graph_pipeline. Each part's replays must launch
+    the kernels of MESH_GRAPH_NEEDS. Returns the launches of
+    MESH_GRAPH_KERNELS all the replays made, from the captures."""
+    stats = {}
+    scene, cam, cfg = bench.make_mesh_setup(device=dev)
+    old = trimesh.MESH_CAND
+    try:
+        for cand in MESH_GRAPH_CANDS:
+            trimesh.MESH_CAND = cand
+            stats[f"mesh trace {cand}"] = run_graph_trace(
+                backend, pathtrace, smi, dev, f"mesh trace {cand}",
+                lambda index: pathtrace.trace_image(scene, cam, cfg, index),
+                pathtrace.trace_image_graph(cfg), scene, cam,
+                MESH_GRAPH_KERNELS)
+    finally:
+        trimesh.MESH_CAND = old
+    del scene, cam
+    for label, cfg in (
+            ("all-mesh restir frame", bench.pipeline.restir_frame_config()),
+            ("all-mesh pipeline", bench.mesh_pipeline_config())):
+        stats[label], *_ = run_graph_pipeline(
+            backend, bench, pathtrace, smi, dev, label, cfg, mesh=True,
+            kernels=MESH_GRAPH_KERNELS)
+    for label, needs in MESH_GRAPH_NEEDS.items():
+        for name in needs:
+            if stats[label].launches.get(name, 0) <= 0:
+                raise AssertionError(f"graph: {name} was not launched inside "
+                                     f"the {label}'s graphs")
+    for label, st in stats.items():
+        for name in ("intersect_morton", "occlusion_morton",
+                     "initial_light_candidates"):
+            if st.launches.get(name, 0):
+                raise AssertionError(f"graph: {name} ran in the {label}")
+    return {f"{name}@mesh_graph": sum(st.launches.get(name, 0)
+                                      for st in stats.values())
+            for name in MESH_GRAPH_KERNELS}
 
 
 def main():
@@ -4917,6 +5027,14 @@ def main():
     launches.update(run_graphs(backend, bench, pathtrace, smi, dev))
     log(f"graphs: phase 25 took {time.perf_counter() - t0:.1f} s")
 
+    # 26. the compiled mesh frames: the mesh trace, the all-mesh ReSTIR
+    # frame and the all-mesh pipeline as CUDA graph replays against eager
+    # frames ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    launches.update(run_mesh_graphs(backend, bench, pathtrace, trimesh, smi,
+                                    dev))
+    log(f"mesh graphs: phase 26 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -5059,6 +5177,8 @@ def main():
                                 "drts_tpu/ops/intersect_pallas.py:716"),
     }
     rows.update({f"{name}@graph": rows[name] for name in GRAPH_KERNELS})
+    rows.update({f"{name}@mesh_graph": rows[reading]
+                 for name, reading in MESH_GRAPH_READINGS.items()})
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
         "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"],
@@ -5073,6 +5193,9 @@ def main():
     # its entries carry the @default readings (see the docstring).
     for name in GRAPH_KERNELS:
         fields[f"{name}@graph"] = fields[f"{name}@default"]
+    # Likewise the mesh graph frames: the @mesh and @mesh_pipeline readings.
+    for name, reading in MESH_GRAPH_READINGS.items():
+        fields[f"{name}@mesh_graph"] = fields[reading]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

@@ -80,16 +80,17 @@ that fails lands in "errors" and the process exits 1 after printing the
 line. Each bench's launches, frames and spill waves go to stderr.
 ``--iters`` does not apply to the record.
 
-``--graph`` runs the path trace, ``--frame``, ``--default-frame`` or
-``--upscaled`` as CUDA graph replays (``pathtrace.trace_image_graph``,
+``--graph`` runs the path trace, ``--frame``, ``--default-frame``,
+``--upscaled``, ``--mesh`` (at its ``--mesh-cand``), ``--mesh-frame`` or
+``--mesh-pipeline`` as CUDA graph replays (``pathtrace.trace_image_graph``,
 ``RenderPipeline.render_frame_graph``): the warm frame captures, the timed
 frames replay; passes_ms stays the eager frames' stage times. The frame
-lines also carry each timed frame's ms between CUDA events at the frame
-boundaries (frame_ms_each, frame_ms_median) and the peak device memory,
-and with ``--graph`` the callable's stats (capture seconds, host
-launches, the kernels' launches the replays made, spill waves); the path
-trace's line keeps the reference's keys without ``--graph`` and notes
-those on stderr.
+and mesh lines also carry each timed frame's ms between CUDA events at
+the frame boundaries (frame_ms_each, frame_ms_median) and the peak
+device memory, and with ``--graph`` the callable's stats (capture
+seconds, host launches, the kernels' launches the replays made, spill
+waves); the path trace's line keeps the reference's keys without
+``--graph`` and notes those on stderr.
 
     python -m drts_tpu_torch.bench [--iters N]
     DRTS_MXU_KERNEL=1 python -m drts_tpu_torch.bench --frame [--iters N]
@@ -103,7 +104,8 @@ those on stderr.
     python -m drts_tpu_torch.bench --options-frame [--accel none] [--iters N]
     python -m drts_tpu_torch.bench --frame --accel none [--iters N]
     python -m drts_tpu_torch.bench --record [--fast]
-    python -m drts_tpu_torch.bench [--frame | --default-frame | --upscaled]
+    python -m drts_tpu_torch.bench [--frame | --default-frame | --upscaled
+        | --mesh [--mesh-cand M] | --mesh-frame | --mesh-pipeline]
         --graph [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
@@ -240,25 +242,11 @@ def _timing(device, marks, graph_stats) -> dict:
     return out
 
 
-def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
-                spp: int = 1, iters: int = 8, device="cuda",
-                load_textures: bool = False, graph: bool = False):
-    """One warm frame, then `iters` timed frames; with `graph`, each frame
-    a replay of ``pathtrace.trace_image_graph`` (the warm frame captures
-    it). Returns (stats, the last frame's TraceOutput); stats has mray_s,
-    frame_ms, rays_per_frame, overflow_paths (of the last frame), frames,
-    the spill waves of all of them, each timed frame's ms (CUDA events
-    at the frame boundaries), the peak device memory and, with `graph`,
-    the callable's stats (captures, launches, host launches)."""
-    setup = make_trace_setup(width, height, bounces, spp, device=device,
-                             load_textures=load_textures)
-    graphed = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
-               else None)
-
-    def frame(i):
-        if graphed is not None:
-            return graphed(setup.scene, setup.cam, i)
-        return trace_frame(setup, i)
+def _timed_traces(frame, iters: int, device, graphed):
+    """frame(0) warm, then `iters` timed frames frame(1..iters), each
+    returning a TraceOutput; `graphed` is the graph callable behind
+    frame or None. Returns (stats, the last TraceOutput) as bench_trace
+    describes them."""
     _reset_peak(device)
     out = frame(0)
     _sync(device)
@@ -284,6 +272,28 @@ def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
     return stats, out
 
 
+def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
+                spp: int = 1, iters: int = 8, device="cuda",
+                load_textures: bool = False, graph: bool = False):
+    """One warm frame, then `iters` timed frames; with `graph`, each frame
+    a replay of ``pathtrace.trace_image_graph`` (the warm frame captures
+    it). Returns (stats, the last frame's TraceOutput); stats has mray_s,
+    frame_ms, rays_per_frame, overflow_paths (of the last frame), frames,
+    the spill waves of all of them, each timed frame's ms (CUDA events
+    at the frame boundaries), the peak device memory and, with `graph`,
+    the callable's stats (captures, launches, host launches)."""
+    setup = make_trace_setup(width, height, bounces, spp, device=device,
+                             load_textures=load_textures)
+    graphed = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
+               else None)
+
+    def frame(i):
+        if graphed is not None:
+            return graphed(setup.scene, setup.cam, i)
+        return trace_frame(setup, i)
+    return _timed_traces(frame, iters, device, graphed)
+
+
 def make_mesh_setup(width: int = 1920, height: int = 1080, tess: int = 4,
                     bounces: int = 8, oscillator_grid: int = 10,
                     device="cuda"):
@@ -303,32 +313,20 @@ def make_mesh_setup(width: int = 1920, height: int = 1080, tess: int = 4,
 
 def bench_mesh(width: int = 1920, height: int = 1080, tess: int = 4,
                bounces: int = 8, iters: int = 4, oscillator_grid: int = 10,
-               device="cuda"):
-    """One warm mesh frame, then `iters` timed frames. Returns (stats, the
-    last frame's TraceOutput); stats has mray_s, frame_ms, rays_per_frame,
-    overflow_paths (of the last frame), frames and the spill waves of all
-    of them."""
+               device="cuda", graph: bool = False):
+    """One warm mesh frame, then `iters` timed frames; with `graph`, each
+    frame a replay of ``pathtrace.trace_image_graph`` (the warm frame
+    captures it, with the mesh globals of that moment). Returns (stats,
+    the last frame's TraceOutput) with bench_trace's keys."""
     scene, cam, cfg = make_mesh_setup(width, height, tess, bounces,
                                       oscillator_grid, device=device)
-    out = pathtrace.trace_image(scene, cam, cfg, 0)
-    _sync(device)
-    rays_per_frame = float(out.rays_traced)
-    spill_waves = out.spill_waves
-    start = time.perf_counter()
-    for i in range(iters):
-        out = pathtrace.trace_image(scene, cam, cfg, i + 1)
-        spill_waves += out.spill_waves
-    _sync(device)
-    elapsed = time.perf_counter() - start
-    stats = {
-        "mray_s": rays_per_frame * iters / elapsed / 1e6,
-        "frame_ms": elapsed / iters * 1e3,
-        "rays_per_frame": rays_per_frame,
-        "overflow_paths": float(
-            out.counters["wavefront_overflow_paths"]),
-        "frames": 1 + iters, "spill_waves": spill_waves,
-    }
-    return stats, out
+    graphed = pathtrace.trace_image_graph(cfg) if graph else None
+
+    def frame(i):
+        if graphed is not None:
+            return graphed(scene, cam, i)
+        return pathtrace.trace_image(scene, cam, cfg, i)
+    return _timed_traces(frame, iters, device, graphed)
 
 
 def default_frame_config(upscaled: bool = False, **overrides):
@@ -753,7 +751,8 @@ def main(argv=None):
                              "MESH_CAND)")
     parser.add_argument("--graph", action="store_true",
                         help="each frame as CUDA graph replays (the path "
-                             "trace, --frame, --default-frame, --upscaled)")
+                             "trace, --frame, --default-frame, --upscaled, "
+                             "--mesh, --mesh-frame, --mesh-pipeline)")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
     if args.accel != "morton" and not sphere_frame:
@@ -761,11 +760,11 @@ def main(argv=None):
                      "--options-frame")
     if args.fast and not args.record:
         parser.error("--fast applies to --record")
-    if args.graph and (args.record or args.mesh or args.mesh_frame
-                       or args.mesh_pipeline or args.textured_frame
+    if args.graph and (args.record or args.textured_frame
                        or args.options_frame or args.accel != "morton"):
         parser.error("--graph applies to the path trace, --frame, "
-                     "--default-frame and --upscaled")
+                     "--default-frame, --upscaled, --mesh, --mesh-frame "
+                     "and --mesh-pipeline")
     if args.record and (sphere_frame or args.mesh or args.mesh_frame
                         or args.upscaled or args.mesh_pipeline
                         or args.textured_frame
@@ -791,7 +790,8 @@ def main(argv=None):
     trimesh.MESH_CAND = args.mesh_cand
     if args.mesh:
         backend.reset_launches()
-        stats, out = bench_mesh(iters=args.iters, device=dev)
+        stats, out = bench_mesh(iters=args.iters, device=dev,
+                                graph=args.graph)
         if not bool(torch.isfinite(out.radiance).all()):
             raise RuntimeError("non-finite radiance")
         print(json.dumps({
@@ -801,6 +801,9 @@ def main(argv=None):
             "rays_per_frame": int(stats["rays_per_frame"]),
             "overflow_paths": stats["overflow_paths"],
             "frames": args.iters + 1, "mesh_cand": args.mesh_cand,
+            **{k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
+                                     "peak_memory_bytes", "graph",
+                                     "spill_waves") if k in stats},
             "launches": dict(backend.LAUNCHES),
             "device": device_name(dev),
         }), flush=True)

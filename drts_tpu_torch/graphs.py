@@ -27,6 +27,13 @@ Graphs that share a memory pool are captured in the order they replay
 an earlier one freed, so outputs that must live between replays (the next
 phase's state) are kept alive by the callers.
 
+A mesh frame (an all-mesh scene, ``myscene.as_mesh_scene``) builds its
+instance tables on every call, inside the capture, and reads four module
+globals when it runs: the closest-hit form, the candidate rounds and B9's
+sparse threshold. A capture bakes them in, so a callable records them at
+its first mesh frame and raises ValueError when a later call finds one
+changed (``MeshChoices``).
+
 On CPU tensors ``run_pieces`` runs the same function eagerly with the
 same read between the same pieces, so that the CPU tests walk the code the
 capture records. ``PIECE_MODE`` is the tests' seam: a factory of a context
@@ -42,7 +49,8 @@ import time
 import torch
 
 from . import backend
-from .ops import pathtrace
+from .ops import pathtrace, trimesh
+from .ops import trimesh_kernels as tk
 from .parallel import mesh as mesh_mod
 from .utils.checkpoint import leaves
 
@@ -58,6 +66,35 @@ def on_card(device: torch.device) -> bool:
 class CaptureError(RuntimeError):
     """A frame that cannot be captured (a host read or a host-made tensor
     inside it, or any other CUDA capture fault)."""
+
+
+class MeshChoices:
+    """A callable's record of the module globals a mesh frame reads when
+    it runs, which a capture bakes into its launches: the closest-hit form
+    (``trimesh.MESH_CAND``), the closest and any-hit candidate rounds
+    (``trimesh_kernels.CAND_ROUNDS``, ``ANY_ROUNDS``) and B9's sparse-block
+    threshold (``trimesh_kernels.B9_SPARSE_LIVE``). Taken at the first
+    frame on a scene with mesh instances (the capture, on the card); a
+    later call that finds one changed raises ValueError, since the graphs
+    would replay the old choice."""
+
+    def __init__(self):
+        self.seen = None
+
+    def check(self, scene) -> None:
+        if scene.mesh_instances is None:
+            return
+        now = {"trimesh.MESH_CAND": trimesh.MESH_CAND,
+               "trimesh_kernels.CAND_ROUNDS": tk.CAND_ROUNDS,
+               "trimesh_kernels.ANY_ROUNDS": tk.ANY_ROUNDS,
+               "trimesh_kernels.B9_SPARSE_LIVE": tk.B9_SPARSE_LIVE}
+        if self.seen is None:
+            self.seen = now
+            return
+        for name, was in self.seen.items():
+            if now[name] != was:
+                raise ValueError(f"{name} is {now[name]!r}, the captured "
+                                 f"frame's {was!r}; make a new callable")
 
 
 def run_pieces(fn):
@@ -284,8 +321,9 @@ class TraceGraph:
     frame_index) -> TraceOutput``. With a Morton cluster `plan` the frame
     is the headline bench's (``bench.trace_frame``: the accel ordered
     from the camera, the G-buffer, the trace); without, ``trace_image``
-    alone. The frame index reaches the hash RNG as a device input, so
-    every replay draws its own frame's noise.
+    alone (on an all-mesh scene, ``bench_mesh``'s frame; its mesh globals
+    are held as ``MeshChoices`` says). The frame index reaches the hash
+    RNG as a device input, so every replay draws its own frame's noise.
 
     On CUDA tensors the first call warms up and captures the frame
     (graphs.py), and every call writes its inputs (the scene and camera
@@ -299,6 +337,7 @@ class TraceGraph:
         self.stats = GraphStats()
         self._inputs = None
         self._frame = None
+        self._mesh = MeshChoices()
 
     def _run(self, scene, cam, frame_index):
         if self.plan is None:
@@ -316,14 +355,12 @@ class TraceGraph:
 
     def __call__(self, scene, cam, frame_index):
         from .models import clusters
-        for bad, why in ((scene.mesh is not None
-                          or scene.mesh_instances is not None,
-                          "a mesh scene"),
-                         (scene.textures is not None, "a textured scene"),
+        for bad, why in ((scene.textures is not None, "a textured scene"),
                          (clusters._USE_MXU,
                           "the MXU route (DRTS_MXU_KERNEL)")):
             if bad:
                 raise ValueError(f"no graph form of this frame yet: {why}")
+        self._mesh.check(scene)
         dev = scene.center.device
         index = frame_index
         if not isinstance(index, torch.Tensor):

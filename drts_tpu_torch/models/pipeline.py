@@ -916,12 +916,11 @@ class RenderPipeline:
 def graph_refusal(cfg: PipelineConfig, scene) -> str | None:
     """Why a frame of `cfg` on `scene` has no graph form yet, or None: the
     graphs hold the sphere frames (``PipelineConfig()``, the settings'
-    default frame, the ReSTIR frame); the mesh, textured and options
-    frames and the MXU route stay eager for now."""
+    default frame, the ReSTIR frame) and the all-mesh frames (the all-mesh
+    ReSTIR frame, ``bench.mesh_pipeline_config``); the textured and
+    options frames and the MXU route stay eager for now."""
     r = cfg.restir
     for bad, why in (
-            (scene.mesh is not None or scene.mesh_instances is not None,
-             "a mesh scene"),
             (scene.textures is not None, "a textured scene"),
             (cfg.accel_mode != "morton", f"accel_mode={cfg.accel_mode!r}"),
             (clusters._USE_MXU, "the MXU route (DRTS_MXU_KERNEL)"),
@@ -962,9 +961,10 @@ class FrameGraph:
 
     On CPU tensors a call runs the eager frame with the same inputs as
     the pieces the capture would make (``graphs.run_pieces``). Raises
-    ValueError for a frame outside the graphs' slice (``graph_refusal``)
-    or a `group`, and graphs.CaptureError when a capture fails; there is
-    no eager fallback on the card. ``stats`` (graphs.GraphStats) counts
+    ValueError for a frame outside the graphs' slice (``graph_refusal``),
+    a `group` or a mesh global changed since the capture
+    (``graphs.MeshChoices``), and graphs.CaptureError when a capture
+    fails; there is no eager fallback on the card. ``stats`` (graphs.GraphStats) counts
     frames, spill waves, host launches and the kernels' launches."""
 
     def __init__(self, pipe: RenderPipeline):
@@ -977,6 +977,7 @@ class FrameGraph:
         self._inputs = None     # graphs.Inputs: poses, dt, reset, dyn
         self._states = []       # each phase's input state
         self._frames = []       # each phase's graphs.Captured
+        self._mesh = graphs.MeshChoices()
 
     def _check(self, state, group):
         if group is not None:
@@ -984,6 +985,7 @@ class FrameGraph:
         why = graph_refusal(self.pipe.cfg, state.scene)
         if why is not None:
             raise ValueError(f"no graph form of this frame yet: {why}")
+        self._mesh.check(state.scene)
 
     @staticmethod
     def _device_inputs(inp, dev):

@@ -51,11 +51,7 @@ def pack_spheres(centers, radii):
 def _flat(x, lead, n: int, device):
     """`x`, a tensor or a number broadcastable to `lead`, as an (n,)
     float32 row on `device`; a number is filled there (no host copy)."""
-    if isinstance(x, torch.Tensor):
-        x = torch.as_tensor(x, dtype=torch.float32, device=device)
-    else:
-        x = torch.full((), float(x), device=device)
-    return torch.broadcast_to(x, lead).reshape(n)
+    return torch.broadcast_to(m.as_f32(x, device), lead).reshape(n)
 
 
 def intersect_spheres(origin, direction, t_min, t_max, centers, radii,

@@ -179,11 +179,13 @@ def _compact_capacity(n_pixels: int, fraction: int) -> int:
     return -(-cap // 1024) * 1024
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _tile_order(h: int, w: int, tile: int, device: torch.device):
     """The static tile-major order of an (h, w) frame (tm: compaction
     position -> pixel) and its inverse, built once per shape and kept on
-    the device."""
+    the device for the life of the process: a frame captured as a CUDA
+    graph reads these tensors at every replay, so no later shape may evict
+    them (their warm-up frame builds them before the capture)."""
     pix = np.arange(h * w)
     tiles_x = -(-w // tile)
     tile_id = (pix // (w * tile)) * tiles_x + (pix % w) // tile

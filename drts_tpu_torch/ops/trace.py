@@ -49,7 +49,7 @@ def _closest_hit(scene, origin, direction, t_min, t_max, block_size, accel):
         return hit, None
     mi = scene.mesh_instances
     k = scene.center.shape[0]
-    t_max = torch.as_tensor(t_max, dtype=torch.float32, device=dev)
+    t_max = m.as_f32(t_max, dev)
     # Mesh hits only count when closer than the best sphere hit.
     bound = torch.where(hit.hit, hit.t, torch.broadcast_to(t_max, lead))
     tri = trimesh.intersect_instances(origin, direction, t_min, bound,
@@ -147,9 +147,8 @@ def trace_scene(scene, origin, direction, t_min, t_max,
         t_min2 = torch.where(rejected,
                              surf.distance * (1.0 + 1e-4) + 1e-4, 0.0)
         t_max2 = torch.where(
-            rejected, torch.broadcast_to(torch.as_tensor(
-                t_max, dtype=torch.float32, device=origin.device),
-                rejected.shape), -1.0)
+            rejected, torch.broadcast_to(m.as_f32(t_max, origin.device),
+                                         rejected.shape), -1.0)
         hit2, tri2 = _closest_hit(scene, origin, direction, t_min2, t_max2,
                                   block_size, accel)
         surf2 = _surface_of(scene, hit2, tri2, direction, table)

@@ -234,8 +234,7 @@ def intersect_mesh(origin, direction, t_min, t_max, mesh):
     dev = origin.device
 
     def flat(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-        return torch.broadcast_to(x, lead).reshape(n)
+        return torch.broadcast_to(m.as_f32(x, dev), lead).reshape(n)
 
     o, d = origin.reshape(n, 3), direction.reshape(n, 3)
     tmin, tmax = flat(t_min), flat(t_max)
@@ -325,8 +324,7 @@ def intersect_instances(origin, direction, t_min, t_max, mesh: TriMesh,
     lead = origin.shape[:-1]
 
     def full(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
-        return torch.broadcast_to(x, lead)
+        return torch.broadcast_to(m.as_f32(x, origin.device), lead)
 
     t_min = full(t_min)
     t_max = _bounds_prepass(origin, direction, t_min, full(t_max), mesh,
@@ -382,8 +380,7 @@ def intersect_instances_any(origin, direction, t_min, t_max, mesh: TriMesh,
     lead = origin.shape[:-1]
 
     def full(x):
-        x = torch.as_tensor(x, dtype=torch.float32, device=origin.device)
-        return torch.broadcast_to(x, lead)
+        return torch.broadcast_to(m.as_f32(x, origin.device), lead)
 
     t_min = full(t_min)
     t_max = _bounds_prepass(origin, direction, t_min, full(t_max), mesh,

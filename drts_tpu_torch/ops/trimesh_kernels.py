@@ -341,7 +341,7 @@ def make_bscan_table(inst_tbl):
     ccrr = torch.where(r > 0.0, cx * cx + cy * cy + cz * cz - r * r, 1e30)
     tbl = torch.zeros((m_pad, 4), dtype=torch.float32,
                       device=inst_tbl.device)
-    tbl[:, 3] = 1e30
+    tbl[:, 3].fill_(1e30)
     tbl[:mm] = torch.stack([cx, cy, cz, ccrr], dim=1)
     return tbl
 

@@ -25,7 +25,8 @@ launches per frame, each hand-written kernel's device time and calls per
 frame, and the top device kernels by total time. The trace records device
 activity only (no host op tracing); the two frame times show by how much
 it stretches the frame. With ``--graph`` (the path trace, ``--frame``,
-``--default-frame``, ``--upscaled``) the frames are CUDA graph replays
+``--default-frame``, ``--upscaled``, ``--mesh``, ``--mesh-frame``,
+``--mesh-pipeline``) the frames are CUDA graph replays
 (the warm frame captures them) and the object also holds the host
 launches of the last frame (graph launches, input writes) and the
 callable's stats. Needs a CUDA device.
@@ -69,7 +70,8 @@ def _frames_wall_us(step, frames: int) -> float:
 
 
 GRAPH_RECIPES = ("trace_frame", "restir_frame", "default_frame",
-                 "upscaled_frame")
+                 "upscaled_frame", "mesh_frame", "mesh_restir_frame",
+                 "mesh_pipeline")
 
 
 def _frame_step(recipe: str, device, accel: str = "morton",
@@ -81,11 +83,15 @@ def _frame_step(recipe: str, device, accel: str = "morton",
     frame = [0]
     if recipe == "mesh_frame":
         scene, cam, cfg = bench.make_mesh_setup(device=device)
+        traced = pathtrace.trace_image_graph(cfg) if graph else None
 
         def step():
-            pathtrace.trace_image(scene, cam, cfg, frame[0])
+            if traced is not None:
+                traced(scene, cam, frame[0])
+            else:
+                pathtrace.trace_image(scene, cam, cfg, frame[0])
             frame[0] += 1
-        return step, None
+        return step, traced
     if recipe in ("restir_frame", "mesh_restir_frame", "default_frame",
                   "upscaled_frame", "mesh_pipeline", "textured_frame",
                   "options_frame"):
@@ -190,7 +196,8 @@ def main(argv=None):
                         choices=trimesh.MESH_CAND_MODES)
     parser.add_argument("--graph", action="store_true",
                         help="frames as CUDA graph replays (the path "
-                             "trace, --frame, --default-frame, --upscaled)")
+                             "trace, --frame, --default-frame, --upscaled, "
+                             "--mesh, --mesh-frame, --mesh-pipeline)")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     if args.accel != "morton" and not (args.frame or args.default_frame
@@ -208,7 +215,8 @@ def main(argv=None):
               else "restir_frame" if args.frame else "trace_frame")
     if args.graph and recipe not in GRAPH_RECIPES:
         parser.error("--graph applies to the path trace, --frame, "
-                     "--default-frame and --upscaled")
+                     "--default-frame, --upscaled, --mesh, --mesh-frame "
+                     "and --mesh-pipeline")
     result = profile_frames(args.frames, backend.device("cuda"), recipe,
                             args.accel, args.graph)
     text = json.dumps(result, indent=1)

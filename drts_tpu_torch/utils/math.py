@@ -28,6 +28,15 @@ def const(values, dtype=torch.float32, device="cpu") -> torch.Tensor:
     it."""
     return _const(values, dtype, torch.device(device))
 
+
+def as_f32(x, device) -> torch.Tensor:
+    """`x`, a tensor or a number, as a float32 tensor on `device`. A number
+    is filled on the device, not copied from the host, so that a frame
+    captured as a CUDA graph copies nothing from the host."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), device=device)
+
 # ----------------------------------------------------------------------------
 # scalar helpers
 

@@ -83,6 +83,14 @@ sincosf where the plain version calls PyTorch's sin and cos: picks may
 differ on <= 0.1% of pixels and the outputs elsewhere by <= 1e-5 of each
 row's largest value. B12a and B12b sum on the tensor cores (MXU_* below
 states their tolerance).
+
+The graph frames (drts_tpu_torch/graphs.py) against eager frames: the
+sphere ReSTIR frame bit for bit, the default frame within the DEFAULT_*
+bounds plus two eager runs' spread (SHARC's float atomics), physics'
+device dt, a Session resume; and the mesh frames: the mesh trace at
+MESH_CAND 0, 1 and 2 with and without a spill wave and the all-mesh
+ReSTIR frame bit for bit, the all-mesh pipeline (partition mode) and a
+mesh Session through a static set within those bounds.
 """
 
 import dataclasses
@@ -2085,3 +2093,131 @@ def test_graph_session_resume_equals_eager_resume(dev, tmp_path):
         mean, off = image_off(a, b)
         assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
             mean, off, spread)
+
+
+def mesh_graph_setup(dev, cfg):
+    """graph_setup's pipeline and pose on the demo scene as instances of a
+    tessellation-1 geosphere (myscene.as_mesh_scene)."""
+    from drts_tpu_torch.models import myscene
+    pipe, _, pose = graph_setup(dev, cfg)
+    host = myscene.as_mesh_scene(myscene.build(oscillator_grid=3,
+                                               device=dev), tessellation=1)
+    return pipe, pipe.init_state(host), pose
+
+
+def test_graph_mesh_trace_equals_eager(dev):
+    """The mesh trace (bench_mesh's frame) at 64x64, 3 bounces, at
+    MESH_CAND 0, 1 and 2, with a 64-slot deep segment (the spill wave) and
+    the default one: four graph replays each equal trace_image's frames
+    bit for bit (radiance, rays, overflow), with the same spill waves."""
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.ops import camera, pathtrace
+    scene = myscene.as_mesh_scene(myscene.build(oscillator_grid=3,
+                                                device=dev),
+                                  tessellation=1).scene
+    eye = np.array(GRAPH_EYE)
+    fwd = np.array(GRAPH_TARGET) - eye
+    cam = camera.make_camera(tuple(eye), tuple(fwd / np.linalg.norm(fwd)),
+                             horizontal_fov_deg=90.0, aspect=1.0,
+                             device=dev)
+    old = trimesh.MESH_CAND
+    waves = {}
+    try:
+        for cand in (0, 1, 2):
+            for capacity in (64, 0):
+                trimesh.MESH_CAND = cand
+                cfg = pathtrace.PathTraceConfig(
+                    width=64, height=64, bounces=3, block_size=32768,
+                    compact_from=2, compact_capacity=capacity)
+                call = pathtrace.trace_image_graph(cfg)
+                for i in range(4):
+                    want = pathtrace.trace_image(
+                        scene, cam, cfg, torch.tensor(i, device=dev))
+                    got = call(scene, cam, i)
+                    assert got.spill_waves == want.spill_waves
+                    waves[cand, capacity] = waves.get((cand, capacity), 0) \
+                        + got.spill_waves
+                    for name in ("radiance", "rays_traced"):
+                        assert torch.equal(
+                            word_bits(getattr(got, name)),
+                            word_bits(getattr(want, name))), (cand, name)
+                    assert torch.equal(
+                        got.counters["wavefront_overflow_paths"],
+                        want.counters["wavefront_overflow_paths"])
+    finally:
+        trimesh.MESH_CAND = old
+    assert all(waves[c, 64] == 4 and waves[c, 0] == 0 for c in (0, 1, 2)), \
+        waves
+
+
+def test_graph_mesh_restir_frame_equals_eager(dev):
+    """The all-mesh ReSTIR frame (physics on, no SHARC) at 64x64 through
+    four graph replays (dt and reset changing) equals the eager frames bit
+    for bit: images and every state leaf."""
+    from drts_tpu_torch.models import pipeline
+    pipe, state, pose = mesh_graph_setup(dev, pipeline.restir_frame_config(
+        64, 64, 3))
+    dts, resets = (1 / 60, 1 / 120, 1 / 30, 1 / 60), (0, 0, 1, 0)
+    se, ie, _ = run_graph_frames(pipe, state, pose, False, dts, resets)
+    sg, ig, call = run_graph_frames(pipe, state, pose, True, dts, resets)
+    assert call.stats.frames == 4 and len(call.stats.capture_s) == 2
+    for a, b in zip(ie, ig):
+        assert torch.equal(word_bits(a), word_bits(b))
+    for (p, a), (_, b) in zip(tensor_leaves(se), tensor_leaves(sg)):
+        assert torch.equal(word_bits(a), word_bits(b)), p
+
+
+def test_graph_mesh_pipeline_near_eager(dev):
+    """The all-mesh pipeline (bench.mesh_pipeline_config: compact_from=1,
+    SHARC, ReBLUR, TAA, physics off) rendered at 32x32 and upscaled to
+    64x64, the bounce-1 segment in partition mode, four frames: the graph
+    frames stay within the DEFAULT_* bounds plus the run-to-run spread of
+    two eager runs, with the eager frames' spill waves."""
+    from drts_tpu_torch import bench
+    from drts_tpu_torch.ops import sharc
+    cfg = bench.mesh_pipeline_config(
+        output_width=64, output_height=64, render_width=32,
+        render_height=32, bounces=3, block_size=4096,
+        sharc=sharc.SHARCConfig(capacity_log2=12))
+    pipe, state, pose = mesh_graph_setup(dev, cfg)
+    base = pipe._pt_cfg
+    pipe._pt_cfg = lambda: dataclasses.replace(
+        base(), compact_sort_partition_min=0)
+    dts = (1 / 60,) * 4
+    _, ie, _ = run_graph_frames(pipe, state, pose, False, dts)
+    _, ie2, _ = run_graph_frames(pipe, state, pose, False, dts)
+    _, ig, call = run_graph_frames(pipe, state, pose, True, dts)
+    for a, a2, b in zip(ie, ie2, ig):
+        spread = image_off(a, a2)
+        mean, off = image_off(a, b)
+        assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
+            mean, off, spread)
+        assert bool(torch.isfinite(b).all())
+    assert call.stats.frames == 4 and len(call.stats.capture_s) == 2
+
+
+def test_graph_mesh_session_near_eager(dev):
+    """Session(host=<all-mesh>, graph=True) at GraphicsSettings() 64x64
+    (rendered at 32x32, SHARC), three frames with a static set (3 to 2
+    bounces) before the last: within the DEFAULT_* bounds plus the
+    run-to-run spread of two eager Sessions."""
+    from drts_tpu_torch import session
+    from drts_tpu_torch.models import myscene
+    runs = []
+    for graph in (False, False, True):
+        s = session.Session(
+            _shell_settings(), host=myscene.as_mesh_scene(
+                myscene.build(oscillator_grid=3, device=dev),
+                tessellation=1), device=dev, graph=graph)
+        images = []
+        for i in range(3):
+            if i == 2:
+                assert s.set("raytracing.bounces", "2") == "static"
+            images.append(s.step().clone())
+        runs.append(images)
+    for a, a2, b in zip(*runs):
+        spread = image_off(a, a2)
+        mean, off = image_off(a, b)
+        assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
+            mean, off, spread)
+        assert bool(torch.isfinite(b).all())

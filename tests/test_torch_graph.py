@@ -19,7 +19,10 @@ capture records on the card (drts_tpu_torch/graphs.py).
 - ``physics.step`` takes a 0-d float32 ``dt`` (the graph's device input):
   bit for bit the float call's, and within tests/test_torch_physics.py's
   tolerances of the reference's step jitted with a traced dt.
-- The refusals: a group, a mesh scene and shared spatial offsets raise.
+- The refusals: a group, a textured scene (``myscene.add_mesh_content``:
+  the demo spheres and textured mesh instances; an all-mesh scene has a
+  graph form, tests/test_torch_graph_mesh.py) and shared spatial offsets
+  raise.
 - The state's buffers under replay: with the capture replaced by a fake
   that re-runs the captured function on its inputs and writes its
   results into the outputs the capture made (what a replay does), the
@@ -236,19 +239,19 @@ def test_physics_takes_a_device_dt():
 
 
 def test_refusals():
-    """A group, a mesh scene and shared spatial offsets raise."""
+    """A group, a textured scene and shared spatial offsets raise."""
     pipe, state, pose = setup(small_default())
     call = pipe.render_frame_graph()
     with pytest.raises(ValueError, match="group"):
         call(state, pose, group=object())
-    mesh = myscene.as_mesh_scene(myscene.build(oscillator_grid=2,
-                                               device="cpu"), tessellation=1)
-    mpipe = pipeline.RenderPipeline(small_default(), "cpu")
-    with pytest.raises(ValueError, match="mesh"):
-        mpipe.render_frame_graph()(mpipe.init_state(mesh), pose)
-    with pytest.raises(ValueError, match="mesh"):
+    textured = myscene.add_mesh_content(
+        myscene.build(oscillator_grid=2, device="cpu"), tessellation=1)
+    tpipe = pipeline.RenderPipeline(small_default(), "cpu")
+    with pytest.raises(ValueError, match="a textured scene"):
+        tpipe.render_frame_graph()(tpipe.init_state(textured), pose)
+    with pytest.raises(ValueError, match="a textured scene"):
         pathtrace.trace_image_graph(pathtrace.PathTraceConfig(
-            width=8, height=8))(mesh.scene, camera.make_camera(
+            width=8, height=8))(textured.scene, camera.make_camera(
                 (0.0, 0.0, -5.0), device="cpu"), 0)
     spipe, sstate, spose = setup(small_default(
         restir=restir.ReSTIRConfig(spatial_offset_mode="shared")))
