@@ -356,6 +356,22 @@ Phases, one printed line or more each; any failure exits non-zero:
    variant's captured launches plus its spill waves'; each part's
    replays launch every kernel of its path and none of B1, B2, B3. Each
    prints ms, host launches, capture seconds and peak memory.
+27. graphs: the rest of the one-device frames, as phase 25, over
+   ROUTE_GRAPH_FRAMES frames (the options frame over 4, so that its
+   shared offsets move): (a) the textured frame (PipelineConfig() on
+   add_mesh_content(build(10), 3)) and (b) the options frame
+   (bench.options_frame_config) within DEFAULT_MEAN and
+   DEFAULT_OFF_SHARE plus two eager runs' spread; (c) the ReSTIR frame at
+   accel_mode="none" bit for bit; (d) at each DRTS_MXU_PREC ("default",
+   "high", "highest"; clusters._USE_MXU and intersect_kernels.MXU_PREC
+   set, and restored) the MXU headline frame bit for bit and the MXU
+   upscaled default frame as (a); (e) the clustered headline frame
+   (bench.make_trace_setup(accel="clustered")) bit for bit. Each eager
+   frame's launches of B1-B13 equal its variant's captured launches plus
+   its spill waves'; each part's replays launch the kernels of
+   ROUTE_GRAPH_NEEDS (B12a, B12b and B13 among them) and none of
+   ROUTE_GRAPH_NEVER. Each prints ms, host launches, capture seconds and
+   peak memory.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -407,7 +423,12 @@ script times no kernel inside a replayed graph (``profile_frame --graph``
 traces their device times there); and B4-B11 once more
 ("...@mesh_graph") with the launches all of phase 26's replays made (the
 captures' counts) and the readings of "@mesh" (B5, B6, B7, B11: phase
-8; B10: phase 12) and "@mesh_pipeline" (B4, B8, B9: phase 16).
+8; B10: phase 12) and "@mesh_pipeline" (B4, B8, B9: phase 16); and
+once more for each part of phase 27 ("...@textured_graph",
+"...@options_graph", "...@accel_none_graph", "...@mxu_graph_<prec>",
+"intersect_clustered@clustered_graph") with the launches its replays made
+(the captures' counts) and the readings of its eager frame's kernels on
+their own inputs (ROUTE_GRAPH_READINGS: phases 19, 20, 2 and 5, 24).
 Every bound counts what this run's lanes need (a dead lane reads tmin and
 tmax only; an any-hit sweep ends at its first blocking triangle; B1, B2,
 B5-B10 count their culled walks and B11 its staged rows and
@@ -4277,16 +4298,19 @@ def image_spread(a, b):
 
 
 def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
-                       patch=None, mesh=False, kernels=GRAPH_KERNELS):
+                       patch=None, mesh=False, kernels=GRAPH_KERNELS,
+                       textured=False, frames=GRAPH_FRAMES):
     """Phase 25 (a): a pipeline frame (`patch` edits its path-trace
-    config; `mesh`: on the all-mesh scene, phase 26 (b) and (c)) from one
-    start: GRAPH_FRAMES eager frames twice and through render_frame_graph
-    once. Checks the images (bit for bit without SHARC; with it, within
+    config; `mesh`: on the all-mesh scene, phase 26 (b) and (c);
+    `textured`: on the mixed textured scene, phase 27) from one start:
+    `frames` eager frames twice and through render_frame_graph once.
+    Checks the images (bit for bit without SHARC; with it, within
     DEFAULT_* plus the eager run-to-run spread), each frame's launches of
     `kernels` against its phase's capture, the spill waves. Returns (the
     graph callable's stats, eager ms, graph ms, eager and graph peak
     memory)."""
-    pipe, s0, pose = bench.make_frame_setup(cfg=cfg, device=dev, mesh=mesh)
+    pipe, s0, pose = bench.make_frame_setup(cfg=cfg, device=dev, mesh=mesh,
+                                            textured=textured)
     if patch is not None:
         base = pipe._pt_cfg
         pipe._pt_cfg = lambda: dataclasses.replace(base(), **patch)
@@ -4299,11 +4323,11 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
     for _ in range(2):
         box[0] = s0
         torch.cuda.reset_peak_memory_stats()
-        runs.append(eager_frames(backend, pathtrace, eager, GRAPH_FRAMES,
+        runs.append(eager_frames(backend, pathtrace, eager, frames,
                                  kernels))
     eager_peak = torch.cuda.max_memory_allocated()
     box[0] = s0
-    eager_ms = frame_marks(eager, GRAPH_FRAMES)
+    eager_ms = frame_marks(eager, frames)
     box[0] = s0
     call = pipe.render_frame_graph()
 
@@ -4311,12 +4335,12 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
         box[0], img = call(box[0], pose)
         return img
     torch.cuda.reset_peak_memory_stats()
-    graph_images = [graph().clone() for _ in range(GRAPH_FRAMES)]
+    graph_images = [graph().clone() for _ in range(frames)]
     box[0] = s0
-    graph_ms = frame_marks(graph, GRAPH_FRAMES)
+    graph_ms = frame_marks(graph, frames)
     graph_peak = torch.cuda.max_memory_allocated()
     (e_launch, e_waves, e_img), (_, e_waves2, e_img2) = runs
-    phases = [f % call.cycle for f in range(GRAPH_FRAMES)]
+    phases = [f % call.cycle for f in range(frames)]
     graph_launches_check(label, call, phases, e_launch, e_waves, kernels)
     g_waves = call.stats.spill_waves
     worst = (0.0, 0.0)
@@ -4334,7 +4358,7 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
                                  f"eager {eg} (eager twice {ee}, bit for "
                                  f"bit {exact})")
     log(f"graph {label}: {cfg.render_width}x{cfg.render_height} to "
-        f"{cfg.output_width}x{cfg.output_height} frames={GRAPH_FRAMES} "
+        f"{cfg.output_width}x{cfg.output_height} frames={frames} "
         f"eager_ms {spread(eager_ms)} graph_ms {spread(graph_ms)} "
         f"host_launches_per_graph_frame="
         f"{call.stats.last_host_launches} eager_kernel_launches_per_frame="
@@ -4346,17 +4370,17 @@ def run_graph_pipeline(backend, bench, pathtrace, smi, dev, label, cfg,
         f"peak_bytes eager={eager_peak} graph={graph_peak} | {smi}")
     if g_waves != 2 * sum(e_waves):
         raise AssertionError(f"graph {label}: {g_waves} spill waves in "
-                             f"{2 * GRAPH_FRAMES} graph frames, the eager "
+                             f"{2 * frames} graph frames, the eager "
                              f"frames ran {sum(e_waves)} in "
-                             f"{GRAPH_FRAMES}")
+                             f"{frames}")
     return call.stats, eager_ms, graph_ms, eager_peak, graph_peak
 
 
 def run_graph_trace(backend, pathtrace, smi, dev, label, eager_frame, call,
-                    scene, cam, kernels=GRAPH_KERNELS):
+                    scene, cam, kernels=GRAPH_KERNELS, frames=GRAPH_FRAMES):
     """Phase 25 (b) and 26 (a): a trace frame eager (eager_frame(index
     tensor) -> TraceOutput) and through the trace_image_graph callable
-    `call` on (scene, cam), GRAPH_FRAMES each from frame 1 on: the
+    `call` on (scene, cam), `frames` each from frame 1 on: the
     radiance bit for bit, each eager frame's launches of `kernels`
     against the capture plus its spill waves', the spill waves. Returns
     the callable's stats."""
@@ -4374,26 +4398,26 @@ def run_graph_trace(backend, pathtrace, smi, dev, label, eager_frame, call,
     torch.cuda.reset_peak_memory_stats()
     eager_frame(torch.tensor(0, device=dev))   # warm
     e_launch, e_waves, e_img = eager_frames(backend, pathtrace, eager,
-                                            GRAPH_FRAMES, kernels)
+                                            frames, kernels)
     eager_peak = torch.cuda.max_memory_allocated()
     idx[0] = 1
     torch.cuda.reset_peak_memory_stats()
     g_img = []
-    for _ in range(GRAPH_FRAMES):
+    for _ in range(frames):
         g_img.append(graph().radiance.clone())
     idx[0] = 1
-    eager_ms = frame_marks(eager, GRAPH_FRAMES)
+    eager_ms = frame_marks(eager, frames)
     idx[0] = 1
-    graph_ms = frame_marks(graph, GRAPH_FRAMES)
+    graph_ms = frame_marks(graph, frames)
     graph_peak = torch.cuda.max_memory_allocated()
-    graph_launches_check(label, call, [0] * GRAPH_FRAMES, e_launch, e_waves,
+    graph_launches_check(label, call, [0] * frames, e_launch, e_waves,
                          kernels)
     for i, (a, b) in enumerate(zip(e_img, g_img)):
         if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"graph {label}: frame {i + 1}'s "
                                  f"radiance differs from the eager frame's "
                                  f"({float((a - b).abs().max())!r})")
-    log(f"graph {label}: 1920x1080 bounces=8 frames={GRAPH_FRAMES} "
+    log(f"graph {label}: 1920x1080 bounces=8 frames={frames} "
         f"eager_ms {spread(eager_ms)} graph_ms {spread(graph_ms)} "
         f"host_launches_per_graph_frame="
         f"{call.stats.last_host_launches} eager_kernel_launches_per_frame="
@@ -4516,6 +4540,129 @@ def run_mesh_graphs(backend, bench, pathtrace, trimesh, smi, dev):
     return {f"{name}@mesh_graph": sum(st.launches.get(name, 0)
                                       for st in stats.values())
             for name in MESH_GRAPH_KERNELS}
+
+
+# Phase 27: the compiled frame for the rest of the one-device frames. The
+# frames each part runs (fewer than phase 25's: the textured frame takes
+# about a second eager), the kernels whose launches each part checks, the
+# kernels each part's replays must launch and those they must not, and
+# the readings each "...@<part>_graph" entry carries.
+ROUTE_GRAPH_FRAMES = 3
+ROUTE_GRAPH_OPTIONS_FRAMES = 4      # the shared offsets move every frame
+ROUTE_GRAPH_KERNELS = tuple(dict.fromkeys(
+    GRAPH_KERNELS + MESH_GRAPH_KERNELS + (
+        "intersect_morton_mxu", "occlusion_morton_mxu",
+        "intersect_clustered")))
+ROUTE_GRAPH_PRECS = ("default", "high", "highest")
+ROUTE_GRAPH_NEEDS = {
+    "textured": ("intersect_morton", "occlusion_morton", "reproject_packed",
+                 "bound_scan", "shared_blas_sweep",
+                 "intersect_mesh_instances", "shared_blas_any",
+                 "intersect_mesh_instances_any", "intersect_brute"),
+    "options": ("intersect_morton", "occlusion_morton",
+                "initial_light_candidates", "reproject_packed",
+                "intersect_brute"),
+    "accel_none": ("intersect_brute", "initial_light_candidates",
+                   "reproject_packed"),
+    **{f"mxu_{p}": ("intersect_morton_mxu", "occlusion_morton_mxu")
+       for p in ROUTE_GRAPH_PRECS},
+    "clustered": ("intersect_clustered",)}
+ROUTE_GRAPH_NEVER = {
+    "textured": ("initial_light_candidates",),
+    "options": (),
+    "accel_none": ("intersect_morton", "occlusion_morton"),
+    **{f"mxu_{p}": ("intersect_morton", "occlusion_morton")
+       for p in ROUTE_GRAPH_PRECS},
+    "clustered": ("intersect_morton", "intersect_morton_mxu",
+                  "intersect_brute")}
+# entry -> (part, the reading it carries)
+ROUTE_GRAPH_READINGS = {
+    **{f"{name}@textured_graph": ("textured", f"{name}@textured")
+       for name in ROUTE_GRAPH_NEEDS["textured"]},
+    **{f"{name}@options_graph": ("options", f"{name}@options")
+       for name in ROUTE_GRAPH_NEEDS["options"]},
+    "intersect_brute@accel_none_graph": ("accel_none",
+                                         "intersect_brute@accel_none"),
+    "initial_light_candidates@accel_none_graph": (
+        "accel_none", "initial_light_candidates"),
+    "reproject_packed@accel_none_graph": ("accel_none", "reproject_packed"),
+    **{f"{name}@mxu_graph_{p}": (f"mxu_{p}",
+                                 name if p == "high" else f"{name}@{p}")
+       for name in ("intersect_morton_mxu", "occlusion_morton_mxu")
+       for p in ROUTE_GRAPH_PRECS},
+    "intersect_clustered@clustered_graph": ("clustered",
+                                            "intersect_clustered")}
+
+
+def run_route_graphs(backend, bench, clusters, ik, pathtrace, smi, dev):
+    """Phase 27: the textured frame (PipelineConfig() on
+    add_mesh_content(build(10), 3)), the options frame
+    (bench.options_frame_config) and the ReSTIR frame at
+    accel_mode="none" through run_graph_pipeline; at each MXU precision
+    (clusters._USE_MXU and intersect_kernels.MXU_PREC set, and restored)
+    the headline frame through run_graph_trace and the upscaled default
+    frame through run_graph_pipeline; the clustered headline frame
+    (bench.make_trace_setup(accel="clustered")) through run_graph_trace.
+    Each part's replays must launch the kernels of ROUTE_GRAPH_NEEDS and
+    none of ROUTE_GRAPH_NEVER. Returns the launches the replays made, by
+    the entries of ROUTE_GRAPH_READINGS."""
+    stats = {}
+    stats["textured"], *_ = run_graph_pipeline(
+        backend, bench, pathtrace, smi, dev, "textured frame",
+        bench.default_frame_config(), kernels=ROUTE_GRAPH_KERNELS,
+        textured=True, frames=ROUTE_GRAPH_FRAMES)
+    stats["options"], *_ = run_graph_pipeline(
+        backend, bench, pathtrace, smi, dev, "options frame",
+        bench.options_frame_config(), kernels=ROUTE_GRAPH_KERNELS,
+        frames=ROUTE_GRAPH_OPTIONS_FRAMES)
+    stats["accel_none"], *_ = run_graph_pipeline(
+        backend, bench, pathtrace, smi, dev, "accel-none restir frame",
+        bench.pipeline.restir_frame_config(accel_mode="none"),
+        kernels=ROUTE_GRAPH_KERNELS, frames=ROUTE_GRAPH_FRAMES)
+    saved = clusters._USE_MXU, ik.MXU_PREC
+    try:
+        clusters._USE_MXU = True
+        for prec in ROUTE_GRAPH_PRECS:
+            ik.MXU_PREC = prec
+            setup = bench.make_trace_setup(device=dev)
+            trace = run_graph_trace(
+                backend, pathtrace, smi, dev, f"MXU headline @{prec}",
+                lambda index, setup=setup: bench.trace_frame(setup, index),
+                pathtrace.trace_image_graph(setup.cfg, setup.plan),
+                setup.scene, setup.cam, ROUTE_GRAPH_KERNELS,
+                ROUTE_GRAPH_FRAMES)
+            del setup
+            frame, *_ = run_graph_pipeline(
+                backend, bench, pathtrace, smi, dev,
+                f"MXU upscaled default frame @{prec}",
+                bench.default_frame_config(upscaled=True),
+                kernels=ROUTE_GRAPH_KERNELS, frames=ROUTE_GRAPH_FRAMES)
+            stats[f"mxu_{prec}"] = {
+                k: trace.launches.get(k, 0) + frame.launches.get(k, 0)
+                for k in set(trace.launches) | set(frame.launches)}
+    finally:
+        clusters._USE_MXU, ik.MXU_PREC = saved
+    setup = bench.make_trace_setup(device=dev, accel="clustered")
+    stats["clustered"] = run_graph_trace(
+        backend, pathtrace, smi, dev, "clustered headline",
+        lambda index: bench.trace_frame(setup, index),
+        pathtrace.trace_image_graph(setup.cfg, setup.plan, "clustered"),
+        setup.scene, setup.cam, ROUTE_GRAPH_KERNELS, ROUTE_GRAPH_FRAMES)
+    del setup
+    stats = {part: st if isinstance(st, dict) else st.launches
+             for part, st in stats.items()}
+    for part, needs in ROUTE_GRAPH_NEEDS.items():
+        got = stats[part]
+        for name in needs:
+            if got.get(name, 0) <= 0:
+                raise AssertionError(f"graph: {name} was not launched "
+                                     f"inside the {part} graphs")
+        for name in ROUTE_GRAPH_NEVER[part]:
+            if got.get(name, 0):
+                raise AssertionError(f"graph: {name} ran in the {part} "
+                                     f"graphs")
+    return {entry: stats[part][entry.split("@")[0]]
+            for entry, (part, _) in ROUTE_GRAPH_READINGS.items()}
 
 
 def main():
@@ -5035,6 +5182,14 @@ def main():
                                     dev))
     log(f"mesh graphs: phase 26 took {time.perf_counter() - t0:.1f} s")
 
+    # 27. the compiled frame for the rest of the one-device frames: the
+    # textured, options and accel-none frames, the MXU route at each
+    # precision and the clustered headline frame ---------------------------
+    t0 = time.perf_counter()
+    launches.update(run_route_graphs(backend, bench, clusters, ik, pathtrace,
+                                     smi, dev))
+    log(f"route graphs: phase 27 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -5179,6 +5334,8 @@ def main():
     rows.update({f"{name}@graph": rows[name] for name in GRAPH_KERNELS})
     rows.update({f"{name}@mesh_graph": rows[reading]
                  for name, reading in MESH_GRAPH_READINGS.items()})
+    rows.update({entry: rows[reading]
+                 for entry, (_, reading) in ROUTE_GRAPH_READINGS.items()})
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
         "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"],
@@ -5196,6 +5353,10 @@ def main():
     # Likewise the mesh graph frames: the @mesh and @mesh_pipeline readings.
     for name, reading in MESH_GRAPH_READINGS.items():
         fields[f"{name}@mesh_graph"] = fields[reading]
+    # And the frames of phase 27: the readings of their eager frames'
+    # kernels on their own inputs (phases 2, 5, 19, 20 and 24).
+    for entry, (_, reading) in ROUTE_GRAPH_READINGS.items():
+        fields[entry] = fields[reading]
     kernels = []
     for name, (src, replaces) in rows.items():
         f = fields[name]

@@ -80,14 +80,15 @@ that fails lands in "errors" and the process exits 1 after printing the
 line. Each bench's launches, frames and spill waves go to stderr.
 ``--iters`` does not apply to the record.
 
-``--graph`` runs the path trace, ``--frame``, ``--default-frame``,
-``--upscaled``, ``--mesh`` (at its ``--mesh-cand``), ``--mesh-frame`` or
-``--mesh-pipeline`` as CUDA graph replays (``pathtrace.trace_image_graph``,
-``RenderPipeline.render_frame_graph``): the warm frame captures, the timed
-frames replay; passes_ms stays the eager frames' stage times. The frame
-and mesh lines also carry each timed frame's ms between CUDA events at
-the frame boundaries (frame_ms_each, frame_ms_median) and the peak
-device memory, and with ``--graph`` the callable's stats (capture
+``--accel clustered`` runs the path trace on the clustered accel
+(``make_trace_setup(accel="clustered")``: B13).
+
+``--graph`` runs any recipe but the record as CUDA graph replays
+(``pathtrace.trace_image_graph``, ``RenderPipeline.render_frame_graph``):
+the warm frame captures, the timed frames replay; passes_ms stays the
+eager frames' stage times. The frame and mesh lines also carry each
+timed frame's ms between CUDA events at the frame boundaries
+(frame_ms_each, frame_ms_median) and the peak device memory, and with ``--graph`` the callable's stats (capture
 seconds, host launches, the kernels' launches the replays made, spill
 waves); the path trace's line keeps the reference's keys without
 ``--graph`` and notes those on stderr.
@@ -103,9 +104,11 @@ waves); the path trace's line keeps the reference's keys without
     python -m drts_tpu_torch.bench --textured-frame [--iters N]
     python -m drts_tpu_torch.bench --options-frame [--accel none] [--iters N]
     python -m drts_tpu_torch.bench --frame --accel none [--iters N]
+    python -m drts_tpu_torch.bench --accel clustered [--iters N]
     python -m drts_tpu_torch.bench --record [--fast]
     python -m drts_tpu_torch.bench [--frame | --default-frame | --upscaled
-        | --mesh [--mesh-cand M] | --mesh-frame | --mesh-pipeline]
+        | --mesh [--mesh-cand M] | --mesh-frame | --mesh-pipeline
+        | --textured-frame | --options-frame] [--accel ACCEL]
         --graph [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
@@ -274,18 +277,20 @@ def _timed_traces(frame, iters: int, device, graphed):
 
 def bench_trace(width: int = 1920, height: int = 1080, bounces: int = 8,
                 spp: int = 1, iters: int = 8, device="cuda",
-                load_textures: bool = False, graph: bool = False):
+                load_textures: bool = False, graph: bool = False,
+                accel: str = "morton"):
     """One warm frame, then `iters` timed frames; with `graph`, each frame
     a replay of ``pathtrace.trace_image_graph`` (the warm frame captures
     it). Returns (stats, the last frame's TraceOutput); stats has mray_s,
     frame_ms, rays_per_frame, overflow_paths (of the last frame), frames,
     the spill waves of all of them, each timed frame's ms (CUDA events
     at the frame boundaries), the peak device memory and, with `graph`,
-    the callable's stats (captures, launches, host launches)."""
+    the callable's stats (captures, launches, host launches); `accel` as
+    make_trace_setup's."""
     setup = make_trace_setup(width, height, bounces, spp, device=device,
-                             load_textures=load_textures)
-    graphed = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
-               else None)
+                             load_textures=load_textures, accel=accel)
+    graphed = (pathtrace.trace_image_graph(setup.cfg, setup.plan,
+                                           setup.accel) if graph else None)
 
     def frame(i):
         if graphed is not None:
@@ -743,28 +748,31 @@ def main(argv=None):
                         help="the default frame with the thin lens and the "
                              "raytraced ReSTIR modes")
     parser.add_argument("--accel", default="morton",
-                        choices=pipeline.ACCEL_MODES,
-                        help="accel_mode of the sphere frame recipes")
+                        choices=pipeline.ACCEL_MODES + ("clustered",),
+                        help="accel_mode of the sphere frame recipes "
+                             "(morton, none), or the path trace's accel "
+                             "(morton, clustered)")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
                              "MESH_CAND)")
     parser.add_argument("--graph", action="store_true",
-                        help="each frame as CUDA graph replays (the path "
-                             "trace, --frame, --default-frame, --upscaled, "
-                             "--mesh, --mesh-frame, --mesh-pipeline)")
+                        help="each frame as CUDA graph replays (any "
+                             "recipe but --record)")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
-    if args.accel != "morton" and not sphere_frame:
-        parser.error("--accel applies to --frame, --default-frame and "
+    trace = not (sphere_frame or args.record or args.mesh or args.mesh_frame
+                 or args.upscaled or args.mesh_pipeline
+                 or args.textured_frame)
+    if args.accel == "none" and not sphere_frame:
+        parser.error("--accel none applies to --frame, --default-frame and "
                      "--options-frame")
+    if args.accel == "clustered" and not trace:
+        parser.error("--accel clustered applies to the path trace alone")
     if args.fast and not args.record:
         parser.error("--fast applies to --record")
-    if args.graph and (args.record or args.textured_frame
-                       or args.options_frame or args.accel != "morton"):
-        parser.error("--graph applies to the path trace, --frame, "
-                     "--default-frame, --upscaled, --mesh, --mesh-frame "
-                     "and --mesh-pipeline")
+    if args.graph and args.record:
+        parser.error("--graph does not apply to --record")
     if args.record and (sphere_frame or args.mesh or args.mesh_frame
                         or args.upscaled or args.mesh_pipeline
                         or args.textured_frame
@@ -847,10 +855,13 @@ def main(argv=None):
         }), flush=True)
         return
     backend.reset_launches()
-    graph = {"graph": True} if args.graph else {}
-    stats, out = bench_trace(iters=args.iters, device=dev, **graph)
+    kw = {"graph": True} if args.graph else {}
+    if args.accel != "morton":
+        kw["accel"] = args.accel
+    stats, out = bench_trace(iters=args.iters, device=dev, **kw)
     if not np.isfinite(out.radiance.cpu().numpy()).all():
         raise RuntimeError("non-finite radiance")
+    graph = {}
     if args.graph:
         # The graph frame's line adds its timings and the callable's stats
         # to the headline keys, which stay as they are without the flag.
@@ -863,6 +874,8 @@ def main(argv=None):
             k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
                                   "peak_memory_bytes", "spill_waves")
             if k in stats}))
+    if args.accel != "morton":
+        graph["accel"] = args.accel
     print(json.dumps({
         "metric": "path_trace_1080p_1spp_8bounce",
         "value": stats["mray_s"],

@@ -27,12 +27,12 @@ Graphs that share a memory pool are captured in the order they replay
 an earlier one freed, so outputs that must live between replays (the next
 phase's state) are kept alive by the callers.
 
-A mesh frame (an all-mesh scene, ``myscene.as_mesh_scene``) builds its
-instance tables on every call, inside the capture, and reads four module
-globals when it runs: the closest-hit form, the candidate rounds and B9's
-sparse threshold. A capture bakes them in, so a callable records them at
-its first mesh frame and raises ValueError when a later call finds one
-changed (``MeshChoices``).
+A frame reads module globals when it runs, and a capture bakes them in:
+a mesh frame (a scene with mesh instances) its closest-hit form, the
+candidate rounds and B9's sparse threshold, and every frame the MXU
+opt-in and precision. A callable records them at its first frame and
+raises ValueError when a later call finds one changed (``Choices``). A
+mesh frame builds its instance tables on every call, inside the capture.
 
 On CPU tensors ``run_pieces`` runs the same function eagerly with the
 same read between the same pieces, so that the CPU tests walk the code the
@@ -49,7 +49,7 @@ import time
 import torch
 
 from . import backend
-from .ops import pathtrace, trimesh
+from .ops import intersect_kernels as ik, pathtrace, trimesh
 from .ops import trimesh_kernels as tk
 from .parallel import mesh as mesh_mod
 from .utils.checkpoint import leaves
@@ -68,33 +68,43 @@ class CaptureError(RuntimeError):
     inside it, or any other CUDA capture fault)."""
 
 
-class MeshChoices:
-    """A callable's record of the module globals a mesh frame reads when
-    it runs, which a capture bakes into its launches: the closest-hit form
+class Choices:
+    """A callable's record of the module globals its frame reads when it
+    runs, which a capture bakes into its launches: the MXU opt-in
+    (``clusters._USE_MXU``, which adds the A-matrices to the Morton accel)
+    and precision (``intersect_kernels.MXU_PREC``, which picks B12's
+    build), and on a scene with mesh instances the closest-hit form
     (``trimesh.MESH_CAND``), the closest and any-hit candidate rounds
     (``trimesh_kernels.CAND_ROUNDS``, ``ANY_ROUNDS``) and B9's sparse-block
     threshold (``trimesh_kernels.B9_SPARSE_LIVE``). Taken at the first
-    frame on a scene with mesh instances (the capture, on the card); a
-    later call that finds one changed raises ValueError, since the graphs
-    would replay the old choice."""
+    frame (the capture, on the card); a later call that finds one changed
+    raises ValueError, since the graphs would replay the old choice."""
 
     def __init__(self):
         self.seen = None
 
+    @staticmethod
+    def now(scene) -> dict:
+        from .models import clusters
+        out = {"clusters._USE_MXU": clusters._USE_MXU,
+               "intersect_kernels.MXU_PREC": ik.MXU_PREC}
+        if scene.mesh_instances is not None:
+            out.update({"trimesh.MESH_CAND": trimesh.MESH_CAND,
+                        "trimesh_kernels.CAND_ROUNDS": tk.CAND_ROUNDS,
+                        "trimesh_kernels.ANY_ROUNDS": tk.ANY_ROUNDS,
+                        "trimesh_kernels.B9_SPARSE_LIVE": tk.B9_SPARSE_LIVE})
+        return out
+
     def check(self, scene) -> None:
-        if scene.mesh_instances is None:
-            return
-        now = {"trimesh.MESH_CAND": trimesh.MESH_CAND,
-               "trimesh_kernels.CAND_ROUNDS": tk.CAND_ROUNDS,
-               "trimesh_kernels.ANY_ROUNDS": tk.ANY_ROUNDS,
-               "trimesh_kernels.B9_SPARSE_LIVE": tk.B9_SPARSE_LIVE}
+        now = self.now(scene)
         if self.seen is None:
             self.seen = now
             return
         for name, was in self.seen.items():
-            if now[name] != was:
-                raise ValueError(f"{name} is {now[name]!r}, the captured "
-                                 f"frame's {was!r}; make a new callable")
+            if now.get(name) != was:
+                raise ValueError(f"{name} is {now.get(name)!r}, the "
+                                 f"captured frame's {was!r}; make a new "
+                                 f"callable")
 
 
 def run_pieces(fn):
@@ -318,12 +328,13 @@ class Inputs:
 class TraceGraph:
     """``pathtrace.trace_image`` as CUDA graphs, the counterpart of the
     reference's ``trace_image_jit``: a callable ``(scene, cam,
-    frame_index) -> TraceOutput``. With a Morton cluster `plan` the frame
-    is the headline bench's (``bench.trace_frame``: the accel ordered
-    from the camera, the G-buffer, the trace); without, ``trace_image``
-    alone (on an all-mesh scene, ``bench_mesh``'s frame; its mesh globals
-    are held as ``MeshChoices`` says). The frame index reaches the hash
-    RNG as a device input, so every replay draws its own frame's noise.
+    frame_index) -> TraceOutput``. With a cluster `plan` the frame is the
+    headline bench's (``bench.trace_frame``: the accel of `accel`, the
+    Morton chunks ordered from the camera or the clustered tables, the
+    G-buffer, the trace); without, ``trace_image`` alone (on an all-mesh
+    scene, ``bench_mesh``'s frame). The globals the frame reads are held
+    as ``Choices`` says. The frame index reaches the hash RNG as a device
+    input, so every replay draws its own frame's noise.
 
     On CUDA tensors the first call warms up and captures the frame
     (graphs.py), and every call writes its inputs (the scene and camera
@@ -332,12 +343,15 @@ class TraceGraph:
     the next call. On CPU tensors it runs the same pieces eagerly
     (``run_pieces``). ``stats`` counts as FrameGraph's does."""
 
-    def __init__(self, cfg, plan=None):
-        self.cfg, self.plan = cfg, plan
+    def __init__(self, cfg, plan=None, accel: str = "morton"):
+        if accel not in ("morton", "clustered"):
+            raise ValueError(f"accel must be 'morton' or 'clustered', got "
+                             f"{accel!r}")
+        self.cfg, self.plan, self.accel = cfg, plan, accel
         self.stats = GraphStats()
         self._inputs = None
         self._frame = None
-        self._mesh = MeshChoices()
+        self._choices = Choices()
 
     def _run(self, scene, cam, frame_index):
         if self.plan is None:
@@ -345,22 +359,20 @@ class TraceGraph:
         from .models import clusters
         from .ops import gbuffer
         c = self.cfg
-        accel = clusters.make_morton_accel(self.plan, scene.center,
-                                           scene.radius,
-                                           sort_origin=cam.position)
+        if self.accel == "clustered":
+            accel = clusters.make_accel(self.plan, scene.center,
+                                        scene.radius)
+        else:
+            accel = clusters.make_morton_accel(self.plan, scene.center,
+                                               scene.radius,
+                                               sort_origin=cam.position)
         gbuf = gbuffer.generate(scene, cam, c.width, c.height, c.block_size,
                                 accel=accel)
         return pathtrace.trace_image(scene, cam, c, frame_index, gbuf=gbuf,
                                      accel=accel)
 
     def __call__(self, scene, cam, frame_index):
-        from .models import clusters
-        for bad, why in ((scene.textures is not None, "a textured scene"),
-                         (clusters._USE_MXU,
-                          "the MXU route (DRTS_MXU_KERNEL)")):
-            if bad:
-                raise ValueError(f"no graph form of this frame yet: {why}")
-        self._mesh.check(scene)
+        self._choices.check(scene)
         dev = scene.center.device
         index = frame_index
         if not isinstance(index, torch.Tensor):

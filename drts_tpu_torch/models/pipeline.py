@@ -500,11 +500,23 @@ class RenderPipeline:
             band=band)
 
     def _restir_spatial(self, cur, surface, lights, frame_index,
-                        frame_count, scene=None, accel=None, band=None):
+                        frame_count, scene=None, accel=None, band=None,
+                        offsets=None):
         return restir.spatial_resampling(
             cur, surface, lights, self.cfg.restir, frame_index, scene=scene,
             accel=accel, block_size=self.cfg.block_size,
-            frame_count=frame_count, band=band)
+            frame_count=frame_count, band=band, offsets=offsets)
+
+    def shared_offsets(self, frame_count: int) -> torch.Tensor | None:
+        """The shared spatial offsets of frame `frame_count` as a
+        (spatial_samples, 2) int64 tensor of (dx, dy) on the host
+        (``restir.shared_offsets``), or None where the frame takes none."""
+        r = self.cfg.restir
+        if not (self.cfg.restir_enabled and r.spatial_enabled
+                and r.spatial_offset_mode == "shared"):
+            return None
+        return torch.tensor(restir.shared_offsets(frame_count, r),
+                            dtype=torch.int64)
 
     def _restir_final(self, cur, surface, scene, lights, accel):
         return restir.final_shading(cur, surface, scene, lights,
@@ -773,7 +785,7 @@ class RenderPipeline:
                      dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
                      reset: bool = False,
                      dyn: DynamicSettings | None = None, _run=None,
-                     group=None):
+                     group=None, offsets=None):
         """One App::Tick (update + render + post).
 
         ``_run(name, fn, *args)`` wraps every frame-graph stage (the
@@ -782,8 +794,10 @@ class RenderPipeline:
         its shards of the same state, or the whole one-device state) the
         frame is sharded (module docstring): it returns this rank's
         shards of the new state (``placement``) and its band of the
-        image's output rows. Returns (new_state, image (OH, OW, 3) in
-        [0, 1])."""
+        image's output rows. ``offsets`` (the graph frame's device input)
+        are the shared spatial offsets of this frame (``shared_offsets``),
+        read on the device; without, the host's frame count gives them.
+        Returns (new_state, image (OH, OW, 3) in [0, 1])."""
         if self.cluster_plan is None and not self._planned:
             raise RuntimeError("call init_state or build_plan first")
         c = self.cfg
@@ -824,7 +838,8 @@ class RenderPipeline:
                 cur = run(
                     "restir_spatial",
                     lambda cu, su, li, s2, a2: self._restir_spatial(
-                        cu, su, li, fi, state.frame_count, s2, a2, band),
+                        cu, su, li, fi, state.frame_count, s2, a2, band,
+                        offsets),
                     cur, surface, lights, scene, accel)
             di_diffuse, di_specular = run(
                 "restir_final", self._restir_final, cur, surface, scene,
@@ -913,28 +928,10 @@ class RenderPipeline:
         return FrameGraph(self)
 
 
-def graph_refusal(cfg: PipelineConfig, scene) -> str | None:
-    """Why a frame of `cfg` on `scene` has no graph form yet, or None: the
-    graphs hold the sphere frames (``PipelineConfig()``, the settings'
-    default frame, the ReSTIR frame) and the all-mesh frames (the all-mesh
-    ReSTIR frame, ``bench.mesh_pipeline_config``); the textured and
-    options frames and the MXU route stay eager for now."""
-    r = cfg.restir
-    for bad, why in (
-            (scene.textures is not None, "a textured scene"),
-            (cfg.accel_mode != "morton", f"accel_mode={cfg.accel_mode!r}"),
-            (clusters._USE_MXU, "the MXU route (DRTS_MXU_KERNEL)"),
-            (cfg.aperture_radius > 0.0, "the thin lens"),
-            (cfg.restir_enabled and r.spatial_offset_mode == "shared",
-             "shared spatial offsets (host-int rolls each frame)"),
-            (cfg.restir_enabled and "raytraced" in (
-                r.spatial_bias_correction, r.temporal_bias_correction),
-             "raytraced bias correction"),
-            (cfg.restir_enabled and r.temporal_prev_surface == "real",
-             "the real previous surface")):
-        if bad:
-            return why
-    return None
+def graph_refusal(group) -> str | None:
+    """Why a frame has no graph form yet, or None: the graphs hold every
+    one-device frame; the sharded frame (a `group`) stays eager for now."""
+    return "a group (the sharded frame)" if group is not None else None
 
 
 class FrameGraph:
@@ -944,11 +941,13 @@ class FrameGraph:
     cycle (the SHARC cadence: an update and a skip frame; without SHARC
     two alike frames), each after one eager warm-up frame on a side
     stream, all in one memory pool, and every call replays the variant of
-    its state's ``frame_count``. ``dt``, ``reset``, the poses and the
-    dynamic settings are device inputs the call writes before the replay
-    (``reset`` is a device flag: the history selects its fresh value on
-    the device; ``prev_pose=None`` is the pose itself, which the eager
-    frame equals bit for bit).
+    its state's ``frame_count``. ``dt``, ``reset``, the poses, the
+    dynamic settings and the shared spatial offsets are device inputs the
+    call writes before the replay (``reset`` is a device flag: the history
+    selects its fresh value on the device; ``prev_pose=None`` is the pose
+    itself, which the eager frame equals bit for bit; the offsets are
+    computed on the host from the state's ``frame_count``, as the eager
+    frame computes them).
 
     The state ping-pongs: each phase reads the buffers the phase before
     it wrote (its graph's outputs), and the last phase of the cycle copies
@@ -961,10 +960,10 @@ class FrameGraph:
 
     On CPU tensors a call runs the eager frame with the same inputs as
     the pieces the capture would make (``graphs.run_pieces``). Raises
-    ValueError for a frame outside the graphs' slice (``graph_refusal``),
-    a `group` or a mesh global changed since the capture
-    (``graphs.MeshChoices``), and graphs.CaptureError when a capture
-    fails; there is no eager fallback on the card. ``stats`` (graphs.GraphStats) counts
+    ValueError for a frame outside the graphs' slice (``graph_refusal``: a
+    `group`) or a global changed since the capture (``graphs.Choices``),
+    and graphs.CaptureError when a capture fails; there is no eager
+    fallback on the card. ``stats`` (graphs.GraphStats) counts
     frames, spill waves, host launches and the kernels' launches."""
 
     def __init__(self, pipe: RenderPipeline):
@@ -977,31 +976,32 @@ class FrameGraph:
         self._inputs = None     # graphs.Inputs: poses, dt, reset, dyn
         self._states = []       # each phase's input state
         self._frames = []       # each phase's graphs.Captured
-        self._mesh = graphs.MeshChoices()
+        self._choices = graphs.Choices()
 
     def _check(self, state, group):
-        if group is not None:
-            raise ValueError("the graph frame runs on one device: no group")
-        why = graph_refusal(self.pipe.cfg, state.scene)
+        why = graph_refusal(group)
         if why is not None:
             raise ValueError(f"no graph form of this frame yet: {why}")
-        self._mesh.check(state.scene)
+        self._choices.check(state.scene)
 
     @staticmethod
     def _device_inputs(inp, dev):
         """The call's inputs as the frame reads them: dt and reset as 0-d
-        device tensors."""
+        device tensors, the offsets on the device."""
         def as_dev(x, dtype):
             if isinstance(x, torch.Tensor):
                 return x.to(device=dev, dtype=dtype)
             return torch.full((), x, dtype=dtype, device=dev)
-        return dict(inp, dt=as_dev(inp["dt"], torch.float32),
-                    reset=as_dev(inp["reset"], torch.bool))
+        out = dict(inp, dt=as_dev(inp["dt"], torch.float32),
+                   reset=as_dev(inp["reset"], torch.bool))
+        if inp["offsets"] is not None:
+            out["offsets"] = inp["offsets"].to(dev)
+        return out
 
     def _run(self, state, inp):
         return self.pipe.render_frame(
             state, inp["pose"], inp["dt"], prev_pose=inp["prev_pose"],
-            reset=inp["reset"], dyn=inp["dyn"])
+            reset=inp["reset"], dyn=inp["dyn"], offsets=inp["offsets"])
 
     def __call__(self, state: FrameState, pose: CameraPose,
                  dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
@@ -1013,7 +1013,8 @@ class FrameGraph:
         inp = {"pose": pose,
                "prev_pose": prev_pose if prev_pose is not None else pose,
                "dt": dt, "reset": reset,
-               "dyn": dyn if dyn is not None else self._dyn}
+               "dyn": dyn if dyn is not None else self._dyn,
+               "offsets": self.pipe.shared_offsets(state.frame_count)}
         if not graphs.on_card(dev):
             dev_inp = self._device_inputs(inp, dev)
             (new_state, image), waves = graphs.run_pieces(

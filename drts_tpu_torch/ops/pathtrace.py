@@ -721,14 +721,15 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         rays_traced=rays_traced, counters=counters, spill_waves=spill_waves)
 
 
-def trace_image_graph(cfg: PathTraceConfig, plan=None):
+def trace_image_graph(cfg: PathTraceConfig, plan=None,
+                      accel: str = "morton"):
     """The counterpart of the reference's ``trace_image_jit``: a callable
     ``(scene, cam, frame_index) -> TraceOutput`` that runs the frame as
     CUDA graph replays, split at the spill decision (``graphs.TraceGraph``;
-    with a Morton cluster `plan`, the headline bench's frame: accel,
-    G-buffer, trace)."""
+    with a cluster `plan`, the headline bench's frame on the `accel` it is
+    a plan of, "morton" or "clustered": accel, G-buffer, trace)."""
     from .. import graphs
-    return graphs.TraceGraph(cfg, plan)
+    return graphs.TraceGraph(cfg, plan, accel)
 
 
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,

@@ -867,8 +867,8 @@ def shared_offsets(frame: int, cfg: ReSTIRConfig):
     """The ``shared`` mode's (dx, dy) per round of frame `frame`: one
     golden-angle disc offset per (round, frame), computed in float32 as
     the reference computes it from its int32 frame index (its
-    ``restir.py:1041-1047``), on the host, so torch.roll takes Python ints
-    and the card is not read."""
+    ``restir.py:1041-1047``), on the host, so the card is not read (a
+    graph frame writes them into its device input before each replay)."""
     f32 = np.float32
     out = []
     for s_i in range(cfg.spatial_samples):
@@ -924,31 +924,40 @@ def spatial_reach(cfg: ReSTIRConfig) -> int:
 
 def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
                        frame_index, with_surface: bool, frame_count=None,
-                       band=None):
+                       band=None, offsets=None):
     """cfg.spatial_samples neighbours: per round, the packed rows of one
     neighbour per pixel (a disc offset per pixel, or with ``shared`` one
-    roll of all rows by shared_offsets of `frame_count`, default
-    int(frame_index)), gathered once as one row (4 words, or 34 with the
-    neighbour's surface), and the similarity tests. Returns a list of
-    dicts. With a ``band`` (the sharded frame's) the buffers hold the
-    band's rows and the neighbours' rows come as a halo: clamped at the
-    frame's edges for disc offsets (``spatial_reach`` rows), wrapped for
-    the shared rolls (their largest row offsets)."""
+    shift of all rows by (dx, dy), ``packed[(y + dy) % h, (x + dx) % w]``),
+    gathered once as one row (4 words, or 34 with the neighbour's
+    surface), and the similarity tests. The shared offsets are `offsets`,
+    a (spatial_samples, 2) int64 tensor of (dx, dy) on the device (the
+    graph frame's input, which every replay rewrites), or else
+    shared_offsets of `frame_count` (default int(frame_index)), computed
+    on the host. Returns a list of dicts. With a ``band`` (the sharded
+    frame's) the buffers hold the band's rows and the neighbours' rows
+    come as a halo: clamped at the frame's edges for disc offsets
+    (``spatial_reach`` rows), wrapped for the shared shifts (their
+    largest row offsets, host ints)."""
     h, w = surface.depth.shape
+    dev = surface.depth.device
     row0 = band.start if band is not None else 0
-    py, px = _pixel_grid(h, w, surface.depth.device, row0)
+    py, px = _pixel_grid(h, w, dev, row0)
     rng = rng_mod.init(px, py, frame_index * 3 + 3)
     sdepth = torch.where(torch.isfinite(surface.depth), surface.depth, 1e8)
     packed = _pack_reservoirs(
         cur, sdepth, surface.normal,
         _pack_surface_rows(surface) if with_surface else None)
-    shared = None
-    if cfg.spatial_offset_mode == "shared":
-        shared = shared_offsets(int(frame_index) if frame_count is None
-                                else frame_count, cfg)
+    shared = cfg.spatial_offset_mode == "shared"
+    if shared and offsets is None:
+        offsets = shared_offsets(int(frame_index) if frame_count is None
+                                 else frame_count, cfg)
+        if band is None:
+            offsets = torch.tensor(offsets, dtype=torch.int64).to(dev)
+    elif shared and band is not None:
+        raise ValueError("device offsets take the one-device frame")
     full_h, lo = h, 0
-    if band is not None and shared is not None:
-        dys = [dy for _, dy in shared]
+    if band is not None and shared:
+        dys = [dy for _, dy in offsets]
         lo, hi = max(0, -min(dys)), max(0, max(dys))
         packed = band.halo([packed], lo, hi, cyclic=True)[0]
     elif band is not None:
@@ -956,16 +965,19 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
         packed = band.halo([packed], reach, reach)[0]
         full_h = band.height
         row0 = band.ext_span(reach, reach)[0]
+    elif shared:
+        ys, xs = torch.arange(h, device=dev), torch.arange(w, device=dev)
     flat = packed.reshape(-1, packed.shape[-1])
     out = []
     for s_i in range(cfg.spatial_samples):
         u3, rng = rng_mod.next_floats(rng, 3)
-        if shared is not None:
+        if shared:
             # Wrapped border lanes land on the far edge and fail the
             # similarity tests like any dissimilar neighbour.
-            dx, dy = shared[s_i]
+            dx, dy = offsets[s_i]
             if band is None:
-                rows = torch.roll(packed, shifts=(-dy, -dx), dims=(0, 1))
+                rows = packed.index_select(0, (ys + dy) % h).index_select(
+                    1, (xs + dx) % w)
             else:
                 rows = torch.roll(packed[lo + dy:lo + dy + h], shifts=-dx,
                                   dims=1)
@@ -996,7 +1008,8 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
                       lights: light_mod.Lights, cfg: ReSTIRConfig,
                       frame_index, scene=None, accel=None,
                       block_size: int = 16384,
-                      frame_count=None, band=None) -> Reservoirs:
+                      frame_count=None, band=None,
+                      offsets=None) -> Reservoirs:
     """Pairwise-MIS spatial reuse: each neighbour is balanced against the
     canonical reservoir with confidence (M) weights,
 
@@ -1012,7 +1025,7 @@ def _spatial_pairwise(cur: Reservoirs, surface: Surface,
                  and scene is not None)
     k = float(cfg.spatial_samples)
     neighbors = _spatial_neighbors(cur, surface, cfg, frame_index, True,
-                                   frame_count, band)
+                                   frame_count, band, offsets)
     phat_c, m_c = cur.phat, cur.m_count
 
     def cross(from_surface, idx, uv):
@@ -1065,21 +1078,24 @@ def spatial_resampling(cur: Reservoirs, surface: Surface,
                        frame_index, scene=None, accel=None,
                        block_size: int = 16384,
                        frame_count: int | None = None,
-                       band=None) -> Reservoirs:
+                       band=None, offsets=None) -> Reservoirs:
     """Spatial reuse over cfg.spatial_samples neighbours: 1/M in ``basic``
     mode (each neighbour's sample re-evaluated at this surface), else
     _spatial_pairwise. `frame_count` is the host's copy of `frame_index`
     for ``shared`` offsets (a tensor frame_index is read back without
-    it). With a ``band`` the buffers hold its rows (_spatial_neighbors)."""
+    it; `offsets`, the same offsets as a device tensor, take their
+    place). With a ``band`` the buffers hold its rows
+    (_spatial_neighbors)."""
     check_config(cfg)
     if cfg.spatial_bias_correction in ("pairwise", "raytraced"):
         return _spatial_pairwise(cur, surface, lights, cfg, frame_index,
-                                 scene, accel, block_size, frame_count, band)
+                                 scene, accel, block_size, frame_count, band,
+                                 offsets)
     phat, idx, uv = cur.phat, cur.light_index, cur.uv
     w_sum = phat * cur.w_out * cur.m_count
     m_count = cur.m_count
     for n in _spatial_neighbors(cur, surface, cfg, frame_index, False,
-                                frame_count, band):
+                                frame_count, band, offsets):
         n_phat = _target_pdf(surface, lights, n["idx"], n["uv"])[0]
         b_w = torch.where(n["m"] > 0, n_phat * n["w"] * n["m"], 0.0)
         idx, uv, phat, w_sum, m_count = _merge(

@@ -12,21 +12,21 @@ default frame with the thin lens and the raytraced ReSTIR modes (``bench.
 options_frame_config``), on one GPU. ``--mesh-cand`` sets
 ``ops.trimesh.MESH_CAND`` first; ``--accel none`` runs a sphere frame
 recipe (``--frame``, ``--default-frame``, ``--options-frame``) with no
-accel.
+accel, ``--accel clustered`` the path trace on the clustered accel.
 
     python -m drts_tpu_torch.profile_frame
         [--frame | --mesh | --mesh-frame | --default-frame | --upscaled
          | --mesh-pipeline | --textured-frame | --options-frame]
-        [--accel none] [--mesh-cand M] [--frames N] [--graph] [--out PATH]
+        [--accel none | clustered] [--mesh-cand M] [--frames N] [--graph]
+        [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
 the same traced frames, the frame time, device busy time and idle share,
 launches per frame, each hand-written kernel's device time and calls per
 frame, and the top device kernels by total time. The trace records device
 activity only (no host op tracing); the two frame times show by how much
-it stretches the frame. With ``--graph`` (the path trace, ``--frame``,
-``--default-frame``, ``--upscaled``, ``--mesh``, ``--mesh-frame``,
-``--mesh-pipeline``) the frames are CUDA graph replays
+it stretches the frame. With ``--graph`` the frames are CUDA graph
+replays
 (the warm frame captures them) and the object also holds the host
 launches of the last frame (graph launches, input writes) and the
 callable's stats. Needs a CUDA device.
@@ -69,15 +69,11 @@ def _frames_wall_us(step, frames: int) -> float:
     return (time.perf_counter() - start) * 1e6
 
 
-GRAPH_RECIPES = ("trace_frame", "restir_frame", "default_frame",
-                 "upscaled_frame", "mesh_frame", "mesh_restir_frame",
-                 "mesh_pipeline")
-
-
 def _frame_step(recipe: str, device, accel: str = "morton",
                 graph: bool = False):
     """A function that renders the next frame of the chosen recipe (a
-    sphere frame recipe with `accel` as its accel_mode); with `graph`,
+    sphere frame recipe with `accel` as its accel_mode, the path trace on
+    the clustered accel with "clustered"); with `graph`,
     as CUDA graph replays (the first call captures). Returns (step, the
     graph callable or None)."""
     frame = [0]
@@ -116,9 +112,10 @@ def _frame_step(recipe: str, device, accel: str = "morton",
         def step():
             box[0], _ = render(box[0], pose)
         return step, render if graph else None
-    setup = bench.make_trace_setup(device=device)
-    traced = (pathtrace.trace_image_graph(setup.cfg, setup.plan) if graph
-              else None)
+    setup = bench.make_trace_setup(
+        device=device, accel="clustered" if accel == "clustered" else "morton")
+    traced = (pathtrace.trace_image_graph(setup.cfg, setup.plan, setup.accel)
+              if graph else None)
 
     def step():
         if traced is not None:
@@ -190,19 +187,19 @@ def main(argv=None):
                         help="the default frame with the thin lens and the "
                              "raytraced ReSTIR modes")
     parser.add_argument("--accel", default="morton",
-                        choices=pipeline.ACCEL_MODES,
-                        help="accel_mode of the sphere frame recipes")
+                        choices=pipeline.ACCEL_MODES + ("clustered",),
+                        help="accel_mode of the sphere frame recipes "
+                             "(morton, none), or the path trace's accel "
+                             "(morton, clustered)")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES)
     parser.add_argument("--graph", action="store_true",
-                        help="frames as CUDA graph replays (the path "
-                             "trace, --frame, --default-frame, --upscaled, "
-                             "--mesh, --mesh-frame, --mesh-pipeline)")
+                        help="frames as CUDA graph replays")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
-    if args.accel != "morton" and not (args.frame or args.default_frame
-                                       or args.options_frame):
-        parser.error("--accel applies to --frame, --default-frame and "
+    sphere_frame = args.frame or args.default_frame or args.options_frame
+    if args.accel == "none" and not sphere_frame:
+        parser.error("--accel none applies to --frame, --default-frame and "
                      "--options-frame")
     trimesh.MESH_CAND = args.mesh_cand
     recipe = ("options_frame" if args.options_frame
@@ -213,10 +210,8 @@ def main(argv=None):
               else "default_frame" if args.default_frame
               else "upscaled_frame" if args.upscaled
               else "restir_frame" if args.frame else "trace_frame")
-    if args.graph and recipe not in GRAPH_RECIPES:
-        parser.error("--graph applies to the path trace, --frame, "
-                     "--default-frame, --upscaled, --mesh, --mesh-frame "
-                     "and --mesh-pipeline")
+    if args.accel == "clustered" and recipe != "trace_frame":
+        parser.error("--accel clustered applies to the path trace alone")
     result = profile_frames(args.frames, backend.device("cuda"), recipe,
                             args.accel, args.graph)
     text = json.dumps(result, indent=1)

@@ -20,6 +20,7 @@ rtol 1e-4, atol 1e-5.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,15 +50,21 @@ def scenes():
     return (host.scene, cam), (tscene, tcam)
 
 
+@functools.partial(jax.jit, static_argnums=2)
+def jax_trace(scene, cam, cfg, frame, di):
+    """The reference's trace_image under one jit (as its trace_image_jit,
+    with the DI handoff)."""
+    return jpathtrace.trace_image(scene, cam, cfg, frame, di_radiance=di)
+
+
 def run_both(scenes, frame, di=None, **kw):
     (jscene, jcam), (tscene, tcam) = scenes
     jcfg = jpathtrace.PathTraceConfig(width=W, height=H, block_size=4096,
                                       **kw)
     tcfg = tpathtrace.PathTraceConfig(width=W, height=H, block_size=4096,
                                       **kw)
-    jout = jpathtrace.trace_image(
-        jscene, jcam, jcfg, frame,
-        di_radiance=None if di is None else jnp.asarray(di))
+    jout = jax_trace(jscene, jcam, jcfg, frame,
+                     None if di is None else jnp.asarray(di))
     tout = tpathtrace.trace_image(
         tscene, tcam, tcfg, frame,
         di_radiance=None if di is None else torch.from_numpy(di))
@@ -139,9 +146,10 @@ def test_compacted_sharc_update_matches_jax(scenes):
     tscfg = tsharc.SHARCConfig(capacity_log2=12)
     kw = dict(width=32, height=32, bounces=4, block_size=4096,
               compact_from=1, compact_sort_partition_min=0)
-    jstate, jc = jpathtrace.sharc_update_trace(
-        jscene, jcam, jsharc.init_state(jscfg), jscfg,
-        jpathtrace.PathTraceConfig(**kw), 2)
+    jstate, jc = jax.jit(functools.partial(
+        jpathtrace.sharc_update_trace, sharc_cfg=jscfg,
+        cfg=jpathtrace.PathTraceConfig(**kw)))(
+        jscene, jcam, jsharc.init_state(jscfg), frame_index=2)
     tstate, tc = tpathtrace.sharc_update_trace(
         tscene, tcam, tsharc.init_state(tscfg, "cpu"), tscfg,
         tpathtrace.PathTraceConfig(**kw), 2)

@@ -90,7 +90,14 @@ bounds plus two eager runs' spread (SHARC's float atomics), physics'
 device dt, a Session resume; and the mesh frames: the mesh trace at
 MESH_CAND 0, 1 and 2 with and without a spill wave and the all-mesh
 ReSTIR frame bit for bit, the all-mesh pipeline (partition mode) and a
-mesh Session through a static set within those bounds.
+mesh Session through a static set within those bounds; and the rest of
+the one-device frames: the ReSTIR frame with the options frame's
+choices (shared offsets moving over four frames; a callable whose offsets
+stay the first frame's differs) and at accel_mode="none" bit for bit,
+the textured frame within the DEFAULT_* bounds plus two eager runs'
+spread, the headline frame on the MXU route at each DRTS_MXU_PREC (bit
+for bit where two eager runs agree) and on the clustered accel bit for
+bit.
 """
 
 import dataclasses
@@ -2221,3 +2228,166 @@ def test_graph_mesh_session_near_eager(dev):
         assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
             mean, off, spread)
         assert bool(torch.isfinite(b).all())
+
+
+# The rest of the one-device frames as graphs: the options frame, the
+# accel-none frame, the textured frame, the MXU route and the clustered
+# accel.
+
+OPTIONS_RESTIR = dict(spatial_bias_correction="raytraced",
+                      temporal_bias_correction="raytraced",
+                      temporal_prev_surface="real",
+                      spatial_offset_mode="shared")
+
+
+def assert_frames_equal(ie, ig, se, sg):
+    for a, b in zip(ie, ig):
+        assert torch.equal(word_bits(a), word_bits(b))
+    for (p, a), (_, b) in zip(tensor_leaves(se), tensor_leaves(sg)):
+        assert torch.equal(word_bits(a), word_bits(b)), p
+
+
+@pytest.mark.parametrize("frame", ["options", "accel_none"])
+def test_graph_route_frame_equals_eager(dev, frame):
+    """The ReSTIR frame (no SHARC) at 64x64 with the options frame's
+    choices (the thin lens, raytraced bias correction, the real previous
+    surface, shared offsets: four frames, so that the offsets move) or
+    with accel_mode="none": four graph replays (dt and reset changing)
+    equal the eager frames bit for bit, images and every state leaf."""
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.ops import restir
+    if frame == "options":
+        cfg = pipeline.restir_frame_config(
+            64, 64, 3, aperture_radius=0.05, focus_distance=4.0,
+            restir=restir.ReSTIRConfig(**OPTIONS_RESTIR))
+    else:
+        cfg = pipeline.restir_frame_config(64, 64, 3, accel_mode="none")
+    pipe, state, pose = graph_setup(dev, cfg)
+    dts, resets = (1 / 60, 1 / 120, 1 / 30, 1 / 60), (0, 0, 1, 0)
+    se, ie, _ = run_graph_frames(pipe, state, pose, False, dts, resets)
+    sg, ig, call = run_graph_frames(pipe, state, pose, True, dts, resets)
+    assert call.stats.frames == 4 and len(call.stats.capture_s) == 2
+    assert_frames_equal(ie, ig, se, sg)
+    if frame == "accel_none":
+        assert not any(call.stats.captured_launches[p]["frame"].get(k, 0)
+                       for p in (0, 1) for k in ("intersect_morton",
+                                                 "occlusion_morton"))
+
+
+def test_graph_options_frame_offsets_move(dev):
+    """The options frame's offsets reach every replay: four graph frames
+    equal four eager frames bit for bit, while a callable whose offsets
+    input is frozen at the first frame's (the capture's) differs."""
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.ops import restir
+    cfg = pipeline.restir_frame_config(
+        64, 64, 2, restir=restir.ReSTIRConfig(spatial_offset_mode="shared"))
+    pipe, state, pose = graph_setup(dev, cfg)
+    dts = (1 / 60,) * 4
+    se, ie, _ = run_graph_frames(pipe, state, pose, False, dts)
+    sg, ig, _ = run_graph_frames(pipe, state, pose, True, dts)
+    assert_frames_equal(ie, ig, se, sg)
+    first = pipe.shared_offsets(0)
+    frozen = pipe.shared_offsets
+    pipe.shared_offsets = lambda frame_count: first
+    try:
+        _, iz, _ = run_graph_frames(pipe, state, pose, True, dts)
+    finally:
+        pipe.shared_offsets = frozen
+    assert torch.equal(word_bits(iz[0]), word_bits(ie[0]))
+    assert not all(torch.equal(word_bits(a), word_bits(b))
+                   for a, b in zip(iz[1:], ie[1:]))
+
+
+def test_graph_textured_frame_near_eager(dev):
+    """The textured frame (PipelineConfig() at 64x64 on add_mesh_content
+    of the demo scene: alpha rounds, packed textures, textured emitters),
+    four frames: within the DEFAULT_* bounds plus the run-to-run spread
+    of two eager runs; B3 captured nowhere (the triangle lights gate it
+    off), the instance kernels captured."""
+    from drts_tpu_torch.models import myscene, pipeline
+    from drts_tpu_torch.ops import sharc
+    cfg = pipeline.PipelineConfig(
+        output_width=64, output_height=64, render_width=64,
+        render_height=64, bounces=3, block_size=4096,
+        sharc=sharc.SHARCConfig(capacity_log2=12))
+    pipe, _, pose = graph_setup(dev, cfg)
+    state = pipe.init_state(myscene.add_mesh_content(
+        myscene.build(oscillator_grid=3, device=dev), tessellation=2))
+    dts = (1 / 60,) * 4
+    _, ie, _ = run_graph_frames(pipe, state, pose, False, dts)
+    _, ie2, _ = run_graph_frames(pipe, state, pose, False, dts)
+    _, ig, call = run_graph_frames(pipe, state, pose, True, dts)
+    for a, a2, b in zip(ie, ie2, ig):
+        spread = image_off(a, a2)
+        mean, off = image_off(a, b)
+        assert mean <= 2e-4 + spread[0] and off <= 2e-3 + spread[1], (
+            mean, off, spread)
+        assert bool(torch.isfinite(b).all())
+    captured = call.stats.captured_launches
+    assert all(captured[p]["frame"].get("initial_light_candidates", 0) == 0
+               for p in (0, 1))
+    for k in ("bound_scan", "shared_blas_sweep", "shared_blas_any",
+              "intersect_mesh_instances_any", "intersect_morton"):
+        assert captured[0]["frame"].get(k, 0) > 0, k
+
+
+def mxu_trace_setup(dev, accel="morton"):
+    """The headline frame's setup at 128x128, 4 bounces, on `accel`."""
+    from drts_tpu_torch import bench
+    return bench.make_trace_setup(128, 128, 4, oscillator_grid=4,
+                                  device=dev, accel=accel)
+
+
+def trace_frames(setup, graph, frames=4):
+    """`frames` headline frames from index 1 (eager or through the graph
+    callable); returns (radiance images cloned, the callable or None)."""
+    from drts_tpu_torch import bench
+    from drts_tpu_torch.ops import pathtrace
+    call = (pathtrace.trace_image_graph(setup.cfg, setup.plan, setup.accel)
+            if graph else None)
+    out = []
+    for i in range(1, frames + 1):
+        o = (call(setup.scene, setup.cam, i) if graph
+             else bench.trace_frame(setup, torch.tensor(i, device=setup.
+                                                         scene.center.
+                                                         device)))
+        out.append(o.radiance.clone())
+    return out, call
+
+
+@pytest.mark.parametrize("prec", ["default", "high", "highest"])
+def test_graph_mxu_headline_near_eager(dev, prec, monkeypatch):
+    """The headline frame on the MXU route at each DRTS_MXU_PREC: four
+    graph replays against two eager runs; where the eager runs agree bit
+    for bit (the tensor-core sums are the same each launch), the graph
+    frames equal them; B12a captured, B1 not."""
+    monkeypatch.setattr(clusters, "_USE_MXU", True)
+    monkeypatch.setattr(ik, "MXU_PREC", prec)
+    setup = mxu_trace_setup(dev)
+    ie, _ = trace_frames(setup, False)
+    ie2, _ = trace_frames(setup, False)
+    ig, call = trace_frames(setup, True)
+    for a, a2, b in zip(ie, ie2, ig):
+        if torch.equal(word_bits(a), word_bits(a2)):
+            assert torch.equal(word_bits(a), word_bits(b))
+        else:
+            assert image_off(a, b)[0] <= image_off(a, a2)[0]
+    frame = call.stats.captured_launches[0]["frame"]
+    assert frame.get("intersect_morton_mxu", 0) > 0
+    assert frame.get("intersect_morton", 0) == 0
+
+
+def test_graph_clustered_trace_equals_eager(dev):
+    """The headline frame on the clustered accel: four graph replays equal
+    bench.trace_frame's frames bit for bit; B13 captured, B1 and B11
+    not."""
+    setup = mxu_trace_setup(dev, "clustered")
+    ie, _ = trace_frames(setup, False)
+    ig, call = trace_frames(setup, True)
+    for a, b in zip(ie, ig):
+        assert torch.equal(word_bits(a), word_bits(b))
+    frame = call.stats.captured_launches[0]["frame"]
+    assert frame.get("intersect_clustered", 0) > 0
+    assert frame.get("intersect_morton", 0) == frame.get(
+        "intersect_brute", 0) == 0

@@ -19,10 +19,11 @@ capture records on the card (drts_tpu_torch/graphs.py).
 - ``physics.step`` takes a 0-d float32 ``dt`` (the graph's device input):
   bit for bit the float call's, and within tests/test_torch_physics.py's
   tolerances of the reference's step jitted with a traced dt.
-- The refusals: a group, a textured scene (``myscene.add_mesh_content``:
-  the demo spheres and textured mesh instances; an all-mesh scene has a
-  graph form, tests/test_torch_graph_mesh.py) and shared spatial offsets
-  raise.
+- The refusals: a group raises, and a call after a module global that
+  the capture baked in changed (``clusters._USE_MXU`` on the frame,
+  ``intersect_kernels.MXU_PREC`` on the trace) raises. Every one-device
+  frame has a graph form (tests/test_torch_graph_mesh.py,
+  tests/test_torch_graph_routes.py).
 - The state's buffers under replay: with the capture replaced by a fake
   that re-runs the captured function on its inputs and writes its
   results into the outputs the capture made (what a replay does), the
@@ -48,7 +49,8 @@ from drts_tpu.models import myscene as jmyscene
 from drts_tpu.ops import physics as jphysics
 from drts_tpu_torch import convert, graphs
 from drts_tpu_torch.models import clusters, myscene, pipeline
-from drts_tpu_torch.ops import camera, pathtrace, physics, restir, sharc
+from drts_tpu_torch.ops import camera, intersect_kernels as ik, pathtrace
+from drts_tpu_torch.ops import physics, sharc
 from drts_tpu_torch.utils.checkpoint import leaves
 
 HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
@@ -238,25 +240,25 @@ def test_physics_takes_a_device_dt():
                                    rtol=0, atol=atol, err_msg=name)
 
 
-def test_refusals():
-    """A group, a textured scene and shared spatial offsets raise."""
+def test_refusals(monkeypatch):
+    """A group raises; so does a call after a global the capture baked in
+    changed (the MXU opt-in on the frame, its precision on the trace)."""
     pipe, state, pose = setup(small_default())
     call = pipe.render_frame_graph()
     with pytest.raises(ValueError, match="group"):
         call(state, pose, group=object())
-    textured = myscene.add_mesh_content(
-        myscene.build(oscillator_grid=2, device="cpu"), tessellation=1)
-    tpipe = pipeline.RenderPipeline(small_default(), "cpu")
-    with pytest.raises(ValueError, match="a textured scene"):
-        tpipe.render_frame_graph()(tpipe.init_state(textured), pose)
-    with pytest.raises(ValueError, match="a textured scene"):
-        pathtrace.trace_image_graph(pathtrace.PathTraceConfig(
-            width=8, height=8))(textured.scene, camera.make_camera(
-                (0.0, 0.0, -5.0), device="cpu"), 0)
-    spipe, sstate, spose = setup(small_default(
-        restir=restir.ReSTIRConfig(spatial_offset_mode="shared")))
-    with pytest.raises(ValueError, match="shared"):
-        spipe.render_frame_graph()(sstate, spose)
+    call(state, pose)
+    monkeypatch.setattr(clusters, "_USE_MXU", not clusters._USE_MXU)
+    with pytest.raises(ValueError, match="_USE_MXU"):
+        call(state, pose)
+    scene, cam, plan, cfg = trace_setup()
+    trace = pathtrace.trace_image_graph(
+        dataclasses.replace(cfg, width=8, height=8, bounces=2), plan)
+    trace(scene, cam, 0)
+    monkeypatch.setattr(ik, "MXU_PREC", "highest" if ik.MXU_PREC != "highest"
+                        else "high")
+    with pytest.raises(ValueError, match="MXU_PREC"):
+        trace(scene, cam, 1)
 
 
 class FakeCapture:

@@ -16,7 +16,8 @@ candidate loop, against the reference's, on the CPU.
   same converted ``FrameState``.
 
 The reference runs its Pallas kernels in interpret mode
-(``intersect.BACKEND = "interpret"``); the port takes its plain versions.
+(``intersect.BACKEND = "interpret"``), each stage or frame under one jit;
+the port takes its plain versions.
 Inputs of the ray tests come from numpy seeds.
 
 Tolerances (measured on this data in brackets), those of
@@ -170,7 +171,9 @@ def make_stage_case(name):
     cam = jcamera.make_camera((0.0, 1.0, -6.0), (0.0, -0.15, 1.0),
                               aspect=1.0)
     cfg = jrestir.ReSTIRConfig(**cfg_kw)
-    with interpret_mode():
+
+    @jax.jit
+    def stages(scene, cam):
         gbuf = jgbuffer.generate(scene, cam, W, H, 4096)
         lights = jlight.prepare(scene)
         surface = jrestir.make_surface(gbuf)
@@ -179,6 +182,10 @@ def make_stage_case(name):
                                        FRAME, 4096)
         diffuse, specular = jrestir.final_shading(cur, surface, scene,
                                                   lights, 4096)
+        return lights, surface, grid, cur, diffuse, specular
+
+    with interpret_mode():
+        lights, surface, grid, cur, diffuse, specular = stages(scene, cam)
     ref = dict(cur=np_tree(cur), diffuse=np.asarray(diffuse),
                specular=np.asarray(specular), lights=np_tree(lights))
     port = dict(scene=convert.scene(np_tree(scene), "cpu"),
@@ -281,7 +288,7 @@ def test_occluded_scene_matches(name):
     o, d = o.reshape(lead + (3,)), d.reshape(lead + (3,))
     dist, excl = dist.reshape(lead), excl.reshape(lead)
     with interpret_mode():
-        want = np.asarray(jtrace.occluded_scene(
+        want = np.asarray(jax.jit(jtrace.occluded_scene, static_argnums=5)(
             jsc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(dist),
             jnp.asarray(excl), 4096))
     got = ttrace.occluded_scene(tsc, T(o), T(d), T(dist), T(excl).long(),

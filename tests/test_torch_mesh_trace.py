@@ -6,8 +6,8 @@ alpha-tested away), at 2 and 3 bounces.
 
 The reference runs its Pallas kernels in interpret mode
 (``intersect.BACKEND = "interpret"``: the bounds pre-pass, the bound scan,
-the shared-BLAS sweeps and the serial backstop), un-jitted, once per
-module. The port takes its plain versions. Held, as
+the shared-BLAS sweeps and the serial backstop) under its
+``trace_image_jit``, once per module. The port takes its plain versions. Held, as
 tests/test_torch_pathtrace.py holds the sphere frame: ``primary_valid``
 equal, the ray count equal, radiance within 1e-3 on >= 99.5% of pixels
 (the remainder may take another branch on a last-bit difference: XLA:CPU
@@ -85,7 +85,7 @@ def frames():
             old = jintersect.BACKEND
             jintersect.BACKEND = "interpret"
             try:
-                jout = to_np(jpathtrace.trace_image(
+                jout = to_np(jpathtrace.trace_image_jit(
                     jsc, jcam, jpathtrace.PathTraceConfig(**kw), 0))
             finally:
                 jintersect.BACKEND = old
