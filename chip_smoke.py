@@ -238,14 +238,16 @@ Phases, one printed line or more each; any failure exits non-zero:
    obs.device_trace and obs.pass_scope: the Chrome trace must hold the
    scope and a launch of each of the five kernels. Every frame of (a)-(c)
    is a finite (1080, 1920, 3) image in [0, 1] that launched B1, B2, B3,
-   B4 and B11.
+   B4 and B11. The phase names the eager form (``app --eager``,
+   ``Session(graph=False)``): it counts each frame's launches.
 22. banded: the sharded multi-device frame (drts_tpu_torch/parallel) at
    PipelineConfig(), 1920x1080, three frames. (a) One NCCL rank
    (multihost.initialize with a localhost coordinator, world size 1):
    render_frame(group=...) against render_frame(group=None) from the same
    state, bit for bit (the image and every FrameState leaf) on the SHARC
    skip frame and within DEFAULT_* on the update frames, the same
-   launches. (c) graft_entry.dryrun_multichip(1) on that group. (b) Two
+   launches. (c) graft_entry.dryrun_multichip(1, graph=False) on that
+   group (its graph form is phase 28's). (b) Two
    gloo ranks on the one card (multihost.spawn; NCCL takes one card per
    rank), every collective on CUDA tensors, from
    RenderPipeline.shard_state of the start state: each rank's band of
@@ -262,7 +264,8 @@ Phases, one printed line or more each; any failure exits non-zero:
    each to its plain version and times it on its band's inputs (B4 on
    the gathered histories, writing its band's rows). (d) The time of
    each.
-23. record: python -m drts_tpu_torch.bench --record, the reference's
+23. record: python -m drts_tpu_torch.bench --record --eager (the eager
+   form: the phase counts eager launches), the reference's
    bench record (bench.py:main: the headline path trace, the full
    pipeline, the upscaled frame, the mesh trace at 2 and 8 bounces, the
    all-mesh pipeline, the port's fidelity record), run as a user runs it,
@@ -372,6 +375,22 @@ Phases, one printed line or more each; any failure exits non-zero:
    ROUTE_GRAPH_NEEDS (B12a, B12b and B13 among them) and none of
    ROUTE_GRAPH_NEVER. Each prints ms, host launches, capture seconds and
    peak memory.
+28. graphs: the sharded frame. (a) One NCCL rank (a localhost
+   coordinator, world size 1), BANDED_GRAPH_FRAMES frames of
+   PipelineConfig() at 1920x1080 through render_frame_graph()(...,
+   group=), each against the eager render_frame(group=) from the same
+   state: the image and every FrameState leaf bit for bit on the SHARC
+   skip frame, within DEFAULT_* on the update frames; each eager frame's
+   launches of B1, B2, B3, B4 and B11 equal to its phase's captured
+   frame plus its spill waves'; an all-reduce (the counters') captured in
+   every phase; then BANDED_GRAPH_FRAMES frames of each form timed (CUDA
+   events). (b) graft_entry.dryrun_multichip(1) as graph frames, then
+   bench_mesh's 1080p frame traced as the rank's band through
+   trace_image_graph(cfg, rows=) against the eager banded trace, the
+   radiance bit for bit and the launches of B5, B6, B7 and B11 against
+   the capture (run_graph_trace). (c) A gloo group on the card refused
+   with ValueError. Prints ms, host launches, capture seconds and peak
+   memory.
 Then a "kernels" JSON line, one entry per kernel and path: B1, B2, B3, B4
 and B11 ("intersect_brute", K = 128 lights) with the launches of phase 6
 and the times of phases 2 and 5; B5, B6, B7 and B11 once more
@@ -419,11 +438,16 @@ frame and the times on its primary rays; and B1, B2, B3, B4 and B11 once
 more ("...@graph") with the launches the default frame's graph replays
 made in phase 25 (a) (the capture's counts a frame, by cadence phase and
 spill wave) and the max_abs_err, times and bounds of "...@default": the
-script times no kernel inside a replayed graph (``profile_frame --graph``
+script times no kernel inside a replayed graph (``profile_frame``
 traces their device times there); and B4-B11 once more
 ("...@mesh_graph") with the launches all of phase 26's replays made (the
 captures' counts) and the readings of "@mesh" (B5, B6, B7, B11: phase
 8; B10: phase 12) and "@mesh_pipeline" (B4, B8, B9: phase 16); and
+B1, B2, B3, B4 and B11 once more ("...@banded_graph") with the launches
+phase 28 (a)'s replays made (the captures' counts) and the readings of
+"...@banded", and B5, B6, B7 and B11 once more ("...@banded_graph",
+"intersect_brute@banded_mesh_graph") with the launches of phase 28 (b)'s
+banded trace replays and the readings of "@mesh" (phase 8); and
 once more for each part of phase 27 ("...@textured_graph",
 "...@options_graph", "...@accel_none_graph", "...@mxu_graph_<prec>",
 "intersect_clustered@clustered_graph") with the launches its replays made
@@ -3000,9 +3024,11 @@ def check_shell_frames(label, frames):
 
 
 def shell_session(session_mod, myscene, settings, dev):
+    # Eager frames: the phase counts each frame's launches.
     return session_mod.Session(settings, output_width=1920,
                                output_height=1080,
-                               host=myscene.build(device=dev), device=dev)
+                               host=myscene.build(device=dev), device=dev,
+                               graph=False)
 
 
 def run_shell(backend, bench, smi, dev):
@@ -3031,7 +3057,8 @@ def run_shell(backend, bench, smi, dev):
         backend.reset_launches()
         with per_frame_launches(backend, session_mod, frames), \
                 contextlib.redirect_stdout(io.StringIO()) as text:
-            app.main(["--width", "1920", "--height", "1080", "--settings",
+            app.main(["--eager", "--width", "1920", "--height", "1080",
+                      "--settings",
                       settings_path, "render", "--frames", "4", "--out-dir",
                       out, "--resume", ckpt, "--checkpoint-every", "2",
                       "--metrics-out", metrics])
@@ -3140,7 +3167,8 @@ def run_shell(backend, bench, smi, dev):
         wide = session_mod.Session(
             defaults, output_width=1920, output_height=1080,
             host=myscene.build(device=dev),
-            config_overrides={"block_size": 32768}, device=dev)
+            config_overrides={"block_size": 32768}, device=dev,
+            graph=False)
         wide_ms = warm_ms(wide)
         del wide
         stats, _ = bench.bench_frame(
@@ -3434,7 +3462,7 @@ def run_banded(backend, smi, dev):
 
     # (c) the dry run on the one-rank group ----------------------------------
     t0 = time.perf_counter()
-    graft_entry.dryrun_multichip(1)
+    graft_entry.dryrun_multichip(1, graph=False)
     tc = time.perf_counter() - t0
     dist.destroy_process_group()
     log(f"banded (c) dryrun_multichip(1): passed in {tc:.1f} s | {smi}")
@@ -3575,7 +3603,8 @@ def run_record(bench, smi):
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "drts_tpu_torch.bench", "--record"],
+        [sys.executable, "-m", "drts_tpu_torch.bench", "--record",
+         "--eager"],
         cwd=HERE, capture_output=True, text=True, timeout=RECORD_TIMEOUT)
     seconds = time.perf_counter() - t0
     notes = [line for line in proc.stderr.splitlines()
@@ -4665,6 +4694,170 @@ def run_route_graphs(backend, bench, clusters, ik, pathtrace, smi, dev):
             for entry, (part, _) in ROUTE_GRAPH_READINGS.items()}
 
 
+# Phase 28: the sharded graph frame. The frames each part compares and
+# times, the banded mesh trace's kernels and the readings each
+# "...@banded_graph" entry carries.
+BANDED_GRAPH_FRAMES = 3
+BANDED_MESH_KERNELS = ("bound_scan", "shared_blas_sweep",
+                       "intersect_mesh_instances", "intersect_brute")
+# entry -> the reading it carries
+BANDED_GRAPH_READINGS = {
+    **{f"{name}@banded_graph": f"{name}@banded" for name in GRAPH_KERNELS},
+    "bound_scan@banded_graph": "bound_scan",
+    "shared_blas_sweep@banded_graph": "shared_blas_sweep",
+    "intersect_mesh_instances@banded_graph": "intersect_mesh_instances",
+    "intersect_brute@banded_mesh_graph": "intersect_brute@mesh"}
+
+
+@contextlib.contextmanager
+def captured_all_reduces(counts):
+    """Count into counts[0] every torch.distributed.all_reduce made while
+    the current stream captures a CUDA graph."""
+    import torch.distributed as dist
+    inner = dist.all_reduce
+
+    def counted(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            counts[0] += 1
+        return inner(*args, **kw)
+    dist.all_reduce = counted
+    try:
+        yield
+    finally:
+        dist.all_reduce = inner
+
+
+def run_banded_graphs(backend, bench, pathtrace, smi, dev):
+    """Phase 28: (a) the sharded PipelineConfig() frame at 1920x1080 on one
+    NCCL rank through render_frame_graph()(..., group=) against the eager
+    sharded frame from the same state, (b) dryrun_multichip(1) as graph
+    frames and bench_mesh's frame traced as the rank's band through
+    trace_image_graph(cfg, rows=), (c) a gloo group on the card refused.
+    Returns the launches of the "...@banded_graph" entries."""
+    import torch.distributed as dist
+
+    from drts_tpu_torch import graft_entry
+    from drts_tpu_torch.models import pipeline
+    from drts_tpu_torch.parallel import mesh, multihost
+
+    t0 = time.perf_counter()
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                         device="cuda")
+    group = multihost.global_group()
+    cfg = pipeline.PipelineConfig()
+    pipe, state, pose = graft_entry._setup(cfg, dev)
+    call = pipe.render_frame_graph()
+    reduces = [0]
+    e_launch, e_waves, phases = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(BANDED_GRAPH_FRAMES):
+        update = state.frame_count % cfg.sharc_update_period == 0
+        phases.append(state.frame_count % call.cycle)
+        got = {}
+
+        def eager():
+            got["state"], img = pipe.render_frame(state, pose, group=group)
+            return img
+        launches, waves, (img_e,) = eager_frames(backend, pathtrace, eager,
+                                                 1)
+        s_e = got.pop("state")
+        e_launch += launches
+        e_waves += waves
+        with captured_all_reduces(reduces):
+            s_g, img_g = call(state, pose, group=group)
+        torch.cuda.synchronize()
+        mean, off, dmax = frame_diff(img_g, img_e)
+        exact = bool(torch.equal(img_g.view(torch.int32),
+                                 img_e.view(torch.int32)))
+        same = mesh.replica_checksums(s_g) == mesh.replica_checksums(s_e)
+        log(f"banded graph (a) nccl 1 rank: frame {i} sharc_update={update} "
+            f"image_mean_abs_diff={mean!r} pixels_off_{DEFAULT_OFF}={off!r} "
+            f"max_abs_diff={dmax!r} image_bit_exact={exact} "
+            f"state_bit_exact={same} eager_launches="
+            f"{json.dumps(launches[0])} spill_waves={waves[0]} | {smi}")
+        if not bool(torch.isfinite(img_g).all()):
+            raise AssertionError(f"banded graph (a) frame {i}: not finite")
+        if not update and not (exact and same):
+            raise AssertionError(f"banded graph (a) frame {i}: a SHARC skip "
+                                 f"frame differs from the eager frame")
+        if mean > DEFAULT_MEAN or off > DEFAULT_OFF_SHARE:
+            raise AssertionError(f"banded graph (a) frame {i}: off the "
+                                 f"eager frame")
+        state = graphs_clone(s_g)
+        del s_e
+    graph_launches_check("banded frame", call, phases, e_launch, e_waves)
+    if reduces[0] < call.cycle:
+        raise AssertionError(f"banded graph (a): {reduces[0]} all-reduces "
+                             f"captured in {call.cycle} phases")
+    peak = torch.cuda.max_memory_allocated()
+    box = [state]
+
+    def graph():
+        box[0], img = call(box[0], pose, group=group)
+        return img
+
+    def eager():
+        box[0], img = pipe.render_frame(box[0], pose, group=group)
+        return img
+    graph_ms = frame_marks(graph, BANDED_GRAPH_FRAMES)
+    box[0] = graphs_clone(box[0])
+    eager_ms = frame_marks(eager, BANDED_GRAPH_FRAMES)
+    ta = time.perf_counter() - t0
+    log(f"banded graph (a): 1920x1080 PipelineConfig() frames="
+        f"{BANDED_GRAPH_FRAMES} eager_ms {spread(eager_ms)} graph_ms "
+        f"{spread(graph_ms)} host_launches_per_graph_frame="
+        f"{call.stats.last_host_launches} captured="
+        f"{json.dumps(call.stats.captured_launches)} capture_s="
+        f"{json.dumps(call.stats.capture_s)} all_reduces_captured="
+        f"{reduces[0]} spill_waves graph={call.stats.spill_waves} "
+        f"peak_bytes={peak} in {ta:.1f} s | {smi}")
+    out = {f"{name}@banded_graph": call.stats.launches.get(name, 0)
+           for name in GRAPH_KERNELS}
+    del pipe, state, call, box
+
+    # (b) the dry run and the banded mesh trace as graphs -------------------
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(1)
+    scene, cam, mcfg = bench.make_mesh_setup(device=dev)
+    rows = mesh.group_band(mcfg.height, group)
+    st = run_graph_trace(
+        backend, pathtrace, smi, dev, "banded mesh trace",
+        lambda index: pathtrace.trace_image(scene, cam, mcfg, index,
+                                            rows=rows),
+        pathtrace.trace_image_graph(mcfg, rows=rows), scene, cam,
+        MESH_GRAPH_KERNELS, BANDED_GRAPH_FRAMES)
+    del scene, cam
+    for name in BANDED_MESH_KERNELS:
+        if st.launches.get(name, 0) <= 0:
+            raise AssertionError(f"banded graph (b): {name} was not "
+                                 f"launched inside the banded trace")
+    out.update({f"{name}@banded_graph": st.launches[name]
+                for name in BANDED_MESH_KERNELS[:3]})
+    out["intersect_brute@banded_mesh_graph"] = st.launches["intersect_brute"]
+    tb = time.perf_counter() - t0
+
+    # (c) a gloo group on the card has no graph form ------------------------
+    gloo = dist.new_group([0], backend="gloo")
+    pipe, state, pose = graft_entry._setup(
+        graft_entry._config(64, 64, bounces=2, spp=1), dev)
+    try:
+        pipe.render_frame_graph()(state, pose, group=gloo)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("banded graph (c): a gloo group on the card "
+                             "was not refused")
+    dist.destroy_process_group()
+    log(f"banded graph (b): dryrun_multichip(1) and the banded mesh trace "
+        f"as graphs in {tb:.1f} s; (c) gloo refused: {refused!r} | {smi}")
+    return out
+
+
+def graphs_clone(tree):
+    from drts_tpu_torch import graphs
+    return graphs.clone_tree(tree)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no GPU (torch.cuda.is_available() is false)",
@@ -5190,6 +5383,12 @@ def main():
                                      smi, dev))
     log(f"route graphs: phase 27 took {time.perf_counter() - t0:.1f} s")
 
+    # 28. the sharded graph frame: one NCCL rank, the dry run and the
+    # banded mesh trace as graphs, gloo refused ---------------------------
+    t0 = time.perf_counter()
+    launches.update(run_banded_graphs(backend, bench, pathtrace, smi, dev))
+    log(f"banded graphs: phase 28 took {time.perf_counter() - t0:.1f} s")
+
     rows = {
         "intersect_morton": ("drts_tpu_torch/csrc/intersect.cu",
                              "drts_tpu/ops/intersect_pallas.py:311"),
@@ -5336,6 +5535,8 @@ def main():
                  for name, reading in MESH_GRAPH_READINGS.items()})
     rows.update({entry: rows[reading]
                  for entry, (_, reading) in ROUTE_GRAPH_READINGS.items()})
+    rows.update({entry: rows[reading]
+                 for entry, reading in BANDED_GRAPH_READINGS.items()})
     fields["intersect_morton"] = {
         "max_abs_err": max(k["max_abs_err"] for k in b1),
         "ms": b1[0]["ms"], "plain_ms": b1[0]["plain_ms"],
@@ -5356,6 +5557,10 @@ def main():
     # And the frames of phase 27: the readings of their eager frames'
     # kernels on their own inputs (phases 2, 5, 19, 20 and 24).
     for entry, (_, reading) in ROUTE_GRAPH_READINGS.items():
+        fields[entry] = fields[reading]
+    # And phase 28's: the banded frame's (phase 22) and the mesh trace's
+    # (phase 8) readings.
+    for entry, reading in BANDED_GRAPH_READINGS.items():
         fields[entry] = fields[reading]
     kernels = []
     for name, (src, replaces) in rows.items():

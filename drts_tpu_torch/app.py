@@ -10,14 +10,14 @@ and the interactive parts of App.cpp). Subcommands:
 Settings come from the JSON config (``config.py``) under ``Settings/`` in
 the working directory, as MyAppData's. ``--device`` picks the device
 (default ``cuda``; the frame runs on the CPU only when asked to, and
-``cuda`` raises where PyTorch sees no card). ``--graph`` steps the
-Session through CUDA graph replays of the frame (``Session(graph=True)``;
-the sphere frames only).
+``cuda`` raises where PyTorch sees no card). The Session steps through
+CUDA graph replays of the frame (``Session(graph=True)``, the reference's
+jitted step); ``--eager`` runs each frame eagerly instead.
 
     python -m drts_tpu_torch.app --width 1920 --height 1080 render --frames 8
     python -m drts_tpu_torch.app --device cpu --width 64 --height 64 \\
         render --frames 2
-    python -m drts_tpu_torch.app --graph --width 1920 --height 1080 \\
+    python -m drts_tpu_torch.app --eager --width 1920 --height 1080 \\
         render --frames 8
 """
 
@@ -62,7 +62,7 @@ def _build_session(args):
     return session_mod.Session(settings, output_width=args.width,
                                output_height=args.height, host=host,
                                config_overrides=overrides, device=device,
-                               graph=args.graph)
+                               graph=not args.eager)
 
 
 def _parse_mutations(args):
@@ -378,9 +378,9 @@ def main(argv=None):
                         "denoiser history validation)")
     p.add_argument("--no-physics", action="store_true")
     p.add_argument("--no-textures", action="store_true")
-    p.add_argument("--graph", action="store_true",
-                   help="run each frame as CUDA graph replays (the "
-                        "reference's jitted step; sphere frames only)")
+    p.add_argument("--eager", action="store_true",
+                   help="run each frame eagerly (default: CUDA graph "
+                        "replays, the reference's jitted step)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the frame (default cuda; cpu runs "
                         "the kernels' plain versions)")

@@ -83,15 +83,19 @@ line. Each bench's launches, frames and spill waves go to stderr.
 ``--accel clustered`` runs the path trace on the clustered accel
 (``make_trace_setup(accel="clustered")``: B13).
 
-``--graph`` runs any recipe but the record as CUDA graph replays
-(``pathtrace.trace_image_graph``, ``RenderPipeline.render_frame_graph``):
-the warm frame captures, the timed frames replay; passes_ms stays the
-eager frames' stage times. The frame and mesh lines also carry each
-timed frame's ms between CUDA events at the frame boundaries
-(frame_ms_each, frame_ms_median) and the peak device memory, and with ``--graph`` the callable's stats (capture
-seconds, host launches, the kernels' launches the replays made, spill
-waves); the path trace's line keeps the reference's keys without
-``--graph`` and notes those on stderr.
+Every recipe, the record included, runs its frames as CUDA graph
+replays (``pathtrace.trace_image_graph``,
+``RenderPipeline.render_frame_graph``), as the reference's bench times
+jitted frames: the warm frame captures, the timed frames replay;
+passes_ms stays the eager frames' stage times. ``--eager`` runs every
+frame eagerly instead. The frame and mesh lines also carry each timed
+frame's ms between CUDA events at the frame boundaries (frame_ms_each,
+frame_ms_median) and the peak device memory, and for graph frames the
+callable's stats (capture seconds, host launches, the kernels' launches
+the replays made, spill waves); the path trace's line keeps the
+reference's keys and notes those on stderr. The record's keys are the
+reference's either way.
+``--device`` picks the device (default cuda).
 
     python -m drts_tpu_torch.bench [--iters N]
     DRTS_MXU_KERNEL=1 python -m drts_tpu_torch.bench --frame [--iters N]
@@ -108,8 +112,8 @@ waves); the path trace's line keeps the reference's keys without
     python -m drts_tpu_torch.bench --record [--fast]
     python -m drts_tpu_torch.bench [--frame | --default-frame | --upscaled
         | --mesh [--mesh-cand M] | --mesh-frame | --mesh-pipeline
-        | --textured-frame | --options-frame] [--accel ACCEL]
-        --graph [--iters N]
+        | --textured-frame | --options-frame | --record] [--accel ACCEL]
+        --eager [--iters N]
 
 Each prints one JSON line: the path-trace frame with the keys of the
 reference bench's headline (metric, value, unit, frame_ms,
@@ -524,46 +528,49 @@ def counter_report(counters: dict) -> dict:
     return report
 
 
-def _checked_frames(cfg, iters, device, mesh=False, profile=False):
+def _checked_frames(cfg, iters, device, mesh=False, profile=False,
+                    graph=False):
     """bench_frame on the textured build of the demo scene; raises on a
     non-finite image and drops it. Returns the stats."""
     stats, image = bench_frame(iters=iters, device=device, mesh=mesh,
-                               cfg=cfg, load_textures=True, profile=profile)
+                               cfg=cfg, load_textures=True, profile=profile,
+                               graph=graph)
     if not bool(torch.isfinite(image).all()):
         raise RuntimeError("non-finite image")
     return stats
 
 
-def bench_full_pipeline(iters: int = 4, device="cuda"):
+def bench_full_pipeline(iters: int = 4, device="cuda", graph=False):
     """The reference's ``bench_full_pipeline``: the frame graph at native
     1920x1080, 8 bounces, 1 spp, block 32,768, on the textured build; one
     warm frame, then `iters` timed. Returns (frame ms, passes_ms rounded to
     2 places, counter_report of the last timed frame, stats): the stages
     are timed by stage_timer over one SHARC cadence after the timed
-    frames."""
+    frames; with `graph`, the warm and timed frames are graph replays."""
     cfg = default_frame_config(block_size=32768)
-    stats = _checked_frames(cfg, iters, device, profile=True)
+    stats = _checked_frames(cfg, iters, device, profile=True, graph=graph)
     passes = {k: round(v, 2) for k, v in stats["passes_ms"].items()}
     return stats["frame_ms"], passes, counter_report(stats["counters"]), \
         stats
 
 
-def bench_upscaled(iters: int = 4, device="cuda"):
+def bench_upscaled(iters: int = 4, device="cuda", graph=False):
     """The reference's ``bench_upscaled``: default_frame_config(upscaled=
     True), 960x540 upscaled by TAA to 1920x1080, on the textured build; one
-    warm frame, then `iters` timed. Returns (frame ms, stats)."""
+    warm frame, then `iters` timed (graph replays with `graph`). Returns
+    (frame ms, stats)."""
     stats = _checked_frames(default_frame_config(upscaled=True), iters,
-                            device)
+                            device, graph=graph)
     return stats["frame_ms"], stats
 
 
-def bench_mesh_pipeline(iters: int = 2, device="cuda"):
+def bench_mesh_pipeline(iters: int = 2, device="cuda", graph=False):
     """The reference's ``bench_mesh_pipeline``: mesh_pipeline_config() on
     the all-mesh scene (the textured build as instances of a
-    tessellation-4 geosphere); one warm frame, then `iters` timed. Returns
-    (frame ms, stats)."""
+    tessellation-4 geosphere); one warm frame, then `iters` timed (graph
+    replays with `graph`). Returns (frame ms, stats)."""
     stats = _checked_frames(mesh_pipeline_config(), iters, device,
-                            mesh=True)
+                            mesh=True, graph=graph)
     return stats["frame_ms"], stats
 
 
@@ -598,7 +605,7 @@ def _note(msg):
 
 
 def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
-           note=_note):
+           note=_note, graph: bool = False):
     """The reference bench's record (``bench.py:main``): the headline
     path trace, then (unless `fast`) the full pipeline with its stage
     times and counters, the upscaled frame, the mesh trace at 2 and at 8
@@ -606,9 +613,11 @@ def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
     keeps what ran before it; then the port's fidelity record from
     `fidelity_path` where that file exists. Each bench's launches per
     kernel, frames and spill waves go to `note` as one line, ``bench:
-    launches {...}``. Returns (record, errors); the errors, each prefixed
-    with its bench's name as the reference does, are in the record too
-    when there are any.
+    launches {...}`` (with `graph`, every bench's warm and timed frames
+    are graph replays, and the line adds the launches the replays made,
+    "graph_launches", to the eager and captured ones). Returns (record,
+    errors); the errors, each prefixed with its bench's name as the
+    reference does, are in the record too when there are any.
 
     Where it differs from the reference, on purpose: `fast` stands for
     DRTS_BENCH_FAST; "device" is the card's name; there is no compile
@@ -637,14 +646,17 @@ def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
         finally:
             if device.type == "cuda":
                 torch.cuda.empty_cache()
-        note("bench: launches " + json.dumps({
-            "bench": name, "frames": stats["frames"],
-            "spill_waves": stats["spill_waves"],
-            "launches": dict(backend.LAUNCHES)}))
+        line = {"bench": name, "frames": stats["frames"],
+                "spill_waves": stats["spill_waves"],
+                "launches": dict(backend.LAUNCHES)}
+        if "graph" in stats:
+            line["graph_launches"] = stats["graph"]["launches"]
+        note("bench: launches " + json.dumps(line))
 
     def trace():
         note("bench: trace...")
-        stats, out = bench_trace(device=device, load_textures=True)
+        stats, out = bench_trace(device=device, load_textures=True,
+                                 graph=graph)
         if not bool(torch.isfinite(out.radiance).all()):
             raise RuntimeError("non-finite radiance")
         mray_s, frame_ms = stats["mray_s"], stats["frame_ms"]
@@ -658,7 +670,7 @@ def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
     def full_pipeline():
         note("bench: full pipeline...")
         full_ms, passes, counters, stats = bench_full_pipeline(
-            device=device)
+            device=device, graph=graph)
         rec["full_pipeline_ms"] = round(full_ms, 2)
         rec["passes_ms"] = passes
         rec["counters"] = counters
@@ -669,14 +681,15 @@ def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
 
     def upscaled():
         note("bench: upscaled (reference-default DLSS-SR Auto)...")
-        up_ms, stats = bench_upscaled(device=device)
+        up_ms, stats = bench_upscaled(device=device, graph=graph)
         rec["full_pipeline_upscaled_ms"] = round(up_ms, 2)
         note(f"bench: upscaled pipeline {up_ms:.1f} ms")
         return stats
 
     def mesh(bounces, iters, prefix):
         note(f"bench: instanced-mesh trace @{bounces} bounces...")
-        stats, out = bench_mesh(bounces=bounces, iters=iters, device=device)
+        stats, out = bench_mesh(bounces=bounces, iters=iters, device=device,
+                                graph=graph)
         if not bool(torch.isfinite(out.radiance).all()):
             raise RuntimeError("non-finite radiance")
         rec[f"{prefix}_mray_s"] = round(stats["mray_s"], 2)
@@ -687,7 +700,7 @@ def record(device, fast: bool = False, fidelity_path: str = FIDELITY_PATH,
 
     def mesh_pipeline():
         note("bench: mesh full pipeline (reference-default upscale)...")
-        ms, stats = bench_mesh_pipeline(device=device)
+        ms, stats = bench_mesh_pipeline(device=device, graph=graph)
         rec["mesh_pipeline_upscaled_ms"] = round(ms, 2)
         note(f"bench: mesh pipeline {ms:.1f} ms")
         return stats
@@ -756,9 +769,12 @@ def main(argv=None):
                         choices=trimesh.MESH_CAND_MODES,
                         help="the mesh closest-hit form (ops.trimesh."
                              "MESH_CAND)")
-    parser.add_argument("--graph", action="store_true",
-                        help="each frame as CUDA graph replays (any "
-                             "recipe but --record)")
+    parser.add_argument("--eager", action="store_true",
+                        help="every frame eagerly (default: CUDA graph "
+                             "replays, any recipe and the record)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu runs the "
+                             "kernels' plain versions)")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
     trace = not (sphere_frame or args.record or args.mesh or args.mesh_frame
@@ -771,15 +787,14 @@ def main(argv=None):
         parser.error("--accel clustered applies to the path trace alone")
     if args.fast and not args.record:
         parser.error("--fast applies to --record")
-    if args.graph and args.record:
-        parser.error("--graph does not apply to --record")
+    graph = not args.eager
     if args.record and (sphere_frame or args.mesh or args.mesh_frame
                         or args.upscaled or args.mesh_pipeline
                         or args.textured_frame
                         or args.mesh_cand != trimesh.MESH_CAND):
         parser.error("--record runs the reference's recipes: no frame "
                      "flag or --mesh-cand with it")
-    dev = backend.device("cuda")
+    dev = backend.device(args.device)
     if args.record:
         # A bench that hangs the card exits with code 3 after 45 minutes
         # (the reference's watchdog), set here and not at import.
@@ -787,7 +802,7 @@ def main(argv=None):
         signal.alarm(45 * 60)
         try:
             rec, errors = record(dev, fast=args.fast,
-                                 fidelity_path=FIDELITY_PATH)
+                                 fidelity_path=FIDELITY_PATH, graph=graph)
         finally:
             signal.alarm(0)
             signal.signal(signal.SIGALRM, previous)
@@ -799,7 +814,7 @@ def main(argv=None):
     if args.mesh:
         backend.reset_launches()
         stats, out = bench_mesh(iters=args.iters, device=dev,
-                                graph=args.graph)
+                                graph=graph)
         if not bool(torch.isfinite(out.radiance).all()):
             raise RuntimeError("non-finite radiance")
         print(json.dumps({
@@ -844,7 +859,7 @@ def main(argv=None):
         stats, image = bench_frame(iters=args.iters, device=dev,
                                    mesh=args.mesh_frame or args.mesh_pipeline,
                                    cfg=cfg, textured=args.textured_frame,
-                                   graph=args.graph)
+                                   graph=graph)
         if not bool(torch.isfinite(image).all()):
             raise RuntimeError("non-finite image")
         print(json.dumps({
@@ -855,34 +870,30 @@ def main(argv=None):
         }), flush=True)
         return
     backend.reset_launches()
-    kw = {"graph": True} if args.graph else {}
+    kw = {"graph": graph}
     if args.accel != "morton":
         kw["accel"] = args.accel
     stats, out = bench_trace(iters=args.iters, device=dev, **kw)
     if not np.isfinite(out.radiance.cpu().numpy()).all():
         raise RuntimeError("non-finite radiance")
-    graph = {}
-    if args.graph:
-        # The graph frame's line adds its timings and the callable's stats
-        # to the headline keys, which stay as they are without the flag.
-        graph = {k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
-                                       "peak_memory_bytes", "graph",
-                                       "spill_waves")}
-        graph["launches"] = dict(backend.LAUNCHES)
-    else:
-        _note("bench: " + json.dumps({
-            k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
-                                  "peak_memory_bytes", "spill_waves")
-            if k in stats}))
+    # The line keeps the reference's headline keys in either form; the
+    # frame timings (and a graph frame's stats and launches) go to stderr.
+    extra = {}
+    noted = {k: stats[k] for k in ("frame_ms_each", "frame_ms_median",
+                                   "peak_memory_bytes", "spill_waves",
+                                   "graph") if k in stats}
+    if graph:
+        noted["launches"] = dict(backend.LAUNCHES)
+    _note("bench: " + json.dumps(noted))
     if args.accel != "morton":
-        graph["accel"] = args.accel
+        extra["accel"] = args.accel
     print(json.dumps({
         "metric": "path_trace_1080p_1spp_8bounce",
         "value": stats["mray_s"],
         "unit": "Mray/s/chip",
         "frame_ms": stats["frame_ms"],
         "rays_per_frame": int(stats["rays_per_frame"]),
-        **graph,
+        **extra,
         "device": device_name(dev),
     }), flush=True)
 

@@ -34,10 +34,19 @@ opt-in and precision. A callable records them at its first frame and
 raises ValueError when a later call finds one changed (``Choices``). A
 mesh frame builds its instance tables on every call, inside the capture.
 
+The sharded frame (``render_frame(group=)`` on an NCCL group) is
+captured the same way, its collectives recorded in the pieces beside the
+kernels: every rank captures the same collectives in the same order, and
+no spill wave (piece S) issues one, so that each rank replays S on its own
+decision, as on one device. A gloo group on the card is refused
+(``pipeline.graph_refusal``).
+
 On CPU tensors ``run_pieces`` runs the same function eagerly with the
 same read between the same pieces, so that the CPU tests walk the code the
-capture records. ``PIECE_MODE`` is the tests' seam: a factory of a context
-(a ``TorchDispatchMode``) entered around each piece, not around the read.
+capture records. ``PIECE_MODE`` and ``SPILL_MODE`` are the tests' seams:
+factories of a context (a ``TorchDispatchMode``, e.g. an ``OpLog``)
+entered around each piece, and around each spill wave, not around the
+read.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import dataclasses
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from . import backend
 from .ops import intersect_kernels as ik, pathtrace, trimesh
@@ -55,6 +65,31 @@ from .parallel import mesh as mesh_mod
 from .utils.checkpoint import leaves
 
 PIECE_MODE = None
+SPILL_MODE = None
+
+# The ops a capture cannot hold: host reads (``.item()``, ``int(t)``,
+# ``bool(t)``), outputs sized by the data, host-made tensors
+# (``torch.tensor``, ``torch.as_tensor`` of host data).
+HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
+            "aten.unique", "aten._unique", "aten.lift_fresh")
+# The collectives (``torch.distributed``'s ops).
+COLLECTIVE_OPS = ("c10d.",)
+
+
+class OpLog(TorchDispatchMode):
+    """A dispatch mode that appends to `log` the name of every op that
+    reaches it whose name starts with one of `prefixes` (``functools.
+    partial(OpLog, log, HOST_OPS)`` is a ``PIECE_MODE``)."""
+
+    def __init__(self, log: list, prefixes: tuple):
+        super().__init__()
+        self.log, self.prefixes = log, prefixes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if name.startswith(self.prefixes):
+            self.log.append(name)
+        return func(*args, **(kwargs or {}))
 
 
 def on_card(device: torch.device) -> bool:
@@ -107,22 +142,27 @@ class Choices:
                                  f"callable")
 
 
+def _mode(factory):
+    return factory() if factory else contextlib.nullcontext()
+
+
 def run_pieces(fn):
     """fn() on CPU tensors, piece by piece as a capture splits it, with the
     spill read between the pieces. Returns (fn's result, spill waves)."""
     waves = 0
-    mode = [PIECE_MODE() if PIECE_MODE else contextlib.nullcontext()]
+    mode = [_mode(PIECE_MODE)]
     mode[0].__enter__()
 
     def decide(overflow, wave1):
         nonlocal waves
         mode[0].__exit__(None, None, None)
         run = overflow.item() > 0
-        mode[0] = PIECE_MODE() if PIECE_MODE else contextlib.nullcontext()
-        mode[0].__enter__()
         if run:
-            wave1()
+            with _mode(PIECE_MODE), _mode(SPILL_MODE):
+                wave1()
             waves += 1
+        mode[0] = _mode(PIECE_MODE)
+        mode[0].__enter__()
         return int(run)
 
     try:
@@ -332,9 +372,13 @@ class TraceGraph:
     headline bench's (``bench.trace_frame``: the accel of `accel`, the
     Morton chunks ordered from the camera or the clustered tables, the
     G-buffer, the trace); without, ``trace_image`` alone (on an all-mesh
-    scene, ``bench_mesh``'s frame). The globals the frame reads are held
-    as ``Choices`` says. The frame index reaches the hash RNG as a device
-    input, so every replay draws its own frame's noise.
+    scene, ``bench_mesh``'s frame); with `rows` = (start, end), that band
+    of the frame (``trace_image``'s `rows`: ``graft_entry.banded_trace``'s
+    frame, whose rows the caller gathers outside the graphs, as the
+    reference's sharded trace gathers by its out-sharding). The globals
+    the frame reads are held as ``Choices`` says. The frame index reaches
+    the hash RNG as a device input, so every replay draws its own frame's
+    noise.
 
     On CUDA tensors the first call warms up and captures the frame
     (graphs.py), and every call writes its inputs (the scene and camera
@@ -343,11 +387,14 @@ class TraceGraph:
     the next call. On CPU tensors it runs the same pieces eagerly
     (``run_pieces``). ``stats`` counts as FrameGraph's does."""
 
-    def __init__(self, cfg, plan=None, accel: str = "morton"):
+    def __init__(self, cfg, plan=None, accel: str = "morton", rows=None):
         if accel not in ("morton", "clustered"):
             raise ValueError(f"accel must be 'morton' or 'clustered', got "
                              f"{accel!r}")
-        self.cfg, self.plan, self.accel = cfg, plan, accel
+        if rows is not None and plan is not None:
+            raise ValueError("a band of rows takes the trace without a "
+                             "cluster plan")
+        self.cfg, self.plan, self.accel, self.rows = cfg, plan, accel, rows
         self.stats = GraphStats()
         self._inputs = None
         self._frame = None
@@ -355,7 +402,8 @@ class TraceGraph:
 
     def _run(self, scene, cam, frame_index):
         if self.plan is None:
-            return pathtrace.trace_image(scene, cam, self.cfg, frame_index)
+            return pathtrace.trace_image(scene, cam, self.cfg, frame_index,
+                                         rows=self.rows)
         from .models import clusters
         from .ops import gbuffer
         c = self.cfg

@@ -45,6 +45,10 @@ its band of the image's output rows. The exchanges outside the stages
 are the stages "gather_sharc_mirror", "reduce_trace_counters" and
 "store_shards". Without a group the frame makes exactly the launches it
 makes on one device.
+
+``render_frame_graph()`` runs the frame as CUDA graph replays
+(``FrameGraph``, drts_tpu_torch/graphs.py), the sharded frame too on an
+NCCL group: its collectives are captured in the pieces with the kernels.
 """
 
 from __future__ import annotations
@@ -577,15 +581,17 @@ class RenderPipeline:
 
     def _reduce_trace(self, out, group):
         """The sharded trace's counters, rays and spill waves summed over
-        the ranks (its pixels stay the band's)."""
+        the ranks (its pixels stay the band's). The waves are summed as the
+        device count ``spill_count``, which a caller that reports them
+        reads: no host read inside the frame; ``spill_waves`` stays this
+        rank's own."""
         sums = mesh_mod.all_reduce_counters(
             {**out.counters, "rays_traced": out.rays_traced,
-             "spill_waves": torch.tensor(float(out.spill_waves),
-                                         device=self.device)}, group)
-        spill_waves = int(sums.pop("spill_waves").item())
+             "spill_waves": out.spill_count}, group)
+        spill_count = sums.pop("spill_waves")
         rays_traced = sums.pop("rays_traced")
         return dataclasses.replace(out, rays_traced=rays_traced,
-                                   counters=sums, spill_waves=spill_waves)
+                                   counters=sums, spill_count=spill_count)
 
     def _stage_denoise(self, state, out, gbuf, cam, di_diffuse, di_specular,
                        reset, band=None):
@@ -928,10 +934,20 @@ class RenderPipeline:
         return FrameGraph(self)
 
 
-def graph_refusal(group) -> str | None:
-    """Why a frame has no graph form yet, or None: the graphs hold every
-    one-device frame; the sharded frame (a `group`) stays eager for now."""
-    return "a group (the sharded frame)" if group is not None else None
+def graph_refusal(group, device) -> str | None:
+    """Why a frame on `device` has no graph form, or None. The graphs hold
+    every one-device frame and the sharded frame on an NCCL group, whose
+    collectives the capture records; on CPU tensors any group runs the
+    pieces eagerly (``graphs.run_pieces``). A gloo group on CUDA tensors
+    is refused: gloo moves them through the host, which a capture cannot
+    hold."""
+    if group is None or torch.device(device).type != "cuda":
+        return None
+    backend_name = dist.get_backend(group)
+    if backend_name == "nccl":
+        return None
+    return (f"a {backend_name} group on CUDA tensors (its collectives go "
+            f"through the host; the graph frame takes NCCL)")
 
 
 class FrameGraph:
@@ -958,13 +974,23 @@ class FrameGraph:
     returned state until the call after it (each phase owns its buffers):
     clone what you keep longer.
 
+    With a `group` the frame is the sharded one (``render_frame(group=)``):
+    the capture records its NCCL collectives (halos, gathers, the SHARC
+    splat's reduce-scatter, the counters' all-reduce) in every piece but
+    the spill waves, which issue none, so each rank keeps its own spill
+    decision, as on one device. A call takes the rank's shards or the
+    one-device state (cut to the shards first), and returns the rank's
+    shards and its band of the image's output rows. The callable keeps
+    the group of its first call.
+
     On CPU tensors a call runs the eager frame with the same inputs as
     the pieces the capture would make (``graphs.run_pieces``). Raises
-    ValueError for a frame outside the graphs' slice (``graph_refusal``: a
-    `group`) or a global changed since the capture (``graphs.Choices``),
-    and graphs.CaptureError when a capture fails; there is no eager
-    fallback on the card. ``stats`` (graphs.GraphStats) counts
-    frames, spill waves, host launches and the kernels' launches."""
+    ValueError for a frame without a graph form (``graph_refusal``: a
+    gloo group on the card), a call with another group than the first's,
+    or a global changed since the capture (``graphs.Choices``), and
+    graphs.CaptureError when a capture fails; there is no eager fallback
+    on the card. ``stats`` (graphs.GraphStats) counts frames, spill
+    waves, host launches and the kernels' launches."""
 
     def __init__(self, pipe: RenderPipeline):
         self.pipe = pipe
@@ -977,11 +1003,17 @@ class FrameGraph:
         self._states = []       # each phase's input state
         self._frames = []       # each phase's graphs.Captured
         self._choices = graphs.Choices()
+        self._group = _NO_CALL  # the group of the first call
 
     def _check(self, state, group):
-        why = graph_refusal(group)
+        why = graph_refusal(group, state.frame_index.device)
         if why is not None:
-            raise ValueError(f"no graph form of this frame yet: {why}")
+            raise ValueError(f"no graph form of this frame: {why}")
+        if self._group is _NO_CALL:
+            self._group = group
+        elif group is not self._group:
+            raise ValueError("the frame was made for another group (or "
+                             "none); make a new callable")
         self._choices.check(state.scene)
 
     @staticmethod
@@ -1001,13 +1033,18 @@ class FrameGraph:
     def _run(self, state, inp):
         return self.pipe.render_frame(
             state, inp["pose"], inp["dt"], prev_pose=inp["prev_pose"],
-            reset=inp["reset"], dyn=inp["dyn"], offsets=inp["offsets"])
+            reset=inp["reset"], dyn=inp["dyn"], offsets=inp["offsets"],
+            group=self._group)
 
     def __call__(self, state: FrameState, pose: CameraPose,
                  dt=1.0 / 60.0, prev_pose: CameraPose | None = None,
                  reset=False, dyn: DynamicSettings | None = None,
                  group=None):
         self._check(state, group)
+        if group is not None:
+            # The shards as they rest between frames (the captured
+            # buffers' shapes).
+            state = self.pipe._shards(state, group).at_rest(state)
         dev = state.frame_index.device
         # A missing prev_pose is the pose; a missing dyn the defaults.
         inp = {"pose": pose,
@@ -1070,6 +1107,9 @@ class FrameGraph:
             self._frames.append(captured)
             ins = captured.outputs[0]
 
+
+# FrameGraph's group before its first call.
+_NO_CALL = object()
 
 # The FrameState fields of render-height rows (``RenderPipeline.placement``).
 _RENDER_BUFFERS = ("denoiser", "reservoirs", "prev_depth", "prev_normal",

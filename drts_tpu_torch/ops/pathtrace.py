@@ -99,6 +99,10 @@ class TraceOutput:
     # Overflow spill waves run (the host's decision in _spill); a frame
     # captured as a CUDA graph counts its waves at replay instead.
     spill_waves: int = 0
+    # The same count as a 0-d float32 device tensor (each wave's overflow
+    # above 0, taken before its decision), which a captured frame holds
+    # right at every replay: the sharded frame sums it over the ranks.
+    spill_count: torch.Tensor | None = None
 
 
 def _shade_and_scatter(surf, ray_d, rng, mat=None,
@@ -469,14 +473,16 @@ def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
     overflowed, a second wave over the dropped lanes (``_spill``); only
     paths beyond 2x capacity then drop. The second wave adds into the
     first's radiance, rays and counters and replaces its overflow count,
-    in place. The result's "spill_waves" says whether it ran."""
+    in place. The result's "spill_waves" says whether it ran, its
+    "spill_count" the same on the device."""
     args = (scene, table, cfg, origin, l_dir, throughput, rng, active,
             start_bounce, accel, cap)
     kw = {"sharc_args": sharc_args, "rough": rough, "pixel_ids": pixel_ids,
           "img_hw": img_hw}
     seg = _trace_deep_compact(*args, **kw)
-    waves = 0
+    waves, count = 0, torch.zeros_like(seg["overflow"], dtype=torch.float32)
     if cfg.overflow_spill:
+        count = (seg["overflow"] > 0).to(torch.float32)
         def wave1():
             s2 = _trace_deep_compact(*args, wave=1, **kw)
             seg["radiance"].add_(s2["radiance"])
@@ -485,7 +491,7 @@ def _deep_with_spill(scene, table, cfg, origin, l_dir, throughput, rng,
             for k, v in seg["counters"].items():
                 v.add_(s2["counters"][k])
         waves = _spill(seg["overflow"], wave1)
-    return dict(seg, spill_waves=waves)
+    return dict(seg, spill_waves=waves, spill_count=count)
 
 
 def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
@@ -552,6 +558,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
     counters = {"wavefront_overflow_paths":
                 torch.zeros((), dtype=torch.float32, device=dev)}
     spill_waves = 0
+    spill_count = torch.zeros((), dtype=torch.float32, device=dev)
 
     use_compact = 1 <= cfg.compact_from <= cfg.bounces
     dense_last = cfg.compact_from - 1 if use_compact else cfg.bounces
@@ -656,7 +663,7 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 """Add a segment's outputs; `through` is the segment in
                 whose slot space this one ran."""
                 nonlocal sample_radiance, rays_traced, hit_distance
-                nonlocal spill_waves
+                nonlocal spill_waves, spill_count
                 rad = seg["radiance"]
                 if through is not None:
                     rad = _slots_to_space(rad, 0.0,
@@ -670,6 +677,8 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
                 if "hit_distance" in seg:
                     hit_distance = seg["hit_distance"]
                 spill_waves += seg.get("spill_waves", 0)
+                if "spill_count" in seg:
+                    spill_count = spill_count + seg["spill_count"]
 
             if cfg.compact_from == 1:
                 # The bounce-1 AOVs: the first scatter's lobe is bounce-0
@@ -718,18 +727,21 @@ def trace_image(scene: scene_mod.SphereScene, cam: camera_mod.Camera,
         primary_valid=primary_hit, primary_position=primary_surf.position,
         primary_normal=p_mat.shading_normal, primary_albedo=p_albedo,
         primary_f_env=p_f_env, primary_radiance=primary_radiance,
-        rays_traced=rays_traced, counters=counters, spill_waves=spill_waves)
+        rays_traced=rays_traced, counters=counters, spill_waves=spill_waves,
+        spill_count=spill_count)
 
 
 def trace_image_graph(cfg: PathTraceConfig, plan=None,
-                      accel: str = "morton"):
+                      accel: str = "morton", rows=None):
     """The counterpart of the reference's ``trace_image_jit``: a callable
     ``(scene, cam, frame_index) -> TraceOutput`` that runs the frame as
     CUDA graph replays, split at the spill decision (``graphs.TraceGraph``;
     with a cluster `plan`, the headline bench's frame on the `accel` it is
-    a plan of, "morton" or "clustered": accel, G-buffer, trace)."""
+    a plan of, "morton" or "clustered": accel, G-buffer, trace; with
+    `rows` = (start, end), that band of the frame, as ``trace_image``'s
+    `rows`)."""
     from .. import graphs
-    return graphs.TraceGraph(cfg, plan, accel)
+    return graphs.TraceGraph(cfg, plan, accel, rows)
 
 
 def sharc_update_trace(scene: scene_mod.SphereScene, cam: camera_mod.Camera,

@@ -933,11 +933,13 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
     a (spatial_samples, 2) int64 tensor of (dx, dy) on the device (the
     graph frame's input, which every replay rewrites), or else
     shared_offsets of `frame_count` (default int(frame_index)), computed
-    on the host. Returns a list of dicts. With a ``band`` (the sharded
-    frame's) the buffers hold the band's rows and the neighbours' rows
-    come as a halo: clamped at the frame's edges for disc offsets
-    (``spatial_reach`` rows), wrapped for the shared shifts (their
-    largest row offsets, host ints)."""
+    on the host and copied to the device. Returns a list of dicts. With a
+    ``band`` (the sharded frame's) the buffers hold the band's rows and
+    the neighbours' rows come as a halo of ``spatial_reach`` rows each
+    side: clamped at the frame's edges for disc offsets, wrapped for the
+    shared shifts (every shared |dy| is within the reach, so the halo's
+    size does not depend on the frame; the rows are gathered at the
+    device offsets, as on one device)."""
     h, w = surface.depth.shape
     dev = surface.depth.device
     row0 = band.start if band is not None else 0
@@ -949,23 +951,17 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
         _pack_surface_rows(surface) if with_surface else None)
     shared = cfg.spatial_offset_mode == "shared"
     if shared and offsets is None:
-        offsets = shared_offsets(int(frame_index) if frame_count is None
-                                 else frame_count, cfg)
-        if band is None:
-            offsets = torch.tensor(offsets, dtype=torch.int64).to(dev)
-    elif shared and band is not None:
-        raise ValueError("device offsets take the one-device frame")
+        offsets = torch.tensor(shared_offsets(
+            int(frame_index) if frame_count is None else frame_count, cfg),
+            dtype=torch.int64).to(dev)
     full_h, lo = h, 0
-    if band is not None and shared:
-        dys = [dy for _, dy in offsets]
-        lo, hi = max(0, -min(dys)), max(0, max(dys))
-        packed = band.halo([packed], lo, hi, cyclic=True)[0]
-    elif band is not None:
-        reach = spatial_reach(cfg)
-        packed = band.halo([packed], reach, reach)[0]
-        full_h = band.height
-        row0 = band.ext_span(reach, reach)[0]
-    elif shared:
+    if band is not None:
+        lo = spatial_reach(cfg)
+        packed = band.halo([packed], lo, lo, cyclic=shared)[0]
+        if not shared:
+            full_h = band.height
+            row0 = band.ext_span(lo, lo)[0]
+    if shared:
         ys, xs = torch.arange(h, device=dev), torch.arange(w, device=dev)
     flat = packed.reshape(-1, packed.shape[-1])
     out = []
@@ -975,12 +971,8 @@ def _spatial_neighbors(cur: Reservoirs, surface: Surface, cfg: ReSTIRConfig,
             # Wrapped border lanes land on the far edge and fail the
             # similarity tests like any dissimilar neighbour.
             dx, dy = offsets[s_i]
-            if band is None:
-                rows = packed.index_select(0, (ys + dy) % h).index_select(
-                    1, (xs + dx) % w)
-            else:
-                rows = torch.roll(packed[lo + dy:lo + dy + h], shifts=-dx,
-                                  dims=1)
+            ry = (ys + dy) % h if band is None else ys + (lo + dy)
+            rows = packed.index_select(0, ry).index_select(1, (xs + dx) % w)
         else:
             radius = u3[..., 0] * cfg.spatial_radius + 1.0
             angle = u3[..., 1] * 2.0 * math.pi

@@ -16,8 +16,12 @@ counters over the ranks.
 Every collective runs on the tensors' own device: NCCL on the card (one
 card per rank), gloo on the CPU, and gloo on CUDA tensors too, where
 several ranks share one card (``chip_smoke.py`` phase 22 (b)). Halos are
-one ``all_gather`` of each rank's edge rows on every backend (gloo has no
-point-to-point on CUDA tensors). The reduce-scatter is
+one all-gather of each rank's edge rows on every backend (gloo has no
+point-to-point on CUDA tensors): ``all_gather_into_tensor`` on NCCL, which
+a CUDA graph capture records (the sharded graph frame, graphs.py), the
+list ``all_gather`` on gloo. No collective's size depends on a frame's
+data, and every index tensor a halo takes is made by the frame before a
+capture (``_halo_source``). The reduce-scatter is
 ``reduce_scatter_tensor`` ("native") on both backends, CPU and CUDA
 tensors alike; its other form, an ``all_reduce`` followed by this rank's
 slice ("all_reduce"), is there for a backend without reduce-scatter.
@@ -238,8 +242,7 @@ class Band:
         full = [None] * len(tensors)
         for wire, (idx, parts) in _packed(tensors, self.rows).items():
             buf = _pad_rows(torch.cat(parts, dim=1), hmax)
-            got = [torch.empty_like(buf) for _ in range(self.n)]
-            dist.all_gather(got, buf, group=self.group)
+            got = _all_gather(buf, self.n, self.group)
             whole = torch.cat([g[:e - s] for g, (s, e) in
                                zip(got, self.bands)])
             _unpacked(whole, idx, parts, tensors, full, self.height)
@@ -272,9 +275,8 @@ class Band:
             edges = torch.cat([_pad_rows(local[:min(hi_c, rows)], hi_c),
                                _pad_rows(local[rows - min(lo_c, rows):],
                                          lo_c)])
-            got = [torch.empty_like(edges) for _ in range(self.n)]
-            dist.all_gather(got, edges, group=self.group)
-            pool = torch.cat([local] + got)
+            got = _all_gather(edges, self.n, self.group)
+            pool = torch.cat([local, got.flatten(0, 1)])
             _unpacked(pool[source], idx, parts, tensors, out,
                       source.shape[0])
         return out
@@ -324,12 +326,27 @@ class Band:
         return lo, hi
 
 
+def _all_gather(buf, n: int, group):
+    """Every rank's `buf` stacked in rank order, (n,) + buf.shape: one
+    ``all_gather_into_tensor`` on NCCL (one output buffer, which a CUDA
+    graph capture holds), the list ``all_gather`` into views of the same
+    buffer on any other backend."""
+    out = buf.new_empty((n,) + tuple(buf.shape))
+    if dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(out, buf, group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), buf, group=group)
+    return out
+
+
 @functools.lru_cache(maxsize=512)
 def _halo_source(bands, rank, height, lo, hi, cyclic, exchange, device):
     """The rows of ``Band.halo``'s pool (this band's rows, then each
     rank's first min(hi, hmax) and last min(lo, hmax) rows) that make up
     the extended band, as an int64 tensor on `device`, made once per
-    split, halo and device (no copy to the card each frame); None where
+    split, halo and device (no copy to the card each frame, and none
+    inside a graph capture, whose warm-up frame makes every halo its
+    frame takes: no halo's size depends on a frame's data); None where
     no rank exchanges and the extended band is the band itself. (Whether
     a rank exchanges must not depend on its own rows: every rank calls
     the collective.)"""

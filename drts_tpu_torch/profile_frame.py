@@ -17,7 +17,7 @@ accel, ``--accel clustered`` the path trace on the clustered accel.
     python -m drts_tpu_torch.profile_frame
         [--frame | --mesh | --mesh-frame | --default-frame | --upscaled
          | --mesh-pipeline | --textured-frame | --options-frame]
-        [--accel none | clustered] [--mesh-cand M] [--frames N] [--graph]
+        [--accel none | clustered] [--mesh-cand M] [--frames N] [--eager]
         [--out PATH]
 
 Prints one JSON object: the frame time of unprofiled frames, then, over
@@ -25,11 +25,11 @@ the same traced frames, the frame time, device busy time and idle share,
 launches per frame, each hand-written kernel's device time and calls per
 frame, and the top device kernels by total time. The trace records device
 activity only (no host op tracing); the two frame times show by how much
-it stretches the frame. With ``--graph`` the frames are CUDA graph
-replays
-(the warm frame captures them) and the object also holds the host
+it stretches the frame. The frames are CUDA graph replays (the warm frame
+captures them), as ``bench``'s, and the object also holds the host
 launches of the last frame (graph launches, input writes) and the
-callable's stats. Needs a CUDA device.
+callable's stats; ``--eager`` profiles eager frames instead. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -48,8 +48,12 @@ from . import backend, bench
 from .models import pipeline
 from .ops import pathtrace, trimesh
 
-# The hand-written kernels' function names in csrc/*.cu.
+# The hand-written kernels' function names in csrc/*.cu (B12a's and
+# B12b's builds of every MXU precision count under their kernel's name;
+# B12b's "highest" build is a kernel of its own).
 HAND_KERNELS = ("morton_closest_hit", "brute_closest_hit", "morton_occlusion",
+                "morton_mxu_closest_hit", "morton_mxu_occlusion",
+                "morton_mxu_occlusion_highest", "clustered_closest_hit",
                 "initial_candidates", "reproject", "bound_scan",
                 "shared_blas_sweep", "mesh_instances_closest",
                 "shared_blas_any", "mesh_instances_any", "cand_fused")
@@ -193,8 +197,8 @@ def main(argv=None):
                              "(morton, clustered)")
     parser.add_argument("--mesh-cand", type=int, default=trimesh.MESH_CAND,
                         choices=trimesh.MESH_CAND_MODES)
-    parser.add_argument("--graph", action="store_true",
-                        help="frames as CUDA graph replays")
+    parser.add_argument("--eager", action="store_true",
+                        help="eager frames (default: CUDA graph replays)")
     parser.add_argument("--out", default="")
     args = parser.parse_args(argv)
     sphere_frame = args.frame or args.default_frame or args.options_frame
@@ -213,7 +217,7 @@ def main(argv=None):
     if args.accel == "clustered" and recipe != "trace_frame":
         parser.error("--accel clustered applies to the path trace alone")
     result = profile_frames(args.frames, backend.device("cuda"), recipe,
-                            args.accel, args.graph)
+                            args.accel, not args.eager)
     text = json.dumps(result, indent=1)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

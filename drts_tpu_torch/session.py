@@ -17,15 +17,14 @@ The reference's settings window changes ~40 GraphicsSettings live
   the host's frame count, the rigid bodies, the scene and the gravity
   toggles.
 
-By default the port runs its frame eagerly, so the static branch rebuilds
-the pipeline and nothing is compiled again but for the CUDA kernels'
-first build. ``Session(..., graph=True)`` steps through
-``RenderPipeline.render_frame_graph`` instead, the counterpart of the
-reference's jitted step: ``dt``, ``reset``, the poses and the dynamic
-settings are device inputs of the captured frame, and a static or realloc
-change drops the callable, so the next step captures again (lazily, as
-the reference compiles again). ``Session`` is what the CLI drives
-(``app.py``: ``--mutate``, ``--watch-settings``, ``set`` and ``--graph``).
+A Session steps through ``RenderPipeline.render_frame_graph`` (CUDA
+graph replays on the card), the counterpart of the reference's jitted
+step: ``dt``, ``reset``, the poses and the dynamic settings are device
+inputs of the captured frame, and a static or realloc change drops the
+callable, so the next step captures again (lazily, as the reference
+compiles again). ``Session(..., graph=False)`` runs the frame eagerly
+instead. ``Session`` is what the CLI drives (``app.py``: ``--mutate``,
+``--watch-settings``, ``set`` and ``--eager``).
 """
 
 from __future__ import annotations
@@ -101,7 +100,7 @@ class Session:
                  output_height: int | None = None,
                  host=None, seed: int = 0,
                  config_overrides: dict | None = None, device="cuda",
-                 graph: bool = False):
+                 graph: bool = True):
         self.settings = settings.check()
         self.graph = graph
         self._frame = None      # the graph callable, made at the next step

@@ -456,7 +456,7 @@ def test_recipes_match_reference(ref, monkeypatch, capsys, fidelity_copy,
 
 def test_no_flag_line_keys(monkeypatch, capsys):
     """The line without a flag keeps its keys (slice 1's contract)."""
-    monkeypatch.setattr(bench, "bench_trace", lambda iters, device: (
+    monkeypatch.setattr(bench, "bench_trace", lambda iters, device, graph: (
         {"mray_s": 1.5, "frame_ms": 2.5, "rays_per_frame": 3.0},
         types.SimpleNamespace(radiance=torch.zeros(2, 2, 3))))
     on_cpu(monkeypatch)

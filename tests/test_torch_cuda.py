@@ -53,7 +53,12 @@ ids -1 and past the last set, NaN and infinite uv. The banded frame
 (drts_tpu_torch/parallel) at 64x64: one NCCL rank bit for bit against the
 unbanded frame on a SHARC skip frame, and two and three gloo ranks
 sharing the card (even and uneven bands) within chip_smoke.py's
-DEFAULT_* bounds of the one-device frames. graft_entry.entry()'s frame
+DEFAULT_* bounds of the one-device frames; the one-rank frame as graph
+replays (render_frame_graph()(..., group=)) against the eager banded
+frame (bit for bit on a skip frame, DEFAULT_* on the update frames, the
+launches the capture's), and the banded trace through
+trace_image_graph(cfg, rows=) and banded_trace(graph=True) bit for bit
+the eager ones. graft_entry.entry()'s frame
 step once: a finite (256, 256, 3) image. B12a and B12b (the tensor-core
 Morton kernels) at chunks of 8, 12 (padded to 16), 16, 32 and 64 slots
 (three shared-memory tiles at 64), ragged ray counts, partly filled
@@ -1479,6 +1484,100 @@ def test_one_nccl_rank_equals_the_unbanded_frame(dev):
         assert mesh.replica_checksums(s_g) == mesh.replica_checksums(s_n)
     finally:
         dist.destroy_process_group()
+
+
+def test_one_nccl_rank_graph_frame_equals_the_eager_banded_frame(dev):
+    """Three 64x64 default-graph frames banded over one NCCL rank through
+    render_frame_graph()(..., group=) against the eager banded frame from
+    the same state: bit for bit (the image and every FrameState leaf) on
+    the SHARC skip frame, within chip_smoke.py's DEFAULT_* bounds on the
+    update frames (the splat's float atomics); each eager frame's kernel
+    launches those its phase's capture holds plus its spill waves'."""
+    import torch.distributed as dist
+
+    from drts_tpu_torch import graft_entry, graphs
+    from drts_tpu_torch.ops import pathtrace
+    from drts_tpu_torch.parallel import mesh, multihost
+    if dist.is_initialized():
+        pytest.skip("a process group is already running")
+    pipe, state, pose = graft_entry._setup(_banded_config(), dev, 3)
+    assert multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                device="cuda")
+    try:
+        group = multihost.global_group()
+        call = pipe.render_frame_graph()
+        for i in range(3):
+            update = state.frame_count % pipe.cfg.sharc_update_period == 0
+            waves = []
+
+            def decide(overflow, wave1):
+                run = overflow.item() > 0
+                if run:
+                    wave1()
+                waves.append(int(run))
+                return int(run)
+            backend.reset_launches()
+            with pathtrace.spill_hook(decide):
+                s_e, img_e = pipe.render_frame(state, pose, group=group)
+            launches = {k: v for k, v in backend.LAUNCHES.items() if v}
+            s_g, img_g = call(state, pose, group=group)
+            cap = call.stats.captured_launches[state.frame_count
+                                               % call.cycle]
+            want = dict(cap["frame"])
+            for sp in cap["spill_waves"][:sum(waves)]:
+                for k, v in sp.items():
+                    want[k] = want.get(k, 0) + v
+            assert launches == want, (i, launches, want)
+            if update:
+                mean, off = image_off(img_e, img_g)
+                assert mean <= 2e-4 and off <= 2e-3, (i, mean, off)
+            else:
+                assert torch.equal(img_g, img_e), i
+                assert (mesh.replica_checksums(s_g)
+                        == mesh.replica_checksums(s_e)), i
+            state = graphs.clone_tree(s_g)
+        assert call.stats.frames == 3
+    finally:
+        dist.destroy_process_group()
+
+
+def test_banded_trace_graph_equals_the_eager_banded_trace(dev):
+    """The banded trace as CUDA graphs: graft_entry.banded_trace(graph=
+    True) over one NCCL rank (the dry run's 32x32 mesh recipe) equals
+    graph=False bit for bit, and trace_image_graph(cfg, rows=(8, 24))
+    equals trace_image(..., rows=(8, 24)) bit for bit on a band of 16 of
+    the 32 rows, frames 0 and 1."""
+    import torch.distributed as dist
+
+    from drts_tpu_torch import graft_entry
+    from drts_tpu_torch.models import myscene
+    from drts_tpu_torch.ops import camera, pathtrace
+    from drts_tpu_torch.parallel import multihost
+    if dist.is_initialized():
+        pytest.skip("a process group is already running")
+    host = myscene.as_mesh_scene(myscene.build(oscillator_grid=4,
+                                               device=dev), tessellation=2)
+    cfg = pathtrace.PathTraceConfig(width=32, height=32, bounces=2,
+                                    samples_per_pixel=1, block_size=4096,
+                                    compact_from=2)
+    assert multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0,
+                                device="cuda")
+    try:
+        group = multihost.global_group()
+        got = graft_entry.banded_trace(group, host, cfg, graph=True)
+        want = graft_entry.banded_trace(group, host, cfg)
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
+    cam = camera.make_camera(host.camera_position, host.camera_forward,
+                             aspect=1.0, device=dev)
+    call = pathtrace.trace_image_graph(cfg, rows=(8, 24))
+    for index in (0, 1):
+        out = call(host.scene, cam, index)
+        ref = pathtrace.trace_image(host.scene, cam, cfg, index,
+                                    rows=(8, 24))
+        assert out.radiance.shape == (16, 32, 3)
+        assert torch.equal(out.radiance, ref.radiance), index
 
 
 @pytest.mark.parametrize("ranks,height", [(2, 64), (3, 64)],

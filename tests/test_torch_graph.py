@@ -19,9 +19,11 @@ capture records on the card (drts_tpu_torch/graphs.py).
 - ``physics.step`` takes a 0-d float32 ``dt`` (the graph's device input):
   bit for bit the float call's, and within tests/test_torch_physics.py's
   tolerances of the reference's step jitted with a traced dt.
-- The refusals: a group raises, and a call after a module global that
-  the capture baked in changed (``clusters._USE_MXU`` on the frame,
-  ``intersect_kernels.MXU_PREC`` on the trace) raises. Every one-device
+- The refusals: a call with another group than the first call's raises
+  (the sharded graph frame: tests/test_torch_parallel.py), and a call
+  after a module global that the capture baked in changed
+  (``clusters._USE_MXU`` on the frame, ``intersect_kernels.MXU_PREC`` on
+  the trace) raises. Every one-device
   frame has a graph form (tests/test_torch_graph_mesh.py,
   tests/test_torch_graph_routes.py).
 - The state's buffers under replay: with the capture replaced by a fake
@@ -53,8 +55,7 @@ from drts_tpu_torch.ops import camera, intersect_kernels as ik, pathtrace
 from drts_tpu_torch.ops import physics, sharc
 from drts_tpu_torch.utils.checkpoint import leaves
 
-HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.masked_select",
-            "aten.unique", "aten._unique", "aten.lift_fresh")
+HOST_OPS = graphs.HOST_OPS
 
 
 class HostAudit(TorchDispatchMode):
@@ -241,13 +242,14 @@ def test_physics_takes_a_device_dt():
 
 
 def test_refusals(monkeypatch):
-    """A group raises; so does a call after a global the capture baked in
-    changed (the MXU opt-in on the frame, its precision on the trace)."""
+    """A group other than the first call's raises; so does a call after a
+    global the capture baked in changed (the MXU opt-in on the frame, its
+    precision on the trace)."""
     pipe, state, pose = setup(small_default())
     call = pipe.render_frame_graph()
+    call(state, pose)
     with pytest.raises(ValueError, match="group"):
         call(state, pose, group=object())
-    call(state, pose)
     monkeypatch.setattr(clusters, "_USE_MXU", not clusters._USE_MXU)
     with pytest.raises(ValueError, match="_USE_MXU"):
         call(state, pose)
@@ -337,3 +339,75 @@ def test_session_captures_again_after_a_static_change(fake_card):
         runs.append(images)
     for a, b in zip(*runs):
         assert torch.equal(bits(a), bits(b))
+
+
+def test_session_defaults_to_the_graph_frame():
+    """Session() steps through the graph callable (its pieces here) and
+    equals Session(graph=False) bit for bit (16x16 output, rendered at
+    8x8, three frames)."""
+    from drts_tpu_torch import config, session
+    s = config.GraphicsSettings(render_width=16, render_height=16)
+    s = dataclasses.replace(
+        s, sharc=dataclasses.replace(s.sharc, capacity_log2=12)).check()
+    runs = []
+    for kw in ({}, {"graph": False}):
+        sess = session.Session(
+            s, host=myscene.build(oscillator_grid=3, device="cpu"),
+            device="cpu", **kw)
+        assert sess.graph == (kw == {})
+        runs.append([sess.step().clone() for _ in range(3)])
+        assert (sess._frame is not None) == sess.graph
+    for a, b in zip(*runs):
+        assert torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.parametrize("recipe", ["", "--default-frame", "--mesh",
+                                    "--record"])
+@pytest.mark.parametrize("eager", [False, True])
+def test_bench_cli_runs_graph_frames_unless_eager(monkeypatch, capsys,
+                                                  recipe, eager):
+    """``python -m drts_tpu_torch.bench --device cpu`` hands every recipe,
+    the record included, graph=True, and graph=False with --eager (the
+    benches stubbed: a 1080p frame is the card's work)."""
+    import json
+
+    from drts_tpu_torch import bench
+    seen = {}
+    image = torch.zeros(2, 2, 3)
+    out = pathtrace.TraceOutput(*([image] * 9), rays_traced=torch.ones(()),
+                                counters={"wavefront_overflow_paths":
+                                          torch.zeros(())})
+    stats = {"frame_ms": 1.0, "mray_s": 1.0, "rays_per_frame": 1.0,
+             "overflow_paths": 0.0, "frames": 2, "spill_waves": 0,
+             "frame_ms_each": [1.0], "frame_ms_median": 1.0,
+             "peak_memory_bytes": 0, "graph": {}}
+
+    def stub(result):
+        def fn(**kw):
+            seen.update(kw)
+            st = dict(stats)
+            if not kw["graph"]:
+                del st["graph"]
+            return st, result
+        return fn
+    monkeypatch.setattr(bench, "bench_trace", stub(out))
+    monkeypatch.setattr(bench, "bench_mesh", stub(out))
+    monkeypatch.setattr(bench, "bench_frame", stub(image))
+
+    def record(device, fast=False, fidelity_path="", graph=False):
+        seen.update(device=device, graph=graph)
+        return {"metric": "path_trace_1080p_1spp_8bounce"}, []
+    monkeypatch.setattr(bench, "record", record)
+    argv = ["--device", "cpu", "--iters", "1"] + ([recipe] if recipe else [])
+    bench.main(argv + (["--eager"] if eager else []))
+    text = capsys.readouterr()
+    line = json.loads(text.out.strip().splitlines()[-1])
+    assert seen["graph"] is not eager
+    assert torch.device(seen["device"]).type == "cpu"
+    # The frame and mesh lines carry a graph frame's stats; the headline
+    # line keeps the reference's keys and notes them on stderr.
+    assert ("graph" in line) == (not eager and recipe in ("--mesh",
+                                                          "--default-frame"))
+    if not recipe:
+        assert ('"graph"' in text.err) == (not eager)
+        assert "frame_ms_each" not in line

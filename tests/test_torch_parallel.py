@@ -47,6 +47,15 @@ CPU mesh, on its XLA path.
   and at 32x32 a few pixels carry the mean: 6.6e-4 on frame 0 one device
   against one device, as banded. That test runs the reference in
   interpret mode at 64x64.)
+- The same ranks' frames through ``render_frame_graph()(..., group=)``
+  (the pieces a capture records, run eagerly on the CPU) from the
+  one-device start state: images and final shards bit for bit the eager
+  sharded frames', so also within the reference's bounds above; an
+  ``OpLog`` around every piece finds no host read and no host-made
+  tensor; at a deep-segment capacity of 2 slots the frame spills (piece
+  S runs) and equals the eager frame at that capacity, and no spill wave
+  issues a collective; a later call without the group raises, and
+  ``graph_refusal`` refuses the gloo group on the card.
 - 3 ranks of a frame of other options (``options_config``: upscaled,
   ReLAX, shared-offset pairwise ReSTIR with the real previous surface,
   Catmull-Rom TAA history, chromatic aberration, the NRD validation
@@ -90,6 +99,8 @@ pytestmark = pytest.mark.skipif(len(jax.devices()) < 2,
 
 W = H = 32
 FRAMES = 2
+# The deep-segment capacity of frames_worker's spilling frame.
+SPILL_CAPACITY = 2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -297,9 +308,12 @@ def frames(tmp_path_factory):
                          sharc_enabled=on) for on in (False, True)]
     tmp = tmp_path_factory.mktemp("ranks")
     multihost.spawn(graft_entry.frames_worker, 2, "cpu",
-                    args=(cfgs, FRAMES, str(tmp), 3, None, "cpu"))
+                    args=(cfgs, FRAMES, str(tmp), 3, None, "cpu",
+                          SPILL_CAPACITY))
     ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
+    out_spill = [torch.load(tmp / f"spill{r}.pt", weights_only=False)
+                 for r in range(2)]
     out = {on: ([runs[i] for runs in ranks], _one_device(cfg))
            for i, (on, cfg) in enumerate(zip((False, True), cfgs))}
 
@@ -324,6 +338,7 @@ def frames(tmp_path_factory):
         assert len(img.sharding.device_set) == 2
         ref.append(np.asarray(img))
     out["reference"] = ref
+    out["spill"] = out_spill
     return out
 
 
@@ -436,6 +451,81 @@ def test_sharded_leaves_follow_the_placement(frames, sharc_on):
     assert placed["taa.history"] == mesh.ROWS
     assert placed["sharc.packed"] == mesh.SLOTS
     assert placed["scene.center"] == mesh.REPLICATED
+
+
+@pytest.mark.parametrize("sharc_on", [False, True])
+def test_two_ranks_graph_frames_equal_the_eager_frames(frames, sharc_on):
+    """The graph callable's frames (its pieces, from the one-device start
+    state, which it cuts to the shards) equal the eager sharded frames bit
+    for bit: every image band and every final shard."""
+    ranks, _ = frames[sharc_on]
+    for r, run in enumerate(ranks):
+        got = run["graph"]
+        assert len(got["images"]) == FRAMES
+        for i, (a, b) in enumerate(zip(got["images"], run["images"])):
+            assert torch.equal(a, b), (r, i)
+        want = dict(checkpoint.leaves(run["state"]))
+        for path, leaf in checkpoint.leaves(got["state"]):
+            if isinstance(leaf, torch.Tensor):
+                assert torch.equal(leaf, want[path]), (r, path)
+            else:
+                assert leaf == want[path], (r, path)
+
+
+@pytest.mark.parametrize("i", range(FRAMES))
+def test_two_ranks_graph_frame_matches_the_reference_sharded_frame(frames,
+                                                                   i):
+    """The gathered graph frame within
+    test_two_ranks_match_the_reference_sharded_frame's bounds."""
+    ranks, _ = frames[True]
+    jimg = frames["reference"][i]
+    timg = torch.cat([run["graph"]["images"][i] for run in ranks]).numpy()
+    assert timg.shape == (H, W, 3) and np.isfinite(timg).all()
+    d = np.abs(timg - jimg)
+    off = d.max(-1)
+    if i == 0:
+        assert d.mean() <= 2e-4, d.mean()
+        assert (off > 1e-3).mean() <= 0.02
+    else:
+        assert d.mean() <= 4e-3, d.mean()
+        assert (off > 0.02).mean() <= 0.12
+        assert (off > 0.05).mean() <= 0.03
+
+
+@pytest.mark.parametrize("sharc_on", [False, True])
+def test_sharded_graph_pieces_make_no_host_traffic(frames, sharc_on):
+    """No piece of the sharded graph frame reads the card back or makes a
+    tensor of host data (graphs.HOST_OPS), on either rank."""
+    ranks, _ = frames[sharc_on]
+    for r, run in enumerate(ranks):
+        assert run["graph"]["host_ops"] == [], r
+
+
+def test_no_spill_wave_issues_a_collective(frames):
+    """At 2 slots the deep segment overflows: the graph frame runs its
+    spill wave (piece S) where the eager frame does, on each rank by its
+    own decision, equals the eager frame at that capacity bit for bit, and
+    no spill wave issues a collective (a rank that spills alone would
+    otherwise post collectives the other never matches)."""
+    waves = []
+    for r, run in enumerate(frames["spill"]):
+        got = run["graph"]
+        assert got["spill_waves"] == sum(run["eager_waves"]), r
+        assert got["spill_collectives"] == [], r
+        assert got["host_ops"] == [], r
+        assert torch.equal(got["images"][0], run["eager_image"]), r
+        waves.append(got["spill_waves"])
+    assert sum(waves) >= 1
+
+
+def test_graph_frame_keeps_its_group_and_refuses_gloo_on_the_card(frames):
+    """A call without the group of the callable's first call raises; the
+    gloo group has no graph form on CUDA tensors (graph_refusal)."""
+    for sharc_on in (False, True):
+        for run in frames[sharc_on][0]:
+            assert "another group" in run["graph"]["other_group"]
+            assert "gloo" in run["graph"]["refusal"]
+    assert tpipeline.graph_refusal(None, torch.device("cuda")) is None
 
 
 def options_config():
